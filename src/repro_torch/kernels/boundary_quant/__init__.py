@@ -1,0 +1,1 @@
+"""The boundary_quant kernel: CUDA source under csrc/, wrapper and plain version in ops.py."""

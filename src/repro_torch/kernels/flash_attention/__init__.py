@@ -1,0 +1,1 @@
+"""The flash_attention kernel: CUDA source under csrc/, wrapper and plain version in ops.py."""

@@ -1,0 +1,1 @@
+"""The rmsnorm kernel: CUDA source under csrc/, wrapper and plain version in ops.py."""
