@@ -1,4 +1,5 @@
-"""Architecture registry for the configs the port runs (the dense family).
+"""Architecture registry for the configs the port runs (the dense family and
+the Mamba2 hybrid).
 
 The reference's registry also carries input specs and mesh sharding rules
 for its dry-run; the port has no counterpart of those yet.
@@ -13,6 +14,7 @@ from repro_torch.models.common import ModelConfig
 ARCH_MODULES = {
     "stablelm-3b": "stablelm_3b",
     "qwen3-14b": "qwen3_14b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCH_IDS = list(ARCH_MODULES)

@@ -31,13 +31,15 @@ SOURCES = {
     "boundary_quant": KERNELS_DIR / "boundary_quant" / "csrc" / "boundary_quant.cu",
     "rmsnorm": KERNELS_DIR / "rmsnorm" / "csrc" / "rmsnorm.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "decode_attention": KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu",
+    "ssd_scan": KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu",
 }
 # no --use_fast_math: quantize must match its plain version bit for bit,
 # which needs IEEE division (-prec-div=true) and rintf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-prec-div=true", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
-# dtype codes shared with csrc/rmsnorm.cu and csrc/boundary_quant.cu
+# dtype codes shared with every csrc/*.cu that takes both dtypes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,9 @@
-"""Shared model machinery, dense subset: the config, parameter templates and
-the basic ops (RMSNorm, RoPE, SwiGLU MLP, chunked attention) in PyTorch.
+"""Shared model machinery: the config, parameter templates and the basic ops
+(RMSNorm, RoPE, SwiGLU MLP, chunked attention, decode attention) in PyTorch.
 
 The functions here are the plain versions, op for op the math of the
-reference's `repro.models.common`.  `Ops` names the two ops the stage path
-may run as kernels: `PLAIN` keeps these functions, `KERNELS` routes to the
+reference's `repro.models.common`.  `Ops` names the ops the model paths may
+run as kernels: `PLAIN` keeps the plain functions, `KERNELS` routes to the
 Hopper kernels for CUDA tensors (and their plain versions for CPU tensors).
 Sharding rules have no counterpart: the port runs each stage on one device.
 """
@@ -18,8 +18,10 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rn_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 # ----------------------------------------------------------------------------
 # Config
@@ -161,25 +163,30 @@ class ParamDef:
 
 class ParamTree(torch.nn.Module):
     """A nested parameter container indexed like the reference's pytrees:
-    `p["attn"]["wq"]`, `params["layers"][i]`.  Dicts become submodules,
-    lists `ModuleList`s, tensors frozen `Parameter`s."""
+    `p["attn"]["wq"]`, `params["layers"][i]`, `params["inner"][g][k]`.
+    Dicts become submodules, lists (of dicts or of lists) `ModuleList`s,
+    tensors frozen `Parameter`s."""
 
     def __init__(self, tree: dict) -> None:
         super().__init__()
         for name, value in tree.items():
-            if isinstance(value, dict):
-                self.add_module(name, ParamTree(value))
-            elif isinstance(value, list):
-                self.add_module(name, torch.nn.ModuleList(ParamTree(v) for v in value))
-            else:
+            if isinstance(value, torch.Tensor):
                 self.register_parameter(
                     name, torch.nn.Parameter(value, requires_grad=False))
+            else:
+                self.add_module(name, _module(value))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def _module(node) -> torch.nn.Module:
+    if isinstance(node, list):
+        return torch.nn.ModuleList(_module(v) for v in node)
+    return ParamTree(node)
 
 
 def init_params(defs: dict, generator: torch.Generator) -> ParamTree:
@@ -201,8 +208,10 @@ def init_params(defs: dict, generator: torch.Generator) -> ParamTree:
 # ----------------------------------------------------------------------------
 
 
-# the plain RMSNorm is the kernel's plain version: one definition of the math
+# the plain RMSNorm and decode attention are the kernels' plain versions:
+# one definition of the math each
 rms_norm = rn_ops.rmsnorm_plain
+decode_attention = da_ops.decode_attention_plain
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -227,6 +236,10 @@ def attn_chunks(cfg: ModelConfig, seq: int) -> tuple[int, int]:
     if cfg.cost_exact:
         return seq, seq
     return cfg.attn_q_chunk, cfg.attn_k_chunk
+
+
+def ssm_chunk_of(cfg: ModelConfig, seq: int) -> int:
+    return seq if cfg.cost_exact else cfg.ssm_chunk
 
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
@@ -298,18 +311,27 @@ def chunked_attention(
 
 
 # ----------------------------------------------------------------------------
-# The two ops the stage path may run as kernels
+# The ops the model paths may run as kernels
 # ----------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
 class Ops:
-    """`rms_norm(x, w, eps)` and causal self-`attention(cfg, q, k, v)` in the
-    (B, T, H, D) layout.  The port's counterpart of the reference's
-    `rules` argument: threaded through every model function."""
+    """The port's counterpart of the reference's `rules` argument, threaded
+    through every model function:
+
+    * `rms_norm(x, w, eps)`;
+    * causal self-`attention(cfg, q, k, v)` in the (B, T, H, D) layout;
+    * `decode_attention(q, k_cache, v_cache, kv_len)`: q (B, 1, H, D)
+      against a (B, S, KH, D) cache;
+    * `linear_attention(q, k, v, log_g, log_i=None, chunk=256)`: the
+      chunked decayed scan from a zero state in the (B, T, NH, D) layout,
+      returning (y, final f32 state)."""
 
     rms_norm: Callable
     attention: Callable
+    decode_attention: Callable
+    linear_attention: Callable
 
 
 def _chunked_causal(cfg: ModelConfig, q, k, v) -> torch.Tensor:
@@ -322,6 +344,9 @@ def _flash_causal(cfg: ModelConfig, q, k, v) -> torch.Tensor:
 
 
 # the reference's math, op for op, on any device
-PLAIN = Ops(rms_norm=rms_norm, attention=_chunked_causal)
+PLAIN = Ops(rms_norm=rms_norm, attention=_chunked_causal, decode_attention=decode_attention,
+            linear_attention=ssd_ops.chunked_linear_attention_plain)
 # the Hopper kernels for CUDA tensors; their plain versions for CPU tensors
-KERNELS = Ops(rms_norm=rn_ops.rmsnorm, attention=_flash_causal)
+KERNELS = Ops(rms_norm=rn_ops.rmsnorm, attention=_flash_causal,
+              decode_attention=da_ops.decode_attention_bthd,
+              linear_attention=ssd_ops.ssd_scan_bthd)

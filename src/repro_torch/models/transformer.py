@@ -1,9 +1,19 @@
-"""Dense decoder-only transformer family, forward (prefill) path.
+"""Dense decoder-only transformer family: forward, prefill and KV-cache
+decode.
 
-Covers stablelm-3b and qwen3-14b (qk_norm, GQA).  Every function takes
-`ops` where the reference takes its sharding `rules`: `common.KERNELS` runs
-the RMSNorm and attention kernels for CUDA tensors, `common.PLAIN` the
-reference's plain math.  Decode and the KV cache are not ported yet.
+Covers stablelm-3b and qwen3-14b (qk_norm, GQA), and the shared attention
+block of the hybrids.  Every function takes `ops` where the reference takes
+its sharding `rules`: `common.KERNELS` runs the RMSNorm, attention and
+decode-attention kernels for CUDA tensors, `common.PLAIN` the reference's
+plain math.
+
+The cache is the reference's dict {"k", "v"} of (L, B, max_len, KH, hd)
+tensors.  Where the reference writes a new K/V row with
+`dynamic_update_slice` and returns new arrays, the port writes it into the
+cache in place and returns the same tensors.  `cur_len` may be a Python int
+or a 0-d integer tensor; a tensor stays on the device (positions, the cache
+row and the decode kernel's `kv_len` are all read there), so a decode loop
+needs no host synchronisation.
 """
 
 from __future__ import annotations
@@ -94,6 +104,26 @@ def attn_full(cfg: ModelConfig, ops: Ops, p, x, positions):
     return out, (k, v)
 
 
+def _cache_index(cur_len, device) -> torch.Tensor:
+    """`cur_len` as a 1-element int64 tensor on `device` (no host sync for a
+    tensor already there)."""
+    return torch.as_tensor(cur_len, device=device).reshape(1).long()
+
+
+def attn_decode(cfg: ModelConfig, ops: Ops, p, x, k_cache, v_cache, cur_len):
+    """One-token attention against the KV cache. x: (B, 1, d); k/v cache
+    (B, max_len, KH, hd), written in place at `cur_len`."""
+    B = x.shape[0]
+    idx = _cache_index(cur_len, x.device)
+    positions = idx.expand(B, 1)
+    q, k, v = _qkv(cfg, ops, p, x, positions)
+    k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
+    out = ops.decode_attention(q, k_cache, v_cache, idx + 1)
+    out = out.reshape(B, 1, -1) @ p["wo"]
+    return out, (k_cache, v_cache)
+
+
 # ----------------------------------------------------------------------------
 # Layer + model application
 # ----------------------------------------------------------------------------
@@ -106,6 +136,16 @@ def layer_full(cfg: ModelConfig, ops: Ops, p, x, positions):
     m = swiglu(ops.rms_norm(x, p["mlp_norm"], cfg.norm_eps),
                p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
     return x + m, kv
+
+
+def layer_decode(cfg: ModelConfig, ops: Ops, p, x, k_cache, v_cache, cur_len):
+    a, (k_cache, v_cache) = attn_decode(
+        cfg, ops, p["attn"], ops.rms_norm(x, p["attn_norm"], cfg.norm_eps), k_cache, v_cache,
+        cur_len)
+    x = x + a
+    m = swiglu(ops.rms_norm(x, p["mlp_norm"], cfg.norm_eps),
+               p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
+    return x + m, (k_cache, v_cache)
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -130,3 +170,36 @@ def forward(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor) -> torch.T
         x, _ = layer_full(cfg, ops, lp, x, positions)
     x = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device | str) -> dict:
+    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def prefill(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor,
+            max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Prefill: fill the KV cache, return last-position logits + cache."""
+    x = embed_tokens(cfg, params, tokens)
+    B, S, _ = x.shape
+    max_len = max_len or S
+    positions = positions_for(x)
+    cache = init_cache(cfg, B, max_len, x.device)
+    for i, lp in enumerate(params["layers"]):
+        x, (k, v) = layer_full(cfg, ops, lp, x, positions)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    x = ops.rms_norm(x[:, -1:].contiguous(), params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x), cache
+
+
+def decode_step(cfg: ModelConfig, ops: Ops, params, token: torch.Tensor, cache: dict,
+                cur_len) -> tuple[torch.Tensor, dict]:
+    """token: (B, 1) ids; `cur_len`: the cache's valid length, where the new
+    row goes.  Returns the logits (B, 1, V) and the cache, updated in place."""
+    x = embed_tokens(cfg, params, token)
+    for i, lp in enumerate(params["layers"]):
+        x, _ = layer_decode(cfg, ops, lp, x, cache["k"][i], cache["v"][i], cur_len)
+    x = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x), cache

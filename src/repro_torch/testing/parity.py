@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.common import ModelConfig, ParamTree
+from repro_torch.models.common import ModelConfig, ParamDef, ParamTree
+from repro_torch.models.model_zoo import build_model
 
 
 def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -20,29 +21,36 @@ def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu") -> ParamTree:
-    """The reference's dense-model parameter tree (numpy, f32) as the port's
-    `ParamTree`, cast to `cfg.dtype` on `device`.  The stacked
-    `tree["layers"]` (every leaf with a leading L axis) becomes a list of L
-    per-layer trees."""
+    """The reference's parameter tree (numpy, f32) as the port's `ParamTree`
+    on `device`, each leaf in the dtype of its own `ParamDef` (the Mamba2
+    `A_log`, `D` and `dt_bias` stay f32 under a bf16 config).
 
-    def convert(node):
+    The tree is walked beside the port's templates: where the port keeps a
+    list of per-layer templates, the reference keeps one stacked array per
+    leaf, so a list of n templates takes the reference subtree apart along
+    its leading axis of n.  The dense `layers` (L, ...) become a list of L
+    trees, the hybrid `inner` (G, K, ...) a list of G lists of K trees;
+    `shared_attn` is unstacked on both sides."""
+
+    def convert(node, defs):
+        if isinstance(defs, ParamDef):
+            if tuple(node.shape) != defs.shape:
+                raise ValueError(f"leaf of shape {node.shape}, template {defs.shape}")
+            return _tensor(node, defs.dtype, device)
+        if isinstance(defs, list):
+            return [convert(take(node, i, len(defs)), d) for i, d in enumerate(defs)]
+        if set(node) != set(defs):
+            raise ValueError(f"keys {sorted(node)} differ from the port's {sorted(defs)}")
+        return {k: convert(node[k], defs[k]) for k in defs}
+
+    def take(node, i, n):
         if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        return _tensor(node, cfg.dtype, device)
-
-    out = {k: convert(v) for k, v in tree.items() if k != "layers"}
-    layers = tree["layers"]
-    n = cfg.n_layers
-
-    def take(node, i):
-        if isinstance(node, dict):
-            return {k: take(v, i) for k, v in node.items()}
+            return {k: take(v, i, n) for k, v in node.items()}
         if node.shape[0] != n:
-            raise ValueError(f"stacked leaf has {node.shape[0]} layers, config {n}")
-        return _tensor(node[i], cfg.dtype, device)
+            raise ValueError(f"stacked leaf has {node.shape[0]} entries, the port {n}")
+        return node[i]
 
-    out["layers"] = [take(layers, i) for i in range(n)]
-    return ParamTree(out)
+    return ParamTree(convert(tree, build_model(cfg).defs))
 
 
 def tol(dtype) -> dict:

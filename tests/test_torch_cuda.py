@@ -9,7 +9,8 @@ reference package, so it runs on a machine with the card alone:
 (`--noconftest` skips tests/conftest.py, which imports JAX.)
 
 Tolerances are those of tests/test_kernels.py (`_tol`: bf16 5e-2, f32
-3e-5); quantize and dequantize must be bit-equal.
+3e-5; the SSD scan atol 5e-4, rtol 2e-3, its test_ssd_scan); quantize and
+dequantize must be bit-equal.
 """
 
 import numpy as np
@@ -17,8 +18,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.boundary_quant import ops as bq
+from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.rmsnorm import ops as rn
+from repro_torch.kernels.ssd_scan import ops as ssd
 from repro_torch.testing.parity import tol
 
 
@@ -125,3 +128,146 @@ def test_model_layers_through_kernels(cuda):
         scale = want.float().abs().max()
         assert (got.float() - want.float()).abs().max() <= 5e-2 * scale
         x = got
+
+
+# ------------------------------------------------------------ decode attention
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,KH,G,D,kv_len", [
+    (8, 160, 32, 1, 80, 160),   # stablelm-3b decode, batch 8, last step
+    (4, 528, 32, 1, 80, 517),   # zamba2-2.7b decode, batch 4
+    (2, 300, 8, 5, 128, 291),   # qwen3-14b grouping (G = 5), ragged S
+    (1, 70, 2, 3, 64, 1),       # one valid position
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_attention_kernel_matches_plain(cuda, B, S, KH, G, D, kv_len, dtype):
+    q = _on(cuda, 40, (B, 1, KH * G, D), dtype)
+    k = _on(cuda, 41, (B, S, KH, D), dtype)
+    v = _on(cuda, 42, (B, S, KH, D), dtype)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    before = da.decode_attention.launches
+    got = da.decode_attention_bthd(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    want = da.decode_attention_plain(q, k, v, lens)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **tol(dtype))
+    # the reference kernel's layout and a Python int give the same result
+    grouped = da.decode_attention(q.reshape(B, KH, G, D), k.transpose(1, 2).contiguous(),
+                                  v.transpose(1, 2).contiguous(), kv_len)
+    np.testing.assert_array_equal(_np(grouped.reshape(B, 1, KH * G, D).cpu()), _np(got.cpu()))
+
+
+@pytest.mark.requires_cuda
+def test_decode_attention_kernel_masks_tail(cuda):
+    """Garbage at and past kv_len never reaches the output."""
+    q = _on(cuda, 43, (2, 1, 4, 80), torch.bfloat16)
+    k = _on(cuda, 44, (2, 256, 4, 80), torch.bfloat16)
+    v = _on(cuda, 45, (2, 256, 4, 80), torch.bfloat16)
+    out1 = da.decode_attention_bthd(q, k, v, 100)
+    k[:, 100:], v[:, 100:] = 1e4, -1e4
+    out2 = da.decode_attention_bthd(q, k, v, 100)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_np(out1.cpu()), _np(out2.cpu()))
+
+
+@pytest.mark.requires_cuda
+def test_decode_attention_kernel_per_row_lengths(cuda):
+    """A (B,) kv_len masks each batch row at its own length."""
+    q = _on(cuda, 46, (3, 1, 8, 64), torch.bfloat16)
+    k = _on(cuda, 47, (3, 96, 4, 64), torch.bfloat16)
+    v = _on(cuda, 48, (3, 96, 4, 64), torch.bfloat16)
+    lens = torch.tensor([5, 96, 40], dtype=torch.int32, device=cuda)
+    got = da.decode_attention_bthd(q, k, v, lens)
+    want = da.decode_attention_plain(q, k, v, lens)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **tol(torch.bfloat16))
+    for b in range(3):
+        row = da.decode_attention_bthd(q[b:b + 1], k[b:b + 1], v[b:b + 1], int(lens[b]))
+        np.testing.assert_array_equal(_np(row.cpu()), _np(got[b:b + 1].cpu()))
+
+
+# -------------------------------------------------------------------- ssd scan
+
+SSD_TOL = dict(atol=5e-4, rtol=2e-3)
+
+
+def _gates(device, seed, shape, scale=1.0):
+    """Realistic decays: log_g = -scale * softplus(N(0, 1))."""
+    return -scale * torch.nn.functional.softplus(_on(device, seed, shape, torch.float32))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,T,NH,DK,DV,chunk,with_i", [
+    (4, 512, 80, 64, 64, 256, False),   # zamba2-2.7b prefill
+    (2, 300, 8, 64, 64, 256, False),    # ragged T: a short last chunk
+    (2, 128, 3, 16, 32, 32, True),      # tests/test_kernels.py shapes, with log_i
+    (1, 256, 2, 32, 16, 64, True),
+    (1, 64, 1, 8, 8, 64, True),
+])
+def test_ssd_scan_kernel_matches_plain(cuda, B, T, NH, DK, DV, chunk, with_i):
+    q = _on(cuda, 50, (B, T, NH, DK), torch.float32, 0.5)
+    k = _on(cuda, 51, (B, T, NH, DK), torch.float32, 0.5)
+    v = _on(cuda, 52, (B, T, NH, DV), torch.float32, 0.5)
+    log_g = _gates(cuda, 53, (B, T, NH), 0.05 if chunk == 256 else 1.0)
+    log_i = _gates(cuda, 54, (B, T, NH)) if with_i else None
+    before = ssd.ssd_scan.launches
+    y, state = ssd.ssd_scan_bthd(q, k, v, log_g, log_i, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1
+    y_want, s_want = ssd.chunked_linear_attention_plain(q, k, v, log_g, log_i, chunk=chunk)
+    np.testing.assert_allclose(_np(y.cpu()), _np(y_want.cpu()), **SSD_TOL)
+    np.testing.assert_allclose(_np(state.cpu()), _np(s_want.cpu()), **SSD_TOL)
+
+
+@pytest.mark.requires_cuda
+def test_ssd_scan_kernel_reads_broadcast_heads_and_bf16(cuda):
+    """Mamba2's q and k are one (B, T, DK) tensor expanded over the heads
+    (head stride 0): the kernel reads the view as it is, in bf16, and
+    carries the state over four chunks."""
+    B, T, NH, D = 2, 200, 6, 64
+    c = _on(cuda, 55, (B, T, D), torch.bfloat16)
+    bm = _on(cuda, 56, (B, T, D), torch.bfloat16)
+    q, k = c[:, :, None].expand(B, T, NH, D), bm[:, :, None].expand(B, T, NH, D)
+    v = _on(cuda, 57, (B, T, NH, D), torch.bfloat16)
+    log_g = _gates(cuda, 58, (B, T, NH), 0.05)
+    y, state = ssd.ssd_scan_bthd(q, k, v, log_g, chunk=64)
+    y_want, s_want = ssd.chunked_linear_attention_plain(q, k, v, log_g, chunk=64)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(y.cpu()), _np(y_want.cpu()), **tol(torch.bfloat16))
+    np.testing.assert_allclose(_np(state.cpu()), _np(s_want.cpu()), **SSD_TOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["stablelm-3b", "qwen3-14b", "zamba2-2.7b"])
+def test_prefill_decode_through_kernels(cuda, arch):
+    """Reduced models on the card: prefill + decode through the kernels
+    launch decode_attention once per attention layer and step (and ssd_scan
+    once per Mamba2 block in prefill), and each step's logits match the
+    same step through the plain math from the same cache, to 5e-2 of their
+    scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import KERNELS, PLAIN
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config(arch).reduced(head_dim=80, d_model=320)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))).to(cuda)
+    n_attn = cfg.ssm_pattern.count("a") if cfg.ssm_pattern else cfg.n_layers
+    n_ssd = ssd.ssd_scan.launches
+    _, cache = model.prefill(params, {"tokens": tokens}, max_len=44)
+    assert ssd.ssd_scan.launches - n_ssd == cfg.ssm_pattern.count("m")
+    cur = torch.tensor(40, dtype=torch.int32, device=cuda)
+    tok = tokens[:, -1:]
+    for _ in range(4):
+        plain_cache = {k: (v.clone() if isinstance(v, torch.Tensor)
+                           else {n: a.clone() for n, a in v.items()}) for k, v in cache.items()}
+        n_da = da.decode_attention.launches
+        got, cache = model.decode_step(params, tok, cache, cur)
+        assert da.decode_attention.launches - n_da == n_attn
+        want, _ = model.decode_step(params, tok, plain_cache, cur, ops=PLAIN)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max() <= 5e-2 * want.float().abs().max()
+        tok, cur = got.argmax(-1), cur + 1
+    assert KERNELS.decode_attention is da.decode_attention_bthd
