@@ -10,8 +10,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 1. build the five CUDA libraries from `src/repro_torch/kernels/*/csrc` with
    nvcc for sm_90a, one nvcc per source, in parallel;
 2. hold every kernel against its plain PyTorch version on the card at the
-   main paths' shapes, and time it beside its bound, its plain version and
-   one PyTorch library call (a yardstick only; the port never calls it);
+   main paths' shapes (flash and decode attention at every shape the smoke
+   paths run, decode attention also at one that splits the sequence), and
+   time it beside its bound, its plain version and one
+   PyTorch library call (a yardstick only; the port never calls it), with
+   the host time of one call;
 3. serve stablelm-3b at full width (32 layers, random weights from a seed)
    through calibrate_runtime -> PoolDispatcher -> DataPlane with measured
    feedback, on the hand-pinned 2-stage pooled plan, and show that serving
@@ -111,6 +114,23 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     raise RuntimeError("the host could not queue the timed calls ahead of the card")
 
 
+def host_ms(fn, calls: int = 1000) -> float:
+    """Host time of one call: `calls` calls on the host clock, the card
+    drained before (the wrapper's Python, its checks and launches; these
+    kernels run faster than the host issues them, so the launch queue never
+    fills and the host never waits on the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e3
+
+
 def bound_ms(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
     """The larger of bytes over the HBM rate and the operations, each
     (count, peak rate) pair at its own rate, in ms."""
@@ -153,14 +173,12 @@ def phase_kernels(dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.boundary_quant import ops as bq
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rmsnorm import ops as rn
     from repro_torch.testing.parity import tol
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
     N, D = BATCH * SEQ, 2560
-    H, HD = 32, 80
     res = {}
 
     def err(a, b) -> float:
@@ -178,28 +196,10 @@ def phase_kernels(dev) -> dict:
         max_abs_err=err(got, want), tol=tol(bf16),
         ms=time_ms(lambda: rn.rmsnorm(x, w)), plain_ms=time_ms(lambda: rn.rmsnorm_plain(x, w)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)))
+        library_ms=time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)),
+        host_ms=host_ms(lambda: rn.rmsnorm(x, w)))
 
-    # flash_attention: (B, 32, 128, 80) bf16, model layout (B, T, H, D) as served
-    q, k, v = (torch.randn(BATCH, SEQ, H, HD, generator=g, device=dev).to(bf16)
-               for _ in range(3))
-    got = fa.attention_bthd(q, k, v)
-    want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2)).transpose(1, 2)
-    bhsd = fa.flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous())
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, **tol(bf16))
-    torch.testing.assert_close(bhsd.transpose(1, 2), got, atol=0, rtol=0)
-    pairs = BATCH * H * SEQ * (SEQ + 1) / 2  # causal (query, key) pairs
-    b_ms, b_by = bound_ms(4 * BATCH * SEQ * H * HD * 2, (4.0 * pairs * HD, BF16_FLOP_S))
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    res["flash_attention"] = dict(
-        max_abs_err=err(got, want), tol=tol(bf16),
-        ms=time_ms(lambda: fa.attention_bthd(q, k, v)),
-        plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vh)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)))
+    res["flash_attention"] = check_flash_attention(dev, g, err)
 
     # boundary quantization: (B*S, 2560) bf16, the boundary activations
     h = (torch.randn(N, D, generator=g, device=dev) * 20).to(bf16)
@@ -214,7 +214,7 @@ def phase_kernels(dev) -> dict:
     res["quantize"] = dict(
         max_abs_err=float((qv.int() - qp.int()).abs().max()), tol="bit-equal",
         ms=time_ms(lambda: bq.quantize(h)), plain_ms=time_ms(lambda: bq.quantize_plain(h)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, host_ms=host_ms(lambda: bq.quantize(h)))
     got, want = bq.dequantize(qv, s, bf16), bq.dequantize_plain(qv, s, bf16)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
@@ -224,7 +224,8 @@ def phase_kernels(dev) -> dict:
         max_abs_err=err(got, want), tol="bit-equal",
         ms=time_ms(lambda: bq.dequantize(qv, s, bf16)),
         plain_ms=time_ms(lambda: bq.dequantize_plain(qv, s, bf16)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        host_ms=host_ms(lambda: bq.dequantize(qv, s, bf16)))
 
     res["decode_attention"] = check_decode_attention(dev, g, err)
     res["ssd_scan"] = check_ssd_scan(dev, g, err)
@@ -232,34 +233,84 @@ def phase_kernels(dev) -> dict:
         lib_us = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f} us"
         log(f"[kernels] {name}: max|err| {r['max_abs_err']:.3g} (tol {r['tol']}), "
             f"{r['ms'] * 1e3:.1f} us vs bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
-            f"plain {r['plain_ms'] * 1e3:.1f} us, library {lib_us}")
+            f"plain {r['plain_ms'] * 1e3:.1f} us, library {lib_us}, "
+            f"host {r['host_ms'] * 1e3:.1f} us a call")
     return res
 
 
+def check_flash_attention(dev, g, err) -> dict:
+    """In the model layout (B, T, H, D), as served, at both prefill shapes
+    the smoke paths run: the serve's (8, 128, 32, 80) and zamba2-2.7b's
+    (4, 512, 32, 80).  Each against its plain version and, bit for bit, the
+    same inputs as contiguous (B, H, S, D) copies.  The line's times are the
+    serve shape's; `shapes` holds both."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.testing.parity import attn_tol
+
+    bf16, H, HD = torch.bfloat16, 32, 80
+    shapes = []
+    for what, B, S in (("serve", BATCH, SEQ), ("zamba2-2.7b prefill", *DECODE_RUNS[1][1:3])):
+        q, k, v = (torch.randn(B, S, H, HD, generator=g, device=dev).to(bf16) for _ in range(3))
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        got = fa.attention_bthd(q, k, v)
+        want = fa.flash_attention_plain(qh, kh, vh).transpose(1, 2)
+        bhsd = fa.flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous())
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **attn_tol(bf16))
+        torch.testing.assert_close(bhsd.transpose(1, 2), got, atol=0, rtol=0)
+        pairs = B * H * S * (S + 1) / 2  # causal (query, key) pairs
+        b_ms, b_by = bound_ms(4 * B * S * H * HD * 2, (4.0 * pairs * HD, BF16_FLOP_S))
+        r = dict(
+            shape=[B, S, H, HD], what=what, max_abs_err=err(got, want), tol=attn_tol(bf16),
+            ms=time_ms(lambda: fa.attention_bthd(q, k, v)),
+            plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vh)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                      is_causal=True)),
+            host_ms=host_ms(lambda: fa.attention_bthd(q, k, v)))
+        log(f"[kernels] flash_attention at the {what} shape (B, T, H, D) = ({B}, {S}, {H}, "
+            f"{HD}): {r['ms'] * 1e3:.3f} us vs bound {r['bound_ms'] * 1e3:.3f} us "
+            f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.3f} us, SDPA "
+            f"{r['library_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; "
+            f"max|err| {r['max_abs_err']:.3g}; bit-equal to the (B, H, S, D) copies")
+        shapes.append(r)
+    return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
+
+
 def check_decode_attention(dev, g, err) -> dict:
-    """At both decode shapes of phase 5, with kv_len = the full cache (the
-    last step) read from a device int32; garbage at and past kv_len must not
-    change the output.  The line's times are those at the stablelm-3b shape
-    (1024 of the decode phase's 1168 launches)."""
+    """At both decode shapes of phase 5, and at one that takes the split path
+    (qwen3-14b, one sequence, 8 KV heads, a 4096-key cache), with kv_len =
+    the full cache read from a device int32; garbage at and past kv_len must
+    not change the output, and two calls must agree bit for bit.  The
+    line's times are those at the stablelm-3b shape (1024 of the decode
+    phase's 1168 launches); `shapes` holds all three, each with the time of
+    one split beside `split_plan`'s choice where that splits."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.testing.parity import tol
+    from repro_torch.testing.parity import attn_tol
 
-    bf16, H, HD = torch.bfloat16, 32, 80
-    out = None
-    worst = 0.0
-    for arch, B, S, n in DECODE_RUNS:
-        L = S + n
+    bf16 = torch.bfloat16
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # (what, B, cache length, query heads, KV heads, head_dim)
+    cases = [(arch, B, S + n, 32, 32, 80) for arch, B, S, n in DECODE_RUNS]
+    cases.append(("qwen3-14b, one sequence (split path)", 1, 4096, 40, 8, 128))
+    shapes = []
+    for what, B, L, H, KH, HD in cases:
         q = torch.randn(B, 1, H, HD, generator=g, device=dev).to(bf16)
-        kc, vc = (torch.randn(B, L, H, HD, generator=g, device=dev).to(bf16) for _ in range(2))
+        kc, vc = (torch.randn(B, L, KH, HD, generator=g, device=dev).to(bf16) for _ in range(2))
         lens = torch.tensor(L, dtype=torch.int32, device=dev)
         got, want = da.decode_attention_bthd(q, kc, vc, lens), da.decode_attention_plain(
             q, kc, vc, lens)
+        again = da.decode_attention_bthd(q, kc, vc, lens)
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, **tol(bf16))
-        worst = max(worst, err(got, want))
+        torch.testing.assert_close(got, want, **attn_tol(bf16))
+        if not torch.equal(got, again):
+            raise AssertionError(f"decode_attention ({what} shape): two calls differ")
         short = torch.tensor(L - 37, dtype=torch.int32, device=dev)
         before = da.decode_attention_bthd(q, kc, vc, short)
         kg, vg = kc.clone(), vc.clone()
@@ -267,25 +318,36 @@ def check_decode_attention(dev, g, err) -> dict:
         after = da.decode_attention_bthd(q, kg, vg, short)
         torch.cuda.synchronize()
         if not torch.equal(before, after):
-            raise AssertionError(f"decode_attention ({arch} shape): values past kv_len leak "
+            raise AssertionError(f"decode_attention ({what} shape): values past kv_len leak "
                                  f"into the output ({err(before, after):.3g})")
         qh, kh, vh = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-        nbytes = 2 * B * L * H * HD * 2 + 2 * B * H * HD * 2 + 4
-        # q.k and p.v: bf16 operands (p is cast to the cache's dtype)
+        gqa = {"enable_gqa": True} if H != KH else {}
+        nbytes = 2 * B * L * KH * HD * 2 + 2 * B * H * HD * 2 + 4
+        # q.k and p.v: bf16 operands (p enters P.V as two bf16 parts)
         b_ms, b_by = bound_ms(nbytes, (4.0 * B * H * L * HD, BF16_FLOP_S))
+        plan = da.split_plan(B, KH, L, n_sm)
         r = dict(
-            max_abs_err=worst, tol=tol(bf16),
-            ms=time_ms(lambda: da.decode_attention_bthd(q, kc, vc, lens)),
+            shape=[B, L, H, KH, HD], what=what, splits=list(plan), max_abs_err=err(got, want),
+            tol=attn_tol(bf16), ms=time_ms(lambda: da.decode_attention_bthd(q, kc, vc, lens)),
             plain_ms=time_ms(lambda: da.decode_attention_plain(q, kc, vc, lens)),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
-        log(f"[kernels] decode_attention at the {arch} shape q ({B}, 1, {H}, {HD}), cache "
-            f"({B}, {L}, {H}, {HD}): {r['ms'] * 1e3:.3f} us vs bound {r['bound_ms'] * 1e3:.3f} "
-            f"us, plain {r['plain_ms'] * 1e3:.3f} us, SDPA {r['library_ms'] * 1e3:.3f} us; "
-            f"tail past kv_len masked")
-        out = out or r
-    out["max_abs_err"] = worst
-    return out
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, **gqa)),
+            host_ms=host_ms(lambda: da.decode_attention_bthd(q, kc, vc, lens)))
+        note = ""
+        if plan[0] > 1:  # the split path against one split of the same block shape
+            one = (1, L, plan[2])
+            r["one_split_ms"] = time_ms(
+                lambda: da.decode_attention_bthd(q, kc, vc, lens, plan=one))
+            note = f"; one split {r['one_split_ms'] * 1e3:.3f} us"
+        log(f"[kernels] decode_attention at the {what} shape q ({B}, 1, {H}, {HD}), cache "
+            f"({B}, {L}, {KH}, {HD}), {plan[0]} split(s) of {plan[1]} keys, "
+            f"{da.RINGS[plan[2]]}: "
+            f"{r['ms'] * 1e3:.3f} us vs bound {r['bound_ms'] * 1e3:.3f} us, plain "
+            f"{r['plain_ms'] * 1e3:.3f} us, SDPA {r['library_ms'] * 1e3:.3f} us{note}; host "
+            f"{r['host_ms'] * 1e3:.3f} us a call; max|err| {r['max_abs_err']:.3g}; "
+            f"bit-equal run to run; tail past kv_len masked")
+        shapes.append(r)
+    return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
 
 
 def check_ssd_scan(dev, g, err) -> dict:
@@ -355,7 +417,8 @@ def check_ssd_scan(dev, g, err) -> dict:
         # host waits on the card
         plain_ms=time_ms(lambda: ssd.chunked_linear_attention_plain(*args, chunk=chunk),
                          iters=5, warmup=2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        host_ms=host_ms(lambda: ssd.ssd_scan_bthd(*args, chunk=chunk), calls=100))
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1025,7 +1088,9 @@ def main() -> int:
          "launches_by_path": launches[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
-         "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"]}
+         "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
+         "host_ms": kern[name]["host_ms"],
+         **({"shapes": kern[name]["shapes"]} if "shapes" in kern[name] else {})}
         for name in KERNEL_NAMES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ shared library with a plain C interface and loaded with `ctypes`.  The build
 runs at first use (or up front through `build_all`, which starts one `nvcc`
 per source in parallel) into `_build/` beside this file, resolved from the
 package's path so the working directory does not matter.  A library's file
-name carries a hash of its source and flags, so an edited source rebuilds.
+name carries a hash of every file in its `csrc/` directory (the source and
+the headers it includes) and of the flags, so an edited file rebuilds.
 
 `route(...)` is the one device rule every wrapper follows: CPU tensors take
 the plain PyTorch version, CUDA tensors launch the kernel (or raise), and
@@ -57,9 +58,10 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in SOURCES[name].parent.iterdir() if p.is_file()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=tuple(SOURCES)) -> dict[str, float]:

@@ -3,47 +3,141 @@
 // Replaces the Pallas TPU kernel `flash_attention` (`_flash_kernel`) of
 // src/repro/kernels/flash_attention/kernel.py: online softmax with f32
 // running max m, running sum l and accumulator, scale D^-0.5, masked scores
-// set to -1e30, query head h reading KV head h / (H / KH).  The causal mask
-// keeps k_pos <= q_pos, aligned top-left, which equals the bottom-right mask
-// of the reference oracle only when Sq == Sk; the wrapper enforces that.
+// set to -1e30, query head h reading KV head h / (H / KH), P cast to bf16
+// for the P.V product.  The causal mask keeps k_pos <= q_pos, aligned
+// top-left, which equals the bottom-right mask of the reference oracle only
+// when Sq == Sk; the wrapper enforces that.
 //
-// Bound on the card: at the serving shapes (S = 128, D = 80) the work per
-// byte is low (about S/2 multiply-adds per loaded element), so device memory
-// bounds it.  The design keeps both products on the tensor cores with
-// warp-level `mma.sync.m16n8k16` (bf16 in, f32 accumulate), in the layout of
-// FlashAttention-2: one block per (64-query tile, head, batch), four warps of
-// 16 query rows each.  Q stays in registers as A fragments for the whole
-// block; each 64-key K/V tile is staged in shared memory (V transposed, rows
-// padded by 16 bytes so fragment loads hit distinct banks); the scores of a
-// tile stay in registers, where the softmax runs, and are repacked to bf16
-// as the A fragments of the P.V product, as the reference's chunked
-// attention casts p to v's dtype.  KV tiles above the diagonal are skipped,
-// not masked.  head_dim is padded with zeros to the next multiple of 16 in
-// shared memory only (exact: zero terms add nothing), so 80 runs as 80 in
-// five k-steps; sequence tails shorter than a tile are zero-filled and
-// masked.  TMA, wgmma and a pipelined K/V ring are later work.
+// Bound on the card: bytes.  At the serving shape (8, 32, 128, 80) the four
+// tensors are 21.0 MB, 6.26 us at 3.35 TB/s, against 0.68 GFLOP of causal
+// products, 0.68 us at the bf16 tensor-core peak; at zamba2-2.7b's prefill
+// shape (4, 512, 32, 80) 41.9 MB, 12.5 us, against 5.4 GFLOP, 5.4 us.
 //
-// Layout: every tensor is addressed through (batch, head, seq) element
-// strides with a unit head_dim stride, so the model's (B, T, H, D) tensors
-// are read and written in place, without transposed copies.
+// Design (warp-specialised, as the Hopper guide sets out):
+//  - a work item is 128 query rows of one (head, batch): two consumer
+//    warpgroups of 64 rows each share every K/V tile.  The grid is
+//    persistent, one block an SM walking the items in turn, those with the
+//    most K/V tiles (the far end of the causal diagonal) first; the K/V ring
+//    and the barriers' phases run on across items, so the producer loads an
+//    item's Q and K/V while the consumers finish the one before (one block an
+//    SM over 256 items left the second half a whole wave of load latency);
+//  - one producer warp's lane 0 issues TMA loads through rank-4 tensor maps
+//    (D, heads, seq, batch), built on the host from the tensors' strides, so
+//    the model's (B, T, H, D) tensors are read in place: Q into a tile per
+//    consumer (full/empty mbarriers), K and V tiles of 64 keys into a
+//    four-stage ring (full/empty mbarriers);
+//  - head_dim is cut into 64-column panels (128 bytes, the widest a
+//    128B-swizzled TMA box may be): D = 80 is one full panel plus one whose
+//    columns 80-127 TMA fills with zeros (no bytes read for them), and
+//    head_dim pads to the next multiple of 16 in shared memory only;
+//  - S = Q.K^T runs as m64n64k16 `wgmma`s, A (Q) and B (K) both K-major in
+//    shared memory, one k-step of 16 columns at a time (the descriptor's
+//    start moves 32 bytes inside the swizzle atom);
+//  - the softmax runs on the f32 accumulator in registers (four threads a
+//    row pair, as mma.sync's layout), and P, packed to bf16, is directly
+//    the register A operand of O += P.V, m64nDk16 `wgmma`s whose B is V as
+//    it lies (MN-major, the transpose bit set): V is never transposed;
+//  - K/V tiles above a consumer's diagonal are skipped, and tiles that reach
+//    past S are masked (TMA zero-fills the rows past the end);
+//  - the output is staged in shared memory in the 128B-swizzled layout and
+//    written by TMA stores through a fourth map, which clip rows past S.
+// The shared-memory attribute is set once per template instance and device.
+// Times measured (chip_smoke.py phase 2; NVIDIA H100 80GB HBM3, 700.00 W):
+// 10.260 us at (8, 128, 32, 80) against SDPA's 11.372 us and the 6.260 us
+// bound (the mma.sync design before it: 35.935 us); 32.807 us at
+// (4, 512, 32, 80) against SDPA's 31.861 us and the 12.520 us bound.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block: 4 warps x 16
-constexpr int kBK = 64;       // keys per K/V tile
-constexpr int kThreads = 128;
+constexpr int kRows = 64;        // query rows per consumer warpgroup; keys per K/V tile
+constexpr int kConsumers = 2;    // consumer warpgroups per block
+constexpr int kStages = 4;       // K/V ring depth
+constexpr int kThreads = kConsumers * 128 + 32;  // plus one producer warp
+constexpr int kPanelCols = 64;   // bf16 columns per 128-byte swizzled panel
+constexpr int kPanelBytes = kRows * 128;
 constexpr int kMaxD = 128;
-constexpr int kPad = 8;       // bf16 elements of row padding in shared memory
+constexpr int kMaxDevices = 64;  // devices whose attribute and SM count are kept
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// spins until the phase of parity `parity` has completed; a wait of more
+// than ~10 s (a transaction count that never arrives) traps, so a fault
+// ends the launch with an error rather than hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > 20000000000LL) __trap();
+  } while (!done);
+}
+
+// one 64 x 64 box (columns col0.., rows row0..) of a (D, heads, seq, batch) map
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col0, int head,
+                                         int row0, int batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(head), "r"(row0), "r"(batch),
+      "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128B-swizzled operand: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (SW128)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -51,196 +145,348 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 struct Strides {
   int64_t b, h, s;  // element strides; head_dim is contiguous
 };
 
-template <int DP>
-constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (static_cast<size_t>(kBQ) * (DP + kPad) +
-                         static_cast<size_t>(kBK) * (DP + kPad) +
-                         static_cast<size_t>(DP) * (kBK + kPad));
+// named barrier over one consumer warpgroup (id 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int c) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
 }
 
-// DP: head_dim rounded up to a multiple of 16 (the mma k-step).
+// one 64 x 64 box of the output from shared memory, asynchronously
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int col0,
+                                          int head, int row0, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col0), "r"(head), "r"(row0), "r"(batch)
+      : "memory");
+}
+
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, Strides sq,
-                 Strides sk, Strides sv, Strides so, int H, int KH, int S,
-                 int D, float scale, int causal) {
-  constexpr int LD = DP + kPad;     // row pitch of Qs and Ks
-  constexpr int LDV = kBK + kPad;   // row pitch of Vt
-  constexpr int KSTEPS = DP / 16;   // k-steps of Q.K^T
-  constexpr int NT_S = kBK / 8;     // score n-tiles per row block
-  constexpr int NT_O = DP / 8;      // output n-tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // kBQ x LD
-  bf16* Ks = Qs + kBQ * LD;                      // kBK x LD
-  bf16* Vt = Ks + kBK * LD;                      // DP x LDV (V transposed)
+struct Smem {
+  static constexpr int kPanels = (DP + kPanelCols - 1) / kPanelCols;
+  static constexpr int kTile = kPanels * kPanelBytes;  // one 64-row tile, all panels
+  static constexpr int kQ = 0;                          // a Q tile per consumer
+  static constexpr int kO = kQ + kConsumers * kTile;    // an output staging tile per consumer
+  static constexpr int kK = kO + kConsumers * kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;    // q_full, q_empty, full[], empty[]
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;  // + alignment slack
+};
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
-  const bf16 zero = __float2bfloat16_rn(0.0f);
+// A work item is 128 query rows of one (head, batch): item w takes query
+// block n_qb - 1 - w / (H * B), so the items with the most K/V tiles come first.
+struct Item {
+  int q0, h, b, n_tiles, n_active;
+};
+__device__ __forceinline__ Item item_at(int w, int H, int B, int S, int causal) {
+  const int n_qb = (S + kConsumers * kRows - 1) / (kConsumers * kRows);
+  const int rem = w % (H * B);
+  Item it;
+  it.q0 = (n_qb - 1 - w / (H * B)) * (kConsumers * kRows);
+  it.h = rem % H;
+  it.b = rem / H;
+  const int n_kv = (S + kRows - 1) / kRows;
+  const int last_row = min(it.q0 + kConsumers * kRows, S) - 1;
+  it.n_tiles = causal ? min(n_kv, last_row / kRows + 1) : n_kv;
+  it.n_active = min(kConsumers, (S - it.q0 + kRows - 1) / kRows);
+  return it;
+}
 
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* kb = k + b * sk.b + kh * sk.h;
-  const bf16* vb = v + b * sv.b + kh * sv.h;
+// DP: head_dim rounded up to a multiple of 16 (the wgmma k-step).  A
+// persistent block walks the work items blockIdx.x, blockIdx.x + gridDim.x,
+// ...; the K/V ring and the barriers' phases run on across items, so the
+// producer loads the next item's Q and K/V while the consumers finish this one.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_o, int H, int KH, int B, int S,
+                 float scale_log2, int causal) {
+  using L = Smem<DP>;
+  constexpr int KSTEPS = DP / 16;
+  extern __shared__ unsigned char smem_raw[];
+  // 128B-swizzled tiles start on 1024-byte boundaries of the shared window
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_q_full = base + L::kBars;
+  const uint32_t bar_q_empty = bar_q_full + 8;
+  const uint32_t bar_full = bar_q_empty + 8;          // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
+  const int n_items = (S + kConsumers * kRows - 1) / (kConsumers * kRows) * H * B;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int idx = tid; idx < kBQ * DP; idx += kThreads) {
-    const int r = idx / DP, d = idx % DP;
-    Qs[r * LD + d] = (q0 + r < S && d < D) ? qb[(q0 + r) * sq.s + d] : zero;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q_full, 1);
+    mbar_init(bar_q_empty, kConsumers * 4);  // every consumer warp arrives
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, for every k-step
-  const int wr = warp * 16;
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const bf16* base = Qs + (wr + g) * LD + ks * 16 + 2 * t;
-    qa[ks][0] = ld32(base);
-    qa[ks][1] = ld32(base + 8 * LD);
-    qa[ks][2] = ld32(base + 8);
-    qa[ks][3] = ld32(base + 8 * LD + 8);
+  if (warp == kConsumers * 4) {
+    // ------------------------------------------------------------ producer
+    if (lane != 0) return;
+    int tile = 0;  // K/V tiles loaded by this block so far
+    for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+      const Item it = item_at(w, H, B, S, causal);
+      const int kh = it.h / (H / KH);
+      if (n > 0) mbar_wait(bar_q_empty, (n - 1) & 1);
+      mbar_expect_tx(bar_q_full, it.n_active * L::kTile);
+      for (int c = 0; c < it.n_active; ++c)
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load(base + L::kQ + c * L::kTile + p * kPanelBytes, &tm_q, p * kPanelCols, it.h,
+                   it.q0 + c * kRows, it.b, bar_q_full);
+      for (int t = 0; t < it.n_tiles; ++t, ++tile) {
+        const int s = tile % kStages;
+        if (tile >= kStages) mbar_wait(bar_empty + 8 * s, (tile / kStages - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L::kTile);
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load(base + L::kK + s * L::kTile + p * kPanelBytes, &tm_k, p * kPanelCols, kh,
+                   t * kRows, it.b, full);
+          tma_load(base + L::kV + s * L::kTile + p * kPanelBytes, &tm_v, p * kPanelCols, kh,
+                   t * kRows, it.b, full);
+        }
+      }
+    }
+    return;
   }
 
-  // rows g and g + 8 of the warp's block: running max, partial sum, output
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
-  float acc[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  // -------------------------------------------------------------- consumers
+  const int c = warp / 4, wi = warp % 4;
+  const int tq = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;
+  const uint32_t q_tile = base + L::kQ + c * L::kTile;
+  const uint32_t o_tile = base + L::kO + c * L::kTile;
+  int tile = 0;
+  for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+    const Item it = item_at(w, H, B, S, causal);
+    const int r0 = it.q0 + c * kRows;  // this warpgroup's first query row
+    const int row_a = r0 + wi * 16 + lane / 4, row_b = row_a + 8;
+    const bool active = c < it.n_active;
+    // the last K/V tile this warpgroup reads: its last row's, under the causal mask
+    const int my_last = !active ? -1
+                        : causal ? min(it.n_tiles - 1, (min(r0 + kRows, S) - 1) / kRows)
+                                 : it.n_tiles - 1;
 
-  const int n_tiles = (S + kBK - 1) / kBK;
-  const int last_q = min(q0 + kBQ, S) - 1;
-  const int last_tile = causal ? min(n_tiles - 1, last_q / kBK) : n_tiles - 1;
-  for (int kt = 0; kt <= last_tile; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int idx = tid; idx < kBK * DP; idx += kThreads) {
-      const int c = idx / DP, d = idx % DP;
-      const bool in = k0 + c < S && d < D;
-      Ks[c * LD + d] = in ? kb[(k0 + c) * sk.s + d] : zero;
-      Vt[d * LDV + c] = in ? vb[(k0 + c) * sv.s + d] : zero;
-    }
-    __syncthreads();
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
+    float oacc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.0f;
+    float sacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = 0.0f;
 
-    float s[NT_S][4];
+    mbar_wait(bar_q_full, n & 1);
+    if (!active && lane == 0) mbar_arrive(bar_q_empty);
+    for (int t = 0; t < it.n_tiles; ++t, ++tile) {
+      const int s = tile % kStages;
+      mbar_wait(bar_full + 8 * s, (tile / kStages) & 1);
+      if (t <= my_last) {
+        const uint32_t k_tile = base + L::kK + s * L::kTile;
+        const uint32_t v_tile = base + L::kV + s * L::kTile;
+        // S = Q . K^T (64 x 64, f32)
+        fence_regs(sacc);
+        wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        const bf16* kp = Ks + (nt * 8 + g) * LD + ks * 16 + 2 * t;
-        mma_bf16(s[nt], qa[ks], ld32(kp), ld32(kp + 8));
-      }
-    }
+        for (int j = 0; j < KSTEPS; ++j) {
+          const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
+          Wgmma<64>::ss(sacc, sw128_desc(q_tile + off, 16, 1024),
+                        sw128_desc(k_tile + off, 16, 1024), j > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sacc);
+        if (t == my_last && lane == 0) mbar_arrive(bar_q_empty);  // Q is free for the next item
 
-    // scale, mask, and the tile's row maxima (over the 4 lanes of a row)
-    float mx0 = kNegInf, mx1 = kNegInf;
+        // scale (into the exp2 domain), mask, row maxima over the quad
+        const int k0 = t * kRows;
+        const bool need_mask = k0 + kRows > S || (causal && k0 + kRows - 1 > r0);
+        float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + e;
-        const bool ok = col < S;
-        s[nt][e] = (ok && (!causal || col <= row0)) ? s[nt][e] * scale : kNegInf;
-        s[nt][2 + e] = (ok && (!causal || col <= row1)) ? s[nt][2 + e] * scale : kNegInf;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.0f, ps1 = 0.0f;
+          for (int e = 0; e < 2; ++e) {
+            float sa = sacc[4 * j + e] * scale_log2, sb = sacc[4 * j + 2 + e] * scale_log2;
+            if (need_mask) {
+              const int col = k0 + 8 * j + 2 * tq + e;
+              const bool ok = col < S;
+              sa = (ok && (!causal || col <= row_a)) ? sa : kNegInf;
+              sb = (ok && (!causal || col <= row_b)) ? sb : kNegInf;
+            }
+            sacc[4 * j + e] = sa;
+            sacc[4 * j + 2 + e] = sb;
+            mx_a = fmaxf(mx_a, sa);
+            mx_b = fmaxf(mx_b, sb);
+          }
+        }
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+        const float corr_a = exp2f(m_a - mn_a), corr_b = exp2f(m_b - mn_b);
+        m_a = mn_a;
+        m_b = mn_b;
+        float ps_a = 0.0f, ps_b = 0.0f;
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = expf(s[nt][e] - mn0);
-        s[nt][2 + e] = expf(s[nt][2 + e] - mn1);
-        ps0 += s[nt][e];
-        ps1 += s[nt][2 + e];
-      }
-    }
-    l0 = l0 * c0 + ps0;  // this lane's share; the 4 lanes are summed at the end
-    l1 = l1 * c1 + ps1;
+          for (int e = 0; e < 2; ++e) {
+            sacc[4 * j + e] = exp2f(sacc[4 * j + e] - mn_a);
+            sacc[4 * j + 2 + e] = exp2f(sacc[4 * j + 2 + e] - mn_b);
+            ps_a += sacc[4 * j + e];
+            ps_b += sacc[4 * j + 2 + e];
+          }
+        }
+        l_a = l_a * corr_a + ps_a;  // this thread's share; the quad is summed at the end
+        l_b = l_b * corr_b + ps_b;
 #pragma unroll
-    for (int i = 0; i < NT_O; ++i) {
-      acc[i][0] *= c0;
-      acc[i][1] *= c0;
-      acc[i][2] *= c1;
-      acc[i][3] *= c1;
-    }
+        for (int j = 0; j < DP / 8; ++j) {
+          oacc[4 * j] *= corr_a;
+          oacc[4 * j + 1] *= corr_a;
+          oacc[4 * j + 2] *= corr_b;
+          oacc[4 * j + 3] *= corr_b;
+        }
 
-    // O += P . V: score n-tiles (2j, 2j+1) are the A fragment of k-step j
+        // O += P . V: score columns 16kk..16kk+15 are the A fragment of k-step kk
+        uint32_t pa[4][4];
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+        for (int kk = 0; kk < 4; ++kk) {
+          pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+        }
+        fence_regs(oacc);
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < NT_O; ++i) {
-        const bf16* vp = Vt + (i * 8 + g) * LDV + j * 16 + 2 * t;
-        mma_bf16(acc[i], pa, ld32(vp), ld32(vp + 8));
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<DP>::rs(oacc, pa[kk], sw128_desc(v_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(oacc);
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+    if (!active) continue;
+
+    // epilogue: O / l into this warpgroup's staging tile (128B-swizzled, as
+    // the output map reads it), then one TMA store a panel
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    const float inv_a = 1.0f / fmaxf(l_a, 1e-30f), inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    warpgroup_sync(c);  // the previous item's store has read the staging tile
+    const int ra = wi * 16 + lane / 4, rb = ra + 8;  // rows within the tile
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const uint32_t panel = o_tile + (j / 8) * kPanelBytes;
+      const uint32_t col = 4 * tq;  // byte within the 16-byte chunk
+      const uint32_t pa_ = pack_bf16(oacc[4 * j] * inv_a, oacc[4 * j + 1] * inv_a);
+      const uint32_t pb_ = pack_bf16(oacc[4 * j + 2] * inv_b, oacc[4 * j + 3] * inv_b);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(panel + ra * 128 + (((j % 8) ^ (ra % 8)) << 4) + col),
+                   "r"(pa_) : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(panel + rb * 128 + (((j % 8) ^ (rb % 8)) << 4) + col),
+                   "r"(pb_) : "memory");
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the TMA unit
+    warpgroup_sync(c);
+    if (leader) {
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_store(&tm_o, o_tile + p * kPanelBytes, p * kPanelCols, it.h, r0, it.b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-  bf16* ob = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int d = i * 8 + 2 * t + e;
-      if (d >= D) continue;
-      if (row0 < S) ob[static_cast<int64_t>(row0) * so.s + d] = __float2bfloat16_rn(acc[i][e] / den0);
-      if (row1 < S) ob[static_cast<int64_t>(row1) * so.s + d] = __float2bfloat16_rn(acc[i][2 + e] / den1);
-    }
+// ------------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda; looked up once
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
   }
+  return fn;
+}
+
+// a (D, heads, seq, batch) map with 64 x 64 boxes, 128B swizzle, zero fill
+// past every edge.  Strides in elements; a dimension of size 1 takes any
+// valid stride (its stride is never used).
+bool encode(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B, Strides st) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const uint64_t row = static_cast<uint64_t>(D) * sizeof(bf16);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {heads > 1 ? st.h * sizeof(bf16) : row,
+                                 S > 1 ? st.s * sizeof(bf16) : row,
+                                 B > 1 ? st.b * sizeof(bf16) : row};
+  const cuuint32_t box[4] = {kPanelCols, 1, kRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the SM count of device `dev`, looked up once a device
+int sm_count(int dev) {
+  static int counts[kMaxDevices] = {};
+  int n = dev < kMaxDevices ? counts[dev] : 0;
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  if (dev < kMaxDevices) counts[dev] = n;
+  return n;
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, Strides sq,
-           Strides sk, Strides sv, Strides so, int B, int H, int KH, int S,
-           int D, float scale, int causal, cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int S, float scale, int causal,
+           cudaStream_t st) {
+  constexpr int smem = Smem<DP>::kBytes;
+  // once per template instance and device: the attribute belongs to the
+  // current device's context
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<DP><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), sq, sk, sv, so, H, KH, S, D, scale, causal);
+  if (dev >= kMaxDevices || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) attr_set[dev] = true;
+  }
+  const int per_block = kConsumers * kRows;
+  const int n_items = (S + per_block - 1) / per_block * H * B;
+  const int n_sm = sm_count(dev);
+  if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  flash_fwd_kernel<DP><<<min(n_items, n_sm), kThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], H, KH, B, S, scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -253,18 +499,23 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                           int64_t sob, int64_t soh, int64_t sos,
                           int B, int H, int KH, int S, int D, float scale,
                           int causal, void* stream) {
-  if (D < 1 || D > kMaxD || KH < 1 || H % KH != 0)
+  if (D < 8 || D > kMaxD || D % 8 != 0 || KH < 1 || H % KH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs}, so{sob, soh, sos};
+  CUtensorMap maps[4];
+  if (!encode(&maps[0], q, D, H, S, B, Strides{sqb, sqh, sqs}) ||
+      !encode(&maps[1], k, D, KH, S, B, Strides{skb, skh, sks}) ||
+      !encode(&maps[2], v, D, KH, S, B, Strides{svb, svh, svs}) ||
+      !encode(&maps[3], o, D, H, S, B, Strides{sob, soh, sos}))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((D + 15) / 16) {
-    case 1: return launch<16>(q, k, v, o, sq, sk, sv, so, B, H, KH, S, D, scale, causal, st);
-    case 2: return launch<32>(q, k, v, o, sq, sk, sv, so, B, H, KH, S, D, scale, causal, st);
-    case 3: return launch<48>(q, k, v, o, sq, sk, sv, so, B, H, KH, S, D, scale, causal, st);
-    case 4: return launch<64>(q, k, v, o, sq, sk, sv, so, B, H, KH, S, D, scale, causal, st);
-    case 5: return launch<80>(q, k, v, o, sq, sk, sv, so, B, H, KH, S, D, scale, causal, st);
-    case 6: return launch<96>(q, k, v, o, sq, sk, sv, so, B, H, KH, S, D, scale, causal, st);
-    case 7: return launch<112>(q, k, v, o, sq, sk, sv, so, B, H, KH, S, D, scale, causal, st);
-    default: return launch<128>(q, k, v, o, sq, sk, sv, so, B, H, KH, S, D, scale, causal, st);
+    case 1: return launch<16>(maps, B, H, KH, S, scale, causal, st);
+    case 2: return launch<32>(maps, B, H, KH, S, scale, causal, st);
+    case 3: return launch<48>(maps, B, H, KH, S, scale, causal, st);
+    case 4: return launch<64>(maps, B, H, KH, S, scale, causal, st);
+    case 5: return launch<80>(maps, B, H, KH, S, scale, causal, st);
+    case 6: return launch<96>(maps, B, H, KH, S, scale, causal, st);
+    case 7: return launch<112>(maps, B, H, KH, S, scale, causal, st);
+    default: return launch<128>(maps, B, H, KH, S, scale, causal, st);
   }
 }

@@ -8,7 +8,9 @@ tensors; any other device raises.  They replace the Pallas kernel of the
 reference's `kernels/flash_attention/kernel.py`, which computes the math of
 `models.common.chunked_attention` when Sq == Sk.  Bound on the card: bytes
 at the serving shapes (see the source note).  The kernel takes bfloat16
-(its products run on the tensor cores); other dtypes on CUDA raise.
+(its products run on the tensor cores); other dtypes on CUDA raise, as do
+q, k, v that its TMA loads cannot address (head_dim not a multiple of 8, a
+base or stride not a multiple of 16 bytes).
 
 Causal alignment: the Pallas kernel masks top-left (k_pos <= q_pos), the
 reference oracle bottom-right; the two agree only for Sq == Sk, the only
@@ -24,7 +26,7 @@ import torch
 from .. import _lib
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # the kernel's register tile; kMaxD in the source
+MAX_HEAD_DIM = 128  # two 64-column panels; kMaxD in the source
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,18 +72,36 @@ def _launch(q, k, v, o, causal: bool, scale: float) -> None:
     if not (q.dtype == k.dtype == v.dtype == o.dtype == torch.bfloat16):
         raise TypeError(f"the kernel takes bfloat16 q, k, v (tensor-core products), got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    args = []
     for t in (q, k, v, o):
-        if t.stride(-1) != 1:
+        st = t.stride()
+        if st[3] != 1:
             raise ValueError("head_dim must be contiguous")
+        args.append(st)
+    ptrs = [t.data_ptr() for t in (q, k, v, o)]
+    for t, st, ptr in zip((q, k, v), args, ptrs):
+        _check_tma(t, st, ptr)
     if q.numel() == 0:
         return
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     lib = _lib.load("flash_attention", _SIGNATURES)
-    err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                         *strides, B, H, k.shape[1], S, D, float(scale), int(causal),
+    err = lib.fa_forward(*ptrs, *args[0][:3], *args[1][:3], *args[2][:3], *args[3][:3],
+                         B, H, k.shape[1], S, D, float(scale), int(causal),
                          _lib.stream_handle(q))
     _lib.check("flash_attention", err)
     flash_attention.launches += 1
+
+
+def _check_tma(t: torch.Tensor, st: tuple, ptr: int) -> None:
+    """The kernel reads q, k and v through TMA tensor maps, which address
+    16-byte-aligned bases and strides only (a bf16 stride a multiple of 8
+    elements): raise on anything else (no fallback)."""
+    n = t.shape
+    if (n[3] % 8 or ptr % 16 or (st[0] % 8 and n[0] > 1) or (st[1] % 8 and n[1] > 1)
+            or (st[2] % 8 and n[2] > 1)):
+        raise ValueError(
+            f"flash_attention: TMA cannot address a tensor of shape {tuple(n)}, strides {st}, "
+            f"base {ptr % 16} bytes past 16-byte alignment; head_dim must be a multiple of 8 "
+            f"and every stride a multiple of 16 bytes")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

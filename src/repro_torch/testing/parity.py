@@ -59,3 +59,17 @@ def tol(dtype) -> dict:
     if dtype == torch.bfloat16:
         return dict(atol=5e-2, rtol=5e-2)
     return dict(atol=3e-5, rtol=3e-5)
+
+
+def attn_tol(dtype) -> dict:
+    """The attention kernels against their plain versions: in bf16, atol
+    1e-2 and rtol 1e-2, a fifth of `tol`'s.  The rtol covers one bf16 ulp of
+    the output (at most 2^-7 of it) where the two round the same f32 value
+    apart; the atol is a few times the largest difference of a sound kernel
+    (0.002-0.004 at the smoke shapes on the H100) and well under what one
+    dropped 16-key group of zamba2-2.7b's 528 keys, or one dropped split of
+    eight, moves the outputs (about 0.01 spread, four times that at the
+    worst element).  f32 as `tol`."""
+    if dtype == torch.bfloat16:
+        return dict(atol=1e-2, rtol=1e-2)
+    return tol(dtype)

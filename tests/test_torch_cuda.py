@@ -9,8 +9,9 @@ reference package, so it runs on a machine with the card alone:
 (`--noconftest` skips tests/conftest.py, which imports JAX.)
 
 Tolerances are those of tests/test_kernels.py (`_tol`: bf16 5e-2, f32
-3e-5; the SSD scan atol 5e-4, rtol 2e-3, its test_ssd_scan); quantize and
-dequantize must be bit-equal.
+3e-5; the SSD scan atol 5e-4, rtol 2e-3, its test_ssd_scan), tighter for
+the attention kernels in bf16 (`attn_tol`: atol and rtol 1e-2); quantize
+and dequantize must be bit-equal.
 """
 
 import numpy as np
@@ -22,7 +23,7 @@ from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.rmsnorm import ops as rn
 from repro_torch.kernels.ssd_scan import ops as ssd
-from repro_torch.testing.parity import tol
+from repro_torch.testing.parity import attn_tol, tol
 
 
 def _normal(seed, shape, scale=1.0):
@@ -47,7 +48,13 @@ def _on(device, seed, shape, dtype, scale=1.0):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("B,H,KH,S,D", [(2, 4, 2, 256, 64), (2, 32, 32, 128, 80),
                                         (1, 8, 2, 12, 128), (3, 4, 4, 130, 32),
-                                        (1, 2, 1, 70, 40)])
+                                        (1, 2, 1, 70, 40),
+                                        (1, 40, 8, 128, 128),  # qwen3-14b grouping (40/8)
+                                        (2, 4, 2, 300, 80),    # ragged: a short last tile
+                                        (1, 8, 8, 512, 80),    # eight K/V tiles through the ring
+                                        (2, 4, 2, 1, 64),      # one token
+                                        (2, 4, 4, 190, 64),    # one active warpgroup at the end
+                                        ])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, KH, S, D):
     dtype = torch.bfloat16
     q = _on(cuda, 30, (B, H, S, D), dtype)
@@ -58,7 +65,7 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, KH, S, D):
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     want = fa.flash_attention_plain(q, k, v)
-    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **tol(dtype))
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **attn_tol(dtype))
     bthd = fa.attention_bthd(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                              v.transpose(1, 2).contiguous())
     np.testing.assert_array_equal(_np(bthd.transpose(1, 2).cpu()), _np(got.cpu()))
@@ -71,6 +78,26 @@ def test_flash_attention_kernel_refuses_float32(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_attention(q, q, q)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("what", ["base", "stride", "head_dim"])
+def test_flash_attention_kernel_raises_where_tma_cannot_address(cuda, what):
+    """TMA addresses 16-byte-aligned bases and strides only: a misaligned
+    base, a row stride of 132 bytes, or head_dim 36 (72-byte rows) raise in
+    the wrapper; nothing falls back."""
+    bf16 = torch.bfloat16
+    q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=bf16)
+    if what == "base":
+        bad = torch.zeros(2 * 16 * 64 + 1, device=cuda, dtype=bf16)[1:].view(1, 2, 16, 64)
+    elif what == "stride":
+        bad = torch.zeros(1, 16, 2, 66, device=cuda, dtype=bf16)[..., :64].transpose(1, 2)
+    else:
+        q = bad = torch.zeros(1, 2, 16, 36, device=cuda, dtype=bf16)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(q, bad, q)
+    assert fa.flash_attention.launches == before
 
 
 @pytest.mark.requires_cuda
@@ -139,6 +166,13 @@ def test_model_layers_through_kernels(cuda):
     (4, 528, 32, 1, 80, 517),   # zamba2-2.7b decode, batch 4
     (2, 300, 8, 5, 128, 291),   # qwen3-14b grouping (G = 5), ragged S
     (1, 70, 2, 3, 64, 1),       # one valid position
+    (4, 528, 32, 1, 80, 1),     # zamba2-2.7b's shape: 8 warps a block; one position
+    (1, 1024, 8, 1, 80, 1),     # split over the sequence (8 of 128 keys), one position
+    (1, 1024, 8, 1, 80, 128),   # kv_len on a split boundary
+    (1, 1024, 8, 1, 80, 257),   # one past the second boundary
+    (1, 1024, 8, 1, 80, 40),    # seven of eight splits empty
+    (2, 1024, 4, 2, 80, (1, 1024)),  # per-row lengths: one row at 1, one full
+    (1, 4096, 8, 1, 128, 4000),  # 8 splits of 512, head_dim 128, 8 warps a block
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_decode_attention_kernel_matches_plain(cuda, B, S, KH, G, D, kv_len, dtype):
@@ -146,12 +180,13 @@ def test_decode_attention_kernel_matches_plain(cuda, B, S, KH, G, D, kv_len, dty
     k = _on(cuda, 41, (B, S, KH, D), dtype)
     v = _on(cuda, 42, (B, S, KH, D), dtype)
     lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    kv_len = kv_len if isinstance(kv_len, int) else lens
     before = da.decode_attention.launches
     got = da.decode_attention_bthd(q, k, v, lens)
     torch.cuda.synchronize()
     assert da.decode_attention.launches == before + 1
     want = da.decode_attention_plain(q, k, v, lens)
-    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **tol(dtype))
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **attn_tol(dtype))
     # the reference kernel's layout and a Python int give the same result
     grouped = da.decode_attention(q.reshape(B, KH, G, D), k.transpose(1, 2).contiguous(),
                                   v.transpose(1, 2).contiguous(), kv_len)
@@ -172,6 +207,39 @@ def test_decode_attention_kernel_masks_tail(cuda):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,KH,G", [(4, 528, 32, 1), (8, 160, 32, 1), (2, 300, 8, 5),
+                                       (1, 1024, 8, 1)])
+def test_decode_attention_kernel_is_deterministic(cuda, B, S, KH, G):
+    """The splits merge in a fixed order, without float atomics: two calls
+    give bit-equal outputs."""
+    q = _on(cuda, 60, (B, 1, KH * G, 80), torch.bfloat16)
+    k = _on(cuda, 61, (B, S, KH, 80), torch.bfloat16)
+    v = _on(cuda, 62, (B, S, KH, 80), torch.bfloat16)
+    lens = torch.tensor(S - 3, dtype=torch.int32, device=cuda)
+    first = da.decode_attention_bthd(q, k, v, lens)
+    again = da.decode_attention_bthd(q, k, v, lens)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_np(first.cpu()), _np(again.cpu()))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("plan", [(1, 1024, 0), (1, 1024, 1), (2, 512, 0), (2, 512, 1),
+                                  (3, 342, 1), (8, 128, 0), (8, 128, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_attention_kernel_every_plan_matches_plain(cuda, plan, dtype):
+    """Each split count and block shape computes the same attention: a
+    plan that is not `split_plan`'s choice, held to the plain version at a
+    kv_len that leaves the last splits partly or wholly empty."""
+    q = _on(cuda, 63, (2, 1, 8, 80), dtype)
+    k = _on(cuda, 64, (2, 1024, 4, 80), dtype)
+    v = _on(cuda, 65, (2, 1024, 4, 80), dtype)
+    lens = torch.tensor([700, 1024], dtype=torch.int32, device=cuda)
+    got = da.decode_attention_bthd(q, k, v, lens, plan=plan)
+    want = da.decode_attention_plain(q, k, v, lens)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **attn_tol(dtype))
+
+
+@pytest.mark.requires_cuda
 def test_decode_attention_kernel_per_row_lengths(cuda):
     """A (B,) kv_len masks each batch row at its own length."""
     q = _on(cuda, 46, (3, 1, 8, 64), torch.bfloat16)
@@ -180,7 +248,7 @@ def test_decode_attention_kernel_per_row_lengths(cuda):
     lens = torch.tensor([5, 96, 40], dtype=torch.int32, device=cuda)
     got = da.decode_attention_bthd(q, k, v, lens)
     want = da.decode_attention_plain(q, k, v, lens)
-    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **tol(torch.bfloat16))
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **attn_tol(torch.bfloat16))
     for b in range(3):
         row = da.decode_attention_bthd(q[b:b + 1], k[b:b + 1], v[b:b + 1], int(lens[b]))
         np.testing.assert_array_equal(_np(row.cpu()), _np(got[b:b + 1].cpu()))

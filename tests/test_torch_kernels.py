@@ -215,6 +215,65 @@ def test_decode_attention_model_layout_matches_reference(kv_len, dtypes):
     np.testing.assert_allclose(_np(got), want, **tol(tdt))
 
 
+def _check_plan(B, KH, S, n_sm):
+    n, per, ring = da.split_plan(B, KH, S, n_sm)
+    assert 0 <= ring < len(da.RINGS)  # a block shape the source builds
+    if 2 * B * KH > n_sm:
+        assert n == 1  # enough blocks already: one split
+    assert 1 <= n <= da.MAX_SPLITS
+    bounds = [(i * per, min((i + 1) * per, S)) for i in range(n)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == S  # [0, S) exactly,
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(bounds, bounds[1:]))  # no gap, no overlap
+    assert all(hi > lo for lo, hi in bounds)
+    if n > 1:
+        assert all(hi - lo >= da.MIN_SPLIT_KEYS for lo, hi in bounds)
+    return n, per
+
+
+@pytest.mark.parametrize("B,KH,S,n_sm", [
+    (4, 32, 528, 132),    # zamba2-2.7b decode
+    (8, 32, 160, 132),    # stablelm-3b decode
+    (1, 8, 4096, 132),    # a long cache over few heads: capped splits
+    (1, 8, 129, 132),     # two splits of 65 and 64
+    (2, 8, 300, 132),
+    (64, 32, 4096, 132),  # far above the threshold
+    (1, 1, 1, 132),
+    (1, 2, 70, 132),
+    (3, 4, 96, 16),
+])
+def test_decode_split_plan(B, KH, S, n_sm):
+    """The split heuristic is a plain function of host-known shapes: one
+    split at or above the threshold, every split of a several-way plan at
+    least MIN_SPLIT_KEYS keys, and the splits cover [0, S) exactly."""
+    _check_plan(B, KH, S, n_sm)
+
+
+def test_decode_split_plan_at_the_smoke_shapes():
+    """On the H100 (132 SMs): zamba2-2.7b's 4 x 32 = 128 (batch, KV head)
+    blocks, one an SM, each stream 528 keys through 8 warps;
+    stablelm-3b's 8 x 32 = 256 stream 160 keys each through 4 warps.  Neither
+    splits: the kernel's sweep (`decode_attention/sweep.py`) measured the
+    splits slower there.  Below, the sweep's fastest plan (or one within 5%
+    of it) at shapes that split."""
+    assert da.split_plan(4, 32, 528, 132) == (1, 528, 1)
+    assert da.split_plan(8, 32, 160, 132) == (1, 160, 0)
+    # a long cache over few heads (one sequence of qwen3-14b's 8 KV heads):
+    # eight splits of 512 keys, 8 warps each
+    assert da.split_plan(1, 8, 4096, 132) == (8, 512, 1)
+    assert da.split_plan(2, 8, 1024, 132) == (6, 171, 1)   # 96 blocks
+    assert da.split_plan(8, 8, 4096, 132) == (2, 2048, 1)  # 64 pairs: still two
+    assert da.split_plan(1, 32, 528, 132) == (3, 176, 1)
+    assert da.split_plan(16, 8, 4096, 132) == (1, 4096, 1)  # 128 pairs: one
+
+
+def test_decode_split_plan_over_a_grid_of_shapes():
+    for B in (1, 2, 3, 4, 8, 16, 64):
+        for KH in (1, 2, 4, 8, 32, 40):
+            for S in (1, 2, 63, 64, 65, 127, 128, 129, 160, 300, 528, 1000, 4096, 32768):
+                for n_sm in (16, 132):
+                    _check_plan(B, KH, S, n_sm)
+
+
 # --------------------------------------------------------------- ssd scan
 
 SSD_TOL = dict(atol=5e-4, rtol=2e-3)
