@@ -10,11 +10,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 1. build the five CUDA libraries from `src/repro_torch/kernels/*/csrc` with
    nvcc for sm_90a, one nvcc per source, in parallel;
 2. hold every kernel against its plain PyTorch version on the card at the
-   main paths' shapes (flash and decode attention at every shape the smoke
-   paths run, decode attention also at one that splits the sequence), and
-   time it beside its bound, its plain version and one
-   PyTorch library call (a yardstick only; the port never calls it), with
-   the host time of one call;
+   main paths' shapes (rmsnorm, flash and decode attention at every shape
+   the smoke paths run, rmsnorm also at qwen3-14b's qk_norm and decode
+   attention at one that splits the sequence; ssd_scan in f32 with q and k
+   broadcast or per head, with and without log_i, and in bf16), and time
+   it beside its bound, its plain version and one PyTorch library call (a
+   yardstick only; the port never calls it), with the host time of one
+   call;
 3. serve stablelm-3b at full width (32 layers, random weights from a seed)
    through calibrate_runtime -> PoolDispatcher -> DataPlane with measured
    feedback, on the hand-pinned 2-stage pooled plan, and show that serving
@@ -33,7 +35,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    held, cache slot by cache slot, to the layers walked one at a time;
    every layer of every group is held to the plain math, and its decode
    form to its full form, from the same input; the launch counts show the
-   path ran rmsnorm, flash_attention, decode_attention and ssd_scan.
+   path ran rmsnorm, flash_attention, decode_attention and ssd_scan; a
+   profiler window over one prefill of each model reads its device busy
+   share and top kernels.
+
+With `--parent ROOT` (another tree of the repository, such as the parent
+commit unpacked), every kernel that tree has is built too, timed in turns
+with this tree's at the same inputs, and run in a second profiled prefill.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or
@@ -42,6 +50,7 @@ outside a checkout, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -59,12 +68,13 @@ N_REQUESTS = 48
 DECODE_RUNS = (("stablelm-3b", 8, 128, 32), ("zamba2-2.7b", 4, 512, 16))
 PROFILED_STEPS = 4
 
-# NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 and TF32 tensor-core
-# peaks, f32 peak outside the tensor cores.  A product with an f32 operand
-# keeps f32 precision on the tensor cores as 3xTF32 (three TF32 products).
+# NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 tensor-core peak, f32
+# peak outside the tensor cores.  The ssd_scan kernel's products with an f32
+# operand split it into two bf16 parts (16 significant bits), two bf16
+# products each: its bound counts them at half the bf16 peak.
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
-TF32X3_FLOP_S = 495e12 / 3
+BF16X2_FLOP_S = BF16_FLOP_S / 2
 F32_FLOP_S = 67e12
 
 KERNEL_SOURCES = {
@@ -148,11 +158,31 @@ def gpu_line() -> str:
 # ----------------------------------------------------------------- phase 1
 
 
-def phase_build() -> None:
+def load_parent(root: Path) -> dict:
+    """The kernel wrapper modules of another tree of this repository
+    (`--parent ROOT`), by kernel name, one for every kernel its `_lib`
+    builds; imported under the package name `parent_kernels` so they sit
+    beside this tree's.  Their libraries build into that tree."""
+    import importlib
+    import importlib.util
+
+    pkg = root / "src" / "repro_torch" / "kernels"
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernels", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["parent_kernels"] = module
+    spec.loader.exec_module(module)
+    lib = importlib.import_module("parent_kernels._lib")
+    return {name: importlib.import_module(f"parent_kernels.{name}.ops") for name in lib.SOURCES}
+
+
+def phase_build(parent) -> None:
     from repro_torch.kernels import _lib
 
     t0 = time.perf_counter()
     seconds = _lib.build_all()
+    if parent is not None:
+        sys.modules["parent_kernels._lib"].build_all()
     log(f"[build] {len(seconds)} libraries in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_lib.nvcc_path()}, flags {' '.join(_lib.NVCC_FLAGS)})")
     for name in seconds:
@@ -165,16 +195,14 @@ def phase_build() -> None:
 # ----------------------------------------------------------------- phase 2
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, parent) -> dict:
     """Each kernel against its plain version at the serving shapes; returns
-    the per-kernel measurements for the kernels line."""
-    import numpy as np
+    the per-kernel measurements for the kernels line.  `parent`: the other
+    tree's kernel modules (`--parent`), timed in turns with this tree's, or
+    None."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.boundary_quant import ops as bq
-    from repro_torch.kernels.rmsnorm import ops as rn
-    from repro_torch.testing.parity import tol
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
@@ -184,22 +212,8 @@ def phase_kernels(dev) -> dict:
     def err(a, b) -> float:
         return float((a.float() - b.float()).abs().max())
 
-    # rmsnorm: (B*S, 2560) bf16
-    x = (torch.randn(N, D, generator=g, device=dev) * 3).to(bf16)
-    w = torch.randn(D, generator=g, device=dev).to(bf16)
-    got, want = rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, **tol(bf16))
-    nbytes = 2 * N * D * 2 + D * 2
-    b_ms, b_by = bound_ms(nbytes, (4.0 * N * D, F32_FLOP_S))
-    res["rmsnorm"] = dict(
-        max_abs_err=err(got, want), tol=tol(bf16),
-        ms=time_ms(lambda: rn.rmsnorm(x, w)), plain_ms=time_ms(lambda: rn.rmsnorm_plain(x, w)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)),
-        host_ms=host_ms(lambda: rn.rmsnorm(x, w)))
-
-    res["flash_attention"] = check_flash_attention(dev, g, err)
+    res["rmsnorm"] = check_rmsnorm(dev, g, err, parent)
+    res["flash_attention"] = check_flash_attention(dev, g, err, parent)
 
     # boundary quantization: (B*S, 2560) bf16, the boundary activations
     h = (torch.randn(N, D, generator=g, device=dev) * 20).to(bf16)
@@ -211,34 +225,120 @@ def phase_kernels(dev) -> dict:
         raise AssertionError(f"quantize differs from its plain version: {n_q_diff} values, "
                              f"scales equal {torch.equal(s, sp)}")
     b_ms, b_by = bound_ms(N * D * 2 + N * D + N * 4, (3.0 * N * D, F32_FLOP_S))
+    ms, parent_ms = paired_ms(lambda m: m.quantize(h), bq, parent)
     res["quantize"] = dict(
         max_abs_err=float((qv.int() - qp.int()).abs().max()), tol="bit-equal",
-        ms=time_ms(lambda: bq.quantize(h)), plain_ms=time_ms(lambda: bq.quantize_plain(h)),
+        ms=ms, parent_ms=parent_ms, plain_ms=time_ms(lambda: bq.quantize_plain(h)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, host_ms=host_ms(lambda: bq.quantize(h)))
     got, want = bq.dequantize(qv, s, bf16), bq.dequantize_plain(qv, s, bf16)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"dequantize differs from its plain version by {err(got, want)}")
     b_ms, b_by = bound_ms(N * D + N * 4 + N * D * 2, (1.0 * N * D, F32_FLOP_S))
+    ms, parent_ms = paired_ms(lambda m: m.dequantize(qv, s, bf16), bq, parent)
     res["dequantize"] = dict(
-        max_abs_err=err(got, want), tol="bit-equal",
-        ms=time_ms(lambda: bq.dequantize(qv, s, bf16)),
+        max_abs_err=err(got, want), tol="bit-equal", ms=ms, parent_ms=parent_ms,
         plain_ms=time_ms(lambda: bq.dequantize_plain(qv, s, bf16)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         host_ms=host_ms(lambda: bq.dequantize(qv, s, bf16)))
 
-    res["decode_attention"] = check_decode_attention(dev, g, err)
-    res["ssd_scan"] = check_ssd_scan(dev, g, err)
+    res["decode_attention"] = check_decode_attention(dev, g, err, parent)
+    res["ssd_scan"] = check_ssd_scan(dev, g, err, parent)
     for name, r in res.items():
         lib_us = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f} us"
         log(f"[kernels] {name}: max|err| {r['max_abs_err']:.3g} (tol {r['tol']}), "
-            f"{r['ms'] * 1e3:.1f} us vs bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+            f"{r['ms'] * 1e3:.1f} us{vs_parent(r['parent_ms'])} vs bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
             f"plain {r['plain_ms'] * 1e3:.1f} us, library {lib_us}, "
             f"host {r['host_ms'] * 1e3:.1f} us a call")
     return res
 
 
-def check_flash_attention(dev, g, err) -> dict:
+def paired_ms(call, ops, parent, **kw) -> tuple[float, float | None]:
+    """Device time of `call(ops)`, `ops` this tree's wrapper module of a
+    kernel, and, under `--parent`, of `call` on the other tree's module of
+    the same kernel, timed in turns (parent, this, this, parent) and
+    averaged; None for the parent where there is none or it lacks the
+    kernel."""
+    other = (parent or {}).get(ops.__name__.split(".")[-2])
+    if other is None:
+        return time_ms(lambda: call(ops), **kw), None
+    p0, t0, t1, p1 = (time_ms(lambda m=m: call(m), **kw) for m in (other, ops, ops, other))
+    return (t0 + t1) / 2, (p0 + p1) / 2
+
+
+def vs_parent(parent_ms: float | None) -> str:
+    return "" if parent_ms is None else f", parent {parent_ms * 1e3:.3f} us"
+
+
+def kernel_us(fn, calls: int = 20) -> dict[str, float]:
+    """Device time a call of each kernel `fn` launches, by kernel name, from
+    torch.profiler over `calls` calls (after one warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]:
+            e.device_time_total / calls
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+
+
+def rmsnorm_shapes() -> list[tuple[str, int, int]]:
+    """(what, rows, D) at every shape the smoke paths launch rmsnorm at, and
+    qwen3-14b's qk_norm over 8 x 128 tokens of 40 heads, which no smoke path
+    runs."""
+    _, B, S, _ = DECODE_RUNS[1]
+    return [("serve", BATCH * SEQ, 2560), ("stablelm-3b decode", DECODE_RUNS[0][1], 2560),
+            ("zamba2-2.7b prefill", B * S, 2560),
+            ("zamba2-2.7b prefill, Mamba2 gated norm", B * S, 5120),
+            ("zamba2-2.7b decode", B, 2560), ("zamba2-2.7b decode, Mamba2 gated norm", B, 5120),
+            ("qwen3-14b qk_norm (no smoke path)", 8 * 128 * 40, 128)]
+
+
+def check_rmsnorm(dev, g, err, parent) -> dict:
+    """bf16 rows at every shape of `rmsnorm_shapes`, held to the plain
+    version at `tol(bf16)` and bit-equal run to run, timed beside F.rms_norm.
+    The line's times are the serve shape's; `shapes` holds all."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.testing.parity import tol
+
+    bf16 = torch.bfloat16
+    shapes = []
+    for what, N, D in rmsnorm_shapes():
+        x = (torch.randn(N, D, generator=g, device=dev) * 3).to(bf16)
+        w = torch.randn(D, generator=g, device=dev).to(bf16)
+        got, again, want = rn.rmsnorm(x, w), rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **tol(bf16))
+        if not torch.equal(got, again):
+            raise AssertionError(f"rmsnorm ({what}): two calls differ")
+        b_ms, b_by = bound_ms(2 * N * D * 2 + D * 2, (4.0 * N * D, F32_FLOP_S))
+        ms, parent_ms = paired_ms(lambda m: m.rmsnorm(x, w), rn, parent)
+        r = dict(
+            shape=[N, D], what=what, plan=list(rn.launch_plan(D, 2)), max_abs_err=err(got, want),
+            tol=tol(bf16), ms=ms, parent_ms=parent_ms,
+            plain_ms=time_ms(lambda: rn.rmsnorm_plain(x, w)), bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)),
+            host_ms=host_ms(lambda: rn.rmsnorm(x, w)))
+        log(f"[kernels] rmsnorm at the {what} shape ({N}, {D}) bf16, {r['plan'][0]} lanes x "
+            f"{r['plan'][1]} vectors a row: {ms * 1e3:.3f} us{vs_parent(parent_ms)} vs bound "
+            f"{b_ms * 1e3:.3f} us ({b_by}), F.rms_norm {r['library_ms'] * 1e3:.3f} us, plain "
+            f"{r['plain_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; max|err| "
+            f"{r['max_abs_err']:.3g}; bit-equal run to run")
+        shapes.append(r)
+    return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
+
+
+def check_flash_attention(dev, g, err, parent) -> dict:
     """In the model layout (B, T, H, D), as served, at both prefill shapes
     the smoke paths run: the serve's (8, 128, 32, 80) and zamba2-2.7b's
     (4, 512, 32, 80).  Each against its plain version and, bit for bit, the
@@ -263,16 +363,17 @@ def check_flash_attention(dev, g, err) -> dict:
         torch.testing.assert_close(bhsd.transpose(1, 2), got, atol=0, rtol=0)
         pairs = B * H * S * (S + 1) / 2  # causal (query, key) pairs
         b_ms, b_by = bound_ms(4 * B * S * H * HD * 2, (4.0 * pairs * HD, BF16_FLOP_S))
+        ms, parent_ms = paired_ms(lambda m: m.attention_bthd(q, k, v), fa, parent)
         r = dict(
             shape=[B, S, H, HD], what=what, max_abs_err=err(got, want), tol=attn_tol(bf16),
-            ms=time_ms(lambda: fa.attention_bthd(q, k, v)),
+            ms=ms, parent_ms=parent_ms,
             plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vh)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                                       is_causal=True)),
             host_ms=host_ms(lambda: fa.attention_bthd(q, k, v)))
         log(f"[kernels] flash_attention at the {what} shape (B, T, H, D) = ({B}, {S}, {H}, "
-            f"{HD}): {r['ms'] * 1e3:.3f} us vs bound {r['bound_ms'] * 1e3:.3f} us "
+            f"{HD}): {ms * 1e3:.3f} us{vs_parent(parent_ms)} vs bound {b_ms * 1e3:.3f} us "
             f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.3f} us, SDPA "
             f"{r['library_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; "
             f"max|err| {r['max_abs_err']:.3g}; bit-equal to the (B, H, S, D) copies")
@@ -280,7 +381,7 @@ def check_flash_attention(dev, g, err) -> dict:
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
 
 
-def check_decode_attention(dev, g, err) -> dict:
+def check_decode_attention(dev, g, err, parent) -> dict:
     """At both decode shapes of phase 5, and at one that takes the split path
     (qwen3-14b, one sequence, 8 KV heads, a 4096-key cache), with kv_len =
     the full cache read from a device int32; garbage at and past kv_len must
@@ -326,9 +427,10 @@ def check_decode_attention(dev, g, err) -> dict:
         # q.k and p.v: bf16 operands (p enters P.V as two bf16 parts)
         b_ms, b_by = bound_ms(nbytes, (4.0 * B * H * L * HD, BF16_FLOP_S))
         plan = da.split_plan(B, KH, L, n_sm)
+        ms, parent_ms = paired_ms(lambda m: m.decode_attention_bthd(q, kc, vc, lens), da, parent)
         r = dict(
             shape=[B, L, H, KH, HD], what=what, splits=list(plan), max_abs_err=err(got, want),
-            tol=attn_tol(bf16), ms=time_ms(lambda: da.decode_attention_bthd(q, kc, vc, lens)),
+            tol=attn_tol(bf16), ms=ms, parent_ms=parent_ms,
             plain_ms=time_ms(lambda: da.decode_attention_plain(q, kc, vc, lens)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, **gqa)),
@@ -342,7 +444,7 @@ def check_decode_attention(dev, g, err) -> dict:
         log(f"[kernels] decode_attention at the {what} shape q ({B}, 1, {H}, {HD}), cache "
             f"({B}, {L}, {KH}, {HD}), {plan[0]} split(s) of {plan[1]} keys, "
             f"{da.RINGS[plan[2]]}: "
-            f"{r['ms'] * 1e3:.3f} us vs bound {r['bound_ms'] * 1e3:.3f} us, plain "
+            f"{ms * 1e3:.3f} us{vs_parent(parent_ms)} vs bound {b_ms * 1e3:.3f} us, plain "
             f"{r['plain_ms'] * 1e3:.3f} us, SDPA {r['library_ms'] * 1e3:.3f} us{note}; host "
             f"{r['host_ms'] * 1e3:.3f} us a call; max|err| {r['max_abs_err']:.3g}; "
             f"bit-equal run to run; tail past kv_len masked")
@@ -350,14 +452,16 @@ def check_decode_attention(dev, g, err) -> dict:
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
 
 
-def check_ssd_scan(dev, g, err) -> dict:
+def check_ssd_scan(dev, g, err, parent) -> dict:
     """zamba2-2.7b's Mamba2 scan: q and k one (B, T, 64) tensor broadcast over
     80 heads (head stride 0), v (B, T, 80, 64), chunk 256.  Held to the plain
     version in f32 (atol 5e-4, rtol 2e-3, tests/test_kernels.py's SSD bound)
-    on y and the final state at T = 512 and at a ragged T = 300, with gates
-    log_g = -0.05 softplus(N(0, 1)) so that a 256-step chunk decays by about
-    e^-9 and the carried state matters; then timed in bf16, the model's
-    dtype."""
+    on y and the final state at T = 512 and at a ragged T = 300, with q and
+    k broadcast or per head, with and without log_i, with gates log_g =
+    -0.05 softplus(N(0, 1)) so that a 256-step chunk decays by about e^-9
+    and the carried state matters; then in bf16, the model's dtype (y at
+    `tol(bf16)`, the state at the f32 bound, two calls bit-equal), and
+    timed there."""
     import torch
     import torch.nn.functional as F
 
@@ -368,57 +472,75 @@ def check_ssd_scan(dev, g, err) -> dict:
     NH, DS, HD, chunk = 80, 64, 64, 256
     tol_f32 = dict(atol=5e-4, rtol=2e-3)
 
-    def inputs(T, dtype):
-        c, bm = ((torch.randn(B, T, DS, generator=g, device=dev) * 0.5).to(dtype)
+    def inputs(T, dtype, broadcast=True, with_i=False):
+        shape = (B, T, DS) if broadcast else (B, T, NH, DS)
+        c, bm = ((torch.randn(*shape, generator=g, device=dev) * 0.5).to(dtype)
                  for _ in range(2))
+        if broadcast:
+            c, bm = c[:, :, None].expand(B, T, NH, DS), bm[:, :, None].expand(B, T, NH, DS)
         v = (torch.randn(B, T, NH, HD, generator=g, device=dev) * 0.5).to(dtype)
         log_g = -0.05 * F.softplus(torch.randn(B, T, NH, generator=g, device=dev))
-        return (c[:, :, None].expand(B, T, NH, DS), bm[:, :, None].expand(B, T, NH, DS), v,
-                log_g)
+        log_i = (-F.softplus(torch.randn(B, T, NH, generator=g, device=dev)) if with_i
+                 else None)
+        return c, bm, v, log_g, log_i
 
     worst = 0.0
     for T in (S, 300):
-        args = inputs(T, torch.float32)
-        (y, st), (y0, st0) = (ssd.ssd_scan_bthd(*args, chunk=chunk),
-                              ssd.chunked_linear_attention_plain(*args, chunk=chunk))
-        torch.cuda.synchronize()
-        torch.testing.assert_close(y, y0, **tol_f32)
-        torch.testing.assert_close(st, st0, **tol_f32)
-        worst = max(worst, err(y, y0), err(st, st0))
-        carried = float(st0.abs().max())
-        log(f"[kernels] ssd_scan f32 T={T}: y max|err| {err(y, y0):.3g} at scale "
-            f"{float(y0.abs().max()):.3g}, state max|err| {err(st, st0):.3g} at scale "
-            f"{carried:.3g} (tol atol 5e-4, rtol 2e-3)")
-    args = inputs(S, torch.bfloat16)
+        for broadcast in (True, False):
+            for with_i in (False, True):
+                args = inputs(T, torch.float32, broadcast, with_i)
+                (y, st), (y0, st0) = (ssd.ssd_scan_bthd(*args, chunk=chunk),
+                                      ssd.chunked_linear_attention_plain(*args, chunk=chunk))
+                torch.cuda.synchronize()
+                torch.testing.assert_close(y, y0, **tol_f32)
+                torch.testing.assert_close(st, st0, **tol_f32)
+                worst = max(worst, err(y, y0), err(st, st0))
+                log(f"[kernels] ssd_scan f32 T={T}, q/k "
+                    f"{'broadcast' if broadcast else 'per head'}, "
+                    f"{'with' if with_i else 'no'} log_i: y max|err| {err(y, y0):.3g} at scale "
+                    f"{float(y0.abs().max()):.3g}, state max|err| {err(st, st0):.3g} at scale "
+                    f"{float(st0.abs().max()):.3g} (tol atol 5e-4, rtol 2e-3)")
+    args = inputs(S, torch.bfloat16)[:4]
     y, st = ssd.ssd_scan_bthd(*args, chunk=chunk)
+    y1, st1 = ssd.ssd_scan_bthd(*args, chunk=chunk)
     y0, st0 = ssd.chunked_linear_attention_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, y0, **tol(torch.bfloat16))
     torch.testing.assert_close(st, st0, **tol_f32)
+    if not (torch.equal(y, y1) and torch.equal(st, st1)):
+        raise AssertionError("ssd_scan: two bf16 calls differ")
+    log(f"[kernels] ssd_scan bf16 T={S}: y max|err| {err(y, y0):.3g}, state max|err| "
+        f"{err(st, st0):.3g} at scale {float(st0.abs().max()):.3g}; bit-equal run to run")
     # bytes: C and B once (the broadcast is a view), v, the f32 gates, y and
-    # the f32 state.  Operations, at the fastest rate that keeps each
-    # product's precision: q.k over the causal (t, s) pairs of each chunk has
-    # two bf16 operands (bf16 tensor cores, f32 accumulation); the decayed
-    # scores times v, q times the state and the weighted k times v each have
-    # an f32 operand (3xTF32)
+    # the f32 state.  Operations: q.k over the causal (t, s) pairs of each
+    # chunk has two bf16 operands (bf16 tensor cores, f32 accumulation); the
+    # decayed scores times v, q times the state and the weighted k times v
+    # each have an f32 operand, which the kernel splits into two bf16 parts
     nbytes = 2 * B * S * DS * 2 + B * S * NH * HD * 2 * 2 + B * S * NH * 4 + B * NH * DS * HD * 4
-    ops_bf16 = ops_f32 = 0.0
+    ops_bf16 = ops_split = 0.0
     for c0 in range(0, S, chunk):
         lc = min(chunk, S - c0)
         pairs = lc * (lc + 1) / 2
         ops_bf16 += pairs * 2 * DS
-        ops_f32 += pairs * 2 * HD + 2 * 2 * lc * DS * HD
+        ops_split += pairs * 2 * HD + 2 * 2 * lc * DS * HD
     b_ms, b_by = bound_ms(nbytes, (B * NH * ops_bf16, BF16_FLOP_S),
-                          (B * NH * ops_f32, TF32X3_FLOP_S))
-    return dict(
-        max_abs_err=worst, tol=tol_f32,
-        ms=time_ms(lambda: ssd.ssd_scan_bthd(*args, chunk=chunk)),
+                          (B * NH * ops_split, BF16X2_FLOP_S))
+    ms, parent_ms = paired_ms(lambda m: m.ssd_scan_bthd(*args, chunk=chunk), ssd, parent)
+    r = dict(
+        max_abs_err=worst, tol=tol_f32, ms=ms, parent_ms=parent_ms,
         # ~80 launches a call: few calls, or the launch queue fills and the
         # host waits on the card
         plain_ms=time_ms(lambda: ssd.chunked_linear_attention_plain(*args, chunk=chunk),
                          iters=5, warmup=2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         host_ms=host_ms(lambda: ssd.ssd_scan_bthd(*args, chunk=chunk), calls=100))
+    r["per_kernel_us"] = kernel_us(lambda: ssd.ssd_scan_bthd(*args, chunk=chunk))
+    log(f"[kernels] ssd_scan's launches a call, device time each (profiler, 20 calls): "
+        + ", ".join(f"{name} {us:.3f} us" for name, us in r["per_kernel_us"].items()))
+    log(f"[kernels] ssd_scan at zamba2-2.7b's prefill (B, T, NH, D) = ({B}, {S}, {NH}, {HD}), "
+        f"chunk {chunk}, bf16: {ms * 1e3:.3f} us{vs_parent(parent_ms)} vs bound "
+        f"{b_ms * 1e3:.3f} us ({b_by}), plain {r['plain_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call")
+    return r
 
 
 # ----------------------------------------------------------------- phase 3
@@ -930,7 +1052,7 @@ def cache_walk(cfg, model, params, prompts, tok) -> dict:
     return worst
 
 
-def decode_run(arch: str, B: int, S: int, n: int, params, dev) -> tuple[dict, object]:
+def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> tuple[dict, object]:
     """Prefill B prompts of S tokens, then n greedy decode steps, through the
     kernels; hold each step to the teacher-forced forward.  Returns the
     path's launch counts and the parameters."""
@@ -989,6 +1111,7 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev) -> tuple[dict, ob
         for name in ("rmsnorm", "flash_attention"):
             if pre[name] + dec[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the decode path")
+        profile_prefill(model, params, prompts, S + n, arch, parent)
 
         # the serving invariant: prefill + step-by-step decode equals the
         # teacher-forced forward over the same tokens
@@ -1041,7 +1164,58 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev) -> tuple[dict, ob
     return {k: pre[k] + dec[k] for k in pre}, params
 
 
-def phase_decode(serve_params, dev) -> dict:
+def profile_prefill(model, params, prompts, max_len: int, arch: str, parent) -> None:
+    """The device busy share and top kernels of one prefill (after the timed
+    one, so nothing is built or warmed inside the window); with `--parent`,
+    the same prefill through the other tree's kernels, in turns (this
+    tree's, the parent's, twice)."""
+    from repro_torch.models.common import KERNELS
+
+    variants = [("this tree's kernels", lambda: contextlib.nullcontext(KERNELS))]
+    if parent is not None:
+        variants.append(("the parent's kernels", lambda: parent_kernels(parent)))
+    for what, swap in variants * (2 if parent is not None else 1):
+        with swap() as ops:
+            model.prefill(params, {"tokens": prompts}, max_len=max_len, ops=ops)  # warm
+            share = busy_share(lambda: model.prefill(params, {"tokens": prompts},
+                                                     max_len=max_len, ops=ops), "prefill")
+        log(f"[prefill] {arch}, {what}: device busy share over one prefill of "
+            f"{tuple(prompts.shape)}: "
+            + ("not measured (profiler recorded no device time)" if share is None
+               else f"{share:.4f}"))
+
+
+@contextlib.contextmanager
+def parent_kernels(parent: dict):
+    """Within: every function of this tree's kernel wrapper modules that
+    the other tree's module of the same kernel also defines is the other's.
+    Yields `KERNELS` with each field that is such a function swapped the
+    same way (a field that calls a wrapper through its module, as the
+    attention does, follows by itself)."""
+    import dataclasses
+    import inspect
+
+    from repro_torch.models.common import KERNELS
+
+    saved = []
+    try:
+        for name, other in parent.items():
+            mine = sys.modules.get(f"repro_torch.kernels.{name}.ops")
+            for attr, fn in list(vars(mine).items()) if mine else []:
+                if (inspect.isfunction(fn) and fn.__module__ == mine.__name__
+                        and inspect.isfunction(getattr(other, attr, None))):
+                    saved.append((mine, attr, fn))
+                    setattr(mine, attr, getattr(other, attr))
+        fields = {f.name: getattr(KERNELS, f.name) for f in dataclasses.fields(KERNELS)}
+        yield dataclasses.replace(KERNELS, **{
+            k: getattr(sys.modules[fn.__module__], fn.__name__) for k, fn in fields.items()
+            if fn.__module__.startswith("repro_torch.kernels.")})
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
+
+
+def phase_decode(serve_params, dev, parent) -> dict:
     """Both decode runs; returns the decode path's launch counts (each run
     counted from 0 before its prefill to after its decode loop)."""
     import torch
@@ -1049,7 +1223,7 @@ def phase_decode(serve_params, dev) -> dict:
     total: dict = {}
     for arch, B, S, n in DECODE_RUNS:
         counts, params = decode_run(arch, B, S, n, serve_params if arch == "stablelm-3b"
-                                    else None, dev)
+                                    else None, dev, parent)
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         del params
         torch.cuda.empty_cache()
@@ -1057,6 +1231,14 @@ def phase_decode(serve_params, dev) -> dict:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="ROOT",
+                    help="another tree of the repository (e.g. the parent commit unpacked): "
+                         "time its kernels in turns with this tree's, and profile a prefill "
+                         "through them")
+    args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
@@ -1072,13 +1254,14 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    phase_build()
+    parent = load_parent(Path(args.parent).resolve()) if args.parent else None
+    phase_build(parent)
     smi = gpu_line()
     log(f"[env] nvidia-smi: {smi}")
-    kern = phase_kernels(dev)
+    kern = phase_kernels(dev, parent)
     cfg, executors, launches = phase_serve(dev)
     phase_parity(cfg, executors, dev)
-    decode = phase_decode(executors[0][0].params, dev)
+    decode = phase_decode(executors[0][0].params, dev, parent)
     launches = {name: {"serve": launches[name], "decode": decode[name]} for name in KERNEL_NAMES}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
@@ -1087,6 +1270,7 @@ def main() -> int:
          "replaces": KERNEL_SOURCES[name][1], "launches": sum(launches[name].values()),
          "launches_by_path": launches[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
+         "parent_ms": kern[name]["parent_ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
          "host_ms": kern[name]["host_ms"],

@@ -4,11 +4,16 @@ PyTorch launches on a CUDA stream are asynchronous: calling a stage enqueues
 its kernels on the current stream and returns as soon as the host has issued
 them.  The dispatcher exploits this to keep several batches in flight across
 pipeline stages: all stages of a batch (including boundary transfers) are
-enqueued the moment Algorithm 1 dispatches it, and a `torch.cuda.Event` is
-recorded after each stage.  Nothing blocks until a measurement point
-(`poll_stage`, which synchronizes on the stage's event and then reads
-`time.perf_counter()`) or the in-flight window fills.  On the CPU, eager
-execution is synchronous and a stage is ready when its call returns.
+enqueued the moment Algorithm 1 dispatches it, and timing
+`torch.cuda.Event`s are recorded on the stage's device before and after
+each stage.  Nothing blocks until a measurement point (`poll_stage`, which
+synchronizes on the stage's event) or the in-flight window fills.  On CUDA
+a stage's duration is the device time between its two events, not the
+host time between two polls: the host issues a stage more slowly than
+the card runs it, so by the time it polls, later stages are often done
+already, and host deltas would hand one stage the whole chain's time and
+the next almost none.  On the CPU, eager execution is synchronous, a stage
+is ready when its call returns, and durations are host deltas.
 
 The measured wall durations flow back through `FeedbackController`, which
 (a) converts wall time into the scheduler's virtual clock via a per-stage
@@ -31,11 +36,12 @@ from repro_torch.serving.engine import StageExecutor
 
 
 def _ready_event(x: torch.Tensor):
-    """An event recorded on the current stream after the work that makes
-    `x`, or None for a CPU tensor (ready once computed)."""
+    """A timing event recorded on `x`'s device's current stream after the
+    work queued so far (the work that makes `x`), or None for a CPU tensor
+    (ready once computed)."""
     if not x.is_cuda:
         return None
-    ev = torch.cuda.Event()
+    ev = torch.cuda.Event(enable_timing=True)
     ev.record(torch.cuda.current_stream(x.device))
     return ev
 
@@ -48,8 +54,17 @@ class _InFlight:
     members: list[int]  # pool-member index per stage (telemetry only)
     outputs: list  # per-stage output tensors
     events: list  # per-stage ready event (None on the CPU)
+    starts: list  # per-stage event recorded before it runs (None on the CPU)
     submit_wall: float
     ready_wall: list  # per-stage wall timestamp once observed ready
+
+    def stage_wall(self, k: int) -> float:
+        """Seconds stage k took, once it is ready: device time between its
+        two events on CUDA, host delta between ready times on the CPU."""
+        if self.events[k] is not None and self.starts[k] is not None:
+            return self.starts[k].elapsed_time(self.events[k]) / 1e3
+        prev = self.submit_wall if k == 0 else self.ready_wall[k - 1]
+        return max(self.ready_wall[k] - prev, 0.0)
 
 
 @dataclass
@@ -107,10 +122,11 @@ class PoolDispatcher:
         members = members if members is not None else [0] * len(execs)
         t0 = time.perf_counter()
         carry = tokens
-        outputs, events = [], []
+        outputs, events, starts = [], [], []
         for si, ex in enumerate(execs):
             if si > 0:
                 carry = ex.transfer(carry)
+            starts.append(_ready_event(carry))
             carry = ex(carry)  # async on CUDA: enqueues and returns
             outputs.append(carry)
             events.append(_ready_event(carry))
@@ -121,6 +137,7 @@ class PoolDispatcher:
             members=list(members),
             outputs=outputs,
             events=events,
+            starts=starts,
             submit_wall=t0,
             ready_wall=[None] * len(outputs),
         )
@@ -138,7 +155,7 @@ class PoolDispatcher:
     # ---------------------------------------------------------- measurement
     def poll_stage(self, job_id: int, stage_idx: int) -> float:
         """Block until stage `stage_idx` of `job_id` is ready; return its
-        measured wall duration (delta between consecutive stage-ready times).
+        measured duration (`_InFlight.stage_wall`).
 
         Safe to call for a batch the in-flight window already retired — the
         recorded measurement is returned instead.
@@ -148,11 +165,10 @@ class PoolDispatcher:
             return done.stage_wall_s[stage_idx]
         job = self._find(job_id)
         self._measure_through(job, stage_idx)
-        prev = job.submit_wall if stage_idx == 0 else job.ready_wall[stage_idx - 1]
-        dur = job.ready_wall[stage_idx] - prev
+        dur = job.stage_wall(stage_idx)
         if stage_idx == len(job.outputs) - 1:
             self._retire(job)
-        return max(dur, 0.0)
+        return dur
 
     def drain(self, job_id: int) -> CompletedBatch:
         done = self._done_by_id.get(job_id)
@@ -192,11 +208,7 @@ class PoolDispatcher:
 
     def _retire(self, job: _InFlight) -> None:
         self._measure_through(job, len(job.outputs) - 1)
-        prev = job.submit_wall
-        walls = []
-        for t in job.ready_wall:
-            walls.append(max(t - prev, 0.0))
-            prev = t
+        walls = [job.stage_wall(k) for k in range(len(job.outputs))]
         self._inflight.remove(job)
         done = CompletedBatch(
             job_id=job.job_id,

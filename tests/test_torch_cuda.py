@@ -100,15 +100,64 @@ def test_flash_attention_kernel_raises_where_tma_cannot_address(cuda, what):
     assert fa.flash_attention.launches == before
 
 
+_RMSNORM_ROWS = [(1024, 2560), (96, 80), (7, 32),
+                 (40960, 128),           # qwen3-14b's qk_norm: 16 lanes a row
+                 (2048, 5120),           # the Mamba2 gated norm
+                 (4, 2560), (8, 2560), (4, 5120),  # decode rows
+                 (33, 1001), (5, 2563),  # D not a multiple of the vector
+                 (3, 12000),             # three vectors a thread in bf16
+                 (2, 16000), (3, 16384)]  # 4 in bf16, 8 in f32
+_RMSNORM_CASES = [pytest.param(N, D, dtype, id=f"{name}-{N}-{D}")
+                  for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+                  for N, D in _RMSNORM_ROWS]
+# bf16 rows of 8 vectors a thread: a partial last warp of lanes (20000) and
+# the widest row the kernel takes (32768; past f32's widest)
+_RMSNORM_CASES += [pytest.param(N, D, torch.bfloat16, id=f"bf16-{N}-{D}")
+                   for N, D in ((3, 20000), (2, 32768))]
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("N,D", [(1024, 2560), (96, 80), (7, 32)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,D,dtype", _RMSNORM_CASES)
 def test_rmsnorm_kernel_matches_plain(cuda, N, D, dtype):
     x = _on(cuda, 33, (N, D), dtype)
     w = _on(cuda, 34, (D,), dtype)
+    before = rn.rmsnorm.launches
+    got = rn.rmsnorm(x, w)
+    again = rn.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.launches == before + 2
+    np.testing.assert_allclose(_np(got.cpu()), _np(rn.rmsnorm_plain(x, w).cpu()), **tol(dtype))
+    np.testing.assert_array_equal(_np(got.cpu()), _np(again.cpu()))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("offset", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rmsnorm_kernel_unaligned_view(cuda, offset, dtype):
+    """x a contiguous view at an element offset, its data pointer off the
+    16-byte grid (or on it, at offset 8 in bf16): the kernel takes it as it
+    is and matches the plain version."""
+    N, D = 64, 2560
+    base = _on(cuda, 36, (N * D + offset,), dtype)
+    x = base[offset:].view(N, D)
+    w = _on(cuda, 37, (D,), dtype)
+    assert rn.vector_loads(x, w, torch.empty_like(x)) == (x.data_ptr() % 16 == 0)
+    before = rn.rmsnorm.launches
     got = rn.rmsnorm(x, w)
     torch.cuda.synchronize()
+    assert rn.rmsnorm.launches == before + 1
     np.testing.assert_allclose(_np(got.cpu()), _np(rn.rmsnorm_plain(x, w).cpu()), **tol(dtype))
+
+
+@pytest.mark.requires_cuda
+def test_rmsnorm_kernel_refuses_what_it_cannot_take(cuda):
+    """A row past the widest plan (in either dtype) raises before any launch."""
+    before = rn.rmsnorm.launches
+    for D, dtype in ((32769, torch.bfloat16), (16385, torch.float32)):
+        with pytest.raises(ValueError, match="at most"):
+            rn.rmsnorm(torch.zeros(2, D, device=cuda, dtype=dtype),
+                       torch.zeros(D, device=cuda, dtype=dtype))
+    assert rn.rmsnorm.launches == before
 
 
 @pytest.mark.requires_cuda
@@ -288,6 +337,75 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, T, NH, DK, DV, chunk, with_i):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("T,chunk", [(40, 256),    # T < 64: one short chunk
+                                     (200, 128),   # T and the last chunk not multiples of 64
+                                     (600, 128),   # five chunks, the last of 88
+                                     (256, 32),    # eight chunks shorter than a tile
+                                     (300, 100)])  # chunks of 100: a 36-row second tile
+@pytest.mark.parametrize("broadcast", [True, False], ids=["broadcast", "per_head"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_scan_kernel_chunks_and_ragged_t(cuda, T, chunk, broadcast, dtype):
+    """Any T and chunk, with q and k broadcast over the heads (head stride
+    0) or per head, with log_i: y at the dtype's tolerance, the state at
+    the SSD bound in both dtypes."""
+    B, NH, D = 2, 5, 64
+    if broadcast:
+        q = _on(cuda, 70, (B, T, D), dtype, 0.5)[:, :, None].expand(B, T, NH, D)
+        k = _on(cuda, 71, (B, T, D), dtype, 0.5)[:, :, None].expand(B, T, NH, D)
+    else:
+        q = _on(cuda, 70, (B, T, NH, D), dtype, 0.5)
+        k = _on(cuda, 71, (B, T, NH, D), dtype, 0.5)
+    v = _on(cuda, 72, (B, T, NH, D), dtype, 0.5)
+    log_g = _gates(cuda, 73, (B, T, NH), 0.05)
+    log_i = _gates(cuda, 74, (B, T, NH))
+    before = ssd.ssd_scan.launches
+    y, state = ssd.ssd_scan_bthd(q, k, v, log_g, log_i, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1
+    y_want, s_want = ssd.chunked_linear_attention_plain(q, k, v, log_g, log_i, chunk=chunk)
+    y_tol = SSD_TOL if dtype == torch.float32 else tol(dtype)
+    np.testing.assert_allclose(_np(y.cpu()), _np(y_want.cpu()), **y_tol)
+    np.testing.assert_allclose(_np(state.cpu()), _np(s_want.cpu()), **SSD_TOL)
+
+
+@pytest.mark.requires_cuda
+def test_ssd_scan_kernel_refuses_what_it_cannot_take(cuda):
+    """A state dim past 64, a chunk past 4096, or q, k, v of mixed dtypes
+    raise before any launch; nothing falls back to the plain version."""
+    z = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    g = torch.zeros(1, 8, 2, device=cuda)
+    wide = torch.zeros(1, 8, 2, 80, device=cuda, dtype=torch.bfloat16)
+    before = ssd.ssd_scan.launches
+    with pytest.raises(ValueError, match="state dims"):
+        ssd.ssd_scan_bthd(wide, wide, z, g)
+    long = torch.zeros(1, 5000, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd.ssd_scan_bthd(long, long, long, torch.zeros(1, 5000, 2, device=cuda), chunk=4097)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd.ssd_scan_bthd(z, z, z.float(), g)
+    assert ssd.ssd_scan.launches == before
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_scan_kernel_is_deterministic(cuda, dtype):
+    """Fixed summation order, no atomics: two calls are bit-identical, and
+    each call counts one launch."""
+    B, T, NH, D = 2, 520, 8, 64
+    q = _on(cuda, 75, (B, T, D), dtype, 0.5)[:, :, None].expand(B, T, NH, D)
+    k = _on(cuda, 76, (B, T, D), dtype, 0.5)[:, :, None].expand(B, T, NH, D)
+    v = _on(cuda, 77, (B, T, NH, D), dtype, 0.5)
+    log_g = _gates(cuda, 78, (B, T, NH), 0.05)
+    before = ssd.ssd_scan.launches
+    y1, s1 = ssd.ssd_scan_bthd(q, k, v, log_g, chunk=256)
+    y2, s2 = ssd.ssd_scan_bthd(q, k, v, log_g, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 2
+    np.testing.assert_array_equal(_np(y1.cpu()), _np(y2.cpu()))
+    np.testing.assert_array_equal(s1.cpu().numpy(), s2.cpu().numpy())
+
+
+@pytest.mark.requires_cuda
 def test_ssd_scan_kernel_reads_broadcast_heads_and_bf16(cuda):
     """Mamba2's q and k are one (B, T, DK) tensor expanded over the heads
     (head stride 0): the kernel reads the view as it is, in bf16, and
@@ -304,6 +422,41 @@ def test_ssd_scan_kernel_reads_broadcast_heads_and_bf16(cuda):
     assert y.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(y.cpu()), _np(y_want.cpu()), **tol(torch.bfloat16))
     np.testing.assert_allclose(_np(state.cpu()), _np(s_want.cpu()), **SSD_TOL)
+
+
+class _SpinStage:
+    """A pipeline stage that keeps the card busy for `cycles` clock cycles."""
+
+    def __init__(self, cycles: int):
+        self.cycles = cycles
+
+    def transfer(self, x):
+        return x
+
+    def __call__(self, x):
+        torch.cuda._sleep(self.cycles)
+        return x + 1
+
+
+@pytest.mark.requires_cuda
+def test_dispatcher_stage_walls_follow_the_device(cuda):
+    """A stage's measured duration is its own device time, however late the
+    host polls: with the chain already done when stage 0 is polled, host
+    deltas would give stage 0 the whole chain and stage 1 almost nothing
+    (the data plane's feedback then pins its calibration on that and
+    inflates the stage's latency, which missed deadlines in served
+    traces).  Stage 1 spins four times as long as stage 0."""
+    from repro_torch.dataplane import PoolDispatcher
+
+    _SpinStage(1000)(torch.zeros(1, device=cuda))  # first launches load modules
+    torch.cuda.synchronize()
+    disp = PoolDispatcher({0: [_SpinStage(2_000_000), _SpinStage(8_000_000)]})
+    job = disp.submit_chain(0, torch.zeros(4, device=cuda))
+    torch.cuda.synchronize()
+    w0, w1 = disp.poll_stage(job, 0), disp.poll_stage(job, 1)
+    assert w0 > 1e-4 and 3.0 < w1 / w0 < 5.0
+    (done,) = disp.drain_all()
+    assert done.stage_wall_s == [w0, w1]
 
 
 @pytest.mark.requires_cuda

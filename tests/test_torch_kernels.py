@@ -17,7 +17,7 @@ from repro.kernels.boundary_quant import kernel as bq_k
 from repro.kernels.decode_attention import kernel as da_k
 from repro.kernels.flash_attention import kernel as fa_k
 from repro.kernels.rmsnorm import kernel as rn_k
-from repro.kernels.ssd_scan import kernel as ssd_k
+from repro.kernels.ssd_scan import kernel as ssd_k, ref as ssd_r
 from repro.models import common as ref_common
 from repro_torch.kernels.boundary_quant import ops as bq
 from repro_torch.kernels.decode_attention import ops as da
@@ -90,7 +90,7 @@ def test_flash_attention_rejects_unequal_lengths():
         fa.flash_attention(q, kv, kv)
 
 
-@pytest.mark.parametrize("N,D", [(256, 512), (128, 2048)])
+@pytest.mark.parametrize("N,D", [(256, 512), (128, 2048), (512, 128)])
 @pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
 def test_rmsnorm_plain_matches_pallas(N, D, dtypes):
     jdt, tdt = dtypes
@@ -108,6 +108,57 @@ def test_rmsnorm_flattens_leading_dims():
     w = torch.from_numpy(_normal(13, (32,)))
     np.testing.assert_array_equal(_np(rn.rmsnorm(x, w)),
                                   _np(rn.rmsnorm(x.reshape(-1, 32), w)).reshape(2, 3, 4, 32))
+
+
+@pytest.mark.parametrize("elem_size", [2, 4], ids=["bf16", "f32"])
+def test_rmsnorm_launch_plan_covers_every_row(elem_size):
+    """The plan is a function of D alone that the kernel can run: every
+    element of a row has a lane, a narrow row a group of at most 32 lanes,
+    a wide row a block of at most 512 threads."""
+    vec = 16 // elem_size
+    for D in [1, 2, 7, 8, 9, 31, 64, 80, 96, 127, 128, 129, 1000, 1001, 1024, 1025, 2048,
+              2560, 2563, 4096, 5120, 8192, 12000, 16384] + ([32768] if elem_size == 2 else []):
+        lanes, vpt = rn.launch_plan(D, elem_size)
+        assert vpt in rn.VECTORS and lanes * vpt * vec >= D
+        nvec = -(-D // vec)
+        if nvec <= rn.NARROW:  # a power of two up to 32
+            assert lanes <= 32 and lanes & (lanes - 1) == 0 and vpt <= 4
+        else:  # no more than one spare warp of vectors
+            assert lanes % 32 == 0 and lanes <= 512 and (lanes - 32) * vpt < nvec
+
+
+@pytest.mark.parametrize("D,elem_size,plan", [(128, 2, (16, 1)), (2560, 2, (160, 2)),
+                                              (5120, 2, (320, 2)), (5120, 4, (448, 3))])
+def test_rmsnorm_launch_plan_at_the_smoke_shapes(D, elem_size, plan):
+    """bf16: qwen3-14b's qk_norm (D = 128) takes 16 lanes a row, 16 rows a
+    256-thread block; the d_model rows (2560) and the Mamba2 gated norm
+    (5120) a block of two vectors a thread."""
+    assert rn.launch_plan(D, elem_size) == plan
+
+
+@pytest.mark.parametrize("D,plan", [(16000, (512, 4)), (20000, (320, 8)), (32768, (512, 8))])
+def test_rmsnorm_launch_plan_wide_rows(D, plan):
+    """bf16 rows past 1024 vectors take at most 512 threads of 4 or 8
+    vectors, the widths the card tests run for those instances."""
+    assert rn.launch_plan(D, 2) == plan
+
+
+def test_rmsnorm_refuses_rows_past_the_widest_plan():
+    with pytest.raises(ValueError, match="at most 32768"):
+        rn.launch_plan(32769, 2)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 8])
+def test_rmsnorm_vector_loads(offset):
+    """16-byte accesses only where every base is 16-byte aligned and D keeps
+    each row aligned; a view at an element offset takes the element path."""
+    base = torch.zeros(4 * 256 + 8, dtype=torch.bfloat16)
+    x = base[offset:offset + 4 * 256].view(4, 256)
+    w = torch.zeros(256, dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    assert rn.vector_loads(x, w, out) == (x.data_ptr() % 16 == 0)
+    odd = torch.zeros(4, 250, dtype=torch.bfloat16)
+    assert not rn.vector_loads(odd, torch.zeros(250, dtype=torch.bfloat16), odd)
 
 
 def _quantize_ieee(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -320,6 +371,89 @@ def test_ssd_scan_ragged_t_equals_zero_padding():
                             chunk=chunk)
     np.testing.assert_allclose(_np(y), np.asarray(y_want)[:, :, :T], **SSD_TOL)
     np.testing.assert_allclose(_np(state), np.asarray(s_want), **SSD_TOL)
+
+
+def _ssd_inputs(B, NH, T, DK, DV, seed=50):
+    q = _normal(seed, (B, NH, T, DK), 0.5)
+    k = _normal(seed + 1, (B, NH, T, DK), 0.5)
+    v = _normal(seed + 2, (B, NH, T, DV), 0.5)
+    return q, k, v, _gates(seed + 3, (B, NH, T)), _gates(seed + 4, (B, NH, T))
+
+
+def _bthd(*arrays):
+    """(B, NH, T, ...) numpy arrays as (B, T, NH, ...) tensors."""
+    return [torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2))) for a in arrays]
+
+
+@pytest.mark.parametrize("B,NH,T,DK,DV,chunk", [
+    (2, 3, 128, 16, 32, 32), (1, 2, 256, 32, 16, 64), (1, 1, 64, 8, 8, 64),
+])
+def test_ssd_chunk_parallel_plain_matches_pallas_and_ref(B, NH, T, DK, DV, chunk):
+    """The kernel's regrouping (chunk-local states, their fold, every chunk's
+    outputs from its entering state) is the Pallas kernel's recurrence: held
+    to it in interpret mode and to the sequential oracle `ssd_scan_ref`, at
+    tests/test_kernels.py's shapes and SSD bound."""
+    arrays = _ssd_inputs(B, NH, T, DK, DV)
+    y_pal, s_pal = ssd_k.ssd_scan(*(jnp.asarray(a) for a in arrays), chunk=chunk,
+                                  interpret=True)
+    y_ref, s_ref = ssd_r.ssd_scan_ref(*(jnp.asarray(a) for a in arrays))
+    y, state = ssd.chunk_parallel_plain(*_bthd(*arrays[:3]), *_bthd(*arrays[3:]), chunk=chunk)
+    for want_y, want_s in ((y_pal, s_pal), (y_ref, s_ref)):
+        np.testing.assert_allclose(_np(y.transpose(1, 2)), np.asarray(want_y), **SSD_TOL)
+        np.testing.assert_allclose(_np(state), np.asarray(want_s), **SSD_TOL)
+
+
+@pytest.mark.parametrize("T,chunk", [(100, 32), (40, 64), (200, 64)])
+def test_ssd_chunk_parallel_plain_ragged_t(T, chunk):
+    """A short last chunk, left short, equals the Pallas kernel on the input
+    zero-padded to whole chunks (log_i padded with -30, as the reference
+    model pads) and the sequential oracle on the unpadded input."""
+    B, NH, D = 1, 2, 16
+    q, k, v, log_g, log_i = _ssd_inputs(B, NH, T, D, D, seed=60)
+    Q = min(chunk, T)
+    pad = (-T) % Q
+    padded = [np.pad(a, ((0, 0), (0, 0), (0, pad), (0, 0))) for a in (q, k, v)]
+    padded += [np.pad(log_g, ((0, 0), (0, 0), (0, pad))),
+               np.pad(log_i, ((0, 0), (0, 0), (0, pad)), constant_values=-30.0)]
+    y_pal, s_pal = ssd_k.ssd_scan(*(jnp.asarray(a) for a in padded), chunk=Q, interpret=True)
+    y_ref, s_ref = ssd_r.ssd_scan_ref(*(jnp.asarray(a) for a in (q, k, v, log_g, log_i)))
+    y, state = ssd.chunk_parallel_plain(*_bthd(q, k, v), *_bthd(log_g, log_i), chunk=chunk)
+    np.testing.assert_allclose(_np(y.transpose(1, 2)), np.asarray(y_pal)[:, :, :T], **SSD_TOL)
+    np.testing.assert_allclose(_np(state), np.asarray(s_pal), **SSD_TOL)
+    np.testing.assert_allclose(_np(y.transpose(1, 2)), np.asarray(y_ref), **SSD_TOL)
+    np.testing.assert_allclose(_np(state), np.asarray(s_ref), **SSD_TOL)
+
+
+def test_ssd_chunk_parallel_plain_broadcast_heads_no_log_i():
+    """Mamba2's form: q and k one (B, T, DK) tensor expanded over the heads,
+    no log_i; equal to the op-for-op plain version."""
+    B, T, NH, D = 2, 150, 4, 16
+    c = torch.from_numpy(_normal(70, (B, T, D), 0.5))
+    bm = torch.from_numpy(_normal(71, (B, T, D), 0.5))
+    v = torch.from_numpy(_normal(72, (B, T, NH, D), 0.5))
+    log_g = torch.from_numpy(_gates(73, (B, T, NH)))
+    q, k = c[:, :, None].expand(B, T, NH, D), bm[:, :, None].expand(B, T, NH, D)
+    y, state = ssd.chunk_parallel_plain(q, k, v, log_g, chunk=64)
+    y0, s0 = ssd.chunked_linear_attention_plain(q, k, v, log_g, chunk=64)
+    np.testing.assert_allclose(_np(y), _np(y0), **SSD_TOL)
+    np.testing.assert_allclose(_np(state), _np(s0), **SSD_TOL)
+
+
+def test_ssd_vector_loads():
+    """16-byte copies for bf16 views whose bases and (batch, time, head)
+    strides are 16-byte multiples, Mamba2's stride-0 head broadcast
+    included; f32, an element offset, or a width not a multiple of 8 takes
+    the element path."""
+    B, T, NH = 2, 16, 4
+    xbc = torch.zeros(B, T, 64 + 2 * 64 + 8, dtype=torch.bfloat16)  # like Mamba2's xBC
+    c = xbc[..., 64:128][:, :, None].expand(B, T, NH, 64)
+    v = torch.zeros(B, T, NH, 64, dtype=torch.bfloat16)
+    assert ssd.vector_loads(c, c, v)
+    assert not ssd.vector_loads(c.float(), c.float(), v.float())
+    shifted = xbc[..., 1:65][:, :, None].expand(B, T, NH, 64)
+    assert not ssd.vector_loads(shifted, c, v)
+    narrow = torch.zeros(B, T, NH, 12, dtype=torch.bfloat16)
+    assert not ssd.vector_loads(narrow, narrow, v)
 
 
 # ------------------------------------------------- (h) no silent fallback
