@@ -10,17 +10,25 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 1. build the five CUDA libraries from `src/repro_torch/kernels/*/csrc` with
    nvcc for sm_90a, one nvcc per source, in parallel;
 2. hold every kernel against its plain PyTorch version on the card at the
-   main paths' shapes (rmsnorm, flash and decode attention at every shape
-   the smoke paths run, rmsnorm also at qwen3-14b's qk_norm and decode
+   main paths' shapes (quantize bit-equal at every launch instance, and
+   timed at the serve boundary, decode, narrow and long shapes;
+   rmsnorm, flash and decode attention at every shape the smoke paths
+   run, rmsnorm also at qwen3-14b's qk_norm and decode
    attention at one that splits the sequence; ssd_scan in f32 with q and k
    broadcast or per head, with and without log_i, and in bf16), and time
    it beside its bound, its plain version and one PyTorch library call (a
    yardstick only; the port never calls it), with the host time of one
    call;
 3. serve stablelm-3b at full width (32 layers, random weights from a seed)
-   through calibrate_runtime -> PoolDispatcher -> DataPlane with measured
-   feedback, on the hand-pinned 2-stage pooled plan, and show that serving
-   launched the RMSNorm and attention kernels;
+   through the port's public entry point, `repro_torch.api.Session`, on
+   one h100 and eight l4 stand-ins (every pool co-resident on the card),
+   in three acts, the counterpart of examples/serve_pipeline.py: the MILP
+   plan deployed for real on a Poisson and a bursty trace; a hand-pinned
+   2-stage pooled plan through `use_plan`, calibrated on the card, with
+   measured feedback; a live `swap` to another partitioning warmed on a
+   background thread.  Every request must be served with no executor
+   failure (the data plane would drop the batch of a kernel that failed),
+   and serving must launch the RMSNorm and attention kernels;
 4. check the full-width stage split through the kernels against the plain
    PyTorch math on the same parameters: layer by layer from the same input,
    and the whole forward by the decisive-margin top-1 rule;
@@ -59,11 +67,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+MODEL = "stablelm-3b"
 SEQ = 128          # tokens per request
 BATCH = 8          # unified batch of the pinned plan
 N_BLOCKS = 6
-CUT = 3            # blocks [0, CUT) on the 3-member low pool, the rest on the high chip
-N_REQUESTS = 48
+CUT = 3            # blocks [0, CUT) on the 3-member l4 pool, the rest on the h100
+L4_COUNT = 8       # l4 stand-ins beside the one h100
+N_REQUESTS = 48    # requests a trace
+# SLO scales (x the h100's analytic batch-1 latency): the ModelSpec default
+# for the MILP act, where the planner pools l4s in front of the h100 (at 3x
+# no l4 stage fits and the h100 serves alone); 8x for the swap act, whose
+# MILP plan and the plan it swaps to both fit; 20x for the pinned plan,
+# whose batch of 8 must pass use_plan's analytic check (its trace's SLO
+# comes from the calibrated latency)
+MILP_SLO_SCALE, SWAP_SLO_SCALE, PINNED_SLO_SCALE = 5.0, 8.0, 20.0
 # phase 5: (arch, batch, prompt tokens, greedy decode steps)
 DECODE_RUNS = (("stablelm-3b", 8, 128, 32), ("zamba2-2.7b", 4, 512, 16))
 PROFILED_STEPS = 4
@@ -216,20 +233,7 @@ def phase_kernels(dev, parent) -> dict:
     res["flash_attention"] = check_flash_attention(dev, g, err, parent)
 
     # boundary quantization: (B*S, 2560) bf16, the boundary activations
-    h = (torch.randn(N, D, generator=g, device=dev) * 20).to(bf16)
-    qv, s = bq.quantize(h)
-    qp, sp = bq.quantize_plain(h)
-    torch.cuda.synchronize()
-    n_q_diff = int((qv != qp).sum())
-    if n_q_diff or not torch.equal(s, sp):
-        raise AssertionError(f"quantize differs from its plain version: {n_q_diff} values, "
-                             f"scales equal {torch.equal(s, sp)}")
-    b_ms, b_by = bound_ms(N * D * 2 + N * D + N * 4, (3.0 * N * D, F32_FLOP_S))
-    ms, parent_ms = paired_ms(lambda m: m.quantize(h), bq, parent)
-    res["quantize"] = dict(
-        max_abs_err=float((qv.int() - qp.int()).abs().max()), tol="bit-equal",
-        ms=ms, parent_ms=parent_ms, plain_ms=time_ms(lambda: bq.quantize_plain(h)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, host_ms=host_ms(lambda: bq.quantize(h)))
+    res["quantize"], qv, s = check_quantize(dev, g, parent)
     got, want = bq.dequantize(qv, s, bf16), bq.dequantize_plain(qv, s, bf16)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
@@ -252,6 +256,83 @@ def phase_kernels(dev, parent) -> dict:
             f"plain {r['plain_ms'] * 1e3:.1f} us, library {lib_us}, "
             f"host {r['host_ms'] * 1e3:.1f} us a call")
     return res
+
+
+# (N, D) of quantize's checks: every launch instance (narrow rows of 1-4
+# chunks a lane, D = 1 and 7 element-wise; few narrow rows as blocks of 64,
+# 96 and 128 threads of one chunk; block rows of 2, 3, 4 and 8 chunks; the
+# two-pass kernel past the widest plan), ragged row counts
+QUANT_ROWS = ((1023, 1), (333, 7), (1000, 96), (600, 264), (700, 520), (2000, 1024),
+              (77, 264), (129, 520), (64, 1024), (1001, 2560), (9, 8200), (3, 16384),
+              (3, 20000), (2, 40000))
+
+
+# (what, N, D) of quantize's timed bf16 shapes: the serve's boundary
+# activations first (the kernels line's time), then a decode step's
+# boundary rows, a narrow and a long row count
+QUANT_TIMED = (("serve boundary", BATCH * SEQ, 2560),
+               ("stablelm-3b decode", DECODE_RUNS[0][1], 2560),
+               ("zamba2-2.7b decode", DECODE_RUNS[1][1], 2560),
+               ("narrow", 64, 1024), ("few columns", 333, 7), ("long", 4096, 2560))
+
+
+def check_quantize(dev, g, parent):
+    """quantize bit-equal to its plain version in bf16 and f32 at every
+    launch instance, on an unaligned view and on zero and tiny rows, then
+    timed (and checked again) at each bf16 shape of QUANT_TIMED.  Returns
+    the kernels-line entry, whose times are the serve boundary's and whose
+    `shapes` holds all, and the serve boundary's (q, scale)."""
+    import torch
+
+    from repro_torch.kernels.boundary_quant import ops as bq
+
+    worst = 0
+
+    def same(x, what):
+        nonlocal worst
+        (q, s), (qp, sp) = bq.quantize(x), bq.quantize_plain(x)
+        torch.cuda.synchronize()
+        n = int((q != qp).sum())
+        if n or not torch.equal(s, sp):
+            raise AssertionError(f"quantize ({what}) differs from its plain version: {n} values, "
+                                 f"scales equal {torch.equal(s, sp)}")
+        worst = max(worst, int((q.int() - qp.int()).abs().max()))
+        return q, s
+
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for N, D in QUANT_ROWS:
+            same((torch.randn(N, D, generator=g, device=dev) * 20).to(dtype), f"{N}x{D} {dtype}")
+            checked += 1
+        base = (torch.randn(300 * 2560 + 3, generator=g, device=dev) * 20).to(dtype)
+        same(base[3:].view(300, 2560), f"unaligned view, {dtype}")
+        x = (torch.randn(4, 2560, generator=g, device=dev) * 20).to(dtype)
+        x[0], x[1], x[2] = 0, x[2] * 1e-10, x[3] * 1e-12
+        same(x, f"zero and tiny rows, {dtype}")
+        checked += 2
+    shapes, qv, s = [], None, None
+    for what, N, D in QUANT_TIMED:
+        h = (torch.randn(N, D, generator=g, device=dev) * 20).to(torch.bfloat16)
+        q, sc = same(h, f"{what} shape")
+        if qv is None:
+            qv, s = q, sc
+        b_ms, b_by = bound_ms(N * D * 2 + N * D + N * 4, (3.0 * N * D, F32_FLOP_S))
+        ms, parent_ms = paired_ms(lambda m: m.quantize(h), bq, parent)
+        plan = list(bq.launch_plan(D, 2, N, torch.cuda.get_device_properties(dev)
+                                   .multi_processor_count))
+        r = dict(shape=[N, D], what=what, plan=plan, max_abs_err=float(worst), tol="bit-equal",
+                 ms=ms, parent_ms=parent_ms, plain_ms=time_ms(lambda: bq.quantize_plain(h)),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                 host_ms=host_ms(lambda: bq.quantize(h)))
+        log(f"[kernels] quantize at the {what} shape ({N}, {D}) bf16, {plan[0]} lanes x "
+            f"{plan[1]} chunks a row: {ms * 1e3:.3f} us{vs_parent(parent_ms)} vs bound "
+            f"{b_ms * 1e3:.3f} us ({b_by}), plain {r['plain_ms'] * 1e3:.3f} us; host "
+            f"{r['host_ms'] * 1e3:.3f} us a call")
+        shapes.append(r)
+    log(f"[kernels] quantize bit-equal to its plain version at {checked + len(shapes)} (N, D, "
+        f"dtype) cases (every launch instance, ragged N, an unaligned view, zero and tiny rows, "
+        f"the timed shapes)")
+    return dict(shapes[0], max_abs_err=float(worst), shapes=shapes), qv, s
 
 
 def paired_ms(call, ops, parent, **kw) -> tuple[float, float | None]:
@@ -546,30 +627,242 @@ def check_ssd_scan(dev, g, err, parent) -> dict:
 # ----------------------------------------------------------------- phase 3
 
 
-def pinned_plan(cfg):
-    """stablelm-3b profile and the 2-stage pooled plan of
-    examples/serve_pipeline.py's act 3: blocks [0, CUT) on a 3-member
-    low-class pool, [CUT, n) on the one high-class chip."""
-    from repro_torch.core import blocks, costmodel as cm
-    from repro_torch.core.plan import ClusterPlan, PipelinePlan, StagePlan
-    from repro_torch.core.types import ClusterSpec, replace
-    from repro_torch.models.model_zoo import layer_costs
+def serve_config(slo_scale: float, feedback: str = "planned"):
+    """The deployment of every serve act: full-width stablelm-3b (random
+    weights from SEED) on one h100 and L4_COUNT l4 stand-ins, the shape of
+    examples/serve_pipeline.py's {"tpu-hi": 1, "tpu-lo": 8}.  Every pool is
+    co-resident on the one card."""
+    from repro_torch.api import ClusterSpec, ModelSpec, ServeConfig
 
-    cluster = ClusterSpec(counts={"tpu-hi": 1, "tpu-lo": 8})
-    fastest = max((cluster.accel(c) for c in cluster.classes), key=lambda a: a.peak_flops)
-    prof = blocks.build_profile(cfg.name, layer_costs(cfg, SEQ), slo_s=1.0,
-                                n_blocks=N_BLOCKS, accel=fastest)
-    prof = replace(prof, slo_s=8.0 * sum(cm.block_latency(b, fastest, 1, 1)
-                                         for b in prof.blocks))
-    tbl = cm.build_latency_table(prof, cluster)
+    return ServeConfig(cluster=ClusterSpec(counts={"h100": 1, "l4": L4_COUNT}),
+                       models=(ModelSpec(arch=MODEL, n_blocks=N_BLOCKS, seq_len=SEQ,
+                                         slo_scale=slo_scale),),
+                       feedback=feedback, serve_seq_len=SEQ, seed=SEED)
+
+
+def staged_plan(session, bs: int, cut: int, n_lo: int = 3):
+    """A hand-pinned 2-stage pooled plan: blocks [0, cut) on an n_lo-member
+    l4 pool, [cut, n) on the h100 (examples/serve_pipeline.py's act 3)."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.plan import ClusterPlan, PipelinePlan, StagePlan
+
+    prof = session.store.profiles[MODEL]
+    tbl = session.store.analytic_table(MODEL)
+    cluster = session.config.cluster
     n = prof.n_blocks
-    pipeline = PipelinePlan(
-        model_name=cfg.name, batch_size=BATCH,
-        stages=(StagePlan(0, CUT, "tpu-lo", 1, 3, tbl.partition(0, CUT, "tpu-lo", 1, BATCH)),
-                StagePlan(CUT, n, "tpu-hi", 1, 1, tbl.partition(CUT, n, "tpu-hi", 1, BATCH))),
-        xfer_latency_s=(cm.transfer_latency(prof, cluster, "tpu-lo", "tpu-hi", CUT, BATCH),),
-    )
-    return prof, ClusterPlan(cluster=cluster, pipelines=[pipeline])
+    return ClusterPlan(cluster=cluster, pipelines=[PipelinePlan(
+        model_name=MODEL, batch_size=bs,
+        stages=(StagePlan(0, cut, "l4", 1, n_lo, tbl.partition(0, cut, "l4", 1, bs)),
+                StagePlan(cut, n, "h100", 1, 1, tbl.partition(cut, n, "h100", 1, bs))),
+        xfer_latency_s=(cm.transfer_latency(prof, cluster, "l4", "h100", cut, bs),),
+    )])
+
+
+def plan_line(plan) -> str:
+    return "; ".join(
+        f"bs {p.batch_size}: " + " -> ".join(
+            f"blocks [{s.block_start}, {s.block_end}) on {s.accel_class} x{s.n_vdev}"
+            for s in p.stages) for p in plan.pipelines)
+
+
+def trace_of(gen, rate: float, slo_s: float, seed: int, start_id: int = 0) -> list:
+    """The first N_REQUESTS arrivals of `gen(rate, ...)`, drawn over a span
+    long enough for them: a trace sized by count, so its p99 ranks 48
+    latencies however bursty the arrivals."""
+    span = N_REQUESTS / rate
+    while True:
+        trace = gen(rate, span, slo_s, MODEL, seed=seed, start_id=start_id)
+        if len(trace) >= N_REQUESTS:
+            return trace[:N_REQUESTS]
+        span *= 2
+
+
+def offset_trace(trace, dt: float) -> list:
+    """`trace` with every arrival and deadline moved `dt` later."""
+    from repro_torch.core.types import replace
+
+    return [replace(r, arrival_s=r.arrival_s + dt, deadline_s=r.deadline_s + dt) for r in trace]
+
+
+def serve_workload(session, name: str, trace) -> dict:
+    """Submit a trace, drain it, and log its attainment and latency from
+    the request handles (on the session's virtual clock, which calibration
+    makes the wall clock).  Fails unless every request was served and the
+    session's executors never failed: the data plane drops the batch of an
+    executor that raised (a kernel that refused its shape or failed to
+    launch), so a failed launch shows only here."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.requests import describe
+
+    handles = [session.submit(r) for r in trace]
+    t0 = time.perf_counter()
+    session.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tel = session.telemetry
+    lats = np.array([h.latency_s for h in handles if h.latency_s is not None])
+    if len(lats) != len(trace) or tel.exec_failures or tel.retries:
+        raise AssertionError(
+            f"[{name}] served {len(lats)}/{len(trace)} (unresolved "
+            f"{sum(not h.done for h in handles)}); executor failures {tel.exec_failures}, "
+            f"retries {tel.retries}, drops {tel.snapshot()['drops']}")
+    st = describe(trace)
+    r = dict(n=len(trace), served=len(lats), wall_s=wall,
+             attainment=sum(h.ok for h in handles) / len(trace),
+             p50_ms=float(np.percentile(lats, 50)) * 1e3,
+             p99_ms=float(np.percentile(lats, 99)) * 1e3)
+    log(f"[serve] {name}: {st.n} requests at {st.mean_rps:.1f} rps (peak {st.peak_rps:.1f}), "
+        f"SLO {st.slo_s * 1e3:.3f} ms; served {r['served']}/{r['n']} in {wall:.2f} s wall, "
+        f"attainment {r['attainment']:.4f}, latency p50 {r['p50_ms']:.3f} ms "
+        f"p99 {r['p99_ms']:.3f} ms; executor failures 0")
+    return r
+
+
+def release(session) -> None:
+    """Close a session and give its parameters' memory back to the card."""
+    import gc
+
+    import torch
+
+    session.shutdown()
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def act_milp(dev) -> int:
+    """Act 1: profile -> MILP plan -> deploy("real"), then a Poisson and a
+    bursty trace on the one deployment, planned feedback: the analytic
+    clock schedules, the card executes underneath.  A session serves one
+    monotonic virtual clock, so the bursty trace starts where the Poisson
+    one's served horizon ends.  Returns the batches dispatched."""
+    from repro_torch.api import Session
+    from repro_torch.data.requests import bursty_trace, poisson_trace
+
+    session = Session.from_config(serve_config(MILP_SLO_SCALE), device=dev)
+    t0 = time.perf_counter()
+    session.profile()
+    t1 = time.perf_counter()
+    plan = session.plan()
+    t2 = time.perf_counter()
+    log(f"[serve] MILP plan: {plan_line(plan)}; planned throughput {plan.throughput:.1f} rps, "
+        f"chips {plan.chips_used()}; profile {(t1 - t0) * 1e3:.3f} ms, solve "
+        f"{(t2 - t1) * 1e3:.3f} ms")
+    t0 = time.perf_counter()
+    session.deploy(mode="real")
+    log(f"[serve] deploy(mode=\"real\") in {time.perf_counter() - t0:.2f} s")
+    slo_s = session.store.profiles[MODEL].slo_s
+    rate = plan.throughput * 0.6
+    poisson = trace_of(poisson_trace, rate, slo_s, seed=7)
+    serve_workload(session, "MILP plan, poisson", poisson)
+    bursty = trace_of(bursty_trace, rate, slo_s, seed=7, start_id=len(poisson))
+    serve_workload(session, "MILP plan, bursty",
+                   offset_trace(bursty, session.telemetry.horizon_s))
+    batches = len(session.telemetry.dispatches)
+    release(session)
+    return batches
+
+
+def act_pinned(dev):
+    """Act 2: the hand-pinned 2-stage plan through use_plan, measured
+    feedback: deploy calibrates every stage on the card, so the virtual
+    clock is the wall clock and the feedback keeps the reservations in
+    step.  Returns the live session (its executors serve phases 4 and 5)."""
+    import numpy as np
+
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.data.requests import poisson_trace
+    from repro_torch.serving.engine import layer_block_map_from_profile
+
+    session = Session.from_config(serve_config(PINNED_SLO_SCALE, feedback="measured"),
+                                  device=dev)
+    session.profile()
+    plan = staged_plan(session, BATCH, CUT)
+    session.use_plan(plan)
+    t0 = time.perf_counter()
+    session.deploy(mode="real")
+    cfg = get_config(MODEL)
+    executors = session.dataplane.dispatcher.executors
+    params = executors[0][0].params
+    n_params = sum(p.numel() for p in params.parameters())
+    lbm = layer_block_map_from_profile(session.store.profiles[MODEL], cfg.n_layers)
+    stages = plan.pipelines[0].stages
+    layers = [(lbm[s.block_start][0], lbm[s.block_end - 1][1]) for s in stages]
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"x {cfg.hd}, {n_params / 1e9:.3f} B params bf16 on {dev}; pinned plan "
+        f"{plan_line(plan)} -> layers {layers}; deploy with calibration in "
+        f"{time.perf_counter() - t0:.1f} s")
+    p0 = session.runtime.pipelines[0]
+    for si, stage in enumerate(p0.stages):
+        for bs, sec in sorted(stage.latency_by_batch.items()):
+            log(f"[serve] calibrated stage {si} batch {bs}: {sec * 1e3:.3f} ms")
+    e2e = sum(s.latency(1) for s in p0.stages)
+    thr = min(len(s.vdevs) * p0.unified_batch / s.latency(p0.unified_batch) for s in p0.stages)
+    rate = thr * 0.5
+    trace = trace_of(poisson_trace, rate, e2e * 6, seed=11)
+    log(f"[serve] calibrated batch-1 e2e {e2e * 1e3:.3f} ms, pipeline throughput {thr:.1f} rps")
+    r = serve_workload(session, "pinned 2-stage plan, measured feedback", trace)
+    tel = session.telemetry
+    disp, fb = session.dataplane.dispatcher, session.dataplane.fb
+    if fb.observations <= 0:
+        raise AssertionError("measured feedback made no observation")
+    if disp.submitted <= 0:
+        raise AssertionError("no batch was dispatched")
+    log(f"[serve] served {tel.served}/{len(trace)}, attainment {tel.attainment:.4f}, latency "
+        f"p50 {r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms, batches {disp.submitted} (mean "
+        f"size {tel.mean_batch_size:.2f}), inflight_hwm {tel.inflight_hwm}, feedback "
+        f"observations {fb.observations}, lat_scale {[round(s.lat_scale, 4) for s in p0.stages]}")
+    for (e, pid, si), ws in sorted(tel.stage_wall_s.items()):
+        log(f"[serve] measured stage {si} wall: median {np.median(ws) * 1e3:.3f} ms over "
+            f"{len(ws)} batches")
+    return session
+
+
+def act_swap(dev) -> int:
+    """Act 3: a live swap to another partitioning on a fresh deployment of
+    the MILP plan: prepare_swap builds and warms the new ranges' executors
+    on a background thread (its own CUDA stream) while the old plan
+    serves, the swap installs them mid-trace, in-flight batches drain on
+    the retired epoch, which is garbage-collected.  Returns the batches
+    dispatched."""
+    from repro_torch.api import Session
+    from repro_torch.data.requests import poisson_trace
+
+    session = Session.from_config(serve_config(SWAP_SLO_SCALE), device=dev)
+    plan_a = session.plan()
+    plan_b = staged_plan(session, 2, 1)
+    session.deploy(mode="real")
+    log(f"[serve] live swap: from the MILP plan {plan_line(plan_a)} to {plan_line(plan_b)}")
+    prof = session.store.profiles[MODEL]
+    rate = plan_a.throughput * 0.5
+    trace = trace_of(poisson_trace, rate, prof.slo_s, seed=13)
+    at = [trace[len(trace) // 3].arrival_s, trace[2 * len(trace) // 3].arrival_s]
+    state = {}
+
+    def hook(req, t):
+        if "prep" not in state and t > at[0]:
+            state["prep"] = session.prepare_swap(plan_b)
+        elif "rec" not in state and t > at[1]:
+            state["inflight"] = len(session.dataplane.jobs)
+            state["rec"] = session.swap(plan_b, now=t, reason="live repartition")
+
+    session.on_arrival(hook)
+    serve_workload(session, "live swap", trace)
+    tel, rec, prep = session.telemetry, state["rec"], state["prep"]
+    log(f"[serve] live swap with {state['inflight']} batch(es) in flight: swap wall "
+        f"{rec.swap_wall_s * 1e3:.3f} ms, background warm {prep.warm_wall_s * 1e3:.3f} ms, "
+        f"waited for it in the swap {rec.compile_wall_s * 1e3:.3f} ms, prepared {rec.prepared}, "
+        f"{rec.reused_executors} executor(s) reused, new_ranges {list(rec.new_ranges)}, "
+        f"virtual transient {tel.swap_transient_s[-1] * 1e3:.3f} ms; retired epoch GC'd "
+        f"({tel.epochs_gcd}/{tel.plan_swaps})")
+    if not (rec.prepared and tel.plan_swaps == 1 and tel.epochs_gcd == 1 and rec.new_ranges):
+        raise AssertionError(f"live swap: {rec}, swaps {tel.plan_swaps}, GC'd {tel.epochs_gcd}")
+    batches = len(tel.dispatches)
+    release(session)
+    return batches
 
 
 def busy_share(run, tag: str) -> float | None:
@@ -622,85 +915,31 @@ def device_busy_share(executors, dev, n_batches: int = 4) -> float | None:
 
 
 def phase_serve(dev):
-    import numpy as np
-    import torch
-
+    """The three serve acts through `repro_torch.api.Session`, counted
+    together: every kernel launch from the first deploy to the last drain
+    (stage programs, calibration, the swap's warm).  Returns the model's
+    config, the pinned act's live session and the launch counts."""
     from repro_torch.configs import get_config
-    from repro_torch.core.runtime import build_runtime
-    from repro_torch.data.requests import describe, poisson_trace
-    from repro_torch.dataplane import DataPlane, PoolDispatcher, build_executors, calibrate_runtime
-    from repro_torch.serving.engine import layer_block_map_from_profile
 
-    cfg = get_config("stablelm-3b")
-    prof, plan = pinned_plan(cfg)
-    lbm = layer_block_map_from_profile(prof, cfg.n_layers)
-    t0 = time.perf_counter()
-    executors = build_executors(cfg, plan, lbm, torch.Generator(device=dev).manual_seed(SEED))
-    torch.cuda.synchronize()
-    params = executors[0][0].params
-    n_params = sum(p.numel() for p in params.parameters())
-    stages = plan.pipelines[0].stages
-    blocks = [(s.block_start, s.block_end) for s in stages]
-    layers = [(lbm[s.block_start][0], lbm[s.block_end - 1][1]) for s in stages]
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
-        f"x {cfg.hd}, {n_params / 1e9:.3f} B params bf16 initialised on {dev} in "
-        f"{time.perf_counter() - t0:.1f} s; stage blocks {blocks} -> layers {layers}")
-
-    rt = build_runtime(plan, {cfg.name: prof})
-    t0 = time.perf_counter()
-    measured = calibrate_runtime(rt, executors, SEQ)
-    log(f"[serve] calibrate_runtime in {time.perf_counter() - t0:.1f} s")
-    for (pid, si, bs), sec in sorted(measured.items()):
-        log(f"[serve] calibrated stage {si} batch {bs}: {sec * 1e3:.3f} ms")
-    p0 = rt.pipelines[0]
-    e2e = sum(s.latency(1) for s in p0.stages)
-    thr = min(len(s.vdevs) * p0.unified_batch / s.latency(p0.unified_batch) for s in p0.stages)
-    rate = thr * 0.5
-    trace = poisson_trace(rate, 4 * N_REQUESTS / rate, e2e * 6, cfg.name, seed=11)[:N_REQUESTS]
-    st = describe(trace)
-    log(f"[serve] calibrated batch-1 e2e {e2e * 1e3:.3f} ms, pipeline throughput "
-        f"{thr:.1f} rps; trace {st.n} requests at {rate:.1f} rps, SLO {st.slo_s * 1e3:.3f} ms")
-
-    disp = PoolDispatcher.from_runtime(rt, executors, max_inflight=4)
-    dp = DataPlane(rt, dispatcher=disp, feedback="measured", seq_len=SEQ)
-    torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
-    tel = dp.serve(trace)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    batches = act_milp(dev)
+    session = act_pinned(dev)
+    batches += len(session.telemetry.dispatches)
+    batches += act_swap(dev)
     launches = read_counts()
-
-    batches = disp.submitted
-    if len(tel.outcomes) != len(trace) or {o.req_id for o in tel.outcomes} != \
-            {r.req_id for r in trace}:
-        raise AssertionError(f"{len(tel.outcomes)} outcomes for {len(trace)} requests")
-    if dp.fb.observations <= 0:
-        raise AssertionError("measured feedback made no observation")
-    if batches <= 0:
-        raise AssertionError("no batch was dispatched")
+    cfg = get_config(MODEL)
     for name in ("rmsnorm", "flash_attention"):
         if launches[name] < cfg.n_layers * batches:
             raise AssertionError(f"{name} launched {launches[name]} times for {batches} "
                                  f"batches of {cfg.n_layers} layers")
-    lats = np.array([o.completion_s - o.arrival_s for o in tel.outcomes
-                     if o.completion_s is not None])
-    log(f"[serve] served {tel.served}/{len(trace)} in {wall:.2f} s wall, attainment "
-        f"{tel.attainment:.4f}, latency p50 {np.percentile(lats, 50) * 1e3:.3f} ms p99 "
-        f"{np.percentile(lats, 99) * 1e3:.3f} ms, batches {batches} (mean size "
-        f"{tel.mean_batch_size:.2f}), inflight_hwm {tel.inflight_hwm}, feedback "
-        f"observations {dp.fb.observations}, lat_scale "
-        f"{[round(s.lat_scale, 4) for s in p0.stages]}")
-    for (e, pid, si), ws in sorted(tel.stage_wall_s.items()):
-        log(f"[serve] measured stage {si} wall: median {np.median(ws) * 1e3:.3f} ms over "
-            f"{len(ws)} batches")
-    log(f"[serve] launches while serving: {launches} ({batches} batches; on one card every "
-        f"stage shares the device, so transfer() skips the boundary kernels)")
-    share = device_busy_share(executors, dev)
+    log(f"[serve] launches while serving: {launches} ({batches} batches over the three acts; "
+        f"on one card every stage shares the device, so transfer() skips the boundary "
+        f"kernels)")
+    share = device_busy_share(session.dataplane.dispatcher.executors, dev)
     log("[serve] device busy share over 4 back-to-back batches: "
         + ("not measured (profiler recorded no device time)" if share is None
            else f"{share:.4f}"))
-    return cfg, executors, launches
+    return cfg, session, launches
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1259,7 +1498,8 @@ def main() -> int:
     smi = gpu_line()
     log(f"[env] nvidia-smi: {smi}")
     kern = phase_kernels(dev, parent)
-    cfg, executors, launches = phase_serve(dev)
+    cfg, session, launches = phase_serve(dev)
+    executors = session.dataplane.dispatcher.executors
     phase_parity(cfg, executors, dev)
     decode = phase_decode(executors[0][0].params, dev, parent)
     launches = {name: {"serve": launches[name], "decode": decode[name]} for name in KERNEL_NAMES}

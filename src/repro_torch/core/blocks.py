@@ -12,7 +12,6 @@ from __future__ import annotations
 from typing import Sequence
 
 from .types import AcceleratorClass, Block, LayerCost, ModelProfile
-from . import costmodel
 
 
 def layer_runtime(layer: LayerCost, accel: AcceleratorClass, batch: int = 1) -> float:
@@ -29,7 +28,10 @@ def pre_partition(
     """Greedy equal-runtime grouping of `layers` into at most `n_blocks` blocks."""
     if not layers:
         raise ValueError("cannot pre-partition an empty layer list")
-    accel = accel or costmodel.VFRACS and _default_accel()
+    if accel is None:
+        # the reference falls back to its TPU_HI class here; the port's
+        # classes are GPUs and TPU labels alike, so the caller must say
+        raise ValueError("pre_partition needs an explicit accelerator class")
     runtimes = [layer_runtime(l, accel, batch) for l in layers]
     total = sum(runtimes)
     target = total / n_blocks
@@ -71,12 +73,6 @@ def _make_block(layers: Sequence[LayerCost], index: int, start: int, end: int) -
         weight_bytes=sum(l.weight_bytes for l in group),
         out_bytes=group[-1].out_bytes,
     )
-
-
-def _default_accel() -> AcceleratorClass:
-    from .types import TPU_HI
-
-    return TPU_HI
 
 
 def build_profile(

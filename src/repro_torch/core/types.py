@@ -1,7 +1,7 @@
 """Core value types for the PPipe control/data plane.
 
 Terminology follows the paper:
-  * accelerator class  <- "GPU type" (here: TPU chip generations/classes)
+  * accelerator class  <- "GPU type" (TPU classes, and in the port GPU classes)
   * virtual device     <- "virtual GPU" (1/v time-division share of a chip)
   * block              <- pre-partitioned group of model layers (paper section 5.2)
   * pooled pipeline    <- ordered list of partitions, each bound to a pool of
@@ -86,7 +86,44 @@ TPU_EDGE = AcceleratorClass(
     mxu_util=0.62,
 )
 
-ACCEL_CLASSES = {c.name: c for c in (TPU_HI, TPU_MID, TPU_LO, TPU_EDGE)}
+# GPU classes.  The port runs on one H100; the lower classes are declared
+# stand-ins that give the planner the heterogeneity PPipe exploits (their
+# pools run on the same card, where calibrate_runtime replaces every
+# modelled stage latency with one measured there).  peak_flops is the dense
+# bf16 tensor-core rate and hbm_bw the device-memory rate of each data
+# sheet; ici_bw is the card's peer link one way (NVLink, else PCIe x16);
+# nic_bw is an assumed host network, not a data-sheet figure.
+# overhead_s and mxu_util keep the class defaults.
+H100 = AcceleratorClass(  # NVIDIA H100 SXM5 data sheet
+    name="h100",
+    peak_flops=989e12,
+    hbm_bw=3.35e12,
+    ici_bw=450e9,  # NVLink 4, 900 GB/s both ways
+    nic_bw=50e9,  # 400 Gb/s
+)
+A100 = AcceleratorClass(  # stand-in: NVIDIA A100 SXM4 80GB data sheet
+    name="a100",
+    peak_flops=312e12,
+    hbm_bw=2.0e12,
+    ici_bw=300e9,  # NVLink 3, 600 GB/s both ways
+    nic_bw=25e9,  # 200 Gb/s
+)
+L4 = AcceleratorClass(  # stand-in: NVIDIA L4 data sheet (dense: half the sparse 242)
+    name="l4",
+    peak_flops=121e12,
+    hbm_bw=300e9,
+    ici_bw=32e9,  # PCIe Gen4 x16
+    nic_bw=12.5e9,  # 100 Gb/s
+)
+T4 = AcceleratorClass(  # stand-in: NVIDIA T4 data sheet (fp16 tensor cores; no bf16)
+    name="t4",
+    peak_flops=65e12,
+    hbm_bw=320e9,
+    ici_bw=16e9,  # PCIe Gen3 x16
+    nic_bw=4e9,  # 32 Gb/s
+)
+
+ACCEL_CLASSES = {c.name: c for c in (TPU_HI, TPU_MID, TPU_LO, TPU_EDGE, H100, A100, L4, T4)}
 
 
 @dataclass(frozen=True)

@@ -4,7 +4,8 @@
   batcher.py    adaptive batching = Algorithm 1, shared (copy)
   dispatcher.py overlapped execution on CUDA streams + feedback correction
   metrics.py    SLO attainment / goodput / utilization telemetry (copy)
-  plane.py      the event loop + plan->executor builders + calibration
+  plane.py      the event loop, plan hot-swap with epoch GC, faults,
+                serve_stream + plan->executor builders + calibration
 """
 
 from .batcher import AdaptiveBatcher, unloaded_latency_s  # noqa: F401

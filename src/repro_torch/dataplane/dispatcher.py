@@ -57,6 +57,7 @@ class _InFlight:
     starts: list  # per-stage event recorded before it runs (None on the CPU)
     submit_wall: float
     ready_wall: list  # per-stage wall timestamp once observed ready
+    epoch: int = 0  # plan epoch at submit time (telemetry bucketing)
 
     def stage_wall(self, k: int) -> float:
         """Seconds stage k took, once it is ready: device time between its
@@ -76,6 +77,11 @@ class CompletedBatch:
     stage_wall_s: list  # measured wall duration per stage
     submit_wall: float
     done_wall: float
+    # plan epoch the batch was SUBMITTED under.  A dispatcher may serve
+    # several epochs (swap_plan's factory can return the same instance), and
+    # pipeline ids restart at 0 per epoch — telemetry keys stage walls by
+    # (epoch, pipeline, stage), so the batch must carry its own epoch
+    epoch: int = 0
 
     @property
     def total_wall_s(self) -> float:
@@ -98,6 +104,14 @@ class PoolDispatcher:
         self._job_ids = itertools.count()
         self.inflight_hwm = 0
         self.submitted = 0
+        # stamped onto every submitted batch; the DataPlane keeps it in sync
+        # with its plan epoch so a dispatcher reused across swap_plan calls
+        # still buckets measurements under the epoch that submitted them
+        self.current_epoch = 0
+        # optional repro_torch.obs.Observer (set by DataPlane._install_runtime):
+        # every retired batch's wall measurements flow to it as a
+        # "batch.wall" journal event — the wall-clock side of the trace
+        self.obs = None
 
     @classmethod
     def from_runtime(cls, runtime: ClusterRuntime,
@@ -140,6 +154,7 @@ class PoolDispatcher:
             starts=starts,
             submit_wall=t0,
             ready_wall=[None] * len(outputs),
+            epoch=self.current_epoch,
         )
         self._inflight.append(job)
         self.submitted += 1
@@ -192,6 +207,19 @@ class PoolDispatcher:
         self._done_by_id.clear()
         return out
 
+    def shutdown(self) -> None:
+        """Retire this dispatcher: block on anything still in flight and drop
+        the executor/vdev references so stage programs and parameters can
+        be reclaimed.  Callers harvest `take_completed()` FIRST — shutdown is
+        the last call the data plane's retired-epoch GC makes on a
+        dispatcher, after its final batch completed and its measurements
+        were folded into telemetry."""
+        self.drain_all()
+        self._completed.clear()
+        self._done_by_id.clear()
+        self.executors = {}
+        self.vdev_map = {}
+
     # ------------------------------------------------------------ internals
     def _find(self, job_id: int) -> _InFlight:
         for job in self._inflight:
@@ -218,9 +246,12 @@ class PoolDispatcher:
             stage_wall_s=walls,
             submit_wall=job.submit_wall,
             done_wall=job.ready_wall[-1],
+            epoch=job.epoch,
         )
         self._completed.append(done)
         self._done_by_id[job.job_id] = done
+        if self.obs is not None:
+            self.obs.on_batch_wall(done)
 
 
 class FeedbackController:

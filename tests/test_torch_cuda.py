@@ -174,6 +174,62 @@ def test_boundary_quant_kernels_match_plain(cuda, N, D):
         np.testing.assert_array_equal(_np(got.cpu()), _np(bq.dequantize_plain(q, s, dtype).cpu()))
 
 
+# (N, D) reaching every launch instance of quantize: narrow rows of 1-4
+# chunks a lane (D = 1 and 7 element-wise), few narrow rows as blocks of 64,
+# 96 and 128 threads of one chunk, block rows of 2, 3, 4 and 8 chunks, the
+# two-pass kernel past the widest plan (f32 from 16385, bf16 from 32769),
+# ragged row counts
+_QUANT_ROWS = [(1023, 1), (333, 7), (5, 8), (1000, 96), (600, 264), (700, 520), (2000, 1024),
+               (77, 264), (129, 520), (64, 1024), (1024, 2560), (1001, 2560), (9, 8200),
+               (3, 16384), (3, 20000), (2, 32768), (2, 40000)]
+_QUANT_CASES = [pytest.param(N, D, dtype, id=f"{name}-{N}-{D}")
+                for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+                for N, D in _QUANT_ROWS]
+
+
+def _assert_quantize_matches_plain(x):
+    before = bq.quantize.launches
+    q, s = bq.quantize(x)
+    torch.cuda.synchronize()
+    assert bq.quantize.launches == before + 1
+    qp, sp = bq.quantize_plain(x)
+    np.testing.assert_array_equal(q.cpu().numpy(), qp.cpu().numpy())
+    np.testing.assert_array_equal(s.cpu().numpy(), sp.cpu().numpy())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("N,D,dtype", _QUANT_CASES)
+def test_quantize_kernel_every_instance_bit_equal(cuda, N, D, dtype):
+    _assert_quantize_matches_plain(_on(cuda, 38, (N, D), dtype, scale=20.0))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("offset", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quantize_kernel_unaligned_view(cuda, offset, dtype):
+    """x a contiguous view at an element offset: element-wise loads off the
+    16-byte grid, vector loads on it (offset 8 in bf16), bit-equal either
+    way."""
+    N, D = 300, 2560
+    x = _on(cuda, 39, (N * D + offset,), dtype, scale=20.0)[offset:].view(N, D)
+    assert bq.vector_loads(x) == (x.data_ptr() % 16 == 0)
+    _assert_quantize_matches_plain(x)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D", [96, 2560, 40000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quantize_kernel_zero_and_tiny_rows(cuda, D, dtype):
+    """Rows of zeros and of values near 1e-10, where the scale's + 1e-12
+    decides q (without it a zero row divides 0 by 0)."""
+    x = _on(cuda, 40, (6, D), dtype)
+    x[0] = 0
+    x[1] *= 1e-10
+    x[2] *= 1e-12
+    x[3, :-1] = 0
+    _assert_quantize_matches_plain(x)
+
+
 @pytest.mark.requires_cuda
 def test_model_layers_through_kernels(cuda):
     """A reduced stablelm forward on the card launches rmsnorm twice per

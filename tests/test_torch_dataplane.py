@@ -91,8 +91,10 @@ def test_layer_costs_and_profile_equal_reference(arch, reduced):
     ref_costs, costs = ref_zoo.layer_costs(rcfg, seq), zoo.layer_costs(cfg, seq)
     assert _as_dicts(costs) == _as_dicts(ref_costs)
     for n_blocks in (4, 6):
-        ref_prof = ref_blocks.build_profile(rcfg.name, ref_costs, 1.0, n_blocks=n_blocks)
-        prof = blocks.build_profile(cfg.name, costs, 1.0, n_blocks=n_blocks)
+        # the reference's default class, passed explicitly (the port has no default)
+        ref_prof = ref_blocks.build_profile(rcfg.name, ref_costs, 1.0, n_blocks=n_blocks,
+                                            accel=ref_types.TPU_HI)
+        prof = blocks.build_profile(cfg.name, costs, 1.0, n_blocks=n_blocks, accel=types.TPU_HI)
         assert dataclasses.asdict(prof) == dataclasses.asdict(ref_prof)
 
 

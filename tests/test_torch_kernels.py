@@ -204,6 +204,55 @@ def test_dequantize_plain_matches_pallas(dtypes):
     np.testing.assert_array_equal(_np(got), want)
 
 
+@pytest.mark.parametrize("elem_size", [2, 4], ids=["bf16", "f32"])
+def test_quantize_launch_plan_covers_every_row(elem_size):
+    """Every chunk of a row has exactly one lane, a block holds its rows,
+    and rows past the widest plan (D > 32768 in bf16, 16384 in f32) take
+    the two-pass kernel."""
+    widest = 32768 if elem_size == 2 else 16384
+    for D in list(range(1, 1100)) + [2560, 5120, 8192, 8200, 12000, 16384, 16385,
+                                     20000, 32768, 32769, 40000]:
+        lanes, cpt = bq.launch_plan(D, elem_size)
+        if D > widest:
+            assert (lanes, cpt) == (0, 0), D
+            continue
+        nchunk = -(-D // bq.CHUNK)
+        assert cpt in bq.CHUNKS and cpt <= (8 if elem_size == 2 else 4), D
+        assert lanes * cpt >= nchunk, D
+        if lanes <= 32:
+            assert lanes & (lanes - 1) == 0 and nchunk <= bq.NARROW, D
+            assert lanes == 32 or lanes // 2 < nchunk <= lanes and cpt == 1, D
+        else:
+            assert lanes % 32 == 0 and lanes <= 512 and lanes * cpt - nchunk < 32 * cpt, D
+
+
+@pytest.mark.parametrize("N,D,elem_size,plan", [
+    (64, 1024, 2, (128, 1)), (527, 1024, 4, (128, 1)), (528, 1024, 2, (32, 4)),
+    (77, 264, 2, (64, 1)), (600, 264, 2, (32, 2)), (129, 520, 4, (96, 1)),
+    (700, 520, 4, (32, 3)), (5, 96, 2, (16, 1)), (333, 7, 2, (1, 1)), (8, 2560, 2, (160, 2)),
+    (3, 20000, 2, (320, 8))])
+def test_quantize_launch_plan_few_rows(N, D, elem_size, plan):
+    """On a card of 132 SMs: narrow rows of several chunks a lane, fewer
+    than THIN an SM, take a block a row of one chunk a thread; rows of at
+    most 32 chunks and wide rows keep the plan from D."""
+    assert bq.launch_plan(D, elem_size, N, 132) == plan
+    lanes, cpt = plan
+    assert lanes * cpt >= -(-D // bq.CHUNK) and (lanes <= 32 or lanes % 32 == 0)
+
+
+def test_quantize_launch_plan_at_the_boundary_shape():
+    """The serve's boundary activations (D = 2560) take a block of 160
+    threads of two chunks a row, in either dtype."""
+    assert bq.launch_plan(2560, 2) == bq.launch_plan(2560, 4) == (160, 2)
+
+
+def test_quantize_vector_loads():
+    x = torch.zeros(4, 2560, dtype=torch.bfloat16)
+    assert bq.vector_loads(x)
+    assert not bq.vector_loads(torch.zeros(4 * 2560 + 1, dtype=torch.bfloat16)[1:].view(4, 2560))
+    assert not bq.vector_loads(torch.zeros(4, 2563, dtype=torch.bfloat16))
+
+
 def test_quantize_any_row_count():
     """No divisor-block search: 7 rows of 3 leading dims work as they are."""
     x = torch.from_numpy(_normal(22, (7, 3, 96)))
