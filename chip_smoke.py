@@ -13,7 +13,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    main paths' shapes (quantize bit-equal at every launch instance, and
    timed at the serve boundary, decode, narrow and long shapes;
    rmsnorm, flash and decode attention at every shape the smoke paths
-   run, rmsnorm also at qwen3-14b's qk_norm and decode
+   run, flash attention's f32 route also at tests/test_kernels.py's f32
+   shapes and non-causal, rmsnorm also at qwen3-14b's qk_norm and decode
    attention at one that splits the sequence; ssd_scan in f32 with q and k
    broadcast or per head, with and without log_i, and in bf16), and time
    it beside its bound, its plain version and one PyTorch library call (a
@@ -26,9 +27,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    plan deployed for real on a Poisson and a bursty trace; a hand-pinned
    2-stage pooled plan through `use_plan`, calibrated on the card, with
    measured feedback; a live `swap` to another partitioning warmed on a
-   background thread.  Every request must be served with no executor
-   failure (the data plane would drop the batch of a kernel that failed),
-   and serving must launch the RMSNorm and attention kernels;
+   background thread.  Every stage runs as a CUDA graph captured at
+   deploy (or in the swap's warm) and replayed; a stage call that finds
+   no graph fails the phase.  Every request must be served with no
+   executor failure (the data plane would drop the batch of a kernel that
+   failed), and serving must launch the RMSNorm and attention kernels
+   (counted through the replays).  The pinned plan's stages are then run
+   as served and eagerly, in turns, for the device busy share and stage
+   times of either;
 4. check the full-width stage split through the kernels against the plain
    PyTorch math on the same parameters: layer by layer from the same input,
    and the whole forward by the decisive-margin top-1 rule;
@@ -74,6 +80,7 @@ N_BLOCKS = 6
 CUT = 3            # blocks [0, CUT) on the 3-member l4 pool, the rest on the h100
 L4_COUNT = 8       # l4 stand-ins beside the one h100
 N_REQUESTS = 48    # requests a trace
+SWAP_REQUESTS = 10 * N_REQUESTS  # the live swap's trace (act_swap says why)
 # SLO scales (x the h100's analytic batch-1 latency): the ModelSpec default
 # for the MILP act, where the planner pools l4s in front of the h100 (at 3x
 # no l4 stage fits and the h100 serves alone); 8x for the swap act, whose
@@ -459,7 +466,69 @@ def check_flash_attention(dev, g, err, parent) -> dict:
             f"{r['library_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; "
             f"max|err| {r['max_abs_err']:.3g}; bit-equal to the (B, H, S, D) copies")
         shapes.append(r)
+    shapes.append(check_flash_f32(dev, g, err))
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
+
+
+# (B, H, KH, S, D) of tests/test_kernels.py's flash attention sweep
+FLASH_F32_SHAPES = ((2, 4, 2, 256, 64), (1, 8, 8, 128, 128), (2, 6, 2, 384, 128),
+                    (1, 2, 1, 512, 64))
+
+
+def check_flash_f32(dev, g, err) -> dict:
+    """The f32 route (CUDA-core FMAs): held to the plain version in f32
+    (TF32 off) at 3e-5, tests/test_kernels.py's f32 bound, at that file's
+    four shapes and non-causal at (1, 4, 256, 64), with bf16 non-causal at
+    `attn_tol`; then timed in the model layout at the serve shape (8, 128,
+    32, 80), the shape phase 5's f32 witness prefills stablelm-3b at.
+    Returns the shapes entry of that time."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.testing.parity import attn_tol, tol
+
+    f32 = torch.float32
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the plain f32 version would not be an f32 oracle")
+    worst = 0.0
+    cases = [(shape, True, f32) for shape in FLASH_F32_SHAPES]
+    cases += [((1, 4, 4, 256, 64), False, f32), ((1, 4, 4, 256, 64), False, torch.bfloat16)]
+    for (B, H, KH, S, D), causal, dtype in cases:
+        q = torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
+        k, v = (torch.randn(B, KH, S, D, generator=g, device=dev).to(dtype) for _ in range(2))
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        bound = tol(dtype) if dtype == f32 else attn_tol(dtype)
+        torch.testing.assert_close(got, want, **bound)
+        if dtype == f32:
+            worst = max(worst, err(got, want))
+        log(f"[kernels] flash_attention {'f32' if dtype == f32 else 'bf16'} "
+            f"{'causal' if causal else 'non-causal'} (B, H, KH, S, D) = ({B}, {H}, {KH}, {S}, "
+            f"{D}): max|err| {err(got, want):.3g} (tol {bound})")
+    B, S, H, HD = BATCH, SEQ, 32, 80
+    q, k, v = (torch.randn(B, S, H, HD, generator=g, device=dev) for _ in range(3))
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = fa.attention_bthd(q, k, v)
+    want = fa.flash_attention_plain(qh, kh, vh).transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **tol(f32))
+    worst = max(worst, err(got, want))
+    pairs = B * H * S * (S + 1) / 2
+    b_ms, b_by = bound_ms(4 * B * S * H * HD * 4, (4.0 * pairs * HD, F32_FLOP_S))
+    r = dict(
+        shape=[B, S, H, HD], what="serve shape in f32 (phase 5's f32 witness)", dtype="f32",
+        max_abs_err=worst, tol=tol(f32), ms=time_ms(lambda: fa.attention_bthd(q, k, v)),
+        parent_ms=None, plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vh)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)),
+        host_ms=host_ms(lambda: fa.attention_bthd(q, k, v)))
+    log(f"[kernels] flash_attention f32 at the serve shape (B, T, H, D) = ({B}, {S}, {H}, "
+        f"{HD}): {r['ms'] * 1e3:.3f} us vs bound {b_ms * 1e3:.3f} us ({b_by}), plain "
+        f"{r['plain_ms'] * 1e3:.3f} us, SDPA f32 {r['library_ms'] * 1e3:.3f} us; host "
+        f"{r['host_ms'] * 1e3:.3f} us a call; worst f32 max|err| {worst:.3g} (tol {tol(f32)})")
+    return r
 
 
 def check_decode_attention(dev, g, err, parent) -> dict:
@@ -665,15 +734,16 @@ def plan_line(plan) -> str:
             for s in p.stages) for p in plan.pipelines)
 
 
-def trace_of(gen, rate: float, slo_s: float, seed: int, start_id: int = 0) -> list:
-    """The first N_REQUESTS arrivals of `gen(rate, ...)`, drawn over a span
-    long enough for them: a trace sized by count, so its p99 ranks 48
-    latencies however bursty the arrivals."""
-    span = N_REQUESTS / rate
+def trace_of(gen, rate: float, slo_s: float, seed: int, start_id: int = 0,
+             n: int = N_REQUESTS) -> list:
+    """The first `n` arrivals of `gen(rate, ...)`, drawn over a span long
+    enough for them: a trace sized by count, so its p99 ranks n latencies
+    however bursty the arrivals."""
+    span = n / rate
     while True:
         trace = gen(rate, span, slo_s, MODEL, seed=seed, start_id=start_id)
-        if len(trace) >= N_REQUESTS:
-            return trace[:N_REQUESTS]
+        if len(trace) >= n:
+            return trace[:n]
         span *= 2
 
 
@@ -751,8 +821,10 @@ def act_milp(dev) -> int:
         f"chips {plan.chips_used()}; profile {(t1 - t0) * 1e3:.3f} ms, solve "
         f"{(t2 - t1) * 1e3:.3f} ms")
     t0 = time.perf_counter()
+    before = graph_snapshot()
     session.deploy(mode="real")
     log(f"[serve] deploy(mode=\"real\") in {time.perf_counter() - t0:.2f} s")
+    log_captures("MILP plan's deploy", before)
     slo_s = session.store.profiles[MODEL].slo_s
     rate = plan.throughput * 0.6
     poisson = trace_of(poisson_trace, rate, slo_s, seed=7)
@@ -783,7 +855,9 @@ def act_pinned(dev):
     plan = staged_plan(session, BATCH, CUT)
     session.use_plan(plan)
     t0 = time.perf_counter()
+    before = graph_snapshot()
     session.deploy(mode="real")
+    log_captures("pinned plan's deploy (before calibration)", before)
     cfg = get_config(MODEL)
     executors = session.dataplane.dispatcher.executors
     params = executors[0][0].params
@@ -823,36 +897,49 @@ def act_pinned(dev):
 
 def act_swap(dev) -> int:
     """Act 3: a live swap to another partitioning on a fresh deployment of
-    the MILP plan: prepare_swap builds and warms the new ranges' executors
-    on a background thread (its own CUDA stream) while the old plan
-    serves, the swap installs them mid-trace, in-flight batches drain on
-    the retired epoch, which is garbage-collected.  Returns the batches
-    dispatched."""
+    the MILP plan: prepare_swap builds and warms the new ranges' executors,
+    capturing their graphs, on a background thread (its own CUDA stream)
+    from the trace's second arrival while the old plan serves; the swap
+    installs them mid-trace, at the first arrival that finds the warm done
+    (at the last arrival whatever it finds), in-flight batches drain on
+    the retired epoch, which is garbage-collected.  The trace is
+    SWAP_REQUESTS long: served from graphs, the device sets the pace (a
+    batch of 2 through 32 layers takes ~7.5 ms, so 480 requests take ~2 s),
+    and the warm, sharing the host with the serving thread, took 0.3-0.9 s
+    on the card's host.  Returns the batches dispatched."""
     from repro_torch.api import Session
     from repro_torch.data.requests import poisson_trace
 
     session = Session.from_config(serve_config(SWAP_SLO_SCALE), device=dev)
     plan_a = session.plan()
     plan_b = staged_plan(session, 2, 1)
+    before = graph_snapshot()
     session.deploy(mode="real")
+    log_captures("swap act's deploy", before)
+    old = [ex for execs in session.dataplane.dispatcher.executors.values() for ex in execs]
     log(f"[serve] live swap: from the MILP plan {plan_line(plan_a)} to {plan_line(plan_b)}")
     prof = session.store.profiles[MODEL]
     rate = plan_a.throughput * 0.5
-    trace = trace_of(poisson_trace, rate, prof.slo_s, seed=13)
-    at = [trace[len(trace) // 3].arrival_s, trace[2 * len(trace) // 3].arrival_s]
+    trace = trace_of(poisson_trace, rate, prof.slo_s, seed=13, n=SWAP_REQUESTS)
+    first, last = trace[0].arrival_s, trace[-1].arrival_s
     state = {}
 
     def hook(req, t):
-        if "prep" not in state and t > at[0]:
+        if "prep" not in state and t > first:
+            state["prep_at"] = req.req_id  # the trace starts at id 0
             state["prep"] = session.prepare_swap(plan_b)
-        elif "rec" not in state and t > at[1]:
+        elif "rec" not in state and "prep" in state and (state["prep"].ready() or t >= last):
             state["inflight"] = len(session.dataplane.jobs)
+            state["at"] = req.req_id
             state["rec"] = session.swap(plan_b, now=t, reason="live repartition")
 
     session.on_arrival(hook)
+    before = graph_snapshot()
     serve_workload(session, "live swap", trace)
+    log_captures("live swap's background warm (prepare_swap's thread)", before, memory=False)
     tel, rec, prep = session.telemetry, state["rec"], state["prep"]
-    log(f"[serve] live swap with {state['inflight']} batch(es) in flight: swap wall "
+    log(f"[serve] live swap at arrival {state['at']} of {len(trace)} (prepared from arrival "
+        f"{state['prep_at']}), with {state['inflight']} batch(es) in flight: swap wall "
         f"{rec.swap_wall_s * 1e3:.3f} ms, background warm {prep.warm_wall_s * 1e3:.3f} ms, "
         f"waited for it in the swap {rec.compile_wall_s * 1e3:.3f} ms, prepared {rec.prepared}, "
         f"{rec.reused_executors} executor(s) reused, new_ranges {list(rec.new_ranges)}, "
@@ -860,14 +947,20 @@ def act_swap(dev) -> int:
         f"({tel.epochs_gcd}/{tel.plan_swaps})")
     if not (rec.prepared and tel.plan_swaps == 1 and tel.epochs_gcd == 1 and rec.new_ranges):
         raise AssertionError(f"live swap: {rec}, swaps {tel.plan_swaps}, GC'd {tel.epochs_gcd}")
+    live = {id(ex) for execs in session.dataplane.dispatcher.executors.values() for ex in execs}
+    held = [len(ex.graphs) for ex in old if id(ex) not in live]
+    if any(held):
+        raise AssertionError(f"the GC'd epoch's executors still hold graphs: {held}")
+    log(f"[serve] the GC'd epoch released the graphs of its {len(held)} executor(s) that the "
+        f"new plan does not serve with")
     batches = len(tel.dispatches)
     release(session)
     return batches
 
 
-def busy_share(run, tag: str) -> float | None:
+def busy_share(run, tag: str, top: int = 8) -> float | None:
     """Share of the wall time of `run()` (work that ends on the card) during
-    which the card ran kernels, from torch.profiler; logs the top kernels
+    which the card ran kernels, from torch.profiler; logs the `top` kernels
     and host ops.  None if the profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -883,13 +976,13 @@ def busy_share(run, tag: str) -> float | None:
     busy_us = sum(e.device_time_total for e in kernels)
     if busy_us <= 0:
         return None
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:top]:
         log(f"[{tag}] profile: {e.device_time_total / busy_us:7.2%} of device time, "
             f"{e.count:5d} calls: {e.key[:90]}")
     host = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU]
     host_us = sum(e.self_cpu_time_total for e in host)
-    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
         log(f"[{tag}] profile: {e.self_cpu_time_total / host_us:7.2%} of host op time, "
             f"{e.count:5d} calls: {e.key[:90]}")
     log(f"[{tag}] profile: {len(kernels)} kernel names, {busy_us / 1e3:.3f} ms device time, "
@@ -897,36 +990,115 @@ def busy_share(run, tag: str) -> float | None:
     return busy_us / wall_us
 
 
-def device_busy_share(executors, dev, n_batches: int = 4) -> float | None:
-    """Busy share over a window of back-to-back pipelined batches."""
+def graph_snapshot() -> tuple:
+    from repro_torch.serving.engine import GRAPH_STATS as G
+
+    return G.captures, G.capture_s, G.allocated_bytes, G.reserved_bytes
+
+
+def log_captures(what: str, before: tuple, memory: bool = True) -> None:
+    """The stage graphs captured since `before` (a `graph_snapshot`), with
+    the device memory they hold where nothing else allocated meanwhile."""
+    n, sec, alloc, res = (a - b for a, b in zip(graph_snapshot(), before))
+    held = (f"they hold {res / 2**20:.1f} MiB of device memory reserved, "
+            f"{alloc / 2**20:.1f} MiB allocated" if memory else
+            "their memory is not told apart from the serving thread's, which allocated "
+            "meanwhile")
+    log(f"[serve] {what}: captured {n} stage graphs in {sec * 1e3:.3f} ms (host time inside "
+        f"capture_begin .. capture_end); {held}")
+
+
+class EagerStage:
+    """A StageExecutor's stage run eagerly (`stage_fn`, no graph), for the
+    comparison with the replays of its captured graphs."""
+
+    def __init__(self, ex):
+        self.ex = ex
+
+    def transfer(self, x):
+        return self.ex.transfer(x)
+
+    def __call__(self, x):
+        import torch
+
+        with torch.inference_mode():
+            return self.ex.stage_fn(self.ex.params, x)
+
+
+def graphs_vs_eager(executors, dev, n_batches: int = 4) -> dict:
+    """The pinned plan's stages as served (graph replays) and run eagerly,
+    in turns (graphs, eager, eager, graphs), each over a window of
+    `n_batches` back-to-back pipelined batches of BATCH: the device busy
+    share of the window (profiler) and the median device time of each stage
+    (the dispatcher's events around it).  Also the device time of the copy
+    each replay hands out (its static output cloned)."""
+    import numpy as np
     import torch
 
     from repro_torch.dataplane import PoolDispatcher
 
-    disp = PoolDispatcher(executors, max_inflight=4)
     tokens = torch.ones((BATCH, SEQ), dtype=torch.int64, device=dev)
+    variants = {"graphs": executors[0], "eager": [EagerStage(ex) for ex in executors[0]]}
+    res = {k: dict(share=[], walls=[[] for _ in executors[0]]) for k in variants}
+    for i, name in enumerate(("graphs", "eager", "eager", "graphs")):
+        disp = PoolDispatcher({0: variants[name]}, max_inflight=n_batches)
 
-    def run():
-        for _ in range(n_batches):
-            disp.submit_chain(0, tokens)
-        disp.drain_all()
+        def run():
+            for _ in range(n_batches):
+                disp.submit_chain(0, tokens)
+            disp.drain_all()
 
-    return busy_share(run, "serve")
+        run()  # outside the window: allocator pools warm for this variant
+        disp.take_completed()
+        res[name]["share"].append(busy_share(run, f"serve, {name}", top=8 if i < 2 else 0))
+        for done in disp.take_completed():
+            for si, w in enumerate(done.stage_wall_s):
+                res[name]["walls"][si].append(w)
+    for name, r in res.items():
+        r["median_stage_ms"] = [float(np.median(w)) * 1e3 for w in r["walls"]]
+        shares = ", ".join("not measured" if x is None else f"{x:.4f}" for x in r["share"])
+        log(f"[serve] {name}: device busy share over {n_batches} back-to-back batches of "
+            f"{BATCH}: {shares}; median stage device time "
+            + ", ".join(f"stage {si} {ms:.3f} ms" for si, ms in enumerate(r["median_stage_ms"]))
+            + f" (over {len(r['walls'][0])} batches)")
+    r = res["graphs"]
+    r["clone_us"] = []
+    for si, ex in enumerate(executors[0]):
+        g = max(ex.graphs.values(), key=lambda g: g.static_in.shape[0])
+        r["clone_us"].append(time_ms(lambda g=g: g.static_out.clone()) * 1e3)
+        log(f"[serve] stage {si}: the copy a replay hands out, "
+            f"{tuple(g.static_out.shape)} {g.static_out.dtype}, takes "
+            f"{r['clone_us'][-1]:.3f} us of device time")
+    return res
 
 
 def phase_serve(dev):
     """The three serve acts through `repro_torch.api.Session`, counted
     together: every kernel launch from the first deploy to the last drain
-    (stage programs, calibration, the swap's warm).  Returns the model's
-    config, the pinned act's live session and the launch counts."""
+    (stage programs, calibration, the swap's warm).  The stages replay
+    captured graphs: the kernel wrappers count a graph's launches once,
+    when it is captured, so the launches served are the counters' advance,
+    less what was recorded into graphs, plus each graph's launches times its
+    replays.  Every stage call on the serving path must replay a graph.
+    Returns the model's config, the pinned act's live session and the
+    launch counts."""
     from repro_torch.configs import get_config
+    from repro_torch.serving.engine import GRAPH_STATS as G
 
     reset_counts()
+    G.reset()
     batches = act_milp(dev)
     session = act_pinned(dev)
     batches += len(session.telemetry.dispatches)
     batches += act_swap(dev)
-    launches = read_counts()
+    counted = read_counts()
+    launches = {k: n - G.captured.get(k, 0) + G.replayed.get(k, 0) for k, n in counted.items()}
+    log(f"[serve] stage graphs over the three acts: {G.captures} captured in "
+        f"{G.capture_s * 1e3:.3f} ms, {G.replays} replays, {G.misses} calls without a graph; "
+        f"the kernel counters advanced by {counted}, of which {G.captured} at capture; the "
+        f"replays launched {G.replayed}")
+    if G.misses:
+        raise AssertionError(f"{G.misses} stage calls found no graph and ran eagerly")
     cfg = get_config(MODEL)
     for name in ("rmsnorm", "flash_attention"):
         if launches[name] < cfg.n_layers * batches:
@@ -935,10 +1107,7 @@ def phase_serve(dev):
     log(f"[serve] launches while serving: {launches} ({batches} batches over the three acts; "
         f"on one card every stage shares the device, so transfer() skips the boundary "
         f"kernels)")
-    share = device_busy_share(session.dataplane.dispatcher.executors, dev)
-    log("[serve] device busy share over 4 back-to-back batches: "
-        + ("not measured (profiler recorded no device time)" if share is None
-           else f"{share:.4f}"))
+    graphs_vs_eager(session.dataplane.dispatcher.executors, dev)
     return cfg, session, launches
 
 
@@ -1014,25 +1183,17 @@ def phase_parity(cfg, executors, dev) -> None:
 # ----------------------------------------------------------------- phase 5
 
 
-def kernel_counters() -> dict:
-    from repro_torch.kernels.boundary_quant import ops as bq
-    from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.rmsnorm import ops as rn
-    from repro_torch.kernels.ssd_scan import ops as ssd
-
-    return {"rmsnorm": rn.rmsnorm, "flash_attention": fa.flash_attention,
-            "quantize": bq.quantize, "dequantize": bq.dequantize,
-            "decode_attention": da.decode_attention, "ssd_scan": ssd.ssd_scan}
-
-
 def reset_counts() -> None:
-    for fn in kernel_counters().values():
+    from repro_torch.kernels import counters
+
+    for fn in counters().values():
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    from repro_torch.kernels import launch_counts
+
+    return launch_counts()
 
 
 def rel_err(got, want) -> float:
@@ -1177,8 +1338,8 @@ def witnesses(cfg, params, prompts, fed, got) -> None:
     """Readings of the serving invariant at full width beside the kernels'
     bf16 one, from the same tokens.  The plain math in bf16: does it miss
     its own forward as the kernels do, and how far are the kernels' decode
-    logits from its?  The kernels in f32 (the prefill's attention through
-    the plain math: flash_attention takes bf16 only): for the dense model
+    logits from its?  The kernels in f32 (every kernel's f32 route, flash
+    attention's CUDA-core one included): for the dense model
     the invariant must hold there with decisive positions, so the check can
     fail; zamba2-2.7b's f32 forward is itself too sensitive for that, which
     the last reading shows: the f32 forward's move when the embeddings are
@@ -1189,6 +1350,7 @@ def witnesses(cfg, params, prompts, fed, got) -> None:
 
     import torch
 
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models.common import KERNELS, PLAIN
     from repro_torch.models.model_zoo import build_model
 
@@ -1202,12 +1364,16 @@ def witnesses(cfg, params, prompts, fed, got) -> None:
     del plain, full
     model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
     params32 = copy.deepcopy(params).float()
-    ops32 = dataclasses.replace(KERNELS, attention=PLAIN.attention)
-    got32, full32 = teacher_forced(model32, params32, prompts, fed, ops32)
+    launches = fa.flash_attention.launches
+    got32, full32 = teacher_forced(model32, params32, prompts, fed, KERNELS)
     params32["embed"].mul_(1 + 2.0 ** -22)
     seq = torch.cat([prompts, *fed], dim=1)
-    nudged = model32.forward(params32, {"tokens": seq}, ops=ops32)[:, S - 1:].float()
+    nudged = model32.forward(params32, {"tokens": seq}, ops=KERNELS)[:, S - 1:].float()
     torch.cuda.synchronize()
+    launches = fa.flash_attention.launches - launches
+    if launches <= 0:
+        raise AssertionError(f"{arch} f32: flash_attention's f32 route was not launched")
+    log(f"[decode] {arch} kernels, f32: flash_attention's f32 route launched {launches} times")
     err, scale, decisive, agree = invariant(got32, full32)
     log(f"[decode] {arch} kernels, f32: vs the teacher-forced forward max|err| {err:.4g} at "
         f"logit scale {scale:.3f} ({err / scale:.4g} of scale); top-1 agrees at "

@@ -485,6 +485,10 @@ class Session:
 
             self._generator = torch.Generator(self.device).manual_seed(cfg.seed)
             executors = self._executors_for(self._plan)
+            if self.device.type == "cuda":
+                # capture every stage's graphs before anything runs them
+                # (the reference compiles at first call instead)
+                self._warm_executors(self._plan)
             if self._should_calibrate():
                 calibrate_runtime(runtime, executors, cfg.serve_seq_len,
                                   token_fn=cfg.token_fn)
@@ -745,7 +749,12 @@ class Session:
         stream: `prepare_swap` calls this from a background thread while
         the dispatcher serves on the serving thread's stream, and the warm
         must neither queue behind that work nor touch its timing events.
-        Parameters are shared read-only between the two."""
+        Parameters are shared read-only between the two.  There each stage
+        runs eagerly at each bucket and is then captured at that shape as a
+        CUDA graph (`StageExecutor.capture`, the counterpart of the
+        reference's jit compile); a pipeline whose executors were all built
+        before is warmed again if one of them lacks a bucket's graph (the
+        epoch GC releases the graphs of executors no plan serves with)."""
         from repro_torch.dataplane.plane import _default_tokens
 
         missing = tuple(self.missing_ranges(plan))
@@ -765,27 +774,34 @@ class Session:
             keys = [(pp.model_name, s.block_start, s.block_end)
                     for s in pp.stages]
             total += len(keys)
-            if not fresh.intersection(keys):
-                continue  # fully cached pipeline: nothing to warm
             # warm every batch bucket serving can produce: the default
             # token_fn pads dispatched batches to the next power of two
             # (plane._default_tokens), so pow2 buckets up to the unified
             # batch cover every stage shape.  A custom token_fn is fed the
             # same bucket sizes it will see live.
-            bucket = 1
-            while bucket < pp.batch_size:
-                bucket *= 2
+            buckets = [1]
+            while buckets[-1] < pp.batch_size:
+                buckets.append(buckets[-1] * 2)
+            execs = execs_by_pid[pid]
+            if not fresh.intersection(keys) and not (
+                    stream is not None and any(
+                        not set(buckets) <= {k[0][0] for k in ex.graphs}
+                        for ex in execs)):
+                continue  # fully cached pipeline: nothing to warm
             with torch.inference_mode(), (torch.cuda.stream(stream)
                                           if stream is not None
                                           else contextlib.nullcontext()):
-                b = 1
-                while b <= bucket:
+                for b in buckets:
                     carry = token_fn(b, self.config.serve_seq_len)
-                    for si, ex in enumerate(execs_by_pid[pid]):
+                    for si, ex in enumerate(execs):
                         if si > 0:
                             carry = ex.transfer(carry)
-                        carry = ex(carry)
-                    b *= 2
+                        if stream is None:
+                            carry = ex(carry)
+                            continue
+                        out = ex.stage_fn(ex.params, carry)
+                        ex.capture(carry)
+                        carry = out
             if stream is not None:
                 stream.synchronize()
         return missing, total - len(missing)

@@ -20,7 +20,7 @@ resource coupling, `serve_stream` with backpressure edges, fault injection
 (`fail_host`, `fail_chips`, stragglers, bounded retries) and the observer
 hooks are the reference's, line for line; `_default_tokens`,
 `build_executors` and `calibrate_runtime` make tensors on the executors'
-device and time stages between device synchronisations.  With planned
+device and time stages between synchronisations of their stream.  With planned
 feedback and no dispatcher the plane is decision-identical to the
 reference's (tests/test_torch_dataplane.py, tests/test_torch_api.py).
 """
@@ -606,6 +606,21 @@ class DataPlane:
         return transient
 
     # ------------------------------------------------------------ epoch GC
+    def _release_graphs(self, disp: PoolDispatcher) -> None:
+        """Release the CUDA graphs of the retired dispatcher `disp`'s stage
+        executors that no dispatcher still serving (the live one, another
+        retired epoch's) shares; a later plan that needs one of them again
+        captures it anew in its warm."""
+        from repro_torch.serving.engine import StageExecutor
+
+        live = [self.dispatcher, *self._retired_dispatchers.values()]
+        kept = {id(ex) for d in live if d is not None
+                for execs in d.executors.values() for ex in execs}
+        for execs in disp.executors.values():
+            for ex in execs:
+                if isinstance(ex, StageExecutor) and id(ex) not in kept:
+                    ex.release_graphs()
+
     def _maybe_gc_epoch(self, epoch: int) -> None:
         """Drop a retired epoch the moment its last in-flight job completes.
 
@@ -628,6 +643,7 @@ class DataPlane:
             # but shutting down a still-serving object would silently drop
             # every subsequent batch, so guard here too
             self._harvest_dispatcher(disp)
+            self._release_graphs(disp)
             disp.shutdown()
         self.tel.absorb_epoch(epoch, rt)
         self.tel.epochs_gcd += 1
@@ -1066,8 +1082,10 @@ def build_executors(cfg, plan: ClusterPlan, layer_block_map,
 
 
 def _synchronize(x: torch.Tensor) -> None:
+    """Wait for the current stream, where the stages run (never the whole
+    device: that is refused while a background warm captures a graph)."""
     if x.is_cuda:
-        torch.cuda.synchronize(x.device)
+        torch.cuda.current_stream(x.device).synchronize()
 
 
 def calibrate_runtime(runtime: ClusterRuntime, executors_by_pipeline,
@@ -1077,7 +1095,7 @@ def calibrate_runtime(runtime: ClusterRuntime, executors_by_pipeline,
     measure each stage at each batch size and overwrite the analytic
     latency tables with measured wall seconds, so the scheduler's virtual
     clock *is* the wall clock and SLOs/deadlines become physically meaningful.
-    Each stage is timed between two device synchronisations.
+    Each stage is timed between two synchronisations of its stream.
 
     Returns {(pipeline_id, stage_idx, batch): seconds} for reporting.
     """

@@ -1,4 +1,6 @@
-// Causal GQA flash attention (prefill, Sq == Sk) for Hopper (sm_90a), bf16.
+// Causal or non-causal GQA flash attention (prefill, Sq == Sk) for Hopper
+// (sm_90a): bf16 on the tensor cores (`fa_forward`), and an f32 route on
+// CUDA-core FMAs (`fa_forward_f32`, the section before the host code).
 //
 // Replaces the Pallas TPU kernel `flash_attention` (`_flash_kernel`) of
 // src/repro/kernels/flash_attention/kernel.py: online softmax with f32
@@ -410,6 +412,185 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// ----------------------------------------------------------- the f32 route
+//
+// f32 q, k and v (the Pallas kernel's f32 instance, held at 3e-5): CUDA-core
+// f32 FMAs, since TF32 (10 mantissa bits) and two bf16 parts (~16) both miss
+// that bound.  A block takes 64 query rows of one (head, batch), four
+// threads a row: a thread keeps q and the accumulator of every fourth
+// 4-column chunk of the row in registers (columns 16 m + 4 t .. + 3 for
+// thread t), so the four read 64 contiguous bytes of a K or V row and the
+// 16 rows of a warp read the same ones (a broadcast).  K/V tiles of 16 keys
+// of the row's KV head stream through a three-stage ring in shared memory
+// (48 KB at D = 128, so no attribute is needed) by 16-byte `cp.async` where
+// the tensors allow it, 4-byte copies else; keys past S are zero-filled.  A
+// score is the thread's partial dot product summed over the four threads by
+// two shuffles; the online softmax keeps f32 m, l and the accumulator, in
+// base 2 with the scale folded into log2(e), as the bf16 route does.
+// Tiles past the block's last row are skipped under the causal mask.
+
+constexpr int kF32Rows = 64;                       // query rows a block
+constexpr int kF32Quad = 4;                        // threads a query row
+constexpr int kF32Threads = kF32Rows * kF32Quad;
+constexpr int kF32Keys = 16;                       // keys a K/V tile
+constexpr int kF32Stages = 3;                      // ring depth
+
+struct F32Args {
+  const float *q, *k, *v;
+  float* o;
+  Strides sq, sk, sv, so;
+  int H, KH, S, D, Dp;  // Dp: D rounded up to 4, the row length in shared memory
+  float scale_log2;
+  int causal;
+};
+
+// VB bytes from global to shared memory; src_bytes 0 fills zeros, reading nothing
+template <int VB>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_bytes) {
+  if constexpr (VB == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(VB), "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// NC: 4-column chunks a thread owns (ceil(Dp / 16)); VB: the cp.async width
+template <int NC, int VB>
+__global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const F32Args a) {
+  extern __shared__ __align__(16) float ring[];
+  const int tile = gridDim.x - 1 - blockIdx.x;  // the far end of the diagonal first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (a.H / a.KH);
+  const int t = threadIdx.x % kF32Quad;
+  const int qi = tile * kF32Rows + threadIdx.x / kF32Quad;  // this thread's query row
+  const int D = a.D, Dp = a.Dp;
+  const int n_keys = a.causal ? min(a.S, (tile + 1) * kF32Rows) : a.S;
+  const int n_tiles = (n_keys + kF32Keys - 1) / kF32Keys;
+  const float* kb = a.k + b * a.sk.b + kh * a.sk.h;
+  const float* vb = a.v + b * a.sv.b + kh * a.sv.h;
+  const int stage_floats = 2 * kF32Keys * Dp;
+  const uint32_t ring_addr = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+
+  auto issue = [&](int c) {
+    constexpr int E = VB / 4;  // floats a copy
+    const uint32_t ks = ring_addr + (c % kF32Stages) * stage_floats * 4;
+    const uint32_t vs = ks + kF32Keys * Dp * 4;
+    const int pieces = Dp / E;
+    for (int idx = threadIdx.x; idx < kF32Keys * pieces; idx += kF32Threads) {
+      const int r = idx / pieces, col = (idx - r * pieces) * E;
+      const int j = c * kF32Keys + r;
+      const bool ok = j < n_keys && col < D;
+      const int64_t jj = ok ? j : 0;
+      const int cc = ok ? col : 0;
+      const uint32_t off = (r * Dp + col) * 4;
+      cp_async<VB>(ks + off, kb + jj * a.sk.s + cc, ok ? VB : 0);
+      cp_async<VB>(vs + off, vb + jj * a.sv.s + cc, ok ? VB : 0);
+    }
+  };
+  // every stage full from the start; a stage is refilled as soon as its tile
+  // is used (one commit group a tile)
+#pragma unroll
+  for (int c = 0; c < kF32Stages; ++c) {
+    if (c < n_tiles) issue(c);
+    cp_async_commit();
+  }
+
+  float qr[NC][4], acc[NC][4];
+  const float* qrow = a.q + b * a.sq.b + h * a.sq.h + static_cast<int64_t>(qi) * a.sq.s;
+#pragma unroll
+  for (int m = 0; m < NC; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 16 * m + 4 * t + e;
+      qr[m][e] = qi < a.S && col < D ? qrow[col] : 0.0f;
+      acc[m][e] = 0.0f;
+    }
+  }
+  float mrow = kNegInf, lrow = 0.0f;
+
+  for (int c = 0; c < n_tiles; ++c) {
+    cp_async_wait<kF32Stages - 1>();  // tile c has landed
+    __syncthreads();
+    const float* ks = ring + (c % kF32Stages) * stage_floats;
+    const float* vs = ks + kF32Keys * Dp;
+    const int j0 = c * kF32Keys;
+    float s[kF32Keys];
+    float mx = kNegInf;
+#pragma unroll
+    for (int u = 0; u < kF32Keys; ++u) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NC; ++m) {
+        const int col = 16 * m + 4 * t;
+        if (col < Dp) {
+          const float4 kk = *reinterpret_cast<const float4*>(ks + u * Dp + col);
+          dot = fmaf(qr[m][0], kk.x, dot);
+          dot = fmaf(qr[m][1], kk.y, dot);
+          dot = fmaf(qr[m][2], kk.z, dot);
+          dot = fmaf(qr[m][3], kk.w, dot);
+        }
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      const int j = j0 + u;
+      const bool ok = j < a.S && (!a.causal || j <= qi);
+      s[u] = ok ? dot * a.scale_log2 : kNegInf;
+      mx = fmaxf(mx, s[u]);
+    }
+    const float m_new = fmaxf(mrow, mx);
+    const float corr = exp2f(mrow - m_new);
+#pragma unroll
+    for (int m = 0; m < NC; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][e] *= corr;
+    float psum = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kF32Keys; ++u) {
+      const float p = s[u] > kNegInf ? exp2f(s[u] - m_new) : 0.0f;
+      psum += p;
+#pragma unroll
+      for (int m = 0; m < NC; ++m) {
+        const int col = 16 * m + 4 * t;
+        if (col < Dp) {
+          const float4 vv = *reinterpret_cast<const float4*>(vs + u * Dp + col);
+          acc[m][0] = fmaf(p, vv.x, acc[m][0]);
+          acc[m][1] = fmaf(p, vv.y, acc[m][1]);
+          acc[m][2] = fmaf(p, vv.z, acc[m][2]);
+          acc[m][3] = fmaf(p, vv.w, acc[m][3]);
+        }
+      }
+    }
+    lrow = lrow * corr + psum;
+    mrow = m_new;
+    __syncthreads();  // every thread is done with this stage before it is refilled
+    if (c + kF32Stages < n_tiles) issue(c + kF32Stages);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  if (qi < a.S) {
+    const float den = fmaxf(lrow, 1e-30f);
+    float* orow = a.o + b * a.so.b + h * a.so.h + static_cast<int64_t>(qi) * a.so.s;
+#pragma unroll
+    for (int m = 0; m < NC; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 16 * m + 4 * t + e;
+        if (col < D) orow[col] = acc[m][e] / den;
+      }
+  }
+}
+
 // ------------------------------------------------------------------- host
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -490,6 +671,24 @@ int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int S, float scal
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NC>
+int launch_f32(const F32Args& a, int B, bool vec, cudaStream_t st) {
+  const int smem = kF32Stages * 2 * kF32Keys * a.Dp * static_cast<int>(sizeof(float));
+  const dim3 grid((a.S + kF32Rows - 1) / kF32Rows, a.H, B);
+  if (vec)
+    flash_f32_kernel<NC, 16><<<grid, kF32Threads, smem, st>>>(a);
+  else
+    flash_f32_kernel<NC, 4><<<grid, kF32Threads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// true if every row of t starts on a 16-byte boundary: the base, and each
+// stride of a dimension longer than one, a multiple of 4 floats
+bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || s.b % 4 == 0) &&
+         (heads == 1 || s.h % 4 == 0) && (S == 1 || s.s % 4 == 0);
+}
+
 }  // namespace
 
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
@@ -517,5 +716,46 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
     case 6: return launch<96>(maps, B, H, KH, S, scale, causal, st);
     case 7: return launch<112>(maps, B, H, KH, S, scale, causal, st);
     default: return launch<128>(maps, B, H, KH, S, scale, causal, st);
+  }
+}
+
+// The f32 route: same arguments as fa_forward, f32 tensors at any stride
+// with a unit head_dim stride.
+extern "C" int fa_forward_f32(const void* q, const void* k, const void* v, void* o,
+                              int64_t sqb, int64_t sqh, int64_t sqs,
+                              int64_t skb, int64_t skh, int64_t sks,
+                              int64_t svb, int64_t svh, int64_t svs,
+                              int64_t sob, int64_t soh, int64_t sos,
+                              int B, int H, int KH, int S, int D, float scale,
+                              int causal, void* stream) {
+  if (D < 1 || D > kMaxD || KH < 1 || H % KH != 0 || B < 1 || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  F32Args a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<float*>(o);
+  a.sq = Strides{sqb, sqh, sqs};
+  a.sk = Strides{skb, skh, sks};
+  a.sv = Strides{svb, svh, svs};
+  a.so = Strides{sob, soh, sos};
+  a.H = H;
+  a.KH = KH;
+  a.S = S;
+  a.D = D;
+  a.Dp = (D + 3) / 4 * 4;
+  a.scale_log2 = scale * kLog2e;
+  a.causal = causal;
+  const bool vec = D % 4 == 0 && rows_aligned(k, a.sk, B, KH, S) && rows_aligned(v, a.sv, B, KH, S);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((a.Dp + 15) / 16) {
+    case 1: return launch_f32<1>(a, B, vec, st);
+    case 2: return launch_f32<2>(a, B, vec, st);
+    case 3: return launch_f32<3>(a, B, vec, st);
+    case 4: return launch_f32<4>(a, B, vec, st);
+    case 5: return launch_f32<5>(a, B, vec, st);
+    case 6: return launch_f32<6>(a, B, vec, st);
+    case 7: return launch_f32<7>(a, B, vec, st);
+    default: return launch_f32<8>(a, B, vec, st);
   }
 }

@@ -7,10 +7,12 @@ so that no transposed copy is made, and run `flash_attention_plain` for CPU
 tensors; any other device raises.  They replace the Pallas kernel of the
 reference's `kernels/flash_attention/kernel.py`, which computes the math of
 `models.common.chunked_attention` when Sq == Sk.  Bound on the card: bytes
-at the serving shapes (see the source note).  The kernel takes bfloat16
-(its products run on the tensor cores); other dtypes on CUDA raise, as do
-q, k, v that its TMA loads cannot address (head_dim not a multiple of 8, a
-base or stride not a multiple of 16 bytes).
+at the serving shapes (see the source note).  bfloat16 runs on the tensor
+cores (`fa_forward`) and raises for q, k, v that its TMA loads cannot
+address (head_dim not a multiple of 8, a base or stride not a multiple of
+16 bytes); float32 runs on CUDA-core FMAs (`fa_forward_f32`, the Pallas
+kernel's f32 instance) at any stride with a unit head_dim stride; other
+dtypes on CUDA raise.
 
 Causal alignment: the Pallas kernel masks top-left (k_pos <= q_pos), the
 reference oracle bottom-right; the two agree only for Sq == Sk, the only
@@ -60,18 +62,22 @@ def _check_shapes(q, k, v) -> tuple[int, int, int, int]:
 _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # q, k, v, o, 4 x (batch, head, seq) strides, B, H, KH, S, D, scale, causal,
 # stream
-_SIGNATURES = {"fa_forward": [_P] * 4 + [_L] * 12 + [_I] * 5
-               + [ctypes.c_float, _I, _P]}
+_ARGS = [_P] * 4 + [_L] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]
+_SIGNATURES = {"fa_forward": _ARGS, "fa_forward_f32": _ARGS}
+# the entry point of each dtype the kernel takes
+_ENTRY = {torch.bfloat16: "fa_forward", torch.float32: "fa_forward_f32"}
 
 
 def _launch(q, k, v, o, causal: bool, scale: float) -> None:
-    """All four are (B, heads, S, D) bf16 views with a unit stride on D."""
+    """All four are (B, heads, S, D) views of one dtype, bfloat16 or
+    float32, with a unit stride on D."""
     B, H, S, D = q.shape
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} exceeds the kernel's {MAX_HEAD_DIM}")
-    if not (q.dtype == k.dtype == v.dtype == o.dtype == torch.bfloat16):
-        raise TypeError(f"the kernel takes bfloat16 q, k, v (tensor-core products), got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    entry = _ENTRY.get(q.dtype)
+    if entry is None or not (q.dtype == k.dtype == v.dtype == o.dtype):
+        raise TypeError(f"the kernel takes bfloat16 (tensor cores) or float32 (CUDA cores) "
+                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     args = []
     for t in (q, k, v, o):
         st = t.stride()
@@ -79,20 +85,21 @@ def _launch(q, k, v, o, causal: bool, scale: float) -> None:
             raise ValueError("head_dim must be contiguous")
         args.append(st)
     ptrs = [t.data_ptr() for t in (q, k, v, o)]
-    for t, st, ptr in zip((q, k, v), args, ptrs):
-        _check_tma(t, st, ptr)
+    if q.dtype == torch.bfloat16:
+        for t, st, ptr in zip((q, k, v), args, ptrs):
+            _check_tma(t, st, ptr)
     if q.numel() == 0:
         return
     lib = _lib.load("flash_attention", _SIGNATURES)
-    err = lib.fa_forward(*ptrs, *args[0][:3], *args[1][:3], *args[2][:3], *args[3][:3],
-                         B, H, k.shape[1], S, D, float(scale), int(causal),
-                         _lib.stream_handle(q))
+    err = getattr(lib, entry)(*ptrs, *args[0][:3], *args[1][:3], *args[2][:3], *args[3][:3],
+                              B, H, k.shape[1], S, D, float(scale), int(causal),
+                              _lib.stream_handle(q))
     _lib.check("flash_attention", err)
     flash_attention.launches += 1
 
 
 def _check_tma(t: torch.Tensor, st: tuple, ptr: int) -> None:
-    """The kernel reads q, k and v through TMA tensor maps, which address
+    """The bf16 kernel reads q, k and v through TMA tensor maps, which address
     16-byte-aligned bases and strides only (a bf16 stride a multiple of 8
     elements): raise on anything else (no fallback)."""
     n = t.shape

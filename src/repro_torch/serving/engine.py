@@ -11,10 +11,19 @@ Stage splitting maps a model's block graph onto partitions:
   blocks 1..L       = sequence layers
   block L+1         = final norm + head
 A stage spanning blocks [i, j) embeds iff i == 0 and unembeds iff j == n.
+
+On CUDA a stage runs as a captured CUDA graph, the counterpart of the
+reference's `jax.jit(stage_fn)`: one graph per executor and input shape,
+captured off the serving path (`StageExecutor.capture`, called by
+`Session._warm_executors` for every power-of-two batch bucket) and replayed
+by `StageExecutor.__call__`.  A CUDA input of a shape with no graph runs
+eagerly and counts as a miss in `GRAPH_STATS`; CPU inputs always run
+eagerly.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
@@ -24,6 +33,7 @@ import torch
 
 from repro_torch.core.plan import PipelinePlan
 from repro_torch.core.types import ModelProfile, Request
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.boundary_quant import ops as bq_ops
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import KERNELS, ModelConfig
@@ -86,19 +96,78 @@ def layer_block_map_from_profile(profile: ModelProfile, n_layers: int
 
 
 @dataclass
+class GraphStats:
+    """Counts over every StageExecutor's CUDA graphs since the last `reset`.
+
+    The kernel wrappers' launch counters advance when a graph is captured,
+    not when it replays: `captured` holds the launches recorded into graphs
+    (by kernel), `replayed` each graph's recorded launches times its
+    replays, so the launches the card ran are the counters' advance minus
+    `captured` plus `replayed`.  Updated from the serving thread and from
+    warm threads, under a lock."""
+
+    captures: int = 0
+    capture_s: float = 0.0    # host seconds inside capture_begin .. capture_end
+    allocated_bytes: int = 0  # device memory the captures left allocated
+    reserved_bytes: int = 0   # device memory the captures reserved (their pools)
+    replays: int = 0
+    misses: int = 0           # CUDA calls at a shape with no graph (run eagerly)
+    captured: dict = field(default_factory=dict)
+    replayed: dict = field(default_factory=dict)
+    _lock: Any = field(default_factory=threading.Lock, repr=False, compare=False)
+
+    def reset(self) -> None:
+        self.__init__()
+
+    def on_capture(self, launches: dict, seconds: float, allocated: int, reserved: int) -> None:
+        with self._lock:
+            self.captures += 1
+            self.capture_s += seconds
+            self.allocated_bytes += allocated
+            self.reserved_bytes += reserved
+            for name, n in launches.items():
+                self.captured[name] = self.captured.get(name, 0) + n
+
+    def on_replay(self, launches: dict) -> None:
+        with self._lock:
+            self.replays += 1
+            for name, n in launches.items():
+                self.replayed[name] = self.replayed.get(name, 0) + n
+
+    def on_miss(self) -> None:
+        with self._lock:
+            self.misses += 1
+
+
+GRAPH_STATS = GraphStats()
+
+
+@dataclass
+class _Graph:
+    graph: Any  # torch.cuda.CUDAGraph
+    static_in: torch.Tensor
+    static_out: torch.Tensor
+    launches: dict  # kernel launches recorded into the graph, by kernel
+
+
+@dataclass
 class StageExecutor:
     """One partition pool: a stage function bound to its params.
 
     On a single host all pool members are co-resident, so one executor
     serves the whole pool; member identity only matters to the reservation
     scheduler, which tracks per-vdev timelines.  Calls launch on the current
-    CUDA stream and return without waiting for the device.
+    CUDA stream and return without waiting for the device: a replay of the
+    graph captured for the input's shape, or the stage run eagerly.
     """
 
     stage_fn: Callable
     params: Any
     quantize_boundary: bool = True
     device: torch.device | None = None  # None = the params' device
+    # (shape, dtype) of the input -> its captured graph; owned here, released
+    # by `release_graphs` (the data plane's epoch GC) or with the executor
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self):
         if self.device is None:
@@ -107,7 +176,52 @@ class StageExecutor:
 
     def __call__(self, carry: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
+            if carry.is_cuda:
+                g = self.graphs.get((tuple(carry.shape), carry.dtype))
+                if g is not None:
+                    g.static_in.copy_(carry)
+                    g.graph.replay()
+                    GRAPH_STATS.on_replay(g.launches)
+                    # the next replay overwrites static_out, and batches stay
+                    # in flight past it: hand each its own copy
+                    return g.static_out.clone()
+                GRAPH_STATS.on_miss()
             return self.stage_fn(self.params, carry)
+
+    def capture(self, example: torch.Tensor) -> None:
+        """Capture the stage at `example`'s shape and dtype as a CUDA graph
+        (nothing if one exists).  The caller has run it eagerly at that
+        shape on the same stream, so kernels are built and lazy
+        initialisations done.  Captures on the current stream, which must be a side stream this
+        thread owns, in thread-local mode: another thread may serve (replay
+        and launch) meanwhile.  Waits for nothing; the caller synchronises
+        the stream."""
+        key = (tuple(example.shape), example.dtype)
+        if key in self.graphs:
+            return
+        allocated = torch.cuda.memory_allocated(self.device)
+        reserved = torch.cuda.memory_reserved(self.device)
+        with torch.inference_mode():
+            static_in = example.clone()
+            before = launch_counts()
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                static_out = self.stage_fn(self.params, static_in)
+            finally:
+                graph.capture_end()
+            seconds = time.perf_counter() - t0
+        launches = {name: n - before[name] for name, n in launch_counts().items()
+                    if n > before[name]}
+        GRAPH_STATS.on_capture(launches, seconds,
+                               torch.cuda.memory_allocated(self.device) - allocated,
+                               torch.cuda.memory_reserved(self.device) - reserved)
+        self.graphs[key] = _Graph(graph, static_in, static_out, launches)
+
+    def release_graphs(self) -> None:
+        """Drop every captured graph; their memory returns to the allocator."""
+        self.graphs = {}
 
     def transfer(self, x: torch.Tensor) -> torch.Tensor:
         """Boundary transfer into this stage: int8-quantize on the sender,

@@ -470,6 +470,37 @@ def test_swap_back_reuses_cached_executors(real_session_setup):
     assert not rec.prepared
 
 
+def test_epoch_gc_releases_graphs_no_live_plan_uses():
+    """The data plane's epoch GC drops the CUDA graphs of the retired
+    epoch's executors that no dispatcher still serves with, and keeps those
+    of executors the live plan shares (graphs stand in as markers here:
+    the CPU captures none, and its calls count no graph miss)."""
+    from repro_torch.serving.engine import GRAPH_STATS
+
+    session = Session.from_config(_tiny_config(), device="cpu")
+    session.profile()
+    plan_a, plan_b = _staged_plans(session)
+    session.use_plan(plan_a)
+    session.deploy(mode="real")
+    misses = GRAPH_STATS.misses
+    a_execs = session.dataplane.dispatcher.executors[0]
+    for ex in a_execs:
+        ex.graphs[("marker",)] = object()
+    session.swap(plan_b, now=session._vnow + 1.0, reason="repartition")
+    assert session.telemetry.epochs_gcd == 1
+    assert all(ex.graphs == {} for ex in a_execs)
+    b_execs = session.dataplane.dispatcher.executors[0]
+    for ex in a_execs + b_execs:
+        ex.graphs[("marker",)] = object()
+    session.swap(plan_a, now=session._vnow + 2.0, reason="back")
+    assert session.telemetry.epochs_gcd == 2
+    assert all(ex.graphs == {} for ex in b_execs)
+    assert all(ex.graphs for ex in a_execs)  # the live plan's: kept
+    session.run([])
+    assert GRAPH_STATS.misses == misses
+    session.shutdown()
+
+
 # ---------------------------------------------------------------------------
 # Public-surface snapshot (tests/test_api.py:409, :422)
 # ---------------------------------------------------------------------------

@@ -14,6 +14,8 @@ the attention kernels in bf16 (`attn_tol`: atol and rtol 1e-2); quantize
 and dequantize must be bit-equal.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -72,12 +74,64 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, KH, S, D):
 
 
 @pytest.mark.requires_cuda
-def test_flash_attention_kernel_refuses_float32(cuda):
-    """The kernel's products run on bf16 tensor cores; f32 on CUDA raises
-    rather than silently computing at lower precision."""
-    q = torch.zeros(1, 2, 16, 64, device=cuda)
+@pytest.mark.parametrize("B,H,KH,S,D", [(2, 4, 2, 256, 64), (1, 8, 8, 128, 128),
+                                        (2, 6, 2, 384, 128), (1, 2, 1, 512, 64)])
+def test_flash_attention_f32_kernel_matches_plain(cuda, B, H, KH, S, D):
+    """The f32 route (CUDA-core FMAs) at tests/test_kernels.py's four shapes
+    and its f32 bound, 3e-5, against the plain version in f32 (TF32 off,
+    PyTorch's default, so the plain einsums are f32 products); the model
+    layout reads the same inputs in place and gives the same output."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    q = _on(cuda, 30, (B, H, S, D), torch.float32)
+    k = _on(cuda, 31, (B, KH, S, D), torch.float32)
+    v = _on(cuda, 32, (B, KH, S, D), torch.float32)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **tol(torch.float32))
+    bthd = fa.attention_bthd(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                             v.transpose(1, 2).contiguous())
+    np.testing.assert_array_equal(_np(bthd.transpose(1, 2).cpu()), _np(got.cpu()))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_kernel_non_causal(cuda, dtype):
+    """Non-causal at tests/test_kernels.py's shape (1, 4, 256, 64): f32 at
+    3e-5, bf16 at `attn_tol`."""
+    q, k, v = (_on(cuda, 35 + i, (1, 4, 256, 64), dtype) for i in range(3))
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    bound = tol(dtype) if dtype == torch.float32 else attn_tol(dtype)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **bound)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_f32_kernel_reads_unaligned_rows(cuda):
+    """f32 K and V whose rows do not start on 16-byte boundaries (a row
+    stride of 66 floats, head_dim 40) take the 4-byte copies."""
+    B, H, S, D = 2, 4, 70, 40
+    q = _on(cuda, 36, (B, H, S, D), torch.float32)
+    k, v = (_on(cuda, 37 + i, (B, S, H, 66), torch.float32)[..., :D].transpose(1, 2)
+            for i in range(2))
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **tol(torch.float32))
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_kernel_refuses_float16(cuda):
+    """The kernel takes bf16 and f32; any other dtype on CUDA raises, with
+    no launch (nothing falls back)."""
+    q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.float16)
+    before = fa.flash_attention.launches
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before
 
 
 @pytest.mark.requires_cuda
@@ -548,3 +602,153 @@ def test_prefill_decode_through_kernels(cuda, arch):
         assert (got.float() - want.float()).abs().max() <= 5e-2 * want.float().abs().max()
         tok, cur = got.argmax(-1), cur + 1
     assert KERNELS.decode_attention is da.decode_attention_bthd
+
+
+# ------------------------------------------------- stages as CUDA graphs
+
+# a reduced stablelm-3b (head_dim 80 as served) on a 2-stage pooled plan of
+# batch 4: buckets 1, 2 and 4 of either stage are captured at deploy
+_GRAPH_MODEL = "stablelm-3b"
+_GRAPH_REDUCED = dict(n_layers=4, head_dim=80, d_model=320)
+_GRAPH_SEQ = 16
+
+
+def _graph_session(cuda):
+    from repro_torch.api import ClusterSpec, ModelSpec, ServeConfig, Session
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.plan import ClusterPlan, PipelinePlan, StagePlan
+
+    cfg = ServeConfig(cluster=ClusterSpec(counts={"h100": 1, "l4": 4}),
+                      models=(ModelSpec(arch=_GRAPH_MODEL, reduced=dict(_GRAPH_REDUCED),
+                                        n_blocks=4, seq_len=_GRAPH_SEQ, slo_scale=20.0),),
+                      serve_seq_len=_GRAPH_SEQ)
+    session = Session.from_config(cfg, device=cuda)
+    session.profile()
+    prof = session.store.profiles[_GRAPH_MODEL]
+    tbl = session.store.analytic_table(_GRAPH_MODEL)
+    n, bs = prof.n_blocks, 4
+
+    def staged(cut):
+        return ClusterPlan(cluster=cfg.cluster, pipelines=[PipelinePlan(
+            model_name=_GRAPH_MODEL, batch_size=bs,
+            stages=(StagePlan(0, cut, "l4", 1, 2, tbl.partition(0, cut, "l4", 1, bs)),
+                    StagePlan(cut, n, "h100", 1, 1, tbl.partition(cut, n, "h100", 1, bs))),
+            xfer_latency_s=(cm.transfer_latency(prof, cfg.cluster, "l4", "h100", cut, bs),),
+        )])
+
+    plan_a, plan_b = staged(n // 2), staged(n // 2 + 1)
+    session.use_plan(plan_a)
+    session.deploy(mode="real")
+    return session, plan_a, plan_b
+
+
+def _tokens(cuda, seed, b):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 512, (b, _GRAPH_SEQ))).to(cuda)
+
+
+def _eager_chain(execs, tokens):
+    with torch.inference_mode():
+        x = tokens
+        for ex in execs:
+            x = ex.stage_fn(ex.params, x)
+        return x
+
+
+@pytest.mark.requires_cuda
+def test_stage_graphs_replay_equal_eager(cuda):
+    """deploy("real") captures one graph per stage and bucket (1, 2, 4);
+    a replay at every bucket of both stages is bit-equal to the stage run
+    eagerly (`stage_fn`) on the same input: the same kernels at the same
+    shapes.  No call misses a graph, and the replays count the kernels'
+    launches the graphs recorded."""
+    from repro_torch.serving.engine import GRAPH_STATS
+
+    session, plan_a, _ = _graph_session(cuda)
+    execs = session.dataplane.dispatcher.executors[0]
+    assert [sorted(k[0][0] for k in ex.graphs) for ex in execs] == [[1, 2, 4], [1, 2, 4]]
+    GRAPH_STATS.reset()
+    for b in (1, 2, 4):
+        x = _tokens(cuda, b, b)
+        for ex in execs:
+            with torch.inference_mode():
+                want = ex.stage_fn(ex.params, x)
+            got = ex(x)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and torch.equal(got, want)
+            x = got
+    assert GRAPH_STATS.misses == 0 and GRAPH_STATS.replays == 6
+    cfg = session._cfgs[_GRAPH_MODEL]
+    assert GRAPH_STATS.replayed["flash_attention"] == 3 * cfg.n_layers
+    assert GRAPH_STATS.replayed["rmsnorm"] == 3 * (2 * cfg.n_layers + 1)
+    session.shutdown()
+
+
+@pytest.mark.requires_cuda
+def test_stage_graphs_five_chains_in_flight(cuda):
+    """Five batches with different tokens enqueued through both stages
+    before any is read (the dispatcher's in-flight window): each final
+    output equals its own eager chain, so no replay's static output is
+    seen by another batch."""
+    from repro_torch.dataplane import PoolDispatcher
+
+    session, _, _ = _graph_session(cuda)
+    execs = session.dataplane.dispatcher.executors[0]
+    inputs = [_tokens(cuda, 100 + i, 4) for i in range(5)]
+    outs = []
+    for x in inputs:
+        for ex in execs:
+            x = ex(x)
+        outs.append(x)
+    disp = PoolDispatcher({0: execs}, max_inflight=5)
+    jobs = [disp.submit_chain(0, x) for x in inputs]
+    assert disp.inflight == 5
+    done = disp.drain_all()
+    assert [c.job_id for c in done] == jobs
+    torch.cuda.synchronize()
+    for x, got in zip(inputs, outs):
+        assert torch.equal(got, _eager_chain(execs, x))
+    session.shutdown()
+
+
+@pytest.mark.requires_cuda
+def test_stage_graphs_capture_while_serving(cuda):
+    """prepare_swap captures the new plan's stages on its background thread
+    (thread-local capture on its own stream) while this thread replays the
+    live plan's graphs: no capture or sync error, the replays meanwhile
+    equal their eager results, and so do the new plan's graphs.  The swap
+    retires the old epoch, whose GC releases the graphs no plan serves
+    with."""
+    from repro_torch.serving.engine import GRAPH_STATS
+
+    session, plan_a, plan_b = _graph_session(cuda)
+    old = session.dataplane.dispatcher.executors[0]
+    x = _tokens(cuda, 7, 4)
+    want = _eager_chain(old, x)
+    captures = GRAPH_STATS.captures
+    prep = session.prepare_swap(plan_b)
+    replays, deadline = 0, time.monotonic() + 300
+    while not prep.ready() or replays < 20:
+        assert time.monotonic() < deadline, "the background warm did not finish"
+        y = x
+        for ex in old:
+            y = ex(y)
+        # this stream only: a device-wide synchronisation is refused while
+        # another thread captures
+        torch.cuda.current_stream().synchronize()
+        assert torch.equal(y, want)
+        replays += 1
+    prep.wait()
+    assert GRAPH_STATS.captures == captures + 6
+    rec = session.swap(plan_b, now=session._vnow + 1.0, reason="repartition")
+    assert rec.prepared and session.telemetry.epochs_gcd == 1
+    new = session.dataplane.dispatcher.executors[0]
+    assert all(not ex.graphs for ex in old) and all(len(ex.graphs) == 3 for ex in new)
+    for b in (1, 2, 4):
+        x = _tokens(cuda, 20 + b, b)
+        y = x
+        for ex in new:
+            y = ex(y)
+        torch.cuda.synchronize()
+        assert torch.equal(y, _eager_chain(new, x))
+    session.shutdown()
