@@ -16,10 +16,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    run, flash attention's f32 route also at tests/test_kernels.py's f32
    shapes and non-causal, rmsnorm also at qwen3-14b's qk_norm and decode
    attention at one that splits the sequence; ssd_scan in f32 with q and k
-   broadcast or per head, with and without log_i, and in bf16), and time
-   it beside its bound, its plain version and one PyTorch library call (a
-   yardstick only; the port never calls it), with the host time of one
-   call;
+   broadcast or per head, with and without log_i, and in bf16, and at the
+   mLSTM's state widths (xlstm-1.3b: DK 1024, DV 1025, log_i over its clip
+   range [-30, 10]) in bf16 and f32), and time it beside its bound, its
+   plain version and one PyTorch library call (a yardstick only; the port
+   never calls it), with the host time of one call;
 3. serve stablelm-3b at full width (32 layers, random weights from a seed)
    through the port's public entry point, `repro_torch.api.Session`, on
    one h100 and eight l4 stand-ins (every pool co-resident on the card),
@@ -40,16 +41,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    and the whole forward by the decisive-margin top-1 rule;
 5. decode through the model API (`build_model(cfg).prefill` then greedy
    `decode_step`): stablelm-3b on the serve phase's parameters (8 prompts
-   of 128 tokens, 32 steps) and zamba2-2.7b at full width (54 layers,
-   random weights from a seed; 4 prompts of 512 tokens, 16 steps).  Each
-   step's logits are held to the teacher-forced forward (the serving
-   invariant) in bf16, beside witnesses from the same tokens: the plain
-   math in bf16, and the kernels in f32, where the dense model must hold
-   the invariant at decisive positions.  A fresh prefill and one step are
-   held, cache slot by cache slot, to the layers walked one at a time;
-   every layer of every group is held to the plain math, and its decode
-   form to its full form, from the same input; the launch counts show the
-   path ran rmsnorm, flash_attention, decode_attention and ssd_scan; a
+   of 128 tokens, 32 steps), zamba2-2.7b and xlstm-1.3b at full width and
+   depth (54 and 48 layers, random weights from a seed; 4 prompts of 512
+   tokens, 16 steps).  Each step's logits are held to the teacher-forced
+   forward (the serving invariant) in bf16, beside witnesses from the same
+   tokens: the plain math in bf16, and the kernels in f32, which must hold
+   the invariant at decisive positions (and, for the dense model, have
+   some).  A fresh prefill and one step are held, cache slot by cache
+   slot, to the layers walked one at a time; every layer of every group
+   is held to the plain math, and its decode form to its full form, from
+   the same input; the launch counts show the path ran each kernel its
+   layers call (rmsnorm, flash_attention, decode_attention, ssd_scan); a
    profiler window over one prefill of each model reads its device busy
    share and top kernels.
 
@@ -89,16 +91,21 @@ SWAP_REQUESTS = 10 * N_REQUESTS  # the live swap's trace (act_swap says why)
 # comes from the calibrated latency)
 MILP_SLO_SCALE, SWAP_SLO_SCALE, PINNED_SLO_SCALE = 5.0, 8.0, 20.0
 # phase 5: (arch, batch, prompt tokens, greedy decode steps)
-DECODE_RUNS = (("stablelm-3b", 8, 128, 32), ("zamba2-2.7b", 4, 512, 16))
+DECODE_RUNS = (("stablelm-3b", 8, 128, 32), ("zamba2-2.7b", 4, 512, 16),
+               ("xlstm-1.3b", 4, 512, 16))
 PROFILED_STEPS = 4
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 tensor-core peak, f32
 # peak outside the tensor cores.  The ssd_scan kernel's products with an f32
 # operand split it into two bf16 parts (16 significant bits), two bf16
-# products each: its bound counts them at half the bf16 peak.
+# products each: its bound counts them at half the bf16 peak; with f32
+# inputs every operand is three parts and a product six bf16 products,
+# counted at a sixth of the peak (faster than the f32 peak, and as
+# precise).
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 BF16X2_FLOP_S = BF16_FLOP_S / 2
+BF16X6_FLOP_S = BF16_FLOP_S / 6
 F32_FLOP_S = 67e12
 
 KERNEL_SOURCES = {
@@ -382,10 +389,13 @@ def rmsnorm_shapes() -> list[tuple[str, int, int]]:
     qwen3-14b's qk_norm over 8 x 128 tokens of 40 heads, which no smoke path
     runs."""
     _, B, S, _ = DECODE_RUNS[1]
+    _, xb, xs, _ = DECODE_RUNS[2]
     return [("serve", BATCH * SEQ, 2560), ("stablelm-3b decode", DECODE_RUNS[0][1], 2560),
             ("zamba2-2.7b prefill", B * S, 2560),
             ("zamba2-2.7b prefill, Mamba2 gated norm", B * S, 5120),
             ("zamba2-2.7b decode", B, 2560), ("zamba2-2.7b decode, Mamba2 gated norm", B, 5120),
+            ("xlstm-1.3b prefill", xb * xs, 2048), ("xlstm-1.3b prefill, mLSTM norm", xb * xs, 4096),
+            ("xlstm-1.3b decode", xb, 2048), ("xlstm-1.3b decode, mLSTM norm", xb, 4096),
             ("qwen3-14b qk_norm (no smoke path)", 8 * 128 * 40, 128)]
 
 
@@ -602,6 +612,31 @@ def check_decode_attention(dev, g, err, parent) -> dict:
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
 
 
+def ssd_bound(B: int, T: int, NH: int, DK: int, DV: int, chunk: int, esize: int,
+              broadcast: bool, with_i: bool) -> tuple[float, str]:
+    """ssd_scan's bound at one shape.  Bytes: q and k once (once a head,
+    or once for all heads where they are broadcast), v and y in the input
+    dtype (`esize` bytes), the f32 gates and the f32 final state.
+    Operations: q.k over the causal (t, s) pairs of each chunk has two
+    input operands (bf16: the bf16 peak); the decayed scores times v, q
+    times the state entering each chunk after the first, and the weighted
+    k times v for every chunk each have an f32 operand, which the kernel
+    splits into two bf16 parts (half the peak); f32 inputs make every
+    product six bf16 products (a sixth of the peak)."""
+    heads_qk = 1 if broadcast else NH
+    nbytes = (2 * B * T * heads_qk * DK * esize + 2 * B * T * NH * DV * esize
+              + (2 if with_i else 1) * B * T * NH * 4 + B * NH * DK * DV * 4)
+    ops_qk = ops_split = 0.0
+    for c0 in range(0, T, chunk):
+        lc = min(chunk, T - c0)
+        pairs = lc * (lc + 1) / 2
+        ops_qk += pairs * 2 * DK
+        ops_split += pairs * 2 * DV + 2 * lc * DK * DV * (2 if c0 > 0 else 1)
+    if esize == 4:
+        return bound_ms(nbytes, (B * NH * (ops_qk + ops_split), BF16X6_FLOP_S))
+    return bound_ms(nbytes, (B * NH * ops_qk, BF16_FLOP_S), (B * NH * ops_split, BF16X2_FLOP_S))
+
+
 def check_ssd_scan(dev, g, err, parent) -> dict:
     """zamba2-2.7b's Mamba2 scan: q and k one (B, T, 64) tensor broadcast over
     80 heads (head stride 0), v (B, T, 80, 64), chunk 256.  Held to the plain
@@ -611,7 +646,9 @@ def check_ssd_scan(dev, g, err, parent) -> dict:
     -0.05 softplus(N(0, 1)) so that a 256-step chunk decays by about e^-9
     and the carried state matters; then in bf16, the model's dtype (y at
     `tol(bf16)`, the state at the f32 bound, two calls bit-equal), and
-    timed there."""
+    timed there.  Then the mLSTM's scan at xlstm-1.3b's prefill
+    (`check_ssd_wide`).  The line's numbers are the Mamba2 bf16 shape's;
+    `shapes` holds every timed shape."""
     import torch
     import torch.nn.functional as F
 
@@ -661,23 +698,11 @@ def check_ssd_scan(dev, g, err, parent) -> dict:
         raise AssertionError("ssd_scan: two bf16 calls differ")
     log(f"[kernels] ssd_scan bf16 T={S}: y max|err| {err(y, y0):.3g}, state max|err| "
         f"{err(st, st0):.3g} at scale {float(st0.abs().max()):.3g}; bit-equal run to run")
-    # bytes: C and B once (the broadcast is a view), v, the f32 gates, y and
-    # the f32 state.  Operations: q.k over the causal (t, s) pairs of each
-    # chunk has two bf16 operands (bf16 tensor cores, f32 accumulation); the
-    # decayed scores times v, q times the state and the weighted k times v
-    # each have an f32 operand, which the kernel splits into two bf16 parts
-    nbytes = 2 * B * S * DS * 2 + B * S * NH * HD * 2 * 2 + B * S * NH * 4 + B * NH * DS * HD * 4
-    ops_bf16 = ops_split = 0.0
-    for c0 in range(0, S, chunk):
-        lc = min(chunk, S - c0)
-        pairs = lc * (lc + 1) / 2
-        ops_bf16 += pairs * 2 * DS
-        ops_split += pairs * 2 * HD + 2 * 2 * lc * DS * HD
-    b_ms, b_by = bound_ms(nbytes, (B * NH * ops_bf16, BF16_FLOP_S),
-                          (B * NH * ops_split, BF16X2_FLOP_S))
+    b_ms, b_by = ssd_bound(B, S, NH, DS, HD, chunk, 2, broadcast=True, with_i=False)
     ms, parent_ms = paired_ms(lambda m: m.ssd_scan_bthd(*args, chunk=chunk), ssd, parent)
     r = dict(
-        max_abs_err=worst, tol=tol_f32, ms=ms, parent_ms=parent_ms,
+        shape=[B, S, NH, DS, HD], what="zamba2-2.7b Mamba2, q/k broadcast", dtype="bf16",
+        chunk=chunk, max_abs_err=worst, tol=tol_f32, ms=ms, parent_ms=parent_ms,
         # ~80 launches a call: few calls, or the launch queue fills and the
         # host waits on the card
         plain_ms=time_ms(lambda: ssd.chunked_linear_attention_plain(*args, chunk=chunk),
@@ -690,7 +715,69 @@ def check_ssd_scan(dev, g, err, parent) -> dict:
     log(f"[kernels] ssd_scan at zamba2-2.7b's prefill (B, T, NH, D) = ({B}, {S}, {NH}, {HD}), "
         f"chunk {chunk}, bf16: {ms * 1e3:.3f} us{vs_parent(parent_ms)} vs bound "
         f"{b_ms * 1e3:.3f} us ({b_by}), plain {r['plain_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call")
-    return r
+    # the line's max|err| is the Mamba2 checks' (states of scale ~5); the
+    # mLSTM's, whose states reach e^30 scales, are in its `shapes` entries
+    return dict(r, shapes=[dict(r)] + check_ssd_wide(dev, g, err))
+
+
+def check_ssd_wide(dev, g, err) -> list[dict]:
+    """The mLSTM's scan at xlstm-1.3b's prefill: q and k (B, T, 4, 1024)
+    per head, v (B, T, 4, 1025) with its ones column, the mLSTM's gates
+    (log_f = log_sigmoid(N(0, 1) + 4), log_i uniform over its clip range
+    [-30, 10], so decay terms reach e^30), chunk 256, in bf16 and in f32.
+    Held to the plain version at the card tests' bounds scaled by max |ref|
+    (y: `tol(bf16)` in bf16, atol 5e-4 / rtol 2e-3 in f32; the state at the
+    latter in both); timed beside its bound, its plain version and its
+    host time.  The other tree's kernel takes no state past 64, so nothing
+    is timed against it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.testing.parity import tol
+
+    _, B, T, _ = DECODE_RUNS[2]
+    NH, DK, chunk = 4, 1024, 256
+    tol_f32 = dict(atol=5e-4, rtol=2e-3)
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k = ((torch.randn(B, T, NH, DK, generator=g, device=dev) * 0.5).to(dtype)
+                for _ in range(2))
+        v = (torch.randn(B, T, NH, DK + 1, generator=g, device=dev) * 0.5).to(dtype)
+        v[..., -1] = 1.0
+        log_f = F.logsigmoid(torch.randn(B, T, NH, generator=g, device=dev) + 4.0)
+        log_i = torch.rand(B, T, NH, generator=g, device=dev) * 40.0 - 30.0
+        args = (q, k, v, log_f, log_i)
+        (y, st), (y0, st0) = (ssd.ssd_scan_bthd(*args, chunk=chunk),
+                              ssd.chunked_linear_attention_plain(*args, chunk=chunk))
+        torch.cuda.synchronize()
+        y_tol = tol(dtype) if dtype == torch.bfloat16 else tol_f32
+        sy, ss = float(y0.float().abs().max()), float(st0.abs().max())
+        torch.testing.assert_close(y.float(), y0.float(), atol=y_tol["atol"] * sy,
+                                   rtol=y_tol["rtol"])
+        torch.testing.assert_close(st, st0, atol=tol_f32["atol"] * ss, rtol=tol_f32["rtol"])
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        b_ms, b_by = ssd_bound(B, T, NH, DK, DK + 1, chunk, q.element_size(), broadcast=False,
+                               with_i=True)
+        call = lambda: ssd.ssd_scan_bthd(*args, chunk=chunk)  # noqa: E731
+        x = dict(shape=[B, T, NH, DK, DK + 1], what="xlstm-1.3b mLSTM, log_i in [-30, 10]",
+                 dtype=name, chunk=chunk, max_abs_err=max(err(y, y0), err(st, st0)),
+                 max_rel_err=max(err(y, y0) / sy, err(st, st0) / ss),
+                 tol={"y": y_tol, "state": tol_f32, "atol_scaled_by": "max|ref|"},
+                 ms=time_ms(call, iters=20), parent_ms=None,
+                 plain_ms=time_ms(lambda: ssd.chunked_linear_attention_plain(*args, chunk=chunk),
+                                  iters=3, warmup=1),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None, host_ms=host_ms(call, calls=20),
+                 per_kernel_us=kernel_us(call))
+        log(f"[kernels] ssd_scan at xlstm-1.3b's mLSTM prefill (B, T, NH, DK, DV) = "
+            f"({B}, {T}, {NH}, {DK}, {DK + 1}), chunk {chunk}, log_i in [-30, 10], {name}: "
+            f"y max|err| {err(y, y0):.3g} at scale {sy:.3g}, state max|err| {err(st, st0):.3g} "
+            f"at scale {ss:.3g}; {x['ms'] * 1e3:.3f} us vs bound {b_ms * 1e3:.3f} us ({b_by}), "
+            f"plain {x['plain_ms'] * 1e3:.3f} us; host {x['host_ms'] * 1e3:.3f} us a call; "
+            f"launches: " + ", ".join(f"{n} {us:.3f} us" for n, us in x["per_kernel_us"].items()))
+        out.append(x)
+        del q, k, v, args, y, st, y0, st0
+    return out
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1196,6 +1283,24 @@ def read_counts() -> dict:
     return launch_counts()
 
 
+def path_kernels(cfg) -> list[str]:
+    """The kernels a model's prefill must launch: rmsnorm always,
+    flash_attention where it has attention layers, ssd_scan where it has
+    Mamba2 or mLSTM blocks."""
+    pattern = cfg.ssm_pattern
+    return (["rmsnorm"] + (["flash_attention"] if not pattern or "a" in pattern else [])
+            + (["ssd_scan"] if set(pattern) & set("mM") else []))
+
+
+def recurrent_kinds(cfg) -> tuple[str, str | None, str]:
+    """A recurrent model's inner block kind ('m' or 'M'), its outer kind
+    ('a', 's' or None) and the inner block's name in the lines."""
+    from repro_torch.models import hybrid
+
+    period, _ = hybrid.parse_pattern(cfg)
+    return period[0], hybrid._outer_kind(period), {"m": "Mamba2", "M": "mLSTM"}[period[0]]
+
+
 def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
 
@@ -1212,9 +1317,10 @@ def check_layer(what: str, got, want, worst: dict) -> None:
 def layer_parity(cfg, params, prompts, cache, tok, cur_len) -> dict:
     """Single layers through `KERNELS` against `PLAIN`, each from the same
     input (and a copy of the same cache): the prefill and the decode form of
-    every attention layer (stablelm-3b), or of every group's Mamba2 blocks
-    and shared attention block, each on its own group's slice of the cache
-    (zamba2-2.7b)."""
+    every attention layer (stablelm-3b), or of every group's inner blocks
+    (Mamba2, mLSTM) and its outer block (the shared attention block, an
+    sLSTM block), each on its own group's slice of the cache (zamba2-2.7b,
+    xlstm-1.3b)."""
     import torch
 
     from repro_torch.models import hybrid, transformer as tfm
@@ -1238,18 +1344,30 @@ def layer_parity(cfg, params, prompts, cache, tok, cur_len) -> dict:
         for i, lp in enumerate(params["layers"]):
             x, xd = attn_pair(lp, cache["k"][i], cache["v"][i], x, xd, "attention layer")
         return worst
+    inner, outer, block = recurrent_kinds(cfg)
     for g, group in enumerate(params["inner"]):
         for j, lp in enumerate(group):
-            got, _ = hybrid._apply_inner_full(cfg, KERNELS, lp, x)
-            check_layer("Mamba2 block (prefill)", got,
-                        hybrid._apply_inner_full(cfg, PLAIN, lp, x)[0], worst)
+            got, _ = hybrid._apply_inner_full(cfg, KERNELS, inner, lp, x)
+            check_layer(f"{block} block (prefill)", got,
+                        hybrid._apply_inner_full(cfg, PLAIN, inner, lp, x)[0], worst)
             state = {name: a[g, j] for name, a in cache["inner"].items()}
-            outs = [hybrid._apply_inner_step(cfg, ops, lp, xd, state)[0]
+            outs = [hybrid._apply_inner_step(cfg, ops, inner, lp, xd, state)[0]
                     for ops in (KERNELS, PLAIN)]
-            check_layer("Mamba2 block (decode)", *outs, worst)
+            check_layer(f"{block} block (decode)", *outs, worst)
             x, xd = got, outs[0]
-        x, xd = attn_pair(params["shared_attn"], cache["attn_k"][g], cache["attn_v"][g], x, xd,
-                          "shared attention block")
+        if outer == "a":
+            x, xd = attn_pair(params["shared_attn"], cache["attn_k"][g], cache["attn_v"][g], x,
+                              xd, "shared attention block")
+        elif outer == "s":
+            lp = params["outer"][g]
+            got, _ = hybrid._apply_slstm_full(cfg, KERNELS, lp, x)
+            check_layer("sLSTM block (prefill)", got,
+                        hybrid._apply_slstm_full(cfg, PLAIN, lp, x)[0], worst)
+            state = {name: a[g] for name, a in cache["outer"].items()}
+            outs = [hybrid._apply_slstm_step(cfg, ops, lp, xd, state)[0]
+                    for ops in (KERNELS, PLAIN)]
+            check_layer("sLSTM block (decode)", *outs, worst)
+            x, xd = got, outs[0]
     torch.cuda.synchronize()
     return worst
 
@@ -1290,17 +1408,27 @@ def layer_invariant(cfg, params, prompts, tok) -> dict:
             x = attn(lp, x)
         return worst
     hidden = []
-    for group in params["inner"]:
+    inner, outer, block = recurrent_kinds(cfg)
+    for g, group in enumerate(params["inner"]):
         for lp in group:
-            full, _ = hybrid._apply_inner_full(cfg, KERNELS, lp, x)
+            full, _ = hybrid._apply_inner_full(cfg, KERNELS, inner, lp, x)
             prefix, last = split(x)
-            _, st = hybrid._apply_inner_full(cfg, KERNELS, lp, prefix, return_state=True)
-            step, _ = hybrid._apply_inner_step(cfg, KERNELS, lp, last, st)
-            check_layer("Mamba2 block (decode vs full)", step[:, 0], full[:, S], worst)
+            _, st = hybrid._apply_inner_full(cfg, KERNELS, inner, lp, prefix, return_state=True)
+            step, _ = hybrid._apply_inner_step(cfg, KERNELS, inner, lp, last, st)
+            check_layer(f"{block} block (decode vs full)", step[:, 0], full[:, S], worst)
             x = full
         hidden.append(float(x.float().abs().max()))
-        x = attn(params["shared_attn"], x)
-    log(f"[decode] {cfg.name}: max |hidden| into each group's shared attention block "
+        if outer == "a":
+            x = attn(params["shared_attn"], x)
+        elif outer == "s":
+            lp = params["outer"][g]
+            full, _ = hybrid._apply_slstm_full(cfg, KERNELS, lp, x)
+            prefix, last = split(x)
+            _, st = hybrid._apply_slstm_full(cfg, KERNELS, lp, prefix)
+            step, _ = hybrid._apply_slstm_step(cfg, KERNELS, lp, last, st)
+            check_layer("sLSTM block (decode vs full)", step[:, 0], full[:, S], worst)
+            x = full
+    log(f"[decode] {cfg.name}: max |hidden| into each group's outer block "
         + ", ".join(f"{h:.4g}" for h in hidden))
     torch.cuda.synchronize()
     return worst
@@ -1339,18 +1467,18 @@ def witnesses(cfg, params, prompts, fed, got) -> None:
     bf16 one, from the same tokens.  The plain math in bf16: does it miss
     its own forward as the kernels do, and how far are the kernels' decode
     logits from its?  The kernels in f32 (every kernel's f32 route, flash
-    attention's CUDA-core one included): for the dense model
-    the invariant must hold there with decisive positions, so the check can
-    fail; zamba2-2.7b's f32 forward is itself too sensitive for that, which
-    the last reading shows: the f32 forward's move when the embeddings are
-    scaled by 1 + 2^-22 (two ulps).  zamba2-2.7b's whole-model check is
-    `cache_walk`'s."""
+    attention's CUDA-core one and ssd_scan's three-part one included; each
+    the model's layers call must launch): the invariant must hold at the
+    decisive positions, and for the dense model there must be some, so the
+    check can fail; the recurrent models' f32 forwards are themselves too
+    sensitive for that, which the last reading shows: the f32 forward's move
+    when the embeddings are scaled by 1 + 2^-22 (two ulps).  Their
+    whole-model check is `cache_walk`'s."""
     import copy
     import dataclasses
 
     import torch
 
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models.common import KERNELS, PLAIN
     from repro_torch.models.model_zoo import build_model
 
@@ -1364,16 +1492,18 @@ def witnesses(cfg, params, prompts, fed, got) -> None:
     del plain, full
     model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
     params32 = copy.deepcopy(params).float()
-    launches = fa.flash_attention.launches
+    before = read_counts()
     got32, full32 = teacher_forced(model32, params32, prompts, fed, KERNELS)
     params32["embed"].mul_(1 + 2.0 ** -22)
     seq = torch.cat([prompts, *fed], dim=1)
     nudged = model32.forward(params32, {"tokens": seq}, ops=KERNELS)[:, S - 1:].float()
     torch.cuda.synchronize()
-    launches = fa.flash_attention.launches - launches
-    if launches <= 0:
-        raise AssertionError(f"{arch} f32: flash_attention's f32 route was not launched")
-    log(f"[decode] {arch} kernels, f32: flash_attention's f32 route launched {launches} times")
+    launches = {k: v - before[k] for k, v in read_counts().items() if k in path_kernels(cfg)}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{arch} f32: {name}'s f32 route was not launched")
+    log(f"[decode] {arch} kernels, f32: f32 routes launched "
+        + ", ".join(f"{k} {v} times" for k, v in launches.items()))
     err, scale, decisive, agree = invariant(got32, full32)
     log(f"[decode] {arch} kernels, f32: vs the teacher-forced forward max|err| {err:.4g} at "
         f"logit scale {scale:.3f} ({err / scale:.4g} of scale); top-1 agrees at "
@@ -1395,7 +1525,8 @@ def cache_walk(cfg, model, params, prompts, tok) -> dict:
     fail where the invariant cannot: a fresh `prefill` of the prompts and
     one `decode_step` of `tok`, through the kernels, against the same layer
     functions walked in order with each layer's state kept apart (the dense
-    layer l; group g's Mamba2 block j and its use of the shared block).
+    layer l; group g's inner block j (Mamba2, mLSTM) and its outer block,
+    the shared attention block or its sLSTM block).
     Both take the same trajectory, so they agree to rounding: every cache
     slot after the prefill and after the step, and both logits, within 1e-3
     of their scale."""
@@ -1437,16 +1568,26 @@ def cache_walk(cfg, model, params, prompts, tok) -> dict:
         for i, lp in enumerate(params["layers"]):
             x, xd = attn(lp, x, xd, pre["k"][i], pre["v"][i], cache["k"][i], cache["v"][i])
     else:
+        inner, outer, block = recurrent_kinds(cfg)
         for g, group in enumerate(params["inner"]):
             for j, lp in enumerate(group):
-                x, st = hybrid._apply_inner_full(cfg, KERNELS, lp, x, return_state=True)
+                x, st = hybrid._apply_inner_full(cfg, KERNELS, inner, lp, x, return_state=True)
                 for name, a in st.items():
-                    same("Mamba2 state after prefill", pre["inner"][name][g, j], a)
-                xd, st = hybrid._apply_inner_step(cfg, KERNELS, lp, xd, st)
+                    same(f"{block} state after prefill", pre["inner"][name][g, j], a)
+                xd, st = hybrid._apply_inner_step(cfg, KERNELS, inner, lp, xd, st)
                 for name, a in st.items():
-                    same("Mamba2 state after the step", cache["inner"][name][g, j], a)
-            x, xd = attn(params["shared_attn"], x, xd, pre["attn_k"][g], pre["attn_v"][g],
-                         cache["attn_k"][g], cache["attn_v"][g])
+                    same(f"{block} state after the step", cache["inner"][name][g, j], a)
+            if outer == "a":
+                x, xd = attn(params["shared_attn"], x, xd, pre["attn_k"][g], pre["attn_v"][g],
+                             cache["attn_k"][g], cache["attn_v"][g])
+            elif outer == "s":
+                lp = params["outer"][g]
+                x, st = hybrid._apply_slstm_full(cfg, KERNELS, lp, x)
+                for name, a in st.items():
+                    same("sLSTM state after prefill", pre["outer"][name][g], a)
+                xd, st = hybrid._apply_slstm_step(cfg, KERNELS, lp, xd, st)
+                for name, a in st.items():
+                    same("sLSTM state after the step", cache["outer"][name][g], a)
 
     def head(h):
         return tfm.unembed(cfg, params, KERNELS.rms_norm(h, params["final_norm"], cfg.norm_eps))
@@ -1480,7 +1621,7 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> tuple[
     prompts = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, cfg.vocab, (B, S)))
     prompts = prompts.to(dev)
     n_attn = cfg.ssm_pattern.count("a") if cfg.ssm_pattern else cfg.n_layers
-    n_mamba = cfg.ssm_pattern.count("m")
+    n_scan = sum(cfg.ssm_pattern.count(c) for c in "mM")  # Mamba2 and mLSTM blocks
 
     with torch.inference_mode():
         # warm-up: one short prefill and one decode step
@@ -1511,9 +1652,9 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> tuple[
         if dec["decode_attention"] != n_attn * n:
             raise AssertionError(f"{dec['decode_attention']} decode_attention launches for {n} "
                                  f"steps of {n_attn} attention layers")
-        if pre["ssd_scan"] != n_mamba:
-            raise AssertionError(f"{pre['ssd_scan']} ssd_scan launches for {n_mamba} blocks")
-        for name in ("rmsnorm", "flash_attention"):
+        if pre["ssd_scan"] != n_scan:
+            raise AssertionError(f"{pre['ssd_scan']} ssd_scan launches for {n_scan} blocks")
+        for name in path_kernels(cfg):
             if pre[name] + dec[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the decode path")
         profile_prefill(model, params, prompts, S + n, arch, parent)

@@ -1,5 +1,5 @@
-// Chunked linear attention with decay (the Mamba2 SSD scan) for Hopper
-// (sm_90a).
+// Chunked linear attention with decay (the Mamba2 SSD scan, and the
+// mLSTM's scan at state widths (hd, hd + 1)) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `ssd_scan` (`_ssd_kernel`) of
 // src/repro/kernels/ssd_scan/kernel.py, whose oracle is the reference
@@ -18,7 +18,11 @@
 // f32-level precision (the final state is held to atol 5e-4 / rtol 2e-3
 // even in bf16).  With those as two bf16 parts (below) the operations take
 // 13.6 us at the data sheet's bf16 rate and the 48.4 MB of inputs and
-// outputs 14.4 us at 3.35 TB/s: bytes, by a little.
+// outputs 14.4 us at 3.35 TB/s: bytes, by a little.  At xlstm-1.3b's mLSTM
+// prefill (4, 512, 4, DK 1024, DV 1025), chunk 256, bf16: the f32 final
+// state alone is 67 MB, the 134 MB of inputs and outputs take 40 us, and
+// the products, the local state and q.S (16.8 MFLOP a row, DK x DV) above
+// all, 59 us with the same parts: operations.
 //
 // Design.  On the TPU the state rides across a sequential grid axis in
 // VMEM.  Here the recurrence is regrouped at the chunk boundaries the
@@ -69,9 +73,28 @@
 // the gates are read through (batch, time, head) strides, so Mamba2's head
 // broadcast of q and k (head stride 0) and the model's (B, T, NH, D)
 // layout need no copy; the broadcast q and k tiles of one (batch, chunk)
-// are shared by the 80 heads' blocks through L2.  DK and DV up to 64 are
-// zero-padded (exact), and any T works: a short last chunk equals the
+// are shared by the 80 heads' blocks through L2.  DK and DV are
+// zero-padded to 64 (exact), and any T works: a short last chunk equals the
 // reference's zero padding.
+//
+// Wide states (DK or DV past 64; the mLSTM's 1024 x 1025 is 16 x 17 tiles
+// of 64 x 64, 4.2 MB of f32 state a (batch, head), where the Pallas kernel
+// holds the whole state in VMEM).  Pass 1 takes a block per (chunk, state
+// tile, head, batch) and only the (0, 0) tile's block writes the gate
+// scratch; pass 2 a thread per element of the tiled state, writing the
+// entering state tile by tile.  Pass 3 needs q.k^T summed over every DK
+// tile for each of the DV tiles' outputs: summing it again in each DV
+// tile's block would repeat it 17 times at DV = 1025 (more operations than
+// q.S itself), so `scores_kernel` (a block per (chunk, row block, key block
+// <= it)) sums it once over the DK tiles, applies the decay and the mask,
+// and writes the scores in f32 to scratch (B, NH, nc, pairs, 64, 64), 5 MB
+// at the mLSTM's shape, read back from L2; `output_wide_kernel` (a block
+// per (chunk, row block, DV tile)) then runs a two-stage ring over (q's DK
+// tile, the entering state's tile) pairs for q.S and (scores, v) pairs for
+// P.V, the scores split into their MID parts as they load.  q, k and v
+// keep 16-byte copies wherever their rows allow; the wrapper hands a v
+// whose rows do not (hd + 1 wide, 2-byte aligned) to the kernel as a copy
+// with rows zero-padded to a multiple of 8.
 //
 // Measured (chip_smoke.py --parent; NVIDIA H100 80GB HBM3, 700.00 W):
 // 104.113 us at zamba2-2.7b's prefill against the 667.518 us of the
@@ -87,6 +110,15 @@
 // splits, P.V); a persistent kernel that overlaps one block's loads and
 // epilogue with the next block's work, and the fold fused into pass 1,
 // are the next steps.
+//
+// Wide path, measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): at
+// xlstm-1.3b's mLSTM prefill (4, 512, 4, 1024, 1025), chunk 256, bf16,
+// 675.442 us against the 58.708 us bound (local 222.805, fold 148.752,
+// scores 29.119, output 244.472 us, and 28.0 us for the wrapper's copy of
+// v; with v loaded element by element and the local states untiled it
+// took 971.867 us); f32, 3112.218 us, pass 1 alone 1919.451 (element
+// loads of f32 tiles, three parts, two blocks an SM).  The narrow path
+// read 103.307 us at zamba2-2.7b's prefill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,11 +151,18 @@ struct Args {
   // scratch the wrapper allocates:
   float* cum;       // (B, NH, T): the cumulative log decay within each chunk
   float* li;        // (B, NH, T): log_i, or 0
-  float* local;     // (B, NH, nc, DK, DV): the chunks' local states L_c
-  bf16* entering;   // (B, NH, nc, MID, 64, 64): the state entering chunk c, in MID parts
+  float* local;     // (B, NH, nc, nk, nv, 64, 64): the chunks' local states L_c,
+                    // tile by 64 x 64 tile
+  bf16* entering;   // (B, NH, nc, nk, nv, MID, 64, 64): the state entering chunk c,
+                    // tile by 64 x 64 tile, in MID parts
+  float* scores;    // wide path: (B, NH, nc, n_tri, 64, 64), the decayed scores of each
+                    // (row block, key block <= it) pair of a chunk
   Strides sq, sk, sv, sg, si, sy;
   int B, T, NH, DK, DV, chunk, nc;
-  int vec;  // bf16 rows by 16-byte cp.async (aligned bases and strides, DK, DV % 8 == 0)
+  int nk, nv;  // 64-wide tiles of DK and DV
+  // per tensor: bf16 rows by 16-byte cp.async (aligned base and strides,
+  // width % 8 == 0)
+  int vq, vk, vv;
 };
 
 // parts of an input (IN) and of an f32 operand (MID); a product takes the
@@ -270,8 +309,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const T* src, int64_t rs, i
 
 // ---------------------------------------------------------------- pass 1
 
-// the chunk's cumulative decay and local state L_c = sum_s (k_s w_s) v_s^T;
-// shared memory: a two-stage ring of (k, v) tiles, then cum and w
+// one 64 x 64 tile (DK tile dk, DV tile dv) of the chunk's local state
+// L_c = sum_s (k_s w_s) v_s^T, and (tile (0, 0)) the chunk's cumulative
+// decay; shared memory: a two-stage ring of (k, v) tiles, then cum and w
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 local_kernel(const __grid_constant__ Args a) {
@@ -279,20 +319,21 @@ local_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);  // stage st: k planes, then v planes
   float* cum = reinterpret_cast<float*>(smem + 2 * 2 * IN * kPlaneBytes);
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int c = blockIdx.x % a.nc, tile = blockIdx.x / a.nc, h = blockIdx.y, b = blockIdx.z;
+  const int dk = tile / a.nv, dv = tile % a.nv;
+  const int wk = min(kTile, a.DK - dk * kTile), wv = min(kTile, a.DV - dv * kTile);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0);
   const int n_tiles = (Lc + kTile - 1) / kTile;
   float* w = cum + n_tiles * kTile;
-  const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h + c0 * a.sk.t;
-  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h + c0 * a.sv.t;
-  const bool vec = a.vec != 0;
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h + c0 * a.sk.t + dk * kTile;
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h + c0 * a.sv.t + dv * kTile;
 
   auto issue = [&](int j) {
     bf16* st = ring + (j & 1) * 2 * IN * kPlane;
     const int rows = min(kTile, Lc - j * kTile);
-    load_tile<T, IN>(st, kb + j * kTile * a.sk.t, a.sk.t, rows, a.DK, vec);
-    load_tile<T, IN>(st + IN * kPlane, vb + j * kTile * a.sv.t, a.sv.t, rows, a.DV, vec);
+    load_tile<T, IN>(st, kb + j * kTile * a.sk.t, a.sk.t, rows, wk, a.vk != 0);
+    load_tile<T, IN>(st + IN * kPlane, vb + j * kTile * a.sv.t, a.sv.t, rows, wv, a.vv != 0);
   };
   issue(0);
   cp_async_commit();
@@ -326,7 +367,7 @@ local_kernel(const __grid_constant__ Args a) {
   const float total = cum[Lc - 1];
   const int64_t row0 = (static_cast<int64_t>(b) * a.NH + h) * a.T + c0;
   for (int t = tid; t < n_tiles * kTile; t += kThreads) {
-    if (t < Lc) {
+    if (t < Lc && tile == 0) {
       a.cum[row0 + t] = cum[t];
       a.li[row0 + t] = w[t];
     }
@@ -386,48 +427,51 @@ local_kernel(const __grid_constant__ Args a) {
     cp_async_commit();
   }
 
-  float* out = a.local + ((static_cast<int64_t>(b) * a.NH + h) * a.nc + c) * a.DK * a.DV;
+  // the whole tile, padding included (zeros: the padded k and v are)
+  float* out = a.local +
+               (((static_cast<int64_t>(b) * a.NH + h) * a.nc + c) * a.nk * a.nv + tile) * kTile * kTile;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = d0 + g + 8 * (e >> 1), col = 8 * n + 2 * tq + (e & 1);
-      if (d < a.DK && col < a.DV) out[d * a.DV + col] = acc[n][e];
-    }
+    const int col = 8 * n + 2 * tq;
+    *reinterpret_cast<float2*>(out + (d0 + g) * kTile + col) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(out + (d0 + g + 8) * kTile + col) = make_float2(acc[n][2], acc[n][3]);
   }
 }
 
 // ---------------------------------------------------------------- pass 2
 
 // S_c = exp(clip(total_c)) S_{c-1} + L_c in chunk order, a thread per
-// (batch, head, element of the 64 x 64 padded state); the state entering
-// each chunk after the first is written as the MID bf16 parts pass 3 loads
-template <typename T>
+// (element of the state padded to 64 x 64 tiles, head, batch); the state
+// entering each chunk after the first is written tile by tile as the MID
+// bf16 parts pass 3 loads
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(256) fold_kernel(const __grid_constant__ Args a) {
   constexpr int MID = Parts<T>::MID;
   constexpr int kEl = kTile * kTile;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<int64_t>(a.B) * a.NH * kEl) return;
-  const int64_t bh = idx / kEl;
-  const int e = static_cast<int>(idx - bh * kEl), d = e / kTile, col = e % kTile;
+  const int nv = WIDE ? a.nv : 1, tiles = WIDE ? a.nk * a.nv : 1;
+  const int rem = blockIdx.x * blockDim.x + threadIdx.x;  // element of this (batch, head)
+  if (rem >= tiles * kEl) return;
+  const int64_t bh = static_cast<int64_t>(blockIdx.z) * a.NH + blockIdx.y;
+  const int tile = rem / kEl, e = rem % kEl;
+  const int d = tile / nv * kTile + e / kTile, col = tile % nv * kTile + e % kTile;
   const bool valid = d < a.DK && col < a.DV;
   const int64_t n_el = static_cast<int64_t>(a.DK) * a.DV;
   const float* cum = a.cum + bh * a.T;
-  const float* L = a.local + bh * a.nc * n_el + d * a.DV + col;
-  bf16* ent = a.entering + bh * a.nc * MID * kEl + e;
+  const float* L = a.local + (bh * a.nc * tiles + tile) * kEl + e;
+  bf16* ent = a.entering + (bh * a.nc * tiles + tile) * MID * kEl + e;
   float S = 0.0f;
   for (int c = 0; c < a.nc; ++c) {
     if (c > 0) {
       bf16 p[MID];
       split<MID>(S, p);
 #pragma unroll
-      for (int i = 0; i < MID; ++i) ent[(c * MID + i) * kEl] = p[i];
+      for (int i = 0; i < MID; ++i) ent[(static_cast<int64_t>(c) * tiles * MID + i) * kEl] = p[i];
     }
     const int last = min(c * a.chunk + a.chunk, a.T) - 1;
-    const float l = valid ? L[c * n_el] : 0.0f;
+    const float l = L[static_cast<int64_t>(c) * tiles * kEl];
     S = expf(clip(cum[last])) * S + l;
   }
-  if (valid) a.state[bh * n_el + d * a.DV + col] = S;
+  if (valid) a.state[bh * n_el + static_cast<int64_t>(d) * a.DV + col] = S;
 }
 
 // ---------------------------------------------------------------- pass 3
@@ -471,7 +515,6 @@ output_kernel(const __grid_constant__ Args a) {
   const int nt = min(kTile, Lc - tb);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
-  const bool vec = a.vec != 0;
 
   const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h + c0 * a.sq.t;
   const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h + c0 * a.sk.t;
@@ -490,14 +533,14 @@ output_kernel(const __grid_constant__ Args a) {
     bf16* kt = reinterpret_cast<bf16*>(st);
     float* cs = reinterpret_cast<float*>(st + 2 * IN * kPlaneBytes);
     const int rows = min(kTile, Lc - j * kTile);
-    load_tile<T, IN>(kt, kb + j * kTile * a.sk.t, a.sk.t, rows, a.DK, vec);
-    load_tile<T, IN>(kt + IN * kPlane, vb + j * kTile * a.sv.t, a.sv.t, rows, a.DV, vec);
+    load_tile<T, IN>(kt, kb + j * kTile * a.sk.t, a.sk.t, rows, a.DK, a.vk != 0);
+    load_tile<T, IN>(kt + IN * kPlane, vb + j * kTile * a.sv.t, a.sv.t, rows, a.DV, a.vv != 0);
     gates(cs, cb + j * kTile, rows);
     gates(cs + kTile, lb + j * kTile, rows);
   };
   // group 0: q, the entering state, cum_t and key block 0; then key block 1
   // once the entering state is used
-  load_tile<T, IN>(qs, qb + tb * a.sq.t, a.sq.t, nt, a.DK, vec);
+  load_tile<T, IN>(qs, qb + tb * a.sq.t, a.sq.t, nt, a.DK, a.vq != 0);
   if (c > 0) {
     const bf16* sp = a.entering + (bh * a.nc + c) * MID * kTile * kTile;
     for (int idx = tid; idx < MID * kTile * 8; idx += kThreads) {
@@ -650,6 +693,234 @@ output_kernel(const __grid_constant__ Args a) {
   }
 }
 
+// ------------------------------------------------- pass 3, wide states
+
+// DK or DV past 64 (the mLSTM: 1024 and 1025).  q.k^T then sums over DK
+// tiles and y covers DV tiles; rather than have each DV tile's block sum
+// q.k^T again (17 times at DV = 1025), `scores_kernel` writes the decayed,
+// masked scores of each (row block, key block) pair once, in f32, and
+// `output_wide_kernel` reads them as the A operand of P.V.
+
+// the pair index of a chunk's (row block tbi, key block j <= tbi)
+__host__ __device__ __forceinline__ int tri(int tbi) { return tbi * (tbi + 1) / 2; }
+
+// P[t][s] = (q_t.k_s) exp(clip(cum_t - cum_s + li_s)) for s <= t, both in the
+// chunk, else 0: a block per (chunk, pair, head, batch), the q and k tiles
+// of each DK tile through a two-stage ring (q planes, then k planes)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) scores_kernel(const __grid_constant__ Args a) {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int n_tb = (a.chunk + kTile - 1) / kTile;
+  const int c = blockIdx.x % a.nc, pair = blockIdx.x / a.nc, h = blockIdx.y, b = blockIdx.z;
+  int tbi = 0;
+  while (tri(tbi + 1) <= pair) ++tbi;
+  const int j = pair - tri(tbi);
+  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), tb = tbi * kTile;
+  if (tb >= Lc) return;
+  const int nt = min(kTile, Lc - tb), ns = min(kTile, Lc - j * kTile);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h + (c0 + tb) * a.sq.t;
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h +
+                static_cast<int64_t>(c0 + j * kTile) * a.sk.t;
+
+  auto issue = [&](int dk) {
+    bf16* st = ring + (dk & 1) * 2 * IN * kPlane;
+    const int w = min(kTile, a.DK - dk * kTile);
+    load_tile<T, IN>(st, qb + dk * kTile, a.sq.t, nt, w, a.vq != 0);
+    load_tile<T, IN>(st + IN * kPlane, kb + dk * kTile, a.sk.t, ns, w, a.vk != 0);
+  };
+  issue(0);
+  cp_async_commit();
+  if (a.nk > 1) issue(1);
+  cp_async_commit();
+
+  float s[8][4] = {};
+  for (int dk = 0; dk < a.nk; ++dk) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t qs = smem_addr(ring + (dk & 1) * 2 * IN * kPlane), ks = qs + IN * kPlaneBytes;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t qa[IN][4];
+#pragma unroll
+      for (int i = 0; i < IN; ++i) ldsm(qs + i * kPlaneBytes + a_off(m0, 16 * kk, lane), qa[i]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[IN][4];
+#pragma unroll
+        for (int jj = 0; jj < IN; ++jj) ldsm(ks + jj * kPlaneBytes + bn_off(16 * np, 16 * kk, lane), bk[jj]);
+#pragma unroll
+        for (int i = 0; i < IN; ++i)
+#pragma unroll
+          for (int jj = 0; jj < IN; ++jj) {
+            if (i + jj >= MID) continue;
+            mma(s[2 * np], qa[i], bk[jj][0], bk[jj][1]);
+            mma(s[2 * np + 1], qa[i], bk[jj][2], bk[jj][3]);
+          }
+      }
+    }
+    __syncthreads();
+    if (dk + 2 < a.nk) issue(dk + 2);
+    cp_async_commit();
+  }
+
+  // the decay in base 2, as the narrow output kernel takes it
+  const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
+  const float* cb = a.cum + bh * a.T + c0;
+  const float* lb = a.li + bh * a.T + c0;
+  const int t0 = tb + m0 + g;  // this thread's rows in the chunk: t0, t0 + 8
+  const float ct0 = (t0 < Lc ? cb[t0] : 0.0f) * kLog2e;
+  const float ct1 = (t0 + 8 < Lc ? cb[t0 + 8] : 0.0f) * kLog2e;
+  float* out = a.scores + ((bh * a.nc + c) * tri(n_tb) + pair) * kTile * kTile;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int sk = j * kTile + 8 * n + 2 * tq + (e & 1), t = t0 + 8 * (e >> 1);
+      const float u = sk < Lc ? (lb[sk] - cb[sk]) * kLog2e : 0.0f;
+      const float d = ex2(clip2((e < 2 ? ct0 : ct1) + u));
+      p[e] = sk <= t && sk < Lc && t < Lc ? s[n][e] * d : 0.0f;
+    }
+    const int col = 8 * n + 2 * tq;
+    *reinterpret_cast<float2*>(out + (m0 + g) * kTile + col) = make_float2(p[0], p[1]);
+    *reinterpret_cast<float2*>(out + (m0 + g + 8) * kTile + col) = make_float2(p[2], p[3]);
+  }
+}
+
+// y for 64 rows of one chunk and one 64-wide DV tile: first exp(clip(cum_t))
+// q_t . S over the DK tiles (skipped for the first chunk), then P.V over
+// the key blocks, every step one (A, B) tile pair through a two-stage ring:
+// (q, the entering state's tile) or (the decayed scores, v)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) output_wide_kernel(const __grid_constant__ Args a) {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID, PL = IN > MID ? IN : MID;
+  constexpr int kStage = 2 * PL * kPlane;  // A planes, then B planes
+  constexpr int kEl = kTile * kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int n_tb = (a.chunk + kTile - 1) / kTile;
+  const int dv = blockIdx.x % a.nv, rest = blockIdx.x / a.nv;
+  const int tbi = n_tb - 1 - rest / a.nc, c = rest % a.nc;  // last row blocks first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), tb = tbi * kTile;
+  if (tb >= Lc) return;
+  const int nt = min(kTile, Lc - tb), wv = min(kTile, a.DV - dv * kTile);
+  const int n_s = c > 0 ? a.nk : 0, n_steps = n_s + tbi + 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
+  const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h + (c0 + tb) * a.sq.t;
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h + c0 * a.sv.t + dv * kTile;
+  const bf16* ent = a.entering + (bh * a.nc + c) * a.nk * a.nv * MID * kEl;
+  const float* sc = a.scores + ((bh * a.nc + c) * tri(n_tb) + tri(tbi)) * kEl;
+
+  auto issue = [&](int n) {
+    bf16* A = ring + (n & 1) * kStage;
+    bf16* B = A + PL * kPlane;
+    if (n < n_s) {  // q's DK tile n and the entering state's tile (n, dv)
+      load_tile<T, IN>(A, qb + n * kTile, a.sq.t, nt, min(kTile, a.DK - n * kTile), a.vq != 0);
+      const bf16* sp = ent + (n * a.nv + dv) * MID * kEl;
+      for (int idx = tid; idx < MID * kTile * 8; idx += kThreads) {
+        const int r = idx >> 3, col = (idx & 7) * 8;  // row r of the MID stacked planes
+        cp_async16(smem_addr(B + r / kTile * kPlane + r % kTile * kPitch + col),
+                   sp + r * kTile + col, 16);
+      }
+    } else {  // the scores of key block j and v's rows of it
+      const int j = n - n_s;
+      load_tile<float, MID>(A, sc + j * kEl, kTile, kTile, kTile, false);
+      load_tile<T, IN>(B, vb + static_cast<int64_t>(j) * kTile * a.sv.t, a.sv.t,
+                       min(kTile, Lc - j * kTile), wv, a.vv != 0);
+    }
+  };
+  issue(0);
+  cp_async_commit();
+  if (n_steps > 1) issue(1);
+  cp_async_commit();
+
+  float acc[8][4] = {};
+  for (int n = 0; n < n_steps; ++n) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (n == n_s && n_s > 0) {  // the inter-chunk term is complete: decay it
+      const float* cb = a.cum + bh * a.T + c0 + tb;
+      const float e0 = m0 + g < nt ? ex2(clip2(cb[m0 + g] * kLog2e)) : 0.0f;
+      const float e1 = m0 + g + 8 < nt ? ex2(clip2(cb[m0 + g + 8] * kLog2e)) : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        acc[k][0] *= e0;
+        acc[k][1] *= e0;
+        acc[k][2] *= e1;
+        acc[k][3] *= e1;
+      }
+    }
+    const uint32_t As = smem_addr(ring + (n & 1) * kStage), Bs = As + PL * kPlaneBytes;
+    if (n < n_s) {  // acc += q . S: q in IN parts, S in MID parts
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t qa[IN][4];
+#pragma unroll
+        for (int i = 0; i < IN; ++i) ldsm(As + i * kPlaneBytes + a_off(m0, 16 * kk, lane), qa[i]);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bs[MID][4];
+#pragma unroll
+          for (int jj = 0; jj < MID; ++jj)
+            ldsm_t(Bs + jj * kPlaneBytes + bk_off(16 * kk, 16 * np, lane), bs[jj]);
+#pragma unroll
+          for (int i = 0; i < IN; ++i)
+#pragma unroll
+            for (int jj = 0; jj < MID; ++jj) {
+              if (i + jj >= MID) continue;
+              mma(acc[2 * np], qa[i], bs[jj][0], bs[jj][1]);
+              mma(acc[2 * np + 1], qa[i], bs[jj][2], bs[jj][3]);
+            }
+        }
+      }
+    } else {  // acc += P . V: P in MID parts, v in IN parts
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t pa[MID][4];
+#pragma unroll
+        for (int i = 0; i < MID; ++i) ldsm(As + i * kPlaneBytes + a_off(m0, 16 * kk, lane), pa[i]);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bv[IN][4];
+#pragma unroll
+          for (int jj = 0; jj < IN; ++jj)
+            ldsm_t(Bs + jj * kPlaneBytes + bk_off(16 * kk, 16 * np, lane), bv[jj]);
+#pragma unroll
+          for (int i = 0; i < MID; ++i)
+#pragma unroll
+            for (int jj = 0; jj < IN; ++jj) {
+              if (i + jj >= MID) continue;
+              mma(acc[2 * np], pa[i], bv[jj][0], bv[jj][1]);
+              mma(acc[2 * np + 1], pa[i], bv[jj][2], bv[jj][3]);
+            }
+        }
+      }
+    }
+    __syncthreads();
+    if (n + 2 < n_steps) issue(n + 2);
+    cp_async_commit();
+  }
+
+  T* yb = static_cast<T*>(a.y) + b * a.sy.b + h * a.sy.h + c0 * a.sy.t + dv * kTile;
+  const int t0 = tb + m0 + g;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + 2 * tq;
+    if (col >= wv) continue;
+    const bool pair = col + 1 < wv;
+    if (t0 < Lc) store2(yb + static_cast<int64_t>(t0) * a.sy.t + col, acc[n][0], acc[n][1], pair);
+    if (t0 + 8 < Lc)
+      store2(yb + static_cast<int64_t>(t0 + 8) * a.sy.t + col, acc[n][2], acc[n][3], pair);
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 template <typename K>
@@ -665,27 +936,43 @@ cudaError_t allow_smem(K kernel, int bytes, bool (&done)[kMaxDevices]) {
 
 template <typename T>
 int launch(const Args& a, cudaStream_t st) {
-  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
-  static bool attr_local[kMaxDevices] = {}, attr_out[kMaxDevices] = {};
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID, PL = IN > MID ? IN : MID;
+  static bool attr_local[kMaxDevices] = {}, attr_out[kMaxDevices] = {},
+              attr_scores[kMaxDevices] = {}, attr_wide[kMaxDevices] = {};
   constexpr int kMaxChunk = 4096;
   const int local_most = 2 * 2 * IN * kPlaneBytes + 2 * kMaxChunk * 4;
   constexpr int out_smem = IN * kPlaneBytes + 2 * (2 * IN * kPlaneBytes + 2 * kTile * 4)
                            + kTile * 4;
+  constexpr int scores_smem = 2 * 2 * IN * kPlaneBytes;
+  constexpr int wide_smem = 2 * 2 * PL * kPlaneBytes;
+  const bool wide = a.nk > 1 || a.nv > 1;
   cudaError_t err = allow_smem(local_kernel<T>, local_most, attr_local);
-  if (err == cudaSuccess) err = allow_smem(output_kernel<T>, out_smem, attr_out);
+  if (err == cudaSuccess && !wide) err = allow_smem(output_kernel<T>, out_smem, attr_out);
+  if (err == cudaSuccess && wide) err = allow_smem(scores_kernel<T>, scores_smem, attr_scores);
+  if (err == cudaSuccess && wide) err = allow_smem(output_wide_kernel<T>, wide_smem, attr_wide);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int padded = (a.chunk + kTile - 1) / kTile * kTile;
   const int local_smem = 2 * 2 * IN * kPlaneBytes + 2 * padded * 4;
-  local_kernel<T><<<dim3(a.nc, a.NH, a.B), kThreads, local_smem, st>>>(a);
+  local_kernel<T><<<dim3(a.nc * a.nk * a.nv, a.NH, a.B), kThreads, local_smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_el = static_cast<int64_t>(a.B) * a.NH * kTile * kTile;
-  fold_kernel<T><<<static_cast<unsigned>((n_el + 255) / 256), 256, 0, st>>>(a);
+  const int n_el = a.nk * a.nv * kTile * kTile;  // a (batch, head)'s, in 64 x 64 tiles
+  if (wide)
+    fold_kernel<T, true><<<dim3((n_el + 255) / 256, a.NH, a.B), 256, 0, st>>>(a);
+  else
+    fold_kernel<T, false><<<dim3((n_el + 255) / 256, a.NH, a.B), 256, 0, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_tb = (a.chunk + kTile - 1) / kTile;
-  output_kernel<T><<<dim3(a.NH, a.B, a.nc * n_tb), kThreads, out_smem, st>>>(a);
+  if (!wide) {
+    output_kernel<T><<<dim3(a.NH, a.B, a.nc * n_tb), kThreads, out_smem, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  scores_kernel<T><<<dim3(a.nc * tri(n_tb), a.NH, a.B), kThreads, scores_smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  output_wide_kernel<T><<<dim3(a.nc * n_tb * a.nv, a.NH, a.B), kThreads, wide_smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -693,7 +980,7 @@ int launch(const Args& a, cudaStream_t st) {
 
 extern "C" int ssd_forward(const void* q, const void* k, const void* v, const void* log_g,
                            const void* log_i, void* y, void* state, void* cum, void* li,
-                           void* local, void* entering,
+                           void* local, void* entering, void* scores,
                            int64_t sqb, int64_t sqt, int64_t sqh,
                            int64_t skb, int64_t skt, int64_t skh,
                            int64_t svb, int64_t svt, int64_t svh,
@@ -701,9 +988,9 @@ extern "C" int ssd_forward(const void* q, const void* k, const void* v, const vo
                            int64_t sib, int64_t sit, int64_t sih,
                            int64_t syb, int64_t syt, int64_t syh,
                            int B, int T_len, int NH, int DK, int DV, int chunk, int dtype,
-                           int vec, void* stream) {
-  if (DK < 1 || DK > kTile || DV < 1 || DV > kTile || chunk < 1 || chunk > 4096 || T_len < 1 ||
-      B < 1 || NH < 1)
+                           int vq, int vk, int vv, void* stream) {
+  if (DK < 1 || DV < 1 || chunk < 1 || chunk > 4096 || T_len < 1 || B < 1 || NH < 1 ||
+      B > 65535 || NH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
@@ -717,6 +1004,7 @@ extern "C" int ssd_forward(const void* q, const void* k, const void* v, const vo
   a.li = static_cast<float*>(li);
   a.local = static_cast<float*>(local);
   a.entering = static_cast<bf16*>(entering);
+  a.scores = static_cast<float*>(scores);
   a.sq = Strides{sqb, sqt, sqh};
   a.sk = Strides{skb, skt, skh};
   a.sv = Strides{svb, svt, svh};
@@ -730,11 +1018,16 @@ extern "C" int ssd_forward(const void* q, const void* k, const void* v, const vo
   a.DV = DV;
   a.chunk = chunk;
   a.nc = (T_len + chunk - 1) / chunk;
-  a.vec = vec;
+  a.nk = (DK + kTile - 1) / kTile;
+  a.nv = (DV + kTile - 1) / kTile;
+  a.vq = vq;
+  a.vk = vk;
+  a.vv = vv;
+  if ((a.nk > 1 || a.nv > 1) && scores == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return launch<bf16>(a, st);
   if (dtype == kF32) {
-    a.vec = 0;
+    a.vq = a.vk = a.vv = 0;
     return launch<float>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);

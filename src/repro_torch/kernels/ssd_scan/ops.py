@@ -7,15 +7,18 @@ path's, q/k `(B, T, NH, DK)`, v `(B, T, NH, DV)`, gates `(B, T, NH)`.  Both
 return `(y, final_state)` with y in v's dtype and the state f32
 `(B, NH, DK, DV)`.  They launch the Hopper kernels of `csrc/ssd_scan.cu`
 for CUDA tensors (three launches a call: the chunks' local states, their
-fold in chunk order, the outputs), passing strides so that neither a
-transposition nor Mamba2's head broadcast of q and k (an `expand` with head
-stride 0) is materialised, and run `chunked_linear_attention_plain` for CPU
-tensors; any other device raises.  They replace the Pallas kernel of the
+fold in chunk order, the outputs; four where DK or DV exceeds 64, as the
+mLSTM's (hd, hd + 1) do, whose decayed scores get a launch of their own),
+passing strides so that neither a transposition nor Mamba2's head
+broadcast of q and k (an `expand` with head stride 0) is materialised,
+and run `chunked_linear_attention_plain` for CPU tensors; any other device
+raises.  They replace the Pallas kernel of the
 reference's `kernels/ssd_scan/kernel.py`.  Bound on the card: operations
 (see the source note).  `chunk_parallel_plain` is the kernel's
 decomposition written in plain PyTorch, to check its algebra.
 
-Unlike the Pallas kernel, T need not be a multiple of the chunk: the last
+Any DK, DV >= 1, as the Pallas kernel takes.  Unlike the Pallas kernel, T
+need not be a multiple of the chunk: the last
 chunk is short, which equals the reference model's zero padding (padded
 positions add nothing to y or the state).  `log_i` is optional (Mamba2
 passes none).  The scan starts from a zero state, as the Pallas kernel
@@ -33,7 +36,7 @@ import torch.nn.functional as F
 from .. import _lib
 
 CLIP = 30.0
-MAX_DIM = 64        # kTile in the source: DK and DV are zero-padded to it
+TILE = 64           # kTile in the source: DK and DV are zero-padded to its multiples
 MAX_CHUNK = 4096    # the chunk's gates sit in shared memory (pass 1)
 # bf16 parts of an f32 operand (Parts<T>::MID in the source): the scratch
 # holding the state entering each chunk has this many planes
@@ -146,26 +149,48 @@ def vector_loads(*tensors: torch.Tensor) -> bool:
     copies: bf16, every base address 16-byte aligned, and the batch, time
     and head strides and the feature width multiples of 8 elements (a
     head stride of 0, Mamba2's broadcast, qualifies).  Otherwise the kernel
-    loads element by element."""
+    loads element by element.  The wrapper asks for q, k and v apart, so
+    the mLSTM's q and k keep 16-byte loads beside its v of width hd + 1,
+    which `ssd_scan_bthd` hands over as a copy with padded rows."""
     return all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
                and all(s % 8 == 0 for s in t.stride()[:3]) for t in tensors)
 
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# q, k, v, log_g, log_i, y, state, 4 scratch buffers (cum, li, local,
-# entering), 6 x (batch, time, head) strides (q, k, v, log_g, log_i, y), B,
-# T, NH, DK, DV, chunk, in dtype, vector loads, stream
-_SIGNATURES = {"ssd_forward": [_P] * 11 + [_L] * 18 + [_I] * 8 + [_P]}
+# q, k, v, log_g, log_i, y, state, 5 scratch buffers (cum, li, local,
+# entering, scores), 6 x (batch, time, head) strides (q, k, v, log_g, log_i,
+# y), B, T, NH, DK, DV, chunk, in dtype, vector loads of q, k and v, stream
+_SIGNATURES = {"ssd_forward": [_P] * 12 + [_L] * 18 + [_I] * 10 + [_P]}
+
+
+def scratch_shapes(B: int, T: int, NH: int, DK: int, DV: int, chunk: int,
+                   dtype: torch.dtype) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The scratch a launch needs, by name: (shape, dtype).  cum and li
+    (B, NH, T) f32; the chunks' local states (B, NH, nc, nk x nv 64 x 64
+    tiles, 64, 64) f32, DK and DV padded to nk and nv tiles; the state
+    entering each chunk, the same tiles in its bf16 parts; and, where DK or
+    DV exceeds 64, the decayed scores of each chunk's (row block, key block
+    <= it) pairs, (B, NH, nc, pairs, 64, 64) f32."""
+    nc, nt = -(-T // chunk), -(-chunk // TILE)
+    nk, nv = -(-DK // TILE), -(-DV // TILE)
+    shapes = {
+        "cum": ((B, NH, T), torch.float32),
+        "li": ((B, NH, T), torch.float32),
+        "local": ((B, NH, nc, nk * nv, TILE, TILE), torch.float32),
+        "entering": ((B, NH, nc, nk * nv, STATE_PARTS[dtype], TILE, TILE), torch.bfloat16),
+    }
+    if nk > 1 or nv > 1:
+        shapes["scores"] = ((B, NH, nc, nt * (nt + 1) // 2, TILE, TILE), torch.float32)
+    return shapes
 
 
 def _launch(q, k, v, log_g, log_i, y, state, chunk: int) -> None:
-    """q/k: (B, T, NH, DK), v/y: (B, T, NH, DV), gates (B, T, NH) f32 views
-    with a unit last stride (the gates' head stride is free); state f32
-    (B, NH, DK, DV) contiguous."""
+    """q/k: (B, T, NH, DK), y: (B, T, NH, DV), v: (B, T, NH, DV or more: the
+    columns past DV are zeros the kernel may read), gates (B, T, NH) f32
+    views with a unit last stride (the gates' head stride is free); state
+    f32 (B, NH, DK, DV) contiguous."""
     B, T, NH, DK = q.shape
-    DV = v.shape[-1]
-    if DK > MAX_DIM or DV > MAX_DIM:
-        raise ValueError(f"DK {DK}, DV {DV}: the kernel takes state dims <= {MAX_DIM}")
+    DV = y.shape[-1]
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk {chunk} outside [1, {MAX_CHUNK}]")
     if not (q.dtype == k.dtype == v.dtype == y.dtype):
@@ -177,18 +202,16 @@ def _launch(q, k, v, log_g, log_i, y, state, chunk: int) -> None:
     strides = [s for t in (q, k, v, log_g) for s in t.stride()[:3]]
     strides += list(log_i.stride()) if log_i is not None else [0, 0, 0]
     strides += list(y.stride()[:3])
-    nc = -(-T // chunk)
-    dev = q.device
-    cum, li = (torch.empty((B, NH, T), dtype=torch.float32, device=dev) for _ in range(2))
-    local = torch.empty((B, NH, nc, DK, DV), dtype=torch.float32, device=dev)
-    entering = torch.empty((B, NH, nc, STATE_PARTS[q.dtype], MAX_DIM, MAX_DIM),
-                           dtype=torch.bfloat16, device=dev)
+    scratch = {name: torch.empty(shape, dtype=dt, device=q.device) for name, (shape, dt)
+               in scratch_shapes(B, T, NH, DK, DV, chunk, q.dtype).items()}
     lib = _lib.load("ssd_scan", _SIGNATURES)
     err = lib.ssd_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_g.data_ptr(),
         log_i.data_ptr() if log_i is not None else 0, y.data_ptr(), state.data_ptr(),
-        cum.data_ptr(), li.data_ptr(), local.data_ptr(), entering.data_ptr(), *strides,
-        B, T, NH, DK, DV, chunk, code, int(vector_loads(q, k, v)), _lib.stream_handle(q))
+        *(scratch[n].data_ptr() if n in scratch else 0
+          for n in ("cum", "li", "local", "entering", "scores")), *strides,
+        B, T, NH, DK, DV, chunk, code, *(int(vector_loads(t)) for t in (q, k, v)),
+        _lib.stream_handle(q))
     _lib.check("ssd_scan", err)
     ssd_scan.launches += 1
 
@@ -213,6 +236,14 @@ def ssd_scan_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torc
                          f"log_g{tuple(log_g.shape)}")
     y = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     state = torch.empty((B, NH, DK, DV), dtype=torch.float32, device=v.device)
+    if v.dtype == torch.bfloat16 and not vector_loads(v):
+        # rows the kernel cannot stream by 16-byte copies (the mLSTM's v of
+        # width hd + 1, rows 2-byte aligned): a copy whose rows are
+        # zero-padded to a multiple of 8 elements, which it can; element
+        # loads of v cost more than the copy (PERF.md, section 6)
+        padded = torch.zeros((B, T, NH, -(-DV // 8) * 8), dtype=v.dtype, device=v.device)
+        padded[..., :DV] = v
+        v = padded
     _launch(q, k, v, _f32(log_g), _f32(log_i), y, state, min(chunk, T))
     return y, state
 

@@ -8,7 +8,7 @@ inventory, then drives the reservation data plane against a Poisson/bursty
 trace and reports the paper's metrics (SLO attainment, per-class utilization,
 probe overhead).  `--sweep` reproduces the max-load-factor search.
 Simulated, as the reference's launcher is: nothing runs on a device.
-`--archs` takes the port's registry (stablelm-3b, qwen3-14b, zamba2-2.7b).
+`--archs` takes the port's registry, the reference's ten architectures.
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
-"""Model interface over the ported architectures (the dense family and the
-Mamba2 hybrid).
+"""Model interface over the ported architectures: the dense family and the
+recurrent ones (the Mamba2 hybrid zamba2-2.7b, xLSTM).
 
 `build_model(cfg)` returns a `Model` whose methods cover what serving needs:
 `init` (parameters from an explicit generator), `forward`, `init_cache`,
 `prefill` and `decode_step` (the reference's signatures, plus the `ops`
 that pick kernels or plain math, and `init_cache`'s device), and `layer_costs` — the analytic
 per-layer profile the PPipe control plane consumes, equal to the
-reference's for the same config.
+reference's for the same config of every family (MoE, MLA, VLM and
+enc-dec included, which `build_model` does not run yet).
 """
 
 from __future__ import annotations
@@ -19,10 +20,10 @@ import torch
 from repro_torch.core import costmodel as cm
 from repro_torch.core.types import LayerCost
 
-from . import hybrid, transformer as tfm
+from . import deepseek, hybrid, transformer as tfm
 from .common import KERNELS, ModelConfig, Ops, ParamTree, init_params
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "hybrid", "ssm")
 
 
 @dataclass
@@ -71,29 +72,65 @@ def build_model(cfg: ModelConfig) -> Model:
 def layer_costs(cfg: ModelConfig, seq: int) -> list[LayerCost]:
     """Per-layer (flops, bytes, boundary size) at batch 1 for pre-partitioning.
 
-    One entry per schedulable unit: embedding, each sequence-mixing (+FFN)
-    layer, final norm + head.
+    One entry per schedulable unit: frontend/embedding, each
+    sequence-mixing+FFN layer, final norm + head.  Every family, including
+    those `build_model` does not run yet.
     """
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     d, dff, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     out: list[LayerCost] = [cm.embed_cost(seq, d, V)]
 
-    def attn():
+    def attn(name="attn"):
         return cm.attention_cost(seq, d, cfg.n_heads, cfg.kv_heads, cfg.hd,
-                                 kv_len=None, name="attn", qkv_bias=cfg.qkv_bias)
+                                 kv_len=None, name=name, qkv_bias=cfg.qkv_bias)
 
-    if cfg.family == "dense":
+    def mla(name="mla"):
+        # projections via low-rank paths + attention over (nope+rope) dims
+        H = cfg.n_heads
+        e = cfg.qk_nope_dim + cfg.qk_rope_dim
+        w = (d * cfg.q_lora_rank + cfg.q_lora_rank * H * e
+             + d * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+             + cfg.kv_lora_rank * H * (cfg.qk_nope_dim + cfg.v_head_dim)
+             + H * cfg.v_head_dim * d)
+        attn_f = 2 * seq * seq * H * (e + cfg.v_head_dim)
+        act = (6 * seq * d + 2 * seq * H * e) * cm.BYTES
+        return LayerCost(name, flops=2 * seq * w + attn_f, act_bytes=act,
+                         weight_bytes=w * cm.BYTES, out_bytes=seq * d * cm.BYTES)
+
+    def moe():
+        return cm.moe_cost(seq, d, cfg.moe_d_ff or dff, cfg.n_experts, cfg.top_k,
+                           cfg.n_shared_experts)
+
+    if cfg.family in ("dense", "vlm"):
         for i in range(cfg.n_layers):
             out.append(cm.layer_sequence_cost(f"layer{i}", [attn(), cm.mlp_cost(seq, d, dff)]))
-    else:
-        hybrid.parse_pattern(cfg)  # raises for the xLSTM codes
+    elif cfg.family == "moe" and not cfg.mla:
+        for i in range(cfg.n_layers):
+            out.append(cm.layer_sequence_cost(f"layer{i}", [attn(), moe()]))
+    elif cfg.family == "moe":
+        for i in range(cfg.n_layers):
+            ffn = (cm.mlp_cost(seq, d, deepseek.dense_ff_dim(cfg)) if i < cfg.dense_layers
+                   else moe())
+            out.append(cm.layer_sequence_cost(f"layer{i}", [mla(), ffn]))
+    elif cfg.family in ("ssm", "hybrid"):
         for i, code in enumerate(cfg.ssm_pattern):
             if code == "m":
                 out.append(cm.mamba2_cost(seq, d, cfg.d_state, cfg.ssm_expand,
                                           name=f"mamba{i}"))
-            else:
+            elif code == "M":
+                out.append(cm.xlstm_cost(seq, d, cfg.n_heads, name=f"mlstm{i}"))
+            elif code == "s":
+                out.append(cm.xlstm_cost(seq, d, cfg.n_heads, name=f"slstm{i}"))
+            elif code == "a":
                 out.append(cm.layer_sequence_cost(
                     f"attn{i}", [attn(), cm.mlp_cost(seq, d, dff)]))
+    elif cfg.family == "audio":
+        for i in range(cfg.encoder_layers):
+            out.append(cm.layer_sequence_cost(
+                f"enc{i}", [attn(name="enc_attn"), cm.mlp_cost(seq, d, dff)]))
+        for i in range(cfg.n_layers):
+            out.append(cm.layer_sequence_cost(
+                f"dec{i}", [attn(), attn(name="cross"), cm.mlp_cost(seq, d, dff)]))
+    else:
+        raise ValueError(cfg.family)
     out.append(cm.head_cost(seq, d, V))
     return out

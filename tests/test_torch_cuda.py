@@ -479,15 +479,46 @@ def test_ssd_scan_kernel_chunks_and_ragged_t(cuda, T, chunk, broadcast, dtype):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,T,NH,DK,DV,chunk", [(1, 300, 2, 96, 97, 64),
+                                                (2, 200, 3, 128, 40, 64),
+                                                (1, 512, 4, 1024, 1025, 256)],
+                         ids=["short_last_chunk", "wide_dk_16_byte_v", "xlstm_1_3b_heads"])
+@pytest.mark.parametrize("with_i", [True, False], ids=["log_i", "no_log_i"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_scan_kernel_wide_states_match_plain(cuda, B, T, NH, DK, DV, chunk, with_i, dtype):
+    """State widths past one 64-wide tile, as the mLSTM's (hd, hd + 1), or
+    DK alone past it with a v the kernel streams as it lies (bf16 rows of
+    40): per-head q and k, v with a ones column, log_i over the mLSTM's
+    clip range [-30, 10] (decay terms to e^30).  y at the dtype's bound (bf16
+    `tol`, f32 the SSD bound) and the state at the SSD bound, each atol
+    scaled by the reference's max |value|; one launch counted a call."""
+    q = _on(cuda, 90, (B, T, NH, DK), dtype, 0.5)
+    k = _on(cuda, 91, (B, T, NH, DK), dtype, 0.5)
+    v = _on(cuda, 92, (B, T, NH, DV), dtype, 0.5)
+    v[..., -1] = 1.0
+    log_g = _gates(cuda, 93, (B, T, NH), 0.05)
+    log_i = (torch.from_numpy(np.random.default_rng(94).uniform(-30.0, 10.0, (B, T, NH)))
+             .float().to(cuda) if with_i else None)
+    before = ssd.ssd_scan.launches
+    y, state = ssd.ssd_scan_bthd(q, k, v, log_g, log_i, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1
+    assert y.shape == v.shape and y.dtype == dtype and state.shape == (B, NH, DK, DV)
+    y_want, s_want = ssd.chunked_linear_attention_plain(q, k, v, log_g, log_i, chunk=chunk)
+    y_tol = SSD_TOL if dtype == torch.float32 else tol(dtype)
+    for got, want, t in ((y, y_want, y_tol), (state, s_want, SSD_TOL)):
+        got, want = _np(got.cpu()), _np(want.cpu())
+        np.testing.assert_allclose(got, want, rtol=t["rtol"],
+                                   atol=t["atol"] * float(np.abs(want).max()))
+
+
+@pytest.mark.requires_cuda
 def test_ssd_scan_kernel_refuses_what_it_cannot_take(cuda):
-    """A state dim past 64, a chunk past 4096, or q, k, v of mixed dtypes
-    raise before any launch; nothing falls back to the plain version."""
+    """A chunk past 4096, or q, k, v of mixed dtypes, raise before any
+    launch; nothing falls back to the plain version."""
     z = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
     g = torch.zeros(1, 8, 2, device=cuda)
-    wide = torch.zeros(1, 8, 2, 80, device=cuda, dtype=torch.bfloat16)
     before = ssd.ssd_scan.launches
-    with pytest.raises(ValueError, match="state dims"):
-        ssd.ssd_scan_bthd(wide, wide, z, g)
     long = torch.zeros(1, 5000, 2, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="chunk"):
         ssd.ssd_scan_bthd(long, long, long, torch.zeros(1, 5000, 2, device=cuda), chunk=4097)
@@ -602,6 +633,56 @@ def test_prefill_decode_through_kernels(cuda, arch):
         assert (got.float() - want.float()).abs().max() <= 5e-2 * want.float().abs().max()
         tok, cur = got.argmax(-1), cur + 1
     assert KERNELS.decode_attention is da.decode_attention_bthd
+
+
+@pytest.mark.requires_cuda
+def test_xlstm_layers_through_kernels(cuda):
+    """Reduced xlstm-1.3b at d_model 320 (mLSTM state widths 160 x 161, the
+    scan's wide path) with its period twice: the prefill launches ssd_scan
+    once per mLSTM block, and every block through `KERNELS` matches it
+    through `PLAIN` from the same input and state, its full form and its
+    decode step, to 5e-2 of the output's scale (chip_smoke.py's per-layer
+    bound)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import KERNELS, PLAIN
+    from repro_torch.models.model_zoo import build_model
+
+    base = get_config("xlstm-1.3b").reduced()
+    cfg = get_config("xlstm-1.3b").reduced(d_model=320, ssm_pattern=base.ssm_pattern * 2,
+                                           n_layers=2 * base.n_layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))).to(cuda)
+    n_ssd = ssd.ssd_scan.launches
+    _, cache = model.prefill(params, {"tokens": tokens}, max_len=41)
+    assert ssd.ssd_scan.launches - n_ssd == cfg.ssm_pattern.count("M") == 14
+
+    def close(got, want):
+        assert (got.float() - want.float()).abs().max() <= 5e-2 * want.float().abs().max()
+
+    x = tfm.embed_tokens(cfg, params, tokens)
+    xd = tfm.embed_tokens(cfg, params, tokens[:, -1:])
+    for g, group in enumerate(params["inner"]):
+        for j, lp in enumerate(group):
+            got, st = hybrid._apply_inner_full(cfg, KERNELS, "M", lp, x, return_state=True)
+            want, st0 = hybrid._apply_inner_full(cfg, PLAIN, "M", lp, x, return_state=True)
+            close(got, want)
+            close(st["ssm"], st0["ssm"])
+            state = {name: a[g, j] for name, a in cache["inner"].items()}
+            steps = [hybrid._apply_inner_step(cfg, ops, "M", lp, xd, state)[0]
+                     for ops in (KERNELS, PLAIN)]
+            close(*steps)
+            x, xd = got, steps[0]
+        lp = params["outer"][g]
+        got, _ = hybrid._apply_slstm_full(cfg, KERNELS, lp, x)
+        close(got, hybrid._apply_slstm_full(cfg, PLAIN, lp, x)[0])
+        state = {name: a[g] for name, a in cache["outer"].items()}
+        steps = [hybrid._apply_slstm_step(cfg, ops, lp, xd, state)[0] for ops in (KERNELS, PLAIN)]
+        close(*steps)
+        x, xd = got, steps[0]
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------------- stages as CUDA graphs

@@ -235,15 +235,6 @@ def test_hybrid_init_keeps_reference_formulas():
     assert abs(params["inner"][0][0]["mixer"]["conv_w"].std().item() - 0.5) < 0.02
 
 
-def test_xlstm_patterns_are_not_ported():
-    cfg = get_config("zamba2-2.7b").reduced()
-    cfg = cfg.__class__(**{**cfg.__dict__, "ssm_pattern": "MMMs", "n_layers": 4})
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        hybrid.parse_pattern(cfg)
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        build_model(cfg)
-
-
 # ------------------------------------------------- whole models against JAX
 
 
@@ -417,6 +408,6 @@ def test_cache_layouts_match_reference_init_cache():
 
 
 def test_reference_hybrid_pattern_parse_agrees():
-    for arch in ("zamba2-2.7b",):
+    for arch in ("zamba2-2.7b", "xlstm-1.3b"):
         assert hybrid.parse_pattern(get_config(arch)) == ref_hybrid.parse_pattern(
             ref_config(arch))

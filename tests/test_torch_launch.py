@@ -52,10 +52,11 @@ def test_serve_cli_runs_as_a_module():
 
 
 def test_serve_cli_archs_are_the_ports_registry(monkeypatch):
+    from repro.configs import ARCH_IDS as REF_ARCH_IDS
     from repro_torch.configs import ARCH_IDS
     from repro_torch.launch import serve
 
-    assert ARCH_IDS == ["stablelm-3b", "qwen3-14b", "zamba2-2.7b"]
+    assert ARCH_IDS == REF_ARCH_IDS
     monkeypatch.setattr(sys, "argv", ["serve", "--archs", "llama4-scout"])
     with pytest.raises(SystemExit):
         serve.main()
