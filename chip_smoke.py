@@ -14,8 +14,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    timed at the serve boundary, decode, narrow and long shapes;
    rmsnorm, flash and decode attention at every shape the smoke paths
    run, flash attention's f32 route also at tests/test_kernels.py's f32
-   shapes and non-causal, rmsnorm also at qwen3-14b's qk_norm and decode
-   attention at one that splits the sequence; ssd_scan in f32 with q and k
+   shapes and non-causal, and both routes at the VLM's and the enc-dec's
+   shapes (llava-next-34b's causal prefill, seamless-m4t-large-v2's
+   non-causal encoder and its cross-attention, Sq != Sk) and a causal
+   Sq != Sk either way, rmsnorm also at qwen3-14b's qk_norm and decode
+   attention (bf16 and f32) at every decode shape, llava-next-34b's and
+   one of qwen3-14b taking the split path; ssd_scan in f32 with q and k
    broadcast or per head, with and without log_i, and in bf16, and at the
    mLSTM's state widths (xlstm-1.3b: DK 1024, DV 1025, log_i over its clip
    range [-30, 10]) in bf16 and f32), and time it beside its bound, its
@@ -41,23 +45,33 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    and the whole forward by the decisive-margin top-1 rule;
 5. decode through the model API (`build_model(cfg).prefill` then greedy
    `decode_step`): stablelm-3b on the serve phase's parameters (8 prompts
-   of 128 tokens, 32 steps), zamba2-2.7b and xlstm-1.3b at full width and
-   depth (54 and 48 layers, random weights from a seed; 4 prompts of 512
-   tokens, 16 steps).  Each step's logits are held to the teacher-forced
-   forward (the serving invariant) in bf16, beside witnesses from the same
-   tokens: the plain math in bf16, and the kernels in f32, which must hold
-   the invariant at decisive positions (and, for the dense model, have
-   some).  A fresh prefill and one step are held, cache slot by cache
-   slot, to the layers walked one at a time; every layer of every group
-   is held to the plain math, and its decode form to its full form, from
-   the same input; the launch counts show the path ran each kernel its
-   layers call (rmsnorm, flash_attention, decode_attention, ssd_scan); a
-   profiler window over one prefill of each model reads its device busy
-   share and top kernels.
+   of 128 tokens, 32 steps; the serve phase's session is released after
+   it), zamba2-2.7b and xlstm-1.3b at full width and depth (54 and 48
+   layers, random weights from a seed; 4 prompts of 512 tokens, 16 steps),
+   seamless-m4t-large-v2 (24 + 24 layers; 4 requests of 1024 frame
+   embeddings, the BOS step, 32 steps) and llava-next-34b (60 layers,
+   d_model 7168, 34.39 B parameters; 2 requests of 2880 patch embeddings
+   and 128 tokens, 16 steps), all at full width and depth.  Each step's
+   logits are held to the teacher-forced forward (the serving invariant)
+   in bf16, beside witnesses from the same tokens: the plain math in bf16,
+   and the kernels in f32, which must hold the invariant at decisive
+   positions (and, for the attention models, have some; llava-next-34b's
+   at 8 layers, after its bf16 weights are freed: 60 in f32 would not fit
+   on the card).  A fresh prefill and one step are held, cache slot by
+   cache slot, to the layers walked one at a time; every layer (every
+   group's blocks; the encoder layers and the decoder's self-, cross- and
+   MLP blocks) is held to the plain math, and its decode form to its full
+   form, from the same input; the launch counts show the path ran each
+   kernel its layers call (rmsnorm, flash_attention, decode_attention,
+   ssd_scan) as often as its layers do; a profiler window over one
+   prefill of each model reads its device busy share and top kernels, and
+   each run logs its peak device memory.
 
 With `--parent ROOT` (another tree of the repository, such as the parent
 commit unpacked), every kernel that tree has is built too, timed in turns
-with this tree's at the same inputs, and run in a second profiled prefill.
+with this tree's at the same inputs, and run in a second profiled prefill
+(not for a model whose path needs a wrapper's argument that tree lacks,
+which is logged).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.  Without a CUDA device, or
@@ -90,9 +104,14 @@ SWAP_REQUESTS = 10 * N_REQUESTS  # the live swap's trace (act_swap says why)
 # whose batch of 8 must pass use_plan's analytic check (its trace's SLO
 # comes from the calibrated latency)
 MILP_SLO_SCALE, SWAP_SLO_SCALE, PINNED_SLO_SCALE = 5.0, 8.0, 20.0
-# phase 5: (arch, batch, prompt tokens, greedy decode steps)
+# phase 5: (arch, batch, prompt tokens (the VLM's after its 2880 patch
+# embeddings; the enc-dec's frame embeddings), greedy decode steps)
 DECODE_RUNS = (("stablelm-3b", 8, 128, 32), ("zamba2-2.7b", 4, 512, 16),
-               ("xlstm-1.3b", 4, 512, 16))
+               ("xlstm-1.3b", 4, 512, 16), ("seamless-m4t-large-v2", 4, 1024, 32),
+               ("llava-next-34b", 2, 128, 16))
+# models whose f32 witness runs at full width and fewer layers, after the
+# bf16 weights are freed: llava-next-34b's 60 layers in f32 would take 137 GB
+F32_WITNESS_LAYERS = {"llava-next-34b": 8}
 PROFILED_STEPS = 4
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 tensor-core peak, f32
@@ -388,14 +407,25 @@ def rmsnorm_shapes() -> list[tuple[str, int, int]]:
     """(what, rows, D) at every shape the smoke paths launch rmsnorm at, and
     qwen3-14b's qk_norm over 8 x 128 tokens of 40 heads, which no smoke path
     runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import batch_text_offset
+
     _, B, S, _ = DECODE_RUNS[1]
     _, xb, xs, _ = DECODE_RUNS[2]
+    _, sb, ss, sn = DECODE_RUNS[3]
+    llava, lb, ls, _ = DECODE_RUNS[4]
+    patches = batch_text_offset(get_config(llava))
     return [("serve", BATCH * SEQ, 2560), ("stablelm-3b decode", DECODE_RUNS[0][1], 2560),
             ("zamba2-2.7b prefill", B * S, 2560),
             ("zamba2-2.7b prefill, Mamba2 gated norm", B * S, 5120),
             ("zamba2-2.7b decode", B, 2560), ("zamba2-2.7b decode, Mamba2 gated norm", B, 5120),
             ("xlstm-1.3b prefill", xb * xs, 2048), ("xlstm-1.3b prefill, mLSTM norm", xb * xs, 4096),
             ("xlstm-1.3b decode", xb, 2048), ("xlstm-1.3b decode, mLSTM norm", xb, 4096),
+            ("seamless-m4t-large-v2 encoder", sb * ss, 1024),
+            ("seamless-m4t-large-v2 teacher-forced decoder", sb * (sn + 1), 1024),
+            ("seamless-m4t-large-v2 decode", sb, 1024),
+            ("llava-next-34b prefill", lb * (patches + ls), 7168),
+            ("llava-next-34b decode", lb, 7168),
             ("qwen3-14b qk_norm (no smoke path)", 8 * 128 * 40, 128)]
 
 
@@ -438,10 +468,12 @@ def check_rmsnorm(dev, g, err, parent) -> dict:
 
 def check_flash_attention(dev, g, err, parent) -> dict:
     """In the model layout (B, T, H, D), as served, at both prefill shapes
-    the smoke paths run: the serve's (8, 128, 32, 80) and zamba2-2.7b's
-    (4, 512, 32, 80).  Each against its plain version and, bit for bit, the
-    same inputs as contiguous (B, H, S, D) copies.  The line's times are the
-    serve shape's; `shapes` holds both."""
+    of the dense and hybrid paths: the serve's (8, 128, 32, 80) and
+    zamba2-2.7b's (4, 512, 32, 80).  Each against its plain version and,
+    bit for bit, the same inputs as contiguous (B, H, S, D) copies.  Then
+    the f32 route (`check_flash_f32`) and both routes at the VLM's and the
+    enc-dec's shapes (`check_flash_models`).  The line's times are the
+    serve shape's; `shapes` holds every timed shape."""
     import torch
     import torch.nn.functional as F
 
@@ -477,6 +509,7 @@ def check_flash_attention(dev, g, err, parent) -> dict:
             f"max|err| {r['max_abs_err']:.3g}; bit-equal to the (B, H, S, D) copies")
         shapes.append(r)
     shapes.append(check_flash_f32(dev, g, err))
+    shapes += check_flash_models(dev, g, err)
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
 
 
@@ -541,27 +574,141 @@ def check_flash_f32(dev, g, err) -> dict:
     return r
 
 
+def decode_shapes() -> list[tuple[str, int, int, int, int, int]]:
+    """(what, B, cache length, query heads, KV heads, head_dim) of every
+    decode attention phase 5's runs launch (the enc-dec's self- and
+    cross-attention), then qwen3-14b's one sequence over a 4096-key cache,
+    which no smoke path runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import batch_text_offset
+
+    out = []
+    for arch, B, S, n in DECODE_RUNS:
+        cfg = get_config(arch)
+        if cfg.ssm_pattern and "a" not in cfg.ssm_pattern:
+            continue  # no attention layer
+        heads = (cfg.n_heads, cfg.kv_heads, cfg.hd)
+        if cfg.family == "audio":
+            out += [(f"{arch} self-attention", B, 1 + n, *heads),
+                    (f"{arch} cross-attention", B, S, *heads)]
+        else:
+            what = arch + (" (split path)" if cfg.family == "vlm" else "")
+            out.append((what, B, batch_text_offset(cfg) + S + n, *heads))
+    return out + [("qwen3-14b, one sequence (split path, no smoke path)", 1, 4096, 40, 8, 128)]
+
+
+def flash_model_shapes() -> list[tuple]:
+    """(what, B, Sq, Sk, H, KH, D, causal) of the flash attention the VLM
+    and enc-dec runs of phase 5 launch, with their configs' heads, and a
+    causal Sq != Sk either way: seamless-m4t-large-v2's encoder
+    (non-causal) and its teacher-forced decoder's cross-attention (the
+    serving invariant's [bos] + the steps' tokens over the frames), and
+    llava-next-34b's prefill (G = 7, D = 128, patches + text tokens, no
+    multiple of the kernel's 128-row item)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import batch_text_offset
+
+    out = []
+    for arch, B, S, n in DECODE_RUNS:
+        cfg = get_config(arch)
+        heads = (cfg.n_heads, cfg.kv_heads, cfg.hd)
+        if cfg.family == "audio":
+            out += [(f"{arch} encoder", B, S, S, *heads, False),
+                    (f"{arch} cross-attention", B, n + 1, S, *heads, False)]
+        elif cfg.family == "vlm":
+            T = batch_text_offset(cfg) + S
+            out.append((f"{arch} prefill", B, T, T, *heads, True))
+    return out + [("causal, Sq < Sk", 2, 300, 1000, 16, 4, 128, True),
+                  ("causal, Sq > Sk", 2, 1000, 300, 16, 4, 64, True)]
+
+
+def flash_bound(B, Sq, Sk, H, KH, D, causal, esize, peak) -> tuple[float, str]:
+    """Bytes: q and o (B, Sq, H, D) once each, and the rows of k and v (B,
+    Sk, KH, D) some query keeps, once each: all Sk, or min(Sq, Sk) under
+    the causal mask.  Operations: Q.K^T and P.V over the (query, key) pairs
+    the mask keeps (top-left: query i keeps min(i + 1, Sk) keys)."""
+    if causal:
+        m = min(Sq, Sk)
+        pairs = m * (m + 1) / 2 + max(Sq - Sk, 0) * Sk
+    else:
+        pairs = Sq * Sk
+    kv_rows = min(Sq, Sk) if causal else Sk
+    nbytes = (2 * B * Sq * H * D + 2 * B * kv_rows * KH * D) * esize
+    return bound_ms(nbytes, (4.0 * B * H * pairs * D, peak))
+
+
+def check_flash_models(dev, g, err) -> list[dict]:
+    """Flash attention at `flash_model_shapes` in the model layout, bf16 and
+    f32 (TF32 off), each against its plain version (bf16 at `attn_tol`,
+    bit-equal to the (B, H, S, D) copies; f32 at 3e-5), and each timed
+    beside its bound, its plain version and SDPA (top-left causal, as
+    `is_causal` aligns it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.testing.parity import attn_tol, tol
+
+    out = []
+    for what, B, Sq, Sk, H, KH, D, causal in flash_model_shapes():
+        for dtype in (torch.bfloat16, torch.float32):
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(B, Sk, KH, D, generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            got = fa.attention_bthd(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(qh, kh, vh, causal=causal).transpose(1, 2)
+            bhsd = fa.flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                                      causal=causal)
+            torch.cuda.synchronize()
+            bound = attn_tol(dtype) if dtype == torch.bfloat16 else tol(dtype)
+            torch.testing.assert_close(got, want, **bound)
+            torch.testing.assert_close(bhsd.transpose(1, 2), got, atol=0, rtol=0)
+            b_ms, b_by = flash_bound(B, Sq, Sk, H, KH, D, causal, q.element_size(),
+                                     BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S)
+            gqa = {"enable_gqa": True} if H != KH else {}
+            iters = 50 if B * H * Sq * Sk < 2 ** 28 else 10
+            r = dict(
+                shape=[B, Sq, Sk, H, KH, D], what=what, dtype=name, causal=causal,
+                max_abs_err=err(got, want), tol=bound,
+                ms=time_ms(lambda: fa.attention_bthd(q, k, v, causal=causal), iters=iters),
+                parent_ms=None,
+                plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vh, causal=causal),
+                                 iters=min(iters, 10), warmup=2),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=causal, **gqa), iters=iters),
+                host_ms=host_ms(lambda: fa.attention_bthd(q, k, v, causal=causal), calls=100))
+            log(f"[kernels] flash_attention {name} at the {what} shape q ({B}, {Sq}, {H}, {D}), "
+                f"k/v ({B}, {Sk}, {KH}, {D}), {'causal' if causal else 'non-causal'}: "
+                f"{r['ms'] * 1e3:.3f} us vs bound {b_ms * 1e3:.3f} us ({b_by}), plain "
+                f"{r['plain_ms'] * 1e3:.3f} us, SDPA {r['library_ms'] * 1e3:.3f} us; host "
+                f"{r['host_ms'] * 1e3:.3f} us a call; max|err| {r['max_abs_err']:.3g} (tol "
+                f"{bound}); bit-equal to the (B, H, S, D) copies")
+            out.append(r)
+            del q, k, v, qh, kh, vh, got, want, bhsd
+    return out
+
+
 def check_decode_attention(dev, g, err, parent) -> dict:
-    """At both decode shapes of phase 5, and at one that takes the split path
-    (qwen3-14b, one sequence, 8 KV heads, a 4096-key cache), with kv_len =
-    the full cache read from a device int32; garbage at and past kv_len must
-    not change the output, and two calls must agree bit for bit.  The
-    line's times are those at the stablelm-3b shape (1024 of the decode
-    phase's 1168 launches); `shapes` holds all three, each with the time of
-    one split beside `split_plan`'s choice where that splits."""
+    """At every decode shape of phase 5 (`decode_shapes`: llava-next-34b's
+    and qwen3-14b's take the split path), with kv_len = the full cache read
+    from a device int32; garbage at and past kv_len must not change the
+    output, and two calls must agree bit for bit; the f32 route at the same
+    shape at 3e-5.  The line's times are those at the stablelm-3b shape;
+    `shapes` holds all, each with the time of one split beside
+    `split_plan`'s choice where that splits."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.testing.parity import attn_tol
+    from repro_torch.testing.parity import attn_tol, tol
 
     bf16 = torch.bfloat16
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    # (what, B, cache length, query heads, KV heads, head_dim)
-    cases = [(arch, B, S + n, 32, 32, 80) for arch, B, S, n in DECODE_RUNS]
-    cases.append(("qwen3-14b, one sequence (split path)", 1, 4096, 40, 8, 128))
     shapes = []
-    for what, B, L, H, KH, HD in cases:
+    for what, B, L, H, KH, HD in decode_shapes():
         q = torch.randn(B, 1, H, HD, generator=g, device=dev).to(bf16)
         kc, vc = (torch.randn(B, L, KH, HD, generator=g, device=dev).to(bf16) for _ in range(2))
         lens = torch.tensor(L, dtype=torch.int32, device=dev)
@@ -581,6 +728,11 @@ def check_decode_attention(dev, g, err, parent) -> dict:
         if not torch.equal(before, after):
             raise AssertionError(f"decode_attention ({what} shape): values past kv_len leak "
                                  f"into the output ({err(before, after):.3g})")
+        q32, k32, v32 = q.float(), kc.float(), vc.float()
+        got32 = da.decode_attention_bthd(q32, k32, v32, lens)
+        want32 = da.decode_attention_plain(q32, k32, v32, lens)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got32, want32, **tol(torch.float32))
         qh, kh, vh = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
         gqa = {"enable_gqa": True} if H != KH else {}
         nbytes = 2 * B * L * KH * HD * 2 + 2 * B * H * HD * 2 + 4
@@ -607,7 +759,8 @@ def check_decode_attention(dev, g, err, parent) -> dict:
             f"{ms * 1e3:.3f} us{vs_parent(parent_ms)} vs bound {b_ms * 1e3:.3f} us, plain "
             f"{r['plain_ms'] * 1e3:.3f} us, SDPA {r['library_ms'] * 1e3:.3f} us{note}; host "
             f"{r['host_ms'] * 1e3:.3f} us a call; max|err| {r['max_abs_err']:.3g}; "
-            f"bit-equal run to run; tail past kv_len masked")
+            f"bit-equal run to run; tail past kv_len masked; f32 max|err| "
+            f"{err(got32, want32):.3g} (tol {tol(torch.float32)})")
         shapes.append(r)
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
 
@@ -1284,12 +1437,72 @@ def read_counts() -> dict:
 
 
 def path_kernels(cfg) -> list[str]:
-    """The kernels a model's prefill must launch: rmsnorm always,
-    flash_attention where it has attention layers, ssd_scan where it has
-    Mamba2 or mLSTM blocks."""
+    """The kernels a model's serving path must launch: rmsnorm always,
+    flash_attention and decode_attention where it has attention layers,
+    ssd_scan where it has Mamba2 or mLSTM blocks."""
     pattern = cfg.ssm_pattern
-    return (["rmsnorm"] + (["flash_attention"] if not pattern or "a" in pattern else [])
-            + (["ssd_scan"] if set(pattern) & set("mM") else []))
+    attention = ["flash_attention", "decode_attention"] if not pattern or "a" in pattern else []
+    return ["rmsnorm"] + attention + (["ssd_scan"] if set(pattern) & set("mM") else [])
+
+
+def expected_launches(cfg) -> dict:
+    """The launches a prefill and a decode step must make: flash attention
+    for each attention layer of the prefill (the enc-dec's encoder layers;
+    its decoder runs the BOS step), decode attention for each attention
+    layer of a step (the enc-dec's self- and cross-attention: two a decoder
+    layer, in its prefill's BOS step too) and ssd_scan for each Mamba2 or
+    mLSTM block of the prefill."""
+    if cfg.family == "audio":
+        step = 2 * cfg.n_layers
+        return dict(flash=cfg.encoder_layers, prefill_decode=step, step=step, scan=0)
+    n_attn = cfg.ssm_pattern.count("a") if cfg.ssm_pattern else cfg.n_layers
+    return dict(flash=n_attn, prefill_decode=0, step=n_attn,
+                scan=sum(cfg.ssm_pattern.count(c) for c in "mM"))
+
+
+def decode_inputs(cfg, B: int, S: int, dev, seed: int = SEED + 1) -> tuple[dict, int]:
+    """The prefill's batch for B requests, made from `seed`, and the cache's
+    valid length after the prefill: S prompt tokens (the VLM's after its
+    frontend_tokens patch embeddings, normal x 0.1 as tests/test_models.py
+    draws them), or for the enc-dec S frame embeddings (normal) and the
+    BOS step's one position."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model_zoo import batch_text_offset
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "audio":
+        return {"frames": torch.randn(B, S, cfg.d_model, generator=g, device=dev).to(cfg.dtype)}, 1
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (B, S)))
+    batch = {"tokens": prompts.to(dev)}
+    if cfg.family == "vlm":
+        batch["patches"] = (torch.randn(B, cfg.frontend_tokens, cfg.d_model, generator=g,
+                                        device=dev) * 0.1).to(cfg.dtype)
+    return batch, batch_text_offset(cfg) + S
+
+
+def forward_batch(cfg, batch: dict, fed: list) -> dict:
+    """The teacher-forced forward's batch over the prefill's inputs and the
+    tokens fed to the decode steps: the prompts then the fed tokens, or for
+    the enc-dec the frames and the decoder tokens [bos, fed...].  Its
+    logits from position (the prefill's valid length - 1) on are the
+    prefill's and the steps'."""
+    import torch
+
+    from repro_torch.models.encdec import BOS_TOKEN
+
+    if cfg.family == "audio":
+        bos = torch.full_like(fed[0], BOS_TOKEN)
+        return {"tokens": torch.cat([bos, *fed], dim=1), "frames": batch["frames"]}
+    return dict(batch, tokens=torch.cat([batch["tokens"], *fed], dim=1))
+
+
+def embed_inputs(cfg, params, batch: dict):
+    """The embeddings the first layer of a (decoder-only) model reads."""
+    from repro_torch.models import transformer as tfm
+
+    return tfm.embed_tokens(cfg, params, batch["tokens"], batch.get("patches"))
 
 
 def recurrent_kinds(cfg) -> tuple[str, str | None, str]:
@@ -1314,21 +1527,55 @@ def check_layer(what: str, got, want, worst: dict) -> None:
         raise AssertionError(f"{what}: max|err| / max|ref| = {rel:.4g}")
 
 
-def layer_parity(cfg, params, prompts, cache, tok, cur_len) -> dict:
+def layer_parity(cfg, params, batch, fed, cache, tok, cur_len) -> dict:
     """Single layers through `KERNELS` against `PLAIN`, each from the same
     input (and a copy of the same cache): the prefill and the decode form of
-    every attention layer (stablelm-3b), or of every group's inner blocks
-    (Mamba2, mLSTM) and its outer block (the shared attention block, an
-    sLSTM block), each on its own group's slice of the cache (zamba2-2.7b,
-    xlstm-1.3b)."""
+    every attention layer (stablelm-3b, llava-next-34b), or of every group's
+    inner blocks (Mamba2, mLSTM) and its outer block (the shared attention
+    block, an sLSTM block), each on its own group's slice of the cache
+    (zamba2-2.7b, xlstm-1.3b), or every encoder layer and the decoder's
+    self-attention, cross-attention and MLP blocks, teacher-forced and in
+    decode form on the decode cache (seamless-m4t-large-v2)."""
     import torch
 
-    from repro_torch.models import hybrid, transformer as tfm
+    from repro_torch.models import encdec, hybrid, transformer as tfm
     from repro_torch.models.common import KERNELS, PLAIN
 
     worst: dict = {}
-    x = tfm.embed_tokens(cfg, params, prompts)
     xd = tfm.embed_tokens(cfg, params, tok)
+    if cfg.family == "audio":
+        x = batch["frames"]
+        positions = tfm.positions_for(x)
+        for lp in params["enc_layers"]:
+            got = encdec.enc_layer(cfg, KERNELS, lp, x, positions)
+            check_layer("encoder layer", got, encdec.enc_layer(cfg, PLAIN, lp, x, positions),
+                        worst)
+            x = got
+        enc_out = KERNELS.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+        x = tfm.embed_tokens(cfg, params, forward_batch(cfg, batch, fed)["tokens"])
+        positions = tfm.positions_for(x)
+        for i, lp in enumerate(params["dec_layers"]):
+            k_c, v_c, ck, cv = (cache[name][i] for name in ("k", "v", "cross_k", "cross_v"))
+            blocks = (
+                ("decoder self-attention",
+                 lambda ops, x, lp=lp: encdec.self_block_full(cfg, ops, lp, x, positions)[0],
+                 lambda ops, x, lp=lp, k_c=k_c, v_c=v_c: encdec.self_block_decode(
+                     cfg, ops, lp, x, k_c.clone(), v_c.clone(), cur_len)[0]),
+                ("cross-attention",
+                 lambda ops, x, lp=lp: encdec.cross_block_full(cfg, ops, lp, x, enc_out),
+                 lambda ops, x, lp=lp, ck=ck, cv=cv: encdec.cross_block_decode(
+                     cfg, ops, lp, x, ck, cv)),
+                ("decoder MLP", lambda ops, x, lp=lp: encdec.mlp_block(cfg, ops, lp, x),
+                 lambda ops, x, lp=lp: encdec.mlp_block(cfg, ops, lp, x)))
+            for what, full, step in blocks:
+                got = full(KERNELS, x)
+                check_layer(f"{what} (teacher-forced)", got, full(PLAIN, x), worst)
+                outs = [step(ops, xd) for ops in (KERNELS, PLAIN)]
+                check_layer(f"{what} (decode)", *outs, worst)
+                x, xd = got, outs[0]
+        torch.cuda.synchronize()
+        return worst
+    x = embed_inputs(cfg, params, batch)
     positions = tfm.positions_for(x)
 
     def attn_pair(lp, k_cache, v_cache, x, xd, tag):
@@ -1340,7 +1587,7 @@ def layer_parity(cfg, params, prompts, cache, tok, cur_len) -> dict:
         check_layer(f"{tag} (decode)", *outs, worst)
         return got, outs[0]
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         for i, lp in enumerate(params["layers"]):
             x, xd = attn_pair(lp, cache["k"][i], cache["v"][i], x, xd, "attention layer")
         return worst
@@ -1372,40 +1619,66 @@ def layer_parity(cfg, params, prompts, cache, tok, cur_len) -> dict:
     return worst
 
 
-def layer_invariant(cfg, params, prompts, tok) -> dict:
+def layer_invariant(cfg, params, batch, fed) -> dict:
     """The serving invariant one layer at a time, through the kernels: a
-    layer's decode form at position S, from the state its prefill form left
-    after S tokens, against its full form over the S + 1 tokens at that
-    position, from the same input (limit 5e-2 of the output's scale).  The
-    input runs through the full forms from the embeddings, over every
-    layer of either model."""
+    layer's decode form at the last position S, from the state its prefill
+    form left after S positions, against its full form over the S + 1
+    positions at S, from the same input (limit 5e-2 of the output's scale).
+    The input runs through the full forms from the embeddings, over every
+    layer of the model: the prompts (after the VLM's patches) and the first
+    fed token, or the enc-dec decoder's [bos, fed...], whose self- and
+    cross-attention blocks are held (the encoder has no decode form, the
+    MLP acts on each position alone)."""
     import torch
 
-    from repro_torch.models import hybrid, transformer as tfm
+    from repro_torch.models import encdec, hybrid, transformer as tfm
     from repro_torch.models.common import KERNELS
 
     worst: dict = {}
-    x = tfm.embed_tokens(cfg, params, torch.cat([prompts, tok], dim=1))
-    B, S = prompts.shape
+    if cfg.family == "audio":
+        x = tfm.embed_tokens(cfg, params, forward_batch(cfg, batch, fed)["tokens"])
+    else:
+        x = embed_inputs(cfg, params, forward_batch(cfg, batch, fed[:1]))
+    B, S = x.shape[0], x.shape[1] - 1
     positions = tfm.positions_for(x)
 
-    def split(x):  # the prefix and the last token, as the model paths see them
+    def split(x):  # the prefix and the last position, as the model paths see them
         return x[:, :S].contiguous(), x[:, S:].contiguous()
 
-    def attn(lp, x):
-        full, _ = tfm.layer_full(cfg, KERNELS, lp, x, positions)
+    def self_attn(lp, x, full_form, step_form):
+        full, _ = full_form(lp, x, positions)
         prefix, last = split(x)
-        _, (k, v) = tfm.layer_full(cfg, KERNELS, lp, prefix, positions[:, :S])
+        _, (k, v) = full_form(lp, prefix, positions[:, :S])
         kc, vc = (torch.zeros((B, S + 1) + a.shape[2:], dtype=a.dtype, device=a.device)
                   for a in (k, v))
         kc[:, :S], vc[:, :S] = k, v
-        step, _ = tfm.layer_decode(cfg, KERNELS, lp, last, kc, vc, S)
+        step, _ = step_form(lp, last, kc, vc, S)
+        return full, step
+
+    def attn(lp, x):
+        full, step = self_attn(lp, x, lambda lp, x, pos: tfm.layer_full(cfg, KERNELS, lp, x, pos),
+                               lambda lp, x, kc, vc, n: tfm.layer_decode(cfg, KERNELS, lp, x,
+                                                                         kc, vc, n))
         check_layer("attention (decode vs full)", step[:, 0], full[:, S], worst)
         return full
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         for lp in params["layers"]:
             x = attn(lp, x)
+        return worst
+    if cfg.family == "audio":
+        enc_out = encdec.encode(cfg, KERNELS, params, batch["frames"])
+        for lp in params["dec_layers"]:
+            full, step = self_attn(
+                lp, x, lambda lp, x, pos: encdec.self_block_full(cfg, KERNELS, lp, x, pos),
+                lambda lp, x, kc, vc, n: encdec.self_block_decode(cfg, KERNELS, lp, x, kc, vc, n))
+            check_layer("decoder self-attention (decode vs full)", step[:, 0], full[:, S], worst)
+            ck, cv = encdec.cross_kv(cfg, lp["cross"], enc_out)
+            x = encdec.cross_block_full(cfg, KERNELS, lp, full, enc_out)
+            step = encdec.cross_block_decode(cfg, KERNELS, lp, split(full)[1], ck, cv)
+            check_layer("cross-attention (decode vs full)", step[:, 0], x[:, S], worst)
+            x = encdec.mlp_block(cfg, KERNELS, lp, x)
+        torch.cuda.synchronize()
         return worst
     hidden = []
     inner, outer, block = recurrent_kinds(cfg)
@@ -1445,101 +1718,129 @@ def invariant(got, full) -> tuple[float, float, object, object]:
     return err, float(full.abs().max()), decisive, got.argmax(-1) == full.argmax(-1)
 
 
-def teacher_forced(model, params, prompts, fed, ops):
-    """Prefill `prompts`, then decode the tokens `fed` one at a time through
-    `ops`.  Returns the logits of the prefill's last position and of every
-    step (B, n + 1, V) and the forward's at the same positions, both f32."""
+def teacher_forced(model, params, batch, n0: int, fed, ops):
+    """Prefill `batch` (valid length n0 after it), then decode the tokens
+    `fed` one at a time through `ops`.  Returns the logits of the prefill's
+    last position and of every step (B, n + 1, V) and the forward's at the
+    same positions, both f32."""
     import torch
 
-    S = prompts.shape[1]
-    logits, cache = model.prefill(params, {"tokens": prompts}, max_len=S + len(fed), ops=ops)
+    logits, cache = model.prefill(params, batch, max_len=n0 + len(fed), ops=ops)
     steps = [logits[:, -1]]
     for i, tok in enumerate(fed):
-        lg, cache = model.decode_step(params, tok, cache, S + i, ops=ops)
+        lg, cache = model.decode_step(params, tok, cache, n0 + i, ops=ops)
         steps.append(lg[:, 0])
-    seq = torch.cat([prompts, *fed], dim=1)
-    full = model.forward(params, {"tokens": seq}, ops=ops)[:, S - 1:]
+    full = model.forward(params, forward_batch(model.cfg, batch, fed), ops=ops)[:, n0 - 1:]
     return torch.stack(steps, dim=1).float(), full.float()
 
 
-def witnesses(cfg, params, prompts, fed, got) -> None:
-    """Readings of the serving invariant at full width beside the kernels'
-    bf16 one, from the same tokens.  The plain math in bf16: does it miss
-    its own forward as the kernels do, and how far are the kernels' decode
-    logits from its?  The kernels in f32 (every kernel's f32 route, flash
-    attention's CUDA-core one and ssd_scan's three-part one included; each
-    the model's layers call must launch): the invariant must hold at the
-    decisive positions, and for the dense model there must be some, so the
-    check can fail; the recurrent models' f32 forwards are themselves too
-    sensitive for that, which the last reading shows: the f32 forward's move
-    when the embeddings are scaled by 1 + 2^-22 (two ulps).  Their
-    whole-model check is `cache_walk`'s."""
-    import copy
+def plain_witness(cfg, params, batch, n0: int, fed, got) -> None:
+    """The serving invariant's reading through the plain math in bf16, from
+    the same inputs and tokens as the kernels' bf16 one: does it miss its
+    own forward as the kernels do, and how far are the kernels' decode
+    logits from its?"""
+    from repro_torch.models.common import PLAIN
+    from repro_torch.models.model_zoo import build_model
+
+    plain, full = teacher_forced(build_model(cfg), params, batch, n0, fed, PLAIN)
+    err, scale, decisive, agree = invariant(plain, full)
+    log(f"[decode] {cfg.name} plain math, bf16: vs its own forward max|err| {err:.4f} at logit "
+        f"scale {scale:.3f} ({err / scale:.4g} of scale); top-1 agrees at "
+        f"{int(agree.sum())}/{agree.numel()}, {int(decisive.sum())} decisive; the kernels' "
+        f"decode logits vs the plain math's: max|err| {float((got - plain).abs().max()):.4f}")
+
+
+def f32_witness(cfg, params32, batch, n0: int, fed, what: str = "") -> None:
+    """The serving invariant through the kernels in f32 (every kernel's f32
+    route, flash attention's CUDA-core one and ssd_scan's three-part one
+    included; each the model's layers call must launch): it must hold at
+    the decisive positions, and an attention model (dense, VLM, enc-dec)
+    must have some, so the check can fail; the recurrent models' f32
+    forwards are themselves too sensitive for that, which the last reading
+    shows: the f32 forward's move when the embeddings are scaled by
+    1 + 2^-22 (two ulps).  Their whole-model check is `cache_walk`'s.
+    `params32` are f32 parameters of `cfg` (scaled in place)."""
     import dataclasses
 
     import torch
 
-    from repro_torch.models.common import KERNELS, PLAIN
+    from repro_torch.models.common import KERNELS
     from repro_torch.models.model_zoo import build_model
 
-    arch, S = cfg.name, prompts.shape[1]
-    plain, full = teacher_forced(build_model(cfg), params, prompts, fed, PLAIN)
-    err, scale, decisive, agree = invariant(plain, full)
-    log(f"[decode] {arch} plain math, bf16: vs its own forward max|err| {err:.4f} at logit "
-        f"scale {scale:.3f} ({err / scale:.4g} of scale); top-1 agrees at "
-        f"{int(agree.sum())}/{agree.numel()}, {int(decisive.sum())} decisive; the kernels' "
-        f"decode logits vs the plain math's: max|err| {float((got - plain).abs().max()):.4f}")
-    del plain, full
+    arch = cfg.name
     model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
-    params32 = copy.deepcopy(params).float()
     before = read_counts()
-    got32, full32 = teacher_forced(model32, params32, prompts, fed, KERNELS)
+    got32, full32 = teacher_forced(model32, params32, batch, n0, fed, KERNELS)
     params32["embed"].mul_(1 + 2.0 ** -22)
-    seq = torch.cat([prompts, *fed], dim=1)
-    nudged = model32.forward(params32, {"tokens": seq}, ops=KERNELS)[:, S - 1:].float()
+    nudged = model32.forward(params32, forward_batch(cfg, batch, fed), ops=KERNELS)[:, n0 - 1:]
+    nudged = nudged.float()
     torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in read_counts().items() if k in path_kernels(cfg)}
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{arch} f32: {name}'s f32 route was not launched")
-    log(f"[decode] {arch} kernels, f32: f32 routes launched "
+    log(f"[decode] {arch} kernels, f32{what}: f32 routes launched "
         + ", ".join(f"{k} {v} times" for k, v in launches.items()))
     err, scale, decisive, agree = invariant(got32, full32)
-    log(f"[decode] {arch} kernels, f32: vs the teacher-forced forward max|err| {err:.4g} at "
-        f"logit scale {scale:.3f} ({err / scale:.4g} of scale); top-1 agrees at "
+    log(f"[decode] {arch} kernels, f32{what}: vs the teacher-forced forward max|err| {err:.4g} "
+        f"at logit scale {scale:.3f} ({err / scale:.4g} of scale); top-1 agrees at "
         f"{int(agree.sum())}/{agree.numel()}, {int(decisive.sum())} decisive; the f32 "
         f"forward moves by {rel_err(nudged, full32):.4g} of scale when the embeddings are "
         f"scaled by 1 + 2^-22")
     if not torch.isfinite(got32).all():
         raise AssertionError(f"{arch} f32: non-finite decode logits")
-    if cfg.family == "dense" and not bool(decisive.any()):
+    if cfg.family in ("dense", "vlm", "audio") and not bool(decisive.any()):
         raise AssertionError(f"{arch} f32: no decisive position")
     if not bool(agree[decisive].all()):
         raise AssertionError(f"{arch} f32: top-1 disagrees with the forward at a decisive "
                              f"position")
-    del params32
 
 
-def cache_walk(cfg, model, params, prompts, tok) -> dict:
+def f32_witness_cut(cfg, n_layers: int, batch, n0: int, fed, dev) -> None:
+    """`f32_witness` at full width and `n_layers` layers, for a model whose
+    f32 copy does not fit on the card beside its bf16 weights: run after
+    those are freed, on an f32 init of its own from SEED, with the full
+    model's per-layer init formulas (the stacked fan-in of all its
+    layers)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.common import init_params
+    from repro_torch.models.model_zoo import build_model
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    defs = build_model(cfg32).defs
+    defs["layers"] = defs["layers"][:n_layers]
+    params32 = init_params(defs, torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in params32.parameters())
+    log(f"[decode] {cfg.name} f32 witness: {n_layers} of {cfg.n_layers} layers at full width "
+        f"({n_params / 1e9:.3f} B params in f32, {n_params * 4 / 1e9:.2f} GB), an init of its "
+        f"own")
+    f32_witness(dataclasses.replace(cfg, n_layers=n_layers), params32, batch, n0, fed,
+                what=f" ({n_layers} layers)")
+
+
+def cache_walk(cfg, model, params, batch, n0: int, tok) -> dict:
     """The model's bookkeeping at full width, a whole-model check that can
-    fail where the invariant cannot: a fresh `prefill` of the prompts and
-    one `decode_step` of `tok`, through the kernels, against the same layer
+    fail where the invariant cannot: a fresh `prefill` and one
+    `decode_step` of `tok`, through the kernels, against the same layer
     functions walked in order with each layer's state kept apart (the dense
-    layer l; group g's inner block j (Mamba2, mLSTM) and its outer block,
-    the shared attention block or its sLSTM block).
+    and VLM layer l; group g's inner block j (Mamba2, mLSTM) and its outer
+    block, the shared attention block or its sLSTM block; the enc-dec's
+    encoder, each decoder layer's cross K/V and its BOS step).
     Both take the same trajectory, so they agree to rounding: every cache
     slot after the prefill and after the step, and both logits, within 1e-3
     of their scale."""
     import torch
 
-    from repro_torch.models import hybrid, transformer as tfm
+    from repro_torch.models import encdec, hybrid, transformer as tfm
     from repro_torch.models.common import KERNELS
 
-    B, S = prompts.shape
-    logits, cache = model.prefill(params, {"tokens": prompts}, max_len=S + 1)
+    logits, cache = model.prefill(params, batch, max_len=n0 + 1)
     pre = {k: ({n: a.clone() for n, a in v.items()} if isinstance(v, dict) else v.clone())
            for k, v in cache.items()}
-    step, cache = model.decode_step(params, tok, cache, S)
+    step, cache = model.decode_step(params, tok, cache, n0)
     worst: dict = {}
 
     def same(what, got, want):
@@ -1549,9 +1850,37 @@ def cache_walk(cfg, model, params, prompts, tok) -> dict:
             raise AssertionError(f"{cfg.name} {what}: the model's is {rel:.4g} of scale from "
                                  f"the layer walk's")
 
-    x = tfm.embed_tokens(cfg, params, prompts)
+    def head(h):
+        return tfm.unembed(cfg, params, KERNELS.rms_norm(h, params["final_norm"], cfg.norm_eps))
+
     xd = tfm.embed_tokens(cfg, params, tok)
+    if cfg.family == "audio":
+        enc_out = batch["frames"]
+        positions = tfm.positions_for(enc_out)
+        for lp in params["enc_layers"]:
+            enc_out = encdec.enc_layer(cfg, KERNELS, lp, enc_out, positions)
+        enc_out = KERNELS.rms_norm(enc_out, params["enc_norm"], cfg.norm_eps)
+        x = tfm.embed_tokens(cfg, params, torch.full_like(tok, encdec.BOS_TOKEN))
+        for i, lp in enumerate(params["dec_layers"]):
+            ck, cv = encdec.cross_kv(cfg, lp["cross"], enc_out)
+            same("cross K/V after prefill", pre["cross_k"][i], ck)
+            same("cross K/V after prefill", pre["cross_v"][i], cv)
+            kc, vc = torch.zeros_like(pre["k"][i]), torch.zeros_like(pre["v"][i])
+            x, _ = encdec.dec_layer_decode(cfg, KERNELS, lp, x, kc, vc, ck, cv, 0)
+            same("KV cache after prefill (the BOS step)", pre["k"][i], kc)
+            same("KV cache after prefill (the BOS step)", pre["v"][i], vc)
+            xd, _ = encdec.dec_layer_decode(cfg, KERNELS, lp, xd, kc, vc, ck, cv, n0)
+            same("KV cache after the step", cache["k"][i], kc)
+            same("KV cache after the step", cache["v"][i], vc)
+            same("cross K/V after the step", cache["cross_k"][i], ck)
+        same("prefill logits", logits, head(x))
+        same("step logits", step, head(xd))
+        torch.cuda.synchronize()
+        return worst
+
+    x = embed_inputs(cfg, params, batch)
     positions = tfm.positions_for(x)
+    S = x.shape[1]
 
     def attn(lp, x, xd, k_pre, v_pre, k_post, v_post):
         x, (k, v) = tfm.layer_full(cfg, KERNELS, lp, x, positions)
@@ -1564,7 +1893,7 @@ def cache_walk(cfg, model, params, prompts, tok) -> dict:
         same("KV cache after the step", v_post, vc)
         return x, xd
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         for i, lp in enumerate(params["layers"]):
             x, xd = attn(lp, x, xd, pre["k"][i], pre["v"][i], cache["k"][i], cache["v"][i])
     else:
@@ -1589,20 +1918,20 @@ def cache_walk(cfg, model, params, prompts, tok) -> dict:
                 for name, a in st.items():
                     same("sLSTM state after the step", cache["outer"][name][g], a)
 
-    def head(h):
-        return tfm.unembed(cfg, params, KERNELS.rms_norm(h, params["final_norm"], cfg.norm_eps))
-
     same("prefill logits", logits, head(x[:, -1:].contiguous()))
     same("step logits", step, head(xd))
     torch.cuda.synchronize()
     return worst
 
 
-def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> tuple[dict, object]:
-    """Prefill B prompts of S tokens, then n greedy decode steps, through the
-    kernels; hold each step to the teacher-forced forward.  Returns the
-    path's launch counts and the parameters."""
-    import numpy as np
+def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> dict:
+    """Prefill B requests of S prompt tokens (S frames for the enc-dec),
+    then n greedy decode steps, through the kernels; hold each step to the
+    teacher-forced forward.  Returns the path's launch counts and what the
+    f32 witness needs if `F32_WITNESS_LAYERS` cuts it (run after the
+    caller frees the parameters)."""
+    import copy
+
     import torch
 
     from repro_torch.configs import get_config
@@ -1615,28 +1944,36 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> tuple[
         params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"[decode] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params / 1e9:.3f} B params on {dev} ({time.perf_counter() - t0:.1f} s); "
-        f"{B} prompts x {S} tokens, {n} greedy steps")
-    prompts = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, cfg.vocab, (B, S)))
-    prompts = prompts.to(dev)
-    n_attn = cfg.ssm_pattern.count("a") if cfg.ssm_pattern else cfg.n_layers
-    n_scan = sum(cfg.ssm_pattern.count(c) for c in "mM")  # Mamba2 and mLSTM blocks
+    batch, n0 = decode_inputs(cfg, B, S, dev)
+    inputs = ("frame embeddings" if cfg.family == "audio" else
+              f"tokens after {cfg.frontend_tokens} patch embeddings" if cfg.family == "vlm"
+              else "tokens")
+    log(f"[decode] {arch}: {cfg.n_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else "")
+        + f", d_model {cfg.d_model}, {n_params / 1e9:.3f} B params on {dev} "
+        f"({n_params * params['embed'].element_size() / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s); {B} requests x {S} {inputs}, {n} greedy steps "
+        f"from cache position {n0}"
+        + (f"; its f32 witness at {F32_WITNESS_LAYERS[arch]} layers (the full depth in f32: "
+           f"{n_params * 4 / 1e9:.2f} GB)" if arch in F32_WITNESS_LAYERS else ""))
+    want = expected_launches(cfg)
 
     with torch.inference_mode():
         # warm-up: one short prefill and one decode step
-        lg, wc = model.prefill(params, {"tokens": prompts[:, :16]}, max_len=17)
-        model.decode_step(params, lg[:, -1].argmax(-1, keepdim=True), wc, 16)
+        warm, w0 = decode_inputs(cfg, B, 16, dev, seed=SEED + 2)
+        lg, wc = model.prefill(params, warm, max_len=w0 + 1)
+        model.decode_step(params, lg[:, -1].argmax(-1, keepdim=True), wc, w0)
+        del lg, wc
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": prompts}, max_len=S + n)
+        logits, cache = model.prefill(params, batch, max_len=n0 + n)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         pre = read_counts()
         reset_counts()
         tok = logits[:, -1].argmax(-1, keepdim=True)
-        cur = torch.tensor(S, dtype=torch.int32, device=dev)
+        cur = torch.tensor(n0, dtype=torch.int32, device=dev)
         fed, steps = [], [logits[:, -1]]
         t0 = time.perf_counter()
         for _ in range(n):
@@ -1649,20 +1986,20 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> tuple[
         decode_s = time.perf_counter() - t0
         dec = read_counts()
 
-        if dec["decode_attention"] != n_attn * n:
-            raise AssertionError(f"{dec['decode_attention']} decode_attention launches for {n} "
-                                 f"steps of {n_attn} attention layers")
-        if pre["ssd_scan"] != n_scan:
-            raise AssertionError(f"{pre['ssd_scan']} ssd_scan launches for {n_scan} blocks")
+        got_counts = dict(flash=pre["flash_attention"], prefill_decode=pre["decode_attention"],
+                          step=dec["decode_attention"] / n, scan=pre["ssd_scan"])
+        if got_counts != want:
+            raise AssertionError(f"{arch}: launches {got_counts} (flash attention and decode "
+                                 f"attention in the prefill, decode attention a step, ssd_scan "
+                                 f"in the prefill), expected {want}")
         for name in path_kernels(cfg):
             if pre[name] + dec[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the decode path")
-        profile_prefill(model, params, prompts, S + n, arch, parent)
+        profile_prefill(model, params, batch, n0 + n, arch, parent)
 
         # the serving invariant: prefill + step-by-step decode equals the
         # teacher-forced forward over the same tokens
-        seq = torch.cat([prompts, *fed], dim=1)
-        full = model.forward(params, {"tokens": seq}).float()[:, S - 1:]
+        full = model.forward(params, forward_batch(cfg, batch, fed))[:, n0 - 1:].float()
         got = torch.stack(steps, dim=1).float()
         torch.cuda.synchronize()
         if got.shape != full.shape or not torch.isfinite(got).all():
@@ -1675,42 +2012,45 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> tuple[
         log(f"[decode] {arch}: vs the teacher-forced forward, max|err| {err:.4f} at logit "
             f"scale {scale:.3f} ({err / scale:.4g} of scale); top-1 agrees at "
             f"{int(agree.sum())}/{agree.numel()} positions, {int(decisive.sum())} decisive; "
-            f"greedy tokens {seq[0, S:S + 8].tolist()}...")
+            f"greedy tokens {torch.cat(fed, dim=1)[0, :8].tolist()}...")
         if not bool(agree[decisive].all()):
             raise AssertionError(f"{arch}: top-1 disagrees with the forward at a decisive "
                                  f"position")
-        witnesses(cfg, params, prompts, fed, got)
+        del full
+        plain_witness(cfg, params, batch, n0, fed, got)
+        if arch not in F32_WITNESS_LAYERS:
+            f32_witness(cfg, copy.deepcopy(params).float(), batch, n0, fed)
 
-        worst = layer_invariant(cfg, params, prompts, fed[0])
+        worst = layer_invariant(cfg, params, batch, fed)
         log(f"[decode] {arch}: serving invariant per layer through the kernels, worst "
             f"max|err|/max|ref|: " + ", ".join(f"{k} {v:.4g}" for k, v in worst.items())
             + " (limit 5e-2)")
-        last = torch.tensor(S + n - 1, dtype=torch.int32, device=dev)
-        worst = layer_parity(cfg, params, prompts, cache, fed[-1], last)
+        last = torch.tensor(n0 + n - 1, dtype=torch.int32, device=dev)
+        worst = layer_parity(cfg, params, batch, fed, cache, fed[-1], last)
         log(f"[decode] {arch}: per layer through the kernels vs plain math, same input, "
             f"worst max|err|/max|ref|: "
             + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()) + " (limit 5e-2)")
-        worst = cache_walk(cfg, model, params, prompts, fed[0])
+        worst = cache_walk(cfg, model, params, batch, n0, fed[0])
         log(f"[decode] {arch}: prefill + one step vs the layer walk, every cache slot and "
             f"both logits, worst max|err|/max|ref|: "
             + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()) + " (limit 1e-3)")
 
         # device busy share of the decode loop: replay the last steps
-        first = S + n - PROFILED_STEPS
+        first = n0 + n - PROFILED_STEPS
 
         def replay():
             for i in range(PROFILED_STEPS):
-                model.decode_step(params, fed[first - S + i], cache,
+                model.decode_step(params, fed[first - n0 + i], cache,
                                   torch.tensor(first + i, dtype=torch.int32, device=dev))
 
         share = busy_share(replay, "decode")
         log(f"[decode] {arch}: device busy share over {PROFILED_STEPS} decode steps: "
             + ("not measured (profiler recorded no device time)" if share is None
                else f"{share:.4f}"))
-    return {k: pre[k] + dec[k] for k in pre}, params
+    return {k: pre[k] + dec[k] for k in pre}, (cfg, batch, n0, fed)
 
 
-def profile_prefill(model, params, prompts, max_len: int, arch: str, parent) -> None:
+def profile_prefill(model, params, batch, max_len: int, arch: str, parent) -> None:
     """The device busy share and top kernels of one prefill (after the timed
     one, so nothing is built or warmed inside the window); with `--parent`,
     the same prefill through the other tree's kernels, in turns (this
@@ -1718,17 +2058,35 @@ def profile_prefill(model, params, prompts, max_len: int, arch: str, parent) -> 
     from repro_torch.models.common import KERNELS
 
     variants = [("this tree's kernels", lambda: contextlib.nullcontext(KERNELS))]
-    if parent is not None:
+    gap = None if parent is None else parent_gap(parent, model)
+    if gap is not None:
+        log(f"[prefill] {arch}: not run through the parent's kernels: {gap}")
+    elif parent is not None:
         variants.append(("the parent's kernels", lambda: parent_kernels(parent)))
-    for what, swap in variants * (2 if parent is not None else 1):
+    shape = {k: tuple(v.shape) for k, v in batch.items()}
+    for what, swap in variants * (2 if len(variants) > 1 else 1):
         with swap() as ops:
-            model.prefill(params, {"tokens": prompts}, max_len=max_len, ops=ops)  # warm
-            share = busy_share(lambda: model.prefill(params, {"tokens": prompts},
-                                                     max_len=max_len, ops=ops), "prefill")
-        log(f"[prefill] {arch}, {what}: device busy share over one prefill of "
-            f"{tuple(prompts.shape)}: "
+            model.prefill(params, batch, max_len=max_len, ops=ops)  # warm
+            share = busy_share(lambda: model.prefill(params, batch, max_len=max_len, ops=ops),
+                               "prefill")
+        log(f"[prefill] {arch}, {what}: device busy share over one prefill of {shape}: "
             + ("not measured (profiler recorded no device time)" if share is None
                else f"{share:.4f}"))
+
+
+def parent_gap(parent: dict, model) -> str | None:
+    """Why the other tree's kernels cannot run `model`'s prefill, or None.
+    The enc-dec is the one family whose path calls `Ops.noncausal_attention`,
+    which needs flash attention's `causal` keyword (and Sq != Sk); a tree
+    from before that has its kernel without it."""
+    import inspect
+
+    fn = getattr(parent.get("flash_attention"), "attention_bthd", None)
+    if (model.cfg.family == "audio" and fn is not None
+            and "causal" not in inspect.signature(fn).parameters):
+        return ("its flash_attention.attention_bthd takes no `causal`, which the enc-dec's "
+                "non-causal attention needs")
+    return None
 
 
 @contextlib.contextmanager
@@ -1761,18 +2119,50 @@ def parent_kernels(parent: dict):
             setattr(mod, attr, fn)
 
 
-def phase_decode(serve_params, dev, parent) -> dict:
-    """Both decode runs; returns the decode path's launch counts (each run
-    counted from 0 before its prefill to after its decode loop)."""
+def memory_line(arch: str, what: str) -> str:
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(torch.cuda.current_device()).total_memory
+    return (f"[decode] {arch}: peak device memory {what} {peak / 2**30:.2f} GiB allocated of "
+            f"the card's {total / 2**30:.2f} GiB ({peak / total:.1%})")
+
+
+def phase_decode(serving: list, dev, parent) -> dict:
+    """Every run of DECODE_RUNS; returns the decode path's launch counts
+    (each run counted from 0 before its prefill to after its decode loop).
+    `serving` holds the serve phase's live session, whose stablelm-3b
+    parameters the first run reuses; the session is taken out of it and
+    released after that run, so nothing of it stays on the card.  A model in
+    `F32_WITNESS_LAYERS` has its f32 witness after its bf16 parameters are
+    freed.  Logs each run's peak device memory."""
+    import gc
+
     import torch
 
     total: dict = {}
     for arch, B, S, n in DECODE_RUNS:
-        counts, params = decode_run(arch, B, S, n, serve_params if arch == "stablelm-3b"
-                                    else None, dev, parent)
+        torch.cuda.reset_peak_memory_stats()
+        params = (serving[0].dataplane.dispatcher.executors[0][0].params if arch == MODEL
+                  else None)
+        counts, witness = decode_run(arch, B, S, n, params, dev, parent)
+        log(memory_line(arch, "over the run"))
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         del params
+        if arch == MODEL and serving:
+            release(serving.pop())
+            log(f"[decode] the serve phase's session released: "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+                f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        gc.collect()
         torch.cuda.empty_cache()
+        if arch in F32_WITNESS_LAYERS:
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                f32_witness_cut(witness[0], F32_WITNESS_LAYERS[arch], *witness[1:], dev)
+            log(memory_line(arch, "over the f32 witness"))
+            gc.collect()
+            torch.cuda.empty_cache()
     return total
 
 
@@ -1806,9 +2196,10 @@ def main() -> int:
     log(f"[env] nvidia-smi: {smi}")
     kern = phase_kernels(dev, parent)
     cfg, session, launches = phase_serve(dev)
-    executors = session.dataplane.dispatcher.executors
-    phase_parity(cfg, executors, dev)
-    decode = phase_decode(executors[0][0].params, dev, parent)
+    phase_parity(cfg, session.dataplane.dispatcher.executors, dev)
+    serving = [session]  # phase_decode releases it after the run that reuses its parameters
+    del session
+    decode = phase_decode(serving, dev, parent)
     launches = {name: {"serve": launches[name], "decode": decode[name]} for name in KERNEL_NAMES}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,14 +1,15 @@
-// Causal or non-causal GQA flash attention (prefill, Sq == Sk) for Hopper
-// (sm_90a): bf16 on the tensor cores (`fa_forward`), and an f32 route on
-// CUDA-core FMAs (`fa_forward_f32`, the section before the host code).
+// Causal or non-causal GQA flash attention (prefill, cross-attention) for
+// Hopper (sm_90a): bf16 on the tensor cores (`fa_forward`), and an f32 route
+// on CUDA-core FMAs (`fa_forward_f32`, the section before the host code).
 //
 // Replaces the Pallas TPU kernel `flash_attention` (`_flash_kernel`) of
 // src/repro/kernels/flash_attention/kernel.py: online softmax with f32
 // running max m, running sum l and accumulator, scale D^-0.5, masked scores
 // set to -1e30, query head h reading KV head h / (H / KH), P cast to bf16
-// for the P.V product.  The causal mask keeps k_pos <= q_pos, aligned
-// top-left, which equals the bottom-right mask of the reference oracle only
-// when Sq == Sk; the wrapper enforces that.
+// for the P.V product.  Queries and keys have lengths of their own, Sq and
+// Sk, as in the Pallas kernel; the causal mask keeps k_pos <= q_pos,
+// aligned top-left as there (query row i sees keys 0..i, all Sk of them
+// once i >= Sk - 1).
 //
 // Bound on the card: bytes.  At the serving shape (8, 32, 128, 80) the four
 // tensors are 21.0 MB, 6.26 us at 3.35 TB/s, against 0.68 GFLOP of causal
@@ -39,10 +40,11 @@
 //    row pair, as mma.sync's layout), and P, packed to bf16, is directly
 //    the register A operand of O += P.V, m64nDk16 `wgmma`s whose B is V as
 //    it lies (MN-major, the transpose bit set): V is never transposed;
-//  - K/V tiles above a consumer's diagonal are skipped, and tiles that reach
-//    past S are masked (TMA zero-fills the rows past the end);
+//  - K/V tiles above a consumer's diagonal are skipped, and the keys of a
+//    tile that reaches past Sk are masked explicitly: TMA zero-fills the rows
+//    past the end, and a zero key scores 0, not -1e30;
 //  - the output is staged in shared memory in the 128B-swizzled layout and
-//    written by TMA stores through a fourth map, which clip rows past S.
+//    written by TMA stores through a fourth map, which clip rows past Sq.
 // The shared-memory attribute is set once per template instance and device.
 // Times measured (chip_smoke.py phase 2; NVIDIA H100 80GB HBM3, 700.00 W):
 // 10.260 us at (8, 128, 32, 80) against SDPA's 11.372 us and the 6.260 us
@@ -179,21 +181,23 @@ struct Smem {
 };
 
 // A work item is 128 query rows of one (head, batch): item w takes query
-// block n_qb - 1 - w / (H * B), so the items with the most K/V tiles come first.
+// block n_qb - 1 - w / (H * B), so the items with the most K/V tiles come
+// first.  Its K/V tiles are all ceil(Sk / 64) of them, or under the causal
+// mask those up to its last row's (no further than Sk).
 struct Item {
   int q0, h, b, n_tiles, n_active;
 };
-__device__ __forceinline__ Item item_at(int w, int H, int B, int S, int causal) {
-  const int n_qb = (S + kConsumers * kRows - 1) / (kConsumers * kRows);
+__device__ __forceinline__ Item item_at(int w, int H, int B, int Sq, int Sk, int causal) {
+  const int n_qb = (Sq + kConsumers * kRows - 1) / (kConsumers * kRows);
   const int rem = w % (H * B);
   Item it;
   it.q0 = (n_qb - 1 - w / (H * B)) * (kConsumers * kRows);
   it.h = rem % H;
   it.b = rem / H;
-  const int n_kv = (S + kRows - 1) / kRows;
-  const int last_row = min(it.q0 + kConsumers * kRows, S) - 1;
+  const int n_kv = (Sk + kRows - 1) / kRows;
+  const int last_row = min(it.q0 + kConsumers * kRows, Sq) - 1;
   it.n_tiles = causal ? min(n_kv, last_row / kRows + 1) : n_kv;
-  it.n_active = min(kConsumers, (S - it.q0 + kRows - 1) / kRows);
+  it.n_active = min(kConsumers, (Sq - it.q0 + kRows - 1) / kRows);
   return it;
 }
 
@@ -206,8 +210,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
-                 const __grid_constant__ CUtensorMap tm_o, int H, int KH, int B, int S,
-                 float scale_log2, int causal) {
+                 const __grid_constant__ CUtensorMap tm_o, int H, int KH, int B, int Sq,
+                 int Sk, float scale_log2, int causal) {
   using L = Smem<DP>;
   constexpr int KSTEPS = DP / 16;
   extern __shared__ unsigned char smem_raw[];
@@ -217,7 +221,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_q_empty = bar_q_full + 8;
   const uint32_t bar_full = bar_q_empty + 8;          // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
-  const int n_items = (S + kConsumers * kRows - 1) / (kConsumers * kRows) * H * B;
+  const int n_items = (Sq + kConsumers * kRows - 1) / (kConsumers * kRows) * H * B;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -236,7 +240,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane != 0) return;
     int tile = 0;  // K/V tiles loaded by this block so far
     for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
-      const Item it = item_at(w, H, B, S, causal);
+      const Item it = item_at(w, H, B, Sq, Sk, causal);
       const int kh = it.h / (H / KH);
       if (n > 0) mbar_wait(bar_q_empty, (n - 1) & 1);
       mbar_expect_tx(bar_q_full, it.n_active * L::kTile);
@@ -268,13 +272,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t o_tile = base + L::kO + c * L::kTile;
   int tile = 0;
   for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
-    const Item it = item_at(w, H, B, S, causal);
+    const Item it = item_at(w, H, B, Sq, Sk, causal);
     const int r0 = it.q0 + c * kRows;  // this warpgroup's first query row
     const int row_a = r0 + wi * 16 + lane / 4, row_b = row_a + 8;
     const bool active = c < it.n_active;
     // the last K/V tile this warpgroup reads: its last row's, under the causal mask
     const int my_last = !active ? -1
-                        : causal ? min(it.n_tiles - 1, (min(r0 + kRows, S) - 1) / kRows)
+                        : causal ? min(it.n_tiles - 1, (min(r0 + kRows, Sq) - 1) / kRows)
                                  : it.n_tiles - 1;
 
     float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
@@ -309,7 +313,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
         // scale (into the exp2 domain), mask, row maxima over the quad
         const int k0 = t * kRows;
-        const bool need_mask = k0 + kRows > S || (causal && k0 + kRows - 1 > r0);
+        const bool need_mask = k0 + kRows > Sk || (causal && k0 + kRows - 1 > r0);
         float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -318,7 +322,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             float sa = sacc[4 * j + e] * scale_log2, sb = sacc[4 * j + 2 + e] * scale_log2;
             if (need_mask) {
               const int col = k0 + 8 * j + 2 * tq + e;
-              const bool ok = col < S;
+              const bool ok = col < Sk;
               sa = (ok && (!causal || col <= row_a)) ? sa : kNegInf;
               sb = (ok && (!causal || col <= row_b)) ? sb : kNegInf;
             }
@@ -423,7 +427,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 // 16 rows of a warp read the same ones (a broadcast).  K/V tiles of 16 keys
 // of the row's KV head stream through a three-stage ring in shared memory
 // (48 KB at D = 128, so no attribute is needed) by 16-byte `cp.async` where
-// the tensors allow it, 4-byte copies else; keys past S are zero-filled.  A
+// the tensors allow it, 4-byte copies else; keys past Sk are zero-filled.  A
 // score is the thread's partial dot product summed over the four threads by
 // two shuffles; the online softmax keeps f32 m, l and the accumulator, in
 // base 2 with the scale folded into log2(e), as the bf16 route does.
@@ -439,7 +443,7 @@ struct F32Args {
   const float *q, *k, *v;
   float* o;
   Strides sq, sk, sv, so;
-  int H, KH, S, D, Dp;  // Dp: D rounded up to 4, the row length in shared memory
+  int H, KH, Sq, Sk, D, Dp;  // Dp: D rounded up to 4, the row length in shared memory
   float scale_log2;
   int causal;
 };
@@ -474,7 +478,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const F32Args a)
   const int t = threadIdx.x % kF32Quad;
   const int qi = tile * kF32Rows + threadIdx.x / kF32Quad;  // this thread's query row
   const int D = a.D, Dp = a.Dp;
-  const int n_keys = a.causal ? min(a.S, (tile + 1) * kF32Rows) : a.S;
+  const int n_keys = a.causal ? min(a.Sk, (tile + 1) * kF32Rows) : a.Sk;
   const int n_tiles = (n_keys + kF32Keys - 1) / kF32Keys;
   const float* kb = a.k + b * a.sk.b + kh * a.sk.h;
   const float* vb = a.v + b * a.sv.b + kh * a.sv.h;
@@ -512,7 +516,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const F32Args a)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = 16 * m + 4 * t + e;
-      qr[m][e] = qi < a.S && col < D ? qrow[col] : 0.0f;
+      qr[m][e] = qi < a.Sq && col < D ? qrow[col] : 0.0f;
       acc[m][e] = 0.0f;
     }
   }
@@ -543,7 +547,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const F32Args a)
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int j = j0 + u;
-      const bool ok = j < a.S && (!a.causal || j <= qi);
+      const bool ok = j < a.Sk && (!a.causal || j <= qi);
       s[u] = ok ? dot * a.scale_log2 : kNegInf;
       mx = fmaxf(mx, s[u]);
     }
@@ -578,7 +582,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const F32Args a)
   }
   cp_async_wait<0>();
 
-  if (qi < a.S) {
+  if (qi < a.Sq) {
     const float den = fmaxf(lrow, 1e-30f);
     float* orow = a.o + b * a.so.b + h * a.so.h + static_cast<int64_t>(qi) * a.so.s;
 #pragma unroll
@@ -647,8 +651,8 @@ int sm_count(int dev) {
 }
 
 template <int DP>
-int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int S, float scale, int causal,
-           cudaStream_t st) {
+int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int Sq, int Sk, float scale,
+           int causal, cudaStream_t st) {
   constexpr int smem = Smem<DP>::kBytes;
   // once per template instance and device: the attribute belongs to the
   // current device's context
@@ -663,18 +667,18 @@ int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int S, float scal
     if (dev < kMaxDevices) attr_set[dev] = true;
   }
   const int per_block = kConsumers * kRows;
-  const int n_items = (S + per_block - 1) / per_block * H * B;
+  const int n_items = (Sq + per_block - 1) / per_block * H * B;
   const int n_sm = sm_count(dev);
   if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
   flash_fwd_kernel<DP><<<min(n_items, n_sm), kThreads, smem, st>>>(
-      maps[0], maps[1], maps[2], maps[3], H, KH, B, S, scale * kLog2e, causal);
+      maps[0], maps[1], maps[2], maps[3], H, KH, B, Sq, Sk, scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NC>
 int launch_f32(const F32Args& a, int B, bool vec, cudaStream_t st) {
   const int smem = kF32Stages * 2 * kF32Keys * a.Dp * static_cast<int>(sizeof(float));
-  const dim3 grid((a.S + kF32Rows - 1) / kF32Rows, a.H, B);
+  const dim3 grid((a.Sq + kF32Rows - 1) / kF32Rows, a.H, B);
   if (vec)
     flash_f32_kernel<NC, 16><<<grid, kF32Threads, smem, st>>>(a);
   else
@@ -696,26 +700,26 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                           int64_t skb, int64_t skh, int64_t sks,
                           int64_t svb, int64_t svh, int64_t svs,
                           int64_t sob, int64_t soh, int64_t sos,
-                          int B, int H, int KH, int S, int D, float scale,
+                          int B, int H, int KH, int Sq, int Sk, int D, float scale,
                           int causal, void* stream) {
-  if (D < 8 || D > kMaxD || D % 8 != 0 || KH < 1 || H % KH != 0)
+  if (D < 8 || D > kMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || Sq < 1 || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[4];
-  if (!encode(&maps[0], q, D, H, S, B, Strides{sqb, sqh, sqs}) ||
-      !encode(&maps[1], k, D, KH, S, B, Strides{skb, skh, sks}) ||
-      !encode(&maps[2], v, D, KH, S, B, Strides{svb, svh, svs}) ||
-      !encode(&maps[3], o, D, H, S, B, Strides{sob, soh, sos}))
+  if (!encode(&maps[0], q, D, H, Sq, B, Strides{sqb, sqh, sqs}) ||
+      !encode(&maps[1], k, D, KH, Sk, B, Strides{skb, skh, sks}) ||
+      !encode(&maps[2], v, D, KH, Sk, B, Strides{svb, svh, svs}) ||
+      !encode(&maps[3], o, D, H, Sq, B, Strides{sob, soh, sos}))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((D + 15) / 16) {
-    case 1: return launch<16>(maps, B, H, KH, S, scale, causal, st);
-    case 2: return launch<32>(maps, B, H, KH, S, scale, causal, st);
-    case 3: return launch<48>(maps, B, H, KH, S, scale, causal, st);
-    case 4: return launch<64>(maps, B, H, KH, S, scale, causal, st);
-    case 5: return launch<80>(maps, B, H, KH, S, scale, causal, st);
-    case 6: return launch<96>(maps, B, H, KH, S, scale, causal, st);
-    case 7: return launch<112>(maps, B, H, KH, S, scale, causal, st);
-    default: return launch<128>(maps, B, H, KH, S, scale, causal, st);
+    case 1: return launch<16>(maps, B, H, KH, Sq, Sk, scale, causal, st);
+    case 2: return launch<32>(maps, B, H, KH, Sq, Sk, scale, causal, st);
+    case 3: return launch<48>(maps, B, H, KH, Sq, Sk, scale, causal, st);
+    case 4: return launch<64>(maps, B, H, KH, Sq, Sk, scale, causal, st);
+    case 5: return launch<80>(maps, B, H, KH, Sq, Sk, scale, causal, st);
+    case 6: return launch<96>(maps, B, H, KH, Sq, Sk, scale, causal, st);
+    case 7: return launch<112>(maps, B, H, KH, Sq, Sk, scale, causal, st);
+    default: return launch<128>(maps, B, H, KH, Sq, Sk, scale, causal, st);
   }
 }
 
@@ -726,9 +730,9 @@ extern "C" int fa_forward_f32(const void* q, const void* k, const void* v, void*
                               int64_t skb, int64_t skh, int64_t sks,
                               int64_t svb, int64_t svh, int64_t svs,
                               int64_t sob, int64_t soh, int64_t sos,
-                              int B, int H, int KH, int S, int D, float scale,
+                              int B, int H, int KH, int Sq, int Sk, int D, float scale,
                               int causal, void* stream) {
-  if (D < 1 || D > kMaxD || KH < 1 || H % KH != 0 || B < 1 || S < 1)
+  if (D < 1 || D > kMaxD || KH < 1 || H % KH != 0 || B < 1 || Sq < 1 || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   F32Args a;
   a.q = static_cast<const float*>(q);
@@ -741,12 +745,14 @@ extern "C" int fa_forward_f32(const void* q, const void* k, const void* v, void*
   a.so = Strides{sob, soh, sos};
   a.H = H;
   a.KH = KH;
-  a.S = S;
+  a.Sq = Sq;
+  a.Sk = Sk;
   a.D = D;
   a.Dp = (D + 3) / 4 * 4;
   a.scale_log2 = scale * kLog2e;
   a.causal = causal;
-  const bool vec = D % 4 == 0 && rows_aligned(k, a.sk, B, KH, S) && rows_aligned(v, a.sv, B, KH, S);
+  const bool vec =
+      D % 4 == 0 && rows_aligned(k, a.sk, B, KH, Sk) && rows_aligned(v, a.sv, B, KH, Sk);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((a.Dp + 15) / 16) {
     case 1: return launch_f32<1>(a, B, vec, st);

@@ -322,6 +322,9 @@ class Ops:
 
     * `rms_norm(x, w, eps)`;
     * causal self-`attention(cfg, q, k, v)` in the (B, T, H, D) layout;
+    * `noncausal_attention(cfg, q, k, v)`: every query over every key, q
+      (B, Tq, H, D) against k/v (B, Tk, KH, D) of any Tk (the encoder's
+      self-attention, Tq == Tk, and the decoder's cross-attention);
     * `decode_attention(q, k_cache, v_cache, kv_len)`: q (B, 1, H, D)
       against a (B, S, KH, D) cache;
     * `linear_attention(q, k, v, log_g, log_i=None, chunk=256)`: the
@@ -330,6 +333,7 @@ class Ops:
 
     rms_norm: Callable
     attention: Callable
+    noncausal_attention: Callable
     decode_attention: Callable
     linear_attention: Callable
 
@@ -339,14 +343,26 @@ def _chunked_causal(cfg: ModelConfig, q, k, v) -> torch.Tensor:
     return chunked_attention(q, k, v, causal=True, q_chunk=qc, k_chunk=kc)
 
 
+def _chunked_noncausal(cfg: ModelConfig, q, k, v) -> torch.Tensor:
+    # the reference's chunks: attn_chunks over the longer of the two lengths
+    qc, kc = attn_chunks(cfg, max(q.shape[1], k.shape[1]))
+    return chunked_attention(q, k, v, causal=False, q_chunk=qc, k_chunk=kc)
+
+
 def _flash_causal(cfg: ModelConfig, q, k, v) -> torch.Tensor:
     return fa_ops.attention_bthd(q, k, v)
 
 
+def _flash_noncausal(cfg: ModelConfig, q, k, v) -> torch.Tensor:
+    return fa_ops.attention_bthd(q, k, v, causal=False)
+
+
 # the reference's math, op for op, on any device
-PLAIN = Ops(rms_norm=rms_norm, attention=_chunked_causal, decode_attention=decode_attention,
+PLAIN = Ops(rms_norm=rms_norm, attention=_chunked_causal, noncausal_attention=_chunked_noncausal,
+            decode_attention=decode_attention,
             linear_attention=ssd_ops.chunked_linear_attention_plain)
 # the Hopper kernels for CUDA tensors; their plain versions for CPU tensors
 KERNELS = Ops(rms_norm=rn_ops.rmsnorm, attention=_flash_causal,
+              noncausal_attention=_flash_noncausal,
               decode_attention=da_ops.decode_attention_bthd,
               linear_attention=ssd_ops.ssd_scan_bthd)

@@ -1,13 +1,17 @@
 """Model interface over the ported architectures: the dense family and the
-recurrent ones (the Mamba2 hybrid zamba2-2.7b, xLSTM).
+VLM (llava-next, a dense backbone after precomputed patch embeddings), the
+recurrent ones (the Mamba2 hybrid zamba2-2.7b, xLSTM) and the
+encoder-decoder (seamless-m4t, over precomputed frame embeddings).
 
 `build_model(cfg)` returns a `Model` whose methods cover what serving needs:
 `init` (parameters from an explicit generator), `forward`, `init_cache`,
 `prefill` and `decode_step` (the reference's signatures, plus the `ops`
 that pick kernels or plain math, and `init_cache`'s device), and `layer_costs` — the analytic
 per-layer profile the PPipe control plane consumes, equal to the
-reference's for the same config of every family (MoE, MLA, VLM and
-enc-dec included, which `build_model` does not run yet).
+reference's for the same config of every family (MoE and MLA included,
+which `build_model` does not run yet).  As in the reference, `forward` and
+`prefill` read a VLM's `batch["patches"]` and an enc-dec's
+`batch["frames"]`.
 """
 
 from __future__ import annotations
@@ -20,34 +24,53 @@ import torch
 from repro_torch.core import costmodel as cm
 from repro_torch.core.types import LayerCost
 
-from . import deepseek, hybrid, transformer as tfm
+from . import deepseek, encdec, hybrid, transformer as tfm
 from .common import KERNELS, ModelConfig, Ops, ParamTree, init_params
 
-PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "vlm", "hybrid", "ssm", "audio")
+_MODULES = {"dense": tfm, "vlm": tfm, "hybrid": hybrid, "ssm": hybrid, "audio": encdec}
 
 
 @dataclass
 class Model:
     cfg: ModelConfig
     defs: dict
-    mod: ModuleType  # models.transformer or models.hybrid
+    mod: ModuleType  # models.transformer, models.hybrid or models.encdec
 
     def init(self, generator: torch.Generator) -> ParamTree:
         """Parameters on the generator's device, with the reference's init
         formulas (values differ from the reference's: other generator)."""
         return init_params(self.defs, generator)
 
-    def forward(self, params: ParamTree, batch: dict, ops: Ops = KERNELS) -> torch.Tensor:
-        return self.mod.forward(self.cfg, ops, params, batch["tokens"])
+    def inputs(self, batch: dict, prefill: bool = False) -> tuple:
+        """The module's positional inputs after its parameters, read from
+        the batch as the reference reads it: the tokens, then a VLM's
+        optional patches or an enc-dec's frames (which its prefill takes
+        alone)."""
+        if self.cfg.family == "audio":
+            return (batch["frames"],) if prefill else (batch["tokens"], batch["frames"])
+        if self.cfg.family == "vlm":
+            return batch["tokens"], batch.get("patches")
+        return (batch["tokens"],)
 
-    def init_cache(self, batch_size: int, max_len: int, device: torch.device | str) -> dict:
+    def forward(self, params: ParamTree, batch: dict, ops: Ops = KERNELS) -> torch.Tensor:
+        return self.mod.forward(self.cfg, ops, params, *self.inputs(batch))
+
+    def init_cache(self, batch_size: int, max_len: int, device: torch.device | str,
+                   enc_len: int | None = None) -> dict:
         """Empty caches on `device`, which the caller names (prefill takes
-        its tokens' device)."""
+        its tokens' device); `enc_len`, the enc-dec's cross-attention
+        length (default max_len, as in the reference), only for it."""
+        if self.cfg.family == "audio":
+            return self.mod.init_cache(self.cfg, batch_size, max_len, device, enc_len)
+        if enc_len is not None:
+            raise ValueError(f"enc_len is for the enc-dec family, not {self.cfg.family!r}")
         return self.mod.init_cache(self.cfg, batch_size, max_len, device)
 
     def prefill(self, params: ParamTree, batch: dict, max_len: int | None = None,
                 ops: Ops = KERNELS) -> tuple[torch.Tensor, dict]:
-        return self.mod.prefill(self.cfg, ops, params, batch["tokens"], max_len=max_len)
+        return self.mod.prefill(self.cfg, ops, params, *self.inputs(batch, prefill=True),
+                                max_len=max_len)
 
     def decode_step(self, params: ParamTree, token: torch.Tensor, cache: dict, cur_len,
                     ops: Ops = KERNELS) -> tuple[torch.Tensor, dict]:
@@ -60,8 +83,13 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    mod = tfm if cfg.family == "dense" else hybrid
+    mod = _MODULES[cfg.family]
     return Model(cfg=cfg, defs=mod.model_defs(cfg), mod=mod)
+
+
+def batch_text_offset(cfg: ModelConfig) -> int:
+    """Frontend tokens prepended before text (VLM patches)."""
+    return cfg.frontend_tokens if cfg.family == "vlm" else 0
 
 
 # ----------------------------------------------------------------------------

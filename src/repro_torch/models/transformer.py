@@ -1,8 +1,10 @@
 """Dense decoder-only transformer family: forward, prefill and KV-cache
 decode.
 
-Covers stablelm-3b and qwen3-14b (qk_norm, GQA), and the shared attention
-block of the hybrids.  Every function takes `ops` where the reference takes
+Covers stablelm-3b and qwen3-14b (qk_norm, GQA), llava-next-34b (the VLM:
+precomputed patch embeddings, `frontend_embeds`, go before the text
+embeddings), the shared attention block of the hybrids and the encoder of
+the enc-dec family.  Every function takes `ops` where the reference takes
 its sharding `rules`: `common.KERNELS` runs the RMSNorm, attention and
 decode-attention kernels for CUDA tensors, `common.PLAIN` the reference's
 plain math.
@@ -148,8 +150,14 @@ def layer_decode(cfg: ModelConfig, ops: Ops, p, x, k_cache, v_cache, cur_len):
     return x + m, (k_cache, v_cache)
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]  # (B, S, d)
+def embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
+                 frontend_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, S, d) text embeddings, after the frontend's (B, F, d) embeddings
+    (cast to the text dtype) where there are any."""
+    x = params["embed"][tokens]
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -162,9 +170,10 @@ def positions_for(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=x.device).expand(B, S)
 
 
-def forward(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Full causal forward: logits at every position."""
-    x = embed_tokens(cfg, params, tokens)
+def forward(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor,
+            frontend_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Full causal forward: logits at every position, frontend's included."""
+    x = embed_tokens(cfg, params, tokens, frontend_embeds)
     positions = positions_for(x)
     for lp in params["layers"]:
         x, _ = layer_full(cfg, ops, lp, x, positions)
@@ -179,9 +188,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device 
 
 
 def prefill(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor,
+            frontend_embeds: torch.Tensor | None = None,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
-    """Prefill: fill the KV cache, return last-position logits + cache."""
-    x = embed_tokens(cfg, params, tokens)
+    """Prefill: fill the KV cache, return last-position logits + cache.  The
+    cache's first F + S rows hold the frontend's and the text's positions,
+    so decoding continues at `cur_len` F + S."""
+    x = embed_tokens(cfg, params, tokens, frontend_embeds)
     B, S, _ = x.shape
     max_len = max_len or S
     positions = positions_for(x)

@@ -66,11 +66,12 @@ def test_sim_profile_equals_reference(arch):
 
 
 def test_build_model_runs_the_ported_families_only():
-    """xLSTM builds; MoE, VLM and audio still raise (their model code waits
-    for later slices), though `layer_costs` prices them."""
-    assert build_model(get_config("xlstm-1.3b").reduced()).cfg.family == "ssm"
-    assert "ssm" in PORTED_FAMILIES
-    for arch in ("llava-next-34b", "llama4-maverick-400b-a17b", "deepseek-v3-671b",
-                 "seamless-m4t-large-v2"):
+    """xLSTM, the VLM and the enc-dec build; MoE and MLA still raise (their
+    model code waits for later slices), though `layer_costs` prices them."""
+    for arch, family in (("xlstm-1.3b", "ssm"), ("llava-next-34b", "vlm"),
+                         ("seamless-m4t-large-v2", "audio")):
+        assert build_model(get_config(arch).reduced()).cfg.family == family
+        assert family in PORTED_FAMILIES
+    for arch in ("llama4-maverick-400b-a17b", "deepseek-v3-671b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(get_config(arch).reduced())

@@ -110,6 +110,36 @@ def test_flash_attention_kernel_non_causal(cuda, dtype):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D", [
+    (2, 4, 2, 128, 256, 64), (2, 4, 2, 256, 128, 64),      # the CPU tests' shapes
+    (1, 8, 2, 64, 384, 128), (1, 8, 2, 384, 64, 128),
+    (4, 16, 16, 33, 1024, 64),                             # seamless's cross-attention
+    (2, 14, 2, 300, 1000, 128), (2, 8, 8, 1000, 300, 64),  # ragged either way
+    (1, 4, 4, 1, 190, 64), (1, 4, 4, 190, 1, 128),         # one query, one key
+])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_kernel_unequal_lengths_match_plain(cuda, B, H, KH, Sq, Sk, D, causal,
+                                                            dtype):
+    """Sq != Sk, causal (aligned top-left) and not, on both routes: f32 at
+    3e-5, bf16 at `attn_tol`; the model layout equal to the (B, H, S, D)
+    one bit for bit."""
+    q = _on(cuda, 60, (B, H, Sq, D), dtype)
+    k = _on(cuda, 61, (B, KH, Sk, D), dtype)
+    v = _on(cuda, 62, (B, KH, Sk, D), dtype)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    bound = tol(dtype) if dtype == torch.float32 else attn_tol(dtype)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **bound)
+    bthd = fa.attention_bthd(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                             v.transpose(1, 2).contiguous(), causal=causal)
+    np.testing.assert_array_equal(_np(bthd.transpose(1, 2).cpu()), _np(got.cpu()))
+
+
+@pytest.mark.requires_cuda
 def test_flash_attention_f32_kernel_reads_unaligned_rows(cuda):
     """f32 K and V whose rows do not start on 16-byte boundaries (a row
     stride of 66 floats, head_dim 40) take the 4-byte copies."""
@@ -314,6 +344,63 @@ def test_model_layers_through_kernels(cuda):
         scale = want.float().abs().max()
         assert (got.float() - want.float()).abs().max() <= 5e-2 * scale
         x = got
+
+
+@pytest.mark.requires_cuda
+def test_encdec_through_kernels(cuda):
+    """A reduced seamless-m4t on the card: the teacher-forced forward
+    launches flash attention for every encoder layer and twice for every
+    decoder layer (causal self-, non-causal cross-attention over S_enc !=
+    T), the prefill once per encoder layer and decode attention twice per
+    decoder layer (the BOS step); each encoder layer and each decoder block
+    through the kernels within 5e-2 of scale of the plain math from the same
+    input, and prefill + 3 steps equal to the teacher-forced forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec, transformer as tfm
+    from repro_torch.models.common import KERNELS, PLAIN
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("seamless-m4t-large-v2").reduced(dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    frames = _on(cuda, 70, (2, 40, cfg.d_model), torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 6))).to(cuda)
+    tokens[:, 0] = 1  # BOS
+    n_fa, n_da = fa.flash_attention.launches, da.decode_attention.launches
+    full = model.forward(params, {"tokens": tokens, "frames": frames})
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - n_fa == cfg.encoder_layers + 2 * cfg.n_layers
+    n_fa = fa.flash_attention.launches
+    lg, cache = model.prefill(params, {"frames": frames}, max_len=8)
+    steps = [lg[:, 0]]
+    for i in range(1, 4):
+        lg, cache = model.decode_step(params, tokens[:, i:i + 1], cache, i)
+        steps.append(lg[:, 0])
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - n_fa == cfg.encoder_layers
+    assert da.decode_attention.launches - n_da == 2 * cfg.n_layers * 4
+    np.testing.assert_allclose(_np(torch.stack(steps, 1).cpu()), _np(full[:, :4].cpu()),
+                               rtol=1e-4, atol=1e-4 * float(full.abs().max()))
+
+    def close(got, want):
+        assert (got - want).abs().max() <= 5e-2 * want.abs().max()
+
+    x = frames
+    pos = tfm.positions_for(x)
+    for lp in params["enc_layers"]:
+        got = encdec.enc_layer(cfg, KERNELS, lp, x, pos)
+        close(got, encdec.enc_layer(cfg, PLAIN, lp, x, pos))
+        x = got
+    enc_out = KERNELS.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    x = tfm.embed_tokens(cfg, params, tokens)
+    pos = tfm.positions_for(x)
+    for lp in params["dec_layers"]:
+        got = encdec.self_block_full(cfg, KERNELS, lp, x, pos)[0]
+        close(got, encdec.self_block_full(cfg, PLAIN, lp, x, pos)[0])
+        x = got
+        got = encdec.cross_block_full(cfg, KERNELS, lp, x, enc_out)
+        close(got, encdec.cross_block_full(cfg, PLAIN, lp, x, enc_out))
+        x = encdec.mlp_block(cfg, KERNELS, lp, got)
 
 
 # ------------------------------------------------------------ decode attention

@@ -81,13 +81,58 @@ def test_flash_attention_model_layout_and_ragged_seq():
     np.testing.assert_array_equal(_np(got), _np(want.transpose(1, 2)))
 
 
+# (Sq, Sk): shapes the Pallas kernel's 128-blocks divide, either longer
+_UNEQUAL = [(128, 256), (256, 128), (64, 384), (384, 64)]
+
+
+@pytest.mark.parametrize("Sq,Sk", _UNEQUAL)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_plain_unequal_lengths_matches_pallas(Sq, Sk, causal, dtypes):
+    """Sq != Sk as the Pallas kernel takes it: the causal mask aligned
+    top-left (query i sees keys 0..i), or none."""
+    jdt, tdt = dtypes
+    q, tq = _pair(_normal(40, (2, 4, Sq, 64)), jdt, tdt)
+    k, tk = _pair(_normal(41, (2, 2, Sk, 64)), jdt, tdt)
+    v, tv = _pair(_normal(42, (2, 2, Sk, 64)), jdt, tdt)
+    want = np.asarray(fa_k.flash_attention(q, k, v, causal=causal, interpret=True), np.float32)
+    got = fa.flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == (2, 4, Sq, 64) and got.dtype == tdt
+    np.testing.assert_allclose(_np(got), want, **tol(tdt))
+
+
+@pytest.mark.parametrize("Sq,Sk", [(12, 30), (30, 12), (1, 17), (33, 1024)])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+def test_flash_attention_unequal_lengths_match_chunked_attention(Sq, Sk, causal):
+    """The model layout at ragged Sq != Sk against the reference's
+    `chunked_attention` at q_offset 0 (its chunks not dividing either
+    length), the oracle of the models' cross-attention."""
+    q, tq = _pair(_normal(43, (2, Sq, 4, 32)), jnp.float32, torch.float32)
+    k, tk = _pair(_normal(44, (2, Sk, 2, 32)), jnp.float32, torch.float32)
+    v, tv = _pair(_normal(45, (2, Sk, 2, 32)), jnp.float32, torch.float32)
+    want = np.asarray(ref_common.chunked_attention(q, k, v, causal=causal, q_offset=0,
+                                                   q_chunk=8, k_chunk=16))
+    got = fa.attention_bthd(tq, tk, tv, causal=causal)
+    assert got.shape == (2, Sq, 4, 32)
+    np.testing.assert_allclose(_np(got), want, **tol(torch.float32))
+
+
 def test_flash_attention_rejects_unequal_lengths():
-    """Top-left and bottom-right causal masks differ when Sq != Sk; the port
-    supports Sq == Sk only and says so."""
+    """q may be longer or shorter than k and v, but k and v must be of one
+    length, and every other dimension must match: the batch, head_dim, the
+    query heads grouping over the KV heads; queries need a key."""
     q = torch.zeros(1, 2, 8, 16)
-    kv = torch.zeros(1, 2, 12, 16)
-    with pytest.raises(ValueError, match="Sq == Sk"):
-        fa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="bad shapes"):
+        fa.flash_attention(q, torch.zeros(1, 2, 12, 16), torch.zeros(1, 2, 10, 16))
+    with pytest.raises(ValueError, match="does not match"):
+        fa.flash_attention(q, torch.zeros(2, 2, 12, 16), torch.zeros(2, 2, 12, 16))
+    with pytest.raises(ValueError, match="does not match"):
+        fa.flash_attention(q, torch.zeros(1, 2, 12, 32), torch.zeros(1, 2, 12, 32))
+    with pytest.raises(ValueError, match="do not group"):
+        fa.flash_attention(torch.zeros(1, 3, 8, 16), torch.zeros(1, 2, 12, 16),
+                           torch.zeros(1, 2, 12, 16))
+    with pytest.raises(ValueError, match="no key"):
+        fa.flash_attention(q, torch.zeros(1, 2, 0, 16), torch.zeros(1, 2, 0, 16))
 
 
 @pytest.mark.parametrize("N,D", [(256, 512), (128, 2048), (512, 128)])
