@@ -16,9 +16,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    run, flash attention's f32 route also at tests/test_kernels.py's f32
    shapes and non-causal, and both routes at the VLM's and the enc-dec's
    shapes (llava-next-34b's causal prefill, seamless-m4t-large-v2's
-   non-causal encoder and its cross-attention, Sq != Sk) and a causal
-   Sq != Sk either way, rmsnorm also at qwen3-14b's qk_norm and decode
-   attention (bf16 and f32) at every decode shape, llava-next-34b's and
+   non-causal encoder and its cross-attention, Sq != Sk), the MoE
+   family's prefills (llama4-maverick-400b-a17b's, G = 5; deepseek-v3's
+   MLA at head_dim 192 with 128-wide values) and a causal Sq != Sk either
+   way, rmsnorm also at qwen3-14b's qk_norm and decode attention (bf16 and
+   f32) at every decode shape (llama4's at G = 5), llava-next-34b's and
    one of qwen3-14b taking the split path; ssd_scan in f32 with q and k
    broadcast or per head, with and without log_i, and in bf16, and at the
    mLSTM's state widths (xlstm-1.3b: DK 1024, DV 1025, log_i over its clip
@@ -51,17 +53,26 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    seamless-m4t-large-v2 (24 + 24 layers; 4 requests of 1024 frame
    embeddings, the BOS step, 32 steps) and llava-next-34b (60 layers,
    d_model 7168, 34.39 B parameters; 2 requests of 2880 patch embeddings
-   and 128 tokens, 16 steps), all at full width and depth.  Each step's
+   and 128 tokens, 16 steps), all at full width and depth; then the MoE
+   family at full width and the depth that fits on the card
+   (`DEPTH_CUTS`): llama4-maverick-400b-a17b at 2 of 48 layers and
+   deepseek-v3-671b at 5 of 61 (its 3 dense layers, 2 MoE layers and the
+   MTP module, whose forward is held to the model's), 2 requests of 512
+   tokens, 16 steps.  Each step's
    logits are held to the teacher-forced forward (the serving invariant)
    in bf16, beside witnesses from the same tokens: the plain math in bf16,
    and the kernels in f32, which must hold the invariant at decisive
    positions (and, for the attention models, have some; llava-next-34b's
-   at 8 layers, after its bf16 weights are freed: 60 in f32 would not fit
-   on the card).  A fresh prefill and one step are held, cache slot by
+   at 8 layers, llama4's at 1 and deepseek-v3's at 4 (3 dense, 1 MoE),
+   each after its bf16 weights are freed: no more fits on the card in
+   f32).  A fresh prefill and one step are held, cache slot by
    cache slot, to the layers walked one at a time; every layer (every
    group's blocks; the encoder layers and the decoder's self-, cross- and
-   MLP blocks) is held to the plain math, and its decode form to its full
-   form, from the same input; the launch counts show the path ran each
+   MLP blocks; the MoE family's attention and FFN blocks) is held to the
+   plain math, and its decode form to its full form, from the same input
+   (an MoE block at the tokens both route alike: the walks count the
+   routing decisions that flip, at most `FLIP_LIMIT` of them in bf16 and
+   none in f32); the launch counts show the path ran each
    kernel its layers call (rmsnorm, flash_attention, decode_attention,
    ssd_scan) as often as its layers do; a profiler window over one
    prefill of each model reads its device busy share and top kernels, and
@@ -109,9 +120,29 @@ MILP_SLO_SCALE, SWAP_SLO_SCALE, PINNED_SLO_SCALE = 5.0, 8.0, 20.0
 DECODE_RUNS = (("stablelm-3b", 8, 128, 32), ("zamba2-2.7b", 4, 512, 16),
                ("xlstm-1.3b", 4, 512, 16), ("seamless-m4t-large-v2", 4, 1024, 32),
                ("llava-next-34b", 2, 128, 16))
+DECODE_RUNS += (("llama4-maverick-400b-a17b", 2, 512, 16), ("deepseek-v3-671b", 2, 512, 16))
+# models run at full width and fewer layers than their configs', for memory
+# (the first layers: deepseek-v3's dense ones, then its MoE ones), on the
+# full model's per-layer init formulas (the stacked fan-in of every layer):
+# one llama4 layer holds 32.2 GB of experts (3 x 128 x 5120 x 8192 bf16),
+# so 2 layers and the 2.07 B-parameter embedding and head make 34.66 B
+# parameters, 69.3 GB; deepseek-v3's 3 dense layers, 2 MoE layers (22.5 GB
+# of experts each) and the MTP module make 27.30 B, 54.6 GB.  Neither fits
+# at full depth on four cards either (0.8 and 1.3 TB in bf16).
+DEPTH_CUTS = {"llama4-maverick-400b-a17b": 2, "deepseek-v3-671b": 5}
 # models whose f32 witness runs at full width and fewer layers, after the
-# bf16 weights are freed: llava-next-34b's 60 layers in f32 would take 137 GB
-F32_WITNESS_LAYERS = {"llava-next-34b": 8}
+# bf16 weights are freed: llava-next-34b's 60 layers in f32 would take 137
+# GB; llama4's 1 layer is 73.5 GB in f32 and deepseek-v3's 3 dense layers and
+# 1 MoE layer 63.2 GB, the fewest layers that hold an MoE layer
+F32_WITNESS_LAYERS = {"llava-next-34b": 8, "llama4-maverick-400b-a17b": 1,
+                      "deepseek-v3-671b": 4}
+# the share of an MoE walk's routing decisions (a token's expert ids at one
+# layer) that may flip between the kernels and the plain math, or between a
+# block's decode and full forms, in bf16: the attention in front of the
+# router rounds apart, and a near-tied choice can flip, moving that token's
+# output by O(1); a fault in the kernels in front of the router flips many.
+# In f32, none may flip.
+FLIP_LIMIT = 0.15
 PROFILED_STEPS = 4
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 tensor-core peak, f32
@@ -425,8 +456,26 @@ def rmsnorm_shapes() -> list[tuple[str, int, int]]:
             ("seamless-m4t-large-v2 teacher-forced decoder", sb * (sn + 1), 1024),
             ("seamless-m4t-large-v2 decode", sb, 1024),
             ("llava-next-34b prefill", lb * (patches + ls), 7168),
-            ("llava-next-34b decode", lb, 7168),
+            ("llava-next-34b decode", lb, 7168)] + moe_rmsnorm_shapes() + [
             ("qwen3-14b qk_norm (no smoke path)", 8 * 128 * 40, 128)]
+
+
+def moe_rmsnorm_shapes() -> list[tuple[str, int, int]]:
+    """The MoE runs' norms: the residual stream's in prefill and decode, and
+    MLA's q_a_norm and kv_a_norm (q_lora_rank, kv_lora_rank wide)."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for arch, B, S, _ in DECODE_RUNS:
+        cfg = get_config(arch)
+        if cfg.family != "moe":
+            continue
+        widths = [("", cfg.d_model)]
+        if cfg.mla:
+            widths += [(", q_a_norm", cfg.q_lora_rank), (", kv_a_norm", cfg.kv_lora_rank)]
+        for form, rows in (("prefill", B * S), ("decode", B)):
+            out += [(f"{arch} {form}{what}", rows, D) for what, D in widths]
+    return out
 
 
 def check_rmsnorm(dev, g, err, parent) -> dict:
@@ -577,16 +626,17 @@ def check_flash_f32(dev, g, err) -> dict:
 def decode_shapes() -> list[tuple[str, int, int, int, int, int]]:
     """(what, B, cache length, query heads, KV heads, head_dim) of every
     decode attention phase 5's runs launch (the enc-dec's self- and
-    cross-attention), then qwen3-14b's one sequence over a 4096-key cache,
-    which no smoke path runs."""
+    cross-attention; llama4's G = 5; not deepseek-v3's absorbed MLA), then
+    qwen3-14b's one sequence over a 4096-key cache, which no smoke path
+    runs."""
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import batch_text_offset
 
     out = []
     for arch, B, S, n in DECODE_RUNS:
         cfg = get_config(arch)
-        if cfg.ssm_pattern and "a" not in cfg.ssm_pattern:
-            continue  # no attention layer
+        if (cfg.ssm_pattern and "a" not in cfg.ssm_pattern) or cfg.mla:
+            continue  # no attention layer, or MLA's absorbed decode (einsums)
         heads = (cfg.n_heads, cfg.kv_heads, cfg.hd)
         if cfg.family == "audio":
             out += [(f"{arch} self-attention", B, 1 + n, *heads),
@@ -598,43 +648,51 @@ def decode_shapes() -> list[tuple[str, int, int, int, int, int]]:
 
 
 def flash_model_shapes() -> list[tuple]:
-    """(what, B, Sq, Sk, H, KH, D, causal) of the flash attention the VLM
-    and enc-dec runs of phase 5 launch, with their configs' heads, and a
-    causal Sq != Sk either way: seamless-m4t-large-v2's encoder
+    """(what, B, Sq, Sk, H, KH, D, Dv, causal) of the flash attention the
+    VLM, enc-dec and MoE runs of phase 5 launch, with their configs' heads,
+    and a causal Sq != Sk either way: seamless-m4t-large-v2's encoder
     (non-causal) and its teacher-forced decoder's cross-attention (the
-    serving invariant's [bos] + the steps' tokens over the frames), and
+    serving invariant's [bos] + the steps' tokens over the frames),
     llava-next-34b's prefill (G = 7, D = 128, patches + text tokens, no
-    multiple of the kernel's 128-row item)."""
+    multiple of the kernel's 128-row item), llama4-maverick-400b-a17b's
+    (G = 5) and deepseek-v3's MLA prefill (128 heads of q and k at
+    qk_nope + qk_rope = 192, v at 128)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import batch_text_offset
 
     out = []
     for arch, B, S, n in DECODE_RUNS:
         cfg = get_config(arch)
-        heads = (cfg.n_heads, cfg.kv_heads, cfg.hd)
+        heads = (cfg.n_heads, cfg.kv_heads, cfg.hd, cfg.hd)
         if cfg.family == "audio":
             out += [(f"{arch} encoder", B, S, S, *heads, False),
                     (f"{arch} cross-attention", B, n + 1, S, *heads, False)]
         elif cfg.family == "vlm":
             T = batch_text_offset(cfg) + S
             out.append((f"{arch} prefill", B, T, T, *heads, True))
-    return out + [("causal, Sq < Sk", 2, 300, 1000, 16, 4, 128, True),
-                  ("causal, Sq > Sk", 2, 1000, 300, 16, 4, 64, True)]
+        elif cfg.mla:
+            out.append((f"{arch} MLA prefill", B, S, S, cfg.n_heads, cfg.n_heads,
+                        cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim, True))
+        elif cfg.family == "moe":
+            out.append((f"{arch} prefill", B, S, S, *heads, True))
+    return out + [("causal, Sq < Sk", 2, 300, 1000, 16, 4, 128, 128, True),
+                  ("causal, Sq > Sk", 2, 1000, 300, 16, 4, 64, 64, True)]
 
 
-def flash_bound(B, Sq, Sk, H, KH, D, causal, esize, peak) -> tuple[float, str]:
-    """Bytes: q and o (B, Sq, H, D) once each, and the rows of k and v (B,
-    Sk, KH, D) some query keeps, once each: all Sk, or min(Sq, Sk) under
-    the causal mask.  Operations: Q.K^T and P.V over the (query, key) pairs
-    the mask keeps (top-left: query i keeps min(i + 1, Sk) keys)."""
+def flash_bound(B, Sq, Sk, H, KH, D, Dv, causal, esize, peak) -> tuple[float, str]:
+    """Bytes: q (B, Sq, H, D) and o (B, Sq, H, Dv) once each, and the rows
+    of k (B, Sk, KH, D) and v (B, Sk, KH, Dv) some query keeps, once each:
+    all Sk, or min(Sq, Sk) under the causal mask.  Operations: Q.K^T (D
+    wide) and P.V (Dv wide) over the (query, key) pairs the mask keeps
+    (top-left: query i keeps min(i + 1, Sk) keys)."""
     if causal:
         m = min(Sq, Sk)
         pairs = m * (m + 1) / 2 + max(Sq - Sk, 0) * Sk
     else:
         pairs = Sq * Sk
     kv_rows = min(Sq, Sk) if causal else Sk
-    nbytes = (2 * B * Sq * H * D + 2 * B * kv_rows * KH * D) * esize
-    return bound_ms(nbytes, (4.0 * B * H * pairs * D, peak))
+    nbytes = (B * Sq * H * (D + Dv) + B * kv_rows * KH * (D + Dv)) * esize
+    return bound_ms(nbytes, (2.0 * B * H * pairs * (D + Dv), peak))
 
 
 def check_flash_models(dev, g, err) -> list[dict]:
@@ -642,7 +700,10 @@ def check_flash_models(dev, g, err) -> list[dict]:
     f32 (TF32 off), each against its plain version (bf16 at `attn_tol`,
     bit-equal to the (B, H, S, D) copies; f32 at 3e-5), and each timed
     beside its bound, its plain version and SDPA (top-left causal, as
-    `is_causal` aligns it)."""
+    `is_causal` aligns it).  Where v is narrower than q and k (MLA), the
+    wrapper pads it to D inside the timed call, the plain version and the
+    (B, H, S, D) copy take it padded, and SDPA takes it as it is (its value
+    head_dim Ev may differ from q's)."""
     import torch
     import torch.nn.functional as F
 
@@ -650,44 +711,46 @@ def check_flash_models(dev, g, err) -> list[dict]:
     from repro_torch.testing.parity import attn_tol, tol
 
     out = []
-    for what, B, Sq, Sk, H, KH, D, causal in flash_model_shapes():
+    for what, B, Sq, Sk, H, KH, D, Dv, causal in flash_model_shapes():
         for dtype in (torch.bfloat16, torch.float32):
             name = "bf16" if dtype == torch.bfloat16 else "f32"
             q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype)
-            k, v = (torch.randn(B, Sk, KH, D, generator=g, device=dev).to(dtype)
-                    for _ in range(2))
+            k = torch.randn(B, Sk, KH, D, generator=g, device=dev).to(dtype)
+            v = torch.randn(B, Sk, KH, Dv, generator=g, device=dev).to(dtype)
             qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            vp = F.pad(vh, (0, D - Dv))  # v as the kernel reads it
             got = fa.attention_bthd(q, k, v, causal=causal)
-            want = fa.flash_attention_plain(qh, kh, vh, causal=causal).transpose(1, 2)
-            bhsd = fa.flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
-                                      causal=causal)
+            want = fa.flash_attention_plain(qh, kh, vp, causal=causal)[..., :Dv].transpose(1, 2)
+            bhsd = fa.flash_attention(qh.contiguous(), kh.contiguous(), vp.contiguous(),
+                                      causal=causal)[..., :Dv]
             torch.cuda.synchronize()
             bound = attn_tol(dtype) if dtype == torch.bfloat16 else tol(dtype)
             torch.testing.assert_close(got, want, **bound)
             torch.testing.assert_close(bhsd.transpose(1, 2), got, atol=0, rtol=0)
-            b_ms, b_by = flash_bound(B, Sq, Sk, H, KH, D, causal, q.element_size(),
+            b_ms, b_by = flash_bound(B, Sq, Sk, H, KH, D, Dv, causal, q.element_size(),
                                      BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S)
             gqa = {"enable_gqa": True} if H != KH else {}
             iters = 50 if B * H * Sq * Sk < 2 ** 28 else 10
             r = dict(
-                shape=[B, Sq, Sk, H, KH, D], what=what, dtype=name, causal=causal,
+                shape=[B, Sq, Sk, H, KH, D, Dv], what=what, dtype=name, causal=causal,
                 max_abs_err=err(got, want), tol=bound,
                 ms=time_ms(lambda: fa.attention_bthd(q, k, v, causal=causal), iters=iters),
                 parent_ms=None,
-                plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vh, causal=causal),
+                plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vp, causal=causal),
                                  iters=min(iters, 10), warmup=2),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, is_causal=causal, **gqa), iters=iters),
                 host_ms=host_ms(lambda: fa.attention_bthd(q, k, v, causal=causal), calls=100))
             log(f"[kernels] flash_attention {name} at the {what} shape q ({B}, {Sq}, {H}, {D}), "
-                f"k/v ({B}, {Sk}, {KH}, {D}), {'causal' if causal else 'non-causal'}: "
+                f"k ({B}, {Sk}, {KH}, {D}), v ({B}, {Sk}, {KH}, {Dv}), "
+                f"{'causal' if causal else 'non-causal'}: "
                 f"{r['ms'] * 1e3:.3f} us vs bound {b_ms * 1e3:.3f} us ({b_by}), plain "
                 f"{r['plain_ms'] * 1e3:.3f} us, SDPA {r['library_ms'] * 1e3:.3f} us; host "
                 f"{r['host_ms'] * 1e3:.3f} us a call; max|err| {r['max_abs_err']:.3g} (tol "
                 f"{bound}); bit-equal to the (B, H, S, D) copies")
             out.append(r)
-            del q, k, v, qh, kh, vh, got, want, bhsd
+            del q, k, v, qh, kh, vh, vp, got, want, bhsd
     return out
 
 
@@ -1438,10 +1501,13 @@ def read_counts() -> dict:
 
 def path_kernels(cfg) -> list[str]:
     """The kernels a model's serving path must launch: rmsnorm always,
-    flash_attention and decode_attention where it has attention layers,
-    ssd_scan where it has Mamba2 or mLSTM blocks."""
+    flash_attention and decode_attention where it has attention layers
+    (flash_attention alone for MLA, whose decode is einsums), ssd_scan where
+    it has Mamba2 or mLSTM blocks."""
     pattern = cfg.ssm_pattern
     attention = ["flash_attention", "decode_attention"] if not pattern or "a" in pattern else []
+    if cfg.mla:
+        attention = ["flash_attention"]
     return ["rmsnorm"] + attention + (["ssd_scan"] if set(pattern) & set("mM") else [])
 
 
@@ -1450,13 +1516,13 @@ def expected_launches(cfg) -> dict:
     for each attention layer of the prefill (the enc-dec's encoder layers;
     its decoder runs the BOS step), decode attention for each attention
     layer of a step (the enc-dec's self- and cross-attention: two a decoder
-    layer, in its prefill's BOS step too) and ssd_scan for each Mamba2 or
-    mLSTM block of the prefill."""
+    layer, in its prefill's BOS step too; none for MLA) and ssd_scan for
+    each Mamba2 or mLSTM block of the prefill."""
     if cfg.family == "audio":
         step = 2 * cfg.n_layers
         return dict(flash=cfg.encoder_layers, prefill_decode=step, step=step, scan=0)
     n_attn = cfg.ssm_pattern.count("a") if cfg.ssm_pattern else cfg.n_layers
-    return dict(flash=n_attn, prefill_decode=0, step=n_attn,
+    return dict(flash=n_attn, prefill_decode=0, step=0 if cfg.mla else n_attn,
                 scan=sum(cfg.ssm_pattern.count(c) for c in "mM"))
 
 
@@ -1527,7 +1593,182 @@ def check_layer(what: str, got, want, worst: dict) -> None:
         raise AssertionError(f"{what}: max|err| / max|ref| = {rel:.4g}")
 
 
-def layer_parity(cfg, params, batch, fed, cache, tok, cur_len) -> dict:
+def layer_cache(cfg, cache, i) -> tuple:
+    """Layer i's two cache tensors: (k, v), or MLA's (c_kv, k_rope)."""
+    return tuple(cache[n][i] for n in (("c_kv", "k_rope") if cfg.mla else ("k", "v")))
+
+
+def tally_routing(flips: dict, what: str, a, b):
+    """Two sets of routing decisions (`moe.ffn_routing`: each token's
+    expert ids and the choices capacity kept, (B, T, k)) for the same tokens:
+    tallies in flips[what] the tokens, those whose expert ids differ (a
+    flip) and those whose ids agree but not which choices capacity kept;
+    returns the (B, T) mask of the tokens routed alike (the same ids, the
+    same choices kept)."""
+    (ids_a, keep_a), (ids_b, keep_b) = a, b
+    same = (ids_a == ids_b).all(-1)
+    alike = same & (keep_a == keep_b).all(-1)
+    t = flips.setdefault(what, [0, 0, 0])
+    t[0] += same.numel()
+    t[1] += int((~same).sum())
+    t[2] += int((same & ~alike).sum())
+    return alike
+
+
+def check_alike(what: str, got, want, alike, worst: dict) -> None:
+    """`check_layer` at the tokens routed alike (where there are any)."""
+    if bool(alike.any()):
+        check_layer(what, got[alike], want[alike], worst)
+
+
+def check_flips(arch: str, flips: dict, limit: float, what: str = "") -> None:
+    """Logs each walk's routing tally and holds the flips over all of them
+    to `limit` of the decisions."""
+    tokens = sum(t[0] for t in flips.values())
+    flipped = sum(t[1] for t in flips.values())
+    log(f"[decode] {arch}{what}: routing decisions (token, layer) the walks compared: "
+        + ", ".join(f"{k} {t[0]}, {t[1]} flipped, {t[2]} kept apart by capacity"
+                    for k, t in flips.items())
+        + f"; {flipped}/{tokens} flipped in all (limit {limit:g} of them)")
+    if flipped > limit * tokens:
+        raise AssertionError(f"{arch}{what}: {flipped} of {tokens} routing decisions flip, "
+                             f"more than {limit:g} of them")
+
+
+def moe_parity(cfg, params, x, xd, positions, cache, cur_len, worst: dict,
+               flips: dict) -> None:
+    """`layer_parity` of the MoE family: each layer's attention block
+    through the kernels against the plain math from the same input, then
+    its FFN block from each one's output, held at the tokens both route
+    alike (the MoE blocks) or whole (deepseek's dense MLPs); the kernels'
+    output goes on.  Both forms: the prefill over x, the decode step of xd
+    on a copy of the layer's cache."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import KERNELS, PLAIN
+    from repro_torch.models.model_zoo import build_model
+
+    mod = build_model(cfg).mod
+    both = (KERNELS, PLAIN)
+    for i, lp in enumerate(mod.layers(params)):
+        caches = layer_cache(cfg, cache, i)
+        for form in ("prefill", "decode"):
+            if form == "prefill":
+                hk, hp = (mod.attn_block_full(cfg, ops, lp, x, positions)[0] for ops in both)
+            else:
+                hk, hp = (mod.attn_block_decode(cfg, ops, lp, xd, *(c.clone() for c in caches),
+                                                cur_len)[0] for ops in both)
+            check_layer(f"attention block ({form})", hk, hp, worst)
+            out, ref = mod.ffn_block(cfg, KERNELS, lp, hk), mod.ffn_block(cfg, PLAIN, lp, hp)
+            if "moe" in lp:
+                alike = tally_routing(flips, f"MoE block ({form})",
+                                      moe.ffn_routing(cfg, KERNELS, lp, hk),
+                                      moe.ffn_routing(cfg, PLAIN, lp, hp))
+                check_alike(f"MoE block ({form}, tokens routed alike)", out, ref, alike, worst)
+            else:
+                check_layer(f"dense MLP block ({form})", out, ref, worst)
+            if form == "prefill":
+                x = out
+            else:
+                xd = out
+
+
+def moe_invariant(cfg, params, x, positions, S: int, worst: dict, flips: dict) -> None:
+    """`layer_invariant` of the MoE family, through the kernels: each
+    layer's attention block in decode form at position S, from the cache
+    its full form left over the first S positions, against its full form
+    at S; then the FFN block over the last position alone against the same
+    block over all S + 1, from the full form's output, held at the tokens
+    both route alike (the full form's capacity is that of its B (S + 1)
+    tokens, the step's of B, so a choice the full form drops is routed
+    apart).
+
+    MLA's decode form is another algorithm than its full form: absorbed
+    into the latent space, against expanded keys through flash attention.
+    At the reference's init its scores spread over hundreds, so the softmax
+    is nearly one-hot and bf16's rounding (2^-9 of a score) swaps near-tied
+    keys, on either side: in bf16 the two forms' gap is logged beside the
+    plain math's own, and held in f32 (the f32 witness runs this walk), where
+    no key swaps.  That the kernels compute each form is held by
+    `layer_parity`."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.common import KERNELS, PLAIN
+    from repro_torch.models.model_zoo import build_model
+
+    mod = build_model(cfg).mod
+    B = x.shape[0]
+    mla_bf16 = cfg.mla and cfg.dtype == torch.bfloat16
+    gaps = {"kernels": 0.0, "plain math": 0.0}
+
+    def decode_vs_full(ops, lp, x):
+        full, _ = mod.attn_block_full(cfg, ops, lp, x, positions)
+        _, pre = mod.attn_block_full(cfg, ops, lp, x[:, :S].contiguous(), positions[:, :S])
+        caches = [torch.zeros((B, S + 1) + a.shape[2:], dtype=a.dtype, device=a.device)
+                  for a in pre]
+        for c, a in zip(caches, pre):
+            c[:, :S] = a
+        step, _ = mod.attn_block_decode(cfg, ops, lp, x[:, S:].contiguous(), *caches, S)
+        return full, step
+
+    for i, lp in enumerate(mod.layers(params)):
+        full, step = decode_vs_full(KERNELS, lp, x)
+        if mla_bf16:
+            if i == 0:
+                mla_score_spread(cfg, lp, x, positions)
+            plain_full, plain_step = decode_vs_full(PLAIN, lp, x)
+            gaps["kernels"] = max(gaps["kernels"], rel_err(step[:, 0], full[:, S]))
+            gaps["plain math"] = max(gaps["plain math"],
+                                     rel_err(plain_step[:, 0], plain_full[:, S]))
+        else:
+            check_layer("attention block (decode vs full)", step[:, 0], full[:, S], worst)
+        x = mod.ffn_block(cfg, KERNELS, lp, full)
+        last = full[:, S:].contiguous()
+        y = mod.ffn_block(cfg, KERNELS, lp, last)
+        if "moe" in lp:
+            ids, keep = moe.ffn_routing(cfg, KERNELS, lp, full)
+            alike = tally_routing(flips, "MoE block (last position vs all)",
+                                  (ids[:, S:], keep[:, S:]),
+                                  moe.ffn_routing(cfg, KERNELS, lp, last))
+            check_alike("MoE block (last position vs all, tokens routed alike)", y, x[:, S:],
+                        alike, worst)
+        else:
+            check_layer("dense MLP block (last position vs all)", y[:, 0], x[:, S], worst)
+    if mla_bf16:
+        log(f"[decode] {cfg.name}: MLA's decode (absorbed) vs full (expanded) form in bf16, "
+            f"not held (near-tied keys swap; held in f32), worst max|err|/max|ref| over the "
+            f"layers: " + ", ".join(f"{k} {v:.4g}" for k, v in gaps.items()))
+
+
+def mla_score_spread(cfg, lp, x, positions) -> None:
+    """Logs the spread of an MLA layer's attention scores at the last
+    position (expanded form, the plain math, the scores in f32): their
+    standard deviation and the median gap between the two largest of each
+    (batch, head), beside 2^-9 of the largest, a bf16 rounding of it."""
+    import math
+
+    import torch
+
+    from repro_torch.models import deepseek
+    from repro_torch.models.common import PLAIN
+
+    p, nope = lp["attn"], cfg.qk_nope_dim
+    B, T, _ = x.shape
+    h = PLAIN.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q_nope, q_rope = deepseek._mla_q(cfg, PLAIN, p, h, positions)
+    c_kv, k_rope = deepseek._mla_kv_latent(cfg, PLAIN, p, h, positions)
+    k_nope = (c_kv @ p["kv_b"].reshape(cfg.kv_lora_rank, -1)).reshape(B, T, cfg.n_heads, -1)
+    s = (torch.einsum("bhd,bthd->bht", q_nope[:, -1].float(), k_nope[..., :nope].float())
+         + torch.einsum("bhr,btr->bht", q_rope[:, -1].float(), k_rope.float()))
+    s = s / math.sqrt(nope + cfg.qk_rope_dim)
+    top2 = s.topk(2, dim=-1).values
+    gap = float((top2[..., 0] - top2[..., 1]).median())
+    log(f"[decode] {cfg.name}: MLA scores of the last position over {T} keys, layer 0: std "
+        f"{float(s.std()):.4g}, median gap of the two largest {gap:.4g}, 2^-9 of the largest "
+        f"{float(s.abs().max()) / 512:.4g}")
+
+
+def layer_parity(cfg, params, batch, fed, cache, tok, cur_len, flips=None) -> dict:
     """Single layers through `KERNELS` against `PLAIN`, each from the same
     input (and a copy of the same cache): the prefill and the decode form of
     every attention layer (stablelm-3b, llava-next-34b), or of every group's
@@ -1535,7 +1776,9 @@ def layer_parity(cfg, params, batch, fed, cache, tok, cur_len) -> dict:
     block, an sLSTM block), each on its own group's slice of the cache
     (zamba2-2.7b, xlstm-1.3b), or every encoder layer and the decoder's
     self-attention, cross-attention and MLP blocks, teacher-forced and in
-    decode form on the decode cache (seamless-m4t-large-v2)."""
+    decode form on the decode cache (seamless-m4t-large-v2), or the MoE
+    family's attention and FFN blocks (`moe_parity`; its routing tallied in
+    `flips`)."""
     import torch
 
     from repro_torch.models import encdec, hybrid, transformer as tfm
@@ -1577,6 +1820,10 @@ def layer_parity(cfg, params, batch, fed, cache, tok, cur_len) -> dict:
         return worst
     x = embed_inputs(cfg, params, batch)
     positions = tfm.positions_for(x)
+    if cfg.family == "moe":
+        moe_parity(cfg, params, x, xd, positions, cache, cur_len, worst, flips)
+        torch.cuda.synchronize()
+        return worst
 
     def attn_pair(lp, k_cache, v_cache, x, xd, tag):
         got, _ = tfm.layer_full(cfg, KERNELS, lp, x, positions)
@@ -1619,7 +1866,7 @@ def layer_parity(cfg, params, batch, fed, cache, tok, cur_len) -> dict:
     return worst
 
 
-def layer_invariant(cfg, params, batch, fed) -> dict:
+def layer_invariant(cfg, params, batch, fed, flips=None) -> dict:
     """The serving invariant one layer at a time, through the kernels: a
     layer's decode form at the last position S, from the state its prefill
     form left after S positions, against its full form over the S + 1
@@ -1628,7 +1875,8 @@ def layer_invariant(cfg, params, batch, fed) -> dict:
     layer of the model: the prompts (after the VLM's patches) and the first
     fed token, or the enc-dec decoder's [bos, fed...], whose self- and
     cross-attention blocks are held (the encoder has no decode form, the
-    MLP acts on each position alone)."""
+    MLP acts on each position alone), or the MoE family's attention and
+    FFN blocks (`moe_invariant`; its routing tallied in `flips`)."""
     import torch
 
     from repro_torch.models import encdec, hybrid, transformer as tfm
@@ -1665,6 +1913,10 @@ def layer_invariant(cfg, params, batch, fed) -> dict:
     if cfg.family in ("dense", "vlm"):
         for lp in params["layers"]:
             x = attn(lp, x)
+        return worst
+    if cfg.family == "moe":
+        moe_invariant(cfg, params, x, positions, S, worst, flips)
+        torch.cuda.synchronize()
         return worst
     if cfg.family == "audio":
         enc_out = encdec.encode(cfg, KERNELS, params, batch["frames"])
@@ -1750,7 +2002,7 @@ def plain_witness(cfg, params, batch, n0: int, fed, got) -> None:
         f"decode logits vs the plain math's: max|err| {float((got - plain).abs().max()):.4f}")
 
 
-def f32_witness(cfg, params32, batch, n0: int, fed, what: str = "") -> None:
+def f32_witness(cfg, params32, batch, n0: int, fed, what: str = "", model32=None) -> None:
     """The serving invariant through the kernels in f32 (every kernel's f32
     route, flash attention's CUDA-core one and ssd_scan's three-part one
     included; each the model's layers call must launch): it must hold at
@@ -1758,8 +2010,14 @@ def f32_witness(cfg, params32, batch, n0: int, fed, what: str = "") -> None:
     must have some, so the check can fail; the recurrent models' f32
     forwards are themselves too sensitive for that, which the last reading
     shows: the f32 forward's move when the embeddings are scaled by
-    1 + 2^-22 (two ulps).  Their whole-model check is `cache_walk`'s.
-    `params32` are f32 parameters of `cfg` (scaled in place)."""
+    1 + 2^-22 (two ulps).  Their whole-model check is `cache_walk`'s.  The
+    MoE family's forward drops other tokens at capacity than its prefill
+    and steps do, so it need have no decisive position either; its walks
+    run in f32 too, where no routing decision may flip between the kernels
+    and the plain math, or between a block's decode and full forms.
+    `params32` are f32 parameters of `cfg` (scaled in place), `model32`
+    their model where it is not `build_model` of `cfg` in f32 (a depth
+    cut)."""
     import dataclasses
 
     import torch
@@ -1768,9 +2026,22 @@ def f32_witness(cfg, params32, batch, n0: int, fed, what: str = "") -> None:
     from repro_torch.models.model_zoo import build_model
 
     arch = cfg.name
-    model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    if model32 is None:
+        model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    cfg32 = model32.cfg
     before = read_counts()
     got32, full32 = teacher_forced(model32, params32, batch, n0, fed, KERNELS)
+    if cfg.family == "moe":
+        _, cache = model32.prefill(params32, batch, max_len=n0 + 1)
+        flips: dict = {}
+        worst = layer_invariant(cfg32, params32, batch, fed, flips)
+        worst.update(layer_parity(cfg32, params32, batch, fed, cache, fed[0],
+                                  torch.tensor(n0, device=fed[0].device), flips))
+        log(f"[decode] {arch} kernels, f32{what}: per block, decode vs full and kernels vs "
+            f"plain, worst max|err|/max|ref|: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()) + " (limit 5e-2)")
+        check_flips(arch, flips, 0.0, f" f32{what}")
+        del cache
     params32["embed"].mul_(1 + 2.0 ** -22)
     nudged = model32.forward(params32, forward_batch(cfg, batch, fed), ops=KERNELS)[:, n0 - 1:]
     nudged = nudged.float()
@@ -1796,29 +2067,51 @@ def f32_witness(cfg, params32, batch, n0: int, fed, what: str = "") -> None:
                              f"position")
 
 
+def model_for(arch: str, n_layers: int | None = None, dtype=None):
+    """(config, model) of `arch` at full width: at its full depth, or at its
+    first `n_layers` layers (deepseek-v3's dense ones first, then as many
+    MoE layers as the cut leaves), whose templates keep the full model's
+    per-layer init formulas (the stacked fan-in of all its layers); in
+    `dtype` where given."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import Model, build_model
+
+    cfg = get_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(cfg)
+    if n_layers is None or n_layers == cfg.n_layers:
+        return cfg, model
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    defs = dict(model.defs)
+    if "layers" in defs:
+        defs["layers"] = defs["layers"][:n_layers]
+    elif n_layers > cfg.dense_layers:
+        defs["moe_layers"] = defs["moe_layers"][:n_layers - cfg.dense_layers]
+    else:
+        raise ValueError(f"{arch}: a cut to {n_layers} layers keeps no MoE layer")
+    return cut, Model(cfg=cut, defs=defs, mod=model.mod)
+
+
 def f32_witness_cut(cfg, n_layers: int, batch, n0: int, fed, dev) -> None:
     """`f32_witness` at full width and `n_layers` layers, for a model whose
     f32 copy does not fit on the card beside its bf16 weights: run after
     those are freed, on an f32 init of its own from SEED, with the full
     model's per-layer init formulas (the stacked fan-in of all its
     layers)."""
-    import dataclasses
-
     import torch
 
-    from repro_torch.models.common import init_params
-    from repro_torch.models.model_zoo import build_model
+    from repro_torch.configs import get_config
 
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    defs = build_model(cfg32).defs
-    defs["layers"] = defs["layers"][:n_layers]
-    params32 = init_params(defs, torch.Generator(device=dev).manual_seed(SEED))
+    cut, model32 = model_for(cfg.name, n_layers, torch.float32)
+    params32 = model32.init(torch.Generator(device=dev).manual_seed(SEED))
     n_params = sum(p.numel() for p in params32.parameters())
-    log(f"[decode] {cfg.name} f32 witness: {n_layers} of {cfg.n_layers} layers at full width "
-        f"({n_params / 1e9:.3f} B params in f32, {n_params * 4 / 1e9:.2f} GB), an init of its "
-        f"own")
-    f32_witness(dataclasses.replace(cfg, n_layers=n_layers), params32, batch, n0, fed,
-                what=f" ({n_layers} layers)")
+    log(f"[decode] {cfg.name} f32 witness: {n_layers} of {get_config(cfg.name).n_layers} "
+        f"layers at full width ({n_params / 1e9:.3f} B params in f32, "
+        f"{n_params * 4 / 1e9:.2f} GB), an init of its own")
+    f32_witness(cut, params32, batch, n0, fed, what=f" ({n_layers} layers)", model32=model32)
 
 
 def cache_walk(cfg, model, params, batch, n0: int, tok) -> dict:
@@ -1828,7 +2121,8 @@ def cache_walk(cfg, model, params, batch, n0: int, tok) -> dict:
     functions walked in order with each layer's state kept apart (the dense
     and VLM layer l; group g's inner block j (Mamba2, mLSTM) and its outer
     block, the shared attention block or its sLSTM block; the enc-dec's
-    encoder, each decoder layer's cross K/V and its BOS step).
+    encoder, each decoder layer's cross K/V and its BOS step; the MoE
+    family's layers, MLA's compressed cache).
     Both take the same trajectory, so they agree to rounding: every cache
     slot after the prefill and after the step, and both logits, within 1e-3
     of their scale."""
@@ -1896,6 +2190,17 @@ def cache_walk(cfg, model, params, batch, n0: int, tok) -> dict:
     if cfg.family in ("dense", "vlm"):
         for i, lp in enumerate(params["layers"]):
             x, xd = attn(lp, x, xd, pre["k"][i], pre["v"][i], cache["k"][i], cache["v"][i])
+    elif cfg.family == "moe":
+        for i, lp in enumerate(model.mod.layers(params)):
+            x, kv = model.mod.layer_full(cfg, KERNELS, lp, x, positions)
+            fresh = []
+            for c_pre, a in zip(layer_cache(cfg, pre, i), kv):
+                same("cache after prefill", c_pre[:, :S], a)
+                fresh.append(torch.zeros_like(c_pre))
+                fresh[-1][:, :S] = a
+            xd, _ = model.mod.layer_decode(cfg, KERNELS, lp, xd, *fresh, S)
+            for c_post, c in zip(layer_cache(cfg, cache, i), fresh):
+                same("cache after the step", c_post, c)
     else:
         inner, outer, block = recurrent_kinds(cfg)
         for g, group in enumerate(params["inner"]):
@@ -1927,18 +2232,17 @@ def cache_walk(cfg, model, params, batch, n0: int, tok) -> dict:
 def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> dict:
     """Prefill B requests of S prompt tokens (S frames for the enc-dec),
     then n greedy decode steps, through the kernels; hold each step to the
-    teacher-forced forward.  Returns the path's launch counts and what the
-    f32 witness needs if `F32_WITNESS_LAYERS` cuts it (run after the
-    caller frees the parameters)."""
+    teacher-forced forward.  A model in `DEPTH_CUTS` runs at that depth.
+    Returns the path's launch counts and what the f32 witness needs if
+    `F32_WITNESS_LAYERS` cuts it (run after the caller frees the
+    parameters)."""
     import copy
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models.model_zoo import build_model
 
-    cfg = get_config(arch)
-    model = build_model(cfg)
+    cfg, model = model_for(arch, DEPTH_CUTS.get(arch))
     t0 = time.perf_counter()
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(SEED))
@@ -1949,13 +2253,19 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> dict:
               f"tokens after {cfg.frontend_tokens} patch embeddings" if cfg.family == "vlm"
               else "tokens")
     log(f"[decode] {arch}: {cfg.n_layers} layers"
+        + (f" of {get_config(arch).n_layers} (DEPTH_CUTS: the depth that fits on the card)"
+           if arch in DEPTH_CUTS else "")
+        + (f" ({cfg.dense_layers} dense, {cfg.n_layers - cfg.dense_layers} MoE, the MTP module)"
+           if cfg.mla else "")
+        + (f", {cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} shared"
+           if cfg.n_experts else "")
         + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else "")
         + f", d_model {cfg.d_model}, {n_params / 1e9:.3f} B params on {dev} "
         f"({n_params * params['embed'].element_size() / 1e9:.2f} GB, "
         f"{time.perf_counter() - t0:.1f} s); {B} requests x {S} {inputs}, {n} greedy steps "
         f"from cache position {n0}"
-        + (f"; its f32 witness at {F32_WITNESS_LAYERS[arch]} layers (the full depth in f32: "
-           f"{n_params * 4 / 1e9:.2f} GB)" if arch in F32_WITNESS_LAYERS else ""))
+        + (f"; its f32 witness at {F32_WITNESS_LAYERS[arch]} layers (these {cfg.n_layers} in "
+           f"f32: {n_params * 4 / 1e9:.2f} GB)" if arch in F32_WITNESS_LAYERS else ""))
     want = expected_launches(cfg)
 
     with torch.inference_mode():
@@ -1985,6 +2295,7 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> dict:
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         dec = read_counts()
+        sync_free_step(model, params, fed[-1], cache, cur - 1)
 
         got_counts = dict(flash=pre["flash_attention"], prefill_decode=pre["decode_attention"],
                           step=dec["decode_attention"] / n, scan=pre["ssd_scan"])
@@ -2021,33 +2332,85 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> dict:
         if arch not in F32_WITNESS_LAYERS:
             f32_witness(cfg, copy.deepcopy(params).float(), batch, n0, fed)
 
-        worst = layer_invariant(cfg, params, batch, fed)
+        flips: dict = {}  # the MoE family's routing decisions, tallied by the walks
+        worst = layer_invariant(cfg, params, batch, fed, flips)
         log(f"[decode] {arch}: serving invariant per layer through the kernels, worst "
             f"max|err|/max|ref|: " + ", ".join(f"{k} {v:.4g}" for k, v in worst.items())
             + " (limit 5e-2)")
         last = torch.tensor(n0 + n - 1, dtype=torch.int32, device=dev)
-        worst = layer_parity(cfg, params, batch, fed, cache, fed[-1], last)
+        worst = layer_parity(cfg, params, batch, fed, cache, fed[-1], last, flips)
         log(f"[decode] {arch}: per layer through the kernels vs plain math, same input, "
             f"worst max|err|/max|ref|: "
             + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()) + " (limit 5e-2)")
+        if flips:
+            check_flips(arch, flips, FLIP_LIMIT)
         worst = cache_walk(cfg, model, params, batch, n0, fed[0])
         log(f"[decode] {arch}: prefill + one step vs the layer walk, every cache slot and "
             f"both logits, worst max|err|/max|ref|: "
             + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()) + " (limit 1e-3)")
+        if cfg.mtp:
+            mtp_check(model, params, forward_batch(cfg, batch, fed))
 
-        # device busy share of the decode loop: replay the last steps
+        # device busy share of the decode loop: replay the last steps, their
+        # positions on the card before the window (a position made from a
+        # host int inside it would be a blocking copy, a host wait a step)
         first = n0 + n - PROFILED_STEPS
+        positions = [torch.tensor(first + i, dtype=torch.int32, device=dev)
+                     for i in range(PROFILED_STEPS)]
 
         def replay():
             for i in range(PROFILED_STEPS):
-                model.decode_step(params, fed[first - n0 + i], cache,
-                                  torch.tensor(first + i, dtype=torch.int32, device=dev))
+                model.decode_step(params, fed[first - n0 + i], cache, positions[i])
 
         share = busy_share(replay, "decode")
         log(f"[decode] {arch}: device busy share over {PROFILED_STEPS} decode steps: "
             + ("not measured (profiler recorded no device time)" if share is None
                else f"{share:.4f}"))
     return {k: pre[k] + dec[k] for k in pre}, (cfg, batch, n0, fed)
+
+
+def sync_free_step(model, params, tok, cache, cur) -> None:
+    """A decode step (the last one again: it rewrites the same cache row)
+    with CUDA's sync debug mode at "error": an op that makes the host wait
+    for the card (a read of a value to the host, a mask index, a blocking
+    copy) raises, so the loop can queue its steps ahead of the card."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, tok, cache, cur)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def mtp_check(model, params, batch) -> None:
+    """The MTP head's forward (`deepseek.forward_with_mtp`) through the
+    kernels over the teacher-forced tokens: its next-token logits are the
+    model's forward (1e-3 of scale), its MTP logits finite, of one position
+    fewer, and its MTP layer runs flash attention once more."""
+    import torch
+
+    from repro_torch.models import deepseek
+    from repro_torch.models.common import KERNELS
+
+    cfg, tokens = model.cfg, batch["tokens"]
+    before = read_counts()["flash_attention"]
+    logits, mtp = deepseek.forward_with_mtp(cfg, KERNELS, params, tokens)
+    flash = read_counts()["flash_attention"] - before
+    full = model.forward(params, batch)
+    torch.cuda.synchronize()
+    rel = rel_err(logits, full)
+    B, T = tokens.shape
+    log(f"[decode] {cfg.name} MTP head over {tuple(tokens.shape)} tokens: logits "
+        f"{tuple(mtp.shape)}, max |logit| {float(mtp.float().abs().max()):.4g}; its next-token "
+        f"logits vs the forward's {rel:.4g} of scale (limit 1e-3); flash attention {flash} "
+        f"launches ({cfg.n_layers} layers + the MTP layer)")
+    if tuple(mtp.shape) != (B, T - 1, cfg.padded_vocab) or not torch.isfinite(mtp).all():
+        raise AssertionError(f"MTP logits {tuple(mtp.shape)}, finite "
+                             f"{bool(torch.isfinite(mtp).all())}")
+    if not rel <= 1e-3 or flash != cfg.n_layers + 1:
+        raise AssertionError(f"MTP forward: next-token logits {rel:.4g} of scale from the "
+                             f"forward's, {flash} flash attention launches")
 
 
 def profile_prefill(model, params, batch, max_len: int, arch: str, parent) -> None:

@@ -28,11 +28,12 @@
 //    (D, heads, seq, batch), built on the host from the tensors' strides, so
 //    the model's (B, T, H, D) tensors are read in place: Q into a tile per
 //    consumer (full/empty mbarriers), K and V tiles of 64 keys into a
-//    four-stage ring (full/empty mbarriers);
+//    ring (full/empty mbarriers) of four stages, or two past head_dim 128;
 //  - head_dim is cut into 64-column panels (128 bytes, the widest a
 //    128B-swizzled TMA box may be): D = 80 is one full panel plus one whose
 //    columns 80-127 TMA fills with zeros (no bytes read for them), and
-//    head_dim pads to the next multiple of 16 in shared memory only;
+//    head_dim pads to the next multiple of 16 in shared memory only, or,
+//    past 128, to 192 (three panels; MLA's q and k are 192 wide);
 //  - S = Q.K^T runs as m64n64k16 `wgmma`s, A (Q) and B (K) both K-major in
 //    shared memory, one k-step of 16 columns at a time (the descriptor's
 //    start moves 32 bytes inside the swizzle atom);
@@ -45,6 +46,17 @@
 //    past the end, and a zero key scores 0, not -1e30;
 //  - the output is staged in shared memory in the 128B-swizzled layout and
 //    written by TMA stores through a fourth map, which clip rows past Sq.
+// Shared memory: two Q tiles, two output staging tiles and the K/V ring,
+// each tile 64 rows of every panel.  Up to head_dim 128 (two panels, 16 KB a
+// tile) a four-stage ring makes 192 KB.  At three panels (24 KB a tile) the
+// same ring would take 288 KB, past the 227 KB a block may have, so the
+// ring has two stages there (192 KB again).  Staging the output in the Q
+// tile instead would keep three stages, but the producer loads the next
+// item's Q into that tile while the consumers finish this one, which is
+// the overlap the persistent grid is for; the D <= 128 instances keep
+// their ring as it was.  At D = 192 a consumer thread holds the 64 x 192
+// f32 accumulator (96 registers) beside the 64 x 64 scores (32) and P
+// (16): within the 224 registers a thread of a 288-thread block may have.
 // The shared-memory attribute is set once per template instance and device.
 // Times measured (chip_smoke.py phase 2; NVIDIA H100 80GB HBM3, 700.00 W):
 // 10.260 us at (8, 128, 32, 80) against SDPA's 11.372 us and the 6.260 us
@@ -62,11 +74,10 @@ namespace {
 
 constexpr int kRows = 64;        // query rows per consumer warpgroup; keys per K/V tile
 constexpr int kConsumers = 2;    // consumer warpgroups per block
-constexpr int kStages = 4;       // K/V ring depth
 constexpr int kThreads = kConsumers * 128 + 32;  // plus one producer warp
 constexpr int kPanelCols = 64;   // bf16 columns per 128-byte swizzled panel
 constexpr int kPanelBytes = kRows * 128;
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 192;       // three panels
 constexpr int kMaxDevices = 64;  // devices whose attribute and SM count are kept
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -170,6 +181,7 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
 
 template <int DP>
 struct Smem {
+  static constexpr int kStages = DP > 128 ? 2 : 4;     // K/V ring depth (see the note above)
   static constexpr int kPanels = (DP + kPanelCols - 1) / kPanelCols;
   static constexpr int kTile = kPanels * kPanelBytes;  // one 64-row tile, all panels
   static constexpr int kQ = 0;                          // a Q tile per consumer
@@ -201,7 +213,8 @@ __device__ __forceinline__ Item item_at(int w, int H, int B, int Sq, int Sk, int
   return it;
 }
 
-// DP: head_dim rounded up to a multiple of 16 (the wgmma k-step).  A
+// DP: head_dim rounded up to a multiple of 16 (the wgmma k-step), or 192
+// past 128.  A
 // persistent block walks the work items blockIdx.x, blockIdx.x + gridDim.x,
 // ...; the K/V ring and the barriers' phases run on across items, so the
 // producer loads the next item's Q and K/V while the consumers finish this one.
@@ -220,6 +233,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_q_full = base + L::kBars;
   const uint32_t bar_q_empty = bar_q_full + 8;
   const uint32_t bar_full = bar_q_empty + 8;          // + 8 * stage
+  constexpr int kStages = L::kStages;
   const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
   const int n_items = (Sq + kConsumers * kRows - 1) / (kConsumers * kRows) * H * B;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -426,7 +440,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 // thread t), so the four read 64 contiguous bytes of a K or V row and the
 // 16 rows of a warp read the same ones (a broadcast).  K/V tiles of 16 keys
 // of the row's KV head stream through a three-stage ring in shared memory
-// (48 KB at D = 128, so no attribute is needed) by 16-byte `cp.async` where
+// (48 KB at D = 128; 72 KB at D = 192, past the 48 KB a launch has
+// without opting in, so `launch_f32` sets the attribute for the instances
+// that may need it) by 16-byte `cp.async` where
 // the tensors allow it, 4-byte copies else; keys past Sk are zero-filled.  A
 // score is the thread's partial dot product summed over the four threads by
 // two shuffles; the online softmax keeps f32 m, l and the accumulator, in
@@ -468,7 +484,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// NC: 4-column chunks a thread owns (ceil(Dp / 16)); VB: the cp.async width
+// NC: 4-column chunks a thread owns (ceil(Dp / 16), or 12 for any Dp in
+// (128, 192]: the chunks past Dp are skipped); VB: the cp.async width
 template <int NC, int VB>
 __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const F32Args a) {
   extern __shared__ __align__(16) float ring[];
@@ -675,10 +692,31 @@ int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int Sq, int Sk, f
   return static_cast<int>(cudaGetLastError());
 }
 
+// the ring's most shared memory at NC (Dp = 16 NC) past the 48 KB a launch
+// has by default: opted in once per instance and device
+template <int NC, int VB>
+cudaError_t f32_smem_attr() {
+  constexpr int kMax = kF32Stages * 2 * kF32Keys * 16 * NC * static_cast<int>(sizeof(float));
+  if constexpr (kMax <= 48 * 1024) {
+    return cudaSuccess;
+  } else {
+    static bool attr_set[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess || (dev < kMaxDevices && attr_set[dev])) return err;
+    err = cudaFuncSetAttribute(flash_f32_kernel<NC, VB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMax);
+    if (err == cudaSuccess && dev < kMaxDevices) attr_set[dev] = true;
+    return err;
+  }
+}
+
 template <int NC>
 int launch_f32(const F32Args& a, int B, bool vec, cudaStream_t st) {
   const int smem = kF32Stages * 2 * kF32Keys * a.Dp * static_cast<int>(sizeof(float));
   const dim3 grid((a.Sq + kF32Rows - 1) / kF32Rows, a.H, B);
+  cudaError_t err = vec ? f32_smem_attr<NC, 16>() : f32_smem_attr<NC, 4>();
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (vec)
     flash_f32_kernel<NC, 16><<<grid, kF32Threads, smem, st>>>(a);
   else
@@ -719,7 +757,8 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
     case 5: return launch<80>(maps, B, H, KH, Sq, Sk, scale, causal, st);
     case 6: return launch<96>(maps, B, H, KH, Sq, Sk, scale, causal, st);
     case 7: return launch<112>(maps, B, H, KH, Sq, Sk, scale, causal, st);
-    default: return launch<128>(maps, B, H, KH, Sq, Sk, scale, causal, st);
+    case 8: return launch<128>(maps, B, H, KH, Sq, Sk, scale, causal, st);
+    default: return launch<192>(maps, B, H, KH, Sq, Sk, scale, causal, st);  // (128, 192]
   }
 }
 
@@ -762,6 +801,7 @@ extern "C" int fa_forward_f32(const void* q, const void* k, const void* v, void*
     case 5: return launch_f32<5>(a, B, vec, st);
     case 6: return launch_f32<6>(a, B, vec, st);
     case 7: return launch_f32<7>(a, B, vec, st);
-    default: return launch_f32<8>(a, B, vec, st);
+    case 8: return launch_f32<8>(a, B, vec, st);
+    default: return launch_f32<12>(a, B, vec, st);  // (128, 192]
   }
 }

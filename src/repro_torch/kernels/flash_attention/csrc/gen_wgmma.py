@@ -8,13 +8,16 @@ changing the shapes:  python3 gen_wgmma.py
 from pathlib import Path
 
 SS_N = 64  # the one N the Q.K^T product uses (64 keys a tile)
+# the N of the P.V product: each padded head_dim up to 128, then 192, which
+# takes every head_dim in (128, 192]
+RS_N = tuple(range(16, 129, 16)) + (192,)
 
 HEADER = """\
 // Generated by gen_wgmma.py; do not edit.  Inline-PTX `wgmma` for sm_90a:
 // bf16 operands, f32 accumulator, m64, k16.
 //   Wgmma<N>::rs: A from registers (four bf16x2 a thread), B from shared
-//                 memory, MN-major (the transpose bit set); N = 16, 32, ... 128,
-//                 the P.V product at every padded head_dim.
+//                 memory, MN-major (the transpose bit set); N = 16, 32, ... 128
+//                 and 192, the P.V product at every padded head_dim.
 //   Wgmma<64>::ss: A and B from shared memory through descriptors, both
 //                 K-major; the Q.K^T product of 64 keys.
 // scale_d == 0 overwrites the accumulator; 1 adds to it.
@@ -61,5 +64,5 @@ def shape(n: int) -> str:
 
 
 if __name__ == "__main__":
-    body = HEADER + "\n" + "\n".join(shape(n) for n in range(16, 129, 16))
+    body = HEADER + "\n" + "\n".join(shape(n) for n in RS_N)
     Path(__file__).with_name("wgmma.cuh").write_text(body)

@@ -19,7 +19,8 @@ Queries and keys may differ in length (Sq, Sk), as in the Pallas kernel,
 and the causal mask is aligned as there, top-left: query row i sees keys
 0..i (`chunked_attention` at `q_offset=0`; the kernel's `ref.py` aligns it
 bottom-right, which agrees only when Sq == Sk).  Any other mismatch of
-shapes raises.
+shapes raises.  head_dim may be up to 192 (MLA's q and k); in the model
+layout, v may be narrower than q and k (MLA's 128-wide values).
 """
 
 from __future__ import annotations
@@ -27,11 +28,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from .. import _lib
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # two 64-column panels; kMaxD in the source
+MAX_HEAD_DIM = 192  # three 64-column panels; kMaxD in the source
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -130,15 +132,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True) -> torch.Tensor:
-    """Attention in the model layout: q (B, Tq, H, D), k/v (B, Tk, KH, D)
-    -> (B, Tq, H, D)."""
+    """Attention in the model layout: q (B, Tq, H, D), k (B, Tk, KH, D),
+    v (B, Tk, KH, Dv) with Dv <= D -> (B, Tq, H, Dv).  A narrower v (MLA's
+    values against its 192-wide q and k) is zero-padded to D and the
+    output sliced back to Dv: exact, since the padded columns carry zeros;
+    the scale stays D**-0.5 of q, as in `chunked_attention`."""
+    Dv = v.shape[-1]
+    if Dv < q.shape[-1]:
+        v = F.pad(v, (0, q.shape[-1] - Dv))
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if not _lib.route(q, k, v):
-        return flash_attention_plain(qh, kh, vh, causal).transpose(1, 2)
-    D = _check_shapes(qh, kh, vh)[3]
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(qh, kh, vh, out.transpose(1, 2), causal, D ** -0.5)
-    return out
+        out = flash_attention_plain(qh, kh, vh, causal).transpose(1, 2)
+    else:
+        D = _check_shapes(qh, kh, vh)[3]
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _launch(qh, kh, vh, out.transpose(1, 2), causal, D ** -0.5)
+    return out[..., :Dv]
 
 
 flash_attention.launches = 0

@@ -134,6 +134,17 @@ def _shrink_pattern(pattern: str) -> str:
 # ----------------------------------------------------------------------------
 
 
+# A leaf of more elements is drawn in slices along its leading axis, each
+# scaled and cast into the result in turn, so the f32 draw never holds the
+# whole leaf: one llama4-maverick-400b-a17b expert leaf (128, 5120, 8192)
+# drawn whole is a 21.5 GB f32 draw and a second 21.5 GB temporary for its
+# scaling, beside its 10.7 GB in bf16; its embedding and head (1.04e9
+# elements each) 8.3 GB of f32 temporaries.  Every leaf of the other
+# families' configs is at most qwen3-14b's embedding (7.8e8 elements) and
+# drawn whole, as before the slices.
+SLICE_ELEMS = 800_000_000
+
+
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
@@ -157,8 +168,17 @@ class ParamDef:
         if self.init == "ones":
             return torch.ones(self.shape, dtype=self.dtype, device=device)
         scale = self.scale if self.scale is not None else 1.0 / math.sqrt(self.fan_in())
-        x = torch.randn(self.shape, generator=generator, dtype=torch.float32, device=device)
-        return (x * scale).to(self.dtype)
+        n = math.prod(self.shape)
+        if n <= SLICE_ELEMS:
+            x = torch.randn(self.shape, generator=generator, dtype=torch.float32, device=device)
+            return (x * scale).to(self.dtype)
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        rows = max(1, SLICE_ELEMS // (n // self.shape[0]))
+        for i in range(0, self.shape[0], rows):
+            part = out[i:i + rows]
+            x = torch.randn(part.shape, generator=generator, dtype=torch.float32, device=device)
+            part.copy_(x.mul_(scale))
+        return out
 
 
 class ParamTree(torch.nn.Module):

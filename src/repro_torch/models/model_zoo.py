@@ -1,6 +1,7 @@
-"""Model interface over the ported architectures: the dense family and the
-VLM (llava-next, a dense backbone after precomputed patch embeddings), the
-recurrent ones (the Mamba2 hybrid zamba2-2.7b, xLSTM) and the
+"""Model interface over every architecture of the registry: the dense family
+and the VLM (llava-next, a dense backbone after precomputed patch
+embeddings), the MoE family (llama4's GQA + MoE, deepseek-v3's MLA + MoE +
+MTP), the recurrent ones (the Mamba2 hybrid zamba2-2.7b, xLSTM) and the
 encoder-decoder (seamless-m4t, over precomputed frame embeddings).
 
 `build_model(cfg)` returns a `Model` whose methods cover what serving needs:
@@ -8,8 +9,7 @@ encoder-decoder (seamless-m4t, over precomputed frame embeddings).
 `prefill` and `decode_step` (the reference's signatures, plus the `ops`
 that pick kernels or plain math, and `init_cache`'s device), and `layer_costs` — the analytic
 per-layer profile the PPipe control plane consumes, equal to the
-reference's for the same config of every family (MoE and MLA included,
-which `build_model` does not run yet).  As in the reference, `forward` and
+reference's for the same config of every family.  As in the reference, `forward` and
 `prefill` read a VLM's `batch["patches"]` and an enc-dec's
 `batch["frames"]`.
 """
@@ -24,18 +24,19 @@ import torch
 from repro_torch.core import costmodel as cm
 from repro_torch.core.types import LayerCost
 
-from . import deepseek, encdec, hybrid, transformer as tfm
+from . import deepseek, encdec, hybrid, moe, transformer as tfm
 from .common import KERNELS, ModelConfig, Ops, ParamTree, init_params
 
-PORTED_FAMILIES = ("dense", "vlm", "hybrid", "ssm", "audio")
-_MODULES = {"dense": tfm, "vlm": tfm, "hybrid": hybrid, "ssm": hybrid, "audio": encdec}
+PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "audio")
+_MODULES = {"dense": tfm, "vlm": tfm, "moe": moe, "hybrid": hybrid, "ssm": hybrid,
+            "audio": encdec}
 
 
 @dataclass
 class Model:
     cfg: ModelConfig
     defs: dict
-    mod: ModuleType  # models.transformer, models.hybrid or models.encdec
+    mod: ModuleType  # models.transformer, moe, deepseek, hybrid or encdec
 
     def init(self, generator: torch.Generator) -> ParamTree:
         """Parameters on the generator's device, with the reference's init
@@ -83,7 +84,8 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    mod = _MODULES[cfg.family]
+    # the MoE family: deepseek's MLA layers, or llama4's GQA ones
+    mod = deepseek if cfg.family == "moe" and cfg.mla else _MODULES[cfg.family]
     return Model(cfg=cfg, defs=mod.model_defs(cfg), mod=mod)
 
 
@@ -101,8 +103,7 @@ def layer_costs(cfg: ModelConfig, seq: int) -> list[LayerCost]:
     """Per-layer (flops, bytes, boundary size) at batch 1 for pre-partitioning.
 
     One entry per schedulable unit: frontend/embedding, each
-    sequence-mixing+FFN layer, final norm + head.  Every family, including
-    those `build_model` does not run yet.
+    sequence-mixing+FFN layer, final norm + head.
     """
     d, dff, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     out: list[LayerCost] = [cm.embed_cost(seq, d, V)]

@@ -21,16 +21,27 @@ def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu") -> ParamTree:
-    """The reference's parameter tree (numpy, f32) as the port's `ParamTree`
-    on `device`, each leaf in the dtype of its own `ParamDef` (the Mamba2
-    `A_log`, `D` and `dt_bias` stay f32 under a bf16 config).
+    """The reference's parameter tree (numpy, f32) of a whole model of
+    `cfg` as the port's `ParamTree` on `device`: `tree_from_numpy` against
+    the port's model templates."""
+    return tree_from_numpy(tree, build_model(cfg).defs, device)
+
+
+def tree_from_numpy(tree: dict, defs: dict, device="cpu") -> ParamTree:
+    """A reference parameter tree (numpy, f32) as the port's `ParamTree`
+    of the templates `defs` on `device`, each leaf in the dtype of its own
+    `ParamDef` (the Mamba2 `A_log`, `D` and `dt_bias` stay f32 under a bf16
+    config).
 
     The tree is walked beside the port's templates: where the port keeps a
     list of per-layer templates, the reference keeps one stacked array per
     leaf, so a list of n templates takes the reference subtree apart along
-    its leading axis of n.  The dense `layers` (L, ...) become a list of L
-    trees, the hybrid `inner` (G, K, ...) a list of G lists of K trees;
-    `shared_attn` is unstacked on both sides."""
+    its leading axis of n.  The dense and MoE `layers` (L, ...), deepseek's
+    `dense_layers` and `moe_layers` (their expert leaves (L, E, d, ff)) and
+    the enc-dec's stacks become lists of L trees, the hybrid `inner` (G, K,
+    ...) a list of G lists of K trees; `shared_attn` and deepseek's
+    `mtp.layer` are unstacked on both sides, and the MoE `router` stays
+    f32 as its template says."""
 
     def convert(node, defs):
         if isinstance(defs, ParamDef):
@@ -50,7 +61,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu") -> ParamTree:
             raise ValueError(f"stacked leaf has {node.shape[0]} entries, the port {n}")
         return node[i]
 
-    return ParamTree(convert(tree, build_model(cfg).defs))
+    return ParamTree(convert(tree, defs))
 
 
 def tol(dtype) -> dict:

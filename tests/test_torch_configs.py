@@ -66,12 +66,16 @@ def test_sim_profile_equals_reference(arch):
 
 
 def test_build_model_runs_the_ported_families_only():
-    """xLSTM, the VLM and the enc-dec build; MoE and MLA still raise (their
-    model code waits for later slices), though `layer_costs` prices them."""
-    for arch, family in (("xlstm-1.3b", "ssm"), ("llava-next-34b", "vlm"),
-                         ("seamless-m4t-large-v2", "audio")):
-        assert build_model(get_config(arch).reduced()).cfg.family == family
-        assert family in PORTED_FAMILIES
-    for arch in ("llama4-maverick-400b-a17b", "deepseek-v3-671b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(get_config(arch).reduced())
+    """Every family of the registry is ported and builds, full size and
+    reduced; the MoE family picks deepseek's MLA module or llama4's GQA one
+    by `mla`, as the reference does.  A family outside the registry raises."""
+    from repro_torch.models import deepseek, moe
+
+    assert {get_config(a).family for a in ARCH_IDS} <= set(PORTED_FAMILIES)
+    for arch in ARCH_IDS:
+        for cfg in (get_config(arch), get_config(arch).reduced()):
+            assert build_model(cfg).cfg.family == cfg.family
+    assert build_model(get_config("deepseek-v3-671b")).mod is deepseek
+    assert build_model(get_config("llama4-maverick-400b-a17b")).mod is moe
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_model(dataclasses.replace(get_config("stablelm-3b"), family="retrieval"))

@@ -56,6 +56,9 @@ def _on(device, seed, shape, dtype, scale=1.0):
                                         (1, 8, 8, 512, 80),    # eight K/V tiles through the ring
                                         (2, 4, 2, 1, 64),      # one token
                                         (2, 4, 4, 190, 64),    # one active warpgroup at the end
+                                        (1, 8, 8, 300, 192),   # MLA's width: three panels, 2 stages
+                                        (2, 10, 2, 200, 160),  # in (128, 192): zero-filled columns
+                                        (1, 4, 4, 1, 192),     # one token at 192
                                         ])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, KH, S, D):
     dtype = torch.bfloat16
@@ -75,7 +78,9 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, KH, S, D):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("B,H,KH,S,D", [(2, 4, 2, 256, 64), (1, 8, 8, 128, 128),
-                                        (2, 6, 2, 384, 128), (1, 2, 1, 512, 64)])
+                                        (2, 6, 2, 384, 128), (1, 2, 1, 512, 64),
+                                        (1, 8, 8, 200, 192),   # MLA's width: 72 KB ring
+                                        (1, 4, 2, 130, 136)])  # Dp 136 of the 192 instance
 def test_flash_attention_f32_kernel_matches_plain(cuda, B, H, KH, S, D):
     """The f32 route (CUDA-core FMAs) at tests/test_kernels.py's four shapes
     and its f32 bound, 3e-5, against the plain version in f32 (TF32 off,
@@ -137,6 +142,27 @@ def test_flash_attention_kernel_unequal_lengths_match_plain(cuda, B, H, KH, Sq, 
     bthd = fa.attention_bthd(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                              v.transpose(1, 2).contiguous(), causal=causal)
     np.testing.assert_array_equal(_np(bthd.transpose(1, 2).cpu()), _np(got.cpu()))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_kernel_narrower_v(cuda, causal, dtype):
+    """MLA's layout on the card: q and k (B, T, H, 192), v 128 wide; the
+    wrapper pads v and slices the output, one launch, against the plain
+    version on the same padded v."""
+    q = _on(cuda, 80, (2, 130, 8, 192), dtype)
+    k = _on(cuda, 81, (2, 130, 8, 192), dtype)
+    v = _on(cuda, 82, (2, 130, 8, 128), dtype)
+    before = fa.flash_attention.launches
+    got = fa.attention_bthd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1 and got.shape == (2, 130, 8, 128)
+    vp = torch.nn.functional.pad(v, (0, 64))
+    want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), vp.transpose(1, 2),
+                                    causal=causal).transpose(1, 2)[..., :128]
+    bound = tol(dtype) if dtype == torch.float32 else attn_tol(dtype)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **bound)
 
 
 @pytest.mark.requires_cuda
@@ -419,6 +445,7 @@ def test_encdec_through_kernels(cuda):
     (1, 1024, 8, 1, 80, 40),    # seven of eight splits empty
     (2, 1024, 4, 2, 80, (1, 1024)),  # per-row lengths: one row at 1, one full
     (1, 4096, 8, 1, 128, 4000),  # 8 splits of 512, head_dim 128, 8 warps a block
+    (2, 528, 8, 5, 128, 528),   # llama4-maverick-400b-a17b decode (G = 5): split path
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_decode_attention_kernel_matches_plain(cuda, B, S, KH, G, D, kv_len, dtype):
@@ -450,6 +477,76 @@ def test_decode_attention_kernel_masks_tail(cuda):
     out2 = da.decode_attention_bthd(q, k, v, 100)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(_np(out1.cpu()), _np(out2.cpu()))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "deepseek-v3-671b"])
+def test_moe_models_through_kernels(cuda, arch):
+    """A reduced MoE model on the card: its forward launches rmsnorm for
+    every norm (two a layer and the final one; MLA's q_a_norm and kv_a_norm
+    besides) and flash attention once a layer (MLA with v narrower than q
+    and k), llama4's decode steps decode attention once a layer (deepseek's
+    absorbed MLA none) and no step makes the host wait for the card (the
+    dispatch reads no routing on the host), and prefill + 3 steps equal the forward (f32, the
+    reduced capacity factor drops nothing); the MoE FFN on the card equals
+    the same on the CPU (f32, 1e-5 of scale); each layer through the
+    kernels within 5e-2 of scale of the plain math from the same input."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import deepseek, moe, transformer as tfm
+    from repro_torch.models.common import KERNELS, PLAIN
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config(arch).reduced(dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))).to(cuda)
+    n_rms, n_fa, n_da = rn.rmsnorm.launches, fa.flash_attention.launches, \
+        da.decode_attention.launches
+    full = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    norms = 2 + 2 * cfg.mla
+    assert rn.rmsnorm.launches - n_rms == norms * cfg.n_layers + 1
+    assert fa.flash_attention.launches - n_fa == cfg.n_layers
+    lg, cache = model.prefill(params, {"tokens": tokens[:, :36]}, max_len=40)
+    steps = [lg[:, 0]]
+    positions = [torch.tensor(i, device=cuda) for i in range(36, 39)]
+    torch.cuda.set_sync_debug_mode("error")  # the steps make the host wait for nothing
+    try:
+        for i, pos in zip(range(36, 39), positions):
+            lg, cache = model.decode_step(params, tokens[:, i:i + 1], cache, pos)
+            steps.append(lg[:, 0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches - n_da == (0 if cfg.mla else 3 * cfg.n_layers)
+    np.testing.assert_allclose(_np(torch.stack(steps, 1).cpu()), _np(full[:, 35:39].cpu()),
+                               rtol=1e-4, atol=1e-4 * float(full.abs().max()))
+
+    mod = deepseek if cfg.mla else moe
+    layers = deepseek.layers(params) if cfg.mla else params["layers"]
+    lp = layers[-1]
+    x = _on(cuda, 90, (2, 40, cfg.d_model), torch.float32)
+    got = moe.moe_ffn(cfg, KERNELS, lp["moe"], x)
+    cpu = moe.moe_ffn(cfg, PLAIN, _cpu_tree(lp["moe"]), x.cpu())
+    np.testing.assert_allclose(_np(got.cpu()), _np(cpu), rtol=1e-5,
+                               atol=1e-5 * float(cpu.abs().max()))
+    x = tfm.embed_tokens(cfg, params, tokens)
+    pos = tfm.positions_for(x)
+    for lp in layers:
+        got, _ = mod.layer_full(cfg, KERNELS, lp, x, pos)
+        want, _ = mod.layer_full(cfg, PLAIN, lp, x, pos)
+        assert (got - want).abs().max() <= 5e-2 * want.abs().max()
+        x = got
+
+
+def _cpu_tree(tree):
+    """A ParamTree's leaves copied to the CPU as a nested dict."""
+    out = {}
+    for name, p in tree.named_parameters(recurse=False):
+        out[name] = p.detach().cpu()
+    for name, child in tree.named_children():
+        out[name] = _cpu_tree(child)
+    return out
 
 
 @pytest.mark.requires_cuda

@@ -24,7 +24,7 @@ from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.rmsnorm import ops as rn
 from repro_torch.kernels.ssd_scan import ops as ssd
-from repro_torch.testing.parity import tol
+from repro_torch.testing.parity import attn_tol, tol
 
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
 
@@ -79,6 +79,49 @@ def test_flash_attention_model_layout_and_ragged_seq():
     want = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     assert got.shape == (2, 12, 4, 80)
     np.testing.assert_array_equal(_np(got), _np(want.transpose(1, 2)))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_plain_head_dim_192_matches_pallas(causal, dtypes):
+    """deepseek-v3's MLA width, qk_nope + qk_rope = 192, which the Pallas
+    kernel takes as any other head_dim (one D for q, k and v)."""
+    jdt, tdt = dtypes
+    q, tq = _pair(_normal(50, (1, 4, 256, 192)), jdt, tdt)
+    k, tk = _pair(_normal(51, (1, 4, 256, 192)), jdt, tdt)
+    v, tv = _pair(_normal(52, (1, 4, 256, 192)), jdt, tdt)
+    want = np.asarray(fa_k.flash_attention(q, k, v, causal=causal, interpret=True), np.float32)
+    got = fa.flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == (1, 4, 256, 192) and got.dtype == tdt
+    np.testing.assert_allclose(_np(got), want, **tol(tdt))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_narrower_v_matches_chunked_attention(causal, dtypes):
+    """MLA's layout: q and k 192 wide, v 128 (B, T, H, D).  The wrapper pads
+    v with zeros to 192 and slices the output back, against the reference's
+    `chunked_attention`, which takes Dv != D itself, at its scale
+    1/sqrt(192)."""
+    jdt, tdt = dtypes
+    q, tq = _pair(_normal(53, (2, 40, 4, 192)), jdt, tdt)
+    k, tk = _pair(_normal(54, (2, 40, 4, 192)), jdt, tdt)
+    v, tv = _pair(_normal(55, (2, 40, 4, 128)), jdt, tdt)
+    want = np.asarray(ref_common.chunked_attention(q, k, v, causal=causal, q_offset=0,
+                                                   q_chunk=16, k_chunk=16), np.float32)
+    got = fa.attention_bthd(tq, tk, tv, causal=causal)
+    assert got.shape == (2, 40, 4, 128) and got.dtype == tdt
+    bound = tol(tdt) if tdt == torch.float32 else attn_tol(tdt)
+    np.testing.assert_allclose(_np(got), want, **bound)
+    # exact: the padded columns carry zeros
+    padded = fa.attention_bthd(tq, tk, torch.nn.functional.pad(tv, (0, 64)), causal=causal)
+    np.testing.assert_array_equal(_np(padded[..., :128]), _np(got))
+
+
+def test_flash_attention_refuses_a_wider_v():
+    q = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="bad shapes"):
+        fa.attention_bthd(q, q, torch.zeros(1, 8, 2, 80))
 
 
 # (Sq, Sk): shapes the Pallas kernel's 128-blocks divide, either longer
