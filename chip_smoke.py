@@ -78,6 +78,23 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    prefill of each model reads its device busy share and top kernels, and
    each run logs its peak device memory.
 
+6. train (`[train]` lines): (a) qwen2-1.5b at full width and depth (28
+   layers, 1.78 B parameters, random weights from a seed) for eight steps
+   of the port's `make_train_step` (AdamW, remat, two micro-batches of
+   4 x 1024 tokens from `TokenPipeline`), every loss and gradient norm
+   finite, with each step's time, the peak memory, tokens/s, the launches
+   of each kernel a step (the rmsnorm and flash attention forwards through
+   their autograd routes, their backward kernels, as many as the layers
+   make) and one step's device busy share; (b) one loss and its gradients
+   at full width and 2 of 28 layers through the kernels and through the
+   plain math, every leaf within 5e-2 of its scale; (c) the elastic loop
+   of `repro_torch.examples.train_small` on the card, 150 steps with
+   checkpoints every 50 and a failure at step 120: the loss falls, and the
+   losses after the restore equal an uninjected run's.  Phase 2 also
+   holds the backward kernels (`rmsnorm_backward`, flash attention's
+   LSE-writing forward and its backward) against their plain backward run
+   in f32, at the train shapes and the serve's or a G = 1 one.
+
 With `--parent ROOT` (another tree of the repository, such as the parent
 commit unpacked), every kernel that tree has is built too, timed in turns
 with this tree's at the same inputs, and run in a second profiled prefill
@@ -158,6 +175,8 @@ BF16X2_FLOP_S = BF16_FLOP_S / 2
 BF16X6_FLOP_S = BF16_FLOP_S / 6
 F32_FLOP_S = 67e12
 
+# The backward kernels have no Pallas counterpart: the reference takes their
+# gradients with jax.grad through its plain math (the line each replaces).
 KERNEL_SOURCES = {
     "quantize": ("src/repro_torch/kernels/boundary_quant/csrc/boundary_quant.cu",
                  "src/repro/kernels/boundary_quant/kernel.py:32"),
@@ -171,8 +190,22 @@ KERNEL_SOURCES = {
                          "src/repro/kernels/decode_attention/kernel.py:61"),
     "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:75"),
+    "rmsnorm_backward": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                         "src/repro/models/common.py:266"),
+    "flash_attention_forward_lse": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:70"),
+    "flash_attention_backward": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/models/common.py:326"),
 }
 KERNEL_NAMES = tuple(KERNEL_SOURCES)
+# the training run of phase 6: qwen2-1.5b at full width and depth, AdamW,
+# remat, two micro-batches of 4 x 1024 tokens a step
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 8, 1024, 8, 2
+GRAD_PARITY_LAYERS = 2  # phase 6b's cut of qwen2-1.5b's 28 layers
+ELASTIC_STEPS, ELASTIC_FAIL_AT, ELASTIC_CKPT_EVERY = 150, 120, 50
 
 
 def log(msg: str) -> None:
@@ -312,6 +345,9 @@ def phase_kernels(dev, parent) -> dict:
 
     res["decode_attention"] = check_decode_attention(dev, g, err, parent)
     res["ssd_scan"] = check_ssd_scan(dev, g, err, parent)
+    res["rmsnorm_backward"] = check_rmsnorm_backward(dev, g)
+    res["flash_attention_forward_lse"], res["flash_attention_backward"] = \
+        check_flash_backward(dev, g)
     for name, r in res.items():
         lib_us = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f} us"
         log(f"[kernels] {name}: max|err| {r['max_abs_err']:.3g} (tol {r['tol']}), "
@@ -457,6 +493,7 @@ def rmsnorm_shapes() -> list[tuple[str, int, int]]:
             ("seamless-m4t-large-v2 decode", sb, 1024),
             ("llava-next-34b prefill", lb * (patches + ls), 7168),
             ("llava-next-34b decode", lb, 7168)] + moe_rmsnorm_shapes() + [
+            train_rows(), small_train_rows(),
             ("qwen3-14b qk_norm (no smoke path)", 8 * 128 * 40, 128)]
 
 
@@ -560,6 +597,194 @@ def check_flash_attention(dev, g, err, parent) -> dict:
     shapes.append(check_flash_f32(dev, g, err))
     shapes += check_flash_models(dev, g, err)
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
+
+
+# ------------------------------------------------- phase 2: backward kernels
+
+
+def grad_shapes_rmsnorm() -> list[tuple[str, int, int]]:
+    """(what, rows, D): the shapes phase 6 launches the backward at, one
+    micro-batch a launch (qwen2-1.5b's 4 x 1024 tokens, 4096 rows of 1536;
+    `train_small`'s 4 x 128 of 512), and the serve's, where no backward
+    runs."""
+    return [train_rows(), small_train_rows(), ("serve", BATCH * SEQ, 2560)]
+
+
+def train_rows() -> tuple[str, int, int]:
+    """(what, rows, D) of phase 6a's norms: one micro-batch of qwen2-1.5b."""
+    from repro_torch.configs import get_config
+
+    return (f"{TRAIN_ARCH} train", TRAIN_BATCH // TRAIN_ACCUM * TRAIN_SEQ,
+            get_config(TRAIN_ARCH).d_model)
+
+
+def small_train_rows() -> tuple[str, int, int]:
+    """(what, rows, D) of phase 6c's norms: one micro-batch of `train_small`."""
+    from repro_torch.examples.train_small import ACCUM, BATCH as B, SEQ as S, small_config
+
+    return ("train_small train", B // ACCUM * S, small_config().d_model)
+
+
+def grad_shapes_flash() -> list[tuple[str, int, int, int, int, int]]:
+    """(what, B, S, H, KH, D): qwen2-1.5b's micro-batch (4, 1024, 12/2, 128),
+    causal, and a G = 1 shape."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    return [(f"{TRAIN_ARCH} train", mb, TRAIN_SEQ, cfg.n_heads, cfg.kv_heads, cfg.hd),
+            ("G = 1", 2, 1024, 8, 8, 128)]
+
+
+def check_rmsnorm_backward(dev, g) -> dict:
+    """`rmsnorm_backward` at `grad_shapes_rmsnorm`: dx and dw against the
+    plain backward run in f32 from the same bf16 inputs, each within
+    GRAD_TOL of that result's max |value| (the plain backward in bf16,
+    autograd through the plain forward, logged beside it); bit-equal run to
+    run; timed beside its bound, the plain backward and F.rms_norm's
+    backward.  The line's numbers are the train shape's."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.testing.parity import GRAD_TOL, assert_grad_close, grad_gap
+
+    bf16 = torch.bfloat16
+    shapes = []
+    for what, N, D in grad_shapes_rmsnorm():
+        x = (torch.randn(N, D, generator=g, device=dev) * 3).to(bf16)
+        w = torch.randn(D, generator=g, device=dev).to(bf16)
+        dy = torch.randn(N, D, generator=g, device=dev).to(bf16)
+        got, again = rn.rmsnorm_backward(x, w, dy), rn.rmsnorm_backward(x, w, dy)
+        want = rn.rmsnorm_backward_plain(x.float(), w.float(), dy.float())
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        plain_bf16 = torch.autograd.grad(rn.rmsnorm_plain(xr, wr), (xr, wr), dy)
+        torch.cuda.synchronize()
+        gaps = [assert_grad_close(a, b, f"rmsnorm_backward {n} ({what})")
+                for n, a, b in zip(("dx", "dw"), got, want)]
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"rmsnorm_backward ({what}): two calls differ")
+        plain_gaps = [grad_gap(a, b) for a, b in zip(plain_bf16, want)]
+        yl = F.rms_norm(xr, (D,), wr, 1e-5)
+        b_ms, b_by = bound_ms(3 * N * D * 2 + 2 * D * 2, (10.0 * N * D, F32_FLOP_S))
+        r = dict(shape=[N, D], what=what, max_abs_err=max(gaps), tol=GRAD_TOL,
+                 ms=time_ms(lambda: rn.rmsnorm_backward(x, w, dy)), parent_ms=None,
+                 # ten calls: fifty of these chains of small kernels would fill
+                 # the launch queue behind the device sleep
+                 plain_ms=time_ms(lambda: rn.rmsnorm_backward_plain(x, w, dy), iters=10,
+                                  warmup=2),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=time_ms(lambda: torch.autograd.grad(yl, (xr, wr), dy,
+                                                                retain_graph=True), iters=10),
+                 host_ms=host_ms(lambda: rn.rmsnorm_backward(x, w, dy)),
+                 plan=list(rn.backward_plan(N, D, 2, torch.cuda.get_device_properties(
+                     dev).multi_processor_count)))
+        log(f"[kernels] rmsnorm_backward at the {what} shape ({N}, {D}) bf16, {r['plan'][0]} "
+            f"blocks, {r['plan'][1]} dw partial rows: {r['ms'] * 1e3:.3f} us vs bound "
+            f"{b_ms * 1e3:.3f} us ({b_by}), F.rms_norm backward {r['library_ms'] * 1e3:.3f} us, "
+            f"plain {r['plain_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; "
+            f"dx, dw within {gaps[0]:.3g}, {gaps[1]:.3g} of the f32 plain backward's max "
+            f"|value| (tol {GRAD_TOL}; the plain backward in bf16: {plain_gaps[0]:.3g}, "
+            f"{plain_gaps[1]:.3g}); bit-equal run to run")
+        shapes.append(r)
+        del x, w, dy, got, again, want, xr, wr, plain_bf16, yl
+    return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
+
+
+def check_flash_backward(dev, g) -> tuple[dict, dict]:
+    """At `grad_shapes_flash`, causal bf16: the LSE forward's output equals
+    `fa_forward`'s bit for bit and its lse the plain one; dq, dk and dv
+    against the plain backward run in f32, each within GRAD_TOL of that
+    result's max |value| (autograd through the plain forward in bf16
+    logged beside it); bit-equal run to run.  The LSE forward is timed
+    beside `fa_forward` at the same inputs, the backward (three launches)
+    beside its bound, the plain backward and SDPA's backward (enable_gqa).
+    Returns the rows of both entries, the train shape's first."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.testing.parity import GRAD_TOL, assert_grad_close, flash_grads_f32, grad_gap
+
+    bf16 = torch.bfloat16
+    fwd, bwd = [], []
+    for what, B, S, H, KH, D in grad_shapes_flash():
+        q, dout = (torch.randn(B, H, S, D, generator=g, device=dev).to(bf16) for _ in range(2))
+        k, v = (torch.randn(B, KH, S, D, generator=g, device=dev).to(bf16) for _ in range(2))
+        scale = D ** -0.5
+        o = torch.empty_like(q)
+        lse = fa.flash_attention_forward_lse(q, k, v, o, scale)
+        direct = fa.flash_attention(q, k, v)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        again = [torch.empty_like(t) for t in (q, k, v)]
+        fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale)
+        fa.flash_attention_backward(q, k, v, o, dout, lse, *again, scale)
+        want = flash_grads_f32(q, k, v, dout)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain_bf16 = torch.autograd.grad(fa.flash_attention_plain(*leaves), leaves, dout)
+        torch.cuda.synchronize()
+        if not torch.equal(o, direct):
+            raise AssertionError(f"flash_attention_forward_lse ({what}): output differs from "
+                                 f"fa_forward's")
+        lse_err = float((lse - fa.flash_attention_lse_plain(q, k)).abs().max())
+        if lse_err > 1e-3:
+            raise AssertionError(f"flash_attention_forward_lse ({what}): lse off by {lse_err}")
+        gaps = [assert_grad_close(a, b, f"flash_attention_backward {n} ({what})")
+                for n, a, b in zip(("dq", "dk", "dv"), grads, want)]
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"flash_attention_backward ({what}): two calls differ")
+        plain_gaps = [grad_gap(a, b) for a, b in zip(plain_bf16, want)]
+        del want, again, plain_bf16, leaves, direct
+        pairs = B * H * S * (S + 1) / 2
+        tensors_q, tensors_k = B * H * S * D * 2, B * KH * S * D * 2
+        f_ms, f_by = bound_ms(2 * tensors_q + 2 * tensors_k + B * H * S * 4,
+                              (4.0 * pairs * D, BF16_FLOP_S))
+        b_ms, b_by = bound_ms(4 * tensors_q + 4 * tensors_k + B * H * S * 4,
+                              (10.0 * pairs * D, BF16_FLOP_S))
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                             enable_gqa=H != KH)
+        lse_ms, fwd_ms = (time_ms(fn, iters=20) for fn in (
+            lambda: fa.flash_attention_forward_lse(q, k, v, o, scale),
+            lambda: fa._launch(q, k, v, o, True, scale)))
+        fwd.append(dict(
+            shape=[B, S, H, KH, D], what=what, max_abs_err=lse_err, tol=1e-3, ms=lse_ms,
+            parent_ms=None, fa_forward_ms=fwd_ms,
+            plain_ms=time_ms(lambda: (fa.flash_attention_plain(q, k, v),
+                                      fa.flash_attention_lse_plain(q, k)), iters=5, warmup=1),
+            bound_ms=f_ms, bound_by=f_by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=H != KH), iters=20),
+            host_ms=host_ms(lambda: fa.flash_attention_forward_lse(q, k, v, o, scale),
+                            calls=100)))
+        bwd.append(dict(
+            shape=[B, S, H, KH, D], what=what, max_abs_err=max(gaps), tol=GRAD_TOL,
+            ms=time_ms(lambda: fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale),
+                       iters=10),
+            parent_ms=None,
+            plain_ms=time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, o, dout, lse),
+                             iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), dout,
+                                                           retain_graph=True), iters=10),
+            host_ms=host_ms(lambda: fa.flash_attention_backward(q, k, v, o, dout, lse, *grads,
+                                                                scale), calls=20)))
+        log(f"[kernels] flash_attention_forward_lse at the {what} shape (B, S, H/KH, D) = "
+            f"({B}, {S}, {H}/{KH}, {D}) causal bf16: {lse_ms * 1e3:.3f} us against fa_forward's "
+            f"{fwd_ms * 1e3:.3f} us at the same inputs, bound {f_ms * 1e3:.3f} us ({f_by}), "
+            f"SDPA {fwd[-1]['library_ms'] * 1e3:.3f} us; output bit-equal to fa_forward's, lse "
+            f"within {lse_err:.3g} of the plain one")
+        log(f"[kernels] flash_attention_backward at the {what} shape: "
+            f"{bwd[-1]['ms'] * 1e3:.3f} us (Delta, dK/dV, dQ) vs bound {b_ms * 1e3:.3f} us "
+            f"({b_by}), SDPA backward {bwd[-1]['library_ms'] * 1e3:.3f} us, plain "
+            f"{bwd[-1]['plain_ms'] * 1e3:.3f} us; host {bwd[-1]['host_ms'] * 1e3:.3f} us a "
+            f"call; dq, dk, dv within {gaps[0]:.3g}, {gaps[1]:.3g}, {gaps[2]:.3g} of the f32 "
+            f"plain backward's max |value| (tol {GRAD_TOL}; autograd of the plain forward in "
+            f"bf16: {plain_gaps[0]:.3g}, {plain_gaps[1]:.3g}, {plain_gaps[2]:.3g}); bit-equal "
+            f"run to run")
+        del q, k, v, o, dout, lse, grads, ql, kl, vl, out
+    return (dict(fwd[0], max_abs_err=max(r["max_abs_err"] for r in fwd), shapes=fwd),
+            dict(bwd[0], max_abs_err=max(r["max_abs_err"] for r in bwd), shapes=bwd))
 
 
 # (B, H, KH, S, D) of tests/test_kernels.py's flash attention sweep
@@ -2529,6 +2754,197 @@ def phase_decode(serving: list, dev, parent) -> dict:
     return total
 
 
+# ----------------------------------------------------------------- phase 6
+
+
+def train_batch(pipe, step: int, dev) -> dict:
+    import torch
+
+    return {k: torch.as_tensor(v, device=dev) for k, v in pipe.batch_for(step).items()}
+
+
+def phase_train(dev) -> dict:
+    """6a: qwen2-1.5b at full width and depth, built on the card from a seed,
+    trained `TRAIN_STEPS` steps through the port's `make_train_step` (AdamW
+    at lr 1e-3, remat, `TRAIN_ACCUM` micro-batches) on `TokenPipeline` data;
+    every loss and gradient norm must be finite.  Logs each step's loss,
+    gradient norm and time, the peak device memory, tokens/s, the launches
+    of each kernel a step, and the device busy share of one more step under
+    the profiler.  Returns the launch counts of the counted steps."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.common import count_params
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+
+    cfg, model = model_for(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    opt = init_opt_state(params, opt_cfg)
+    step = make_train_step(model, opt_cfg, remat=True, accum_steps=TRAIN_ACCUM)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED)
+    n_params = count_params(model.defs)
+    log(f"[train] {TRAIN_ARCH} at full width and depth: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; {n_params / 1e9:.3f} B parameters ({n_params * 2 / 1e9:.2f} GB bf16, f32 "
+        f"moments {n_params * 8 / 1e9:.2f} GB; a checkpoint of both would write "
+        f"{n_params * 10 / 1e9:.2f} GB); AdamW lr 1e-3, remat, {TRAIN_ACCUM} micro-batches of "
+        f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ} tokens a step")
+    batches = [train_batch(pipe, i, dev) for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    reset_counts()
+    times = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batches[i])
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        times.append(time.perf_counter() - t0)
+        log(f"[train] step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+            f"{times[-1] * 1e3:.1f} ms")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"step {i}: loss {loss}, grad norm {gnorm}")
+    counts = read_counts()
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+    steady = times[1:]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"allocated; {tokens * len(steady) / sum(steady):.0f} tokens/s over steps 1-"
+        f"{TRAIN_STEPS - 1} ({sum(steady) / len(steady) * 1e3:.1f} ms a step; step 0 "
+        f"{times[0] * 1e3:.1f} ms); launches a step: {per_step}")
+    expect = {"rmsnorm": TRAIN_ACCUM * (2 * cfg.n_layers + 1 + 2 * cfg.n_layers),
+              "rmsnorm_backward": TRAIN_ACCUM * (2 * cfg.n_layers + 1),
+              "flash_attention_forward_lse": TRAIN_ACCUM * 2 * cfg.n_layers,
+              "flash_attention_backward": TRAIN_ACCUM * cfg.n_layers,
+              "flash_attention": 0}
+    for name, n in expect.items():
+        if counts.get(name, 0) != n * TRAIN_STEPS:
+            raise AssertionError(f"{name}: {counts.get(name, 0)} launches in {TRAIN_STEPS} "
+                                 f"steps, expected {n} a step")
+    state = [params, opt]
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], batches[TRAIN_STEPS])
+
+    share = busy_share(one_step, "train")
+    log(f"[train] device busy share of one step: "
+        f"{'not measured' if share is None else f'{share:.3f}'}")
+    del params, opt, state, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_grad_parity(dev) -> None:
+    """6b: qwen2-1.5b at full width, its first `GRAD_PARITY_LAYERS` layers:
+    one `Model.loss` and its gradients through `KERNELS` (the kernels'
+    autograd routes) and through `PLAIN` (autograd through the plain math)
+    on the same parameters and batch; every leaf's gradient within `tol`
+    (5e-2) of its own max |value|.  This is what fails if a kernel's output
+    leaves autograd's graph (its inputs would get no gradient through it).
+    The parameters are fan-in conditioned (`condition_fan_in`): at the
+    init's std of 1/sqrt(28) a 1536-wide projection scales its input by
+    about 7, the attention scores saturate, and the attention leaves'
+    bf16 gradients are rounding noise in either route (the plain math's
+    own bf16 gradients then stray from its f32 ones by more than their
+    scale, on the CPU at two layers)."""
+    import gc
+
+    import torch
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.common import KERNELS, PLAIN
+    from repro_torch.testing.parity import condition_fan_in, grad_gap, tol
+    from repro_torch.training.tree import leaves
+
+    cfg, model = model_for(TRAIN_ARCH, GRAD_PARITY_LAYERS)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED + 2))
+    condition_fan_in(params, model.defs)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH // TRAIN_ACCUM, seed=SEED + 2)
+    batch = train_batch(pipe, 0, dev)
+    names = [n for n, _ in sorted(params.named_parameters())]
+    trained = leaves(params)
+    for p in trained:
+        p.requires_grad_(True)
+    out = {}
+    for what, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+        loss = model.loss(params, batch, remat=True, ops=ops)
+        out[what] = (float(loss.detach()), torch.autograd.grad(loss, trained))
+        del loss
+    for p in trained:
+        p.requires_grad_(False)
+    bound = tol(torch.bfloat16)["atol"]
+    gaps = sorted(((grad_gap(a, b), n) for n, a, b in zip(names, out["kernels"][1],
+                                                          out["plain"][1])), reverse=True)
+    (lk, _), (lp, _) = out["kernels"], out["plain"]
+    log(f"[train] gradient parity, {TRAIN_ARCH} at full width, {GRAD_PARITY_LAYERS} of "
+        f"{model_for(TRAIN_ARCH)[0].n_layers} layers, a micro-batch of "
+        f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ}: loss {lk:.6f} through the kernels, "
+        f"{lp:.6f} through the plain math (gap {abs(lk - lp):.3g}); worst leaves "
+        + ", ".join(f"{n} {g:.3g}" for g, n in gaps[:4]) + f" of max |grad| (tol {bound})")
+    if gaps[0][0] > bound:
+        raise AssertionError(f"gradient of {gaps[0][1]} through the kernels differs from the "
+                             f"plain math's by {gaps[0][0]:.3g} of its scale")
+    del params, out, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_elastic(dev) -> None:
+    """6c: `repro_torch.examples.train_small`'s run on the card (qwen2 at
+    d_model 512, 8 layers, accumulation 2): `run_elastic` over
+    `ELASTIC_STEPS` steps with checkpoints every `ELASTIC_CKPT_EVERY`, a
+    failure injected at step `ELASTIC_FAIL_AT` and the restore from the
+    newest committed checkpoint; and the same run with no failure (one
+    checkpoint, at the end).  The loss over the last tenth must be below
+    the first tenth's, and every loss after the restore must equal the
+    uninjected run's at the same step.  The checkpoints go to a temporary
+    directory, removed after."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.examples.train_small import run
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        t0 = time.perf_counter()
+        faulty, stats, wall = run(ELASTIC_STEPS, ELASTIC_FAIL_AT, f"{root}/faulty", dev,
+                                  ckpt_every=ELASTIC_CKPT_EVERY)
+        clean, clean_stats, clean_wall = run(ELASTIC_STEPS, None, f"{root}/clean", dev,
+                                             ckpt_every=ELASTIC_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    resumed = stats["resumed_from"]
+    k = ELASTIC_STEPS // 10
+    first, last = sum(faulty[:k]) / k, sum(faulty[-k:]) / k
+    log(f"[train] elastic: {ELASTIC_STEPS} steps, checkpoints every {ELASTIC_CKPT_EVERY}, a "
+        f"failure at step {ELASTIC_FAIL_AT}: restarts {stats['restarts']}, resumed from "
+        f"{resumed}, {wall:.1f} s; loss over the first tenth {first:.4f}, the last {last:.4f}; "
+        f"the uninjected run {clean_wall:.1f} s ({time.perf_counter() - t0:.1f} s both)")
+    if stats["restarts"] != 1 or resumed != [ELASTIC_FAIL_AT // ELASTIC_CKPT_EVERY
+                                             * ELASTIC_CKPT_EVERY]:
+        raise AssertionError(f"expected one restart from the last checkpoint: {stats}")
+    if not last < first:
+        raise AssertionError(f"loss did not decrease: {first} -> {last}")
+    start = resumed[0]
+    after = faulty[ELASTIC_FAIL_AT:]
+    if faulty[:ELASTIC_FAIL_AT] != clean[:ELASTIC_FAIL_AT] or after != clean[start:]:
+        diff = [i for i, (a, b) in enumerate(zip(after, clean[start:])) if a != b]
+        raise AssertionError(f"the losses after the restore differ from the uninjected run's "
+                             f"at {len(diff)} steps, first at step {start + diff[0]}"
+                             if diff else "the runs' losses differ before the failure")
+    log(f"[train] elastic: the {len(after)} losses after the restore (steps {start}-"
+        f"{ELASTIC_STEPS - 1}) equal the uninjected run's, step for step")
+
+
 def main() -> int:
     import argparse
 
@@ -2563,7 +2979,11 @@ def main() -> int:
     serving = [session]  # phase_decode releases it after the run that reuses its parameters
     del session
     decode = phase_decode(serving, dev, parent)
-    launches = {name: {"serve": launches[name], "decode": decode[name]} for name in KERNEL_NAMES}
+    train = phase_train(dev)
+    phase_grad_parity(dev)
+    phase_elastic(dev)
+    launches = {name: {"serve": launches.get(name, 0), "decode": decode.get(name, 0),
+                       "train": train.get(name, 0)} for name in KERNEL_NAMES}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [

@@ -1,1 +1,2 @@
-"""Request traces (copied from the reference package)."""
+"""Request traces and the training token pipeline (copied from the reference
+package)."""

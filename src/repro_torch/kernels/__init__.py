@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the serving path.
+"""Hand-written Hopper kernels of the serving and training paths.
 
 Each kernel directory holds its CUDA source under `csrc/` and an `ops.py`
 with the launching wrapper, its launch counter and the plain PyTorch version
@@ -17,7 +17,9 @@ def counters() -> dict:
 
     return {"quantize": bq.quantize, "dequantize": bq.dequantize, "rmsnorm": rn.rmsnorm,
             "flash_attention": fa.flash_attention, "decode_attention": da.decode_attention,
-            "ssd_scan": ssd.ssd_scan}
+            "ssd_scan": ssd.ssd_scan, "rmsnorm_backward": rn.rmsnorm_backward,
+            "flash_attention_forward_lse": fa.flash_attention_forward_lse,
+            "flash_attention_backward": fa.flash_attention_backward}
 
 
 def launch_counts() -> dict[str, int]:

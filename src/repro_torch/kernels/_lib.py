@@ -10,12 +10,17 @@ the headers it includes) and of the flags, so an edited file rebuilds.
 
 `route(...)` is the one device rule every wrapper follows: CPU tensors take
 the plain PyTorch version, CUDA tensors launch the kernel (or raise), and
-any other device raises.  Nothing falls back.
+any other device raises.  Nothing falls back.  `needs_grad(...)` is the
+rule under autograd: a CUDA input that needs a gradient goes through the
+kernel's `torch.autograd.Function` (rmsnorm, flash attention's training
+route), or, for a kernel with no backward, raises (`no_backward`): a
+kernel's output never silently drops its inputs' gradients.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -126,6 +131,28 @@ def route(*tensors: torch.Tensor) -> bool:
     if dev.type == "cuda":
         return True
     raise RuntimeError(f"no kernel and no plain version for device {dev}")
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd records: grad mode is on and any input (None
+    allowed) requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def no_backward(kernel: str, item: str) -> RuntimeError:
+    """The error of a CUDA kernel asked for a gradient it has no backward
+    for; `item` names the ROADMAP entry that brings one."""
+    return RuntimeError(
+        f"{kernel} has no backward kernel on CUDA (its output would carry no gradient): "
+        f"{item}; call it without grad, or on CPU tensors for the plain version")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int | None) -> int:
+    """Streaming multiprocessors of CUDA device `index` (None: the current
+    one), looked up once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -14,7 +14,6 @@ use 16-byte loads (otherwise it loads element by element).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -76,17 +75,16 @@ def vector_loads(x: torch.Tensor) -> bool:
     return x.data_ptr() % 16 == 0 and x.shape[-1] % CHUNK == 0
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int | None) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, q, scale, N, D, dtype, lanes, chunks a lane, vector loads, stream
     "bq_quantize": [_P, _P, _P, ctypes.c_int64, _I, _I, _I, _I, _I, _P],
     "bq_dequantize": [_P, _P, _P, _I, _I, _I, _P],  # q, scale, out, N, D, dtype, stream
 }
+
+
+# the boundary quantization runs between serving stages only
+NO_BACKWARD = "ROADMAP.md queue 1, item 13e: no training path runs it"
 
 
 def _bind() -> ctypes.CDLL:
@@ -97,6 +95,8 @@ def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (..., D) -> (int8 (..., D), f32 scales (..., 1))."""
     if not _lib.route(x):
         return quantize_plain(x)
+    if _lib.needs_grad(x):
+        raise _lib.no_backward("quantize", NO_BACKWARD)
     if not x.is_contiguous():
         raise ValueError("quantize takes a contiguous tensor")
     D = x.shape[-1]
@@ -106,7 +106,7 @@ def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if N == 0 or D == 0:
         return q, scale
     code = _lib.dtype_code(x)
-    lanes, cpt = launch_plan(D, x.element_size(), N, _sm_count(x.device.index))
+    lanes, cpt = launch_plan(D, x.element_size(), N, _lib.sm_count(x.device.index))
     err = _bind().bq_quantize(x.data_ptr(), q.data_ptr(), scale.data_ptr(), N, D, code,
                               lanes, cpt, int(vector_loads(x)), _lib.stream_handle(x))
     _lib.check("quantize", err)
@@ -119,6 +119,8 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
     """int8 (..., D) and f32 (..., 1) -> (..., D) in `dtype`."""
     if not _lib.route(q, scale):
         return dequantize_plain(q, scale, dtype)
+    if _lib.needs_grad(q, scale):
+        raise _lib.no_backward("dequantize", NO_BACKWARD)
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError("dequantize takes int8 values and float32 scales")
     if not (q.is_contiguous() and scale.is_contiguous()):

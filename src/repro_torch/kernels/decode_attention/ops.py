@@ -92,11 +92,6 @@ def split_plan(B: int, KH: int, S: int, n_sm: int) -> tuple[int, int, int]:
     return n, max(1, -(-S // n)), 1 if pairs * n <= n_sm else 0
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # q, k, v, o, kv_len pointer, kv_len stride, kv_len scalar,
 # 4 x (batch, kv head, row) strides, B, KH, G, S, D, scale, dtype,
@@ -140,7 +135,7 @@ def _launch(q, k, v, o, kv_len, scale: float, plan: tuple[int, int, int] | None)
     if q.numel() == 0 or S == 0:
         return
     ptr, stride, scalar, _lens = _kv_len_args(kv_len, B, q.device)
-    n_split, split_len, ring = plan or split_plan(B, KH, S, _sm_count(q.device.index or 0))
+    n_split, split_len, ring = plan or split_plan(B, KH, S, _lib.sm_count(q.device.index or 0))
     # per split: m and l of each query head, then its (G, D) accumulator
     part = (torch.empty(B * KH * n_split * G * (D + 2), dtype=torch.float32, device=q.device)
             if n_split > 1 else None)
@@ -150,6 +145,10 @@ def _launch(q, k, v, o, kv_len, scale: float, plan: tuple[int, int, int] | None)
                          0 if part is None else part.data_ptr(), _lib.stream_handle(q))
     _lib.check("decode_attention", err)
     decode_attention.launches += 1
+
+
+# decode has no training path: no backward will come
+NO_BACKWARD = "ROADMAP.md queue 1, item 13e: no training path runs it"
 
 
 def _check_shapes(q, k, v) -> None:
@@ -169,6 +168,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,
         out = decode_attention_plain(q.reshape(B, 1, KH * G, D), k.transpose(1, 2),
                                      v.transpose(1, 2), kv_len, scale)
         return out.reshape(B, KH, G, D)
+    if _lib.needs_grad(q, k, v):
+        raise _lib.no_backward("decode_attention", NO_BACKWARD)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q, k, v, out, kv_len, scale if scale is not None else D ** -0.5, None)
     return out
@@ -189,6 +190,8 @@ def decode_attention_bthd(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
         raise ValueError(f"q{tuple(q.shape)} does not match the cache {tuple(k_cache.shape)}")
     if not _lib.route(q, k_cache, v_cache):
         return decode_attention_plain(q, k_cache, v_cache, kv_len, softmax_scale)
+    if _lib.needs_grad(q, k_cache, v_cache):
+        raise _lib.no_backward("decode_attention", NO_BACKWARD)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     grouped = (B, KH, H // KH, D)
     _launch(q.reshape(grouped), k_cache.transpose(1, 2), v_cache.transpose(1, 2),

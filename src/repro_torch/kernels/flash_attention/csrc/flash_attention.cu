@@ -81,6 +81,7 @@ constexpr int kMaxD = 192;       // three panels
 constexpr int kMaxDevices = 64;  // devices whose attribute and SM count are kept
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
@@ -214,17 +215,19 @@ __device__ __forceinline__ Item item_at(int w, int H, int B, int Sq, int Sk, int
 }
 
 // DP: head_dim rounded up to a multiple of 16 (the wgmma k-step), or 192
-// past 128.  A
+// past 128.  LSE: also store each query row's log-sum-exp of its scaled
+// scores, natural base, f32, at lse[(b H + h) Sq + row] (the training
+// forward, `fa_forward_lse`; the backward recomputes P from it).  A
 // persistent block walks the work items blockIdx.x, blockIdx.x + gridDim.x,
 // ...; the K/V ring and the barriers' phases run on across items, so the
 // producer loads the next item's Q and K/V while the consumers finish this one.
-template <int DP>
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_o, int H, int KH, int B, int Sq,
-                 int Sk, float scale_log2, int causal) {
+                 int Sk, float scale_log2, int causal, float* __restrict__ lse) {
   using L = Smem<DP>;
   constexpr int KSTEPS = DP / 16;
   extern __shared__ unsigned char smem_raw[];
@@ -405,6 +408,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
     const float inv_a = 1.0f / fmaxf(l_a, 1e-30f), inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+    if constexpr (LSE) {
+      // m is in the base-2 domain of the scaled scores: lse = (m + log2 l) ln 2
+      float* lrow = lse + (static_cast<int64_t>(it.b) * H + it.h) * Sq;
+      if (tq == 0 && row_a < Sq) lrow[row_a] = (m_a + log2f(fmaxf(l_a, 1e-30f))) * kLn2;
+      if (tq == 0 && row_b < Sq) lrow[row_b] = (m_b + log2f(fmaxf(l_b, 1e-30f))) * kLn2;
+    }
     if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     warpgroup_sync(c);  // the previous item's store has read the staging tile
     const int ra = wi * 16 + lane / 4, rb = ra + 8;  // rows within the tile
@@ -667,9 +676,9 @@ int sm_count(int dev) {
   return n;
 }
 
-template <int DP>
+template <int DP, bool LSE>
 int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int Sq, int Sk, float scale,
-           int causal, cudaStream_t st) {
+           int causal, float* lse, cudaStream_t st) {
   constexpr int smem = Smem<DP>::kBytes;
   // once per template instance and device: the attribute belongs to the
   // current device's context
@@ -678,8 +687,8 @@ int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int Sq, int Sk, f
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices || !attr_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(flash_fwd_kernel<DP, LSE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < kMaxDevices) attr_set[dev] = true;
   }
@@ -687,8 +696,8 @@ int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int Sq, int Sk, f
   const int n_items = (Sq + per_block - 1) / per_block * H * B;
   const int n_sm = sm_count(dev);
   if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
-  flash_fwd_kernel<DP><<<min(n_items, n_sm), kThreads, smem, st>>>(
-      maps[0], maps[1], maps[2], maps[3], H, KH, B, Sq, Sk, scale * kLog2e, causal);
+  flash_fwd_kernel<DP, LSE><<<min(n_items, n_sm), kThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], H, KH, B, Sq, Sk, scale * kLog2e, causal, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -731,6 +740,408 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
          (heads == 1 || s.h % 4 == 0) && (S == 1 || s.s % 4 == 0);
 }
 
+// ------------------------------------------------------ the backward (bf16)
+//
+// The gradient of causal attention with Sq == Sk (the dense training path),
+// as `jax.grad` takes it through the reference's `chunked_attention`: no
+// Pallas kernel has a backward, the reference differentiates its plain XLA
+// math.  The FA2 form: the training forward (`fa_forward_lse`) also writes
+// each query row's log-sum-exp, so the backward recomputes P = exp(s - lse)
+// tile by tile and never holds the (S, S) scores:
+//   Delta = rowsum(dO * O)                     (`fa_bwd_delta_kernel`)
+//   dV = P^T dO, dS = P * (dO V^T - Delta), dK = scale dS^T Q
+//                                              (`fa_bwd_dkdv_kernel`)
+//   dQ = scale dS K                            (`fa_bwd_dq_kernel`)
+// Bound: operations (five S x S x D products a head, causal halves, against
+// the inputs' bytes).
+//
+// Design (simple first: no TMA, no wgmma, no pipeline).  Every product is
+// `mma.sync` m16n8k16 in bf16 with f32 accumulators; operands come from
+// shared memory by `ldmatrix` (`.trans` where the product reads a tile
+// along its rows), tiles land there by 16-byte `cp.async` with rows past S
+// and columns past D zero-filled, each row padded by 16 bytes so the eight
+// rows of an `ldmatrix` fall in distinct banks.  A block is four warps of
+// 16 rows.  dK/dV: a block a (64-key tile, KV head, batch) walks the G query
+// heads of its KV head and, under the causal mask, the 32-row query tiles
+// from its first key on, so the sum over GQA's heads stays inside the block
+// (no atomics, deterministic); each warp keeps its 16 keys' dK and dV in
+// registers.  dQ: a block a (64-row query tile, head, batch) walks the
+// 64-key tiles up to its diagonal.  P and dS go to bf16 for the products
+// that take them as the A operand, as P does in the forward.
+
+constexpr int kBwdRows = 64;       // query rows a dQ block; keys a dK/dV block
+constexpr int kBwdQ = 32;          // query rows a tile of the dK/dV loop
+constexpr int kBwdThreads = 128;   // four warps of 16 rows
+constexpr int kBwdMaxD = 128;
+
+struct BwdArgs {
+  const bf16 *q, *k, *v, *o, *dout;
+  bf16 *dq, *dk, *dv;
+  const float* lse;  // (B, H, S), natural base
+  float* delta;      // (B, H, S)
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  int H, KH, S, D;
+  float scale;
+};
+
+// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// rows [r0, r0 + n) of one (batch, head) of a (.., S, D) bf16 tensor whose
+// rows are `row_stride` elements apart, into n shared rows of DP + 8
+// elements; rows past S and columns past D are zeros
+template <int DP>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int64_t row_stride,
+                                          int r0, int n, int S, int D) {
+  constexpr int RS = DP + 8, CH = DP / 8;
+  for (int idx = threadIdx.x; idx < n * CH; idx += kBwdThreads) {
+    const int r = idx / CH, c = (idx - r * CH) * 8;
+    const bool ok = r0 + r < S && c < D;
+    const bf16* p = src + (ok ? (r0 + r) * row_stride + c : 0);
+    cp_async<16>(dst + (r * RS + c) * 2, p, ok ? 16 : 0);
+  }
+}
+
+// the A fragment (16 rows x k-step ks) of a warp's rows r0.. of a shared tile
+template <int RS>
+__device__ __forceinline__ void ld_a(uint32_t tile, int r0, int ks, uint32_t (&r)[4]) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(tile + ((r0 + lane % 16) * RS + ks * 16 + (lane / 16) * 8) * 2, r);
+}
+
+// B fragments of two 8-row n-tiles (rows n0.., n0 + 8..) at k-step ks of a
+// shared tile whose rows are the product's n and columns its k:
+// {b0, b1} of the first, {b0, b1} of the second
+template <int RS>
+__device__ __forceinline__ void ld_b(uint32_t tile, int n0, int ks, uint32_t (&r)[4]) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4(tile + ((n0 + (lane / 16) * 8 + lane % 8) * RS + ks * 16 + ((lane / 8) % 2) * 8) * 2,
+          r);
+}
+
+// B fragments of two 8-column n-tiles (columns c0.., c0 + 8..) at the
+// k-step of rows k0..k0 + 15 of a shared tile whose rows are the product's k
+template <int RS>
+__device__ __forceinline__ void ld_b_t(uint32_t tile, int k0, int c0, uint32_t (&r)[4]) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4_t(tile + ((k0 + lane % 16) * RS + c0 + (lane / 16) * 8) * 2, r);
+}
+
+// a 16 x 16 A fragment from two 16 x 8 accumulators (n-tiles j, j + 1)
+__device__ __forceinline__ void acc_to_a(const float (&c0)[4], const float (&c1)[4],
+                                         uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Delta[(b H + h) S + s] = sum_d dO O, one warp a row
+__global__ void __launch_bounds__(256) fa_bwd_delta_kernel(const BwdArgs a, int64_t n_rows) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (idx >= n_rows) return;
+  const int s = static_cast<int>(idx % a.S);
+  const int64_t bh = idx / a.S;
+  const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
+  const bf16* o = a.o + b * a.so.b + h * a.so.h + s * a.so.s;
+  const bf16* g = a.dout + b * a.sdo.b + h * a.sdo.h + s * a.sdo.s;
+  float acc = 0.0f;
+  for (int c = lane * 8; c < a.D; c += 256) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + c);
+    const uint4 gv = *reinterpret_cast<const uint4*>(g + c);
+    const bf16* op = reinterpret_cast<const bf16*>(&ov);
+    const bf16* gp = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc += __bfloat162float(op[e]) * __bfloat162float(gp[e]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) a.delta[idx] = acc;
+}
+
+template <int KS>
+__global__ void __launch_bounds__(kBwdThreads) fa_bwd_dkdv_kernel(const BwdArgs a) {
+  constexpr int DP = 16 * KS, RS = DP + 8;
+  constexpr int KT = kBwdRows * RS * 2, QT = kBwdQ * RS * 2;  // tile bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sK = smem_addr(smem_raw), sV = sK + KT, sQ = sV + KT, sdO = sQ + QT;
+  float* sL = reinterpret_cast<float*>(smem_raw + 2 * KT + 2 * QT);  // lse, base 2
+  float* sD = sL + kBwdQ;
+  const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * kBwdRows, G = a.H / a.KH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  load_tile<DP>(sK, a.k + b * a.sk.b + kh * a.sk.h, a.sk.s, k0, kBwdRows, a.S, a.D);
+  load_tile<DP>(sV, a.v + b * a.sv.b + kh * a.sv.h, a.sv.s, k0, kBwdRows, a.S, a.D);
+  cp_async_commit();
+  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
+  const float sl2 = a.scale * kLog2e;
+  float dk[2 * KS][4], dv[2 * KS][4];
+#pragma unroll
+  for (int i = 0; i < 2 * KS; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.0f;
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = kh * G + gi;
+    const bf16* qb = a.q + b * a.sq.b + h * a.sq.h;
+    const bf16* ob = a.dout + b * a.sdo.b + h * a.sdo.h;
+    const float* lrow = a.lse + (static_cast<int64_t>(b) * a.H + h) * a.S;
+    const float* drow = a.delta + (static_cast<int64_t>(b) * a.H + h) * a.S;
+    for (int q0 = k0; q0 < a.S; q0 += kBwdQ) {  // causal: no query before k0 sees these keys
+      __syncthreads();  // every warp is done with the previous query tile
+      load_tile<DP>(sQ, qb, a.sq.s, q0, kBwdQ, a.S, a.D);
+      load_tile<DP>(sdO, ob, a.sdo.s, q0, kBwdQ, a.S, a.D);
+      cp_async_commit();
+      if (threadIdx.x < kBwdQ) {
+        const int r = q0 + threadIdx.x;
+        sL[threadIdx.x] = r < a.S ? lrow[r] * kLog2e : 0.0f;
+        sD[threadIdx.x] = r < a.S ? drow[r] : 0.0f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+
+      // S^T = K_w Q^T and dP^T = V_w dO^T, 16 keys x 32 queries a warp
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ak[4], av[4];
+        ld_a<RS>(sK, warp * 16, ks, ak);
+        ld_a<RS>(sV, warp * 16, ks, av);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bq[4], bo[4];
+          ld_b<RS>(sQ, np * 16, ks, bq);
+          ld_b<RS>(sdO, np * 16, ks, bo);
+          mma16816(st[2 * np], ak, bq[0], bq[1]);
+          mma16816(st[2 * np + 1], ak, bq[2], bq[3]);
+          mma16816(dpt[2 * np], av, bo[0], bo[1]);
+          mma16816(dpt[2 * np + 1], av, bo[2], bo[3]);
+        }
+      }
+      // P^T (key j, query i) = exp(s - lse_i) where j <= i < S; dS^T = P^T (dP^T - Delta_i)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = nt * 8 + 2 * t + (e & 1), row = q0 + qi;
+          const int key = e < 2 ? key_a : key_b;
+          const float p = row < a.S && key <= row ? exp2f(st[nt][e] * sl2 - sL[qi]) : 0.0f;
+          st[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - sD[qi]);
+        }
+      // dV += P^T dO, dK += dS^T Q (the queries are the k of these products)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t ap[4], as[4];
+        acc_to_a(st[2 * kk], st[2 * kk + 1], ap);
+        acc_to_a(dpt[2 * kk], dpt[2 * kk + 1], as);
+#pragma unroll
+        for (int nd = 0; nd < KS; ++nd) {
+          uint32_t bo[4], bq[4];
+          ld_b_t<RS>(sdO, kk * 16, nd * 16, bo);
+          ld_b_t<RS>(sQ, kk * 16, nd * 16, bq);
+          mma16816(dv[2 * nd], ap, bo[0], bo[1]);
+          mma16816(dv[2 * nd + 1], ap, bo[2], bo[3]);
+          mma16816(dk[2 * nd], as, bq[0], bq[1]);
+          mma16816(dk[2 * nd + 1], as, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  bf16* dkb = a.dk + b * a.sdk.b + kh * a.sdk.h;
+  bf16* dvb = a.dv + b * a.sdv.b + kh * a.sdv.h;
+#pragma unroll
+  for (int nd = 0; nd < 2 * KS; ++nd) {
+    const int col = nd * 8 + 2 * t;
+    if (col >= a.D) continue;
+    if (key_a < a.S) {
+      *reinterpret_cast<uint32_t*>(dkb + key_a * a.sdk.s + col) =
+          pack_bf16(dk[nd][0] * a.scale, dk[nd][1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvb + key_a * a.sdv.s + col) = pack_bf16(dv[nd][0], dv[nd][1]);
+    }
+    if (key_b < a.S) {
+      *reinterpret_cast<uint32_t*>(dkb + key_b * a.sdk.s + col) =
+          pack_bf16(dk[nd][2] * a.scale, dk[nd][3] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvb + key_b * a.sdv.s + col) = pack_bf16(dv[nd][2], dv[nd][3]);
+    }
+  }
+}
+
+template <int KS>
+__global__ void __launch_bounds__(kBwdThreads) fa_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int DP = 16 * KS, RS = DP + 8;
+  constexpr int T = kBwdRows * RS * 2;  // tile bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sQ = smem_addr(smem_raw), sdO = sQ + T, sK = sdO + T, sV = sK + T;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the far end of the diagonal first
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / (a.H / a.KH);
+  const int q0 = qt * kBwdRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  load_tile<DP>(sQ, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, kBwdRows, a.S, a.D);
+  load_tile<DP>(sdO, a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s, q0, kBwdRows, a.S, a.D);
+  cp_async_commit();
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const float* lrow = a.lse + (static_cast<int64_t>(b) * a.H + h) * a.S;
+  const float* drow = a.delta + (static_cast<int64_t>(b) * a.H + h) * a.S;
+  const float lse_a = row_a < a.S ? lrow[row_a] * kLog2e : 0.0f;
+  const float lse_b = row_b < a.S ? lrow[row_b] * kLog2e : 0.0f;
+  const float dl_a = row_a < a.S ? drow[row_a] : 0.0f;
+  const float dl_b = row_b < a.S ? drow[row_b] : 0.0f;
+  const float sl2 = a.scale * kLog2e;
+  const bf16* kb = a.k + b * a.sk.b + kh * a.sk.h;
+  const bf16* vb = a.v + b * a.sv.b + kh * a.sv.h;
+  float dq[2 * KS][4];
+#pragma unroll
+  for (int i = 0; i < 2 * KS; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[i][e] = 0.0f;
+  const int n_kt = min((a.S + kBwdRows - 1) / kBwdRows, qt + 1);  // causal, Sq == Sk
+  for (int kt = 0; kt < n_kt; ++kt) {
+    __syncthreads();  // every warp is done with the previous K/V tiles
+    load_tile<DP>(sK, kb, a.sk.s, kt * kBwdRows, kBwdRows, a.S, a.D);
+    load_tile<DP>(sV, vb, a.sv.s, kt * kBwdRows, kBwdRows, a.S, a.D);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // S = Q_w K^T and dP = dO_w V^T, 16 queries x 64 keys a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t aq[4], ao[4];
+      ld_a<RS>(sQ, warp * 16, ks, aq);
+      ld_a<RS>(sdO, warp * 16, ks, ao);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4], bv[4];
+        ld_b<RS>(sK, np * 16, ks, bk);
+        ld_b<RS>(sV, np * 16, ks, bv);
+        mma16816(s[2 * np], aq, bk[0], bk[1]);
+        mma16816(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma16816(dp[2 * np], ao, bv[0], bv[1]);
+        mma16816(dp[2 * np + 1], ao, bv[2], bv[3]);
+      }
+    }
+    // dS = P (dP - Delta), P = exp(s - lse) where key <= row < S
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? row_a : row_b;
+        const int key = kt * kBwdRows + nt * 8 + 2 * t + (e & 1);
+        const float p = row < a.S && key <= row
+                            ? exp2f(s[nt][e] * sl2 - (e < 2 ? lse_a : lse_b)) : 0.0f;
+        s[nt][e] = p * (dp[nt][e] - (e < 2 ? dl_a : dl_b));
+      }
+    // dQ += dS K (the keys are the k of this product)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t as[4];
+      acc_to_a(s[2 * kk], s[2 * kk + 1], as);
+#pragma unroll
+      for (int nd = 0; nd < KS; ++nd) {
+        uint32_t bk[4];
+        ld_b_t<RS>(sK, kk * 16, nd * 16, bk);
+        mma16816(dq[2 * nd], as, bk[0], bk[1]);
+        mma16816(dq[2 * nd + 1], as, bk[2], bk[3]);
+      }
+    }
+  }
+  bf16* dqb = a.dq + b * a.sdq.b + h * a.sdq.h;
+#pragma unroll
+  for (int nd = 0; nd < 2 * KS; ++nd) {
+    const int col = nd * 8 + 2 * t;
+    if (col >= a.D) continue;
+    if (row_a < a.S)
+      *reinterpret_cast<uint32_t*>(dqb + row_a * a.sdq.s + col) =
+          pack_bf16(dq[nd][0] * a.scale, dq[nd][1] * a.scale);
+    if (row_b < a.S)
+      *reinterpret_cast<uint32_t*>(dqb + row_b * a.sdq.s + col) =
+          pack_bf16(dq[nd][2] * a.scale, dq[nd][3] * a.scale);
+  }
+}
+
+template <int KS>
+int launch_bwd(const BwdArgs& a, int B, cudaStream_t st) {
+  constexpr int RS = 16 * KS + 8;
+  constexpr int dq_smem = 4 * kBwdRows * RS * 2;
+  constexpr int kv_smem = 2 * kBwdRows * RS * 2 + 2 * kBwdQ * RS * 2 + 2 * kBwdQ * 4;
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(fa_bwd_dq_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dq_smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<KS>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) attr_set[dev] = true;
+  }
+  const int64_t n_rows = static_cast<int64_t>(B) * a.H * a.S;
+  fa_bwd_delta_kernel<<<static_cast<unsigned>((n_rows + 7) / 8), 256, 0, st>>>(a, n_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (a.S + kBwdRows - 1) / kBwdRows;
+  fa_bwd_dkdv_kernel<KS><<<dim3(n_tiles, a.KH, B), kBwdThreads, kv_smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fa_bwd_dq_kernel<KS><<<dim3(n_tiles, a.H, B), kBwdThreads, dq_smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 forward through `fa_forward`'s maps; LSE: the training instance
+template <bool LSE>
+int forward_bf16(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk,
+                 Strides sv, Strides so, int B, int H, int KH, int Sq, int Sk, int D,
+                 float scale, int causal, float* lse, cudaStream_t st) {
+  CUtensorMap maps[4];
+  if (!encode(&maps[0], q, D, H, Sq, B, sq) || !encode(&maps[1], k, D, KH, Sk, B, sk) ||
+      !encode(&maps[2], v, D, KH, Sk, B, sv) || !encode(&maps[3], o, D, H, Sq, B, so))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch ((D + 15) / 16) {
+    case 1: return launch<16, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
+    case 2: return launch<32, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
+    case 3: return launch<48, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
+    case 4: return launch<64, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
+    case 5: return launch<80, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
+    case 6: return launch<96, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
+    case 7: return launch<112, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
+    case 8: return launch<128, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
+    default:
+      if constexpr (LSE) return static_cast<int>(cudaErrorInvalidValue);  // D <= 128 only
+      else return launch<192, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
+  }
+}
+
 }  // namespace
 
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
@@ -742,23 +1153,82 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                           int causal, void* stream) {
   if (D < 8 || D > kMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || Sq < 1 || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap maps[4];
-  if (!encode(&maps[0], q, D, H, Sq, B, Strides{sqb, sqh, sqs}) ||
-      !encode(&maps[1], k, D, KH, Sk, B, Strides{skb, skh, sks}) ||
-      !encode(&maps[2], v, D, KH, Sk, B, Strides{svb, svh, svs}) ||
-      !encode(&maps[3], o, D, H, Sq, B, Strides{sob, soh, sos}))
+  return forward_bf16<false>(q, k, v, o, Strides{sqb, sqh, sqs}, Strides{skb, skh, sks},
+                             Strides{svb, svh, svs}, Strides{sob, soh, sos}, B, H, KH, Sq, Sk,
+                             D, scale, causal, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The training forward: fa_forward's arguments, D <= 128, and `lse`, an f32
+// (B, H, Sq) output of each query row's log-sum-exp (natural base) of its
+// scaled, masked scores.
+extern "C" int fa_forward_lse(const void* q, const void* k, const void* v, void* o,
+                              int64_t sqb, int64_t sqh, int64_t sqs,
+                              int64_t skb, int64_t skh, int64_t sks,
+                              int64_t svb, int64_t svh, int64_t svs,
+                              int64_t sob, int64_t soh, int64_t sos,
+                              int B, int H, int KH, int Sq, int Sk, int D, float scale,
+                              int causal, void* lse, void* stream) {
+  if (D < 8 || D > kBwdMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || Sq < 1 || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  return forward_bf16<true>(q, k, v, o, Strides{sqb, sqh, sqs}, Strides{skb, skh, sks},
+                            Strides{svb, svh, svs}, Strides{sob, soh, sos}, B, H, KH, Sq, Sk,
+                            D, scale, causal, static_cast<float*>(lse),
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The backward of causal bf16 attention with Sq == Sk == S: dq, dk, dv
+// (each at its own strides, head_dim contiguous) from q, k, v, the forward's
+// o and lse, and dout.  delta: an f32 (B, H, S) scratch.  Rows of q, k, v,
+// o and dout must be 16-byte aligned (D a multiple of 8, every stride a
+// multiple of 8 elements); D <= 128.
+extern "C" int fa_backward(const void* q, const void* k, const void* v, const void* o,
+                           const void* dout, void* dq, void* dk, void* dv, const void* lse,
+                           void* delta,
+                           int64_t sqb, int64_t sqh, int64_t sqs,
+                           int64_t skb, int64_t skh, int64_t sks,
+                           int64_t svb, int64_t svh, int64_t svs,
+                           int64_t sob, int64_t soh, int64_t sos,
+                           int64_t sgb, int64_t sgh, int64_t sgs,
+                           int64_t sdqb, int64_t sdqh, int64_t sdqs,
+                           int64_t sdkb, int64_t sdkh, int64_t sdks,
+                           int64_t sdvb, int64_t sdvh, int64_t sdvs,
+                           int B, int H, int KH, int S, int D, float scale, void* stream) {
+  if (D < 8 || D > kBwdMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || S < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a;
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.o = static_cast<const bf16*>(o);
+  a.dout = static_cast<const bf16*>(dout);
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.sq = Strides{sqb, sqh, sqs};
+  a.sk = Strides{skb, skh, sks};
+  a.sv = Strides{svb, svh, svs};
+  a.so = Strides{sob, soh, sos};
+  a.sdo = Strides{sgb, sgh, sgs};
+  a.sdq = Strides{sdqb, sdqh, sdqs};
+  a.sdk = Strides{sdkb, sdkh, sdks};
+  a.sdv = Strides{sdvb, sdvh, sdvs};
+  a.H = H;
+  a.KH = KH;
+  a.S = S;
+  a.D = D;
+  a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((D + 15) / 16) {
-    case 1: return launch<16>(maps, B, H, KH, Sq, Sk, scale, causal, st);
-    case 2: return launch<32>(maps, B, H, KH, Sq, Sk, scale, causal, st);
-    case 3: return launch<48>(maps, B, H, KH, Sq, Sk, scale, causal, st);
-    case 4: return launch<64>(maps, B, H, KH, Sq, Sk, scale, causal, st);
-    case 5: return launch<80>(maps, B, H, KH, Sq, Sk, scale, causal, st);
-    case 6: return launch<96>(maps, B, H, KH, Sq, Sk, scale, causal, st);
-    case 7: return launch<112>(maps, B, H, KH, Sq, Sk, scale, causal, st);
-    case 8: return launch<128>(maps, B, H, KH, Sq, Sk, scale, causal, st);
-    default: return launch<192>(maps, B, H, KH, Sq, Sk, scale, causal, st);  // (128, 192]
+    case 1: return launch_bwd<1>(a, B, st);
+    case 2: return launch_bwd<2>(a, B, st);
+    case 3: return launch_bwd<3>(a, B, st);
+    case 4: return launch_bwd<4>(a, B, st);
+    case 5: return launch_bwd<5>(a, B, st);
+    case 6: return launch_bwd<6>(a, B, st);
+    case 7: return launch_bwd<7>(a, B, st);
+    default: return launch_bwd<8>(a, B, st);
   }
 }
 

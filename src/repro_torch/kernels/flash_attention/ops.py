@@ -21,6 +21,17 @@ and the causal mask is aligned as there, top-left: query row i sees keys
 bottom-right, which agrees only when Sq == Sk).  Any other mismatch of
 shapes raises.  head_dim may be up to 192 (MLA's q and k); in the model
 layout, v may be narrower than q and k (MLA's 128-wide values).
+
+Training (an input that requires a gradient, grad mode on): a CPU call runs
+the plain version and autograd differentiates it.  A CUDA call on the route
+the dense training path needs (`GRAD_ROUTE`: bf16, causal, Sq == Sk,
+head_dim a multiple of 8 up to 128, at most `MAX_GRAD_GROUP` query heads a
+KV head) goes through `_FlashFn`: `fa_forward_lse` (the forward that also
+writes each row's log-sum-exp) and `fa_backward` (Delta, dK/dV, dQ: three
+launches, counted as one call of `flash_attention_backward`).  Any other
+route raises under grad, naming the ROADMAP item that brings its backward.
+`flash_attention_backward_plain` is the same backward in explicit formulas
+(from lse and Delta, as the kernel computes it), for the tests.
 """
 
 from __future__ import annotations
@@ -34,6 +45,12 @@ from .. import _lib
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 192  # three 64-column panels; kMaxD in the source
+MAX_GRAD_HEAD_DIM = 128  # kBwdMaxD in the source
+MAX_GRAD_GROUP = 8
+GRAD_ROUTE = ("bf16, causal, Sq == Sk, head_dim a multiple of 8 up to 128, at most "
+              f"{MAX_GRAD_GROUP} query heads a KV head")
+# the ROADMAP entries that bring the routes without a backward kernel
+_ITEM = "ROADMAP.md queue 1, item 13"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,6 +68,52 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              scale: float | None = None) -> torch.Tensor:
+    """(B, H, S) f32: each query row's log-sum-exp of its scaled causal
+    scores, as `fa_forward_lse` writes it (q (B, H, S, D), k (B, KH, S, D))."""
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.float().reshape(B, KH, H // KH, S, D),
+                     k.float()) * scale
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return torch.logsumexp(s, dim=-1).reshape(B, H, S)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   o: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                                   scale: float | None = None
+                                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of causal attention with Sq == Sk, in the (B, H, S, D)
+    layout, the way `fa_backward` computes them: P = exp(scale q.k - lse)
+    under the mask, Delta = rowsum(dout * o), dV = P^T dout,
+    dS = P (dout v^T - Delta), dQ = scale dS k, dK = scale dS^T q, dK and dV
+    summed over the query heads of each KV head.  f32 inside; P and dS
+    rounded to q's dtype before the products that take them, as the kernel
+    does (a no-op in f32); the gradients in q's dtype."""
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    G = H // KH
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().reshape(B, KH, G, S, D)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(B, KH, G, S, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(B, KH, G, S, 1)),
+                    torch.zeros_like(s))
+    delta = (dout.float() * o.float()).sum(dim=-1).reshape(B, KH, G, S, 1)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    ds = p * (dp - delta)
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    return dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_shapes(q, k, v) -> tuple[int, int, int, int]:
@@ -71,7 +134,12 @@ _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # q, k, v, o, 4 x (batch, head, seq) strides, B, H, KH, Sq, Sk, D, scale,
 # causal, stream
 _ARGS = [_P] * 4 + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _I, _P]
-_SIGNATURES = {"fa_forward": _ARGS, "fa_forward_f32": _ARGS}
+_SIGNATURES = {"fa_forward": _ARGS, "fa_forward_f32": _ARGS,
+               # fa_forward's arguments with the lse output before the stream
+               "fa_forward_lse": _ARGS[:-1] + [_P, _P],
+               # q, k, v, o, dout, dq, dk, dv, lse, delta, 8 x 3 strides,
+               # B, H, KH, S, D, scale, stream
+               "fa_backward": [_P] * 10 + [_L] * 24 + [_I] * 5 + [ctypes.c_float, _P]}
 # the entry point of each dtype the kernel takes
 _ENTRY = {torch.bfloat16: "fa_forward", torch.float32: "fa_forward_f32"}
 
@@ -86,12 +154,7 @@ def _launch(q, k, v, o, causal: bool, scale: float) -> None:
     if entry is None or not (q.dtype == k.dtype == v.dtype == o.dtype):
         raise TypeError(f"the kernel takes bfloat16 (tensor cores) or float32 (CUDA cores) "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    args = []
-    for t in (q, k, v, o):
-        st = t.stride()
-        if st[3] != 1:
-            raise ValueError("head_dim must be contiguous")
-        args.append(st)
+    args = [_strides(t) for t in (q, k, v, o)]
     ptrs = [t.data_ptr() for t in (q, k, v, o)]
     if q.dtype == torch.bfloat16:
         for t, st, ptr in zip((q, k, v), args, ptrs):
@@ -99,7 +162,7 @@ def _launch(q, k, v, o, causal: bool, scale: float) -> None:
     if q.numel() == 0:
         return
     lib = _lib.load("flash_attention", _SIGNATURES)
-    err = getattr(lib, entry)(*ptrs, *args[0][:3], *args[1][:3], *args[2][:3], *args[3][:3],
+    err = getattr(lib, entry)(*ptrs, *args[0], *args[1], *args[2], *args[3],
                               B, H, k.shape[1], Sq, k.shape[2], D, float(scale), int(causal),
                               _lib.stream_handle(q))
     _lib.check("flash_attention", err)
@@ -119,14 +182,102 @@ def _check_tma(t: torch.Tensor, st: tuple, ptr: int) -> None:
             f"and every stride a multiple of 16 bytes")
 
 
+def _check_grad_route(q, k, v, causal: bool) -> None:
+    """Raise unless (q, k, v) in the (B, H, S, D) layout lie on the route
+    the backward kernel covers (`GRAD_ROUTE`)."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise _lib.no_backward("flash_attention", f"{q.dtype} ({_ITEM}a)")
+    if not causal:
+        raise _lib.no_backward("flash_attention", f"non-causal attention ({_ITEM}b)")
+    if Sq != Sk:
+        raise _lib.no_backward("flash_attention", f"Sq {Sq} != Sk {Sk} ({_ITEM}b)")
+    if D % 8 or D > MAX_GRAD_HEAD_DIM:
+        raise _lib.no_backward("flash_attention", f"head_dim {D} ({_ITEM}c)")
+    if H // KH > MAX_GRAD_GROUP:
+        raise _lib.no_backward("flash_attention",
+                               f"{H // KH} query heads a KV head ({_ITEM}c)")
+
+
+def _strides(t: torch.Tensor) -> tuple:
+    st = t.stride()
+    if st[3] != 1:
+        raise ValueError("head_dim must be contiguous")
+    return st[:3]
+
+
+def flash_attention_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                o: torch.Tensor, scale: float) -> torch.Tensor:
+    """The training forward on CUDA: causal attention of (B, H, S, D) views
+    into `o`, returning the (B, H, S) f32 log-sum-exp of each query row."""
+    B, H, S, D = q.shape
+    for t in (q, k, v, o):
+        _check_tma(t, _strides(t), t.data_ptr())
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = _lib.load("flash_attention", _SIGNATURES)
+    err = lib.fa_forward_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                             *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+                             B, H, k.shape[1], S, S, D, float(scale), 1, lse.data_ptr(),
+                             _lib.stream_handle(q))
+    _lib.check("flash_attention_forward_lse", err)
+    flash_attention_forward_lse.launches += 1
+    return lse
+
+
+def flash_attention_backward(q, k, v, o, dout, lse, dq, dk, dv, scale: float) -> None:
+    """The backward on CUDA: writes dq, dk, dv (views of their own strides)
+    from (B, H, S, D) views of q, k, v, o, dout and the forward's lse."""
+    B, H, S, D = q.shape
+    for t in (q, k, v, o, dout):
+        _check_tma(t, _strides(t), t.data_ptr())
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = _lib.load("flash_attention", _SIGNATURES)
+    err = lib.fa_backward(*(t.data_ptr() for t in (q, k, v, o, dout, dq, dk, dv, lse, delta)),
+                          *(x for t in (q, k, v, o, dout, dq, dk, dv) for x in _strides(t)),
+                          B, H, k.shape[1], S, D, float(scale), _lib.stream_handle(q))
+    _lib.check("flash_attention_backward", err)
+    flash_attention_backward.launches += 1
+
+
+class _FlashFn(torch.autograd.Function):
+    """Causal bf16 attention with its backward kernel.  q, k, v are in the
+    caller's layout, (B, T, H, D) when `bthd` or (B, H, S, D); the output
+    is allocated in that layout, and so are dq, dk and dv (with the strides
+    of q, k and v, which suit the TMA forward when remat runs it again)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bthd: bool, scale: float):
+        view = (lambda t: t.transpose(1, 2)) if bthd else (lambda t: t)
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        lse = flash_attention_forward_lse(view(q), view(k), view(v), view(out), scale)
+        ctx.bthd, ctx.scale = bthd, scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        view = (lambda t: t.transpose(1, 2)) if ctx.bthd else (lambda t: t)
+        dout = dout.contiguous()
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        flash_attention_backward(view(q), view(k), view(v), view(out), view(dout), lse,
+                                 view(dq), view(dk), view(dv), ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: float | None = None) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, KH, Sk, D) -> (B, H, Sq, D)."""
     if not _lib.route(q, k, v):
         return flash_attention_plain(q, k, v, causal, scale)
     D = _check_shapes(q, k, v)[3]
+    scale = scale if scale is not None else D ** -0.5
+    if _lib.needs_grad(q, k, v):
+        _check_grad_route(q, k, v, causal)
+        return _FlashFn.apply(q, k, v, False, scale)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, causal, scale if scale is not None else D ** -0.5)
+    _launch(q, k, v, out, causal, scale)
     return out
 
 
@@ -145,9 +296,14 @@ def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = flash_attention_plain(qh, kh, vh, causal).transpose(1, 2)
     else:
         D = _check_shapes(qh, kh, vh)[3]
+        if _lib.needs_grad(q, k, v):
+            _check_grad_route(qh, kh, vh, causal)
+            return _FlashFn.apply(q, k, v, True, D ** -0.5)[..., :Dv]
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         _launch(qh, kh, vh, out.transpose(1, 2), causal, D ** -0.5)
     return out[..., :Dv]
 
 
 flash_attention.launches = 0
+flash_attention_forward_lse.launches = 0
+flash_attention_backward.launches = 0

@@ -191,6 +191,168 @@ int dispatch(const void* x, const void* w, void* out, int64_t N, int D, float ep
              : dispatch<T, false>(x, w, out, N, D, eps, L, vpt, st);
 }
 
+
+// ------------------------------------------------------------- backward
+//
+// The gradient of the forward above, as `jax.grad` takes it through the
+// reference's `rms_norm`: with r = rsqrt(mean(x^2) + eps), n = x r and
+// dn = dy w (f32),
+//   dx = r dn - x r^3 mean(dn x)      (cast to x's dtype)
+//   dw = sum over rows of cast(n) dy  (f32 sums, cast to w's dtype).
+// No Pallas kernel has a backward: the reference differentiates its plain
+// XLA math; this is the port's, so that a norm on the card keeps its
+// gradient.  Bound: bytes (x and dy read, dx written, per element).
+//
+// Pass 1 (`rmsnorm_bwd_kernel`) takes the forward's launch plan (lanes a
+// row, vectors a lane) and recomputes r from the row, so the forward keeps
+// nothing for it; each thread keeps its columns' share of dw in f32
+// registers over the rows it walks and writes it, once, as a row of a
+// per-(block, row group) f32 partial.  Pass 2 (`rmsnorm_dw_kernel`) sums
+// the partials' rows in a fixed order: dw is deterministic, with no atomics.
+
+template <typename T, int VPT, bool VEC>
+__global__ void __launch_bounds__(VPT == 1 ? 1024 : 512)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ partial, int64_t N, int D, float eps,
+                   int L) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float red[2][32];
+  const int R = blockDim.x / L;
+  const int i = threadIdx.x % L, grp = threadIdx.x / L;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  uint4 wr[VPT], xr[VPT], gr[VPT];
+  float dw[VPT][V];
+#pragma unroll
+  for (int j = 0; j < VPT; ++j)
+#pragma unroll
+    for (int e = 0; e < V; ++e) dw[j][e] = 0.0f;
+  load_row<T, VPT, VEC>(wr, w, D, i, L, true);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * R;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * R; base < N; base += stride) {
+    const int64_t row = base + grp;
+    const bool active = row < N;
+    const int64_t off = active ? row * D : 0;
+    load_row<T, VPT, VEC>(xr, x + off, D, i, L, active);
+    load_row<T, VPT, VEC>(gr, dy + off, D, i, L, active);
+    float ss = 0.0f, sd = 0.0f;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float f = to_f32(elem<T>(xr[j], e));
+        ss += f * f;
+        sd += to_f32(elem<T>(gr[j], e)) * to_f32(elem<T>(wr[j], e)) * f;
+      }
+    if (L <= 32) {
+      for (int o = L / 2; o > 0; o >>= 1) {
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        sd += __shfl_xor_sync(0xffffffffu, sd, o);
+      }
+    } else {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        sd += __shfl_xor_sync(0xffffffffu, sd, o);
+      }
+      if (lane == 0) {
+        red[0][warp] = ss;
+        red[1][warp] = sd;
+      }
+      __syncthreads();
+      const bool in = lane < static_cast<int>(blockDim.x / 32);
+      ss = in ? red[0][lane] : 0.0f;
+      sd = in ? red[1][lane] : 0.0f;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        sd += __shfl_xor_sync(0xffffffffu, sd, o);
+      }
+      __syncthreads();  // red is free for the next row
+    }
+    const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+    const float c = r * r * r * (sd / static_cast<float>(D));
+    if (!active) continue;
+    T* drow = dx + row * D;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int col = (j * L + i) * V;
+      if (col >= D) continue;
+      uint4 o;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float f = to_f32(elem<T>(xr[j], e));
+        const float g = to_f32(elem<T>(gr[j], e));
+        elem<T>(o, e) = from_f32<T>(r * (g * to_f32(elem<T>(wr[j], e))) - f * c);
+        dw[j][e] += to_f32(from_f32<T>(f * r)) * g;  // the forward's rounding of n
+      }
+      if (VEC) {
+        *reinterpret_cast<uint4*>(drow + col) = o;
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          if (col + e < D) drow[col + e] = elem<T>(o, e);
+      }
+    }
+  }
+  float* prow = partial + (static_cast<int64_t>(blockIdx.x) * R + grp) * D;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j)
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int col = (j * L + i) * V + e;
+      if (col < D) prow[col] = dw[j][e];
+    }
+}
+
+// dw[c] = sum of the `rows` partial rows at column c: 32 columns a block,
+// eight row slices summed in turn, then the slices in order
+template <typename T>
+__global__ void __launch_bounds__(256)
+rmsnorm_dw_kernel(const float* __restrict__ partial, T* __restrict__ dw, int rows, int D) {
+  __shared__ float s[8][33];
+  const int lane = threadIdx.x % 32, sl = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + lane;
+  float acc = 0.0f;
+  if (c < D)
+    for (int r = sl; r < rows; r += 8) acc += partial[static_cast<int64_t>(r) * D + c];
+  s[sl][lane] = acc;
+  __syncthreads();
+  if (sl == 0 && c < D) {
+    float t = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t += s[k][lane];
+    dw[c] = from_f32<T>(t);
+  }
+}
+
+template <typename T, int VPT, bool VEC>
+int launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw, float* partial,
+               int64_t N, int D, float eps, int L, int grid, cudaStream_t st) {
+  const int threads = L <= 32 ? kRowBlock : L;
+  rmsnorm_bwd_kernel<T, VPT, VEC><<<grid, threads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(dy),
+      static_cast<T*>(dx), partial, N, D, eps, L);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = grid * (threads / L);
+  rmsnorm_dw_kernel<T><<<(D + 31) / 32, 256, 0, st>>>(partial, static_cast<T*>(dw), rows, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool VEC>
+int dispatch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
+                 float* partial, int64_t N, int D, float eps, int L, int vpt, int grid,
+                 cudaStream_t st) {
+  switch (vpt) {
+    case 1: return launch_bwd<T, 1, VEC>(x, w, dy, dx, dw, partial, N, D, eps, L, grid, st);
+    case 2: return launch_bwd<T, 2, VEC>(x, w, dy, dx, dw, partial, N, D, eps, L, grid, st);
+    case 3: return launch_bwd<T, 3, VEC>(x, w, dy, dx, dw, partial, N, D, eps, L, grid, st);
+    case 4: return launch_bwd<T, 4, VEC>(x, w, dy, dx, dw, partial, N, D, eps, L, grid, st);
+    case 8: return launch_bwd<T, 8, VEC>(x, w, dy, dx, dw, partial, N, D, eps, L, grid, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // lanes: threads a row (a power of two <= 32, or a multiple of 32 <= 1024);
@@ -204,5 +366,26 @@ extern "C" int rmsnorm_forward(const void* x, const void* w, void* out, int64_t 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return dispatch<bf16>(x, w, out, N, D, eps, lanes, vpt, vec, st);
   if (dtype == kF32) return dispatch<float>(x, w, out, N, D, eps, lanes, vpt, vec, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward: dx (N, D) and dw (D,) from x, w and dy, through `partial`,
+// an f32 scratch of grid * (rows a block) rows of D (`ops.backward_plan`).
+// lanes, vpt and vec as for the forward; grid: the blocks of pass 1.
+extern "C" int rmsnorm_backward(const void* x, const void* w, const void* dy, void* dx,
+                                void* dw, void* partial, int64_t N, int D, float eps, int dtype,
+                                int lanes, int vpt, int vec, int grid, void* stream) {
+  const bool pow2 = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+  const bool whole = lanes > 32 && lanes <= (vpt == 1 ? 1024 : 512) && lanes % 32 == 0;
+  if (N < 1 || D < 1 || grid < 1 || !(pow2 || whole))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partial);
+  if (dtype == kBF16)
+    return vec ? dispatch_bwd<bf16, true>(x, w, dy, dx, dw, p, N, D, eps, lanes, vpt, grid, st)
+               : dispatch_bwd<bf16, false>(x, w, dy, dx, dw, p, N, D, eps, lanes, vpt, grid, st);
+  if (dtype == kF32)
+    return vec ? dispatch_bwd<float, true>(x, w, dy, dx, dw, p, N, D, eps, lanes, vpt, grid, st)
+               : dispatch_bwd<float, false>(x, w, dy, dx, dw, p, N, D, eps, lanes, vpt, grid, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,6 +7,14 @@ and computes the math of `models.common.rms_norm`.  Bound on the card:
 bytes (see the source note).  Leading dims are flattened into rows;
 `launch_plan` picks the launch shape from D, and `vector_loads` whether the
 kernel may use 16-byte accesses (otherwise it loads element by element).
+
+Under autograd (an input that requires a gradient, grad mode on) a CUDA
+call goes through `_RMSNormFn`, whose backward is the kernel's
+`rmsnorm_backward` entry (`rmsnorm_backward`, two launches: dx and per-block
+f32 partials of dw, then their fixed-order sum); a CPU call runs the plain
+version and autograd differentiates it.  `rmsnorm_backward_plain` is the
+same backward in explicit formulas, for the tests; nothing on the card's
+path calls it.
 """
 
 from __future__ import annotations
@@ -25,6 +33,23 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     # cast to x's dtype BEFORE the weight multiply, as the reference does
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rmsnorm_backward_plain(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                           eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of `rmsnorm_plain` at (x, w) for the output gradient dy, in
+    explicit formulas, f32 inside: with r = rsqrt(mean(x^2) + eps) and
+    dn = dy w, dx = r dn - x r^3 mean(dn x); dw = sum over rows of
+    cast(x r) dy (the forward's rounding of the normalised row).  dx in x's
+    dtype, dw in w's."""
+    D = x.shape[-1]
+    x32, dy32 = x.float(), dy.float()
+    r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    dn = dy32 * w.float()
+    dx = r * dn - x32 * r.pow(3) * (dn * x32).mean(dim=-1, keepdim=True)
+    n = (x32 * r).to(x.dtype).float()
+    dw = (n * dy32).reshape(-1, D).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 VECTORS = (1, 2, 3, 4, 8)  # vectors a lane the source is built for (VPT)
@@ -60,24 +85,54 @@ def vector_loads(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in (x, w, out)) and D % (16 // x.element_size()) == 0
 
 
+BWD_WAVE = 8  # blocks an SM of the backward's first pass, at most
+
+
+def backward_plan(N: int, D: int, elem_size: int, n_sm: int) -> tuple[int, int]:
+    """(blocks of the backward's first pass, rows of its f32 dw partial)
+    for N rows of D: the forward's launch shape, at most `BWD_WAVE` blocks
+    an SM (and no more than the card holds at once), each writing one
+    partial row a row group."""
+    lanes, _ = launch_plan(D, elem_size)
+    threads = 256 if lanes <= 32 else lanes
+    rows_a_block = threads // lanes
+    blocks = -(-N // rows_a_block)
+    grid = max(1, min(blocks, n_sm * min(BWD_WAVE, 2048 // threads)))
+    return grid, grid * rows_a_block
+
+
 # x, w, out, N, D, eps, dtype, lanes, vectors a lane, vector loads, stream
 _SIGNATURES = {"rmsnorm_forward": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int]
-               + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+               + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+               # x, w, dy, dx, dw, partial, N, D, eps, dtype, lanes, vpt, vec, grid, stream
+               "rmsnorm_backward": [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int]
+               + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 
 
 def _bind() -> ctypes.CDLL:
     return _lib.load("rmsnorm", _SIGNATURES)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., D); w: (D,) of x's dtype."""
-    if not _lib.route(x, w):
-        return rmsnorm_plain(x, w, eps)
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     D = x.shape[-1]
     if w.dtype != x.dtype or w.shape != (D,):
         raise ValueError(f"weight must be ({D},) {x.dtype}, got {tuple(w.shape)} {w.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm takes contiguous tensors")
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., D); w: (D,) of x's dtype."""
+    if not _lib.route(x, w):
+        return rmsnorm_plain(x, w, eps)
+    _check(x, w)
+    if _lib.needs_grad(x, w):
+        return _RMSNormFn.apply(x, w, eps)
+    return _forward(x, w, eps)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    D = x.shape[-1]
     code = _lib.dtype_code(x)
     N = x.numel() // max(D, 1)
     out = torch.empty_like(x)
@@ -93,3 +148,53 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 
 
 rmsnorm.launches = 0
+
+
+def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of rmsnorm at (x, w) for dy, by the kernel (CUDA) or
+    `rmsnorm_backward_plain` (CPU).  dy is made contiguous."""
+    if not _lib.route(x, w, dy):
+        return rmsnorm_backward_plain(x, w, dy, eps)
+    _check(x, w)
+    dy = dy.contiguous()
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    D = x.shape[-1]
+    code = _lib.dtype_code(x)
+    N = x.numel() // max(D, 1)
+    dx = torch.empty_like(x)
+    if N == 0 or D == 0:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    lanes, vpt = launch_plan(D, x.element_size())
+    grid, rows = backward_plan(N, D, x.element_size(), _lib.sm_count(x.device.index))
+    partial = torch.empty((rows, D), dtype=torch.float32, device=x.device)
+    vec = vector_loads(x, w, dx) and dy.data_ptr() % 16 == 0
+    err = _bind().rmsnorm_backward(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                                   dw.data_ptr(), partial.data_ptr(), N, D, float(eps), code,
+                                   lanes, vpt, int(vec), grid, _lib.stream_handle(x))
+    _lib.check("rmsnorm_backward", err)
+    rmsnorm_backward.launches += 1
+    return dx, dw
+
+
+rmsnorm_backward.launches = 0
+
+
+class _RMSNormFn(torch.autograd.Function):
+    """The kernel's forward and backward on CUDA tensors (the forward keeps
+    x and w; the backward recomputes each row's rsqrt)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_backward(x, w, dy, ctx.eps)
+        return dx, dw, None

@@ -228,6 +228,9 @@ def ssd_scan_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torc
     tensors = [t for t in (q, k, v, log_g, log_i) if t is not None]
     if not _lib.route(*tensors):
         return chunked_linear_attention_plain(q, k, v, log_g, log_i, chunk=chunk)
+    if _lib.needs_grad(*tensors):
+        raise _lib.no_backward("ssd_scan", "ROADMAP.md queue 1, item 13d (hybrid and xLSTM "
+                               "training on the card)")
     B, T, NH, DK = q.shape
     DV = v.shape[-1]
     if k.shape != q.shape or v.shape[:3] != (B, T, NH) or log_g.shape != (B, T, NH) or \

@@ -17,6 +17,7 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -209,6 +210,23 @@ def _module(node) -> torch.nn.Module:
     return ParamTree(node)
 
 
+def count_params(defs) -> int:
+    """Elements of every leaf of a template tree."""
+    if isinstance(defs, ParamDef):
+        return math.prod(defs.shape)
+    nodes = defs if isinstance(defs, list) else defs.values()
+    return sum(count_params(n) for n in nodes)
+
+
+def remat_call(fn: Callable, *args):
+    """`fn(*args)` with its activations recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant): the counterpart of
+    `jax.checkpoint`.  Without autograd recording it is the plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 def init_params(defs: dict, generator: torch.Generator) -> ParamTree:
     """Initialise a template tree ({name: ParamDef | dict | list}) on the
     generator's device."""
@@ -260,6 +278,11 @@ def attn_chunks(cfg: ModelConfig, seq: int) -> tuple[int, int]:
 
 def ssm_chunk_of(cfg: ModelConfig, seq: int) -> int:
     return seq if cfg.cost_exact else cfg.ssm_chunk
+
+
+def ce_chunk_of(cfg: ModelConfig, seq: int) -> int:
+    """Positions a chunk of the chunked cross-entropy."""
+    return seq if cfg.cost_exact else min(seq, cfg.ce_chunk)
 
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:

@@ -225,30 +225,35 @@ def layers(params) -> list:
 
 
 def _hidden_full(cfg: ModelConfig, ops: Ops, params, tokens, frontend_embeds=None,
-                 collect_cache: bool = False):
+                 collect_cache: bool = False, remat: bool = False):
     x = tfm.embed_tokens(cfg, params, tokens, frontend_embeds)
     positions = tfm.positions_for(x)
     caches = []
+    if not collect_cache:
+        x = tfm.run_layers(layers(params),
+                           lambda lp, x: layer_full(cfg, ops, lp, x, positions)[0], x, remat)
+        return x, positions, caches
     for lp in layers(params):
         x, kv = layer_full(cfg, ops, lp, x, positions)
-        if collect_cache:
-            caches.append(kv)
+        caches.append(kv)
     return x, positions, caches
 
 
 def forward(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor,
-            frontend_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    x, _, _ = _hidden_full(cfg, ops, params, tokens, frontend_embeds)
-    x = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return tfm.unembed(cfg, params, x)
+            frontend_embeds: torch.Tensor | None = None, remat: bool = False,
+            unembed_out: bool = True) -> torch.Tensor:
+    x, _, _ = _hidden_full(cfg, ops, params, tokens, frontend_embeds, remat=remat)
+    return tfm.head_out(cfg, ops, params, x, unembed_out)
 
 
-def forward_with_mtp(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor
+def forward_with_mtp(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor,
+                     remat: bool = False, unembed_out: bool = True
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """(logits, mtp_logits): the next-token prediction at every position and
-    the MTP head's (t + 2) prediction over [0, S - 1).  Forward only: the
-    MTP loss and its weight belong to training."""
-    x, positions, _ = _hidden_full(cfg, ops, params, tokens)
+    the MTP head's (t + 2) prediction over [0, S - 1); with
+    unembed_out=False the two final-normed hidden states (for the chunked
+    CE of `Model.loss`)."""
+    x, positions, _ = _hidden_full(cfg, ops, params, tokens, remat=remat)
     h = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
     mp = params["mtp"]
     emb_next = params["embed"][tokens[:, 1:]]
@@ -257,6 +262,8 @@ def forward_with_mtp(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor
     y = merged @ mp["proj"]
     y, _ = layer_full(cfg, ops, mp["layer"], y, positions[:, :-1])
     y = ops.rms_norm(y, params["final_norm"], cfg.norm_eps)
+    if not unembed_out:
+        return h, y
     return tfm.unembed(cfg, params, h), tfm.unembed(cfg, params, y)
 
 

@@ -91,12 +91,13 @@ def enc_layer(cfg: ModelConfig, ops: Ops, p, x: torch.Tensor, positions) -> torc
     return mlp_block(cfg, ops, p, x)
 
 
-def encode(cfg: ModelConfig, ops: Ops, params, frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, ops: Ops, params, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """The encoder over precomputed frame embeddings (B, S, d)."""
     x = frames.to(cfg.dtype)
     positions = tfm.positions_for(x)
-    for lp in params["enc_layers"]:
-        x = enc_layer(cfg, ops, lp, x, positions)
+    x = tfm.run_layers(params["enc_layers"], lambda lp, x: enc_layer(cfg, ops, lp, x, positions),
+                       x, remat)
     return ops.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -172,16 +173,17 @@ def dec_layer_decode(cfg: ModelConfig, ops: Ops, p, x, k_cache, v_cache, cross_k
 
 
 def forward(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor,
-            frames: torch.Tensor) -> torch.Tensor:
+            frames: torch.Tensor, remat: bool = False, unembed_out: bool = True) -> torch.Tensor:
     """Teacher-forced forward: the encoder over the frames, the decoder over
-    the tokens (B, T); logits at every text position."""
-    enc_out = encode(cfg, ops, params, frames)
+    the tokens (B, T); logits at every text position (unembed_out=False:
+    the final-normed hidden states)."""
+    enc_out = encode(cfg, ops, params, frames, remat=remat)
     x = tfm.embed_tokens(cfg, params, tokens)
     positions = tfm.positions_for(x)
-    for lp in params["dec_layers"]:
-        x, _ = dec_layer_full(cfg, ops, lp, x, positions, enc_out)
-    x = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return tfm.unembed(cfg, params, x)
+    x = tfm.run_layers(params["dec_layers"],
+                       lambda lp, x: dec_layer_full(cfg, ops, lp, x, positions, enc_out)[0],
+                       x, remat)
+    return tfm.head_out(cfg, ops, params, x, unembed_out)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device | str,

@@ -26,7 +26,7 @@ import torch
 
 from . import ssm
 from . import transformer as tfm
-from .common import ModelConfig, Ops, ParamDef
+from .common import ModelConfig, Ops, ParamDef, remat_call
 
 _FULL = {"m": ssm.mamba2_full, "M": ssm.mlstm_full}
 _STEP = {"m": ssm.mamba2_step, "M": ssm.mlstm_step}
@@ -117,20 +117,28 @@ def _apply_slstm_step(cfg, ops, p, x, state):
 # ----------------------------------------------------------------------------
 
 
-def forward(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor, remat: bool = False,
+            unembed_out: bool = True) -> torch.Tensor:
+    """Logits at every position (unembed_out=False: the final-normed hidden
+    states); with remat each group (its inner blocks and its outer block) is
+    recomputed in the backward, as the reference checkpoints its group body."""
     period, G = parse_pattern(cfg)
     inner, outer = period[0], _outer_kind(period)
     x = tfm.embed_tokens(cfg, params, tokens)
     positions = tfm.positions_for(x)
-    for g, group in enumerate(params["inner"]):
-        for lp in group:
+
+    def group_body(g: int, x: torch.Tensor) -> torch.Tensor:
+        for lp in params["inner"][g]:
             x, _ = _apply_inner_full(cfg, ops, inner, lp, x)
         if outer == "a":
             x, _ = tfm.layer_full(cfg, ops, params["shared_attn"], x, positions)
         elif outer == "s":
             x, _ = _apply_slstm_full(cfg, ops, params["outer"][g], x)
-    x = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return tfm.unembed(cfg, params, x)
+        return x
+
+    for g in range(len(params["inner"])):
+        x = remat_call(group_body, g, x) if remat else group_body(g, x)
+    return tfm.head_out(cfg, ops, params, x, unembed_out)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device | str) -> dict:

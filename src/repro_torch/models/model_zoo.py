@@ -4,12 +4,13 @@ embeddings), the MoE family (llama4's GQA + MoE, deepseek-v3's MLA + MoE +
 MTP), the recurrent ones (the Mamba2 hybrid zamba2-2.7b, xLSTM) and the
 encoder-decoder (seamless-m4t, over precomputed frame embeddings).
 
-`build_model(cfg)` returns a `Model` whose methods cover what serving needs:
-`init` (parameters from an explicit generator), `forward`, `init_cache`,
-`prefill` and `decode_step` (the reference's signatures, plus the `ops`
-that pick kernels or plain math, and `init_cache`'s device), and `layer_costs` — the analytic
-per-layer profile the PPipe control plane consumes, equal to the
-reference's for the same config of every family.  As in the reference, `forward` and
+`build_model(cfg)` returns a `Model` whose methods cover the whole
+lifecycle: `init` (parameters from an explicit generator), `forward` and
+`loss` (training), `init_cache`, `prefill` and `decode_step` (serving) —
+the reference's signatures, plus the `ops` that pick kernels or plain math,
+and `init_cache`'s device — and `layer_costs`, the analytic per-layer
+profile the PPipe control plane consumes, equal to the reference's for the
+same config of every family.  As in the reference, `forward` and
 `prefill` read a VLM's `batch["patches"]` and an enc-dec's
 `batch["frames"]`.
 """
@@ -20,12 +21,13 @@ from dataclasses import dataclass
 from types import ModuleType
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import costmodel as cm
 from repro_torch.core.types import LayerCost
 
 from . import deepseek, encdec, hybrid, moe, transformer as tfm
-from .common import KERNELS, ModelConfig, Ops, ParamTree, init_params
+from .common import KERNELS, ModelConfig, Ops, ParamTree, ce_chunk_of, init_params, remat_call
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "audio")
 _MODULES = {"dense": tfm, "vlm": tfm, "moe": moe, "hybrid": hybrid, "ssm": hybrid,
@@ -54,8 +56,30 @@ class Model:
             return batch["tokens"], batch.get("patches")
         return (batch["tokens"],)
 
-    def forward(self, params: ParamTree, batch: dict, ops: Ops = KERNELS) -> torch.Tensor:
-        return self.mod.forward(self.cfg, ops, params, *self.inputs(batch))
+    def forward(self, params: ParamTree, batch: dict, remat: bool = False,
+                ops: Ops = KERNELS) -> torch.Tensor:
+        return self.mod.forward(self.cfg, ops, params, *self.inputs(batch), remat=remat)
+
+    def loss(self, params: ParamTree, batch: dict, remat: bool = False,
+             ops: Ops = KERNELS) -> torch.Tensor:
+        """The reference's training loss: the chunked next-token CE over the
+        final hidden states (labels `batch["labels"]`, or the tokens shifted
+        by one after a VLM's patches; labels < 0 masked), plus deepseek's
+        MTP term (tokens t + 2) at weight 0.3."""
+        cfg, tokens = self.cfg, batch["tokens"]
+        if cfg.family == "moe" and cfg.mla and cfg.mtp and "mtp" in params:
+            h, y = deepseek.forward_with_mtp(cfg, ops, params, tokens, remat=remat,
+                                             unembed_out=False)
+            main = _ce_from_hidden(cfg, params, h[:, :-1], tokens[:, 1:])
+            mtp = _ce_from_hidden(cfg, params, y[:, :-1], tokens[:, 2:])
+            return main + 0.3 * mtp
+        hidden = self.mod.forward(cfg, ops, params, *self.inputs(batch), remat=remat,
+                                  unembed_out=False)
+        labels = batch.get("labels")
+        if labels is None:
+            labels = tokens[:, 1:]
+            hidden = hidden[:, batch_text_offset(cfg):-1]
+        return _ce_from_hidden(cfg, params, hidden, labels)
 
     def init_cache(self, batch_size: int, max_len: int, device: torch.device | str,
                    enc_len: int | None = None) -> dict:
@@ -79,6 +103,50 @@ class Model:
 
     def layer_costs(self, seq: int) -> list[LayerCost]:
         return layer_costs(self.cfg, seq)
+
+
+def _ce_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Masked CE over the true (un-padded) vocabulary, mean over tokens."""
+    mask = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
+    logits = torch.where(mask, logits.float(), -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def _ce_chunk(xc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor,
+              vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the chunk's token losses, its count of valid labels)."""
+    logits = (xc @ w).float()
+    vmask = torch.arange(w.shape[-1], device=w.device) < vocab
+    logits = torch.where(vmask, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc.clamp(min=0)[..., None].long())[..., 0]
+    valid = (lc >= 0).float()
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def _ce_from_hidden(cfg: ModelConfig, params, hidden: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Chunked cross-entropy from the final hidden states, the reference's
+    scan as a loop over `ce_chunk_of` chunks.  Each chunk's (B, chunk, V)
+    f32 logits are computed under a checkpoint, so the backward recomputes
+    them rather than holding every chunk's (2.5 GB a chunk at qwen2-1.5b's
+    4 x 1023 x 151936).  Labels < 0 are masked out."""
+    w = params["head"] if "head" in params else params["embed"].T
+    B, S, _ = hidden.shape
+    chunk = ce_chunk_of(cfg, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, S + pad, chunk):
+        part, n = remat_call(_ce_chunk, hidden[:, c:c + chunk], labels[:, c:c + chunk], w,
+                             cfg.vocab)
+        tot, cnt = tot + part, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def build_model(cfg: ModelConfig) -> Model:

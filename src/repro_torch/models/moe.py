@@ -154,6 +154,18 @@ def routing(cfg: ModelConfig, p, x: torch.Tensor) -> tuple[torch.Tensor, torch.T
     return ids.reshape(B, T, cfg.top_k), keep.reshape(B, T, cfg.top_k)
 
 
+def aux_load_balance_loss(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss (training): E times the sum
+    over experts of the share of tokens whose top choice it is and its mean
+    router probability.  As in the reference, no `loss` calls it."""
+    B, T, d = x.shape
+    probs = torch.softmax(x.reshape(B * T, d).float() @ p["router"], dim=-1)
+    ids = probs.argmax(dim=-1)
+    frac = F.one_hot(ids, cfg.n_experts).float().mean(dim=0)
+    imp = probs.mean(dim=0)
+    return cfg.n_experts * (frac * imp).sum()
+
+
 # ----------------------------------------------------------------------------
 # The MoE transformer (llama4: GQA attention and an MoE FFN in every layer)
 # ----------------------------------------------------------------------------
@@ -222,13 +234,13 @@ def layers(params) -> list:
 
 
 def forward(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor,
-            frontend_embeds: torch.Tensor | None = None) -> torch.Tensor:
+            frontend_embeds: torch.Tensor | None = None, remat: bool = False,
+            unembed_out: bool = True) -> torch.Tensor:
     x = tfm.embed_tokens(cfg, params, tokens, frontend_embeds)
     positions = tfm.positions_for(x)
-    for lp in params["layers"]:
-        x, _ = layer_full(cfg, ops, lp, x, positions)
-    x = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return tfm.unembed(cfg, params, x)
+    x = tfm.run_layers(params["layers"],
+                       lambda lp, x: layer_full(cfg, ops, lp, x, positions)[0], x, remat)
+    return tfm.head_out(cfg, ops, params, x, unembed_out)
 
 
 init_cache = tfm.init_cache

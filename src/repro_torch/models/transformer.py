@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import ModelConfig, Ops, ParamDef, apply_rope, swiglu
+from .common import ModelConfig, Ops, ParamDef, apply_rope, remat_call, swiglu
 
 # ----------------------------------------------------------------------------
 # Parameter templates
@@ -170,15 +170,33 @@ def positions_for(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=x.device).expand(B, S)
 
 
+def head_out(cfg: ModelConfig, ops: Ops, params, x: torch.Tensor,
+             unembed_out: bool = True) -> torch.Tensor:
+    """The final norm, then the head's logits (or, with unembed_out=False,
+    the normed hidden states, for the chunked-CE loss)."""
+    x = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x) if unembed_out else x
+
+
+def run_layers(layers, body, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """x through `body(lp, x)` for each layer's parameters lp in turn; with
+    remat, each layer's activations are recomputed in the backward (the
+    reference's `jax.checkpoint` of its scan body)."""
+    for lp in layers:
+        x = remat_call(body, lp, x) if remat else body(lp, x)
+    return x
+
+
 def forward(cfg: ModelConfig, ops: Ops, params, tokens: torch.Tensor,
-            frontend_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    """Full causal forward: logits at every position, frontend's included."""
+            frontend_embeds: torch.Tensor | None = None, remat: bool = False,
+            unembed_out: bool = True) -> torch.Tensor:
+    """Full causal forward: logits at every position, frontend's included
+    (unembed_out=False: the final-normed hidden states)."""
     x = embed_tokens(cfg, params, tokens, frontend_embeds)
     positions = positions_for(x)
-    for lp in params["layers"]:
-        x, _ = layer_full(cfg, ops, lp, x, positions)
-    x = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(cfg, params, x)
+    x = run_layers(params["layers"], lambda lp, x: layer_full(cfg, ops, lp, x, positions)[0],
+                   x, remat)
+    return head_out(cfg, ops, params, x, unembed_out)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device | str) -> dict:

@@ -25,7 +25,7 @@ from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.rmsnorm import ops as rn
 from repro_torch.kernels.ssd_scan import ops as ssd
-from repro_torch.testing.parity import attn_tol, tol
+from repro_torch.testing.parity import assert_grad_close, attn_tol, flash_grads_f32, tol
 
 
 def _normal(seed, shape, scale=1.0):
@@ -1017,3 +1017,173 @@ def test_stage_graphs_capture_while_serving(cuda):
         torch.cuda.synchronize()
         assert torch.equal(y, _eager_chain(new, x))
     session.shutdown()
+
+
+# ---------------------------------------------------------------- training
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("N,D", [(4096, 1536), (512, 512), (8192, 1536), (1024, 2560),
+                                 (1000, 1536), (77, 128), (333, 264), (5, 5120), (129, 1000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, N, D, dtype):
+    """dx and dw against the plain backward run in f32 from the same inputs,
+    each within `GRAD_TOL` of the f32 result's max |value|: the rows of one
+    micro-batch of qwen2-1.5b (4 x 1024) and of `train_small` (4 x 128),
+    twice qwen2-1.5b's rows, the serve's shape, ragged row counts, narrow
+    rows, a D that is not a multiple of the vector (element-wise loads);
+    bit-equal run to run (the dw partials are summed in a fixed order)."""
+    x = _on(cuda, 80, (N, D), dtype, 3.0)
+    w = _on(cuda, 81, (D,), dtype)
+    dy = _on(cuda, 82, (N, D), dtype)
+    before = rn.rmsnorm_backward.launches
+    dx, dw = rn.rmsnorm_backward(x, w, dy)
+    dx2, dw2 = rn.rmsnorm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm_backward.launches == before + 2
+    want_dx, want_dw = rn.rmsnorm_backward_plain(x.float(), w.float(), dy.float())
+    assert dx.dtype == dtype and dw.dtype == dtype
+    assert_grad_close(dx, want_dx, "dx")
+    assert_grad_close(dw, want_dw, "dw")
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.requires_cuda
+def test_rmsnorm_under_grad_goes_through_its_backward(cuda):
+    """With an input that requires a gradient the wrapper launches the
+    forward through its autograd.Function; backward() launches the backward
+    kernel and gives the plain backward's gradients."""
+    x = _on(cuda, 83, (4, 64, 1536), torch.bfloat16).requires_grad_()
+    w = _on(cuda, 84, (1536,), torch.bfloat16).requires_grad_()
+    f0, b0 = rn.rmsnorm.launches, rn.rmsnorm_backward.launches
+    y = rn.rmsnorm(x, w)
+    assert y.grad_fn is not None and rn.rmsnorm.launches == f0 + 1
+    dy = _on(cuda, 85, y.shape, torch.bfloat16)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm_backward.launches == b0 + 1
+    want_dx, want_dw = rn.rmsnorm_backward_plain(x.detach().float(), w.detach().float(),
+                                                 dy.float())
+    assert_grad_close(x.grad, want_dx, "dx")
+    assert_grad_close(w.grad, want_dw, "dw")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KH,S,D", [(4, 12, 2, 1024, 128),  # qwen2-1.5b's train shape
+                                        (2, 8, 8, 512, 128),    # G = 1
+                                        (2, 12, 2, 1000, 128),  # ragged S
+                                        (1, 8, 1, 300, 64),     # G = 8
+                                        (2, 4, 2, 70, 80),      # D 80: a zero-padded k-step
+                                        (1, 2, 1, 1, 32),       # one token
+                                        (3, 4, 4, 190, 40)])
+def test_flash_attention_backward_kernel_matches_plain(cuda, B, H, KH, S, D):
+    """The LSE forward's output equals `fa_forward`'s bit for bit and its lse
+    the plain one; dq, dk and dv against the plain backward run in f32,
+    each within `GRAD_TOL` of the f32 result's max |value|; bit-equal run
+    to run (no atomics)."""
+    dtype = torch.bfloat16
+    q = _on(cuda, 90, (B, H, S, D), dtype)
+    k = _on(cuda, 91, (B, KH, S, D), dtype)
+    v = _on(cuda, 92, (B, KH, S, D), dtype)
+    dout = _on(cuda, 93, (B, H, S, D), dtype)
+    scale = D ** -0.5
+    o = torch.empty_like(q)
+    lse = fa.flash_attention_forward_lse(q, k, v, o, scale)
+    direct = fa.flash_attention(q, k, v)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    again = [torch.empty_like(t) for t in (q, k, v)]
+    fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale)
+    fa.flash_attention_backward(q, k, v, o, dout, lse, *again, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(o, direct)
+    torch.testing.assert_close(lse, fa.flash_attention_lse_plain(q, k), atol=1e-4, rtol=1e-5)
+    for name, got, want, rerun in zip(("dq", "dk", "dv"), grads,
+                                      flash_grads_f32(q, k, v, dout), again):
+        assert_grad_close(got, want, name)
+        assert torch.equal(got, rerun), name
+
+
+@pytest.mark.requires_cuda
+def test_attention_bthd_under_grad_keeps_layout(cuda):
+    """The model layout under grad: the output, and dq, dk, dv in the
+    inputs' (B, T, H, D) layout and strides, against autograd of the plain
+    version run in f32; the forward counted as one LSE launch and the
+    backward as one call."""
+    dtype = torch.bfloat16
+    q = _on(cuda, 94, (2, 256, 12, 128), dtype).requires_grad_()
+    k = _on(cuda, 95, (2, 256, 2, 128), dtype).requires_grad_()
+    v = _on(cuda, 96, (2, 256, 2, 128), dtype).requires_grad_()
+    f0, l0, b0 = (fa.flash_attention.launches, fa.flash_attention_forward_lse.launches,
+                  fa.flash_attention_backward.launches)
+    out = fa.attention_bthd(q, k, v)
+    assert out.grad_fn is not None and out.shape == q.shape and out.is_contiguous()
+    dout = _on(cuda, 97, out.shape, dtype)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_forward_lse.launches,
+            fa.flash_attention_backward.launches) == (f0, l0 + 1, b0 + 1)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want_out = fa.flash_attention_plain(*(t.transpose(1, 2) for t in leaves)).transpose(1, 2)
+    want = torch.autograd.grad(want_out, leaves, dout.float())
+    for name, t, w in zip(("dq", "dk", "dv"), (q, k, v), want):
+        assert t.grad.stride() == t.stride(), name
+        assert_grad_close(t.grad, w, name)
+    torch.testing.assert_close(out.detach().float(), want_out.detach(), **attn_tol(dtype))
+
+
+@pytest.mark.requires_cuda
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    """Every wrapper whose kernel has no backward raises on CUDA under grad,
+    as do flash attention's uncovered routes; without grad each launches."""
+    bf16 = torch.bfloat16
+    q = _on(cuda, 100, (2, 1, 8, 64), bf16).requires_grad_()
+    cache = _on(cuda, 101, (2, 32, 2, 64), bf16)
+    with pytest.raises(RuntimeError, match="item 13e"):
+        da.decode_attention_bthd(q, cache, cache, 32)
+    with pytest.raises(RuntimeError, match="item 13e"):
+        da.decode_attention(q.reshape(2, 2, 4, 64), cache.transpose(1, 2),
+                            cache.transpose(1, 2), 32)
+    x = _on(cuda, 102, (2, 64, 2, 16), torch.float32).requires_grad_()
+    gate = -torch.rand(2, 64, 2, device=cuda)
+    with pytest.raises(RuntimeError, match="item 13d"):
+        ssd.ssd_scan_bthd(x, x, x, gate, chunk=16)
+    with pytest.raises(RuntimeError, match="item 13e"):
+        bq.quantize(_on(cuda, 103, (8, 64), bf16).requires_grad_())
+    qv, scale = bq.quantize(_on(cuda, 104, (8, 64), bf16))
+    with pytest.raises(RuntimeError, match="item 13e"):
+        bq.dequantize(qv, scale.requires_grad_())
+    k = _on(cuda, 105, (1, 2, 64, 64), bf16)
+    for args, kw, item in (
+            ((_on(cuda, 106, (1, 4, 64, 64), torch.float32).requires_grad_(), k.float(),
+              k.float()), {}, "13a"),
+            ((_on(cuda, 107, (1, 4, 64, 64), bf16).requires_grad_(), k, k),
+             {"causal": False}, "13b"),
+            ((_on(cuda, 108, (1, 4, 32, 64), bf16).requires_grad_(), k, k), {}, "13b"),
+            ((_on(cuda, 109, (1, 4, 64, 192), bf16).requires_grad_(),
+              _on(cuda, 110, (1, 2, 64, 192), bf16), _on(cuda, 111, (1, 2, 64, 192), bf16)),
+             {}, "13c")):
+        with pytest.raises(RuntimeError, match=f"item {item}"):
+            fa.flash_attention(*args, **kw)
+    with torch.no_grad():
+        da.decode_attention_bthd(q, cache, cache, 32)
+        bq.quantize(_on(cuda, 103, (8, 64), bf16).requires_grad_())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_model_forward_without_grad_runs_no_autograd_function(cuda):
+    """Serving's forward (frozen leaves) launches the forward kernels
+    directly: no LSE forward, no output with a grad_fn."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("qwen2-1.5b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=cuda)
+    f0, l0 = fa.flash_attention.launches, fa.flash_attention_forward_lse.launches
+    logits = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert logits.grad_fn is None
+    assert fa.flash_attention.launches == f0 + cfg.n_layers
+    assert fa.flash_attention_forward_lse.launches == l0

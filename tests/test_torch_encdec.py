@@ -21,7 +21,7 @@ by up to 4e-4 of the logits' scale when its parameters are scaled by
 1 + 2^-20 (`test_reference_f32_forward_is_sensitive_at_its_init`), past the
 1e-4 bound, so whole models are held on the same parameters with every
 stacked projection rescaled to the fan-in of its input width
-(`_conditioned`); each encoder layer and decoder block is held at the
+(`condition_fan_in`); each encoder layer and decoder block is held at the
 reference's own init from the same input
 (`test_layers_match_reference_at_its_init`).
 """
@@ -40,9 +40,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models import common, encdec
-from repro_torch.models.common import ParamDef
 from repro_torch.models.model_zoo import build_model
-from repro_torch.testing.parity import params_from_numpy
+from repro_torch.testing.parity import condition_fan_in, params_from_numpy
 
 ARCH = "seamless-m4t-large-v2"
 BF16 = dict(atol=0.2, rtol=2e-2)
@@ -88,24 +87,6 @@ def _cache_close(got, want, dtype) -> None:
                                    atol=BF16["atol"] * scale / 4)
 
 
-def _conditioned(tree: dict, defs) -> dict:
-    """The numpy tree with every stacked default-init normal leaf (the
-    reference draws it at std 1/sqrt(layers)) rescaled to std 1/sqrt(its
-    input width), walked beside the port's templates."""
-
-    def walk(node, d):
-        if isinstance(d, ParamDef):
-            if d.init == "normal" and d.scale is None and d.stacked:
-                return node * np.float32(np.sqrt(d.stacked / d.shape[0]))
-            return node
-        if isinstance(d, list):  # a stack along the leaves' leading axis
-            parts = [walk(jax.tree.map(lambda a: a[i], node), x) for i, x in enumerate(d)]
-            return jax.tree.map(lambda *a: np.stack(a), *parts)
-        return {k: walk(node[k], d[k]) for k in d}
-
-    return walk(tree, defs)
-
-
 def _models(dtype, seed=0, conditioned=True):
     """The reference's and the port's reduced models on the same parameters,
     the reference's init, conditioned unless asked not to; and the numpy
@@ -117,7 +98,7 @@ def _models(dtype, seed=0, conditioned=True):
     rparams = ref_model.init(jax.random.PRNGKey(seed))
     tree = jax.tree.map(lambda a: np.asarray(a).astype(np.float32), rparams)
     if conditioned:
-        tree = _conditioned(tree, build_model(cfg).defs)
+        tree = condition_fan_in(tree, build_model(cfg).defs)
         rparams = jax.tree.map(lambda a, r: jnp.asarray(a).astype(r.dtype), tree, rparams)
         tree = jax.tree.map(lambda a: np.asarray(a).astype(np.float32), rparams)
     return rcfg, ref_model, rparams, cfg, params_from_numpy(tree, cfg), tree

@@ -1,0 +1,258 @@
+"""The backward kernels' plain versions against the reference's math, and
+the bound the card holds the kernels to.
+
+* `rmsnorm_backward_plain` against `jax.vjp` of the reference's
+  `models.common.rms_norm` and against autograd of the port's own plain
+  forward (f32 to 1e-5 of scale; bf16 to 2e-2, the card check's bound:
+  the reference rounds dy * w to bf16 where the port keeps it f32).
+* `flash_attention_backward_plain`, from the lse and Delta as the kernel
+  computes them, against `jax.vjp` of the reference's `chunked_attention`
+  (causal, Sq == Sk, G 1, 2 and 6) and against autograd of the port's plain
+  forward: f32 to 1e-5 of each gradient's scale; bf16 to the card's bound.
+* The card's bound (`testing.parity.GRAD_TOL`: each gradient within 2e-2
+  of the f32 plain backward's max |value|) rejects planted faults — a flash
+  backward that drops its Delta term, one that skips the sum over a KV
+  head's query heads in dK/dV, an rmsnorm backward that sums dw in bf16 —
+  at the card check's shapes, and accepts the sound plain backward run in
+  bf16.
+* Under grad on the CPU every op of `KERNELS` returns a tensor that carries
+  a `grad_fn` (the plain versions, differentiated by autograd); the
+  training route's shape rule refuses what the backward kernel does not
+  cover, naming the ROADMAP item.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import common as ref_common
+from repro_torch.kernels import _lib
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.rmsnorm import ops as rn
+from repro_torch.models import common
+from repro_torch.testing.parity import GRAD_TOL, flash_grads_f32, grad_gap
+
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _normal(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _both(a: np.ndarray, dtype: str):
+    jdt, tdt = DTYPES[dtype]
+    j = jnp.asarray(a, jdt)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(jnp.asarray(x).astype(jnp.float32)))
+
+
+def _bound(dtype: str) -> float:
+    return 1e-5 if dtype == "f32" else GRAD_TOL
+
+
+# ------------------------------------------------------------------ rmsnorm
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("N,D", [(24, 128), (7, 1536), (3, 40)])
+def test_rmsnorm_backward_plain_matches_reference_vjp(dtype, N, D):
+    jx, x = _both(_normal(0, (N, D), 3.0), dtype)
+    jw, w = _both(_normal(1, (D,)), dtype)
+    jdy, dy = _both(_normal(2, (N, D)), dtype)
+    _, vjp = jax.vjp(lambda a, b: ref_common.rms_norm(a, b, 1e-5), jx, jw)
+    want_dx, want_dw = vjp(jdy)
+    dx, dw = rn.rmsnorm_backward_plain(x, w, dy)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    assert grad_gap(dx, _t(want_dx)) <= _bound(dtype)
+    assert grad_gap(dw, _t(want_dw)) <= _bound(dtype)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    auto = torch.autograd.grad(rn.rmsnorm_plain(xa, wa), (xa, wa), dy)
+    for got, want in zip((dx, dw), auto):
+        assert grad_gap(got, want) <= _bound(dtype)
+
+
+def test_rmsnorm_backward_on_cpu_is_the_plain_one():
+    x, w, dy = (torch.from_numpy(_normal(i, s)) for i, s in ((3, (5, 64)), (4, (64,)),
+                                                             (5, (5, 64))))
+    for got, want in zip(rn.rmsnorm_backward(x, w, dy), rn.rmsnorm_backward_plain(x, w, dy)):
+        assert torch.equal(got, want)
+
+
+def test_rmsnorm_backward_plan():
+    """The first pass takes the forward's launch shape and at most eight
+    blocks an SM; one partial row a row group."""
+    assert rn.backward_plan(8192, 1536, 2, 132) == (1056, 1056)   # 96 threads, a row a block
+    assert rn.backward_plan(1024, 128, 2, 132) == (64, 1024)      # 16 lanes: 16 rows a block
+    assert rn.backward_plan(5, 5120, 2, 132) == (5, 5)
+    assert rn.backward_plan(1, 8, 4, 132) == (1, 128)      # 2 lanes: 128 row groups
+
+
+# ---------------------------------------------------------- flash attention
+
+
+def _attn_inputs(dtype, B, H, KH, S, D, seed=0):
+    """q (B, H, S, D), k, v (B, KH, S, D), dout, in both packages; the
+    reference's in its (B, T, H, D) layout."""
+    shapes = ((B, H, S, D), (B, KH, S, D), (B, KH, S, D), (B, H, S, D))
+    pairs = [_both(_normal(seed + i, s), dtype) for i, s in enumerate(shapes)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,KH,S,D", [(2, 4, 4, 40, 32),    # G = 1
+                                        (1, 4, 2, 64, 64),    # G = 2
+                                        (2, 6, 1, 33, 16)])   # G = 6, ragged S
+def test_flash_backward_plain_matches_reference_vjp(dtype, B, H, KH, S, D):
+    (jq, jk, jv, jdo), (q, k, v, dout) = _attn_inputs(dtype, B, H, KH, S, D)
+    tr = lambda x: jnp.swapaxes(x, 1, 2)  # noqa: E731
+    f = lambda a, b, c: tr(ref_common.chunked_attention(  # noqa: E731
+        tr(a), tr(b), tr(c), causal=True, q_chunk=16, k_chunk=16))
+    _, vjp = jax.vjp(f, jq, jk, jv)
+    want = vjp(jdo)
+    o = fa.flash_attention_plain(q, k, v)
+    lse = fa.flash_attention_lse_plain(q, k)
+    got = fa.flash_attention_backward_plain(q, k, v, o, dout, lse)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == q.dtype and g.shape == tuple(w.shape), name
+        assert grad_gap(g, _t(w)) <= _bound(dtype), name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(fa.flash_attention_plain(*leaves), leaves, dout)
+    for name, g, w in zip("qkv", got, auto):
+        assert grad_gap(g, w) <= _bound(dtype), name
+
+
+def test_flash_lse_plain_is_the_logsumexp_of_the_masked_scores():
+    _, (q, k, _, _) = _attn_inputs("f32", 1, 4, 2, 20, 16)
+    lse = fa.flash_attention_lse_plain(q, k)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k.repeat_interleave(2, dim=1)) * 16 ** -0.5
+    s = s.masked_fill(~torch.ones(20, 20, dtype=torch.bool).tril(), float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1))
+
+
+# -------------------------------------------------- the card's bound, planted faults
+
+
+def _flash_fault(q, k, v, dout, fault: str):
+    """The plain backward in f32 with one fault planted."""
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    G = H // KH
+    scale = D ** -0.5
+    qf = q.float().reshape(B, KH, G, S, D)
+    kf, vf, dof = k.float(), v.float(), dout.float().reshape(B, KH, G, S, D)
+    o = fa.flash_attention_plain(q.float(), kf, vf).reshape(B, KH, G, S, D)
+    lse = fa.flash_attention_lse_plain(q.float(), kf).reshape(B, KH, G, S, 1)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    mask = torch.ones(S, S, dtype=torch.bool).tril()
+    p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    delta = 0.0 if fault == "no_delta" else (dof * o).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = (torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale).reshape(B, H, S, D)
+    dk_h = torch.einsum("bkgqs,bkgqd->bkgsd", ds, qf) * scale
+    dv_h = torch.einsum("bkgqs,bkgqd->bkgsd", p, dof)
+    if fault == "no_group_sum":
+        return dq, dk_h[:, :, 0], dv_h[:, :, 0]
+    return dq, dk_h.sum(2), dv_h.sum(2)
+
+
+@pytest.fixture(scope="module")
+def train_attn():
+    """The card check's flash backward shape at B = 1: (1, 1024, 12/2, 128),
+    bf16 inputs drawn as chip_smoke.py draws them."""
+    g = torch.Generator().manual_seed(0)
+    q, dout = (torch.randn(1, 12, 1024, 128, generator=g).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(1, 2, 1024, 128, generator=g).to(torch.bfloat16) for _ in range(2))
+    return q, k, v, dout, flash_grads_f32(q, k, v, dout)
+
+
+@pytest.mark.parametrize("fault", ["no_delta", "no_group_sum"])
+def test_card_bound_rejects_a_planted_flash_fault(train_attn, fault):
+    q, k, v, dout, want = train_attn
+    got = _flash_fault(q, k, v, dout, fault)
+    gaps = [grad_gap(a, b) for a, b in zip(got, want)]
+    assert max(gaps) > 2 * GRAD_TOL, gaps
+
+
+def test_card_bound_accepts_the_sound_flash_backward_in_bf16(train_attn):
+    """The plain backward from bf16 inputs, with the bf16 forward's output,
+    P and dS rounded to bf16 and bf16 gradients, as the kernel runs."""
+    q, k, v, dout, want = train_attn
+    got = fa.flash_attention_backward_plain(q, k, v, fa.flash_attention_plain(q, k, v), dout,
+                                            fa.flash_attention_lse_plain(q, k))
+    gaps = [grad_gap(a, b) for a, b in zip(got, want)]
+    assert max(gaps) <= GRAD_TOL / 2, gaps
+    sound = _flash_fault(q, k, v, dout, "none")
+    assert max(grad_gap(a, b) for a, b in zip(sound, want)) <= 1e-5
+
+
+def _dw_in_bf16(x, w, dy):
+    """dw accumulated row by row in bf16 (each partial sum rounded)."""
+    x32 = x.float()
+    r = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + 1e-5)
+    prod = ((x32 * r).to(x.dtype).float() * dy.float()).to(torch.bfloat16)
+    acc = torch.zeros(x.shape[-1], dtype=torch.bfloat16)
+    for row in prod:
+        acc = acc + row
+    return acc
+
+
+def test_card_bound_rejects_dw_summed_in_bf16_and_accepts_the_sound_one():
+    """rmsnorm at the card check's train shape, one micro-batch of
+    qwen2-1.5b: (4096, 1536)."""
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(4096, 1536, generator=g) * 3).to(torch.bfloat16)
+    w = torch.randn(1536, generator=g).to(torch.bfloat16)
+    dy = torch.randn(4096, 1536, generator=g).to(torch.bfloat16)
+    want_dx, want_dw = rn.rmsnorm_backward_plain(x.float(), w.float(), dy.float())
+    assert grad_gap(_dw_in_bf16(x, w, dy), want_dw) > 2 * GRAD_TOL
+    dx, dw = rn.rmsnorm_backward_plain(x, w, dy)
+    assert grad_gap(dx, want_dx) <= GRAD_TOL / 2 and grad_gap(dw, want_dw) <= GRAD_TOL / 2
+
+
+# ---------------------------------------------------------- autograd routes
+
+
+def test_every_kernels_op_carries_a_grad_fn_on_cpu():
+    x = torch.randn(2, 8, 4, 16, requires_grad=True)
+    w = torch.ones(16, requires_grad=True)
+    cfg = common.ModelConfig(name="t", family="dense", n_layers=1, d_model=64, n_heads=4,
+                             kv_heads=2, d_ff=64, vocab=32, head_dim=16, dtype=torch.float32)
+    kv = torch.randn(2, 8, 2, 16, requires_grad=True)
+    cache = torch.randn(2, 12, 2, 16, requires_grad=True)
+    gates = -torch.rand(2, 8, 4, requires_grad=True)
+    outs = {
+        "rms_norm": common.KERNELS.rms_norm(x, w, 1e-5),
+        "attention": common.KERNELS.attention(cfg, x, kv, kv),
+        "noncausal_attention": common.KERNELS.noncausal_attention(cfg, x, kv, kv),
+        "decode_attention": common.KERNELS.decode_attention(x[:, :1], cache, cache, 12),
+        "linear_attention": common.KERNELS.linear_attention(x, x, x, gates, chunk=4)[0],
+    }
+    for name, out in outs.items():
+        assert out.grad_fn is not None, name
+    assert _lib.needs_grad(None, x) and not _lib.needs_grad(x.detach())
+    with torch.no_grad():
+        assert not _lib.needs_grad(x)
+
+
+@pytest.mark.parametrize("shapes,kw,item", [
+    (((1, 4, 64, 64), (1, 2, 64, 64)), dict(dtype=torch.float32), "13a"),
+    (((1, 4, 64, 64), (1, 2, 64, 64)), dict(causal=False), "13b"),
+    (((1, 4, 32, 64), (1, 2, 64, 64)), {}, "13b"),
+    (((1, 4, 64, 192), (1, 2, 64, 192)), {}, "13c"),
+    (((1, 4, 64, 68), (1, 2, 64, 68)), {}, "13c"),
+    (((1, 18, 64, 64), (1, 2, 64, 64)), {}, "13c"),
+])
+def test_flash_training_route_refuses_what_the_backward_does_not_cover(shapes, kw, item):
+    dtype = kw.get("dtype", torch.bfloat16)
+    q, k = (torch.zeros(s, dtype=dtype) for s in shapes)
+    with pytest.raises(RuntimeError, match=f"item {item}"):
+        fa._check_grad_route(q, k, k, kw.get("causal", True))
+    fa._check_grad_route(torch.zeros(1, 12, 64, 128, dtype=torch.bfloat16),
+                         torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16),
+                         torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16), True)

@@ -1,0 +1,342 @@
+"""The port's training substrate against the reference's: the token
+pipeline, the optimizer, the train step (accumulation, remat), the
+gradient-compression collective and the training launcher.
+
+Mirrors tests/test_training.py on the port and holds each piece to the
+reference on shared numpy inputs.  Bounds:
+
+* the optimizer in f32 within 1e-6 of the reference's; its bf16 parameters
+  within one bf16 ulp (both round the same f32 update to bf16, and the
+  f32 updates agree to f32 rounding, as the f32 case holds them, so a
+  value near a rounding boundary may land one ulp apart);
+* three train steps (qwen2-1.5b `reduced()`, accumulation 1 and 2): in
+  f32 the losses within 1e-5 relative at every step, the first step's
+  gradient norm within 1e-5, each leaf's three-step update within 2e-2
+  relative L2 of the reference's (AdamW's normalised step turns the tiny
+  gradient gaps of elements whose gradient is near zero into update gaps
+  of up to 2 lr); in bf16 the losses within 5e-3 and
+  each parameter within 6 lr + 3 bf16 ulps of the reference's: the bf16
+  gradients of the two packages differ (tests/test_torch_train_parity.py), so
+  an element whose gradient is near zero may step the other way (2 lr a
+  step), and each step rounds the weight to bf16 again.
+"""
+
+import re
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import test_torch_train_parity as tp
+from repro.data.tokens import TokenPipeline as RefPipeline
+from repro.training import AdamWConfig as RefAdamW
+from repro.training import adamw_update as ref_adamw_update
+from repro.training import init_opt_state as ref_init_opt_state
+from repro.training import make_train_step as ref_make_train_step
+from repro.training.optimizer import clip_by_global_norm as ref_clip
+from repro_torch.configs import get_config
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.distributed.collectives import (CompressionState, compressed_psum,
+                                                 compressed_psum_leaf)
+from repro_torch.models.model_zoo import build_model
+from repro_torch.testing.parity import opt_state_from_numpy, tree_to_numpy
+from repro_torch.training import AdamWConfig, adamw_update, init_opt_state, make_train_step
+from repro_torch.training.optimizer import clip_by_global_norm, global_norm
+from repro_torch.training.train_lib import TrainState, init_train_state, micro_batches
+from repro_torch.training.tree import leaves, map_tree, structure, unflatten
+
+def _ulp_bf16(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
+    return 2.0 ** (e - 7)
+
+
+# ------------------------------------------------------------------- tokens
+
+
+@pytest.mark.parametrize("step,host,n_hosts", [(0, 0, 1), (7, 0, 1), (3, 1, 2), (120, 3, 4)])
+def test_token_pipeline_equals_reference(step, host, n_hosts):
+    kw = dict(vocab=8192, seq_len=64, global_batch=8, seed=5)
+    got = TokenPipeline(**kw).batch_for(step, host, n_hosts)
+    want = RefPipeline(**kw).batch_for(step, host, n_hosts)
+    assert got.keys() == want.keys()
+    assert got["tokens"].dtype == want["tokens"].dtype
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+
+
+# ---------------------------------------------------------------- optimizer
+
+
+def test_adamw_matches_reference_math():
+    cfg = AdamWConfig(lr=1e-2, b1=0.9, b2=0.99, eps=1e-8, weight_decay=0.0)
+    params = {"w": torch.tensor([1.0, -2.0, 3.0])}
+    grads = {"w": torch.tensor([0.1, 0.2, -0.3])}
+    state = init_opt_state(params, cfg)
+    p2, s2 = adamw_update(params, grads, state, cfg)
+    m = 0.1 * np.array([0.1, 0.2, -0.3])
+    v = 0.01 * np.array([0.1, 0.2, -0.3]) ** 2
+    mh, vh = m / (1 - 0.9), v / (1 - 0.99)
+    expect = np.array([1.0, -2.0, 3.0]) - 1e-2 * mh / (np.sqrt(vh) + 1e-8)
+    np.testing.assert_allclose(p2["w"].numpy(), expect, rtol=1e-5)
+    assert int(s2["step"]) == 1 and s2["step"].dtype == torch.int32
+
+
+def test_weight_decay_shrinks_params():
+    cfg = AdamWConfig(lr=1e-2, weight_decay=0.5)
+    params = {"w": torch.full((4,), 10.0)}
+    p2, _ = adamw_update(params, {"w": torch.zeros(4)}, init_opt_state(params, cfg), cfg)
+    assert float(p2["w"][0]) < 10.0
+
+
+def test_grad_clip():
+    clipped, norm = clip_by_global_norm({"a": torch.full((3,), 10.0)}, 1.0)
+    assert float(norm) == pytest.approx(np.sqrt(300.0), rel=1e-5)
+    assert float(torch.linalg.norm(clipped["a"])) == pytest.approx(1.0, rel=1e-4)
+
+
+def test_moment_dtype_configurable():
+    cfg = AdamWConfig(moment_dtype=torch.bfloat16)
+    state = init_opt_state({"w": torch.zeros(4, dtype=torch.bfloat16)}, cfg)
+    assert state["m"]["w"].dtype == torch.bfloat16 and state["v"]["w"].dtype == torch.bfloat16
+    p2, s2 = adamw_update({"w": torch.ones(4, dtype=torch.bfloat16)},
+                          {"w": torch.full((4,), 0.5, dtype=torch.bfloat16)}, state, cfg)
+    assert s2["m"]["w"].dtype == torch.bfloat16 and p2["w"].dtype == torch.bfloat16
+
+
+def _opt_inputs(dtype: str, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    shapes = {"a": (8, 16), "b": {"c": (16,), "d": (4, 4, 3)}}
+    p = jax.tree.map(lambda s: rng.standard_normal(s).astype(np.float32), shapes,
+                     is_leaf=lambda x: isinstance(x, tuple))
+    g = jax.tree.map(lambda s: (rng.standard_normal(s) * 3).astype(np.float32), shapes,
+                     is_leaf=lambda x: isinstance(x, tuple))
+    jdt, tdt = tp.DTYPES[dtype]
+    jp, jg = (jax.tree.map(lambda a: jnp.asarray(a, jdt), t) for t in (p, g))
+    to_t = lambda t: jax.tree.map(  # noqa: E731
+        lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt), t)
+    return jp, jg, to_t(jp), to_t(jg)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("moment", ["f32", "bf16"])
+def test_optimizer_matches_reference(dtype, moment):
+    """init_opt_state, clip_by_global_norm and three adamw_update steps on
+    the same parameters and gradients: f32 within 1e-6; bf16 parameters
+    within one ulp, and so the moments."""
+    jm, tm = tp.DTYPES[moment]
+    rcfg = RefAdamW(lr=1e-2, moment_dtype=jm)
+    cfg = AdamWConfig(lr=1e-2, moment_dtype=tm)
+    jp, jg, p, g = _opt_inputs(dtype)
+    rs, s = ref_init_opt_state(jp, rcfg), init_opt_state(p, cfg)
+    assert structure(s["m"]) == structure(p) and int(s["step"]) == 0
+    for i in range(3):
+        jgc, jn = ref_clip(jg, 0.5 + i)
+        gc, n = clip_by_global_norm(g, 0.5 + i)
+        assert float(n) == pytest.approx(float(jn), rel=1e-6)
+        jp, rs = ref_adamw_update(jp, jgc, rs, rcfg)
+        p, s = adamw_update(p, gc, s, cfg)
+    assert int(s["step"]) == int(rs["step"]) == 3
+    for want, got in ((jp, p), (rs["m"], s["m"]), (rs["v"], s["v"])):
+        w, o = (np.asarray(x, np.float32) for x in jax.tree.leaves(want)), leaves(got)
+        for a, b in zip(w, o):
+            b = b.float().numpy()
+            if b.dtype == np.float32 and dtype == "f32" and moment == "f32":
+                np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6)
+            else:
+                assert np.all(np.abs(a - b) <= _ulp_bf16(a) * 1.0001), np.abs(a - b).max()
+
+
+def test_global_norm_sums_leaves_in_f32():
+    t = {"x": torch.full((4,), 3.0, dtype=torch.bfloat16), "y": [torch.full((2,), 4.0)]}
+    assert float(global_norm(t)) == pytest.approx(np.sqrt(4 * 9 + 2 * 16))
+
+
+def test_tree_walks_in_jax_flatten_order():
+    """Dicts (and ParamTrees) in sorted-key order, lists in order; map_tree
+    and unflatten keep the kind of each node."""
+    cfg = get_config("qwen2-1.5b").reduced(n_layers=2)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    names = [n for n, _ in sorted(params.named_parameters())]
+    assert [n for n in names if n.startswith("layers.0.")][:2] == \
+        ["layers.0.attn.bk", "layers.0.attn.bq"]
+    ls = leaves(params)
+    assert ls[0] is params["embed"] and ls[1] is params["final_norm"] and ls[2] is params["head"]
+    assert ls[3] is params["layers"][0]["attn"]["bk"]
+    doubled = map_tree(lambda x: x * 2, params)
+    assert type(doubled) is type(params) and torch.equal(leaves(doubled)[5], ls[5] * 2)
+    tree = {"b": [torch.zeros(1), torch.ones(2)], "a": torch.zeros(3)}
+    assert [t.shape[0] for t in leaves(tree)] == [3, 1, 2]
+    back = unflatten(tree, [t + 1 for t in leaves(tree)])
+    assert isinstance(back["b"], list) and float(back["b"][1][0]) == 2.0
+
+
+# --------------------------------------------------------------- train step
+
+
+def _step_pair(dtype: str, accum: int):
+    ref_model, rparams, cfg, model, params = tp.models("qwen2-1.5b", dtype)
+    rs = ref_make_train_step(ref_model, RefAdamW(lr=1e-3), remat=False, accum_steps=accum)
+    ps = make_train_step(model, AdamWConfig(lr=1e-3), remat=True, accum_steps=accum)
+    ro = ref_init_opt_state(rparams, RefAdamW(lr=1e-3))
+    po = opt_state_from_numpy(tp.np_tree(ro), model.defs)
+    return cfg, model, (rs, rparams, ro), (ps, params, po)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_steps_match_reference_f32(accum):
+    cfg, model, (rs, rp, ro), (ps, p, po) = _step_pair("f32", accum)
+    p0 = tree_to_numpy(p, model.defs)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    for i in range(3):
+        b = pipe.batch_for(i)["tokens"]
+        rp, ro, rm = rs(rp, ro, {"tokens": jnp.asarray(b)})
+        p, po, m = ps(p, po, {"tokens": torch.from_numpy(b)})
+        assert float(m["loss"]) == pytest.approx(float(rm["loss"]), rel=1e-5)
+        if i == 0:
+            assert float(m["grad_norm"]) == pytest.approx(float(rm["grad_norm"]), rel=1e-5)
+    assert int(po["step"]) == int(ro["step"]) == 3
+    assert all(not t.requires_grad for t in leaves(p))  # frozen again after the step
+    for (name, want, got), (_, _, start) in zip(tp.leaf_pairs(tp.np_tree(rp),
+                                                          tree_to_numpy(p, model.defs)),
+                                                 tp.leaf_pairs(tp.np_tree(rp), p0)):
+        dw, dg = want - start, got - start
+        assert np.linalg.norm(dg - dw) <= 2e-2 * np.linalg.norm(dw), name
+
+
+def test_train_steps_match_reference_bf16():
+    cfg, model, (rs, rp, ro), (ps, p, po) = _step_pair("bf16", 2)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    for i in range(3):
+        b = pipe.batch_for(i)["tokens"]
+        rp, ro, rm = rs(rp, ro, {"tokens": jnp.asarray(b)})
+        p, po, m = ps(p, po, {"tokens": torch.from_numpy(b)})
+        assert float(m["loss"]) == pytest.approx(float(rm["loss"]), rel=5e-3)
+    for name, want, got in tp.leaf_pairs(tp.np_tree(rp), tree_to_numpy(p, model.defs)):
+        assert np.all(np.abs(got - want) <= 6e-3 + 3 * _ulp_bf16(want)), name
+    assert all(t.dtype == torch.bfloat16 for t in leaves(p))
+    assert all(t.dtype == torch.float32 for t in leaves(po["m"]))
+
+
+def test_accumulation_matches_full_batch():
+    """tests/test_training.py:49 on the port (bf16, its bounds)."""
+    cfg = get_config("qwen2-1.5b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.arange(4 * 16).reshape(4, 16) % cfg.vocab}
+    opt_cfg = AdamWConfig(lr=1e-3)
+    s1 = make_train_step(model, opt_cfg, remat=False, accum_steps=1)
+    s2 = make_train_step(model, opt_cfg, remat=False, accum_steps=2)
+    p1, p2 = map_tree(torch.clone, params), map_tree(torch.clone, params)
+    _, _, m1 = s1(p1, init_opt_state(p1, opt_cfg), batch)
+    _, _, m2 = s2(p2, init_opt_state(p2, opt_cfg), batch)
+    assert float(m1["loss"]) == pytest.approx(float(m2["loss"]), rel=2e-2)
+    assert float(m1["grad_norm"]) == pytest.approx(float(m2["grad_norm"]), rel=5e-2)
+
+
+def test_micro_batches_split_the_leading_axis_in_order():
+    batch = {"tokens": torch.arange(12).reshape(6, 2)}
+    parts = micro_batches(batch, 3)
+    assert [p["tokens"][:, 0].tolist() for p in parts] == [[0, 2], [4, 6], [8, 10]]
+    with pytest.raises(ValueError):
+        micro_batches(batch, 4)
+
+
+def test_loss_decreases_training_tiny_model():
+    """tests/test_training.py:64 on the port."""
+    cfg = get_config("stablelm-3b").reduced(n_layers=2, d_model=64, d_ff=128,
+                                            vocab=128, n_heads=2, kv_heads=2)
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator().manual_seed(0), AdamWConfig(lr=3e-3))
+    assert isinstance(state, TrainState) and int(state.step) == 0
+    step = make_train_step(model, AdamWConfig(lr=3e-3), remat=False)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=32, global_batch=8)
+    params, opt, losses = state.params, state.opt_state, []
+    for i in range(30):
+        batch = {"tokens": torch.from_numpy(pipe.batch_for(i)["tokens"])}
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.2, losses
+
+
+# -------------------------------------------------------------- collectives
+
+
+@pytest.fixture
+def world(tmp_path):
+    """A single-process gloo world over a FileStore."""
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_compressed_psum_leaf_equals_reference_math(world):
+    """One rank: the shared scale is its own max |x| / 127 + 1e-12, the sum
+    its own int8 values; g_hat and the residual as the reference's
+    compressed_psum_leaf computes them."""
+    rng = np.random.default_rng(0)
+    g = rng.standard_normal(64).astype(np.float32)
+    err = (rng.standard_normal(64) * 0.01).astype(np.float32)
+    got_g, got_e = compressed_psum_leaf(torch.from_numpy(g), torch.from_numpy(err))
+    x = jnp.asarray(g) + jnp.asarray(err)
+    scale = jnp.max(jnp.abs(x)) / 127.0 + 1e-12
+    q = jnp.clip(jnp.round(x / scale), -127, 127)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(q.astype(jnp.int32) * scale),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got_e.numpy(), np.asarray(x - q * scale), rtol=1e-6, atol=1e-7)
+
+
+def test_compressed_psum_error_feedback_converges(world):
+    """tests/test_training.py:91 on the port's tree form: the running mean of
+    the compressed gradients converges to the true one."""
+    rng = np.random.default_rng(0)
+    grads = {"w": torch.from_numpy(rng.normal(size=(64,)).astype(np.float32)),
+             "b": [torch.from_numpy(rng.normal(size=(8,)).astype(np.float32))]}
+    state = CompressionState.init(grads)
+    assert all(float(e.abs().max()) == 0.0 for e in leaves(state.error))
+    acc = map_tree(torch.zeros_like, grads)
+    n = 60
+    for _ in range(n):
+        g_hat, state = compressed_psum(grads, state)
+        acc = map_tree(torch.add, acc, g_hat)
+    for a, g in zip(leaves(acc), leaves(grads)):
+        assert float((a / n - g).abs().max()) < 0.02
+
+
+# ----------------------------------------------------------------- launcher
+
+
+def _run_main(module: str, argv: list[str], monkeypatch, capsys) -> str:
+    import importlib
+
+    monkeypatch.setattr(sys, "argv", [module, *argv])
+    capsys.readouterr()
+    importlib.import_module(module).main()
+    return capsys.readouterr().out
+
+
+_LINES = [re.compile(r"arch=qwen2-1\.5b params=\d+\.\dM devices=1"),
+          re.compile(r"done: steps=4 wall=\d+\.\ds \(\d+ tok/s\) restarts=(\d)"),
+          re.compile(r"loss first/last-1: \d+\.\d{3} -> \d+\.\d{3}")]
+
+
+@pytest.mark.parametrize("fail", [[], ["--fail-at", "2"]], ids=["plain", "fail_at_2"])
+def test_train_cli_prints_what_the_reference_prints(fail, tmp_path, monkeypatch, capsys):
+    """The same flags print the same lines: the first equal, the others
+    equal but for the wall time, the rate and the losses (the two packages
+    draw other parameters from their seeds)."""
+    base = ["--steps", "4", "--seq-len", "32", "--reduce", "8"] + fail
+    ref = _run_main("repro.launch.train", base + ["--ckpt-dir", str(tmp_path / "r")],
+                    monkeypatch, capsys).splitlines()
+    mine = _run_main("repro_torch.launch.train",
+                     base + ["--ckpt-dir", str(tmp_path / "p"), "--device", "cpu"],
+                     monkeypatch, capsys).splitlines()
+    assert len(mine) == len(ref) == 3 and mine[0] == ref[0]
+    for pat, a, b in zip(_LINES, ref, mine):
+        assert pat.fullmatch(a) and pat.fullmatch(b), (a, b)
+    restarts = _LINES[1].fullmatch(mine[1]).group(1)
+    assert restarts == _LINES[1].fullmatch(ref[1]).group(1) == ("1" if fail else "0")

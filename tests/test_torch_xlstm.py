@@ -21,7 +21,8 @@ implementation that sums in another order can match it to 1e-4 end to
 end.  Each layer is held to the reference at its own init from the same
 input (`test_layer_walk_matches_reference_at_its_init`); whole models are
 held on the same parameters with every stacked projection rescaled to
-the fan-in of its input width (`_conditioned`), where the math is stable.
+the fan-in of its input width (`condition_fan_in`), where the math is
+stable.
 """
 
 import dataclasses
@@ -42,9 +43,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.ssd_scan import ops as ssd
 from repro_torch.models import common, hybrid, ssm
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import ParamDef
 from repro_torch.models.model_zoo import build_model
-from repro_torch.testing.parity import params_from_numpy
+from repro_torch.testing.parity import condition_fan_in, params_from_numpy
 
 ARCH = "xlstm-1.3b"
 TWO_GROUPS = "MMMsMMMs"  # G = 2 groups of three mLSTM blocks and an sLSTM block
@@ -105,24 +105,6 @@ def _cfgs(dtype, pattern=None):
             get_config(ARCH).reduced(dtype=tdt, **over))
 
 
-def _conditioned(tree: dict, defs) -> dict:
-    """The numpy tree with every stacked default-init normal leaf (the
-    reference draws it at std 1/sqrt(G)) rescaled to std 1/sqrt(its input
-    width), walked beside the port's templates."""
-
-    def walk(node, d):
-        if isinstance(d, ParamDef):
-            if d.init == "normal" and d.scale is None and d.stacked:
-                return node * np.float32(np.sqrt(d.stacked / d.shape[0]))
-            return node
-        if isinstance(d, list):  # a stack along the leaves' leading axis
-            parts = [walk(_take(node, i), x) for i, x in enumerate(d)]
-            return jax.tree.map(lambda *a: np.stack(a), *parts)
-        return {k: walk(node[k], d[k]) for k in d}
-
-    return walk(tree, defs)
-
-
 def _take(node, i):
     return jax.tree.map(lambda a: a[i], node)
 
@@ -135,7 +117,7 @@ def _models(dtype, pattern=None, conditioned=True, seed=0):
     rparams = ref_model.init(jax.random.PRNGKey(seed))
     tree = jax.tree.map(lambda a: np.asarray(a).astype(np.float32), rparams)
     if conditioned:
-        tree = _conditioned(tree, build_model(cfg).defs)
+        tree = condition_fan_in(tree, build_model(cfg).defs)
         rparams = jax.tree.map(lambda a, r: jnp.asarray(a).astype(r.dtype), tree, rparams)
         tree = jax.tree.map(lambda a: np.asarray(a).astype(np.float32), rparams)
     return rcfg, ref_model, rparams, cfg, params_from_numpy(tree, cfg)
