@@ -81,16 +81,24 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 6. train (`[train]` lines): (a) qwen2-1.5b at full width and depth (28
    layers, 1.78 B parameters, random weights from a seed) for eight steps
    of the port's `make_train_step` (AdamW, remat, two micro-batches of
-   4 x 1024 tokens from `TokenPipeline`), every loss and gradient norm
-   finite, with each step's time, the peak memory, tokens/s, the launches
-   of each kernel a step (the rmsnorm and flash attention forwards through
+   4 x 1024 tokens from `TokenPipeline`), twice from the same seed and
+   batches: run eagerly, then compiled (`compile_train_step`: a warm-up
+   step, one CUDA graph captured, replayed every later step), the graphed
+   run's losses, gradient norms and final parameters bit-equal to the
+   eager run's; every loss and gradient norm finite, with each run's step
+   times, peak memory (allocated and reserved), tokens/s, the launches of
+   each kernel a step (the rmsnorm and flash attention forwards through
    their autograd routes, their backward kernels, as many as the layers
-   make) and one step's device busy share; (b) one loss and its gradients
+   make; in the graphed run the warm-up's, the graph's recorded once and
+   run once a replay) and one step's device busy share and host launch
+   calls; (b) one loss and its gradients
    at full width and 2 of 28 layers through the kernels and through the
    plain math, every leaf within 5e-2 of its scale; (c) the elastic loop
-   of `repro_torch.examples.train_small` on the card, 150 steps with
-   checkpoints every 50 and a failure at step 120: the loss falls, and the
-   losses after the restore equal an uninjected run's.  Phase 2 also
+   of `repro_torch.examples.train_small` on the card, its step compiled,
+   150 steps with checkpoints every 50 and a failure at step 120: the loss
+   falls, the restart reaches the graph through one copy of the restored
+   state into its buffers, and the losses after the restore equal an
+   uninjected run's.  Phase 2 also
    holds the backward kernels (`rmsnorm_backward`, flash attention's
    LSE-writing forward and its backward) against their plain backward run
    in f32, at the train shapes and the serve's or a G = 1 one.
@@ -1486,10 +1494,18 @@ def act_swap(dev) -> int:
     return batches
 
 
-def busy_share(run, tag: str, top: int = 8) -> float | None:
+# the host's calls that put work on the card: a kernel, a graph, a copy
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
+
+
+def busy_share(run, tag: str, top: int = 8, out: dict | None = None) -> float | None:
     """Share of the wall time of `run()` (work that ends on the card) during
     which the card ran kernels, from torch.profiler; logs the `top` kernels
-    and host ops.  None if the profiler recorded no device time."""
+    and host ops.  None if the profiler recorded no device time.  `out`, if
+    given, takes the window's device and wall ms and the host's calls of
+    `HOST_LAUNCH_CALLS`, by name (`host_launches`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1515,6 +1531,9 @@ def busy_share(run, tag: str, top: int = 8) -> float | None:
             f"{e.count:5d} calls: {e.key[:90]}")
     log(f"[{tag}] profile: {len(kernels)} kernel names, {busy_us / 1e3:.3f} ms device time, "
         f"{host_us / 1e3:.3f} ms host op time, in {wall_us / 1e3:.3f} ms wall")
+    if out is not None:
+        out.update(device_ms=busy_us / 1e3, wall_ms=wall_us / 1e3, host_launches={
+            e.key: e.count for e in host if e.key in HOST_LAUNCH_CALLS})
     return busy_us / wall_us
 
 
@@ -2763,28 +2782,115 @@ def train_batch(pipe, step: int, dev) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in pipe.batch_for(step).items()}
 
 
+def train_expect(cfg) -> dict:
+    """The kernel launches of one qwen2-family train step: each micro-batch
+    runs the forward's norms and attention twice (remat's recompute), and
+    each backward kernel once a layer (the norms' also at the final norm)."""
+    L = cfg.n_layers
+    return {"rmsnorm": TRAIN_ACCUM * (2 * L + 1 + 2 * L),
+            "rmsnorm_backward": TRAIN_ACCUM * (2 * L + 1),
+            "flash_attention_forward_lse": TRAIN_ACCUM * 2 * L,
+            "flash_attention_backward": TRAIN_ACCUM * L,
+            "flash_attention": 0}
+
+
+def train_run(what: str, model, step, opt_cfg, batches, dev) -> dict:
+    """One run of phase 6a: the state built on the card from `SEED`,
+    `TRAIN_STEPS` steps of `step` over `batches`, then one more step under
+    the profiler.  Logs each step's loss, gradient norm and time, the peak
+    memory, ms a step and tokens/s over the steps after the first, the
+    launches of each kernel a step and the profiled step's busy share and
+    host launch calls.  Returns the losses and gradient norms (every step's,
+    the profiled one's last), the final parameters copied to the host, the
+    launch counters' advance over the counted steps and the readings."""
+    import math
+
+    import torch
+
+    from repro_torch.training import init_opt_state
+    from repro_torch.training.tree import leaves, paths
+
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    opt = init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    times, losses, gnorms = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batches[i])
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        log(f"[train] {what} step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+            f"{times[-1] * 1e3:.1f} ms")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{what} step {i}: loss {loss}, grad norm {gnorm}")
+    counts = read_counts()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # over the steps after the first, and after the second (in the graphed
+    # run, the replays alone: its second step also captures)
+    steady, replays = times[1:], times[2:]
+    r = dict(ms=sum(steady) / len(steady) * 1e3, tok_s=tokens * len(steady) / sum(steady),
+             ms2=sum(replays) / len(replays) * 1e3, tok_s2=tokens * len(replays) / sum(replays),
+             peak=torch.cuda.max_memory_allocated(), reserved=torch.cuda.max_memory_reserved())
+    log(f"[train] {what}: peak device memory {r['peak'] / 2**30:.2f} GiB allocated, "
+        f"{r['reserved'] / 2**30:.2f} GiB reserved; {r['tok_s']:.0f} tokens/s over steps 1-"
+        f"{TRAIN_STEPS - 1} ({r['ms']:.1f} ms a step), {r['tok_s2']:.0f} over steps 2-"
+        f"{TRAIN_STEPS - 1} ({r['ms2']:.1f} ms a step); step 0 {times[0] * 1e3:.1f} ms, "
+        f"step 1 {times[1] * 1e3:.1f} ms")
+    state = [params, opt]
+
+    def one_step():
+        state[0], state[1], m = step(state[0], state[1], batches[TRAIN_STEPS])
+        state.append(m)
+
+    prof: dict = {}
+    share = busy_share(one_step, f"train, {what}", out=prof)
+    last = state.pop()
+    losses.append(float(last["loss"]))
+    gnorms.append(float(last["grad_norm"]))
+    launches = prof.get("host_launches", {})
+    r.update(share=share, host_launches=sum(launches.values()), launch_calls=launches,
+             losses=losses, gnorms=gnorms, counts=counts, times=times,
+             device_ms=prof.get("device_ms"), wall_ms=prof.get("wall_ms"))
+    log(f"[train] {what}: device busy share of one step "
+        f"{'not measured' if share is None else f'{share:.3f}'}; host launch calls in it "
+        f"{r['host_launches']} ({launches})")
+    r["params"] = [t.detach().cpu() for t in leaves(state[0])]
+    r["names"] = paths(state[0])
+    r["step"] = int(state[1]["step"])
+    return r
+
+
 def phase_train(dev) -> dict:
     """6a: qwen2-1.5b at full width and depth, built on the card from a seed,
-    trained `TRAIN_STEPS` steps through the port's `make_train_step` (AdamW
-    at lr 1e-3, remat, `TRAIN_ACCUM` micro-batches) on `TokenPipeline` data;
-    every loss and gradient norm must be finite.  Logs each step's loss,
-    gradient norm and time, the peak device memory, tokens/s, the launches
-    of each kernel a step, and the device busy share of one more step under
-    the profiler.  Returns the launch counts of the counted steps."""
+    trained through the port's `make_train_step` (AdamW at lr 1e-3, remat,
+    `TRAIN_ACCUM` micro-batches) on `TokenPipeline` data in two runs from
+    the same seed and batches (`train_run`): the step run eagerly, then the
+    step compiled (`compile_train_step`: a warm-up step run eagerly, one
+    CUDA graph captured, replayed every later step).  Every loss and
+    gradient norm must be finite, and the graphed run's losses, gradient
+    norms and final parameters bit-equal to the eager run's (else the first
+    step or leaf that differs is named).  The eager run's kernel launches
+    must be as many a step as the layers make (`train_expect`); the
+    graphed run's warm-up must make a step's, its graph record a step's,
+    and the card run them once a replay.  The eager run's state is freed
+    before the graphed run starts.  Returns the graphed run's launches
+    (the counters' advance, less what the graph recorded, plus its
+    replays)."""
     import gc
-    import math
 
     import torch
 
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.models.common import count_params
-    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.training import AdamWConfig, compile_train_step, make_train_step
+    from repro_torch.training.train_lib import TRAIN_GRAPH_STATS as G
 
     cfg, model = model_for(TRAIN_ARCH)
-    torch.cuda.reset_peak_memory_stats()
-    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     opt_cfg = AdamWConfig(lr=1e-3)
-    opt = init_opt_state(params, opt_cfg)
     step = make_train_step(model, opt_cfg, remat=True, accum_steps=TRAIN_ACCUM)
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED)
     n_params = count_params(model.defs)
@@ -2793,49 +2899,66 @@ def phase_train(dev) -> dict:
         f"{cfg.vocab}; {n_params / 1e9:.3f} B parameters ({n_params * 2 / 1e9:.2f} GB bf16, f32 "
         f"moments {n_params * 8 / 1e9:.2f} GB; a checkpoint of both would write "
         f"{n_params * 10 / 1e9:.2f} GB); AdamW lr 1e-3, remat, {TRAIN_ACCUM} micro-batches of "
-        f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ} tokens a step")
+        f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ} tokens a step; eager, then graphed")
     batches = [train_batch(pipe, i, dev) for i in range(TRAIN_STEPS + 1)]
-    torch.cuda.synchronize()
-    reset_counts()
-    times = []
-    for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        params, opt, metrics = step(params, opt, batches[i])
-        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-        times.append(time.perf_counter() - t0)
-        log(f"[train] step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
-            f"{times[-1] * 1e3:.1f} ms")
-        if not (math.isfinite(loss) and math.isfinite(gnorm)):
-            raise AssertionError(f"step {i}: loss {loss}, grad norm {gnorm}")
-    counts = read_counts()
-    per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
-    steady = times[1:]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"allocated; {tokens * len(steady) / sum(steady):.0f} tokens/s over steps 1-"
-        f"{TRAIN_STEPS - 1} ({sum(steady) / len(steady) * 1e3:.1f} ms a step; step 0 "
-        f"{times[0] * 1e3:.1f} ms); launches a step: {per_step}")
-    expect = {"rmsnorm": TRAIN_ACCUM * (2 * cfg.n_layers + 1 + 2 * cfg.n_layers),
-              "rmsnorm_backward": TRAIN_ACCUM * (2 * cfg.n_layers + 1),
-              "flash_attention_forward_lse": TRAIN_ACCUM * 2 * cfg.n_layers,
-              "flash_attention_backward": TRAIN_ACCUM * cfg.n_layers,
-              "flash_attention": 0}
-    for name, n in expect.items():
-        if counts.get(name, 0) != n * TRAIN_STEPS:
-            raise AssertionError(f"{name}: {counts.get(name, 0)} launches in {TRAIN_STEPS} "
-                                 f"steps, expected {n} a step")
-    state = [params, opt]
-
-    def one_step():
-        state[0], state[1], _ = step(state[0], state[1], batches[TRAIN_STEPS])
-
-    share = busy_share(one_step, "train")
-    log(f"[train] device busy share of one step: "
-        f"{'not measured' if share is None else f'{share:.3f}'}")
-    del params, opt, state, batches, step
+    expect = train_expect(cfg)
+    eager = train_run("eager", model, step, opt_cfg, batches, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    for name, n in expect.items():
+        if eager["counts"].get(name, 0) != n * TRAIN_STEPS:
+            raise AssertionError(f"eager {name}: {eager['counts'].get(name, 0)} launches in "
+                                 f"{TRAIN_STEPS} steps, expected {n} a step")
+    G.reset()
+    compiled = compile_train_step(step)
+    graphed = train_run("graphs", model, compiled, opt_cfg, batches, dev)
+    log(f"[train] graphs: {G.misses} warm-up step(s) run eagerly, {G.captures} graph(s) "
+        f"captured in {G.capture_s * 1e3:.1f} ms (host time inside capture_begin .. "
+        f"capture_end), holding {G.reserved_bytes / 2**30:.2f} GiB reserved, "
+        f"{G.allocated_bytes / 2**30:.2f} GiB allocated; {G.replays} replays "
+        f"({TRAIN_STEPS - 1} counted, one profiled); {G.copy_ins} copy-ins")
+    replays = TRAIN_STEPS - 1
+    if (G.misses, G.captures, G.replays) != (1, 1, replays + 1):
+        raise AssertionError(f"expected one warm-up, one capture and {replays + 1} replays: {G}")
+    for name, n in expect.items():
+        warm = graphed["counts"].get(name, 0) - G.captured.get(name, 0)
+        if warm != n or G.captured.get(name, 0) != n:
+            raise AssertionError(f"graphs {name}: {warm} launches in the warm-up step and "
+                                 f"{G.captured.get(name, 0)} recorded, expected {n} each")
+    launched = {name: graphed["counts"].get(name, 0) - G.captured.get(name, 0)
+                + G.captured.get(name, 0) * replays for name in graphed["counts"]}
+    per_step = {k: v / TRAIN_STEPS for k, v in launched.items() if v}
+    log(f"[train] graphs: kernel launches a step (the warm-up's, and the graph's once a "
+        f"replay): {per_step}")
+    for i, (a, b) in enumerate(zip(eager["losses"], graphed["losses"], strict=True)):
+        if a != b or eager["gnorms"][i] != graphed["gnorms"][i]:
+            raise AssertionError(f"step {i}: the graphed step's loss {b!r} and grad norm "
+                                 f"{graphed['gnorms'][i]!r} differ from the eager step's "
+                                 f"{a!r}, {eager['gnorms'][i]!r}")
+    for name, a, b in zip(eager["names"], eager["params"], graphed["params"], strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError(f"parameter {name} after {TRAIN_STEPS + 1} steps: the graphed "
+                                 f"run's differs from the eager run's at "
+                                 f"{int((a != b).sum())} of {a.numel()} elements")
+    if not eager["step"] == graphed["step"] == TRAIN_STEPS + 1:
+        raise AssertionError(f"step counters {eager['step']}, {graphed['step']}")
+    def vs(key: str) -> str:
+        return " vs ".join("not measured" if r[key] is None else f"{r[key]:.3f}"
+                           for r in (graphed, eager))
+
+    log(f"[train] graphs vs eager: losses and grad norms bit-equal at all {TRAIN_STEPS + 1} "
+        f"steps, the {len(eager['names'])} parameter leaves byte-equal after them; over steps "
+        f"2-{TRAIN_STEPS - 1} {graphed['ms2']:.1f} vs {eager['ms2']:.1f} ms a step, "
+        f"{graphed['tok_s2']:.0f} vs {eager['tok_s2']:.0f} tokens/s; one step's busy share "
+        f"{vs('share')}, device time {vs('device_ms')} ms in {vs('wall_ms')} ms wall; host "
+        f"launch calls a step {graphed['host_launches']} vs "
+        f"{eager['host_launches']}; "
+        f"peak {graphed['peak'] / 2**30:.2f} vs {eager['peak'] / 2**30:.2f} GiB allocated, "
+        f"{graphed['reserved'] / 2**30:.2f} vs {eager['reserved'] / 2**30:.2f} GiB reserved")
+    del compiled, eager, graphed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
 
 
 def phase_grad_parity(dev) -> None:
@@ -2902,7 +3025,11 @@ def phase_elastic(dev) -> None:
     newest committed checkpoint; and the same run with no failure (one
     checkpoint, at the end).  The loss over the last tenth must be below
     the first tenth's, and every loss after the restore must equal the
-    uninjected run's at the same step.  The checkpoints go to a temporary
+    uninjected run's at the same step.  The step is compiled
+    (`compile_train_step`): each run warms up once, captures one graph and
+    replays it every later step; the faulty run's restart must reach the
+    graph through one copy of the restored state into its buffers, the
+    uninjected run makes none.  The checkpoints go to a temporary
     directory, removed after."""
     import shutil
     import tempfile
@@ -2910,15 +3037,22 @@ def phase_elastic(dev) -> None:
     import torch
 
     from repro_torch.examples.train_small import run
+    from repro_torch.training.train_lib import TRAIN_GRAPH_STATS as G
 
     root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    graphs = {}
     try:
         torch.use_deterministic_algorithms(True, warn_only=True)
         t0 = time.perf_counter()
+        G.reset()
         faulty, stats, wall = run(ELASTIC_STEPS, ELASTIC_FAIL_AT, f"{root}/faulty", dev,
                                   ckpt_every=ELASTIC_CKPT_EVERY)
+        graphs["faulty"] = (G.misses, G.captures, G.replays, G.copy_ins)
+        G.reset()
         clean, clean_stats, clean_wall = run(ELASTIC_STEPS, None, f"{root}/clean", dev,
                                              ckpt_every=ELASTIC_STEPS)
+        graphs["clean"] = (G.misses, G.captures, G.replays, G.copy_ins)
+        both = time.perf_counter() - t0
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(root, ignore_errors=True)
@@ -2928,13 +3062,22 @@ def phase_elastic(dev) -> None:
     log(f"[train] elastic: {ELASTIC_STEPS} steps, checkpoints every {ELASTIC_CKPT_EVERY}, a "
         f"failure at step {ELASTIC_FAIL_AT}: restarts {stats['restarts']}, resumed from "
         f"{resumed}, {wall:.1f} s; loss over the first tenth {first:.4f}, the last {last:.4f}; "
-        f"the uninjected run {clean_wall:.1f} s ({time.perf_counter() - t0:.1f} s both)")
+        f"the uninjected run {clean_wall:.1f} s ({both:.1f} s both; the eager step's pair "
+        f"took 77.9 s, PERF.md section 2)")
     if stats["restarts"] != 1 or resumed != [ELASTIC_FAIL_AT // ELASTIC_CKPT_EVERY
                                              * ELASTIC_CKPT_EVERY]:
         raise AssertionError(f"expected one restart from the last checkpoint: {stats}")
+    start = resumed[0]
+    calls = {"faulty": ELASTIC_STEPS + ELASTIC_FAIL_AT - start, "clean": ELASTIC_STEPS}
+    for what, n in calls.items():
+        copies = 1 if what == "faulty" else 0
+        log(f"[train] elastic, the {what} run: (warm-up steps, captures, replays, copy-ins of "
+            f"state into the graph's buffers) {graphs[what]}")
+        if graphs[what] != (1, 1, n - 1, copies):
+            raise AssertionError(f"the {what} run's graph counts {graphs[what]}, expected "
+                                 f"(1, 1, {n - 1}, {copies})")
     if not last < first:
         raise AssertionError(f"loss did not decrease: {first} -> {last}")
-    start = resumed[0]
     after = faulty[ELASTIC_FAIL_AT:]
     if faulty[:ELASTIC_FAIL_AT] != clean[:ELASTIC_FAIL_AT] or after != clean[start:]:
         diff = [i for i, (a, b) in enumerate(zip(after, clean[start:])) if a != b]

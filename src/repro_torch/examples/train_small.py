@@ -5,7 +5,9 @@ counterpart of the reference's `examples/train_small.py`.
 
     PYTHONPATH=src python -m repro_torch.examples.train_small [--steps 300] [--fail-at 120]
 
-On the card by default (`--device cpu` runs the kernels' plain versions).
+On the card by default, where the step is captured once as a CUDA graph
+and replayed (`compile_train_step`, as the reference jits it); `--device
+cpu` runs the step eagerly through the kernels' plain versions.
 `run` is the example as a function: it returns the per-step losses and the
 run's statistics, for callers that compare runs.
 """
@@ -20,7 +22,8 @@ from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.models.common import count_params
 from repro_torch.models.model_zoo import build_model
-from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+from repro_torch.training import (AdamWConfig, compile_train_step, init_opt_state,
+                                  make_train_step)
 from repro_torch.training.elastic import ElasticConfig, FailureInjector, run_elastic
 
 # a step: BATCH sequences of SEQ tokens in ACCUM micro-batches
@@ -42,7 +45,8 @@ def run(steps: int, fail_at: int | None, ckpt_dir: str, device: torch.device,
     cfg = small_config(dim, layers)
     model = build_model(cfg)
     opt_cfg = AdamWConfig(lr=1e-3)
-    step_fn = make_train_step(model, opt_cfg, remat=True, accum_steps=ACCUM)
+    step_fn = compile_train_step(make_train_step(model, opt_cfg, remat=True,
+                                                 accum_steps=ACCUM))
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH)
 
     def make_state():

@@ -13,8 +13,9 @@ the plain PyTorch version, CUDA tensors launch the kernel (or raise), and
 any other device raises.  Nothing falls back.  `needs_grad(...)` is the
 rule under autograd: a CUDA input that needs a gradient goes through the
 kernel's `torch.autograd.Function` (rmsnorm, flash attention's training
-route), or, for a kernel with no backward, raises (`no_backward`): a
-kernel's output never silently drops its inputs' gradients.
+route), or, for a kernel with no backward, raises (`no_backward`, a
+`ProgramError`): a kernel's output never silently drops its inputs'
+gradients.
 """
 
 from __future__ import annotations
@@ -140,10 +141,18 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def no_backward(kernel: str, item: str) -> RuntimeError:
+class ProgramError(Exception):
+    """A program the port cannot run on the card as asked: a kernel asked
+    for a gradient it has no backward for, or a train step that cannot be
+    captured as a CUDA graph.  Not a `RuntimeError`, on purpose: the elastic
+    training loop takes every `RuntimeError` for a node failure and
+    restarts, and retrying cannot mend a program."""
+
+
+def no_backward(kernel: str, item: str) -> ProgramError:
     """The error of a CUDA kernel asked for a gradient it has no backward
     for; `item` names the ROADMAP entry that brings one."""
-    return RuntimeError(
+    return ProgramError(
         f"{kernel} has no backward kernel on CUDA (its output would carry no gradient): "
         f"{item}; call it without grad, or on CPU tensors for the plain version")
 

@@ -8,7 +8,9 @@ plus `--device` (CUDA unless the caller names another; `--device cpu` runs
 the kernels' plain versions).  Builds the model (reduced by --reduce; 0 =
 the full config), and runs the elastic loop — deterministic step-indexed
 data, atomic checkpoints, restart-on-failure — over the port's train step
-(AdamW, remat, `--accum` micro-batches).  The checkpoints go to
+(AdamW, remat, `--accum` micro-batches), compiled as the reference jits it
+(`compile_train_step`: on the card a CUDA graph replayed every step, on the
+CPU the step run eagerly).  The checkpoints go to
 `--ckpt-dir`, by default `repro_torch_train_ckpt` under the temporary
 directory; a run finding a committed checkpoint there resumes from it.
 """
@@ -26,7 +28,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.models.common import count_params
 from repro_torch.models.model_zoo import build_model
-from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+from repro_torch.training import (AdamWConfig, compile_train_step, init_opt_state,
+                                  make_train_step)
 from repro_torch.training.elastic import ElasticConfig, FailureInjector, run_elastic
 
 
@@ -67,7 +70,8 @@ def main() -> None:
           f"devices={device_count(device)}")
 
     opt_cfg = AdamWConfig(lr=args.lr)
-    step_fn = make_train_step(model, opt_cfg, remat=True, accum_steps=args.accum)
+    step_fn = compile_train_step(
+        make_train_step(model, opt_cfg, remat=True, accum_steps=args.accum))
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=args.seq_len,
                          global_batch=args.global_batch, seed=args.seed)
 

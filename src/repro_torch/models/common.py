@@ -221,10 +221,16 @@ def count_params(defs) -> int:
 def remat_call(fn: Callable, *args):
     """`fn(*args)` with its activations recomputed in the backward
     (`torch.utils.checkpoint`, non-reentrant): the counterpart of
-    `jax.checkpoint`.  Without autograd recording it is the plain call."""
+    `jax.checkpoint`.  Without autograd recording it is the plain call.
+
+    No RNG state is saved for the recompute (`preserve_rng_state=False`):
+    no model draws random numbers in its forward, so the recompute is exact
+    without it, and reading or setting the CUDA generator's state is
+    refused while a CUDA graph captures the train step."""
     if not torch.is_grad_enabled():
         return fn(*args)
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def init_params(defs: dict, generator: torch.Generator) -> ParamTree:

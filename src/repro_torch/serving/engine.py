@@ -97,7 +97,9 @@ def layer_block_map_from_profile(profile: ModelProfile, n_layers: int
 
 @dataclass
 class GraphStats:
-    """Counts over every StageExecutor's CUDA graphs since the last `reset`.
+    """Counts over a family of CUDA graphs since the last `reset`: every
+    StageExecutor's (`GRAPH_STATS`), every compiled train step's
+    (`training.train_lib.TRAIN_GRAPH_STATS`).
 
     The kernel wrappers' launch counters advance when a graph is captured,
     not when it replays: `captured` holds the launches recorded into graphs
@@ -111,7 +113,9 @@ class GraphStats:
     allocated_bytes: int = 0  # device memory the captures left allocated
     reserved_bytes: int = 0   # device memory the captures reserved (their pools)
     replays: int = 0
-    misses: int = 0           # CUDA calls at a shape with no graph (run eagerly)
+    misses: int = 0           # CUDA calls at a shape with no graph (run eagerly;
+    #                           a train step's warm-up)
+    copy_ins: int = 0         # train steps handed state the graphs do not hold
     captured: dict = field(default_factory=dict)
     replayed: dict = field(default_factory=dict)
     _lock: Any = field(default_factory=threading.Lock, repr=False, compare=False)
@@ -137,6 +141,10 @@ class GraphStats:
     def on_miss(self) -> None:
         with self._lock:
             self.misses += 1
+
+    def on_copy_in(self) -> None:
+        with self._lock:
+            self.copy_ins += 1
 
 
 GRAPH_STATS = GraphStats()

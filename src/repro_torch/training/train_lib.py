@@ -9,6 +9,12 @@ keeps them frozen, so its kernels launch with no autograd wrapper).  With
 by 1 / accum_steps, as the reference's scan does, and stay f32 into the
 clip and the update (the reference's accumulated gradients are f32 too).
 
+`compile_train_step` is the counterpart of the reference's
+`jax.jit(train_step, donate_argnums=(0, 1))`: on CUDA state each step is
+captured once as a CUDA graph per batch shape and replayed, the caller's
+own parameter and moment tensors serving as the graph's static buffers
+(the donation); on CPU state it runs the step as it is.
+
 The reference's `zero_pspec` and `opt_pspecs` (ZeRO-style sharding specs of
 the optimizer moments over a JAX mesh) have no counterpart on one card and
 are not ported (PERF.md, section 7).
@@ -16,12 +22,16 @@ are not ported (PERF.md, section 7).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
 
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels._lib import ProgramError
 from repro_torch.models.model_zoo import Model
+from repro_torch.serving.engine import GraphStats
 
 from .optimizer import AdamWConfig, adamw_update, clip_by_global_norm, init_opt_state
 from .tree import leaves
@@ -95,6 +105,165 @@ def make_train_step(
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+# every compiled train step's graphs: captures, replays, eager warm-up
+# steps (`misses`: a CUDA call at a batch shape with no graph yet)
+TRAIN_GRAPH_STATS = GraphStats()
+
+
+def copy_into(static: list, given: list) -> int:
+    """Write each leaf of `given` that is not its `static` counterpart (by
+    identity) into that counterpart, in place; returns how many it copied.
+    This is how state that the graph does not hold (`make_state()`'s, or
+    `checkpoint.restore`'s fresh tensors) lands in the graph's buffers.
+    Raises if the trees' leaves differ in count, shape or dtype."""
+    if len(static) != len(given):
+        raise ValueError(f"state of {len(given)} leaves, the graph holds {len(static)}")
+    copied = 0
+    with torch.no_grad():
+        for i, (s, g) in enumerate(zip(static, given)):
+            if s is g:
+                continue
+            if s.shape != g.shape or s.dtype != g.dtype:
+                raise ValueError(f"leaf {i}: {tuple(g.shape)} {g.dtype}, the graph holds "
+                                 f"{tuple(s.shape)} {s.dtype}")
+            s.copy_(g)
+            copied += 1
+    return copied
+
+
+def batch_key(batch: dict) -> tuple:
+    return tuple((k, tuple(x.shape), x.dtype) for k, x in sorted(batch.items()))
+
+
+@dataclass
+class _StepGraph:
+    graph: Any  # torch.cuda.CUDAGraph
+    batch: dict  # the static batch the graph reads
+    metrics: dict  # the static loss and gradient norm the graph writes
+    launches: dict  # kernel launches recorded into the graph, by kernel
+
+
+@dataclass
+class CompiledTrainStep:
+    """`compile_train_step`'s callable: (params, opt_state, batch) ->
+    (params, opt_state, metrics), the step's own signature.
+
+    On CUDA, the first call at a batch shape runs the step eagerly on a
+    side stream (a real step, the warm-up: kernels are built, cuBLAS takes
+    its workspace on that stream, autograd does its lazy set-up); the next
+    call at that shape captures the step on that stream and replays the
+    graph (capture records without running, so the step runs once); every
+    later call copies the batch into the graph's static batch and replays.
+    The static state is the state of the first CUDA call: its parameter,
+    moment and step tensors, written in place by every step (the step
+    counter through a copy the graph makes of `adamw_update`'s new step).
+    A call with other tensors (a restart's `make_state()`, a restore)
+    copies them in first (`copy_into`; counted in `stats.copy_ins`).
+    Counts go to `stats` (`TRAIN_GRAPH_STATS` unless given): warm-up steps
+    as `misses`, captures, replays.  Returns the static trees and
+    clones of the static metrics.  A failed capture raises `ProgramError`;
+    no step then runs.  On CPU state it is the step itself."""
+
+    step_fn: Callable
+    stats: GraphStats = field(default_factory=lambda: TRAIN_GRAPH_STATS)
+    graphs: dict = field(default_factory=dict, repr=False)
+    warmed: set = field(default_factory=set, repr=False)
+    params: Any = field(default=None, repr=False)
+    opt_state: Any = field(default=None, repr=False)
+    stream: Any = field(default=None, repr=False)
+
+    def __call__(self, params, opt_state, batch: dict):
+        device = leaves(params)[0].device
+        if device.type == "cpu":
+            return self.step_fn(params, opt_state, batch)
+        if device.type != "cuda":
+            raise ProgramError(f"no train step for state on {device}")
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        self._adopt(params, opt_state)
+        key = batch_key(batch)
+        g = self.graphs.get(key)
+        if g is None and key not in self.warmed:
+            return self._warm(key, batch)
+        if g is None:
+            g = self._capture(key, batch)
+        else:
+            for k, x in batch.items():
+                g.batch[k].copy_(x)
+        g.graph.replay()
+        self.stats.on_replay(g.launches)
+        return self.params, self.opt_state, {k: v.clone() for k, v in g.metrics.items()}
+
+    def _adopt(self, params, opt_state) -> None:
+        if self.params is None:
+            self.params, self.opt_state = params, opt_state
+            return
+        if params is self.params and opt_state is self.opt_state:
+            return
+        if copy_into(leaves(self.params) + leaves(self.opt_state),
+                     leaves(params) + leaves(opt_state)):
+            self.stats.on_copy_in()
+
+    def _warm(self, key: tuple, batch: dict):
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            _, opt, metrics = self.step_fn(self.params, self.opt_state, batch)
+            self.opt_state["step"].copy_(opt["step"])
+        cur.wait_stream(self.stream)
+        for v in metrics.values():
+            v.record_stream(cur)  # made on the side stream, read on the caller's
+        self.warmed.add(key)
+        self.stats.on_miss()
+        return self.params, self.opt_state, metrics
+
+    def _capture(self, key: tuple, batch: dict) -> _StepGraph:
+        device = self.stream.device
+        allocated = torch.cuda.memory_allocated(device)
+        reserved = torch.cuda.memory_reserved(device)
+        cur = torch.cuda.current_stream(device)
+        self.stream.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream):
+            static_batch = {k: x.clone() for k, x in batch.items()}
+            before = launch_counts()
+            t0 = time.perf_counter()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                _, opt, metrics = self.step_fn(self.params, self.opt_state, static_batch)
+                self.opt_state["step"].copy_(opt["step"])
+            except Exception as err:
+                try:
+                    graph.capture_end()
+                except Exception:
+                    pass  # the capture is invalid already; the step's error says why
+                raise ProgramError(f"the train step could not be captured as a CUDA graph "
+                                   f"at batch {key}: {err}") from err
+            try:
+                graph.capture_end()
+            except Exception as err:
+                raise ProgramError(f"the train step's CUDA graph capture failed at batch "
+                                   f"{key}: {err}") from err
+            seconds = time.perf_counter() - t0
+        cur.wait_stream(self.stream)
+        launches = {name: n - before[name] for name, n in launch_counts().items()
+                    if n > before[name]}
+        self.stats.on_capture(launches, seconds,
+                              torch.cuda.memory_allocated(device) - allocated,
+                              torch.cuda.memory_reserved(device) - reserved)
+        g = _StepGraph(graph, static_batch, metrics, launches)
+        self.graphs[key] = g
+        return g
+
+
+def compile_train_step(step_fn: Callable) -> CompiledTrainStep:
+    """`step_fn` (a `make_train_step` step) compiled: one CUDA graph per
+    batch shape on CUDA state, the step itself on CPU state (see
+    `CompiledTrainStep`).  The counterpart of the reference's
+    `jax.jit(step_fn, donate_argnums=(0, 1))`."""
+    return CompiledTrainStep(step_fn)
 
 
 def init_train_state(model: Model, generator: torch.Generator,

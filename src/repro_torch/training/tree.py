@@ -36,6 +36,14 @@ def leaves(tree) -> list[torch.Tensor]:
     return [leaf for _, child in _children(tree) for leaf in leaves(child)]
 
 
+def paths(tree, prefix: str = "") -> list[str]:
+    """Every leaf's dotted path (`layers.3.attn.wq`), in flatten order."""
+    if isinstance(tree, torch.Tensor):
+        return [prefix]
+    return [p for k, child in _children(tree)
+            for p in paths(child, f"{prefix}.{k}" if prefix else str(k))]
+
+
 def structure(tree) -> str:
     """A printable description of the tree's structure (the manifest's
     `treedef`)."""

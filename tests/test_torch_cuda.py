@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _lib
 from repro_torch.kernels.boundary_quant import ops as bq
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
@@ -1133,24 +1134,25 @@ def test_attention_bthd_under_grad_keeps_layout(cuda):
 
 @pytest.mark.requires_cuda
 def test_kernels_without_a_backward_raise_under_grad(cuda):
-    """Every wrapper whose kernel has no backward raises on CUDA under grad,
-    as do flash attention's uncovered routes; without grad each launches."""
+    """Every wrapper whose kernel has no backward raises the port's
+    `ProgramError` (not a `RuntimeError`) on CUDA under grad, as do flash
+    attention's uncovered routes; without grad each launches."""
     bf16 = torch.bfloat16
     q = _on(cuda, 100, (2, 1, 8, 64), bf16).requires_grad_()
     cache = _on(cuda, 101, (2, 32, 2, 64), bf16)
-    with pytest.raises(RuntimeError, match="item 13e"):
+    with pytest.raises(_lib.ProgramError, match="item 13e"):
         da.decode_attention_bthd(q, cache, cache, 32)
-    with pytest.raises(RuntimeError, match="item 13e"):
+    with pytest.raises(_lib.ProgramError, match="item 13e"):
         da.decode_attention(q.reshape(2, 2, 4, 64), cache.transpose(1, 2),
                             cache.transpose(1, 2), 32)
     x = _on(cuda, 102, (2, 64, 2, 16), torch.float32).requires_grad_()
     gate = -torch.rand(2, 64, 2, device=cuda)
-    with pytest.raises(RuntimeError, match="item 13d"):
+    with pytest.raises(_lib.ProgramError, match="item 13d"):
         ssd.ssd_scan_bthd(x, x, x, gate, chunk=16)
-    with pytest.raises(RuntimeError, match="item 13e"):
+    with pytest.raises(_lib.ProgramError, match="item 13e"):
         bq.quantize(_on(cuda, 103, (8, 64), bf16).requires_grad_())
     qv, scale = bq.quantize(_on(cuda, 104, (8, 64), bf16))
-    with pytest.raises(RuntimeError, match="item 13e"):
+    with pytest.raises(_lib.ProgramError, match="item 13e"):
         bq.dequantize(qv, scale.requires_grad_())
     k = _on(cuda, 105, (1, 2, 64, 64), bf16)
     for args, kw, item in (
@@ -1162,7 +1164,7 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
             ((_on(cuda, 109, (1, 4, 64, 192), bf16).requires_grad_(),
               _on(cuda, 110, (1, 2, 64, 192), bf16), _on(cuda, 111, (1, 2, 64, 192), bf16)),
              {}, "13c")):
-        with pytest.raises(RuntimeError, match=f"item {item}"):
+        with pytest.raises(_lib.ProgramError, match=f"item {item}"):
             fa.flash_attention(*args, **kw)
     with torch.no_grad():
         da.decode_attention_bthd(q, cache, cache, 32)
@@ -1187,3 +1189,169 @@ def test_model_forward_without_grad_runs_no_autograd_function(cuda):
     assert logits.grad_fn is None
     assert fa.flash_attention.launches == f0 + cfg.n_layers
     assert fa.flash_attention_forward_lse.launches == l0
+
+
+# ------------------------------------------------------ the compiled step
+
+_STEP_DIM, _STEP_LAYERS, _STEP_SEQ, _STEP_BATCH, _STEP_ACCUM = 256, 2, 64, 4, 2
+
+
+def _train_setup(cuda):
+    """A small qwen2-family model (`train_small.small_config` at d_model
+    256, 2 layers), its eager step (AdamW lr 1e-3, remat, 2 micro-batches),
+    a maker of its state from seed 0, and a maker of batches."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.examples.train_small import small_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+
+    cfg = small_config(_STEP_DIM, _STEP_LAYERS)
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = make_train_step(model, opt_cfg, remat=True, accum_steps=_STEP_ACCUM)
+
+    def state():
+        params = model.init(torch.Generator(device=cuda).manual_seed(0))
+        return params, init_opt_state(params, opt_cfg)
+
+    def batch(i, rows=_STEP_BATCH):
+        pipe = TokenPipeline(vocab=cfg.vocab, seq_len=_STEP_SEQ, global_batch=rows, seed=5)
+        return {k: torch.as_tensor(v, device=cuda) for k, v in pipe.batch_for(i).items()}
+
+    return cfg, model, step, state, batch
+
+
+def _compiled(step):
+    from repro_torch.serving.engine import GraphStats
+    from repro_torch.training.train_lib import CompiledTrainStep
+
+    return CompiledTrainStep(step, stats=GraphStats())
+
+
+def _run(step, params, opt, batches) -> tuple:
+    """(params, opt, [(loss, grad norm)] a step) after `step` over `batches`."""
+    metrics = []
+    for b in batches:
+        params, opt, m = step(params, opt, b)
+        metrics.append((m["loss"].clone(), m["grad_norm"].clone()))
+    torch.cuda.synchronize()
+    return params, opt, metrics
+
+
+def _assert_bit_equal(eager, graphed) -> None:
+    (p, o, m), (q, r, n) = eager, graphed
+    for i, ((la, ga), (lb, gb)) in enumerate(zip(m, n, strict=True)):
+        assert torch.equal(la, lb) and torch.equal(ga, gb), f"step {i}"
+    from repro_torch.training.tree import leaves
+
+    for i, (a, b) in enumerate(zip(leaves(p) + leaves(o), leaves(q) + leaves(r), strict=True)):
+        assert a.dtype == b.dtype and torch.equal(a, b), f"leaf {i}"
+
+
+@pytest.mark.requires_cuda
+def test_compiled_train_step_is_bit_equal_to_eager(cuda):
+    """Six steps: a warm-up run eagerly, a capture (which runs the step once,
+    by replaying), then four replays; losses, gradient norms, parameters,
+    moments and the step counter bit-equal to the eager step's.  The step
+    returns the caller's own trees (donated, written in place), leaves them
+    frozen, and the graph holds each micro-batch's forward and backward
+    kernels; serving's forward after it still launches the direct kernel."""
+    from repro_torch.training.tree import leaves
+
+    cfg, model, step, state, batch = _train_setup(cuda)
+    batches = [batch(i) for i in range(6)]
+    eager = _run(step, *state(), batches)
+    compiled = _compiled(step)
+    q, r = state()
+    graphed = _run(compiled, q, r, batches)
+    assert graphed[0] is q and graphed[1] is r and int(r["step"]) == 6
+    _assert_bit_equal(eager, graphed)
+    s = compiled.stats
+    assert (s.misses, s.captures, s.replays, compiled.stats.copy_ins) == (1, 1, 5, 0)
+    L = cfg.n_layers
+    want = {"rmsnorm": _STEP_ACCUM * (4 * L + 1), "rmsnorm_backward": _STEP_ACCUM * (2 * L + 1),
+            "flash_attention_forward_lse": _STEP_ACCUM * 2 * L,
+            "flash_attention_backward": _STEP_ACCUM * L}
+    assert s.captured == want
+    assert s.replayed == {k: 5 * n for k, n in want.items()}
+    assert all(not t.requires_grad for t in leaves(q))
+    f0, l0 = fa.flash_attention.launches, fa.flash_attention_forward_lse.launches
+    model.forward(q, {"tokens": batches[0]["tokens"]})
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_forward_lse.launches) == (f0 + L, l0)
+
+
+@pytest.mark.requires_cuda
+def test_compiled_train_step_takes_a_restore_mid_run(cuda, tmp_path):
+    """After three graphed steps the state is checkpointed and restored into
+    fresh tensors (as the elastic loop's restart does); the compiled step
+    copies them into the graph's buffers, returns its own trees, and goes
+    on bit-equal to an eager run that never stopped."""
+    from repro_torch.training import checkpoint as ckpt_lib
+
+    _, _, step, state, batch = _train_setup(cuda)
+    batches = [batch(i) for i in range(7)]
+    eager = _run(step, *state(), batches)
+    compiled = _compiled(step)
+    q, r = state()
+    q, r, first = _run(compiled, q, r, batches[:3])
+    ckpt_lib.save(str(tmp_path), 3, {"params": q, "opt": r})
+    fresh_p, fresh_o = state()
+    restored, at = ckpt_lib.restore(str(tmp_path), {"params": fresh_p, "opt": fresh_o})
+    assert at == 3
+    p2, o2, rest = _run(compiled, restored["params"], restored["opt"], batches[3:])
+    assert p2 is q and o2 is r and compiled.stats.copy_ins == 1
+    _assert_bit_equal(eager, (p2, o2, first + rest))
+    assert (compiled.stats.misses, compiled.stats.captures, compiled.stats.replays) == (1, 1, 6)
+
+
+@pytest.mark.requires_cuda
+def test_compiled_train_step_captures_a_graph_per_batch_shape(cuda):
+    """A second batch shape (half the rows) gets its own warm-up and graph;
+    steps alternating between the shapes stay bit-equal to eager."""
+    _, _, step, state, batch = _train_setup(cuda)
+    half = _STEP_BATCH // 2
+    batches = [batch(0), batch(1), batch(2), batch(3, half), batch(4, half), batch(5, half),
+               batch(6)]
+    eager = _run(step, *state(), batches)
+    compiled = _compiled(step)
+    graphed = _run(compiled, *state(), batches)
+    _assert_bit_equal(eager, graphed)
+    assert len(compiled.graphs) == 2
+    assert (compiled.stats.misses, compiled.stats.captures, compiled.stats.replays) == (2, 2, 5)
+
+
+@pytest.mark.requires_cuda
+def test_compiled_train_step_capture_failure_raises_program_error(cuda):
+    """A step that reads a loss on the host (a sync, refused while a graph
+    captures) warms up eagerly, then fails to capture: the port's
+    `ProgramError`, not a `RuntimeError` (the elastic loop's node failure),
+    chained from the cause; no step runs (state and counters as after the
+    warm-up), and the card stays usable (a good step then compiles)."""
+    from repro_torch.training.tree import leaves
+
+    _, _, step, state, batch = _train_setup(cuda)
+
+    def syncing(params, opt, b):
+        out = step(params, opt, b)
+        float(out[2]["loss"])
+        return out
+
+    compiled = _compiled(syncing)
+    q, r = state()
+    compiled(q, r, batch(0))
+    torch.cuda.synchronize()
+    before = [t.clone() for t in leaves(q) + leaves(r)]
+    with pytest.raises(_lib.ProgramError) as info:
+        compiled(q, r, batch(1))
+    assert not isinstance(info.value, RuntimeError) and info.value.__cause__ is not None
+    torch.cuda.synchronize()
+    s = compiled.stats
+    assert (s.misses, s.captures, s.replays) == (1, 0, 0) and not compiled.graphs
+    assert int(r["step"]) == 1 and all(not t.requires_grad for t in leaves(q))
+    for a, b in zip(before, leaves(q) + leaves(r), strict=True):
+        assert torch.equal(a, b)
+    torch.cuda.empty_cache()
+    good = _compiled(step)
+    _run(good, *state(), [batch(i) for i in range(3)])
+    assert (good.stats.misses, good.stats.captures, good.stats.replays) == (1, 1, 2)
