@@ -101,7 +101,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    uninjected run's.  Phase 2 also
    holds the backward kernels (`rmsnorm_backward`, flash attention's
    LSE-writing forward and its backward) against their plain backward run
-   in f32, at the train shapes and the serve's or a G = 1 one.
+   in f32, at the train shapes (`train_small`'s too) and the serve's or a
+   G = 1 one; flash attention's backward is split by launch (Delta, dK/dV,
+   dQ) and read in TFLOP/s against its bound.
 
 With `--parent ROOT` (another tree of the repository, such as the parent
 commit unpacked), every kernel that tree has is built too, timed in turns
@@ -118,6 +120,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -309,9 +313,26 @@ def phase_build(parent) -> None:
         f"(nvcc {_lib.nvcc_path()}, flags {' '.join(_lib.NVCC_FLAGS)})")
     for name in seconds:
         log_path = _lib.lib_path(name).with_suffix(".log")
+        entry = ""
         for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = kernel_label(m.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}: {entry}: {line.strip()}")
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and first template argument from its mangled name
+    (`_Z<len><name>`, or inside an anonymous namespace `..._cu_<8 hex><len>
+    <name>`), for the build lines; the mangled name where neither fits."""
+    m = (re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
+         or re.match(r"_Z(\d+)(\w+)", mangled))
+    if m is None:
+        return mangled
+    n, rest = int(m.group(1)), m.group(2)
+    arg = re.match(r"IL?i(\d+)E", rest[n:])
+    return rest[:n] + (f"<{arg.group(1)}>" if arg else "")
 
 
 # ----------------------------------------------------------------- phase 2
@@ -355,7 +376,7 @@ def phase_kernels(dev, parent) -> dict:
     res["ssd_scan"] = check_ssd_scan(dev, g, err, parent)
     res["rmsnorm_backward"] = check_rmsnorm_backward(dev, g)
     res["flash_attention_forward_lse"], res["flash_attention_backward"] = \
-        check_flash_backward(dev, g)
+        check_flash_backward(dev, g, parent)
     for name, r in res.items():
         lib_us = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f} us"
         log(f"[kernels] {name}: max|err| {r['max_abs_err']:.3g} (tol {r['tol']}), "
@@ -635,13 +656,16 @@ def small_train_rows() -> tuple[str, int, int]:
 
 def grad_shapes_flash() -> list[tuple[str, int, int, int, int, int]]:
     """(what, B, S, H, KH, D): qwen2-1.5b's micro-batch (4, 1024, 12/2, 128),
-    causal, and a G = 1 shape."""
+    causal, a G = 1 shape, and `train_small`'s micro-batch (4, 128, 8/2,
+    64), which phase 6c's elastic pair launches."""
     from repro_torch.configs import get_config
+    from repro_torch.examples.train_small import ACCUM, BATCH as SB, SEQ as SS, small_config
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg, small = get_config(TRAIN_ARCH), small_config()
     mb = TRAIN_BATCH // TRAIN_ACCUM
     return [(f"{TRAIN_ARCH} train", mb, TRAIN_SEQ, cfg.n_heads, cfg.kv_heads, cfg.hd),
-            ("G = 1", 2, 1024, 8, 8, 128)]
+            ("G = 1", 2, 1024, 8, 8, 128),
+            ("train_small train", SB // ACCUM, SS, small.n_heads, small.kv_heads, small.hd)]
 
 
 def check_rmsnorm_backward(dev, g) -> dict:
@@ -699,15 +723,18 @@ def check_rmsnorm_backward(dev, g) -> dict:
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
 
 
-def check_flash_backward(dev, g) -> tuple[dict, dict]:
+def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
     """At `grad_shapes_flash`, causal bf16: the LSE forward's output equals
     `fa_forward`'s bit for bit and its lse the plain one; dq, dk and dv
     against the plain backward run in f32, each within GRAD_TOL of that
     result's max |value| (autograd through the plain forward in bf16
     logged beside it); bit-equal run to run.  The LSE forward is timed
     beside `fa_forward` at the same inputs, the backward (three launches)
-    beside its bound, the plain backward and SDPA's backward (enable_gqa).
-    Returns the rows of both entries, the train shape's first."""
+    beside its bound, the plain backward, SDPA's backward (enable_gqa) and,
+    under `--parent`, the other tree's backward in turns; one call's device
+    time is split by launch (Delta, dK/dV, dQ) from the profiler, and the
+    achieved rate read against the bound's five products.  Returns the rows
+    of both entries, the train shape's first."""
     import torch
     import torch.nn.functional as F
 
@@ -765,11 +792,18 @@ def check_flash_backward(dev, g) -> tuple[dict, dict]:
                 q, k, v, is_causal=True, enable_gqa=H != KH), iters=20),
             host_ms=host_ms(lambda: fa.flash_attention_forward_lse(q, k, v, o, scale),
                             calls=100)))
+        def b_call(m):
+            m.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale)
+
+        ms, parent_ms = paired_ms(b_call, fa, parent, iters=10)
+        split = kernel_us(lambda: b_call(fa))
+        launch_us = {part: sum(us for name, us in split.items() if name.startswith(prefix))
+                     for part, prefix in (("delta", "fa_bwd_delta"), ("dkdv", "fa_bwd_dkdv"),
+                                          ("dq", "fa_bwd_dq"))}
         bwd.append(dict(
             shape=[B, S, H, KH, D], what=what, max_abs_err=max(gaps), tol=GRAD_TOL,
-            ms=time_ms(lambda: fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale),
-                       iters=10),
-            parent_ms=None,
+            ms=ms, parent_ms=parent_ms, launch_us=launch_us,
+            tflops=10.0 * pairs * D / (ms * 1e-3) / 1e12,
             plain_ms=time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, o, dout, lse),
                              iters=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by,
@@ -782,10 +816,23 @@ def check_flash_backward(dev, g) -> tuple[dict, dict]:
             f"{fwd_ms * 1e3:.3f} us at the same inputs, bound {f_ms * 1e3:.3f} us ({f_by}), "
             f"SDPA {fwd[-1]['library_ms'] * 1e3:.3f} us; output bit-equal to fa_forward's, lse "
             f"within {lse_err:.3g} of the plain one")
+        at_once = fa._clusters_at_once(H // KH, D, dev.index)
+        plan = fa.backward_plan(B, H, KH, S, D, torch.cuda.get_device_properties(
+            dev).multi_processor_count, at_once)
+        if fa.backward_heads(B, H, KH, S, D) != plan.heads:
+            raise AssertionError(f"flash_attention_backward ({what}): the launch walks "
+                                 f"{fa.backward_heads(B, H, KH, S, D)} heads a block, its "
+                                 f"plan {plan.heads}")
+        bwd[-1].update(heads=plan.heads, cluster=plan.cluster, clusters_at_once=dict(at_once))
         log(f"[kernels] flash_attention_backward at the {what} shape: "
-            f"{bwd[-1]['ms'] * 1e3:.3f} us (Delta, dK/dV, dQ) vs bound {b_ms * 1e3:.3f} us "
-            f"({b_by}), SDPA backward {bwd[-1]['library_ms'] * 1e3:.3f} us, plain "
-            f"{bwd[-1]['plain_ms'] * 1e3:.3f} us; host {bwd[-1]['host_ms'] * 1e3:.3f} us a "
+            f"{ms * 1e3:.3f} us{vs_parent(parent_ms)} (dK/dV: {math.prod(plan.dkdv_grid)} "
+            f"blocks of {plan.heads} heads, clusters of {plan.cluster}; the card holds "
+            f"{dict(at_once)} clusters of C at once; one call's launches: Delta "
+            f"{launch_us['delta']:.3f}, dK/dV {launch_us['dkdv']:.3f}, dQ "
+            f"{launch_us['dq']:.3f} us), {bwd[-1]['tflops']:.1f} TFLOP/s of the bound's five "
+            f"products ({bwd[-1]['tflops'] / (BF16_FLOP_S / 1e12):.3f} of the peak) vs bound "
+            f"{b_ms * 1e3:.3f} us ({b_by}), SDPA backward {bwd[-1]['library_ms'] * 1e3:.3f} us, "
+            f"plain {bwd[-1]['plain_ms'] * 1e3:.3f} us; host {bwd[-1]['host_ms'] * 1e3:.3f} us a "
             f"call; dq, dk, dv within {gaps[0]:.3g}, {gaps[1]:.3g}, {gaps[2]:.3g} of the f32 "
             f"plain backward's max |value| (tol {GRAD_TOL}; autograd of the plain forward in "
             f"bf16: {plain_gaps[0]:.3g}, {plain_gaps[1]:.3g}, {plain_gaps[2]:.3g}); bit-equal "
@@ -2954,7 +3001,9 @@ def phase_train(dev) -> dict:
         f"launch calls a step {graphed['host_launches']} vs "
         f"{eager['host_launches']}; "
         f"peak {graphed['peak'] / 2**30:.2f} vs {eager['peak'] / 2**30:.2f} GiB allocated, "
-        f"{graphed['reserved'] / 2**30:.2f} vs {eager['reserved'] / 2**30:.2f} GiB reserved")
+        f"{graphed['reserved'] / 2**30:.2f} vs {eager['reserved'] / 2**30:.2f} GiB reserved; "
+        "the graphed step before the flash backward's redesign (PERF.md section 2): 508.5 ms "
+        "a step, 16111 tokens/s")
     del compiled, eager, graphed
     gc.collect()
     torch.cuda.empty_cache()

@@ -752,369 +752,697 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
 //   dV = P^T dO, dS = P * (dO V^T - Delta), dK = scale dS^T Q
 //                                              (`fa_bwd_dkdv_kernel`)
 //   dQ = scale dS K                            (`fa_bwd_dq_kernel`)
-// Bound: operations (five S x S x D products a head, causal halves, against
-// the inputs' bytes).
+// Bound: operations, five S x S x D products a head over the causal half
+// (S^T, dP^T, dV, dK, and dQ; the dQ kernel computes S and dP again, seven
+// products in all), against the inputs' bytes.
 //
-// Design (simple first: no TMA, no wgmma, no pipeline).  Every product is
-// `mma.sync` m16n8k16 in bf16 with f32 accumulators; operands come from
-// shared memory by `ldmatrix` (`.trans` where the product reads a tile
-// along its rows), tiles land there by 16-byte `cp.async` with rows past S
-// and columns past D zero-filled, each row padded by 16 bytes so the eight
-// rows of an `ldmatrix` fall in distinct banks.  A block is four warps of
-// 16 rows.  dK/dV: a block a (64-key tile, KV head, batch) walks the G query
-// heads of its KV head and, under the causal mask, the 32-row query tiles
-// from its first key on, so the sum over GQA's heads stays inside the block
-// (no atomics, deterministic); each warp keeps its 16 keys' dK and dV in
-// registers.  dQ: a block a (64-row query tile, head, batch) walks the
-// 64-key tiles up to its diagonal.  P and dS go to bf16 for the products
-// that take them as the A operand, as P does in the forward.
+// Design (the forward's: TMA into a ring, `wgmma`, warp-specialised):
+//  - Delta stays its own launch, sixteen lanes a row, which also writes each
+//    row's lse in base 2; both go to an f32 scratch of (B, H, Sp) rows each,
+//    Sp = S rounded up to 64 (zeros past S), so a query tile's 64 values of
+//    each are one 256-byte bulk copy;
+//  - dK/dV: a block a (64-key tile, batch) and hpb query heads of one KV
+//    head, walked in turn.  One producer warp loads the tile's K and V
+//    once and streams, head by head, the query tiles from the tile's first
+//    key on (the causal half) through a three-stage ring: Q, dO, and the
+//    tile's lse and Delta beside them.  Consumer warpgroup 0
+//    runs S^T = K Q^T as an SS `wgmma` (K as A, Q K-major as B), turns it
+//    into P^T = exp2(S^T scale log2e - lse) in registers, hands P^T in f32
+//    to warpgroup 1 through the stage's slot in shared memory (an mbarrier
+//    a stage), packs it to bf16 and runs dV += P^T dO as an RS `wgmma`
+//    whose B is the swizzled dO tile read MN-major (as the forward reads
+//    V).  Warpgroup 1 runs dP^T = V dO^T (SS) meanwhile, then
+//    dS^T = P^T (dP^T - Delta) and dK += dS^T Q (RS, Q read MN-major).
+//    Each consumer holds one 64 x D f32 accumulator (64 registers a thread
+//    at D = 128) beside its 64 x 64 product (32): within the 168 registers
+//    a thread of a 288-thread block may have.  (A block's nine warps share
+//    the SM's four register partitions of 16,384, three to one: 3 x 32 x
+//    168 fits, 224 does not.  A first design kept dK and dV of 64 keys in
+//    one warpgroup, 128 + 64 registers, with a producer warpgroup and
+//    `setmaxnreg` 24/240; `ptxas` 12.9 held it at 168, spilled and
+//    serialised its `wgmma`s (C7512).)  No product is computed twice;
+//  - the C = G / hpb blocks of a KV head are one thread block cluster
+//    (G <= 8, the portable size).  Each block's partial dK and dV go, in
+//    f32, to its own shared memory over the finished tiles; the cluster
+//    synchronises, and the block of rank r sums rows [r R, r R + R),
+//    R = ceil(64 / C), of every rank's partials through distributed shared
+//    memory in rank order 0..C-1, scales dK and writes bf16.
+//    Deterministic, no atomics, no global scratch.  `heads_a_block` picks
+//    C from the card's cluster occupancy: clusters of G full-SM blocks
+//    pack unevenly into the GPCs (at G = 6 an H100 holds 17 at once, 102
+//    SMs), and a block that walks several heads also spreads its K/V load
+//    and its share of the reduction over more steps;
+//  - dQ: the forward's persistent kernel with dO beside Q: a work item is
+//    128 query rows of one (head, batch), far end of the diagonal first
+//    (`item_at`); K/V tiles of 64 keys stream through the ring; S = Q K^T
+//    and dP = dO V^T as SS `wgmma`s, dS packed to bf16 in registers, and
+//    dQ += dS K as an RS `wgmma` (K read MN-major);
+//  - the dK/dV grid is (H / hpb, B, key tiles), key tile 0, which walks
+//    every query tile, launched first; each launch is captured in a CUDA graph as
+//    it is: the maps are `__grid_constant__` parameters, and nothing is
+//    allocated or synchronised on the host.
+// What bounds it: the tensor cores wait on each warpgroup's elementwise
+// pass between its products (each consumer waits for its own `wgmma`s; the
+// other warpgroup's products fill the gap), warpgroup 1 waits for P^T, the
+// diagonal tiles' masked halves, and in dK/dV the cluster's reduction
+// (64 x D x 2 f32 a block over distributed shared memory).
+// Times measured (chip_smoke.py phase 2; NVIDIA H100 80GB HBM3, 700.00 W):
+// 143.245 us at qwen2-1.5b's (4, 1024, 12/2, 128), three heads a dK/dV
+// block in clusters of two, against the mma.sync design's 480.894 us in
+// the same run, SDPA's backward 157.779 us and the 32.602 us bound (Delta
+// 10.894, dK/dV 70.218, dQ 57.451 us; a head a block in clusters of six:
+// dK/dV 117.765 us); 73.883 us at (2, 1024, 8/8, 128) against 157.982,
+// 62.035 and 10.867 us.
 
-constexpr int kBwdRows = 64;       // query rows a dQ block; keys a dK/dV block
-constexpr int kBwdQ = 32;          // query rows a tile of the dK/dV loop
-constexpr int kBwdThreads = 128;   // four warps of 16 rows
 constexpr int kBwdMaxD = 128;
+constexpr int kBwdKeys = kRows;  // keys a dK/dV block
+constexpr int kBwdStages = 3;    // the dK/dV kernel's ring: Q, dO, P^T, lse, Delta
+constexpr int kMaxGroup = 8;     // query heads a KV head: a portable cluster
 
 struct BwdArgs {
-  const bf16 *q, *k, *v, *o, *dout;
+  const bf16 *o, *dout;
   bf16 *dq, *dk, *dv;
   const float* lse;  // (B, H, S), natural base
-  float* delta;      // (B, H, S)
-  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
-  int H, KH, S, D;
+  float* scratch;    // Delta, then lse in base 2: each (B, H, Sp)
+  Strides so, sdo, sdq, sdk, sdv;
+  int B, H, KH, S, Sp, D;
+  int hpb;  // query heads a dK/dV block, walked in turn (G / hpb blocks a cluster)
   float scale;
 };
 
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// one cluster barrier, every thread of the cluster (not warp-aligned: the
+// producer warp arrives from divergent lanes); release and acquire
+// order the shared-memory writes before it against the reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// a shared::cta address of this block -> the same offset in block `rank`'s
+// shared memory, as a shared::cluster address
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
                : "r"(addr)
                : "memory");
+  return v;
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-// rows [r0, r0 + n) of one (batch, head) of a (.., S, D) bf16 tensor whose
-// rows are `row_stride` elements apart, into n shared rows of DP + 8
-// elements; rows past S and columns past D are zeros
-template <int DP>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int64_t row_stride,
-                                          int r0, int n, int S, int D) {
-  constexpr int RS = DP + 8, CH = DP / 8;
-  for (int idx = threadIdx.x; idx < n * CH; idx += kBwdThreads) {
-    const int r = idx / CH, c = (idx - r * CH) * 8;
-    const bool ok = r0 + r < S && c < D;
-    const bf16* p = src + (ok ? (r0 + r) * row_stride + c : 0);
-    cp_async<16>(dst + (r * RS + c) * 2, p, ok ? 16 : 0);
-  }
-}
+// Delta[(b H + h) Sp + s] = sum_d dO O and, B H Sp values further on, lse
+// in base 2; rows s in [S, Sp) get zeros.  Sixteen lanes a row, two rows a
+// warp: one 16-byte load of each of O and dO a lane covers D <= 128.
+constexpr int kDeltaLanes = 16;
 
-// the A fragment (16 rows x k-step ks) of a warp's rows r0.. of a shared tile
-template <int RS>
-__device__ __forceinline__ void ld_a(uint32_t tile, int r0, int ks, uint32_t (&r)[4]) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(tile + ((r0 + lane % 16) * RS + ks * 16 + (lane / 16) * 8) * 2, r);
-}
-
-// B fragments of two 8-row n-tiles (rows n0.., n0 + 8..) at k-step ks of a
-// shared tile whose rows are the product's n and columns its k:
-// {b0, b1} of the first, {b0, b1} of the second
-template <int RS>
-__device__ __forceinline__ void ld_b(uint32_t tile, int n0, int ks, uint32_t (&r)[4]) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(tile + ((n0 + (lane / 16) * 8 + lane % 8) * RS + ks * 16 + ((lane / 8) % 2) * 8) * 2,
-          r);
-}
-
-// B fragments of two 8-column n-tiles (columns c0.., c0 + 8..) at the
-// k-step of rows k0..k0 + 15 of a shared tile whose rows are the product's k
-template <int RS>
-__device__ __forceinline__ void ld_b_t(uint32_t tile, int k0, int c0, uint32_t (&r)[4]) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4_t(tile + ((k0 + lane % 16) * RS + c0 + (lane / 16) * 8) * 2, r);
-}
-
-// a 16 x 16 A fragment from two 16 x 8 accumulators (n-tiles j, j + 1)
-__device__ __forceinline__ void acc_to_a(const float (&c0)[4], const float (&c1)[4],
-                                         uint32_t (&a)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Delta[(b H + h) S + s] = sum_d dO O, one warp a row
-__global__ void __launch_bounds__(256) fa_bwd_delta_kernel(const BwdArgs a, int64_t n_rows) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (idx >= n_rows) return;
-  const int s = static_cast<int>(idx % a.S);
-  const int64_t bh = idx / a.S;
-  const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
-  const bf16* o = a.o + b * a.so.b + h * a.so.h + s * a.so.s;
-  const bf16* g = a.dout + b * a.sdo.b + h * a.sdo.h + s * a.sdo.s;
+__global__ void __launch_bounds__(256) fa_bwd_delta_kernel(const BwdArgs a) {
+  const int64_t n_rows = static_cast<int64_t>(a.B) * a.H * a.Sp;
+  const int64_t idx = (static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x) / kDeltaLanes;
+  const int col = (threadIdx.x % kDeltaLanes) * 8;
+  const bool row_ok = idx < n_rows;  // every lane reaches the shuffles
+  const int s = row_ok ? static_cast<int>(idx % a.Sp) : a.S;
+  const int64_t bh = idx / a.Sp;
   float acc = 0.0f;
-  for (int c = lane * 8; c < a.D; c += 256) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(o + c);
-    const uint4 gv = *reinterpret_cast<const uint4*>(g + c);
+  if (s < a.S && col < a.D) {
+    const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
+    const uint4 ov = *reinterpret_cast<const uint4*>(a.o + b * a.so.b + h * a.so.h +
+                                                     s * a.so.s + col);
+    const uint4 gv = *reinterpret_cast<const uint4*>(a.dout + b * a.sdo.b + h * a.sdo.h +
+                                                     s * a.sdo.s + col);
     const bf16* op = reinterpret_cast<const bf16*>(&ov);
     const bf16* gp = reinterpret_cast<const bf16*>(&gv);
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc += __bfloat162float(op[e]) * __bfloat162float(gp[e]);
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) a.delta[idx] = acc;
+  for (int off = kDeltaLanes / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row_ok && col == 0) {
+    a.scratch[idx] = acc;
+    a.scratch[n_rows + idx] = s < a.S ? a.lse[bh * a.S + s] * kLog2e : 0.0f;
+  }
 }
 
-template <int KS>
-__global__ void __launch_bounds__(kBwdThreads) fa_bwd_dkdv_kernel(const BwdArgs a) {
-  constexpr int DP = 16 * KS, RS = DP + 8;
-  constexpr int KT = kBwdRows * RS * 2, QT = kBwdQ * RS * 2;  // tile bytes
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t sK = smem_addr(smem_raw), sV = sK + KT, sQ = sV + KT, sdO = sQ + QT;
-  float* sL = reinterpret_cast<float*>(smem_raw + 2 * KT + 2 * QT);  // lse, base 2
-  float* sD = sL + kBwdQ;
-  const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kBwdRows, G = a.H / a.KH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  load_tile<DP>(sK, a.k + b * a.sk.b + kh * a.sk.h, a.sk.s, k0, kBwdRows, a.S, a.D);
-  load_tile<DP>(sV, a.v + b * a.sv.b + kh * a.sv.h, a.sv.s, k0, kBwdRows, a.S, a.D);
-  cp_async_commit();
-  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
+template <int DP>
+struct BwdSmem {
+  static constexpr int kPanels = (DP + kPanelCols - 1) / kPanelCols;
+  static constexpr int kTile = kPanels * kPanelBytes;           // 64 rows, every panel
+  static constexpr int kK = 0;                                  // the block's K tile
+  static constexpr int kV = kK + kTile;                         // and V tile
+  static constexpr int kQ = kV + kTile;                         // the Q ring
+  static constexpr int kdO = kQ + kBwdStages * kTile;           // the dO ring
+  static constexpr int kP = kdO + kBwdStages * kTile;           // P^T, f32, a stage each
+  static constexpr int kPBytes = kRows * kRows * 4;
+  static constexpr int kLse = kP + kBwdStages * kPBytes;        // each stage's 64 base-2 lse
+  static constexpr int kDelta = kLse + kBwdStages * kRows * 4;  // and 64 Delta
+  static constexpr int kBars = kDelta + kBwdStages * kRows * 4; // kv_full, full[], empty[], p_full[]
+  static constexpr int kBytes = kBars + 8 * (1 + 3 * kBwdStages) + 1024;  // + alignment slack
+  // after the loop: the f32 partial dV, then dK, of the block's 64 keys,
+  // rows padded to DP + 8 floats (a half-warp's 8-byte stores and 16-byte
+  // loads fall in distinct banks), over the tiles
+  static constexpr int kPartRow = DP + 8;
+  static_assert(2 * kBwdKeys * kPartRow * 4 <= kBars, "the partials overlay the tiles only");
+  static_assert(kBytes <= 232448, "more shared memory than a block may have");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
+  using L = BwdSmem<DP>;
+  constexpr int KSTEPS = DP / 16;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));  // generic pointer to base
+  const uint32_t bar_kv = base + L::kBars;
+  const uint32_t bar_full = bar_kv + 8;                    // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kBwdStages;    // + 8 * stage
+  const uint32_t bar_p = bar_empty + 8 * kBwdStages;       // + 8 * stage
+  const int b = blockIdx.y, k0 = blockIdx.z * kBwdKeys;
+  const int G = a.H / a.KH, C = G / a.hpb;  // blocks a cluster: rank blockIdx.x % C
+  const int kh = blockIdx.x / C, h0 = kh * G + (blockIdx.x % C) * a.hpb;  // the first head
+  const int n_q = (a.S - k0 + kRows - 1) / kRows;  // query tiles from k0 on: the causal half
+  const int n_it = a.hpb * n_q;                    // (head, query tile) steps, head-major
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers * 4);  // every consumer warp arrives
+      mbar_init(bar_p + 8 * s, 4);                   // the P^T warpgroup's warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {
+    // ------------------------------------------------------------ producer
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::kTile);
+      for (int p = 0; p < L::kPanels; ++p) {
+        tma_load(base + L::kK + p * kPanelBytes, &tm_k, p * kPanelCols, kh, k0, b, bar_kv);
+        tma_load(base + L::kV + p * kPanelBytes, &tm_v, p * kPanelCols, kh, k0, b, bar_kv);
+      }
+      const int64_t lse_off = static_cast<int64_t>(a.B) * a.H * a.Sp;  // the lse plane
+      for (int step = 0; step < n_it; ++step) {
+        const int s = step % kBwdStages, h = h0 + step / n_q, q0 = k0 + (step % n_q) * kRows;
+        if (step >= kBwdStages) mbar_wait(bar_empty + 8 * s, (step / kBwdStages - 1) & 1);
+        const float* delta = a.scratch + (static_cast<int64_t>(b) * a.H + h) * a.Sp;
+        const float* lse2 = delta + lse_off;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L::kTile + 2 * kRows * 4);
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load(base + L::kQ + s * L::kTile + p * kPanelBytes, &tm_q, p * kPanelCols, h, q0,
+                   b, full);
+          tma_load(base + L::kdO + s * L::kTile + p * kPanelBytes, &tm_do, p * kPanelCols, h,
+                   q0, b, full);
+        }
+        bulk_load(base + L::kLse + s * kRows * 4, lse2 + q0, kRows * 4, full);
+        bulk_load(base + L::kDelta + s * kRows * 4, delta + q0, kRows * 4, full);
+      }
+    }
+    cluster_sync();  // the partials are written
+    cluster_sync();  // and read
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  // Warpgroup 0 takes P^T and dV, warpgroup 1 dP^T, dS^T and dK.  A thread
+  // of either holds the same accumulator elements: 4 j + 2 r + e is key row
+  // a (r = 0) or b, query column 8 j + 2 tq + e of the tile; query columns
+  // 16 kk.. are the A fragment of k-step kk of the RS products.
+  const int c = warp / 4, wi = warp % 4, tq = lane % 4, tid = threadIdx.x % 128;
+  const int key_a = k0 + wi * 16 + lane / 4, key_b = key_a + 8;
   const float sl2 = a.scale * kLog2e;
-  float dk[2 * KS][4], dv[2 * KS][4];
+  float acc[DP / 2];  // dV (warpgroup 0) or dK (1) of the block's 64 keys
 #pragma unroll
-  for (int i = 0; i < 2 * KS; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
 
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kh * G + gi;
-    const bf16* qb = a.q + b * a.sq.b + h * a.sq.h;
-    const bf16* ob = a.dout + b * a.sdo.b + h * a.sdo.h;
-    const float* lrow = a.lse + (static_cast<int64_t>(b) * a.H + h) * a.S;
-    const float* drow = a.delta + (static_cast<int64_t>(b) * a.H + h) * a.S;
-    for (int q0 = k0; q0 < a.S; q0 += kBwdQ) {  // causal: no query before k0 sees these keys
-      __syncthreads();  // every warp is done with the previous query tile
-      load_tile<DP>(sQ, qb, a.sq.s, q0, kBwdQ, a.S, a.D);
-      load_tile<DP>(sdO, ob, a.sdo.s, q0, kBwdQ, a.S, a.D);
-      cp_async_commit();
-      if (threadIdx.x < kBwdQ) {
-        const int r = q0 + threadIdx.x;
-        sL[threadIdx.x] = r < a.S ? lrow[r] * kLog2e : 0.0f;
-        sD[threadIdx.x] = r < a.S ? drow[r] : 0.0f;
+  mbar_wait(bar_kv, 0);
+  for (int step = 0; step < n_it; ++step) {
+    const int s = step % kBwdStages, t = step % n_q;  // t: the query tile of this head
+    mbar_wait(bar_full + 8 * s, (step / kBwdStages) & 1);
+    const uint32_t q_tile = base + L::kQ + s * L::kTile;
+    const uint32_t do_tile = base + L::kdO + s * L::kTile;
+    // this thread's P^T values of the stage, 16 bytes a step of 128 threads
+    float4* p_slot = reinterpret_cast<float4*>(gbase + L::kP + s * L::kPBytes) + tid;
+    uint32_t af[4][4];  // the A fragments: P^T (warpgroup 0) or dS^T (1), bf16
+    if (c == 0) {
+      // S^T = K Q^T (64 keys x 64 queries, f32), fresh a tile
+      float st[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j) {
+        const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
+        Wgmma<64>::ss(st, sw128_desc(base + L::kK + off, 16, 1024),
+                      sw128_desc(q_tile + off, 16, 1024), j > 0);
       }
-      cp_async_wait<0>();
-      __syncthreads();
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      // P^T (key, query) = exp2(s scale log2e - lse2) where key <= query < S
+      const int q0 = k0 + t * kRows;
+      const bool need_mask = t == 0 || q0 + kRows > a.S;
+      const float* sl = reinterpret_cast<const float*>(gbase + L::kLse) + s * kRows;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lq = e ? l2.y : l2.x;
+          float pa = exp2f(st[4 * j + e] * sl2 - lq), pb = exp2f(st[4 * j + 2 + e] * sl2 - lq);
+          if (need_mask) {
+            const int q = q0 + 8 * j + 2 * tq + e;
+            pa = q >= key_a && q < a.S ? pa : 0.0f;
+            pb = q >= key_b && q < a.S ? pb : 0.0f;
+          }
+          st[4 * j + e] = pa;
+          st[4 * j + 2 + e] = pb;
+        }
+      }
+      // hand P^T to warpgroup 1 in f32, as it lies in the registers
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+        p_slot[m * 128] = make_float4(st[4 * m], st[4 * m + 1], st[4 * m + 2], st[4 * m + 3]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_p + 8 * s);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) af[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+    } else {
+      // dP^T = V dO^T, then dS^T = P^T (dP^T - Delta) with warpgroup 0's P^T
+      float dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dpt[i] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j) {
+        const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
+        Wgmma<64>::ss(dpt, sw128_desc(base + L::kV + off, 16, 1024),
+                      sw128_desc(do_tile + off, 16, 1024), j > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dpt);
+      const float* sd = reinterpret_cast<const float*>(gbase + L::kDelta) + s * kRows;
+      mbar_wait(bar_p + 8 * s, (step / kBwdStages) & 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // P^T's columns 16 kk..: elements 8 kk .. 8 kk + 7
+        const float4 p0 = p_slot[(2 * kk) * 128], p1 = p_slot[(2 * kk + 1) * 128];
+        const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        float ds[8];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * (2 * kk + jj) + 2 * tq);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ds[4 * jj + i] = p[4 * jj + i] * (dpt[8 * kk + 4 * jj + i] - (i % 2 ? dl.y : dl.x));
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) af[kk][i] = pack_bf16(ds[2 * i], ds[2 * i + 1]);
+      }
+    }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1): B is the tile's rows
+    // 16 kk.. read MN-major
+    const uint32_t b_tile = c == 0 ? do_tile : q_tile;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<DP>::rs(acc, af[kk], sw128_desc(b_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
 
-      // S^T = K_w Q^T and dP^T = V_w dO^T, 16 keys x 32 queries a warp
-      float st[4][4], dpt[4][4];
+  // both consumer warpgroups are done with the tiles the partials overlay
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
+  float* part = reinterpret_cast<float*>(gbase);  // dV rows 0..63, then dK rows
+  const int ra = c * kRows + wi * 16 + lane / 4, rb = ra + 8;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t ak[4], av[4];
-        ld_a<RS>(sK, warp * 16, ks, ak);
-        ld_a<RS>(sV, warp * 16, ks, av);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bq[4], bo[4];
-          ld_b<RS>(sQ, np * 16, ks, bq);
-          ld_b<RS>(sdO, np * 16, ks, bo);
-          mma16816(st[2 * np], ak, bq[0], bq[1]);
-          mma16816(st[2 * np + 1], ak, bq[2], bq[3]);
-          mma16816(dpt[2 * np], av, bo[0], bo[1]);
-          mma16816(dpt[2 * np + 1], av, bo[2], bo[3]);
-        }
-      }
-      // P^T (key j, query i) = exp(s - lse_i) where j <= i < S; dS^T = P^T (dP^T - Delta_i)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = nt * 8 + 2 * t + (e & 1), row = q0 + qi;
-          const int key = e < 2 ? key_a : key_b;
-          const float p = row < a.S && key <= row ? exp2f(st[nt][e] * sl2 - sL[qi]) : 0.0f;
-          st[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - sD[qi]);
-        }
-      // dV += P^T dO, dK += dS^T Q (the queries are the k of these products)
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t ap[4], as[4];
-        acc_to_a(st[2 * kk], st[2 * kk + 1], ap);
-        acc_to_a(dpt[2 * kk], dpt[2 * kk + 1], as);
-#pragma unroll
-        for (int nd = 0; nd < KS; ++nd) {
-          uint32_t bo[4], bq[4];
-          ld_b_t<RS>(sdO, kk * 16, nd * 16, bo);
-          ld_b_t<RS>(sQ, kk * 16, nd * 16, bq);
-          mma16816(dv[2 * nd], ap, bo[0], bo[1]);
-          mma16816(dv[2 * nd + 1], ap, bo[2], bo[3]);
-          mma16816(dk[2 * nd], as, bq[0], bq[1]);
-          mma16816(dk[2 * nd + 1], as, bq[2], bq[3]);
-        }
-      }
-    }
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    *reinterpret_cast<float2*>(part + ra * L::kPartRow + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(part + rb * L::kPartRow + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
-  bf16* dkb = a.dk + b * a.sdk.b + kh * a.sdk.h;
-  bf16* dvb = a.dv + b * a.sdv.b + kh * a.sdv.h;
+  cluster_sync();  // every block's partials are written
+
+  // rank r sums rows [r R, r R + R) over ranks 0..C-1, in that order
+  const int rank = static_cast<int>(cluster_rank());
+  const int R = (kBwdKeys + C - 1) / C;
+  const int r_lo = rank * R, n_rows = max(0, min(kBwdKeys, r_lo + R) - r_lo);
+  constexpr int CH = DP / 4;  // four-column chunks a row
+  for (int idx = threadIdx.x; idx < 2 * n_rows * CH; idx += kConsumers * 128) {
+    const int which = idx / (n_rows * CH);  // 0: dV, 1: dK
+    const int rem = idx - which * n_rows * CH;
+    const int row = r_lo + rem / CH, col = (rem % CH) * 4, key = k0 + row;
+    if (key >= a.S || col >= a.D) continue;
+    const uint32_t off = base + ((which * kBwdKeys + row) * L::kPartRow + col) * 4;
+    float4 v[kMaxGroup];
 #pragma unroll
-  for (int nd = 0; nd < 2 * KS; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (col >= a.D) continue;
-    if (key_a < a.S) {
-      *reinterpret_cast<uint32_t*>(dkb + key_a * a.sdk.s + col) =
-          pack_bf16(dk[nd][0] * a.scale, dk[nd][1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvb + key_a * a.sdv.s + col) = pack_bf16(dv[nd][0], dv[nd][1]);
-    }
-    if (key_b < a.S) {
-      *reinterpret_cast<uint32_t*>(dkb + key_b * a.sdk.s + col) =
-          pack_bf16(dk[nd][2] * a.scale, dk[nd][3] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvb + key_b * a.sdv.s + col) = pack_bf16(dv[nd][2], dv[nd][3]);
-    }
+    for (int q = 0; q < kMaxGroup; ++q)
+      if (q < C) v[q] = ld_cluster(cluster_addr(off, q));
+    float4 sum = v[0];
+#pragma unroll
+    for (int q = 1; q < kMaxGroup; ++q)
+      if (q < C) {
+        sum.x += v[q].x;
+        sum.y += v[q].y;
+        sum.z += v[q].z;
+        sum.w += v[q].w;
+      }
+    const float m = which ? a.scale : 1.0f;
+    bf16* dst = which ? a.dk + b * a.sdk.b + kh * a.sdk.h + key * a.sdk.s
+                      : a.dv + b * a.sdv.b + kh * a.sdv.h + key * a.sdv.s;
+    reinterpret_cast<uint32_t*>(dst + col)[0] = pack_bf16(sum.x * m, sum.y * m);
+    reinterpret_cast<uint32_t*>(dst + col)[1] = pack_bf16(sum.z * m, sum.w * m);
   }
+  cluster_sync();  // no block leaves while another reads its partials
 }
 
-template <int KS>
-__global__ void __launch_bounds__(kBwdThreads) fa_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int DP = 16 * KS, RS = DP + 8;
-  constexpr int T = kBwdRows * RS * 2;  // tile bytes
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t sQ = smem_addr(smem_raw), sdO = sQ + T, sK = sdO + T, sV = sK + T;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the far end of the diagonal first
-  const int h = blockIdx.y, b = blockIdx.z, kh = h / (a.H / a.KH);
-  const int q0 = qt * kBwdRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  load_tile<DP>(sQ, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, kBwdRows, a.S, a.D);
-  load_tile<DP>(sdO, a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s, q0, kBwdRows, a.S, a.D);
-  cp_async_commit();
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const float* lrow = a.lse + (static_cast<int64_t>(b) * a.H + h) * a.S;
-  const float* drow = a.delta + (static_cast<int64_t>(b) * a.H + h) * a.S;
-  const float lse_a = row_a < a.S ? lrow[row_a] * kLog2e : 0.0f;
-  const float lse_b = row_b < a.S ? lrow[row_b] * kLog2e : 0.0f;
-  const float dl_a = row_a < a.S ? drow[row_a] : 0.0f;
-  const float dl_b = row_b < a.S ? drow[row_b] : 0.0f;
+// dQ: the forward's persistent walk (`item_at`, causal, Sq == Sk == S),
+// with a dO tile beside each consumer's Q tile (`Smem`'s output staging
+// tiles hold dO here) and the K/V ring as there
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
+  using L = Smem<DP>;
+  constexpr int KSTEPS = DP / 16;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_q_full = base + L::kBars;
+  const uint32_t bar_q_empty = bar_q_full + 8;
+  const uint32_t bar_full = bar_q_empty + 8;          // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
+  const int H = a.H, B = a.B, S = a.S;
+  const int n_items = (S + kConsumers * kRows - 1) / (kConsumers * kRows) * H * B;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q_full, 1);
+    mbar_init(bar_q_empty, kConsumers * 4);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {
+    // ------------------------------------------------------------ producer
+    if (lane != 0) return;
+    int tile = 0;
+    for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+      const Item it = item_at(w, H, B, S, S, 1);
+      const int kh = it.h / (H / a.KH);
+      if (n > 0) mbar_wait(bar_q_empty, (n - 1) & 1);
+      mbar_expect_tx(bar_q_full, 2 * it.n_active * L::kTile);
+      for (int c = 0; c < it.n_active; ++c)
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load(base + L::kQ + c * L::kTile + p * kPanelBytes, &tm_q, p * kPanelCols, it.h,
+                   it.q0 + c * kRows, it.b, bar_q_full);
+          tma_load(base + L::kO + c * L::kTile + p * kPanelBytes, &tm_do, p * kPanelCols, it.h,
+                   it.q0 + c * kRows, it.b, bar_q_full);
+        }
+      for (int t = 0; t < it.n_tiles; ++t, ++tile) {
+        const int s = tile % kStages;
+        if (tile >= kStages) mbar_wait(bar_empty + 8 * s, (tile / kStages - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L::kTile);
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load(base + L::kK + s * L::kTile + p * kPanelBytes, &tm_k, p * kPanelCols, kh,
+                   t * kRows, it.b, full);
+          tma_load(base + L::kV + s * L::kTile + p * kPanelBytes, &tm_v, p * kPanelCols, kh,
+                   t * kRows, it.b, full);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  const int c = warp / 4, wi = warp % 4, tq = lane % 4;
+  const uint32_t q_tile = base + L::kQ + c * L::kTile;
+  const uint32_t do_tile = base + L::kO + c * L::kTile;
   const float sl2 = a.scale * kLog2e;
-  const bf16* kb = a.k + b * a.sk.b + kh * a.sk.h;
-  const bf16* vb = a.v + b * a.sv.b + kh * a.sv.h;
-  float dq[2 * KS][4];
+  const float* delta = a.scratch;
+  const float* lse2 = a.scratch + static_cast<int64_t>(B) * H * a.Sp;
+  float sacc[32], pacc[32], dq[DP / 2];
 #pragma unroll
-  for (int i = 0; i < 2 * KS; ++i)
+  for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.0f;
+  int tile = 0;
+  for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+    const Item it = item_at(w, H, B, S, S, 1);
+    const int r0 = it.q0 + c * kRows;
+    const int row_a = r0 + wi * 16 + lane / 4, row_b = row_a + 8;
+    const bool active = c < it.n_active;
+    const int my_last = active ? r0 / kRows : -1;  // the diagonal tile
+    const int64_t rows = (static_cast<int64_t>(it.b) * H + it.h) * a.Sp;
+    const float l2_a = row_a < S ? lse2[rows + row_a] : 0.0f;
+    const float l2_b = row_b < S ? lse2[rows + row_b] : 0.0f;
+    const float dl_a = row_a < S ? delta[rows + row_a] : 0.0f;
+    const float dl_b = row_b < S ? delta[rows + row_b] : 0.0f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[i][e] = 0.0f;
-  const int n_kt = min((a.S + kBwdRows - 1) / kBwdRows, qt + 1);  // causal, Sq == Sk
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<DP>(sK, kb, a.sk.s, kt * kBwdRows, kBwdRows, a.S, a.D);
-    load_tile<DP>(sV, vb, a.sv.s, kt * kBwdRows, kBwdRows, a.S, a.D);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    // S = Q_w K^T and dP = dO_w V^T, 16 queries x 64 keys a warp
-    float s[8][4], dp[8][4];
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
+
+    mbar_wait(bar_q_full, n & 1);
+    if (!active && lane == 0) mbar_arrive(bar_q_empty);
+    for (int t = 0; t < it.n_tiles; ++t, ++tile) {
+      const int s = tile % kStages;
+      mbar_wait(bar_full + 8 * s, (tile / kStages) & 1);
+      if (t <= my_last) {
+        const uint32_t k_tile = base + L::kK + s * L::kTile;
+        const uint32_t v_tile = base + L::kV + s * L::kTile;
+        // S = Q K^T and dP = dO V^T (64 x 64, f32)
+        fence_regs(sacc);
+        fence_regs(pacc);
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+        for (int j = 0; j < KSTEPS; ++j) {
+          const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
+          Wgmma<64>::ss(sacc, sw128_desc(q_tile + off, 16, 1024),
+                        sw128_desc(k_tile + off, 16, 1024), j > 0);
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
+        for (int j = 0; j < KSTEPS; ++j) {
+          const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
+          Wgmma<64>::ss(pacc, sw128_desc(do_tile + off, 16, 1024),
+                        sw128_desc(v_tile + off, 16, 1024), j > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sacc);
+        fence_regs(pacc);
+        if (t == my_last && lane == 0) mbar_arrive(bar_q_empty);  // Q and dO are free
+
+        // dS = P (dP - Delta), P = exp2(s scale log2e - lse2) where key <= row
+        const int k0 = t * kRows;
+        const bool need_mask = t == my_last;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t aq[4], ao[4];
-      ld_a<RS>(sQ, warp * 16, ks, aq);
-      ld_a<RS>(sdO, warp * 16, ks, ao);
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4], bv[4];
-        ld_b<RS>(sK, np * 16, ks, bk);
-        ld_b<RS>(sV, np * 16, ks, bv);
-        mma16816(s[2 * np], aq, bk[0], bk[1]);
-        mma16816(s[2 * np + 1], aq, bk[2], bk[3]);
-        mma16816(dp[2 * np], ao, bv[0], bv[1]);
-        mma16816(dp[2 * np + 1], ao, bv[2], bv[3]);
+          for (int e = 0; e < 2; ++e) {
+            float pa = exp2f(sacc[4 * j + e] * sl2 - l2_a);
+            float pb = exp2f(sacc[4 * j + 2 + e] * sl2 - l2_b);
+            if (need_mask) {
+              const int col = k0 + 8 * j + 2 * tq + e;
+              pa = col <= row_a ? pa : 0.0f;
+              pb = col <= row_b ? pb : 0.0f;
+            }
+            pacc[4 * j + e] = pa * (pacc[4 * j + e] - dl_a);
+            pacc[4 * j + 2 + e] = pb * (pacc[4 * j + 2 + e] - dl_b);
+          }
+        }
+        // dQ += dS K: key columns 16 kk.. are the A fragment of k-step kk
+        uint32_t as[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            as[kk][i] = pack_bf16(pacc[8 * kk + 2 * i], pacc[8 * kk + 2 * i + 1]);
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<DP>::rs(dq, as[kk], sw128_desc(k_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dq);
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
     }
-    // dS = P (dP - Delta), P = exp(s - lse) where key <= row < S
+    if (!active) continue;
+
+    bf16* dqb = a.dq + it.b * a.sdq.b + it.h * a.sdq.h;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row_a : row_b;
-        const int key = kt * kBwdRows + nt * 8 + 2 * t + (e & 1);
-        const float p = row < a.S && key <= row
-                            ? exp2f(s[nt][e] * sl2 - (e < 2 ? lse_a : lse_b)) : 0.0f;
-        s[nt][e] = p * (dp[nt][e] - (e < 2 ? dl_a : dl_b));
-      }
-    // dQ += dS K (the keys are the k of this product)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t as[4];
-      acc_to_a(s[2 * kk], s[2 * kk + 1], as);
-#pragma unroll
-      for (int nd = 0; nd < KS; ++nd) {
-        uint32_t bk[4];
-        ld_b_t<RS>(sK, kk * 16, nd * 16, bk);
-        mma16816(dq[2 * nd], as, bk[0], bk[1]);
-        mma16816(dq[2 * nd + 1], as, bk[2], bk[3]);
-      }
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col >= a.D) continue;
+      if (row_a < S)
+        *reinterpret_cast<uint32_t*>(dqb + row_a * a.sdq.s + col) =
+            pack_bf16(dq[4 * j] * a.scale, dq[4 * j + 1] * a.scale);
+      if (row_b < S)
+        *reinterpret_cast<uint32_t*>(dqb + row_b * a.sdq.s + col) =
+            pack_bf16(dq[4 * j + 2] * a.scale, dq[4 * j + 3] * a.scale);
     }
-  }
-  bf16* dqb = a.dq + b * a.sdq.b + h * a.sdq.h;
-#pragma unroll
-  for (int nd = 0; nd < 2 * KS; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (col >= a.D) continue;
-    if (row_a < a.S)
-      *reinterpret_cast<uint32_t*>(dqb + row_a * a.sdq.s + col) =
-          pack_bf16(dq[nd][0] * a.scale, dq[nd][1] * a.scale);
-    if (row_b < a.S)
-      *reinterpret_cast<uint32_t*>(dqb + row_b * a.sdq.s + col) =
-          pack_bf16(dq[nd][2] * a.scale, dq[nd][3] * a.scale);
   }
 }
 
-template <int KS>
-int launch_bwd(const BwdArgs& a, int B, cudaStream_t st) {
-  constexpr int RS = 16 * KS + 8;
-  constexpr int dq_smem = 4 * kBwdRows * RS * 2;
-  constexpr int kv_smem = 2 * kBwdRows * RS * 2 + 2 * kBwdQ * RS * 2 + 2 * kBwdQ * 4;
+// the shared-memory ceilings of the backward's two tensor-core kernels at
+// DP, set once per instance and device
+template <int DP>
+cudaError_t bwd_smem_attr() {
   static bool attr_set[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && attr_set[dev])) return err;
+  err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BwdSmem<DP>::kBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fa_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<DP>::kBytes);
+  if (err == cudaSuccess && dev < kMaxDevices) attr_set[dev] = true;
+  return err;
+}
+
+// the dK/dV launch: grid (H / hpb, B, key tiles), the G / hpb blocks of a
+// KV head one cluster
+template <int DP>
+cudaLaunchConfig_t dkdv_config(const BwdArgs& a, cudaLaunchAttribute* cluster,
+                               cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.H / a.hpb, a.B, (a.S + kBwdKeys - 1) / kBwdKeys);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = BwdSmem<DP>::kBytes;
+  cfg.stream = st;
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = a.H / a.KH / a.hpb;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// clusters of C dK/dV blocks the card holds at once at DP
+template <int DP>
+int max_clusters(int C, int* out) {
+  cudaError_t err = bwd_smem_attr<DP>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || !attr_set[dev]) {
-    err = cudaFuncSetAttribute(fa_bwd_dq_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dq_smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<KS>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) attr_set[dev] = true;
+  BwdArgs a = {};
+  a.H = C;
+  a.KH = 1;
+  a.B = 1;
+  a.S = kBwdKeys;
+  a.hpb = 1;
+  cudaLaunchAttribute cluster[1];
+  const cudaLaunchConfig_t cfg = dkdv_config<DP>(a, cluster, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, fa_bwd_dkdv_kernel<DP>, &cfg));
+}
+
+// Query heads a dK/dV block walks, hpb = G / C for the divisor C of G (the
+// cluster) that minimises the launch's estimated makespan in (head, query
+// tile) steps: max(all steps / SMs the card fills with clusters of C,
+// the longest block's steps), the larger C on a tie.  Clusters of G
+// full-SM blocks pack unevenly into the GPCs (17 of 6 at once on an H100,
+// 102 SMs); smaller clusters fill more SMs with longer blocks.  The
+// occupancy is looked up once a device, DP and C.  `ops.backward_plan`
+// makes the same choice from the same numbers.
+template <int DP>
+int heads_a_block(int B, int H, int G, int S, int* hpb) {
+  static int at_once[kMaxDevices][kMaxGroup + 1] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_q0 = (S + kRows - 1) / kRows;
+  const double steps = static_cast<double>(B) * H * (n_q0 * (n_q0 + 1) / 2);
+  double best = 0.0;
+  *hpb = 0;
+  for (int C = G; C >= 1; --C) {
+    if (G % C != 0) continue;
+    int n = dev < kMaxDevices ? at_once[dev][C] : 0;
+    if (n == 0) {
+      err = static_cast<cudaError_t>(max_clusters<DP>(C, &n));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (dev < kMaxDevices) at_once[dev][C] = n;
+    }
+    if (n == 0) continue;
+    const double spread = steps / (static_cast<double>(C) * n);
+    const double longest = static_cast<double>(G / C) * n_q0;
+    const double est = spread > longest ? spread : longest;
+    if (*hpb == 0 || est < best) {
+      best = est;
+      *hpb = G / C;
+    }
   }
-  const int64_t n_rows = static_cast<int64_t>(B) * a.H * a.S;
-  fa_bwd_delta_kernel<<<static_cast<unsigned>((n_rows + 7) / 8), 256, 0, st>>>(a, n_rows);
+  return *hpb == 0 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
+}
+
+template <int DP>
+int launch_bwd(const CUtensorMap (&maps)[4], BwdArgs a, cudaStream_t st) {
+  cudaError_t err = bwd_smem_attr<DP>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_sm = sm_count(dev);
+  if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int e = heads_a_block<DP>(a.B, a.H, a.H / a.KH, a.S, &a.hpb);
+  if (e != 0) return e;
+  const int64_t n_rows = static_cast<int64_t>(a.B) * a.H * a.Sp;
+  const int64_t delta_rows = 256 / kDeltaLanes;  // rows a block
+  fa_bwd_delta_kernel<<<static_cast<unsigned>((n_rows + delta_rows - 1) / delta_rows), 256, 0,
+                        st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (a.S + kBwdRows - 1) / kBwdRows;
-  fa_bwd_dkdv_kernel<KS><<<dim3(n_tiles, a.KH, B), kBwdThreads, kv_smem, st>>>(a);
+  cudaLaunchAttribute cluster[1];
+  const cudaLaunchConfig_t cfg = dkdv_config<DP>(a, cluster, st);
+  err = cudaLaunchKernelEx(&cfg, fa_bwd_dkdv_kernel<DP>, maps[0], maps[1], maps[2], maps[3], a);
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fa_bwd_dq_kernel<KS><<<dim3(n_tiles, a.H, B), kBwdThreads, dq_smem, st>>>(a);
+  const int n_items = (a.S + kConsumers * kRows - 1) / (kConsumers * kRows) * a.H * a.B;
+  fa_bwd_dq_kernel<DP><<<min(n_items, n_sm), kThreads, Smem<DP>::kBytes, st>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1177,10 +1505,12 @@ extern "C" int fa_forward_lse(const void* q, const void* k, const void* v, void*
 }
 
 // The backward of causal bf16 attention with Sq == Sk == S: dq, dk, dv
-// (each at its own strides, head_dim contiguous) from q, k, v, the forward's
-// o and lse, and dout.  delta: an f32 (B, H, S) scratch.  Rows of q, k, v,
-// o and dout must be 16-byte aligned (D a multiple of 8, every stride a
-// multiple of 8 elements); D <= 128.
+// (each at its own strides, head_dim contiguous, rows 4-byte aligned) from
+// q, k, v, the forward's o and lse, and dout.  delta: an f32 scratch of
+// 2 B H Sp values, Sp = S rounded up to 64 (Delta, then lse in base 2).
+// q, k, v and dout are read through TMA, o by 16-byte loads: their rows
+// must be 16-byte aligned (D a multiple of 8, every stride a multiple of 8
+// elements); D <= 128; at most 8 query heads a KV head (one cluster).
 extern "C" int fa_backward(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, void* dq, void* dk, void* dv, const void* lse,
                            void* delta,
@@ -1193,42 +1523,82 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
                            int64_t sdkb, int64_t sdkh, int64_t sdks,
                            int64_t sdvb, int64_t sdvh, int64_t sdvs,
                            int B, int H, int KH, int S, int D, float scale, void* stream) {
-  if (D < 8 || D > kBwdMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || S < 1 || B < 1)
+  if (D < 8 || D > kBwdMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || H / KH > kMaxGroup ||
+      S < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[4];
+  if (!encode(&maps[0], q, D, H, S, B, Strides{sqb, sqh, sqs}) ||
+      !encode(&maps[1], k, D, KH, S, B, Strides{skb, skh, sks}) ||
+      !encode(&maps[2], v, D, KH, S, B, Strides{svb, svh, svs}) ||
+      !encode(&maps[3], dout, D, H, S, B, Strides{sgb, sgh, sgs}))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
   a.o = static_cast<const bf16*>(o);
   a.dout = static_cast<const bf16*>(dout);
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
-  a.sq = Strides{sqb, sqh, sqs};
-  a.sk = Strides{skb, skh, sks};
-  a.sv = Strides{svb, svh, svs};
+  a.scratch = static_cast<float*>(delta);
   a.so = Strides{sob, soh, sos};
   a.sdo = Strides{sgb, sgh, sgs};
   a.sdq = Strides{sdqb, sdqh, sdqs};
   a.sdk = Strides{sdkb, sdkh, sdks};
   a.sdv = Strides{sdvb, sdvh, sdvs};
+  a.B = B;
   a.H = H;
   a.KH = KH;
   a.S = S;
+  a.Sp = (S + kRows - 1) / kRows * kRows;
   a.D = D;
+  a.hpb = 1;  // launch_bwd chooses
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((D + 15) / 16) {
-    case 1: return launch_bwd<1>(a, B, st);
-    case 2: return launch_bwd<2>(a, B, st);
-    case 3: return launch_bwd<3>(a, B, st);
-    case 4: return launch_bwd<4>(a, B, st);
-    case 5: return launch_bwd<5>(a, B, st);
-    case 6: return launch_bwd<6>(a, B, st);
-    case 7: return launch_bwd<7>(a, B, st);
-    default: return launch_bwd<8>(a, B, st);
+    case 1: return launch_bwd<16>(maps, a, st);
+    case 2: return launch_bwd<32>(maps, a, st);
+    case 3: return launch_bwd<48>(maps, a, st);
+    case 4: return launch_bwd<64>(maps, a, st);
+    case 5: return launch_bwd<80>(maps, a, st);
+    case 6: return launch_bwd<96>(maps, a, st);
+    case 7: return launch_bwd<112>(maps, a, st);
+    default: return launch_bwd<128>(maps, a, st);
+  }
+}
+
+// *out: the clusters of C blocks of the backward's dK/dV kernel at head_dim
+// D that the current device holds at once (cudaOccupancyMaxActiveClusters
+// at the kernel's shared memory and threads).
+extern "C" int fa_backward_max_clusters(int C, int D, int* out) {
+  if (C < 1 || C > kMaxGroup || D < 8 || D > kBwdMaxD || D % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch ((D + 15) / 16) {
+    case 1: return max_clusters<16>(C, out);
+    case 2: return max_clusters<32>(C, out);
+    case 3: return max_clusters<48>(C, out);
+    case 4: return max_clusters<64>(C, out);
+    case 5: return max_clusters<80>(C, out);
+    case 6: return max_clusters<96>(C, out);
+    case 7: return max_clusters<112>(C, out);
+    default: return max_clusters<128>(C, out);
+  }
+}
+
+// *out: the query heads a dK/dV block of `fa_backward` walks at these
+// shapes on the current device (its cluster holds G / *out blocks).
+extern "C" int fa_backward_heads(int B, int H, int KH, int S, int D, int* out) {
+  if (D < 8 || D > kBwdMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || H / KH > kMaxGroup ||
+      S < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch ((D + 15) / 16) {
+    case 1: return heads_a_block<16>(B, H, H / KH, S, out);
+    case 2: return heads_a_block<32>(B, H, H / KH, S, out);
+    case 3: return heads_a_block<48>(B, H, H / KH, S, out);
+    case 4: return heads_a_block<64>(B, H, H / KH, S, out);
+    case 5: return heads_a_block<80>(B, H, H / KH, S, out);
+    case 6: return heads_a_block<96>(B, H, H / KH, S, out);
+    case 7: return heads_a_block<112>(B, H, H / KH, S, out);
+    default: return heads_a_block<128>(B, H, H / KH, S, out);
   }
 }
 

@@ -27,16 +27,24 @@ the plain version and autograd differentiates it.  A CUDA call on the route
 the dense training path needs (`GRAD_ROUTE`: bf16, causal, Sq == Sk,
 head_dim a multiple of 8 up to 128, at most `MAX_GRAD_GROUP` query heads a
 KV head) goes through `_FlashFn`: `fa_forward_lse` (the forward that also
-writes each row's log-sum-exp) and `fa_backward` (Delta, dK/dV, dQ: three
-launches, counted as one call of `flash_attention_backward`).  Any other
-route raises under grad, naming the ROADMAP item that brings its backward.
-`flash_attention_backward_plain` is the same backward in explicit formulas
-(from lse and Delta, as the kernel computes it), for the tests.
+writes each row's log-sum-exp) and `fa_backward`, three launches counted as
+one call of `flash_attention_backward`: Delta (with each row's lse in base
+2) into an f32 scratch; dK/dV, a block a (64-key tile, batch) walking one or
+more query heads, the blocks of a KV head a thread block cluster that sums
+their partial dK and dV in rank order through distributed shared memory;
+and dQ, persistent, far end of the diagonal first.  `backward_plan` is that
+launch shape in plain Python (the source computes the same numbers).  Any
+other route raises under grad, naming the ROADMAP item that brings its
+backward.  `flash_attention_backward_plain` is the same backward in
+explicit formulas (from lse and Delta, as the kernel computes it), for the
+tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +54,10 @@ from .. import _lib
 NEG_INF = -1e30
 MAX_HEAD_DIM = 192  # three 64-column panels; kMaxD in the source
 MAX_GRAD_HEAD_DIM = 128  # kBwdMaxD in the source
-MAX_GRAD_GROUP = 8
+MAX_GRAD_GROUP = 8  # kMaxGroup: the G query heads of a KV head are one portable cluster
+BWD_KEYS = 64  # kBwdKeys: keys a dK/dV block
+BWD_ROWS = 64  # kRows: query rows a tile; the scratch's rows round S up to it
+DQ_ROWS = 128  # query rows a dQ work item (two consumer warpgroups of 64)
 GRAD_ROUTE = ("bf16, causal, Sq == Sk, head_dim a multiple of 8 up to 128, at most "
               f"{MAX_GRAD_GROUP} query heads a KV head")
 # the ROADMAP entries that bring the routes without a backward kernel
@@ -139,7 +150,11 @@ _SIGNATURES = {"fa_forward": _ARGS, "fa_forward_f32": _ARGS,
                "fa_forward_lse": _ARGS[:-1] + [_P, _P],
                # q, k, v, o, dout, dq, dk, dv, lse, delta, 8 x 3 strides,
                # B, H, KH, S, D, scale, stream
-               "fa_backward": [_P] * 10 + [_L] * 24 + [_I] * 5 + [ctypes.c_float, _P]}
+               "fa_backward": [_P] * 10 + [_L] * 24 + [_I] * 5 + [ctypes.c_float, _P],
+               # C, D, the count out
+               "fa_backward_max_clusters": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+               # B, H, KH, S, D, the heads out
+               "fa_backward_heads": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]}
 # the entry point of each dtype the kernel takes
 _ENTRY = {torch.bfloat16: "fa_forward", torch.float32: "fa_forward_f32"}
 
@@ -225,19 +240,161 @@ def flash_attention_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return lse
 
 
+@dataclass(frozen=True)
+class BackwardPlan:
+    """The backward's launch shape at (B, H, KH, S) on `n_sm` SMs: each
+    dK/dV block walks `heads` query heads in turn, and the G / heads
+    blocks of a KV head form a cluster."""
+
+    B: int
+    H: int
+    KH: int
+    S: int
+    n_sm: int
+    heads: int
+
+    @property
+    def group(self) -> int:
+        """Query heads a KV head."""
+        return self.H // self.KH
+
+    @property
+    def cluster(self) -> int:
+        """dK/dV blocks a cluster."""
+        return self.group // self.heads
+
+    @property
+    def scratch_rows(self) -> int:
+        """Sp: S rounded up to a query tile, the rows of each of the
+        scratch's two (B, H, Sp) f32 planes (Delta, then lse in base 2)."""
+        return -(-self.S // BWD_ROWS) * BWD_ROWS
+
+    @property
+    def key_tiles(self) -> int:
+        return -(-self.S // BWD_KEYS)
+
+    @property
+    def dkdv_grid(self) -> tuple[int, int, int]:
+        """(H / heads, B, key tiles): blockIdx.x the block's heads (the
+        cluster's rank is x % cluster), y the batch, z the key tile."""
+        return self.H // self.heads, self.B, self.key_tiles
+
+    def dkdv_blocks(self) -> list[tuple[int, tuple[int, ...], int, int]]:
+        """(batch, query heads, key tile, steps it walks: heads x query
+        tiles) of every dK/dV block in launch order (x fastest): key tile
+        0, whose keys every query after them sees, first."""
+        G, C, n = self.group, self.cluster, self.heads
+        return [(b, tuple((x // C) * G + (x % C) * n + j for j in range(n)), kb,
+                 n * -(-(self.S - kb * BWD_KEYS) // BWD_ROWS))
+                for kb in range(self.key_tiles) for b in range(self.B)
+                for x in range(self.H // n)]
+
+    @property
+    def dq_items(self) -> int:
+        return -(-self.S // DQ_ROWS) * self.H * self.B
+
+    @property
+    def dq_grid(self) -> int:
+        """Persistent dQ blocks: one an SM, at most one an item."""
+        return min(self.dq_items, self.n_sm)
+
+    def dq_order(self) -> list[tuple[int, int, int, int]]:
+        """(batch, head, first query row, K/V tiles it walks) of every dQ
+        work item in walk order (the source's `item_at`): the far end of
+        the diagonal first; block i takes items i, i + dq_grid, ..."""
+        n_qb, hb = -(-self.S // DQ_ROWS), self.H * self.B
+        out = []
+        for w in range(self.dq_items):
+            q0 = (n_qb - 1 - w // hb) * DQ_ROWS
+            rem = w % hb
+            last = min(q0 + DQ_ROWS, self.S) - 1
+            out.append((rem // self.H, rem % self.H, q0, last // BWD_ROWS + 1))
+        return out
+
+
+@functools.lru_cache(maxsize=256)
+def backward_plan(B: int, H: int, KH: int, S: int, D: int, n_sm: int,
+                  clusters: tuple[tuple[int, int], ...] | None = None) -> BackwardPlan:
+    """The launch shape of `fa_backward` for (B, H, S, D) queries over KH KV
+    heads on a card of `n_sm` SMs; raises past `MAX_GRAD_GROUP` query heads a
+    KV head (a cluster larger than the portable 8) and off the route's
+    shapes.  `clusters`: (C, clusters of C blocks the card holds at once)
+    for the divisors C of G, as `backward_max_clusters` reads them; None
+    takes every SM as usable (n_sm // C).  The dK/dV cluster is the C that
+    minimises the launch's estimated makespan in (head, query tile) steps,
+    max(all steps / (C x clusters at once), the longest block's steps),
+    the larger C on a tie, as the source's `heads_a_block` chooses."""
+    if B < 1 or S < 1 or KH < 1 or H % KH:
+        raise ValueError(f"no backward plan for B {B}, S {S}, {H} heads over {KH}")
+    if D % 8 or not 8 <= D <= MAX_GRAD_HEAD_DIM:
+        raise ValueError(f"head_dim {D}: the backward takes multiples of 8 up to "
+                         f"{MAX_GRAD_HEAD_DIM}")
+    G = H // KH
+    if G > MAX_GRAD_GROUP:
+        raise ValueError(f"{G} query heads a KV head: a cluster holds at most "
+                         f"{MAX_GRAD_GROUP}")
+    at_once = dict(clusters) if clusters is not None else {}
+    n_q0 = -(-S // BWD_ROWS)
+    steps = float(B * H * (n_q0 * (n_q0 + 1) // 2))
+    best, heads = 0.0, 0
+    for C in range(G, 0, -1):
+        n = at_once.get(C, 0) if clusters is not None else n_sm // C
+        if G % C or n == 0:
+            continue
+        est = max(steps / (C * n), float(G // C * n_q0))
+        if heads == 0 or est < best:
+            best, heads = est, G // C
+    if heads == 0:
+        raise ValueError(f"the card holds no cluster of any divisor of {G} blocks")
+    return BackwardPlan(B, H, KH, S, n_sm, heads)
+
+
+def _divisors(n: int) -> list[int]:
+    return [c for c in range(1, n + 1) if n % c == 0]
+
+
+@functools.lru_cache(maxsize=64)
+def _clusters_at_once(G: int, D: int, device: int) -> tuple[tuple[int, int], ...]:
+    """(C, clusters of C dK/dV blocks at once) on CUDA device `device` for
+    the divisors C of G, read once."""
+    with torch.cuda.device(device):
+        return tuple((c, backward_max_clusters(c, D)) for c in _divisors(G))
+
+
 def flash_attention_backward(q, k, v, o, dout, lse, dq, dk, dv, scale: float) -> None:
     """The backward on CUDA: writes dq, dk, dv (views of their own strides)
     from (B, H, S, D) views of q, k, v, o, dout and the forward's lse."""
     B, H, S, D = q.shape
     for t in (q, k, v, o, dout):
         _check_tma(t, _strides(t), t.data_ptr())
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dev = q.device.index
+    plan = backward_plan(B, H, k.shape[1], S, D, _lib.sm_count(dev),
+                         _clusters_at_once(H // k.shape[1], D, dev))
+    scratch = torch.empty((2, B, H, plan.scratch_rows), dtype=torch.float32, device=q.device)
     lib = _lib.load("flash_attention", _SIGNATURES)
-    err = lib.fa_backward(*(t.data_ptr() for t in (q, k, v, o, dout, dq, dk, dv, lse, delta)),
+    err = lib.fa_backward(*(t.data_ptr() for t in (q, k, v, o, dout, dq, dk, dv, lse, scratch)),
                           *(x for t in (q, k, v, o, dout, dq, dk, dv) for x in _strides(t)),
                           B, H, k.shape[1], S, D, float(scale), _lib.stream_handle(q))
     _lib.check("flash_attention_backward", err)
     flash_attention_backward.launches += 1
+
+
+def backward_max_clusters(C: int, D: int) -> int:
+    """Clusters of C dK/dV blocks at head_dim D the current card holds at
+    once (`cudaOccupancyMaxActiveClusters`); 0 means the launch would fail."""
+    n = ctypes.c_int(0)
+    lib = _lib.load("flash_attention", _SIGNATURES)
+    _lib.check("fa_backward_max_clusters", lib.fa_backward_max_clusters(C, D, ctypes.byref(n)))
+    return n.value
+
+
+def backward_heads(B: int, H: int, KH: int, S: int, D: int) -> int:
+    """The query heads a dK/dV block of `fa_backward` walks at these shapes
+    on the current card, as the source chooses them."""
+    n = ctypes.c_int(0)
+    lib = _lib.load("flash_attention", _SIGNATURES)
+    _lib.check("fa_backward_heads", lib.fa_backward_heads(B, H, KH, S, D, ctypes.byref(n)))
+    return n.value
 
 
 class _FlashFn(torch.autograd.Function):

@@ -1076,7 +1076,14 @@ def test_rmsnorm_under_grad_goes_through_its_backward(cuda):
                                         (1, 8, 1, 300, 64),     # G = 8
                                         (2, 4, 2, 70, 80),      # D 80: a zero-padded k-step
                                         (1, 2, 1, 1, 32),       # one token
-                                        (3, 4, 4, 190, 40)])
+                                        (3, 4, 4, 190, 40),
+                                        (1, 5, 1, 200, 128),    # clusters of 5, 6 and 7:
+                                        (2, 12, 2, 333, 64),    # rows a rank not a power
+                                        (1, 14, 2, 257, 128),   # of two
+                                        (1, 16, 2, 1000, 128),  # G = 8, S no multiple of 64
+                                        (2, 8, 1, 50, 64),      # G = 8, S under one key tile
+                                        (1, 6, 3, 515, 40),     # D 40: one zero-padded panel
+                                        (2, 8, 2, 384, 80)])    # D 80: two panels
 def test_flash_attention_backward_kernel_matches_plain(cuda, B, H, KH, S, D):
     """The LSE forward's output equals `fa_forward`'s bit for bit and its lse
     the plain one; dq, dk and dv against the plain backward run in f32,
@@ -1102,6 +1109,64 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, B, H, KH, S, D):
                                       flash_grads_f32(q, k, v, dout), again):
         assert_grad_close(got, want, name)
         assert torch.equal(got, rerun), name
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KH,S,D", [(4, 12, 2, 1024, 128), (2, 6, 6, 200, 64)])
+def test_flash_attention_backward_replays_bit_equal_in_a_graph(cuda, B, H, KH, S, D):
+    """The backward captured in a CUDA graph (its scratch from the graph's
+    pool, its maps as kernel parameters) and replayed three times, on
+    inputs copied into the captured tensors, gives gradients bit-equal to
+    the eager call's."""
+    dtype = torch.bfloat16
+    q = _on(cuda, 100, (B, H, S, D), dtype)
+    k = _on(cuda, 101, (B, KH, S, D), dtype)
+    v = _on(cuda, 102, (B, KH, S, D), dtype)
+    dout = _on(cuda, 103, (B, H, S, D), dtype)
+    scale = D ** -0.5
+    o = torch.empty_like(q)
+    lse = fa.flash_attention_forward_lse(q, k, v, o, scale)
+    eager = [torch.empty_like(t) for t in (q, k, v)]
+    fa.flash_attention_backward(q, k, v, o, dout, lse, *eager, scale)
+    graphed = [torch.empty_like(t) for t in (q, k, v)]
+    graph = torch.cuda.CUDAGraph()
+    before = fa.flash_attention_backward.launches
+    with torch.cuda.graph(graph):
+        fa.flash_attention_backward(q, k, v, o, dout, lse, *graphed, scale)
+    assert fa.flash_attention_backward.launches == before + 1  # counted at capture
+    for i in range(3):
+        for t in graphed:
+            t.fill_(float("nan"))
+        dout.copy_(_on(cuda, 104 + i, dout.shape, dtype))
+        fa.flash_attention_backward(q, k, v, o, dout, lse, *eager, scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, got, want in zip(("dq", "dk", "dv"), graphed, eager):
+            assert torch.equal(got, want), (name, i)
+    del graph
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KH,S,D", [(4, 12, 2, 1024, 128), (2, 8, 8, 1024, 128),
+                                        (4, 8, 2, 128, 64), (1, 16, 2, 1000, 128),
+                                        (1, 14, 2, 257, 80), (3, 5, 1, 64, 40)])
+def test_flash_attention_backward_launch_follows_its_plan(cuda, B, H, KH, S, D):
+    """The query heads a dK/dV block walks, as the source chooses them from
+    the card's cluster occupancy, equal `backward_plan`'s choice from the
+    same occupancy."""
+    dev = torch.cuda.current_device()
+    plan = fa.backward_plan(B, H, KH, S, D, _lib.sm_count(dev),
+                            fa._clusters_at_once(H // KH, D, dev))
+    assert fa.backward_heads(B, H, KH, S, D) == plan.heads
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D", [128, 64])
+def test_flash_attention_backward_clusters_fit(cuda, D):
+    """At the dK/dV kernel's shared memory and threads the card holds at
+    least one cluster of every group size the route takes, 1 to 8."""
+    for G in range(1, fa.MAX_GRAD_GROUP + 1):
+        assert fa.backward_max_clusters(G, D) >= 1, G
 
 
 @pytest.mark.requires_cuda

@@ -21,6 +21,8 @@ the bound the card holds the kernels to.
   cover, naming the ROADMAP item.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -93,6 +95,71 @@ def test_rmsnorm_backward_plan():
 
 
 # ---------------------------------------------------------- flash attention
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,n_sm", [(4, 12, 2, 1024, 128, 132),  # qwen2-1.5b train
+                                             (2, 8, 8, 1024, 128, 132),   # G = 1
+                                             (4, 8, 2, 128, 64, 132),     # train_small
+                                             (2, 16, 2, 1000, 80, 132),   # G = 8, ragged S
+                                             (1, 7, 1, 70, 40, 16),       # G = 7, few SMs
+                                             (3, 5, 1, 1, 32, 132)])      # one token
+def test_flash_backward_plan_covers_each_block_once_longest_first(B, H, KH, S, D, n_sm):
+    """Every (batch, head, 64-key tile) falls in one dK/dV block, the blocks
+    launched in order of the (head, query tile) steps they walk (the causal
+    half from their first key), most first, and each aligned run of
+    `cluster` blocks the heads of one KV head; every (batch, head, 128-row
+    query block) is one dQ item, walked in order of its K/V tiles, most
+    first."""
+    G = H // KH
+    for clusters in (None, tuple((c, n_sm // (2 * c) + 1) for c in range(1, G + 1)
+                                 if G % c == 0)):
+        plan = fa.backward_plan(B, H, KH, S, D, n_sm, clusters)
+        assert plan.group == G and plan.heads * plan.cluster == G
+        assert plan.scratch_rows % 64 == 0 and S <= plan.scratch_rows < S + 64
+        blocks = plan.dkdv_blocks()
+        n_kb = -(-S // 64)
+        assert plan.dkdv_grid == (H // plan.heads, B, n_kb) and len(blocks) == math.prod(
+            plan.dkdv_grid)
+        covered = [(b, h, kb) for b, heads, kb, _ in blocks for h in heads]
+        assert sorted(covered) == [(b, h, kb) for b in range(B) for h in range(H)
+                                   for kb in range(n_kb)]
+        for _, heads, kb, steps in blocks:
+            assert steps == len(heads) * len(range(kb * 64, S, 64))  # queries >= its first key
+        assert all(x[3] >= y[3] for x, y in zip(blocks, blocks[1:]))
+        for i in range(0, len(blocks), plan.cluster):  # x fastest: a run is one cluster
+            run = blocks[i:i + plan.cluster]
+            assert len({(b, kb) for b, _, kb, _ in run}) == 1
+            assert sorted(h for _, heads, _, _ in run for h in heads) == list(
+                range(run[0][1][0] // G * G, run[0][1][0] // G * G + G))
+    items = plan.dq_order()
+    n_qb = -(-S // 128)
+    assert len(items) == plan.dq_items == B * H * n_qb
+    assert {(b, h, q0) for b, h, q0, _ in items} == {
+        (b, h, 128 * i) for b in range(B) for h in range(H) for i in range(n_qb)}
+    for b, h, q0, tiles in items:
+        assert tiles == -(-min(q0 + 128, S) // 64)  # K/V tiles up to its last row
+    assert all(x[3] >= y[3] for x, y in zip(items, items[1:]))
+    assert plan.dq_grid == min(n_sm, len(items))
+
+
+@pytest.mark.parametrize("B,H,KH,S,clusters,heads", [
+    (4, 12, 2, 1024, None, 1),                                # every SM usable: clusters of G
+    (4, 12, 2, 1024, ((1, 132), (2, 66), (3, 42), (6, 17)), 3),  # 17 x 6 fill 102 SMs
+    (1, 8, 1, 1024, ((1, 132), (2, 66), (4, 30), (8, 16)), 1),   # longer blocks would lose
+    (2, 8, 8, 512, ((1, 132),), 1)])                          # G = 1
+def test_flash_backward_plan_picks_the_cluster_by_its_makespan(B, H, KH, S, clusters, heads):
+    """The cluster is the divisor C of G whose launch is estimated to end
+    first: all steps over the SMs that clusters of C fill, or the longest
+    block's steps, whichever is more; the larger C on a tie."""
+    assert fa.backward_plan(B, H, KH, S, 128, 132, clusters).heads == heads
+
+
+@pytest.mark.parametrize("H,KH,D", [(18, 2, 128), (9, 1, 64), (12, 2, 136), (12, 2, 20)])
+def test_flash_backward_plan_raises_off_the_route(H, KH, D):
+    """Past eight query heads a KV head (a portable cluster) or off the
+    head dims the kernel takes, there is no plan."""
+    with pytest.raises(ValueError):
+        fa.backward_plan(2, H, KH, 256, D, 132)
 
 
 def _attn_inputs(dtype, B, H, KH, S, D, seed=0):
