@@ -186,6 +186,7 @@ BF16_FLOP_S = 989e12
 BF16X2_FLOP_S = BF16_FLOP_S / 2
 BF16X6_FLOP_S = BF16_FLOP_S / 6
 F32_FLOP_S = 67e12
+FLUSH_BYTES = 128 << 20  # written between calls for a cold-L2 reading (L2: 50 MB)
 
 # The backward kernels have no Pallas counterpart: the reference takes their
 # gradients with jax.grad through its plain math (the line each replaces).
@@ -224,28 +225,41 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def time_ms(fn, iters: int = 50, warmup: int = 5, cold: bool = False) -> float:
     """Mean device time of one call: `iters` calls timed by CUDA events,
     queued behind a device-side sleep so the card runs them back to back
-    (the host issues a call more slowly than the card runs these kernels;
-    inputs stay hot in L2, as they are on the serving path)."""
+    (the host issues a call more slowly than the card runs these kernels).
+    Hot (the default): inputs stay in L2 from call to call, as they are on
+    the serving path, one pair of events around all the calls.  `cold`:
+    before each call the card writes `FLUSH_BYTES`, more than its 50 MB L2
+    holds, and each call has its own pair of events; the mean of those
+    intervals (the writes outside them)."""
     import torch
 
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 + 2 * iters)]
     for attempt in range(4):
         ev[0].record()
         torch.cuda._sleep(int(2e7 * 4 ** attempt))
         ev[1].record()
         t0 = time.perf_counter()
-        for _ in range(iters):
+        for n in range(iters):
+            if cold:
+                flush.zero_()
+                ev[2 + 2 * n].record()
             fn()
+            if cold:
+                ev[3 + 2 * n].record()
         host_ms = (time.perf_counter() - t0) * 1e3
-        ev[2].record()
-        ev[2].synchronize()
+        if not cold:
+            ev[2].record()
+        ev[-1 if cold else 2].synchronize()
         if ev[0].elapsed_time(ev[1]) > 1.1 * host_ms:  # the queue never ran dry
+            if cold:
+                return sum(ev[2 + 2 * n].elapsed_time(ev[3 + 2 * n]) for n in range(iters)) / iters
             return ev[1].elapsed_time(ev[2]) / iters
     raise RuntimeError("the host could not queue the timed calls ahead of the card")
 
@@ -323,16 +337,24 @@ def phase_build(parent) -> None:
 
 
 def kernel_label(mangled: str) -> str:
-    """A kernel's name and first template argument from its mangled name
-    (`_Z<len><name>`, or inside an anonymous namespace `..._cu_<8 hex><len>
-    <name>`), for the build lines; the mangled name where neither fits."""
+    """A kernel's name and leading template arguments (types float and
+    bf16, integers, booleans) from its mangled name (`_Z<len><name>`, or
+    inside an anonymous namespace `..._cu_<8 hex><len><name>`), for the
+    build lines; the mangled name where neither fits."""
     m = (re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
          or re.match(r"_Z(\d+)(\w+)", mangled))
     if m is None:
         return mangled
     n, rest = int(m.group(1)), m.group(2)
-    arg = re.match(r"IL?i(\d+)E", rest[n:])
-    return rest[:n] + (f"<{arg.group(1)}>" if arg else "")
+    name, tail = rest[:n], rest[n:]
+    if not tail.startswith("I"):
+        return name
+    args, tail = [], tail[1:]
+    for tok in iter(lambda: re.match(r"Li(\d+)E|Lb([01])E|f|13__nv_bfloat16", tail), None):
+        args.append(tok.group(1) or {"0": "false", "1": "true"}.get(tok.group(2))
+                    or ("float" if tok.group(0) == "f" else "bf16"))
+        tail = tail[tok.end():]
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 # ----------------------------------------------------------------- phase 2
@@ -374,7 +396,7 @@ def phase_kernels(dev, parent) -> dict:
 
     res["decode_attention"] = check_decode_attention(dev, g, err, parent)
     res["ssd_scan"] = check_ssd_scan(dev, g, err, parent)
-    res["rmsnorm_backward"] = check_rmsnorm_backward(dev, g)
+    res["rmsnorm_backward"] = check_rmsnorm_backward(dev, g, parent)
     res["flash_attention_forward_lse"], res["flash_attention_backward"] = \
         check_flash_backward(dev, g, parent)
     for name, r in res.items():
@@ -623,8 +645,8 @@ def check_flash_attention(dev, g, err, parent) -> dict:
             f"{r['library_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; "
             f"max|err| {r['max_abs_err']:.3g}; bit-equal to the (B, H, S, D) copies")
         shapes.append(r)
-    shapes.append(check_flash_f32(dev, g, err))
-    shapes += check_flash_models(dev, g, err)
+    shapes.append(check_flash_f32(dev, g, err, parent))
+    shapes += check_flash_models(dev, g, err, parent)
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
 
 
@@ -668,16 +690,19 @@ def grad_shapes_flash() -> list[tuple[str, int, int, int, int, int]]:
             ("train_small train", SB // ACCUM, SS, small.n_heads, small.kv_heads, small.hd)]
 
 
-def check_rmsnorm_backward(dev, g) -> dict:
+def check_rmsnorm_backward(dev, g, parent) -> dict:
     """`rmsnorm_backward` at `grad_shapes_rmsnorm`: dx and dw against the
     plain backward run in f32 from the same bf16 inputs, each within
     GRAD_TOL of that result's max |value| (the plain backward in bf16,
     autograd through the plain forward, logged beside it); bit-equal run to
-    run; timed beside its bound, the plain backward and F.rms_norm's
-    backward.  The line's numbers are the train shape's."""
+    run; timed (hot L2; under `--parent` in turns with the other tree's)
+    beside its bound, the plain backward and F.rms_norm's backward, and at
+    qwen2-1.5b's rows also with a cold L2 (`time_ms(cold=True)`), the
+    library's too.  The line's numbers are the train shape's."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.rmsnorm import ops as rn
     from repro_torch.testing.parity import GRAD_TOL, assert_grad_close, grad_gap
 
@@ -699,23 +724,36 @@ def check_rmsnorm_backward(dev, g) -> dict:
         plain_gaps = [grad_gap(a, b) for a, b in zip(plain_bf16, want)]
         yl = F.rms_norm(xr, (D,), wr, 1e-5)
         b_ms, b_by = bound_ms(3 * N * D * 2 + 2 * D * 2, (10.0 * N * D, F32_FLOP_S))
+        lanes, vpt, threads = rn.backward_shape(D, 2)
+        plan = rn.backward_plan(N, D, 2, _lib.sm_count(dev.index), rn.backward_blocks_per_sm(
+            D, _lib.dtype_code(x), lanes, vpt, int(rn.vector_loads(x, w, x)), threads, dev.index))
+        ms, parent_ms = paired_ms(lambda m: m.rmsnorm_backward(x, w, dy), rn, parent)
+
+        def lib_call():
+            torch.autograd.grad(yl, (xr, wr), dy, retain_graph=True)
+
         r = dict(shape=[N, D], what=what, max_abs_err=max(gaps), tol=GRAD_TOL,
-                 ms=time_ms(lambda: rn.rmsnorm_backward(x, w, dy)), parent_ms=None,
+                 ms=ms, parent_ms=parent_ms,
                  # ten calls: fifty of these chains of small kernels would fill
                  # the launch queue behind the device sleep
                  plain_ms=time_ms(lambda: rn.rmsnorm_backward_plain(x, w, dy), iters=10,
                                   warmup=2),
-                 bound_ms=b_ms, bound_by=b_by,
-                 library_ms=time_ms(lambda: torch.autograd.grad(yl, (xr, wr), dy,
-                                                                retain_graph=True), iters=10),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib_call, iters=10),
                  host_ms=host_ms(lambda: rn.rmsnorm_backward(x, w, dy)),
-                 plan=list(rn.backward_plan(N, D, 2, torch.cuda.get_device_properties(
-                     dev).multi_processor_count)))
-        log(f"[kernels] rmsnorm_backward at the {what} shape ({N}, {D}) bf16, {r['plan'][0]} "
-            f"blocks, {r['plan'][1]} dw partial rows: {r['ms'] * 1e3:.3f} us vs bound "
-            f"{b_ms * 1e3:.3f} us ({b_by}), F.rms_norm backward {r['library_ms'] * 1e3:.3f} us, "
-            f"plain {r['plain_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; "
-            f"dx, dw within {gaps[0]:.3g}, {gaps[1]:.3g} of the f32 plain backward's max "
+                 plan=list(plan))
+        cold = ""
+        if what == train_rows()[0]:
+            r.update(cold_ms=time_ms(lambda: rn.rmsnorm_backward(x, w, dy), iters=20, cold=True),
+                     library_cold_ms=time_ms(lib_call, iters=10, cold=True))
+            cold = (f"; cold L2 {r['cold_ms'] * 1e3:.3f} us, F.rms_norm backward "
+                    f"{r['library_cold_ms'] * 1e3:.3f} us")
+        log(f"[kernels] rmsnorm_backward at the {what} shape ({N}, {D}) bf16, one cooperative "
+            f"launch of {plan.grid} blocks of {plan.threads} threads, {plan.lanes} lanes x "
+            f"{plan.vectors} vectors a row, {plan.partial_rows} dw partial rows: "
+            f"{ms * 1e3:.3f} us{vs_parent(parent_ms)} vs bound {b_ms * 1e3:.3f} us ({b_by}), "
+            f"F.rms_norm backward {r['library_ms'] * 1e3:.3f} us, plain "
+            f"{r['plain_ms'] * 1e3:.3f} us (hot L2){cold}; host {r['host_ms'] * 1e3:.3f} us a "
+            f"call; dx, dw within {gaps[0]:.3g}, {gaps[1]:.3g} of the f32 plain backward's max "
             f"|value| (tol {GRAD_TOL}; the plain backward in bf16: {plain_gaps[0]:.3g}, "
             f"{plain_gaps[1]:.3g}); bit-equal run to run")
         shapes.append(r)
@@ -847,13 +885,15 @@ FLASH_F32_SHAPES = ((2, 4, 2, 256, 64), (1, 8, 8, 128, 128), (2, 6, 2, 384, 128)
                     (1, 2, 1, 512, 64))
 
 
-def check_flash_f32(dev, g, err) -> dict:
+def check_flash_f32(dev, g, err, parent) -> dict:
     """The f32 route (CUDA-core FMAs): held to the plain version in f32
     (TF32 off) at 3e-5, tests/test_kernels.py's f32 bound, at that file's
     four shapes and non-causal at (1, 4, 256, 64), with bf16 non-causal at
     `attn_tol`; then timed in the model layout at the serve shape (8, 128,
-    32, 80), the shape phase 5's f32 witness prefills stablelm-3b at.
-    Returns the shapes entry of that time."""
+    32, 80), the shape phase 5's f32 witness prefills stablelm-3b at (hot
+    L2, under `--parent` in turns with the other tree's; and with a cold
+    L2, SDPA's too), with its launch plan against the source's.  Returns
+    the shapes entry of that time."""
     import torch
     import torch.nn.functional as F
 
@@ -887,19 +927,34 @@ def check_flash_f32(dev, g, err) -> dict:
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **tol(f32))
     worst = max(worst, err(got, want))
+    plan = fa.f32_plan(S, HD, HD)
+    if fa.f32_plan_on_card(S, HD, HD) != (plan.rows, plan.keys, plan.stages, plan.smem,
+                                          plan.v_chunks):
+        raise AssertionError(f"flash_attention f32: the source launches "
+                             f"{fa.f32_plan_on_card(S, HD, HD)}, its plan is {plan}")
     pairs = B * H * S * (S + 1) / 2
     b_ms, b_by = bound_ms(4 * B * S * H * HD * 4, (4.0 * pairs * HD, F32_FLOP_S))
+    ms, parent_ms = paired_ms(lambda m: m.attention_bthd(q, k, v), fa, parent)
+
+    def sdpa():
+        F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
     r = dict(
         shape=[B, S, H, HD], what="serve shape in f32 (phase 5's f32 witness)", dtype="f32",
-        max_abs_err=worst, tol=tol(f32), ms=time_ms(lambda: fa.attention_bthd(q, k, v)),
-        parent_ms=None, plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vh)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)),
-        host_ms=host_ms(lambda: fa.attention_bthd(q, k, v)))
+        max_abs_err=worst, tol=tol(f32), ms=ms, parent_ms=parent_ms,
+        cold_ms=time_ms(lambda: fa.attention_bthd(q, k, v), iters=20, cold=True),
+        plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vh)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(sdpa),
+        library_cold_ms=time_ms(sdpa, iters=20, cold=True),
+        host_ms=host_ms(lambda: fa.attention_bthd(q, k, v)),
+        plan=[plan.rows, plan.keys, plan.stages, plan.smem, plan.v_chunks])
     log(f"[kernels] flash_attention f32 at the serve shape (B, T, H, D) = ({B}, {S}, {H}, "
-        f"{HD}): {r['ms'] * 1e3:.3f} us vs bound {b_ms * 1e3:.3f} us ({b_by}), plain "
-        f"{r['plain_ms'] * 1e3:.3f} us, SDPA f32 {r['library_ms'] * 1e3:.3f} us; host "
-        f"{r['host_ms'] * 1e3:.3f} us a call; worst f32 max|err| {worst:.3g} (tol {tol(f32)})")
+        f"{HD}), {plan.rows} rows a block, {plan.keys}-key tiles, {plan.smem} B of shared "
+        f"memory: {ms * 1e3:.3f} us{vs_parent(parent_ms)} vs bound {b_ms * 1e3:.3f} us "
+        f"({b_by}), plain {r['plain_ms'] * 1e3:.3f} us, SDPA f32 {r['library_ms'] * 1e3:.3f} us "
+        f"(hot L2); cold L2 {r['cold_ms'] * 1e3:.3f} us, SDPA f32 "
+        f"{r['library_cold_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; worst "
+        f"f32 max|err| {worst:.3g} (tol {tol(f32)})")
     return r
 
 
@@ -975,15 +1030,16 @@ def flash_bound(B, Sq, Sk, H, KH, D, Dv, causal, esize, peak) -> tuple[float, st
     return bound_ms(nbytes, (2.0 * B * H * pairs * (D + Dv), peak))
 
 
-def check_flash_models(dev, g, err) -> list[dict]:
+def check_flash_models(dev, g, err, parent) -> list[dict]:
     """Flash attention at `flash_model_shapes` in the model layout, bf16 and
-    f32 (TF32 off), each against its plain version (bf16 at `attn_tol`,
-    bit-equal to the (B, H, S, D) copies; f32 at 3e-5), and each timed
+    f32 (TF32 off), each against its plain version (bf16 at `attn_tol`; f32
+    at 3e-5) and bit-equal to the (B, H, S, D) copies, and each timed
     beside its bound, its plain version and SDPA (top-left causal, as
-    `is_causal` aligns it).  Where v is narrower than q and k (MLA), the
-    wrapper pads it to D inside the timed call, the plain version and the
-    (B, H, S, D) copy take it padded, and SDPA takes it as it is (its value
-    head_dim Ev may differ from q's)."""
+    `is_causal` aligns it); the f32 rows under `--parent` in turns with the
+    other tree's.  Where v is narrower than q and k (MLA), the bf16 wrapper
+    pads it to D inside the timed call and the f32 kernel reads it as it is;
+    the plain version and the (B, H, S, D) copy take it padded, and SDPA
+    takes it as it is (its value head_dim Ev may differ from q's)."""
     import torch
     import torch.nn.functional as F
 
@@ -1011,11 +1067,15 @@ def check_flash_models(dev, g, err) -> list[dict]:
                                      BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S)
             gqa = {"enable_gqa": True} if H != KH else {}
             iters = 50 if B * H * Sq * Sk < 2 ** 28 else 10
+            if dtype == torch.float32:
+                ms, parent_ms = paired_ms(lambda m: m.attention_bthd(q, k, v, causal=causal),
+                                          fa, parent, iters=iters)
+            else:
+                ms = time_ms(lambda: fa.attention_bthd(q, k, v, causal=causal), iters=iters)
+                parent_ms = None
             r = dict(
                 shape=[B, Sq, Sk, H, KH, D, Dv], what=what, dtype=name, causal=causal,
-                max_abs_err=err(got, want), tol=bound,
-                ms=time_ms(lambda: fa.attention_bthd(q, k, v, causal=causal), iters=iters),
-                parent_ms=None,
+                max_abs_err=err(got, want), tol=bound, ms=ms, parent_ms=parent_ms,
                 plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vp, causal=causal),
                                  iters=min(iters, 10), warmup=2),
                 bound_ms=b_ms, bound_by=b_by,
@@ -1025,7 +1085,8 @@ def check_flash_models(dev, g, err) -> list[dict]:
             log(f"[kernels] flash_attention {name} at the {what} shape q ({B}, {Sq}, {H}, {D}), "
                 f"k ({B}, {Sk}, {KH}, {D}), v ({B}, {Sk}, {KH}, {Dv}), "
                 f"{'causal' if causal else 'non-causal'}: "
-                f"{r['ms'] * 1e3:.3f} us vs bound {b_ms * 1e3:.3f} us ({b_by}), plain "
+                f"{r['ms'] * 1e3:.3f} us{vs_parent(parent_ms)} vs bound {b_ms * 1e3:.3f} us "
+                f"({b_by}), plain "
                 f"{r['plain_ms'] * 1e3:.3f} us, SDPA {r['library_ms'] * 1e3:.3f} us; host "
                 f"{r['host_ms'] * 1e3:.3f} us a call; max|err| {r['max_abs_err']:.3g} (tol "
                 f"{bound}); bit-equal to the (B, H, S, D) copies")

@@ -443,35 +443,64 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 //
 // f32 q, k and v (the Pallas kernel's f32 instance, held at 3e-5): CUDA-core
 // f32 FMAs, since TF32 (10 mantissa bits) and two bf16 parts (~16) both miss
-// that bound.  A block takes 64 query rows of one (head, batch), four
-// threads a row: a thread keeps q and the accumulator of every fourth
-// 4-column chunk of the row in registers (columns 16 m + 4 t .. + 3 for
-// thread t), so the four read 64 contiguous bytes of a K or V row and the
-// 16 rows of a warp read the same ones (a broadcast).  K/V tiles of 16 keys
-// of the row's KV head stream through a three-stage ring in shared memory
-// (48 KB at D = 128; 72 KB at D = 192, past the 48 KB a launch has
-// without opting in, so `launch_f32` sets the attribute for the instances
-// that may need it) by 16-byte `cp.async` where
-// the tensors allow it, 4-byte copies else; keys past Sk are zero-filled.  A
-// score is the thread's partial dot product summed over the four threads by
-// two shuffles; the online softmax keeps f32 m, l and the accumulator, in
-// base 2 with the scale folded into log2(e), as the bf16 route does.
-// Tiles past the block's last row are skipped under the causal mask.
+// that bound.  Bound on the card: operations at the model shapes (67 TFLOP/s
+// of f32 FMAs), so the design is an SGEMM's: FA2's loop with register-tiled
+// micro-kernels on the CUDA cores.
+//  - A block of 256 threads takes 128 query rows of one (head, batch), or 64
+//    when Sq <= 64 (seamless's cross-attention: 33 rows).  Warp w owns the
+//    4 TM rows from 4 TM w on; its lane (ty, tx) (ty = lane / 8, tx = lane
+//    % 8) owns rows ty + 4 i of them (TM of them), keys tx + 8 u of each
+//    K/V tile (TN of them) and the 4-column chunks tx + 8 m of the output
+//    (CV of them).
+//  - Q is copied once into shared memory; K and V tiles of 64 keys (32 past
+//    head_dim 128) stream through a three-buffer ring by `cp.async` (16-byte
+//    copies where the rows are 16-byte aligned, 4-byte ones else, zeros past
+//    Sk and past D), in the order K_0, V_0, K_1, ...: item n + 2 is issued
+//    as item n starts, after the one barrier an item takes.
+//  - S = Q.K^T: for each 4-column chunk of head_dim a thread reads TM rows
+//    of Q and TN rows of K as float4s and does TM x TN x 4 FMAs (128 for 12
+//    loads at TM 4, TN 8).  Rows in shared memory are an odd number of
+//    16-byte chunks apart, so the 4 rows (or 8 keys) a warp reads at once
+//    fall on distinct banks.
+//  - The online softmax works on the thread's TM x TN scores, in base 2
+//    with the scale folded into log2(e): the row max is reduced over the
+//    8 lanes of a row (three shuffles a row, once a tile); each lane keeps
+//    its own partial row sum, reduced once at the end.  Only tiles that
+//    reach past Sk or above the causal diagonal are masked, and a warp
+//    whose rows all lie above a tile's first key skips the tile.
+//  - O += P.V: P goes through shared memory in f32 (the rows of a warp are
+//    written and read by that warp only: a __syncwarp, no block barrier),
+//    and each thread accumulates its TM x 4 CV slab of O in registers,
+//    reading float4s of P (TM) and of V (CV a key).  v is read at its own
+//    width Dv (MLA's 128 beside q and k of 192): nothing is padded.
+//  - Work items in launch order: the query tiles with the most K/V tiles
+//    first (far end of the causal diagonal), heads of one KV head adjacent.
+// Shared memory: Q (rows x stride), the ring (3 x keys x stride), P (rows x
+// (keys + 8)): 201 KB at D = 128, 192 KB at D = 192; one block an SM.
+// `ops.f32_plan` computes the same launch shape in Python
+// (`fa_forward_f32_plan` reports the source's, for a card test).
 
-constexpr int kF32Rows = 64;                       // query rows a block
-constexpr int kF32Quad = 4;                        // threads a query row
-constexpr int kF32Threads = kF32Rows * kF32Quad;
-constexpr int kF32Keys = 16;                       // keys a K/V tile
-constexpr int kF32Stages = 3;                      // ring depth
+constexpr int kF32Threads = 256;
+constexpr int kF32Lanes = 8;                             // threads of a query row
+constexpr int kF32Groups = kF32Threads / kF32Lanes;      // row groups: 32
+constexpr int kF32Stages = 3;                            // ring buffers
+constexpr int kF32SmallSq = 64;                          // Sq up to this: 64 rows a block
 
 struct F32Args {
   const float *q, *k, *v;
   float* o;
   Strides sq, sk, sv, so;
-  int H, KH, Sq, Sk, D, Dp;  // Dp: D rounded up to 4, the row length in shared memory
+  int H, KH, B, Sq, Sk, D, Dv;
+  int Dp, DVp;     // D and Dv rounded up to 4
+  int qs, vs;      // shared-memory row strides (floats) of Q and K, and of V
   float scale_log2;
   int causal;
+  int n_qt;        // query tiles
+  int flags;       // 16-byte rows: bit 0 q, 1 k, 2 v, 3 o
 };
+
+// a row stride of Dp floats rounded up to an odd number of 16-byte chunks
+constexpr int f32_stride(int dp) { return ((dp / 4) | 1) * 4; }
 
 // VB bytes from global to shared memory; src_bytes 0 fills zeros, reading nothing
 template <int VB>
@@ -493,131 +522,229 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// NC: 4-column chunks a thread owns (ceil(Dp / 16), or 12 for any Dp in
-// (128, 192]: the chunks past Dp are skipped); VB: the cp.async width
-template <int NC, int VB>
-__global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const F32Args a) {
-  extern __shared__ __align__(16) float ring[];
-  const int tile = gridDim.x - 1 - blockIdx.x;  // the far end of the diagonal first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (a.H / a.KH);
-  const int t = threadIdx.x % kF32Quad;
-  const int qi = tile * kF32Rows + threadIdx.x / kF32Quad;  // this thread's query row
-  const int D = a.D, Dp = a.Dp;
-  const int n_keys = a.causal ? min(a.Sk, (tile + 1) * kF32Rows) : a.Sk;
-  const int n_tiles = (n_keys + kF32Keys - 1) / kF32Keys;
-  const float* kb = a.k + b * a.sk.b + kh * a.sk.h;
-  const float* vb = a.v + b * a.sv.b + kh * a.sv.h;
-  const int stage_floats = 2 * kF32Keys * Dp;
+// `rows` rows of a tile into shared memory at `dst` (row stride `stride`
+// floats), each row `cols` floats of global memory (padded to `cols_p`, a
+// multiple of 4, with zeros), rows from `valid` on zero-filled.  vec:
+// 16-byte copies (every row 16-byte aligned and cols == cols_p).
+__device__ __forceinline__ void f32_tile(uint32_t dst, int stride, const float* src,
+                                         int64_t src_stride, int rows, int valid, int cols,
+                                         int cols_p, bool vec) {
+  const int chunks = cols_p / 4;
+  for (int idx = threadIdx.x; idx < rows * chunks; idx += kF32Threads) {
+    const int r = idx / chunks, c = (idx - r * chunks) * 4;
+    const bool ok = r < valid;
+    const float* p = src + (ok ? r : 0) * src_stride;
+    const uint32_t d = dst + (r * stride + c) * 4;
+    if (vec) {
+      cp_async<16>(d, p + c, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = ok && c + e < cols;
+        cp_async<4>(d + 4 * e, p + (in ? c + e : 0), in ? 4 : 0);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// TM: query rows a thread (rows a block 32 TM); TN: keys a thread (keys a
+// tile 8 TN); CV: 4-column output chunks a thread (Dv <= 32 CV)
+template <int TM, int TN, int CV>
+__global__ void __launch_bounds__(kF32Threads, 1) flash_f32_kernel(const F32Args a) {
+  constexpr int kBr = kF32Groups * TM;
+  constexpr int kBc = kF32Lanes * TN;
+  constexpr int kPs = kBc + 8;  // P's row stride: 4 rows of a warp on distinct banks
+  extern __shared__ __align__(16) float f32_smem[];
+  float* qsm = f32_smem;
+  float* ring = qsm + kBr * a.qs;
+  float* psm = ring + kF32Stages * kBc * a.qs;
+  const uint32_t q_addr = static_cast<uint32_t>(__cvta_generic_to_shared(qsm));
   const uint32_t ring_addr = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
 
-  auto issue = [&](int c) {
-    constexpr int E = VB / 4;  // floats a copy
-    const uint32_t ks = ring_addr + (c % kF32Stages) * stage_floats * 4;
-    const uint32_t vs = ks + kF32Keys * Dp * 4;
-    const int pieces = Dp / E;
-    for (int idx = threadIdx.x; idx < kF32Keys * pieces; idx += kF32Threads) {
-      const int r = idx / pieces, col = (idx - r * pieces) * E;
-      const int j = c * kF32Keys + r;
-      const bool ok = j < n_keys && col < D;
-      const int64_t jj = ok ? j : 0;
-      const int cc = ok ? col : 0;
-      const uint32_t off = (r * Dp + col) * 4;
-      cp_async<VB>(ks + off, kb + jj * a.sk.s + cc, ok ? VB : 0);
-      cp_async<VB>(vs + off, vb + jj * a.sv.s + cc, ok ? VB : 0);
-    }
-  };
-  // every stage full from the start; a stage is refilled as soon as its tile
-  // is used (one commit group a tile)
-#pragma unroll
-  for (int c = 0; c < kF32Stages; ++c) {
-    if (c < n_tiles) issue(c);
-    cp_async_commit();
-  }
+  const int hb = a.H * a.B;
+  const int q0 = (a.n_qt - 1 - static_cast<int>(blockIdx.x) / hb) * kBr;
+  const int rem = blockIdx.x % hb;
+  const int h = rem % a.H, b = rem / a.H;
+  const int kh = h / (a.H / a.KH);
+  const int row_end = min(q0 + kBr, a.Sq);
+  const int n_keys = a.causal ? min(a.Sk, row_end) : a.Sk;
+  const int n_tiles = (n_keys + kBc - 1) / kBc;
+  constexpr int kWarpRows = kBr / (kF32Threads / 32);  // 4 TM
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int tx = lane % kF32Lanes;
+  const int ty = warp * kWarpRows + lane / kF32Lanes;  // row i of the thread: ty + 4 i
+  const int warp_last = q0 + warp * kWarpRows + kWarpRows - 1;
+  const float* kb = a.k + b * a.sk.b + kh * a.sk.h;
+  const float* vb = a.v + b * a.sv.b + kh * a.sv.h;
 
-  float qr[NC][4], acc[NC][4];
-  const float* qrow = a.q + b * a.sq.b + h * a.sq.h + static_cast<int64_t>(qi) * a.sq.s;
+  // item n: K of tile n / 2 (n even) or its V, into ring buffer n % 3
+  auto issue = [&](int n) {
+    const int j0 = (n / 2) * kBc;
+    const uint32_t dst = ring_addr + (n % kF32Stages) * kBc * a.qs * 4;
+    if (n % 2 == 0)
+      f32_tile(dst, a.qs, kb + j0 * a.sk.s, a.sk.s, kBc, n_keys - j0, a.D, a.Dp, a.flags & 2);
+    else
+      f32_tile(dst, a.vs, vb + j0 * a.sv.s, a.sv.s, kBc, n_keys - j0, a.Dv, a.DVp, a.flags & 4);
+  };
+  f32_tile(q_addr, a.qs, a.q + b * a.sq.b + h * a.sq.h + static_cast<int64_t>(q0) * a.sq.s,
+           a.sq.s, kBr, a.Sq - q0, a.D, a.Dp, a.flags & 1);
+  issue(0);
+  cp_async_commit();  // group 0: Q and K_0
+  issue(1);
+  cp_async_commit();  // group 1: V_0
+  // at item n, groups 0..n+1 are committed: wait for n, and once every
+  // thread is past item n - 1, refill its buffer with item n + 2
+  auto stage = [&](int n) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (n + 2 < 2 * n_tiles) issue(n + 2);
+    cp_async_commit();
+  };
+
+  float4 acc[TM][CV];
+  float m_run[TM], l_run[TM];
 #pragma unroll
-  for (int m = 0; m < NC; ++m) {
+  for (int i = 0; i < TM; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 16 * m + 4 * t + e;
-      qr[m][e] = qi < a.Sq && col < D ? qrow[col] : 0.0f;
-      acc[m][e] = 0.0f;
-    }
+    for (int m = 0; m < CV; ++m) acc[i][m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  float mrow = kNegInf, lrow = 0.0f;
+  const int nvc = a.DVp / 4;  // v's 4-column chunks
 
   for (int c = 0; c < n_tiles; ++c) {
-    cp_async_wait<kF32Stages - 1>();  // tile c has landed
-    __syncthreads();
-    const float* ks = ring + (c % kF32Stages) * stage_floats;
-    const float* vs = ks + kF32Keys * Dp;
-    const int j0 = c * kF32Keys;
-    float s[kF32Keys];
-    float mx = kNegInf;
+    const int j0 = c * kBc;
+    // ------------------------------------------------ S = Q K^T (TM x TN)
+    stage(2 * c);
+    // every key of the tile above every row of this warp: nothing to add
+    const bool skip = a.causal && j0 > warp_last;
+    const float* ks = ring + ((2 * c) % kF32Stages) * kBc * a.qs;
+    float s[TM][TN];
 #pragma unroll
-    for (int u = 0; u < kF32Keys; ++u) {
-      float dot = 0.0f;
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int m = 0; m < NC; ++m) {
-        const int col = 16 * m + 4 * t;
-        if (col < Dp) {
-          const float4 kk = *reinterpret_cast<const float4*>(ks + u * Dp + col);
-          dot = fmaf(qr[m][0], kk.x, dot);
-          dot = fmaf(qr[m][1], kk.y, dot);
-          dot = fmaf(qr[m][2], kk.z, dot);
-          dot = fmaf(qr[m][3], kk.w, dot);
-        }
-      }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int j = j0 + u;
-      const bool ok = j < a.Sk && (!a.causal || j <= qi);
-      s[u] = ok ? dot * a.scale_log2 : kNegInf;
-      mx = fmaxf(mx, s[u]);
-    }
-    const float m_new = fmaxf(mrow, mx);
-    const float corr = exp2f(mrow - m_new);
+      for (int u = 0; u < TN; ++u) s[i][u] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < (skip ? 0 : a.Dp); d += 4) {
+      float4 qv[TM];
 #pragma unroll
-    for (int m = 0; m < NC; ++m)
+      for (int i = 0; i < TM; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qsm + (ty + 4 * i) * a.qs + d);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][e] *= corr;
-    float psum = 0.0f;
+      for (int u = 0; u < TN; ++u) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + (tx + kF32Lanes * u) * a.qs + d);
 #pragma unroll
-    for (int u = 0; u < kF32Keys; ++u) {
-      const float p = s[u] > kNegInf ? exp2f(s[u] - m_new) : 0.0f;
-      psum += p;
-#pragma unroll
-      for (int m = 0; m < NC; ++m) {
-        const int col = 16 * m + 4 * t;
-        if (col < Dp) {
-          const float4 vv = *reinterpret_cast<const float4*>(vs + u * Dp + col);
-          acc[m][0] = fmaf(p, vv.x, acc[m][0]);
-          acc[m][1] = fmaf(p, vv.y, acc[m][1]);
-          acc[m][2] = fmaf(p, vv.z, acc[m][2]);
-          acc[m][3] = fmaf(p, vv.w, acc[m][3]);
+        for (int i = 0; i < TM; ++i) {
+          s[i][u] = fmaf(qv[i].x, kv.x, s[i][u]);
+          s[i][u] = fmaf(qv[i].y, kv.y, s[i][u]);
+          s[i][u] = fmaf(qv[i].z, kv.z, s[i][u]);
+          s[i][u] = fmaf(qv[i].w, kv.w, s[i][u]);
         }
       }
     }
-    lrow = lrow * corr + psum;
-    mrow = m_new;
-    __syncthreads();  // every thread is done with this stage before it is refilled
-    if (c + kF32Stages < n_tiles) issue(c + kF32Stages);
-    cp_async_commit();
+    // ---------------------------------------------------- online softmax
+    const bool masked = j0 + kBc > a.Sk || (a.causal && j0 + kBc - 1 > q0);
+    if (!skip) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = ty + 4 * i;
+        float mx = kNegInf;
+#pragma unroll
+        for (int u = 0; u < TN; ++u) {
+          float x = s[i][u] * a.scale_log2;
+          if (masked) {
+            const int j = j0 + tx + kF32Lanes * u;
+            if (j >= a.Sk || (a.causal && j > q0 + r)) x = kNegInf;
+          }
+          s[i][u] = x;
+          mx = fmaxf(mx, x);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float m_new = fmaxf(m_run[i], mx);
+        const float corr = exp2f(m_run[i] - m_new);
+        m_run[i] = m_new;
+        float ls = 0.0f;
+#pragma unroll
+        for (int u = 0; u < TN; ++u) {
+          const float p = s[i][u] > kNegInf ? exp2f(s[i][u] - m_new) : 0.0f;
+          ls += p;
+          psm[r * kPs + tx + kF32Lanes * u] = p;
+        }
+        l_run[i] = l_run[i] * corr + ls;
+#pragma unroll
+        for (int m = 0; m < CV; ++m) {
+          acc[i][m].x *= corr;
+          acc[i][m].y *= corr;
+          acc[i][m].z *= corr;
+          acc[i][m].w *= corr;
+        }
+      }
+    }
+    __syncwarp();  // this warp's rows of P are written
+    // ------------------------------------------------------ O += P V
+    stage(2 * c + 1);
+    const float* vs = ring + ((2 * c + 1) % kF32Stages) * kBc * a.qs;
+#pragma unroll 4
+    for (int j = 0; j < (skip ? 0 : kBc); j += 4) {
+      float4 pv[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(psm + (ty + 4 * i) * kPs + j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vrow = vs + (j + e) * a.vs;
+#pragma unroll
+        for (int m = 0; m < CV; ++m) {
+          const int ch = tx + kF32Lanes * m;
+          if (m < CV - 1 || ch < nvc) {
+            const float4 vv = *reinterpret_cast<const float4*>(vrow + 4 * ch);
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+              const float p = f4_at(pv[i], e);
+              acc[i][m].x = fmaf(p, vv.x, acc[i][m].x);
+              acc[i][m].y = fmaf(p, vv.y, acc[i][m].y);
+              acc[i][m].z = fmaf(p, vv.z, acc[i][m].z);
+              acc[i][m].w = fmaf(p, vv.w, acc[i][m].w);
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();  // this warp's reads of P are done before the next tile writes it
   }
   cp_async_wait<0>();
 
-  if (qi < a.Sq) {
-    const float den = fmaxf(lrow, 1e-30f);
+  const bool vec_o = a.flags & 8;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    const int qi = q0 + ty + 4 * i;
+    if (qi >= a.Sq) continue;
+    const float den = fmaxf(l, 1e-30f);
     float* orow = a.o + b * a.so.b + h * a.so.h + static_cast<int64_t>(qi) * a.so.s;
 #pragma unroll
-    for (int m = 0; m < NC; ++m)
+    for (int m = 0; m < CV; ++m) {
+      const int col = 4 * (tx + kF32Lanes * m);
+      if (col >= a.Dv) continue;
+      const float4 r = make_float4(acc[i][m].x / den, acc[i][m].y / den, acc[i][m].z / den,
+                                   acc[i][m].w / den);
+      if (vec_o) {
+        *reinterpret_cast<float4*>(orow + col) = r;
+      } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 16 * m + 4 * t + e;
-        if (col < D) orow[col] = acc[m][e] / den;
+        for (int e = 0; e < 4; ++e)
+          if (col + e < a.Dv) orow[col + e] = f4_at(r, e);
       }
+    }
   }
 }
 
@@ -701,36 +828,67 @@ int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int Sq, int Sk, f
   return static_cast<int>(cudaGetLastError());
 }
 
-// the ring's most shared memory at NC (Dp = 16 NC) past the 48 KB a launch
-// has by default: opted in once per instance and device
-template <int NC, int VB>
-cudaError_t f32_smem_attr() {
-  constexpr int kMax = kF32Stages * 2 * kF32Keys * 16 * NC * static_cast<int>(sizeof(float));
-  if constexpr (kMax <= 48 * 1024) {
-    return cudaSuccess;
-  } else {
-    static bool attr_set[kMaxDevices] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess || (dev < kMaxDevices && attr_set[dev])) return err;
-    err = cudaFuncSetAttribute(flash_f32_kernel<NC, VB>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMax);
-    if (err == cudaSuccess && dev < kMaxDevices) attr_set[dev] = true;
-    return err;
-  }
+// The f32 route's launch shape from (Sq, D, Dv) alone (`ops.f32_plan`):
+// query rows a block (64 when Sq <= 64, else 128), keys a tile (64 up to
+// head_dim 128, else 32: the Q tile and the ring must fit 227 KB at 192),
+// the ring's buffers, shared-memory bytes, and the output chunks a thread.
+struct F32Plan {
+  int tm, tn, cv, qs, vs, smem;
+};
+F32Plan f32_plan(int Sq, int D, int Dv) {
+  F32Plan p;
+  const int dp = (D + 3) / 4 * 4, dvp = (Dv + 3) / 4 * 4;
+  p.tm = Sq <= kF32SmallSq ? 2 : 4;
+  p.tn = dp <= 128 ? 8 : 4;
+  const int cv = (dvp / 4 + kF32Lanes - 1) / kF32Lanes;  // chunks a thread, built for 2, 3, 4, 6
+  p.cv = cv <= 2 ? 2 : cv <= 4 ? cv : 6;
+  p.qs = f32_stride(dp);
+  p.vs = dvp;
+  const int rows = kF32Groups * p.tm, keys = kF32Lanes * p.tn;
+  p.smem = (rows * p.qs + kF32Stages * keys * p.qs + rows * (keys + 8)) *
+           static_cast<int>(sizeof(float));
+  return p;
 }
 
-template <int NC>
-int launch_f32(const F32Args& a, int B, bool vec, cudaStream_t st) {
-  const int smem = kF32Stages * 2 * kF32Keys * a.Dp * static_cast<int>(sizeof(float));
-  const dim3 grid((a.Sq + kF32Rows - 1) / kF32Rows, a.H, B);
-  cudaError_t err = vec ? f32_smem_attr<NC, 16>() : f32_smem_attr<NC, 4>();
+// the most shared memory an instance takes (head_dim 128 for 64-key
+// tiles, 192 for 32-key ones), opted in once per instance and device
+template <int TM, int TN, int CV>
+int launch_f32(const F32Args& a, int smem, cudaStream_t st) {
+  constexpr int kQs = f32_stride(TN == 8 ? 128 : kMaxD);
+  constexpr int kBr = kF32Groups * TM, kBc = kF32Lanes * TN;
+  constexpr int kMax = (kBr * kQs + kF32Stages * kBc * kQs + kBr * (kBc + 8)) *
+                       static_cast<int>(sizeof(float));
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (vec)
-    flash_f32_kernel<NC, 16><<<grid, kF32Threads, smem, st>>>(a);
-  else
-    flash_f32_kernel<NC, 4><<<grid, kF32Threads, smem, st>>>(a);
+  if (dev >= kMaxDevices || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(flash_f32_kernel<TM, TN, CV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMax);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) attr_set[dev] = true;
+  }
+  if (smem > kMax) return static_cast<int>(cudaErrorInvalidValue);
+  flash_f32_kernel<TM, TN, CV><<<a.n_qt * a.H * a.B, kF32Threads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int TM>
+int dispatch_f32(const F32Args& a, const F32Plan& p, cudaStream_t st) {
+  if (p.tn == 8) {
+    switch (p.cv) {
+      case 2: return launch_f32<TM, 8, 2>(a, p.smem, st);
+      case 3: return launch_f32<TM, 8, 3>(a, p.smem, st);
+      case 4: return launch_f32<TM, 8, 4>(a, p.smem, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (p.cv) {
+    case 2: return launch_f32<TM, 4, 2>(a, p.smem, st);
+    case 3: return launch_f32<TM, 4, 3>(a, p.smem, st);
+    case 4: return launch_f32<TM, 4, 4>(a, p.smem, st);
+    default: return launch_f32<TM, 4, 6>(a, p.smem, st);
+  }
 }
 
 // true if every row of t starts on a 16-byte boundary: the base, and each
@@ -1602,17 +1760,19 @@ extern "C" int fa_backward_heads(int B, int H, int KH, int S, int D, int* out) {
   }
 }
 
-// The f32 route: same arguments as fa_forward, f32 tensors at any stride
-// with a unit head_dim stride.
+// The f32 route: fa_forward's arguments and Dv, v's width (at most D; its
+// own, unpadded), f32 tensors at any stride with a unit head_dim stride.
 extern "C" int fa_forward_f32(const void* q, const void* k, const void* v, void* o,
                               int64_t sqb, int64_t sqh, int64_t sqs,
                               int64_t skb, int64_t skh, int64_t sks,
                               int64_t svb, int64_t svh, int64_t svs,
                               int64_t sob, int64_t soh, int64_t sos,
-                              int B, int H, int KH, int Sq, int Sk, int D, float scale,
+                              int B, int H, int KH, int Sq, int Sk, int D, int Dv, float scale,
                               int causal, void* stream) {
-  if (D < 1 || D > kMaxD || KH < 1 || H % KH != 0 || B < 1 || Sq < 1 || Sk < 1)
+  if (D < 1 || D > kMaxD || Dv < 1 || Dv > D || KH < 1 || H % KH != 0 || B < 1 || Sq < 1 ||
+      Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const F32Plan p = f32_plan(Sq, D, Dv);
   F32Args a;
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -1624,24 +1784,38 @@ extern "C" int fa_forward_f32(const void* q, const void* k, const void* v, void*
   a.so = Strides{sob, soh, sos};
   a.H = H;
   a.KH = KH;
+  a.B = B;
   a.Sq = Sq;
   a.Sk = Sk;
   a.D = D;
+  a.Dv = Dv;
   a.Dp = (D + 3) / 4 * 4;
+  a.DVp = (Dv + 3) / 4 * 4;
+  a.qs = p.qs;
+  a.vs = p.vs;
   a.scale_log2 = scale * kLog2e;
   a.causal = causal;
-  const bool vec =
-      D % 4 == 0 && rows_aligned(k, a.sk, B, KH, Sk) && rows_aligned(v, a.sv, B, KH, Sk);
+  const int rows = kF32Groups * p.tm;
+  a.n_qt = (Sq + rows - 1) / rows;
+  a.flags = (D % 4 == 0 && rows_aligned(q, a.sq, B, H, Sq) ? 1 : 0) |
+            (D % 4 == 0 && rows_aligned(k, a.sk, B, KH, Sk) ? 2 : 0) |
+            (Dv % 4 == 0 && rows_aligned(v, a.sv, B, KH, Sk) ? 4 : 0) |
+            (Dv % 4 == 0 && rows_aligned(o, a.so, B, H, Sq) ? 8 : 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((a.Dp + 15) / 16) {
-    case 1: return launch_f32<1>(a, B, vec, st);
-    case 2: return launch_f32<2>(a, B, vec, st);
-    case 3: return launch_f32<3>(a, B, vec, st);
-    case 4: return launch_f32<4>(a, B, vec, st);
-    case 5: return launch_f32<5>(a, B, vec, st);
-    case 6: return launch_f32<6>(a, B, vec, st);
-    case 7: return launch_f32<7>(a, B, vec, st);
-    case 8: return launch_f32<8>(a, B, vec, st);
-    default: return launch_f32<12>(a, B, vec, st);  // (128, 192]
-  }
+  return p.tm == 2 ? dispatch_f32<2>(a, p, st) : dispatch_f32<4>(a, p, st);
+}
+
+// out[0..4]: the f32 route's query rows a block, keys a K/V tile, ring
+// buffers, dynamic shared-memory bytes and output chunks a thread at
+// (Sq, D, Dv), as `fa_forward_f32` launches it.
+extern "C" int fa_forward_f32_plan(int Sq, int D, int Dv, int* out) {
+  if (D < 1 || D > kMaxD || Dv < 1 || Dv > D || Sq < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const F32Plan p = f32_plan(Sq, D, Dv);
+  out[0] = kF32Groups * p.tm;
+  out[1] = kF32Lanes * p.tn;
+  out[2] = kF32Stages;
+  out[3] = p.smem;
+  out[4] = p.cv;
+  return 0;
 }

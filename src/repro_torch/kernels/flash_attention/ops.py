@@ -20,7 +20,10 @@ and the causal mask is aligned as there, top-left: query row i sees keys
 0..i (`chunked_attention` at `q_offset=0`; the kernel's `ref.py` aligns it
 bottom-right, which agrees only when Sq == Sk).  Any other mismatch of
 shapes raises.  head_dim may be up to 192 (MLA's q and k); in the model
-layout, v may be narrower than q and k (MLA's 128-wide values).
+layout, v may be narrower than q and k (MLA's 128-wide values): the f32
+route reads it at its own width, the bf16 route pads it.  `f32_plan` is
+the f32 route's launch shape in plain Python (the source computes the same
+numbers: `fa_forward_f32_plan`).
 
 Training (an input that requires a gradient, grad mode on): a CPU call runs
 the plain version and autograd differentiates it.  A CUDA call on the route
@@ -127,9 +130,12 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     return dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_shapes(q, k, v) -> tuple[int, int, int, int]:
-    """(B, H, Sq, D) of q (B, H, Sq, D) against k and v (B, KH, Sk, D)."""
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+def _check_shapes(q, k, v, narrow_v: bool = False) -> tuple[int, int, int, int]:
+    """(B, H, Sq, D) of q (B, H, Sq, D) against k and v (B, KH, Sk, D);
+    `narrow_v`: v may be (B, KH, Sk, Dv) with Dv <= D."""
+    same = (k.shape[:3] == v.shape[:3] and v.shape[3] <= k.shape[3] if narrow_v
+            else k.shape == v.shape)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or not same:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     B, H, Sq, D = q.shape
     if k.shape[0] != B or k.shape[3] != D:
@@ -145,7 +151,11 @@ _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # q, k, v, o, 4 x (batch, head, seq) strides, B, H, KH, Sq, Sk, D, scale,
 # causal, stream
 _ARGS = [_P] * 4 + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _I, _P]
-_SIGNATURES = {"fa_forward": _ARGS, "fa_forward_f32": _ARGS,
+_SIGNATURES = {"fa_forward": _ARGS,
+               # fa_forward's arguments with Dv after D
+               "fa_forward_f32": _ARGS[:22] + [_I] + _ARGS[22:],
+               # Sq, D, Dv, the plan out (five ints)
+               "fa_forward_f32_plan": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
                # fa_forward's arguments with the lse output before the stream
                "fa_forward_lse": _ARGS[:-1] + [_P, _P],
                # q, k, v, o, dout, dq, dk, dv, lse, delta, 8 x 3 strides,
@@ -155,20 +165,96 @@ _SIGNATURES = {"fa_forward": _ARGS, "fa_forward_f32": _ARGS,
                "fa_backward_max_clusters": [_I, _I, ctypes.POINTER(ctypes.c_int)],
                # B, H, KH, S, D, the heads out
                "fa_backward_heads": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]}
-# the entry point of each dtype the kernel takes
-_ENTRY = {torch.bfloat16: "fa_forward", torch.float32: "fa_forward_f32"}
+F32_LANES = 8      # kF32Lanes: threads of a query row
+F32_STAGES = 3     # kF32Stages: the K/V ring's buffers
+F32_SMALL_SQ = 64  # kF32SmallSq: up to this many queries, 64 rows a block
+
+
+@dataclass(frozen=True)
+class F32Plan:
+    """The f32 route's launch shape: a block of 256 threads takes
+    `rows` query rows of one (head, batch); K and V stream in tiles of
+    `keys` keys through a ring of `stages` buffers; `smem` bytes of dynamic
+    shared memory (Q, the ring, P); each thread accumulates `v_chunks`
+    4-column chunks of the output's `Dv` columns."""
+
+    rows: int
+    keys: int
+    stages: int
+    smem: int
+    v_chunks: int
+    Dv: int
+
+    def items(self, B: int, H: int, Sq: int, Sk: int, causal: bool
+              ) -> list[tuple[int, int, int, int, int]]:
+        """(batch, head, first query row, query rows, K/V tiles) of every
+        block in launch order (the source's work order): the query tiles
+        with the most K/V tiles first, then head within batch."""
+        n_qt = -(-Sq // self.rows)
+        out = []
+        for w in range(n_qt * H * B):
+            q0 = (n_qt - 1 - w // (H * B)) * self.rows
+            end = min(q0 + self.rows, Sq)
+            n_keys = min(Sk, end) if causal else Sk
+            out.append((w % (H * B) // H, w % H, q0, end - q0, -(-n_keys // self.keys)))
+        return out
+
+
+def f32_stride(dp: int) -> int:
+    """A shared-memory row of `dp` floats (a multiple of 4) rounded up to
+    an odd number of 16-byte chunks: rows a warp reads at once fall on
+    distinct banks."""
+    return ((dp // 4) | 1) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def f32_plan(Sq: int, D: int, Dv: int) -> F32Plan:
+    """The launch shape of `fa_forward_f32` for Sq queries at head_dim D
+    and v's width Dv <= D, from the shapes only: 128 query rows a block (64
+    when Sq <= 64), K/V tiles of 64 keys up to head_dim 128 and 32 past it
+    (so the Q tile and the ring fit at 192), output chunks of 4 columns a
+    thread for Dv (built for 2, 3, 4 or 6 of them)."""
+    if not (1 <= Dv <= D <= MAX_HEAD_DIM) or Sq < 1:
+        raise ValueError(f"no f32 plan for Sq {Sq}, D {D}, Dv {Dv}")
+    dp, dvp = -(-D // 4) * 4, -(-Dv // 4) * 4
+    rows = 32 * (2 if Sq <= F32_SMALL_SQ else 4)
+    keys = F32_LANES * (8 if dp <= 128 else 4)
+    cv = -(-(dvp // 4) // F32_LANES)
+    cv = 2 if cv <= 2 else cv if cv <= 4 else 6
+    qs = f32_stride(dp)
+    smem = (rows * qs + F32_STAGES * keys * qs + rows * (keys + 8)) * 4
+    return F32Plan(rows, keys, F32_STAGES, smem, cv, Dv)
+
+
+def f32_plan_on_card(Sq: int, D: int, Dv: int) -> tuple[int, ...]:
+    """(rows, keys, stages, smem, v_chunks) as the source computes them."""
+    out = (ctypes.c_int * 5)()
+    lib = _lib.load("flash_attention", _SIGNATURES)
+    _lib.check("fa_forward_f32_plan", lib.fa_forward_f32_plan(Sq, D, Dv, out))
+    return tuple(out)
+
+
+def v_width(dtype: torch.dtype, D: int, Dv: int) -> int:
+    """The width v reaches the kernel at in the model layout: its own on
+    the f32 route, which takes Dv < D; zero-padded to D on the bf16 one
+    (exact: the padded columns carry zeros and are sliced off)."""
+    return Dv if dtype == torch.float32 else D
 
 
 def _launch(q, k, v, o, causal: bool, scale: float) -> None:
     """All four are (B, heads, seq, D) views of one dtype, bfloat16 or
-    float32, with a unit stride on D; k and v of Sk rows, q and o of Sq."""
+    float32, with a unit stride on D; k and v of Sk rows, q and o of Sq;
+    in float32 v and o may be Dv <= D wide."""
     B, H, Sq, D = q.shape
+    Dv = v.shape[3]
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} exceeds the kernel's {MAX_HEAD_DIM}")
-    entry = _ENTRY.get(q.dtype)
-    if entry is None or not (q.dtype == k.dtype == v.dtype == o.dtype):
+    if not (q.dtype == k.dtype == v.dtype == o.dtype) or q.dtype not in (torch.bfloat16,
+                                                                        torch.float32):
         raise TypeError(f"the kernel takes bfloat16 (tensor cores) or float32 (CUDA cores) "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if Dv != D and q.dtype != torch.float32:
+        raise ValueError(f"the bf16 route takes v as wide as q and k ({D}), got {Dv}")
     args = [_strides(t) for t in (q, k, v, o)]
     ptrs = [t.data_ptr() for t in (q, k, v, o)]
     if q.dtype == torch.bfloat16:
@@ -177,9 +263,13 @@ def _launch(q, k, v, o, causal: bool, scale: float) -> None:
     if q.numel() == 0:
         return
     lib = _lib.load("flash_attention", _SIGNATURES)
-    err = getattr(lib, entry)(*ptrs, *args[0], *args[1], *args[2], *args[3],
-                              B, H, k.shape[1], Sq, k.shape[2], D, float(scale), int(causal),
-                              _lib.stream_handle(q))
+    dims = (B, H, k.shape[1], Sq, k.shape[2], D)
+    if q.dtype == torch.float32:
+        err = lib.fa_forward_f32(*ptrs, *args[0], *args[1], *args[2], *args[3], *dims, Dv,
+                                 float(scale), int(causal), _lib.stream_handle(q))
+    else:
+        err = lib.fa_forward(*ptrs, *args[0], *args[1], *args[2], *args[3], *dims,
+                             float(scale), int(causal), _lib.stream_handle(q))
     _lib.check("flash_attention", err)
     flash_attention.launches += 1
 
@@ -442,22 +532,25 @@ def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True) -> torch.Tensor:
     """Attention in the model layout: q (B, Tq, H, D), k (B, Tk, KH, D),
     v (B, Tk, KH, Dv) with Dv <= D -> (B, Tq, H, Dv).  A narrower v (MLA's
-    values against its 192-wide q and k) is zero-padded to D and the
-    output sliced back to Dv: exact, since the padded columns carry zeros;
-    the scale stays D**-0.5 of q, as in `chunked_attention`."""
-    Dv = v.shape[-1]
-    if Dv < q.shape[-1]:
-        v = F.pad(v, (0, q.shape[-1] - Dv))
+    values against its 192-wide q and k) goes to the f32 kernel as it is
+    and is zero-padded to D elsewhere (`v_width`; the bf16 kernel and the
+    plain version), the output sliced back to Dv: exact, since the padded
+    columns carry zeros; the scale stays D**-0.5 of q, as in
+    `chunked_attention`."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    on_card = _lib.route(q, k, v)
+    width = v_width(q.dtype, D, Dv) if on_card else D
+    if Dv < width:
+        v = F.pad(v, (0, width - Dv))
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if not _lib.route(q, k, v):
-        out = flash_attention_plain(qh, kh, vh, causal).transpose(1, 2)
-    else:
-        D = _check_shapes(qh, kh, vh)[3]
-        if _lib.needs_grad(q, k, v):
-            _check_grad_route(qh, kh, vh, causal)
-            return _FlashFn.apply(q, k, v, True, D ** -0.5)[..., :Dv]
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        _launch(qh, kh, vh, out.transpose(1, 2), causal, D ** -0.5)
+    if not on_card:
+        return flash_attention_plain(qh, kh, vh, causal).transpose(1, 2)[..., :Dv]
+    _check_shapes(qh, kh, vh, narrow_v=True)
+    if _lib.needs_grad(q, k, v):
+        _check_grad_route(qh, kh, vh, causal)
+        return _FlashFn.apply(q, k, v, True, D ** -0.5)[..., :Dv]
+    out = torch.empty((*q.shape[:3], vh.shape[3]), dtype=q.dtype, device=q.device)
+    _launch(qh, kh, vh, out.transpose(1, 2), causal, D ** -0.5)
     return out[..., :Dv]
 
 

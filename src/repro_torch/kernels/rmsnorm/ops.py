@@ -10,16 +10,19 @@ kernel may use 16-byte accesses (otherwise it loads element by element).
 
 Under autograd (an input that requires a gradient, grad mode on) a CUDA
 call goes through `_RMSNormFn`, whose backward is the kernel's
-`rmsnorm_backward` entry (`rmsnorm_backward`, two launches: dx and per-block
-f32 partials of dw, then their fixed-order sum); a CPU call runs the plain
-version and autograd differentiates it.  `rmsnorm_backward_plain` is the
-same backward in explicit formulas, for the tests; nothing on the card's
-path calls it.
+`rmsnorm_backward` entry (`rmsnorm_backward`, one cooperative launch: a
+persistent grid writes dx and one f32 partial row of dw a block, then,
+past a grid-wide barrier, sums the partial rows in a fixed order;
+`backward_plan` is its launch shape); a CPU call runs the plain version and
+autograd differentiates it.  `rmsnorm_backward_plain` is the same backward
+in explicit formulas, for the tests; nothing on the card's path calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -85,28 +88,74 @@ def vector_loads(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in (x, w, out)) and D % (16 // x.element_size()) == 0
 
 
-BWD_WAVE = 8  # blocks an SM of the backward's first pass, at most
+BWD_THREADS = 256  # kBwdThreads: threads a backward block, at most
+BWD_LANE_VECTORS = {True: 8, False: 4}  # vectors a lane, at most: 16-byte loads or element-wise
 
 
-def backward_plan(N: int, D: int, elem_size: int, n_sm: int) -> tuple[int, int]:
-    """(blocks of the backward's first pass, rows of its f32 dw partial)
-    for N rows of D: the forward's launch shape, at most `BWD_WAVE` blocks
-    an SM (and no more than the card holds at once), each writing one
-    partial row a row group."""
-    lanes, _ = launch_plan(D, elem_size)
-    threads = 256 if lanes <= 32 else lanes
-    rows_a_block = threads // lanes
-    blocks = -(-N // rows_a_block)
-    grid = max(1, min(blocks, n_sm * min(BWD_WAVE, 2048 // threads)))
-    return grid, grid * rows_a_block
+class BackwardPlan(NamedTuple):
+    """The backward's launch shape: `lanes` threads a row, `vectors` 16-byte
+    vectors a lane, `threads` a block (`threads // lanes` rows at once),
+    `grid` blocks, one row of the f32 dw partial each."""
+
+    lanes: int
+    vectors: int
+    threads: int
+    grid: int
+
+    @property
+    def partial_rows(self) -> int:
+        return self.grid
+
+    def bands(self, N: int) -> list[range]:
+        """The rows each block walks, by block: contiguous bands."""
+        per = -(-N // self.grid)
+        return [range(min(N, b * per), min(N, (b + 1) * per)) for b in range(self.grid)]
+
+
+def backward_shape(D: int, elem_size: int, vec: bool = True) -> tuple[int, int, int]:
+    """(lanes a row, vectors a lane, threads a block) of the backward for
+    rows of D elements of `elem_size` bytes: rows of at most 32 vectors
+    take the fewest lanes, a power of two, that hold one vector each; wider
+    rows a warp while a lane holds at most 8 vectors (4 element-wise, `vec`
+    False: more would spill), so up to D = 2048 in bf16 with 16-byte loads;
+    wider still W warps, the fewest within that bound.  A block holds as
+    many row groups as fit in 256 threads.  Raises past 8 warps a row."""
+    most = BWD_LANE_VECTORS[bool(vec)]
+    nvec = -(-D // (16 // elem_size))
+    if nvec > 8 * 32 * most:
+        raise ValueError(f"rmsnorm_backward takes rows of at most "
+                         f"{8 * 32 * most * 16 // elem_size} elements"
+                         f"{'' if vec else ' element-wise'}, got {D}")
+    if nvec <= 32:
+        lanes = 1 << (nvec - 1).bit_length()
+    else:
+        lanes = 32 * -(-nvec // (32 * most))
+    return lanes, -(-nvec // lanes), BWD_THREADS // lanes * lanes
+
+
+def backward_plan(N: int, D: int, elem_size: int, n_sm: int, per_sm: int,
+                  vec: bool = True) -> BackwardPlan:
+    """The backward's launch for N rows of D on `n_sm` SMs that each hold
+    `per_sm` of its blocks at once (`backward_blocks_per_sm` on the card):
+    `backward_shape`, and a persistent grid of as many blocks as the rows
+    need, at most every block the card holds at once (a cooperative launch
+    must fit)."""
+    lanes, vpt, threads = backward_shape(D, elem_size, vec)
+    groups = threads // lanes
+    grid = max(1, min(-(-N // groups), n_sm * per_sm))
+    return BackwardPlan(lanes, vpt, threads, grid)
 
 
 # x, w, out, N, D, eps, dtype, lanes, vectors a lane, vector loads, stream
 _SIGNATURES = {"rmsnorm_forward": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int]
                + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-               # x, w, dy, dx, dw, partial, N, D, eps, dtype, lanes, vpt, vec, grid, stream
-               "rmsnorm_backward": [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int]
-               + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+               # x, w, dy, dx, dw, partial, counter, N, D, eps, dtype, lanes, vpt, vec,
+               # threads, grid, stream
+               "rmsnorm_backward": [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int]
+               + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+               # D, dtype, lanes, vpt, vec, threads, the count out
+               "rmsnorm_backward_blocks_per_sm": [ctypes.c_int] * 6
+               + [ctypes.POINTER(ctypes.c_int)]}
 
 
 def _bind() -> ctypes.CDLL:
@@ -152,8 +201,9 @@ rmsnorm.launches = 0
 
 def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                      eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dx, dw) of rmsnorm at (x, w) for dy, by the kernel (CUDA) or
-    `rmsnorm_backward_plain` (CPU).  dy is made contiguous."""
+    """(dx, dw) of rmsnorm at (x, w) for dy, by the kernel (CUDA: one
+    cooperative launch, `backward_plan`) or `rmsnorm_backward_plain` (CPU).
+    dy is made contiguous."""
     if not _lib.route(x, w, dy):
         return rmsnorm_backward_plain(x, w, dy, eps)
     _check(x, w)
@@ -168,16 +218,50 @@ def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     if N == 0 or D == 0:
         return dx, torch.zeros_like(w)
     dw = torch.empty_like(w)
-    lanes, vpt = launch_plan(D, x.element_size())
-    grid, rows = backward_plan(N, D, x.element_size(), _lib.sm_count(x.device.index))
-    partial = torch.empty((rows, D), dtype=torch.float32, device=x.device)
     vec = vector_loads(x, w, dx) and dy.data_ptr() % 16 == 0
+    lanes, vpt, threads = backward_shape(D, x.element_size(), vec)
+    plan = backward_plan(N, D, x.element_size(), _lib.sm_count(x.device.index),
+                         backward_blocks_per_sm(D, code, lanes, vpt, int(vec), threads,
+                                                x.device.index), vec)
+    partial = torch.empty((plan.partial_rows, D), dtype=torch.float32, device=x.device)
+    stream = _lib.stream_handle(x)
     err = _bind().rmsnorm_backward(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                                   dw.data_ptr(), partial.data_ptr(), N, D, float(eps), code,
-                                   lanes, vpt, int(vec), grid, _lib.stream_handle(x))
+                                   dw.data_ptr(), partial.data_ptr(),
+                                   _barrier_counter(x.device, stream).data_ptr(), N, D,
+                                   float(eps), code, lanes, vpt, int(vec), threads, plan.grid,
+                                   stream)
     _lib.check("rmsnorm_backward", err)
     rmsnorm_backward.launches += 1
     return dx, dw
+
+
+@functools.lru_cache(maxsize=256)
+def backward_blocks_per_sm(D: int, code: int, lanes: int, vpt: int, vec: int, threads: int,
+                           device: int | None) -> int:
+    """Blocks of the backward's instance one SM of CUDA device `device`
+    holds at once (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), read
+    once."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _lib.check("rmsnorm_backward_blocks_per_sm", _bind().rmsnorm_backward_blocks_per_sm(
+            D, code, lanes, vpt, vec, threads, ctypes.byref(n)))
+    if n.value < 1:
+        raise RuntimeError(f"rmsnorm_backward: no block of {threads} threads fits an SM")
+    return n.value
+
+
+_COUNTERS: dict[tuple[int | None, int], torch.Tensor] = {}
+
+
+def _barrier_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """The grid barrier's counter of `stream` on `device`: zeroed once, and
+    its low 31 bits zero again after every launch; one a stream, so that
+    launches on two streams never share one."""
+    key = (device.index, stream)
+    counter = _COUNTERS.get(key)
+    if counter is None:
+        counter = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return counter
 
 
 rmsnorm_backward.launches = 0

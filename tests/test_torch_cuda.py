@@ -150,8 +150,8 @@ def test_flash_attention_kernel_unequal_lengths_match_plain(cuda, B, H, KH, Sq, 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_kernel_narrower_v(cuda, causal, dtype):
     """MLA's layout on the card: q and k (B, T, H, 192), v 128 wide; the
-    wrapper pads v and slices the output, one launch, against the plain
-    version on the same padded v."""
+    f32 kernel reads v at its own width, the bf16 wrapper pads v and slices
+    the output; one launch, against the plain version on the padded v."""
     q = _on(cuda, 80, (2, 130, 8, 192), dtype)
     k = _on(cuda, 81, (2, 130, 8, 192), dtype)
     v = _on(cuda, 82, (2, 130, 8, 128), dtype)
@@ -178,6 +178,60 @@ def test_flash_attention_f32_kernel_reads_unaligned_rows(cuda):
     want = fa.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **tol(torch.float32))
+
+
+# (D, Dv) of the f32 route's redesign: the serve's and seamless's head_dims,
+# the dense models' 128, MLA's 192 with 128-wide values
+_F32_WIDTHS = [(64, 64), (80, 80), (128, 128), (192, 128)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D,Dv", _F32_WIDTHS, ids=lambda x: str(x))
+@pytest.mark.parametrize("G", [1, 5, 7])
+@pytest.mark.parametrize("Sq,Sk", [(200, 200), (70, 300), (300, 70), (33, 1000)])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+def test_flash_attention_f32_kernel_widths_groups_lengths(cuda, D, Dv, G, Sq, Sk, causal):
+    """The f32 route in the model layout at each width (v unpadded where it
+    is narrower), query heads a KV head G in {1, 5, 7}, Sq != Sk either way
+    (Sq 33: the 64-row blocks), causal and not, against the plain version
+    in f32 at 3e-5 (TF32 off); one launch."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    B, KH = 2, 2
+    q = _on(cuda, 90, (B, Sq, G * KH, D), torch.float32)
+    k = _on(cuda, 91, (B, Sk, KH, D), torch.float32)
+    v = _on(cuda, 92, (B, Sk, KH, Dv), torch.float32)
+    before = fa.flash_attention.launches
+    got = fa.attention_bthd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1 and got.shape == (B, Sq, G * KH, Dv)
+    vp = torch.nn.functional.pad(v, (0, D - Dv)).transpose(1, 2)
+    want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), vp,
+                                    causal=causal).transpose(1, 2)[..., :Dv]
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **tol(torch.float32))
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_f32_narrow_v_equals_the_padded_call(cuda):
+    """v at 128 columns and the same v zero-padded to 192 run the same tiles
+    and sums: the 128 columns agree bit for bit."""
+    q, k = (_on(cuda, 93 + i, (2, 300, 8, 192), torch.float32) for i in range(2))
+    v = _on(cuda, 95, (2, 300, 8, 128), torch.float32)
+    got = fa.attention_bthd(q, k, v)
+    padded = fa.attention_bthd(q, k, torch.nn.functional.pad(v, (0, 64)))
+    torch.cuda.synchronize()
+    assert torch.equal(got, padded[..., :128])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("Sq,D,Dv", [(1, 7, 7), (33, 64, 64), (64, 80, 80), (65, 80, 80),
+                                     (128, 128, 128), (3008, 128, 128), (512, 192, 128),
+                                     (512, 192, 192), (200, 136, 100), (70, 40, 40)])
+def test_flash_attention_f32_launch_follows_its_plan(cuda, Sq, D, Dv):
+    """`ops.f32_plan` is the source's choice (`fa_forward_f32_plan`): rows a
+    block, keys a tile, ring buffers, shared-memory bytes, output chunks."""
+    plan = fa.f32_plan(Sq, D, Dv)
+    assert fa.f32_plan_on_card(Sq, D, Dv) == (plan.rows, plan.keys, plan.stages, plan.smem,
+                                              plan.v_chunks)
 
 
 @pytest.mark.requires_cuda
@@ -1047,6 +1101,79 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda, N, D, dtype):
     assert_grad_close(dx, want_dx, "dx")
     assert_grad_close(dw, want_dw, "dw")
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("N,D", [(1, 1536), (5, 1536),       # one row; fewer rows than a block's warps
+                                 (4097, 1536), (263, 512),   # rows no multiple of a block's
+                                 (3, 2560), (1001, 4096),    # two and four warps a row
+                                 (2, 8192),                  # f32: 8 warps of 8 vectors a row
+                                 (17, 1000), (40, 6)])       # element-wise: D no multiple of 8
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_rmsnorm_backward_kernel_edges(cuda, N, D, dtype):
+    """The one-launch backward where its plan has edges: within `GRAD_TOL`
+    of the f32 plain backward, bit-equal run to run, one launch a call; its
+    grid at most the blocks the card holds at once."""
+    x = _on(cuda, 86, (N, D), dtype, 3.0)
+    w = _on(cuda, 87, (D,), dtype)
+    dy = _on(cuda, 88, (N, D), dtype)
+    before = rn.rmsnorm_backward.launches
+    dx, dw = rn.rmsnorm_backward(x, w, dy)
+    dx2, dw2 = rn.rmsnorm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm_backward.launches == before + 2
+    want_dx, want_dw = rn.rmsnorm_backward_plain(x.float(), w.float(), dy.float())
+    assert_grad_close(dx, want_dx, "dx")
+    assert_grad_close(dw, want_dw, "dw")
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    vec = rn.vector_loads(x, w, dx)
+    lanes, vpt, threads = rn.backward_shape(D, x.element_size(), vec)
+    per_sm = rn.backward_blocks_per_sm(D, _lib.dtype_code(x), lanes, vpt, int(vec), threads,
+                                       cuda.index)
+    plan = rn.backward_plan(N, D, x.element_size(), _lib.sm_count(cuda.index), per_sm, vec)
+    assert plan.grid <= _lib.sm_count(cuda.index) * per_sm
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("offset", [1, 3])
+def test_rmsnorm_backward_kernel_unaligned_view(cuda, offset):
+    """x, dy and w as views at an element offset (bases off 16 bytes): the
+    element-wise loads, against the plain backward."""
+    N, D = 300, 1536
+    x = _on(cuda, 89, (N * D + offset,), torch.bfloat16, 3.0)[offset:].view(N, D)
+    dy = _on(cuda, 90, (N * D + offset,), torch.bfloat16)[offset:].view(N, D)
+    w = _on(cuda, 91, (D + offset,), torch.bfloat16)[offset:]
+    assert x.data_ptr() % 16 and not rn.vector_loads(x, w, x)
+    dx, dw = rn.rmsnorm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    want_dx, want_dw = rn.rmsnorm_backward_plain(x.float(), w.float(), dy.float())
+    assert_grad_close(dx, want_dx, "dx")
+    assert_grad_close(dw, want_dw, "dw")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("N,D", [(4096, 1536), (512, 512)])
+def test_rmsnorm_backward_replays_bit_equal_in_a_graph(cuda, N, D):
+    """The cooperative launch is captured into a CUDA graph; each replay
+    (three, on new inputs copied in) equals the eager call bit for bit."""
+    x = _on(cuda, 92, (N, D), torch.bfloat16, 3.0)
+    w = _on(cuda, 93, (D,), torch.bfloat16)
+    dy = _on(cuda, 94, (N, D), torch.bfloat16)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        rn.rmsnorm_backward(x, w, dy)  # warm: the library, the occupancy, the counter
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        dx, dw = rn.rmsnorm_backward(x, w, dy)
+    for seed in (95, 96, 97):
+        x.copy_(_on(cuda, seed, (N, D), torch.bfloat16, 3.0))
+        dy.copy_(_on(cuda, seed + 10, (N, D), torch.bfloat16))
+        graph.replay()
+        want_dx, want_dw = rn.rmsnorm_backward(x, w, dy)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, want_dx) and torch.equal(dw, want_dw)
 
 
 @pytest.mark.requires_cuda

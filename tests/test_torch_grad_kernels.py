@@ -86,12 +86,34 @@ def test_rmsnorm_backward_on_cpu_is_the_plain_one():
 
 
 def test_rmsnorm_backward_plan():
-    """The first pass takes the forward's launch shape and at most eight
-    blocks an SM; one partial row a row group."""
-    assert rn.backward_plan(8192, 1536, 2, 132) == (1056, 1056)   # 96 threads, a row a block
-    assert rn.backward_plan(1024, 128, 2, 132) == (64, 1024)      # 16 lanes: 16 rows a block
-    assert rn.backward_plan(5, 5120, 2, 132) == (5, 5)
-    assert rn.backward_plan(1, 8, 4, 132) == (1, 128)      # 2 lanes: 128 row groups
+    """A warp a row up to 256 vectors (qwen2-1.5b's 1536 in bf16: 6 a lane),
+    fewer lanes for narrow rows, W warps past it; a persistent grid of at
+    most the blocks the card holds at once, one partial row a block; each
+    block walks a contiguous band, every row once."""
+    P = rn.BackwardPlan
+    assert rn.backward_plan(4096, 1536, 2, 132, 1) == P(32, 6, 256, 132)  # qwen2-1.5b
+    assert rn.backward_plan(4096, 1536, 2, 132, 2) == P(32, 6, 256, 264)
+    assert rn.backward_plan(512, 512, 2, 132, 2) == P(32, 2, 256, 64)     # train_small: a row a warp
+    assert rn.backward_plan(8192, 1536, 4, 132, 1) == P(64, 6, 256, 132)  # f32: two warps a row
+    assert rn.backward_plan(1024, 2560, 2, 132, 1) == P(64, 5, 256, 132)  # the serve's width
+    assert rn.backward_plan(5, 5120, 2, 132, 1) == P(96, 7, 192, 3)
+    assert rn.backward_plan(1024, 128, 2, 132, 3) == P(16, 1, 256, 64)    # 16 lanes: 16 rows a block
+    assert rn.backward_plan(1, 8, 4, 132, 8) == P(2, 1, 256, 1)           # 2 lanes
+    for N, D in ((4096, 1536), (4097, 1536), (5, 1536), (1, 512), (1000, 264)):
+        plan = rn.backward_plan(N, D, 2, 132, 2)
+        assert plan.partial_rows == plan.grid <= 264
+        assert [r for band in plan.bands(N) for r in band] == list(range(N))
+    assert rn.backward_shape(16384, 2)[:2] == (256, 8)
+    with pytest.raises(ValueError, match="at most 16384"):
+        rn.backward_shape(16392, 2)
+    # element-wise loads (D no multiple of the vector, or an unaligned view):
+    # at most 4 vectors a lane
+    assert rn.backward_shape(2000, 2, vec=False) == (64, 4, 256)
+    assert rn.backward_shape(1000, 2, vec=False) == (32, 4, 256)
+    assert rn.backward_plan(300, 1536, 2, 132, 1, vec=False) == P(64, 3, 256, 75)
+    assert rn.backward_shape(8192, 2, vec=False)[:2] == (256, 4)
+    with pytest.raises(ValueError, match="8192 elements element-wise"):
+        rn.backward_shape(8200, 2, vec=False)
 
 
 # ---------------------------------------------------------- flash attention
