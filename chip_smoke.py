@@ -93,17 +93,26 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    run once a replay) and one step's device busy share and host launch
    calls; (b) one loss and its gradients
    at full width and 2 of 28 layers through the kernels and through the
-   plain math, every leaf within 5e-2 of its scale; (c) the elastic loop
+   plain math, every leaf within 5e-2 of its scale; for it and for
+   zamba2-2.7b's first group and xlstm-1.3b's first period, every leaf
+   through the kernels within `F32_FLOOR_FACTOR` times the plain math's
+   own bf16 distance from the f32 gradient (at least 5e-2), and at each
+   scan call autograd's gradients bit-equal to the scan's backward kernel
+   at the call's own inputs and cotangents; (c) the elastic loop
    of `repro_torch.examples.train_small` on the card, its step compiled,
    150 steps with checkpoints every 50 and a failure at step 120: the loss
    falls, the restart reaches the graph through one copy of the restored
    state into its buffers, and the losses after the restore equal an
-   uninjected run's.  Phase 2 also
+   uninjected run's; (d) zamba2-2.7b at full width and depth (54 layers,
+   2.06 B parameters) through the same two runs as (a), bit-equal, with
+   `ssd_scan` and `ssd_scan_backward` launched as its Mamba2 blocks make
+   them.  Phase 2 also
    holds the backward kernels (`rmsnorm_backward`, flash attention's
-   LSE-writing forward and its backward) against their plain backward run
-   in f32, at the train shapes (`train_small`'s too) and the serve's or a
-   G = 1 one; flash attention's backward is split by launch (Delta, dK/dV,
-   dQ) and read in TFLOP/s against its bound.
+   LSE-writing forward and its backward, `ssd_scan_backward`) against
+   their plain backward run in f32, at the train shapes (`train_small`'s
+   too; the scan's at zamba2-2.7b's and the mLSTM's and a ragged one) and
+   the serve's or a G = 1 one; flash attention's backward is split by
+   launch (Delta, dK/dV, dQ) and read in TFLOP/s against its bound.
 
 With `--parent ROOT` (another tree of the repository, such as the parent
 commit unpacked), every kernel that tree has is built too, timed in turns
@@ -211,13 +220,29 @@ KERNEL_SOURCES = {
     "flash_attention_backward": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/models/common.py:326"),
+    "ssd_scan_backward": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                          "src/repro/models/ssm.py:29"),
 }
 KERNEL_NAMES = tuple(KERNEL_SOURCES)
 # the training run of phase 6: qwen2-1.5b at full width and depth, AdamW,
 # remat, two micro-batches of 4 x 1024 tokens a step
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 8, 1024, 8, 2
-GRAD_PARITY_LAYERS = 2  # phase 6b's cut of qwen2-1.5b's 28 layers
+# phase 6d: zamba2-2.7b at full width and depth (54 layers: 45 Mamba2
+# blocks, the shared attention block applied 9 times), the same run as 6a
+HYBRID_TRAIN_ARCH = "zamba2-2.7b"
+# phase 6b: (arch, layers kept) at full width: qwen2-1.5b's first 2 of 28;
+# zamba2-2.7b's first group (5 Mamba2 blocks and the shared attention);
+# xlstm-1.3b's first period (7 mLSTM blocks at DK 1024, DV 1025, 1 sLSTM)
+GRAD_PARITY_RUNS = ((TRAIN_ARCH, 2), (HYBRID_TRAIN_ARCH, 6), ("xlstm-1.3b", 8))
+# 6b's held rule beside the plain math: each leaf's gradient through the
+# kernels no farther from the f32 gradient than this many times the plain
+# math's own bf16 distance from it, or this many times 5e-2 where that
+# distance is smaller.  The recurrent models' bf16 gradients miss their f32
+# ones at their own inits by far more than 5e-2 in either route (zamba2's
+# decays of ~ -2 a step; xlstm's exponential gates: PERF.md section 6), so
+# there the two bf16 routes are held each against f32, not to each other
+F32_FLOOR_FACTOR = 2.0
 ELASTIC_STEPS, ELASTIC_FAIL_AT, ELASTIC_CKPT_EVERY = 150, 120, 50
 
 
@@ -279,6 +304,23 @@ def host_ms(fn, calls: int = 1000) -> float:
     elapsed = time.perf_counter() - t0
     torch.cuda.synchronize()
     return elapsed / calls * 1e3
+
+
+def once_ms(fn, warmup: int = 1) -> float:
+    """Time of one call between CUDA events, the card drained before it,
+    the host's gaps included: for a plain version whose host work outruns
+    the card, so that `time_ms` cannot queue its calls ahead."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def bound_ms(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
@@ -399,6 +441,7 @@ def phase_kernels(dev, parent) -> dict:
     res["rmsnorm_backward"] = check_rmsnorm_backward(dev, g, parent)
     res["flash_attention_forward_lse"], res["flash_attention_backward"] = \
         check_flash_backward(dev, g, parent)
+    res["ssd_scan_backward"] = check_ssd_backward(dev, g)
     for name, r in res.items():
         lib_us = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f} us"
         log(f"[kernels] {name}: max|err| {r['max_abs_err']:.3g} (tol {r['tol']}), "
@@ -1175,7 +1218,9 @@ def ssd_bound(B: int, T: int, NH: int, DK: int, DV: int, chunk: int, esize: int,
     or once for all heads where they are broadcast), v and y in the input
     dtype (`esize` bytes), the f32 gates and the f32 final state.
     Operations: q.k over the causal (t, s) pairs of each chunk has two
-    input operands (bf16: the bf16 peak); the decayed scores times v, q
+    input operands (bf16: the bf16 peak), once for all heads where q and k
+    are broadcast (the scores differ by head only in their decay, applied
+    elementwise); the decayed scores times v, q
     times the state entering each chunk after the first, and the weighted
     k times v for every chunk each have an f32 operand, which the kernel
     splits into two bf16 parts (half the peak); f32 inputs make every
@@ -1190,8 +1235,9 @@ def ssd_bound(B: int, T: int, NH: int, DK: int, DV: int, chunk: int, esize: int,
         ops_qk += pairs * 2 * DK
         ops_split += pairs * 2 * DV + 2 * lc * DK * DV * (2 if c0 > 0 else 1)
     if esize == 4:
-        return bound_ms(nbytes, (B * NH * (ops_qk + ops_split), BF16X6_FLOP_S))
-    return bound_ms(nbytes, (B * NH * ops_qk, BF16_FLOP_S), (B * NH * ops_split, BF16X2_FLOP_S))
+        return bound_ms(nbytes, (B * (heads_qk * ops_qk + NH * ops_split), BF16X6_FLOP_S))
+    return bound_ms(nbytes, (B * heads_qk * ops_qk, BF16_FLOP_S),
+                    (B * NH * ops_split, BF16X2_FLOP_S))
 
 
 def check_ssd_scan(dev, g, err, parent) -> dict:
@@ -1335,6 +1381,129 @@ def check_ssd_wide(dev, g, err) -> list[dict]:
         out.append(x)
         del q, k, v, args, y, st, y0, st0
     return out
+
+
+def ssd_grad_shapes() -> list[tuple]:
+    """(what, B, T, NH, DK, DV, chunk, broadcast, with_i, final): the
+    backward at one micro-batch of phase 6d's zamba2-2.7b (4 x 1024 tokens;
+    80 heads of 64, q and k one (B, T, 64) tensor broadcast over them, no
+    log_i), of xlstm-1.3b's mLSTM (4 heads, DK 1024, DV 1025 with the
+    ones column, log_i over its clip range [-30, 10]; phase 6b's), and at
+    zamba2's widths with a ragged T and a nonzero final-state cotangent."""
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    return [("zamba2-2.7b train", mb, TRAIN_SEQ, 80, 64, 64, 256, True, False, False),
+            ("xlstm-1.3b mLSTM train", mb, TRAIN_SEQ, 4, 1024, 1025, 256, False, True, False),
+            ("ragged T, final-state cotangent", 2, 1000, 80, 64, 64, 256, True, False, True)]
+
+
+def ssd_backward_bound(B, T, NH, DK, DV, chunk, broadcast, with_i, final) -> tuple[float, str]:
+    """ssd_scan_backward's bound at one shape: the least the function needs.
+    Bytes: q and k read once (once for all heads where broadcast), v and dy
+    bf16, the f32 gates (and log_i), the f32 final-state cotangent where
+    given; dq and dk written once in bf16 (head-summed where q and k are
+    broadcast: the kernel's per-head rows, which autograd's expand backward
+    sums, are bytes of the design, not of the function), dv bf16, dlog_g
+    (and dlog_i) f32.  Operations, per chunk of L steps and its L(L+1)/2
+    causal pairs: q.k^T over the pairs (once for all heads where q and k
+    are broadcast) and dy.v^T (per head), both operands bf16 (the bf16
+    peak); every other product has an f32 operand in two bf16 parts (half
+    the peak): the forward's local states again and the chunk's U_c (2 L
+    DK DV each), the three state terms (dq's skipped in the first chunk)
+    and dS.k, dS^T.q, P^T.dy over the pairs."""
+    heads_qk = 1 if broadcast else NH
+    gates = (2 if with_i else 1) * B * T * NH * 4
+    nbytes = (2 * B * T * heads_qk * DK * 2 + 2 * B * T * NH * DV * 2 + gates
+              + (B * NH * DK * DV * 4 if final else 0)
+              + 2 * B * T * heads_qk * DK * 2 + B * T * NH * DV * 2 + gates)
+    qk = dyv = split = 0.0
+    for c0 in range(0, T, chunk):
+        lc = min(chunk, T - c0)
+        pairs = lc * (lc + 1) / 2
+        qk += 2 * pairs * DK
+        dyv += 2 * pairs * DV
+        split += 2 * lc * DK * DV * (5 if c0 > 0 else 4) + 2 * pairs * (2 * DK + DV)
+    return bound_ms(nbytes, (B * (heads_qk * qk + NH * dyv), BF16_FLOP_S),
+                    (B * NH * split, BF16X2_FLOP_S))
+
+
+def check_ssd_backward(dev, g) -> dict:
+    """`ssd_scan_backward` at `ssd_grad_shapes`: dq, dk, dv, dlog_g (and
+    dlog_i) against the plain backward run in f32 from the same bf16
+    inputs, each within GRAD_TOL of that result's max |value| (the plain
+    backward from the bf16 inputs, its dq, dk and dv rounded to bf16,
+    logged beside it); bit-equal run to run; timed beside its bound, the
+    plain backward (one call between events, `once_ms`), the forward at
+    the same inputs and the wrapper's host time, one call's device time
+    split by launch (profiler).  No PyTorch
+    call computes it (library: none); the parent tree has no backward to
+    time against.  The line's numbers are zamba2-2.7b's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.testing.parity import GRAD_TOL, assert_grad_close, grad_gap
+
+    bf16 = torch.bfloat16
+    names = ("dq", "dk", "dv", "dlog_g", "dlog_i")
+    rows = []
+    for what, B, T, NH, DK, DV, chunk, broadcast, with_i, final in ssd_grad_shapes():
+        heads = 1 if broadcast else NH
+        q, k = ((torch.randn(B, T, heads, DK, generator=g, device=dev) * 0.5).to(bf16)
+                .expand(B, T, NH, DK) for _ in range(2))
+        v = (torch.randn(B, T, NH, DV, generator=g, device=dev) * 0.5).to(bf16)
+        if with_i:  # the mLSTM's gates and its ones column
+            v[..., -1] = 1.0
+            log_g = F.logsigmoid(torch.randn(B, T, NH, generator=g, device=dev) + 4.0)
+            log_i = torch.rand(B, T, NH, generator=g, device=dev) * 40.0 - 30.0
+        else:
+            log_g = -0.05 * F.softplus(torch.randn(B, T, NH, generator=g, device=dev))
+            log_i = None
+        dy = torch.randn(B, T, NH, DV, generator=g, device=dev).to(bf16)
+        dstate = torch.randn(B, NH, DK, DV, generator=g, device=dev) if final else None
+        args = (q, k, v, log_g, log_i, dy, dstate)
+
+        def call():
+            return ssd.ssd_scan_backward(*args, chunk=chunk)
+
+        got, again = call(), call()
+        want = ssd.chunked_linear_attention_backward_plain(
+            *(None if t is None else t.float() for t in args), chunk=chunk)
+        plain = ssd.chunked_linear_attention_backward_plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        gaps, plain_gaps = {}, {}
+        for n, a, b, c, pl in zip(names, got, want, again, plain):
+            if b is None:
+                continue
+            gaps[n] = assert_grad_close(a, b, f"ssd_scan_backward {n} ({what})")
+            plain_gaps[n] = grad_gap(pl.to(a.dtype), b)
+            if not torch.equal(a, c):
+                raise AssertionError(f"ssd_scan_backward ({what}): two calls differ in {n}")
+        del got, again, want, plain
+        b_ms, b_by = ssd_backward_bound(B, T, NH, DK, DV, chunk, broadcast, with_i, final)
+        r = dict(shape=[B, T, NH, DK, DV], what=what, chunk=chunk, max_abs_err=max(gaps.values()),
+                 gaps=gaps, plain_bf16_gaps=plain_gaps, tol=GRAD_TOL,
+                 ms=time_ms(call, iters=10), parent_ms=None,
+                 forward_ms=time_ms(lambda: ssd.ssd_scan_bthd(q, k, v, log_g, log_i, chunk=chunk),
+                                    iters=10),
+                 # a chain of large einsums whose host work outruns the card
+                 plain_ms=once_ms(lambda: ssd.chunked_linear_attention_backward_plain(
+                     *args, chunk=chunk)),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                 host_ms=host_ms(call, calls=20), per_kernel_us=kernel_us(call, calls=5))
+        log(f"[kernels] ssd_scan_backward at the {what} shape (B, T, NH, DK, DV) = "
+            f"({B}, {T}, {NH}, {DK}, {DV}), chunk {chunk}, q/k "
+            f"{'broadcast' if broadcast else 'per head'}, {'with' if with_i else 'no'} log_i, "
+            f"{'a' if final else 'no'} final-state cotangent, bf16: {r['ms'] * 1e3:.3f} us vs "
+            f"bound {b_ms * 1e3:.3f} us ({b_by}), the forward {r['forward_ms'] * 1e3:.3f} us, "
+            f"plain {r['plain_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; "
+            + ", ".join(f"{n} within {x:.3g}" for n, x in gaps.items())
+            + f" of the f32 plain backward's max |value| (tol {GRAD_TOL}; the plain backward "
+            f"from the bf16 inputs: " + ", ".join(f"{x:.3g}" for x in plain_gaps.values())
+            + "); bit-equal run to run; launches: "
+            + ", ".join(f"{n} {us:.3f} us" for n, us in r["per_kernel_us"].items()))
+        rows.append(r)
+        del q, k, v, log_g, log_i, dy, dstate, args
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows), shapes=rows)
 
 
 # ----------------------------------------------------------------- phase 3
@@ -2440,6 +2609,14 @@ def model_for(arch: str, n_layers: int | None = None, dtype=None):
     defs = dict(model.defs)
     if "layers" in defs:
         defs["layers"] = defs["layers"][:n_layers]
+    elif "inner" in defs:  # the hybrid and xLSTM: whole groups of the pattern
+        period = len(defs["inner"][0]) + ("shared_attn" in defs or "outer" in defs)
+        if n_layers % period:
+            raise ValueError(f"{arch}: a cut to {n_layers} layers splits a group of {period}")
+        cut = dataclasses.replace(cut, ssm_pattern=cfg.ssm_pattern[:n_layers])
+        defs["inner"] = defs["inner"][:n_layers // period]
+        if "outer" in defs:
+            defs["outer"] = defs["outer"][:n_layers // period]
     elif n_layers > cfg.dense_layers:
         defs["moe_layers"] = defs["moe_layers"][:n_layers - cfg.dense_layers]
     else:
@@ -2891,15 +3068,25 @@ def train_batch(pipe, step: int, dev) -> dict:
 
 
 def train_expect(cfg) -> dict:
-    """The kernel launches of one qwen2-family train step: each micro-batch
-    runs the forward's norms and attention twice (remat's recompute), and
-    each backward kernel once a layer (the norms' also at the final norm)."""
+    """The kernel launches of one train step, from the config: each
+    micro-batch runs every block's forward twice (remat's recompute, a
+    layer or a group at a time) and each backward kernel once.  Every block
+    has two norms (a dense layer's and the shared attention block's before
+    attention and the MLP; a Mamba2 block's pre-norm and gated norm; an
+    mLSTM or sLSTM block's pre-norm and output norm), and the final norm
+    one outside the remat; each attention layer (or application of the
+    shared block) one flash forward with its LSE and one flash backward;
+    each Mamba2 or mLSTM block one ssd_scan forward and one backward."""
     L = cfg.n_layers
+    pattern = cfg.ssm_pattern or "a" * L
+    n_attn, n_scan = pattern.count("a"), sum(pattern.count(c) for c in "mM")
     return {"rmsnorm": TRAIN_ACCUM * (2 * L + 1 + 2 * L),
             "rmsnorm_backward": TRAIN_ACCUM * (2 * L + 1),
-            "flash_attention_forward_lse": TRAIN_ACCUM * 2 * L,
-            "flash_attention_backward": TRAIN_ACCUM * L,
-            "flash_attention": 0}
+            "flash_attention_forward_lse": TRAIN_ACCUM * 2 * n_attn,
+            "flash_attention_backward": TRAIN_ACCUM * n_attn,
+            "flash_attention": 0,
+            "ssd_scan": TRAIN_ACCUM * 2 * n_scan,
+            "ssd_scan_backward": TRAIN_ACCUM * n_scan}
 
 
 def train_run(what: str, model, step, opt_cfg, batches, dev) -> dict:
@@ -2972,8 +3159,25 @@ def train_run(what: str, model, step, opt_cfg, batches, dev) -> dict:
     return r
 
 
-def phase_train(dev) -> dict:
-    """6a: qwen2-1.5b at full width and depth, built on the card from a seed,
+def out_of_memory_fails(arch: str, run):
+    """`run()`, a card that runs out of memory failing the phase with what
+    it held, not shortening the run."""
+    import torch
+
+    try:
+        return run()
+    except torch.cuda.OutOfMemoryError as e:
+        total = torch.cuda.get_device_properties(torch.cuda.current_device()).total_memory
+        raise AssertionError(
+            f"{arch}: the card cannot hold the train run: peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved of "
+            f"{total / 2**30:.2f} GiB ({e})") from e
+
+
+def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
+    """6a (qwen2-1.5b) and 6d (zamba2-2.7b, `HYBRID_TRAIN_ARCH`): `arch` at
+    full width and depth, built on the card from a seed,
     trained through the port's `make_train_step` (AdamW at lr 1e-3, remat,
     `TRAIN_ACCUM` micro-batches) on `TokenPipeline` data in two runs from
     the same seed and batches (`train_run`): the step run eagerly, then the
@@ -2987,7 +3191,8 @@ def phase_train(dev) -> dict:
     and the card run them once a replay.  The eager run's state is freed
     before the graphed run starts.  Returns the graphed run's launches
     (the counters' advance, less what the graph recorded, plus its
-    replays)."""
+    replays).  A card that cannot hold a run fails the phase, naming the
+    memory it held."""
     import gc
 
     import torch
@@ -2997,12 +3202,15 @@ def phase_train(dev) -> dict:
     from repro_torch.training import AdamWConfig, compile_train_step, make_train_step
     from repro_torch.training.train_lib import TRAIN_GRAPH_STATS as G
 
-    cfg, model = model_for(TRAIN_ARCH)
+    cfg, model = model_for(arch)
     opt_cfg = AdamWConfig(lr=1e-3)
     step = make_train_step(model, opt_cfg, remat=True, accum_steps=TRAIN_ACCUM)
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED)
     n_params = count_params(model.defs)
-    log(f"[train] {TRAIN_ARCH} at full width and depth: {cfg.n_layers} layers, d_model "
+    blocks = (f"pattern {cfg.ssm_pattern[:len(cfg.ssm_pattern) // 9]} x 9, "
+              if arch == HYBRID_TRAIN_ARCH else "")
+    log(f"[train] {arch} at full width and depth: {cfg.n_layers} layers ({blocks}"
+        f"{train_expect(cfg)['ssd_scan_backward'] // TRAIN_ACCUM} scanned blocks), d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab}; {n_params / 1e9:.3f} B parameters ({n_params * 2 / 1e9:.2f} GB bf16, f32 "
         f"moments {n_params * 8 / 1e9:.2f} GB; a checkpoint of both would write "
@@ -3010,7 +3218,8 @@ def phase_train(dev) -> dict:
         f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ} tokens a step; eager, then graphed")
     batches = [train_batch(pipe, i, dev) for i in range(TRAIN_STEPS + 1)]
     expect = train_expect(cfg)
-    eager = train_run("eager", model, step, opt_cfg, batches, dev)
+    eager = out_of_memory_fails(arch, lambda: train_run(f"{arch} eager", model, step, opt_cfg,
+                                                         batches, dev))
     gc.collect()
     torch.cuda.empty_cache()
     for name, n in expect.items():
@@ -3019,8 +3228,9 @@ def phase_train(dev) -> dict:
                                  f"{TRAIN_STEPS} steps, expected {n} a step")
     G.reset()
     compiled = compile_train_step(step)
-    graphed = train_run("graphs", model, compiled, opt_cfg, batches, dev)
-    log(f"[train] graphs: {G.misses} warm-up step(s) run eagerly, {G.captures} graph(s) "
+    graphed = out_of_memory_fails(arch, lambda: train_run(f"{arch} graphs", model, compiled,
+                                                           opt_cfg, batches, dev))
+    log(f"[train] {arch} graphs: {G.misses} warm-up step(s) run eagerly, {G.captures} graph(s) "
         f"captured in {G.capture_s * 1e3:.1f} ms (host time inside capture_begin .. "
         f"capture_end), holding {G.reserved_bytes / 2**30:.2f} GiB reserved, "
         f"{G.allocated_bytes / 2**30:.2f} GiB allocated; {G.replays} replays "
@@ -3036,7 +3246,7 @@ def phase_train(dev) -> dict:
     launched = {name: graphed["counts"].get(name, 0) - G.captured.get(name, 0)
                 + G.captured.get(name, 0) * replays for name in graphed["counts"]}
     per_step = {k: v / TRAIN_STEPS for k, v in launched.items() if v}
-    log(f"[train] graphs: kernel launches a step (the warm-up's, and the graph's once a "
+    log(f"[train] {arch} graphs: kernel launches a step (the warm-up's, and the graph's once a "
         f"replay): {per_step}")
     for i, (a, b) in enumerate(zip(eager["losses"], graphed["losses"], strict=True)):
         if a != b or eager["gnorms"][i] != graphed["gnorms"][i]:
@@ -3054,7 +3264,7 @@ def phase_train(dev) -> dict:
         return " vs ".join("not measured" if r[key] is None else f"{r[key]:.3f}"
                            for r in (graphed, eager))
 
-    log(f"[train] graphs vs eager: losses and grad norms bit-equal at all {TRAIN_STEPS + 1} "
+    log(f"[train] {arch} graphs vs eager: losses and grad norms bit-equal at all {TRAIN_STEPS + 1} "
         f"steps, the {len(eager['names'])} parameter leaves byte-equal after them; over steps "
         f"2-{TRAIN_STEPS - 1} {graphed['ms2']:.1f} vs {eager['ms2']:.1f} ms a step, "
         f"{graphed['tok_s2']:.0f} vs {eager['tok_s2']:.0f} tokens/s; one step's busy share "
@@ -3062,67 +3272,173 @@ def phase_train(dev) -> dict:
         f"launch calls a step {graphed['host_launches']} vs "
         f"{eager['host_launches']}; "
         f"peak {graphed['peak'] / 2**30:.2f} vs {eager['peak'] / 2**30:.2f} GiB allocated, "
-        f"{graphed['reserved'] / 2**30:.2f} vs {eager['reserved'] / 2**30:.2f} GiB reserved; "
-        "the graphed step before the flash backward's redesign (PERF.md section 2): 508.5 ms "
-        "a step, 16111 tokens/s")
+        f"{graphed['reserved'] / 2**30:.2f} vs {eager['reserved'] / 2**30:.2f} GiB reserved"
+        + ("; the graphed step before the flash backward's redesign (PERF.md section 2): "
+           "508.5 ms a step, 16111 tokens/s" if arch == TRAIN_ARCH else ""))
     del compiled, eager, graphed
     gc.collect()
     torch.cuda.empty_cache()
     return launched
 
 
-def phase_grad_parity(dev) -> None:
-    """6b: qwen2-1.5b at full width, its first `GRAD_PARITY_LAYERS` layers:
-    one `Model.loss` and its gradients through `KERNELS` (the kernels'
-    autograd routes) and through `PLAIN` (autograd through the plain math)
-    on the same parameters and batch; every leaf's gradient within `tol`
-    (5e-2) of its own max |value|.  This is what fails if a kernel's output
-    leaves autograd's graph (its inputs would get no gradient through it).
+def scan_recorder(calls: list):
+    """KERNELS' linear attention (`ssd_scan_bthd`), recording each call
+    whose output takes part in the backward: its inputs, y's cotangent and
+    the gradient autograd delivers to each input that needs one (hooks; a
+    call remat only recomputes gets none)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    def linear_attention(q, k, v, log_g, log_i=None, chunk=256):
+        y, state = ssd.ssd_scan_bthd(q, k, v, log_g, log_i, chunk)
+        if y.requires_grad:
+            args = (q, k, v, log_g, log_i)
+            rec = {"args": tuple(None if t is None else t.detach() for t in args), "chunk": chunk,
+                   "need": [i for i, t in enumerate(args) if t is not None and t.requires_grad],
+                   "grads": {}}
+            y.register_hook(lambda dy: rec.__setitem__("dy", dy.detach()))
+            for i in rec["need"]:
+                args[i].register_hook(lambda g, i=i: rec["grads"].__setitem__(i, g.detach()))
+            calls.append(rec)
+        return y, state
+
+    return linear_attention
+
+
+def check_scan_calls(arch: str, calls: list) -> None:
+    """`ssd_scan_backward` at the inputs and cotangents the model gave each
+    scan call of a loss's backward (Mamba2's gates, the mLSTM's log_i and
+    normaliser column as the model makes them): what autograd delivered to
+    each of the call's inputs bit-equal to the kernel's gradients there
+    (the autograd route's wiring, whatever the model's bf16 noise), and
+    each gradient within GRAD_TOL of the max |value| of the plain backward
+    run in f32 from the same inputs."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.testing.parity import GRAD_TOL, assert_grad_close
+
+    names = ("dq", "dk", "dv", "dlog_g", "dlog_i")
+    worst = dict.fromkeys(names, 0.0)
+    used = [c for c in calls if "dy" in c]
+    for i, c in enumerate(used):
+        got = ssd.ssd_scan_backward(*c["args"], c["dy"], None, chunk=c["chunk"])
+        for j in c["need"]:
+            g = c["grads"].get(j)
+            if g is None or not torch.equal(got[j].to(g.dtype), g):
+                raise AssertionError(f"{arch} scan call {i}: autograd delivered "
+                                     f"{'no' if g is None else 'another'} {names[j]} than the "
+                                     f"backward kernel's at the call's inputs")
+        want = ssd.chunked_linear_attention_backward_plain(
+            *(None if t is None else t.float() for t in c["args"]), c["dy"].float(), None,
+            chunk=c["chunk"])
+        for n, a, b in zip(names, got, want):
+            if b is not None:
+                worst[n] = max(worst[n], assert_grad_close(a, b, f"{arch} scan call {i}: {n}"))
+        del got, want
+    if not used:
+        raise AssertionError(f"{arch}: no scan call reached the backward")
+    log(f"[train] gradient parity, {arch}: at each of the {len(used)} scan calls' own inputs "
+        f"and cotangents (shape {tuple(used[0]['args'][2].shape)}, chunk {used[0]['chunk']}), "
+        f"autograd delivered the backward kernel's gradients bit for bit to "
+        + ", ".join(names[j][1:] for j in used[0]["need"])
+        + "; against the f32 plain backward: worst "
+        + ", ".join(f"{n} {x:.3g}" for n, x in worst.items() if x) + f" (tol {GRAD_TOL})")
+    calls.clear()
+    torch.cuda.empty_cache()
+
+
+def phase_grad_parity(dev, arch: str, n_layers: int) -> None:
+    """6b, for each of `GRAD_PARITY_RUNS`: `arch` at full width, its first
+    `n_layers` layers (qwen2-1.5b's 2 of 28; zamba2-2.7b's first group, 5
+    Mamba2 blocks and the shared attention; xlstm-1.3b's first period, 7
+    mLSTM blocks on the scan's wide path and 1 sLSTM), a micro-batch of 4 x
+    1024 tokens: one `Model.loss` and its gradients through `KERNELS` (the
+    kernels' autograd routes), through `PLAIN` (autograd through the plain
+    math) and through the plain math in f32, on the same parameters and
+    batch.  Every leaf's gradient through the kernels is finite, zero only
+    where the plain math's is, and within `F32_FLOOR_FACTOR` times the
+    plain math's own bf16 distance from the f32 gradient (that distance
+    taken as at least 5e-2 of the leaf's scale); where the model runs no
+    scan, also within 5e-2 of the plain math's.  This is what fails if a
+    kernel's output leaves autograd's graph (its inputs would get no
+    gradient through it).  For the scanned models each scan call of the
+    kernels' pass is first held (`check_scan_calls`): autograd delivered
+    the backward kernel's gradients at that call's inputs and cotangents
+    bit for bit, and they lie within GRAD_TOL of the f32 plain backward.
     The parameters are fan-in conditioned (`condition_fan_in`): at the
     init's std of 1/sqrt(28) a 1536-wide projection scales its input by
     about 7, the attention scores saturate, and the attention leaves'
     bf16 gradients are rounding noise in either route (the plain math's
     own bf16 gradients then stray from its f32 ones by more than their
     scale, on the CPU at two layers)."""
+    import copy
+    import dataclasses
     import gc
 
     import torch
 
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.models.common import KERNELS, PLAIN
+    from repro_torch.models.model_zoo import Model
     from repro_torch.testing.parity import condition_fan_in, grad_gap, tol
     from repro_torch.training.tree import leaves
 
-    cfg, model = model_for(TRAIN_ARCH, GRAD_PARITY_LAYERS)
+    cfg, model = model_for(arch, n_layers)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED + 2))
     condition_fan_in(params, model.defs)
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                          global_batch=TRAIN_BATCH // TRAIN_ACCUM, seed=SEED + 2)
     batch = train_batch(pipe, 0, dev)
     names = [n for n, _ in sorted(params.named_parameters())]
-    trained = leaves(params)
-    for p in trained:
-        p.requires_grad_(True)
-    out = {}
-    for what, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+
+    def grads(model, params, ops):
+        for p in leaves(params):
+            p.requires_grad_(True)
         loss = model.loss(params, batch, remat=True, ops=ops)
-        out[what] = (float(loss.detach()), torch.autograd.grad(loss, trained))
-        del loss
-    for p in trained:
-        p.requires_grad_(False)
+        out = (float(loss.detach()), torch.autograd.grad(loss, leaves(params)))
+        for p in leaves(params):
+            p.requires_grad_(False)
+        return out
+
+    model32 = Model(cfg=dataclasses.replace(cfg, dtype=torch.float32), defs=model.defs,
+                    mod=model.mod)
+    scanned = bool(set(cfg.ssm_pattern or "") & set("mM"))
+    calls: list = []
+    kernels = (dataclasses.replace(KERNELS, linear_attention=scan_recorder(calls))
+               if scanned else KERNELS)
+    lk, gk = grads(model, params, kernels)
+    if scanned:
+        check_scan_calls(arch, calls)
+    lp, gp = grads(model, params, PLAIN)
+    l32, g32 = grads(model32, copy.deepcopy(params).float(), PLAIN)
     bound = tol(torch.bfloat16)["atol"]
-    gaps = sorted(((grad_gap(a, b), n) for n, a, b in zip(names, out["kernels"][1],
-                                                          out["plain"][1])), reverse=True)
-    (lk, _), (lp, _) = out["kernels"], out["plain"]
-    log(f"[train] gradient parity, {TRAIN_ARCH} at full width, {GRAD_PARITY_LAYERS} of "
-        f"{model_for(TRAIN_ARCH)[0].n_layers} layers, a micro-batch of "
-        f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ}: loss {lk:.6f} through the kernels, "
-        f"{lp:.6f} through the plain math (gap {abs(lk - lp):.3g}); worst leaves "
-        + ", ".join(f"{n} {g:.3g}" for g, n in gaps[:4]) + f" of max |grad| (tol {bound})")
-    if gaps[0][0] > bound:
-        raise AssertionError(f"gradient of {gaps[0][1]} through the kernels differs from the "
-                             f"plain math's by {gaps[0][0]:.3g} of its scale")
-    del params, out, trained
+    gaps = sorted(((grad_gap(a, b), n) for n, a, b in zip(names, gk, gp)), reverse=True)
+    floor = {n: grad_gap(b, c) for n, b, c in zip(names, gp, g32)}
+    to_f32 = {n: grad_gap(a, c) for n, a, c in zip(names, gk, g32)}
+    ratio = sorted(((to_f32[n] / max(floor[n], bound), n) for n in names), reverse=True)
+    log(f"[train] gradient parity, {arch} at full width, {n_layers} of "
+        f"{model_for(arch)[0].n_layers} layers, a micro-batch of {TRAIN_BATCH // TRAIN_ACCUM} x "
+        f"{TRAIN_SEQ}: loss {lk:.6f} through the kernels, {lp:.6f} through the plain math (gap "
+        f"{abs(lk - lp):.3g}), {l32:.6f} in f32; the kernels' against f32 over the plain math's "
+        f"bf16 against f32 (at least {bound}), worst "
+        + ", ".join(f"{n} {r:.3g} ({to_f32[n]:.3g} / {floor[n]:.3g})" for r, n in ratio[:4])
+        + f" (held to {F32_FLOOR_FACTOR}); the kernels against the plain math, worst "
+        + ", ".join(f"{n} {g:.3g}" for g, n in gaps[:4]) + " of max |grad|"
+        + ("" if scanned else f" (held to {bound})"))
+    for n, a, b in zip(names, gk, gp):
+        if not torch.isfinite(a).all() or (float(a.abs().max()) == 0.0) != \
+                (float(b.abs().max()) == 0.0):
+            raise AssertionError(f"{arch}: gradient of {n} through the kernels is not finite, "
+                                 f"or zero where the plain math's is not (or the reverse)")
+    if ratio[0][0] > F32_FLOOR_FACTOR:
+        n = ratio[0][1]
+        raise AssertionError(f"{arch}: gradient of {n} through the kernels is {to_f32[n]:.3g} "
+                             f"of its scale from the f32 gradient, the plain math's "
+                             f"{floor[n]:.3g}")
+    if not scanned and gaps[0][0] > bound:
+        raise AssertionError(f"{arch}: gradient of {gaps[0][1]} through the kernels differs "
+                             f"from the plain math's by {gaps[0][0]:.3g} of its scale")
+    del params, gk, gp, g32
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3233,8 +3549,11 @@ def main() -> int:
     del session
     decode = phase_decode(serving, dev, parent)
     train = phase_train(dev)
-    phase_grad_parity(dev)
+    for arch, n_layers in GRAD_PARITY_RUNS:
+        phase_grad_parity(dev, arch, n_layers)
     phase_elastic(dev)
+    hybrid = phase_train(dev, HYBRID_TRAIN_ARCH)
+    train = {name: train.get(name, 0) + hybrid.get(name, 0) for name in {*train, *hybrid}}
     launches = {name: {"serve": launches.get(name, 0), "decode": decode.get(name, 0),
                        "train": train.get(name, 0)} for name in KERNEL_NAMES}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

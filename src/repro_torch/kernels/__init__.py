@@ -19,7 +19,8 @@ def counters() -> dict:
             "flash_attention": fa.flash_attention, "decode_attention": da.decode_attention,
             "ssd_scan": ssd.ssd_scan, "rmsnorm_backward": rn.rmsnorm_backward,
             "flash_attention_forward_lse": fa.flash_attention_forward_lse,
-            "flash_attention_backward": fa.flash_attention_backward}
+            "flash_attention_backward": fa.flash_attention_backward,
+            "ssd_scan_backward": ssd.ssd_scan_backward}
 
 
 def launch_counts() -> dict[str, int]:

@@ -13,7 +13,7 @@ the plain PyTorch version, CUDA tensors launch the kernel (or raise), and
 any other device raises.  Nothing falls back.  `needs_grad(...)` is the
 rule under autograd: a CUDA input that needs a gradient goes through the
 kernel's `torch.autograd.Function` (rmsnorm, flash attention's training
-route), or, for a kernel with no backward, raises (`no_backward`, a
+route, the SSD scan in bf16), or, for a kernel with no backward, raises (`no_backward`, a
 `ProgramError`): a kernel's output never silently drops its inputs'
 gradients.
 """

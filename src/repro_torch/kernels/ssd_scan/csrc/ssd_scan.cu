@@ -119,6 +119,55 @@
 // took 971.867 us); f32, 3112.218 us, pass 1 alone 1919.451 (element
 // loads of f32 tiles, three parts, two blocks an SM).  The narrow path
 // read 103.307 us at zamba2-2.7b's prefill.
+//
+// The backward, `ssd_backward` (bf16 inputs; no Pallas counterpart: the
+// reference takes jax.grad of src/repro/models/ssm.py:29
+// `chunked_linear_attention`).  Per chunk, with D_ts, w_s and the clips as
+// above, S_c the state entering chunk c and G_c the cotangent of the state
+// leaving it (G_last = dstate, G_{c-1} = exp(clip(total_c)) G_c + U_c,
+// U_c = sum_t exp(clip(cum_t)) q_t dy_t^T), P_ts = D_ts (q_t.k_s) and
+// dS_ts = D_ts (dy_t.v_s):
+//   dq_t = sum_s dS_ts k_s + exp(clip(cum_t)) S_c dy_t
+//   dk_s = sum_t dS_ts q_t + w_s G_c v_s
+//   dv_s = sum_t P_ts dy_t + w_s G_c^T k_s
+// and the gates from g_ts = P_ts (dy_t.v_s) (to dcum_t, -dcum_s, dli_s),
+// exp(cum_t) q_t.S_c dy_t (dcum_t), h_s = w_s k_s.G_c v_s (dtotal, -dcum_s,
+// dli_s) and exp(total) <S_c, G_c> (dtotal), each where its clip passes;
+// dlog_g_u = sum_{t>=u} dcum_t + dtotal.  Nine launches past 64-wide
+// states, seven for narrow ones (5-8 below become `narrow_dq_kernel` and
+// `narrow_dkdv_kernel`, the forward output kernel's shape with P and dS in
+// registers and the gate sums finished in the block), every sum in a
+// fixed order (no atomics: bit-equal run to run, and capturable):
+//  1-2. the forward's `local_kernel` and `fold_kernel` again, for cum, li
+//     and the entering states (the inputs are saved, not the forward's
+//     scratch: keeping it would hold every chunk's entering state, in two
+//     bf16 parts, from each block's forward to its backward);
+//  3. `local_kernel<T, true>`: U_c for all chunks at once;
+//  4. `gfold_kernel`: the G_c in reverse chunk order, as MID bf16 parts,
+//     and each block's share of <S_c, G_c>;
+//  5. `bscores_kernel`, a block per (chunk, row block, key block <= it):
+//     q.k^T over the DK tiles and dy.v^T over the DV tiles, P and dS
+//     written in f32 (the mLSTM's sums span 16 and 17 tiles, so no block of
+//     one output tile can form them alone), with each pair's sums of g by
+//     row and by column;
+//  6-8. `grad_kernel` for dq (a block per row block: the key blocks <= it),
+//     dk and dv (a block per key block: the row blocks >= it, the tiles
+//     transposed by `ldmatrix .trans`), each per 64-wide output tile, the
+//     state term first over the other width's tiles;
+//  9. `gates_kernel`, a warp per chunk: the partial sums in order and the
+//     suffix sums of dcum.
+// dq and dk are written per head: where q and k are broadcast over the
+// heads (Mamba2), autograd's expand backward sums them.  Products take
+// parts as the forward's do (P, dS, S_c and G_c two bf16 parts).
+//
+// Bound on the card: operations (chip_smoke.py `ssd_backward_bound`, the
+// products with an f32 operand at half the bf16 rate): 69.382 us at
+// zamba2-2.7b's train micro-batch (4, 1024, 80, 64), chunk 256, q/k
+// broadcast; 365.261 us at the mLSTM's (4, 1024, 4, 1024, 1025).
+// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 647.536 and
+// 3225.866 us, 9.3x and 8.8x; the narrow path's dk/dv and dq kernels are
+// most of the first (295.513 and 178.619 us of a 648.656 us call), the
+// state passes most of the second.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,6 +212,21 @@ struct Args {
   // per tensor: bf16 rows by 16-byte cp.async (aligned base and strides,
   // width % 8 == 0)
   int vq, vk, vv;
+  // the backward (ssd_backward) only:
+  const void* dy;        // (B, T, NH, DV): the cotangent of y, through sdy
+  Strides sdy;
+  int vdy;
+  const float* dstate;   // (B, NH, DK, DV): the cotangent of the final state, or null (zero)
+  bf16* gstate;          // like `entering`: G_c, the cotangent of the state leaving chunk c
+  float* pmat;           // like `scores`: P_ts = (q_t.k_s) D_ts of each (row block, key block) pair
+  float* dsmat;          // the same pairs of dS_ts = (dy_t.v_s) D_ts
+  float* rpart;          // (B, NH, nc, n_tri, 64): each pair's sums of g_ts over s, by row t
+  float* cpart;          // the same over t, by column s
+  float* ipart;          // (B, NH, nk, T): q_t . (S_c dy_t) over each DK tile
+  float* hpart;          // (B, NH, nk, T): k_s . (G_c v_s) over each DK tile
+  float* dpart;          // (B, NH, nc, fold blocks): <S_c, G_c> over each fold block's elements
+  void *dq, *dk, *dv;    // (B, T, NH, DK or DV) contiguous, in the input dtype
+  float *dlog_g, *dli;   // (B, T, NH) contiguous; dli null without log_i
 };
 
 // parts of an input (IN) and of an f32 operand (MID); a product takes the
@@ -312,7 +376,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, const T* src, int64_t rs, i
 // one 64 x 64 tile (DK tile dk, DV tile dv) of the chunk's local state
 // L_c = sum_s (k_s w_s) v_s^T, and (tile (0, 0)) the chunk's cumulative
 // decay; shared memory: a two-stage ring of (k, v) tiles, then cum and w
-template <typename T>
+//
+// BWD (the backward's pass): the same sum over the chunk with q for k, dy
+// for v and exp(clip(cum_t)) for w, U_c = sum_t exp(clip(cum_t)) q_t dy_t^T,
+// the chunk's own share of the cotangent of the state entering it; the gate
+// scratch is left as the forward's pass wrote it
+template <typename T, bool BWD>
 __global__ void __launch_bounds__(kThreads)
 local_kernel(const __grid_constant__ Args a) {
   constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
@@ -326,14 +395,17 @@ local_kernel(const __grid_constant__ Args a) {
   const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0);
   const int n_tiles = (Lc + kTile - 1) / kTile;
   float* w = cum + n_tiles * kTile;
-  const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h + c0 * a.sk.t + dk * kTile;
-  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h + c0 * a.sv.t + dv * kTile;
+  const Strides sk = BWD ? a.sq : a.sk;
+  const Strides sv = BWD ? a.sdy : a.sv;
+  const bool vk = (BWD ? a.vq : a.vk) != 0, vv = (BWD ? a.vdy : a.vv) != 0;
+  const T* kb = static_cast<const T*>(BWD ? a.q : a.k) + b * sk.b + h * sk.h + c0 * sk.t + dk * kTile;
+  const T* vb = static_cast<const T*>(BWD ? a.dy : a.v) + b * sv.b + h * sv.h + c0 * sv.t + dv * kTile;
 
   auto issue = [&](int j) {
     bf16* st = ring + (j & 1) * 2 * IN * kPlane;
     const int rows = min(kTile, Lc - j * kTile);
-    load_tile<T, IN>(st, kb + j * kTile * a.sk.t, a.sk.t, rows, wk, a.vk != 0);
-    load_tile<T, IN>(st + IN * kPlane, vb + j * kTile * a.sv.t, a.sv.t, rows, wv, a.vv != 0);
+    load_tile<T, IN>(st, kb + j * kTile * sk.t, sk.t, rows, wk, vk);
+    load_tile<T, IN>(st + IN * kPlane, vb + j * kTile * sv.t, sv.t, rows, wv, vv);
   };
   issue(0);
   cp_async_commit();
@@ -367,11 +439,11 @@ local_kernel(const __grid_constant__ Args a) {
   const float total = cum[Lc - 1];
   const int64_t row0 = (static_cast<int64_t>(b) * a.NH + h) * a.T + c0;
   for (int t = tid; t < n_tiles * kTile; t += kThreads) {
-    if (t < Lc && tile == 0) {
+    if (t < Lc && tile == 0 && !BWD) {
       a.cum[row0 + t] = cum[t];
       a.li[row0 + t] = w[t];
     }
-    w[t] = t < Lc ? __expf(clip(total - cum[t] + w[t])) : 0.0f;
+    w[t] = t >= Lc ? 0.0f : BWD ? __expf(clip(cum[t])) : __expf(clip(total - cum[t] + w[t]));
   }
 
   // warp: state rows d in [16 warp, 16 warp + 16), all 64 columns
@@ -471,7 +543,7 @@ __global__ void __launch_bounds__(256) fold_kernel(const __grid_constant__ Args 
     const float l = L[static_cast<int64_t>(c) * tiles * kEl];
     S = expf(clip(cum[last])) * S + l;
   }
-  if (valid) a.state[bh * n_el + static_cast<int64_t>(d) * a.DV + col] = S;
+  if (valid && a.state != nullptr) a.state[bh * n_el + static_cast<int64_t>(d) * a.DV + col] = S;
 }
 
 // ---------------------------------------------------------------- pass 3
@@ -921,6 +993,812 @@ __global__ void __launch_bounds__(kThreads) output_wide_kernel(const __grid_cons
   }
 }
 
+// ------------------------------------------------------------- backward
+//
+// `ssd_backward` (see the note at the head of the file): the forward's
+// passes 1-2 again (cum, li, the entering states), `local_kernel<T, true>`
+// (U_c), then `gfold_kernel` (the state cotangents), `bscores_kernel` (P,
+// dS and the gate sums of each pair), `grad_kernel` for dq, dk and dv, and
+// `gates_kernel` (dlog_g, dlog_i).
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ bool passes(float x) { return x >= -kClip && x <= kClip; }
+
+// the A fragments of 16 rows x 16 columns (cols 16 kk..) of IN planes
+template <int IN>
+__device__ __forceinline__ void frag_a(uint32_t plane, int m0, int kk, int lane, uint32_t (&f)[IN][4]) {
+#pragma unroll
+  for (int i = 0; i < IN; ++i) ldsm(plane + i * kPlaneBytes + a_off(m0, 16 * kk, lane), f[i]);
+}
+
+// acc (16 rows x 64) += A rows (IN planes, [row][k]) . B^T, B [n][k] in NB
+// planes (`ldmatrix` untransposed), the part pairs (i, j) with i + j < MID
+template <int IN, int NB, int MID>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], uint32_t A, uint32_t B, int m0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t fa[IN][4];
+    frag_a<IN>(A, m0, kk, lane, fa);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t fb[NB][4];
+#pragma unroll
+      for (int jj = 0; jj < NB; ++jj) ldsm(B + jj * kPlaneBytes + bn_off(16 * np, 16 * kk, lane), fb[jj]);
+#pragma unroll
+      for (int i = 0; i < IN; ++i)
+#pragma unroll
+        for (int jj = 0; jj < NB; ++jj) {
+          if (i + jj >= MID) continue;
+          mma(acc[2 * np], fa[i], fb[jj][0], fb[jj][1]);
+          mma(acc[2 * np + 1], fa[i], fb[jj][2], fb[jj][3]);
+        }
+    }
+  }
+}
+
+// acc (16 rows x 64) += A . B, B [k][n] in NB planes (`ldmatrix .trans`);
+// A rows from NA planes [row][k], or with AT its transpose from planes
+// [k][row] (`ldmatrix .trans`)
+template <int NA, int NB, int MID, bool AT = false>
+__device__ __forceinline__ void mma_ab(float (&acc)[8][4], uint32_t A, uint32_t B, int m0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t fa[NA][4];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      if constexpr (AT)
+        ldsm_t(A + i * kPlaneBytes + at_off(16 * kk, m0, lane), fa[i]);
+      else
+        ldsm(A + i * kPlaneBytes + a_off(m0, 16 * kk, lane), fa[i]);
+    }
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t fb[NB][4];
+#pragma unroll
+      for (int jj = 0; jj < NB; ++jj) ldsm_t(B + jj * kPlaneBytes + bk_off(16 * kk, 16 * np, lane), fb[jj]);
+#pragma unroll
+      for (int i = 0; i < NA; ++i)
+#pragma unroll
+        for (int jj = 0; jj < NB; ++jj) {
+          if (i + jj >= MID) continue;
+          mma(acc[2 * np], fa[i], fb[jj][0], fb[jj][1]);
+          mma(acc[2 * np + 1], fa[i], fb[jj][2], fb[jj][3]);
+        }
+    }
+  }
+}
+
+// acc (16 rows x 64) += X . B with X (16 rows x 64, f32, in the accumulator
+// layout) as the A operand in MID parts, B [k][n] in IN planes
+template <int IN, int MID>
+__device__ __forceinline__ void mma_xb(float (&acc)[8][4], const float (&x)[8][4], uint32_t B, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t pa[4][MID];
+    split2<MID>(x[2 * kk][0], x[2 * kk][1], pa[0]);
+    split2<MID>(x[2 * kk][2], x[2 * kk][3], pa[1]);
+    split2<MID>(x[2 * kk + 1][0], x[2 * kk + 1][1], pa[2]);
+    split2<MID>(x[2 * kk + 1][2], x[2 * kk + 1][3], pa[3]);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t fb[IN][4];
+#pragma unroll
+      for (int jj = 0; jj < IN; ++jj) ldsm_t(B + jj * kPlaneBytes + bk_off(16 * kk, 16 * np, lane), fb[jj]);
+#pragma unroll
+      for (int i = 0; i < MID; ++i) {
+        const uint32_t ai[4] = {pa[0][i], pa[1][i], pa[2][i], pa[3][i]};
+#pragma unroll
+        for (int jj = 0; jj < IN; ++jj) {
+          if (i + jj >= MID) continue;
+          mma(acc[2 * np], ai, fb[jj][0], fb[jj][1]);
+          mma(acc[2 * np + 1], ai, fb[jj][2], fb[jj][3]);
+        }
+      }
+    }
+  }
+}
+
+// sum over a row of the accumulator layout: x holds this thread's columns
+// of rows g and g + 8; the quad's four lanes hold the row
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// this thread's dot over the 64 columns of rows g and g + 8 of acc with a
+// [row][col] plane of X (IN planes), summed over the quad: (row g, row g + 8)
+template <int IN>
+__device__ __forceinline__ float2 row_dot(const float (&acc)[8][4], const bf16* X, int m0, int g, int tq) {
+  float d0 = 0.0f, d1 = 0.0f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * n + 2 * tq + e;
+      float x0 = 0.0f, x1 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < IN; ++i) {
+        x0 += __bfloat162float(X[i * kPlane + (m0 + g) * kPitch + col]);
+        x1 += __bfloat162float(X[i * kPlane + (m0 + g + 8) * kPitch + col]);
+      }
+      d0 += acc[n][e] * x0;
+      d1 += acc[n][2 + e] * x1;
+    }
+  return make_float2(quad_sum(d0), quad_sum(d1));
+}
+
+// copy the MID stacked 64 x 64 planes of a state tile into shared planes
+__device__ __forceinline__ void load_state(bf16* dst, const bf16* src, int mid, int tid) {
+  for (int idx = tid; idx < mid * kTile * 8; idx += kThreads) {
+    const int r = idx >> 3, col = (idx & 7) * 8;  // row r of the stacked planes
+    cp_async16(smem_addr(dst + r / kTile * kPlane + r % kTile * kPitch + col), src + r * kTile + col, 16);
+  }
+}
+
+// G_c, the cotangent of the state leaving chunk c, in reverse chunk order,
+// a thread per (element of the state padded to 64 x 64 tiles, head, batch):
+// G_last = dstate, G_{c-1} = exp(clip(total_c)) G_c + U_c, each written as
+// the MID bf16 parts the products load; and each block's share of the decay
+// term's <S_c, G_c>, S_c rebuilt from the entering state's parts, summed in
+// a fixed order (warps by shuffles, then warp by warp)
+template <typename T>
+__global__ void __launch_bounds__(256) gfold_kernel(const __grid_constant__ Args a) {
+  constexpr int MID = Parts<T>::MID;
+  constexpr int kEl = kTile * kTile;
+  __shared__ float red[8];
+  const int tiles = a.nk * a.nv;
+  const int rem = blockIdx.x * blockDim.x + threadIdx.x;  // < tiles * kEl: kEl % 256 == 0
+  const int64_t bh = static_cast<int64_t>(blockIdx.z) * a.NH + blockIdx.y;
+  const int tile = rem / kEl, e = rem % kEl;
+  const int d = tile / a.nv * kTile + e / kTile, col = tile % a.nv * kTile + e % kTile;
+  const bool valid = d < a.DK && col < a.DV;
+  const float* cum = a.cum + bh * a.T;
+  const float* U = a.local + (bh * a.nc * tiles + tile) * kEl + e;
+  const bf16* ent = a.entering + (bh * a.nc * tiles + tile) * MID * kEl + e;
+  bf16* gs = a.gstate + (bh * a.nc * tiles + tile) * MID * kEl + e;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float G = valid && a.dstate != nullptr
+                ? a.dstate[bh * a.DK * a.DV + static_cast<int64_t>(d) * a.DV + col]
+                : 0.0f;
+  for (int c = a.nc - 1; c >= 0; --c) {
+    const int64_t at = static_cast<int64_t>(c) * tiles * MID * kEl;
+    bf16 p[MID];
+    split<MID>(G, p);
+#pragma unroll
+    for (int i = 0; i < MID; ++i) gs[at + i * kEl] = p[i];
+    const float total = cum[min(c * a.chunk + a.chunk, a.T) - 1];
+    float x = 0.0f;
+    if (c > 0 && passes(total)) {
+      float S = 0.0f;
+#pragma unroll
+      for (int i = 0; i < MID; ++i) S += __bfloat162float(ent[at + i * kEl]);
+      x = expf(total) * S * G;
+    }
+    x = warp_sum(x);
+    if (lane == 0) red[warp] = x;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float sum = 0.0f;
+      for (int w = 0; w < 8; ++w) sum += red[w];
+      a.dpart[(bh * a.nc + c) * gridDim.x + blockIdx.x] = sum;
+    }
+    __syncthreads();
+    G = expf(clip(total)) * G + U[static_cast<int64_t>(c) * tiles * kEl];
+  }
+}
+
+// P_ts = (q_t.k_s) D_ts and dS_ts = (dy_t.v_s) D_ts for s <= t in the chunk
+// (else 0) of one (row block, key block <= it) pair, written in f32, with
+// the sums of g_ts = P_ts (dy_t.v_s) where D's clip passes, by row and by
+// column: a block per (chunk, pair, head, batch), q.k^T over the DK tiles
+// and then dy.v^T over the DV tiles through one two-stage ring
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bscores_kernel(const __grid_constant__ Args a) {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
+  constexpr int kEl = kTile * kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float colsum[kWarps][kTile];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int n_tb = (a.chunk + kTile - 1) / kTile;
+  const int c = blockIdx.x % a.nc, pair = blockIdx.x / a.nc, h = blockIdx.y, b = blockIdx.z;
+  int tbi = 0;
+  while (tri(tbi + 1) <= pair) ++tbi;
+  const int j = pair - tri(tbi);
+  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), tb = tbi * kTile;
+  if (tb >= Lc) return;
+  const int nt = min(kTile, Lc - tb), ns = min(kTile, Lc - j * kTile);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
+  const int64_t s0 = c0 + static_cast<int64_t>(j) * kTile;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h + (c0 + tb) * a.sq.t;
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h + s0 * a.sk.t;
+  const T* yb = static_cast<const T*>(a.dy) + b * a.sdy.b + h * a.sdy.h + (c0 + tb) * a.sdy.t;
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h + s0 * a.sv.t;
+  const int steps = a.nk + a.nv;
+
+  auto issue = [&](int n) {
+    bf16* st = ring + (n & 1) * 2 * IN * kPlane;
+    if (n < a.nk) {
+      const int w = min(kTile, a.DK - n * kTile);
+      load_tile<T, IN>(st, qb + n * kTile, a.sq.t, nt, w, a.vq != 0);
+      load_tile<T, IN>(st + IN * kPlane, kb + n * kTile, a.sk.t, ns, w, a.vk != 0);
+    } else {
+      const int m = n - a.nk, w = min(kTile, a.DV - m * kTile);
+      load_tile<T, IN>(st, yb + m * kTile, a.sdy.t, nt, w, a.vdy != 0);
+      load_tile<T, IN>(st + IN * kPlane, vb + m * kTile, a.sv.t, ns, w, a.vv != 0);
+    }
+  };
+  issue(0);
+  cp_async_commit();
+  if (steps > 1) issue(1);
+  cp_async_commit();
+
+  // acc += A.B^T over one staged pair of tiles (rows t, rows s)
+  auto step = [&](float (&acc)[8][4], int n) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t as = smem_addr(ring + (n & 1) * 2 * IN * kPlane);
+    mma_abt<IN, IN, MID>(acc, as, as + IN * kPlaneBytes, m0, lane);
+    __syncthreads();
+    if (n + 2 < steps) issue(n + 2);
+    cp_async_commit();
+  };
+  float s[8][4] = {}, dp[8][4] = {};
+  for (int n = 0; n < a.nk; ++n) step(s, n);
+  for (int n = a.nk; n < steps; ++n) step(dp, n);
+
+  const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
+  const float* cb = a.cum + bh * a.T + c0;
+  const float* lb = a.li + bh * a.T + c0;
+  const int t0 = tb + m0 + g;  // this thread's rows in the chunk: t0, t0 + 8
+  const float ct0 = (t0 < Lc ? cb[t0] : 0.0f) * kLog2e;
+  const float ct1 = (t0 + 8 < Lc ? cb[t0 + 8] : 0.0f) * kLog2e;
+  const int64_t tile_at = ((bh * a.nc + c) * tri(n_tb) + pair);
+  float* P = a.pmat + tile_at * kEl;
+  float* dS = a.dsmat + tile_at * kEl;
+  float row0 = 0.0f, row1 = 0.0f, colp[8][2];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int sk = j * kTile + 8 * n + 2 * tq + (e & 1), t = t0 + 8 * (e >> 1);
+      const float u = sk < Lc ? (lb[sk] - cb[sk]) * kLog2e : 0.0f;
+      const float x = (e < 2 ? ct0 : ct1) + u;  // the log decay in base 2
+      const bool ok = sk <= t && sk < Lc && t < Lc;
+      const float d = ex2(clip2(x));
+      p[e] = ok ? s[n][e] * d : 0.0f;
+      ds[e] = ok ? dp[n][e] * d : 0.0f;
+      const float gg = ok && x >= -kClip * kLog2e && x <= kClip * kLog2e ? p[e] * dp[n][e] : 0.0f;
+      if (e < 2) row0 += gg; else row1 += gg;
+      if (e < 2) colp[n][e] = gg; else colp[n][e & 1] += gg;
+    }
+    const int col = 8 * n + 2 * tq;
+    *reinterpret_cast<float2*>(P + (m0 + g) * kTile + col) = make_float2(p[0], p[1]);
+    *reinterpret_cast<float2*>(P + (m0 + g + 8) * kTile + col) = make_float2(p[2], p[3]);
+    *reinterpret_cast<float2*>(dS + (m0 + g) * kTile + col) = make_float2(ds[0], ds[1]);
+    *reinterpret_cast<float2*>(dS + (m0 + g + 8) * kTile + col) = make_float2(ds[2], ds[3]);
+  }
+  row0 = quad_sum(row0);
+  row1 = quad_sum(row1);
+  float* rp = a.rpart + tile_at * kTile;
+  if (tq == 0) {
+    rp[m0 + g] = row0;
+    rp[m0 + g + 8] = row1;
+  }
+  // columns: the eight lanes of one tq hold a warp's 16 rows; then the
+  // warps in order
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x = colp[n][e];
+      x += __shfl_xor_sync(0xffffffffu, x, 4);
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      x += __shfl_xor_sync(0xffffffffu, x, 16);
+      if (g == 0) colsum[warp][8 * n + 2 * tq + e] = x;
+    }
+  __syncthreads();
+  if (tid < kTile)
+    a.cpart[tile_at * kTile + tid] = ((colsum[0][tid] + colsum[1][tid]) + colsum[2][tid]) + colsum[3][tid];
+}
+
+enum { kDQ = 0, kDK = 1, kDV = 2 };
+
+// dq, dk or dv for the 64 rows of one block of a chunk and one 64-wide
+// output tile, the output_wide_kernel's ring over (A, B) tile pairs:
+//  - the state term: DQ exp(clip(cum_t)) dy_t S_c^T over the DV tiles
+//    (skipped in the first chunk, whose S_c is zero); DK w_s v_s G_c^T over
+//    the DV tiles; DV w_s k_s G_c over the DK tiles;
+//  - the pairs: DQ dS k over the key blocks <= the row block; DK dS^T q and
+//    DV P^T dy over the row blocks >= the key block (A loaded transposed).
+// DQ and DK also write their state term's dot with q or k over the tile,
+// unscaled (ipart, hpart), for the gates.  Rows past the chunk's end are
+// zero in every tile and not stored.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads) grad_kernel(const __grid_constant__ Args a) {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID, PL = IN > MID ? IN : MID;
+  constexpr int kStage = 2 * PL * kPlane;  // A planes, then B planes
+  constexpr int kEl = kTile * kTile;
+  constexpr bool kKeys = MODE != kDQ;  // rows are keys s; the pairs' tiles are transposed
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int n_tb = (a.chunk + kTile - 1) / kTile;
+  const int n_out = MODE == kDV ? a.nv : a.nk;
+  const int ot = blockIdx.x % n_out, rest = blockIdx.x / n_out;
+  const int order = rest / a.nc, c = rest % a.nc;
+  const int rb = kKeys ? order : n_tb - 1 - order;  // blocks with more pairs first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), r0 = rb * kTile;
+  if (r0 >= Lc) return;
+  const int n_tbc = (Lc + kTile - 1) / kTile;
+  const int D_out = MODE == kDV ? a.DV : a.DK;
+  const int wo = min(kTile, D_out - ot * kTile);
+  const int n_in = MODE == kDV ? a.nk : a.nv;
+  const int n_s = MODE == kDQ && c == 0 ? 0 : n_in;
+  const int n_p = kKeys ? n_tbc - rb : rb + 1;
+  const int n_steps = n_s + n_p;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
+  const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
+  const int tiles = a.nk * a.nv;
+
+  // the state term's A rows (this block's rows, a depth tile at a time)
+  const Strides sa = MODE == kDQ ? a.sdy : MODE == kDK ? a.sv : a.sk;
+  const T* ab = static_cast<const T*>(MODE == kDQ ? a.dy : MODE == kDK ? a.v : a.k) +
+                b * sa.b + h * sa.h + (c0 + r0) * sa.t;
+  const bool va = (MODE == kDQ ? a.vdy : MODE == kDK ? a.vv : a.vk) != 0;
+  const int D_in = MODE == kDV ? a.DK : a.DV;
+  const bf16* state = (MODE == kDQ ? a.entering : a.gstate) + (bh * a.nc + c) * tiles * MID * kEl;
+  // the pairs' B rows (the other block of each pair, this output tile)
+  const Strides sb = MODE == kDQ ? a.sk : MODE == kDK ? a.sq : a.sdy;
+  const T* bb = static_cast<const T*>(MODE == kDQ ? a.k : MODE == kDK ? a.q : a.dy) +
+                b * sb.b + h * sb.h + c0 * sb.t + ot * kTile;
+  const bool vb = (MODE == kDQ ? a.vk : MODE == kDK ? a.vq : a.vdy) != 0;
+  const float* pairs = (MODE == kDV ? a.pmat : a.dsmat) + (bh * a.nc + c) * tri(n_tb) * kEl;
+
+  auto issue = [&](int n) {
+    bf16* A = ring + (n & 1) * kStage;
+    bf16* B = A + PL * kPlane;
+    if (n < n_s) {  // the rows' depth tile n and the state's tile
+      load_tile<T, IN>(A, ab + n * kTile, sa.t, min(kTile, Lc - r0), min(kTile, D_in - n * kTile), va);
+      const int tile = MODE == kDV ? n * a.nv + ot : ot * a.nv + n;
+      const bf16* sp = state + tile * MID * kEl;
+      for (int idx = tid; idx < MID * kTile * 8; idx += kThreads) {
+        const int r = idx >> 3, col = (idx & 7) * 8;  // row r of the MID stacked planes
+        cp_async16(smem_addr(B + r / kTile * kPlane + r % kTile * kPitch + col), sp + r * kTile + col, 16);
+      }
+    } else {  // pair p: its tile and the other block's rows
+      const int p = n - n_s, other = kKeys ? rb + p : p;
+      const int pair = kKeys ? tri(other) + rb : tri(rb) + other;
+      load_tile<float, MID>(A, pairs + static_cast<int64_t>(pair) * kEl, kTile, kTile, kTile, false);
+      load_tile<T, IN>(B, bb + static_cast<int64_t>(other) * kTile * sb.t, sb.t,
+                       min(kTile, Lc - other * kTile), wo, vb);
+    }
+  };
+  issue(0);
+  cp_async_commit();
+  if (n_steps > 1) issue(1);
+  cp_async_commit();
+
+  const int t0 = m0 + g;  // this thread's rows in the block: t0, t0 + 8
+  float acc[8][4] = {};
+  for (int n = 0; n < n_steps; ++n) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (n == n_s) {  // the state term is complete
+      if constexpr (MODE != kDV) {  // its dot with q (DQ) or k (DK), by row
+        const Strides sx = MODE == kDQ ? a.sq : a.sk;
+        const T* xb = static_cast<const T*>(MODE == kDQ ? a.q : a.k) + b * sx.b + h * sx.h +
+                      (c0 + r0) * sx.t + ot * kTile;
+        float d0 = 0.0f, d1 = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * k + 2 * tq + e;
+            if (col >= wo) continue;
+            if (r0 + t0 < Lc) d0 += acc[k][e] * to_f32(xb[static_cast<int64_t>(t0) * sx.t + col]);
+            if (r0 + t0 + 8 < Lc) d1 += acc[k][2 + e] * to_f32(xb[static_cast<int64_t>(t0 + 8) * sx.t + col]);
+          }
+        d0 = quad_sum(d0);
+        d1 = quad_sum(d1);
+        float* part = (MODE == kDQ ? a.ipart : a.hpart) + (bh * a.nk + ot) * a.T + c0 + r0;
+        if (tq == 0 && r0 + t0 < Lc) part[t0] = d0;
+        if (tq == 0 && r0 + t0 + 8 < Lc) part[t0 + 8] = d1;
+      }
+      // the rows' scale: exp(clip(cum_t)) (DQ) or w_s (DK, DV)
+      const float* cb = a.cum + bh * a.T + c0;
+      const float* lb = a.li + bh * a.T + c0;
+      const float total = cb[Lc - 1];
+      float sc[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int t = r0 + t0 + 8 * i;
+        const float x = t >= Lc ? 0.0f : MODE == kDQ ? cb[t] : total - cb[t] + lb[t];
+        sc[i] = t < Lc ? ex2(clip2(x * kLog2e)) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        acc[k][0] *= sc[0];
+        acc[k][1] *= sc[0];
+        acc[k][2] *= sc[1];
+        acc[k][3] *= sc[1];
+      }
+    }
+    const uint32_t As = smem_addr(ring + (n & 1) * kStage), Bs = As + PL * kPlaneBytes;
+    if (n < n_s) {  // acc += A . state: A in IN parts, the state in MID parts
+      if constexpr (MODE == kDV)
+        mma_ab<IN, MID, MID>(acc, As, Bs, m0, lane);  // G [dk][dv]: k = dk, n = dv
+      else
+        mma_abt<IN, MID, MID>(acc, As, Bs, m0, lane);  // S or G [dk][dv]: n = dk, k = dv
+    } else {  // acc += the pair's tile ([t][s], transposed for keys) . B rows, in MID parts
+      mma_ab<MID, IN, MID, kKeys>(acc, As, Bs, m0, lane);
+    }
+    __syncthreads();
+    if (n + 2 < n_steps) issue(n + 2);
+    cp_async_commit();
+  }
+
+  T* out = static_cast<T*>(MODE == kDQ ? a.dq : MODE == kDK ? a.dk : a.dv);
+  const int64_t row_stride = static_cast<int64_t>(a.NH) * D_out;
+  T* ob = out + ((static_cast<int64_t>(b) * a.T + c0 + r0) * a.NH + h) * D_out + ot * kTile;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + 2 * tq;
+    if (col >= wo) continue;
+    const bool pair = col + 1 < wo;
+    if (r0 + t0 < Lc) store2(ob + t0 * row_stride + col, acc[n][0], acc[n][1], pair);
+    if (r0 + t0 + 8 < Lc) store2(ob + (t0 + 8) * row_stride + col, acc[n][2], acc[n][3], pair);
+  }
+}
+
+// Narrow states (DK and DV at most 64, Mamba2's): no pair needs more than
+// one 64-wide tile of q.k^T or dy.v^T, so P and dS stay in registers and
+// `bscores_kernel` and `grad_kernel` give way to two kernels in the
+// forward's `output_kernel` shape, which also finish the gate sums by row
+// (dq) and by column (dk, dv) in the block: `rpart` and `cpart` are then
+// (B, NH, T), one complete sum a step.
+
+// dq for 64 rows of one chunk, and their gate terms: exp(clip(cum_t)) dy_t
+// S_c^T (skipped in the first chunk), then for each key block <= the row
+// block, S = q.k^T and dP = dy.v^T, P and dS by the decay and mask, the
+// row sums of g = P dP where the clip passes, dq += dS.k.  Shared memory:
+// q and dy planes, a two-stage ring of (k, v, cum_s, li_s), cum_t; the
+// entering state sits in the ring's second stage until used.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) narrow_dq_kernel(const __grid_constant__ Args a) {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
+  constexpr int kStageBytes = 2 * IN * kPlaneBytes + 2 * kTile * 4;
+  static_assert(MID <= 2 * IN, "the entering state fits in a ring stage");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ys = qs + IN * kPlane;
+  unsigned char* ring = smem + 2 * IN * kPlaneBytes;
+  bf16* Ss = reinterpret_cast<bf16*>(ring + kStageBytes);
+  float* cum_t = reinterpret_cast<float*>(ring + 2 * kStageBytes);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int n_tb = (a.chunk + kTile - 1) / kTile;
+  const int tbi = n_tb - 1 - static_cast<int>(blockIdx.z) / a.nc;  // last row blocks first
+  const int c = static_cast<int>(blockIdx.z) % a.nc;
+  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), tb = tbi * kTile;
+  if (tb >= Lc) return;
+  const int nt = min(kTile, Lc - tb);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
+  const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h + c0 * a.sq.t;
+  const T* yb = static_cast<const T*>(a.dy) + b * a.sdy.b + h * a.sdy.h + c0 * a.sdy.t;
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h + c0 * a.sk.t;
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h + c0 * a.sv.t;
+  const float* cb = a.cum + bh * a.T + c0;
+  const float* lb = a.li + bh * a.T + c0;
+
+  auto gates = [&](float* dst, const float* src, int rows) {
+    for (int s = tid; s < kTile; s += kThreads)
+      cp_async4(smem_addr(dst + s), s < rows ? src + s : src, s < rows ? 4 : 0);
+  };
+  auto issue = [&](int j) {  // key block j
+    unsigned char* st = ring + (j & 1) * kStageBytes;
+    bf16* kt = reinterpret_cast<bf16*>(st);
+    float* cs = reinterpret_cast<float*>(st + 2 * IN * kPlaneBytes);
+    const int rows = min(kTile, Lc - j * kTile);
+    load_tile<T, IN>(kt, kb + j * kTile * a.sk.t, a.sk.t, rows, a.DK, a.vk != 0);
+    load_tile<T, IN>(kt + IN * kPlane, vb + j * kTile * a.sv.t, a.sv.t, rows, a.DV, a.vv != 0);
+    gates(cs, cb + j * kTile, rows);
+    gates(cs + kTile, lb + j * kTile, rows);
+  };
+  load_tile<T, IN>(qs, qb + tb * a.sq.t, a.sq.t, nt, a.DK, a.vq != 0);
+  load_tile<T, IN>(ys, yb + tb * a.sdy.t, a.sdy.t, nt, a.DV, a.vdy != 0);
+  if (c > 0) load_state(Ss, a.entering + (bh * a.nc + c) * MID * kTile * kTile, MID, tid);
+  gates(cum_t, cb + tb, nt);
+  issue(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const uint32_t q_addr = smem_addr(qs), y_addr = smem_addr(ys);
+  const float ct0 = cum_t[m0 + g] * kLog2e, ct1 = cum_t[m0 + g + 8] * kLog2e;
+  const int t0 = tb + m0 + g;  // this thread's rows in the chunk: t0, t0 + 8
+  float acc[8][4] = {};
+  float2 inter = make_float2(0.0f, 0.0f);
+  if (c > 0) {  // dy . S^T: S [d][v] is B^T's [n][k]
+    mma_abt<IN, MID, MID>(acc, y_addr, smem_addr(Ss), m0, lane);
+    inter = row_dot<IN>(acc, qs, m0, g, tq);
+    const float e0 = ex2(clip2(ct0)), e1 = ex2(clip2(ct1));
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      acc[n][0] *= e0;
+      acc[n][1] *= e0;
+      acc[n][2] *= e1;
+      acc[n][3] *= e1;
+    }
+    __syncthreads();  // every warp is done with the state: stage 1 is free
+  }
+  if (tbi > 0) issue(1);
+  cp_async_commit();
+
+  float r0 = 0.0f, r1 = 0.0f;
+  for (int j = 0; j <= tbi; ++j) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const unsigned char* st = ring + (j & 1) * kStageBytes;
+    const uint32_t ks = smem_addr(st), vs = ks + IN * kPlaneBytes;
+    const float* cs = reinterpret_cast<const float*>(st + 2 * IN * kPlaneBytes);
+    const float* ls = cs + kTile;
+    float s[8][4] = {}, dp[8][4] = {};
+    mma_abt<IN, IN, MID>(s, q_addr, ks, m0, lane);
+    mma_abt<IN, IN, MID>(dp, y_addr, vs, m0, lane);
+    const int sb = j * kTile;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int sc = 8 * n + 2 * tq + (e & 1), sk = sb + sc, t = t0 + 8 * (e >> 1);
+        const float x = (e < 2 ? ct0 : ct1) + (ls[sc] - cs[sc]) * kLog2e;
+        const bool ok = sk <= t && sk < Lc && t < Lc;
+        const float d = ex2(clip2(x));
+        const float p = ok ? s[n][e] * d : 0.0f;
+        const float gg = ok && x >= -kClip * kLog2e && x <= kClip * kLog2e ? p * dp[n][e] : 0.0f;
+        if (e < 2) r0 += gg; else r1 += gg;
+        dp[n][e] = ok ? dp[n][e] * d : 0.0f;  // dS
+      }
+    mma_xb<IN, MID>(acc, dp, ks, lane);  // dq += dS . k: k [s][d] is B's [k][n]
+    __syncthreads();
+    if (j + 2 <= tbi) issue(j + 2);
+    cp_async_commit();
+  }
+  r0 = quad_sum(r0);
+  r1 = quad_sum(r1);
+  if (tq == 0) {
+    float* rp = a.rpart + bh * a.T + c0;
+    float* ip = a.ipart + bh * a.T + c0;
+    if (t0 < Lc) rp[t0] = r0, ip[t0] = inter.x;
+    if (t0 + 8 < Lc) rp[t0 + 8] = r1, ip[t0 + 8] = inter.y;
+  }
+  T* ob = static_cast<T*>(a.dq) + ((static_cast<int64_t>(b) * a.T + c0) * a.NH + h) * a.DK;
+  const int64_t rs = static_cast<int64_t>(a.NH) * a.DK;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + 2 * tq;
+    if (col >= a.DK) continue;
+    const bool pair = col + 1 < a.DK;
+    if (t0 < Lc) store2(ob + t0 * rs + col, acc[n][0], acc[n][1], pair);
+    if (t0 + 8 < Lc) store2(ob + (t0 + 8) * rs + col, acc[n][2], acc[n][3], pair);
+  }
+}
+
+// dk and dv for the 64 keys of one block of a chunk, and their gate
+// terms: w_s v_s G_c^T and w_s k_s G_c (with h's dot k_s . G_c v_s), then
+// for each row block >= the key block S^T = k.q^T and dP^T = v.dy^T, P^T
+// and dS^T by the decay and mask, the column sums of g (over t, by key),
+// dv += P^T.dy and dk += dS^T.q.  Shared memory: k and v planes, a
+// two-stage ring of (q, dy, cum_t), the keys' cum_s and li_s; G_c sits in
+// the ring's second stage until used.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) narrow_dkdv_kernel(const __grid_constant__ Args a) {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
+  constexpr int kStageBytes = 2 * IN * kPlaneBytes + kTile * 4;
+  static_assert(MID <= 2 * IN, "the state cotangent fits in a ring stage");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + IN * kPlane;
+  unsigned char* ring = smem + 2 * IN * kPlaneBytes;
+  bf16* Gs = reinterpret_cast<bf16*>(ring + kStageBytes);
+  float* cum_s = reinterpret_cast<float*>(ring + 2 * kStageBytes);
+  float* li_s = cum_s + kTile;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int j = static_cast<int>(blockIdx.z) / a.nc;  // first key blocks (most rows) first
+  const int c = static_cast<int>(blockIdx.z) % a.nc;
+  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), sb = j * kTile;
+  if (sb >= Lc) return;
+  const int ns = min(kTile, Lc - sb), n_tbc = (Lc + kTile - 1) / kTile;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
+  const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h + c0 * a.sq.t;
+  const T* yb = static_cast<const T*>(a.dy) + b * a.sdy.b + h * a.sdy.h + c0 * a.sdy.t;
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h + c0 * a.sk.t;
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h + c0 * a.sv.t;
+  const float* cb = a.cum + bh * a.T + c0;
+  const float* lb = a.li + bh * a.T + c0;
+
+  auto gates = [&](float* dst, const float* src, int rows) {
+    for (int s = tid; s < kTile; s += kThreads)
+      cp_async4(smem_addr(dst + s), s < rows ? src + s : src, s < rows ? 4 : 0);
+  };
+  auto issue = [&](int tbi) {  // row block tbi >= j
+    unsigned char* st = ring + ((tbi - j) & 1) * kStageBytes;
+    bf16* qt = reinterpret_cast<bf16*>(st);
+    const int rows = min(kTile, Lc - tbi * kTile);
+    load_tile<T, IN>(qt, qb + tbi * kTile * a.sq.t, a.sq.t, rows, a.DK, a.vq != 0);
+    load_tile<T, IN>(qt + IN * kPlane, yb + tbi * kTile * a.sdy.t, a.sdy.t, rows, a.DV, a.vdy != 0);
+    gates(reinterpret_cast<float*>(st + 2 * IN * kPlaneBytes), cb + tbi * kTile, rows);
+  };
+  load_tile<T, IN>(ks, kb + sb * a.sk.t, a.sk.t, ns, a.DK, a.vk != 0);
+  load_tile<T, IN>(vs, vb + sb * a.sv.t, a.sv.t, ns, a.DV, a.vv != 0);
+  load_state(Gs, a.gstate + (bh * a.nc + c) * MID * kTile * kTile, MID, tid);
+  gates(cum_s, cb + sb, ns);
+  gates(li_s, lb + sb, ns);
+  issue(j);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const uint32_t k_addr = smem_addr(ks), v_addr = smem_addr(vs), G_addr = smem_addr(Gs);
+  const float total = cb[Lc - 1];
+  const int s0 = sb + m0 + g;  // this thread's keys in the chunk: s0, s0 + 8
+  float dk[8][4] = {}, dv[8][4] = {};
+  mma_abt<IN, MID, MID>(dk, v_addr, G_addr, m0, lane);  // v . G^T: G [d][v] is B^T's [n][k]
+  const float2 hdot = row_dot<IN>(dk, ks, m0, g, tq);
+  mma_ab<IN, MID, MID>(dv, k_addr, G_addr, m0, lane);  // k . G: G [d][v] is B's [k][n]
+  float w[2], us[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = m0 + g + 8 * i;
+    w[i] = sb + r < Lc ? ex2(clip2((total - cum_s[r] + li_s[r]) * kLog2e)) : 0.0f;
+    us[i] = (li_s[r] - cum_s[r]) * kLog2e;
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    dk[n][0] *= w[0];
+    dk[n][1] *= w[0];
+    dk[n][2] *= w[1];
+    dk[n][3] *= w[1];
+    dv[n][0] *= w[0];
+    dv[n][1] *= w[0];
+    dv[n][2] *= w[1];
+    dv[n][3] *= w[1];
+  }
+  __syncthreads();  // every warp is done with G: stage 1 is free
+  if (j + 1 < n_tbc) issue(j + 1);
+  cp_async_commit();
+
+  float c_0 = 0.0f, c_1 = 0.0f;
+  for (int tbi = j; tbi < n_tbc; ++tbi) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const unsigned char* st = ring + ((tbi - j) & 1) * kStageBytes;
+    const uint32_t qs = smem_addr(st), ys = qs + IN * kPlaneBytes;
+    const float* cts = reinterpret_cast<const float*>(st + 2 * IN * kPlaneBytes);
+    float pt[8][4] = {}, dst[8][4] = {};
+    mma_abt<IN, IN, MID>(pt, k_addr, qs, m0, lane);   // S^T = k.q^T: rows s, columns t
+    mma_abt<IN, IN, MID>(dst, v_addr, ys, m0, lane);  // dP^T = v.dy^T
+    const int tb = tbi * kTile;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tc = 8 * n + 2 * tq + (e & 1), t = tb + tc, s = s0 + 8 * (e >> 1);
+        const float x = cts[tc] * kLog2e + us[e >> 1];
+        const bool ok = s <= t && t < Lc && s < Lc;
+        const float d = ex2(clip2(x));
+        const float p = ok ? pt[n][e] * d : 0.0f;
+        const float gg = ok && x >= -kClip * kLog2e && x <= kClip * kLog2e ? p * dst[n][e] : 0.0f;
+        if (e < 2) c_0 += gg; else c_1 += gg;
+        pt[n][e] = p;
+        dst[n][e] = ok ? dst[n][e] * d : 0.0f;
+      }
+    mma_xb<IN, MID>(dv, pt, ys, lane);   // dv += P^T . dy: dy [t][v] is B's [k][n]
+    mma_xb<IN, MID>(dk, dst, qs, lane);  // dk += dS^T . q
+    __syncthreads();
+    if (tbi + 2 < n_tbc) issue(tbi + 2);
+    cp_async_commit();
+  }
+  c_0 = quad_sum(c_0);
+  c_1 = quad_sum(c_1);
+  if (tq == 0) {
+    float* cp = a.cpart + bh * a.T + c0;
+    float* hp = a.hpart + bh * a.T + c0;
+    if (s0 < Lc) cp[s0] = c_0, hp[s0] = hdot.x;
+    if (s0 + 8 < Lc) cp[s0 + 8] = c_1, hp[s0 + 8] = hdot.y;
+  }
+  const int64_t row = (static_cast<int64_t>(b) * a.T + c0) * a.NH + h;
+  T* kout = static_cast<T*>(a.dk) + row * a.DK;
+  T* vout = static_cast<T*>(a.dv) + row * a.DV;
+  const int64_t rk = static_cast<int64_t>(a.NH) * a.DK, rv = static_cast<int64_t>(a.NH) * a.DV;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + 2 * tq;
+    if (col < a.DK) {
+      const bool pair = col + 1 < a.DK;
+      if (s0 < Lc) store2(kout + s0 * rk + col, dk[n][0], dk[n][1], pair);
+      if (s0 + 8 < Lc) store2(kout + (s0 + 8) * rk + col, dk[n][2], dk[n][3], pair);
+    }
+    if (col < a.DV) {
+      const bool pair = col + 1 < a.DV;
+      if (s0 < Lc) store2(vout + s0 * rv + col, dv[n][0], dv[n][1], pair);
+      if (s0 + 8 < Lc) store2(vout + (s0 + 8) * rv + col, dv[n][2], dv[n][3], pair);
+    }
+  }
+}
+
+// dlog_g and dlog_i of one chunk, a warp per (chunk, head, batch): for each
+// step t, dcum_t = rows_t - cols_t + inter_t - h_t and dli_t = cols_t + h_t
+// (rows and cols: the sums of g by row and by column, from the pairs'
+// partial sums, or the narrow kernels' complete ones; inter_t =
+// exp(cum_t) q_t.S_c dy_t and h_t = w_t k_t.G_c v_t from their DK tiles'
+// parts, each where its clip passes); dtotal = sum_t h_t + exp(total)
+// <S_c, G_c>; then dlog_g_u = sum_{t>=u} dcum_t + dtotal.  Every sum runs
+// in a fixed order.
+__global__ void __launch_bounds__(32) gates_kernel(const __grid_constant__ Args a, int fold_blocks) {
+  __shared__ float dc[4096];  // dcum over the chunk (chunk <= 4096)
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, lane = threadIdx.x;
+  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0);
+  const int n_tb = (a.chunk + kTile - 1) / kTile, n_tbc = (Lc + kTile - 1) / kTile;
+  const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
+  const int64_t pairs = (bh * a.nc + c) * tri(n_tb);
+  const float* cb = a.cum + bh * a.T + c0;
+  const float* lb = a.li + bh * a.T + c0;
+  const float total = cb[Lc - 1];
+  float hsum = 0.0f;
+  for (int t = lane; t < Lc; t += 32) {
+    const int tb = t / kTile, r = t % kTile;
+    float rows = 0.0f, cols = 0.0f, inter = 0.0f, hs = 0.0f;
+    if (a.nk == 1 && a.nv == 1) {  // the narrow kernels' complete sums
+      rows = a.rpart[bh * a.T + c0 + t];
+      cols = a.cpart[bh * a.T + c0 + t];
+    } else {
+      for (int j = 0; j <= tb; ++j) rows += a.rpart[(pairs + tri(tb) + j) * kTile + r];
+      for (int i = tb; i < n_tbc; ++i) cols += a.cpart[(pairs + tri(i) + tb) * kTile + r];
+    }
+    for (int dk = 0; dk < a.nk; ++dk) {
+      inter += a.ipart[(bh * a.nk + dk) * a.T + c0 + t];
+      hs += a.hpart[(bh * a.nk + dk) * a.T + c0 + t];
+    }
+    const float ct = cb[t], xw = total - ct + lb[t];
+    inter = passes(ct) ? expf(ct) * inter : 0.0f;
+    hs = passes(xw) ? expf(xw) * hs : 0.0f;
+    dc[t] = rows - cols + inter - hs;
+    if (a.dli != nullptr) a.dli[(static_cast<int64_t>(b) * a.T + c0 + t) * a.NH + h] = cols + hs;
+    hsum += hs;
+  }
+  float decay = 0.0f;
+  const float* dp = a.dpart + (bh * a.nc + c) * fold_blocks;
+  for (int i = lane; i < fold_blocks; i += 32) decay += dp[i];
+  const float dtotal = warp_sum(hsum) + warp_sum(decay);
+  __syncwarp();
+  float carry = 0.0f;
+  for (int base = (Lc - 1) / 32 * 32; base >= 0; base -= 32) {
+    const int t = base + lane;
+    float x = t < Lc ? dc[t] : 0.0f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float down = __shfl_down_sync(0xffffffffu, x, o);
+      if (lane + o < 32) x += down;
+    }
+    x += carry;
+    if (t < Lc) a.dlog_g[(static_cast<int64_t>(b) * a.T + c0 + t) * a.NH + h] = x + dtotal;
+    carry = __shfl_sync(0xffffffffu, x, 0);
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 template <typename K>
@@ -946,7 +1824,7 @@ int launch(const Args& a, cudaStream_t st) {
   constexpr int scores_smem = 2 * 2 * IN * kPlaneBytes;
   constexpr int wide_smem = 2 * 2 * PL * kPlaneBytes;
   const bool wide = a.nk > 1 || a.nv > 1;
-  cudaError_t err = allow_smem(local_kernel<T>, local_most, attr_local);
+  cudaError_t err = allow_smem(local_kernel<T, false>, local_most, attr_local);
   if (err == cudaSuccess && !wide) err = allow_smem(output_kernel<T>, out_smem, attr_out);
   if (err == cudaSuccess && wide) err = allow_smem(scores_kernel<T>, scores_smem, attr_scores);
   if (err == cudaSuccess && wide) err = allow_smem(output_wide_kernel<T>, wide_smem, attr_wide);
@@ -954,7 +1832,7 @@ int launch(const Args& a, cudaStream_t st) {
 
   const int padded = (a.chunk + kTile - 1) / kTile * kTile;
   const int local_smem = 2 * 2 * IN * kPlaneBytes + 2 * padded * 4;
-  local_kernel<T><<<dim3(a.nc * a.nk * a.nv, a.NH, a.B), kThreads, local_smem, st>>>(a);
+  local_kernel<T, false><<<dim3(a.nc * a.nk * a.nv, a.NH, a.B), kThreads, local_smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_el = a.nk * a.nv * kTile * kTile;  // a (batch, head)'s, in 64 x 64 tiles
@@ -976,6 +1854,53 @@ int launch(const Args& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+
+template <typename T>
+int launch_backward(const Args& a, cudaStream_t st) {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID, PL = IN > MID ? IN : MID;
+  static bool attr_fwd[kMaxDevices] = {}, attr_bwd[kMaxDevices] = {}, attr_q[kMaxDevices] = {},
+              attr_k[kMaxDevices] = {}, attr_v[kMaxDevices] = {}, attr_nq[kMaxDevices] = {},
+              attr_nkv[kMaxDevices] = {};
+  constexpr int kMaxChunk = 4096;
+  const int local_most = 2 * 2 * IN * kPlaneBytes + 2 * kMaxChunk * 4;
+  constexpr int scores_smem = 2 * 2 * IN * kPlaneBytes;
+  constexpr int grad_smem = 2 * 2 * PL * kPlaneBytes;
+  constexpr int nq_smem = 2 * IN * kPlaneBytes + 2 * (2 * IN * kPlaneBytes + 2 * kTile * 4) + kTile * 4;
+  constexpr int nkv_smem = 2 * IN * kPlaneBytes + 2 * (2 * IN * kPlaneBytes + kTile * 4) + 2 * kTile * 4;
+  const bool wide = a.nk > 1 || a.nv > 1;
+  cudaError_t err = allow_smem(local_kernel<T, false>, local_most, attr_fwd);
+  if (err == cudaSuccess) err = allow_smem(local_kernel<T, true>, local_most, attr_bwd);
+  if (err == cudaSuccess && wide) err = allow_smem(grad_kernel<T, kDQ>, grad_smem, attr_q);
+  if (err == cudaSuccess && wide) err = allow_smem(grad_kernel<T, kDK>, grad_smem, attr_k);
+  if (err == cudaSuccess && wide) err = allow_smem(grad_kernel<T, kDV>, grad_smem, attr_v);
+  if (err == cudaSuccess && !wide) err = allow_smem(narrow_dq_kernel<T>, nq_smem, attr_nq);
+  if (err == cudaSuccess && !wide) err = allow_smem(narrow_dkdv_kernel<T>, nkv_smem, attr_nkv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int padded = (a.chunk + kTile - 1) / kTile * kTile;
+  const int local_smem = 2 * 2 * IN * kPlaneBytes + 2 * padded * 4;
+  const dim3 local_grid(a.nc * a.nk * a.nv, a.NH, a.B);
+  const int fold_blocks = a.nk * a.nv * kTile * kTile / 256;
+  const int n_tb = (a.chunk + kTile - 1) / kTile;
+  Args f = a;
+  f.state = nullptr;  // the forward's final state is not needed again
+  local_kernel<T, false><<<local_grid, kThreads, local_smem, st>>>(f);
+  fold_kernel<T, true><<<dim3(fold_blocks, a.NH, a.B), 256, 0, st>>>(f);
+  local_kernel<T, true><<<local_grid, kThreads, local_smem, st>>>(a);
+  gfold_kernel<T><<<dim3(fold_blocks, a.NH, a.B), 256, 0, st>>>(a);
+  if (wide) {
+    bscores_kernel<T><<<dim3(a.nc * tri(n_tb), a.NH, a.B), kThreads, scores_smem, st>>>(a);
+    grad_kernel<T, kDQ><<<dim3(a.nk * n_tb * a.nc, a.NH, a.B), kThreads, grad_smem, st>>>(a);
+    grad_kernel<T, kDK><<<dim3(a.nk * n_tb * a.nc, a.NH, a.B), kThreads, grad_smem, st>>>(a);
+    grad_kernel<T, kDV><<<dim3(a.nv * n_tb * a.nc, a.NH, a.B), kThreads, grad_smem, st>>>(a);
+  } else {
+    narrow_dq_kernel<T><<<dim3(a.NH, a.B, a.nc * n_tb), kThreads, nq_smem, st>>>(a);
+    narrow_dkdv_kernel<T><<<dim3(a.NH, a.B, a.nc * n_tb), kThreads, nkv_smem, st>>>(a);
+  }
+  gates_kernel<<<dim3(a.nc, a.NH, a.B), 32, 0, st>>>(a, fold_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int ssd_forward(const void* q, const void* k, const void* v, const void* log_g,
@@ -992,7 +1917,7 @@ extern "C" int ssd_forward(const void* q, const void* k, const void* v, const vo
   if (DK < 1 || DV < 1 || chunk < 1 || chunk > 4096 || T_len < 1 || B < 1 || NH < 1 ||
       B > 65535 || NH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
+  Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -1031,4 +1956,70 @@ extern "C" int ssd_forward(const void* q, const void* k, const void* v, const vo
     return launch<float>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int ssd_backward(const void* q, const void* k, const void* v, const void* log_g,
+                            const void* log_i, const void* dy, const void* dstate, void* dq,
+                            void* dk, void* dv, void* dlog_g, void* dli, void* cum, void* li,
+                            void* local, void* entering, void* gstate, void* pmat, void* dsmat,
+                            void* rpart, void* cpart, void* ipart, void* hpart, void* dpart,
+                            int64_t sqb, int64_t sqt, int64_t sqh,
+                            int64_t skb, int64_t skt, int64_t skh,
+                            int64_t svb, int64_t svt, int64_t svh,
+                            int64_t sgb, int64_t sgt, int64_t sgh,
+                            int64_t sib, int64_t sit, int64_t sih,
+                            int64_t syb, int64_t syt, int64_t syh,
+                            int B, int T_len, int NH, int DK, int DV, int chunk, int dtype,
+                            int vq, int vk, int vv, int vdy, void* stream) {
+  if (DK < 1 || DV < 1 || chunk < 1 || chunk > 4096 || chunk > T_len || B < 1 || NH < 1 ||
+      B > 65535 || NH > 65535 || dtype != kBF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.log_g = static_cast<const float*>(log_g);
+  a.log_i = static_cast<const float*>(log_i);
+  a.cum = static_cast<float*>(cum);
+  a.li = static_cast<float*>(li);
+  a.local = static_cast<float*>(local);
+  a.entering = static_cast<bf16*>(entering);
+  a.sq = Strides{sqb, sqt, sqh};
+  a.sk = Strides{skb, skt, skh};
+  a.sv = Strides{svb, svt, svh};
+  a.sg = Strides{sgb, sgt, sgh};
+  a.si = Strides{sib, sit, sih};
+  a.B = B;
+  a.T = T_len;
+  a.NH = NH;
+  a.DK = DK;
+  a.DV = DV;
+  a.chunk = chunk;
+  a.nc = (T_len + chunk - 1) / chunk;
+  a.nk = (DK + kTile - 1) / kTile;
+  a.nv = (DV + kTile - 1) / kTile;
+  a.vq = vq;
+  a.vk = vk;
+  a.vv = vv;
+  a.dy = dy;
+  a.sdy = Strides{syb, syt, syh};
+  a.vdy = vdy;
+  a.dstate = static_cast<const float*>(dstate);
+  a.gstate = static_cast<bf16*>(gstate);
+  a.pmat = static_cast<float*>(pmat);
+  a.dsmat = static_cast<float*>(dsmat);
+  a.rpart = static_cast<float*>(rpart);
+  a.cpart = static_cast<float*>(cpart);
+  a.ipart = static_cast<float*>(ipart);
+  a.hpart = static_cast<float*>(hpart);
+  a.dpart = static_cast<float*>(dpart);
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.dlog_g = static_cast<float*>(dlog_g);
+  a.dli = static_cast<float*>(dli);
+  if ((log_i == nullptr) != (dli == nullptr) ||
+      ((a.nk > 1 || a.nv > 1) && (pmat == nullptr || dsmat == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_backward<bf16>(a, static_cast<cudaStream_t>(stream));
 }

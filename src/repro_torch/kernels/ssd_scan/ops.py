@@ -17,6 +17,17 @@ reference's `kernels/ssd_scan/kernel.py`.  Bound on the card: operations
 (see the source note).  `chunk_parallel_plain` is the kernel's
 decomposition written in plain PyTorch, to check its algebra.
 
+Under grad (any input requiring a gradient), bf16 q, k and v take the
+forward kernel through `_ScanFn`, whose backward launches
+`ssd_scan_backward` (the gradient of the reference's
+`chunked_linear_attention`, which the reference takes with `jax.grad`; no
+Pallas counterpart): any DK, DV, T and chunk, q and k broadcast or not,
+log_i or not, a final-state cotangent or none.  f32 inputs under grad
+raise (`_lib.no_backward`, ROADMAP.md queue 1, item 13f).
+`chunked_linear_attention_backward_plain` is its plain version, written
+out in the kernel's regrouping; on the CPU the gradient is autograd's
+through the plain forward.
+
 Any DK, DV >= 1, as the Pallas kernel takes.  Unlike the Pallas kernel, T
 need not be a multiple of the chunk: the last
 chunk is short, which equals the reference model's zero padding (padded
@@ -41,6 +52,7 @@ MAX_CHUNK = 4096    # the chunk's gates sit in shared memory (pass 1)
 # bf16 parts of an f32 operand (Parts<T>::MID in the source): the scratch
 # holding the state entering each chunk has this many planes
 STATE_PARTS = {torch.bfloat16: 2, torch.float32: 3}
+NO_BACKWARD_F32 = "ROADMAP.md queue 1, item 13f: no training path on the card runs the scan in f32"
 
 
 def chunked_linear_attention_plain(
@@ -144,6 +156,97 @@ def chunk_parallel_plain(
     return torch.cat(ys, dim=1), S
 
 
+def _passes(x: torch.Tensor) -> torch.Tensor:
+    """Where clip(x, -CLIP, CLIP) passes its gradient (torch.clamp's rule)."""
+    return (x >= -CLIP) & (x <= CLIP)
+
+
+def chunked_linear_attention_backward_plain(
+    q: torch.Tensor,  # (B, T, NH, DK)
+    k: torch.Tensor,
+    v: torch.Tensor,  # (B, T, NH, DV)
+    log_g: torch.Tensor,  # (B, T, NH)
+    log_i: torch.Tensor | None,
+    dy: torch.Tensor,  # (B, T, NH, DV): the cotangent of y
+    dS_fin: torch.Tensor | None,  # (B, NH, DK, DV): of the final state; None is zero
+    chunk: int = 256,
+) -> tuple[torch.Tensor, ...]:
+    """The gradient of `chunked_linear_attention_plain` (from a zero
+    state), written out in the CUDA kernel's regrouping rather than taken
+    by autograd, all in f32.  Per chunk, with cum, total, li and the clips
+    as in the forward, w_s = exp(clip(total - cum_s + li_s)), D_ts =
+    exp(clip(cum_t - cum_s + li_s)) for s <= t, S_c the state entering
+    chunk c and G_c the cotangent of the state leaving it (G_last = dS_fin,
+    G_{c-1} = exp(clip(total_c)) G_c + sum_t exp(clip(cum_t)) q_t dy_t^T):
+
+      dq_t = sum_{s<=t} D_ts (dy_t.v_s) k_s + exp(clip(cum_t)) S_c dy_t
+      dk_s = sum_{t>=s} D_ts (dy_t.v_s) q_t + w_s G_c v_s
+      dv_s = sum_{t>=s} D_ts (q_t.k_s) dy_t + w_s G_c^T k_s
+
+    The gates: each intra pair's g_ts = D_ts (q_t.k_s)(dy_t.v_s) goes to
+    dcum_t, -dcum_s and dli_s; the inter term exp(cum_t) q_t.S_c dy_t to
+    dcum_t; the state term h_s = w_s k_s.G_c v_s to dtotal, -dcum_s and
+    dli_s; the decay term exp(total) <S_c, G_c> to dtotal; each only where
+    its clip passes.  dlog_g_u = sum_{t>=u in the chunk} dcum_t + dtotal.
+    Returns (dq, dk, dv, dlog_g, dlog_i) in f32, dq and dk per head (for q
+    and k broadcast over the heads, their gradients are the sums over
+    heads), dlog_i None without log_i."""
+    B, T, NH, DK = q.shape
+    DV = v.shape[-1]
+    Q = min(chunk, T)
+    bounds = [(c0, min(c0 + Q, T)) for c0 in range(0, T, Q)]
+    q, k, v, dy, g = q.float(), k.float(), v.float(), dy.float(), log_g.float()
+    li = log_i.float() if log_i is not None else torch.zeros_like(g)
+    G = (dS_fin.float() if dS_fin is not None
+         else torch.zeros(B, NH, DK, DV, dtype=torch.float32, device=q.device))
+    cums = [torch.cumsum(g[:, c0:c1], dim=1) for c0, c1 in bounds]  # (B, L, NH)
+    S, entering = torch.zeros_like(G), []
+    for (c0, c1), cum in zip(bounds, cums):  # the forward's passes 1-2
+        entering.append(S)
+        w = torch.exp(torch.clamp(cum[:, -1:] - cum + li[:, c0:c1], -CLIP, CLIP))
+        S = torch.exp(torch.clamp(cum[:, -1], -CLIP, CLIP))[:, :, None, None] * S + \
+            torch.einsum("bshd,bsh,bshv->bhdv", k[:, c0:c1], w, v[:, c0:c1])
+    leaving = [None] * len(bounds)
+    for c in reversed(range(len(bounds))):  # the state cotangents, last chunk first
+        (c0, c1), cum = bounds[c], cums[c]
+        leaving[c] = G
+        e = torch.exp(torch.clamp(cum, -CLIP, CLIP))
+        G = torch.exp(torch.clamp(cum[:, -1], -CLIP, CLIP))[:, :, None, None] * G + \
+            torch.einsum("bthd,bth,bthv->bhdv", q[:, c0:c1], e, dy[:, c0:c1])
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dlog_g, dli = torch.zeros_like(g), torch.zeros_like(g)
+    for (c0, c1), cum, S_c, G_c in zip(bounds, cums, entering, leaving):
+        n = c1 - c0
+        qc, kc, vc, dyc, lic = q[:, c0:c1], k[:, c0:c1], v[:, c0:c1], dy[:, c0:c1], li[:, c0:c1]
+        total = cum[:, -1]  # (B, NH)
+        causal = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()[None, :, :, None]
+        a = cum[:, :, None] - cum[:, None] + lic[:, None]  # (B, t, s, NH)
+        decay = torch.where(causal, torch.exp(torch.clamp(a, -CLIP, CLIP)), torch.zeros_like(a))
+        p = torch.einsum("bthd,bshd->btsh", qc, kc) * decay  # the forward's decayed scores
+        dp = torch.einsum("bthv,bshv->btsh", dyc, vc)
+        ds = decay * dp
+        gts = torch.where(causal & _passes(a), p * dp, torch.zeros_like(p))
+        e = torch.exp(torch.clamp(cum, -CLIP, CLIP))  # (B, t, NH)
+        w = torch.exp(torch.clamp(total[:, None] - cum + lic, -CLIP, CLIP))  # (B, s, NH)
+        s_dy = torch.einsum("bhdv,bthv->bthd", S_c, dyc)
+        g_v = torch.einsum("bhdv,bshv->bshd", G_c, vc)
+        dq[:, c0:c1] = torch.einsum("btsh,bshd->bthd", ds, kc) + e[..., None] * s_dy
+        dk[:, c0:c1] = torch.einsum("btsh,bthd->bshd", ds, qc) + w[..., None] * g_v
+        dv[:, c0:c1] = torch.einsum("btsh,bthv->bshv", p, dyc) + \
+            w[..., None] * torch.einsum("bhdv,bshd->bshv", G_c, kc)
+        inter = torch.where(_passes(cum), e * (qc * s_dy).sum(-1), torch.zeros_like(e))
+        h = torch.where(_passes(total[:, None] - cum + lic), w * (kc * g_v).sum(-1),
+                        torch.zeros_like(w))
+        decay_term = torch.where(_passes(total), torch.exp(torch.clamp(total, -CLIP, CLIP))
+                                 * (S_c * G_c).sum((-2, -1)), torch.zeros_like(total))
+        rows, cols = gts.sum(2), gts.sum(1)  # over s for each t; over t for each s
+        dcum = rows - cols + inter - h
+        dli[:, c0:c1] = cols + h
+        dtotal = h.sum(1) + decay_term
+        dlog_g[:, c0:c1] = dcum.flip(1).cumsum(1).flip(1) + dtotal[:, None]
+    return dq, dk, dv, dlog_g, (dli if log_i is not None else None)
+
+
 def vector_loads(*tensors: torch.Tensor) -> bool:
     """Whether the kernel may stream these (B, T, NH, D) views by 16-byte
     copies: bf16, every base address 16-byte aligned, and the batch, time
@@ -160,7 +263,14 @@ _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # q, k, v, log_g, log_i, y, state, 5 scratch buffers (cum, li, local,
 # entering, scores), 6 x (batch, time, head) strides (q, k, v, log_g, log_i,
 # y), B, T, NH, DK, DV, chunk, in dtype, vector loads of q, k and v, stream
-_SIGNATURES = {"ssd_forward": [_P] * 12 + [_L] * 18 + [_I] * 10 + [_P]}
+# the backward: q, k, v, log_g, log_i, dy, dstate, dq, dk, dv, dlog_g,
+# dlog_i, 12 scratch buffers (`backward_scratch_shapes`), 6 x (batch, time,
+# head) strides (q, k, v, log_g, log_i, dy), B, T, NH, DK, DV, chunk, in
+# dtype, vector loads of q, k, v and dy, stream
+_SIGNATURES = {"ssd_forward": [_P] * 12 + [_L] * 18 + [_I] * 10 + [_P],
+               "ssd_backward": [_P] * 24 + [_L] * 18 + [_I] * 11 + [_P]}
+BACKWARD_SCRATCH = ("cum", "li", "local", "entering", "gstate", "pmat", "dsmat", "rpart",
+                    "cpart", "ipart", "hpart", "dpart")
 
 
 def scratch_shapes(B: int, T: int, NH: int, DK: int, DV: int, chunk: int,
@@ -182,6 +292,52 @@ def scratch_shapes(B: int, T: int, NH: int, DK: int, DV: int, chunk: int,
     if nk > 1 or nv > 1:
         shapes["scores"] = ((B, NH, nc, nt * (nt + 1) // 2, TILE, TILE), torch.float32)
     return shapes
+
+
+def backward_scratch_shapes(B: int, T: int, NH: int, DK: int, DV: int, chunk: int
+                            ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The scratch of a backward launch (bf16 inputs), by name: the
+    forward's cum, li, local states and entering states again (the local
+    states' buffer then holds each chunk's U_c); gstate, the cotangent of
+    the state leaving each chunk, laid out as `entering`; pmat and dsmat,
+    P and dS of each chunk's (row block, key block <= it) pairs, (B, NH, nc,
+    pairs, 64, 64) f32, and rpart and cpart, the pairs' sums of the gate
+    term by row and by column, (B, NH, nc, pairs, 64), where DK or DV
+    exceeds 64 (narrow states keep P and dS in registers: no pmat and dsmat,
+    and rpart and cpart the complete sums, (B, NH, T)); ipart and hpart, the inter
+    and state gate terms over each DK tile, (B, NH, nk, T); dpart, the decay
+    term over each of the fold's 256-element blocks, (B, NH, nc, blocks)."""
+    shapes = scratch_shapes(B, T, NH, DK, DV, chunk, torch.bfloat16)
+    shapes.pop("scores", None)
+    nc, nt = -(-T // chunk), -(-chunk // TILE)
+    nk, nv = -(-DK // TILE), -(-DV // TILE)
+    pairs = nt * (nt + 1) // 2
+    shapes.update(
+        gstate=shapes["entering"],
+        ipart=((B, NH, nk, T), torch.float32),
+        hpart=((B, NH, nk, T), torch.float32),
+        dpart=((B, NH, nc, nk * nv * TILE * TILE // 256), torch.float32))
+    if nk == nv == 1:  # the narrow kernels keep P and dS in registers
+        shapes.update(rpart=((B, NH, T), torch.float32), cpart=((B, NH, T), torch.float32))
+    else:
+        shapes.update(pmat=((B, NH, nc, pairs, TILE, TILE), torch.float32),
+                      dsmat=((B, NH, nc, pairs, TILE, TILE), torch.float32),
+                      rpart=((B, NH, nc, pairs, TILE), torch.float32),
+                      cpart=((B, NH, nc, pairs, TILE), torch.float32))
+    return shapes
+
+
+def _streamable(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 (B, T, NH, D) tensor the kernel can stream by 16-byte copies:
+    `t` itself, or a copy whose rows are zero-padded to a multiple of 8
+    elements (the mLSTM's v and dy of width hd + 1, rows 2-byte aligned;
+    element loads cost more than the copy, PERF.md section 6)."""
+    if t.dtype != torch.bfloat16 or vector_loads(t):
+        return t
+    B, T, NH, D = t.shape
+    padded = torch.zeros((B, T, NH, -(-D // 8) * 8), dtype=t.dtype, device=t.device)
+    padded[..., :D] = t
+    return padded
 
 
 def _launch(q, k, v, log_g, log_i, y, state, chunk: int) -> None:
@@ -216,8 +372,117 @@ def _launch(q, k, v, log_g, log_i, y, state, chunk: int) -> None:
     ssd_scan.launches += 1
 
 
+def _launch_backward(q, k, v, log_g, log_i, dy, dstate, DV: int, chunk: int):
+    """The backward on CUDA, bf16: q/k (B, T, NH, DK) (any batch, time and
+    head strides), v and dy (B, T, NH, DV or more, zero past DV), gates f32
+    (B, T, NH) with a unit last stride, dstate f32 (B, NH, DK, DV)
+    contiguous or None (zero).  Returns (dq, dk, dv, dlog_g, dlog_i): dq,
+    dk and dv per head in bf16, the gates' f32, dlog_i None without log_i."""
+    B, T, NH, DK = q.shape
+    strides = [s for t in (q, k, v, log_g) for s in t.stride()[:3]]
+    strides += list(log_i.stride()) if log_i is not None else [0, 0, 0]
+    strides += list(dy.stride()[:3])
+    outs = [torch.empty((B, T, NH, D), dtype=q.dtype, device=q.device) for D in (DK, DK, DV)]
+    outs.append(torch.empty((B, T, NH), dtype=torch.float32, device=q.device))
+    outs.append(None if log_i is None else torch.empty_like(outs[-1]))
+    scratch = {name: torch.empty(shape, dtype=dt, device=q.device) for name, (shape, dt)
+               in backward_scratch_shapes(B, T, NH, DK, DV, chunk).items()}
+    lib = _lib.load("ssd_scan", _SIGNATURES)
+    err = lib.ssd_backward(
+        *(0 if t is None else t.data_ptr() for t in (q, k, v, log_g, log_i, dy, dstate, *outs)),
+        *(scratch[n].data_ptr() if n in scratch else 0 for n in BACKWARD_SCRATCH), *strides,
+        B, T, NH, DK, DV, chunk, _lib.dtype_code(q), *(int(vector_loads(t)) for t in (q, k, v, dy)),
+        _lib.stream_handle(q))
+    _lib.check("ssd_scan_backward", err)
+    ssd_scan_backward.launches += 1
+    return tuple(outs)
+
+
+def ssd_scan_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torch.Tensor,
+                      log_i: torch.Tensor | None, dy: torch.Tensor,
+                      dstate: torch.Tensor | None, chunk: int = 256) -> tuple:
+    """The gradient of `ssd_scan_bthd` in the model layout: (dq, dk, dv,
+    dlog_g, dlog_i) from the inputs, dy (B, T, NH, DV) and the final
+    state's cotangent dstate (B, NH, DK, DV; None is zero).  dq and dk are
+    per head (where q or k is broadcast over the heads, their gradient is
+    the sum over heads), in the inputs' dtype, as is dv; the gates' are
+    f32, dlog_i None without log_i.  CUDA tensors (bf16 q, k, v) launch the
+    backward kernel of `csrc/ssd_scan.cu` (seven launches: the forward's
+    passes 1-2 again, each chunk's U_c, the state cotangents, dq, dk with
+    dv, and the gates; nine past 64-wide states, whose pairs' scores get a
+    launch of their own and dq, dk, dv one each); CPU tensors run
+    `chunked_linear_attention_backward_plain`."""
+    tensors = [t for t in (q, k, v, log_g, log_i, dy, dstate) if t is not None]
+    chunk = min(chunk, q.shape[1])
+    if not _lib.route(*tensors):
+        dq, dk, dv, dlog_g, dlog_i = chunked_linear_attention_backward_plain(
+            q, k, v, log_g, log_i, dy, dstate, chunk)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dlog_g, dlog_i
+    _check(q, k, v, log_g, log_i, chunk)
+    if q.dtype != torch.bfloat16:
+        raise _lib.no_backward("ssd_scan", f"{q.dtype} ({NO_BACKWARD_F32})")
+    B, T, NH, DK = q.shape
+    DV = v.shape[-1]
+    if dy.shape != v.shape or (dstate is not None and dstate.shape != (B, NH, DK, DV)):
+        raise ValueError(f"bad cotangents dy{tuple(dy.shape)} for v{tuple(v.shape)}")
+    return _backward(q, k, _streamable(v), log_g, log_i, dy, dstate, DV, chunk)
+
+
+def _backward(q, k, v, log_g, log_i, dy, dstate, DV: int, chunk: int) -> tuple:
+    """The backward kernel on CUDA tensors whose shapes `_check` passed, v
+    already `_streamable` (columns past DV zero)."""
+    return _launch_backward(
+        q, k, v, _f32(log_g), _f32(log_i), _streamable(dy.to(v.dtype).contiguous()),
+        None if dstate is None else dstate.float().contiguous(), DV, chunk)
+
+
+class _ScanFn(torch.autograd.Function):
+    """`ssd_scan_bthd` with its backward kernel: q, k, v, log_g (f32) and
+    log_i (f32 or None) in; y and the final state out.  The backward
+    rebuilds the states entering each chunk from the saved inputs (the
+    forward's passes 1-2 run again) rather than keep the forward's scratch;
+    it saves v as the forward streamed it (the mLSTM's padded copy), so the
+    backward pads only dy.  A None cotangent (the state, which training
+    discards) is zero."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_g, log_i, chunk: int):
+        ctx.set_materialize_grads(False)
+        ctx.chunk, ctx.dv = chunk, v.shape[-1]
+        v = _streamable(v)
+        ctx.save_for_backward(q, k, v, log_g, log_i)
+        return _forward(q, k, v, log_g, log_i, chunk, ctx.dv)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        q, k, v, log_g, log_i = ctx.saved_tensors
+        if dy is None:  # v's streamed shape, zero past DV as the kernel reads it
+            dy = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+        return (*_backward(q, k, v, log_g, log_i, dy, dstate, ctx.dv, ctx.chunk), None)
+
+
 def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.float()
+
+
+def _check(q, k, v, log_g, log_i, chunk: int) -> None:
+    B, T, NH, DK = q.shape
+    if k.shape != q.shape or v.shape[:3] != (B, T, NH) or log_g.shape != (B, T, NH) or \
+            (log_i is not None and log_i.shape != (B, T, NH)):
+        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"log_g{tuple(log_g.shape)}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} outside [1, {MAX_CHUNK}]")
+
+
+def _forward(q, k, v, log_g, log_i, chunk: int, DV: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on CUDA tensors whose shapes `_check` passed, v
+    already `_streamable` (columns past DV zero)."""
+    B, T, NH, DK = q.shape
+    y = torch.empty((B, T, NH, DV), dtype=v.dtype, device=v.device)
+    state = torch.empty((B, NH, DK, DV), dtype=torch.float32, device=v.device)
+    _launch(q, k, v, _f32(log_g), _f32(log_i), y, state, chunk)
+    return y, state
 
 
 def ssd_scan_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torch.Tensor,
@@ -228,27 +493,13 @@ def ssd_scan_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torc
     tensors = [t for t in (q, k, v, log_g, log_i) if t is not None]
     if not _lib.route(*tensors):
         return chunked_linear_attention_plain(q, k, v, log_g, log_i, chunk=chunk)
+    chunk = min(chunk, q.shape[1])
+    _check(q, k, v, log_g, log_i, chunk)
     if _lib.needs_grad(*tensors):
-        raise _lib.no_backward("ssd_scan", "ROADMAP.md queue 1, item 13d (hybrid and xLSTM "
-                               "training on the card)")
-    B, T, NH, DK = q.shape
-    DV = v.shape[-1]
-    if k.shape != q.shape or v.shape[:3] != (B, T, NH) or log_g.shape != (B, T, NH) or \
-            (log_i is not None and log_i.shape != (B, T, NH)):
-        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} "
-                         f"log_g{tuple(log_g.shape)}")
-    y = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    state = torch.empty((B, NH, DK, DV), dtype=torch.float32, device=v.device)
-    if v.dtype == torch.bfloat16 and not vector_loads(v):
-        # rows the kernel cannot stream by 16-byte copies (the mLSTM's v of
-        # width hd + 1, rows 2-byte aligned): a copy whose rows are
-        # zero-padded to a multiple of 8 elements, which it can; element
-        # loads of v cost more than the copy (PERF.md, section 6)
-        padded = torch.zeros((B, T, NH, -(-DV // 8) * 8), dtype=v.dtype, device=v.device)
-        padded[..., :DV] = v
-        v = padded
-    _launch(q, k, v, _f32(log_g), _f32(log_i), y, state, min(chunk, T))
-    return y, state
+        if q.dtype != torch.bfloat16:
+            raise _lib.no_backward("ssd_scan", f"{q.dtype} ({NO_BACKWARD_F32})")
+        return _ScanFn.apply(q, k, v, _f32(log_g), _f32(log_i), chunk)
+    return _forward(q, k, _streamable(v), log_g, log_i, chunk, v.shape[-1])
 
 
 def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torch.Tensor,
@@ -263,3 +514,4 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torch.Ten
 
 
 ssd_scan.launches = 0
+ssd_scan_backward.launches = 0

@@ -6,7 +6,10 @@ computed chunk by chunk: `chunked_linear_attention` is the plain version
 (the `ssd_scan` kernel's oracle), and `mamba2_full` and `mlstm_full` reach
 it through `ops.linear_attention`, which on the card is the `ssd_scan`
 kernel (the mLSTM at state widths (hd, hd + 1): v carries a ones column
-whose state column is the normaliser).  The depthwise causal conv, the
+whose state column is the normaliser), and under grad its backward kernel
+too (`ssd_scan_backward`, bf16: both recurrent models train on the card;
+the scan's gradients of the broadcast q and k are summed over the heads by
+the `expand`'s backward).  The depthwise causal conv, the
 decode steps' single recurrence step and the sLSTM's recurrence over time
 stay plain PyTorch on every device, because the reference computes them in
 plain XLA (`lax.scan` for the sLSTM) with no Pallas kernel to port: they

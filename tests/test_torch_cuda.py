@@ -804,6 +804,89 @@ def test_ssd_scan_kernel_reads_broadcast_heads_and_bf16(cuda):
     np.testing.assert_allclose(_np(state.cpu()), _np(s_want.cpu()), **SSD_TOL)
 
 
+def _ssd_grad_inputs(device, seed, B, T, NH, DK, DV, broadcast, with_i, final):
+    """bf16 q, k (broadcast over the heads or per head), v, f32 gates (the
+    mLSTM's log_i over its clip range [-30, 10], where D's clip binds), a
+    bf16 dy and an f32 final-state cotangent or None."""
+    bf16 = torch.bfloat16
+    if broadcast:
+        q, k = (_on(device, seed + i, (B, T, DK), bf16, 0.5)[:, :, None].expand(B, T, NH, DK)
+                for i in range(2))
+    else:
+        q, k = (_on(device, seed + i, (B, T, NH, DK), bf16, 0.5) for i in range(2))
+    v = _on(device, seed + 2, (B, T, NH, DV), bf16, 0.5)
+    log_g = _gates(device, seed + 3, (B, T, NH), 0.05)
+    log_i = (torch.from_numpy(np.random.default_rng(seed + 4).uniform(-30, 10, (B, T, NH))
+                              .astype(np.float32)).to(device) if with_i else None)
+    dy = _on(device, seed + 5, (B, T, NH, DV), bf16)
+    dstate = _on(device, seed + 6, (B, NH, DK, DV), torch.float32) if final else None
+    return q, k, v, log_g, log_i, dy, dstate
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,T,NH,DK,DV,chunk,broadcast,with_i,final", [
+    (2, 256, 6, 64, 64, 64, True, False, False),   # narrow: Mamba2's broadcast q and k
+    (1, 256, 2, 128, 129, 128, False, True, False),  # wide: DK 128, DV 129, with log_i
+    (2, 300, 3, 32, 48, 128, False, True, True),   # ragged T, a final-state cotangent
+], ids=["narrow", "wide", "ragged"])
+def test_ssd_scan_backward_kernel_matches_plain(cuda, B, T, NH, DK, DV, chunk, broadcast,
+                                                with_i, final):
+    """Each gradient within GRAD_TOL of the plain backward run in f32 from
+    the same bf16 inputs; two calls bit-equal; one call counted each."""
+    args = _ssd_grad_inputs(cuda, 120, B, T, NH, DK, DV, broadcast, with_i, final)
+    before = ssd.ssd_scan_backward.launches
+    got = ssd.ssd_scan_backward(*args, chunk=chunk)
+    again = ssd.ssd_scan_backward(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_backward.launches == before + 2
+    want = ssd.chunked_linear_attention_backward_plain(
+        *(None if t is None else t.float() for t in args), chunk=chunk)
+    for name, a, b, c in zip(("dq", "dk", "dv", "dlog_g", "dlog_i"), got, want, again):
+        if b is None:
+            assert a is None and c is None, name
+            continue
+        assert a.shape == b.shape, name
+        assert_grad_close(a, b, name)
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.requires_cuda
+def test_ssd_scan_under_grad_and_in_a_graph(cuda):
+    """bf16 `ssd_scan_bthd` under grad runs the forward kernel and, in the
+    backward, the backward kernel once (the broadcast q and k get the sum
+    over heads through `expand`'s backward); a CUDA graph's replay of the
+    backward equals the eager call."""
+    B, T, NH, D = 2, 200, 4, 64
+    q, k, v, log_g, _, dy, _ = _ssd_grad_inputs(cuda, 130, B, T, NH, D, D, True, False, False)
+    c, bm = (t[:, :, 0].clone().requires_grad_() for t in (q, k))
+    vl, gl = v.clone().requires_grad_(), log_g.clone().requires_grad_()
+    f0, b0 = ssd.ssd_scan.launches, ssd.ssd_scan_backward.launches
+    y, _ = ssd.ssd_scan_bthd(c[:, :, None].expand(B, T, NH, D),
+                             bm[:, :, None].expand(B, T, NH, D), vl, gl, chunk=64)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (ssd.ssd_scan.launches, ssd.ssd_scan_backward.launches) == (f0 + 1, b0 + 1)
+    want = ssd.chunked_linear_attention_backward_plain(q.float(), k.float(), v.float(), log_g,
+                                                       None, dy.float(), None, chunk=64)
+    for name, got, w in (("dq", c.grad, want[0].sum(2)), ("dk", bm.grad, want[1].sum(2)),
+                         ("dv", vl.grad, want[2]), ("dlog_g", gl.grad, want[3])):
+        assert_grad_close(got, w, name)
+    args = (q, k, v, log_g, None, dy, None)
+    eager = ssd.ssd_scan_backward(*args, chunk=64)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd.ssd_scan_backward(*args, chunk=64)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = ssd.ssd_scan_backward(*args, chunk=64)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dlog_g"), eager, static):
+        assert torch.equal(a, b), name
+
+
 class _SpinStage:
     """A pipeline stage that keeps the card busy for `cycles` clock cycles."""
 
@@ -1328,7 +1411,8 @@ def test_attention_bthd_under_grad_keeps_layout(cuda):
 def test_kernels_without_a_backward_raise_under_grad(cuda):
     """Every wrapper whose kernel has no backward raises the port's
     `ProgramError` (not a `RuntimeError`) on CUDA under grad, as do flash
-    attention's uncovered routes; without grad each launches."""
+    attention's and the SSD scan's uncovered routes (the scan in f32; in
+    bf16 it launches, with a backward); without grad each launches."""
     bf16 = torch.bfloat16
     q = _on(cuda, 100, (2, 1, 8, 64), bf16).requires_grad_()
     cache = _on(cuda, 101, (2, 32, 2, 64), bf16)
@@ -1339,8 +1423,11 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
                             cache.transpose(1, 2), 32)
     x = _on(cuda, 102, (2, 64, 2, 16), torch.float32).requires_grad_()
     gate = -torch.rand(2, 64, 2, device=cuda)
-    with pytest.raises(_lib.ProgramError, match="item 13d"):
+    with pytest.raises(_lib.ProgramError, match="item 13f"):
         ssd.ssd_scan_bthd(x, x, x, gate, chunk=16)
+    launched = ssd.ssd_scan.launches
+    y, _ = ssd.ssd_scan_bthd(*(x.to(bf16),) * 3, gate, chunk=16)
+    assert y.grad_fn is not None and ssd.ssd_scan.launches == launched + 1
     with pytest.raises(_lib.ProgramError, match="item 13e"):
         bq.quantize(_on(cuda, 103, (8, 64), bf16).requires_grad_())
     qv, scale = bq.quantize(_on(cuda, 104, (8, 64), bf16))
