@@ -441,7 +441,7 @@ def phase_kernels(dev, parent) -> dict:
     res["rmsnorm_backward"] = check_rmsnorm_backward(dev, g, parent)
     res["flash_attention_forward_lse"], res["flash_attention_backward"] = \
         check_flash_backward(dev, g, parent)
-    res["ssd_scan_backward"] = check_ssd_backward(dev, g)
+    res["ssd_scan_backward"] = check_ssd_backward(dev, g, parent)
     for name, r in res.items():
         lib_us = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f} us"
         log(f"[kernels] {name}: max|err| {r['max_abs_err']:.3g} (tol {r['tol']}), "
@@ -1426,30 +1426,41 @@ def ssd_backward_bound(B, T, NH, DK, DV, chunk, broadcast, with_i, final) -> tup
                     (B * NH * split, BF16X2_FLOP_S))
 
 
-def check_ssd_backward(dev, g) -> dict:
+def check_ssd_backward(dev, g, parent) -> dict:
     """`ssd_scan_backward` at `ssd_grad_shapes`: dq, dk, dv, dlog_g (and
     dlog_i) against the plain backward run in f32 from the same bf16
     inputs, each within GRAD_TOL of that result's max |value| (the plain
     backward from the bf16 inputs, its dq, dk and dv rounded to bf16,
-    logged beside it); bit-equal run to run; timed beside its bound, the
-    plain backward (one call between events, `once_ms`), the forward at
-    the same inputs and the wrapper's host time, one call's device time
-    split by launch (profiler).  No PyTorch
-    call computes it (library: none); the parent tree has no backward to
-    time against.  The line's numbers are zamba2-2.7b's shape."""
+    logged beside it); bit-equal run to run, and with the forward's
+    scratch kept (`forward_saved`, as `_ScanFn` keeps it on the heads
+    route) bit-equal to without.  A broadcast q and k go in as one head,
+    (B, T, 1, DK), as Mamba2 hands them over, and their gradients come
+    back summed over the heads.  Timed as a train step runs it (the
+    forward's scratch kept where the route keeps it) beside its bound, the
+    call that makes that scratch itself, the plain backward (one call
+    between events, `once_ms`), the forward at the same inputs and the
+    wrapper's host time; one call's device time split by launch
+    (profiler).  Under `--parent`, timed in turns with the other tree's
+    backward at the same inputs (parent, this, this, parent), which takes
+    a broadcast q and k expanded over the heads and returns per-head
+    gradients: logged alone (`parent_ms`) and with the sums over the heads
+    that autograd's expand backward then runs in the step
+    (`parent_step_ms`), its launches split too.  No PyTorch call computes
+    it (library: none).  The line's numbers are zamba2-2.7b's shape."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.testing.parity import GRAD_TOL, assert_grad_close, grad_gap
 
+    other = (parent or {}).get("ssd_scan")
     bf16 = torch.bfloat16
     names = ("dq", "dk", "dv", "dlog_g", "dlog_i")
     rows = []
     for what, B, T, NH, DK, DV, chunk, broadcast, with_i, final in ssd_grad_shapes():
         heads = 1 if broadcast else NH
         q, k = ((torch.randn(B, T, heads, DK, generator=g, device=dev) * 0.5).to(bf16)
-                .expand(B, T, NH, DK) for _ in range(2))
+                for _ in range(2))
         v = (torch.randn(B, T, NH, DV, generator=g, device=dev) * 0.5).to(bf16)
         if with_i:  # the mLSTM's gates and its ones column
             v[..., -1] = 1.0
@@ -1461,48 +1472,87 @@ def check_ssd_backward(dev, g) -> dict:
         dy = torch.randn(B, T, NH, DV, generator=g, device=dev).to(bf16)
         dstate = torch.randn(B, NH, DK, DV, generator=g, device=dev) if final else None
         args = (q, k, v, log_g, log_i, dy, dstate)
+        route = ssd.backward_plan(B, T, NH, heads, DK, DV, chunk)
+        saved = ssd.forward_saved(q, k, v, log_g, log_i, chunk=chunk) if route[0] == "heads" \
+            else None
 
-        def call():
+        def unsaved():
             return ssd.ssd_scan_backward(*args, chunk=chunk)
 
-        got, again = call(), call()
+        def call():  # as a train step's backward runs
+            return ssd.ssd_scan_backward(*args, chunk=chunk, saved=saved)
+
+        got, again, kept = unsaved(), unsaved(), call()
         want = ssd.chunked_linear_attention_backward_plain(
             *(None if t is None else t.float() for t in args), chunk=chunk)
         plain = ssd.chunked_linear_attention_backward_plain(*args, chunk=chunk)
         torch.cuda.synchronize()
         gaps, plain_gaps = {}, {}
-        for n, a, b, c, pl in zip(names, got, want, again, plain):
+        for n, a, b, c, d, pl in zip(names, got, want, again, kept, plain):
             if b is None:
                 continue
+            if a.shape != b.shape:
+                raise AssertionError(f"ssd_scan_backward {n} ({what}): shape {tuple(a.shape)}, "
+                                     f"want {tuple(b.shape)}")
             gaps[n] = assert_grad_close(a, b, f"ssd_scan_backward {n} ({what})")
             plain_gaps[n] = grad_gap(pl.to(a.dtype), b)
-            if not torch.equal(a, c):
-                raise AssertionError(f"ssd_scan_backward ({what}): two calls differ in {n}")
-        del got, again, want, plain
+            if not (torch.equal(a, c) and torch.equal(a, d)):
+                raise AssertionError(f"ssd_scan_backward ({what}): two calls (or the call with "
+                                     f"the forward's scratch kept) differ in {n}")
+        del got, again, kept, want, plain
         b_ms, b_by = ssd_backward_bound(B, T, NH, DK, DV, chunk, broadcast, with_i, final)
-        r = dict(shape=[B, T, NH, DK, DV], what=what, chunk=chunk, max_abs_err=max(gaps.values()),
+        parent_ms = parent_step_ms = parent_split = None
+        if other is None:
+            ms = time_ms(call, iters=10)
+        else:
+            wide = (q.expand(B, T, NH, DK), k.expand(B, T, NH, DK), *args[2:])
+
+            def pcall():
+                return other.ssd_scan_backward(*wide, chunk=chunk)
+
+            def pstep():  # and the sums over the heads of autograd's expand backward
+                r = pcall()
+                return (r[0].sum(2, keepdim=True), r[1].sum(2, keepdim=True)) if broadcast else r
+
+            p0, t0, t1, p1 = (time_ms(f, iters=10) for f in (pcall, call, call, pcall))
+            ms, parent_ms = (t0 + t1) / 2, (p0 + p1) / 2
+            parent_step_ms = time_ms(pstep, iters=10) if broadcast else parent_ms
+            parent_split = kernel_us(pcall, calls=5)
+        r = dict(shape=[B, T, NH, DK, DV], what=what, chunk=chunk, route=route[0],
+                 groups=route[1], heads_a_group=route[2], max_abs_err=max(gaps.values()),
                  gaps=gaps, plain_bf16_gaps=plain_gaps, tol=GRAD_TOL,
-                 ms=time_ms(call, iters=10), parent_ms=None,
+                 ms=ms, parent_ms=parent_ms, parent_step_ms=parent_step_ms,
+                 unsaved_ms=time_ms(unsaved, iters=10) if saved is not None else ms,
                  forward_ms=time_ms(lambda: ssd.ssd_scan_bthd(q, k, v, log_g, log_i, chunk=chunk),
                                     iters=10),
                  # a chain of large einsums whose host work outruns the card
                  plain_ms=once_ms(lambda: ssd.chunked_linear_attention_backward_plain(
                      *args, chunk=chunk)),
                  bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                 host_ms=host_ms(call, calls=20), per_kernel_us=kernel_us(call, calls=5))
+                 host_ms=host_ms(call, calls=20), per_kernel_us=kernel_us(call, calls=5),
+                 parent_per_kernel_us=parent_split)
         log(f"[kernels] ssd_scan_backward at the {what} shape (B, T, NH, DK, DV) = "
             f"({B}, {T}, {NH}, {DK}, {DV}), chunk {chunk}, q/k "
-            f"{'broadcast' if broadcast else 'per head'}, {'with' if with_i else 'no'} log_i, "
-            f"{'a' if final else 'no'} final-state cotangent, bf16: {r['ms'] * 1e3:.3f} us vs "
-            f"bound {b_ms * 1e3:.3f} us ({b_by}), the forward {r['forward_ms'] * 1e3:.3f} us, "
+            f"{'one head broadcast' if broadcast else 'per head'}, "
+            f"{'with' if with_i else 'no'} log_i, "
+            f"{'a' if final else 'no'} final-state cotangent, bf16, {route[0]} route"
+            + (f" ({route[1]} head groups of {route[2]})" if route[0] == "heads" else "")
+            + f": {r['ms'] * 1e3:.3f} us{vs_parent(parent_ms)}"
+            + (f" (this {r['ms'] / parent_ms:.3f}x)" if parent_ms else "")
+            + (f" ({parent_step_ms * 1e3:.3f} us with the sums over heads its step adds; "
+               f"this {r['ms'] / parent_step_ms:.3f}x of that)" if broadcast and parent_ms else "")
+            + f" vs bound {b_ms * 1e3:.3f} us ({b_by}); making the forward's scratch itself "
+            f"{r['unsaved_ms'] * 1e3:.3f} us; the forward {r['forward_ms'] * 1e3:.3f} us, "
             f"plain {r['plain_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; "
             + ", ".join(f"{n} within {x:.3g}" for n, x in gaps.items())
             + f" of the f32 plain backward's max |value| (tol {GRAD_TOL}; the plain backward "
             f"from the bf16 inputs: " + ", ".join(f"{x:.3g}" for x in plain_gaps.values())
             + "); bit-equal run to run; launches: "
-            + ", ".join(f"{n} {us:.3f} us" for n, us in r["per_kernel_us"].items()))
+            + ", ".join(f"{n} {us:.3f} us" for n, us in r["per_kernel_us"].items())
+            + ("" if parent_split is None else "; the parent's: "
+               + ", ".join(f"{n} {us:.3f} us" for n, us in parent_split.items())))
         rows.append(r)
-        del q, k, v, log_g, log_i, dy, dstate, args
+        del q, k, v, log_g, log_i, dy, dstate, args, saved
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows), shapes=rows)
 
 
@@ -2987,7 +3037,10 @@ def parent_kernels(parent: dict):
     the other tree's module of the same kernel also defines is the other's.
     Yields `KERNELS` with each field that is such a function swapped the
     same way (a field that calls a wrapper through its module, as the
-    attention does, follows by itself)."""
+    attention does, follows by itself).  The other tree's `ssd_scan_bthd`
+    gets q and k expanded to v's heads (a view): Mamba2 hands this tree's
+    one head, which a tree before the one-head route refuses, and its own
+    model expanded them so."""
     import dataclasses
     import inspect
 
@@ -3001,7 +3054,8 @@ def parent_kernels(parent: dict):
                 if (inspect.isfunction(fn) and fn.__module__ == mine.__name__
                         and inspect.isfunction(getattr(other, attr, None))):
                     saved.append((mine, attr, fn))
-                    setattr(mine, attr, getattr(other, attr))
+                    setattr(mine, attr, getattr(other, attr) if attr != "ssd_scan_bthd"
+                            else heads_expanded(getattr(other, attr)))
         fields = {f.name: getattr(KERNELS, f.name) for f in dataclasses.fields(KERNELS)}
         yield dataclasses.replace(KERNELS, **{
             k: getattr(sys.modules[fn.__module__], fn.__name__) for k, fn in fields.items()
@@ -3009,6 +3063,16 @@ def parent_kernels(parent: dict):
     finally:
         for mod, attr, fn in reversed(saved):
             setattr(mod, attr, fn)
+
+
+def heads_expanded(scan):
+    """`scan` (an `ssd_scan_bthd`) called with q and k expanded to v's heads."""
+    def call(q, k, v, *args, **kwargs):
+        B, T, NH = v.shape[:3]
+        return scan(q.expand(B, T, NH, q.shape[-1]), k.expand(B, T, NH, k.shape[-1]), v, *args,
+                    **kwargs)
+
+    return call
 
 
 def memory_line(arch: str, what: str) -> str:

@@ -17,16 +17,22 @@ reference's `kernels/ssd_scan/kernel.py`.  Bound on the card: operations
 (see the source note).  `chunk_parallel_plain` is the kernel's
 decomposition written in plain PyTorch, to check its algebra.
 
+q and k may each be one head, (B, T, 1, DK), broadcast over v's NH heads
+(Mamba2's B and C); the kernels read it with head stride 0 and the plain
+versions expand it.
+
 Under grad (any input requiring a gradient), bf16 q, k and v take the
 forward kernel through `_ScanFn`, whose backward launches
 `ssd_scan_backward` (the gradient of the reference's
 `chunked_linear_attention`, which the reference takes with `jax.grad`; no
-Pallas counterpart): any DK, DV, T and chunk, q and k broadcast or not,
-log_i or not, a final-state cotangent or none.  f32 inputs under grad
+Pallas counterpart): any DK, DV, T and chunk, q and k one head or per head,
+log_i or not, a final-state cotangent or none.  A one-head q or k gets its
+gradient summed over the heads, at its own shape.  f32 inputs under grad
 raise (`_lib.no_backward`, ROADMAP.md queue 1, item 13f).
 `chunked_linear_attention_backward_plain` is its plain version, written
 out in the kernel's regrouping; on the CPU the gradient is autograd's
-through the plain forward.
+through the plain forward.  `backward_plan` is the backward's route and
+launch shape in plain Python.
 
 Any DK, DV >= 1, as the Pallas kernel takes.  Unlike the Pallas kernel, T
 need not be a multiple of the chunk: the last
@@ -56,8 +62,8 @@ NO_BACKWARD_F32 = "ROADMAP.md queue 1, item 13f: no training path on the card ru
 
 
 def chunked_linear_attention_plain(
-    q: torch.Tensor,  # (B, T, NH, DK)
-    k: torch.Tensor,  # (B, T, NH, DK)
+    q: torch.Tensor,  # (B, T, NH, DK), or (B, T, 1, DK) broadcast over the heads
+    k: torch.Tensor,  # likewise
     v: torch.Tensor,  # (B, T, NH, DV)
     log_g: torch.Tensor,  # (B, T, NH) per-step log decay (<= 0)
     log_i: torch.Tensor | None = None,  # (B, T, NH) per-step log input gate
@@ -67,6 +73,7 @@ def chunked_linear_attention_plain(
     """The reference's `models.ssm.chunked_linear_attention`, op for op:
     y_t = q_t . sum_{s<=t} exp(sum_{u in (s,t]} log_g_u + log_i_s) k_s v_s^T,
     all accumulation in f32.  Returns (y, final_state)."""
+    q, k = _heads(q, k, v)
     B, T, NH, DK = q.shape
     DV = v.shape[-1]
     Q = min(chunk, T)
@@ -124,6 +131,7 @@ def chunk_parallel_plain(
     exp(clip(total_c)) S_{c-1} + L_c, keeping the state entering each
     chunk; (3) every chunk's outputs from its entering state and its own
     keys.  A short last chunk is left short, as the kernel leaves it."""
+    q, k = _heads(q, k, v)
     B, T, NH, DK = q.shape
     DV = v.shape[-1]
     Q = min(chunk, T)
@@ -156,14 +164,21 @@ def chunk_parallel_plain(
     return torch.cat(ys, dim=1), S
 
 
+def _heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """q and k at v's heads: a one-head q or k (B, T, 1, DK) is broadcast
+    over them (an `expand`, a view)."""
+    B, T, NH = v.shape[:3]
+    return q.expand(B, T, NH, q.shape[-1]), k.expand(B, T, NH, k.shape[-1])
+
+
 def _passes(x: torch.Tensor) -> torch.Tensor:
     """Where clip(x, -CLIP, CLIP) passes its gradient (torch.clamp's rule)."""
     return (x >= -CLIP) & (x <= CLIP)
 
 
 def chunked_linear_attention_backward_plain(
-    q: torch.Tensor,  # (B, T, NH, DK)
-    k: torch.Tensor,
+    q: torch.Tensor,  # (B, T, NH, DK), or (B, T, 1, DK) broadcast over the heads
+    k: torch.Tensor,  # likewise
     v: torch.Tensor,  # (B, T, NH, DV)
     log_g: torch.Tensor,  # (B, T, NH)
     log_i: torch.Tensor | None,
@@ -188,9 +203,11 @@ def chunked_linear_attention_backward_plain(
     dcum_t; the state term h_s = w_s k_s.G_c v_s to dtotal, -dcum_s and
     dli_s; the decay term exp(total) <S_c, G_c> to dtotal; each only where
     its clip passes.  dlog_g_u = sum_{t>=u in the chunk} dcum_t + dtotal.
-    Returns (dq, dk, dv, dlog_g, dlog_i) in f32, dq and dk per head (for q
-    and k broadcast over the heads, their gradients are the sums over
-    heads), dlog_i None without log_i."""
+    Returns (dq, dk, dv, dlog_g, dlog_i) in f32, dq and dk at q's and k's
+    shapes: per head, or for a one-head q or k broadcast over the heads,
+    the sum over the heads; dlog_i None without log_i."""
+    heads_q, heads_k = q.shape[2], k.shape[2]
+    q, k = _heads(q, k, v)
     B, T, NH, DK = q.shape
     DV = v.shape[-1]
     Q = min(chunk, T)
@@ -244,6 +261,10 @@ def chunked_linear_attention_backward_plain(
         dli[:, c0:c1] = cols + h
         dtotal = h.sum(1) + decay_term
         dlog_g[:, c0:c1] = dcum.flip(1).cumsum(1).flip(1) + dtotal[:, None]
+    if heads_q == 1 < NH:
+        dq = dq.sum(2, keepdim=True)
+    if heads_k == 1 < NH:
+        dk = dk.sum(2, keepdim=True)
     return dq, dk, dv, dlog_g, (dli if log_i is not None else None)
 
 
@@ -263,14 +284,23 @@ _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # q, k, v, log_g, log_i, y, state, 5 scratch buffers (cum, li, local,
 # entering, scores), 6 x (batch, time, head) strides (q, k, v, log_g, log_i,
 # y), B, T, NH, DK, DV, chunk, in dtype, vector loads of q, k and v, stream
-# the backward: q, k, v, log_g, log_i, dy, dstate, dq, dk, dv, dlog_g,
-# dlog_i, 12 scratch buffers (`backward_scratch_shapes`), 6 x (batch, time,
-# head) strides (q, k, v, log_g, log_i, dy), B, T, NH, DK, DV, chunk, in
-# dtype, vector loads of q, k, v and dy, stream
+# the backward's pairs route: q, k, v, log_g, log_i, dy, dstate, dq, dk, dv,
+# dlog_g, dlog_i, 12 scratch buffers (`BACKWARD_SCRATCH`), 6 x (batch,
+# time, head) strides (q, k, v, log_g, log_i, dy), B, T, NH, DK, DV, chunk,
+# in dtype, vector loads of q, k, v and dy, stream; its heads route: the
+# same pointers with `HEADS_SCRATCH`, the strides, B, T, NH, DK, DV, chunk,
+# head groups, heads a group, q/k heads, the vector loads, stream
 _SIGNATURES = {"ssd_forward": [_P] * 12 + [_L] * 18 + [_I] * 10 + [_P],
-               "ssd_backward": [_P] * 24 + [_L] * 18 + [_I] * 11 + [_P]}
+               "ssd_backward": [_P] * 24 + [_L] * 18 + [_I] * 11 + [_P],
+               "ssd_backward_heads": [_P] * 23 + [_L] * 18 + [_I] * 13 + [_P]}
 BACKWARD_SCRATCH = ("cum", "li", "local", "entering", "gstate", "pmat", "dsmat", "rpart",
                     "cpart", "ipart", "hpart", "dpart")
+HEADS_SCRATCH = ("cum", "li", "entering", "gstate", "rpart", "cpart", "ipart", "hpart", "dpart",
+                 "dqp", "dkp")
+# what `_ScanFn` keeps of the forward's scratch on the heads route
+SAVED = ("cum", "li", "entering")
+HEADS_MAX_CHUNK = 4 * TILE  # kMaxTb * kTile: the heads route's row blocks a chunk
+HEAD_BLOCKS = 256  # the heads kernel's blocks to aim for (one an SM at a time)
 
 
 def scratch_shapes(B: int, T: int, NH: int, DK: int, DV: int, chunk: int,
@@ -294,19 +324,38 @@ def scratch_shapes(B: int, T: int, NH: int, DK: int, DV: int, chunk: int,
     return shapes
 
 
+def backward_plan(B: int, T: int, NH: int, NQ: int, DK: int, DV: int, chunk: int
+                  ) -> tuple[str, int, int]:
+    """The backward's route and launch shape, from shapes alone, as
+    `ssd_backward_heads` takes it: ("heads", head groups, heads a group)
+    for DK and DV at most 64 and chunks of at most 256 steps, NQ the q/k
+    heads (1: q and k broadcast over the NH heads, whose gradients the
+    kernel sums; else NH, and a group is one head); ("pairs", 0, 0)
+    otherwise.  Broadcast heads are spread over enough groups for about
+    HEAD_BLOCKS (key block, group, chunk, batch) blocks, every group but
+    the last full."""
+    chunk = min(chunk, T)
+    if DK > TILE or DV > TILE or chunk > HEADS_MAX_CHUNK:
+        return "pairs", 0, 0
+    if NQ != 1:
+        return "heads", NH, 1
+    blocks = B * -(-T // chunk) * -(-chunk // TILE)
+    hg = -(-NH // min(NH, -(-HEAD_BLOCKS // blocks)))
+    return "heads", -(-NH // hg), hg
+
+
 def backward_scratch_shapes(B: int, T: int, NH: int, DK: int, DV: int, chunk: int
                             ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-    """The scratch of a backward launch (bf16 inputs), by name: the
-    forward's cum, li, local states and entering states again (the local
-    states' buffer then holds each chunk's U_c); gstate, the cotangent of
-    the state leaving each chunk, laid out as `entering`; pmat and dsmat,
-    P and dS of each chunk's (row block, key block <= it) pairs, (B, NH, nc,
-    pairs, 64, 64) f32, and rpart and cpart, the pairs' sums of the gate
-    term by row and by column, (B, NH, nc, pairs, 64), where DK or DV
-    exceeds 64 (narrow states keep P and dS in registers: no pmat and dsmat,
-    and rpart and cpart the complete sums, (B, NH, T)); ipart and hpart, the inter
-    and state gate terms over each DK tile, (B, NH, nk, T); dpart, the decay
-    term over each of the fold's 256-element blocks, (B, NH, nc, blocks)."""
+    """The scratch of a backward launch on the pairs route (bf16 inputs),
+    by name: the forward's cum, li, local states and entering states again
+    (the local states' buffer then holds each chunk's U_c); gstate, the
+    cotangent of the state leaving each chunk, laid out as `entering`; pmat
+    and dsmat, P and dS of each chunk's (row block, key block <= it) pairs,
+    (B, NH, nc, pairs, 64, 64) f32; rpart and cpart, the pairs' sums of the
+    gate term by row and by column, (B, NH, nc, pairs, 64); ipart and
+    hpart, the inter and state gate terms over each DK tile, (B, NH, nk,
+    T); dpart, the decay term over each of the fold's 256-element blocks,
+    (B, NH, nc, blocks)."""
     shapes = scratch_shapes(B, T, NH, DK, DV, chunk, torch.bfloat16)
     shapes.pop("scores", None)
     nc, nt = -(-T // chunk), -(-chunk // TILE)
@@ -314,17 +363,37 @@ def backward_scratch_shapes(B: int, T: int, NH: int, DK: int, DV: int, chunk: in
     pairs = nt * (nt + 1) // 2
     shapes.update(
         gstate=shapes["entering"],
+        pmat=((B, NH, nc, pairs, TILE, TILE), torch.float32),
+        dsmat=((B, NH, nc, pairs, TILE, TILE), torch.float32),
+        rpart=((B, NH, nc, pairs, TILE), torch.float32),
+        cpart=((B, NH, nc, pairs, TILE), torch.float32),
         ipart=((B, NH, nk, T), torch.float32),
         hpart=((B, NH, nk, T), torch.float32),
         dpart=((B, NH, nc, nk * nv * TILE * TILE // 256), torch.float32))
-    if nk == nv == 1:  # the narrow kernels keep P and dS in registers
-        shapes.update(rpart=((B, NH, T), torch.float32), cpart=((B, NH, T), torch.float32))
-    else:
-        shapes.update(pmat=((B, NH, nc, pairs, TILE, TILE), torch.float32),
-                      dsmat=((B, NH, nc, pairs, TILE, TILE), torch.float32),
-                      rpart=((B, NH, nc, pairs, TILE), torch.float32),
-                      cpart=((B, NH, nc, pairs, TILE), torch.float32))
     return shapes
+
+
+def heads_scratch_shapes(B: int, T: int, NH: int, chunk: int, groups: int
+                         ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The scratch of a backward launch on the heads route beside the
+    forward's `SAVED` cum, li and entering, by name: gstate, laid out as
+    entering (as on the pairs route); rpart, each pair's
+    step sums of the gate term from each of its four warps, (B, NH, nc,
+    pairs, 4, 64); cpart, ipart and hpart complete, (B, NH, T); dpart, the
+    decay term, (B, NH, nc); dqp and dkp, each head group's f32 shares of dq
+    by pair and of dk by key block, (B, nc, groups, pairs or row blocks,
+    64, 64)."""
+    shapes = scratch_shapes(B, T, NH, 1, 1, chunk, torch.bfloat16)
+    nc, nt = -(-T // chunk), -(-chunk // TILE)
+    pairs = nt * (nt + 1) // 2
+    f32 = torch.float32
+    return dict(
+        gstate=shapes["entering"],
+        rpart=((B, NH, nc, pairs, 4, TILE), f32),
+        cpart=((B, NH, T), f32), ipart=((B, NH, T), f32), hpart=((B, NH, T), f32),
+        dpart=((B, NH, nc), f32),
+        dqp=((B, nc, groups, pairs, TILE, TILE), f32),
+        dkp=((B, nc, groups, nt, TILE, TILE), f32))
 
 
 def _streamable(t: torch.Tensor) -> torch.Tensor:
@@ -340,11 +409,17 @@ def _streamable(t: torch.Tensor) -> torch.Tensor:
     return padded
 
 
-def _launch(q, k, v, log_g, log_i, y, state, chunk: int) -> None:
-    """q/k: (B, T, NH, DK), y: (B, T, NH, DV), v: (B, T, NH, DV or more: the
-    columns past DV are zeros the kernel may read), gates (B, T, NH) f32
-    views with a unit last stride (the gates' head stride is free); state
-    f32 (B, NH, DK, DV) contiguous."""
+def _empty(shapes: dict, device) -> dict[str, torch.Tensor]:
+    return {name: torch.empty(shape, dtype=dt, device=device)
+            for name, (shape, dt) in shapes.items()}
+
+
+def _launch(q, k, v, log_g, log_i, y, state, chunk: int) -> dict[str, torch.Tensor]:
+    """q/k: (B, T, NH, DK) (one head broadcast: head stride 0), y: (B, T,
+    NH, DV), v: (B, T, NH, DV or more: the columns past DV are zeros the
+    kernel may read), gates (B, T, NH) f32 views with a unit last stride
+    (the gates' head stride is free); state f32 (B, NH, DK, DV) contiguous.
+    Returns the scratch, which holds cum, li and the entering states."""
     B, T, NH, DK = q.shape
     DV = y.shape[-1]
     if not 1 <= chunk <= MAX_CHUNK:
@@ -358,8 +433,7 @@ def _launch(q, k, v, log_g, log_i, y, state, chunk: int) -> None:
     strides = [s for t in (q, k, v, log_g) for s in t.stride()[:3]]
     strides += list(log_i.stride()) if log_i is not None else [0, 0, 0]
     strides += list(y.stride()[:3])
-    scratch = {name: torch.empty(shape, dtype=dt, device=q.device) for name, (shape, dt)
-               in scratch_shapes(B, T, NH, DK, DV, chunk, q.dtype).items()}
+    scratch = _empty(scratch_shapes(B, T, NH, DK, DV, chunk, q.dtype), q.device)
     lib = _lib.load("ssd_scan", _SIGNATURES)
     err = lib.ssd_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_g.data_ptr(),
@@ -370,28 +444,60 @@ def _launch(q, k, v, log_g, log_i, y, state, chunk: int) -> None:
         _lib.stream_handle(q))
     _lib.check("ssd_scan", err)
     ssd_scan.launches += 1
+    return scratch
 
 
-def _launch_backward(q, k, v, log_g, log_i, dy, dstate, DV: int, chunk: int):
-    """The backward on CUDA, bf16: q/k (B, T, NH, DK) (any batch, time and
-    head strides), v and dy (B, T, NH, DV or more, zero past DV), gates f32
-    (B, T, NH) with a unit last stride, dstate f32 (B, NH, DK, DV)
-    contiguous or None (zero).  Returns (dq, dk, dv, dlog_g, dlog_i): dq,
-    dk and dv per head in bf16, the gates' f32, dlog_i None without log_i."""
-    B, T, NH, DK = q.shape
+def _strides(q, k, v, log_g, log_i, dy) -> list[int]:
     strides = [s for t in (q, k, v, log_g) for s in t.stride()[:3]]
     strides += list(log_i.stride()) if log_i is not None else [0, 0, 0]
-    strides += list(dy.stride()[:3])
-    outs = [torch.empty((B, T, NH, D), dtype=q.dtype, device=q.device) for D in (DK, DK, DV)]
-    outs.append(torch.empty((B, T, NH), dtype=torch.float32, device=q.device))
+    return strides + list(dy.stride()[:3])
+
+
+def _outputs(v, log_i, DK: int, DV: int, qk_heads: int) -> list:
+    B, T, NH = v.shape[:3]
+    outs = [torch.empty((B, T, qk_heads, DK), dtype=v.dtype, device=v.device) for _ in range(2)]
+    outs.append(torch.empty((B, T, NH, DV), dtype=v.dtype, device=v.device))
+    outs.append(torch.empty((B, T, NH), dtype=torch.float32, device=v.device))
     outs.append(None if log_i is None else torch.empty_like(outs[-1]))
-    scratch = {name: torch.empty(shape, dtype=dt, device=q.device) for name, (shape, dt)
-               in backward_scratch_shapes(B, T, NH, DK, DV, chunk).items()}
+    return outs
+
+
+def _launch_backward(q, k, v, log_g, log_i, dy, dstate, DK: int, DV: int, chunk: int):
+    """The pairs route on CUDA, bf16: q/k (B, T, NH, DK or more, zero past
+    DK; any batch, time and head strides), v and dy (B, T, NH, DV or more,
+    zero past DV), gates f32 (B, T, NH) with a unit last stride, dstate f32
+    (B, NH, DK, DV) contiguous or None (zero).  Returns (dq, dk, dv,
+    dlog_g, dlog_i): dq, dk and dv per head in bf16, the gates' f32,
+    dlog_i None without log_i."""
+    B, T, NH = v.shape[:3]
+    outs = _outputs(v, log_i, DK, DV, NH)
+    scratch = _empty(backward_scratch_shapes(B, T, NH, DK, DV, chunk), q.device)
     lib = _lib.load("ssd_scan", _SIGNATURES)
     err = lib.ssd_backward(
         *(0 if t is None else t.data_ptr() for t in (q, k, v, log_g, log_i, dy, dstate, *outs)),
-        *(scratch[n].data_ptr() if n in scratch else 0 for n in BACKWARD_SCRATCH), *strides,
+        *(scratch[n].data_ptr() for n in BACKWARD_SCRATCH), *_strides(q, k, v, log_g, log_i, dy),
         B, T, NH, DK, DV, chunk, _lib.dtype_code(q), *(int(vector_loads(t)) for t in (q, k, v, dy)),
+        _lib.stream_handle(q))
+    _lib.check("ssd_scan_backward", err)
+    ssd_scan_backward.launches += 1
+    return tuple(outs)
+
+
+def _launch_heads(q, k, v, log_g, log_i, dy, dstate, DK: int, DV: int, chunk: int,
+                  qk_heads: int, groups: int, heads_a_group: int, saved: dict):
+    """The heads route on CUDA, bf16, the arguments as `_launch_backward`'s;
+    `saved`: the forward's cum, li and entering (`SAVED`) at these inputs.
+    dq and dk at (B, T, qk_heads, DK)."""
+    B, T, NH = v.shape[:3]
+    outs = _outputs(v, log_i, DK, DV, qk_heads)
+    scratch = _empty(heads_scratch_shapes(B, T, NH, chunk, groups), q.device)
+    scratch.update(saved)
+    lib = _lib.load("ssd_scan", _SIGNATURES)
+    err = lib.ssd_backward_heads(
+        *(0 if t is None else t.data_ptr() for t in (q, k, v, log_g, log_i, dy, dstate, *outs)),
+        *(scratch[n].data_ptr() for n in HEADS_SCRATCH),
+        *_strides(q, k, v, log_g, log_i, dy), B, T, NH, DK, DV, chunk, groups, heads_a_group,
+        qk_heads, *(int(vector_loads(t)) for t in (q, k, v, dy)),
         _lib.stream_handle(q))
     _lib.check("ssd_scan_backward", err)
     ssd_scan_backward.launches += 1
@@ -400,17 +506,23 @@ def _launch_backward(q, k, v, log_g, log_i, dy, dstate, DV: int, chunk: int):
 
 def ssd_scan_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torch.Tensor,
                       log_i: torch.Tensor | None, dy: torch.Tensor,
-                      dstate: torch.Tensor | None, chunk: int = 256) -> tuple:
+                      dstate: torch.Tensor | None, chunk: int = 256,
+                      saved: dict | None = None) -> tuple:
     """The gradient of `ssd_scan_bthd` in the model layout: (dq, dk, dv,
     dlog_g, dlog_i) from the inputs, dy (B, T, NH, DV) and the final
-    state's cotangent dstate (B, NH, DK, DV; None is zero).  dq and dk are
-    per head (where q or k is broadcast over the heads, their gradient is
-    the sum over heads), in the inputs' dtype, as is dv; the gates' are
-    f32, dlog_i None without log_i.  CUDA tensors (bf16 q, k, v) launch the
-    backward kernel of `csrc/ssd_scan.cu` (seven launches: the forward's
-    passes 1-2 again, each chunk's U_c, the state cotangents, dq, dk with
-    dv, and the gates; nine past 64-wide states, whose pairs' scores get a
-    launch of their own and dq, dk, dv one each); CPU tensors run
+    state's cotangent dstate (B, NH, DK, DV; None is zero).  dq and dk
+    have q's and k's shapes: per head, or, for a one-head q or k (B, T, 1,
+    DK) broadcast over the heads, the sum over the heads; in the inputs'
+    dtype, as is dv; the gates' are f32, dlog_i None without log_i.  CUDA
+    tensors (bf16 q, k, v) launch the backward kernels of
+    `csrc/ssd_scan.cu`: for DK, DV <= 64 and chunks of at most 256 steps
+    the heads route (`backward_plan`; three launches: the state
+    cotangents, the gradients, their sums and the gates), on the forward's
+    scratch in `saved` (`forward_saved`; None runs the forward kernel
+    first, as the step's forward launch would), which sums a
+    broadcast q's and k's gradients over the heads itself; otherwise the
+    pairs route (nine launches), per head, a one-head q's or k's then
+    summed over the heads here.  CPU tensors run
     `chunked_linear_attention_backward_plain`."""
     tensors = [t for t in (q, k, v, log_g, log_i, dy, dstate) if t is not None]
     chunk = min(chunk, q.shape[1])
@@ -421,44 +533,71 @@ def ssd_scan_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: 
     _check(q, k, v, log_g, log_i, chunk)
     if q.dtype != torch.bfloat16:
         raise _lib.no_backward("ssd_scan", f"{q.dtype} ({NO_BACKWARD_F32})")
-    B, T, NH, DK = q.shape
+    B, T, NH, DK = v.shape[:3] + q.shape[-1:]
     DV = v.shape[-1]
     if dy.shape != v.shape or (dstate is not None and dstate.shape != (B, NH, DK, DV)):
         raise ValueError(f"bad cotangents dy{tuple(dy.shape)} for v{tuple(v.shape)}")
-    return _backward(q, k, _streamable(v), log_g, log_i, dy, dstate, DV, chunk)
+    return _backward(q, k, _streamable(v), log_g, log_i, dy, dstate, DV, chunk, saved)
 
 
-def _backward(q, k, v, log_g, log_i, dy, dstate, DV: int, chunk: int) -> tuple:
+def _backward(q, k, v, log_g, log_i, dy, dstate, DV: int, chunk: int, saved=None) -> tuple:
     """The backward kernel on CUDA tensors whose shapes `_check` passed, v
     already `_streamable` (columns past DV zero)."""
-    return _launch_backward(
-        q, k, v, _f32(log_g), _f32(log_i), _streamable(dy.to(v.dtype).contiguous()),
-        None if dstate is None else dstate.float().contiguous(), DV, chunk)
+    B, T, NH = v.shape[:3]
+    DK = q.shape[-1]
+    qk_heads = 1 if q.shape[2] == k.shape[2] == 1 else NH
+    route, groups, heads_a_group = backward_plan(B, T, NH, qk_heads, DK, DV, chunk)
+    qe, ke = _heads(_streamable(q), _streamable(k), v)
+    args = (qe, ke, v, _f32(log_g), _f32(log_i), _streamable(dy.to(v.dtype).contiguous()),
+            None if dstate is None else dstate.float().contiguous(), DK, DV, chunk)
+    if route == "heads":
+        if saved is None:
+            scratch = _forward(q, k, v, log_g, log_i, chunk, DV)[2]
+            saved = {n: scratch[n] for n in SAVED}
+        dq, dk, *rest = _launch_heads(*args, qk_heads, groups, heads_a_group, saved)
+    else:
+        dq, dk, *rest = _launch_backward(*args)
+    # per-head gradients of a one-head q or k (the pairs route, or only one
+    # of the two broadcast): their sum over the heads
+    if dq.shape[2] != q.shape[2]:
+        dq = dq.float().sum(2, keepdim=True).to(q.dtype)
+    if dk.shape[2] != k.shape[2]:
+        dk = dk.float().sum(2, keepdim=True).to(k.dtype)
+    return (dq, dk, *rest)
 
 
 class _ScanFn(torch.autograd.Function):
-    """`ssd_scan_bthd` with its backward kernel: q, k, v, log_g (f32) and
-    log_i (f32 or None) in; y and the final state out.  The backward
-    rebuilds the states entering each chunk from the saved inputs (the
-    forward's passes 1-2 run again) rather than keep the forward's scratch;
-    it saves v as the forward streamed it (the mLSTM's padded copy), so the
-    backward pads only dy.  A None cotangent (the state, which training
-    discards) is zero."""
+    """`ssd_scan_bthd` with its backward kernel: q, k (per head, or one head
+    broadcast over v's heads, whose gradients then come back summed over
+    them), v, log_g (f32) and log_i (f32 or None) in; y and the final state
+    out.  On the backward's heads route it keeps the forward's cum, li and
+    entering states (`SAVED`; 21 MB a call at zamba2-2.7b's train
+    micro-batch), so the backward does not run the forward's passes again;
+    under remat (`torch.utils.checkpoint`) the kept scratch is the
+    recompute's, held only until its group's backward.  On the pairs route
+    it keeps the inputs alone.  It saves v as the forward streamed it (the
+    mLSTM's padded copy), so the backward pads only dy.  A None cotangent
+    (the state, which training discards) is zero."""
 
     @staticmethod
     def forward(ctx, q, k, v, log_g, log_i, chunk: int):
         ctx.set_materialize_grads(False)
         ctx.chunk, ctx.dv = chunk, v.shape[-1]
         v = _streamable(v)
-        ctx.save_for_backward(q, k, v, log_g, log_i)
-        return _forward(q, k, v, log_g, log_i, chunk, ctx.dv)
+        y, state, scratch = _forward(q, k, v, log_g, log_i, chunk, ctx.dv)
+        B, T, NH = v.shape[:3]
+        qk_heads = 1 if q.shape[2] == k.shape[2] == 1 else NH
+        keep = backward_plan(B, T, NH, qk_heads, q.shape[-1], ctx.dv, chunk)[0] == "heads"
+        ctx.save_for_backward(q, k, v, log_g, log_i, *(scratch[n] for n in SAVED if keep))
+        return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        q, k, v, log_g, log_i = ctx.saved_tensors
+        q, k, v, log_g, log_i, *kept = ctx.saved_tensors
         if dy is None:  # v's streamed shape, zero past DV as the kernel reads it
             dy = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
-        return (*_backward(q, k, v, log_g, log_i, dy, dstate, ctx.dv, ctx.chunk), None)
+        saved = dict(zip(SAVED, kept)) if kept else None
+        return (*_backward(q, k, v, log_g, log_i, dy, dstate, ctx.dv, ctx.chunk, saved), None)
 
 
 def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
@@ -466,30 +605,44 @@ def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
 
 
 def _check(q, k, v, log_g, log_i, chunk: int) -> None:
-    B, T, NH, DK = q.shape
-    if k.shape != q.shape or v.shape[:3] != (B, T, NH) or log_g.shape != (B, T, NH) or \
-            (log_i is not None and log_i.shape != (B, T, NH)):
+    B, T, NH = v.shape[:3]
+    DK = q.shape[-1]
+    if any(t.shape not in ((B, T, NH, DK), (B, T, 1, DK)) for t in (q, k)) or \
+            log_g.shape != (B, T, NH) or (log_i is not None and log_i.shape != (B, T, NH)):
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"log_g{tuple(log_g.shape)}")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk {chunk} outside [1, {MAX_CHUNK}]")
 
 
-def _forward(q, k, v, log_g, log_i, chunk: int, DV: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _forward(q, k, v, log_g, log_i, chunk: int, DV: int) -> tuple:
     """The forward kernel on CUDA tensors whose shapes `_check` passed, v
-    already `_streamable` (columns past DV zero)."""
-    B, T, NH, DK = q.shape
+    already `_streamable` (columns past DV zero): (y, state, scratch)."""
+    B, T, NH = v.shape[:3]
+    q, k = _heads(q, k, v)
     y = torch.empty((B, T, NH, DV), dtype=v.dtype, device=v.device)
-    state = torch.empty((B, NH, DK, DV), dtype=torch.float32, device=v.device)
-    _launch(q, k, v, _f32(log_g), _f32(log_i), y, state, chunk)
-    return y, state
+    state = torch.empty((B, NH, q.shape[-1], DV), dtype=torch.float32, device=v.device)
+    scratch = _launch(q, k, v, _f32(log_g), _f32(log_i), y, state, chunk)
+    return y, state, scratch
+
+
+def forward_saved(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torch.Tensor,
+                  log_i: torch.Tensor | None = None, chunk: int = 256) -> dict:
+    """The forward kernel's scratch that `_ScanFn` keeps for the backward's
+    heads route (`SAVED`), from one forward launch at these CUDA inputs:
+    `ssd_scan_backward(..., saved=...)` then runs as a train step's does."""
+    chunk = min(chunk, q.shape[1])
+    _check(q, k, v, log_g, log_i, chunk)
+    scratch = _forward(q, k, _streamable(v), log_g, log_i, chunk, v.shape[-1])[2]
+    return {n: scratch[n] for n in SAVED}
 
 
 def ssd_scan_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torch.Tensor,
                   log_i: torch.Tensor | None = None, chunk: int = 256
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The model layout: q/k (B, T, NH, DK), v (B, T, NH, DV), gates
-    (B, T, NH) -> (y (B, T, NH, DV) in v's dtype, state f32 (B, NH, DK, DV))."""
+    """The model layout: q/k (B, T, NH, DK), or (B, T, 1, DK) broadcast over
+    the heads, v (B, T, NH, DV), gates (B, T, NH) -> (y (B, T, NH, DV) in
+    v's dtype, state f32 (B, NH, DK, DV))."""
     tensors = [t for t in (q, k, v, log_g, log_i) if t is not None]
     if not _lib.route(*tensors):
         return chunked_linear_attention_plain(q, k, v, log_g, log_i, chunk=chunk)
@@ -499,7 +652,7 @@ def ssd_scan_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torc
         if q.dtype != torch.bfloat16:
             raise _lib.no_backward("ssd_scan", f"{q.dtype} ({NO_BACKWARD_F32})")
         return _ScanFn.apply(q, k, v, _f32(log_g), _f32(log_i), chunk)
-    return _forward(q, k, _streamable(v), log_g, log_i, chunk, v.shape[-1])
+    return _forward(q, k, _streamable(v), log_g, log_i, chunk, v.shape[-1])[:2]
 
 
 def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torch.Tensor,

@@ -377,7 +377,8 @@ class Ops:
     * `decode_attention(q, k_cache, v_cache, kv_len)`: q (B, 1, H, D)
       against a (B, S, KH, D) cache;
     * `linear_attention(q, k, v, log_g, log_i=None, chunk=256)`: the
-      chunked decayed scan from a zero state in the (B, T, NH, D) layout,
+      chunked decayed scan from a zero state in the (B, T, NH, D) layout
+      (q and k may be one head, (B, T, 1, D), broadcast over v's NH),
       returning (y, final f32 state)."""
 
     rms_norm: Callable

@@ -8,8 +8,8 @@ it through `ops.linear_attention`, which on the card is the `ssd_scan`
 kernel (the mLSTM at state widths (hd, hd + 1): v carries a ones column
 whose state column is the normaliser), and under grad its backward kernel
 too (`ssd_scan_backward`, bf16: both recurrent models train on the card;
-the scan's gradients of the broadcast q and k are summed over the heads by
-the `expand`'s backward).  The depthwise causal conv, the
+Mamba2 hands the scan q and k as one head, and the backward kernel returns
+their gradients summed over the heads).  The depthwise causal conv, the
 decode steps' single recurrence step and the sLSTM's recurrence over time
 stay plain PyTorch on every device, because the reference computes them in
 plain XLA (`lax.scan` for the sLSTM) with no Pallas kernel to port: they
@@ -118,9 +118,12 @@ def mamba2_full(cfg: ModelConfig, ops: Ops, p, x: torch.Tensor, return_state: bo
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, T, nh)
     A = -torch.exp(p["A_log"].float())
     log_g = dt * A  # <= 0
-    # the head broadcast stays a view (head stride 0); the kernel reads it as is
-    k = Bm[:, :, None, :].expand(B, T, nh, ds)
-    q = Cm[:, :, None, :].expand(B, T, nh, ds)
+    # one head for all nh (the reference broadcasts it to (B, T, nh, ds)):
+    # the scan reads it with head stride 0, and its backward returns the
+    # gradient summed over the heads at this shape, which a gradient of an
+    # expanded view could not be
+    k = Bm[:, :, None, :]
+    q = Cm[:, :, None, :]
     v = xs * dt[..., None].to(xs.dtype)
     y, S = ops.linear_attention(q, k, v, log_g, chunk=ssm_chunk_of(cfg, T))
     y = y + xs * p["D"].to(xs.dtype)[:, None]

@@ -887,6 +887,110 @@ def test_ssd_scan_under_grad_and_in_a_graph(cuda):
         assert torch.equal(a, b), name
 
 
+# (B, T, NH, DK, DV, chunk, one_head, with_i, final): the heads route at
+# chunks 64, 128 and 256, q and k one head broadcast over the heads (their
+# gradients summed by the kernel) or per head, ragged T, a final-state
+# cotangent and log_i, each with and without
+SSD_HEADS_CASES = {
+    "bcast-c256": (2, 512, 12, 64, 64, 256, True, False, False),
+    "bcast-c128-ragged-final": (2, 333, 10, 64, 64, 128, True, False, True),
+    "bcast-c64-log_i": (1, 200, 7, 64, 64, 64, True, True, False),
+    "bcast-narrow-widths": (2, 300, 5, 48, 40, 256, True, True, True),
+    "per-head-c128": (2, 256, 4, 64, 64, 128, False, False, True),
+    "per-head-c256-ragged-log_i": (1, 700, 3, 32, 64, 256, False, True, False),
+    "one-head-short-t": (3, 37, 2, 16, 24, 256, True, False, True),
+    "odd-widths": (1, 100, 3, 12, 20, 64, True, True, True),  # q, k, v rows padded to 8
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(SSD_HEADS_CASES))
+def test_ssd_scan_backward_heads_route_matches_plain(cuda, case):
+    """The heads route against the plain backward in f32 at GRAD_TOL; dq and
+    dk at q's and k's own shapes (one head: summed over the heads by the
+    kernel); two calls bit-equal; one call counted each; with the forward's
+    scratch kept (as `_ScanFn` keeps it) bit-equal to the wrapper's own
+    forward launch."""
+    B, T, NH, DK, DV, chunk, one_head, with_i, final = SSD_HEADS_CASES[case]
+    args = list(_ssd_grad_inputs(cuda, 140, B, T, NH, DK, DV, one_head, with_i, final))
+    if one_head:
+        args[0], args[1] = args[0][:, :, :1], args[1][:, :, :1]
+    assert ssd.backward_plan(B, T, NH, 1 if one_head else NH, DK, DV, chunk)[0] == "heads"
+    before = ssd.ssd_scan_backward.launches
+    got = ssd.ssd_scan_backward(*args, chunk=chunk)
+    again = ssd.ssd_scan_backward(*args, chunk=chunk)
+    saved = ssd.forward_saved(*args[:5], chunk=chunk)
+    kept = ssd.ssd_scan_backward(*args, chunk=chunk, saved=saved)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_backward.launches == before + 3
+    want = ssd.chunked_linear_attention_backward_plain(
+        *(None if t is None else t.float() for t in args), chunk=chunk)
+    for name, a, b, c, d in zip(("dq", "dk", "dv", "dlog_g", "dlog_i"), got, want, again, kept):
+        if b is None:
+            assert a is None and c is None and d is None, name
+            continue
+        assert a.shape == b.shape, name
+        assert_grad_close(a, b, f"{name} ({case})")
+        assert torch.equal(a, c) and torch.equal(a, d), name
+    assert got[0].shape == args[0].shape and got[1].shape == args[1].shape
+
+
+@pytest.mark.requires_cuda
+def test_ssd_scan_backward_heads_route_in_a_graph_and_under_grad(cuda):
+    """Mamba2's call: one-head q and k under grad run the forward kernel and
+    the heads route once, and the leaves get the head-summed gradients
+    straight from the kernel (no expand backward); a CUDA graph's replay of
+    the backward, with the forward's scratch kept, equals the eager call."""
+    B, T, NH, D, chunk = 2, 300, 6, 64, 128
+    q, k, v, log_g, _, dy, _ = _ssd_grad_inputs(cuda, 150, B, T, NH, D, D, True, False, False)
+    q, k = q[:, :, :1], k[:, :, :1]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, log_g)]
+    f0, b0 = ssd.ssd_scan.launches, ssd.ssd_scan_backward.launches
+    y, _ = ssd.ssd_scan_bthd(*leaves, chunk=chunk)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (ssd.ssd_scan.launches, ssd.ssd_scan_backward.launches) == (f0 + 1, b0 + 1)
+    want = ssd.chunked_linear_attention_backward_plain(q.float(), k.float(), v.float(), log_g,
+                                                       None, dy.float(), None, chunk=chunk)
+    for name, leaf, w in zip(("dq", "dk", "dv", "dlog_g"), leaves, want):
+        assert leaf.grad.shape == leaf.shape, name
+        assert_grad_close(leaf.grad, w, name)
+    saved = ssd.forward_saved(q, k, v, log_g, chunk=chunk)
+    args = (q, k, v, log_g, None, dy, None)
+    eager = ssd.ssd_scan_backward(*args, chunk=chunk, saved=saved)
+    for name, leaf, a in zip(("dq", "dk", "dv", "dlog_g"), leaves, eager):
+        assert torch.equal(leaf.grad.to(a.dtype), a), name
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd.ssd_scan_backward(*args, chunk=chunk, saved=saved)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = ssd.ssd_scan_backward(*args, chunk=chunk, saved=saved)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dlog_g"), eager, static):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.requires_cuda
+def test_ssd_scan_backward_pairs_route_sums_a_one_head_q(cuda):
+    """Past the heads route (a chunk of 512 steps) a one-head q and k get
+    the pairs route's per-head gradients summed over the heads."""
+    B, T, NH, D, chunk = 1, 600, 3, 64, 512
+    args = list(_ssd_grad_inputs(cuda, 160, B, T, NH, D, D, True, False, True))
+    args[0], args[1] = args[0][:, :, :1], args[1][:, :, :1]
+    assert ssd.backward_plan(B, T, NH, 1, D, D, chunk)[0] == "pairs"
+    got = ssd.ssd_scan_backward(*args, chunk=chunk)
+    want = ssd.chunked_linear_attention_backward_plain(
+        *(None if t is None else t.float() for t in args), chunk=chunk)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dlog_g"), got, want):
+        assert a.shape == b.shape, name
+        assert_grad_close(a, b, name)
+
+
 class _SpinStage:
     """A pipeline stage that keeps the card busy for `cycles` clock cycles."""
 
