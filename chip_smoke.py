@@ -93,8 +93,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    run once a replay) and one step's device busy share and host launch
    calls; (b) one loss and its gradients
    at full width and 2 of 28 layers through the kernels and through the
-   plain math, every leaf within 5e-2 of its scale; for it and for
-   zamba2-2.7b's first group and xlstm-1.3b's first period, every leaf
+   plain math, every leaf within 5e-2 of its scale; for it, for
+   zamba2-2.7b's first group, xlstm-1.3b's first period and
+   seamless-m4t-large-v2's first 2 encoder and 2 decoder layers, every leaf
    through the kernels within `F32_FLOOR_FACTOR` times the plain math's
    own bf16 distance from the f32 gradient (at least 5e-2), and at each
    scan call autograd's gradients bit-equal to the scan's backward kernel
@@ -106,13 +107,20 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    uninjected run's; (d) zamba2-2.7b at full width and depth (54 layers,
    2.06 B parameters) through the same two runs as (a), bit-equal, with
    `ssd_scan` and `ssd_scan_backward` launched as its Mamba2 blocks make
-   them.  Phase 2 also
+   them; (e) seamless-m4t-large-v2 at full width and depth (24 encoder
+   and 24 decoder layers, 2.035 B parameters) through the same two runs,
+   each micro-batch 4 x 1024 frame embeddings and 4 x 256 tokens, its
+   encoder's and cross-attention's non-causal attention (q of 256 rows
+   over 1024) through flash attention's backward.  Phase 2 also
    holds the backward kernels (`rmsnorm_backward`, flash attention's
    LSE-writing forward and its backward, `ssd_scan_backward`) against
    their plain backward run in f32, at the train shapes (`train_small`'s
-   too; the scan's at zamba2-2.7b's and the mLSTM's and a ragged one) and
-   the serve's or a G = 1 one; flash attention's backward is split by
-   launch (Delta, dK/dV, dQ) and read in TFLOP/s against its bound.
+   too; the scan's at zamba2-2.7b's and the mLSTM's and a ragged one; the
+   flash backward's also at seamless-m4t-large-v2's non-causal encoder
+   and cross-attention, a ragged non-causal Sq < Sk and a causal Sq < Sk
+   and Sq > Sk) and the serve's or a G = 1 one; flash attention's
+   backward is split by launch (Delta, dK/dV, dQ) and read in TFLOP/s
+   against its bound.
 
 With `--parent ROOT` (another tree of the repository, such as the parent
 commit unpacked), every kernel that tree has is built too, timed in turns
@@ -231,10 +239,16 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 8, 1024, 8, 2
 # phase 6d: zamba2-2.7b at full width and depth (54 layers: 45 Mamba2
 # blocks, the shared attention block applied 9 times), the same run as 6a
 HYBRID_TRAIN_ARCH = "zamba2-2.7b"
+# phase 6e: seamless-m4t-large-v2 at full width and depth (24 encoder and
+# 24 decoder layers), the same run as 6a over micro-batches of 4 x
+# TRAIN_SEQ frame embeddings and 4 x ENCDEC_TRAIN_TEXT text tokens
+ENCDEC_TRAIN_ARCH, ENCDEC_TRAIN_TEXT = "seamless-m4t-large-v2", 256
 # phase 6b: (arch, layers kept) at full width: qwen2-1.5b's first 2 of 28;
 # zamba2-2.7b's first group (5 Mamba2 blocks and the shared attention);
-# xlstm-1.3b's first period (7 mLSTM blocks at DK 1024, DV 1025, 1 sLSTM)
-GRAD_PARITY_RUNS = ((TRAIN_ARCH, 2), (HYBRID_TRAIN_ARCH, 6), ("xlstm-1.3b", 8))
+# xlstm-1.3b's first period (7 mLSTM blocks at DK 1024, DV 1025, 1 sLSTM);
+# seamless-m4t-large-v2's first 2 encoder and first 2 decoder layers
+GRAD_PARITY_RUNS = ((TRAIN_ARCH, 2), (HYBRID_TRAIN_ARCH, 6), ("xlstm-1.3b", 8),
+                    (ENCDEC_TRAIN_ARCH, 2))
 # 6b's held rule beside the plain math: each leaf's gradient through the
 # kernels no farther from the f32 gradient than this many times the plain
 # math's own bf16 distance from it, or this many times 5e-2 where that
@@ -719,18 +733,32 @@ def small_train_rows() -> tuple[str, int, int]:
     return ("train_small train", B // ACCUM * S, small_config().d_model)
 
 
-def grad_shapes_flash() -> list[tuple[str, int, int, int, int, int]]:
-    """(what, B, S, H, KH, D): qwen2-1.5b's micro-batch (4, 1024, 12/2, 128),
-    causal, a G = 1 shape, and `train_small`'s micro-batch (4, 128, 8/2,
-    64), which phase 6c's elastic pair launches."""
+def grad_shapes_flash() -> list[tuple[str, int, int, int, int, int, int, bool]]:
+    """(what, B, Sq, Sk, H, KH, D, causal): qwen2-1.5b's micro-batch (4,
+    1024, 12/2, 128), causal, a G = 1 shape, and `train_small`'s micro-batch
+    (4, 128, 8/2, 64), which phase 6c's elastic pair launches; then
+    seamless-m4t-large-v2's, as phase 6e trains it (`ENCDEC_TRAIN_TEXT`
+    tokens over `TRAIN_SEQ` frames a sequence): its encoder (4, 1024, 16/16,
+    64) and its cross-attention (q of 256 rows over k and v of 1024),
+    non-causal; a ragged non-causal (2, 33 over 1000, 8/2, 64); and the
+    causal Sq < Sk and Sq > Sk of `flash_model_shapes`."""
     from repro_torch.configs import get_config
     from repro_torch.examples.train_small import ACCUM, BATCH as SB, SEQ as SS, small_config
 
-    cfg, small = get_config(TRAIN_ARCH), small_config()
+    cfg, small, audio = get_config(TRAIN_ARCH), small_config(), get_config(ENCDEC_TRAIN_ARCH)
     mb = TRAIN_BATCH // TRAIN_ACCUM
-    return [(f"{TRAIN_ARCH} train", mb, TRAIN_SEQ, cfg.n_heads, cfg.kv_heads, cfg.hd),
-            ("G = 1", 2, 1024, 8, 8, 128),
-            ("train_small train", SB // ACCUM, SS, small.n_heads, small.kv_heads, small.hd)]
+    heads = (audio.n_heads, audio.kv_heads, audio.hd)
+    return [(f"{TRAIN_ARCH} train", mb, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, cfg.kv_heads, cfg.hd,
+             True),
+            ("G = 1", 2, 1024, 1024, 8, 8, 128, True),
+            ("train_small train", SB // ACCUM, SS, SS, small.n_heads, small.kv_heads, small.hd,
+             True),
+            (f"{ENCDEC_TRAIN_ARCH} encoder", mb, TRAIN_SEQ, TRAIN_SEQ, *heads, False),
+            (f"{ENCDEC_TRAIN_ARCH} cross-attention", mb, ENCDEC_TRAIN_TEXT, TRAIN_SEQ, *heads,
+             False),
+            ("ragged, non-causal", 2, 33, 1000, 8, 2, 64, False)] + [
+        (what, B, Sq, Sk, H, KH, D, causal)
+        for what, B, Sq, Sk, H, KH, D, _, causal in flash_model_shapes() if Sq != Sk and causal]
 
 
 def check_rmsnorm_backward(dev, g, parent) -> dict:
@@ -804,18 +832,39 @@ def check_rmsnorm_backward(dev, g, parent) -> dict:
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
 
 
+def replays_equal(call, eager: list) -> bool:
+    """`call(outs)` captured in a CUDA graph, writing into buffers filled
+    with NaN, and replayed once: its outputs equal to `eager`, the eager
+    call's, bit for bit."""
+    import torch
+
+    outs = [torch.full_like(t, float("nan")) for t in eager]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call(outs)
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(outs, eager))
+    del graph
+    return equal
+
+
 def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
-    """At `grad_shapes_flash`, causal bf16: the LSE forward's output equals
-    `fa_forward`'s bit for bit and its lse the plain one; dq, dk and dv
-    against the plain backward run in f32, each within GRAD_TOL of that
-    result's max |value| (autograd through the plain forward in bf16
-    logged beside it); bit-equal run to run.  The LSE forward is timed
-    beside `fa_forward` at the same inputs, the backward (three launches)
-    beside its bound, the plain backward, SDPA's backward (enable_gqa) and,
-    under `--parent`, the other tree's backward in turns; one call's device
-    time is split by launch (Delta, dK/dV, dQ) from the profiler, and the
-    achieved rate read against the bound's five products.  Returns the rows
-    of both entries, the train shape's first."""
+    """At `grad_shapes_flash`, bf16, causal (top-left) or not, Sq and Sk of
+    their own: the LSE forward's output equals `fa_forward`'s bit for bit
+    and its lse the plain one; dq, dk and dv against the plain backward run
+    in f32, each within GRAD_TOL of that result's max |value| (autograd
+    through the plain forward in bf16 logged beside it); bit-equal run to
+    run, and a CUDA graph's replay bit-equal to the eager call.  The LSE
+    forward is timed beside `fa_forward` at the same inputs, the backward
+    (three launches) beside its bound (five products over the pairs the
+    mask keeps, `flash_pairs`), the plain backward, SDPA's backward
+    (`is_causal` as the row, enable_gqa) and, under `--parent`, the other
+    tree's backward in turns at the causal Sq == Sk rows (an older tree's
+    backward takes no other); one call's device time is split by launch
+    (Delta, dK/dV, dQ) from the profiler, and the achieved rate read
+    against the bound's five products.  Returns the rows of both entries,
+    the train shape's first."""
     import torch
     import torch.nn.functional as F
 
@@ -824,88 +873,100 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
 
     bf16 = torch.bfloat16
     fwd, bwd = [], []
-    for what, B, S, H, KH, D in grad_shapes_flash():
-        q, dout = (torch.randn(B, H, S, D, generator=g, device=dev).to(bf16) for _ in range(2))
-        k, v = (torch.randn(B, KH, S, D, generator=g, device=dev).to(bf16) for _ in range(2))
+    for what, B, Sq, Sk, H, KH, D, causal in grad_shapes_flash():
+        q, dout = (torch.randn(B, H, Sq, D, generator=g, device=dev).to(bf16) for _ in range(2))
+        k, v = (torch.randn(B, KH, Sk, D, generator=g, device=dev).to(bf16) for _ in range(2))
         scale = D ** -0.5
         o = torch.empty_like(q)
-        lse = fa.flash_attention_forward_lse(q, k, v, o, scale)
-        direct = fa.flash_attention(q, k, v)
+        lse = fa.flash_attention_forward_lse(q, k, v, o, scale, causal)
+        direct = fa.flash_attention(q, k, v, causal)
         grads = [torch.empty_like(t) for t in (q, k, v)]
         again = [torch.empty_like(t) for t in (q, k, v)]
-        fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale)
-        fa.flash_attention_backward(q, k, v, o, dout, lse, *again, scale)
-        want = flash_grads_f32(q, k, v, dout)
+        fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale, causal)
+        fa.flash_attention_backward(q, k, v, o, dout, lse, *again, scale, causal)
+        want = flash_grads_f32(q, k, v, dout, causal)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        plain_bf16 = torch.autograd.grad(fa.flash_attention_plain(*leaves), leaves, dout)
+        plain_bf16 = torch.autograd.grad(fa.flash_attention_plain(*leaves, causal), leaves, dout)
         torch.cuda.synchronize()
         if not torch.equal(o, direct):
             raise AssertionError(f"flash_attention_forward_lse ({what}): output differs from "
                                  f"fa_forward's")
-        lse_err = float((lse - fa.flash_attention_lse_plain(q, k)).abs().max())
+        lse_err = float((lse - fa.flash_attention_lse_plain(q, k, causal=causal)).abs().max())
         if lse_err > 1e-3:
             raise AssertionError(f"flash_attention_forward_lse ({what}): lse off by {lse_err}")
         gaps = [assert_grad_close(a, b, f"flash_attention_backward {n} ({what})")
                 for n, a, b in zip(("dq", "dk", "dv"), grads, want)]
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
             raise AssertionError(f"flash_attention_backward ({what}): two calls differ")
+        if not replays_equal(lambda outs: fa.flash_attention_backward(
+                q, k, v, o, dout, lse, *outs, scale, causal), grads):
+            raise AssertionError(f"flash_attention_backward ({what}): a CUDA graph's replay "
+                                 f"differs from the eager call")
         plain_gaps = [grad_gap(a, b) for a, b in zip(plain_bf16, want)]
         del want, again, plain_bf16, leaves, direct
-        pairs = B * H * S * (S + 1) / 2
-        tensors_q, tensors_k = B * H * S * D * 2, B * KH * S * D * 2
-        f_ms, f_by = bound_ms(2 * tensors_q + 2 * tensors_k + B * H * S * 4,
+        pairs = B * H * flash_pairs(Sq, Sk, causal)
+        kv_rows = min(Sq, Sk) if causal else Sk  # the K/V rows some query keeps
+        tensors_q, tensors_kv = B * H * Sq * D * 2, B * KH * kv_rows * D * 2
+        f_ms, f_by = bound_ms(2 * tensors_q + 2 * tensors_kv + B * H * Sq * 4,
                               (4.0 * pairs * D, BF16_FLOP_S))
-        b_ms, b_by = bound_ms(4 * tensors_q + 4 * tensors_k + B * H * S * 4,
-                              (10.0 * pairs * D, BF16_FLOP_S))
+        # reads q, o, dout, the kept K/V rows and lse; writes dq, and dk, dv
+        # at all Sk rows (zeros where no query sees a key)
+        b_ms, b_by = bound_ms(4 * tensors_q + 2 * tensors_kv + 2 * B * KH * Sk * D * 2
+                              + B * H * Sq * 4, (10.0 * pairs * D, BF16_FLOP_S))
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                              enable_gqa=H != KH)
         lse_ms, fwd_ms = (time_ms(fn, iters=20) for fn in (
-            lambda: fa.flash_attention_forward_lse(q, k, v, o, scale),
-            lambda: fa._launch(q, k, v, o, True, scale)))
+            lambda: fa.flash_attention_forward_lse(q, k, v, o, scale, causal),
+            lambda: fa._launch(q, k, v, o, causal, scale)))
         fwd.append(dict(
-            shape=[B, S, H, KH, D], what=what, max_abs_err=lse_err, tol=1e-3, ms=lse_ms,
-            parent_ms=None, fa_forward_ms=fwd_ms,
-            plain_ms=time_ms(lambda: (fa.flash_attention_plain(q, k, v),
-                                      fa.flash_attention_lse_plain(q, k)), iters=5, warmup=1),
+            shape=[B, Sq, Sk, H, KH, D], causal=causal, what=what, max_abs_err=lse_err,
+            tol=1e-3, ms=lse_ms, parent_ms=None, fa_forward_ms=fwd_ms,
+            plain_ms=time_ms(lambda: (fa.flash_attention_plain(q, k, v, causal),
+                                      fa.flash_attention_lse_plain(q, k, causal=causal)),
+                             iters=5, warmup=1),
             bound_ms=f_ms, bound_by=f_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=H != KH), iters=20),
-            host_ms=host_ms(lambda: fa.flash_attention_forward_lse(q, k, v, o, scale),
+                q, k, v, is_causal=causal, enable_gqa=H != KH), iters=20),
+            host_ms=host_ms(lambda: fa.flash_attention_forward_lse(q, k, v, o, scale, causal),
                             calls=100)))
-        def b_call(m):
-            m.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale)
 
-        ms, parent_ms = paired_ms(b_call, fa, parent, iters=10)
+        def b_call(m):
+            if m is fa:
+                m.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale, causal)
+            else:  # the other tree's: causal, Sq == Sk
+                m.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale)
+
+        ms, parent_ms = paired_ms(b_call, fa, parent if causal and Sq == Sk else None, iters=10)
         split = kernel_us(lambda: b_call(fa))
         launch_us = {part: sum(us for name, us in split.items() if name.startswith(prefix))
                      for part, prefix in (("delta", "fa_bwd_delta"), ("dkdv", "fa_bwd_dkdv"),
                                           ("dq", "fa_bwd_dq"))}
         bwd.append(dict(
-            shape=[B, S, H, KH, D], what=what, max_abs_err=max(gaps), tol=GRAD_TOL,
-            ms=ms, parent_ms=parent_ms, launch_us=launch_us,
+            shape=[B, Sq, Sk, H, KH, D], causal=causal, what=what, max_abs_err=max(gaps),
+            tol=GRAD_TOL, ms=ms, parent_ms=parent_ms, launch_us=launch_us,
             tflops=10.0 * pairs * D / (ms * 1e-3) / 1e12,
-            plain_ms=time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, o, dout, lse),
-                             iters=3, warmup=1),
+            plain_ms=time_ms(lambda: fa.flash_attention_backward_plain(
+                q, k, v, o, dout, lse, causal=causal), iters=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), dout,
                                                            retain_graph=True), iters=10),
-            host_ms=host_ms(lambda: fa.flash_attention_backward(q, k, v, o, dout, lse, *grads,
-                                                                scale), calls=20)))
-        log(f"[kernels] flash_attention_forward_lse at the {what} shape (B, S, H/KH, D) = "
-            f"({B}, {S}, {H}/{KH}, {D}) causal bf16: {lse_ms * 1e3:.3f} us against fa_forward's "
-            f"{fwd_ms * 1e3:.3f} us at the same inputs, bound {f_ms * 1e3:.3f} us ({f_by}), "
-            f"SDPA {fwd[-1]['library_ms'] * 1e3:.3f} us; output bit-equal to fa_forward's, lse "
-            f"within {lse_err:.3g} of the plain one")
+            host_ms=host_ms(lambda: b_call(fa), calls=20)))
+        mask = "causal" if causal else "non-causal"
+        log(f"[kernels] flash_attention_forward_lse at the {what} shape (B, Sq, Sk, H/KH, D) = "
+            f"({B}, {Sq}, {Sk}, {H}/{KH}, {D}) {mask} bf16: {lse_ms * 1e3:.3f} us against "
+            f"fa_forward's {fwd_ms * 1e3:.3f} us at the same inputs, bound {f_ms * 1e3:.3f} us "
+            f"({f_by}), SDPA {fwd[-1]['library_ms'] * 1e3:.3f} us; output bit-equal to "
+            f"fa_forward's, lse within {lse_err:.3g} of the plain one")
         at_once = fa._clusters_at_once(H // KH, D, dev.index)
-        plan = fa.backward_plan(B, H, KH, S, D, torch.cuda.get_device_properties(
-            dev).multi_processor_count, at_once)
-        if fa.backward_heads(B, H, KH, S, D) != plan.heads:
+        plan = fa.backward_plan(B, H, KH, Sq, Sk, D, torch.cuda.get_device_properties(
+            dev).multi_processor_count, at_once, causal)
+        heads = fa.backward_heads(B, H, KH, Sq, Sk, D, causal)
+        if heads != plan.heads:
             raise AssertionError(f"flash_attention_backward ({what}): the launch walks "
-                                 f"{fa.backward_heads(B, H, KH, S, D)} heads a block, its "
-                                 f"plan {plan.heads}")
+                                 f"{heads} heads a block, its plan {plan.heads}")
         bwd[-1].update(heads=plan.heads, cluster=plan.cluster, clusters_at_once=dict(at_once))
-        log(f"[kernels] flash_attention_backward at the {what} shape: "
+        log(f"[kernels] flash_attention_backward at the {what} shape ({mask}): "
             f"{ms * 1e3:.3f} us{vs_parent(parent_ms)} (dK/dV: {math.prod(plan.dkdv_grid)} "
             f"blocks of {plan.heads} heads, clusters of {plan.cluster}; the card holds "
             f"{dict(at_once)} clusters of C at once; one call's launches: Delta "
@@ -917,7 +978,7 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
             f"call; dq, dk, dv within {gaps[0]:.3g}, {gaps[1]:.3g}, {gaps[2]:.3g} of the f32 "
             f"plain backward's max |value| (tol {GRAD_TOL}; autograd of the plain forward in "
             f"bf16: {plain_gaps[0]:.3g}, {plain_gaps[1]:.3g}, {plain_gaps[2]:.3g}); bit-equal "
-            f"run to run")
+            f"run to run and in a graph's replay")
         del q, k, v, o, dout, lse, grads, ql, kl, vl, out
     return (dict(fwd[0], max_abs_err=max(r["max_abs_err"] for r in fwd), shapes=fwd),
             dict(bwd[0], max_abs_err=max(r["max_abs_err"] for r in bwd), shapes=bwd))
@@ -1057,20 +1118,24 @@ def flash_model_shapes() -> list[tuple]:
                   ("causal, Sq > Sk", 2, 1000, 300, 16, 4, 64, 64, True)]
 
 
+def flash_pairs(Sq: int, Sk: int, causal: bool) -> float:
+    """The (query, key) pairs a head's mask keeps: all Sq x Sk, or under the
+    causal mask, top-left, min(i + 1, Sk) for query i."""
+    if not causal:
+        return float(Sq * Sk)
+    m = min(Sq, Sk)
+    return m * (m + 1) / 2 + max(Sq - Sk, 0) * Sk
+
+
 def flash_bound(B, Sq, Sk, H, KH, D, Dv, causal, esize, peak) -> tuple[float, str]:
     """Bytes: q (B, Sq, H, D) and o (B, Sq, H, Dv) once each, and the rows
     of k (B, Sk, KH, D) and v (B, Sk, KH, Dv) some query keeps, once each:
     all Sk, or min(Sq, Sk) under the causal mask.  Operations: Q.K^T (D
     wide) and P.V (Dv wide) over the (query, key) pairs the mask keeps
-    (top-left: query i keeps min(i + 1, Sk) keys)."""
-    if causal:
-        m = min(Sq, Sk)
-        pairs = m * (m + 1) / 2 + max(Sq - Sk, 0) * Sk
-    else:
-        pairs = Sq * Sk
+    (`flash_pairs`)."""
     kv_rows = min(Sq, Sk) if causal else Sk
     nbytes = (B * Sq * H * (D + Dv) + B * kv_rows * KH * (D + Dv)) * esize
-    return bound_ms(nbytes, (2.0 * B * H * pairs * (D + Dv), peak))
+    return bound_ms(nbytes, (2.0 * B * H * flash_pairs(Sq, Sk, causal) * (D + Dv), peak))
 
 
 def check_flash_models(dev, g, err, parent) -> list[dict]:
@@ -2641,9 +2706,10 @@ def f32_witness(cfg, params32, batch, n0: int, fed, what: str = "", model32=None
 def model_for(arch: str, n_layers: int | None = None, dtype=None):
     """(config, model) of `arch` at full width: at its full depth, or at its
     first `n_layers` layers (deepseek-v3's dense ones first, then as many
-    MoE layers as the cut leaves), whose templates keep the full model's
-    per-layer init formulas (the stacked fan-in of all its layers); in
-    `dtype` where given."""
+    MoE layers as the cut leaves; the enc-dec's first `n_layers` encoder
+    and first `n_layers` decoder layers), whose templates keep the full
+    model's per-layer init formulas (the stacked fan-in of all its layers);
+    in `dtype` where given."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2659,6 +2725,10 @@ def model_for(arch: str, n_layers: int | None = None, dtype=None):
     defs = dict(model.defs)
     if "layers" in defs:
         defs["layers"] = defs["layers"][:n_layers]
+    elif "enc_layers" in defs:
+        cut = dataclasses.replace(cut, encoder_layers=n_layers)
+        defs["enc_layers"] = defs["enc_layers"][:n_layers]
+        defs["dec_layers"] = defs["dec_layers"][:n_layers]
     elif "inner" in defs:  # the hybrid and xLSTM: whole groups of the pattern
         period = len(defs["inner"][0]) + ("shared_attn" in defs or "outer" in defs)
         if n_layers % period:
@@ -3125,10 +3195,29 @@ def phase_decode(serving: list, dev, parent) -> dict:
 # ----------------------------------------------------------------- phase 6
 
 
-def train_batch(pipe, step: int, dev) -> dict:
+def train_pipe(cfg, global_batch: int, seed: int):
+    """The `TokenPipeline` of a train run of `cfg`: sequences of TRAIN_SEQ
+    tokens, or the enc-dec's text of ENCDEC_TRAIN_TEXT (its TRAIN_SEQ are
+    frames)."""
+    from repro_torch.data.tokens import TokenPipeline
+
+    seq = ENCDEC_TRAIN_TEXT if cfg.family == "audio" else TRAIN_SEQ
+    return TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=global_batch, seed=seed)
+
+
+def train_batch(cfg, pipe, step: int, dev) -> dict:
+    """Step `step`'s batch on the card: the pipeline's tokens, and for the
+    enc-dec TRAIN_SEQ frame embeddings a sequence, normal in bf16 from a
+    generator on the card seeded with the pipeline's seed plus the step (as
+    phase 5 makes its frames)."""
     import torch
 
-    return {k: torch.as_tensor(v, device=dev) for k, v in pipe.batch_for(step).items()}
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in pipe.batch_for(step).items()}
+    if cfg.family == "audio":
+        g = torch.Generator(device=dev).manual_seed(pipe.seed + step)
+        batch["frames"] = torch.randn(pipe.global_batch, TRAIN_SEQ, cfg.d_model, generator=g,
+                                      device=dev).to(cfg.dtype)
+    return batch
 
 
 def train_expect(cfg) -> dict:
@@ -3137,15 +3226,24 @@ def train_expect(cfg) -> dict:
     layer or a group at a time) and each backward kernel once.  Every block
     has two norms (a dense layer's and the shared attention block's before
     attention and the MLP; a Mamba2 block's pre-norm and gated norm; an
-    mLSTM or sLSTM block's pre-norm and output norm), and the final norm
-    one outside the remat; each attention layer (or application of the
-    shared block) one flash forward with its LSE and one flash backward;
-    each Mamba2 or mLSTM block one ssd_scan forward and one backward."""
-    L = cfg.n_layers
-    pattern = cfg.ssm_pattern or "a" * L
-    n_attn, n_scan = pattern.count("a"), sum(pattern.count(c) for c in "mM")
-    return {"rmsnorm": TRAIN_ACCUM * (2 * L + 1 + 2 * L),
-            "rmsnorm_backward": TRAIN_ACCUM * (2 * L + 1),
+    mLSTM or sLSTM block's pre-norm and output norm; an enc-dec encoder
+    layer's), an enc-dec decoder layer three (before its self-attention,
+    cross-attention and MLP), and the final norm (and the enc-dec's encoder
+    norm) one outside the remat; each attention layer (or application of
+    the shared block; the enc-dec's encoder layer, and its decoder layer's
+    self- and cross-attention, two) one flash forward with its LSE and one
+    flash backward; each Mamba2 or mLSTM block one ssd_scan forward and one
+    backward."""
+    if cfg.family == "audio":
+        E, L = cfg.encoder_layers, cfg.n_layers
+        norms, outer, n_attn, n_scan = 2 * E + 3 * L, 2, E + 2 * L, 0
+    else:
+        L = cfg.n_layers
+        pattern = cfg.ssm_pattern or "a" * L
+        norms, outer = 2 * L, 1
+        n_attn, n_scan = pattern.count("a"), sum(pattern.count(c) for c in "mM")
+    return {"rmsnorm": TRAIN_ACCUM * (2 * norms + outer),
+            "rmsnorm_backward": TRAIN_ACCUM * (norms + outer),
             "flash_attention_forward_lse": TRAIN_ACCUM * 2 * n_attn,
             "flash_attention_backward": TRAIN_ACCUM * n_attn,
             "flash_attention": 0,
@@ -3157,9 +3255,9 @@ def train_run(what: str, model, step, opt_cfg, batches, dev) -> dict:
     """One run of phase 6a: the state built on the card from `SEED`,
     `TRAIN_STEPS` steps of `step` over `batches`, then one more step under
     the profiler.  Logs each step's loss, gradient norm and time, the peak
-    memory, ms a step and tokens/s over the steps after the first, the
-    launches of each kernel a step and the profiled step's busy share and
-    host launch calls.  Returns the losses and gradient norms (every step's,
+    memory, ms a step and tokens/s (and the enc-dec's frames/s) over the
+    steps after the first, the launches of each kernel a step and the
+    profiled step's busy share and host launch calls.  Returns the losses and gradient norms (every step's,
     the profiled one's last), the final parameters copied to the host, the
     launch counters' advance over the counted steps and the readings."""
     import math
@@ -3187,16 +3285,21 @@ def train_run(what: str, model, step, opt_cfg, batches, dev) -> dict:
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"{what} step {i}: loss {loss}, grad norm {gnorm}")
     counts = read_counts()
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batches[0]["tokens"].numel()
+    frames = math.prod(batches[0]["frames"].shape[:2]) if "frames" in batches[0] else 0
     # over the steps after the first, and after the second (in the graphed
     # run, the replays alone: its second step also captures)
     steady, replays = times[1:], times[2:]
     r = dict(ms=sum(steady) / len(steady) * 1e3, tok_s=tokens * len(steady) / sum(steady),
              ms2=sum(replays) / len(replays) * 1e3, tok_s2=tokens * len(replays) / sum(replays),
+             frames_s2=frames * len(replays) / sum(replays),
              peak=torch.cuda.max_memory_allocated(), reserved=torch.cuda.max_memory_reserved())
+    rates = (f"{r['tok_s']:.0f} tokens/s" + (f", {frames * len(steady) / sum(steady):.0f} "
+                                              f"frames/s" if frames else ""))
+    rates2 = f"{r['tok_s2']:.0f}" + (f", {r['frames_s2']:.0f}" if frames else "")
     log(f"[train] {what}: peak device memory {r['peak'] / 2**30:.2f} GiB allocated, "
-        f"{r['reserved'] / 2**30:.2f} GiB reserved; {r['tok_s']:.0f} tokens/s over steps 1-"
-        f"{TRAIN_STEPS - 1} ({r['ms']:.1f} ms a step), {r['tok_s2']:.0f} over steps 2-"
+        f"{r['reserved'] / 2**30:.2f} GiB reserved; {rates} over steps 1-"
+        f"{TRAIN_STEPS - 1} ({r['ms']:.1f} ms a step), {rates2} over steps 2-"
         f"{TRAIN_STEPS - 1} ({r['ms2']:.1f} ms a step); step 0 {times[0] * 1e3:.1f} ms, "
         f"step 1 {times[1] * 1e3:.1f} ms")
     state = [params, opt]
@@ -3240,10 +3343,11 @@ def out_of_memory_fails(arch: str, run):
 
 
 def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
-    """6a (qwen2-1.5b) and 6d (zamba2-2.7b, `HYBRID_TRAIN_ARCH`): `arch` at
-    full width and depth, built on the card from a seed,
-    trained through the port's `make_train_step` (AdamW at lr 1e-3, remat,
-    `TRAIN_ACCUM` micro-batches) on `TokenPipeline` data in two runs from
+    """6a (qwen2-1.5b), 6d (zamba2-2.7b, `HYBRID_TRAIN_ARCH`) and 6e
+    (seamless-m4t-large-v2, `ENCDEC_TRAIN_ARCH`, over frame embeddings and
+    text, `train_batch`): `arch` at full width and depth, built on the card
+    from a seed, trained through the port's `make_train_step` (AdamW at lr
+    1e-3, remat, `TRAIN_ACCUM` micro-batches) on `TokenPipeline` data in two runs from
     the same seed and batches (`train_run`): the step run eagerly, then the
     step compiled (`compile_train_step`: a warm-up step run eagerly, one
     CUDA graph captured, replayed every later step).  Every loss and
@@ -3261,7 +3365,6 @@ def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
 
     import torch
 
-    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.models.common import count_params
     from repro_torch.training import AdamWConfig, compile_train_step, make_train_step
     from repro_torch.training.train_lib import TRAIN_GRAPH_STATS as G
@@ -3269,18 +3372,25 @@ def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
     cfg, model = model_for(arch)
     opt_cfg = AdamWConfig(lr=1e-3)
     step = make_train_step(model, opt_cfg, remat=True, accum_steps=TRAIN_ACCUM)
-    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=SEED)
+    pipe = train_pipe(cfg, TRAIN_BATCH, SEED)
     n_params = count_params(model.defs)
-    blocks = (f"pattern {cfg.ssm_pattern[:len(cfg.ssm_pattern) // 9]} x 9, "
-              if arch == HYBRID_TRAIN_ARCH else "")
-    log(f"[train] {arch} at full width and depth: {cfg.n_layers} layers ({blocks}"
-        f"{train_expect(cfg)['ssd_scan_backward'] // TRAIN_ACCUM} scanned blocks), d_model "
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    if cfg.family == "audio":
+        layers = f"{cfg.encoder_layers} encoder and {cfg.n_layers} decoder layers"
+        data = f"{mb} x {TRAIN_SEQ} frame embeddings and {mb} x {pipe.seq_len} tokens"
+    else:
+        blocks = (f"pattern {cfg.ssm_pattern[:len(cfg.ssm_pattern) // 9]} x 9, "
+                  if arch == HYBRID_TRAIN_ARCH else "")
+        layers = (f"{cfg.n_layers} layers ({blocks}"
+                  f"{train_expect(cfg)['ssd_scan_backward'] // TRAIN_ACCUM} scanned blocks)")
+        data = f"{mb} x {TRAIN_SEQ} tokens"
+    log(f"[train] {arch} at full width and depth: {layers}, d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab}; {n_params / 1e9:.3f} B parameters ({n_params * 2 / 1e9:.2f} GB bf16, f32 "
         f"moments {n_params * 8 / 1e9:.2f} GB; a checkpoint of both would write "
         f"{n_params * 10 / 1e9:.2f} GB); AdamW lr 1e-3, remat, {TRAIN_ACCUM} micro-batches of "
-        f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ} tokens a step; eager, then graphed")
-    batches = [train_batch(pipe, i, dev) for i in range(TRAIN_STEPS + 1)]
+        f"{data} a step; eager, then graphed")
+    batches = [train_batch(cfg, pipe, i, dev) for i in range(TRAIN_STEPS + 1)]
     expect = train_expect(cfg)
     eager = out_of_memory_fails(arch, lambda: train_run(f"{arch} eager", model, step, opt_cfg,
                                                          batches, dev))
@@ -3331,7 +3441,9 @@ def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
     log(f"[train] {arch} graphs vs eager: losses and grad norms bit-equal at all {TRAIN_STEPS + 1} "
         f"steps, the {len(eager['names'])} parameter leaves byte-equal after them; over steps "
         f"2-{TRAIN_STEPS - 1} {graphed['ms2']:.1f} vs {eager['ms2']:.1f} ms a step, "
-        f"{graphed['tok_s2']:.0f} vs {eager['tok_s2']:.0f} tokens/s; one step's busy share "
+        f"{graphed['tok_s2']:.0f} vs {eager['tok_s2']:.0f} tokens/s"
+        + (f", {graphed['frames_s2']:.0f} vs {eager['frames_s2']:.0f} frames/s"
+           if cfg.family == "audio" else "") + "; one step's busy share "
         f"{vs('share')}, device time {vs('device_ms')} ms in {vs('wall_ms')} ms wall; host "
         f"launch calls a step {graphed['host_launches']} vs "
         f"{eager['host_launches']}; "
@@ -3415,8 +3527,11 @@ def phase_grad_parity(dev, arch: str, n_layers: int) -> None:
     """6b, for each of `GRAD_PARITY_RUNS`: `arch` at full width, its first
     `n_layers` layers (qwen2-1.5b's 2 of 28; zamba2-2.7b's first group, 5
     Mamba2 blocks and the shared attention; xlstm-1.3b's first period, 7
-    mLSTM blocks on the scan's wide path and 1 sLSTM), a micro-batch of 4 x
-    1024 tokens: one `Model.loss` and its gradients through `KERNELS` (the
+    mLSTM blocks on the scan's wide path and 1 sLSTM; seamless-m4t-large-v2's
+    first 2 encoder and 2 decoder layers, its non-causal encoder and
+    cross-attention through the flash backward), a micro-batch of 4 x 1024
+    tokens (the enc-dec's: 4 x 1024 frames and 4 x 256 tokens): one
+    `Model.loss` and its gradients through `KERNELS` (the
     kernels' autograd routes), through `PLAIN` (autograd through the plain
     math) and through the plain math in f32, on the same parameters and
     batch.  Every leaf's gradient through the kernels is finite, zero only
@@ -3441,7 +3556,6 @@ def phase_grad_parity(dev, arch: str, n_layers: int) -> None:
 
     import torch
 
-    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.models.common import KERNELS, PLAIN
     from repro_torch.models.model_zoo import Model
     from repro_torch.testing.parity import condition_fan_in, grad_gap, tol
@@ -3450,9 +3564,8 @@ def phase_grad_parity(dev, arch: str, n_layers: int) -> None:
     cfg, model = model_for(arch, n_layers)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED + 2))
     condition_fan_in(params, model.defs)
-    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                         global_batch=TRAIN_BATCH // TRAIN_ACCUM, seed=SEED + 2)
-    batch = train_batch(pipe, 0, dev)
+    pipe = train_pipe(cfg, TRAIN_BATCH // TRAIN_ACCUM, SEED + 2)
+    batch = train_batch(cfg, pipe, 0, dev)
     names = [n for n, _ in sorted(params.named_parameters())]
 
     def grads(model, params, ops):
@@ -3480,9 +3593,14 @@ def phase_grad_parity(dev, arch: str, n_layers: int) -> None:
     floor = {n: grad_gap(b, c) for n, b, c in zip(names, gp, g32)}
     to_f32 = {n: grad_gap(a, c) for n, a, c in zip(names, gk, g32)}
     ratio = sorted(((to_f32[n] / max(floor[n], bound), n) for n in names), reverse=True)
-    log(f"[train] gradient parity, {arch} at full width, {n_layers} of "
-        f"{model_for(arch)[0].n_layers} layers, a micro-batch of {TRAIN_BATCH // TRAIN_ACCUM} x "
-        f"{TRAIN_SEQ}: loss {lk:.6f} through the kernels, {lp:.6f} through the plain math (gap "
+    full = model_for(arch)[0]
+    depth = (f"{n_layers} + {n_layers} of {full.encoder_layers} + {full.n_layers} encoder and "
+             f"decoder layers, a micro-batch of {pipe.global_batch} x {TRAIN_SEQ} frames and "
+             f"{pipe.global_batch} x {pipe.seq_len} tokens" if cfg.family == "audio" else
+             f"{n_layers} of {full.n_layers} layers, a micro-batch of {pipe.global_batch} x "
+             f"{TRAIN_SEQ}")
+    log(f"[train] gradient parity, {arch} at full width, {depth}: loss {lk:.6f} through the "
+        f"kernels, {lp:.6f} through the plain math (gap "
         f"{abs(lk - lp):.3g}), {l32:.6f} in f32; the kernels' against f32 over the plain math's "
         f"bf16 against f32 (at least {bound}), worst "
         + ", ".join(f"{n} {r:.3g} ({to_f32[n]:.3g} / {floor[n]:.3g})" for r, n in ratio[:4])
@@ -3616,8 +3734,9 @@ def main() -> int:
     for arch, n_layers in GRAD_PARITY_RUNS:
         phase_grad_parity(dev, arch, n_layers)
     phase_elastic(dev)
-    hybrid = phase_train(dev, HYBRID_TRAIN_ARCH)
-    train = {name: train.get(name, 0) + hybrid.get(name, 0) for name in {*train, *hybrid}}
+    for arch in (HYBRID_TRAIN_ARCH, ENCDEC_TRAIN_ARCH):  # 6d, 6e
+        more = phase_train(dev, arch)
+        train = {name: train.get(name, 0) + more.get(name, 0) for name in {*train, *more}}
     launches = {name: {"serve": launches.get(name, 0), "decode": decode.get(name, 0),
                        "train": train.get(name, 0)} for name in KERNEL_NAMES}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

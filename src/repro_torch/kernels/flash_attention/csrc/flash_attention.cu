@@ -80,6 +80,7 @@ constexpr int kPanelBytes = kRows * 128;
 constexpr int kMaxD = 192;       // three panels
 constexpr int kMaxDevices = 64;  // devices whose attribute and SM count are kept
 constexpr float kNegInf = -1e30f;
+constexpr int kNoQuery = 0x7fffffff;  // a first query no row reaches
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -793,6 +794,15 @@ bool encode(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B, S
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the current device's context bound on this thread: `cuTensorMapEncodeTiled`
+// needs it, and autograd's worker thread (the backward, remat's recomputed
+// forward) may not have bound it yet (the runtime binds it lazily)
+cudaError_t bind_device() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaSetDevice(dev) : err;
+}
+
 // the SM count of device `dev`, looked up once a device
 int sm_count(int dev) {
   static int counts[kMaxDevices] = {};
@@ -900,30 +910,33 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
 
 // ------------------------------------------------------ the backward (bf16)
 //
-// The gradient of causal attention with Sq == Sk (the dense training path),
-// as `jax.grad` takes it through the reference's `chunked_attention`: no
+// The gradient of attention, Sq query rows over Sk keys, causal (top-left)
+// or not (the decoders' causal self-attention; the enc-dec's encoder and
+// its cross-attention), as `jax.grad` takes it through the reference's
+// `chunked_attention`: no
 // Pallas kernel has a backward, the reference differentiates its plain XLA
 // math.  The FA2 form: the training forward (`fa_forward_lse`) also writes
 // each query row's log-sum-exp, so the backward recomputes P = exp(s - lse)
-// tile by tile and never holds the (S, S) scores:
+// tile by tile and never holds the (Sq, Sk) scores:
 //   Delta = rowsum(dO * O)                     (`fa_bwd_delta_kernel`)
 //   dV = P^T dO, dS = P * (dO V^T - Delta), dK = scale dS^T Q
 //                                              (`fa_bwd_dkdv_kernel`)
 //   dQ = scale dS K                            (`fa_bwd_dq_kernel`)
-// Bound: operations, five S x S x D products a head over the causal half
-// (S^T, dP^T, dV, dK, and dQ; the dQ kernel computes S and dP again, seven
-// products in all), against the inputs' bytes.
+// Bound: operations, five products a head over the (query, key) pairs the
+// mask keeps, D wide (S^T, dP^T, dV, dK, and dQ; the dQ kernel computes S
+// and dP again, seven products in all), against the inputs' bytes.
 //
 // Design (the forward's: TMA into a ring, `wgmma`, warp-specialised):
 //  - Delta stays its own launch, sixteen lanes a row, which also writes each
 //    row's lse in base 2; both go to an f32 scratch of (B, H, Sp) rows each,
-//    Sp = S rounded up to 64 (zeros past S), so a query tile's 64 values of
-//    each are one 256-byte bulk copy;
-//  - dK/dV: a block a (64-key tile, batch) and hpb query heads of one KV
-//    head, walked in turn.  One producer warp loads the tile's K and V
-//    once and streams, head by head, the query tiles from the tile's first
-//    key on (the causal half) through a three-stage ring: Q, dO, and the
-//    tile's lse and Delta beside them.  Consumer warpgroup 0
+//    Sp = Sq rounded up to 64 (zeros past Sq), so a query tile's 64 values
+//    of each are one 256-byte bulk copy;
+//  - dK/dV: a block a (64-key tile of Sk, batch) and hpb query heads of
+//    one KV head, walked in turn.  One producer warp loads the tile's K and
+//    V once and streams, head by head, the query tiles its keys meet (all
+//    of Sq; under the causal mask those from the tile's first key on)
+//    through a three-stage ring: Q, dO, and the tile's lse and Delta
+//    beside them.  Consumer warpgroup 0
 //    runs S^T = K Q^T as an SS `wgmma` (K as A, Q K-major as B), turns it
 //    into P^T = exp2(S^T scale log2e - lse) in registers, hands P^T in f32
 //    to warpgroup 1 through the stage's slot in shared memory (an mbarrier
@@ -951,14 +964,22 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
 //    SMs), and a block that walks several heads also spreads its K/V load
 //    and its share of the reduction over more steps;
 //  - dQ: the forward's persistent kernel with dO beside Q: a work item is
-//    128 query rows of one (head, batch), far end of the diagonal first
-//    (`item_at`); K/V tiles of 64 keys stream through the ring; S = Q K^T
-//    and dP = dO V^T as SS `wgmma`s, dS packed to bf16 in registers, and
-//    dQ += dS K as an RS `wgmma` (K read MN-major);
+//    128 query rows of one (head, batch), the items with the most K/V tiles
+//    first (`item_at`); K/V tiles of 64 keys stream through the ring;
+//    S = Q K^T and dP = dO V^T as SS `wgmma`s, dS packed to bf16 in
+//    registers, and dQ += dS K as an RS `wgmma` (K read MN-major);
+//  - ragged edges and the mask: query rows past Sq and keys past Sk are
+//    masked explicitly in both kernels (TMA zero-fills the rows past either
+//    end, and a zero key scores 0, so without the mask P = exp2(-lse) there,
+//    not 0); dK and dV are stored for keys below Sk only.  Under the causal
+//    mask with Sq < Sk a key tile at or past Sq meets no query: its blocks
+//    walk no step, their partials stay zero, and the cluster's reduction
+//    writes zero dK and dV for its keys (the outputs are not zeroed on the
+//    host);
 //  - the dK/dV grid is (H / hpb, B, key tiles), key tile 0, which walks
-//    every query tile, launched first; each launch is captured in a CUDA graph as
-//    it is: the maps are `__grid_constant__` parameters, and nothing is
-//    allocated or synchronised on the host.
+//    the most query tiles, launched first; each launch is captured in a
+//    CUDA graph as it is: the maps are `__grid_constant__` parameters, and
+//    nothing is allocated or synchronised on the host.
 // What bounds it: the tensor cores wait on each warpgroup's elementwise
 // pass between its products (each consumer waits for its own `wgmma`s; the
 // other warpgroup's products fill the gap), warpgroup 1 waits for P^T, the
@@ -980,10 +1001,11 @@ constexpr int kMaxGroup = 8;     // query heads a KV head: a portable cluster
 struct BwdArgs {
   const bf16 *o, *dout;
   bf16 *dq, *dk, *dv;
-  const float* lse;  // (B, H, S), natural base
+  const float* lse;  // (B, H, Sq), natural base
   float* scratch;    // Delta, then lse in base 2: each (B, H, Sp)
   Strides so, sdo, sdq, sdk, sdv;
-  int B, H, KH, S, Sp, D;
+  int B, H, KH, Sq, Sk, Sp, D;  // Sp: Sq rounded up to kRows
+  int causal;                   // top-left: query row i sees keys 0..i
   int hpb;  // query heads a dK/dV block, walked in turn (G / hpb blocks a cluster)
   float scale;
 };
@@ -1031,7 +1053,7 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 }
 
 // Delta[(b H + h) Sp + s] = sum_d dO O and, B H Sp values further on, lse
-// in base 2; rows s in [S, Sp) get zeros.  Sixteen lanes a row, two rows a
+// in base 2; rows s in [Sq, Sp) get zeros.  Sixteen lanes a row, two rows a
 // warp: one 16-byte load of each of O and dO a lane covers D <= 128.
 constexpr int kDeltaLanes = 16;
 
@@ -1040,10 +1062,10 @@ __global__ void __launch_bounds__(256) fa_bwd_delta_kernel(const BwdArgs a) {
   const int64_t idx = (static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x) / kDeltaLanes;
   const int col = (threadIdx.x % kDeltaLanes) * 8;
   const bool row_ok = idx < n_rows;  // every lane reaches the shuffles
-  const int s = row_ok ? static_cast<int>(idx % a.Sp) : a.S;
+  const int s = row_ok ? static_cast<int>(idx % a.Sp) : a.Sq;
   const int64_t bh = idx / a.Sp;
   float acc = 0.0f;
-  if (s < a.S && col < a.D) {
+  if (s < a.Sq && col < a.D) {
     const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
     const uint4 ov = *reinterpret_cast<const uint4*>(a.o + b * a.so.b + h * a.so.h +
                                                      s * a.so.s + col);
@@ -1059,7 +1081,7 @@ __global__ void __launch_bounds__(256) fa_bwd_delta_kernel(const BwdArgs a) {
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (row_ok && col == 0) {
     a.scratch[idx] = acc;
-    a.scratch[n_rows + idx] = s < a.S ? a.lse[bh * a.S + s] * kLog2e : 0.0f;
+    a.scratch[n_rows + idx] = s < a.Sq ? a.lse[bh * a.Sq + s] * kLog2e : 0.0f;
   }
 }
 
@@ -1103,8 +1125,12 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.y, k0 = blockIdx.z * kBwdKeys;
   const int G = a.H / a.KH, C = G / a.hpb;  // blocks a cluster: rank blockIdx.x % C
   const int kh = blockIdx.x / C, h0 = kh * G + (blockIdx.x % C) * a.hpb;  // the first head
-  const int n_q = (a.S - k0 + kRows - 1) / kRows;  // query tiles from k0 on: the causal half
-  const int n_it = a.hpb * n_q;                    // (head, query tile) steps, head-major
+  // the query tiles the block's keys meet: every one, or under the causal
+  // mask those from its first key on (none once k0 >= Sq: the walk has no
+  // step, and the block writes zero dK and dV for its keys)
+  const int q_first = a.causal ? k0 : 0;
+  const int n_q = max(0, (a.Sq - q_first + kRows - 1) / kRows);
+  const int n_it = a.hpb * n_q;  // (head, query tile) steps, head-major
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -1128,7 +1154,8 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       const int64_t lse_off = static_cast<int64_t>(a.B) * a.H * a.Sp;  // the lse plane
       for (int step = 0; step < n_it; ++step) {
-        const int s = step % kBwdStages, h = h0 + step / n_q, q0 = k0 + (step % n_q) * kRows;
+        const int s = step % kBwdStages, h = h0 + step / n_q;
+        const int q0 = q_first + (step % n_q) * kRows;
         if (step >= kBwdStages) mbar_wait(bar_empty + 8 * s, (step / kBwdStages - 1) & 1);
         const float* delta = a.scratch + (static_cast<int64_t>(b) * a.H + h) * a.Sp;
         const float* lse2 = delta + lse_off;
@@ -1156,6 +1183,13 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   // 16 kk.. are the A fragment of k-step kk of the RS products.
   const int c = warp / 4, wi = warp % 4, tq = lane % 4, tid = threadIdx.x % 128;
   const int key_a = k0 + wi * 16 + lane / 4, key_b = key_a + 8;
+  // the first query each of this thread's key rows keeps: the key itself
+  // under the causal mask, 0 without it, none for a key past Sk (TMA
+  // zero-fills those rows, and a zero key scores 0, so P^T = exp2(-lse)
+  // there unless masked); the tail tile masks every step
+  const int lo_a = key_a >= a.Sk ? kNoQuery : a.causal ? key_a : 0;
+  const int lo_b = key_b >= a.Sk ? kNoQuery : a.causal ? key_b : 0;
+  const bool key_tail = k0 + kBwdKeys > a.Sk;
   const float sl2 = a.scale * kLog2e;
   float acc[DP / 2];  // dV (warpgroup 0) or dK (1) of the block's 64 keys
 #pragma unroll
@@ -1185,9 +1219,11 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(st);
-      // P^T (key, query) = exp2(s scale log2e - lse2) where key <= query < S
-      const int q0 = k0 + t * kRows;
-      const bool need_mask = t == 0 || q0 + kRows > a.S;
+      // P^T (key, query) = exp2(s scale log2e - lse2) where query < Sq,
+      // key < Sk and, under the causal mask, key <= query (the diagonal
+      // tile is the walk's first)
+      const int q0 = q_first + t * kRows;
+      const bool need_mask = (a.causal && t == 0) || q0 + kRows > a.Sq || key_tail;
       const float* sl = reinterpret_cast<const float*>(gbase + L::kLse) + s * kRows;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -1198,8 +1234,8 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
           float pa = exp2f(st[4 * j + e] * sl2 - lq), pb = exp2f(st[4 * j + 2 + e] * sl2 - lq);
           if (need_mask) {
             const int q = q0 + 8 * j + 2 * tq + e;
-            pa = q >= key_a && q < a.S ? pa : 0.0f;
-            pb = q >= key_b && q < a.S ? pb : 0.0f;
+            pa = q >= lo_a && q < a.Sq ? pa : 0.0f;
+            pb = q >= lo_b && q < a.Sq ? pb : 0.0f;
           }
           st[4 * j + e] = pa;
           st[4 * j + 2 + e] = pb;
@@ -1286,7 +1322,7 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int which = idx / (n_rows * CH);  // 0: dV, 1: dK
     const int rem = idx - which * n_rows * CH;
     const int row = r_lo + rem / CH, col = (rem % CH) * 4, key = k0 + row;
-    if (key >= a.S || col >= a.D) continue;
+    if (key >= a.Sk || col >= a.D) continue;
     const uint32_t off = base + ((which * kBwdKeys + row) * L::kPartRow + col) * 4;
     float4 v[kMaxGroup];
 #pragma unroll
@@ -1310,7 +1346,7 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   cluster_sync();  // no block leaves while another reads its partials
 }
 
-// dQ: the forward's persistent walk (`item_at`, causal, Sq == Sk == S),
+// dQ: the forward's persistent walk (`item_at` at Sq, Sk and the mask),
 // with a dO tile beside each consumer's Q tile (`Smem`'s output staging
 // tiles hold dO here) and the K/V ring as there
 template <int DP>
@@ -1328,8 +1364,8 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_q_empty = bar_q_full + 8;
   const uint32_t bar_full = bar_q_empty + 8;          // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
-  const int H = a.H, B = a.B, S = a.S;
-  const int n_items = (S + kConsumers * kRows - 1) / (kConsumers * kRows) * H * B;
+  const int H = a.H, B = a.B, Sq = a.Sq, Sk = a.Sk, causal = a.causal;
+  const int n_items = (Sq + kConsumers * kRows - 1) / (kConsumers * kRows) * H * B;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -1348,7 +1384,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane != 0) return;
     int tile = 0;
     for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
-      const Item it = item_at(w, H, B, S, S, 1);
+      const Item it = item_at(w, H, B, Sq, Sk, causal);
       const int kh = it.h / (H / a.KH);
       if (n > 0) mbar_wait(bar_q_empty, (n - 1) & 1);
       mbar_expect_tx(bar_q_full, 2 * it.n_active * L::kTile);
@@ -1387,16 +1423,21 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.0f;
   int tile = 0;
   for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
-    const Item it = item_at(w, H, B, S, S, 1);
+    const Item it = item_at(w, H, B, Sq, Sk, causal);
     const int r0 = it.q0 + c * kRows;
     const int row_a = r0 + wi * 16 + lane / 4, row_b = row_a + 8;
     const bool active = c < it.n_active;
-    const int my_last = active ? r0 / kRows : -1;  // the diagonal tile
+    // the last K/V tile this warpgroup reads: its last row's, under the causal mask
+    const int my_last = !active ? -1
+                        : causal ? min(it.n_tiles - 1, (min(r0 + kRows, Sq) - 1) / kRows)
+                                 : it.n_tiles - 1;
+    // each row's keys end here: at Sk, or under the causal mask after the row
+    const int hi_a = causal ? min(row_a + 1, Sk) : Sk, hi_b = causal ? min(row_b + 1, Sk) : Sk;
     const int64_t rows = (static_cast<int64_t>(it.b) * H + it.h) * a.Sp;
-    const float l2_a = row_a < S ? lse2[rows + row_a] : 0.0f;
-    const float l2_b = row_b < S ? lse2[rows + row_b] : 0.0f;
-    const float dl_a = row_a < S ? delta[rows + row_a] : 0.0f;
-    const float dl_b = row_b < S ? delta[rows + row_b] : 0.0f;
+    const float l2_a = row_a < Sq ? lse2[rows + row_a] : 0.0f;
+    const float l2_b = row_b < Sq ? lse2[rows + row_b] : 0.0f;
+    const float dl_a = row_a < Sq ? delta[rows + row_a] : 0.0f;
+    const float dl_b = row_b < Sq ? delta[rows + row_b] : 0.0f;
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
 
@@ -1430,9 +1471,11 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(pacc);
         if (t == my_last && lane == 0) mbar_arrive(bar_q_empty);  // Q and dO are free
 
-        // dS = P (dP - Delta), P = exp2(s scale log2e - lse2) where key <= row
+        // dS = P (dP - Delta), P = exp2(s scale log2e - lse2) where key < Sk
+        // and, under the causal mask, key <= row: the keys of a tile past Sk
+        // are TMA's zero rows, which would score 0, not be masked
         const int k0 = t * kRows;
-        const bool need_mask = t == my_last;
+        const bool need_mask = k0 + kRows > Sk || (causal && k0 + kRows - 1 > r0);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -1441,8 +1484,8 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
             float pb = exp2f(sacc[4 * j + 2 + e] * sl2 - l2_b);
             if (need_mask) {
               const int col = k0 + 8 * j + 2 * tq + e;
-              pa = col <= row_a ? pa : 0.0f;
-              pb = col <= row_b ? pb : 0.0f;
+              pa = col < hi_a ? pa : 0.0f;
+              pb = col < hi_b ? pb : 0.0f;
             }
             pacc[4 * j + e] = pa * (pacc[4 * j + e] - dl_a);
             pacc[4 * j + 2 + e] = pb * (pacc[4 * j + 2 + e] - dl_b);
@@ -1474,10 +1517,10 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int j = 0; j < DP / 8; ++j) {
       const int col = 8 * j + 2 * tq;
       if (col >= a.D) continue;
-      if (row_a < S)
+      if (row_a < Sq)
         *reinterpret_cast<uint32_t*>(dqb + row_a * a.sdq.s + col) =
             pack_bf16(dq[4 * j] * a.scale, dq[4 * j + 1] * a.scale);
-      if (row_b < S)
+      if (row_b < Sq)
         *reinterpret_cast<uint32_t*>(dqb + row_b * a.sdq.s + col) =
             pack_bf16(dq[4 * j + 2] * a.scale, dq[4 * j + 3] * a.scale);
     }
@@ -1507,7 +1550,7 @@ template <int DP>
 cudaLaunchConfig_t dkdv_config(const BwdArgs& a, cudaLaunchAttribute* cluster,
                                cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.H / a.hpb, a.B, (a.S + kBwdKeys - 1) / kBwdKeys);
+  cfg.gridDim = dim3(a.H / a.hpb, a.B, (a.Sk + kBwdKeys - 1) / kBwdKeys);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = BwdSmem<DP>::kBytes;
   cfg.stream = st;
@@ -1529,7 +1572,7 @@ int max_clusters(int C, int* out) {
   a.H = C;
   a.KH = 1;
   a.B = 1;
-  a.S = kBwdKeys;
+  a.Sq = a.Sk = kBwdKeys;
   a.hpb = 1;
   cudaLaunchAttribute cluster[1];
   const cudaLaunchConfig_t cfg = dkdv_config<DP>(a, cluster, nullptr);
@@ -1540,19 +1583,24 @@ int max_clusters(int C, int* out) {
 // Query heads a dK/dV block walks, hpb = G / C for the divisor C of G (the
 // cluster) that minimises the launch's estimated makespan in (head, query
 // tile) steps: max(all steps / SMs the card fills with clusters of C,
-// the longest block's steps), the larger C on a tie.  Clusters of G
-// full-SM blocks pack unevenly into the GPCs (17 of 6 at once on an H100,
-// 102 SMs); smaller clusters fill more SMs with longer blocks.  The
-// occupancy is looked up once a device, DP and C.  `ops.backward_plan`
-// makes the same choice from the same numbers.
+// the longest block's steps), the larger C on a tie.  The steps are those
+// of the walk launched: every key tile meets every query tile, or under
+// the causal mask key tile kb the query tiles from kb on (the triangle,
+// clipped at Sq and Sk).  Clusters of G full-SM blocks pack unevenly into
+// the GPCs (17 of 6 at once on an H100, 102 SMs); smaller clusters fill
+// more SMs with longer blocks.  The occupancy is looked up once a device,
+// DP and C.  `ops.backward_plan` makes the same choice from the same
+// numbers.
 template <int DP>
-int heads_a_block(int B, int H, int G, int S, int* hpb) {
+int heads_a_block(int B, int H, int G, int Sq, int Sk, int causal, int* hpb) {
   static int at_once[kMaxDevices][kMaxGroup + 1] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_q0 = (S + kRows - 1) / kRows;
-  const double steps = static_cast<double>(B) * H * (n_q0 * (n_q0 + 1) / 2);
+  const int64_t n_qt = (Sq + kRows - 1) / kRows, n_kt = (Sk + kBwdKeys - 1) / kBwdKeys;
+  int64_t pairs = 0;  // (key tile, query tile) steps a head
+  for (int64_t kb = 0; kb < n_kt; ++kb) pairs += causal ? (n_qt > kb ? n_qt - kb : 0) : n_qt;
+  const double steps = static_cast<double>(B) * H * pairs;
   double best = 0.0;
   *hpb = 0;
   for (int C = G; C >= 1; --C) {
@@ -1565,7 +1613,7 @@ int heads_a_block(int B, int H, int G, int S, int* hpb) {
     }
     if (n == 0) continue;
     const double spread = steps / (static_cast<double>(C) * n);
-    const double longest = static_cast<double>(G / C) * n_q0;
+    const double longest = static_cast<double>(G / C) * n_qt;  // key tile 0's walk
     const double est = spread > longest ? spread : longest;
     if (*hpb == 0 || est < best) {
       best = est;
@@ -1584,7 +1632,7 @@ int launch_bwd(const CUtensorMap (&maps)[4], BwdArgs a, cudaStream_t st) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_sm = sm_count(dev);
   if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const int e = heads_a_block<DP>(a.B, a.H, a.H / a.KH, a.S, &a.hpb);
+  const int e = heads_a_block<DP>(a.B, a.H, a.H / a.KH, a.Sq, a.Sk, a.causal, &a.hpb);
   if (e != 0) return e;
   const int64_t n_rows = static_cast<int64_t>(a.B) * a.H * a.Sp;
   const int64_t delta_rows = 256 / kDeltaLanes;  // rows a block
@@ -1598,7 +1646,7 @@ int launch_bwd(const CUtensorMap (&maps)[4], BwdArgs a, cudaStream_t st) {
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_items = (a.S + kConsumers * kRows - 1) / (kConsumers * kRows) * a.H * a.B;
+  const int n_items = (a.Sq + kConsumers * kRows - 1) / (kConsumers * kRows) * a.H * a.B;
   fa_bwd_dq_kernel<DP><<<min(n_items, n_sm), kThreads, Smem<DP>::kBytes, st>>>(
       maps[0], maps[1], maps[2], maps[3], a);
   return static_cast<int>(cudaGetLastError());
@@ -1609,6 +1657,8 @@ template <bool LSE>
 int forward_bf16(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk,
                  Strides sv, Strides so, int B, int H, int KH, int Sq, int Sk, int D,
                  float scale, int causal, float* lse, cudaStream_t st) {
+  const cudaError_t bound = bind_device();
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   CUtensorMap maps[4];
   if (!encode(&maps[0], q, D, H, Sq, B, sq) || !encode(&maps[1], k, D, KH, Sk, B, sk) ||
       !encode(&maps[2], v, D, KH, Sk, B, sv) || !encode(&maps[3], o, D, H, Sq, B, so))
@@ -1662,10 +1712,11 @@ extern "C" int fa_forward_lse(const void* q, const void* k, const void* v, void*
                             static_cast<cudaStream_t>(stream));
 }
 
-// The backward of causal bf16 attention with Sq == Sk == S: dq, dk, dv
-// (each at its own strides, head_dim contiguous, rows 4-byte aligned) from
-// q, k, v, the forward's o and lse, and dout.  delta: an f32 scratch of
-// 2 B H Sp values, Sp = S rounded up to 64 (Delta, then lse in base 2).
+// The backward of bf16 attention, Sq query rows over Sk keys, causal
+// (top-left, as the forward) or not: dq, dk, dv (each at its own strides,
+// head_dim contiguous, rows 4-byte aligned) from q, k, v, the forward's o
+// and lse, and dout.  delta: an f32 scratch of 2 B H Sp values, Sp = Sq
+// rounded up to 64 (Delta, then lse in base 2).
 // q, k, v and dout are read through TMA, o by 16-byte loads: their rows
 // must be 16-byte aligned (D a multiple of 8, every stride a multiple of 8
 // elements); D <= 128; at most 8 query heads a KV head (one cluster).
@@ -1680,15 +1731,18 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
                            int64_t sdqb, int64_t sdqh, int64_t sdqs,
                            int64_t sdkb, int64_t sdkh, int64_t sdks,
                            int64_t sdvb, int64_t sdvh, int64_t sdvs,
-                           int B, int H, int KH, int S, int D, float scale, void* stream) {
+                           int B, int H, int KH, int Sq, int Sk, int D, float scale, int causal,
+                           void* stream) {
   if (D < 8 || D > kBwdMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || H / KH > kMaxGroup ||
-      S < 1 || B < 1)
+      Sq < 1 || Sk < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t bound = bind_device();
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   CUtensorMap maps[4];
-  if (!encode(&maps[0], q, D, H, S, B, Strides{sqb, sqh, sqs}) ||
-      !encode(&maps[1], k, D, KH, S, B, Strides{skb, skh, sks}) ||
-      !encode(&maps[2], v, D, KH, S, B, Strides{svb, svh, svs}) ||
-      !encode(&maps[3], dout, D, H, S, B, Strides{sgb, sgh, sgs}))
+  if (!encode(&maps[0], q, D, H, Sq, B, Strides{sqb, sqh, sqs}) ||
+      !encode(&maps[1], k, D, KH, Sk, B, Strides{skb, skh, sks}) ||
+      !encode(&maps[2], v, D, KH, Sk, B, Strides{svb, svh, svs}) ||
+      !encode(&maps[3], dout, D, H, Sq, B, Strides{sgb, sgh, sgs}))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
   a.o = static_cast<const bf16*>(o);
@@ -1706,9 +1760,11 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
   a.B = B;
   a.H = H;
   a.KH = KH;
-  a.S = S;
-  a.Sp = (S + kRows - 1) / kRows * kRows;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.Sp = (Sq + kRows - 1) / kRows * kRows;
   a.D = D;
+  a.causal = causal != 0;
   a.hpb = 1;  // launch_bwd chooses
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1744,19 +1800,21 @@ extern "C" int fa_backward_max_clusters(int C, int D, int* out) {
 
 // *out: the query heads a dK/dV block of `fa_backward` walks at these
 // shapes on the current device (its cluster holds G / *out blocks).
-extern "C" int fa_backward_heads(int B, int H, int KH, int S, int D, int* out) {
+extern "C" int fa_backward_heads(int B, int H, int KH, int Sq, int Sk, int causal, int D,
+                                 int* out) {
   if (D < 8 || D > kBwdMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || H / KH > kMaxGroup ||
-      S < 1 || B < 1)
+      Sq < 1 || Sk < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int G = H / KH, c = causal != 0;
   switch ((D + 15) / 16) {
-    case 1: return heads_a_block<16>(B, H, H / KH, S, out);
-    case 2: return heads_a_block<32>(B, H, H / KH, S, out);
-    case 3: return heads_a_block<48>(B, H, H / KH, S, out);
-    case 4: return heads_a_block<64>(B, H, H / KH, S, out);
-    case 5: return heads_a_block<80>(B, H, H / KH, S, out);
-    case 6: return heads_a_block<96>(B, H, H / KH, S, out);
-    case 7: return heads_a_block<112>(B, H, H / KH, S, out);
-    default: return heads_a_block<128>(B, H, H / KH, S, out);
+    case 1: return heads_a_block<16>(B, H, G, Sq, Sk, c, out);
+    case 2: return heads_a_block<32>(B, H, G, Sq, Sk, c, out);
+    case 3: return heads_a_block<48>(B, H, G, Sq, Sk, c, out);
+    case 4: return heads_a_block<64>(B, H, G, Sq, Sk, c, out);
+    case 5: return heads_a_block<80>(B, H, G, Sq, Sk, c, out);
+    case 6: return heads_a_block<96>(B, H, G, Sq, Sk, c, out);
+    case 7: return heads_a_block<112>(B, H, G, Sq, Sk, c, out);
+    default: return heads_a_block<128>(B, H, G, Sq, Sk, c, out);
   }
 }
 

@@ -27,20 +27,23 @@ numbers: `fa_forward_f32_plan`).
 
 Training (an input that requires a gradient, grad mode on): a CPU call runs
 the plain version and autograd differentiates it.  A CUDA call on the route
-the dense training path needs (`GRAD_ROUTE`: bf16, causal, Sq == Sk,
-head_dim a multiple of 8 up to 128, at most `MAX_GRAD_GROUP` query heads a
-KV head) goes through `_FlashFn`: `fa_forward_lse` (the forward that also
-writes each row's log-sum-exp) and `fa_backward`, three launches counted as
-one call of `flash_attention_backward`: Delta (with each row's lse in base
-2) into an f32 scratch; dK/dV, a block a (64-key tile, batch) walking one or
-more query heads, the blocks of a KV head a thread block cluster that sums
-their partial dK and dV in rank order through distributed shared memory;
-and dQ, persistent, far end of the diagonal first.  `backward_plan` is that
-launch shape in plain Python (the source computes the same numbers).  Any
-other route raises under grad, naming the ROADMAP item that brings its
-backward.  `flash_attention_backward_plain` is the same backward in
-explicit formulas (from lse and Delta, as the kernel computes it), for the
-tests.
+the training paths need (`GRAD_ROUTE`: bf16, causal top-left or not, Sq
+and Sk of their own, head_dim a multiple of 8 up to 128, at most
+`MAX_GRAD_GROUP` query heads a KV head: the dense and hybrid decoders'
+causal self-attention, the enc-dec's encoder and its cross-attention) goes
+through `_FlashFn`: `fa_forward_lse` (the forward that also writes each
+row's log-sum-exp) and `fa_backward`, three launches counted as one call of
+`flash_attention_backward`: Delta (with each row's lse in base 2) into an
+f32 scratch; dK/dV, a block a (64-key tile of Sk, batch) walking the query
+tiles its keys meet (every one of Sq, or under the causal mask those from
+its first key on) for one or more query heads, the blocks of a KV head a
+thread block cluster that sums their partial dK and dV in rank order
+through distributed shared memory; and dQ, persistent, the items with the
+most K/V tiles first.  `backward_plan` is that launch shape in plain
+Python (the source computes the same numbers).  Any other route raises
+under grad, naming the ROADMAP item that brings its backward.
+`flash_attention_backward_plain` is the same backward in explicit formulas
+(from lse and Delta, as the kernel computes it), for the tests.
 """
 
 from __future__ import annotations
@@ -59,12 +62,17 @@ MAX_HEAD_DIM = 192  # three 64-column panels; kMaxD in the source
 MAX_GRAD_HEAD_DIM = 128  # kBwdMaxD in the source
 MAX_GRAD_GROUP = 8  # kMaxGroup: the G query heads of a KV head are one portable cluster
 BWD_KEYS = 64  # kBwdKeys: keys a dK/dV block
-BWD_ROWS = 64  # kRows: query rows a tile; the scratch's rows round S up to it
+BWD_ROWS = 64  # kRows: query rows a tile; the scratch's rows round Sq up to it
 DQ_ROWS = 128  # query rows a dQ work item (two consumer warpgroups of 64)
-GRAD_ROUTE = ("bf16, causal, Sq == Sk, head_dim a multiple of 8 up to 128, at most "
-              f"{MAX_GRAD_GROUP} query heads a KV head")
+GRAD_ROUTE = ("bf16, causal (top-left) or not, any Sq and Sk, head_dim a multiple of 8 up "
+              f"to 128, at most {MAX_GRAD_GROUP} query heads a KV head")
 # the ROADMAP entries that bring the routes without a backward kernel
 _ITEM = "ROADMAP.md queue 1, item 13"
+
+
+def _causal_keep(Sq: int, Sk: int, device) -> torch.Tensor:
+    """The (Sq, Sk) causal keep-mask, top-left: key j <= query i."""
+    return torch.ones(Sq, Sk, dtype=torch.bool, device=device).tril()
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,57 +85,58 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.float().reshape(B, KH, H // KH, Sq, D)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
     if causal:
-        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        s = torch.where(_causal_keep(Sq, Sk, q.device), s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return o.reshape(B, H, Sq, D).to(q.dtype)
 
 
-def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
-                              scale: float | None = None) -> torch.Tensor:
-    """(B, H, S) f32: each query row's log-sum-exp of its scaled causal
-    scores, as `fa_forward_lse` writes it (q (B, H, S, D), k (B, KH, S, D))."""
-    B, H, S, D = q.shape
-    KH = k.shape[1]
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, scale: float | None = None,
+                              causal: bool = True) -> torch.Tensor:
+    """(B, H, Sq) f32: each query row's log-sum-exp of its scaled (and,
+    causal, top-left masked) scores, as `fa_forward_lse` writes it (q (B,
+    H, Sq, D), k (B, KH, Sk, D))."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
-    s = torch.einsum("bkgqd,bksd->bkgqs", q.float().reshape(B, KH, H // KH, S, D),
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.float().reshape(B, KH, H // KH, Sq, D),
                      k.float()) * scale
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    return torch.logsumexp(s, dim=-1).reshape(B, H, S)
+    if causal:
+        s = torch.where(_causal_keep(Sq, Sk, q.device), s, torch.full_like(s, NEG_INF))
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
 
 
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    o: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
-                                   scale: float | None = None
+                                   scale: float | None = None, causal: bool = True
                                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of causal attention with Sq == Sk, in the (B, H, S, D)
-    layout, the way `fa_backward` computes them: P = exp(scale q.k - lse)
-    under the mask, Delta = rowsum(dout * o), dV = P^T dout,
-    dS = P (dout v^T - Delta), dQ = scale dS k, dK = scale dS^T q, dK and dV
-    summed over the query heads of each KV head.  f32 inside; P and dS
-    rounded to q's dtype before the products that take them, as the kernel
-    does (a no-op in f32); the gradients in q's dtype."""
-    B, H, S, D = q.shape
-    KH = k.shape[1]
+    """(dq, dk, dv) of attention in the (B, H, S, D) layout, q, o, dout and
+    lse of Sq rows, k and v of Sk, causal (top-left) or not, the way
+    `fa_backward` computes them: P = exp(scale q.k - lse) under the mask,
+    Delta = rowsum(dout * o), dV = P^T dout, dS = P (dout v^T - Delta),
+    dQ = scale dS k, dK = scale dS^T q, dK and dV summed over the query
+    heads of each KV head.  f32 inside; P and dS rounded to q's dtype
+    before the products that take them, as the kernel does (a no-op in
+    f32); the gradients in q's dtype."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
     G = H // KH
     scale = scale if scale is not None else D ** -0.5
-    qf = q.float().reshape(B, KH, G, S, D)
+    qf = q.float().reshape(B, KH, G, Sq, D)
     kf, vf = k.float(), v.float()
-    dof = dout.float().reshape(B, KH, G, S, D)
+    dof = dout.float().reshape(B, KH, G, Sq, D)
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    p = torch.where(mask, torch.exp(s - lse.float().reshape(B, KH, G, S, 1)),
-                    torch.zeros_like(s))
-    delta = (dout.float() * o.float()).sum(dim=-1).reshape(B, KH, G, S, 1)
+    p = torch.exp(s - lse.float().reshape(B, KH, G, Sq, 1))
+    if causal:
+        p = torch.where(_causal_keep(Sq, Sk, q.device), p, torch.zeros_like(p))
+    delta = (dout.float() * o.float()).sum(dim=-1).reshape(B, KH, G, Sq, 1)
     dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
     ds = p * (dp - delta)
     p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
-    return dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_shapes(q, k, v, narrow_v: bool = False) -> tuple[int, int, int, int]:
@@ -159,12 +168,12 @@ _SIGNATURES = {"fa_forward": _ARGS,
                # fa_forward's arguments with the lse output before the stream
                "fa_forward_lse": _ARGS[:-1] + [_P, _P],
                # q, k, v, o, dout, dq, dk, dv, lse, delta, 8 x 3 strides,
-               # B, H, KH, S, D, scale, stream
-               "fa_backward": [_P] * 10 + [_L] * 24 + [_I] * 5 + [ctypes.c_float, _P],
+               # B, H, KH, Sq, Sk, D, scale, causal, stream
+               "fa_backward": [_P] * 10 + [_L] * 24 + [_I] * 6 + [ctypes.c_float, _I, _P],
                # C, D, the count out
                "fa_backward_max_clusters": [_I, _I, ctypes.POINTER(ctypes.c_int)],
-               # B, H, KH, S, D, the heads out
-               "fa_backward_heads": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]}
+               # B, H, KH, Sq, Sk, causal, D, the heads out
+               "fa_backward_heads": [_I] * 7 + [ctypes.POINTER(ctypes.c_int)]}
 F32_LANES = 8      # kF32Lanes: threads of a query row
 F32_STAGES = 3     # kF32Stages: the K/V ring's buffers
 F32_SMALL_SQ = 64  # kF32SmallSq: up to this many queries, 64 rows a block
@@ -287,17 +296,13 @@ def _check_tma(t: torch.Tensor, st: tuple, ptr: int) -> None:
             f"and every stride a multiple of 16 bytes")
 
 
-def _check_grad_route(q, k, v, causal: bool) -> None:
+def _check_grad_route(q, k, v) -> None:
     """Raise unless (q, k, v) in the (B, H, S, D) layout lie on the route
-    the backward kernel covers (`GRAD_ROUTE`)."""
-    B, H, Sq, D = q.shape
-    KH, Sk = k.shape[1], k.shape[2]
+    the backward kernel covers (`GRAD_ROUTE`; causal or not, any Sq and
+    Sk)."""
+    H, D, KH = q.shape[1], q.shape[3], k.shape[1]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise _lib.no_backward("flash_attention", f"{q.dtype} ({_ITEM}a)")
-    if not causal:
-        raise _lib.no_backward("flash_attention", f"non-causal attention ({_ITEM}b)")
-    if Sq != Sk:
-        raise _lib.no_backward("flash_attention", f"Sq {Sq} != Sk {Sk} ({_ITEM}b)")
     if D % 8 or D > MAX_GRAD_HEAD_DIM:
         raise _lib.no_backward("flash_attention", f"head_dim {D} ({_ITEM}c)")
     if H // KH > MAX_GRAD_GROUP:
@@ -313,18 +318,20 @@ def _strides(t: torch.Tensor) -> tuple:
 
 
 def flash_attention_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                o: torch.Tensor, scale: float) -> torch.Tensor:
-    """The training forward on CUDA: causal attention of (B, H, S, D) views
-    into `o`, returning the (B, H, S) f32 log-sum-exp of each query row."""
-    B, H, S, D = q.shape
+                                o: torch.Tensor, scale: float, causal: bool = True
+                                ) -> torch.Tensor:
+    """The training forward on CUDA: attention of (B, H, Sq, D) query views
+    over (B, KH, Sk, D) key and value views into `o`, causal (top-left) or
+    not, returning the (B, H, Sq) f32 log-sum-exp of each query row."""
+    B, H, Sq, D = q.shape
     for t in (q, k, v, o):
         _check_tma(t, _strides(t), t.data_ptr())
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _lib.load("flash_attention", _SIGNATURES)
     err = lib.fa_forward_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                              *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-                             B, H, k.shape[1], S, S, D, float(scale), 1, lse.data_ptr(),
-                             _lib.stream_handle(q))
+                             B, H, k.shape[1], Sq, k.shape[2], D, float(scale), int(causal),
+                             lse.data_ptr(), _lib.stream_handle(q))
     _lib.check("flash_attention_forward_lse", err)
     flash_attention_forward_lse.launches += 1
     return lse
@@ -332,14 +339,16 @@ def flash_attention_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 
 @dataclass(frozen=True)
 class BackwardPlan:
-    """The backward's launch shape at (B, H, KH, S) on `n_sm` SMs: each
-    dK/dV block walks `heads` query heads in turn, and the G / heads
-    blocks of a KV head form a cluster."""
+    """The backward's launch shape at (B, H, KH, Sq, Sk, causal) on `n_sm`
+    SMs: each dK/dV block walks `heads` query heads in turn, and the G /
+    heads blocks of a KV head form a cluster."""
 
     B: int
     H: int
     KH: int
-    S: int
+    Sq: int
+    Sk: int
+    causal: bool
     n_sm: int
     heads: int
 
@@ -355,13 +364,23 @@ class BackwardPlan:
 
     @property
     def scratch_rows(self) -> int:
-        """Sp: S rounded up to a query tile, the rows of each of the
-        scratch's two (B, H, Sp) f32 planes (Delta, then lse in base 2)."""
-        return -(-self.S // BWD_ROWS) * BWD_ROWS
+        """Sqp: Sq rounded up to a query tile, the rows of each of the
+        scratch's two (B, H, Sqp) f32 planes (Delta, then lse in base 2)."""
+        return self.query_tiles * BWD_ROWS
+
+    @property
+    def query_tiles(self) -> int:
+        return -(-self.Sq // BWD_ROWS)
 
     @property
     def key_tiles(self) -> int:
-        return -(-self.S // BWD_KEYS)
+        return -(-self.Sk // BWD_KEYS)
+
+    def tile_steps(self, kb: int) -> int:
+        """Query tiles the dK/dV blocks of key tile `kb` walk a head: every
+        one, or under the causal mask those from the tile's first key on
+        (none once it lies at or past Sq: such a block writes zeros)."""
+        return max(self.query_tiles - kb, 0) if self.causal else self.query_tiles
 
     @property
     def dkdv_grid(self) -> tuple[int, int, int]:
@@ -372,16 +391,16 @@ class BackwardPlan:
     def dkdv_blocks(self) -> list[tuple[int, tuple[int, ...], int, int]]:
         """(batch, query heads, key tile, steps it walks: heads x query
         tiles) of every dK/dV block in launch order (x fastest): key tile
-        0, whose keys every query after them sees, first."""
+        0, which walks the most query tiles, first."""
         G, C, n = self.group, self.cluster, self.heads
         return [(b, tuple((x // C) * G + (x % C) * n + j for j in range(n)), kb,
-                 n * -(-(self.S - kb * BWD_KEYS) // BWD_ROWS))
+                 n * self.tile_steps(kb))
                 for kb in range(self.key_tiles) for b in range(self.B)
                 for x in range(self.H // n)]
 
     @property
     def dq_items(self) -> int:
-        return -(-self.S // DQ_ROWS) * self.H * self.B
+        return -(-self.Sq // DQ_ROWS) * self.H * self.B
 
     @property
     def dq_grid(self) -> int:
@@ -390,32 +409,37 @@ class BackwardPlan:
 
     def dq_order(self) -> list[tuple[int, int, int, int]]:
         """(batch, head, first query row, K/V tiles it walks) of every dQ
-        work item in walk order (the source's `item_at`): the far end of
-        the diagonal first; block i takes items i, i + dq_grid, ..."""
-        n_qb, hb = -(-self.S // DQ_ROWS), self.H * self.B
+        work item in walk order (the source's `item_at`): the last query
+        block first (under the causal mask the one with the most K/V
+        tiles); block i takes items i, i + dq_grid, ..."""
+        n_qb, hb = -(-self.Sq // DQ_ROWS), self.H * self.B
         out = []
         for w in range(self.dq_items):
             q0 = (n_qb - 1 - w // hb) * DQ_ROWS
             rem = w % hb
-            last = min(q0 + DQ_ROWS, self.S) - 1
-            out.append((rem // self.H, rem % self.H, q0, last // BWD_ROWS + 1))
+            last = min(q0 + DQ_ROWS, self.Sq) - 1
+            tiles = min(self.key_tiles, last // BWD_KEYS + 1) if self.causal else self.key_tiles
+            out.append((rem // self.H, rem % self.H, q0, tiles))
         return out
 
 
 @functools.lru_cache(maxsize=256)
-def backward_plan(B: int, H: int, KH: int, S: int, D: int, n_sm: int,
-                  clusters: tuple[tuple[int, int], ...] | None = None) -> BackwardPlan:
-    """The launch shape of `fa_backward` for (B, H, S, D) queries over KH KV
-    heads on a card of `n_sm` SMs; raises past `MAX_GRAD_GROUP` query heads a
-    KV head (a cluster larger than the portable 8) and off the route's
-    shapes.  `clusters`: (C, clusters of C blocks the card holds at once)
-    for the divisors C of G, as `backward_max_clusters` reads them; None
-    takes every SM as usable (n_sm // C).  The dK/dV cluster is the C that
-    minimises the launch's estimated makespan in (head, query tile) steps,
-    max(all steps / (C x clusters at once), the longest block's steps),
-    the larger C on a tie, as the source's `heads_a_block` chooses."""
-    if B < 1 or S < 1 or KH < 1 or H % KH:
-        raise ValueError(f"no backward plan for B {B}, S {S}, {H} heads over {KH}")
+def backward_plan(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, n_sm: int,
+                  clusters: tuple[tuple[int, int], ...] | None = None,
+                  causal: bool = True) -> BackwardPlan:
+    """The launch shape of `fa_backward` for (B, H, Sq, D) queries over KH KV
+    heads of Sk keys, causal (top-left) or not, on a card of `n_sm` SMs;
+    raises past `MAX_GRAD_GROUP` query heads a KV head (a cluster larger than
+    the portable 8) and off the route's shapes.  `clusters`: (C, clusters of
+    C blocks the card holds at once) for the divisors C of G, as
+    `backward_max_clusters` reads them; None takes every SM as usable
+    (n_sm // C).  The dK/dV cluster is the C that minimises the launch's
+    estimated makespan in (head, query tile) steps, max(all steps / (C x
+    clusters at once), the longest block's steps), the larger C on a tie,
+    as the source's `heads_a_block` chooses; the steps are those of the walk
+    launched (Sq x Sk tile pairs, or the causal mask's clipped triangle)."""
+    if B < 1 or Sq < 1 or Sk < 1 or KH < 1 or H % KH:
+        raise ValueError(f"no backward plan for B {B}, Sq {Sq}, Sk {Sk}, {H} heads over {KH}")
     if D % 8 or not 8 <= D <= MAX_GRAD_HEAD_DIM:
         raise ValueError(f"head_dim {D}: the backward takes multiples of 8 up to "
                          f"{MAX_GRAD_HEAD_DIM}")
@@ -423,20 +447,20 @@ def backward_plan(B: int, H: int, KH: int, S: int, D: int, n_sm: int,
     if G > MAX_GRAD_GROUP:
         raise ValueError(f"{G} query heads a KV head: a cluster holds at most "
                          f"{MAX_GRAD_GROUP}")
+    walk = BackwardPlan(B, H, KH, Sq, Sk, bool(causal), n_sm, 1)  # its steps ignore `heads`
     at_once = dict(clusters) if clusters is not None else {}
-    n_q0 = -(-S // BWD_ROWS)
-    steps = float(B * H * (n_q0 * (n_q0 + 1) // 2))
+    steps = float(B * H * sum(walk.tile_steps(kb) for kb in range(walk.key_tiles)))
     best, heads = 0.0, 0
     for C in range(G, 0, -1):
         n = at_once.get(C, 0) if clusters is not None else n_sm // C
         if G % C or n == 0:
             continue
-        est = max(steps / (C * n), float(G // C * n_q0))
+        est = max(steps / (C * n), float(G // C * walk.tile_steps(0)))
         if heads == 0 or est < best:
             best, heads = est, G // C
     if heads == 0:
         raise ValueError(f"the card holds no cluster of any divisor of {G} blocks")
-    return BackwardPlan(B, H, KH, S, n_sm, heads)
+    return BackwardPlan(B, H, KH, Sq, Sk, bool(causal), n_sm, heads)
 
 
 def _divisors(n: int) -> list[int]:
@@ -451,20 +475,23 @@ def _clusters_at_once(G: int, D: int, device: int) -> tuple[tuple[int, int], ...
         return tuple((c, backward_max_clusters(c, D)) for c in _divisors(G))
 
 
-def flash_attention_backward(q, k, v, o, dout, lse, dq, dk, dv, scale: float) -> None:
+def flash_attention_backward(q, k, v, o, dout, lse, dq, dk, dv, scale: float,
+                             causal: bool = True) -> None:
     """The backward on CUDA: writes dq, dk, dv (views of their own strides)
-    from (B, H, S, D) views of q, k, v, o, dout and the forward's lse."""
-    B, H, S, D = q.shape
+    from (B, H, Sq, D) views of q, o and dout, (B, KH, Sk, D) views of k
+    and v, and the forward's lse, causal (top-left) or not."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
     for t in (q, k, v, o, dout):
         _check_tma(t, _strides(t), t.data_ptr())
     dev = q.device.index
-    plan = backward_plan(B, H, k.shape[1], S, D, _lib.sm_count(dev),
-                         _clusters_at_once(H // k.shape[1], D, dev))
+    plan = backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(dev),
+                         _clusters_at_once(H // KH, D, dev), causal)
     scratch = torch.empty((2, B, H, plan.scratch_rows), dtype=torch.float32, device=q.device)
     lib = _lib.load("flash_attention", _SIGNATURES)
     err = lib.fa_backward(*(t.data_ptr() for t in (q, k, v, o, dout, dq, dk, dv, lse, scratch)),
                           *(x for t in (q, k, v, o, dout, dq, dk, dv) for x in _strides(t)),
-                          B, H, k.shape[1], S, D, float(scale), _lib.stream_handle(q))
+                          B, H, KH, Sq, Sk, D, float(scale), int(causal), _lib.stream_handle(q))
     _lib.check("flash_attention_backward", err)
     flash_attention_backward.launches += 1
 
@@ -478,27 +505,30 @@ def backward_max_clusters(C: int, D: int) -> int:
     return n.value
 
 
-def backward_heads(B: int, H: int, KH: int, S: int, D: int) -> int:
+def backward_heads(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
+                   causal: bool = True) -> int:
     """The query heads a dK/dV block of `fa_backward` walks at these shapes
     on the current card, as the source chooses them."""
     n = ctypes.c_int(0)
     lib = _lib.load("flash_attention", _SIGNATURES)
-    _lib.check("fa_backward_heads", lib.fa_backward_heads(B, H, KH, S, D, ctypes.byref(n)))
+    _lib.check("fa_backward_heads", lib.fa_backward_heads(B, H, KH, Sq, Sk, int(causal), D,
+                                                          ctypes.byref(n)))
     return n.value
 
 
 class _FlashFn(torch.autograd.Function):
-    """Causal bf16 attention with its backward kernel.  q, k, v are in the
-    caller's layout, (B, T, H, D) when `bthd` or (B, H, S, D); the output
-    is allocated in that layout, and so are dq, dk and dv (with the strides
-    of q, k and v, which suit the TMA forward when remat runs it again)."""
+    """bf16 attention, causal or not, with its backward kernel.  q, k, v
+    are in the caller's layout, (B, T, H, D) when `bthd` or (B, H, S, D);
+    the output is allocated in that layout, and so are dq, dk and dv (with
+    the strides of q, k and v, which suit the TMA forward when remat runs
+    it again)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bthd: bool, scale: float):
+    def forward(ctx, q, k, v, bthd: bool, scale: float, causal: bool):
         view = (lambda t: t.transpose(1, 2)) if bthd else (lambda t: t)
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        lse = flash_attention_forward_lse(view(q), view(k), view(v), view(out), scale)
-        ctx.bthd, ctx.scale = bthd, scale
+        lse = flash_attention_forward_lse(view(q), view(k), view(v), view(out), scale, causal)
+        ctx.bthd, ctx.scale, ctx.causal = bthd, scale, causal
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -509,8 +539,8 @@ class _FlashFn(torch.autograd.Function):
         dout = dout.contiguous()
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         flash_attention_backward(view(q), view(k), view(v), view(out), view(dout), lse,
-                                 view(dq), view(dk), view(dv), ctx.scale)
-        return dq, dk, dv, None, None
+                                 view(dq), view(dk), view(dv), ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -521,8 +551,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D = _check_shapes(q, k, v)[3]
     scale = scale if scale is not None else D ** -0.5
     if _lib.needs_grad(q, k, v):
-        _check_grad_route(q, k, v, causal)
-        return _FlashFn.apply(q, k, v, False, scale)
+        _check_grad_route(q, k, v)
+        return _FlashFn.apply(q, k, v, False, scale, causal)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q, k, v, out, causal, scale)
     return out
@@ -547,8 +577,8 @@ def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(qh, kh, vh, causal).transpose(1, 2)[..., :Dv]
     _check_shapes(qh, kh, vh, narrow_v=True)
     if _lib.needs_grad(q, k, v):
-        _check_grad_route(qh, kh, vh, causal)
-        return _FlashFn.apply(q, k, v, True, D ** -0.5)[..., :Dv]
+        _check_grad_route(qh, kh, vh)
+        return _FlashFn.apply(q, k, v, True, D ** -0.5, causal)[..., :Dv]
     out = torch.empty((*q.shape[:3], vh.shape[3]), dtype=q.dtype, device=q.device)
     _launch(qh, kh, vh, out.transpose(1, 2), causal, D ** -0.5)
     return out[..., :Dv]

@@ -165,13 +165,16 @@ def grad_gap(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want).abs().max()) / max(scale, 1e-30)
 
 
-def flash_grads_f32(q, k, v, dout) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def flash_grads_f32(q, k, v, dout, causal: bool = True
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The yardstick of the flash attention backward: (dq, dk, dv) of the
-    plain backward run in f32 from the same (B, H, S, D) inputs, the
-    output and lse recomputed in f32."""
+    plain backward run in f32 from the same (B, H, S, D) inputs (q and dout
+    of Sq rows, k and v of Sk), causal (top-left) or not, the output and
+    lse recomputed in f32."""
     qf, kf, vf = q.float(), k.float(), v.float()
-    return fa.flash_attention_backward_plain(qf, kf, vf, fa.flash_attention_plain(qf, kf, vf),
-                                             dout.float(), fa.flash_attention_lse_plain(qf, kf))
+    return fa.flash_attention_backward_plain(
+        qf, kf, vf, fa.flash_attention_plain(qf, kf, vf, causal), dout.float(),
+        fa.flash_attention_lse_plain(qf, kf, causal=causal), causal=causal)
 
 
 def assert_grad_close(got: torch.Tensor, want: torch.Tensor, what: str,

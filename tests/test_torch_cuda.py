@@ -1469,9 +1469,136 @@ def test_flash_attention_backward_launch_follows_its_plan(cuda, B, H, KH, S, D):
     the card's cluster occupancy, equal `backward_plan`'s choice from the
     same occupancy."""
     dev = torch.cuda.current_device()
-    plan = fa.backward_plan(B, H, KH, S, D, _lib.sm_count(dev),
+    plan = fa.backward_plan(B, H, KH, S, S, D, _lib.sm_count(dev),
                             fa._clusters_at_once(H // KH, D, dev))
-    assert fa.backward_heads(B, H, KH, S, D) == plan.heads
+    assert fa.backward_heads(B, H, KH, S, S, D) == plan.heads
+
+
+# (B, H, KH, Sq, Sk, D, causal) of the backward at lengths of their own
+FLASH_GRAD_LENGTHS = [
+    (4, 16, 16, 1024, 1024, 64, False),  # seamless-m4t-large-v2's encoder
+    (4, 16, 16, 256, 1024, 64, False),   # its cross-attention in training
+    (2, 8, 2, 33, 1000, 64, False),      # ragged, G = 4
+    (2, 4, 4, 100, 300, 32, False),      # G = 1
+    (1, 8, 4, 1, 70, 64, False),         # one query, G = 2
+    (2, 12, 2, 33, 129, 128, False),     # G = 6, Sq 33
+    (1, 12, 2, 300, 77, 80, False),      # Sq > Sk, G = 6
+    (1, 4, 4, 130, 130, 64, False),      # Sq == Sk, ragged
+    (2, 16, 4, 300, 1000, 128, True),    # causal Sq < Sk: key tiles past Sq meet no query
+    (2, 16, 4, 1000, 300, 64, True),     # causal Sq > Sk: rows past Sk see every key
+    (1, 4, 2, 2, 200, 64, True),         # causal, two queries: keys 0 and 1 alone get gradients
+    (2, 6, 1, 33, 500, 40, True)]        # causal, G = 6, Sq 33
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", FLASH_GRAD_LENGTHS)
+def test_flash_attention_backward_kernel_at_any_lengths(cuda, B, H, KH, Sq, Sk, D, causal):
+    """Sq != Sk and the non-causal mask: the LSE forward's output equals
+    `fa_forward`'s bit for bit and its lse the plain one; dq, dk and dv,
+    written over NaN (every element must be stored, the zero dK and dV of
+    keys no query sees included), against the plain backward run in f32
+    within `GRAD_TOL`; bit-equal run to run."""
+    dtype = torch.bfloat16
+    q = _on(cuda, 120, (B, H, Sq, D), dtype)
+    k = _on(cuda, 121, (B, KH, Sk, D), dtype)
+    v = _on(cuda, 122, (B, KH, Sk, D), dtype)
+    dout = _on(cuda, 123, (B, H, Sq, D), dtype)
+    scale = D ** -0.5
+    o = torch.empty_like(q)
+    lse = fa.flash_attention_forward_lse(q, k, v, o, scale, causal)
+    direct = fa.flash_attention(q, k, v, causal)
+    grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+    again = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+    fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale, causal)
+    fa.flash_attention_backward(q, k, v, o, dout, lse, *again, scale, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, direct)
+    torch.testing.assert_close(lse, fa.flash_attention_lse_plain(q, k, causal=causal),
+                               atol=1e-4, rtol=1e-5)
+    for name, got, want, rerun in zip(("dq", "dk", "dv"), grads,
+                                      flash_grads_f32(q, k, v, dout, causal), again):
+        assert torch.isfinite(got).all(), name
+        assert_grad_close(got, want, name)
+        assert torch.equal(got, rerun), name
+    if causal and Sq < Sk:  # keys at or past Sq meet no query
+        assert not grads[1][:, :, Sq:].any() and not grads[2][:, :, Sq:].any()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", [FLASH_GRAD_LENGTHS[i] for i in (0, 1, 2, 8)])
+def test_flash_attention_backward_at_any_lengths_replays_bit_equal(cuda, B, H, KH, Sq, Sk, D,
+                                                                   causal):
+    """Captured in a CUDA graph and replayed on new cotangents copied in,
+    the backward's gradients equal the eager call's bit for bit."""
+    dtype = torch.bfloat16
+    q = _on(cuda, 130, (B, H, Sq, D), dtype)
+    k = _on(cuda, 131, (B, KH, Sk, D), dtype)
+    v = _on(cuda, 132, (B, KH, Sk, D), dtype)
+    dout = _on(cuda, 133, (B, H, Sq, D), dtype)
+    scale = D ** -0.5
+    o = torch.empty_like(q)
+    lse = fa.flash_attention_forward_lse(q, k, v, o, scale, causal)
+    eager = [torch.empty_like(t) for t in (q, k, v)]
+    fa.flash_attention_backward(q, k, v, o, dout, lse, *eager, scale, causal)
+    graphed = [torch.empty_like(t) for t in (q, k, v)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fa.flash_attention_backward(q, k, v, o, dout, lse, *graphed, scale, causal)
+    for i in range(2):
+        for t in graphed:
+            t.fill_(float("nan"))
+        dout.copy_(_on(cuda, 134 + i, dout.shape, dtype))
+        fa.flash_attention_backward(q, k, v, o, dout, lse, *eager, scale, causal)
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, got, want in zip(("dq", "dk", "dv"), graphed, eager):
+            assert torch.equal(got, want), (name, i)
+    del graph
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", FLASH_GRAD_LENGTHS)
+def test_flash_attention_backward_at_any_lengths_follows_its_plan(cuda, B, H, KH, Sq, Sk, D,
+                                                                  causal):
+    """The source's cluster choice counts the walk it launches, as
+    `backward_plan` does."""
+    dev = torch.cuda.current_device()
+    plan = fa.backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(dev),
+                            fa._clusters_at_once(H // KH, D, dev), causal)
+    assert fa.backward_heads(B, H, KH, Sq, Sk, D, causal) == plan.heads
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("Tq,Tk,H,KH,causal", [(1024, 1024, 16, 16, False),  # the encoder
+                                               (256, 1024, 16, 16, False),   # cross-attention
+                                               (33, 1000, 8, 2, False),
+                                               (300, 1000, 16, 4, True)])
+def test_attention_bthd_under_grad_at_any_lengths(cuda, Tq, Tk, H, KH, causal):
+    """The enc-dec's calls under `torch.autograd.grad`: `attention_bthd(...,
+    causal=False)` self- and cross-attention (and a causal Sq < Sk) through
+    `_FlashFn`, one LSE forward and one backward call, the gradients in the
+    inputs' layout within `GRAD_TOL` of autograd of the plain version in
+    f32."""
+    dtype = torch.bfloat16
+    q = _on(cuda, 140, (2, Tq, H, 64), dtype).requires_grad_()
+    k = _on(cuda, 141, (2, Tk, KH, 64), dtype).requires_grad_()
+    v = _on(cuda, 142, (2, Tk, KH, 64), dtype).requires_grad_()
+    f0, l0, b0 = (fa.flash_attention.launches, fa.flash_attention_forward_lse.launches,
+                  fa.flash_attention_backward.launches)
+    out = fa.attention_bthd(q, k, v, causal=causal)
+    dout = _on(cuda, 143, out.shape, dtype)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_forward_lse.launches,
+            fa.flash_attention_backward.launches) == (f0, l0 + 1, b0 + 1)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want_out = fa.flash_attention_plain(*(t.transpose(1, 2) for t in leaves),
+                                        causal).transpose(1, 2)
+    want = torch.autograd.grad(want_out, leaves, dout.float())
+    for name, t, g, w in zip(("dq", "dk", "dv"), (q, k, v), got, want):
+        assert g.shape == t.shape and g.stride() == t.stride(), name
+        assert_grad_close(g, w, name)
+    torch.testing.assert_close(out.detach().float(), want_out.detach(), **attn_tol(dtype))
 
 
 @pytest.mark.requires_cuda
@@ -1515,7 +1642,8 @@ def test_attention_bthd_under_grad_keeps_layout(cuda):
 def test_kernels_without_a_backward_raise_under_grad(cuda):
     """Every wrapper whose kernel has no backward raises the port's
     `ProgramError` (not a `RuntimeError`) on CUDA under grad, as do flash
-    attention's and the SSD scan's uncovered routes (the scan in f32; in
+    attention's and the SSD scan's uncovered routes (flash in f32, past
+    eight query heads a KV head or at head_dim 192; the scan in f32; in
     bf16 it launches, with a backward); without grad each launches."""
     bf16 = torch.bfloat16
     q = _on(cuda, 100, (2, 1, 8, 64), bf16).requires_grad_()
@@ -1541,9 +1669,7 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
     for args, kw, item in (
             ((_on(cuda, 106, (1, 4, 64, 64), torch.float32).requires_grad_(), k.float(),
               k.float()), {}, "13a"),
-            ((_on(cuda, 107, (1, 4, 64, 64), bf16).requires_grad_(), k, k),
-             {"causal": False}, "13b"),
-            ((_on(cuda, 108, (1, 4, 32, 64), bf16).requires_grad_(), k, k), {}, "13b"),
+            ((_on(cuda, 107, (1, 18, 64, 64), bf16).requires_grad_(), k, k), {}, "13c"),
             ((_on(cuda, 109, (1, 4, 64, 192), bf16).requires_grad_(),
               _on(cuda, 110, (1, 2, 64, 192), bf16), _on(cuda, 111, (1, 2, 64, 192), bf16)),
              {}, "13c")):

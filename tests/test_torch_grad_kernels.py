@@ -5,20 +5,28 @@ the bound the card holds the kernels to.
   `models.common.rms_norm` and against autograd of the port's own plain
   forward (f32 to 1e-5 of scale; bf16 to 2e-2, the card check's bound:
   the reference rounds dy * w to bf16 where the port keeps it f32).
-* `flash_attention_backward_plain`, from the lse and Delta as the kernel
-  computes them, against `jax.vjp` of the reference's `chunked_attention`
-  (causal, Sq == Sk, G 1, 2 and 6) and against autograd of the port's plain
+* `flash_attention_backward_plain` and `flash_attention_lse_plain`, from
+  the lse and Delta as the kernel computes them, against `jax.vjp` of the
+  reference's `chunked_attention` (causal Sq == Sk at G 1, 2 and 6;
+  non-causal Sq == Sk at G 1 and 2; non-causal and causal (top-left) Sq <
+  Sk and Sq > Sk, ragged) and against autograd of the port's plain
   forward: f32 to 1e-5 of each gradient's scale; bf16 to the card's bound.
+* `backward_plan` at every walk: each (batch, head, key tile) in one dK/dV
+  block, the query tiles it walks (a causal key tile at or past Sq walks
+  none), the dQ items, and the cluster chosen by the makespan of the walk
+  launched.
 * The card's bound (`testing.parity.GRAD_TOL`: each gradient within 2e-2
   of the f32 plain backward's max |value|) rejects planted faults — a flash
   backward that drops its Delta term, one that skips the sum over a KV
-  head's query heads in dK/dV, an rmsnorm backward that sums dw in bf16 —
-  at the card check's shapes, and accepts the sound plain backward run in
-  bf16.
+  head's query heads in dK/dV, a non-causal one whose dK/dV walk only the
+  causal half, a dQ that leaves the key tile's rows past Sk unmasked, an
+  rmsnorm backward that sums dw in bf16 — at the card check's shapes, and
+  accepts the sound plain backward run in bf16.
 * Under grad on the CPU every op of `KERNELS` returns a tensor that carries
   a `grad_fn` (the plain versions, differentiated by autograd); the
-  training route's shape rule refuses what the backward kernel does not
-  cover, naming the ROADMAP item.
+  training route's shape rule accepts non-causal attention and Sq != Sk
+  and refuses what the backward kernel does not cover, naming the ROADMAP
+  item.
 """
 
 import math
@@ -119,34 +127,31 @@ def test_rmsnorm_backward_plan():
 # ---------------------------------------------------------- flash attention
 
 
-@pytest.mark.parametrize("B,H,KH,S,D,n_sm", [(4, 12, 2, 1024, 128, 132),  # qwen2-1.5b train
-                                             (2, 8, 8, 1024, 128, 132),   # G = 1
-                                             (4, 8, 2, 128, 64, 132),     # train_small
-                                             (2, 16, 2, 1000, 80, 132),   # G = 8, ragged S
-                                             (1, 7, 1, 70, 40, 16),       # G = 7, few SMs
-                                             (3, 5, 1, 1, 32, 132)])      # one token
-def test_flash_backward_plan_covers_each_block_once_longest_first(B, H, KH, S, D, n_sm):
-    """Every (batch, head, 64-key tile) falls in one dK/dV block, the blocks
-    launched in order of the (head, query tile) steps they walk (the causal
-    half from their first key), most first, and each aligned run of
-    `cluster` blocks the heads of one KV head; every (batch, head, 128-row
-    query block) is one dQ item, walked in order of its K/V tiles, most
-    first."""
+def _check_plan(B, H, KH, Sq, Sk, D, n_sm, causal):
+    """`backward_plan`'s blocks and items at these shapes, with and without
+    a card's cluster occupancy: every (batch, head, 64-key tile) in one
+    dK/dV block, which walks the query tiles its keys meet (all of Sq, or
+    under the causal mask those from its first key on), the blocks in
+    order of those steps, most first, each aligned run of `cluster` blocks
+    the heads of one KV head; every (batch, head, 128-row query block) one
+    dQ item, walking all K/V tiles or those up to its last row, in order of
+    its K/V tiles, most first.  Returns the plan."""
     G = H // KH
     for clusters in (None, tuple((c, n_sm // (2 * c) + 1) for c in range(1, G + 1)
                                  if G % c == 0)):
-        plan = fa.backward_plan(B, H, KH, S, D, n_sm, clusters)
+        plan = fa.backward_plan(B, H, KH, Sq, Sk, D, n_sm, clusters, causal)
         assert plan.group == G and plan.heads * plan.cluster == G
-        assert plan.scratch_rows % 64 == 0 and S <= plan.scratch_rows < S + 64
+        assert plan.scratch_rows % 64 == 0 and Sq <= plan.scratch_rows < Sq + 64
         blocks = plan.dkdv_blocks()
-        n_kb = -(-S // 64)
+        n_kb = -(-Sk // 64)
         assert plan.dkdv_grid == (H // plan.heads, B, n_kb) and len(blocks) == math.prod(
             plan.dkdv_grid)
         covered = [(b, h, kb) for b, heads, kb, _ in blocks for h in heads]
         assert sorted(covered) == [(b, h, kb) for b in range(B) for h in range(H)
                                    for kb in range(n_kb)]
         for _, heads, kb, steps in blocks:
-            assert steps == len(heads) * len(range(kb * 64, S, 64))  # queries >= its first key
+            walked = range(kb * 64, Sq, 64) if causal else range(0, Sq, 64)
+            assert steps == len(heads) * len(walked)
         assert all(x[3] >= y[3] for x, y in zip(blocks, blocks[1:]))
         for i in range(0, len(blocks), plan.cluster):  # x fastest: a run is one cluster
             run = blocks[i:i + plan.cluster]
@@ -154,14 +159,43 @@ def test_flash_backward_plan_covers_each_block_once_longest_first(B, H, KH, S, D
             assert sorted(h for _, heads, _, _ in run for h in heads) == list(
                 range(run[0][1][0] // G * G, run[0][1][0] // G * G + G))
     items = plan.dq_order()
-    n_qb = -(-S // 128)
+    n_qb = -(-Sq // 128)
     assert len(items) == plan.dq_items == B * H * n_qb
     assert {(b, h, q0) for b, h, q0, _ in items} == {
         (b, h, 128 * i) for b in range(B) for h in range(H) for i in range(n_qb)}
     for b, h, q0, tiles in items:
-        assert tiles == -(-min(q0 + 128, S) // 64)  # K/V tiles up to its last row
+        last = min(q0 + 128, Sq)  # K/V tiles up to its last row, under the mask
+        assert tiles == (min(-(-last // 64), -(-Sk // 64)) if causal else -(-Sk // 64))
     assert all(x[3] >= y[3] for x, y in zip(items, items[1:]))
     assert plan.dq_grid == min(n_sm, len(items))
+    return plan
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,n_sm", [(4, 12, 2, 1024, 128, 132),  # qwen2-1.5b train
+                                             (2, 8, 8, 1024, 128, 132),   # G = 1
+                                             (4, 8, 2, 128, 64, 132),     # train_small
+                                             (2, 16, 2, 1000, 80, 132),   # G = 8, ragged S
+                                             (1, 7, 1, 70, 40, 16),       # G = 7, few SMs
+                                             (3, 5, 1, 1, 32, 132)])      # one token
+def test_flash_backward_plan_covers_each_block_once_longest_first(B, H, KH, S, D, n_sm):
+    """Causal, Sq == Sk: each key tile walks the causal half from its first
+    key (`_check_plan`)."""
+    _check_plan(B, H, KH, S, S, D, n_sm, True)
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,n_sm,causal", [
+    (4, 16, 16, 1024, 1024, 64, 132, False),  # seamless-m4t-large-v2's encoder
+    (4, 16, 16, 256, 1024, 64, 132, False),   # its cross-attention
+    (2, 8, 2, 33, 1000, 64, 132, False),      # ragged both ways
+    (1, 6, 3, 1000, 70, 40, 16, False),       # Sq > Sk, few SMs
+    (2, 16, 4, 300, 1000, 128, 132, True),    # causal Sq < Sk: key tiles past Sq walk nothing
+    (2, 16, 4, 1000, 300, 64, 132, True),     # causal Sq > Sk
+    (3, 6, 1, 1, 70, 32, 132, False)])        # one query over every key
+def test_flash_backward_plan_covers_the_walks_of_any_lengths(B, H, KH, Sq, Sk, D, n_sm,
+                                                             causal):
+    plan = _check_plan(B, H, KH, Sq, Sk, D, n_sm, causal)
+    idle = [kb for _, _, kb, steps in plan.dkdv_blocks() if steps == 0]
+    assert sorted(set(idle)) == (list(range(-(-Sq // 64), -(-Sk // 64))) if causal else [])
 
 
 @pytest.mark.parametrize("B,H,KH,S,clusters,heads", [
@@ -173,7 +207,22 @@ def test_flash_backward_plan_picks_the_cluster_by_its_makespan(B, H, KH, S, clus
     """The cluster is the divisor C of G whose launch is estimated to end
     first: all steps over the SMs that clusters of C fill, or the longest
     block's steps, whichever is more; the larger C on a tie."""
-    assert fa.backward_plan(B, H, KH, S, 128, 132, clusters).heads == heads
+    assert fa.backward_plan(B, H, KH, S, S, 128, 132, clusters).heads == heads
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,heads", [
+    (1024, 1024, True, 1),    # 2176 steps: clusters of 2 end at 21.8, two heads a block at 32
+    (1024, 1024, False, 2),   # 4096 steps: clusters of 2 at 41.0, two heads a block at 32
+    (256, 1024, False, 2),    # 1024 steps, 4 a block: 10.2 against 8
+    (1024, 256, True, 1)])    # 928 steps, 16 a block: the longest block decides, 16 against 32
+def test_flash_backward_plan_counts_the_walk_launched(Sq, Sk, causal, heads):
+    """The makespan counts the (head, query tile) steps the launch really
+    walks, Sq x Sk tile pairs without the mask and the clipped triangle
+    with it: at 16 query heads over 8 KV heads, clusters of 2 filling 100
+    SMs against single blocks filling 132, the causal and the non-causal
+    walk of one shape pick differently."""
+    clusters = ((1, 132), (2, 50))
+    assert fa.backward_plan(1, 16, 8, Sq, Sk, 128, 132, clusters, causal).heads == heads
 
 
 @pytest.mark.parametrize("H,KH,D", [(18, 2, 128), (9, 1, 64), (12, 2, 136), (12, 2, 20)])
@@ -181,15 +230,38 @@ def test_flash_backward_plan_raises_off_the_route(H, KH, D):
     """Past eight query heads a KV head (a portable cluster) or off the
     head dims the kernel takes, there is no plan."""
     with pytest.raises(ValueError):
-        fa.backward_plan(2, H, KH, 256, D, 132)
+        fa.backward_plan(2, H, KH, 256, 256, D, 132)
 
 
-def _attn_inputs(dtype, B, H, KH, S, D, seed=0):
-    """q (B, H, S, D), k, v (B, KH, S, D), dout, in both packages; the
-    reference's in its (B, T, H, D) layout."""
-    shapes = ((B, H, S, D), (B, KH, S, D), (B, KH, S, D), (B, H, S, D))
+def _attn_inputs(dtype, B, H, KH, S, D, seed=0, Sk=None):
+    """q (B, H, S, D), k, v (B, KH, Sk, D) (Sk defaults to S), dout, in
+    both packages; the reference's in its (B, T, H, D) layout."""
+    Sk = S if Sk is None else Sk
+    shapes = ((B, H, S, D), (B, KH, Sk, D), (B, KH, Sk, D), (B, H, S, D))
     pairs = [_both(_normal(seed + i, s), dtype) for i, s in enumerate(shapes)]
     return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def _check_plain_backward(dtype, B, H, KH, Sq, Sk, D, causal):
+    """The plain backward from the plain lse against `jax.vjp` of the
+    reference's `chunked_attention` (chunks of 16, so ragged lengths pad)
+    and against autograd of the port's plain forward."""
+    (jq, jk, jv, jdo), (q, k, v, dout) = _attn_inputs(dtype, B, H, KH, Sq, D, Sk=Sk)
+    tr = lambda x: jnp.swapaxes(x, 1, 2)  # noqa: E731
+    f = lambda a, b, c: tr(ref_common.chunked_attention(  # noqa: E731
+        tr(a), tr(b), tr(c), causal=causal, q_chunk=16, k_chunk=16))
+    _, vjp = jax.vjp(f, jq, jk, jv)
+    want = vjp(jdo)
+    o = fa.flash_attention_plain(q, k, v, causal)
+    lse = fa.flash_attention_lse_plain(q, k, causal=causal)
+    got = fa.flash_attention_backward_plain(q, k, v, o, dout, lse, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == q.dtype and g.shape == tuple(w.shape), name
+        assert grad_gap(g, _t(w)) <= _bound(dtype), name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(fa.flash_attention_plain(*leaves, causal), leaves, dout)
+    for name, g, w in zip("qkv", got, auto):
+        assert grad_gap(g, w) <= _bound(dtype), name
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -197,22 +269,20 @@ def _attn_inputs(dtype, B, H, KH, S, D, seed=0):
                                         (1, 4, 2, 64, 64),    # G = 2
                                         (2, 6, 1, 33, 16)])   # G = 6, ragged S
 def test_flash_backward_plain_matches_reference_vjp(dtype, B, H, KH, S, D):
-    (jq, jk, jv, jdo), (q, k, v, dout) = _attn_inputs(dtype, B, H, KH, S, D)
-    tr = lambda x: jnp.swapaxes(x, 1, 2)  # noqa: E731
-    f = lambda a, b, c: tr(ref_common.chunked_attention(  # noqa: E731
-        tr(a), tr(b), tr(c), causal=True, q_chunk=16, k_chunk=16))
-    _, vjp = jax.vjp(f, jq, jk, jv)
-    want = vjp(jdo)
-    o = fa.flash_attention_plain(q, k, v)
-    lse = fa.flash_attention_lse_plain(q, k)
-    got = fa.flash_attention_backward_plain(q, k, v, o, dout, lse)
-    for name, g, w in zip("qkv", got, want):
-        assert g.dtype == q.dtype and g.shape == tuple(w.shape), name
-        assert grad_gap(g, _t(w)) <= _bound(dtype), name
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    auto = torch.autograd.grad(fa.flash_attention_plain(*leaves), leaves, dout)
-    for name, g, w in zip("qkv", got, auto):
-        assert grad_gap(g, w) <= _bound(dtype), name
+    _check_plain_backward(dtype, B, H, KH, S, S, D, True)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", [
+    (2, 4, 4, 40, 40, 32, False),   # non-causal, G = 1
+    (1, 4, 2, 64, 64, 64, False),   # non-causal, G = 2
+    (2, 4, 2, 33, 100, 16, False),  # non-causal Sq < Sk, ragged (the cross-attention's form)
+    (1, 6, 2, 90, 37, 32, False),   # non-causal Sq > Sk, ragged
+    (2, 4, 2, 33, 100, 16, True),   # causal Sq < Sk, top-left: keys past Sq see no query
+    (1, 6, 2, 90, 37, 32, True)])   # causal Sq > Sk, top-left: rows past Sk see every key
+def test_flash_backward_plain_matches_reference_vjp_at_any_lengths(dtype, B, H, KH, Sq, Sk, D,
+                                                                   causal):
+    _check_plain_backward(dtype, B, H, KH, Sq, Sk, D, causal)
 
 
 def test_flash_lse_plain_is_the_logsumexp_of_the_masked_scores():
@@ -223,28 +293,55 @@ def test_flash_lse_plain_is_the_logsumexp_of_the_masked_scores():
     torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1))
 
 
+@pytest.mark.parametrize("Sq,Sk,causal", [(13, 40, False), (40, 13, False), (13, 40, True),
+                                          (40, 13, True)])
+def test_flash_lse_plain_at_any_lengths(Sq, Sk, causal):
+    """Sq rows of lse, each over all Sk keys or, causal, top-left: row i
+    keeps keys 0..i, every row at least one."""
+    _, (q, k, _, _) = _attn_inputs("f32", 1, 4, 2, Sq, 16, Sk=Sk)
+    lse = fa.flash_attention_lse_plain(q, k, causal=causal)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k.repeat_interleave(2, dim=1)) * 16 ** -0.5
+    if causal:
+        s = s.masked_fill(~torch.ones(Sq, Sk, dtype=torch.bool).tril(), float("-inf"))
+    assert lse.shape == (1, 4, Sq) and torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1))
+
+
 # -------------------------------------------------- the card's bound, planted faults
 
 
-def _flash_fault(q, k, v, dout, fault: str):
-    """The plain backward in f32 with one fault planted."""
-    B, H, S, D = q.shape
-    KH = k.shape[1]
+def _flash_fault(q, k, v, dout, fault: str, causal: bool = True, tail=None):
+    """The plain backward in f32 with one fault planted ("none": the sound
+    one).  "no_delta" drops Delta; "no_group_sum" skips dK/dV's sum over a
+    KV head's query heads; "causal_half" (non-causal) sums each 64-key
+    tile's dK and dV over the query tiles from the tile's first key on only
+    (the causal walk); "tail" (non-causal) runs dQ over the whole last
+    64-key tile, its rows past Sk unmasked and holding `tail` ((k rows, v
+    rows): what a load not clipped at Sk would read from a longer buffer,
+    or TMA's zeros), while dK and dV are stored for keys below Sk only, so
+    only dQ sees them."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
     G = H // KH
     scale = D ** -0.5
-    qf = q.float().reshape(B, KH, G, S, D)
-    kf, vf, dof = k.float(), v.float(), dout.float().reshape(B, KH, G, S, D)
-    o = fa.flash_attention_plain(q.float(), kf, vf).reshape(B, KH, G, S, D)
-    lse = fa.flash_attention_lse_plain(q.float(), kf).reshape(B, KH, G, S, 1)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
-    mask = torch.ones(S, S, dtype=torch.bool).tril()
-    p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
-    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o = fa.flash_attention_plain(qf, kf, vf, causal).reshape(B, KH, G, Sq, D)
+    lse = fa.flash_attention_lse_plain(qf, kf, causal=causal).reshape(B, KH, G, Sq, 1)
+    qf, dof = qf.reshape(B, KH, G, Sq, D), dout.float().reshape(B, KH, G, Sq, D)
     delta = 0.0 if fault == "no_delta" else (dof * o).sum(-1, keepdim=True)
-    ds = p * (dp - delta)
-    dq = (torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale).reshape(B, H, S, D)
-    dk_h = torch.einsum("bkgqs,bkgqd->bkgsd", ds, qf) * scale
-    dv_h = torch.einsum("bkgqs,bkgqd->bkgsd", p, dof)
+    if fault == "tail":
+        kf, vf = torch.cat([kf, tail[0]], dim=2), torch.cat([vf, tail[1]], dim=2)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    p = torch.exp(s - lse)
+    if causal:
+        p = torch.where(torch.ones(Sq, Sk, dtype=torch.bool).tril(), p, torch.zeros_like(p))
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dof, vf) - delta)
+    dq = (torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale).reshape(B, H, Sq, D)
+    if fault == "causal_half":
+        walked = (torch.arange(Sq) // 64)[:, None] >= (torch.arange(Sk) // 64)[None, :]
+        p, ds = p * walked, ds * walked
+    dk_h = torch.einsum("bkgqs,bkgqd->bkgsd", ds, qf)[:, :, :, :Sk] * scale
+    dv_h = torch.einsum("bkgqs,bkgqd->bkgsd", p, dof)[:, :, :, :Sk]
     if fault == "no_group_sum":
         return dq, dk_h[:, :, 0], dv_h[:, :, 0]
     return dq, dk_h.sum(2), dv_h.sum(2)
@@ -277,6 +374,52 @@ def test_card_bound_accepts_the_sound_flash_backward_in_bf16(train_attn):
     gaps = [grad_gap(a, b) for a, b in zip(got, want)]
     assert max(gaps) <= GRAD_TOL / 2, gaps
     sound = _flash_fault(q, k, v, dout, "none")
+    assert max(grad_gap(a, b) for a, b in zip(sound, want)) <= 1e-5
+
+
+def _bf16_randn(g, *shape, shift=0.0):
+    return (torch.randn(*shape, generator=g) + shift).to(torch.bfloat16)
+
+
+def test_card_bound_rejects_a_noncausal_backward_that_walks_the_causal_half():
+    """seamless-m4t-large-v2's encoder at B = 1, (1, 1024, 16/16, 64),
+    non-causal: dK and dV of each key tile from the query tiles at or past
+    it only (the causal walk) miss the bound; the sound walk lies within
+    1e-5 of the f32 plain backward."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v, dout = (_bf16_randn(g, 1, 16, 1024, 64) for _ in range(4))
+    want = flash_grads_f32(q, k, v, dout, causal=False)
+    got = _flash_fault(q, k, v, dout, "causal_half", causal=False)
+    gaps = [grad_gap(a, b) for a, b in zip(got, want)]
+    assert not all(x <= 2 * GRAD_TOL for x in gaps), gaps
+    sound = _flash_fault(q, k, v, dout, "none", causal=False)
+    assert max(grad_gap(a, b) for a, b in zip(sound, want)) <= 1e-5
+
+
+@pytest.mark.parametrize("rows", ["buffer", "zero"])
+def test_card_bound_rejects_a_dq_with_the_keys_past_sk_unmasked(rows):
+    """Phase 2's ragged row, q (2, 33, 8, 64) over 1000 keys of 2 heads,
+    non-causal: the last key tile reaches 24 rows past Sk.  Left unmasked
+    in dQ, rows a longer buffer holds there join every query's softmax
+    gradient ("buffer"); TMA's zero rows score 0, so P = exp(-lse) there,
+    which overflows f32 once a row's scores lie below about -88, and dQ
+    turns NaN ("zero", on scores shifted down to about -140).  The bound
+    rejects both; the sound backward at the same inputs is finite and
+    within 1e-5 of the f32 plain backward."""
+    g = torch.Generator().manual_seed(2)
+    B, H, KH, Sq, Sk, D = 2, 8, 2, 33, 1000, 64
+    shift = 0.0 if rows == "buffer" else 4.2  # q.k ~ -64 x 4.2^2 / 8 ~ -141
+    q, dout = _bf16_randn(g, B, H, Sq, D, shift=-shift), _bf16_randn(g, B, H, Sq, D)
+    k, v = _bf16_randn(g, B, KH, Sk, D, shift=shift), _bf16_randn(g, B, KH, Sk, D)
+    pad = (B, KH, -(-Sk // 64) * 64 - Sk, D)
+    tail = ((torch.randn(*pad, generator=g), torch.randn(*pad, generator=g)) if rows == "buffer"
+            else (torch.zeros(pad), torch.zeros(pad)))
+    want = flash_grads_f32(q, k, v, dout, causal=False)
+    got = _flash_fault(q, k, v, dout, "tail", causal=False, tail=tail)
+    gaps = [grad_gap(a, b) for a, b in zip(got, want)]
+    assert not gaps[0] <= 2 * GRAD_TOL and max(gaps[1:]) <= 1e-5, gaps
+    sound = _flash_fault(q, k, v, dout, "none", causal=False)
+    assert all(torch.isfinite(t).all() for t in sound)
     assert max(grad_gap(a, b) for a, b in zip(sound, want)) <= 1e-5
 
 
@@ -329,19 +472,29 @@ def test_every_kernels_op_carries_a_grad_fn_on_cpu():
         assert not _lib.needs_grad(x)
 
 
-@pytest.mark.parametrize("shapes,kw,item", [
-    (((1, 4, 64, 64), (1, 2, 64, 64)), dict(dtype=torch.float32), "13a"),
-    (((1, 4, 64, 64), (1, 2, 64, 64)), dict(causal=False), "13b"),
-    (((1, 4, 32, 64), (1, 2, 64, 64)), {}, "13b"),
-    (((1, 4, 64, 192), (1, 2, 64, 192)), {}, "13c"),
-    (((1, 4, 64, 68), (1, 2, 64, 68)), {}, "13c"),
-    (((1, 18, 64, 64), (1, 2, 64, 64)), {}, "13c"),
-])
-def test_flash_training_route_refuses_what_the_backward_does_not_cover(shapes, kw, item):
-    dtype = kw.get("dtype", torch.bfloat16)
+@pytest.mark.parametrize("shapes,dtype,item", [
+    (((1, 4, 64, 64), (1, 2, 64, 64)), torch.float32, "13a"),
+    (((1, 4, 64, 192), (1, 2, 64, 192)), torch.bfloat16, "13c"),
+    (((1, 4, 64, 68), (1, 2, 64, 68)), torch.bfloat16, "13c"),
+    (((1, 18, 64, 64), (1, 2, 64, 64)), torch.bfloat16, "13c"),
+], ids=["f32", "head_dim 192", "head_dim 68", "G 9"])
+def test_flash_training_route_refuses_what_the_backward_does_not_cover(shapes, dtype, item):
     q, k = (torch.zeros(s, dtype=dtype) for s in shapes)
     with pytest.raises(_lib.ProgramError, match=f"item {item}"):
-        fa._check_grad_route(q, k, k, kw.get("causal", True))
+        fa._check_grad_route(q, k, k)
     fa._check_grad_route(torch.zeros(1, 12, 64, 128, dtype=torch.bfloat16),
                          torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16),
-                         torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16), True)
+                         torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("shapes", [((1, 4, 64, 64), (1, 2, 64, 64)),   # the encoder's form
+                                    ((1, 4, 32, 64), (1, 2, 64, 64)),   # Sq < Sk
+                                    ((1, 4, 100, 64), (1, 2, 37, 64))],  # Sq > Sk
+                         ids=["Sq == Sk", "Sq < Sk", "Sq > Sk"])
+def test_flash_training_route_accepts_noncausal_attention_and_unequal_lengths(shapes):
+    """Item 13b: the backward kernel covers non-causal attention and Sq !=
+    Sk (the route takes no mask: both masks have a backward), so the
+    enc-dec's encoder and cross-attention train through it on the card."""
+    q, k = (torch.zeros(s, dtype=torch.bfloat16) for s in shapes)
+    fa._check_grad_route(q, k, k)
+    assert "or not" in fa.GRAD_ROUTE and "any Sq and Sk" in fa.GRAD_ROUTE
