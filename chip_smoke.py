@@ -93,8 +93,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    run once a replay) and one step's device busy share and host launch
    calls; (b) one loss and its gradients
    at full width and 2 of 28 layers through the kernels and through the
-   plain math, every leaf within 5e-2 of its scale; for it, for
-   zamba2-2.7b's first group, xlstm-1.3b's first period and
+   plain math, every leaf within 5e-2 of its scale, and so for
+   deepseek-v3-671b's first layer (dense) and its MTP module's layer, MLA
+   at q and k 192, v 128 through the flash backward (3.12 B parameters);
+   for these, for zamba2-2.7b's first group, xlstm-1.3b's first period and
    seamless-m4t-large-v2's first 2 encoder and 2 decoder layers, every leaf
    through the kernels within `F32_FLOOR_FACTOR` times the plain math's
    own bf16 distance from the f32 gradient (at least 5e-2), and at each
@@ -117,8 +119,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    their plain backward run in f32, at the train shapes (`train_small`'s
    too; the scan's at zamba2-2.7b's and the mLSTM's and a ragged one; the
    flash backward's also at seamless-m4t-large-v2's non-causal encoder
-   and cross-attention, a ragged non-causal Sq < Sk and a causal Sq < Sk
-   and Sq > Sk) and the serve's or a G = 1 one; flash attention's
+   and cross-attention, a ragged non-causal Sq < Sk, a causal Sq < Sk
+   and Sq > Sk, deepseek-v3's MLA at a training micro-batch (q and k 192
+   wide, v 128), 16 query heads a KV head and q, k and v all 192 wide)
+   and the serve's or a G = 1 one; flash attention's
    backward is split by launch (Delta, dK/dV, dQ) and read in TFLOP/s
    against its bound.
 
@@ -243,12 +247,21 @@ HYBRID_TRAIN_ARCH = "zamba2-2.7b"
 # 24 decoder layers), the same run as 6a over micro-batches of 4 x
 # TRAIN_SEQ frame embeddings and 4 x ENCDEC_TRAIN_TEXT text tokens
 ENCDEC_TRAIN_ARCH, ENCDEC_TRAIN_TEXT = "seamless-m4t-large-v2", 256
+# phase 6b's MLA model and phase 2's MLA backward row: deepseek-v3's
+# attention, q and k 128 + 64 wide, v 128, through the flash backward
+MLA_TRAIN_ARCH = "deepseek-v3-671b"
 # phase 6b: (arch, layers kept) at full width: qwen2-1.5b's first 2 of 28;
 # zamba2-2.7b's first group (5 Mamba2 blocks and the shared attention);
 # xlstm-1.3b's first period (7 mLSTM blocks at DK 1024, DV 1025, 1 sLSTM);
-# seamless-m4t-large-v2's first 2 encoder and first 2 decoder layers
+# seamless-m4t-large-v2's first 2 encoder and first 2 decoder layers;
+# deepseek-v3-671b's first layer, a dense one, and its MTP module's dense
+# layer: two MLA layers through the flash backward at q and k 192, v 128
+# (3.12 B parameters: the embedding and the head 0.93 B each, a layer 0.58
+# B, the MTP projection 0.10 B; 6.2 GB in bf16, 12.5 GB in f32, so the
+# three routes' parameters and gradients ~44 GB before activations; an MoE
+# layer holds 11.3 B)
 GRAD_PARITY_RUNS = ((TRAIN_ARCH, 2), (HYBRID_TRAIN_ARCH, 6), ("xlstm-1.3b", 8),
-                    (ENCDEC_TRAIN_ARCH, 2))
+                    (ENCDEC_TRAIN_ARCH, 2), (MLA_TRAIN_ARCH, 1))
 # 6b's held rule beside the plain math: each leaf's gradient through the
 # kernels no farther from the f32 gradient than this many times the plain
 # math's own bf16 distance from it, or this many times 5e-2 where that
@@ -733,32 +746,42 @@ def small_train_rows() -> tuple[str, int, int]:
     return ("train_small train", B // ACCUM * S, small_config().d_model)
 
 
-def grad_shapes_flash() -> list[tuple[str, int, int, int, int, int, int, bool]]:
-    """(what, B, Sq, Sk, H, KH, D, causal): qwen2-1.5b's micro-batch (4,
-    1024, 12/2, 128), causal, a G = 1 shape, and `train_small`'s micro-batch
-    (4, 128, 8/2, 64), which phase 6c's elastic pair launches; then
-    seamless-m4t-large-v2's, as phase 6e trains it (`ENCDEC_TRAIN_TEXT`
-    tokens over `TRAIN_SEQ` frames a sequence): its encoder (4, 1024, 16/16,
-    64) and its cross-attention (q of 256 rows over k and v of 1024),
-    non-causal; a ragged non-causal (2, 33 over 1000, 8/2, 64); and the
-    causal Sq < Sk and Sq > Sk of `flash_model_shapes`."""
+def grad_shapes_flash() -> list[tuple[str, int, int, int, int, int, int, int, bool]]:
+    """(what, B, Sq, Sk, H, KH, D, Dv, causal): qwen2-1.5b's micro-batch
+    (4, 1024, 12/2, 128), causal, a G = 1 shape, and `train_small`'s
+    micro-batch (4, 128, 8/2, 64), which phase 6c's elastic pair launches;
+    then seamless-m4t-large-v2's, as phase 6e trains it
+    (`ENCDEC_TRAIN_TEXT` tokens over `TRAIN_SEQ` frames a sequence): its
+    encoder (4, 1024, 16/16, 64) and its cross-attention (q of 256 rows over
+    k and v of 1024), non-causal; a ragged non-causal (2, 33 over 1000, 8/2,
+    64); the causal Sq < Sk and Sq > Sk of `flash_model_shapes`; then
+    deepseek-v3's MLA at a training micro-batch (4, 1024, 128/128, q and k
+    192 wide, v 128), causal, as 6b trains it; 16 query heads a KV head (2,
+    1024, 32/2, 128), causal; and q, k and v all 192 wide (2, 512, 8/2),
+    non-causal, the two-stage dK/dV instance."""
     from repro_torch.configs import get_config
     from repro_torch.examples.train_small import ACCUM, BATCH as SB, SEQ as SS, small_config
 
     cfg, small, audio = get_config(TRAIN_ARCH), small_config(), get_config(ENCDEC_TRAIN_ARCH)
+    mla = get_config(MLA_TRAIN_ARCH)
     mb = TRAIN_BATCH // TRAIN_ACCUM
-    heads = (audio.n_heads, audio.kv_heads, audio.hd)
+    heads = (audio.n_heads, audio.kv_heads, audio.hd, audio.hd)
     return [(f"{TRAIN_ARCH} train", mb, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, cfg.kv_heads, cfg.hd,
-             True),
-            ("G = 1", 2, 1024, 1024, 8, 8, 128, True),
+             cfg.hd, True),
+            ("G = 1", 2, 1024, 1024, 8, 8, 128, 128, True),
             ("train_small train", SB // ACCUM, SS, SS, small.n_heads, small.kv_heads, small.hd,
-             True),
+             small.hd, True),
             (f"{ENCDEC_TRAIN_ARCH} encoder", mb, TRAIN_SEQ, TRAIN_SEQ, *heads, False),
             (f"{ENCDEC_TRAIN_ARCH} cross-attention", mb, ENCDEC_TRAIN_TEXT, TRAIN_SEQ, *heads,
              False),
-            ("ragged, non-causal", 2, 33, 1000, 8, 2, 64, False)] + [
-        (what, B, Sq, Sk, H, KH, D, causal)
-        for what, B, Sq, Sk, H, KH, D, _, causal in flash_model_shapes() if Sq != Sk and causal]
+            ("ragged, non-causal", 2, 33, 1000, 8, 2, 64, 64, False)] + [
+        (what, B, Sq, Sk, H, KH, D, Dv, causal)
+        for what, B, Sq, Sk, H, KH, D, Dv, causal in flash_model_shapes()
+        if Sq != Sk and causal] + [
+        (f"{MLA_TRAIN_ARCH} MLA train", mb, TRAIN_SEQ, TRAIN_SEQ, mla.n_heads, mla.n_heads,
+         mla.qk_nope_dim + mla.qk_rope_dim, mla.v_head_dim, True),
+        ("G = 16", 2, 1024, 1024, 32, 2, 128, 128, True),
+        ("D = Dv = 192", 2, 512, 512, 8, 2, 192, 192, False)]
 
 
 def check_rmsnorm_backward(dev, g, parent) -> dict:
@@ -851,20 +874,23 @@ def replays_equal(call, eager: list) -> bool:
 
 def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
     """At `grad_shapes_flash`, bf16, causal (top-left) or not, Sq and Sk of
-    their own: the LSE forward's output equals `fa_forward`'s bit for bit
-    and its lse the plain one; dq, dk and dv against the plain backward run
-    in f32, each within GRAD_TOL of that result's max |value| (autograd
-    through the plain forward in bf16 logged beside it); bit-equal run to
-    run, and a CUDA graph's replay bit-equal to the eager call.  The LSE
-    forward is timed beside `fa_forward` at the same inputs, the backward
-    (three launches) beside its bound (five products over the pairs the
-    mask keeps, `flash_pairs`), the plain backward, SDPA's backward
-    (`is_causal` as the row, enable_gqa) and, under `--parent`, the other
-    tree's backward in turns at the causal Sq == Sk rows (an older tree's
-    backward takes no other); one call's device time is split by launch
-    (Delta, dK/dV, dQ) from the profiler, and the achieved rate read
-    against the bound's five products.  Returns the rows of both entries,
-    the train shape's first."""
+    their own, v (and o, dout, dv) Dv <= D wide: the LSE forward's output
+    (v zero-padded to D for it, as `_FlashFn` pads it) equals `fa_forward`'s
+    bit for bit and its lse the plain one; dq, dk and dv, written over NaN,
+    against the plain backward run in f32, each within GRAD_TOL of that
+    result's max |value| (autograd through the plain forward in bf16
+    logged beside it); bit-equal run to run, and a CUDA graph's replay
+    bit-equal to the eager call.  The LSE forward is timed beside
+    `fa_forward` at the same inputs, the backward (three launches) beside
+    its bound (five products over the pairs the mask keeps, `flash_pairs`:
+    S^T, dK and dQ D wide, dP^T and dV Dv wide), the plain backward, SDPA's
+    backward (`is_causal` as the row, enable_gqa, v at its own width) and,
+    under `--parent`, the other tree's backward in turns at the causal Sq
+    == Sk rows an older tree takes (D == Dv <= 128, at most 8 query heads
+    a KV head); one call's device time is split by launch (Delta, dK/dV,
+    dQ) from the profiler, and the achieved rate read against the bound's
+    five products.  Returns the rows of both entries, the train shape's
+    first."""
     import torch
     import torch.nn.functional as F
 
@@ -873,22 +899,27 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
 
     bf16 = torch.bfloat16
     fwd, bwd = [], []
-    for what, B, Sq, Sk, H, KH, D, causal in grad_shapes_flash():
-        q, dout = (torch.randn(B, H, Sq, D, generator=g, device=dev).to(bf16) for _ in range(2))
-        k, v = (torch.randn(B, KH, Sk, D, generator=g, device=dev).to(bf16) for _ in range(2))
+    for what, B, Sq, Sk, H, KH, D, Dv, causal in grad_shapes_flash():
+        q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(bf16)
+        dout = torch.randn(B, H, Sq, Dv, generator=g, device=dev).to(bf16)
+        k = torch.randn(B, KH, Sk, D, generator=g, device=dev).to(bf16)
+        v = torch.randn(B, KH, Sk, Dv, generator=g, device=dev).to(bf16)
+        vf = F.pad(v, (0, D - Dv))  # the forward's v, as `_FlashFn` pads it
         scale = D ** -0.5
-        o = torch.empty_like(q)
-        lse = fa.flash_attention_forward_lse(q, k, v, o, scale, causal)
-        direct = fa.flash_attention(q, k, v, causal)
-        grads = [torch.empty_like(t) for t in (q, k, v)]
-        again = [torch.empty_like(t) for t in (q, k, v)]
+        of = torch.empty_like(q)
+        lse = fa.flash_attention_forward_lse(q, k, vf, of, scale, causal)
+        o = of[..., :Dv]
+        direct = fa.flash_attention(q, k, vf, causal)
+        grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+        again = [torch.full_like(t, float("nan")) for t in (q, k, v)]
         fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale, causal)
         fa.flash_attention_backward(q, k, v, o, dout, lse, *again, scale, causal)
         want = flash_grads_f32(q, k, v, dout, causal)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        plain_bf16 = torch.autograd.grad(fa.flash_attention_plain(*leaves, causal), leaves, dout)
+        plain_bf16 = torch.autograd.grad(fa.flash_attention_plain(
+            leaves[0], leaves[1], F.pad(leaves[2], (0, D - Dv)), causal)[..., :Dv], leaves, dout)
         torch.cuda.synchronize()
-        if not torch.equal(o, direct):
+        if not torch.equal(of, direct):
             raise AssertionError(f"flash_attention_forward_lse ({what}): output differs from "
                                  f"fa_forward's")
         lse_err = float((lse - fa.flash_attention_lse_plain(q, k, causal=causal)).abs().max())
@@ -906,29 +937,32 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
         del want, again, plain_bf16, leaves, direct
         pairs = B * H * flash_pairs(Sq, Sk, causal)
         kv_rows = min(Sq, Sk) if causal else Sk  # the K/V rows some query keeps
-        tensors_q, tensors_kv = B * H * Sq * D * 2, B * KH * kv_rows * D * 2
-        f_ms, f_by = bound_ms(2 * tensors_q + 2 * tensors_kv + B * H * Sq * 4,
-                              (4.0 * pairs * D, BF16_FLOP_S))
+        rows_q, rows_kv = B * H * Sq * 2, B * KH * kv_rows * 2  # bytes a column
+        # q and o (D and Dv), the kept K/V rows, lse; Q.K^T and P.V
+        f_ms, f_by = bound_ms((rows_q + rows_kv) * (D + Dv) + B * H * Sq * 4,
+                              (2.0 * pairs * (D + Dv), BF16_FLOP_S))
         # reads q, o, dout, the kept K/V rows and lse; writes dq, and dk, dv
-        # at all Sk rows (zeros where no query sees a key)
-        b_ms, b_by = bound_ms(4 * tensors_q + 2 * tensors_kv + 2 * B * KH * Sk * D * 2
-                              + B * H * Sq * 4, (10.0 * pairs * D, BF16_FLOP_S))
+        # at all Sk rows (zeros where no query sees a key); S^T, dK and dQ
+        # D wide, dP^T and dV Dv wide
+        b_ms, b_by = bound_ms(rows_q * (2 * D + 2 * Dv) + rows_kv * (D + Dv)
+                              + B * KH * Sk * (D + Dv) * 2 + B * H * Sq * 4,
+                              (2.0 * pairs * (3 * D + 2 * Dv), BF16_FLOP_S))
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                              enable_gqa=H != KH)
         lse_ms, fwd_ms = (time_ms(fn, iters=20) for fn in (
-            lambda: fa.flash_attention_forward_lse(q, k, v, o, scale, causal),
-            lambda: fa._launch(q, k, v, o, causal, scale)))
+            lambda: fa.flash_attention_forward_lse(q, k, vf, of, scale, causal),
+            lambda: fa._launch(q, k, vf, of, causal, scale)))
         fwd.append(dict(
-            shape=[B, Sq, Sk, H, KH, D], causal=causal, what=what, max_abs_err=lse_err,
+            shape=[B, Sq, Sk, H, KH, D, Dv], causal=causal, what=what, max_abs_err=lse_err,
             tol=1e-3, ms=lse_ms, parent_ms=None, fa_forward_ms=fwd_ms,
-            plain_ms=time_ms(lambda: (fa.flash_attention_plain(q, k, v, causal),
+            plain_ms=time_ms(lambda: (fa.flash_attention_plain(q, k, vf, causal),
                                       fa.flash_attention_lse_plain(q, k, causal=causal)),
                              iters=5, warmup=1),
             bound_ms=f_ms, bound_by=f_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=H != KH), iters=20),
-            host_ms=host_ms(lambda: fa.flash_attention_forward_lse(q, k, v, o, scale, causal),
+            host_ms=host_ms(lambda: fa.flash_attention_forward_lse(q, k, vf, of, scale, causal),
                             calls=100)))
 
         def b_call(m):
@@ -937,15 +971,16 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
             else:  # the other tree's: causal, Sq == Sk
                 m.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale)
 
-        ms, parent_ms = paired_ms(b_call, fa, parent if causal and Sq == Sk else None, iters=10)
+        older = causal and Sq == Sk and D == Dv <= 128 and H // KH <= 8  # an older tree's route
+        ms, parent_ms = paired_ms(b_call, fa, parent if older else None, iters=10)
         split = kernel_us(lambda: b_call(fa))
         launch_us = {part: sum(us for name, us in split.items() if name.startswith(prefix))
                      for part, prefix in (("delta", "fa_bwd_delta"), ("dkdv", "fa_bwd_dkdv"),
                                           ("dq", "fa_bwd_dq"))}
         bwd.append(dict(
-            shape=[B, Sq, Sk, H, KH, D], causal=causal, what=what, max_abs_err=max(gaps),
+            shape=[B, Sq, Sk, H, KH, D, Dv], causal=causal, what=what, max_abs_err=max(gaps),
             tol=GRAD_TOL, ms=ms, parent_ms=parent_ms, launch_us=launch_us,
-            tflops=10.0 * pairs * D / (ms * 1e-3) / 1e12,
+            tflops=2.0 * pairs * (3 * D + 2 * Dv) / (ms * 1e-3) / 1e12,
             plain_ms=time_ms(lambda: fa.flash_attention_backward_plain(
                 q, k, v, o, dout, lse, causal=causal), iters=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by,
@@ -953,15 +988,16 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
                                                            retain_graph=True), iters=10),
             host_ms=host_ms(lambda: b_call(fa), calls=20)))
         mask = "causal" if causal else "non-causal"
-        log(f"[kernels] flash_attention_forward_lse at the {what} shape (B, Sq, Sk, H/KH, D) = "
-            f"({B}, {Sq}, {Sk}, {H}/{KH}, {D}) {mask} bf16: {lse_ms * 1e3:.3f} us against "
+        log(f"[kernels] flash_attention_forward_lse at the {what} shape (B, Sq, Sk, H/KH, D, "
+            f"Dv) = ({B}, {Sq}, {Sk}, {H}/{KH}, {D}, {Dv}) {mask} bf16: {lse_ms * 1e3:.3f} us "
+            f"against "
             f"fa_forward's {fwd_ms * 1e3:.3f} us at the same inputs, bound {f_ms * 1e3:.3f} us "
             f"({f_by}), SDPA {fwd[-1]['library_ms'] * 1e3:.3f} us; output bit-equal to "
             f"fa_forward's, lse within {lse_err:.3g} of the plain one")
-        at_once = fa._clusters_at_once(H // KH, D, dev.index)
+        at_once = fa._clusters_at_once(H // KH, D, dev.index, Dv)
         plan = fa.backward_plan(B, H, KH, Sq, Sk, D, torch.cuda.get_device_properties(
             dev).multi_processor_count, at_once, causal)
-        heads = fa.backward_heads(B, H, KH, Sq, Sk, D, causal)
+        heads = fa.backward_heads(B, H, KH, Sq, Sk, D, causal, Dv)
         if heads != plan.heads:
             raise AssertionError(f"flash_attention_backward ({what}): the launch walks "
                                  f"{heads} heads a block, its plan {plan.heads}")
@@ -979,7 +1015,8 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
             f"plain backward's max |value| (tol {GRAD_TOL}; autograd of the plain forward in "
             f"bf16: {plain_gaps[0]:.3g}, {plain_gaps[1]:.3g}, {plain_gaps[2]:.3g}); bit-equal "
             f"run to run and in a graph's replay")
-        del q, k, v, o, dout, lse, grads, ql, kl, vl, out
+        del q, k, v, vf, of, o, dout, lse, grads, ql, kl, vl, out
+        torch.cuda.empty_cache()
     return (dict(fwd[0], max_abs_err=max(r["max_abs_err"] for r in fwd), shapes=fwd),
             dict(bwd[0], max_abs_err=max(r["max_abs_err"] for r in bwd), shapes=bwd))
 
@@ -2706,10 +2743,10 @@ def f32_witness(cfg, params32, batch, n0: int, fed, what: str = "", model32=None
 def model_for(arch: str, n_layers: int | None = None, dtype=None):
     """(config, model) of `arch` at full width: at its full depth, or at its
     first `n_layers` layers (deepseek-v3's dense ones first, then as many
-    MoE layers as the cut leaves; the enc-dec's first `n_layers` encoder
-    and first `n_layers` decoder layers), whose templates keep the full
-    model's per-layer init formulas (the stacked fan-in of all its layers);
-    in `dtype` where given."""
+    MoE layers as the cut leaves, none for a cut within its dense layers;
+    the enc-dec's first `n_layers` encoder and first `n_layers` decoder
+    layers), whose templates keep the full model's per-layer init formulas
+    (the stacked fan-in of all its layers); in `dtype` where given."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2740,7 +2777,9 @@ def model_for(arch: str, n_layers: int | None = None, dtype=None):
     elif n_layers > cfg.dense_layers:
         defs["moe_layers"] = defs["moe_layers"][:n_layers - cfg.dense_layers]
     else:
-        raise ValueError(f"{arch}: a cut to {n_layers} layers keeps no MoE layer")
+        cut = dataclasses.replace(cut, dense_layers=n_layers)
+        defs["dense_layers"] = defs["dense_layers"][:n_layers]
+        defs["moe_layers"] = []
     return cut, Model(cfg=cut, defs=defs, mod=model.mod)
 
 
@@ -3529,8 +3568,10 @@ def phase_grad_parity(dev, arch: str, n_layers: int) -> None:
     Mamba2 blocks and the shared attention; xlstm-1.3b's first period, 7
     mLSTM blocks on the scan's wide path and 1 sLSTM; seamless-m4t-large-v2's
     first 2 encoder and 2 decoder layers, its non-causal encoder and
-    cross-attention through the flash backward), a micro-batch of 4 x 1024
-    tokens (the enc-dec's: 4 x 1024 frames and 4 x 256 tokens): one
+    cross-attention through the flash backward; deepseek-v3-671b's first
+    layer, a dense one, and its MTP module's dense layer, MLA's attention
+    through the flash backward at q and k 192, v 128), a micro-batch of 4
+    x 1024 tokens (the enc-dec's: 4 x 1024 frames and 4 x 256 tokens): one
     `Model.loss` and its gradients through `KERNELS` (the
     kernels' autograd routes), through `PLAIN` (autograd through the plain
     math) and through the plain math in f32, on the same parameters and
@@ -3549,7 +3590,10 @@ def phase_grad_parity(dev, arch: str, n_layers: int) -> None:
     about 7, the attention scores saturate, and the attention leaves'
     bf16 gradients are rounding noise in either route (the plain math's
     own bf16 gradients then stray from its f32 ones by more than their
-    scale, on the CPU at two layers)."""
+    scale, on the CPU at two layers).  Logged: the parameters, what the
+    three routes' parameters and gradients take (bf16 twice and the f32
+    copy's leaves and gradients, before activations), and the peak device
+    memory allocated over the run."""
     import copy
     import dataclasses
     import gc
@@ -3561,9 +3605,11 @@ def phase_grad_parity(dev, arch: str, n_layers: int) -> None:
     from repro_torch.testing.parity import condition_fan_in, grad_gap, tol
     from repro_torch.training.tree import leaves
 
+    torch.cuda.reset_peak_memory_stats()
     cfg, model = model_for(arch, n_layers)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED + 2))
     condition_fan_in(params, model.defs)
+    n_params = sum(p.numel() for p in leaves(params))
     pipe = train_pipe(cfg, TRAIN_BATCH // TRAIN_ACCUM, SEED + 2)
     batch = train_batch(cfg, pipe, 0, dev)
     names = [n for n, _ in sorted(params.named_parameters())]
@@ -3598,7 +3644,11 @@ def phase_grad_parity(dev, arch: str, n_layers: int) -> None:
              f"decoder layers, a micro-batch of {pipe.global_batch} x {TRAIN_SEQ} frames and "
              f"{pipe.global_batch} x {pipe.seq_len} tokens" if cfg.family == "audio" else
              f"{n_layers} of {full.n_layers} layers, a micro-batch of {pipe.global_batch} x "
-             f"{TRAIN_SEQ}")
+             f"{TRAIN_SEQ}") + (" (and the MTP module's layer)" if "mtp" in model.defs else "")
+    log(f"[train] gradient parity, {arch}: {n_params / 1e9:.3f} B parameters ("
+        f"{n_params * 2 / 1e9:.2f} GB in bf16, {n_params * 4 / 1e9:.2f} GB in f32; the three "
+        f"routes' parameters and gradients {n_params * (2 * 3 + 4 * 2) / 1e9:.1f} GB before "
+        f"activations); peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[train] gradient parity, {arch} at full width, {depth}: loss {lk:.6f} through the "
         f"kernels, {lp:.6f} through the plain math (gap "
         f"{abs(lk - lp):.3g}), {l32:.6f} in f32; the kernels' against f32 over the plain math's "
@@ -3721,22 +3771,34 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     parent = load_parent(Path(args.parent).resolve()) if args.parent else None
+
+    def elapsed(phase: str) -> None:
+        log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     phase_build(parent)
+    elapsed("1 (build)")
     smi = gpu_line()
     log(f"[env] nvidia-smi: {smi}")
     kern = phase_kernels(dev, parent)
+    elapsed("2 (kernels)")
     cfg, session, launches = phase_serve(dev)
     phase_parity(cfg, session.dataplane.dispatcher.executors, dev)
+    elapsed("3-4 (serve, parity)")
     serving = [session]  # phase_decode releases it after the run that reuses its parameters
     del session
     decode = phase_decode(serving, dev, parent)
+    elapsed("5 (decode)")
     train = phase_train(dev)
+    elapsed("6a (train)")
     for arch, n_layers in GRAD_PARITY_RUNS:
         phase_grad_parity(dev, arch, n_layers)
+        elapsed(f"6b ({arch})")
     phase_elastic(dev)
+    elapsed("6c (elastic)")
     for arch in (HYBRID_TRAIN_ARCH, ENCDEC_TRAIN_ARCH):  # 6d, 6e
         more = phase_train(dev, arch)
         train = {name: train.get(name, 0) + more.get(name, 0) for name in {*train, *more}}
+        elapsed(f"6d-6e ({arch})")
     launches = {name: {"serve": launches.get(name, 0), "decode": decode.get(name, 0),
                        "train": train.get(name, 0)} for name in KERNEL_NAMES}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "wgmma.cuh"
 
 namespace {
@@ -923,11 +925,29 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
 //                                              (`fa_bwd_dkdv_kernel`)
 //   dQ = scale dS K                            (`fa_bwd_dq_kernel`)
 // Bound: operations, five products a head over the (query, key) pairs the
-// mask keeps, D wide (S^T, dP^T, dV, dK, and dQ; the dQ kernel computes S
-// and dP again, seven products in all), against the inputs' bytes.
+// mask keeps (S^T and dK D wide, dP^T and dV Dv wide, and dQ D wide; the
+// dQ kernel computes S and dP again, seven products in all), against the
+// inputs' bytes.
+//
+// Widths.  q, k, dq and dk are D wide, v, o, dout and dv Dv <= D wide
+// (MLA: D 192 = 128 + 64 of rope, Dv 128).  The instances (DP, DVP), each
+// rounded as the forward rounds head_dim, are (DP, DP) for every DP the
+// forward takes (16 to 128 by 16, and 192) and (192, 128); the wrapper pads
+// v, o and dout with zero columns to one of them (`ops.grad_v_width`), exact
+// since dv is sliced back.  A consumer holds at most 128 columns of an
+// accumulator in registers (`kRegCols`); at 192 the third panel's 64
+// columns (dK's rope columns, dV's at DVP 192, dQ's) are a 64 x 64 f32
+// accumulator in shared memory, one a warpgroup: a step loads the thread's
+// 32 values of it, adds its product there with the same A fragments
+// (m64n64k16 `wgmma`s on B's third panel, in the same commit group as the
+// register columns' product) and stores them back.  A thread so holds at
+// 192 what it holds at 128: 64 accumulator registers beside a 64 x 64
+// product and the bf16 fragments.  Each element of that accumulator is
+// read and written by one thread only, in a fixed order: deterministic.
 //
 // Design (the forward's: TMA into a ring, `wgmma`, warp-specialised):
-//  - Delta stays its own launch, sixteen lanes a row, which also writes each
+//  - Delta stays its own launch, sixteen lanes a row (8 columns a lane, a
+//    second pass past 128), which also writes each
 //    row's lse in base 2; both go to an f32 scratch of (B, H, Sp) rows each,
 //    Sp = Sq rounded up to 64 (zeros past Sq), so a query tile's 64 values
 //    of each are one 256-byte bulk copy;
@@ -935,8 +955,9 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
 //    one KV head, walked in turn.  One producer warp loads the tile's K and
 //    V once and streams, head by head, the query tiles its keys meet (all
 //    of Sq; under the causal mask those from the tile's first key on)
-//    through a three-stage ring: Q, dO, and the tile's lse and Delta
-//    beside them.  Consumer warpgroup 0
+//    through a ring of three stages (two at D = Dv = 192, where three take
+//    more shared memory than a block has): Q, dO, and the tile's lse and
+//    Delta beside them.  Consumer warpgroup 0
 //    runs S^T = K Q^T as an SS `wgmma` (K as A, Q K-major as B), turns it
 //    into P^T = exp2(S^T scale log2e - lse) in registers, hands P^T in f32
 //    to warpgroup 1 through the stage's slot in shared memory (an mbarrier
@@ -944,16 +965,20 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
 //    whose B is the swizzled dO tile read MN-major (as the forward reads
 //    V).  Warpgroup 1 runs dP^T = V dO^T (SS) meanwhile, then
 //    dS^T = P^T (dP^T - Delta) and dK += dS^T Q (RS, Q read MN-major).
-//    Each consumer holds one 64 x D f32 accumulator (64 registers a thread
-//    at D = 128) beside its 64 x 64 product (32): within the 168 registers
-//    a thread of a 288-thread block may have.  (A block's nine warps share
-//    the SM's four register partitions of 16,384, three to one: 3 x 32 x
-//    168 fits, 224 does not.  A first design kept dK and dV of 64 keys in
-//    one warpgroup, 128 + 64 registers, with a producer warpgroup and
-//    `setmaxnreg` 24/240; `ptxas` 12.9 held it at 168, spilled and
-//    serialised its `wgmma`s (C7512).)  No product is computed twice;
-//  - the C = G / hpb blocks of a KV head are one thread block cluster
-//    (G <= 8, the portable size).  Each block's partial dK and dV go, in
+//    Each consumer holds one 64 x min(D, 128) f32 accumulator (64
+//    registers a thread at D = 128) beside its 64 x 64 product (32): within
+//    the 168 registers a thread of a 288-thread block may have.  (A block's
+//    nine warps share the SM's four register partitions of 16,384, three to
+//    one: 3 x 32 x 168 fits, 224 does not.  A first design kept dK and dV of
+//    64 keys in one warpgroup, 128 + 64 registers, with a producer
+//    warpgroup and `setmaxnreg` 24/240; `ptxas` 12.9 held it at 168, spilled
+//    and serialised its `wgmma`s (C7512).  A third consumer warpgroup would
+//    put four warps on a partition: 128 registers a thread.)  No product
+//    is computed twice;
+//  - the C blocks of a KV head are one thread block cluster, C a divisor of
+//    the G query heads a KV head with C <= 8 (the portable size), each block
+//    walking hpb = G / C heads; a prime G past 8 takes C = 1, one block
+//    walking all G heads.  Each block's partial dK and dV go, in
 //    f32, to its own shared memory over the finished tiles; the cluster
 //    synchronises, and the block of rank r sums rows [r R, r R + R),
 //    R = ceil(64 / C), of every rank's partials through distributed shared
@@ -992,11 +1017,23 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
 // 10.894, dK/dV 70.218, dQ 57.451 us; a head a block in clusters of six:
 // dK/dV 117.765 us); 73.883 us at (2, 1024, 8/8, 128) against 157.982,
 // 62.035 and 10.867 us.
+// At deepseek-v3's MLA training shape (4, 1024, 128/128, 192), v 128,
+// causal: 2385.645 us against the 452.086 us bound and SDPA's backward
+// 1661.203 us (Delta 97.185, dK/dV 1547.619, dQ 733.576 us): the 8,192
+// one-head dK/dV blocks each load K and V and reduce their partials for
+// 8.5 steps on average.  `ptxas -v` (the H100 machine's toolkit): dK/dV
+// 156 registers at (128, 128), 160 at (192, 192), 168 at (192, 128) with 4
+// bytes spilled; dQ 168 at each of the three, no spill.
 
-constexpr int kBwdMaxD = 128;
+constexpr int kBwdMaxD = kMaxD;
 constexpr int kBwdKeys = kRows;  // keys a dK/dV block
-constexpr int kBwdStages = 3;    // the dK/dV kernel's ring: Q, dO, P^T, lse, Delta
-constexpr int kMaxGroup = 8;     // query heads a KV head: a portable cluster
+constexpr int kMaxGroup = 8;     // dK/dV blocks a cluster: the portable size
+constexpr int kRegCols = 128;    // accumulator columns a consumer keeps in registers
+constexpr int kMaxSmem = 232448; // dynamic shared memory a block may have
+
+constexpr int panels(int dp) { return (dp + kPanelCols - 1) / kPanelCols; }
+// head_dim as the kernels take it: a multiple of 16 up to 128, else 192
+constexpr int padded_dim(int d) { return d <= 128 ? (d + 15) / 16 * 16 : kMaxD; }
 
 struct BwdArgs {
   const bf16 *o, *dout;
@@ -1005,6 +1042,7 @@ struct BwdArgs {
   float* scratch;    // Delta, then lse in base 2: each (B, H, Sp)
   Strides so, sdo, sdq, sdk, sdv;
   int B, H, KH, Sq, Sk, Sp, D;  // Sp: Sq rounded up to kRows
+  int Dv;                       // v, o, dout and dv: Dv <= D columns
   int causal;                   // top-left: query row i sees keys 0..i
   int hpb;  // query heads a dK/dV block, walked in turn (G / hpb blocks a cluster)
   float scale;
@@ -1054,7 +1092,8 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 
 // Delta[(b H + h) Sp + s] = sum_d dO O and, B H Sp values further on, lse
 // in base 2; rows s in [Sq, Sp) get zeros.  Sixteen lanes a row, two rows a
-// warp: one 16-byte load of each of O and dO a lane covers D <= 128.
+// warp: one 16-byte load of each of O and dO a lane covers Dv <= 128, a
+// second pass the columns past it.
 constexpr int kDeltaLanes = 16;
 
 __global__ void __launch_bounds__(256) fa_bwd_delta_kernel(const BwdArgs a) {
@@ -1065,16 +1104,18 @@ __global__ void __launch_bounds__(256) fa_bwd_delta_kernel(const BwdArgs a) {
   const int s = row_ok ? static_cast<int>(idx % a.Sp) : a.Sq;
   const int64_t bh = idx / a.Sp;
   float acc = 0.0f;
-  if (s < a.Sq && col < a.D) {
+  if (s < a.Sq) {
     const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
-    const uint4 ov = *reinterpret_cast<const uint4*>(a.o + b * a.so.b + h * a.so.h +
-                                                     s * a.so.s + col);
-    const uint4 gv = *reinterpret_cast<const uint4*>(a.dout + b * a.sdo.b + h * a.sdo.h +
-                                                     s * a.sdo.s + col);
-    const bf16* op = reinterpret_cast<const bf16*>(&ov);
-    const bf16* gp = reinterpret_cast<const bf16*>(&gv);
+    const bf16* orow = a.o + b * a.so.b + h * a.so.h + s * a.so.s;
+    const bf16* grow = a.dout + b * a.sdo.b + h * a.sdo.h + s * a.sdo.s;
+    for (int c0 = col; c0 < a.Dv; c0 += kDeltaLanes * 8) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c0);
+      const uint4 gv = *reinterpret_cast<const uint4*>(grow + c0);
+      const bf16* op = reinterpret_cast<const bf16*>(&ov);
+      const bf16* gp = reinterpret_cast<const bf16*>(&gv);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc += __bfloat162float(op[e]) * __bfloat162float(gp[e]);
+      for (int e = 0; e < 8; ++e) acc += __bfloat162float(op[e]) * __bfloat162float(gp[e]);
+    }
   }
 #pragma unroll
   for (int off = kDeltaLanes / 2; off > 0; off >>= 1)
@@ -1085,43 +1126,82 @@ __global__ void __launch_bounds__(256) fa_bwd_delta_kernel(const BwdArgs a) {
   }
 }
 
-template <int DP>
+// The 64 x 64 f32 accumulator of a warpgroup's columns past kRegCols, in
+// shared memory: thread t's 32 values (the m64n64 accumulator fragment) as
+// float4 m at index m * 128 + t
+constexpr int kRopeBytes = kRows * kRows * 4;
+
+__device__ __forceinline__ void rope_zero(float4* slot) {
+#pragma unroll
+  for (int m = 0; m < 8; ++m) slot[m * 128] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+__device__ __forceinline__ void rope_load(float (&r)[32], const float4* slot) {
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const float4 v = slot[m * 128];
+    r[4 * m] = v.x;
+    r[4 * m + 1] = v.y;
+    r[4 * m + 2] = v.z;
+    r[4 * m + 3] = v.w;
+  }
+}
+__device__ __forceinline__ void rope_store(const float (&r)[32], float4* slot) {
+#pragma unroll
+  for (int m = 0; m < 8; ++m) slot[m * 128] = make_float4(r[4 * m], r[4 * m + 1], r[4 * m + 2], r[4 * m + 3]);
+}
+
+// the dK/dV kernel's shared memory at (DP, DVP): K and V of the block, then
+// a ring of Q, dO, P^T (f32), lse and Delta, three stages where they fit
+// (two at DP = DVP = 192), then the shared accumulators of dV's and dK's
+// columns past kRegCols
+template <int DP, int DVP>
 struct BwdSmem {
-  static constexpr int kPanels = (DP + kPanelCols - 1) / kPanelCols;
-  static constexpr int kTile = kPanels * kPanelBytes;           // 64 rows, every panel
-  static constexpr int kK = 0;                                  // the block's K tile
-  static constexpr int kV = kK + kTile;                         // and V tile
-  static constexpr int kQ = kV + kTile;                         // the Q ring
-  static constexpr int kdO = kQ + kBwdStages * kTile;           // the dO ring
-  static constexpr int kP = kdO + kBwdStages * kTile;           // P^T, f32, a stage each
+  static constexpr int kPanels = panels(DP), kVPanels = panels(DVP);
+  static constexpr int kTile = kPanels * kPanelBytes;    // 64 rows of Q or K, every panel
+  static constexpr int kVTile = kVPanels * kPanelBytes;  // of V or dO
   static constexpr int kPBytes = kRows * kRows * 4;
-  static constexpr int kLse = kP + kBwdStages * kPBytes;        // each stage's 64 base-2 lse
-  static constexpr int kDelta = kLse + kBwdStages * kRows * 4;  // and 64 Delta
-  static constexpr int kBars = kDelta + kBwdStages * kRows * 4; // kv_full, full[], empty[], p_full[]
-  static constexpr int kBytes = kBars + 8 * (1 + 3 * kBwdStages) + 1024;  // + alignment slack
+  static constexpr int kRopes = (DVP > kRegCols) + (DP > kRegCols);
+  static constexpr int kStageBytes = kTile + kVTile + kPBytes + 2 * kRows * 4;
+  static constexpr int kFixed = kTile + kVTile + kRopes * kRopeBytes + 1024;
+  static constexpr int kStages = kFixed + 3 * kStageBytes + 8 * 10 <= kMaxSmem ? 3 : 2;
+  static constexpr int kK = 0;                                // the block's K tile
+  static constexpr int kV = kK + kTile;                       // and V tile
+  static constexpr int kQ = kV + kVTile;                      // the Q ring
+  static constexpr int kdO = kQ + kStages * kTile;            // the dO ring
+  static constexpr int kP = kdO + kStages * kVTile;           // P^T, f32, a stage each
+  static constexpr int kLse = kP + kStages * kPBytes;         // each stage's 64 base-2 lse
+  static constexpr int kDelta = kLse + kStages * kRows * 4;   // and 64 Delta
+  static constexpr int kRopeV = kDelta + kStages * kRows * 4; // dV's columns past kRegCols
+  static constexpr int kRopeK = kRopeV + (DVP > kRegCols) * kRopeBytes;  // dK's
+  static constexpr int kBars = kRopeK + (DP > kRegCols) * kRopeBytes;  // kv_full, full[], empty[], p_full[]
+  static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
   // after the loop: the f32 partial dV, then dK, of the block's 64 keys,
   // rows padded to DP + 8 floats (a half-warp's 8-byte stores and 16-byte
-  // loads fall in distinct banks), over the tiles
+  // loads fall in distinct banks), over the tiles (not the accumulators
+  // past kRegCols, which the partials are copied from)
   static constexpr int kPartRow = DP + 8;
-  static_assert(2 * kBwdKeys * kPartRow * 4 <= kBars, "the partials overlay the tiles only");
-  static_assert(kBytes <= 232448, "more shared memory than a block may have");
+  static_assert(2 * kBwdKeys * kPartRow * 4 <= kRopeV, "the partials overlay the tiles only");
+  static_assert(kBytes <= kMaxSmem, "more shared memory than a block may have");
 };
 
-template <int DP>
+template <int DP, int DVP>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
-  using L = BwdSmem<DP>;
-  constexpr int KSTEPS = DP / 16;
+  using L = BwdSmem<DP, DVP>;
+  constexpr int KSTEPS = DP / 16, VSTEPS = DVP / 16;
+  constexpr int kStages = L::kStages;
+  constexpr int AW = DP < kRegCols ? DP : kRegCols;  // register columns of dV and of dK
+  static_assert((DVP < kRegCols ? DVP : kRegCols) == AW, "dV and dK keep as many in registers");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));  // generic pointer to base
   const uint32_t bar_kv = base + L::kBars;
-  const uint32_t bar_full = bar_kv + 8;                    // + 8 * stage
-  const uint32_t bar_empty = bar_full + 8 * kBwdStages;    // + 8 * stage
-  const uint32_t bar_p = bar_empty + 8 * kBwdStages;       // + 8 * stage
+  const uint32_t bar_full = bar_kv + 8;                 // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;    // + 8 * stage
+  const uint32_t bar_p = bar_empty + 8 * kStages;       // + 8 * stage
   const int b = blockIdx.y, k0 = blockIdx.z * kBwdKeys;
   const int G = a.H / a.KH, C = G / a.hpb;  // blocks a cluster: rank blockIdx.x % C
   const int kh = blockIdx.x / C, h0 = kh * G + (blockIdx.x % C) * a.hpb;  // the first head
@@ -1135,7 +1215,7 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, kConsumers * 4);  // every consumer warp arrives
       mbar_init(bar_p + 8 * s, 4);                   // the P^T warpgroup's warps
@@ -1146,26 +1226,31 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (warp == kConsumers * 4) {
     // ------------------------------------------------------------ producer
+    constexpr int kMostPanels = L::kPanels > L::kVPanels ? L::kPanels : L::kVPanels;
     if (lane == 0) {
-      mbar_expect_tx(bar_kv, 2 * L::kTile);
-      for (int p = 0; p < L::kPanels; ++p) {
-        tma_load(base + L::kK + p * kPanelBytes, &tm_k, p * kPanelCols, kh, k0, b, bar_kv);
-        tma_load(base + L::kV + p * kPanelBytes, &tm_v, p * kPanelCols, kh, k0, b, bar_kv);
+      mbar_expect_tx(bar_kv, L::kTile + L::kVTile);
+      for (int p = 0; p < kMostPanels; ++p) {
+        if (p < L::kPanels)
+          tma_load(base + L::kK + p * kPanelBytes, &tm_k, p * kPanelCols, kh, k0, b, bar_kv);
+        if (p < L::kVPanels)
+          tma_load(base + L::kV + p * kPanelBytes, &tm_v, p * kPanelCols, kh, k0, b, bar_kv);
       }
       const int64_t lse_off = static_cast<int64_t>(a.B) * a.H * a.Sp;  // the lse plane
       for (int step = 0; step < n_it; ++step) {
-        const int s = step % kBwdStages, h = h0 + step / n_q;
+        const int s = step % kStages, h = h0 + step / n_q;
         const int q0 = q_first + (step % n_q) * kRows;
-        if (step >= kBwdStages) mbar_wait(bar_empty + 8 * s, (step / kBwdStages - 1) & 1);
+        if (step >= kStages) mbar_wait(bar_empty + 8 * s, (step / kStages - 1) & 1);
         const float* delta = a.scratch + (static_cast<int64_t>(b) * a.H + h) * a.Sp;
         const float* lse2 = delta + lse_off;
         const uint32_t full = bar_full + 8 * s;
-        mbar_expect_tx(full, 2 * L::kTile + 2 * kRows * 4);
-        for (int p = 0; p < L::kPanels; ++p) {
-          tma_load(base + L::kQ + s * L::kTile + p * kPanelBytes, &tm_q, p * kPanelCols, h, q0,
-                   b, full);
-          tma_load(base + L::kdO + s * L::kTile + p * kPanelBytes, &tm_do, p * kPanelCols, h,
-                   q0, b, full);
+        mbar_expect_tx(full, L::kTile + L::kVTile + 2 * kRows * 4);
+        for (int p = 0; p < kMostPanels; ++p) {
+          if (p < L::kPanels)
+            tma_load(base + L::kQ + s * L::kTile + p * kPanelBytes, &tm_q, p * kPanelCols, h,
+                     q0, b, full);
+          if (p < L::kVPanels)
+            tma_load(base + L::kdO + s * L::kVTile + p * kPanelBytes, &tm_do, p * kPanelCols, h,
+                     q0, b, full);
         }
         bulk_load(base + L::kLse + s * kRows * 4, lse2 + q0, kRows * 4, full);
         bulk_load(base + L::kDelta + s * kRows * 4, delta + q0, kRows * 4, full);
@@ -1180,7 +1265,7 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   // Warpgroup 0 takes P^T and dV, warpgroup 1 dP^T, dS^T and dK.  A thread
   // of either holds the same accumulator elements: 4 j + 2 r + e is key row
   // a (r = 0) or b, query column 8 j + 2 tq + e of the tile; query columns
-  // 16 kk.. are the A fragment of k-step kk of the RS products.
+  // 16 kk.. are the A fragments of k-step kk of the RS products.
   const int c = warp / 4, wi = warp % 4, tq = lane % 4, tid = threadIdx.x % 128;
   const int key_a = k0 + wi * 16 + lane / 4, key_b = key_a + 8;
   // the first query each of this thread's key rows keeps: the key itself
@@ -1191,16 +1276,20 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int lo_b = key_b >= a.Sk ? kNoQuery : a.causal ? key_b : 0;
   const bool key_tail = k0 + kBwdKeys > a.Sk;
   const float sl2 = a.scale * kLog2e;
-  float acc[DP / 2];  // dV (warpgroup 0) or dK (1) of the block's 64 keys
+  // this warpgroup's accumulator past kRegCols (dV's at DVP 192, dK's at DP 192)
+  const bool rope = c == 0 ? DVP > kRegCols : DP > kRegCols;
+  float4* rope_slot = reinterpret_cast<float4*>(gbase + (c == 0 ? L::kRopeV : L::kRopeK)) + tid;
+  if (rope) rope_zero(rope_slot);
+  float acc[AW / 2];  // dV (warpgroup 0) or dK (1) of the block's 64 keys, columns < kRegCols
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < AW / 2; ++i) acc[i] = 0.0f;
 
   mbar_wait(bar_kv, 0);
   for (int step = 0; step < n_it; ++step) {
-    const int s = step % kBwdStages, t = step % n_q;  // t: the query tile of this head
-    mbar_wait(bar_full + 8 * s, (step / kBwdStages) & 1);
+    const int s = step % kStages, t = step % n_q;  // t: the query tile of this head
+    mbar_wait(bar_full + 8 * s, (step / kStages) & 1);
     const uint32_t q_tile = base + L::kQ + s * L::kTile;
-    const uint32_t do_tile = base + L::kdO + s * L::kTile;
+    const uint32_t do_tile = base + L::kdO + s * L::kVTile;
     // this thread's P^T values of the stage, 16 bytes a step of 128 threads
     float4* p_slot = reinterpret_cast<float4*>(gbase + L::kP + s * L::kPBytes) + tid;
     uint32_t af[4][4];  // the A fragments: P^T (warpgroup 0) or dS^T (1), bf16
@@ -1252,13 +1341,13 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int i = 0; i < 4; ++i) af[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
     } else {
-      // dP^T = V dO^T, then dS^T = P^T (dP^T - Delta) with warpgroup 0's P^T
+      // dP^T = V dO^T (Dv wide), then dS^T = P^T (dP^T - Delta) with warpgroup 0's P^T
       float dpt[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) dpt[i] = 0.0f;
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < KSTEPS; ++j) {
+      for (int j = 0; j < VSTEPS; ++j) {
         const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
         Wgmma<64>::ss(dpt, sw128_desc(base + L::kV + off, 16, 1024),
                       sw128_desc(do_tile + off, 16, 1024), j > 0);
@@ -1267,7 +1356,7 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait_all();
       fence_regs(dpt);
       const float* sd = reinterpret_cast<const float*>(gbase + L::kDelta) + s * kRows;
-      mbar_wait(bar_p + 8 * s, (step / kBwdStages) & 1);
+      mbar_wait(bar_p + 8 * s, (step / kStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         // P^T's columns 16 kk..: elements 8 kk .. 8 kk + 7
@@ -1286,16 +1375,34 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
     // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1): B is the tile's rows
-    // 16 kk.. read MN-major
+    // 16 kk.. read MN-major, its first kRegCols columns into the registers
+    // and its third panel, if any, into the shared accumulator
     const uint32_t b_tile = c == 0 ? do_tile : q_tile;
+    float r[32];
     fence_regs(acc);
+    if (rope) {
+      rope_load(r, rope_slot);
+      fence_regs(r);
+    }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      Wgmma<DP>::rs(acc, af[kk], sw128_desc(b_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+      Wgmma<AW>::rs(acc, af[kk], sw128_desc(b_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+    if constexpr (L::kRopes > 0) {
+      if (rope) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<64>::rs(r, af[kk], sw128_desc(b_tile + 2 * kPanelBytes + kk * 16 * 128,
+                                              kPanelBytes, 1024), 1);
+      }
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
+    if (rope) {
+      fence_regs(r);
+      rope_store(r, rope_slot);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(bar_empty + 8 * s);
   }
@@ -1305,24 +1412,35 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   float* part = reinterpret_cast<float*>(gbase);  // dV rows 0..63, then dK rows
   const int ra = c * kRows + wi * 16 + lane / 4, rb = ra + 8;
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
+  for (int j = 0; j < AW / 8; ++j) {
     const int col = 8 * j + 2 * tq;
     *reinterpret_cast<float2*>(part + ra * L::kPartRow + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
     *reinterpret_cast<float2*>(part + rb * L::kPartRow + col) =
         make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
+  if (rope) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = kRegCols + 8 * j + 2 * tq;
+      const float4 v = rope_slot[j * 128];
+      *reinterpret_cast<float2*>(part + ra * L::kPartRow + col) = make_float2(v.x, v.y);
+      *reinterpret_cast<float2*>(part + rb * L::kPartRow + col) = make_float2(v.z, v.w);
+    }
+  }
   cluster_sync();  // every block's partials are written
 
-  // rank r sums rows [r R, r R + R) over ranks 0..C-1, in that order
+  // rank r sums rows [r R, r R + R) over ranks 0..C-1, in that order: dV's
+  // DVP / 4 four-column chunks a row, then dK's DP / 4
   const int rank = static_cast<int>(cluster_rank());
   const int R = (kBwdKeys + C - 1) / C;
   const int r_lo = rank * R, n_rows = max(0, min(kBwdKeys, r_lo + R) - r_lo);
-  constexpr int CH = DP / 4;  // four-column chunks a row
-  for (int idx = threadIdx.x; idx < 2 * n_rows * CH; idx += kConsumers * 128) {
-    const int which = idx / (n_rows * CH);  // 0: dV, 1: dK
-    const int rem = idx - which * n_rows * CH;
-    const int row = r_lo + rem / CH, col = (rem % CH) * 4, key = k0 + row;
-    if (key >= a.Sk || col >= a.D) continue;
+  constexpr int CHV = DVP / 4, CHK = DP / 4;
+  const int n_v = n_rows * CHV;
+  for (int idx = threadIdx.x; idx < n_v + n_rows * CHK; idx += kConsumers * 128) {
+    const int which = idx >= n_v;  // 0: dV, 1: dK
+    const int rem = which ? idx - n_v : idx, ch = which ? CHK : CHV;
+    const int row = r_lo + rem / ch, col = (rem % ch) * 4, key = k0 + row;
+    if (key >= a.Sk || col >= (which ? a.D : a.Dv)) continue;
     const uint32_t off = base + ((which * kBwdKeys + row) * L::kPartRow + col) * 4;
     float4 v[kMaxGroup];
 #pragma unroll
@@ -1346,20 +1464,40 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   cluster_sync();  // no block leaves while another reads its partials
 }
 
+// the dQ kernel's shared memory at (DP, DVP): `Smem`'s layout with each
+// consumer's output staging tile holding its dO tile (DVP wide) and the
+// V tiles DVP wide, then each consumer's accumulator of dQ's columns past
+// kRegCols
+template <int DP, int DVP>
+struct DqSmem {
+  static constexpr int kStages = Smem<DP>::kStages;
+  static constexpr int kPanels = panels(DP), kVPanels = panels(DVP);
+  static constexpr int kTile = kPanels * kPanelBytes, kVTile = kVPanels * kPanelBytes;
+  static constexpr int kQ = 0;                          // a Q tile per consumer
+  static constexpr int kdO = kQ + kConsumers * kTile;   // a dO tile per consumer
+  static constexpr int kK = kdO + kConsumers * kVTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kRope = kV + kStages * kVTile;   // a consumer's columns past kRegCols each
+  static constexpr int kBars = kRope + (DP > kRegCols ? kConsumers * kRopeBytes : 0);
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;  // + alignment slack
+  static_assert(kBytes <= kMaxSmem, "more shared memory than a block may have");
+};
+
 // dQ: the forward's persistent walk (`item_at` at Sq, Sk and the mask),
-// with a dO tile beside each consumer's Q tile (`Smem`'s output staging
-// tiles hold dO here) and the K/V ring as there
-template <int DP>
+// with a dO tile beside each consumer's Q tile and the K/V ring as there
+template <int DP, int DVP>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
-  using L = Smem<DP>;
-  constexpr int KSTEPS = DP / 16;
+  using L = DqSmem<DP, DVP>;
+  constexpr int KSTEPS = DP / 16, VSTEPS = DVP / 16;
   constexpr int kStages = L::kStages;
+  constexpr int AW = DP < kRegCols ? DP : kRegCols;  // dQ's register columns
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));  // generic pointer to base
   const uint32_t bar_q_full = base + L::kBars;
   const uint32_t bar_q_empty = bar_q_full + 8;
   const uint32_t bar_full = bar_q_empty + 8;          // + 8 * stage
@@ -1381,30 +1519,35 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (warp == kConsumers * 4) {
     // ------------------------------------------------------------ producer
+    constexpr int kMostPanels = L::kPanels > L::kVPanels ? L::kPanels : L::kVPanels;
     if (lane != 0) return;
     int tile = 0;
     for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
       const Item it = item_at(w, H, B, Sq, Sk, causal);
       const int kh = it.h / (H / a.KH);
       if (n > 0) mbar_wait(bar_q_empty, (n - 1) & 1);
-      mbar_expect_tx(bar_q_full, 2 * it.n_active * L::kTile);
+      mbar_expect_tx(bar_q_full, it.n_active * (L::kTile + L::kVTile));
       for (int c = 0; c < it.n_active; ++c)
-        for (int p = 0; p < L::kPanels; ++p) {
-          tma_load(base + L::kQ + c * L::kTile + p * kPanelBytes, &tm_q, p * kPanelCols, it.h,
-                   it.q0 + c * kRows, it.b, bar_q_full);
-          tma_load(base + L::kO + c * L::kTile + p * kPanelBytes, &tm_do, p * kPanelCols, it.h,
-                   it.q0 + c * kRows, it.b, bar_q_full);
+        for (int p = 0; p < kMostPanels; ++p) {
+          if (p < L::kPanels)
+            tma_load(base + L::kQ + c * L::kTile + p * kPanelBytes, &tm_q, p * kPanelCols, it.h,
+                     it.q0 + c * kRows, it.b, bar_q_full);
+          if (p < L::kVPanels)
+            tma_load(base + L::kdO + c * L::kVTile + p * kPanelBytes, &tm_do, p * kPanelCols,
+                     it.h, it.q0 + c * kRows, it.b, bar_q_full);
         }
       for (int t = 0; t < it.n_tiles; ++t, ++tile) {
         const int s = tile % kStages;
         if (tile >= kStages) mbar_wait(bar_empty + 8 * s, (tile / kStages - 1) & 1);
         const uint32_t full = bar_full + 8 * s;
-        mbar_expect_tx(full, 2 * L::kTile);
-        for (int p = 0; p < L::kPanels; ++p) {
-          tma_load(base + L::kK + s * L::kTile + p * kPanelBytes, &tm_k, p * kPanelCols, kh,
-                   t * kRows, it.b, full);
-          tma_load(base + L::kV + s * L::kTile + p * kPanelBytes, &tm_v, p * kPanelCols, kh,
-                   t * kRows, it.b, full);
+        mbar_expect_tx(full, L::kTile + L::kVTile);
+        for (int p = 0; p < kMostPanels; ++p) {
+          if (p < L::kPanels)
+            tma_load(base + L::kK + s * L::kTile + p * kPanelBytes, &tm_k, p * kPanelCols, kh,
+                     t * kRows, it.b, full);
+          if (p < L::kVPanels)
+            tma_load(base + L::kV + s * L::kVTile + p * kPanelBytes, &tm_v, p * kPanelCols, kh,
+                     t * kRows, it.b, full);
         }
       }
     }
@@ -1414,11 +1557,13 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   // -------------------------------------------------------------- consumers
   const int c = warp / 4, wi = warp % 4, tq = lane % 4;
   const uint32_t q_tile = base + L::kQ + c * L::kTile;
-  const uint32_t do_tile = base + L::kO + c * L::kTile;
+  const uint32_t do_tile = base + L::kdO + c * L::kVTile;
+  float4* rope_slot = reinterpret_cast<float4*>(gbase + L::kRope + c * kRopeBytes) +
+                      threadIdx.x % 128;  // dQ's columns past kRegCols (DP 192)
   const float sl2 = a.scale * kLog2e;
   const float* delta = a.scratch;
   const float* lse2 = a.scratch + static_cast<int64_t>(B) * H * a.Sp;
-  float sacc[32], pacc[32], dq[DP / 2];
+  float sacc[32], pacc[32], dq[AW / 2];
 #pragma unroll
   for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.0f;
   int tile = 0;
@@ -1439,7 +1584,8 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float dl_a = row_a < Sq ? delta[rows + row_a] : 0.0f;
     const float dl_b = row_b < Sq ? delta[rows + row_b] : 0.0f;
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
+    for (int i = 0; i < AW / 2; ++i) dq[i] = 0.0f;
+    if constexpr (DP > kRegCols) rope_zero(rope_slot);
 
     mbar_wait(bar_q_full, n & 1);
     if (!active && lane == 0) mbar_arrive(bar_q_empty);
@@ -1448,8 +1594,8 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(bar_full + 8 * s, (tile / kStages) & 1);
       if (t <= my_last) {
         const uint32_t k_tile = base + L::kK + s * L::kTile;
-        const uint32_t v_tile = base + L::kV + s * L::kTile;
-        // S = Q K^T and dP = dO V^T (64 x 64, f32)
+        const uint32_t v_tile = base + L::kV + s * L::kVTile;
+        // S = Q K^T (D wide) and dP = dO V^T (Dv wide), 64 x 64, f32
         fence_regs(sacc);
         fence_regs(pacc);
         wgmma_fence();
@@ -1460,7 +1606,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         sw128_desc(k_tile + off, 16, 1024), j > 0);
         }
 #pragma unroll
-        for (int j = 0; j < KSTEPS; ++j) {
+        for (int j = 0; j < VSTEPS; ++j) {
           const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
           Wgmma<64>::ss(pacc, sw128_desc(do_tile + off, 16, 1024),
                         sw128_desc(v_tile + off, 16, 1024), j > 0);
@@ -1491,21 +1637,38 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
             pacc[4 * j + 2 + e] = pb * (pacc[4 * j + 2 + e] - dl_b);
           }
         }
-        // dQ += dS K: key columns 16 kk.. are the A fragment of k-step kk
+        // dQ += dS K: key columns 16 kk.. are the A fragment of k-step kk;
+        // K's first kRegCols columns into the registers, its third panel,
+        // if any, into the shared accumulator
         uint32_t as[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             as[kk][i] = pack_bf16(pacc[8 * kk + 2 * i], pacc[8 * kk + 2 * i + 1]);
+        float r[32];
         fence_regs(dq);
+        if constexpr (DP > kRegCols) {
+          rope_load(r, rope_slot);
+          fence_regs(r);
+        }
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          Wgmma<DP>::rs(dq, as[kk], sw128_desc(k_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+          Wgmma<AW>::rs(dq, as[kk], sw128_desc(k_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+        if constexpr (DP > kRegCols) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            Wgmma<64>::rs(r, as[kk], sw128_desc(k_tile + 2 * kPanelBytes + kk * 16 * 128,
+                                                kPanelBytes, 1024), 1);
+        }
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(dq);
+        if constexpr (DP > kRegCols) {
+          fence_regs(r);
+          rope_store(r, rope_slot);
+        }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty + 8 * s);
@@ -1514,7 +1677,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     bf16* dqb = a.dq + it.b * a.sdq.b + it.h * a.sdq.h;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
+    for (int j = 0; j < AW / 8; ++j) {
       const int col = 8 * j + 2 * tq;
       if (col >= a.D) continue;
       if (row_a < Sq)
@@ -1524,35 +1687,50 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         *reinterpret_cast<uint32_t*>(dqb + row_b * a.sdq.s + col) =
             pack_bf16(dq[4 * j + 2] * a.scale, dq[4 * j + 3] * a.scale);
     }
+    if constexpr (DP > kRegCols) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = kRegCols + 8 * j + 2 * tq;
+        if (col >= a.D) continue;
+        const float4 v = rope_slot[j * 128];
+        if (row_a < Sq)
+          *reinterpret_cast<uint32_t*>(dqb + row_a * a.sdq.s + col) =
+              pack_bf16(v.x * a.scale, v.y * a.scale);
+        if (row_b < Sq)
+          *reinterpret_cast<uint32_t*>(dqb + row_b * a.sdq.s + col) =
+              pack_bf16(v.z * a.scale, v.w * a.scale);
+      }
+    }
   }
 }
 
 // the shared-memory ceilings of the backward's two tensor-core kernels at
-// DP, set once per instance and device
-template <int DP>
+// (DP, DVP), set once per instance and device
+template <int DP, int DVP>
 cudaError_t bwd_smem_attr() {
   static bool attr_set[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < kMaxDevices && attr_set[dev])) return err;
-  err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             BwdSmem<DP>::kBytes);
+  err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<DP, DVP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem<DP, DVP>::kBytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fa_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Smem<DP>::kBytes);
+    err = cudaFuncSetAttribute(fa_bwd_dq_kernel<DP, DVP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DqSmem<DP, DVP>::kBytes);
   if (err == cudaSuccess && dev < kMaxDevices) attr_set[dev] = true;
   return err;
 }
 
 // the dK/dV launch: grid (H / hpb, B, key tiles), the G / hpb blocks of a
 // KV head one cluster
-template <int DP>
+template <int DP, int DVP>
 cudaLaunchConfig_t dkdv_config(const BwdArgs& a, cudaLaunchAttribute* cluster,
                                cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.H / a.hpb, a.B, (a.Sk + kBwdKeys - 1) / kBwdKeys);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = BwdSmem<DP>::kBytes;
+  cfg.dynamicSmemBytes = BwdSmem<DP, DVP>::kBytes;
   cfg.stream = st;
   cluster->id = cudaLaunchAttributeClusterDimension;
   cluster->val.clusterDim.x = a.H / a.KH / a.hpb;
@@ -1563,10 +1741,10 @@ cudaLaunchConfig_t dkdv_config(const BwdArgs& a, cudaLaunchAttribute* cluster,
   return cfg;
 }
 
-// clusters of C dK/dV blocks the card holds at once at DP
-template <int DP>
+// clusters of C dK/dV blocks the card holds at once at (DP, DVP)
+template <int DP, int DVP>
 int max_clusters(int C, int* out) {
-  cudaError_t err = bwd_smem_attr<DP>();
+  cudaError_t err = bwd_smem_attr<DP, DVP>();
   if (err != cudaSuccess) return static_cast<int>(err);
   BwdArgs a = {};
   a.H = C;
@@ -1575,23 +1753,23 @@ int max_clusters(int C, int* out) {
   a.Sq = a.Sk = kBwdKeys;
   a.hpb = 1;
   cudaLaunchAttribute cluster[1];
-  const cudaLaunchConfig_t cfg = dkdv_config<DP>(a, cluster, nullptr);
+  const cudaLaunchConfig_t cfg = dkdv_config<DP, DVP>(a, cluster, nullptr);
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(out, fa_bwd_dkdv_kernel<DP>, &cfg));
+      cudaOccupancyMaxActiveClusters(out, fa_bwd_dkdv_kernel<DP, DVP>, &cfg));
 }
 
-// Query heads a dK/dV block walks, hpb = G / C for the divisor C of G (the
-// cluster) that minimises the launch's estimated makespan in (head, query
-// tile) steps: max(all steps / SMs the card fills with clusters of C,
+// Query heads a dK/dV block walks, hpb = G / C for the divisor C <= 8 of G
+// (the cluster) that minimises the launch's estimated makespan in (head,
+// query tile) steps: max(all steps / SMs the card fills with clusters of C,
 // the longest block's steps), the larger C on a tie.  The steps are those
 // of the walk launched: every key tile meets every query tile, or under
 // the causal mask key tile kb the query tiles from kb on (the triangle,
 // clipped at Sq and Sk).  Clusters of G full-SM blocks pack unevenly into
 // the GPCs (17 of 6 at once on an H100, 102 SMs); smaller clusters fill
 // more SMs with longer blocks.  The occupancy is looked up once a device,
-// DP and C.  `ops.backward_plan` makes the same choice from the same
+// instance and C.  `ops.backward_plan` makes the same choice from the same
 // numbers.
-template <int DP>
+template <int DP, int DVP>
 int heads_a_block(int B, int H, int G, int Sq, int Sk, int causal, int* hpb) {
   static int at_once[kMaxDevices][kMaxGroup + 1] = {};
   int dev = 0;
@@ -1603,11 +1781,11 @@ int heads_a_block(int B, int H, int G, int Sq, int Sk, int causal, int* hpb) {
   const double steps = static_cast<double>(B) * H * pairs;
   double best = 0.0;
   *hpb = 0;
-  for (int C = G; C >= 1; --C) {
+  for (int C = G < kMaxGroup ? G : kMaxGroup; C >= 1; --C) {
     if (G % C != 0) continue;
     int n = dev < kMaxDevices ? at_once[dev][C] : 0;
     if (n == 0) {
-      err = static_cast<cudaError_t>(max_clusters<DP>(C, &n));
+      err = static_cast<cudaError_t>(max_clusters<DP, DVP>(C, &n));
       if (err != cudaSuccess) return static_cast<int>(err);
       if (dev < kMaxDevices) at_once[dev][C] = n;
     }
@@ -1623,16 +1801,16 @@ int heads_a_block(int B, int H, int G, int Sq, int Sk, int causal, int* hpb) {
   return *hpb == 0 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
 }
 
-template <int DP>
+template <int DP, int DVP>
 int launch_bwd(const CUtensorMap (&maps)[4], BwdArgs a, cudaStream_t st) {
-  cudaError_t err = bwd_smem_attr<DP>();
+  cudaError_t err = bwd_smem_attr<DP, DVP>();
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_sm = sm_count(dev);
   if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const int e = heads_a_block<DP>(a.B, a.H, a.H / a.KH, a.Sq, a.Sk, a.causal, &a.hpb);
+  const int e = heads_a_block<DP, DVP>(a.B, a.H, a.H / a.KH, a.Sq, a.Sk, a.causal, &a.hpb);
   if (e != 0) return e;
   const int64_t n_rows = static_cast<int64_t>(a.B) * a.H * a.Sp;
   const int64_t delta_rows = 256 / kDeltaLanes;  // rows a block
@@ -1641,15 +1819,40 @@ int launch_bwd(const CUtensorMap (&maps)[4], BwdArgs a, cudaStream_t st) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute cluster[1];
-  const cudaLaunchConfig_t cfg = dkdv_config<DP>(a, cluster, st);
-  err = cudaLaunchKernelEx(&cfg, fa_bwd_dkdv_kernel<DP>, maps[0], maps[1], maps[2], maps[3], a);
+  const cudaLaunchConfig_t cfg = dkdv_config<DP, DVP>(a, cluster, st);
+  err = cudaLaunchKernelEx(&cfg, fa_bwd_dkdv_kernel<DP, DVP>, maps[0], maps[1], maps[2], maps[3],
+                           a);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_items = (a.Sq + kConsumers * kRows - 1) / (kConsumers * kRows) * a.H * a.B;
-  fa_bwd_dq_kernel<DP><<<min(n_items, n_sm), kThreads, Smem<DP>::kBytes, st>>>(
+  fa_bwd_dq_kernel<DP, DVP><<<min(n_items, n_sm), kThreads, DqSmem<DP, DVP>::kBytes, st>>>(
       maps[0], maps[1], maps[2], maps[3], a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+using Dim = std::integral_constant<int, N>;
+
+// f(Dim<DP>, Dim<DVP>) at the backward's instance for head_dim D and v's
+// width Dv: (DP, DP) for each padded head_dim, and (192, 128);
+// cudaErrorInvalidValue for a pair no instance takes (the wrapper pads v)
+template <typename F>
+int bwd_instance(int D, int Dv, F&& f) {
+  const int dp = padded_dim(D), dvp = padded_dim(Dv);
+  if (dp == kMaxD && dvp == kRegCols) return f(Dim<kMaxD>{}, Dim<kRegCols>{});
+  if (dp != dvp) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dp) {
+    case 16: return f(Dim<16>{}, Dim<16>{});
+    case 32: return f(Dim<32>{}, Dim<32>{});
+    case 48: return f(Dim<48>{}, Dim<48>{});
+    case 64: return f(Dim<64>{}, Dim<64>{});
+    case 80: return f(Dim<80>{}, Dim<80>{});
+    case 96: return f(Dim<96>{}, Dim<96>{});
+    case 112: return f(Dim<112>{}, Dim<112>{});
+    case 128: return f(Dim<128>{}, Dim<128>{});
+    default: return f(Dim<kMaxD>{}, Dim<kMaxD>{});
+  }
 }
 
 // the bf16 forward through `fa_forward`'s maps; LSE: the training instance
@@ -1672,9 +1875,7 @@ int forward_bf16(const void* q, const void* k, const void* v, void* o, Strides s
     case 6: return launch<96, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
     case 7: return launch<112, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
     case 8: return launch<128, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
-    default:
-      if constexpr (LSE) return static_cast<int>(cudaErrorInvalidValue);  // D <= 128 only
-      else return launch<192, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
+    default: return launch<192, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
   }
 }
 
@@ -1694,7 +1895,7 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                              D, scale, causal, nullptr, static_cast<cudaStream_t>(stream));
 }
 
-// The training forward: fa_forward's arguments, D <= 128, and `lse`, an f32
+// The training forward: fa_forward's arguments and `lse`, an f32
 // (B, H, Sq) output of each query row's log-sum-exp (natural base) of its
 // scaled, masked scores.
 extern "C" int fa_forward_lse(const void* q, const void* k, const void* v, void* o,
@@ -1713,13 +1914,14 @@ extern "C" int fa_forward_lse(const void* q, const void* k, const void* v, void*
 }
 
 // The backward of bf16 attention, Sq query rows over Sk keys, causal
-// (top-left, as the forward) or not: dq, dk, dv (each at its own strides,
-// head_dim contiguous, rows 4-byte aligned) from q, k, v, the forward's o
-// and lse, and dout.  delta: an f32 scratch of 2 B H Sp values, Sp = Sq
-// rounded up to 64 (Delta, then lse in base 2).
+// (top-left, as the forward) or not: dq, dk (D wide), dv (Dv wide; each at
+// its own strides, head_dim contiguous, rows 4-byte aligned) from q, k (D
+// wide), v, the forward's o, dout (Dv wide) and lse.  delta: an f32 scratch
+// of 2 B H Sp values, Sp = Sq rounded up to 64 (Delta, then lse in base 2).
 // q, k, v and dout are read through TMA, o by 16-byte loads: their rows
-// must be 16-byte aligned (D a multiple of 8, every stride a multiple of 8
-// elements); D <= 128; at most 8 query heads a KV head (one cluster).
+// must be 16-byte aligned (D and Dv multiples of 8, every stride a multiple
+// of 8 elements); D <= 192, and (D, Dv) must round to an instance
+// (`bwd_instance`); any number of query heads a KV head.
 extern "C" int fa_backward(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, void* dq, void* dk, void* dv, const void* lse,
                            void* delta,
@@ -1731,18 +1933,18 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
                            int64_t sdqb, int64_t sdqh, int64_t sdqs,
                            int64_t sdkb, int64_t sdkh, int64_t sdks,
                            int64_t sdvb, int64_t sdvh, int64_t sdvs,
-                           int B, int H, int KH, int Sq, int Sk, int D, float scale, int causal,
-                           void* stream) {
-  if (D < 8 || D > kBwdMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || H / KH > kMaxGroup ||
-      Sq < 1 || Sk < 1 || B < 1)
+                           int B, int H, int KH, int Sq, int Sk, int D, int Dv, float scale,
+                           int causal, void* stream) {
+  if (D < 8 || D > kBwdMaxD || D % 8 != 0 || Dv < 8 || Dv > D || Dv % 8 != 0 || KH < 1 ||
+      H % KH != 0 || Sq < 1 || Sk < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t bound = bind_device();
   if (bound != cudaSuccess) return static_cast<int>(bound);
   CUtensorMap maps[4];
   if (!encode(&maps[0], q, D, H, Sq, B, Strides{sqb, sqh, sqs}) ||
       !encode(&maps[1], k, D, KH, Sk, B, Strides{skb, skh, sks}) ||
-      !encode(&maps[2], v, D, KH, Sk, B, Strides{svb, svh, svs}) ||
-      !encode(&maps[3], dout, D, H, Sq, B, Strides{sgb, sgh, sgs}))
+      !encode(&maps[2], v, Dv, KH, Sk, B, Strides{svb, svh, svs}) ||
+      !encode(&maps[3], dout, Dv, H, Sq, B, Strides{sgb, sgh, sgs}))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
   a.o = static_cast<const bf16*>(o);
@@ -1764,58 +1966,39 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
   a.Sk = Sk;
   a.Sp = (Sq + kRows - 1) / kRows * kRows;
   a.D = D;
+  a.Dv = Dv;
   a.causal = causal != 0;
   a.hpb = 1;  // launch_bwd chooses
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((D + 15) / 16) {
-    case 1: return launch_bwd<16>(maps, a, st);
-    case 2: return launch_bwd<32>(maps, a, st);
-    case 3: return launch_bwd<48>(maps, a, st);
-    case 4: return launch_bwd<64>(maps, a, st);
-    case 5: return launch_bwd<80>(maps, a, st);
-    case 6: return launch_bwd<96>(maps, a, st);
-    case 7: return launch_bwd<112>(maps, a, st);
-    default: return launch_bwd<128>(maps, a, st);
-  }
+  return bwd_instance(D, Dv, [&](auto dp, auto dvp) {
+    return launch_bwd<decltype(dp)::value, decltype(dvp)::value>(maps, a, st);
+  });
 }
 
 // *out: the clusters of C blocks of the backward's dK/dV kernel at head_dim
-// D that the current device holds at once (cudaOccupancyMaxActiveClusters
-// at the kernel's shared memory and threads).
-extern "C" int fa_backward_max_clusters(int C, int D, int* out) {
-  if (C < 1 || C > kMaxGroup || D < 8 || D > kBwdMaxD || D % 8 != 0)
+// D and v's width Dv that the current device holds at once
+// (cudaOccupancyMaxActiveClusters at the kernel's shared memory and threads).
+extern "C" int fa_backward_max_clusters(int C, int D, int Dv, int* out) {
+  if (C < 1 || C > kMaxGroup || D < 8 || D > kBwdMaxD || D % 8 != 0 || Dv < 8 || Dv > D ||
+      Dv % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch ((D + 15) / 16) {
-    case 1: return max_clusters<16>(C, out);
-    case 2: return max_clusters<32>(C, out);
-    case 3: return max_clusters<48>(C, out);
-    case 4: return max_clusters<64>(C, out);
-    case 5: return max_clusters<80>(C, out);
-    case 6: return max_clusters<96>(C, out);
-    case 7: return max_clusters<112>(C, out);
-    default: return max_clusters<128>(C, out);
-  }
+  return bwd_instance(D, Dv, [&](auto dp, auto dvp) {
+    return max_clusters<decltype(dp)::value, decltype(dvp)::value>(C, out);
+  });
 }
 
 // *out: the query heads a dK/dV block of `fa_backward` walks at these
 // shapes on the current device (its cluster holds G / *out blocks).
-extern "C" int fa_backward_heads(int B, int H, int KH, int Sq, int Sk, int causal, int D,
+extern "C" int fa_backward_heads(int B, int H, int KH, int Sq, int Sk, int causal, int D, int Dv,
                                  int* out) {
-  if (D < 8 || D > kBwdMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || H / KH > kMaxGroup ||
-      Sq < 1 || Sk < 1 || B < 1)
+  if (D < 8 || D > kBwdMaxD || D % 8 != 0 || Dv < 8 || Dv > D || Dv % 8 != 0 || KH < 1 ||
+      H % KH != 0 || Sq < 1 || Sk < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / KH, c = causal != 0;
-  switch ((D + 15) / 16) {
-    case 1: return heads_a_block<16>(B, H, G, Sq, Sk, c, out);
-    case 2: return heads_a_block<32>(B, H, G, Sq, Sk, c, out);
-    case 3: return heads_a_block<48>(B, H, G, Sq, Sk, c, out);
-    case 4: return heads_a_block<64>(B, H, G, Sq, Sk, c, out);
-    case 5: return heads_a_block<80>(B, H, G, Sq, Sk, c, out);
-    case 6: return heads_a_block<96>(B, H, G, Sq, Sk, c, out);
-    case 7: return heads_a_block<112>(B, H, G, Sq, Sk, c, out);
-    default: return heads_a_block<128>(B, H, G, Sq, Sk, c, out);
-  }
+  return bwd_instance(D, Dv, [&](auto dp, auto dvp) {
+    return heads_a_block<decltype(dp)::value, decltype(dvp)::value>(B, H, G, Sq, Sk, c, out);
+  });
 }
 
 // The f32 route: fa_forward's arguments and Dv, v's width (at most D; its

@@ -26,24 +26,27 @@ the f32 route's launch shape in plain Python (the source computes the same
 numbers: `fa_forward_f32_plan`).
 
 Training (an input that requires a gradient, grad mode on): a CPU call runs
-the plain version and autograd differentiates it.  A CUDA call on the route
-the training paths need (`GRAD_ROUTE`: bf16, causal top-left or not, Sq
-and Sk of their own, head_dim a multiple of 8 up to 128, at most
-`MAX_GRAD_GROUP` query heads a KV head: the dense and hybrid decoders'
-causal self-attention, the enc-dec's encoder and its cross-attention) goes
-through `_FlashFn`: `fa_forward_lse` (the forward that also writes each
-row's log-sum-exp) and `fa_backward`, three launches counted as one call of
+the plain version and autograd differentiates it.  A CUDA call in bf16
+(`GRAD_ROUTE`: causal top-left or not, Sq and Sk of their own, every
+head_dim the forward takes, v at a width of its own, any number of query
+heads a KV head: the dense and hybrid decoders' causal self-attention, the
+enc-dec's encoder and its cross-attention, deepseek-v3's MLA at q and k 192
+wide and v 128) goes through `_FlashFn`: `fa_forward_lse` (the forward
+that also writes each row's log-sum-exp; v zero-padded to q's width for it
+alone) and `fa_backward`, three launches counted as one call of
 `flash_attention_backward`: Delta (with each row's lse in base 2) into an
 f32 scratch; dK/dV, a block a (64-key tile of Sk, batch) walking the query
 tiles its keys meet (every one of Sq, or under the causal mask those from
 its first key on) for one or more query heads, the blocks of a KV head a
-thread block cluster that sums their partial dK and dV in rank order
-through distributed shared memory; and dQ, persistent, the items with the
-most K/V tiles first.  `backward_plan` is that launch shape in plain
-Python (the source computes the same numbers).  Any other route raises
-under grad, naming the ROADMAP item that brings its backward.
-`flash_attention_backward_plain` is the same backward in explicit formulas
-(from lse and Delta, as the kernel computes it), for the tests.
+thread block cluster of at most 8 that sums their partial dK and dV in rank
+order through distributed shared memory; and dQ, persistent, the items with
+the most K/V tiles first.  The backward reads v, o and dout and writes dv
+at v's own width, padded only to the nearest width the source instantiates
+(`grad_v_width`).  `backward_plan` is that launch shape in plain Python
+(the source computes the same numbers).  f32 raises under grad, naming the
+ROADMAP item that brings its backward.  `flash_attention_backward_plain` is
+the same backward in explicit formulas (from lse and Delta, as the kernel
+computes it), for the tests.
 """
 
 from __future__ import annotations
@@ -59,13 +62,15 @@ from .. import _lib
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 192  # three 64-column panels; kMaxD in the source
-MAX_GRAD_HEAD_DIM = 128  # kBwdMaxD in the source
-MAX_GRAD_GROUP = 8  # kMaxGroup: the G query heads of a KV head are one portable cluster
+MAX_GRAD_HEAD_DIM = 192  # kBwdMaxD in the source
+MAX_CLUSTER = 8  # kMaxGroup: dK/dV blocks a cluster, the portable size
+REG_COLS = 128  # kRegCols: v's widths past it take the (192, 192) instance
 BWD_KEYS = 64  # kBwdKeys: keys a dK/dV block
 BWD_ROWS = 64  # kRows: query rows a tile; the scratch's rows round Sq up to it
 DQ_ROWS = 128  # query rows a dQ work item (two consumer warpgroups of 64)
 GRAD_ROUTE = ("bf16, causal (top-left) or not, any Sq and Sk, head_dim a multiple of 8 up "
-              f"to 128, at most {MAX_GRAD_GROUP} query heads a KV head")
+              f"to {MAX_GRAD_HEAD_DIM}, v of its own width up to head_dim, any number of "
+              "query heads a KV head")
 # the ROADMAP entries that bring the routes without a backward kernel
 _ITEM = "ROADMAP.md queue 1, item 13"
 
@@ -111,7 +116,8 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
                                    scale: float | None = None, causal: bool = True
                                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of attention in the (B, H, S, D) layout, q, o, dout and
-    lse of Sq rows, k and v of Sk, causal (top-left) or not, the way
+    lse of Sq rows, k and v of Sk, v, o, dout and dv Dv <= D wide (q's
+    scale), causal (top-left) or not, the way
     `fa_backward` computes them: P = exp(scale q.k - lse) under the mask,
     Delta = rowsum(dout * o), dV = P^T dout, dS = P (dout v^T - Delta),
     dQ = scale dS k, dK = scale dS^T q, dK and dV summed over the query
@@ -124,7 +130,7 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     scale = scale if scale is not None else D ** -0.5
     qf = q.float().reshape(B, KH, G, Sq, D)
     kf, vf = k.float(), v.float()
-    dof = dout.float().reshape(B, KH, G, Sq, D)
+    dof = dout.float().reshape(B, KH, G, Sq, dout.shape[-1])
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
     p = torch.exp(s - lse.float().reshape(B, KH, G, Sq, 1))
     if causal:
@@ -168,12 +174,12 @@ _SIGNATURES = {"fa_forward": _ARGS,
                # fa_forward's arguments with the lse output before the stream
                "fa_forward_lse": _ARGS[:-1] + [_P, _P],
                # q, k, v, o, dout, dq, dk, dv, lse, delta, 8 x 3 strides,
-               # B, H, KH, Sq, Sk, D, scale, causal, stream
-               "fa_backward": [_P] * 10 + [_L] * 24 + [_I] * 6 + [ctypes.c_float, _I, _P],
-               # C, D, the count out
-               "fa_backward_max_clusters": [_I, _I, ctypes.POINTER(ctypes.c_int)],
-               # B, H, KH, Sq, Sk, causal, D, the heads out
-               "fa_backward_heads": [_I] * 7 + [ctypes.POINTER(ctypes.c_int)]}
+               # B, H, KH, Sq, Sk, D, Dv, scale, causal, stream
+               "fa_backward": [_P] * 10 + [_L] * 24 + [_I] * 7 + [ctypes.c_float, _I, _P],
+               # C, D, Dv, the count out
+               "fa_backward_max_clusters": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
+               # B, H, KH, Sq, Sk, causal, D, Dv, the heads out
+               "fa_backward_heads": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]}
 F32_LANES = 8      # kF32Lanes: threads of a query row
 F32_STAGES = 3     # kF32Stages: the K/V ring's buffers
 F32_SMALL_SQ = 64  # kF32SmallSq: up to this many queries, 64 rows a block
@@ -250,6 +256,24 @@ def v_width(dtype: torch.dtype, D: int, Dv: int) -> int:
     return Dv if dtype == torch.float32 else D
 
 
+def _padded_dim(d: int) -> int:
+    """head_dim as the bf16 kernels take it (`padded_dim` in the source): a
+    multiple of 16 up to 128, else 192."""
+    return -(-d // 16) * 16 if d <= REG_COLS else MAX_HEAD_DIM
+
+
+def grad_v_width(D: int, Dv: int) -> int:
+    """The width v, o and dout reach the backward kernel at, for q and k D
+    wide and v Dv <= D: Dv itself where an instance takes the pair (v
+    rounds as q does, or to 128 beside q past 128: MLA's (192, 128)), else
+    the nearest such width above it (zero columns, exact: dv is sliced
+    back)."""
+    dp, dvp = _padded_dim(D), _padded_dim(Dv)
+    if dvp == dp or (dp == MAX_HEAD_DIM and dvp == REG_COLS):
+        return Dv
+    return REG_COLS if dp == MAX_HEAD_DIM and Dv < REG_COLS else D
+
+
 def _launch(q, k, v, o, causal: bool, scale: float) -> None:
     """All four are (B, heads, seq, D) views of one dtype, bfloat16 or
     float32, with a unit stride on D; k and v of Sk rows, q and o of Sq;
@@ -299,15 +323,15 @@ def _check_tma(t: torch.Tensor, st: tuple, ptr: int) -> None:
 def _check_grad_route(q, k, v) -> None:
     """Raise unless (q, k, v) in the (B, H, S, D) layout lie on the route
     the backward kernel covers (`GRAD_ROUTE`; causal or not, any Sq and
-    Sk)."""
-    H, D, KH = q.shape[1], q.shape[3], k.shape[1]
+    Sk, any G): a dtype other than bf16 has no backward kernel (item 13a);
+    a head_dim or v width the bf16 kernels' TMA loads cannot take raises as
+    the forward does."""
+    D, Dv = q.shape[3], v.shape[3]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise _lib.no_backward("flash_attention", f"{q.dtype} ({_ITEM}a)")
-    if D % 8 or D > MAX_GRAD_HEAD_DIM:
-        raise _lib.no_backward("flash_attention", f"head_dim {D} ({_ITEM}c)")
-    if H // KH > MAX_GRAD_GROUP:
-        raise _lib.no_backward("flash_attention",
-                               f"{H // KH} query heads a KV head ({_ITEM}c)")
+    if D % 8 or Dv % 8 or not Dv <= D <= MAX_GRAD_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {D} and v's width {Dv}: the bf16 kernels "
+                         f"take multiples of 8, v no wider than q, up to {MAX_GRAD_HEAD_DIM}")
 
 
 def _strides(t: torch.Tensor) -> tuple:
@@ -429,11 +453,12 @@ def backward_plan(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, n_sm: int,
                   causal: bool = True) -> BackwardPlan:
     """The launch shape of `fa_backward` for (B, H, Sq, D) queries over KH KV
     heads of Sk keys, causal (top-left) or not, on a card of `n_sm` SMs;
-    raises past `MAX_GRAD_GROUP` query heads a KV head (a cluster larger than
-    the portable 8) and off the route's shapes.  `clusters`: (C, clusters of
-    C blocks the card holds at once) for the divisors C of G, as
+    raises off the route's shapes.  `clusters`: (C, clusters of C blocks
+    the card holds at once) for the divisors C <= `MAX_CLUSTER` of G, as
     `backward_max_clusters` reads them; None takes every SM as usable
-    (n_sm // C).  The dK/dV cluster is the C that minimises the launch's
+    (n_sm // C).  The dK/dV cluster is the divisor C <= 8 of G (a portable
+    cluster; a prime G past 8 takes 1, a block walking all G heads) that
+    minimises the launch's
     estimated makespan in (head, query tile) steps, max(all steps / (C x
     clusters at once), the longest block's steps), the larger C on a tie,
     as the source's `heads_a_block` chooses; the steps are those of the walk
@@ -444,14 +469,11 @@ def backward_plan(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, n_sm: int,
         raise ValueError(f"head_dim {D}: the backward takes multiples of 8 up to "
                          f"{MAX_GRAD_HEAD_DIM}")
     G = H // KH
-    if G > MAX_GRAD_GROUP:
-        raise ValueError(f"{G} query heads a KV head: a cluster holds at most "
-                         f"{MAX_GRAD_GROUP}")
     walk = BackwardPlan(B, H, KH, Sq, Sk, bool(causal), n_sm, 1)  # its steps ignore `heads`
     at_once = dict(clusters) if clusters is not None else {}
     steps = float(B * H * sum(walk.tile_steps(kb) for kb in range(walk.key_tiles)))
     best, heads = 0.0, 0
-    for C in range(G, 0, -1):
+    for C in range(min(G, MAX_CLUSTER), 0, -1):
         n = at_once.get(C, 0) if clusters is not None else n_sm // C
         if G % C or n == 0:
             continue
@@ -468,66 +490,87 @@ def _divisors(n: int) -> list[int]:
 
 
 @functools.lru_cache(maxsize=64)
-def _clusters_at_once(G: int, D: int, device: int) -> tuple[tuple[int, int], ...]:
+def _clusters_at_once(G: int, D: int, device: int, Dv: int | None = None
+                      ) -> tuple[tuple[int, int], ...]:
     """(C, clusters of C dK/dV blocks at once) on CUDA device `device` for
-    the divisors C of G, read once."""
+    the divisors C <= `MAX_CLUSTER` of G, at head_dim D and v's width Dv
+    (D where None), read once."""
     with torch.cuda.device(device):
-        return tuple((c, backward_max_clusters(c, D)) for c in _divisors(G))
+        return tuple((c, backward_max_clusters(c, D, Dv)) for c in _divisors(G)
+                     if c <= MAX_CLUSTER)
 
 
 def flash_attention_backward(q, k, v, o, dout, lse, dq, dk, dv, scale: float,
                              causal: bool = True) -> None:
-    """The backward on CUDA: writes dq, dk, dv (views of their own strides)
-    from (B, H, Sq, D) views of q, o and dout, (B, KH, Sk, D) views of k
-    and v, and the forward's lse, causal (top-left) or not."""
+    """The backward on CUDA: writes dq, dk (D wide) and dv (Dv wide; views
+    of their own strides) from (B, H, Sq, D) views of q, (B, H, Sq, Dv)
+    views of o and dout, (B, KH, Sk, D) views of k, (B, KH, Sk, Dv) views
+    of v, and the forward's lse, causal (top-left) or not.  Dv must be a
+    width an instance takes (`grad_v_width(D, Dv) == Dv`; `_FlashFn` pads
+    v, o and dout to one)."""
     B, H, Sq, D = q.shape
-    KH, Sk = k.shape[1], k.shape[2]
+    KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if not (o.shape[3] == dout.shape[3] == dv.shape[3] == Dv) or grad_v_width(D, Dv) != Dv:
+        raise ValueError(f"flash_attention_backward: v, o, dout and dv must share one width "
+                         f"the kernel takes beside head_dim {D} (grad_v_width), got "
+                         f"{v.shape[3]}, {o.shape[3]}, {dout.shape[3]}, {dv.shape[3]}")
     for t in (q, k, v, o, dout):
         _check_tma(t, _strides(t), t.data_ptr())
     dev = q.device.index
     plan = backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(dev),
-                         _clusters_at_once(H // KH, D, dev), causal)
+                         _clusters_at_once(H // KH, D, dev, Dv), causal)
     scratch = torch.empty((2, B, H, plan.scratch_rows), dtype=torch.float32, device=q.device)
     lib = _lib.load("flash_attention", _SIGNATURES)
     err = lib.fa_backward(*(t.data_ptr() for t in (q, k, v, o, dout, dq, dk, dv, lse, scratch)),
                           *(x for t in (q, k, v, o, dout, dq, dk, dv) for x in _strides(t)),
-                          B, H, KH, Sq, Sk, D, float(scale), int(causal), _lib.stream_handle(q))
+                          B, H, KH, Sq, Sk, D, Dv, float(scale), int(causal),
+                          _lib.stream_handle(q))
     _lib.check("flash_attention_backward", err)
     flash_attention_backward.launches += 1
 
 
-def backward_max_clusters(C: int, D: int) -> int:
-    """Clusters of C dK/dV blocks at head_dim D the current card holds at
-    once (`cudaOccupancyMaxActiveClusters`); 0 means the launch would fail."""
+def backward_max_clusters(C: int, D: int, Dv: int | None = None) -> int:
+    """Clusters of C dK/dV blocks at head_dim D and v's width Dv (D where
+    None) the current card holds at once (`cudaOccupancyMaxActiveClusters`);
+    0 means the launch would fail."""
     n = ctypes.c_int(0)
     lib = _lib.load("flash_attention", _SIGNATURES)
-    _lib.check("fa_backward_max_clusters", lib.fa_backward_max_clusters(C, D, ctypes.byref(n)))
+    _lib.check("fa_backward_max_clusters",
+               lib.fa_backward_max_clusters(C, D, D if Dv is None else Dv, ctypes.byref(n)))
     return n.value
 
 
 def backward_heads(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
-                   causal: bool = True) -> int:
+                   causal: bool = True, Dv: int | None = None) -> int:
     """The query heads a dK/dV block of `fa_backward` walks at these shapes
-    on the current card, as the source chooses them."""
+    (v Dv wide, D where None) on the current card, as the source chooses
+    them."""
     n = ctypes.c_int(0)
     lib = _lib.load("flash_attention", _SIGNATURES)
-    _lib.check("fa_backward_heads", lib.fa_backward_heads(B, H, KH, Sq, Sk, int(causal), D,
-                                                          ctypes.byref(n)))
+    _lib.check("fa_backward_heads", lib.fa_backward_heads(
+        B, H, KH, Sq, Sk, int(causal), D, D if Dv is None else Dv, ctypes.byref(n)))
     return n.value
 
 
 class _FlashFn(torch.autograd.Function):
     """bf16 attention, causal or not, with its backward kernel.  q, k, v
     are in the caller's layout, (B, T, H, D) when `bthd` or (B, H, S, D);
-    the output is allocated in that layout, and so are dq, dk and dv (with
-    the strides of q, k and v, which suit the TMA forward when remat runs
-    it again)."""
+    v may be Dv <= D wide (MLA's values).  The forward pads v with zero
+    columns to D for `fa_forward_lse` alone and returns the output's
+    Dv-wide view; v is saved as it came.  The output is allocated in the
+    caller's layout, and so are dq, dk and dv (with the strides of q, k
+    and a dense v, which suit the TMA forward when remat runs it again);
+    the backward pads v, o and dout only where the source has no instance
+    at Dv (`grad_v_width`), and slices dv back."""
 
     @staticmethod
     def forward(ctx, q, k, v, bthd: bool, scale: float, causal: bool):
         view = (lambda t: t.transpose(1, 2)) if bthd else (lambda t: t)
+        D, Dv = q.shape[-1], v.shape[-1]
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        lse = flash_attention_forward_lse(view(q), view(k), view(v), view(out), scale, causal)
+        vp = v if Dv == D else F.pad(v, (0, D - Dv))
+        lse = flash_attention_forward_lse(view(q), view(k), view(vp), view(out), scale, causal)
+        out = out[..., :Dv]
         ctx.bthd, ctx.scale, ctx.causal = bthd, scale, causal
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -537,10 +580,14 @@ class _FlashFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         view = (lambda t: t.transpose(1, 2)) if ctx.bthd else (lambda t: t)
         dout = dout.contiguous()
+        Dv = v.shape[-1]
+        W = grad_v_width(q.shape[-1], Dv)
+        if W > Dv:
+            v, out, dout = (F.pad(t, (0, W - Dv)) for t in (v, out, dout))
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         flash_attention_backward(view(q), view(k), view(v), view(out), view(dout), lse,
                                  view(dq), view(dk), view(dv), ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv[..., :Dv], None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -562,13 +609,18 @@ def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True) -> torch.Tensor:
     """Attention in the model layout: q (B, Tq, H, D), k (B, Tk, KH, D),
     v (B, Tk, KH, Dv) with Dv <= D -> (B, Tq, H, Dv).  A narrower v (MLA's
-    values against its 192-wide q and k) goes to the f32 kernel as it is
-    and is zero-padded to D elsewhere (`v_width`; the bf16 kernel and the
-    plain version), the output sliced back to Dv: exact, since the padded
-    columns carry zeros; the scale stays D**-0.5 of q, as in
-    `chunked_attention`."""
+    values against its 192-wide q and k) goes to the f32 kernel and, under
+    grad, to `_FlashFn` as it is, and is zero-padded to D elsewhere
+    (`v_width`; the bf16 forward and the plain version), the output sliced
+    back to Dv: exact, since the padded columns carry zeros; the scale
+    stays D**-0.5 of q, as in `chunked_attention`."""
     D, Dv = q.shape[-1], v.shape[-1]
     on_card = _lib.route(q, k, v)
+    if on_card and _lib.needs_grad(q, k, v):
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        _check_shapes(qh, kh, vh, narrow_v=True)
+        _check_grad_route(qh, kh, vh)
+        return _FlashFn.apply(q, k, v, True, D ** -0.5, causal)
     width = v_width(q.dtype, D, Dv) if on_card else D
     if Dv < width:
         v = F.pad(v, (0, width - Dv))
@@ -576,9 +628,6 @@ def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not on_card:
         return flash_attention_plain(qh, kh, vh, causal).transpose(1, 2)[..., :Dv]
     _check_shapes(qh, kh, vh, narrow_v=True)
-    if _lib.needs_grad(q, k, v):
-        _check_grad_route(qh, kh, vh)
-        return _FlashFn.apply(q, k, v, True, D ** -0.5, causal)[..., :Dv]
     out = torch.empty((*q.shape[:3], vh.shape[3]), dtype=q.dtype, device=q.device)
     _launch(qh, kh, vh, out.transpose(1, 2), causal, D ** -0.5)
     return out[..., :Dv]

@@ -7,7 +7,8 @@ forms, as there:
 * full / prefill: the compressed latent c_kv is expanded back to per-head K
   and V, and the heads attend through `ops.attention` (flash attention on
   the card, at head_dim qk_nope + qk_rope = 192 with 128-wide values, which
-  its wrapper pads);
+  its wrapper pads for the bf16 forward; under grad the backward kernel
+  reads and writes them at 128);
 * decode: the "absorbed" form, plain einsums against the compressed cache
   (c_kv, k_rope): the queries are projected into the latent space and the
   scores taken there in f32.  It has no Pallas kernel in the reference and

@@ -169,11 +169,13 @@ def flash_grads_f32(q, k, v, dout, causal: bool = True
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The yardstick of the flash attention backward: (dq, dk, dv) of the
     plain backward run in f32 from the same (B, H, S, D) inputs (q and dout
-    of Sq rows, k and v of Sk), causal (top-left) or not, the output and
-    lse recomputed in f32."""
+    of Sq rows, k and v of Sk; v and dout may be Dv <= D wide), causal
+    (top-left) or not, the output and lse recomputed in f32."""
     qf, kf, vf = q.float(), k.float(), v.float()
+    D, Dv = q.shape[-1], v.shape[-1]
+    o = fa.flash_attention_plain(qf, kf, torch.nn.functional.pad(vf, (0, D - Dv)), causal)
     return fa.flash_attention_backward_plain(
-        qf, kf, vf, fa.flash_attention_plain(qf, kf, vf, causal), dout.float(),
+        qf, kf, vf, o[..., :Dv], dout.float(),
         fa.flash_attention_lse_plain(qf, kf, causal=causal), causal=causal)
 
 

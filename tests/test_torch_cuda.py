@@ -1605,9 +1605,113 @@ def test_attention_bthd_under_grad_at_any_lengths(cuda, Tq, Tk, H, KH, causal):
 @pytest.mark.parametrize("D", [128, 64])
 def test_flash_attention_backward_clusters_fit(cuda, D):
     """At the dK/dV kernel's shared memory and threads the card holds at
-    least one cluster of every group size the route takes, 1 to 8."""
-    for G in range(1, fa.MAX_GRAD_GROUP + 1):
+    least one cluster of every size the route launches, 1 to 8."""
+    for G in range(1, fa.MAX_CLUSTER + 1):
         assert fa.backward_max_clusters(G, D) >= 1, G
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D,Dv", [(192, 128), (192, 192)])
+def test_flash_attention_backward_clusters_fit_at_head_dim_192(cuda, D, Dv):
+    """The (192, 128) instance (three stages, dK's third panel in shared
+    memory) and the (192, 192) one (two stages) fit clusters of 1 to 8."""
+    for C in range(1, fa.MAX_CLUSTER + 1):
+        assert fa.backward_max_clusters(C, D, Dv) >= 1, C
+
+
+# (B, H, KH, Sq, Sk, D, Dv, causal) of the backward at MLA's widths, past
+# 8 query heads a KV head, and at head_dim 192 with v as wide
+FLASH_GRAD_WIDE = [
+    (1, 16, 16, 256, 256, 192, 128, True),   # MLA's widths: q and k 128 + 64, v 128
+    (2, 8, 2, 33, 1000, 192, 128, False),    # ragged, non-causal
+    (1, 18, 1, 130, 130, 192, 128, True),    # G = 18 at MLA's widths
+    (2, 32, 2, 1024, 1024, 128, 128, True),  # G = 16
+    (1, 11, 1, 300, 300, 64, 64, True),      # G = 11, prime: a block walks all 11 heads
+    (2, 8, 2, 512, 512, 192, 192, False),    # D = Dv = 192, the two-stage instance
+    (1, 4, 2, 200, 200, 136, 136, True)]     # head_dim 136: the 192 instance, a partial panel
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv,causal", FLASH_GRAD_WIDE)
+def test_flash_attention_backward_at_wide_heads_and_large_groups(cuda, B, H, KH, Sq, Sk, D, Dv,
+                                                                 causal):
+    """v, o, dout and dv Dv wide beside q and k of D (the forward's v
+    zero-padded to D, as `_FlashFn` pads it), or G past 8: dq, dk and dv,
+    written over NaN, against the plain backward run in f32 within
+    `GRAD_TOL`; bit-equal run to run and in a CUDA graph's replay (over NaN,
+    on a new cotangent); the source's heads a block equal `backward_plan`'s."""
+    dtype = torch.bfloat16
+    q = _on(cuda, 150, (B, H, Sq, D), dtype)
+    k = _on(cuda, 151, (B, KH, Sk, D), dtype)
+    v = _on(cuda, 152, (B, KH, Sk, Dv), dtype)
+    dout = _on(cuda, 153, (B, H, Sq, Dv), dtype)
+    scale = D ** -0.5
+    of = torch.empty_like(q)
+    lse = fa.flash_attention_forward_lse(q, k, torch.nn.functional.pad(v, (0, D - Dv)), of,
+                                         scale, causal)
+    o = of[..., :Dv]
+    grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+    again = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+    fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale, causal)
+    fa.flash_attention_backward(q, k, v, o, dout, lse, *again, scale, causal)
+    torch.cuda.synchronize()
+    for name, got, want, rerun in zip(("dq", "dk", "dv"), grads,
+                                      flash_grads_f32(q, k, v, dout, causal), again):
+        assert torch.isfinite(got).all(), name
+        assert_grad_close(got, want, name)
+        assert torch.equal(got, rerun), name
+    graphed = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fa.flash_attention_backward(q, k, v, o, dout, lse, *graphed, scale, causal)
+    for t in graphed:
+        t.fill_(float("nan"))
+    dout.copy_(_on(cuda, 154, dout.shape, dtype))
+    fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale, causal)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), graphed, grads):
+        assert torch.equal(got, want), name
+    del graph
+    dev = torch.cuda.current_device()
+    plan = fa.backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(dev),
+                            fa._clusters_at_once(H // KH, D, dev, Dv), causal)
+    assert plan.cluster <= fa.MAX_CLUSTER
+    assert fa.backward_heads(B, H, KH, Sq, Sk, D, causal, Dv) == plan.heads
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("Dv", [128, 64])
+def test_attention_bthd_under_grad_at_mla_widths(cuda, Dv):
+    """MLA's call under grad: q and k (2, 256, 16, 192), v a Dv-wide slice of
+    a wider tensor (as `mla_full` slices it from the expanded latent; 64
+    is padded to the (192, 128) instance in the backward), through
+    `_FlashFn`: one LSE forward and one backward call, the output and dv at
+    v's width, the gradients within `GRAD_TOL` of autograd of the plain
+    version in f32."""
+    dtype = torch.bfloat16
+    q = _on(cuda, 160, (2, 256, 16, 192), dtype).requires_grad_()
+    k = _on(cuda, 161, (2, 256, 16, 192), dtype).requires_grad_()
+    kv = _on(cuda, 162, (2, 256, 16, 128 + Dv), dtype).requires_grad_()
+    v = kv[..., 128:]
+    f0, l0, b0 = (fa.flash_attention.launches, fa.flash_attention_forward_lse.launches,
+                  fa.flash_attention_backward.launches)
+    out = fa.attention_bthd(q, k, v)
+    assert out.shape == (2, 256, 16, Dv)
+    dout = _on(cuda, 163, out.shape, dtype)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_forward_lse.launches,
+            fa.flash_attention_backward.launches) == (f0, l0 + 1, b0 + 1)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    pad = torch.nn.functional.pad(leaves[2], (0, 192 - Dv))
+    want_out = fa.flash_attention_plain(*(t.transpose(1, 2) for t in (leaves[0], leaves[1], pad)),
+                                        True).transpose(1, 2)[..., :Dv]
+    want = torch.autograd.grad(want_out, leaves, dout.float())
+    for name, t, g, w in zip(("dq", "dk", "dv"), (q, k, v), got, want):
+        assert g.shape == t.shape, name
+        assert_grad_close(g, w, name)
+    torch.testing.assert_close(out.detach().float(), want_out.detach(), **attn_tol(dtype))
 
 
 @pytest.mark.requires_cuda
@@ -1642,9 +1746,10 @@ def test_attention_bthd_under_grad_keeps_layout(cuda):
 def test_kernels_without_a_backward_raise_under_grad(cuda):
     """Every wrapper whose kernel has no backward raises the port's
     `ProgramError` (not a `RuntimeError`) on CUDA under grad, as do flash
-    attention's and the SSD scan's uncovered routes (flash in f32, past
-    eight query heads a KV head or at head_dim 192; the scan in f32; in
-    bf16 it launches, with a backward); without grad each launches."""
+    attention's and the SSD scan's uncovered routes (each in f32; in bf16
+    each launches, with a backward: the scan, and flash attention past
+    eight query heads a KV head and at head_dim 192); without grad each
+    launches."""
     bf16 = torch.bfloat16
     q = _on(cuda, 100, (2, 1, 8, 64), bf16).requires_grad_()
     cache = _on(cuda, 101, (2, 32, 2, 64), bf16)
@@ -1666,15 +1771,15 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
     with pytest.raises(_lib.ProgramError, match="item 13e"):
         bq.dequantize(qv, scale.requires_grad_())
     k = _on(cuda, 105, (1, 2, 64, 64), bf16)
-    for args, kw, item in (
-            ((_on(cuda, 106, (1, 4, 64, 64), torch.float32).requires_grad_(), k.float(),
-              k.float()), {}, "13a"),
-            ((_on(cuda, 107, (1, 18, 64, 64), bf16).requires_grad_(), k, k), {}, "13c"),
-            ((_on(cuda, 109, (1, 4, 64, 192), bf16).requires_grad_(),
-              _on(cuda, 110, (1, 2, 64, 192), bf16), _on(cuda, 111, (1, 2, 64, 192), bf16)),
-             {}, "13c")):
-        with pytest.raises(_lib.ProgramError, match=f"item {item}"):
-            fa.flash_attention(*args, **kw)
+    with pytest.raises(_lib.ProgramError, match="item 13a"):
+        fa.flash_attention(_on(cuda, 106, (1, 4, 64, 64), torch.float32).requires_grad_(),
+                           k.float(), k.float())
+    launched = fa.flash_attention_forward_lse.launches
+    for args in ((_on(cuda, 107, (1, 18, 64, 64), bf16).requires_grad_(), k, k),
+                 (_on(cuda, 109, (1, 4, 64, 192), bf16).requires_grad_(),
+                  _on(cuda, 110, (1, 2, 64, 192), bf16), _on(cuda, 111, (1, 2, 64, 192), bf16))):
+        assert fa.flash_attention(*args).grad_fn is not None
+    assert fa.flash_attention_forward_lse.launches == launched + 2
     with torch.no_grad():
         da.decode_attention_bthd(q, cache, cache, 32)
         bq.quantize(_on(cuda, 103, (8, 64), bf16).requires_grad_())

@@ -9,24 +9,31 @@ the bound the card holds the kernels to.
   the lse and Delta as the kernel computes them, against `jax.vjp` of the
   reference's `chunked_attention` (causal Sq == Sk at G 1, 2 and 6;
   non-causal Sq == Sk at G 1 and 2; non-causal and causal (top-left) Sq <
-  Sk and Sq > Sk, ragged) and against autograd of the port's plain
-  forward: f32 to 1e-5 of each gradient's scale; bf16 to the card's bound.
+  Sk and Sq > Sk, ragged; v narrower than q and k, MLA's 192 / 128 among
+  them) and against autograd of the port's plain forward: f32 to 1e-5 of
+  each gradient's scale; bf16 to the card's bound.
 * `backward_plan` at every walk: each (batch, head, key tile) in one dK/dV
   block, the query tiles it walks (a causal key tile at or past Sq walks
   none), the dQ items, and the cluster chosen by the makespan of the walk
-  launched.
+  launched; past 8 query heads a KV head (G 16, 9, 11) a cluster of at
+  most 8 blocks, each walking G / C heads.  `grad_v_width`: the width v
+  reaches the backward kernel at.
 * The card's bound (`testing.parity.GRAD_TOL`: each gradient within 2e-2
   of the f32 plain backward's max |value|) rejects planted faults — a flash
   backward that drops its Delta term, one that skips the sum over a KV
   head's query heads in dK/dV, a non-causal one whose dK/dV walk only the
   causal half, a dQ that leaves the key tile's rows past Sk unmasked, an
-  rmsnorm backward that sums dw in bf16 — at the card check's shapes, and
-  accepts the sound plain backward run in bf16.
+  rmsnorm backward that sums dw in bf16, and at MLA's widths a dK whose
+  columns past v's width stay zero and a dv taken from the wrong rows of a
+  padded v — at the card check's shapes, and accepts the sound plain
+  backward run in bf16.
 * Under grad on the CPU every op of `KERNELS` returns a tensor that carries
   a `grad_fn` (the plain versions, differentiated by autograd); the
-  training route's shape rule accepts non-causal attention and Sq != Sk
-  and refuses what the backward kernel does not cover, naming the ROADMAP
-  item.
+  training route's shape rule accepts non-causal attention, Sq != Sk,
+  head_dim 192 with v at its own width and any number of query heads a KV
+  head, and refuses f32 (naming the ROADMAP item) and widths the bf16
+  kernels cannot load.  `attention_bthd` under grad at MLA's widths hands
+  `_FlashFn` v as it is (never padded) and gives dv at v's width.
 """
 
 import math
@@ -36,6 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.models import common as ref_common
 from repro_torch.kernels import _lib
@@ -225,41 +233,89 @@ def test_flash_backward_plan_counts_the_walk_launched(Sq, Sk, causal, heads):
     assert fa.backward_plan(1, 16, 8, Sq, Sk, 128, 132, clusters, causal).heads == heads
 
 
-@pytest.mark.parametrize("H,KH,D", [(18, 2, 128), (9, 1, 64), (12, 2, 136), (12, 2, 20)])
-def test_flash_backward_plan_raises_off_the_route(H, KH, D):
-    """Past eight query heads a KV head (a portable cluster) or off the
-    head dims the kernel takes, there is no plan."""
-    with pytest.raises(ValueError):
-        fa.backward_plan(2, H, KH, 256, 256, D, 132)
+@pytest.mark.parametrize("H,KH,D,on_route", [(18, 2, 128, True), (9, 1, 64, True),
+                                             (12, 2, 136, True), (12, 2, 20, False)],
+                         ids=["18-2-128", "9-1-64", "12-2-136", "12-2-20"])
+def test_flash_backward_plan_raises_off_the_route(H, KH, D, on_route):
+    """Off the head dims the kernel takes (not a multiple of 8), there is
+    no plan; past eight query heads a KV head (G 9) and past head_dim 128
+    (136 runs the 192 instance) there is one, its clusters of at most 8."""
+    if not on_route:
+        with pytest.raises(ValueError):
+            fa.backward_plan(2, H, KH, 256, 256, D, 132)
+        return
+    plan = _check_plan(2, H, KH, 256, 256, D, 132, True)
+    assert plan.cluster <= fa.MAX_CLUSTER and plan.heads * plan.cluster == H // KH
 
 
-def _attn_inputs(dtype, B, H, KH, S, D, seed=0, Sk=None):
-    """q (B, H, S, D), k, v (B, KH, Sk, D) (Sk defaults to S), dout, in
-    both packages; the reference's in its (B, T, H, D) layout."""
+@pytest.mark.parametrize("G,clusters,heads", [
+    (16, None, 4),                                           # 8704 steps over 4 x 33 SMs
+    (16, ((1, 132), (2, 66), (4, 33), (8, 16)), 4),
+    (16, ((1, 132), (2, 66), (4, 30), (8, 16)), 2),          # clusters of 4 fill 120 SMs
+    (9, ((1, 132), (3, 44)), 3),
+    (11, ((1, 132),), 11),                                   # prime past 8: one block, 11 heads
+    (11, None, 11)])
+def test_flash_backward_plan_past_eight_heads_a_kv_head(G, clusters, heads):
+    """G 16, 9 and 11 over 2 KV heads, causal (2, 1024): the cluster is
+    the divisor C <= 8 of G with the shortest estimated makespan (a
+    cluster of 16 or 9 or 11 blocks is past the portable size); each
+    (batch, head, key tile) in one dK/dV block, which walks G / C heads,
+    the longest blocks first."""
+    plan = fa.backward_plan(2, 2 * G, 2, 1024, 1024, 128, 132, clusters)
+    assert plan.heads == heads and plan.cluster == G // heads <= fa.MAX_CLUSTER
+    _check_plan(2, 2 * G, 2, 1024, 1024, 128, 132, True)
+    blocks = plan.dkdv_blocks()
+    assert all(len(h) == heads for _, h, _, _ in blocks)
+    assert blocks[0][3] == heads * 16 == max(b[3] for b in blocks)
+
+
+def test_grad_v_width_is_an_instance_of_the_source():
+    """v reaches the backward at its own width where an instance takes the
+    pair (v rounded to 16 as q is, or 128 beside q past 128), else padded
+    to the nearest one: MLA's 128 beside 192 as it is, a 64 beside 192 to
+    128, a 32 beside 48 to 48."""
+    assert fa.grad_v_width(192, 128) == 128 and fa.grad_v_width(192, 192) == 192
+    assert fa.grad_v_width(192, 120) == 120 and fa.grad_v_width(192, 136) == 136
+    assert fa.grad_v_width(192, 64) == 128 and fa.grad_v_width(136, 96) == 128
+    assert fa.grad_v_width(48, 32) == 48 and fa.grad_v_width(48, 40) == 40
+    assert fa.grad_v_width(80, 72) == 72 and fa.grad_v_width(80, 64) == 80
+
+
+def _attn_inputs(dtype, B, H, KH, S, D, seed=0, Sk=None, Dv=None):
+    """q (B, H, S, D), k (B, KH, Sk, D), v (B, KH, Sk, Dv) (Sk defaults
+    to S, Dv to D), dout (B, H, S, Dv), in both packages."""
     Sk = S if Sk is None else Sk
-    shapes = ((B, H, S, D), (B, KH, Sk, D), (B, KH, Sk, D), (B, H, S, D))
+    Dv = D if Dv is None else Dv
+    shapes = ((B, H, S, D), (B, KH, Sk, D), (B, KH, Sk, Dv), (B, H, S, Dv))
     pairs = [_both(_normal(seed + i, s), dtype) for i, s in enumerate(shapes)]
     return [p[0] for p in pairs], [p[1] for p in pairs]
 
 
-def _check_plain_backward(dtype, B, H, KH, Sq, Sk, D, causal):
+def _plain_narrow(q, k, v, causal):
+    """The port's plain forward at v of its own width (padded to q's with
+    zero columns, the output sliced back)."""
+    Dv = v.shape[-1]
+    return fa.flash_attention_plain(q, k, F.pad(v, (0, q.shape[-1] - Dv)), causal)[..., :Dv]
+
+
+def _check_plain_backward(dtype, B, H, KH, Sq, Sk, D, causal, Dv=None):
     """The plain backward from the plain lse against `jax.vjp` of the
     reference's `chunked_attention` (chunks of 16, so ragged lengths pad)
-    and against autograd of the port's plain forward."""
-    (jq, jk, jv, jdo), (q, k, v, dout) = _attn_inputs(dtype, B, H, KH, Sq, D, Sk=Sk)
+    and against autograd of the port's plain forward; v Dv wide."""
+    (jq, jk, jv, jdo), (q, k, v, dout) = _attn_inputs(dtype, B, H, KH, Sq, D, Sk=Sk, Dv=Dv)
     tr = lambda x: jnp.swapaxes(x, 1, 2)  # noqa: E731
     f = lambda a, b, c: tr(ref_common.chunked_attention(  # noqa: E731
         tr(a), tr(b), tr(c), causal=causal, q_chunk=16, k_chunk=16))
     _, vjp = jax.vjp(f, jq, jk, jv)
     want = vjp(jdo)
-    o = fa.flash_attention_plain(q, k, v, causal)
+    o = _plain_narrow(q, k, v, causal)
     lse = fa.flash_attention_lse_plain(q, k, causal=causal)
     got = fa.flash_attention_backward_plain(q, k, v, o, dout, lse, causal=causal)
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == q.dtype and g.shape == tuple(w.shape), name
         assert grad_gap(g, _t(w)) <= _bound(dtype), name
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    auto = torch.autograd.grad(fa.flash_attention_plain(*leaves, causal), leaves, dout)
+    auto = torch.autograd.grad(_plain_narrow(*leaves, causal), leaves, dout)
     for name, g, w in zip("qkv", got, auto):
         assert grad_gap(g, w) <= _bound(dtype), name
 
@@ -283,6 +339,19 @@ def test_flash_backward_plain_matches_reference_vjp(dtype, B, H, KH, S, D):
 def test_flash_backward_plain_matches_reference_vjp_at_any_lengths(dtype, B, H, KH, Sq, Sk, D,
                                                                    causal):
     _check_plain_backward(dtype, B, H, KH, Sq, Sk, D, causal)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,KH,S,D,Dv,causal", [
+    (1, 4, 2, 40, 48, 32, True),      # v narrower than q and k, G = 2
+    (2, 4, 4, 33, 48, 32, False),     # non-causal, ragged
+    (1, 4, 4, 40, 192, 128, True),    # MLA's widths: q and k 128 + 64, v 128
+    (1, 4, 4, 40, 192, 128, False)])
+def test_flash_backward_plain_matches_reference_vjp_at_a_narrow_v(dtype, B, H, KH, S, D, Dv,
+                                                                 causal):
+    """v, o, dout and dv Dv wide beside q and k of D, as MLA's attention
+    takes them: dv at v's width, dq and dk at D."""
+    _check_plain_backward(dtype, B, H, KH, S, S, D, causal, Dv=Dv)
 
 
 def test_flash_lse_plain_is_the_logsumexp_of_the_masked_scores():
@@ -381,6 +450,32 @@ def _bf16_randn(g, *shape, shift=0.0):
     return (torch.randn(*shape, generator=g) + shift).to(torch.bfloat16)
 
 
+@pytest.mark.parametrize("fault", ["dk_rope_zero", "dv_wrong_rows"])
+def test_card_bound_rejects_a_planted_fault_at_mla_widths(fault):
+    """deepseek-v3's MLA at B = 1, 256 tokens, 16 of its heads: q and k
+    (1, 16, 256, 192), v 128 wide, causal.  A backward that leaves dK's
+    64 columns past v's width at zero ("dk_rope_zero": the third panel's
+    shared accumulator never stored), or that takes dv from a padded v's
+    rows shifted by one key ("dv_wrong_rows": the (192, 192) layout read
+    at the (192, 128) one's row stride) misses the bound; the sound plain
+    backward in bf16 at the same inputs lies within half of it."""
+    g = torch.Generator().manual_seed(3)
+    q, k = (_bf16_randn(g, 1, 16, 256, 192) for _ in range(2))
+    v, dout = _bf16_randn(g, 1, 16, 256, 128), _bf16_randn(g, 1, 16, 256, 128)
+    want = flash_grads_f32(q, k, v, dout)
+    o = _plain_narrow(q, k, v, True)
+    sound = fa.flash_attention_backward_plain(q, k, v, o, dout,
+                                              fa.flash_attention_lse_plain(q, k))
+    assert max(grad_gap(a, b) for a, b in zip(sound, want)) <= GRAD_TOL / 2
+    dq, dk, dv = (t.clone() for t in sound)
+    if fault == "dk_rope_zero":
+        dk[..., 128:] = 0
+    else:
+        dv = torch.roll(dv, 1, dims=2)
+    gaps = [grad_gap(a, b) for a, b in zip((dq, dk, dv), want)]
+    assert max(gaps) > 2 * GRAD_TOL, gaps
+
+
 def test_card_bound_rejects_a_noncausal_backward_that_walks_the_causal_half():
     """seamless-m4t-large-v2's encoder at B = 1, (1, 1024, 16/16, 64),
     non-causal: dK and dV of each key tile from the query tiles at or past
@@ -472,19 +567,33 @@ def test_every_kernels_op_carries_a_grad_fn_on_cpu():
         assert not _lib.needs_grad(x)
 
 
-@pytest.mark.parametrize("shapes,dtype,item", [
-    (((1, 4, 64, 64), (1, 2, 64, 64)), torch.float32, "13a"),
-    (((1, 4, 64, 192), (1, 2, 64, 192)), torch.bfloat16, "13c"),
-    (((1, 4, 64, 68), (1, 2, 64, 68)), torch.bfloat16, "13c"),
-    (((1, 18, 64, 64), (1, 2, 64, 64)), torch.bfloat16, "13c"),
+@pytest.mark.parametrize("shapes,dtype,refusal", [
+    (((1, 4, 64, 64), (1, 2, 64, 64)), torch.float32, (_lib.ProgramError, "item 13a")),
+    (((1, 4, 64, 192), (1, 2, 64, 192)), torch.bfloat16, None),
+    (((1, 4, 64, 68), (1, 2, 64, 68)), torch.bfloat16, (ValueError, "multiples of 8")),
+    (((1, 18, 64, 64), (1, 2, 64, 64)), torch.bfloat16, None),
 ], ids=["f32", "head_dim 192", "head_dim 68", "G 9"])
-def test_flash_training_route_refuses_what_the_backward_does_not_cover(shapes, dtype, item):
+def test_flash_training_route_refuses_what_the_backward_does_not_cover(shapes, dtype, refusal):
+    """f32 has no backward kernel (item 13a); head_dim 68 is no width the
+    bf16 kernels' TMA loads take; head_dim 192 and 9 query heads a KV head
+    (item 13c) lie on the route, as does MLA's v of 128 beside q and k of
+    192."""
     q, k = (torch.zeros(s, dtype=dtype) for s in shapes)
-    with pytest.raises(_lib.ProgramError, match=f"item {item}"):
+    if refusal is None:
         fa._check_grad_route(q, k, k)
+    else:
+        with pytest.raises(refusal[0], match=refusal[1]):
+            fa._check_grad_route(q, k, k)
     fa._check_grad_route(torch.zeros(1, 12, 64, 128, dtype=torch.bfloat16),
                          torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16),
                          torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16))
+    fa._check_grad_route(torch.zeros(1, 4, 64, 192, dtype=torch.bfloat16),
+                         torch.zeros(1, 4, 64, 192, dtype=torch.bfloat16),
+                         torch.zeros(1, 4, 64, 128, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="no wider than q"):
+        fa._check_grad_route(torch.zeros(1, 4, 64, 128, dtype=torch.bfloat16),
+                             torch.zeros(1, 4, 64, 128, dtype=torch.bfloat16),
+                             torch.zeros(1, 4, 64, 192, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("shapes", [((1, 4, 64, 64), (1, 2, 64, 64)),   # the encoder's form
@@ -498,3 +607,53 @@ def test_flash_training_route_accepts_noncausal_attention_and_unequal_lengths(sh
     q, k = (torch.zeros(s, dtype=torch.bfloat16) for s in shapes)
     fa._check_grad_route(q, k, k)
     assert "or not" in fa.GRAD_ROUTE and "any Sq and Sk" in fa.GRAD_ROUTE
+
+
+def test_attention_bthd_under_grad_hands_flashfn_v_at_its_own_width(monkeypatch):
+    """MLA's widths through the training route's Python, on the CPU with the
+    two launches stood in for by their plain versions: `attention_bthd`
+    under grad passes v to `_FlashFn` as it is (128 wide beside q and k of
+    192, never padded), the forward kernel gets v padded to 192 and the
+    backward v, o and dout at 128 (an instance of the source), and the
+    gradients, dv 128 wide, agree with autograd of the plain forward."""
+    B, T, H, D, Dv = 1, 40, 4, 192, 128
+    g = torch.Generator().manual_seed(4)
+    q, k = (torch.randn(B, T, H, D, generator=g).requires_grad_() for _ in range(2))
+    v = torch.randn(B, T, H, Dv, generator=g).requires_grad_()
+    seen = {}
+
+    def forward_lse(q, k, v, o, scale, causal=True):
+        seen["forward v"] = v.shape[-1]
+        o.copy_(fa.flash_attention_plain(q, k, v, causal, scale))
+        return fa.flash_attention_lse_plain(q, k, scale, causal)
+
+    def backward(q, k, v, o, dout, lse, dq, dk, dv, scale, causal=True):
+        seen["backward v, o, dout, dv"] = (v.shape[-1], o.shape[-1], dout.shape[-1],
+                                           dv.shape[-1])
+        for out, t in zip((dq, dk, dv), fa.flash_attention_backward_plain(
+                q, k, v, o, dout, lse, scale, causal)):
+            out.copy_(t)
+
+    apply = fa._FlashFn.apply
+
+    def spy(q, k, v, *rest):
+        seen["_FlashFn v"] = v.shape[-1]
+        return apply(q, k, v, *rest)
+
+    monkeypatch.setattr(fa._lib, "route", lambda *t: True)
+    monkeypatch.setattr(fa, "flash_attention_forward_lse", forward_lse)
+    monkeypatch.setattr(fa, "flash_attention_backward", backward)
+    monkeypatch.setattr(fa._FlashFn, "apply", spy)
+    monkeypatch.setattr(fa, "_check_tma", lambda *a: None)
+    out = fa.attention_bthd(q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16))
+    assert out.shape == (B, T, H, Dv)
+    dout = torch.randn(out.shape, generator=g).to(torch.bfloat16)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert seen == {"_FlashFn v": Dv, "forward v": D, "backward v, o, dout, dv": (Dv,) * 4}
+    assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+    monkeypatch.undo()
+    leaves = [t.detach().to(torch.bfloat16).float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(_plain_narrow(*(t.transpose(1, 2) for t in leaves), True)
+                               .transpose(1, 2), leaves, dout.float())
+    for name, a, b in zip("qkv", got, want):
+        assert grad_gap(a, b) <= GRAD_TOL, name
