@@ -126,6 +126,20 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    backward is split by launch (Delta, dK/dV, dQ) and read in TFLOP/s
    against its bound.
 
+7. the dry run (`[dry run]` lines): `repro_torch.kernels.occupancy`'s
+   table of the backward kernels' occupancy held equal to the card's
+   readings; five calls of the earlier phases, each measured on the card
+   where it ran (its peak allocated memory less what was allocated before
+   it and is none of its inputs; `measured`): 6a's, 6d's and 6e's second
+   eager train step and llava-next-34b's and llama4's prefills, each
+   traced again on the meta device (`repro_torch.launch.hlo_analysis`,
+   the dry run's tracker, through the kernels' CUDA route with no
+   launch), the predicted peak within 5% of the measured and every
+   kernel's launches equal to the card's; printed, not held: each trace's
+   wall, xlstm-1.3b's predicted eager peak for a full-depth train step at
+   6a's shape, and for the MoE pair the deepest prefill of phase 5's shape
+   the dry run predicts fits the card, beside `DEPTH_CUTS`.
+
 With `--parent ROOT` (another tree of the repository, such as the parent
 commit unpacked), every kernel that tree has is built too, timed in turns
 with this tree's at the same inputs, and run in a second profiled prefill
@@ -195,18 +209,11 @@ F32_WITNESS_LAYERS = {"llava-next-34b": 8, "llama4-maverick-400b-a17b": 1,
 FLIP_LIMIT = 0.15
 PROFILED_STEPS = 4
 
-# NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 tensor-core peak, f32
-# peak outside the tensor cores.  The ssd_scan kernel's products with an f32
-# operand split it into two bf16 parts (16 significant bits), two bf16
-# products each: its bound counts them at half the bf16 peak; with f32
-# inputs every operand is three parts and a product six bf16 products,
-# counted at a sixth of the peak (faster than the f32 peak, and as
-# precise).
-HBM_BYTES_S = 3.35e12
+# NVIDIA H100 SXM data sheet (dense): the bf16 tensor-core peak; every
+# kernel's bound comes from its entry's work count in the package
+# (`repro_torch.kernels.work`: bytes, operations by precision class, the
+# data sheet's rates)
 BF16_FLOP_S = 989e12
-BF16X2_FLOP_S = BF16_FLOP_S / 2
-BF16X6_FLOP_S = BF16_FLOP_S / 6
-F32_FLOP_S = 67e12
 FLUSH_BYTES = 128 << 20  # written between calls for a cold-L2 reading (L2: 50 MB)
 
 # The backward kernels have no Pallas counterpart: the reference takes their
@@ -271,6 +278,13 @@ GRAD_PARITY_RUNS = ((TRAIN_ARCH, 2), (HYBRID_TRAIN_ARCH, 6), ("xlstm-1.3b", 8),
 # there the two bf16 routes are held each against f32, not to each other
 F32_FLOOR_FACTOR = 2.0
 ELASTIC_STEPS, ELASTIC_FAIL_AT, ELASTIC_CKPT_EVERY = 150, 120, 50
+# phase 7: the calls whose peak memory and launches the dry run predicts
+# (`launch/dryrun.py`'s trace on the meta device), each measured where the
+# earlier phases make it: the second eager step of 6a, 6d and 6e (after
+# the first, the warm-up) and these models' prefills in phase 5; the
+# prediction must lie within DRY_RUN_TOL of the card's peak
+DRY_RUN_PREFILLS = ("llava-next-34b", "llama4-maverick-400b-a17b")
+DRY_RUN_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -350,11 +364,13 @@ def once_ms(fn, warmup: int = 1) -> float:
     return start.elapsed_time(end)
 
 
-def bound_ms(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
-    """The larger of bytes over the HBM rate and the operations, each
-    (count, peak rate) pair at its own rate, in ms."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, sum(ops / peak for ops, peak in work)
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(work) -> tuple[float, str]:
+    """A kernel entry's bound at a call's shapes, in ms, from its work
+    count (`repro_torch.kernels.work.bound_ms`): the larger of its bytes
+    over the HBM rate and its operations, each class at its own peak."""
+    from repro_torch.kernels.work import bound_ms as work_bound
+
+    return work_bound(work)
 
 
 def gpu_line() -> str:
@@ -455,7 +471,7 @@ def phase_kernels(dev, parent) -> dict:
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"dequantize differs from its plain version by {err(got, want)}")
-    b_ms, b_by = bound_ms(N * D + N * 4 + N * D * 2, (1.0 * N * D, F32_FLOP_S))
+    b_ms, b_by = bound_ms(bq.dequantize_work(N, D, 2))
     ms, parent_ms = paired_ms(lambda m: m.dequantize(qv, s, bf16), bq, parent)
     res["dequantize"] = dict(
         max_abs_err=err(got, want), tol="bit-equal", ms=ms, parent_ms=parent_ms,
@@ -537,7 +553,7 @@ def check_quantize(dev, g, parent):
         q, sc = same(h, f"{what} shape")
         if qv is None:
             qv, s = q, sc
-        b_ms, b_by = bound_ms(N * D * 2 + N * D + N * 4, (3.0 * N * D, F32_FLOP_S))
+        b_ms, b_by = bound_ms(bq.quantize_work(N, D, 2))
         ms, parent_ms = paired_ms(lambda m: m.quantize(h), bq, parent)
         plan = list(bq.launch_plan(D, 2, N, torch.cuda.get_device_properties(dev)
                                    .multi_processor_count))
@@ -656,7 +672,7 @@ def check_rmsnorm(dev, g, err, parent) -> dict:
         torch.testing.assert_close(got, want, **tol(bf16))
         if not torch.equal(got, again):
             raise AssertionError(f"rmsnorm ({what}): two calls differ")
-        b_ms, b_by = bound_ms(2 * N * D * 2 + D * 2, (4.0 * N * D, F32_FLOP_S))
+        b_ms, b_by = bound_ms(rn.rmsnorm_work(N, D, 2))
         ms, parent_ms = paired_ms(lambda m: m.rmsnorm(x, w), rn, parent)
         r = dict(
             shape=[N, D], what=what, plan=list(rn.launch_plan(D, 2)), max_abs_err=err(got, want),
@@ -698,8 +714,7 @@ def check_flash_attention(dev, g, err, parent) -> dict:
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **attn_tol(bf16))
         torch.testing.assert_close(bhsd.transpose(1, 2), got, atol=0, rtol=0)
-        pairs = B * H * S * (S + 1) / 2  # causal (query, key) pairs
-        b_ms, b_by = bound_ms(4 * B * S * H * HD * 2, (4.0 * pairs * HD, BF16_FLOP_S))
+        b_ms, b_by = bound_ms(fa.flash_work(B, H, H, S, S, HD, HD, True, 2))
         ms, parent_ms = paired_ms(lambda m: m.attention_bthd(q, k, v), fa, parent)
         r = dict(
             shape=[B, S, H, HD], what=what, max_abs_err=err(got, want), tol=attn_tol(bf16),
@@ -817,7 +832,7 @@ def check_rmsnorm_backward(dev, g, parent) -> dict:
             raise AssertionError(f"rmsnorm_backward ({what}): two calls differ")
         plain_gaps = [grad_gap(a, b) for a, b in zip(plain_bf16, want)]
         yl = F.rms_norm(xr, (D,), wr, 1e-5)
-        b_ms, b_by = bound_ms(3 * N * D * 2 + 2 * D * 2, (10.0 * N * D, F32_FLOP_S))
+        b_ms, b_by = bound_ms(rn.rmsnorm_backward_work(N, D, 2))
         lanes, vpt, threads = rn.backward_shape(D, 2)
         plan = rn.backward_plan(N, D, 2, _lib.sm_count(dev.index), rn.backward_blocks_per_sm(
             D, _lib.dtype_code(x), lanes, vpt, int(rn.vector_loads(x, w, x)), threads, dev.index))
@@ -935,18 +950,9 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
                                  f"differs from the eager call")
         plain_gaps = [grad_gap(a, b) for a, b in zip(plain_bf16, want)]
         del want, again, plain_bf16, leaves, direct
-        pairs = B * H * flash_pairs(Sq, Sk, causal)
-        kv_rows = min(Sq, Sk) if causal else Sk  # the K/V rows some query keeps
-        rows_q, rows_kv = B * H * Sq * 2, B * KH * kv_rows * 2  # bytes a column
-        # q and o (D and Dv), the kept K/V rows, lse; Q.K^T and P.V
-        f_ms, f_by = bound_ms((rows_q + rows_kv) * (D + Dv) + B * H * Sq * 4,
-                              (2.0 * pairs * (D + Dv), BF16_FLOP_S))
-        # reads q, o, dout, the kept K/V rows and lse; writes dq, and dk, dv
-        # at all Sk rows (zeros where no query sees a key); S^T, dK and dQ
-        # D wide, dP^T and dV Dv wide
-        b_ms, b_by = bound_ms(rows_q * (2 * D + 2 * Dv) + rows_kv * (D + Dv)
-                              + B * KH * Sk * (D + Dv) * 2 + B * H * Sq * 4,
-                              (2.0 * pairs * (3 * D + 2 * Dv), BF16_FLOP_S))
+        pairs = B * H * fa.flash_pairs(Sq, Sk, causal)
+        f_ms, f_by = bound_ms(fa.forward_lse_work(B, H, KH, Sq, Sk, D, Dv, causal))
+        b_ms, b_by = bound_ms(fa.backward_work(B, H, KH, Sq, Sk, D, Dv, causal))
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                              enable_gqa=H != KH)
@@ -1073,8 +1079,7 @@ def check_flash_f32(dev, g, err, parent) -> dict:
                                           plan.v_chunks):
         raise AssertionError(f"flash_attention f32: the source launches "
                              f"{fa.f32_plan_on_card(S, HD, HD)}, its plan is {plan}")
-    pairs = B * H * S * (S + 1) / 2
-    b_ms, b_by = bound_ms(4 * B * S * H * HD * 4, (4.0 * pairs * HD, F32_FLOP_S))
+    b_ms, b_by = bound_ms(fa.flash_work(B, H, H, S, S, HD, HD, True, 4))
     ms, parent_ms = paired_ms(lambda m: m.attention_bthd(q, k, v), fa, parent)
 
     def sdpa():
@@ -1155,26 +1160,6 @@ def flash_model_shapes() -> list[tuple]:
                   ("causal, Sq > Sk", 2, 1000, 300, 16, 4, 64, 64, True)]
 
 
-def flash_pairs(Sq: int, Sk: int, causal: bool) -> float:
-    """The (query, key) pairs a head's mask keeps: all Sq x Sk, or under the
-    causal mask, top-left, min(i + 1, Sk) for query i."""
-    if not causal:
-        return float(Sq * Sk)
-    m = min(Sq, Sk)
-    return m * (m + 1) / 2 + max(Sq - Sk, 0) * Sk
-
-
-def flash_bound(B, Sq, Sk, H, KH, D, Dv, causal, esize, peak) -> tuple[float, str]:
-    """Bytes: q (B, Sq, H, D) and o (B, Sq, H, Dv) once each, and the rows
-    of k (B, Sk, KH, D) and v (B, Sk, KH, Dv) some query keeps, once each:
-    all Sk, or min(Sq, Sk) under the causal mask.  Operations: Q.K^T (D
-    wide) and P.V (Dv wide) over the (query, key) pairs the mask keeps
-    (`flash_pairs`)."""
-    kv_rows = min(Sq, Sk) if causal else Sk
-    nbytes = (B * Sq * H * (D + Dv) + B * kv_rows * KH * (D + Dv)) * esize
-    return bound_ms(nbytes, (2.0 * B * H * flash_pairs(Sq, Sk, causal) * (D + Dv), peak))
-
-
 def check_flash_models(dev, g, err, parent) -> list[dict]:
     """Flash attention at `flash_model_shapes` in the model layout, bf16 and
     f32 (TF32 off), each against its plain version (bf16 at `attn_tol`; f32
@@ -1208,8 +1193,8 @@ def check_flash_models(dev, g, err, parent) -> list[dict]:
             bound = attn_tol(dtype) if dtype == torch.bfloat16 else tol(dtype)
             torch.testing.assert_close(got, want, **bound)
             torch.testing.assert_close(bhsd.transpose(1, 2), got, atol=0, rtol=0)
-            b_ms, b_by = flash_bound(B, Sq, Sk, H, KH, D, Dv, causal, q.element_size(),
-                                     BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S)
+            b_ms, b_by = bound_ms(fa.flash_work(B, H, KH, Sq, Sk, D, Dv, causal,
+                                                q.element_size()))
             gqa = {"enable_gqa": True} if H != KH else {}
             iters = 50 if B * H * Sq * Sk < 2 ** 28 else 10
             if dtype == torch.float32:
@@ -1284,9 +1269,7 @@ def check_decode_attention(dev, g, err, parent) -> dict:
         torch.testing.assert_close(got32, want32, **tol(torch.float32))
         qh, kh, vh = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
         gqa = {"enable_gqa": True} if H != KH else {}
-        nbytes = 2 * B * L * KH * HD * 2 + 2 * B * H * HD * 2 + 4
-        # q.k and p.v: bf16 operands (p enters P.V as two bf16 parts)
-        b_ms, b_by = bound_ms(nbytes, (4.0 * B * H * L * HD, BF16_FLOP_S))
+        b_ms, b_by = bound_ms(da.decode_work(B, H, KH, L, HD, 2))
         plan = da.split_plan(B, KH, L, n_sm)
         ms, parent_ms = paired_ms(lambda m: m.decode_attention_bthd(q, kc, vc, lens), da, parent)
         r = dict(
@@ -1312,34 +1295,6 @@ def check_decode_attention(dev, g, err, parent) -> dict:
             f"{err(got32, want32):.3g} (tol {tol(torch.float32)})")
         shapes.append(r)
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
-
-
-def ssd_bound(B: int, T: int, NH: int, DK: int, DV: int, chunk: int, esize: int,
-              broadcast: bool, with_i: bool) -> tuple[float, str]:
-    """ssd_scan's bound at one shape.  Bytes: q and k once (once a head,
-    or once for all heads where they are broadcast), v and y in the input
-    dtype (`esize` bytes), the f32 gates and the f32 final state.
-    Operations: q.k over the causal (t, s) pairs of each chunk has two
-    input operands (bf16: the bf16 peak), once for all heads where q and k
-    are broadcast (the scores differ by head only in their decay, applied
-    elementwise); the decayed scores times v, q
-    times the state entering each chunk after the first, and the weighted
-    k times v for every chunk each have an f32 operand, which the kernel
-    splits into two bf16 parts (half the peak); f32 inputs make every
-    product six bf16 products (a sixth of the peak)."""
-    heads_qk = 1 if broadcast else NH
-    nbytes = (2 * B * T * heads_qk * DK * esize + 2 * B * T * NH * DV * esize
-              + (2 if with_i else 1) * B * T * NH * 4 + B * NH * DK * DV * 4)
-    ops_qk = ops_split = 0.0
-    for c0 in range(0, T, chunk):
-        lc = min(chunk, T - c0)
-        pairs = lc * (lc + 1) / 2
-        ops_qk += pairs * 2 * DK
-        ops_split += pairs * 2 * DV + 2 * lc * DK * DV * (2 if c0 > 0 else 1)
-    if esize == 4:
-        return bound_ms(nbytes, (B * (heads_qk * ops_qk + NH * ops_split), BF16X6_FLOP_S))
-    return bound_ms(nbytes, (B * heads_qk * ops_qk, BF16_FLOP_S),
-                    (B * NH * ops_split, BF16X2_FLOP_S))
 
 
 def check_ssd_scan(dev, g, err, parent) -> dict:
@@ -1403,7 +1358,8 @@ def check_ssd_scan(dev, g, err, parent) -> dict:
         raise AssertionError("ssd_scan: two bf16 calls differ")
     log(f"[kernels] ssd_scan bf16 T={S}: y max|err| {err(y, y0):.3g}, state max|err| "
         f"{err(st, st0):.3g} at scale {float(st0.abs().max()):.3g}; bit-equal run to run")
-    b_ms, b_by = ssd_bound(B, S, NH, DS, HD, chunk, 2, broadcast=True, with_i=False)
+    b_ms, b_by = bound_ms(ssd.scan_work(B, S, NH, DS, HD, chunk, 2, broadcast=True,
+                                        with_i=False))
     ms, parent_ms = paired_ms(lambda m: m.ssd_scan_bthd(*args, chunk=chunk), ssd, parent)
     r = dict(
         shape=[B, S, NH, DS, HD], what="zamba2-2.7b Mamba2, q/k broadcast", dtype="bf16",
@@ -1462,8 +1418,8 @@ def check_ssd_wide(dev, g, err) -> list[dict]:
                                    rtol=y_tol["rtol"])
         torch.testing.assert_close(st, st0, atol=tol_f32["atol"] * ss, rtol=tol_f32["rtol"])
         name = "bf16" if dtype == torch.bfloat16 else "f32"
-        b_ms, b_by = ssd_bound(B, T, NH, DK, DK + 1, chunk, q.element_size(), broadcast=False,
-                               with_i=True)
+        b_ms, b_by = bound_ms(ssd.scan_work(B, T, NH, DK, DK + 1, chunk, q.element_size(),
+                                            broadcast=False, with_i=True))
         call = lambda: ssd.ssd_scan_bthd(*args, chunk=chunk)  # noqa: E731
         x = dict(shape=[B, T, NH, DK, DK + 1], what="xlstm-1.3b mLSTM, log_i in [-30, 10]",
                  dtype=name, chunk=chunk, max_abs_err=max(err(y, y0), err(st, st0)),
@@ -1496,36 +1452,6 @@ def ssd_grad_shapes() -> list[tuple]:
     return [("zamba2-2.7b train", mb, TRAIN_SEQ, 80, 64, 64, 256, True, False, False),
             ("xlstm-1.3b mLSTM train", mb, TRAIN_SEQ, 4, 1024, 1025, 256, False, True, False),
             ("ragged T, final-state cotangent", 2, 1000, 80, 64, 64, 256, True, False, True)]
-
-
-def ssd_backward_bound(B, T, NH, DK, DV, chunk, broadcast, with_i, final) -> tuple[float, str]:
-    """ssd_scan_backward's bound at one shape: the least the function needs.
-    Bytes: q and k read once (once for all heads where broadcast), v and dy
-    bf16, the f32 gates (and log_i), the f32 final-state cotangent where
-    given; dq and dk written once in bf16 (head-summed where q and k are
-    broadcast: the kernel's per-head rows, which autograd's expand backward
-    sums, are bytes of the design, not of the function), dv bf16, dlog_g
-    (and dlog_i) f32.  Operations, per chunk of L steps and its L(L+1)/2
-    causal pairs: q.k^T over the pairs (once for all heads where q and k
-    are broadcast) and dy.v^T (per head), both operands bf16 (the bf16
-    peak); every other product has an f32 operand in two bf16 parts (half
-    the peak): the forward's local states again and the chunk's U_c (2 L
-    DK DV each), the three state terms (dq's skipped in the first chunk)
-    and dS.k, dS^T.q, P^T.dy over the pairs."""
-    heads_qk = 1 if broadcast else NH
-    gates = (2 if with_i else 1) * B * T * NH * 4
-    nbytes = (2 * B * T * heads_qk * DK * 2 + 2 * B * T * NH * DV * 2 + gates
-              + (B * NH * DK * DV * 4 if final else 0)
-              + 2 * B * T * heads_qk * DK * 2 + B * T * NH * DV * 2 + gates)
-    qk = dyv = split = 0.0
-    for c0 in range(0, T, chunk):
-        lc = min(chunk, T - c0)
-        pairs = lc * (lc + 1) / 2
-        qk += 2 * pairs * DK
-        dyv += 2 * pairs * DV
-        split += 2 * lc * DK * DV * (5 if c0 > 0 else 4) + 2 * pairs * (2 * DK + DV)
-    return bound_ms(nbytes, (B * (heads_qk * qk + NH * dyv), BF16_FLOP_S),
-                    (B * NH * split, BF16X2_FLOP_S))
 
 
 def check_ssd_backward(dev, g, parent) -> dict:
@@ -1602,7 +1528,8 @@ def check_ssd_backward(dev, g, parent) -> dict:
                 raise AssertionError(f"ssd_scan_backward ({what}): two calls (or the call with "
                                      f"the forward's scratch kept) differ in {n}")
         del got, again, kept, want, plain
-        b_ms, b_by = ssd_backward_bound(B, T, NH, DK, DV, chunk, broadcast, with_i, final)
+        b_ms, b_by = bound_ms(ssd.scan_backward_work(B, T, NH, DK, DV, chunk, broadcast,
+                                                     with_i, final))
         parent_ms = parent_step_ms = parent_split = None
         if other is None:
             ms = time_ms(call, iters=10)
@@ -2160,10 +2087,9 @@ def phase_parity(cfg, executors, dev) -> None:
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import counters
+    from repro_torch.kernels import reset_counts as reset
 
-    for fn in counters().values():
-        fn.launches = 0
+    reset()
 
 
 def read_counts() -> dict:
@@ -2964,10 +2890,12 @@ def decode_run(arch: str, B: int, S: int, n: int, params, dev, parent) -> dict:
         del lg, wc
         torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(params, batch, max_len=n0 + n)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
+        with (measured(f"{arch} prefill", (params, batch), prefill_trace(model, batch, n0 + n))
+              if arch in DRY_RUN_PREFILLS else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, batch, max_len=n0 + n)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
         pre = read_counts()
         reset_counts()
         tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -3184,10 +3112,101 @@ def heads_expanded(scan):
     return call
 
 
+# a run's peak memory before a call measured on its own (`measured`),
+# which resets the card's peak statistics: `run_peak` is the larger
+_PEAKS_BEFORE = {"allocated": 0, "reserved": 0}
+# the calls measured for phase 7, by name: their peak on the card, launches
+# and the meta trace of the same call (`measured`)
+DRY_RUN: dict = {}
+
+
+def reset_peak() -> None:
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _PEAKS_BEFORE.update(allocated=0, reserved=0)
+
+
+def run_peak(kind: str = "allocated") -> int:
+    """The card's peak memory (allocated or reserved) since `reset_peak`,
+    across any call `measured` in between."""
+    import torch
+
+    now = (torch.cuda.max_memory_allocated() if kind == "allocated"
+           else torch.cuda.max_memory_reserved())
+    return max(now, _PEAKS_BEFORE[kind])
+
+
+@contextlib.contextmanager
+def measured(name: str, inputs, trace):
+    """The block's calls measured for phase 7 as `name`: their peak
+    allocated memory on the card, less what was allocated before them and
+    is none of their `inputs` (earlier phases' leftovers, cached buffers),
+    so that it compares with the meta trace's peak, which starts from the
+    inputs alone; and each kernel's launches.  `trace()` runs the same
+    call on the meta device (`hlo_analysis.analyze_traced`).  The card's
+    peak statistics are reset for the block; `run_peak` keeps the run's."""
+    import torch
+
+    from repro_torch.launch import hlo_analysis
+
+    torch.cuda.synchronize()
+    for kind in _PEAKS_BEFORE:
+        _PEAKS_BEFORE[kind] = run_peak(kind)
+    held = hlo_analysis.storage_bytes(hlo_analysis.tree_tensors(inputs))
+    before, counts = torch.cuda.memory_allocated(), read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    yield
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    DRY_RUN[name] = dict(measured=peak - (before - held), peak=peak, before=before, held=held,
+                         launches={k: v - counts[k] for k, v in read_counts().items()
+                                   if v != counts[k]}, trace=trace)
+
+
+def meta_like(batch: dict) -> dict:
+    import torch
+
+    return {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+
+
+def prefill_trace(model, batch: dict, max_len: int):
+    """The meta trace of `model.prefill(params, batch, max_len=max_len)`
+    under inference mode, on `model.shapes()`."""
+    import torch
+
+    from repro_torch.launch import hlo_analysis
+
+    shapes = meta_like(batch)
+
+    def prefill(params, b):
+        with torch.inference_mode():
+            return model.prefill(params, b, max_len=max_len)
+
+    return lambda: hlo_analysis.analyze_traced(prefill, model.shapes(), shapes)
+
+
+def train_trace(model, opt_cfg, batch: dict):
+    """The meta trace of one eager step of phase 6's train step (remat,
+    `TRAIN_ACCUM` micro-batches) on `model.shapes()` and its zero moments."""
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.training import init_opt_state, make_train_step
+
+    shapes = meta_like(batch)
+
+    def trace():
+        params = model.shapes()
+        step = make_train_step(model, opt_cfg, remat=True, accum_steps=TRAIN_ACCUM)
+        return hlo_analysis.analyze_traced(step, params, init_opt_state(params, opt_cfg),
+                                           shapes)
+
+    return trace
+
+
 def memory_line(arch: str, what: str) -> str:
     import torch
 
-    peak = torch.cuda.max_memory_allocated()
+    peak = run_peak()
     total = torch.cuda.get_device_properties(torch.cuda.current_device()).total_memory
     return (f"[decode] {arch}: peak device memory {what} {peak / 2**30:.2f} GiB allocated of "
             f"the card's {total / 2**30:.2f} GiB ({peak / total:.1%})")
@@ -3207,7 +3226,7 @@ def phase_decode(serving: list, dev, parent) -> dict:
 
     total: dict = {}
     for arch, B, S, n in DECODE_RUNS:
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         params = (serving[0].dataplane.dispatcher.executors[0][0].params if arch == MODEL
                   else None)
         counts, witness = decode_run(arch, B, S, n, params, dev, parent)
@@ -3222,7 +3241,7 @@ def phase_decode(serving: list, dev, parent) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         if arch in F32_WITNESS_LAYERS:
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             with torch.inference_mode():
                 f32_witness_cut(witness[0], F32_WITNESS_LAYERS[arch], *witness[1:], dev)
             log(memory_line(arch, "over the f32 witness"))
@@ -3290,7 +3309,8 @@ def train_expect(cfg) -> dict:
             "ssd_scan_backward": TRAIN_ACCUM * n_scan}
 
 
-def train_run(what: str, model, step, opt_cfg, batches, dev) -> dict:
+def train_run(what: str, model, step, opt_cfg, batches, dev, measure: str | None = None
+              ) -> dict:
     """One run of phase 6a: the state built on the card from `SEED`,
     `TRAIN_STEPS` steps of `step` over `batches`, then one more step under
     the profiler.  Logs each step's loss, gradient norm and time, the peak
@@ -3298,7 +3318,9 @@ def train_run(what: str, model, step, opt_cfg, batches, dev) -> dict:
     steps after the first, the launches of each kernel a step and the
     profiled step's busy share and host launch calls.  Returns the losses and gradient norms (every step's,
     the profiled one's last), the final parameters copied to the host, the
-    launch counters' advance over the counted steps and the readings."""
+    launch counters' advance over the counted steps and the readings.
+    `measure`: the name under which its second step is `measured` for
+    phase 7."""
     import math
 
     import torch
@@ -3306,17 +3328,20 @@ def train_run(what: str, model, step, opt_cfg, batches, dev) -> dict:
     from repro_torch.training import init_opt_state
     from repro_torch.training.tree import leaves, paths
 
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     opt = init_opt_state(params, opt_cfg)
     torch.cuda.synchronize()
     reset_counts()
     times, losses, gnorms = [], [], []
     for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        params, opt, metrics = step(params, opt, batches[i])
-        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-        times.append(time.perf_counter() - t0)
+        with (measured(measure, (params, opt, batches[i]),
+                       train_trace(model, opt_cfg, batches[i]))
+              if measure and i == 1 else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batches[i])
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            times.append(time.perf_counter() - t0)
         losses.append(loss)
         gnorms.append(gnorm)
         log(f"[train] {what} step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
@@ -3332,7 +3357,7 @@ def train_run(what: str, model, step, opt_cfg, batches, dev) -> dict:
     r = dict(ms=sum(steady) / len(steady) * 1e3, tok_s=tokens * len(steady) / sum(steady),
              ms2=sum(replays) / len(replays) * 1e3, tok_s2=tokens * len(replays) / sum(replays),
              frames_s2=frames * len(replays) / sum(replays),
-             peak=torch.cuda.max_memory_allocated(), reserved=torch.cuda.max_memory_reserved())
+             peak=run_peak(), reserved=run_peak("reserved"))
     rates = (f"{r['tok_s']:.0f} tokens/s" + (f", {frames * len(steady) / sum(steady):.0f} "
                                               f"frames/s" if frames else ""))
     rates2 = f"{r['tok_s2']:.0f}" + (f", {r['frames_s2']:.0f}" if frames else "")
@@ -3432,7 +3457,7 @@ def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
     batches = [train_batch(cfg, pipe, i, dev) for i in range(TRAIN_STEPS + 1)]
     expect = train_expect(cfg)
     eager = out_of_memory_fails(arch, lambda: train_run(f"{arch} eager", model, step, opt_cfg,
-                                                         batches, dev))
+                                                         batches, dev, f"{arch} train step"))
     gc.collect()
     torch.cuda.empty_cache()
     for name, n in expect.items():
@@ -3746,6 +3771,123 @@ def phase_elastic(dev) -> None:
         f"{ELASTIC_STEPS - 1}) equal the uninjected run's, step for step")
 
 
+# ----------------------------------------------------------------- phase 7
+
+
+def xlstm_step_trace() -> dict:
+    """The meta trace of xlstm-1.3b's full-depth eager train step at 6a's
+    shape (`train_trace`): its predicted peak, memory analysis and wall."""
+    import torch
+
+    from repro_torch.training import AdamWConfig
+
+    cfg, model = model_for("xlstm-1.3b")
+    pipe = train_pipe(cfg, TRAIN_BATCH, SEED)
+    batch = {k: torch.empty(v.shape, dtype=torch.as_tensor(v).dtype, device="meta")
+             for k, v in pipe.batch_for(0).items()}
+    _, extra = train_trace(model, AdamWConfig(lr=1e-3), batch)()
+    return dict(n_layers=cfg.n_layers, predicted=extra["peak_size"], trace_s=extra["trace_s"],
+                memory_analysis=extra["memory_analysis"])
+
+
+def start_xlstm_trace() -> subprocess.Popen:
+    """`xlstm_step_trace` in a process of its own (this script with
+    `--xlstm-trace`, on the CPU: the meta device needs no card), so that
+    its ~100 s of Python run beside phase 6; phase 7 reads its line."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--xlstm-trace"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_dry_run(xlstm_trace: subprocess.Popen) -> dict:
+    """The dry run (`repro_torch.launch.dryrun`'s trace on the meta device)
+    held to the card: `kernels/occupancy.py`'s table equal to the card's
+    readings; for each call `measured` in the earlier phases (`DRY_RUN`:
+    the second eager train step of 6a, 6d and 6e, the prefills of
+    `DRY_RUN_PREFILLS`), the same call traced on the meta device, its
+    predicted peak within `DRY_RUN_TOL` of the card's and every kernel's
+    launches equal to the card's.  Prints, without holding them, each
+    trace's wall, xlstm-1.3b's predicted eager peak for a full-depth train
+    step at 6a's shape (from `xlstm_trace`, `start_xlstm_trace`'s
+    process), and for the MoE pair the deepest depth whose prefill (phase
+    5's) the dry run predicts fits the card, beside `DEPTH_CUTS`.  Returns
+    the table of predictions."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import occupancy
+    from repro_torch.launch.dryrun import CARD_BYTES
+
+    rms, flash = occupancy.read_on_card()
+    differ = ({k: (occupancy.RMSNORM_BLOCKS_PER_SM[k], v) for k, v in rms.items()
+               if v != occupancy.RMSNORM_BLOCKS_PER_SM[k]}
+              | {k: (occupancy.FLASH_CLUSTERS[k], v) for k, v in flash.items()
+                 if v != occupancy.FLASH_CLUSTERS[k]})
+    if differ:
+        raise AssertionError(f"the occupancy table differs from the card's readings "
+                             f"(table, card): {differ}")
+    log(f"[dry run] the occupancy table equals the card's readings: {len(rms)} rmsnorm_backward "
+        f"widths, {len(flash)} flash backward (clusters, instance) pairs")
+    want = ({f"{a} train step" for a in (TRAIN_ARCH, HYBRID_TRAIN_ARCH, ENCDEC_TRAIN_ARCH)}
+            | {f"{a} prefill" for a in DRY_RUN_PREFILLS})
+    if set(DRY_RUN) != want:
+        raise AssertionError(f"measured calls {sorted(DRY_RUN)}, expected {sorted(want)}")
+    rows = {}
+    for name, r in DRY_RUN.items():
+        terms, extra = r.pop("trace")()
+        predicted, got = extra["peak_size"], r["measured"]
+        meta = {k: w["launches"] for k, w in extra["kernels"].items()}
+        rows[name] = dict(r, predicted=predicted, ratio=predicted / got, trace_s=extra["trace_s"],
+                          meta_launches=meta, flops=terms.flops_per_device,
+                          memory_analysis=extra["memory_analysis"])
+        log(f"[dry run] {name}: predicted peak {predicted / 2**30:.3f} GiB, measured "
+            f"{got / 2**30:.3f} GiB (the card's peak {r['peak'] / 2**30:.3f} less "
+            f"{(r['before'] - r['held']) / 2**30:.3f} GiB allocated before and not its "
+            f"inputs'), {predicted / got:.4f}x; launches meta {meta}, card {r['launches']}; "
+            f"{terms.flops_per_device / 1e12:.2f} TFLOP traced; the trace {extra['trace_s']:.2f} "
+            f"s wall")
+        if abs(predicted / got - 1) > DRY_RUN_TOL:
+            raise AssertionError(f"{name}: the dry run predicts {predicted} bytes, the card "
+                                 f"measured {got} (limit {DRY_RUN_TOL:.0%})")
+        if meta != r["launches"]:
+            raise AssertionError(f"{name}: launches on meta {meta}, on the card {r['launches']}")
+
+    # predictions, not held: xlstm-1.3b's full-depth step at 6a's shape,
+    # traced in a process of its own since phase 6 (`start_xlstm_trace`)
+    out, err = xlstm_trace.communicate(timeout=900)
+    if xlstm_trace.returncode != 0:
+        raise AssertionError(f"xlstm-1.3b's trace exited {xlstm_trace.returncode}: {err[-2000:]}")
+    x = json.loads(out.strip().splitlines()[-1])
+    ma = x["memory_analysis"]
+    rows["xlstm-1.3b train step"] = x
+    log(f"[dry run] xlstm-1.3b at full width and depth ({x['n_layers']} layers), one eager "
+        f"train step at 6a's shape ({TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ}):"
+        f" predicted peak {x['predicted'] / 2**30:.3f} GiB of the card's "
+        f"{CARD_BYTES / 2**30:.2f} (arguments {ma['argument_size'] / 2**30:.3f}, temp "
+        f"{ma['temp_size'] / 2**30:.3f}); {'fits' if x['predicted'] <= CARD_BYTES else 'does not fit'}"
+        f" (eager; a graph's pool not counted); the trace {x['trace_s']:.2f} s wall, in a "
+        f"process of its own started with phase 6")
+
+    # the MoE pair: the deepest prefill of phase 5's shape that fits
+    for arch, B, S, n in DECODE_RUNS:
+        if arch not in DEPTH_CUTS:
+            continue
+        full, deepest, peaks = get_config(arch).n_layers, 0, {}
+        for layers in range(1, full + 1):
+            cfg, model = model_for(arch, layers)
+            tokens = torch.empty((B, S), dtype=torch.int64, device="meta")
+            _, extra = prefill_trace(model, {"tokens": tokens}, S + n)()
+            peaks[layers] = extra["peak_size"]
+            if extra["peak_size"] > CARD_BYTES:
+                break
+            deepest = layers
+        rows[f"{arch} deepest prefill"] = dict(deepest=deepest, peaks=peaks)
+        log(f"[dry run] {arch}: the deepest prefill ({B} x {S}, cache {S + n}) the dry run "
+            f"predicts fits the card: {deepest} of {full} layers (DEPTH_CUTS: "
+            f"{DEPTH_CUTS[arch]}); predicted peaks by depth "
+            + ", ".join(f"{k}: {v / 2**30:.2f} GiB" for k, v in peaks.items()))
+    return rows
+
+
 def main() -> int:
     import argparse
 
@@ -3754,12 +3896,16 @@ def main() -> int:
                     help="another tree of the repository (e.g. the parent commit unpacked): "
                          "time its kernels in turns with this tree's, and profile a prefill "
                          "through them")
+    ap.add_argument("--xlstm-trace", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.xlstm_trace:  # phase 7's process of its own (`start_xlstm_trace`)
+        print(json.dumps(xlstm_step_trace()))
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -3788,17 +3934,25 @@ def main() -> int:
     del session
     decode = phase_decode(serving, dev, parent)
     elapsed("5 (decode)")
-    train = phase_train(dev)
-    elapsed("6a (train)")
-    for arch, n_layers in GRAD_PARITY_RUNS:
-        phase_grad_parity(dev, arch, n_layers)
-        elapsed(f"6b ({arch})")
-    phase_elastic(dev)
-    elapsed("6c (elastic)")
-    for arch in (HYBRID_TRAIN_ARCH, ENCDEC_TRAIN_ARCH):  # 6d, 6e
-        more = phase_train(dev, arch)
-        train = {name: train.get(name, 0) + more.get(name, 0) for name in {*train, *more}}
-        elapsed(f"6d-6e ({arch})")
+    xlstm_trace = start_xlstm_trace()
+    try:
+        train = phase_train(dev)
+        elapsed("6a (train)")
+        for arch, n_layers in GRAD_PARITY_RUNS:
+            phase_grad_parity(dev, arch, n_layers)
+            elapsed(f"6b ({arch})")
+        phase_elastic(dev)
+        elapsed("6c (elastic)")
+        for arch in (HYBRID_TRAIN_ARCH, ENCDEC_TRAIN_ARCH):  # 6d, 6e
+            more = phase_train(dev, arch)
+            train = {name: train.get(name, 0) + more.get(name, 0) for name in {*train, *more}}
+            elapsed(f"6d-6e ({arch})")
+        phase_dry_run(xlstm_trace)
+        elapsed("7 (dry run)")
+    finally:
+        if xlstm_trace.poll() is None:
+            xlstm_trace.kill()
+            xlstm_trace.wait()
     launches = {name: {"serve": launches.get(name, 0), "decode": decode.get(name, 0),
                        "train": train.get(name, 0)} for name in KERNEL_NAMES}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

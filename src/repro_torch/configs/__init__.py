@@ -1,1 +1,10 @@
-from .registry import ARCH_IDS, get_config  # noqa: F401
+from .registry import (  # noqa: F401
+    ARCH_IDS,
+    SHAPES,
+    SUBQUADRATIC,
+    ShapeSpec,
+    all_cells,
+    get_config,
+    input_specs,
+    shape_applicable,
+)

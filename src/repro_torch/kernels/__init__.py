@@ -1,14 +1,16 @@
 """Hand-written Hopper kernels of the serving and training paths.
 
 Each kernel directory holds its CUDA source under `csrc/` and an `ops.py`
-with the launching wrapper, its launch counter and the plain PyTorch version
-of the same function.  `_lib.py` builds the sources with nvcc at first use.
+with the launching wrapper, its counters (launches, and the bytes and
+operations of those launches, `work.py`) and the plain PyTorch version of
+the same function.  `_lib.py` builds the sources with nvcc at first use.
 """
 
 def counters() -> dict:
     """Each kernel's launching wrapper, by kernel name; its `launches`
     attribute counts the launches (or, under CUDA graph capture, the
-    recordings) of its kernel."""
+    recordings; on the meta device, the launches skipped) of its kernel,
+    `nbytes` and `ops` their work (`work.py`)."""
     from .boundary_quant import ops as bq
     from .decode_attention import ops as da
     from .flash_attention import ops as fa
@@ -25,3 +27,16 @@ def counters() -> dict:
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def work_counts() -> dict[str, dict]:
+    """Each kernel's launches, bytes and operations by precision class."""
+    return {name: {"launches": fn.launches, "nbytes": fn.nbytes, "ops": dict(fn.ops)}
+            for name, fn in counters().items()}
+
+
+def reset_counts() -> None:
+    from .work import reset
+
+    for fn in counters().values():
+        reset(fn)

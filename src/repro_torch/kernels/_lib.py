@@ -10,7 +10,13 @@ the headers it includes) and of the flags, so an edited file rebuilds.
 
 `route(...)` is the one device rule every wrapper follows: CPU tensors take
 the plain PyTorch version, CUDA tensors launch the kernel (or raise), and
-any other device raises.  Nothing falls back.  `needs_grad(...)` is the
+any other device raises.  Nothing falls back.  Meta tensors (shapes and
+dtypes, no storage: the dry run, `launch/hlo_analysis.py`) take the CUDA
+route's Python code, its checks, copies, allocations, plans and autograd
+`Function`s, and skip only the launch (`launch`): no library is loaded
+and no plain version runs (it would allocate what the kernel never
+writes).  A device query on a meta tensor answers with the H100's value
+(`sm_count`; the occupancy reads in `occupancy.py`).  `needs_grad(...)` is the
 rule under autograd: a CUDA input that needs a gradient goes through the
 kernel's `torch.autograd.Function` (rmsnorm, flash attention's training
 route, the SSD scan in bf16), or, for a kernel with no backward, raises (`no_backward`, a
@@ -119,19 +125,27 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
 
 
 def route(*tensors: torch.Tensor) -> bool:
-    """True to launch the kernel (CUDA), False for the plain version (CPU).
+    """True for the kernel's route (CUDA; meta, which skips the launch),
+    False for the plain version (CPU).
 
-    Every tensor must sit on one device; any device other than CPU or CUDA
-    raises, as does a mix."""
+    Every tensor must sit on one device; any device other than CPU, CUDA
+    or meta raises, as does a mix."""
     dev = tensors[0].device
     for t in tensors[1:]:
         if t.device != dev:
             raise ValueError(f"tensors on different devices: {dev} and {t.device}")
     if dev.type == "cpu":
         return False
-    if dev.type == "cuda":
+    if dev.type in ("cuda", "meta"):
         return True
     raise RuntimeError(f"no kernel and no plain version for device {dev}")
+
+
+def launch(t: torch.Tensor, name: str, call) -> None:
+    """Run `call()`, a C entry point's launch, and raise on its error; on
+    a meta tensor skip it: there is no storage to run on."""
+    if t.device.type != "meta":
+        check(name, call())
 
 
 def needs_grad(*tensors) -> bool:
@@ -157,11 +171,20 @@ def no_backward(kernel: str, item: str) -> ProgramError:
         f"{item}; call it without grad, or on CPU tensors for the plain version")
 
 
+# streaming multiprocessors of an NVIDIA H100 SXM: what a meta tensor's
+# device queries answer
+H100_SMS = 132
+
+
 @functools.lru_cache(maxsize=None)
-def sm_count(index: int | None) -> int:
-    """Streaming multiprocessors of CUDA device `index` (None: the current
-    one), looked up once."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def sm_count(device: torch.device | int | None) -> int:
+    """Streaming multiprocessors of CUDA device `device` (an index, or None
+    for the current one), looked up once; `H100_SMS` for the meta device."""
+    if isinstance(device, torch.device):
+        if device.type == "meta":
+            return H100_SMS
+        device = device.index
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dtype_code(t: torch.Tensor) -> int:
@@ -172,6 +195,9 @@ def dtype_code(t: torch.Tensor) -> int:
 
 
 def stream_handle(t: torch.Tensor) -> int:
+    """The current CUDA stream of `t`'s device; 0 on meta (no stream)."""
+    if t.device.type == "meta":
+        return 0
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -9,6 +9,9 @@ into rows, as the reference's `ops.py` does; any row count is accepted.
 `launch_plan` picks quantize's launch shape from D (and, for narrow rows,
 the row count against the card's SMs), and `vector_loads` whether it may
 use 16-byte loads (otherwise it loads element by element).
+`quantize_work` and `dequantize_work` are each call's bytes and
+operations (`kernels/work.py`), added to the wrapper's counters; a meta
+call (the dry run) runs the CUDA route without the launch.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import ctypes
 import torch
 
 from .. import _lib
+from ..work import Work, count, reset
 
 
 def quantize_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -68,6 +72,19 @@ def launch_plan(D: int, elem_size: int, rows: int = 0, n_sm: int = 0) -> tuple[i
     return -(-threads // 32) * 32, cpt
 
 
+def quantize_work(N: int, D: int, esize: int) -> Work:
+    """x (`esize` bytes an element) read once, q (int8) and the f32 scales
+    written once; three f32 operations an element (|x|, the max, the
+    divide)."""
+    return Work(N * D * esize + N * D + N * 4, (("f32", 3.0 * N * D),))
+
+
+def dequantize_work(N: int, D: int, esize: int) -> Work:
+    """q and the scales read once, the output (`esize` bytes an element)
+    written once; one f32 product an element."""
+    return Work(N * D + N * 4 + N * D * esize, (("f32", 1.0 * N * D),))
+
+
 def vector_loads(x: torch.Tensor) -> bool:
     """16-byte loads and 8-byte stores: x's base 16-byte aligned and D a
     multiple of the chunk, so every row stays aligned (q is allocated
@@ -106,11 +123,11 @@ def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if N == 0 or D == 0:
         return q, scale
     code = _lib.dtype_code(x)
-    lanes, cpt = launch_plan(D, x.element_size(), N, _lib.sm_count(x.device.index))
-    err = _bind().bq_quantize(x.data_ptr(), q.data_ptr(), scale.data_ptr(), N, D, code,
-                              lanes, cpt, int(vector_loads(x)), _lib.stream_handle(x))
-    _lib.check("quantize", err)
-    quantize.launches += 1
+    lanes, cpt = launch_plan(D, x.element_size(), N, _lib.sm_count(x.device))
+    _lib.launch(x, "quantize", lambda: _bind().bq_quantize(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), N, D, code, lanes, cpt,
+        int(vector_loads(x)), _lib.stream_handle(x)))
+    count(quantize, quantize_work(N, D, x.element_size()))
     return q, scale
 
 
@@ -132,12 +149,12 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
     out = torch.empty(q.shape, dtype=dtype, device=q.device)
     if N == 0 or D == 0:
         return out
-    err = _bind().bq_dequantize(q.data_ptr(), scale.data_ptr(), out.data_ptr(), N, D,
-                                _lib.dtype_code(out), _lib.stream_handle(q))
-    _lib.check("dequantize", err)
-    dequantize.launches += 1
+    code = _lib.dtype_code(out)
+    _lib.launch(q, "dequantize", lambda: _bind().bq_dequantize(
+        q.data_ptr(), scale.data_ptr(), out.data_ptr(), N, D, code, _lib.stream_handle(q)))
+    count(dequantize, dequantize_work(N, D, out.element_size()))
     return out
 
 
-quantize.launches = 0
-dequantize.launches = 0
+reset(quantize)
+reset(dequantize)

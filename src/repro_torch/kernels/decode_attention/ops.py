@@ -23,6 +23,12 @@ host-known shapes only (never `kv_len`), so a call's launch shape is fixed;
 with more than one split, the splits of one (batch, KV head) run as a
 thread block cluster whose first block merges their partials, which live in
 f32 scratch allocated here.
+
+`decode_work` is a call's bytes and operations (`kernels/work.py`), added
+to the wrapper's counters: over `kv_len` keys where it is a Python int,
+over the cache's capacity where it is a tensor (reading it would make the
+host wait for the card).  A meta call (the dry run) runs the CUDA route
+without the launch.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import math
 import torch
 
 from .. import _lib
+from ..work import Work, count, dtype_class, reset
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # kMaxD in the source
@@ -92,6 +99,15 @@ def split_plan(B: int, KH: int, S: int, n_sm: int) -> tuple[int, int, int]:
     return n, max(1, -(-S // n)), 1 if pairs * n <= n_sm else 0
 
 
+def decode_work(B: int, H: int, KH: int, L: int, D: int, esize: int) -> Work:
+    """One query row a head over L keys of a cache of KH heads: K and V's
+    L rows read once, q read and o written once, the int32 kv_len read;
+    q.k and p.v over the L keys at the inputs' class (in bf16, p enters P.V
+    as two bf16 parts: four operations a key and column)."""
+    nbytes = 2 * B * L * KH * D * esize + 2 * B * H * D * esize + 4
+    return Work(nbytes, ((dtype_class(esize), 4.0 * B * H * L * D),))
+
+
 _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # q, k, v, o, kv_len pointer, kv_len stride, kv_len scalar,
 # 4 x (batch, kv head, row) strides, B, KH, G, S, D, scale, dtype,
@@ -135,16 +151,16 @@ def _launch(q, k, v, o, kv_len, scale: float, plan: tuple[int, int, int] | None)
     if q.numel() == 0 or S == 0:
         return
     ptr, stride, scalar, _lens = _kv_len_args(kv_len, B, q.device)
-    n_split, split_len, ring = plan or split_plan(B, KH, S, _lib.sm_count(q.device.index or 0))
+    n_split, split_len, ring = plan or split_plan(B, KH, S, _lib.sm_count(q.device))
     # per split: m and l of each query head, then its (G, D) accumulator
     part = (torch.empty(B * KH * n_split * G * (D + 2), dtype=torch.float32, device=q.device)
             if n_split > 1 else None)
-    lib = _lib.load("decode_attention", _SIGNATURES)
-    err = lib.da_forward(*ptrs, ptr, stride, scalar, *strides, B, KH, G, S, D, float(scale),
-                         code, split_len, n_split, ring,
-                         0 if part is None else part.data_ptr(), _lib.stream_handle(q))
-    _lib.check("decode_attention", err)
-    decode_attention.launches += 1
+    _lib.launch(q, "decode_attention", lambda: _lib.load(
+        "decode_attention", _SIGNATURES).da_forward(
+        *ptrs, ptr, stride, scalar, *strides, B, KH, G, S, D, float(scale), code, split_len,
+        n_split, ring, 0 if part is None else part.data_ptr(), _lib.stream_handle(q)))
+    keys = S if isinstance(kv_len, torch.Tensor) else min(int(kv_len), S)
+    count(decode_attention, decode_work(B, KH * G, KH, keys, D, q.element_size()))
 
 
 # decode has no training path: no backward will come
@@ -199,4 +215,4 @@ def decode_attention_bthd(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     return out
 
 
-decode_attention.launches = 0
+reset(decode_attention)

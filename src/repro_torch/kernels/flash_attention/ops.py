@@ -47,6 +47,14 @@ at v's own width, padded only to the nearest width the source instantiates
 ROADMAP item that brings its backward.  `flash_attention_backward_plain` is
 the same backward in explicit formulas (from lse and Delta, as the kernel
 computes it), for the tests.
+
+`flash_work`, `forward_lse_work` and `backward_work` are each entry's bytes
+and operations at a call's shapes (`kernels/work.py`), over the (query,
+key) pairs the mask keeps (`flash_pairs`); each launch adds them to its
+wrapper's counters at the widths it is handed (v as padded, where the
+bf16 route pads it).  A meta call (the
+dry run) runs the CUDA route without the launch; the backward's cluster
+occupancy is the H100's, read from `occupancy.py`'s table.
 """
 
 from __future__ import annotations
@@ -58,7 +66,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .. import _lib
+from .. import _lib, occupancy
+from ..work import Work, count, dtype_class, reset
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 192  # three 64-column panels; kMaxD in the source
@@ -274,6 +283,48 @@ def grad_v_width(D: int, Dv: int) -> int:
     return REG_COLS if dp == MAX_HEAD_DIM and Dv < REG_COLS else D
 
 
+def flash_pairs(Sq: int, Sk: int, causal: bool) -> float:
+    """The (query, key) pairs a head's mask keeps: all Sq x Sk, or under the
+    causal mask, top-left, min(i + 1, Sk) for query i."""
+    if not causal:
+        return float(Sq * Sk)
+    m = min(Sq, Sk)
+    return m * (m + 1) / 2 + max(Sq - Sk, 0) * Sk
+
+
+def flash_work(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, Dv: int, causal: bool,
+               esize: int) -> Work:
+    """The forward: q (B, Sq, H, D) read and o (B, Sq, H, Dv) written once,
+    and the rows of k (D wide) and v (Dv) some query keeps read once each
+    (all Sk, or min(Sq, Sk) under the causal mask); Q.K^T (D wide) and P.V
+    (Dv) over the kept pairs, at the inputs' class."""
+    kv_rows = min(Sq, Sk) if causal else Sk
+    nbytes = (B * Sq * H * (D + Dv) + B * kv_rows * KH * (D + Dv)) * esize
+    return Work(nbytes, ((dtype_class(esize), 2.0 * B * H * flash_pairs(Sq, Sk, causal)
+                          * (D + Dv)),))
+
+
+def forward_lse_work(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, Dv: int,
+                     causal: bool) -> Work:
+    """The training forward (bf16): `flash_work`'s, and each row's f32
+    log-sum-exp written."""
+    w = flash_work(B, H, KH, Sq, Sk, D, Dv, causal, 2)
+    return Work(w.nbytes + B * H * Sq * 4, w.ops)
+
+
+def backward_work(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, Dv: int,
+                  causal: bool) -> Work:
+    """The backward (bf16): q, o, dout, the kept K/V rows and lse read, dq
+    written, and dk, dv at all Sk rows (zeros where no query sees a key);
+    S^T, dK and dQ D wide, dP^T and dV Dv wide, over the kept pairs."""
+    kv_rows = min(Sq, Sk) if causal else Sk
+    rows_q, rows_kv = B * H * Sq * 2, B * KH * kv_rows * 2  # bytes a column
+    nbytes = (rows_q * (2 * D + 2 * Dv) + rows_kv * (D + Dv) + B * KH * Sk * (D + Dv) * 2
+              + B * H * Sq * 4)
+    return Work(nbytes, (("bf16", 2.0 * B * H * flash_pairs(Sq, Sk, causal)
+                          * (3 * D + 2 * Dv)),))
+
+
 def _launch(q, k, v, o, causal: bool, scale: float) -> None:
     """All four are (B, heads, seq, D) views of one dtype, bfloat16 or
     float32, with a unit stride on D; k and v of Sk rows, q and o of Sq;
@@ -295,22 +346,26 @@ def _launch(q, k, v, o, causal: bool, scale: float) -> None:
             _check_tma(t, st, ptr)
     if q.numel() == 0:
         return
-    lib = _lib.load("flash_attention", _SIGNATURES)
     dims = (B, H, k.shape[1], Sq, k.shape[2], D)
-    if q.dtype == torch.float32:
-        err = lib.fa_forward_f32(*ptrs, *args[0], *args[1], *args[2], *args[3], *dims, Dv,
-                                 float(scale), int(causal), _lib.stream_handle(q))
-    else:
-        err = lib.fa_forward(*ptrs, *args[0], *args[1], *args[2], *args[3], *dims,
-                             float(scale), int(causal), _lib.stream_handle(q))
-    _lib.check("flash_attention", err)
-    flash_attention.launches += 1
+
+    def call():
+        lib = _lib.load("flash_attention", _SIGNATURES)
+        if q.dtype == torch.float32:
+            return lib.fa_forward_f32(*ptrs, *args[0], *args[1], *args[2], *args[3], *dims, Dv,
+                                      float(scale), int(causal), _lib.stream_handle(q))
+        return lib.fa_forward(*ptrs, *args[0], *args[1], *args[2], *args[3], *dims,
+                              float(scale), int(causal), _lib.stream_handle(q))
+
+    _lib.launch(q, "flash_attention", call)
+    count(flash_attention, flash_work(B, H, k.shape[1], Sq, k.shape[2], D, Dv, causal,
+                                      q.element_size()))
 
 
 def _check_tma(t: torch.Tensor, st: tuple, ptr: int) -> None:
     """The bf16 kernel reads q, k and v through TMA tensor maps, which address
     16-byte-aligned bases and strides only (a bf16 stride a multiple of 8
-    elements): raise on anything else (no fallback)."""
+    elements): raise on anything else (no fallback).  A meta tensor's
+    address is 0, so only its strides and head_dim are checked."""
     n = t.shape
     if (n[3] % 8 or ptr % 16 or (st[0] % 8 and n[0] > 1) or (st[1] % 8 and n[1] > 1)
             or (st[2] % 8 and n[2] > 1)):
@@ -351,13 +406,13 @@ def flash_attention_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     for t in (q, k, v, o):
         _check_tma(t, _strides(t), t.data_ptr())
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    lib = _lib.load("flash_attention", _SIGNATURES)
-    err = lib.fa_forward_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                             *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-                             B, H, k.shape[1], Sq, k.shape[2], D, float(scale), int(causal),
-                             lse.data_ptr(), _lib.stream_handle(q))
-    _lib.check("flash_attention_forward_lse", err)
-    flash_attention_forward_lse.launches += 1
+    _lib.launch(q, "flash_attention_forward_lse", lambda: _lib.load(
+        "flash_attention", _SIGNATURES).fa_forward_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *_strides(q), *_strides(k),
+        *_strides(v), *_strides(o), B, H, k.shape[1], Sq, k.shape[2], D, float(scale),
+        int(causal), lse.data_ptr(), _lib.stream_handle(q)))
+    count(flash_attention_forward_lse,
+          forward_lse_work(B, H, k.shape[1], Sq, k.shape[2], D, D, causal))
     return lse
 
 
@@ -516,17 +571,25 @@ def flash_attention_backward(q, k, v, o, dout, lse, dq, dk, dv, scale: float,
                          f"{v.shape[3]}, {o.shape[3]}, {dout.shape[3]}, {dv.shape[3]}")
     for t in (q, k, v, o, dout):
         _check_tma(t, _strides(t), t.data_ptr())
-    dev = q.device.index
-    plan = backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(dev),
-                         _clusters_at_once(H // KH, D, dev, Dv), causal)
+    at_once = (_clusters_on_h100(H // KH, D, Dv) if q.is_meta
+               else _clusters_at_once(H // KH, D, q.device.index, Dv))
+    plan = backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(q.device), at_once, causal)
     scratch = torch.empty((2, B, H, plan.scratch_rows), dtype=torch.float32, device=q.device)
-    lib = _lib.load("flash_attention", _SIGNATURES)
-    err = lib.fa_backward(*(t.data_ptr() for t in (q, k, v, o, dout, dq, dk, dv, lse, scratch)),
-                          *(x for t in (q, k, v, o, dout, dq, dk, dv) for x in _strides(t)),
-                          B, H, KH, Sq, Sk, D, Dv, float(scale), int(causal),
-                          _lib.stream_handle(q))
-    _lib.check("flash_attention_backward", err)
-    flash_attention_backward.launches += 1
+    _lib.launch(q, "flash_attention_backward", lambda: _lib.load(
+        "flash_attention", _SIGNATURES).fa_backward(
+        *(t.data_ptr() for t in (q, k, v, o, dout, dq, dk, dv, lse, scratch)),
+        *(x for t in (q, k, v, o, dout, dq, dk, dv) for x in _strides(t)),
+        B, H, KH, Sq, Sk, D, Dv, float(scale), int(causal), _lib.stream_handle(q)))
+    count(flash_attention_backward, backward_work(B, H, KH, Sq, Sk, D, Dv, causal))
+
+
+def _clusters_on_h100(G: int, D: int, Dv: int) -> tuple[tuple[int, int], ...]:
+    """`_clusters_at_once` for the meta device: the H100's readings, by the
+    instance the source takes for (D, Dv) (`grad_v_width` keeps (D, Dv) a
+    pair it takes)."""
+    dp, dvp = _padded_dim(D), _padded_dim(Dv)
+    return tuple((c, occupancy.flash_clusters(c, dp, dvp)) for c in _divisors(G)
+                 if c <= MAX_CLUSTER)
 
 
 def backward_max_clusters(C: int, D: int, Dv: int | None = None) -> int:
@@ -633,6 +696,6 @@ def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[..., :Dv]
 
 
-flash_attention.launches = 0
-flash_attention_forward_lse.launches = 0
-flash_attention_backward.launches = 0
+reset(flash_attention)
+reset(flash_attention_forward_lse)
+reset(flash_attention_backward)

@@ -16,6 +16,12 @@ past a grid-wide barrier, sums the partial rows in a fixed order;
 `backward_plan` is its launch shape); a CPU call runs the plain version and
 autograd differentiates it.  `rmsnorm_backward_plain` is the same backward
 in explicit formulas, for the tests; nothing on the card's path calls it.
+
+`rmsnorm_work` and `rmsnorm_backward_work` are each entry's bytes and
+operations at a call's shapes (`kernels/work.py`); each call adds them to
+its wrapper's counters.  A meta call (the dry run) runs the CUDA route
+without the launch; its backward's occupancy is the H100's, read from
+`occupancy.py`'s table.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _lib
+from .. import _lib, occupancy
+from ..work import Work, count, reset
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -81,9 +88,23 @@ def launch_plan(D: int, elem_size: int) -> tuple[int, int]:
     return -(-threads // 32) * 32, vpt
 
 
+def rmsnorm_work(N: int, D: int, esize: int) -> Work:
+    """N rows of D elements of `esize` bytes: x read and the output written
+    once, w read once; four f32 operations an element (square, sum, scale,
+    the weight's product)."""
+    return Work(2 * N * D * esize + D * esize, (("f32", 4.0 * N * D),))
+
+
+def rmsnorm_backward_work(N: int, D: int, esize: int) -> Work:
+    """x and dy read and dx written once, w read and dw written once; ten
+    f32 operations an element."""
+    return Work(3 * N * D * esize + 2 * D * esize, (("f32", 10.0 * N * D),))
+
+
 def vector_loads(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> bool:
     """16-byte accesses: every base address 16-byte aligned and D a
-    multiple of the vector, so every row stays aligned."""
+    multiple of the vector, so every row stays aligned.  A meta tensor's
+    address is 0, so it counts as aligned."""
     D = x.shape[-1]
     return all(t.data_ptr() % 16 == 0 for t in (x, w, out)) and D % (16 // x.element_size()) == 0
 
@@ -188,15 +209,11 @@ def _forward(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     if N == 0 or D == 0:
         return out
     lanes, vpt = launch_plan(D, x.element_size())
-    err = _bind().rmsnorm_forward(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, D, float(eps),
-                                  code, lanes, vpt, int(vector_loads(x, w, out)),
-                                  _lib.stream_handle(x))
-    _lib.check("rmsnorm", err)
-    rmsnorm.launches += 1
+    _lib.launch(x, "rmsnorm", lambda: _bind().rmsnorm_forward(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), N, D, float(eps), code, lanes, vpt,
+        int(vector_loads(x, w, out)), _lib.stream_handle(x)))
+    count(rmsnorm, rmsnorm_work(N, D, x.element_size()))
     return out
-
-
-rmsnorm.launches = 0
 
 
 def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
@@ -220,18 +237,17 @@ def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     dw = torch.empty_like(w)
     vec = vector_loads(x, w, dx) and dy.data_ptr() % 16 == 0
     lanes, vpt, threads = backward_shape(D, x.element_size(), vec)
-    plan = backward_plan(N, D, x.element_size(), _lib.sm_count(x.device.index),
-                         backward_blocks_per_sm(D, code, lanes, vpt, int(vec), threads,
-                                                x.device.index), vec)
+    per_sm = (occupancy.rmsnorm_blocks_per_sm(D, code, vec) if x.is_meta else
+              backward_blocks_per_sm(D, code, lanes, vpt, int(vec), threads, x.device.index))
+    plan = backward_plan(N, D, x.element_size(), _lib.sm_count(x.device), per_sm, vec)
     partial = torch.empty((plan.partial_rows, D), dtype=torch.float32, device=x.device)
     stream = _lib.stream_handle(x)
-    err = _bind().rmsnorm_backward(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                                   dw.data_ptr(), partial.data_ptr(),
-                                   _barrier_counter(x.device, stream).data_ptr(), N, D,
-                                   float(eps), code, lanes, vpt, int(vec), threads, plan.grid,
-                                   stream)
-    _lib.check("rmsnorm_backward", err)
-    rmsnorm_backward.launches += 1
+    counter = _barrier_counter(x.device, stream)
+    _lib.launch(x, "rmsnorm_backward", lambda: _bind().rmsnorm_backward(
+        x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        partial.data_ptr(), counter.data_ptr(), N, D, float(eps), code, lanes, vpt, int(vec),
+        threads, plan.grid, stream))
+    count(rmsnorm_backward, rmsnorm_backward_work(N, D, x.element_size()))
     return dx, dw
 
 
@@ -256,7 +272,10 @@ _COUNTERS: dict[tuple[int | None, int], torch.Tensor] = {}
 def _barrier_counter(device: torch.device, stream: int) -> torch.Tensor:
     """The grid barrier's counter of `stream` on `device`: zeroed once, and
     its low 31 bits zero again after every launch; one a stream, so that
-    launches on two streams never share one."""
+    launches on two streams never share one.  On meta a new one each call
+    (nothing runs on it, and a cached one would outlive the dry run)."""
+    if device.type == "meta":
+        return torch.empty(1, dtype=torch.int32, device=device)
     key = (device.index, stream)
     counter = _COUNTERS.get(key)
     if counter is None:
@@ -264,7 +283,8 @@ def _barrier_counter(device: torch.device, stream: int) -> torch.Tensor:
     return counter
 
 
-rmsnorm_backward.launches = 0
+reset(rmsnorm)
+reset(rmsnorm_backward)
 
 
 class _RMSNormFn(torch.autograd.Function):

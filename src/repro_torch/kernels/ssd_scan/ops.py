@@ -41,6 +41,11 @@ positions add nothing to y or the state).  `log_i` is optional (Mamba2
 passes none).  The scan starts from a zero state, as the Pallas kernel
 does; only the plain version takes an initial state (the reference model's
 signature).
+
+`scan_work` and `scan_backward_work` are each entry's bytes and operations
+at a call's shapes (`kernels/work.py`), added to the wrappers' counters.
+A meta call (the dry run) runs the CUDA route, its scratch allocations
+included, without the launches.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _lib
+from ..work import Work, count, reset
 
 CLIP = 30.0
 TILE = 64           # kTile in the source: DK and DV are zero-padded to its multiples
@@ -268,6 +274,67 @@ def chunked_linear_attention_backward_plain(
     return dq, dk, dv, dlog_g, (dli if log_i is not None else None)
 
 
+def scan_work(B: int, T: int, NH: int, DK: int, DV: int, chunk: int, esize: int,
+              broadcast: bool, with_i: bool) -> Work:
+    """The forward.  Bytes: q and k read once (once a head, or once for all
+    heads where they are broadcast), v read and y written in the input
+    dtype (`esize` bytes), the f32 gates and the f32 final state.
+    Operations: q.k over the causal (t, s) pairs of each chunk has two
+    input operands (bf16: the bf16 class), once for all heads where q and k
+    are broadcast (the scores differ by head only in their decay, applied
+    elementwise); the decayed scores times v, q times the state entering
+    each chunk after the first, and the weighted k times v for every chunk
+    each have an f32 operand, which the kernel splits into two bf16 parts
+    (bf16x2); f32 inputs make every product six bf16 products (bf16x6)."""
+    heads_qk = 1 if broadcast else NH
+    nbytes = (2 * B * T * heads_qk * DK * esize + 2 * B * T * NH * DV * esize
+              + (2 if with_i else 1) * B * T * NH * 4 + B * NH * DK * DV * 4)
+    ops_qk = ops_split = 0.0
+    for c0 in range(0, T, chunk):
+        lc = min(chunk, T - c0)
+        pairs = lc * (lc + 1) / 2
+        ops_qk += pairs * 2 * DK
+        ops_split += pairs * 2 * DV + 2 * lc * DK * DV * (2 if c0 > 0 else 1)
+    if esize == 4:
+        return Work(nbytes, (("bf16x6", B * (heads_qk * ops_qk + NH * ops_split)),))
+    return Work(nbytes, (("bf16", B * heads_qk * ops_qk), ("bf16x2", B * NH * ops_split)))
+
+
+def scan_backward_work(B: int, T: int, NH: int, DK: int, DV: int, chunk: int, broadcast: bool,
+                       with_i: bool, final: bool) -> Work:
+    """The backward (bf16): the least the function needs.  Bytes: q and k
+    read once (once for all heads where broadcast), v and dy, the f32 gates
+    (and log_i), the f32 final-state cotangent where given; dq and dk
+    written once (head-summed where q and k are broadcast: the per-head
+    rows of a design that sums later are bytes of the design, not of the
+    function), dv, dlog_g (and dlog_i) f32.  Operations, per chunk of L
+    steps and its L(L+1)/2 causal pairs: q.k^T over the pairs (once for all
+    heads where broadcast) and dy.v^T (per head), both operands bf16 (the
+    bf16 class); every other product has an f32 operand in two bf16 parts
+    (bf16x2): the forward's local states again and the chunk's U_c (2 L DK
+    DV each), the three state terms (dq's skipped in the first chunk) and
+    dS.k, dS^T.q, P^T.dy over the pairs."""
+    heads_qk = 1 if broadcast else NH
+    gates = (2 if with_i else 1) * B * T * NH * 4
+    nbytes = (2 * B * T * heads_qk * DK * 2 + 2 * B * T * NH * DV * 2 + gates
+              + (B * NH * DK * DV * 4 if final else 0)
+              + 2 * B * T * heads_qk * DK * 2 + B * T * NH * DV * 2 + gates)
+    qk = dyv = split = 0.0
+    for c0 in range(0, T, chunk):
+        lc = min(chunk, T - c0)
+        pairs = lc * (lc + 1) / 2
+        qk += 2 * pairs * DK
+        dyv += 2 * pairs * DV
+        split += 2 * lc * DK * DV * (5 if c0 > 0 else 4) + 2 * pairs * (2 * DK + DV)
+    return Work(nbytes, (("bf16", B * (heads_qk * qk + NH * dyv)), ("bf16x2", B * NH * split)))
+
+
+def _broadcast(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """q and k one head for all of v's: one head, or expanded (head stride
+    0) over several."""
+    return all(t.shape[2] == 1 or t.stride(2) == 0 for t in (q, k))
+
+
 def vector_loads(*tensors: torch.Tensor) -> bool:
     """Whether the kernel may stream these (B, T, NH, D) views by 16-byte
     copies: bf16, every base address 16-byte aligned, and the batch, time
@@ -434,16 +501,15 @@ def _launch(q, k, v, log_g, log_i, y, state, chunk: int) -> dict[str, torch.Tens
     strides += list(log_i.stride()) if log_i is not None else [0, 0, 0]
     strides += list(y.stride()[:3])
     scratch = _empty(scratch_shapes(B, T, NH, DK, DV, chunk, q.dtype), q.device)
-    lib = _lib.load("ssd_scan", _SIGNATURES)
-    err = lib.ssd_forward(
+    _lib.launch(q, "ssd_scan", lambda: _lib.load("ssd_scan", _SIGNATURES).ssd_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_g.data_ptr(),
         log_i.data_ptr() if log_i is not None else 0, y.data_ptr(), state.data_ptr(),
         *(scratch[n].data_ptr() if n in scratch else 0
           for n in ("cum", "li", "local", "entering", "scores")), *strides,
         B, T, NH, DK, DV, chunk, code, *(int(vector_loads(t)) for t in (q, k, v)),
-        _lib.stream_handle(q))
-    _lib.check("ssd_scan", err)
-    ssd_scan.launches += 1
+        _lib.stream_handle(q)))
+    count(ssd_scan, scan_work(B, T, NH, DK, DV, chunk, q.element_size(), _broadcast(q, k),
+                              log_i is not None))
     return scratch
 
 
@@ -472,14 +538,13 @@ def _launch_backward(q, k, v, log_g, log_i, dy, dstate, DK: int, DV: int, chunk:
     B, T, NH = v.shape[:3]
     outs = _outputs(v, log_i, DK, DV, NH)
     scratch = _empty(backward_scratch_shapes(B, T, NH, DK, DV, chunk), q.device)
-    lib = _lib.load("ssd_scan", _SIGNATURES)
-    err = lib.ssd_backward(
+    _lib.launch(q, "ssd_scan_backward", lambda: _lib.load("ssd_scan", _SIGNATURES).ssd_backward(
         *(0 if t is None else t.data_ptr() for t in (q, k, v, log_g, log_i, dy, dstate, *outs)),
         *(scratch[n].data_ptr() for n in BACKWARD_SCRATCH), *_strides(q, k, v, log_g, log_i, dy),
         B, T, NH, DK, DV, chunk, _lib.dtype_code(q), *(int(vector_loads(t)) for t in (q, k, v, dy)),
-        _lib.stream_handle(q))
-    _lib.check("ssd_scan_backward", err)
-    ssd_scan_backward.launches += 1
+        _lib.stream_handle(q)))
+    count(ssd_scan_backward, scan_backward_work(B, T, NH, DK, DV, chunk, _broadcast(q, k),
+                                                log_i is not None, dstate is not None))
     return tuple(outs)
 
 
@@ -492,15 +557,15 @@ def _launch_heads(q, k, v, log_g, log_i, dy, dstate, DK: int, DV: int, chunk: in
     outs = _outputs(v, log_i, DK, DV, qk_heads)
     scratch = _empty(heads_scratch_shapes(B, T, NH, chunk, groups), q.device)
     scratch.update(saved)
-    lib = _lib.load("ssd_scan", _SIGNATURES)
-    err = lib.ssd_backward_heads(
+    _lib.launch(q, "ssd_scan_backward", lambda: _lib.load(
+        "ssd_scan", _SIGNATURES).ssd_backward_heads(
         *(0 if t is None else t.data_ptr() for t in (q, k, v, log_g, log_i, dy, dstate, *outs)),
         *(scratch[n].data_ptr() for n in HEADS_SCRATCH),
         *_strides(q, k, v, log_g, log_i, dy), B, T, NH, DK, DV, chunk, groups, heads_a_group,
         qk_heads, *(int(vector_loads(t)) for t in (q, k, v, dy)),
-        _lib.stream_handle(q))
-    _lib.check("ssd_scan_backward", err)
-    ssd_scan_backward.launches += 1
+        _lib.stream_handle(q)))
+    count(ssd_scan_backward, scan_backward_work(B, T, NH, DK, DV, chunk, _broadcast(q, k),
+                                                log_i is not None, dstate is not None))
     return tuple(outs)
 
 
@@ -666,5 +731,5 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torch.Ten
     return y.transpose(1, 2), state
 
 
-ssd_scan.launches = 0
-ssd_scan_backward.launches = 0
+reset(ssd_scan)
+reset(ssd_scan_backward)

@@ -236,15 +236,22 @@ def remat_call(fn: Callable, *args):
 def init_params(defs: dict, generator: torch.Generator) -> ParamTree:
     """Initialise a template tree ({name: ParamDef | dict | list}) on the
     generator's device."""
+    return ParamTree(_build(defs, lambda d: d.initialize(generator)))
 
-    def build(node):
-        if isinstance(node, ParamDef):
-            return node.initialize(generator)
-        if isinstance(node, list):
-            return [build(n) for n in node]
-        return {k: build(v) for k, v in node.items()}
 
-    return ParamTree(build(defs))
+def empty_params(defs: dict, device) -> ParamTree:
+    """The template tree as empty tensors on `device`, one per `ParamDef`
+    with its shape and dtype; nothing is drawn (on the meta device: shapes
+    and dtypes, no storage)."""
+    return ParamTree(_build(defs, lambda d: torch.empty(d.shape, dtype=d.dtype, device=device)))
+
+
+def _build(node, leaf: Callable):
+    if isinstance(node, ParamDef):
+        return leaf(node)
+    if isinstance(node, list):
+        return [_build(n, leaf) for n in node]
+    return {k: _build(v, leaf) for k, v in node.items()}
 
 
 # ----------------------------------------------------------------------------

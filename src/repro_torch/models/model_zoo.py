@@ -5,7 +5,8 @@ MTP), the recurrent ones (the Mamba2 hybrid zamba2-2.7b, xLSTM) and the
 encoder-decoder (seamless-m4t, over precomputed frame embeddings).
 
 `build_model(cfg)` returns a `Model` whose methods cover the whole
-lifecycle: `init` (parameters from an explicit generator), `forward` and
+lifecycle: `init` (parameters from an explicit generator; `shapes`, empty
+ones on the meta device for the dry run), `forward` and
 `loss` (training), `init_cache`, `prefill` and `decode_step` (serving) —
 the reference's signatures, plus the `ops` that pick kernels or plain math,
 and `init_cache`'s device — and `layer_costs`, the analytic per-layer
@@ -27,7 +28,8 @@ from repro_torch.core import costmodel as cm
 from repro_torch.core.types import LayerCost
 
 from . import deepseek, encdec, hybrid, moe, transformer as tfm
-from .common import KERNELS, ModelConfig, Ops, ParamTree, ce_chunk_of, init_params, remat_call
+from .common import (KERNELS, ModelConfig, Ops, ParamTree, ce_chunk_of, empty_params, init_params,
+                     remat_call)
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "audio")
 _MODULES = {"dense": tfm, "vlm": tfm, "moe": moe, "hybrid": hybrid, "ssm": hybrid,
@@ -44,6 +46,13 @@ class Model:
         """Parameters on the generator's device, with the reference's init
         formulas (values differ from the reference's: other generator)."""
         return init_params(self.defs, generator)
+
+    def shapes(self, device="meta") -> ParamTree:
+        """The parameter tree as empty tensors on `device`, one per
+        `ParamDef` with its dtype, nothing drawn: on the meta device (the
+        default, the dry run's) shapes and dtypes with no storage, the
+        counterpart of the reference's `Model.shapes`."""
+        return empty_params(self.defs, device)
 
     def inputs(self, batch: dict, prefill: bool = False) -> tuple:
         """The module's positional inputs after its parameters, read from

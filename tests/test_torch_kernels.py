@@ -8,6 +8,8 @@ The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
 compares each with its plain version there.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from repro.kernels.flash_attention import kernel as fa_k
 from repro.kernels.rmsnorm import kernel as rn_k
 from repro.kernels.ssd_scan import kernel as ssd_k, ref as ssd_r
 from repro.models import common as ref_common
+from repro_torch.kernels import _lib
 from repro_torch.kernels.boundary_quant import ops as bq
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
@@ -614,16 +617,34 @@ def test_ssd_scratch_shapes(DK, DV, wide):
 # ------------------------------------------------- (h) no silent fallback
 
 
-def test_wrappers_raise_on_meta_tensors():
-    x = torch.empty(4, 64, device="meta")
-    w = torch.empty(64, device="meta")
-    with pytest.raises(RuntimeError, match="meta"):
-        rn.rmsnorm(x, w)
-    with pytest.raises(RuntimeError, match="meta"):
-        bq.quantize(x)
-    q = torch.empty(1, 2, 8, 16, device="meta")
-    with pytest.raises(RuntimeError, match="meta"):
-        fa.flash_attention(q, q, q)
+def _no_fallback(monkeypatch):
+    """Make every plain version and every library load raise."""
+    def refuse(*a, **k):
+        raise RuntimeError("a meta call reached a plain version or a library")
+
+    for mod in (rn, bq, fa, da, ssd):
+        for name in dir(mod):
+            if name.endswith("_plain"):
+                monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(_lib, "load", refuse)
+
+
+def test_wrappers_raise_on_meta_tensors(monkeypatch):
+    """Since the dry run, a meta tensor takes the CUDA route with its launch
+    skipped (`_lib.route`): nothing falls back, so with every plain version
+    and library load made to raise, each call still returns meta outputs
+    of its plain version's shapes; what raises is a device other than
+    CPU, CUDA or meta."""
+    _no_fallback(monkeypatch)
+    x = torch.empty(4, 64, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(64, dtype=torch.bfloat16, device="meta")
+    assert rn.rmsnorm(x, w).shape == (4, 64)
+    q8, s = bq.quantize(x)
+    assert (q8.dtype, s.shape) == (torch.int8, (4, 1))
+    q = torch.empty(1, 2, 8, 16, dtype=torch.bfloat16, device="meta")
+    assert fa.flash_attention(q, q, q).shape == (1, 2, 8, 16)
+    with pytest.raises(RuntimeError, match="xpu"):
+        _lib.route(types.SimpleNamespace(device=torch.device("xpu")))
 
 
 def _meta_calls(device_of):
@@ -645,9 +666,16 @@ def _meta_calls(device_of):
 
 
 @pytest.mark.parametrize("name", sorted(_meta_calls(lambda i: "cpu")))
-def test_new_wrappers_raise_on_meta_tensors(name):
-    with pytest.raises(RuntimeError, match="meta"):
-        _meta_calls(lambda i: "meta")[name]()
+def test_new_wrappers_raise_on_meta_tensors(name, monkeypatch):
+    """As `test_wrappers_raise_on_meta_tensors`: on meta tensors the call
+    takes the CUDA route without launching, reaching no plain version and
+    no library, and returns meta outputs of the CPU call's shapes."""
+    cpu = _meta_calls(lambda i: "cpu")[name]()
+    _no_fallback(monkeypatch)
+    meta = _meta_calls(lambda i: "meta")[name]()
+    cpu, meta = (x if isinstance(x, tuple) else (x,) for x in (cpu, meta))
+    assert [(m.device.type, m.shape, m.dtype) for m in meta] == \
+        [("meta", c.shape, c.dtype) for c in cpu]
 
 
 def test_wrappers_raise_on_mixed_devices():
