@@ -113,7 +113,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    and 24 decoder layers, 2.035 B parameters) through the same two runs,
    each micro-batch 4 x 1024 frame embeddings and 4 x 256 tokens, its
    encoder's and cross-attention's non-causal attention (q of 256 rows
-   over 1024) through flash attention's backward.  Phase 2 also
+   over 1024) through flash attention's backward; (f) xlstm-1.3b at full
+   width and depth (48 layers: 42 mLSTM blocks at state widths 1024 x
+   1025, 6 sLSTM blocks; 3.530 B parameters) through the same two runs of
+   3 steps each, bit-equal, with `ssd_scan` and `ssd_scan_backward`
+   launched as its mLSTM blocks make them (the wide route); no eager step
+   is profiled (its sLSTM's ~1.4 M launches), so its busy share is the
+   device time of one more replay, profiled, over the eager step's wall,
+   and that device time is split into the wide route, the sLSTM's
+   elementwise kernels (one sLSTM block replayed alone) and the rest.
+   Each compiled run logs its graph's nodes, its record and instantiation
+   seconds and its pool.  Phase 2 also
    holds the backward kernels (`rmsnorm_backward`, flash attention's
    LSE-writing forward and its backward, `ssd_scan_backward`) against
    their plain backward run in f32, at the train shapes (`train_small`'s
@@ -128,17 +138,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 
 7. the dry run (`[dry run]` lines): `repro_torch.kernels.occupancy`'s
    table of the backward kernels' occupancy held equal to the card's
-   readings; five calls of the earlier phases, each measured on the card
+   readings; six calls of the earlier phases, each measured on the card
    where it ran (its peak allocated memory less what was allocated before
-   it and is none of its inputs; `measured`): 6a's, 6d's and 6e's second
-   eager train step and llava-next-34b's and llama4's prefills, each
-   traced again on the meta device (`repro_torch.launch.hlo_analysis`,
+   it and is none of its inputs; `measured`): 6a's, 6d's, 6e's and 6f's
+   second eager train step and llava-next-34b's and llama4's prefills,
+   each traced again on the meta device (`repro_torch.launch.hlo_analysis`,
    the dry run's tracker, through the kernels' CUDA route with no
-   launch), the predicted peak within 5% of the measured and every
-   kernel's launches equal to the card's; printed, not held: each trace's
-   wall, xlstm-1.3b's predicted eager peak for a full-depth train step at
-   6a's shape, and for the MoE pair the deepest prefill of phase 5's shape
-   the dry run predicts fits the card, beside `DEPTH_CUTS`.
+   launch; 6f's in a process of its own started before phase 6), the
+   predicted peak within 5% of the measured and every kernel's launches
+   equal to the card's; printed, not held: each trace's wall, and for the
+   MoE pair the deepest prefill of phase 5's shape the dry run predicts
+   fits the card, beside `DEPTH_CUTS`.
 
 With `--parent ROOT` (another tree of the repository, such as the parent
 commit unpacked), every kernel that tree has is built too, timed in turns
@@ -254,6 +264,13 @@ HYBRID_TRAIN_ARCH = "zamba2-2.7b"
 # 24 decoder layers), the same run as 6a over micro-batches of 4 x
 # TRAIN_SEQ frame embeddings and 4 x ENCDEC_TRAIN_TEXT text tokens
 ENCDEC_TRAIN_ARCH, ENCDEC_TRAIN_TEXT = "seamless-m4t-large-v2", 256
+# phase 6f: xlstm-1.3b at full width and depth (48 layers: 42 mLSTM blocks
+# at state widths DK 1024, DV 1025 and 6 sLSTM blocks), the same run as 6a
+# for fewer steps (a warm-up, the measured second step, a replay): its
+# sLSTM, a loop over time steps in plain PyTorch, makes ~1.4 M launches a
+# step (forward, remat's recompute, backward), so an eager step takes
+# ~45 s of host time and its graph ~2 minutes to record and instantiate
+XLSTM_TRAIN_ARCH, XLSTM_TRAIN_STEPS = "xlstm-1.3b", 3
 # phase 6b's MLA model and phase 2's MLA backward row: deepseek-v3's
 # attention, q and k 128 + 64 wide, v 128, through the flash backward
 MLA_TRAIN_ARCH = "deepseek-v3-671b"
@@ -280,7 +297,7 @@ F32_FLOOR_FACTOR = 2.0
 ELASTIC_STEPS, ELASTIC_FAIL_AT, ELASTIC_CKPT_EVERY = 150, 120, 50
 # phase 7: the calls whose peak memory and launches the dry run predicts
 # (`launch/dryrun.py`'s trace on the meta device), each measured where the
-# earlier phases make it: the second eager step of 6a, 6d and 6e (after
+# earlier phases make it: the second eager step of 6a, 6d, 6e and 6f (after
 # the first, the warm-up) and these models' prefills in phase 5; the
 # prediction must lie within DRY_RUN_TOL of the card's peak
 DRY_RUN_PREFILLS = ("llava-next-34b", "llama4-maverick-400b-a17b")
@@ -601,10 +618,18 @@ def kernel_us(fn, calls: int = 20) -> dict[str, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]:
-            e.device_time_total / calls
-            for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+    return by_key((e.name(), e.duration_ns() / 1e3 / calls) for e in raw_events(prof)
+                  if on_device(e))
+
+
+def by_key(times) -> dict[str, float]:
+    """(profiler kernel name, device time) pairs summed by the name without
+    `void`, anonymous namespaces and what follows the first parenthesis."""
+    out: dict[str, float] = {}
+    for name, t in times:
+        key = name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+        out[key] = out.get(key, 0.0) + t
+    return out
 
 
 def rmsnorm_shapes() -> list[tuple[str, int, int]]:
@@ -1554,6 +1579,8 @@ def check_ssd_backward(dev, g, parent) -> dict:
                  unsaved_ms=time_ms(unsaved, iters=10) if saved is not None else ms,
                  forward_ms=time_ms(lambda: ssd.ssd_scan_bthd(q, k, v, log_g, log_i, chunk=chunk),
                                     iters=10),
+                 forward_bound_ms=bound_ms(ssd.scan_work(B, T, NH, DK, DV, chunk, 2, broadcast,
+                                                         with_i))[0],
                  # a chain of large einsums whose host work outruns the card
                  plain_ms=once_ms(lambda: ssd.chunked_linear_attention_backward_plain(
                      *args, chunk=chunk)),
@@ -1571,7 +1598,8 @@ def check_ssd_backward(dev, g, parent) -> dict:
             + (f" ({parent_step_ms * 1e3:.3f} us with the sums over heads its step adds; "
                f"this {r['ms'] / parent_step_ms:.3f}x of that)" if broadcast and parent_ms else "")
             + f" vs bound {b_ms * 1e3:.3f} us ({b_by}); making the forward's scratch itself "
-            f"{r['unsaved_ms'] * 1e3:.3f} us; the forward {r['forward_ms'] * 1e3:.3f} us, "
+            f"{r['unsaved_ms'] * 1e3:.3f} us; the forward {r['forward_ms'] * 1e3:.3f} us (bound "
+            f"{r['forward_bound_ms'] * 1e3:.3f} us), "
             f"plain {r['plain_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; "
             + ", ".join(f"{n} within {x:.3g}" for n, x in gaps.items())
             + f" of the f32 plain backward's max |value| (tol {GRAD_TOL}; the plain backward "
@@ -1856,12 +1884,61 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"
                      "cudaMemsetAsync")
 
 
+def raw_events(prof) -> list:
+    """The events of a finished torch.profiler window, the profiler's own
+    records (`_KinetoEvent`s), less those `key_averages` leaves out (hidden
+    events, the profiler's utility ops) and GPU user annotations: reading
+    them builds no Python event object a record, as `key_averages` does
+    (~100 us a record: minutes for a graph of 1.4 M kernels)."""
+    from torch.autograd.profiler_util import _filter_name
+
+    def left_out(e) -> bool:
+        return any(getattr(e, test, lambda: False)()
+                   for test in ("is_user_annotation", "is_hidden_event"))
+
+    return [e for e in prof.profiler.kineto_results.events()
+            if not (left_out(e) or _filter_name(e.name()))]
+
+
+def on_device(e) -> bool:
+    import torch
+
+    return e.device_type() == torch.autograd.DeviceType.CUDA
+
+
+def host_self_us(events) -> dict[str, list]:
+    """[calls, self us] by name of the host's synchronous events (ops and
+    runtime calls): each one's time less its children's, the events it
+    encloses on its thread, as `key_averages`' `self_cpu_time_total`."""
+    out: dict[str, list] = {}
+    threads: dict[int, list] = {}
+    for e in events:
+        if not (on_device(e) or e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            threads.setdefault(e.start_thread_id(), []).append(e)
+    for evs in threads.values():
+        evs.sort(key=lambda e: (e.start_ns(), -e.end_ns()))
+        stack: list = []  # [event, its children's ns]
+        for e in evs + [None]:
+            while stack and (e is None or stack[-1][0].end_ns() <= e.start_ns()):
+                done, children = stack.pop()
+                row = out.setdefault(done.name(), [0, 0.0])
+                row[0] += 1
+                row[1] += (done.duration_ns() - children) / 1e3
+            if e is not None:
+                if stack:
+                    stack[-1][1] += e.duration_ns()
+                stack.append([e, 0])
+    return out
+
+
 def busy_share(run, tag: str, top: int = 8, out: dict | None = None) -> float | None:
     """Share of the wall time of `run()` (work that ends on the card) during
-    which the card ran kernels, from torch.profiler; logs the `top` kernels
-    and host ops.  None if the profiler recorded no device time.  `out`, if
-    given, takes the window's device and wall ms and the host's calls of
-    `HOST_LAUNCH_CALLS`, by name (`host_launches`)."""
+    which the card ran kernels, from torch.profiler (`raw_events`); logs the
+    `top` kernels and host ops (by self time, `host_self_us`).  None if the
+    profiler recorded no device time.  `out`, if given, takes the window's
+    device and wall ms, the host's calls of `HOST_LAUNCH_CALLS`, by name
+    (`host_launches`), and the device us by kernel (`kernels`, summed by
+    `by_key`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1871,25 +1948,30 @@ def busy_share(run, tag: str, top: int = 8, out: dict | None = None) -> float | 
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in kernels)
+    events = raw_events(prof)
+    kernels: dict[str, list] = {}
+    for e in events:
+        if on_device(e):
+            row = kernels.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += e.duration_ns() / 1e3
+    busy_us = sum(us for _, us in kernels.values())
     if busy_us <= 0:
         return None
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:top]:
-        log(f"[{tag}] profile: {e.device_time_total / busy_us:7.2%} of device time, "
-            f"{e.count:5d} calls: {e.key[:90]}")
-    host = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU]
-    host_us = sum(e.self_cpu_time_total for e in host)
-    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
-        log(f"[{tag}] profile: {e.self_cpu_time_total / host_us:7.2%} of host op time, "
-            f"{e.count:5d} calls: {e.key[:90]}")
+    host = host_self_us(events)
+    host_us = sum(us for _, us in host.values())
+    read_s = time.perf_counter() - t0 - wall_us / 1e6
+    for name, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"[{tag}] profile: {us / busy_us:7.2%} of device time, {n:5d} calls: {name[:90]}")
+    for name, (n, us) in sorted(host.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"[{tag}] profile: {us / host_us:7.2%} of host op time, {n:5d} calls: {name[:90]}")
     log(f"[{tag}] profile: {len(kernels)} kernel names, {busy_us / 1e3:.3f} ms device time, "
-        f"{host_us / 1e3:.3f} ms host op time, in {wall_us / 1e3:.3f} ms wall")
+        f"{host_us / 1e3:.3f} ms host op time, in {wall_us / 1e3:.3f} ms wall (the profile "
+        f"read in {read_s:.1f} s)")
     if out is not None:
         out.update(device_ms=busy_us / 1e3, wall_ms=wall_us / 1e3, host_launches={
-            e.key: e.count for e in host if e.key in HOST_LAUNCH_CALLS})
+            name: n for name, (n, _) in host.items() if name in HOST_LAUNCH_CALLS},
+            kernels=by_key((name, us) for name, (_, us) in kernels.items()))
     return busy_us / wall_us
 
 
@@ -3309,18 +3391,20 @@ def train_expect(cfg) -> dict:
             "ssd_scan_backward": TRAIN_ACCUM * n_scan}
 
 
-def train_run(what: str, model, step, opt_cfg, batches, dev, measure: str | None = None
-              ) -> dict:
+def train_run(what: str, model, step, opt_cfg, batches, dev, steps: int = TRAIN_STEPS,
+              measure: str | None = None, trace=None, profile: bool = True) -> dict:
     """One run of phase 6a: the state built on the card from `SEED`,
-    `TRAIN_STEPS` steps of `step` over `batches`, then one more step under
-    the profiler.  Logs each step's loss, gradient norm and time, the peak
-    memory, ms a step and tokens/s (and the enc-dec's frames/s) over the
-    steps after the first, the launches of each kernel a step and the
-    profiled step's busy share and host launch calls.  Returns the losses and gradient norms (every step's,
-    the profiled one's last), the final parameters copied to the host, the
-    launch counters' advance over the counted steps and the readings.
-    `measure`: the name under which its second step is `measured` for
-    phase 7."""
+    `steps` steps of `step` over `batches`, then, where `profile`, one
+    more step under the profiler.  Logs each step's loss, gradient norm
+    and time, the peak memory, ms a step and tokens/s (and the enc-dec's
+    frames/s) over the steps after the first, the launches of each kernel a
+    step and the profiled step's busy share and host launch calls.  Returns
+    the losses and gradient norms (every step's, the profiled one's last),
+    the final parameters copied to the host, the launch counters' advance
+    over the counted steps, the memory reserved at the end and the
+    readings (with the profiled step's device time by kernel).  `measure`:
+    the name under which its second step is `measured` for phase 7,
+    against `trace` (by default `train_trace` of that step)."""
     import math
 
     import torch
@@ -3334,9 +3418,9 @@ def train_run(what: str, model, step, opt_cfg, batches, dev, measure: str | None
     torch.cuda.synchronize()
     reset_counts()
     times, losses, gnorms = [], [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         with (measured(measure, (params, opt, batches[i]),
-                       train_trace(model, opt_cfg, batches[i]))
+                       trace or train_trace(model, opt_cfg, batches[i]))
               if measure and i == 1 else contextlib.nullcontext()):
             t0 = time.perf_counter()
             params, opt, metrics = step(params, opt, batches[i])
@@ -3363,28 +3447,32 @@ def train_run(what: str, model, step, opt_cfg, batches, dev, measure: str | None
     rates2 = f"{r['tok_s2']:.0f}" + (f", {r['frames_s2']:.0f}" if frames else "")
     log(f"[train] {what}: peak device memory {r['peak'] / 2**30:.2f} GiB allocated, "
         f"{r['reserved'] / 2**30:.2f} GiB reserved; {rates} over steps 1-"
-        f"{TRAIN_STEPS - 1} ({r['ms']:.1f} ms a step), {rates2} over steps 2-"
-        f"{TRAIN_STEPS - 1} ({r['ms2']:.1f} ms a step); step 0 {times[0] * 1e3:.1f} ms, "
+        f"{steps - 1} ({r['ms']:.1f} ms a step), {rates2} over steps 2-"
+        f"{steps - 1} ({r['ms2']:.1f} ms a step); step 0 {times[0] * 1e3:.1f} ms, "
         f"step 1 {times[1] * 1e3:.1f} ms")
     state = [params, opt]
 
     def one_step():
-        state[0], state[1], m = step(state[0], state[1], batches[TRAIN_STEPS])
+        state[0], state[1], m = step(state[0], state[1], batches[steps])
         state.append(m)
 
-    prof: dict = {}
-    share = busy_share(one_step, f"train, {what}", out=prof)
-    last = state.pop()
-    losses.append(float(last["loss"]))
-    gnorms.append(float(last["grad_norm"]))
-    launches = prof.get("host_launches", {})
-    r.update(share=share, host_launches=sum(launches.values()), launch_calls=launches,
-             losses=losses, gnorms=gnorms, counts=counts, times=times,
-             device_ms=prof.get("device_ms"), wall_ms=prof.get("wall_ms"))
-    log(f"[train] {what}: device busy share of one step "
-        f"{'not measured' if share is None else f'{share:.3f}'}; host launch calls in it "
-        f"{r['host_launches']} ({launches})")
-    r["params"] = [t.detach().cpu() for t in leaves(state[0])]
+    r.update(losses=losses, gnorms=gnorms, counts=counts, times=times, share=None,
+             host_launches=None, device_ms=None, wall_ms=None, kernels={})
+    if profile:
+        prof: dict = {}
+        share = busy_share(one_step, f"train, {what}", out=prof)
+        last = state.pop()
+        losses.append(float(last["loss"]))
+        gnorms.append(float(last["grad_norm"]))
+        launches = prof.get("host_launches", {})
+        r.update(share=share, host_launches=sum(launches.values()), launch_calls=launches,
+                 device_ms=prof.get("device_ms"), wall_ms=prof.get("wall_ms"),
+                 kernels=prof.get("kernels", {}))
+        log(f"[train] {what}: device busy share of one step "
+            f"{'not measured' if share is None else f'{share:.3f}'}; host launch calls in it "
+            f"{r['host_launches']} ({launches})")
+    r["reserved_end"] = torch.cuda.memory_reserved()
+    r["params"] = [t.detach().to("cpu", copy=True) for t in leaves(state[0])]
     r["names"] = paths(state[0])
     r["step"] = int(state[1]["step"])
     return r
@@ -3406,33 +3494,50 @@ def out_of_memory_fails(arch: str, run):
             f"{total / 2**30:.2f} GiB ({e})") from e
 
 
-def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
-    """6a (qwen2-1.5b), 6d (zamba2-2.7b, `HYBRID_TRAIN_ARCH`) and 6e
+def phase_train(dev, arch: str = TRAIN_ARCH, trace=None) -> dict:
+    """6a (qwen2-1.5b), 6d (zamba2-2.7b, `HYBRID_TRAIN_ARCH`), 6e
     (seamless-m4t-large-v2, `ENCDEC_TRAIN_ARCH`, over frame embeddings and
-    text, `train_batch`): `arch` at full width and depth, built on the card
-    from a seed, trained through the port's `make_train_step` (AdamW at lr
-    1e-3, remat, `TRAIN_ACCUM` micro-batches) on `TokenPipeline` data in two runs from
-    the same seed and batches (`train_run`): the step run eagerly, then the
-    step compiled (`compile_train_step`: a warm-up step run eagerly, one
-    CUDA graph captured, replayed every later step).  Every loss and
-    gradient norm must be finite, and the graphed run's losses, gradient
-    norms and final parameters bit-equal to the eager run's (else the first
-    step or leaf that differs is named).  The eager run's kernel launches
-    must be as many a step as the layers make (`train_expect`); the
-    graphed run's warm-up must make a step's, its graph record a step's,
-    and the card run them once a replay.  The eager run's state is freed
-    before the graphed run starts.  Returns the graphed run's launches
-    (the counters' advance, less what the graph recorded, plus its
-    replays).  A card that cannot hold a run fails the phase, naming the
-    memory it held."""
+    text, `train_batch`) and 6f (xlstm-1.3b, `XLSTM_TRAIN_ARCH`): `arch` at
+    full width and depth, built on the card from a seed, trained through
+    the port's `make_train_step` (AdamW at lr 1e-3, remat, `TRAIN_ACCUM`
+    micro-batches) on `TokenPipeline` data in two runs from the same seed
+    and batches (`train_run`): the step run eagerly, then the step compiled
+    (`compile_train_step`: a warm-up step run eagerly, one CUDA graph
+    captured, replayed every later step).  Every loss and gradient norm
+    must be finite, and the graphed run's losses, gradient norms and final
+    parameters bit-equal to the eager run's (else the first step or leaf
+    that differs is named).  The eager run's kernel launches must be as
+    many a step as the layers make (`train_expect`); the graphed run's
+    warm-up must make a step's, its graph record a step's, and the card run
+    them once a replay.  The eager run's state is freed before the graphed
+    run starts.  The eager run's second step is `measured` for phase 7
+    against `trace` (by default its own `train_trace`).  Logs the graph's
+    nodes, its record and instantiation seconds, its pool and the memory
+    reserved after the compared steps.
+
+    6f runs `XLSTM_TRAIN_STEPS` steps in each run, none of them profiled:
+    its sLSTM makes ~1.4 M launches a step, so an eager step takes tens of
+    seconds of host time and is not profiled; the graphed run's profiled
+    step is one more replay after the compared steps.  Its eager busy
+    share is that replay's device time over the eager step's wall, and
+    its host launch calls are read as the graph's nodes (each node one
+    launch of the eager step); the replay's device time is split by
+    `xlstm_step_groups`.
+
+    Returns the graphed run's launches (the counters' advance, less what
+    the graph recorded, plus its replays).  A card that cannot hold a run
+    fails the phase, naming the memory it held."""
     import gc
 
     import torch
 
     from repro_torch.models.common import count_params
+    from repro_torch.models.hybrid import parse_pattern
     from repro_torch.training import AdamWConfig, compile_train_step, make_train_step
     from repro_torch.training.train_lib import TRAIN_GRAPH_STATS as G
 
+    recurrent = arch == XLSTM_TRAIN_ARCH
+    steps = XLSTM_TRAIN_STEPS if recurrent else TRAIN_STEPS
     cfg, model = model_for(arch)
     opt_cfg = AdamWConfig(lr=1e-3)
     step = make_train_step(model, opt_cfg, remat=True, accum_steps=TRAIN_ACCUM)
@@ -3443,8 +3548,7 @@ def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
         layers = f"{cfg.encoder_layers} encoder and {cfg.n_layers} decoder layers"
         data = f"{mb} x {TRAIN_SEQ} frame embeddings and {mb} x {pipe.seq_len} tokens"
     else:
-        blocks = (f"pattern {cfg.ssm_pattern[:len(cfg.ssm_pattern) // 9]} x 9, "
-                  if arch == HYBRID_TRAIN_ARCH else "")
+        blocks = ("pattern {} x {}, ".format(*parse_pattern(cfg)) if cfg.ssm_pattern else "")
         layers = (f"{cfg.n_layers} layers ({blocks}"
                   f"{train_expect(cfg)['ssd_scan_backward'] // TRAIN_ACCUM} scanned blocks)")
         data = f"{mb} x {TRAIN_SEQ} tokens"
@@ -3453,27 +3557,45 @@ def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
         f"{cfg.vocab}; {n_params / 1e9:.3f} B parameters ({n_params * 2 / 1e9:.2f} GB bf16, f32 "
         f"moments {n_params * 8 / 1e9:.2f} GB; a checkpoint of both would write "
         f"{n_params * 10 / 1e9:.2f} GB); AdamW lr 1e-3, remat, {TRAIN_ACCUM} micro-batches of "
-        f"{data} a step; eager, then graphed")
-    batches = [train_batch(cfg, pipe, i, dev) for i in range(TRAIN_STEPS + 1)]
+        f"{data} a step; {steps} steps" + ("" if recurrent else " and one more, profiled")
+        + ", eager, then graphed")
+    batches = [train_batch(cfg, pipe, i, dev) for i in range(steps + 1)]
     expect = train_expect(cfg)
-    eager = out_of_memory_fails(arch, lambda: train_run(f"{arch} eager", model, step, opt_cfg,
-                                                         batches, dev, f"{arch} train step"))
+    eager = out_of_memory_fails(arch, lambda: train_run(
+        f"{arch} eager", model, step, opt_cfg, batches, dev, steps, f"{arch} train step", trace,
+        profile=not recurrent))
     gc.collect()
     torch.cuda.empty_cache()
     for name, n in expect.items():
-        if eager["counts"].get(name, 0) != n * TRAIN_STEPS:
+        if eager["counts"].get(name, 0) != n * steps:
             raise AssertionError(f"eager {name}: {eager['counts'].get(name, 0)} launches in "
-                                 f"{TRAIN_STEPS} steps, expected {n} a step")
+                                 f"{steps} steps, expected {n} a step")
     G.reset()
     compiled = compile_train_step(step)
-    graphed = out_of_memory_fails(arch, lambda: train_run(f"{arch} graphs", model, compiled,
-                                                           opt_cfg, batches, dev))
+    graphed = out_of_memory_fails(arch, lambda: train_run(
+        f"{arch} graphs", model, compiled, opt_cfg, batches, dev, steps,
+        profile=not recurrent))
+    if recurrent:  # one more replay under the profiler, past the compared steps
+        prof: dict = {}
+        share = busy_share(lambda: compiled(compiled.params, compiled.opt_state, batches[steps]),
+                           f"train, {arch} graphs", out=prof)
+        launches = prof.get("host_launches", {})
+        graphed.update(share=share, host_launches=sum(launches.values()),
+                       **{k: prof.get(k) for k in ("device_ms", "wall_ms", "kernels")})
+        log(f"[train] {arch} graphs: device busy share of one replay "
+            f"{'not measured' if share is None else f'{share:.3f}'} under the profiler; its "
+            f"device time over the unprofiled replays' wall (steps 2-{steps - 1}, "
+            f"{graphed['ms2']:.1f} ms) "
+            + ("not measured" if share is None else f"{prof['device_ms'] / graphed['ms2']:.3f}")
+            + f"; host launch calls in it {graphed['host_launches']} ({launches})")
+    graph = next(iter(compiled.graphs.values()))
     log(f"[train] {arch} graphs: {G.misses} warm-up step(s) run eagerly, {G.captures} graph(s) "
-        f"captured in {G.capture_s * 1e3:.1f} ms (host time inside capture_begin .. "
-        f"capture_end), holding {G.reserved_bytes / 2**30:.2f} GiB reserved, "
-        f"{G.allocated_bytes / 2**30:.2f} GiB allocated; {G.replays} replays "
-        f"({TRAIN_STEPS - 1} counted, one profiled); {G.copy_ins} copy-ins")
-    replays = TRAIN_STEPS - 1
+        f"captured: {graph.nodes} nodes, recorded in {graph.capture_s:.3f} s and instantiated "
+        f"in {graph.instantiate_s:.3f} s (host time), its pool {G.reserved_bytes / 2**30:.2f} "
+        f"GiB reserved, {G.allocated_bytes / 2**30:.2f} GiB allocated; "
+        f"{graphed['reserved_end'] / 2**30:.2f} GiB reserved after the compared steps; "
+        f"{G.replays} replays ({steps - 1} counted, one profiled); {G.copy_ins} copy-ins")
+    replays = steps - 1
     if (G.misses, G.captures, G.replays) != (1, 1, replays + 1):
         raise AssertionError(f"expected one warm-up, one capture and {replays + 1} replays: {G}")
     for name, n in expect.items():
@@ -3483,9 +3605,10 @@ def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
                                  f"{G.captured.get(name, 0)} recorded, expected {n} each")
     launched = {name: graphed["counts"].get(name, 0) - G.captured.get(name, 0)
                 + G.captured.get(name, 0) * replays for name in graphed["counts"]}
-    per_step = {k: v / TRAIN_STEPS for k, v in launched.items() if v}
+    per_step = {k: v / steps for k, v in launched.items() if v}
     log(f"[train] {arch} graphs: kernel launches a step (the warm-up's, and the graph's once a "
         f"replay): {per_step}")
+    compared = len(eager["losses"])
     for i, (a, b) in enumerate(zip(eager["losses"], graphed["losses"], strict=True)):
         if a != b or eager["gnorms"][i] != graphed["gnorms"][i]:
             raise AssertionError(f"step {i}: the graphed step's loss {b!r} and grad norm "
@@ -3493,18 +3616,25 @@ def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
                                  f"{a!r}, {eager['gnorms'][i]!r}")
     for name, a, b in zip(eager["names"], eager["params"], graphed["params"], strict=True):
         if not torch.equal(a, b):
-            raise AssertionError(f"parameter {name} after {TRAIN_STEPS + 1} steps: the graphed "
+            raise AssertionError(f"parameter {name} after {compared} steps: the graphed "
                                  f"run's differs from the eager run's at "
                                  f"{int((a != b).sum())} of {a.numel()} elements")
-    if not eager["step"] == graphed["step"] == TRAIN_STEPS + 1:
+    if not eager["step"] == graphed["step"] == compared:
         raise AssertionError(f"step counters {eager['step']}, {graphed['step']}")
+    if recurrent and graphed["device_ms"] is not None:
+        eager.update(share=graphed["device_ms"] / eager["ms"], host_launches=graph.nodes)
+        log(f"[train] {arch} eager (not profiled): busy share "
+            f"{eager['share']:.3f} from the profiled replay's {graphed['device_ms']:.3f} ms of "
+            f"device time over the eager step's {eager['ms']:.1f} ms (steps 1-{steps - 1}); "
+            f"host launch calls read as the graph's {graph.nodes} nodes")
+
     def vs(key: str) -> str:
         return " vs ".join("not measured" if r[key] is None else f"{r[key]:.3f}"
                            for r in (graphed, eager))
 
-    log(f"[train] {arch} graphs vs eager: losses and grad norms bit-equal at all {TRAIN_STEPS + 1} "
+    log(f"[train] {arch} graphs vs eager: losses and grad norms bit-equal at all {compared} "
         f"steps, the {len(eager['names'])} parameter leaves byte-equal after them; over steps "
-        f"2-{TRAIN_STEPS - 1} {graphed['ms2']:.1f} vs {eager['ms2']:.1f} ms a step, "
+        f"2-{steps - 1} {graphed['ms2']:.1f} vs {eager['ms2']:.1f} ms a step, "
         f"{graphed['tok_s2']:.0f} vs {eager['tok_s2']:.0f} tokens/s"
         + (f", {graphed['frames_s2']:.0f} vs {eager['frames_s2']:.0f} frames/s"
            if cfg.family == "audio" else "") + "; one step's busy share "
@@ -3515,10 +3645,84 @@ def phase_train(dev, arch: str = TRAIN_ARCH) -> dict:
         f"{graphed['reserved'] / 2**30:.2f} vs {eager['reserved'] / 2**30:.2f} GiB reserved"
         + ("; the graphed step before the flash backward's redesign (PERF.md section 2): "
            "508.5 ms a step, 16111 tokens/s" if arch == TRAIN_ARCH else ""))
-    del compiled, eager, graphed
+    del compiled, graph, eager
     gc.collect()
     torch.cuda.empty_cache()
+    if recurrent:
+        xlstm_step_groups(cfg, model, graphed, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
     return launched
+
+
+def slstm_kernels(cfg, model, dev) -> dict[str, float]:
+    """Device us by kernel (`kernel_us`) of one sLSTM block's work in one
+    micro-batch of 6f's step: its forward under remat (`remat_call`),
+    remat's recompute and the backward to its parameters and its input, at
+    6f's micro-batch (TRAIN_BATCH // TRAIN_ACCUM x TRAIN_SEQ tokens), on the
+    first sLSTM block's init and normal inputs, captured as one CUDA graph
+    (after a warm-up on a side stream) and replayed once under the
+    profiler."""
+    import torch
+
+    from repro_torch.models import hybrid
+    from repro_torch.models.common import KERNELS, init_params, remat_call
+    from repro_torch.training.tree import leaves
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    p = init_params(model.defs["outer"][0], g)
+    shape = (TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=g, device=dev).to(cfg.dtype).requires_grad_(True)
+    dy = torch.randn(shape, generator=g, device=dev).to(cfg.dtype)
+    trained = leaves(p)
+
+    def block():
+        for t in trained:
+            t.requires_grad_(True)
+        y = remat_call(lambda h: hybrid._apply_slstm_full(cfg, KERNELS, p, h)[0], x)
+        torch.autograd.grad(y, [x, *trained], dy)
+        for t in trained:
+            t.requires_grad_(False)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        block()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        block()
+    return kernel_us(graph.replay, calls=1)
+
+
+def xlstm_step_groups(cfg, model, graphed: dict, dev) -> dict:
+    """6f's graphed step's device time (its profiled replay) in three
+    groups: the mLSTM's wide route (every kernel of `ssd_scan.cu`:
+    `ssd_scan` and `ssd_scan_backward`), the sLSTM's elementwise kernels
+    (PyTorch's own, `at::native::`, of `slstm_kernels` times the step's
+    sLSTM blocks and micro-batches) and the rest; logs each one's ms and
+    share of the step, and the sLSTM block's top kernels.  Returns the
+    groups' ms."""
+    if graphed["device_ms"] is None:
+        raise AssertionError("the profiled replay recorded no device time to split")
+    src = (ROOT / KERNEL_SOURCES["ssd_scan"][0]).read_text()
+    scan = set(re.findall(r"(\w+)\(const __grid_constant__", src))
+    step_ms = graphed["device_ms"]
+    wide = sum(us for k, us in graphed["kernels"].items() if k.split("<")[0] in scan) / 1e3
+    block = slstm_kernels(cfg, model, dev)
+    n = cfg.ssm_pattern.count("s") * TRAIN_ACCUM
+    elementwise = n * sum(us for k, us in block.items() if k.startswith("at::native::")) / 1e3
+    whole = n * sum(block.values()) / 1e3
+    groups = {"the mLSTM's wide route": wide, "the sLSTM's elementwise kernels": elementwise,
+              "the rest": step_ms - wide - elementwise}
+    log(f"[train] {cfg.name} graphs: the profiled replay's {step_ms:.3f} ms of device time: "
+        + "; ".join(f"{k} {v:.3f} ms ({v / step_ms:.2%})" for k, v in groups.items())
+        + f"; the sLSTM blocks' kernels in all {whole:.3f} ms ({whole / step_ms:.2%}; one "
+        f"block in one micro-batch, replayed alone: {sum(block.values()) / 1e3:.3f} ms, "
+        f"times {n})")
+    for k, us in sorted(block.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[train] {cfg.name} one sLSTM block a micro-batch: {us / 1e3:9.3f} ms {k[:90]}")
+    return groups
 
 
 def scan_recorder(calls: list):
@@ -3775,42 +3979,56 @@ def phase_elastic(dev) -> None:
 
 
 def xlstm_step_trace() -> dict:
-    """The meta trace of xlstm-1.3b's full-depth eager train step at 6a's
-    shape (`train_trace`): its predicted peak, memory analysis and wall."""
+    """The meta trace of 6f's second eager step (`train_trace`: xlstm-1.3b
+    at full depth, 6a's shape) on the batch's shapes: its predicted peak,
+    memory analysis, kernel launches, traced FLOPs and wall."""
     import torch
 
     from repro_torch.training import AdamWConfig
 
-    cfg, model = model_for("xlstm-1.3b")
+    cfg, model = model_for(XLSTM_TRAIN_ARCH)
     pipe = train_pipe(cfg, TRAIN_BATCH, SEED)
     batch = {k: torch.empty(v.shape, dtype=torch.as_tensor(v).dtype, device="meta")
-             for k, v in pipe.batch_for(0).items()}
-    _, extra = train_trace(model, AdamWConfig(lr=1e-3), batch)()
-    return dict(n_layers=cfg.n_layers, predicted=extra["peak_size"], trace_s=extra["trace_s"],
-                memory_analysis=extra["memory_analysis"])
+             for k, v in pipe.batch_for(1).items()}
+    terms, extra = train_trace(model, AdamWConfig(lr=1e-3), batch)()
+    return dict(peak_size=extra["peak_size"], trace_s=extra["trace_s"],
+                memory_analysis=extra["memory_analysis"], flops=terms.flops_per_device,
+                kernels={k: {"launches": w["launches"]} for k, w in extra["kernels"].items()})
 
 
 def start_xlstm_trace() -> subprocess.Popen:
     """`xlstm_step_trace` in a process of its own (this script with
     `--xlstm-trace`, on the CPU: the meta device needs no card), so that
-    its ~100 s of Python run beside phase 6; phase 7 reads its line."""
+    its ~100 s of Python run beside phase 6; 6f hands `xlstm_trace_result`
+    of it to phase 7 as its second eager step's trace."""
     return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--xlstm-trace"],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def phase_dry_run(xlstm_trace: subprocess.Popen) -> dict:
+def xlstm_trace_result(proc: subprocess.Popen) -> tuple:
+    """`start_xlstm_trace`'s trace as `hlo_analysis.analyze_traced` returns
+    one: (terms, with the traced FLOPs, and the record)."""
+    import types
+
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"xlstm-1.3b's trace exited {proc.returncode}: {err[-2000:]}")
+    x = json.loads(out.strip().splitlines()[-1])
+    return types.SimpleNamespace(flops_per_device=x.pop("flops")), x
+
+
+def phase_dry_run() -> dict:
     """The dry run (`repro_torch.launch.dryrun`'s trace on the meta device)
     held to the card: `kernels/occupancy.py`'s table equal to the card's
     readings; for each call `measured` in the earlier phases (`DRY_RUN`:
-    the second eager train step of 6a, 6d and 6e, the prefills of
-    `DRY_RUN_PREFILLS`), the same call traced on the meta device, its
-    predicted peak within `DRY_RUN_TOL` of the card's and every kernel's
-    launches equal to the card's.  Prints, without holding them, each
-    trace's wall, xlstm-1.3b's predicted eager peak for a full-depth train
-    step at 6a's shape (from `xlstm_trace`, `start_xlstm_trace`'s
-    process), and for the MoE pair the deepest depth whose prefill (phase
-    5's) the dry run predicts fits the card, beside `DEPTH_CUTS`.  Returns
-    the table of predictions."""
+    the second eager train step of 6a, 6d, 6e and 6f, the prefills of
+    `DRY_RUN_PREFILLS`), the same call traced on the meta device (6f's in
+    `start_xlstm_trace`'s process), its predicted peak within
+    `DRY_RUN_TOL` of the card's and every kernel's launches equal to the
+    card's.  Prints, without holding them, each trace's wall, and for the
+    MoE pair the deepest depth whose prefill (phase 5's) the dry run
+    predicts fits the card, beside `DEPTH_CUTS`.  Returns the table of
+    predictions."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3827,7 +4045,8 @@ def phase_dry_run(xlstm_trace: subprocess.Popen) -> dict:
                              f"(table, card): {differ}")
     log(f"[dry run] the occupancy table equals the card's readings: {len(rms)} rmsnorm_backward "
         f"widths, {len(flash)} flash backward (clusters, instance) pairs")
-    want = ({f"{a} train step" for a in (TRAIN_ARCH, HYBRID_TRAIN_ARCH, ENCDEC_TRAIN_ARCH)}
+    want = ({f"{a} train step" for a in (TRAIN_ARCH, HYBRID_TRAIN_ARCH, ENCDEC_TRAIN_ARCH,
+                                          XLSTM_TRAIN_ARCH)}
             | {f"{a} prefill" for a in DRY_RUN_PREFILLS})
     if set(DRY_RUN) != want:
         raise AssertionError(f"measured calls {sorted(DRY_RUN)}, expected {sorted(want)}")
@@ -3839,7 +4058,9 @@ def phase_dry_run(xlstm_trace: subprocess.Popen) -> dict:
         rows[name] = dict(r, predicted=predicted, ratio=predicted / got, trace_s=extra["trace_s"],
                           meta_launches=meta, flops=terms.flops_per_device,
                           memory_analysis=extra["memory_analysis"])
-        log(f"[dry run] {name}: predicted peak {predicted / 2**30:.3f} GiB, measured "
+        ma = extra["memory_analysis"]
+        log(f"[dry run] {name}: predicted peak {predicted / 2**30:.3f} GiB (arguments "
+            f"{ma['argument_size'] / 2**30:.3f}, temp {ma['temp_size'] / 2**30:.3f}), measured "
             f"{got / 2**30:.3f} GiB (the card's peak {r['peak'] / 2**30:.3f} less "
             f"{(r['before'] - r['held']) / 2**30:.3f} GiB allocated before and not its "
             f"inputs'), {predicted / got:.4f}x; launches meta {meta}, card {r['launches']}; "
@@ -3850,22 +4071,6 @@ def phase_dry_run(xlstm_trace: subprocess.Popen) -> dict:
                                  f"measured {got} (limit {DRY_RUN_TOL:.0%})")
         if meta != r["launches"]:
             raise AssertionError(f"{name}: launches on meta {meta}, on the card {r['launches']}")
-
-    # predictions, not held: xlstm-1.3b's full-depth step at 6a's shape,
-    # traced in a process of its own since phase 6 (`start_xlstm_trace`)
-    out, err = xlstm_trace.communicate(timeout=900)
-    if xlstm_trace.returncode != 0:
-        raise AssertionError(f"xlstm-1.3b's trace exited {xlstm_trace.returncode}: {err[-2000:]}")
-    x = json.loads(out.strip().splitlines()[-1])
-    ma = x["memory_analysis"]
-    rows["xlstm-1.3b train step"] = x
-    log(f"[dry run] xlstm-1.3b at full width and depth ({x['n_layers']} layers), one eager "
-        f"train step at 6a's shape ({TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ}):"
-        f" predicted peak {x['predicted'] / 2**30:.3f} GiB of the card's "
-        f"{CARD_BYTES / 2**30:.2f} (arguments {ma['argument_size'] / 2**30:.3f}, temp "
-        f"{ma['temp_size'] / 2**30:.3f}); {'fits' if x['predicted'] <= CARD_BYTES else 'does not fit'}"
-        f" (eager; a graph's pool not counted); the trace {x['trace_s']:.2f} s wall, in a "
-        f"process of its own started with phase 6")
 
     # the MoE pair: the deepest prefill of phase 5's shape that fits
     for arch, B, S, n in DECODE_RUNS:
@@ -3943,11 +4148,12 @@ def main() -> int:
             elapsed(f"6b ({arch})")
         phase_elastic(dev)
         elapsed("6c (elastic)")
-        for arch in (HYBRID_TRAIN_ARCH, ENCDEC_TRAIN_ARCH):  # 6d, 6e
-            more = phase_train(dev, arch)
+        for arch, trace in ((HYBRID_TRAIN_ARCH, None), (ENCDEC_TRAIN_ARCH, None),
+                            (XLSTM_TRAIN_ARCH, lambda: xlstm_trace_result(xlstm_trace))):
+            more = phase_train(dev, arch, trace)  # 6d, 6e, 6f
             train = {name: train.get(name, 0) + more.get(name, 0) for name in {*train, *more}}
-            elapsed(f"6d-6e ({arch})")
-        phase_dry_run(xlstm_trace)
+            elapsed(f"6d-6f ({arch})")
+        phase_dry_run()
         elapsed("7 (dry run)")
     finally:
         if xlstm_trace.poll() is None:

@@ -137,12 +137,31 @@ def batch_key(batch: dict) -> tuple:
     return tuple((k, tuple(x.shape), x.dtype) for k, x in sorted(batch.items()))
 
 
+def graph_nodes(graph) -> int:
+    """The nodes of `graph`, a `torch.cuda.CUDAGraph(keep_graph=True)` after
+    `capture_end`: one a kernel, copy or memset the capture recorded
+    (libcuda's `cuGraphGetNodes`)."""
+    import ctypes
+
+    get = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    get.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    rc = get(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if rc:
+        raise ProgramError(f"cuGraphGetNodes returned CUDA error {rc}")
+    return n.value
+
+
 @dataclass
 class _StepGraph:
     graph: Any  # torch.cuda.CUDAGraph
     batch: dict  # the static batch the graph reads
     metrics: dict  # the static loss and gradient norm the graph writes
     launches: dict  # kernel launches recorded into the graph, by kernel
+    nodes: int  # the graph's nodes (`graph_nodes`)
+    capture_s: float  # host seconds recording the step (capture_begin .. capture_end)
+    instantiate_s: float  # host seconds instantiating the recorded graph
 
 
 @dataclass
@@ -156,9 +175,17 @@ class CompiledTrainStep:
     call at that shape captures the step on that stream and replays the
     graph (capture records without running, so the step runs once); every
     later call copies the batch into the graph's static batch and replays.
-    The static state is the state of the first CUDA call: its parameter,
-    moment and step tensors, written in place by every step (the step
-    counter through a copy the graph makes of `adamw_update`'s new step).
+    Before the capture the allocator's cached blocks are released
+    (`torch.cuda.empty_cache`): the warm-up's freed activations stay cached
+    in the default pool, and the graph's private pool, which must hold a
+    whole step's, would otherwise come on top of them (a step whose
+    activations and gradient sums are as large as its state would not fit
+    twice on the card).  So no other graph may be capturing on the device
+    meanwhile.  The capture keeps its graph (`keep_graph`) to count its
+    nodes, then instantiates it.  The static state is the state of the
+    first CUDA call: its parameter, moment and step tensors, written in
+    place by every step (the step counter through a copy the graph makes
+    of `adamw_update`'s new step).
     A call with other tensors (a restart's `make_state()`, a restore)
     copies them in first (`copy_into`; counted in `stats.copy_ins`).
     Counts go to `stats` (`TRAIN_GRAPH_STATS` unless given): warm-up steps
@@ -221,11 +248,12 @@ class CompiledTrainStep:
 
     def _capture(self, key: tuple, batch: dict) -> _StepGraph:
         device = self.stream.device
+        torch.cuda.empty_cache()  # the warm-up's cached blocks (see the class's note)
         allocated = torch.cuda.memory_allocated(device)
         reserved = torch.cuda.memory_reserved(device)
         cur = torch.cuda.current_stream(device)
         self.stream.wait_stream(cur)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.stream(self.stream):
             static_batch = {k: x.clone() for k, x in batch.items()}
             before = launch_counts()
@@ -243,17 +271,21 @@ class CompiledTrainStep:
                                    f"at batch {key}: {err}") from err
             try:
                 graph.capture_end()
+                t1 = time.perf_counter()
+                nodes = graph_nodes(graph)
+                t2 = time.perf_counter()
+                graph.instantiate()
             except Exception as err:
                 raise ProgramError(f"the train step's CUDA graph capture failed at batch "
                                    f"{key}: {err}") from err
-            seconds = time.perf_counter() - t0
+            t3 = time.perf_counter()
         cur.wait_stream(self.stream)
         launches = {name: n - before[name] for name, n in launch_counts().items()
                     if n > before[name]}
-        self.stats.on_capture(launches, seconds,
+        self.stats.on_capture(launches, t1 - t0 + t3 - t2,
                               torch.cuda.memory_allocated(device) - allocated,
                               torch.cuda.memory_reserved(device) - reserved)
-        g = _StepGraph(graph, static_batch, metrics, launches)
+        g = _StepGraph(graph, static_batch, metrics, launches, nodes, t1 - t0, t3 - t2)
         self.graphs[key] = g
         return g
 

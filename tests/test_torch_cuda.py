@@ -1935,6 +1935,63 @@ def test_compiled_train_step_captures_a_graph_per_batch_shape(cuda):
     assert (compiled.stats.misses, compiled.stats.captures, compiled.stats.replays) == (2, 2, 5)
 
 
+# the memory the capture may reserve past its pool and what the warm-up
+# left allocated: the segments of the static batch and of the metrics'
+# clones (2 MiB each in the allocator's small pool) and the rounding of
+# the warm-up's kept blocks (cuBLAS's workspaces on the side stream) to
+# their segments, with room
+_POOL_SLACK = 16 << 20
+
+
+@pytest.mark.requires_cuda
+def test_compiled_train_step_capture_reuses_the_warm_ups_memory(cuda):
+    """At `train_small`'s size (d_model 512, 8 layers, 8 x 128 tokens in 2
+    micro-batches): the capture releases the warm-up's cached blocks before
+    its pool opens, so after it the card reserves no more than before the
+    warm-up plus what the warm-up left allocated, the graph's pool and
+    `_POOL_SLACK` (without the release: also the warm-up's freed blocks,
+    which here reserve more than four times the slack); the graph is
+    recorded with its nodes counted; four steps (a warm-up, the capture,
+    two replays) bit-equal to eager."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.examples import train_small as ts
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+
+    cfg = ts.small_config()
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = make_train_step(model, opt_cfg, remat=True, accum_steps=ts.ACCUM)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=ts.SEQ, global_batch=ts.BATCH)
+    batches = [{k: torch.as_tensor(v, device=cuda) for k, v in pipe.batch_for(i).items()}
+               for i in range(4)]
+
+    def state():
+        params = model.init(torch.Generator(device=cuda).manual_seed(0))
+        return params, init_opt_state(params, opt_cfg)
+
+    eager = _run(step, *state(), batches)
+    compiled = _compiled(step)
+    q, r = state()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before, held = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    q, r, first = _run(compiled, q, r, batches[:1])
+    warm = torch.cuda.max_memory_reserved() - before
+    kept = torch.cuda.memory_allocated() - held
+    q, r, second = _run(compiled, q, r, batches[1:2])
+    after = torch.cuda.memory_reserved() - before
+    pool = compiled.stats.reserved_bytes
+    assert warm - kept > 4 * _POOL_SLACK, (warm, kept)
+    assert after <= kept + pool + _POOL_SLACK, (after, kept, pool, warm)
+    (graph,) = compiled.graphs.values()
+    assert graph.nodes > 0 and graph.capture_s > 0 and graph.instantiate_s > 0
+    q, r, rest = _run(compiled, q, r, batches[2:])
+    _assert_bit_equal(eager, (q, r, first + second + rest))
+    assert (compiled.stats.misses, compiled.stats.captures, compiled.stats.replays) == (1, 1, 3)
+
+
 @pytest.mark.requires_cuda
 def test_compiled_train_step_capture_failure_raises_program_error(cuda):
     """A step that reads a loss on the host (a sync, refused while a graph

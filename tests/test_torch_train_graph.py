@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.examples.train_small import small_config
 from repro_torch.kernels import _lib
@@ -26,8 +27,12 @@ from repro_torch.training.train_lib import CompiledTrainStep, batch_key, copy_in
 from repro_torch.training.tree import leaves, paths
 
 
-def _model(dim: int = 64, layers: int = 2):
-    cfg = small_config(dim, layers).reduced(vocab=256, dtype=torch.float32)
+def _model(dim: int = 64, layers: int = 2, arch: str = "qwen2-1.5b"):
+    """`train_small`'s qwen2-1.5b config at `dim` and `layers`, or another
+    arch's config (xlstm-1.3b: one period, 7 mLSTM blocks and an sLSTM
+    block), `reduced()` to vocab 256 in f32."""
+    base = small_config(dim, layers) if arch == "qwen2-1.5b" else get_config(arch)
+    cfg = base.reduced(vocab=256, dtype=torch.float32)
     return cfg, build_model(cfg)
 
 
@@ -46,12 +51,14 @@ def _assert_trees_equal(a, b):
         assert x.dtype == y.dtype and torch.equal(x, y)
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_compiled_step_on_cpu_is_the_eager_step(accum):
+@pytest.mark.parametrize("arch,accum", [pytest.param("qwen2-1.5b", 1, id="1"),
+                                        pytest.param("qwen2-1.5b", 2, id="2"),
+                                        pytest.param("xlstm-1.3b", 2, id="xlstm-1.3b-2")])
+def test_compiled_step_on_cpu_is_the_eager_step(arch, accum):
     """Over four steps the compiled step's losses, gradient norms,
     parameters, moments and step counter equal the eager step's exactly,
     and it captures nothing on the CPU."""
-    cfg, model = _model()
+    cfg, model = _model(arch=arch)
     step = make_train_step(model, AdamWConfig(lr=1e-3), remat=True, accum_steps=accum)
     compiled = compile_train_step(step)
     assert isinstance(compiled, CompiledTrainStep)

@@ -9,9 +9,14 @@ reference on shared numpy inputs.  Bounds:
   within one bf16 ulp (both round the same f32 update to bf16, and the
   f32 updates agree to f32 rounding, as the f32 case holds them, so a
   value near a rounding boundary may land one ulp apart);
-* three train steps (qwen2-1.5b `reduced()`, accumulation 1 and 2): in
+* three train steps (qwen2-1.5b `reduced()`, accumulation 1 and 2; in f32
+  also xlstm-1.3b `reduced()`, one period of 7 mLSTM blocks and an sLSTM
+  block, on the fan-in-conditioned parameters of
+  `test_torch_train_parity.models`, accumulation 2, each of its steps
+  from the reference's state: `TEACHER_FORCED`): in
   f32 the losses within 1e-5 relative at every step, the first step's
-  gradient norm within 1e-5, each leaf's three-step update within 2e-2
+  gradient norm within 1e-5, each leaf's three-step update (xlstm-1.3b's
+  every step's) within 2e-2
   relative L2 of the reference's (AdamW's normalised step turns the tiny
   gradient gaps of elements whose gradient is near zero into update gaps
   of up to 2 lr); in bf16 the losses within 5e-3 and
@@ -43,7 +48,8 @@ from repro_torch.data.tokens import TokenPipeline
 from repro_torch.distributed.collectives import (CompressionState, compressed_psum,
                                                  compressed_psum_leaf)
 from repro_torch.models.model_zoo import build_model
-from repro_torch.testing.parity import opt_state_from_numpy, tree_to_numpy
+from repro_torch.testing.parity import (opt_state_from_numpy, params_from_numpy,
+                                       tree_to_numpy)
 from repro_torch.training import AdamWConfig, adamw_update, init_opt_state, make_train_step
 from repro_torch.training.optimizer import clip_by_global_norm, global_norm
 from repro_torch.training.train_lib import TrainState, init_train_state, micro_batches
@@ -177,8 +183,8 @@ def test_tree_walks_in_jax_flatten_order():
 # --------------------------------------------------------------- train step
 
 
-def _step_pair(dtype: str, accum: int):
-    ref_model, rparams, cfg, model, params = tp.models("qwen2-1.5b", dtype)
+def _step_pair(arch: str, dtype: str, accum: int):
+    ref_model, rparams, cfg, model, params = tp.models(arch, dtype)
     rs = ref_make_train_step(ref_model, RefAdamW(lr=1e-3), remat=False, accum_steps=accum)
     ps = make_train_step(model, AdamWConfig(lr=1e-3), remat=True, accum_steps=accum)
     ro = ref_init_opt_state(rparams, RefAdamW(lr=1e-3))
@@ -186,29 +192,55 @@ def _step_pair(dtype: str, accum: int):
     return cfg, model, (rs, rparams, ro), (ps, params, po)
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_train_steps_match_reference_f32(accum):
-    cfg, model, (rs, rp, ro), (ps, p, po) = _step_pair("f32", accum)
+# archs whose f32 steps start each from the reference's state (teacher
+# forcing): xlstm-1.3b's loss moves 4.4e-5 relative at the second step and
+# 1.1e-3 at the third when each package runs from its own state, though its
+# forward on the same parameters agrees to 1.4e-7 and each update to 0.3%
+# L2: a near-zero gradient element whose sign differs steps 2 lr the other
+# way (AdamW's normalised step), and its exponential gates amplify that
+TEACHER_FORCED = ("xlstm-1.3b",)
+
+
+def _assert_update_close(start, want, got) -> None:
+    """Each leaf's update `got - start` within 2e-2 relative L2 of the
+    reference's `want - start` (numpy trees of the reference's layout)."""
+    for (name, w, g), (_, _, s) in zip(tp.leaf_pairs(want, got), tp.leaf_pairs(want, start)):
+        dw, dg = w - s, g - s
+        assert np.linalg.norm(dg - dw) <= 2e-2 * np.linalg.norm(dw), name
+
+
+@pytest.mark.parametrize("arch,accum", [pytest.param("qwen2-1.5b", 1, id="1"),
+                                        pytest.param("qwen2-1.5b", 2, id="2"),
+                                        pytest.param("xlstm-1.3b", 2, id="xlstm-1.3b-2")])
+def test_train_steps_match_reference_f32(arch, accum):
+    """Three steps: the loss at every step and the first step's gradient
+    norm within 1e-5 relative; the updates within 2e-2 (the three steps'
+    together, or each step's where teacher-forced, `TEACHER_FORCED`)."""
+    forced = arch in TEACHER_FORCED
+    cfg, model, (rs, rp, ro), (ps, p, po) = _step_pair(arch, "f32", accum)
     p0 = tree_to_numpy(p, model.defs)
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4)
     for i in range(3):
+        if forced:  # the port's tensors share memory with the trees they are made of
+            start = tp.np_tree(rp)
+            p = params_from_numpy(tp.np_tree(rp), cfg)
+            po = opt_state_from_numpy(tp.np_tree(ro), model.defs)
         b = pipe.batch_for(i)["tokens"]
         rp, ro, rm = rs(rp, ro, {"tokens": jnp.asarray(b)})
         p, po, m = ps(p, po, {"tokens": torch.from_numpy(b)})
         assert float(m["loss"]) == pytest.approx(float(rm["loss"]), rel=1e-5)
         if i == 0:
             assert float(m["grad_norm"]) == pytest.approx(float(rm["grad_norm"]), rel=1e-5)
+        if forced:
+            _assert_update_close(start, tp.np_tree(rp), tree_to_numpy(p, model.defs))
     assert int(po["step"]) == int(ro["step"]) == 3
     assert all(not t.requires_grad for t in leaves(p))  # frozen again after the step
-    for (name, want, got), (_, _, start) in zip(tp.leaf_pairs(tp.np_tree(rp),
-                                                          tree_to_numpy(p, model.defs)),
-                                                 tp.leaf_pairs(tp.np_tree(rp), p0)):
-        dw, dg = want - start, got - start
-        assert np.linalg.norm(dg - dw) <= 2e-2 * np.linalg.norm(dw), name
+    if not forced:
+        _assert_update_close(p0, tp.np_tree(rp), tree_to_numpy(p, model.defs))
 
 
 def test_train_steps_match_reference_bf16():
-    cfg, model, (rs, rp, ro), (ps, p, po) = _step_pair("bf16", 2)
+    cfg, model, (rs, rp, ro), (ps, p, po) = _step_pair("qwen2-1.5b", "bf16", 2)
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4)
     for i in range(3):
         b = pipe.batch_for(i)["tokens"]
