@@ -24,7 +24,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    one of qwen3-14b taking the split path; ssd_scan in f32 with q and k
    broadcast or per head, with and without log_i, and in bf16, and at the
    mLSTM's state widths (xlstm-1.3b: DK 1024, DV 1025, log_i over its clip
-   range [-30, 10]) in bf16 and f32), and time it beside its bound, its
+   range [-30, 10]) in bf16 at its prefill and train micro-batch and in f32
+   at its prefill, each split by launch), and time it beside its bound, its
    plain version and one PyTorch library call (a yardstick only; the port
    never calls it), with the host time of one call;
 3. serve stablelm-3b at full width (32 layers, random weights from a seed)
@@ -1403,19 +1404,23 @@ def check_ssd_scan(dev, g, err, parent) -> dict:
         f"{b_ms * 1e3:.3f} us ({b_by}), plain {r['plain_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call")
     # the line's max|err| is the Mamba2 checks' (states of scale ~5); the
     # mLSTM's, whose states reach e^30 scales, are in its `shapes` entries
-    return dict(r, shapes=[dict(r)] + check_ssd_wide(dev, g, err))
+    return dict(r, shapes=[dict(r)] + check_ssd_wide(dev, g, err, parent))
 
 
-def check_ssd_wide(dev, g, err) -> list[dict]:
-    """The mLSTM's scan at xlstm-1.3b's prefill: q and k (B, T, 4, 1024)
-    per head, v (B, T, 4, 1025) with its ones column, the mLSTM's gates
-    (log_f = log_sigmoid(N(0, 1) + 4), log_i uniform over its clip range
-    [-30, 10], so decay terms reach e^30), chunk 256, in bf16 and in f32.
+def check_ssd_wide(dev, g, err, parent) -> list[dict]:
+    """The mLSTM's scan at xlstm-1.3b's prefill and at its train
+    micro-batch: q and k (B, T, 4, 1024) per head, v (B, T, 4, 1025) with
+    its ones column, the mLSTM's gates (log_f = log_sigmoid(N(0, 1) + 4),
+    log_i uniform over its clip range [-30, 10], so decay terms reach
+    e^30), chunk 256; in bf16 at both shapes and in f32 at the prefill's.
     Held to the plain version at the card tests' bounds scaled by max |ref|
     (y: `tol(bf16)` in bf16, atol 5e-4 / rtol 2e-3 in f32; the state at the
-    latter in both); timed beside its bound, its plain version and its
-    host time.  The other tree's kernel takes no state past 64, so nothing
-    is timed against it."""
+    latter in both), two calls bit-equal; in bf16 the share of y's elements
+    that differ from the plain version's f32 y rounded to bf16 is logged
+    (and the other tree's under `--parent`).  Timed beside its bound, its
+    plain version and its host time, and under `--parent` in turns with the
+    other tree's `ssd_scan_bthd` at the same inputs (parent, this, this,
+    parent); each tree's call split by launch (profiler)."""
     import torch
     import torch.nn.functional as F
 
@@ -1425,44 +1430,71 @@ def check_ssd_wide(dev, g, err) -> list[dict]:
     _, B, T, _ = DECODE_RUNS[2]
     NH, DK, chunk = 4, 1024, 256
     tol_f32 = dict(atol=5e-4, rtol=2e-3)
+    other = (parent or {}).get("ssd_scan")
     out = []
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k = ((torch.randn(B, T, NH, DK, generator=g, device=dev) * 0.5).to(dtype)
+    for dtype, rows in ((torch.bfloat16, T), (torch.bfloat16, TRAIN_SEQ), (torch.float32, T)):
+        q, k = ((torch.randn(B, rows, NH, DK, generator=g, device=dev) * 0.5).to(dtype)
                 for _ in range(2))
-        v = (torch.randn(B, T, NH, DK + 1, generator=g, device=dev) * 0.5).to(dtype)
+        v = (torch.randn(B, rows, NH, DK + 1, generator=g, device=dev) * 0.5).to(dtype)
         v[..., -1] = 1.0
-        log_f = F.logsigmoid(torch.randn(B, T, NH, generator=g, device=dev) + 4.0)
-        log_i = torch.rand(B, T, NH, generator=g, device=dev) * 40.0 - 30.0
+        log_f = F.logsigmoid(torch.randn(B, rows, NH, generator=g, device=dev) + 4.0)
+        log_i = torch.rand(B, rows, NH, generator=g, device=dev) * 40.0 - 30.0
         args = (q, k, v, log_f, log_i)
-        (y, st), (y0, st0) = (ssd.ssd_scan_bthd(*args, chunk=chunk),
-                              ssd.chunked_linear_attention_plain(*args, chunk=chunk))
+        (y, st), (y1, st1), (y0, st0) = (ssd.ssd_scan_bthd(*args, chunk=chunk),
+                                         ssd.ssd_scan_bthd(*args, chunk=chunk),
+                                         ssd.chunked_linear_attention_plain(*args, chunk=chunk))
         torch.cuda.synchronize()
         y_tol = tol(dtype) if dtype == torch.bfloat16 else tol_f32
         sy, ss = float(y0.float().abs().max()), float(st0.abs().max())
         torch.testing.assert_close(y.float(), y0.float(), atol=y_tol["atol"] * sy,
                                    rtol=y_tol["rtol"])
         torch.testing.assert_close(st, st0, atol=tol_f32["atol"] * ss, rtol=tol_f32["rtol"])
+        if not (torch.equal(y, y1) and torch.equal(st, st1)):
+            raise AssertionError(f"ssd_scan at the mLSTM's widths, T={rows}: two calls differ")
         name = "bf16" if dtype == torch.bfloat16 else "f32"
-        b_ms, b_by = bound_ms(ssd.scan_work(B, T, NH, DK, DK + 1, chunk, q.element_size(),
+        what = "prefill" if rows == T else "train micro-batch"
+        # where y rounds otherwise than the f32 result does (bf16 only)
+        rounded = y0.to(dtype).float()
+        misround = None if dtype != torch.bfloat16 else float((y.float() != rounded).float().mean())
+        parent_misround = None
+        if misround is not None and other is not None:
+            py = other.ssd_scan_bthd(*args, chunk=chunk)[0]
+            parent_misround = float((py.float() != rounded).float().mean())
+            del py
+        b_ms, b_by = bound_ms(ssd.scan_work(B, rows, NH, DK, DK + 1, chunk, q.element_size(),
                                             broadcast=False, with_i=True))
+        ms, parent_ms = paired_ms(lambda m: m.ssd_scan_bthd(*args, chunk=chunk), ssd, parent,
+                                  iters=20)
         call = lambda: ssd.ssd_scan_bthd(*args, chunk=chunk)  # noqa: E731
-        x = dict(shape=[B, T, NH, DK, DK + 1], what="xlstm-1.3b mLSTM, log_i in [-30, 10]",
+        x = dict(shape=[B, rows, NH, DK, DK + 1],
+                 what=f"xlstm-1.3b mLSTM {what}, log_i in [-30, 10]",
                  dtype=name, chunk=chunk, max_abs_err=max(err(y, y0), err(st, st0)),
                  max_rel_err=max(err(y, y0) / sy, err(st, st0) / ss),
+                 misrounded=misround, parent_misrounded=parent_misround,
                  tol={"y": y_tol, "state": tol_f32, "atol_scaled_by": "max|ref|"},
-                 ms=time_ms(call, iters=20), parent_ms=None,
+                 ms=ms, parent_ms=parent_ms,
                  plain_ms=time_ms(lambda: ssd.chunked_linear_attention_plain(*args, chunk=chunk),
                                   iters=3, warmup=1),
                  bound_ms=b_ms, bound_by=b_by, library_ms=None, host_ms=host_ms(call, calls=20),
-                 per_kernel_us=kernel_us(call))
-        log(f"[kernels] ssd_scan at xlstm-1.3b's mLSTM prefill (B, T, NH, DK, DV) = "
-            f"({B}, {T}, {NH}, {DK}, {DK + 1}), chunk {chunk}, log_i in [-30, 10], {name}: "
+                 per_kernel_us=kernel_us(call),
+                 parent_per_kernel_us=None if other is None else kernel_us(
+                     lambda: other.ssd_scan_bthd(*args, chunk=chunk)))
+        log(f"[kernels] ssd_scan at xlstm-1.3b's mLSTM {what} (B, T, NH, DK, DV) = "
+            f"({B}, {rows}, {NH}, {DK}, {DK + 1}), chunk {chunk}, log_i in [-30, 10], {name}: "
             f"y max|err| {err(y, y0):.3g} at scale {sy:.3g}, state max|err| {err(st, st0):.3g} "
-            f"at scale {ss:.3g}; {x['ms'] * 1e3:.3f} us vs bound {b_ms * 1e3:.3f} us ({b_by}), "
+            f"at scale {ss:.3g}, bit-equal run to run"
+            + ("" if misround is None else f"; y rounded otherwise than the f32 result in "
+               f"{misround:.4%} of its elements" + ("" if parent_misround is None else
+                                                   f" (the parent's {parent_misround:.4%})"))
+            + f"; {ms * 1e3:.3f} us{vs_parent(parent_ms)}"
+            + (f" (this {ms / parent_ms:.3f}x)" if parent_ms else "")
+            + f" vs bound {b_ms * 1e3:.3f} us ({b_by}), "
             f"plain {x['plain_ms'] * 1e3:.3f} us; host {x['host_ms'] * 1e3:.3f} us a call; "
-            f"launches: " + ", ".join(f"{n} {us:.3f} us" for n, us in x["per_kernel_us"].items()))
+            f"launches: " + ", ".join(f"{n} {us:.3f} us" for n, us in x["per_kernel_us"].items())
+            + ("" if other is None else "; the parent's: " + ", ".join(
+                f"{n} {us:.3f} us" for n, us in x["parent_per_kernel_us"].items())))
         out.append(x)
-        del q, k, v, args, y, st, y0, st0
+        del q, k, v, args, y, st, y1, st1, y0, st0, rounded
     return out
 
 
@@ -1485,21 +1517,19 @@ def check_ssd_backward(dev, g, parent) -> dict:
     inputs, each within GRAD_TOL of that result's max |value| (the plain
     backward from the bf16 inputs, its dq, dk and dv rounded to bf16,
     logged beside it); bit-equal run to run, and with the forward's
-    scratch kept (`forward_saved`, as `_ScanFn` keeps it on the heads
-    route) bit-equal to without.  A broadcast q and k go in as one head,
+    scratch kept (`forward_saved`, as `_ScanFn` keeps it on either route)
+    bit-equal to without.  A broadcast q and k go in as one head,
     (B, T, 1, DK), as Mamba2 hands them over, and their gradients come
-    back summed over the heads.  Timed as a train step runs it (the
-    forward's scratch kept where the route keeps it) beside its bound, the
+    back summed over the heads.  Timed as a train step runs it (on the
+    forward's kept scratch) beside its bound, the
     call that makes that scratch itself, the plain backward (one call
     between events, `once_ms`), the forward at the same inputs and the
     wrapper's host time; one call's device time split by launch
     (profiler).  Under `--parent`, timed in turns with the other tree's
-    backward at the same inputs (parent, this, this, parent), which takes
-    a broadcast q and k expanded over the heads and returns per-head
-    gradients: logged alone (`parent_ms`) and with the sums over the heads
-    that autograd's expand backward then runs in the step
-    (`parent_step_ms`), its launches split too.  No PyTorch call computes
-    it (library: none).  The line's numbers are zamba2-2.7b's shape."""
+    backward at the same inputs as its train step runs it, on its own
+    forward's kept scratch where its route takes it (parent, this, this,
+    parent), its launches split too.  No PyTorch call computes it
+    (library: none).  The line's numbers are zamba2-2.7b's shape."""
     import torch
     import torch.nn.functional as F
 
@@ -1526,8 +1556,7 @@ def check_ssd_backward(dev, g, parent) -> dict:
         dstate = torch.randn(B, NH, DK, DV, generator=g, device=dev) if final else None
         args = (q, k, v, log_g, log_i, dy, dstate)
         route = ssd.backward_plan(B, T, NH, heads, DK, DV, chunk)
-        saved = ssd.forward_saved(q, k, v, log_g, log_i, chunk=chunk) if route[0] == "heads" \
-            else None
+        saved = ssd.forward_saved(q, k, v, log_g, log_i, chunk=chunk)
 
         def unsaved():
             return ssd.ssd_scan_backward(*args, chunk=chunk)
@@ -1555,28 +1584,24 @@ def check_ssd_backward(dev, g, parent) -> dict:
         del got, again, kept, want, plain
         b_ms, b_by = bound_ms(ssd.scan_backward_work(B, T, NH, DK, DV, chunk, broadcast,
                                                      with_i, final))
-        parent_ms = parent_step_ms = parent_split = None
+        parent_ms = parent_split = None
         if other is None:
             ms = time_ms(call, iters=10)
         else:
-            wide = (q.expand(B, T, NH, DK), k.expand(B, T, NH, DK), *args[2:])
+            psaved = other.forward_saved(q, k, v, log_g, log_i, chunk=chunk)
 
             def pcall():
-                return other.ssd_scan_backward(*wide, chunk=chunk)
-
-            def pstep():  # and the sums over the heads of autograd's expand backward
-                r = pcall()
-                return (r[0].sum(2, keepdim=True), r[1].sum(2, keepdim=True)) if broadcast else r
+                return other.ssd_scan_backward(*args, chunk=chunk, saved=psaved)
 
             p0, t0, t1, p1 = (time_ms(f, iters=10) for f in (pcall, call, call, pcall))
             ms, parent_ms = (t0 + t1) / 2, (p0 + p1) / 2
-            parent_step_ms = time_ms(pstep, iters=10) if broadcast else parent_ms
             parent_split = kernel_us(pcall, calls=5)
+            del psaved
         r = dict(shape=[B, T, NH, DK, DV], what=what, chunk=chunk, route=route[0],
                  groups=route[1], heads_a_group=route[2], max_abs_err=max(gaps.values()),
                  gaps=gaps, plain_bf16_gaps=plain_gaps, tol=GRAD_TOL,
-                 ms=ms, parent_ms=parent_ms, parent_step_ms=parent_step_ms,
-                 unsaved_ms=time_ms(unsaved, iters=10) if saved is not None else ms,
+                 ms=ms, parent_ms=parent_ms,
+                 unsaved_ms=time_ms(unsaved, iters=10),
                  forward_ms=time_ms(lambda: ssd.ssd_scan_bthd(q, k, v, log_g, log_i, chunk=chunk),
                                     iters=10),
                  forward_bound_ms=bound_ms(ssd.scan_work(B, T, NH, DK, DV, chunk, 2, broadcast,
@@ -1595,8 +1620,6 @@ def check_ssd_backward(dev, g, parent) -> dict:
             + (f" ({route[1]} head groups of {route[2]})" if route[0] == "heads" else "")
             + f": {r['ms'] * 1e3:.3f} us{vs_parent(parent_ms)}"
             + (f" (this {r['ms'] / parent_ms:.3f}x)" if parent_ms else "")
-            + (f" ({parent_step_ms * 1e3:.3f} us with the sums over heads its step adds; "
-               f"this {r['ms'] / parent_step_ms:.3f}x of that)" if broadcast and parent_ms else "")
             + f" vs bound {b_ms * 1e3:.3f} us ({b_by}); making the forward's scratch itself "
             f"{r['unsaved_ms'] * 1e3:.3f} us; the forward {r['forward_ms'] * 1e3:.3f} us (bound "
             f"{r['forward_bound_ms'] * 1e3:.3f} us), "

@@ -36,22 +36,25 @@ SSD_HEADER = """\
 // transpose bit (0: K-major, 1: MN-major).
 //   Wgmma<N, TB>::ss: A (K-major) and B from shared memory through
 //                     descriptors.
+//   Wgmma<64, 1, 1>::ss: the same with A MN-major (its transpose bit set).
 //   Wgmma<64, 1>::rs: A from registers (four bf16x2 a thread, the mma.sync
 //                     A fragment of the thread's warp), B from shared memory.
 // scale_d == 0 overwrites the accumulator; 1 adds to it.
 #pragma once
 #include <stdint.h>
 
-template <int N, int TB> struct Wgmma;
+template <int N, int TB, int TA = 0> struct Wgmma;
 """
 
 # (template arguments, N, B's transpose bit in the SS form or None for no SS
-# form, the same for the RS form)
+# form, the same for the RS form[, A's transpose bit in the SS form])
 FLASH_SHAPES = tuple((str(n), n, 0 if n == SS_N else None, 1) for n in RS_N)
 # the 16-column score chunks (K-major B), the 64-wide state terms and shares
 # (B K-major or MN-major), P^T dy and the dk share (A from registers, B
-# MN-major)
-SSD_SHAPES = (("16, 0", 16, 0, None), ("64, 0", 64, 0, None), ("64, 1", 64, 1, 1))
+# MN-major); the pairs route's dS^T q and P^T dy (A and B MN-major); the
+# wide outputs' q.S and P.V over two 64-wide DV tiles (B MN-major)
+SSD_SHAPES = (("16, 0", 16, 0, None), ("64, 0", 64, 0, None), ("64, 1", 64, 1, 1),
+              ("64, 1, 1", 64, 1, None, 1), ("128, 1", 128, 1, None))
 
 
 def operands(n_acc: int) -> str:
@@ -62,12 +65,12 @@ def regs(first: int, count: int) -> str:
     return "{" + ", ".join(f"%{first + i}" for i in range(count)) + "}"
 
 
-def shape(args: str, n: int, ss_tb: int | None, rs_tb: int | None) -> str:
+def shape(args: str, n: int, ss_tb: int | None, rs_tb: int | None, ss_ta: int = 0) -> str:
     acc = n // 2
     ss = (f'    asm volatile(\n'
           f'        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{acc + 2}, 0;\\n"\n'
           f'        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "\n'
-          f'        "{regs(0, acc)}, %{acc}, %{acc + 1}, p, 1, 1, 0, {ss_tb};\\n}}\\n"\n'
+          f'        "{regs(0, acc)}, %{acc}, %{acc + 1}, p, 1, 1, {ss_ta}, {ss_tb};\\n}}\\n"\n'
           f'        : {operands(acc)}\n'
           f'        : "l"(desc_a), "l"(desc_b), "r"(scale_d));\n')
     rs = (f'    asm volatile(\n'

@@ -79,22 +79,37 @@
 //
 // Wide states (DK or DV past 64; the mLSTM's 1024 x 1025 is 16 x 17 tiles
 // of 64 x 64, 4.2 MB of f32 state a (batch, head), where the Pallas kernel
-// holds the whole state in VMEM).  Pass 1 takes a block per (chunk, state
-// tile, head, batch) and only the (0, 0) tile's block writes the gate
-// scratch; pass 2 a thread per element of the tiled state, writing the
-// entering state tile by tile.  Pass 3 needs q.k^T summed over every DK
-// tile for each of the DV tiles' outputs: summing it again in each DV
-// tile's block would repeat it 17 times at DV = 1025 (more operations than
-// q.S itself), so `scores_kernel` (a block per (chunk, row block, key block
-// <= it)) sums it once over the DK tiles, applies the decay and the mask,
-// and writes the scores in f32 to scratch (B, NH, nc, pairs, 64, 64), 5 MB
-// at the mLSTM's shape, read back from L2; `output_wide_kernel` (a block
-// per (chunk, row block, DV tile)) then runs a two-stage ring over (q's DK
-// tile, the entering state's tile) pairs for q.S and (scores, v) pairs for
-// P.V, the scores split into their MID parts as they load.  q, k and v
-// keep 16-byte copies wherever their rows allow; the wrapper hands a v
-// whose rows do not (hd + 1 wide, 2-byte aligned) to the kernel as a copy
-// with rows zero-padded to a multiple of 8.
+// holds the whole state in VMEM across its sequential chunk axis), three
+// launches, the state pass's and the outputs' products `wgmma` (m64, bf16
+// parts as above) on 128B-swizzled tiles that a cp.async ring brings in:
+//  1. `state_kernel<T, false>`, a block of one warpgroup per (state tile,
+//     head, batch) walking the chunks in order, the tile's running state in
+//     registers: per chunk the gates (a warp's scan; the first tile's block
+//     writes cum and li), L_c = sum_s (w_s k_s) v_s^T tile by tile (A, the
+//     weighted k^T, from registers in MID parts), then S = exp(clip(total))
+//     S + L_c, written as the state entering the next chunk in MID parts
+//     (one bulk copy a tile; f32 from registers) or as the final state.  The
+//     local states never leave the chip.
+//  2. `scores_kernel`, a block per (chunk, row block, key block <= it):
+//     q.k^T (`mma.sync`) summed once over the DK tiles (summing it again in
+//     each DV tile's block would repeat it 17 times at DV = 1025), decayed,
+//     masked and divided by exp(clip(cum_t)), written as three bf16 parts
+//     (16 MB at the mLSTM's train micro-batch, read back from L2; with two,
+//     as in the first design, more of y's elements round otherwise than its
+//     f32 value does, below: `chip_smoke.py` logs that share);
+//  3. `output_wide_kernel`, two warpgroups per (chunk, 128 rows, two DV
+//     tiles; one in f32): q.S over the DK tiles (each entering-state tile
+//     read once for 128 rows, each q tile once for 128 columns), then P'.V
+//     over the key blocks, in one accumulator; y_t = exp(clip(cum_t)) times
+//     it.
+// q, k and v keep 16-byte copies wherever their rows allow; the wrapper
+// hands a v whose rows do not (hd + 1 wide, 2-byte aligned) to the kernel
+// as a copy with rows zero-padded to a multiple of 8 (only the pad columns
+// zeroed first).  The forward's state pass gets at most 128 registers a
+// thread in bf16 so that four blocks share an SM (the backward's, which
+// holds more, three; f32's two).  Three blocks an SM ran slower on the
+// card, as did a deeper ring, 128 x 128 tiles a block on two warpgroups
+// (half the tile traffic through L2) and the grid ordered by head.
 //
 // Measured (chip_smoke.py --parent; NVIDIA H100 80GB HBM3, 700.00 W):
 // 104.113 us at zamba2-2.7b's prefill against the 667.518 us of the
@@ -111,14 +126,16 @@
 // epilogue with the next block's work, and the fold fused into pass 1,
 // are the next steps.
 //
-// Wide path, measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): at
-// xlstm-1.3b's mLSTM prefill (4, 512, 4, 1024, 1025), chunk 256, bf16,
-// 675.442 us against the 58.708 us bound (local 222.805, fold 148.752,
-// scores 29.119, output 244.472 us, and 28.0 us for the wrapper's copy of
-// v; with v loaded element by element and the local states untiled it
-// took 971.867 us); f32, 3112.218 us, pass 1 alone 1919.451 (element
-// loads of f32 tiles, three parts, two blocks an SM).  The narrow path
-// read 103.307 us at zamba2-2.7b's prefill.
+// Wide path, measured (chip_smoke.py --parent, in turns with the first
+// design's four launches; NVIDIA H100 80GB HBM3, 700.00 W), bf16: at
+// xlstm-1.3b's mLSTM train micro-batch (4, 1024, 4, 1024, 1025), chunk 256,
+// 879.288 us against 1337.069 (0.658x; the bound 134.803 us): state 475.484,
+// scores 63.224, output 290.443 and v's copy 44.705 us, where the first
+// design took local 442.063, fold 250.569, scores 48.696, output 544.636;
+// at its prefill (4, 512, ...) 451.970 against 677.958 us (0.667x).  y
+// rounds otherwise than its f32 value in 0.1176% of its elements (the first
+// design's 0.1975%).  f32 at the prefill: 2578.550 against 3117.245 us
+// (0.827x; the state pass 1592.147, element loads of f32 tiles).
 //
 // The backward (bf16 inputs; no Pallas counterpart: the reference takes
 // jax.grad of src/repro/models/ssm.py:29 `chunked_linear_attention`).  Per
@@ -155,24 +172,31 @@
 //  3. `finish_kernel`: the groups' shares summed in group order into dq and
 //     dk at (B, T, q/k heads, DK); dlog_g and dlog_i.
 // The pairs route, `ssd_backward` (any state width and chunk: the mLSTM's
-// 1024 x 1025 states), nine launches:
-//  1-2. the forward's `local_kernel` and `fold_kernel` again, for cum, li
-//     and the entering states (the inputs are saved, not the forward's
-//     scratch: 285 MB a call at the mLSTM's train shape);
-//  3. `local_kernel<T, true>`: U_c for all chunks at once;
-//  4. `gfold_kernel`: the G_c in reverse chunk order, as MID bf16 parts,
-//     and each block's share of <S_c, G_c>;
-//  5. `bscores_kernel`, a block per (chunk, row block, key block <= it):
-//     q.k^T over the DK tiles and dy.v^T over the DV tiles, P and dS
-//     written in f32 (the mLSTM's sums span 16 and 17 tiles, so no block of
-//     one output tile can form them alone), with each pair's sums of g by
-//     row and by column;
-//  6-8. `grad_kernel` for dq (a block per row block: the key blocks <= it),
-//     dk and dv (a block per key block: the row blocks >= it, the tiles
-//     transposed by `ldmatrix .trans`), each per 64-wide output tile, the
-//     state term first over the other width's tiles;
-//  9. `gates_kernel`, a warp per chunk: the partial sums in order and the
+// 1024 x 1025 states), six launches on the forward's cum, li and entering
+// states, which `_ScanFn` keeps on this route too (285 MB a call at the
+// mLSTM's train micro-batch; a direct call without them runs the forward
+// kernel first):
+//  1. `state_kernel<T, true>`: the forward's state pass run backward over
+//     the chunks, q for k, dy for v: each tile's G_c written as MID parts
+//     and U_c formed and folded in on chip, with each tile's decay term
+//     exp(total) <S_c, G_c>;
+//  2. `bscores_kernel`, a block per (chunk, row block, key block <= it):
+//     q.k^T over the DK tiles and dy.v^T over the DV tiles (`mma.sync`), P
+//     and dS written as MID bf16 parts through shared memory (the mLSTM's
+//     sums span 16 and 17 tiles, so no block of one output tile can form
+//     them alone), with each pair's sums of g by row and by column;
+//  3-5. `grad_kernel` for dq (128 rows a block: the key blocks <= each), dk
+//     and dv (128 keys a block: the row blocks >= each; dS^T and P^T read
+//     MN-major by `wgmma`), each per 64-wide output tile, the state term
+//     over the other width's tiles and the pairs in accumulators of their
+//     own, on the output kernel's two-warpgroup ring;
+//  6. `gates_kernel`, a warp per chunk: the partial sums in order and the
 //     suffix sums of dcum.
+// Measured (chip_smoke.py --parent; NVIDIA H100 80GB HBM3, 700.00 W) at the
+// mLSTM's train micro-batch (4, 1024, 4, 1024, 1025) as a train step runs
+// it, on the kept scratch: 1665.461 us against the nine-launch design's
+// 3232.739 (0.515x; the bound 365.261 us): state 498.655, bscores 124.346,
+// dq 239.636, dk 282.062, dv 401.058, gates 25.999 and dy's copy 90.290 us.
 // dq and dk are per head there (the wrapper sums a one-head q's or k's).
 //
 // Bound on the card: operations (chip_smoke.py `ssd_backward_bound`, the
@@ -184,8 +208,7 @@
 // for the seven-launch design it replaces in the same run (0.554x; 0.518x
 // of that with the sums over heads its step's expand backward ran), 5.59x
 // the bound: ufold 39.5, heads 292.2, finish 20.1 us; a ragged (2, 1000,
-// 80, 64) 220.464 against 354.154; the mLSTM's (pairs route) 3246.058
-// against 3233.506.  What holds the heads kernel back: at 255 registers a
+// 80, 64) 220.464 against 354.154.  What holds the heads kernel back: at 255 registers a
 // thread an SM runs its 8 warps, and each step waits on its own chain
 // (the scores' wgmma, the element work, the dv wgmma); keeping more live
 // (the next pair's first scores issued early, the state sums moved to
@@ -229,8 +252,8 @@ struct Args {
                     // tile by 64 x 64 tile
   bf16* entering;   // (B, NH, nc, nk, nv, MID, 64, 64): the state entering chunk c,
                     // tile by 64 x 64 tile, in MID parts
-  float* scores;    // wide path: (B, NH, nc, n_tri, 64, 64), the decayed scores of each
-                    // (row block, key block <= it) pair of a chunk
+  bf16* scores;     // wide path: (B, NH, nc, n_tri, MID, 64, 64), the decayed scores of
+                    // each (row block, key block <= it) pair of a chunk in MID parts
   Strides sq, sk, sv, sg, si, sy;
   int B, T, NH, DK, DV, chunk, nc;
   int nk, nv;  // 64-wide tiles of DK and DV
@@ -243,14 +266,15 @@ struct Args {
   int vdy;
   const float* dstate;   // (B, NH, DK, DV): the cotangent of the final state, or null (zero)
   bf16* gstate;          // like `entering`: G_c, the cotangent of the state leaving chunk c
-  float* pmat;           // like `scores`: P_ts = (q_t.k_s) D_ts of each (row block, key block) pair
-  float* dsmat;          // the same pairs of dS_ts = (dy_t.v_s) D_ts
+  bf16* pmat;            // like `scores`: P_ts = (q_t.k_s) D_ts of each (row block, key block)
+                         // pair, in MID parts
+  bf16* dsmat;           // the same pairs of dS_ts = (dy_t.v_s) D_ts
   float* rpart;          // (B, NH, nc, n_tri, 64): each pair's sums of g_ts over s, by row t
                          // (heads route: (B, NH, nc, n_tri, 4 warps, 64), each warp's keys)
   float* cpart;          // the same over t, by column s (heads route: (B, NH, T), complete)
   float* ipart;          // (B, NH, nk, T): q_t . (S_c dy_t) over each DK tile
   float* hpart;          // (B, NH, nk, T): k_s . (G_c v_s) over each DK tile
-  float* dpart;          // (B, NH, nc, fold blocks): <S_c, G_c> over each fold block's elements
+  float* dpart;          // (B, NH, nc, nk x nv): exp(total) <S_c, G_c> over each state tile
                          // (heads route: (B, NH, nc), exp(total) <S_c, G_c> complete)
   void *dq, *dk, *dv;    // (B, T, NH, DK or DV) contiguous, in the input dtype (dq and dk
                          // (B, T, nq, DK) on the heads route)
@@ -262,16 +286,18 @@ struct Args {
 };
 
 // parts of an input (IN) and of an f32 operand (MID); a product takes the
-// part pairs (i, j) with i + j < MID
+// part pairs (i, j) with i + j < MID.  SCORE: the wide path's decayed scores,
+// three parts in either dtype (their products are few, and with two, y is
+// rounded as the f32 result would be in fewer places)
 template <typename T>
 struct Parts;
 template <>
 struct Parts<bf16> {
-  static constexpr int IN = 1, MID = 2;
+  static constexpr int IN = 1, MID = 2, SCORE = 3;
 };
 template <>
 struct Parts<float> {
-  static constexpr int IN = 3, MID = 3;
+  static constexpr int IN = 3, MID = 3, SCORE = 3;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -403,17 +429,59 @@ __device__ __forceinline__ void load_tile(bf16* dst, const T* src, int64_t rs, i
   }
 }
 
+// 128B-swizzled 64 x 64 bf16 tiles, the layout `wgmma` reads: row r's
+// 16-byte chunk c sits at r * 128 + ((c ^ (r & 7)) << 4), and a tile starts
+// on a 1024-byte boundary.
+constexpr int kSwTile = kTile * kTile * 2;
+__device__ __forceinline__ int sw_off(int r, int c16) { return r * 128 + ((c16 ^ (r & 7)) << 4); }
+
+// wgmma shared-memory descriptor for a 128B-swizzled operand: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (SW128);
+// K-major: k-step kk of a tile starts kk * 32 bytes in; MN-major (the
+// transpose bit): at row 16 kk
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) { return sw128_desc(addr, 16, 1024); }
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr) { return sw128_desc(addr, kSwTile, 1024); }
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// shared-memory writes of the generic proxy (cp.async, st.shared) made
+// visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ldmatrix row addresses in a swizzled tile, as `at_off` and `bk_off` give
+// them in a padded plane
+__device__ __forceinline__ int at_sw(int s0, int d0, int lane) {
+  return sw_off(s0 + (lane & 7) + 8 * (lane >> 4), (d0 >> 3) + ((lane >> 3) & 1));
+}
+__device__ __forceinline__ int bk_sw(int k0, int n0, int lane) {
+  return sw_off(k0 + (lane & 7) + 8 * ((lane >> 3) & 1), (n0 >> 3) + (lane >> 4));
+}
+
 // ---------------------------------------------------------------- pass 1
 
-// one 64 x 64 tile (DK tile dk, DV tile dv) of the chunk's local state
-// L_c = sum_s (k_s w_s) v_s^T, and (tile (0, 0)) the chunk's cumulative
-// decay; shared memory: a two-stage ring of (k, v) tiles, then cum and w
-//
-// BWD (the backward's pass): the same sum over the chunk with q for k, dy
-// for v and exp(clip(cum_t)) for w, U_c = sum_t exp(clip(cum_t)) q_t dy_t^T,
-// the chunk's own share of the cotangent of the state entering it; the gate
-// scratch is left as the forward's pass wrote it
-template <typename T, bool BWD>
+// the chunk's local state L_c = sum_s (k_s w_s) v_s^T (narrow states: one
+// 64 x 64 tile) and its cumulative decay; shared memory: a two-stage ring of
+// (k, v) tiles, then cum and w
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 local_kernel(const __grid_constant__ Args a) {
   constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
@@ -427,11 +495,11 @@ local_kernel(const __grid_constant__ Args a) {
   const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0);
   const int n_tiles = (Lc + kTile - 1) / kTile;
   float* w = cum + n_tiles * kTile;
-  const Strides sk = BWD ? a.sq : a.sk;
-  const Strides sv = BWD ? a.sdy : a.sv;
-  const bool vk = (BWD ? a.vq : a.vk) != 0, vv = (BWD ? a.vdy : a.vv) != 0;
-  const T* kb = static_cast<const T*>(BWD ? a.q : a.k) + b * sk.b + h * sk.h + c0 * sk.t + dk * kTile;
-  const T* vb = static_cast<const T*>(BWD ? a.dy : a.v) + b * sv.b + h * sv.h + c0 * sv.t + dv * kTile;
+  const Strides sk = a.sk;
+  const Strides sv = a.sv;
+  const bool vk = a.vk != 0, vv = a.vv != 0;
+  const T* kb = static_cast<const T*>(a.k) + b * sk.b + h * sk.h + c0 * sk.t + dk * kTile;
+  const T* vb = static_cast<const T*>(a.v) + b * sv.b + h * sv.h + c0 * sv.t + dv * kTile;
 
   auto issue = [&](int j) {
     bf16* st = ring + (j & 1) * 2 * IN * kPlane;
@@ -471,11 +539,11 @@ local_kernel(const __grid_constant__ Args a) {
   const float total = cum[Lc - 1];
   const int64_t row0 = (static_cast<int64_t>(b) * a.NH + h) * a.T + c0;
   for (int t = tid; t < n_tiles * kTile; t += kThreads) {
-    if (t < Lc && tile == 0 && !BWD) {
+    if (t < Lc && tile == 0) {
       a.cum[row0 + t] = cum[t];
       a.li[row0 + t] = w[t];
     }
-    w[t] = t >= Lc ? 0.0f : BWD ? __expf(clip(cum[t])) : __expf(clip(total - cum[t] + w[t]));
+    w[t] = t >= Lc ? 0.0f : __expf(clip(total - cum[t] + w[t]));
   }
 
   // warp: state rows d in [16 warp, 16 warp + 16), all 64 columns
@@ -545,14 +613,14 @@ local_kernel(const __grid_constant__ Args a) {
 // ---------------------------------------------------------------- pass 2
 
 // S_c = exp(clip(total_c)) S_{c-1} + L_c in chunk order, a thread per
-// (element of the state padded to 64 x 64 tiles, head, batch); the state
-// entering each chunk after the first is written tile by tile as the MID
-// bf16 parts pass 3 loads
-template <typename T, bool WIDE>
+// (element of the state padded to a 64 x 64 tile, head, batch); the state
+// entering each chunk after the first is written as the MID bf16 parts
+// pass 3 loads
+template <typename T>
 __global__ void __launch_bounds__(256) fold_kernel(const __grid_constant__ Args a) {
   constexpr int MID = Parts<T>::MID;
   constexpr int kEl = kTile * kTile;
-  const int nv = WIDE ? a.nv : 1, tiles = WIDE ? a.nk * a.nv : 1;
+  const int nv = 1, tiles = 1;
   const int rem = blockIdx.x * blockDim.x + threadIdx.x;  // element of this (batch, head)
   if (rem >= tiles * kEl) return;
   const int64_t bh = static_cast<int64_t>(blockIdx.z) * a.NH + blockIdx.y;
@@ -797,20 +865,352 @@ output_kernel(const __grid_constant__ Args a) {
   }
 }
 
-// ------------------------------------------------- pass 3, wide states
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ bool passes(float x) { return x >= -kClip && x <= kClip; }
 
-// DK or DV past 64 (the mLSTM: 1024 and 1025).  q.k^T then sums over DK
-// tiles and y covers DV tiles; rather than have each DV tile's block sum
-// q.k^T again (17 times at DV = 1025), `scores_kernel` writes the decayed,
-// masked scores of each (row block, key block) pair once, in f32, and
-// `output_wide_kernel` reads them as the A operand of P.V.
+// ------------------------------------------------------------- wide states
+//
+// DK or DV past 64 (the mLSTM: 1024 and 1025, 16 x 17 state tiles of 64 x
+// 64).  Three launches: `state_kernel<T, false>` (the chunks' states, the
+// fold and the gate scratch), `scores_kernel` (q.k^T summed over the DK
+// tiles once, decayed and masked) and `output_wide_kernel` (y); the
+// backward's pairs route runs `state_kernel<T, true>` for the state
+// cotangents.  Tiles sit in shared memory as 128B-swizzled bf16 planes, one
+// a part, the layout `wgmma` reads.
+
+// rows [0, rows) x cols [0, width) of a (time, feature) slice into P
+// swizzled bf16 planes at `dst`, `stride` bytes apart (zero elsewhere in the
+// 64 x 64 tile), by a block of NT threads: 16-byte cp.async copies where
+// `vec` (bf16, one part; the caller commits), else element loads split into
+// parts
+template <typename T, int P, int NT>
+__device__ __forceinline__ void load_sw_parts(unsigned char* dst, const T* src, int64_t rs, int rows,
+                                              int width, bool vec, int stride = kSwTile) {
+  if constexpr (P == 1 && sizeof(T) == 2) {
+    if (vec) {
+      const uint32_t base = smem_addr(dst);
+      for (int idx = threadIdx.x; idx < kTile * 8; idx += NT) {
+        const int r = idx >> 3, c = idx & 7;
+        const bool ok = r < rows && 8 * c < width;
+        cp_async16(base + sw_off(r, c), ok ? src + r * rs + 8 * c : src, ok ? 16 : 0);
+      }
+      return;
+    }
+  }
+  for (int idx = threadIdx.x; idx < kTile * kTile; idx += NT) {
+    const int r = idx >> 6, c = idx & 63;
+    bf16 p[P];
+    split<P>(r < rows && c < width ? to_f32(src[r * rs + c]) : 0.0f, p);
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      *reinterpret_cast<bf16*>(dst + i * stride + sw_off(r, c >> 3) + (c & 7) * 2) = p[i];
+  }
+}
+
+// N plain 64 x 64 bf16 planes (row-major, contiguous, as `entering`,
+// `gstate` and `scores` hold them) into N swizzled planes by cp.async
+template <int N, int NT>
+__device__ __forceinline__ void load_planes_sw(unsigned char* dst, const bf16* src) {
+  const uint32_t base = smem_addr(dst);
+  for (int idx = threadIdx.x; idx < N * kTile * 8; idx += NT) {
+    const int r = idx >> 3, c = idx & 7;  // row r of the N stacked planes
+    cp_async16(base + (r >> 6) * kSwTile + sw_off(r & 63, c), src + r * kTile + 8 * c, 16);
+  }
+}
+
+// the accumulator layout's 64 x 64 tile x (f32, this thread's 32 values) as
+// MID bf16 parts into `stage` (MID plain planes) and out to `dst` by one
+// bulk copy; `stage` is free again once the previous copy has read it.
+// With no stage (null) each thread stores its own parts.
+template <int MID>
+__device__ __forceinline__ void store_parts(const float (&x)[32], unsigned char* stage, bf16* dst) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tq = lane % 4;
+  if (stage == nullptr) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int off = (16 * warp + g + 8 * r) * kTile + 8 * n + 2 * tq;
+        uint32_t p[MID];
+        split2<MID>(x[4 * n + 2 * r], x[4 * n + 2 * r + 1], p);
+#pragma unroll
+        for (int i = 0; i < MID; ++i) *reinterpret_cast<uint32_t*>(dst + i * kTile * kTile + off) = p[i];
+      }
+    return;
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int off = (16 * warp + g + 8 * r) * kTile + 8 * n + 2 * tq;
+      uint32_t p[MID];
+      split2<MID>(x[4 * n + 2 * r], x[4 * n + 2 * r + 1], p);
+#pragma unroll
+      for (int i = 0; i < MID; ++i) *reinterpret_cast<uint32_t*>(stage + (i * kTile * kTile + off) * 2) = p[i];
+    }
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+                 "r"(smem_addr(stage)), "n"(MID * kTile * kTile * 2)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+// The state pass: one 64 x 64 state tile (DK tile dk, DV tile dv) of one
+// (head, batch) a block of one warpgroup, walking the chunks in order with
+// the running state S in registers (f32, the accumulator layout: warp w
+// holds rows 16 w ..).  The (k, v) tiles of every chunk come through a
+// two-stage cp.async ring, each chunk's raw gates beside its first tile.
+// At a chunk's first tile warp 0 scans its log decays (the (0, 0) tile's
+// block writes cum and li); each tile then adds its 64 steps of L_c =
+// sum_s (w_s k_s) v_s^T, w_s = exp(clip(total - cum_s + li_s)), as `wgmma`
+// with A from registers (k^T by `ldmatrix .trans`, times w, split into MID
+// parts) and v from shared memory (MN-major); at its last tile S =
+// exp(clip(total)) S + L_c, written as the state entering the next chunk
+// (MID bf16 parts, one bulk copy a tile) or, after the last chunk, as the
+// f32 final state.  Nothing of L_c leaves the chip.
+//
+// BWD (the backward's pairs route): the same walk over the chunks last
+// first with q for k, dy for v, w_t = exp(clip(cum_t)) from the forward's
+// cum, and G for S: G_c (G_last = dstate) is written as MID parts at the
+// chunk's first tile, with the tile's decay term exp(total) <S_c, G_c> (S_c
+// from the forward's entering states) to dpart, and G_{c-1} =
+// exp(clip(total_c)) G_c + U_c, U_c = sum_t exp(clip(cum_t)) q_t dy_t^T.
+constexpr int kStateStages = 2;
+// f32 stores its parts from registers: without the staging tile two blocks
+// fit an SM
+template <typename T>
+constexpr bool kStateStaged = sizeof(T) == 2;
+template <typename T>
+constexpr int state_smem(int padded) {
+  return 1024 + kStateStages * (2 * Parts<T>::IN * kSwTile + 2 * padded * 4) +
+         (kStateStaged<T> ? Parts<T>::MID * kSwTile : 0);
+}
+
+template <typename T, bool BWD>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : BWD ? 3 : 4)
+state_kernel(const __grid_constant__ Args a) {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
+  constexpr int kStage = 2 * IN * kSwTile;  // k planes, then v planes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red[kWarps];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - smem_addr(smem_raw));
+  unsigned char* out_stage = kStateStaged<T> ? sm + kStateStages * kStage : nullptr;
+  const int n_tb = (a.chunk + kTile - 1) / kTile, padded = n_tb * kTile;
+  // the gates of chunk c in buffer c % kStateStages: cum, then w
+  float* gates = reinterpret_cast<float*>(sm + kStateStages * kStage + (kStateStaged<T> ? MID * kSwTile : 0));
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z, tiles = a.nk * a.nv;
+  const int dk = tile / a.nv, dv = tile % a.nv;
+  const int wk = min(kTile, a.DK - dk * kTile), wv = min(kTile, a.DV - dv * kTile);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4, d0 = 16 * warp;
+  const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
+  const int last_len = a.T - (a.nc - 1) * a.chunk;
+  const int n_last = (last_len + kTile - 1) / kTile;
+  const int steps = (a.nc - 1) * n_tb + n_last;
+  const Strides sk = BWD ? a.sq : a.sk, sv = BWD ? a.sdy : a.sv;
+  const bool vk = (BWD ? a.vq : a.vk) != 0, vv = (BWD ? a.vdy : a.vv) != 0;
+  const T* kb = static_cast<const T*>(BWD ? a.q : a.k) + b * sk.b + h * sk.h + dk * kTile;
+  const T* vb = static_cast<const T*>(BWD ? a.dy : a.v) + b * sv.b + h * sv.h + dv * kTile;
+
+  auto at = [&](int n, int& c, int& j) {  // step n: tile j of chunk c
+    if (!BWD) {
+      c = n / n_tb;
+      j = n % n_tb;
+    } else if (n < n_last) {
+      c = a.nc - 1;
+      j = n;
+    } else {
+      c = a.nc - 2 - (n - n_last) / n_tb;
+      j = (n - n_last) % n_tb;
+    }
+  };
+  auto issue = [&](int n) {
+    if (n >= steps) return;
+    int c, j;
+    at(n, c, j);
+    unsigned char* st = sm + (n % kStateStages) * kStage;
+    const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), rows = min(kTile, Lc - j * kTile);
+    const int64_t t0 = c0 + j * kTile;
+    load_sw_parts<T, IN, kThreads>(st, kb + t0 * sk.t, sk.t, rows, wk, vk);
+    load_sw_parts<T, IN, kThreads>(st + IN * kSwTile, vb + t0 * sv.t, sv.t, rows, wv, vv);
+    if (j == 0) {  // the chunk's gates: log_g and log_i (BWD: the forward's cum)
+      float* gb = gates + (c % kStateStages) * 2 * padded;
+      const float* gsrc = BWD ? a.cum + bh * a.T + c0 : a.log_g + b * a.sg.b + h * a.sg.h + c0 * a.sg.t;
+      const int64_t gs = BWD ? 1 : a.sg.t;
+      const float* isrc = a.log_i != nullptr ? a.log_i + b * a.si.b + h * a.si.h + c0 * a.si.t : nullptr;
+      for (int s = tid; s < padded; s += kThreads) {
+        cp_async4(smem_addr(gb + s), s < Lc ? gsrc + s * gs : gsrc, s < Lc ? 4 : 0);
+        if (BWD) continue;
+        if (isrc != nullptr)
+          cp_async4(smem_addr(gb + padded + s), s < Lc ? isrc + s * a.si.t : isrc, s < Lc ? 4 : 0);
+        else
+          gb[padded + s] = 0.0f;
+      }
+    }
+  };
+  for (int n = 0; n < kStateStages; ++n) {
+    issue(n);
+    cp_async_commit();
+  }
+
+  float S[32], L[32];  // S: the running state (BWD: G); L: this chunk's sum, wgmma's alone
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int d = dk * kTile + d0 + g + 8 * ((i >> 1) & 1), col = dv * kTile + 8 * (i >> 2) + 2 * tq + (i & 1);
+    S[i] = BWD && a.dstate != nullptr && d < a.DK && col < a.DV
+               ? a.dstate[bh * a.DK * a.DV + static_cast<int64_t>(d) * a.DV + col]
+               : 0.0f;
+  }
+  float total = 0.0f;
+  for (int n = 0; n < steps; ++n) {
+    int c, j;
+    at(n, c, j);
+    const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), n_tc = (Lc + kTile - 1) / kTile;
+    float* cum = gates + (c % kStateStages) * 2 * padded;
+    float* w = cum + padded;
+    cp_async_wait<kStateStages - 1>();
+    fence_async_smem();
+    __syncthreads();
+    if (j == 0) {  // the chunk's gates, then (BWD) G_c out
+      if (!BWD && warp == 0) {  // the inclusive scan of the log decays
+        float carry = 0.0f;
+        for (int base_t = 0; base_t < Lc; base_t += 32) {
+          const int t = base_t + lane;
+          float x = t < Lc ? cum[t] : 0.0f;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const float up = __shfl_up_sync(0xffffffffu, x, o);
+            if (lane >= o) x += up;
+          }
+          x += carry;
+          if (t < Lc) cum[t] = x;
+          carry = __shfl_sync(0xffffffffu, x, 31);
+        }
+      }
+      __syncthreads();
+      total = cum[Lc - 1];
+      for (int t = tid; t < n_tc * kTile; t += kThreads) {
+        if (!BWD && t < Lc && tile == 0) {
+          a.cum[bh * a.T + c0 + t] = cum[t];
+          a.li[bh * a.T + c0 + t] = w[t];
+        }
+        w[t] = t >= Lc ? 0.0f : BWD ? __expf(clip(cum[t])) : __expf(clip(total - cum[t] + w[t]));
+      }
+      if constexpr (BWD) {
+        const int64_t at_tile = ((bh * a.nc + c) * tiles + tile) * MID * kTile * kTile;
+        store_parts<MID>(S, out_stage, a.gstate + at_tile);
+        float x = 0.0f;  // <S_c, G_c> over this thread's elements
+        if (c > 0 && passes(total)) {
+          const bf16* ent = a.entering + at_tile;
+#pragma unroll
+          for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int off = (d0 + g + 8 * r) * kTile + 8 * n8 + 2 * tq;
+              float2 sc = make_float2(0.0f, 0.0f);
+#pragma unroll
+              for (int i = 0; i < MID; ++i) {
+                const float2 f = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(ent + i * kTile * kTile + off));
+                sc.x += f.x;
+                sc.y += f.y;
+              }
+              x += sc.x * S[4 * n8 + 2 * r] + sc.y * S[4 * n8 + 2 * r + 1];
+            }
+        }
+        x = warp_sum(x);
+        if (lane == 0) red[warp] = x;
+      }
+      __syncthreads();
+      if (BWD && tid == 0)
+        a.dpart[(bh * a.nc + c) * tiles + tile] =
+            c > 0 && passes(total) ? expf(total) * (((red[0] + red[1]) + red[2]) + red[3]) : 0.0f;
+    }
+    // A[d][s] = k_s[d] w_s (rows d of this warp, 16 steps s a k-step) in MID
+    // parts, from the IN parts of the staged k tile
+    const uint32_t ks = base + (n % kStateStages) * kStage, vs = ks + IN * kSwTile;
+    const float* wj = w + j * kTile;
+    uint32_t am[4][MID][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float x[8] = {};
+#pragma unroll
+      for (int i = 0; i < IN; ++i) {
+        uint32_t r[4];
+        ldsm_t(ks + i * kSwTile + at_sw(16 * kk, d0, lane), r);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = unpack(r[e]);
+          x[2 * e] += f.x;
+          x[2 * e + 1] += f.y;
+        }
+      }
+      const int s = 16 * kk + 2 * tq;
+      const float w0 = wj[s], w1 = wj[s + 1], w8 = wj[s + 8], w9 = wj[s + 9];
+      uint32_t parts[4][MID];
+      split2<MID>(x[0] * w0, x[1] * w1, parts[0]);
+      split2<MID>(x[2] * w0, x[3] * w1, parts[1]);
+      split2<MID>(x[4] * w8, x[5] * w9, parts[2]);
+      split2<MID>(x[6] * w8, x[7] * w9, parts[3]);
+#pragma unroll
+      for (int i = 0; i < MID; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) am[kk][i][e] = parts[e][i];
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < MID; ++i)
+#pragma unroll
+        for (int jj = 0; jj < IN; ++jj) {
+          if (i + jj >= MID) continue;
+          Wgmma<64, 1>::rs(L, am[kk][i], mnmajor(vs + jj * kSwTile + kk * 2048),
+                           j > 0 || kk > 0 || i > 0 || jj > 0);
+        }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(L);
+    if (j == n_tc - 1) {  // the chunk's last tile: fold it in
+      const float decay = expf(clip(total));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) S[i] = decay * S[i] + L[i];
+      if (!BWD && c + 1 < a.nc) {
+        store_parts<MID>(S, out_stage, a.entering + ((bh * a.nc + c + 1) * tiles + tile) * MID * kTile * kTile);
+      } else if (!BWD && a.state != nullptr) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int d = dk * kTile + d0 + g + 8 * ((i >> 1) & 1);
+          const int col = dv * kTile + 8 * (i >> 2) + 2 * tq + (i & 1);
+          if (d < a.DK && col < a.DV) a.state[bh * a.DK * a.DV + static_cast<int64_t>(d) * a.DV + col] = S[i];
+        }
+      }
+    }
+    __syncthreads();
+    issue(n + kStateStages);
+    cp_async_commit();
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
 
 // the pair index of a chunk's (row block tbi, key block j <= tbi)
 __host__ __device__ __forceinline__ int tri(int tbi) { return tbi * (tbi + 1) / 2; }
 
 // P[t][s] = (q_t.k_s) exp(clip(cum_t - cum_s + li_s)) for s <= t, both in the
 // chunk, else 0: a block per (chunk, pair, head, batch), the q and k tiles
-// of each DK tile through a two-stage ring (q planes, then k planes)
+// of each DK tile through a two-stage ring (q planes, then k planes); P' =
+// P / exp(clip(cum_t)) is written as its MID bf16 parts, the planes
+// `output_wide_kernel` loads (which scales its rows by exp(clip(cum_t)))
 template <typename T>
 __global__ void __launch_bounds__(kThreads) scores_kernel(const __grid_constant__ Args a) {
   constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
@@ -878,7 +1278,9 @@ __global__ void __launch_bounds__(kThreads) scores_kernel(const __grid_constant_
   const int t0 = tb + m0 + g;  // this thread's rows in the chunk: t0, t0 + 8
   const float ct0 = (t0 < Lc ? cb[t0] : 0.0f) * kLog2e;
   const float ct1 = (t0 + 8 < Lc ? cb[t0 + 8] : 0.0f) * kLog2e;
-  float* out = a.scores + ((bh * a.nc + c) * tri(n_tb) + pair) * kTile * kTile;
+  const float inv0 = ex2(-clip2(ct0)), inv1 = ex2(-clip2(ct1));
+  constexpr int SC = Parts<T>::SCORE;
+  bf16* out = a.scores + ((bh * a.nc + c) * tri(n_tb) + pair) * SC * kTile * kTile;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     float p[4];
@@ -887,159 +1289,180 @@ __global__ void __launch_bounds__(kThreads) scores_kernel(const __grid_constant_
       const int sk = j * kTile + 8 * n + 2 * tq + (e & 1), t = t0 + 8 * (e >> 1);
       const float u = sk < Lc ? (lb[sk] - cb[sk]) * kLog2e : 0.0f;
       const float d = ex2(clip2((e < 2 ? ct0 : ct1) + u));
-      p[e] = sk <= t && sk < Lc && t < Lc ? s[n][e] * d : 0.0f;
+      p[e] = sk <= t && sk < Lc && t < Lc ? s[n][e] * d * (e < 2 ? inv0 : inv1) : 0.0f;
     }
     const int col = 8 * n + 2 * tq;
-    *reinterpret_cast<float2*>(out + (m0 + g) * kTile + col) = make_float2(p[0], p[1]);
-    *reinterpret_cast<float2*>(out + (m0 + g + 8) * kTile + col) = make_float2(p[2], p[3]);
+    uint32_t r0[SC], r1[SC];
+    split2<SC>(p[0], p[1], r0);
+    split2<SC>(p[2], p[3], r1);
+#pragma unroll
+    for (int i = 0; i < SC; ++i) {
+      *reinterpret_cast<uint32_t*>(out + i * kTile * kTile + (m0 + g) * kTile + col) = r0[i];
+      *reinterpret_cast<uint32_t*>(out + i * kTile * kTile + (m0 + g + 8) * kTile + col) = r1[i];
+    }
   }
 }
 
-// y for 64 rows of one chunk and one 64-wide DV tile: first exp(clip(cum_t))
-// q_t . S over the DK tiles (skipped for the first chunk), then P.V over
-// the key blocks, every step one (A, B) tile pair through a two-stage ring:
-// (q, the entering state's tile) or (the decayed scores, v)
-template <typename T>
-__global__ void __launch_bounds__(kThreads) output_wide_kernel(const __grid_constant__ Args a) {
-  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID, PL = IN > MID ? IN : MID;
-  constexpr int kStage = 2 * PL * kPlane;  // A planes, then B planes
-  constexpr int kEl = kTile * kTile;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  const int n_tb = (a.chunk + kTile - 1) / kTile;
-  const int dv = blockIdx.x % a.nv, rest = blockIdx.x / a.nv;
-  const int tbi = n_tb - 1 - rest / a.nc, c = rest % a.nc;  // last row blocks first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), tb = tbi * kTile;
-  if (tb >= Lc) return;
-  const int nt = min(kTile, Lc - tb), wv = min(kTile, a.DV - dv * kTile);
-  const int n_s = c > 0 ? a.nk : 0, n_steps = n_s + tbi + 1;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
-  const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
-  const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h + (c0 + tb) * a.sq.t;
-  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h + c0 * a.sv.t + dv * kTile;
-  const bf16* ent = a.entering + (bh * a.nc + c) * a.nk * a.nv * MID * kEl;
-  const float* sc = a.scores + ((bh * a.nc + c) * tri(n_tb) + tri(tbi)) * kEl;
+// y for 128 rows of one chunk (two 64-row blocks, a warpgroup each) and NV
+// 64-wide DV tiles (N = 64 NV; bf16 2, f32 1, whose tiles come in three
+// parts and would not leave room for a second block), every product a
+// `wgmma` from swizzled tiles
+// that a two-stage cp.async ring brings in: first q.S over the DK tiles (q's
+// two row tiles and the entering state's (dk, dv) tiles in MID parts;
+// skipped for the first chunk, whose entering state is zero), then P'.V
+// over the key blocks (v's two tiles and each row block's scores in MID
+// parts, a warpgroup skipping the key blocks past its own).  Each
+// entering-state tile is read once for 128 rows, each q tile once for 128
+// columns (bf16).  `scores_kernel` writes P' = P / exp(clip(cum_t)), so both
+// products sum in one accumulator and y_t = exp(clip(cum_t)) (q_t.S +
+// (P'.V)_t).  A DV tile past the last (an odd count) is neither loaded nor
+// stored.
+constexpr int kOutThreads = 256;
+// a ring stage of the two-warpgroup kernels: `output_wide_kernel` (NV = 2
+// output tiles) and `grad_kernel` (NV = 1), the larger of its two phases
+// (PP: the parts of the pair tiles, the scores' or P's and dS's)
+template <typename T, int NV, int PP>
+__host__ __device__ constexpr int ring_stage_bytes() {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
+  return (2 * IN + NV * MID > NV * IN + 2 * PP ? 2 * IN + NV * MID : NV * IN + 2 * PP) * kSwTile;
+}
 
+template <typename T>
+constexpr int kOutNV = sizeof(T) == 2 ? 2 : 1;  // DV tiles an output block
+
+template <typename T>
+__global__ void __launch_bounds__(kOutThreads) output_wide_kernel(const __grid_constant__ Args a) {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID, SC = Parts<T>::SCORE, NV = kOutNV<T>;
+  constexpr int kStage = ring_stage_bytes<T, NV, SC>();
+  constexpr int kEl = kTile * kTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - smem_addr(smem_raw));
+  const int n_tb = (a.chunk + kTile - 1) / kTile, n_rp = (n_tb + 1) / 2, n_vp = (a.nv + NV - 1) / NV;
+  const int vp = blockIdx.x % n_vp, rest = blockIdx.x / n_vp;
+  const int rp = n_rp - 1 - rest / a.nc, c = rest % a.nc;  // the last row blocks first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), rb0 = 2 * rp;
+  if (rb0 * kTile >= Lc) return;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
+  const int rb = rb0 + wg;
+  const bool live = rb * kTile < Lc, live1 = (rb0 + 1) * kTile < Lc;
+  const int dv0 = NV * vp, n_dv = min(NV, a.nv - dv0);  // this block's DV tiles
+  const int wv = min(NV * kTile, a.DV - dv0 * kTile);  // and their columns
+  const int n_s = c > 0 ? a.nk : 0, n_steps = n_s + rb0 + (live1 ? 2 : 1);
+  const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h + static_cast<int64_t>(c0 + rb0 * kTile) * a.sq.t;
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h + c0 * a.sv.t + dv0 * kTile;
+  const bf16* ent = a.entering + (bh * a.nc + c) * a.nk * a.nv * MID * kEl;
+  const bf16* sc = a.scores + (bh * a.nc + c) * tri(n_tb) * SC * kEl;
+
+  // stage layout: A (q's two row tiles, or the two row blocks' scores),
+  // then B (the state's or v's NV DV tiles side by side, part by part: the
+  // N = 64 NV operand of an MN-major descriptor)
   auto issue = [&](int n) {
-    bf16* A = ring + (n & 1) * kStage;
-    bf16* B = A + PL * kPlane;
-    if (n < n_s) {  // q's DK tile n and the entering state's tile (n, dv)
-      load_tile<T, IN>(A, qb + n * kTile, a.sq.t, nt, min(kTile, a.DK - n * kTile), a.vq != 0);
-      const bf16* sp = ent + (n * a.nv + dv) * MID * kEl;
-      for (int idx = tid; idx < MID * kTile * 8; idx += kThreads) {
-        const int r = idx >> 3, col = (idx & 7) * 8;  // row r of the MID stacked planes
-        cp_async16(smem_addr(B + r / kTile * kPlane + r % kTile * kPitch + col),
-                   sp + r * kTile + col, 16);
-      }
-    } else {  // the scores of key block j and v's rows of it
+    if (n >= n_steps) return;
+    unsigned char* st = sm + (n & 1) * kStage;
+    if (n < n_s) {  // q's DK tile n for both row blocks, the entering state's tiles (n, dv)
+      const int wk = min(kTile, a.DK - n * kTile);
+      load_sw_parts<T, IN, kOutThreads>(st, qb + n * kTile, a.sq.t, min(kTile, Lc - rb0 * kTile), wk,
+                                        a.vq != 0);
+      if (live1)
+        load_sw_parts<T, IN, kOutThreads>(st + IN * kSwTile, qb + kTile * a.sq.t + n * kTile, a.sq.t,
+                                          min(kTile, Lc - (rb0 + 1) * kTile), wk, a.vq != 0);
+      for (int p = 0; p < MID; ++p)
+        for (int v = 0; v < n_dv; ++v)
+          load_planes_sw<1, kOutThreads>(st + (2 * IN + NV * p + v) * kSwTile,
+                                         ent + ((n * a.nv + dv0 + v) * MID + p) * kEl);
+    } else {  // key block j: the two row blocks' scores with it, v's rows of it
       const int j = n - n_s;
-      load_tile<float, MID>(A, sc + j * kEl, kTile, kTile, kTile, false);
-      load_tile<T, IN>(B, vb + static_cast<int64_t>(j) * kTile * a.sv.t, a.sv.t,
-                       min(kTile, Lc - j * kTile), wv, a.vv != 0);
+      for (int w = 0; w < 2; ++w)
+        if ((rb0 + w) * kTile < Lc && j <= rb0 + w)
+          load_planes_sw<SC, kOutThreads>(st + w * SC * kSwTile, sc + (tri(rb0 + w) + j) * SC * kEl);
+      for (int v = 0; v < n_dv; ++v)
+        load_sw_parts<T, IN, kOutThreads>(st + 2 * SC * kSwTile + v * kSwTile,
+                                          vb + static_cast<int64_t>(j) * kTile * a.sv.t + v * kTile, a.sv.t,
+                                          min(kTile, Lc - j * kTile), min(kTile, a.DV - (dv0 + v) * kTile),
+                                          a.vv != 0, NV * kSwTile);
     }
   };
   issue(0);
   cp_async_commit();
-  if (n_steps > 1) issue(1);
+  issue(1);
   cp_async_commit();
 
-  float acc[8][4] = {};
+  float acc[32 * NV];  // q.S, then P'.V: defined by wgmma alone
   for (int n = 0; n < n_steps; ++n) {
     cp_async_wait<1>();
+    fence_async_smem();
     __syncthreads();
-    if (n == n_s && n_s > 0) {  // the inter-chunk term is complete: decay it
-      const float* cb = a.cum + bh * a.T + c0 + tb;
-      const float e0 = m0 + g < nt ? ex2(clip2(cb[m0 + g] * kLog2e)) : 0.0f;
-      const float e1 = m0 + g + 8 < nt ? ex2(clip2(cb[m0 + g + 8] * kLog2e)) : 0.0f;
+    const uint32_t sa = base + (n & 1) * kStage;
+    if (live && n < n_s) {
+      const uint32_t qa = sa + wg * IN * kSwTile, Sa = sa + 2 * IN * kSwTile;
+      wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        acc[k][0] *= e0;
-        acc[k][1] *= e0;
-        acc[k][2] *= e1;
-        acc[k][3] *= e1;
-      }
-    }
-    const uint32_t As = smem_addr(ring + (n & 1) * kStage), Bs = As + PL * kPlaneBytes;
-    if (n < n_s) {  // acc += q . S: q in IN parts, S in MID parts
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t qa[IN][4];
+        for (int i = 0; i < IN; ++i)
 #pragma unroll
-        for (int i = 0; i < IN; ++i) ldsm(As + i * kPlaneBytes + a_off(m0, 16 * kk, lane), qa[i]);
+          for (int p = 0; p < MID; ++p) {
+            if (i + p >= MID) continue;
+            Wgmma<64 * NV, 1>::ss(acc, kmajor(qa + i * kSwTile + kk * 32),
+                                  mnmajor(Sa + NV * p * kSwTile + kk * 2048), n > 0 || kk > 0 || i > 0 || p > 0);
+          }
+      wgmma_commit();
+      wgmma_wait<0>();
+    } else if (live && n - n_s <= rb) {
+      const int j = n - n_s;
+      const uint32_t Pa = sa + wg * SC * kSwTile, Va = sa + 2 * SC * kSwTile;
+      wgmma_fence();
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bs[MID][4];
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int jj = 0; jj < MID; ++jj)
-            ldsm_t(Bs + jj * kPlaneBytes + bk_off(16 * kk, 16 * np, lane), bs[jj]);
+        for (int p = 0; p < SC; ++p)
 #pragma unroll
-          for (int i = 0; i < IN; ++i)
-#pragma unroll
-            for (int jj = 0; jj < MID; ++jj) {
-              if (i + jj >= MID) continue;
-              mma(acc[2 * np], qa[i], bs[jj][0], bs[jj][1]);
-              mma(acc[2 * np + 1], qa[i], bs[jj][2], bs[jj][3]);
-            }
-        }
-      }
-    } else {  // acc += P . V: P in MID parts, v in IN parts
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t pa[MID][4];
-#pragma unroll
-        for (int i = 0; i < MID; ++i) ldsm(As + i * kPlaneBytes + a_off(m0, 16 * kk, lane), pa[i]);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bv[IN][4];
-#pragma unroll
-          for (int jj = 0; jj < IN; ++jj)
-            ldsm_t(Bs + jj * kPlaneBytes + bk_off(16 * kk, 16 * np, lane), bv[jj]);
-#pragma unroll
-          for (int i = 0; i < MID; ++i)
-#pragma unroll
-            for (int jj = 0; jj < IN; ++jj) {
-              if (i + jj >= MID) continue;
-              mma(acc[2 * np], pa[i], bv[jj][0], bv[jj][1]);
-              mma(acc[2 * np + 1], pa[i], bv[jj][2], bv[jj][3]);
-            }
-        }
-      }
+          for (int jj = 0; jj < IN; ++jj) {
+            if (p + jj >= SC) continue;
+            Wgmma<64 * NV, 1>::ss(acc, kmajor(Pa + p * kSwTile + kk * 32),
+                                  mnmajor(Va + NV * jj * kSwTile + kk * 2048),
+                                  n_s > 0 || j > 0 || kk > 0 || p > 0 || jj > 0);
+          }
+      wgmma_commit();
+      wgmma_wait<0>();
     }
     __syncthreads();
-    if (n + 2 < n_steps) issue(n + 2);
+    issue(n + 2);
     cp_async_commit();
   }
-
-  T* yb = static_cast<T*>(a.y) + b * a.sy.b + h * a.sy.h + c0 * a.sy.t + dv * kTile;
-  const int t0 = tb + m0 + g;
+  if (!live) return;
+  fence_regs(acc);
+  const float* cb = a.cum + bh * a.T + c0;
+  const int t0 = rb * kTile + m0 + g;  // this thread's rows in the chunk: t0, t0 + 8
+  T* yb = static_cast<T*>(a.y) + b * a.sy.b + h * a.sy.h + c0 * a.sy.t + dv0 * kTile;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = 8 * n + 2 * tq;
-    if (col >= wv) continue;
-    const bool pair = col + 1 < wv;
-    if (t0 < Lc) store2(yb + static_cast<int64_t>(t0) * a.sy.t + col, acc[n][0], acc[n][1], pair);
-    if (t0 + 8 < Lc)
-      store2(yb + static_cast<int64_t>(t0 + 8) * a.sy.t + col, acc[n][2], acc[n][3], pair);
+  for (int r = 0; r < 2; ++r) {
+    const int t = t0 + 8 * r;
+    if (t >= Lc) continue;
+    const float e = ex2(clip2(cb[t] * kLog2e));
+#pragma unroll
+    for (int n = 0; n < 8 * NV; ++n) {
+      const int col = 8 * n + 2 * tq;
+      if (col < wv)
+        store2(yb + static_cast<int64_t>(t) * a.sy.t + col, e * acc[4 * n + 2 * r], e * acc[4 * n + 2 * r + 1],
+               col + 1 < wv);
+    }
   }
 }
 
 // ------------------------------------------------------------- backward
 //
-// The pairs route, `ssd_backward` (see the note at the head of the file):
-// the forward's passes 1-2 again (cum, li, the entering states),
-// `local_kernel<T, true>` (U_c), then `gfold_kernel` (the state
-// cotangents), `bscores_kernel` (P, dS and the gate sums of each pair),
-// `grad_kernel` for dq, dk and dv, and `gates_kernel` (dlog_g, dlog_i).
-// The heads route's kernels follow `gates_kernel`.
+// The pairs route, `ssd_backward` (see the note at the head of the file),
+// on the forward's cum, li and entering states: `state_kernel<T, true>` (the
+// state cotangents and the decay term, above), `bscores_kernel` (P, dS and
+// the gate sums of each pair), `grad_kernel` for dq, dk and dv, and
+// `gates_kernel` (dlog_g, dlog_i).  The heads route's kernels follow
+// `gates_kernel`.
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ bool passes(float x) { return x >= -kClip && x <= kClip; }
 
 
 // the A fragments of 16 rows x 16 columns (cols 16 kk..) of IN planes
@@ -1074,38 +1497,6 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4], uint32_t A, uint32_t
   }
 }
 
-// acc (16 rows x 64) += A . B, B [k][n] in NB planes (`ldmatrix .trans`);
-// A rows from NA planes [row][k], or with AT its transpose from planes
-// [k][row] (`ldmatrix .trans`)
-template <int NA, int NB, int MID, bool AT = false>
-__device__ __forceinline__ void mma_ab(float (&acc)[8][4], uint32_t A, uint32_t B, int m0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t fa[NA][4];
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      if constexpr (AT)
-        ldsm_t(A + i * kPlaneBytes + at_off(16 * kk, m0, lane), fa[i]);
-      else
-        ldsm(A + i * kPlaneBytes + a_off(m0, 16 * kk, lane), fa[i]);
-    }
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t fb[NB][4];
-#pragma unroll
-      for (int jj = 0; jj < NB; ++jj) ldsm_t(B + jj * kPlaneBytes + bk_off(16 * kk, 16 * np, lane), fb[jj]);
-#pragma unroll
-      for (int i = 0; i < NA; ++i)
-#pragma unroll
-        for (int jj = 0; jj < NB; ++jj) {
-          if (i + jj >= MID) continue;
-          mma(acc[2 * np], fa[i], fb[jj][0], fb[jj][1]);
-          mma(acc[2 * np + 1], fa[i], fb[jj][2], fb[jj][3]);
-        }
-    }
-  }
-}
-
 // sum over a row of the accumulator layout: x holds this thread's columns
 // of rows g and g + 8; the quad's four lanes hold the row
 __device__ __forceinline__ float quad_sum(float x) {
@@ -1113,60 +1504,9 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// G_c, the cotangent of the state leaving chunk c, in reverse chunk order,
-// a thread per (element of the state padded to 64 x 64 tiles, head, batch):
-// G_last = dstate, G_{c-1} = exp(clip(total_c)) G_c + U_c, each written as
-// the MID bf16 parts the products load; and each block's share of the decay
-// term's <S_c, G_c>, S_c rebuilt from the entering state's parts, summed in
-// a fixed order (warps by shuffles, then warp by warp)
-template <typename T>
-__global__ void __launch_bounds__(256) gfold_kernel(const __grid_constant__ Args a) {
-  constexpr int MID = Parts<T>::MID;
-  constexpr int kEl = kTile * kTile;
-  __shared__ float red[8];
-  const int tiles = a.nk * a.nv;
-  const int rem = blockIdx.x * blockDim.x + threadIdx.x;  // < tiles * kEl: kEl % 256 == 0
-  const int64_t bh = static_cast<int64_t>(blockIdx.z) * a.NH + blockIdx.y;
-  const int tile = rem / kEl, e = rem % kEl;
-  const int d = tile / a.nv * kTile + e / kTile, col = tile % a.nv * kTile + e % kTile;
-  const bool valid = d < a.DK && col < a.DV;
-  const float* cum = a.cum + bh * a.T;
-  const float* U = a.local + (bh * a.nc * tiles + tile) * kEl + e;
-  const bf16* ent = a.entering + (bh * a.nc * tiles + tile) * MID * kEl + e;
-  bf16* gs = a.gstate + (bh * a.nc * tiles + tile) * MID * kEl + e;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float G = valid && a.dstate != nullptr
-                ? a.dstate[bh * a.DK * a.DV + static_cast<int64_t>(d) * a.DV + col]
-                : 0.0f;
-  for (int c = a.nc - 1; c >= 0; --c) {
-    const int64_t at = static_cast<int64_t>(c) * tiles * MID * kEl;
-    bf16 p[MID];
-    split<MID>(G, p);
-#pragma unroll
-    for (int i = 0; i < MID; ++i) gs[at + i * kEl] = p[i];
-    const float total = cum[min(c * a.chunk + a.chunk, a.T) - 1];
-    float x = 0.0f;
-    if (c > 0 && passes(total)) {
-      float S = 0.0f;
-#pragma unroll
-      for (int i = 0; i < MID; ++i) S += __bfloat162float(ent[at + i * kEl]);
-      x = expf(total) * S * G;
-    }
-    x = warp_sum(x);
-    if (lane == 0) red[warp] = x;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float sum = 0.0f;
-      for (int w = 0; w < 8; ++w) sum += red[w];
-      a.dpart[(bh * a.nc + c) * gridDim.x + blockIdx.x] = sum;
-    }
-    __syncthreads();
-    G = expf(clip(total)) * G + U[static_cast<int64_t>(c) * tiles * kEl];
-  }
-}
-
 // P_ts = (q_t.k_s) D_ts and dS_ts = (dy_t.v_s) D_ts for s <= t in the chunk
-// (else 0) of one (row block, key block <= it) pair, written in f32, with
+// (else 0) of one (row block, key block <= it) pair, written in MID bf16
+// parts (the planes `grad_kernel` loads), with
 // the sums of g_ts = P_ts (dy_t.v_s) where D's clip passes, by row and by
 // column: a block per (chunk, pair, head, batch), q.k^T over the DK tiles
 // and then dy.v^T over the DV tiles through one two-stage ring
@@ -1232,8 +1572,10 @@ __global__ void __launch_bounds__(kThreads) bscores_kernel(const __grid_constant
   const float ct0 = (t0 < Lc ? cb[t0] : 0.0f) * kLog2e;
   const float ct1 = (t0 + 8 < Lc ? cb[t0 + 8] : 0.0f) * kLog2e;
   const int64_t tile_at = ((bh * a.nc + c) * tri(n_tb) + pair);
-  float* P = a.pmat + tile_at * kEl;
-  float* dS = a.dsmat + tile_at * kEl;
+  // P's and dS's MID planes go out through the ring's space, free now, one
+  // bulk copy each
+  static_assert(2 * MID * kEl * 2 <= 2 * 2 * IN * kPlaneBytes, "P and dS fit in the ring");
+  bf16* stage = ring;
   float row0 = 0.0f, row1 = 0.0f, colp[8][2];
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -1252,10 +1594,30 @@ __global__ void __launch_bounds__(kThreads) bscores_kernel(const __grid_constant
       if (e < 2) colp[n][e] = gg; else colp[n][e & 1] += gg;
     }
     const int col = 8 * n + 2 * tq;
-    *reinterpret_cast<float2*>(P + (m0 + g) * kTile + col) = make_float2(p[0], p[1]);
-    *reinterpret_cast<float2*>(P + (m0 + g + 8) * kTile + col) = make_float2(p[2], p[3]);
-    *reinterpret_cast<float2*>(dS + (m0 + g) * kTile + col) = make_float2(ds[0], ds[1]);
-    *reinterpret_cast<float2*>(dS + (m0 + g + 8) * kTile + col) = make_float2(ds[2], ds[3]);
+    uint32_t pp[2][MID], dd[2][MID];
+    split2<MID>(p[0], p[1], pp[0]);
+    split2<MID>(p[2], p[3], pp[1]);
+    split2<MID>(ds[0], ds[1], dd[0]);
+    split2<MID>(ds[2], ds[3], dd[1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int i = 0; i < MID; ++i) {
+        const int off = i * kEl + (m0 + g + 8 * r) * kTile + col;
+        *reinterpret_cast<uint32_t*>(stage + off) = pp[r][i];
+        *reinterpret_cast<uint32_t*>(stage + MID * kEl + off) = dd[r][i];
+      }
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(a.pmat + tile_at * MID * kEl),
+                 "r"(smem_addr(stage)), "n"(MID * kEl * 2)
+                 : "memory");
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(a.dsmat + tile_at * MID * kEl),
+                 "r"(smem_addr(stage + MID * kEl)), "n"(MID * kEl * 2)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   }
   row0 = quad_sum(row0);
   row1 = quad_sum(row1);
@@ -1279,155 +1641,199 @@ __global__ void __launch_bounds__(kThreads) bscores_kernel(const __grid_constant
   __syncthreads();
   if (tid < kTile)
     a.cpart[tile_at * kTile + tid] = ((colsum[0][tid] + colsum[1][tid]) + colsum[2][tid]) + colsum[3][tid];
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 enum { kDQ = 0, kDK = 1, kDV = 2 };
 
-// dq, dk or dv for the 64 rows of one block of a chunk and one 64-wide
-// output tile, the output_wide_kernel's ring over (A, B) tile pairs:
-//  - the state term: DQ exp(clip(cum_t)) dy_t S_c^T over the DV tiles
-//    (skipped in the first chunk, whose S_c is zero); DK w_s v_s G_c^T over
-//    the DV tiles; DV w_s k_s G_c over the DK tiles;
-//  - the pairs: DQ dS k over the key blocks <= the row block; DK dS^T q and
-//    DV P^T dy over the row blocks >= the key block (A loaded transposed).
-// DQ and DK also write their state term's dot with q or k over the tile,
-// unscaled (ipart, hpart), for the gates.  Rows past the chunk's end are
-// zero in every tile and not stored.
+// dq, dk or dv for 128 rows of a chunk (two 64-row blocks, a warpgroup
+// each) and one 64-wide output tile, every product a `wgmma` from swizzled
+// tiles through a two-stage cp.async ring, as `output_wide_kernel` runs:
+//  - the state term over the other width's tiles: DQ dy_t S_c^T (skipped in
+//    the first chunk, whose S_c is zero), DK v_s G_c^T, DV k_s G_c; the
+//    state's tile in MID parts;
+//  - the pairs: DQ dS k over the key blocks <= each row block; DK dS^T q and
+//    DV P^T dy over the row blocks >= each key block (A MN-major: the
+//    pairs' tiles are [t][s]); the pair's tile in MID parts.
+// The two sum in accumulators of their own, joined at the end as out =
+// scale . state term + pairs, the scale exp(clip(cum_t)) (DQ) or w_s (DK,
+// DV).  DQ and DK also write their state term's dot with q or k over the
+// tile, unscaled (ipart, hpart), for the gates.  Rows past the chunk's end
+// are zero in every tile and not stored.
 template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads) grad_kernel(const __grid_constant__ Args a) {
-  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID, PL = IN > MID ? IN : MID;
-  constexpr int kStage = 2 * PL * kPlane;  // A planes, then B planes
+__global__ void __launch_bounds__(kOutThreads) grad_kernel(const __grid_constant__ Args a) {
+  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID;
+  constexpr int kStage = ring_stage_bytes<T, 1, Parts<T>::MID>();
   constexpr int kEl = kTile * kTile;
   constexpr bool kKeys = MODE != kDQ;  // rows are keys s; the pairs' tiles are transposed
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  const int n_tb = (a.chunk + kTile - 1) / kTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - smem_addr(smem_raw));
+  const int n_tb = (a.chunk + kTile - 1) / kTile, n_rp = (n_tb + 1) / 2;
   const int n_out = MODE == kDV ? a.nv : a.nk;
   const int ot = blockIdx.x % n_out, rest = blockIdx.x / n_out;
   const int order = rest / a.nc, c = rest % a.nc;
-  const int rb = kKeys ? order : n_tb - 1 - order;  // blocks with more pairs first
+  const int rp = kKeys ? order : n_rp - 1 - order;  // blocks with more pairs first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), r0 = rb * kTile;
-  if (r0 >= Lc) return;
+  const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0), rb0 = 2 * rp;
+  if (rb0 * kTile >= Lc) return;
   const int n_tbc = (Lc + kTile - 1) / kTile;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
+  const int rb = rb0 + wg;
+  const bool live = rb * kTile < Lc, live1 = (rb0 + 1) * kTile < Lc;
   const int D_out = MODE == kDV ? a.DV : a.DK;
   const int wo = min(kTile, D_out - ot * kTile);
-  const int n_in = MODE == kDV ? a.nk : a.nv;
+  const int n_in = MODE == kDV ? a.nk : a.nv, D_in = MODE == kDV ? a.DK : a.DV;
   const int n_s = MODE == kDQ && c == 0 ? 0 : n_in;
-  const int n_p = kKeys ? n_tbc - rb : rb + 1;
+  const int n_p = kKeys ? n_tbc - rb0 : rb0 + (live1 ? 2 : 1);
   const int n_steps = n_s + n_p;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tq = lane % 4, m0 = 16 * warp;
   const int64_t bh = static_cast<int64_t>(b) * a.NH + h;
   const int tiles = a.nk * a.nv;
 
-  // the state term's A rows (this block's rows, a depth tile at a time)
+  // the state term's A rows (the two row blocks, a depth tile at a time)
   const Strides sa = MODE == kDQ ? a.sdy : MODE == kDK ? a.sv : a.sk;
-  const T* ab = static_cast<const T*>(MODE == kDQ ? a.dy : MODE == kDK ? a.v : a.k) +
-                b * sa.b + h * sa.h + (c0 + r0) * sa.t;
+  const T* ab = static_cast<const T*>(MODE == kDQ ? a.dy : MODE == kDK ? a.v : a.k) + b * sa.b +
+                h * sa.h + static_cast<int64_t>(c0 + rb0 * kTile) * sa.t;
   const bool va = (MODE == kDQ ? a.vdy : MODE == kDK ? a.vv : a.vk) != 0;
-  const int D_in = MODE == kDV ? a.DK : a.DV;
   const bf16* state = (MODE == kDQ ? a.entering : a.gstate) + (bh * a.nc + c) * tiles * MID * kEl;
   // the pairs' B rows (the other block of each pair, this output tile)
   const Strides sb = MODE == kDQ ? a.sk : MODE == kDK ? a.sq : a.sdy;
-  const T* bb = static_cast<const T*>(MODE == kDQ ? a.k : MODE == kDK ? a.q : a.dy) +
-                b * sb.b + h * sb.h + c0 * sb.t + ot * kTile;
+  const T* bb = static_cast<const T*>(MODE == kDQ ? a.k : MODE == kDK ? a.q : a.dy) + b * sb.b +
+                h * sb.h + c0 * sb.t + ot * kTile;
   const bool vb = (MODE == kDQ ? a.vk : MODE == kDK ? a.vq : a.vdy) != 0;
-  const float* pairs = (MODE == kDV ? a.pmat : a.dsmat) + (bh * a.nc + c) * tri(n_tb) * kEl;
+  const bf16* pairs = (MODE == kDV ? a.pmat : a.dsmat) + (bh * a.nc + c) * tri(n_tb) * MID * kEl;
+  // whether row block r and the other block o of step n's pair meet
+  auto meets = [&](int r, int o) { return r * kTile < Lc && (kKeys ? o >= r : o <= r); };
 
   auto issue = [&](int n) {
-    bf16* A = ring + (n & 1) * kStage;
-    bf16* B = A + PL * kPlane;
-    if (n < n_s) {  // the rows' depth tile n and the state's tile
-      load_tile<T, IN>(A, ab + n * kTile, sa.t, min(kTile, Lc - r0), min(kTile, D_in - n * kTile), va);
+    if (n >= n_steps) return;
+    unsigned char* st = sm + (n & 1) * kStage;
+    if (n < n_s) {  // both row blocks' depth tile n and the state's tile
+      const int w = min(kTile, D_in - n * kTile);
+      load_sw_parts<T, IN, kOutThreads>(st, ab + n * kTile, sa.t, min(kTile, Lc - rb0 * kTile), w, va);
+      if (live1)
+        load_sw_parts<T, IN, kOutThreads>(st + IN * kSwTile, ab + kTile * sa.t + n * kTile, sa.t,
+                                          min(kTile, Lc - (rb0 + 1) * kTile), w, va);
       const int tile = MODE == kDV ? n * a.nv + ot : ot * a.nv + n;
-      const bf16* sp = state + tile * MID * kEl;
-      for (int idx = tid; idx < MID * kTile * 8; idx += kThreads) {
-        const int r = idx >> 3, col = (idx & 7) * 8;  // row r of the MID stacked planes
-        cp_async16(smem_addr(B + r / kTile * kPlane + r % kTile * kPitch + col), sp + r * kTile + col, 16);
+      load_planes_sw<MID, kOutThreads>(st + 2 * IN * kSwTile, state + tile * MID * kEl);
+    } else {  // the other block's rows, and each row block's tile of the pair
+      const int o = kKeys ? rb0 + n - n_s : n - n_s;
+      load_sw_parts<T, IN, kOutThreads>(st, bb + static_cast<int64_t>(o) * kTile * sb.t, sb.t,
+                                        min(kTile, Lc - o * kTile), wo, vb);
+      for (int w = 0; w < 2; ++w) {
+        const int r = rb0 + w;
+        if (meets(r, o))
+          load_planes_sw<MID, kOutThreads>(st + (IN + w * MID) * kSwTile,
+                                           pairs + (kKeys ? tri(o) + r : tri(r) + o) * MID * kEl);
       }
-    } else {  // pair p: its tile and the other block's rows
-      const int p = n - n_s, other = kKeys ? rb + p : p;
-      const int pair = kKeys ? tri(other) + rb : tri(rb) + other;
-      load_tile<float, MID>(A, pairs + static_cast<int64_t>(pair) * kEl, kTile, kTile, kTile, false);
-      load_tile<T, IN>(B, bb + static_cast<int64_t>(other) * kTile * sb.t, sb.t,
-                       min(kTile, Lc - other * kTile), wo, vb);
     }
   };
   issue(0);
   cp_async_commit();
-  if (n_steps > 1) issue(1);
+  issue(1);
   cp_async_commit();
 
-  const int t0 = m0 + g;  // this thread's rows in the block: t0, t0 + 8
-  float acc[8][4] = {};
+  float accS[32], accP[32];  // the state term and the pairs: each defined by wgmma alone
   for (int n = 0; n < n_steps; ++n) {
     cp_async_wait<1>();
+    fence_async_smem();
     __syncthreads();
-    if (n == n_s) {  // the state term is complete
-      if constexpr (MODE != kDV) {  // its dot with q (DQ) or k (DK), by row
-        const Strides sx = MODE == kDQ ? a.sq : a.sk;
-        const T* xb = static_cast<const T*>(MODE == kDQ ? a.q : a.k) + b * sx.b + h * sx.h +
-                      (c0 + r0) * sx.t + ot * kTile;
-        float d0 = 0.0f, d1 = 0.0f;
+    const uint32_t st = base + (n & 1) * kStage;
+    if (live && n < n_s) {  // accS += A . state: A in IN parts, the state in MID parts
+      const uint32_t Aa = st + wg * IN * kSwTile, Sa = st + 2 * IN * kSwTile;
+      wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < 8; ++k)
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * k + 2 * tq + e;
-            if (col >= wo) continue;
-            if (r0 + t0 < Lc) d0 += acc[k][e] * to_f32(xb[static_cast<int64_t>(t0) * sx.t + col]);
-            if (r0 + t0 + 8 < Lc) d1 += acc[k][2 + e] * to_f32(xb[static_cast<int64_t>(t0 + 8) * sx.t + col]);
+        for (int i = 0; i < IN; ++i)
+#pragma unroll
+          for (int p = 0; p < MID; ++p) {
+            if (i + p >= MID) continue;
+            const int acc = n > 0 || kk > 0 || i > 0 || p > 0;
+            if constexpr (MODE == kDV)  // G [dk][dv]: k = dk, n = dv
+              Wgmma<64, 1>::ss(accS, kmajor(Aa + i * kSwTile + kk * 32), mnmajor(Sa + p * kSwTile + kk * 2048),
+                               acc);
+            else  // S or G [dk][dv]: n = dk, k = dv
+              Wgmma<64, 0>::ss(accS, kmajor(Aa + i * kSwTile + kk * 32), kmajor(Sa + p * kSwTile + kk * 32),
+                               acc);
           }
-        d0 = quad_sum(d0);
-        d1 = quad_sum(d1);
-        float* part = (MODE == kDQ ? a.ipart : a.hpart) + (bh * a.nk + ot) * a.T + c0 + r0;
-        if (tq == 0 && r0 + t0 < Lc) part[t0] = d0;
-        if (tq == 0 && r0 + t0 + 8 < Lc) part[t0 + 8] = d1;
-      }
-      // the rows' scale: exp(clip(cum_t)) (DQ) or w_s (DK, DV)
-      const float* cb = a.cum + bh * a.T + c0;
-      const float* lb = a.li + bh * a.T + c0;
-      const float total = cb[Lc - 1];
-      float sc[2];
+      wgmma_commit();
+      wgmma_wait<0>();
+    } else if (live && n >= n_s && meets(rb, kKeys ? rb0 + n - n_s : n - n_s)) {
+      // accP += the pair's tile ([t][s]: transposed for keys) . B rows
+      const int o = kKeys ? rb0 + n - n_s : n - n_s;
+      const uint32_t Pa = st + (IN + wg * MID) * kSwTile;
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int t = r0 + t0 + 8 * i;
-        const float x = t >= Lc ? 0.0f : MODE == kDQ ? cb[t] : total - cb[t] + lb[t];
-        sc[i] = t < Lc ? ex2(clip2(x * kLog2e)) : 0.0f;
-      }
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        acc[k][0] *= sc[0];
-        acc[k][1] *= sc[0];
-        acc[k][2] *= sc[1];
-        acc[k][3] *= sc[1];
-      }
-    }
-    const uint32_t As = smem_addr(ring + (n & 1) * kStage), Bs = As + PL * kPlaneBytes;
-    if (n < n_s) {  // acc += A . state: A in IN parts, the state in MID parts
-      if constexpr (MODE == kDV)
-        mma_ab<IN, MID, MID>(acc, As, Bs, m0, lane);  // G [dk][dv]: k = dk, n = dv
-      else
-        mma_abt<IN, MID, MID>(acc, As, Bs, m0, lane);  // S or G [dk][dv]: n = dk, k = dv
-    } else {  // acc += the pair's tile ([t][s], transposed for keys) . B rows, in MID parts
-      mma_ab<MID, IN, MID, kKeys>(acc, As, Bs, m0, lane);
+        for (int p = 0; p < MID; ++p)
+#pragma unroll
+          for (int jj = 0; jj < IN; ++jj) {
+            if (p + jj >= MID) continue;
+            const int acc = o != (kKeys ? rb : 0) || kk > 0 || p > 0 || jj > 0;
+            if constexpr (kKeys)
+              Wgmma<64, 1, 1>::ss(accP, mnmajor(Pa + p * kSwTile + kk * 2048),
+                                  mnmajor(st + jj * kSwTile + kk * 2048), acc);
+            else
+              Wgmma<64, 1>::ss(accP, kmajor(Pa + p * kSwTile + kk * 32), mnmajor(st + jj * kSwTile + kk * 2048),
+                               acc);
+          }
+      wgmma_commit();
+      wgmma_wait<0>();
     }
     __syncthreads();
-    if (n + 2 < n_steps) issue(n + 2);
+    issue(n + 2);
     cp_async_commit();
   }
-
+  if (!live) return;
+  fence_regs(accS);
+  fence_regs(accP);
+  const bool has_s = n_s > 0;
+  const int r0 = rb * kTile + m0 + g;  // this thread's rows in the chunk: r0, r0 + 8
+  if constexpr (MODE != kDV) {  // the state term's dot with q (DQ) or k (DK), by row
+    const Strides sx = MODE == kDQ ? a.sq : a.sk;
+    const T* xb = static_cast<const T*>(MODE == kDQ ? a.q : a.k) + b * sx.b + h * sx.h + c0 * sx.t + ot * kTile;
+    float d[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!has_s || r0 + 8 * r >= Lc) continue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * n + 2 * tq + e;
+          if (col < wo) d[r] += accS[4 * n + 2 * r + e] * to_f32(xb[static_cast<int64_t>(r0 + 8 * r) * sx.t + col]);
+        }
+    }
+    float* part = (MODE == kDQ ? a.ipart : a.hpart) + (bh * a.nk + ot) * a.T + c0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      d[r] = quad_sum(d[r]);
+      if (tq == 0 && r0 + 8 * r < Lc) part[r0 + 8 * r] = d[r];
+    }
+  }
+  // the rows' scale: exp(clip(cum_t)) (DQ) or w_s (DK, DV)
+  const float* cb = a.cum + bh * a.T + c0;
+  const float* lb = a.li + bh * a.T + c0;
+  const float total = cb[Lc - 1];
   T* out = static_cast<T*>(MODE == kDQ ? a.dq : MODE == kDK ? a.dk : a.dv);
   const int64_t row_stride = static_cast<int64_t>(a.NH) * D_out;
-  T* ob = out + ((static_cast<int64_t>(b) * a.T + c0 + r0) * a.NH + h) * D_out + ot * kTile;
+  T* ob = out + ((static_cast<int64_t>(b) * a.T + c0) * a.NH + h) * D_out + ot * kTile;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = 8 * n + 2 * tq;
-    if (col >= wo) continue;
-    const bool pair = col + 1 < wo;
-    if (r0 + t0 < Lc) store2(ob + t0 * row_stride + col, acc[n][0], acc[n][1], pair);
-    if (r0 + t0 + 8 < Lc) store2(ob + (t0 + 8) * row_stride + col, acc[n][2], acc[n][3], pair);
+  for (int r = 0; r < 2; ++r) {
+    const int t = r0 + 8 * r;
+    if (t >= Lc) continue;
+    const float sc = has_s ? ex2(clip2((MODE == kDQ ? cb[t] : total - cb[t] + lb[t]) * kLog2e)) : 0.0f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 8 * n + 2 * tq;
+      if (col >= wo) continue;
+      const float x0 = (has_s ? sc * accS[4 * n + 2 * r] : 0.0f) + accP[4 * n + 2 * r];
+      const float x1 = (has_s ? sc * accS[4 * n + 2 * r + 1] : 0.0f) + accP[4 * n + 2 * r + 1];
+      store2(ob + t * row_stride + col, x0, x1, col + 1 < wo);
+    }
   }
 }
 
@@ -1439,7 +1845,7 @@ __global__ void __launch_bounds__(kThreads) grad_kernel(const __grid_constant__ 
 // parts, each where its clip passes); dtotal = sum_t h_t + exp(total)
 // <S_c, G_c>; then dlog_g_u = sum_{t>=u} dcum_t + dtotal.  Every sum runs
 // in a fixed order.
-__global__ void __launch_bounds__(32) gates_kernel(const __grid_constant__ Args a, int fold_blocks) {
+__global__ void __launch_bounds__(32) gates_kernel(const __grid_constant__ Args a, int tiles) {
   __shared__ float dc[4096];  // dcum over the chunk (chunk <= 4096)
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, lane = threadIdx.x;
   const int c0 = c * a.chunk, Lc = min(a.chunk, a.T - c0);
@@ -1467,8 +1873,8 @@ __global__ void __launch_bounds__(32) gates_kernel(const __grid_constant__ Args 
     hsum += hs;
   }
   float decay = 0.0f;
-  const float* dp = a.dpart + (bh * a.nc + c) * fold_blocks;
-  for (int i = lane; i < fold_blocks; i += 32) decay += dp[i];
+  const float* dp = a.dpart + (bh * a.nc + c) * tiles;
+  for (int i = lane; i < tiles; i += 32) decay += dp[i];
   const float dtotal = warp_sum(hsum) + warp_sum(decay);
   __syncwarp();
   float carry = 0.0f;
@@ -1493,44 +1899,6 @@ __global__ void __launch_bounds__(32) gates_kernel(const __grid_constant__ Args 
 constexpr int kMaxTb = 4;             // row blocks of a chunk on the heads route
 constexpr int kHeadsThreads = 256;    // a heads block: two warpgroups
 constexpr int kXPitch = kTile + 4;    // f32 a row of the warpgroups' exchange tile
-
-// 128B-swizzled 64 x 64 bf16 tiles, the layout `wgmma` reads: row r's
-// 16-byte chunk c sits at r * 128 + ((c ^ (r & 7)) << 4), and a tile starts
-// on a 1024-byte boundary.
-constexpr int kSwTile = kTile * kTile * 2;
-__device__ __forceinline__ int sw_off(int r, int c16) { return r * 128 + ((c16 ^ (r & 7)) << 4); }
-
-// wgmma shared-memory descriptor for a 128B-swizzled operand: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (SW128);
-// K-major: k-step kk of a tile starts kk * 32 bytes in; MN-major (the
-// transpose bit): at row 16 kk
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ uint64_t kmajor(uint32_t addr) { return sw128_desc(addr, 16, 1024); }
-__device__ __forceinline__ uint64_t mnmajor(uint32_t addr) { return sw128_desc(addr, kSwTile, 1024); }
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// shared-memory writes of the generic proxy (cp.async, st.shared) made
-// visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -1629,15 +1997,6 @@ constexpr int kUfoldStages = 3;
 constexpr int kUfoldStage = 2 * kSwTile + 1024;  // q, dy and the tile's cum, 1024-byte aligned
 // the stages, then G_c's MID planes as gstate holds them, copied out whole
 constexpr int kUfoldSmem = 1024 + kUfoldStages * kUfoldStage + 2 * kSwTile;
-
-// ldmatrix row addresses in a swizzled tile, as `at_off` and `bk_off` give
-// them in a padded plane
-__device__ __forceinline__ int at_sw(int s0, int d0, int lane) {
-  return sw_off(s0 + (lane & 7) + 8 * (lane >> 4), (d0 >> 3) + ((lane >> 3) & 1));
-}
-__device__ __forceinline__ int bk_sw(int k0, int n0, int lane) {
-  return sw_off(k0 + (lane & 7) + 8 * ((lane >> 3) & 1), (n0 >> 3) + (lane >> 4));
-}
 
 __global__ void __launch_bounds__(kThreads)
 ufold_kernel(const __grid_constant__ Args a, const __grid_constant__ CUtensorMap tm_q,
@@ -2349,80 +2708,73 @@ cudaError_t allow_smem(K kernel, int bytes, bool (&done)[kMaxDevices]) {
 
 template <typename T>
 int launch(const Args& a, cudaStream_t st) {
-  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID, PL = IN > MID ? IN : MID;
+  constexpr int IN = Parts<T>::IN;
   static bool attr_local[kMaxDevices] = {}, attr_out[kMaxDevices] = {},
-              attr_scores[kMaxDevices] = {}, attr_wide[kMaxDevices] = {};
+              attr_state[kMaxDevices] = {}, attr_scores[kMaxDevices] = {}, attr_wide[kMaxDevices] = {};
   constexpr int kMaxChunk = 4096;
-  const int local_most = 2 * 2 * IN * kPlaneBytes + 2 * kMaxChunk * 4;
-  constexpr int out_smem = IN * kPlaneBytes + 2 * (2 * IN * kPlaneBytes + 2 * kTile * 4)
-                           + kTile * 4;
-  constexpr int scores_smem = 2 * 2 * IN * kPlaneBytes;
-  constexpr int wide_smem = 2 * 2 * PL * kPlaneBytes;
-  const bool wide = a.nk > 1 || a.nv > 1;
-  cudaError_t err = allow_smem(local_kernel<T, false>, local_most, attr_local);
-  if (err == cudaSuccess && !wide) err = allow_smem(output_kernel<T>, out_smem, attr_out);
-  if (err == cudaSuccess && wide) err = allow_smem(scores_kernel<T>, scores_smem, attr_scores);
-  if (err == cudaSuccess && wide) err = allow_smem(output_wide_kernel<T>, wide_smem, attr_wide);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
   const int padded = (a.chunk + kTile - 1) / kTile * kTile;
-  const int local_smem = 2 * 2 * IN * kPlaneBytes + 2 * padded * 4;
-  local_kernel<T, false><<<dim3(a.nc * a.nk * a.nv, a.NH, a.B), kThreads, local_smem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_el = a.nk * a.nv * kTile * kTile;  // a (batch, head)'s, in 64 x 64 tiles
-  if (wide)
-    fold_kernel<T, true><<<dim3((n_el + 255) / 256, a.NH, a.B), 256, 0, st>>>(a);
-  else
-    fold_kernel<T, false><<<dim3((n_el + 255) / 256, a.NH, a.B), 256, 0, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tb = (a.chunk + kTile - 1) / kTile;
-  if (!wide) {
+  const int n_tb = padded / kTile;
+  const bool wide = a.nk > 1 || a.nv > 1;
+  if (!wide) {  // narrow states: local states, their fold, the outputs
+    const int local_most = 2 * 2 * IN * kPlaneBytes + 2 * kMaxChunk * 4;
+    constexpr int out_smem = IN * kPlaneBytes + 2 * (2 * IN * kPlaneBytes + 2 * kTile * 4) + kTile * 4;
+    cudaError_t err = allow_smem(local_kernel<T>, local_most, attr_local);
+    if (err == cudaSuccess) err = allow_smem(output_kernel<T>, out_smem, attr_out);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int local_smem = 2 * 2 * IN * kPlaneBytes + 2 * padded * 4;
+    local_kernel<T><<<dim3(a.nc, a.NH, a.B), kThreads, local_smem, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fold_kernel<T><<<dim3(kTile * kTile / 256, a.NH, a.B), 256, 0, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
     output_kernel<T><<<dim3(a.NH, a.B, a.nc * n_tb), kThreads, out_smem, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
+  // wide states: the state pass, the scores, the outputs
+  constexpr int scores_smem = 2 * 2 * IN * kPlaneBytes;
+  constexpr int wide_smem = 1024 + 2 * ring_stage_bytes<T, kOutNV<T>, Parts<T>::SCORE>();
+  cudaError_t err = allow_smem(state_kernel<T, false>, state_smem<T>(kMaxChunk), attr_state);
+  if (err == cudaSuccess) err = allow_smem(scores_kernel<T>, scores_smem, attr_scores);
+  if (err == cudaSuccess) err = allow_smem(output_wide_kernel<T>, wide_smem, attr_wide);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  state_kernel<T, false><<<dim3(a.nk * a.nv, a.NH, a.B), kThreads, state_smem<T>(padded), st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   scores_kernel<T><<<dim3(a.nc * tri(n_tb), a.NH, a.B), kThreads, scores_smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  output_wide_kernel<T><<<dim3(a.nc * n_tb * a.nv, a.NH, a.B), kThreads, wide_smem, st>>>(a);
+  output_wide_kernel<T><<<dim3(a.nc * ((n_tb + 1) / 2) * ((a.nv + kOutNV<T> - 1) / kOutNV<T>), a.NH, a.B),
+                          kOutThreads, wide_smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 
-// the pairs route: any state width and chunk
+// the pairs route (any state width and chunk) on the forward's cum, li and
+// entering states
 template <typename T>
 int launch_backward(const Args& a, cudaStream_t st) {
-  constexpr int IN = Parts<T>::IN, MID = Parts<T>::MID, PL = IN > MID ? IN : MID;
-  static bool attr_fwd[kMaxDevices] = {}, attr_bwd[kMaxDevices] = {}, attr_q[kMaxDevices] = {},
-              attr_k[kMaxDevices] = {}, attr_v[kMaxDevices] = {};
+  constexpr int IN = Parts<T>::IN;
+  static bool attr_state[kMaxDevices] = {}, attr_q[kMaxDevices] = {}, attr_k[kMaxDevices] = {},
+              attr_v[kMaxDevices] = {};
   constexpr int kMaxChunk = 4096;
-  const int local_most = 2 * 2 * IN * kPlaneBytes + 2 * kMaxChunk * 4;
   constexpr int scores_smem = 2 * 2 * IN * kPlaneBytes;
-  constexpr int grad_smem = 2 * 2 * PL * kPlaneBytes;
-  cudaError_t err = allow_smem(local_kernel<T, false>, local_most, attr_fwd);
-  if (err == cudaSuccess) err = allow_smem(local_kernel<T, true>, local_most, attr_bwd);
+  constexpr int grad_smem = 1024 + 2 * ring_stage_bytes<T, 1, Parts<T>::MID>();
+  cudaError_t err = allow_smem(state_kernel<T, true>, state_smem<T>(kMaxChunk), attr_state);
   if (err == cudaSuccess) err = allow_smem(grad_kernel<T, kDQ>, grad_smem, attr_q);
   if (err == cudaSuccess) err = allow_smem(grad_kernel<T, kDK>, grad_smem, attr_k);
   if (err == cudaSuccess) err = allow_smem(grad_kernel<T, kDV>, grad_smem, attr_v);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int padded = (a.chunk + kTile - 1) / kTile * kTile;
-  const int local_smem = 2 * 2 * IN * kPlaneBytes + 2 * padded * 4;
-  const dim3 local_grid(a.nc * a.nk * a.nv, a.NH, a.B);
-  const int fold_blocks = a.nk * a.nv * kTile * kTile / 256;
-  const int n_tb = (a.chunk + kTile - 1) / kTile;
-  Args f = a;
-  f.state = nullptr;  // the forward's final state is not needed again
-  local_kernel<T, false><<<local_grid, kThreads, local_smem, st>>>(f);
-  fold_kernel<T, true><<<dim3(fold_blocks, a.NH, a.B), 256, 0, st>>>(f);
-  local_kernel<T, true><<<local_grid, kThreads, local_smem, st>>>(a);
-  gfold_kernel<T><<<dim3(fold_blocks, a.NH, a.B), 256, 0, st>>>(a);
+  const int n_tb = padded / kTile;
+  state_kernel<T, true><<<dim3(a.nk * a.nv, a.NH, a.B), kThreads, state_smem<T>(padded), st>>>(a);
   bscores_kernel<T><<<dim3(a.nc * tri(n_tb), a.NH, a.B), kThreads, scores_smem, st>>>(a);
-  grad_kernel<T, kDQ><<<dim3(a.nk * n_tb * a.nc, a.NH, a.B), kThreads, grad_smem, st>>>(a);
-  grad_kernel<T, kDK><<<dim3(a.nk * n_tb * a.nc, a.NH, a.B), kThreads, grad_smem, st>>>(a);
-  grad_kernel<T, kDV><<<dim3(a.nv * n_tb * a.nc, a.NH, a.B), kThreads, grad_smem, st>>>(a);
-  gates_kernel<<<dim3(a.nc, a.NH, a.B), 32, 0, st>>>(a, fold_blocks);
+  const int n_rp = (n_tb + 1) / 2;
+  grad_kernel<T, kDQ><<<dim3(a.nk * n_rp * a.nc, a.NH, a.B), kOutThreads, grad_smem, st>>>(a);
+  grad_kernel<T, kDK><<<dim3(a.nk * n_rp * a.nc, a.NH, a.B), kOutThreads, grad_smem, st>>>(a);
+  grad_kernel<T, kDV><<<dim3(a.nv * n_rp * a.nc, a.NH, a.B), kOutThreads, grad_smem, st>>>(a);
+  gates_kernel<<<dim3(a.nc, a.NH, a.B), 32, 0, st>>>(a, a.nk * a.nv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2523,7 +2875,7 @@ int launch_heads(const Args& a, cudaStream_t st) {
 // the backward's arguments common to both routes
 Args backward_args(const void* q, const void* k, const void* v, const void* log_g, const void* log_i,
                    const void* dy, const void* dstate, void* dq, void* dk, void* dv, void* dlog_g,
-                   void* dli, void* cum, void* li, void* local, void* entering, void* gstate,
+                   void* dli, void* cum, void* li, void* entering, void* gstate,
                    void* rpart, void* cpart, void* ipart, void* hpart, void* dpart,
                    const int64_t (&s)[18], int B, int T_len, int NH, int DK, int DV, int chunk,
                    int vq, int vk, int vv, int vdy) {
@@ -2535,7 +2887,6 @@ Args backward_args(const void* q, const void* k, const void* v, const void* log_
   a.log_i = static_cast<const float*>(log_i);
   a.cum = static_cast<float*>(cum);
   a.li = static_cast<float*>(li);
-  a.local = static_cast<float*>(local);
   a.entering = static_cast<bf16*>(entering);
   a.sq = Strides{s[0], s[1], s[2]};
   a.sk = Strides{s[3], s[4], s[5]};
@@ -2600,7 +2951,7 @@ extern "C" int ssd_forward(const void* q, const void* k, const void* v, const vo
   a.li = static_cast<float*>(li);
   a.local = static_cast<float*>(local);
   a.entering = static_cast<bf16*>(entering);
-  a.scores = static_cast<float*>(scores);
+  a.scores = static_cast<bf16*>(scores);
   a.sq = Strides{sqb, sqt, sqh};
   a.sk = Strides{skb, skt, skh};
   a.sv = Strides{svb, svt, svh};
@@ -2619,7 +2970,8 @@ extern "C" int ssd_forward(const void* q, const void* k, const void* v, const vo
   a.vq = vq;
   a.vk = vk;
   a.vv = vv;
-  if ((a.nk > 1 || a.nv > 1) && scores == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if ((a.nk > 1 || a.nv > 1) ? scores == nullptr : local == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return launch<bf16>(a, st);
   if (dtype == kF32) {
@@ -2632,7 +2984,7 @@ extern "C" int ssd_forward(const void* q, const void* k, const void* v, const vo
 extern "C" int ssd_backward(const void* q, const void* k, const void* v, const void* log_g,
                             const void* log_i, const void* dy, const void* dstate, void* dq,
                             void* dk, void* dv, void* dlog_g, void* dli, void* cum, void* li,
-                            void* local, void* entering, void* gstate, void* pmat, void* dsmat,
+                            void* entering, void* gstate, void* pmat, void* dsmat,
                             void* rpart, void* cpart, void* ipart, void* hpart, void* dpart,
                             int64_t sqb, int64_t sqt, int64_t sqh,
                             int64_t skb, int64_t skt, int64_t skh,
@@ -2644,15 +2996,15 @@ extern "C" int ssd_backward(const void* q, const void* k, const void* v, const v
                             int vq, int vk, int vv, int vdy, void* stream) {
   if (DK < 1 || DV < 1 || chunk < 1 || chunk > 4096 || chunk > T_len || B < 1 || NH < 1 ||
       B > 65535 || NH > 65535 || dtype != kBF16 || (log_i == nullptr) != (dli == nullptr) ||
-      pmat == nullptr || dsmat == nullptr)
+      pmat == nullptr || dsmat == nullptr || cum == nullptr || li == nullptr || entering == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t s[18] = {sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
                          sgb, sgt, sgh, sib, sit, sih, syb, syt, syh};
-  Args a = backward_args(q, k, v, log_g, log_i, dy, dstate, dq, dk, dv, dlog_g, dli, cum, li, local,
+  Args a = backward_args(q, k, v, log_g, log_i, dy, dstate, dq, dk, dv, dlog_g, dli, cum, li,
                          entering, gstate, rpart, cpart, ipart, hpart, dpart, s, B, T_len, NH, DK,
                          DV, chunk, vq, vk, vv, vdy);
-  a.pmat = static_cast<float*>(pmat);
-  a.dsmat = static_cast<float*>(dsmat);
+  a.pmat = static_cast<bf16*>(pmat);
+  a.dsmat = static_cast<bf16*>(dsmat);
   return launch_backward<bf16>(a, static_cast<cudaStream_t>(stream));
 }
 
@@ -2684,7 +3036,7 @@ extern "C" int ssd_backward_heads(const void* q, const void* k, const void* v, c
   const int64_t s[18] = {sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
                          sgb, sgt, sgh, sib, sit, sih, syb, syt, syh};
   Args a = backward_args(q, k, v, log_g, log_i, dy, dstate, dq, dk, dv, dlog_g, dli, cum, li,
-                         nullptr, entering, gstate, rpart, cpart, ipart, hpart, dpart, s, B, T_len,
+                         entering, gstate, rpart, cpart, ipart, hpart, dpart, s, B, T_len,
                          NH, DK, DV, chunk, vq, vk, vv, vdy);
   a.dqp = static_cast<float*>(dqp);
   a.dkp = static_cast<float*>(dkp);

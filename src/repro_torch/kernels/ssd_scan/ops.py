@@ -6,9 +6,11 @@ and its plain version.
 path's, q/k `(B, T, NH, DK)`, v `(B, T, NH, DV)`, gates `(B, T, NH)`.  Both
 return `(y, final_state)` with y in v's dtype and the state f32
 `(B, NH, DK, DV)`.  They launch the Hopper kernels of `csrc/ssd_scan.cu`
-for CUDA tensors (three launches a call: the chunks' local states, their
-fold in chunk order, the outputs; four where DK or DV exceeds 64, as the
-mLSTM's (hd, hd + 1) do, whose decayed scores get a launch of their own),
+for CUDA tensors (three launches a call: for narrow states the chunks'
+local states, their fold in chunk order, the outputs; where DK or DV
+exceeds 64, as the mLSTM's (hd, hd + 1) do, the state pass, a block a state
+tile walking the chunks with the state on chip, the decayed scores, the
+outputs),
 passing strides so that neither a transposition nor Mamba2's head
 broadcast of q and k (an `expand` with head stride 0) is materialised,
 and run `chunked_linear_attention_plain` for CPU tensors; any other device
@@ -64,6 +66,8 @@ MAX_CHUNK = 4096    # the chunk's gates sit in shared memory (pass 1)
 # bf16 parts of an f32 operand (Parts<T>::MID in the source): the scratch
 # holding the state entering each chunk has this many planes
 STATE_PARTS = {torch.bfloat16: 2, torch.float32: 3}
+# those of the wide path's decayed scores (Parts<T>::SCORE)
+SCORE_PARTS = {torch.bfloat16: 3, torch.float32: 3}
 NO_BACKWARD_F32 = "ROADMAP.md queue 1, item 13f: no training path on the card runs the scan in f32"
 
 
@@ -349,22 +353,23 @@ def vector_loads(*tensors: torch.Tensor) -> bool:
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # q, k, v, log_g, log_i, y, state, 5 scratch buffers (cum, li, local,
-# entering, scores), 6 x (batch, time, head) strides (q, k, v, log_g, log_i,
-# y), B, T, NH, DK, DV, chunk, in dtype, vector loads of q, k and v, stream
+# entering, scores; local null past 64-wide states, scores null within), 6 x
+# (batch, time, head) strides (q, k, v, log_g, log_i, y), B, T, NH, DK, DV,
+# chunk, in dtype, vector loads of q, k and v, stream
 # the backward's pairs route: q, k, v, log_g, log_i, dy, dstate, dq, dk, dv,
-# dlog_g, dlog_i, 12 scratch buffers (`BACKWARD_SCRATCH`), 6 x (batch,
+# dlog_g, dlog_i, 11 scratch buffers (`BACKWARD_SCRATCH`), 6 x (batch,
 # time, head) strides (q, k, v, log_g, log_i, dy), B, T, NH, DK, DV, chunk,
 # in dtype, vector loads of q, k, v and dy, stream; its heads route: the
 # same pointers with `HEADS_SCRATCH`, the strides, B, T, NH, DK, DV, chunk,
 # head groups, heads a group, q/k heads, the vector loads, stream
 _SIGNATURES = {"ssd_forward": [_P] * 12 + [_L] * 18 + [_I] * 10 + [_P],
-               "ssd_backward": [_P] * 24 + [_L] * 18 + [_I] * 11 + [_P],
+               "ssd_backward": [_P] * 23 + [_L] * 18 + [_I] * 11 + [_P],
                "ssd_backward_heads": [_P] * 23 + [_L] * 18 + [_I] * 13 + [_P]}
-BACKWARD_SCRATCH = ("cum", "li", "local", "entering", "gstate", "pmat", "dsmat", "rpart",
-                    "cpart", "ipart", "hpart", "dpart")
+BACKWARD_SCRATCH = ("cum", "li", "entering", "gstate", "pmat", "dsmat", "rpart", "cpart",
+                    "ipart", "hpart", "dpart")
 HEADS_SCRATCH = ("cum", "li", "entering", "gstate", "rpart", "cpart", "ipart", "hpart", "dpart",
                  "dqp", "dkp")
-# what `_ScanFn` keeps of the forward's scratch on the heads route
+# what `_ScanFn` keeps of the forward's scratch for the backward (either route)
 SAVED = ("cum", "li", "entering")
 HEADS_MAX_CHUNK = 4 * TILE  # kMaxTb * kTile: the heads route's row blocks a chunk
 HEAD_BLOCKS = 256  # the heads kernel's blocks to aim for (one an SM at a time)
@@ -373,21 +378,27 @@ HEAD_BLOCKS = 256  # the heads kernel's blocks to aim for (one an SM at a time)
 def scratch_shapes(B: int, T: int, NH: int, DK: int, DV: int, chunk: int,
                    dtype: torch.dtype) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """The scratch a launch needs, by name: (shape, dtype).  cum and li
-    (B, NH, T) f32; the chunks' local states (B, NH, nc, nk x nv 64 x 64
-    tiles, 64, 64) f32, DK and DV padded to nk and nv tiles; the state
-    entering each chunk, the same tiles in its bf16 parts; and, where DK or
-    DV exceeds 64, the decayed scores of each chunk's (row block, key block
-    <= it) pairs, (B, NH, nc, pairs, 64, 64) f32."""
+    (B, NH, T) f32; the state entering each chunk, (B, NH, nc, nk x nv 64 x
+    64 tiles, parts, 64, 64) in the dtype's bf16 parts, DK and DV padded to
+    nk and nv tiles; for narrow states (one tile) the chunks' local states,
+    (B, NH, nc, 1, 64, 64) f32; past them (DK or DV over 64, where the state
+    pass keeps each tile's running state on chip and no local state leaves
+    it) the decayed scores of each chunk's (row block, key block <= it)
+    pairs in three bf16 parts (`SCORE_PARTS`), (B, NH, nc, pairs, 3, 64,
+    64)."""
     nc, nt = -(-T // chunk), -(-chunk // TILE)
     nk, nv = -(-DK // TILE), -(-DV // TILE)
+    parts = STATE_PARTS[dtype]
     shapes = {
         "cum": ((B, NH, T), torch.float32),
         "li": ((B, NH, T), torch.float32),
-        "local": ((B, NH, nc, nk * nv, TILE, TILE), torch.float32),
-        "entering": ((B, NH, nc, nk * nv, STATE_PARTS[dtype], TILE, TILE), torch.bfloat16),
+        "entering": ((B, NH, nc, nk * nv, parts, TILE, TILE), torch.bfloat16),
     }
     if nk > 1 or nv > 1:
-        shapes["scores"] = ((B, NH, nc, nt * (nt + 1) // 2, TILE, TILE), torch.float32)
+        shapes["scores"] = ((B, NH, nc, nt * (nt + 1) // 2, SCORE_PARTS[dtype], TILE, TILE),
+                            torch.bfloat16)
+    else:
+        shapes["local"] = ((B, NH, nc, 1, TILE, TILE), torch.float32)
     return shapes
 
 
@@ -413,31 +424,27 @@ def backward_plan(B: int, T: int, NH: int, NQ: int, DK: int, DV: int, chunk: int
 
 def backward_scratch_shapes(B: int, T: int, NH: int, DK: int, DV: int, chunk: int
                             ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-    """The scratch of a backward launch on the pairs route (bf16 inputs),
-    by name: the forward's cum, li, local states and entering states again
-    (the local states' buffer then holds each chunk's U_c); gstate, the
+    """The scratch of a backward launch on the pairs route (bf16 inputs)
+    beside the forward's `SAVED` cum, li and entering, by name: gstate, the
     cotangent of the state leaving each chunk, laid out as `entering`; pmat
-    and dsmat, P and dS of each chunk's (row block, key block <= it) pairs,
-    (B, NH, nc, pairs, 64, 64) f32; rpart and cpart, the pairs' sums of the
+    and dsmat, P and dS of each chunk's (row block, key block <= it) pairs
+    in two bf16 parts, (B, NH, nc, pairs, 2, 64, 64); rpart and cpart, the pairs' sums of the
     gate term by row and by column, (B, NH, nc, pairs, 64); ipart and
     hpart, the inter and state gate terms over each DK tile, (B, NH, nk,
-    T); dpart, the decay term over each of the fold's 256-element blocks,
-    (B, NH, nc, blocks)."""
-    shapes = scratch_shapes(B, T, NH, DK, DV, chunk, torch.bfloat16)
-    shapes.pop("scores", None)
+    T); dpart, the decay term over each state tile, (B, NH, nc, nk x nv).
+    No chunk's U_c leaves the chip (the state pass folds it in)."""
     nc, nt = -(-T // chunk), -(-chunk // TILE)
     nk, nv = -(-DK // TILE), -(-DV // TILE)
     pairs = nt * (nt + 1) // 2
-    shapes.update(
-        gstate=shapes["entering"],
-        pmat=((B, NH, nc, pairs, TILE, TILE), torch.float32),
-        dsmat=((B, NH, nc, pairs, TILE, TILE), torch.float32),
+    return dict(
+        gstate=scratch_shapes(B, T, NH, DK, DV, chunk, torch.bfloat16)["entering"],
+        pmat=((B, NH, nc, pairs, 2, TILE, TILE), torch.bfloat16),
+        dsmat=((B, NH, nc, pairs, 2, TILE, TILE), torch.bfloat16),
         rpart=((B, NH, nc, pairs, TILE), torch.float32),
         cpart=((B, NH, nc, pairs, TILE), torch.float32),
         ipart=((B, NH, nk, T), torch.float32),
         hpart=((B, NH, nk, T), torch.float32),
-        dpart=((B, NH, nc, nk * nv * TILE * TILE // 256), torch.float32))
-    return shapes
+        dpart=((B, NH, nc, nk * nv), torch.float32))
 
 
 def heads_scratch_shapes(B: int, T: int, NH: int, chunk: int, groups: int
@@ -471,7 +478,8 @@ def _streamable(t: torch.Tensor) -> torch.Tensor:
     if t.dtype != torch.bfloat16 or vector_loads(t):
         return t
     B, T, NH, D = t.shape
-    padded = torch.zeros((B, T, NH, -(-D // 8) * 8), dtype=t.dtype, device=t.device)
+    padded = torch.empty((B, T, NH, -(-D // 8) * 8), dtype=t.dtype, device=t.device)
+    padded[..., D:] = 0  # the pad columns alone: a fill of the whole copy costs as much again
     padded[..., :D] = t
     return padded
 
@@ -528,16 +536,19 @@ def _outputs(v, log_i, DK: int, DV: int, qk_heads: int) -> list:
     return outs
 
 
-def _launch_backward(q, k, v, log_g, log_i, dy, dstate, DK: int, DV: int, chunk: int):
+def _launch_backward(q, k, v, log_g, log_i, dy, dstate, DK: int, DV: int, chunk: int,
+                     saved: dict):
     """The pairs route on CUDA, bf16: q/k (B, T, NH, DK or more, zero past
     DK; any batch, time and head strides), v and dy (B, T, NH, DV or more,
     zero past DV), gates f32 (B, T, NH) with a unit last stride, dstate f32
-    (B, NH, DK, DV) contiguous or None (zero).  Returns (dq, dk, dv,
+    (B, NH, DK, DV) contiguous or None (zero); `saved`: the forward's cum,
+    li and entering (`SAVED`) at these inputs.  Returns (dq, dk, dv,
     dlog_g, dlog_i): dq, dk and dv per head in bf16, the gates' f32,
     dlog_i None without log_i."""
     B, T, NH = v.shape[:3]
     outs = _outputs(v, log_i, DK, DV, NH)
     scratch = _empty(backward_scratch_shapes(B, T, NH, DK, DV, chunk), q.device)
+    scratch.update(saved)
     _lib.launch(q, "ssd_scan_backward", lambda: _lib.load("ssd_scan", _SIGNATURES).ssd_backward(
         *(0 if t is None else t.data_ptr() for t in (q, k, v, log_g, log_i, dy, dstate, *outs)),
         *(scratch[n].data_ptr() for n in BACKWARD_SCRATCH), *_strides(q, k, v, log_g, log_i, dy),
@@ -582,12 +593,13 @@ def ssd_scan_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: 
     tensors (bf16 q, k, v) launch the backward kernels of
     `csrc/ssd_scan.cu`: for DK, DV <= 64 and chunks of at most 256 steps
     the heads route (`backward_plan`; three launches: the state
-    cotangents, the gradients, their sums and the gates), on the forward's
-    scratch in `saved` (`forward_saved`; None runs the forward kernel
-    first, as the step's forward launch would), which sums a
+    cotangents, the gradients, their sums and the gates), which sums a
     broadcast q's and k's gradients over the heads itself; otherwise the
-    pairs route (nine launches), per head, a one-head q's or k's then
-    summed over the heads here.  CPU tensors run
+    pairs route (six launches: the state cotangents, the pairs' scores, dq,
+    dk, dv, the gates), per head, a one-head q's or k's then summed over
+    the heads here.  Either route runs on the forward's scratch in `saved`
+    (`forward_saved`; None runs the forward kernel first, as the step's
+    forward launch would).  CPU tensors run
     `chunked_linear_attention_backward_plain`."""
     tensors = [t for t in (q, k, v, log_g, log_i, dy, dstate) if t is not None]
     chunk = min(chunk, q.shape[1])
@@ -615,13 +627,13 @@ def _backward(q, k, v, log_g, log_i, dy, dstate, DV: int, chunk: int, saved=None
     qe, ke = _heads(_streamable(q), _streamable(k), v)
     args = (qe, ke, v, _f32(log_g), _f32(log_i), _streamable(dy.to(v.dtype).contiguous()),
             None if dstate is None else dstate.float().contiguous(), DK, DV, chunk)
+    if saved is None:
+        scratch = _forward(q, k, v, log_g, log_i, chunk, DV)[2]
+        saved = {n: scratch[n] for n in SAVED}
     if route == "heads":
-        if saved is None:
-            scratch = _forward(q, k, v, log_g, log_i, chunk, DV)[2]
-            saved = {n: scratch[n] for n in SAVED}
         dq, dk, *rest = _launch_heads(*args, qk_heads, groups, heads_a_group, saved)
     else:
-        dq, dk, *rest = _launch_backward(*args)
+        dq, dk, *rest = _launch_backward(*args, saved)
     # per-head gradients of a one-head q or k (the pairs route, or only one
     # of the two broadcast): their sum over the heads
     if dq.shape[2] != q.shape[2]:
@@ -635,14 +647,14 @@ class _ScanFn(torch.autograd.Function):
     """`ssd_scan_bthd` with its backward kernel: q, k (per head, or one head
     broadcast over v's heads, whose gradients then come back summed over
     them), v, log_g (f32) and log_i (f32 or None) in; y and the final state
-    out.  On the backward's heads route it keeps the forward's cum, li and
-    entering states (`SAVED`; 21 MB a call at zamba2-2.7b's train
-    micro-batch), so the backward does not run the forward's passes again;
-    under remat (`torch.utils.checkpoint`) the kept scratch is the
-    recompute's, held only until its group's backward.  On the pairs route
-    it keeps the inputs alone.  It saves v as the forward streamed it (the
-    mLSTM's padded copy), so the backward pads only dy.  A None cotangent
-    (the state, which training discards) is zero."""
+    out.  It keeps the forward's cum, li and entering states (`SAVED`; 21
+    MB a call at zamba2-2.7b's train micro-batch on the heads route, 285 MB
+    at xlstm-1.3b's mLSTM on the pairs route), so neither backward route
+    runs the forward's passes again; under remat (`torch.utils.checkpoint`)
+    the kept scratch is the recompute's, held only until its block's
+    backward.  It saves v as the forward streamed it (the mLSTM's padded
+    copy), so the backward pads only dy.  A None cotangent (the state,
+    which training discards) is zero."""
 
     @staticmethod
     def forward(ctx, q, k, v, log_g, log_i, chunk: int):
@@ -650,10 +662,7 @@ class _ScanFn(torch.autograd.Function):
         ctx.chunk, ctx.dv = chunk, v.shape[-1]
         v = _streamable(v)
         y, state, scratch = _forward(q, k, v, log_g, log_i, chunk, ctx.dv)
-        B, T, NH = v.shape[:3]
-        qk_heads = 1 if q.shape[2] == k.shape[2] == 1 else NH
-        keep = backward_plan(B, T, NH, qk_heads, q.shape[-1], ctx.dv, chunk)[0] == "heads"
-        ctx.save_for_backward(q, k, v, log_g, log_i, *(scratch[n] for n in SAVED if keep))
+        ctx.save_for_backward(q, k, v, log_g, log_i, *(scratch[n] for n in SAVED))
         return y, state
 
     @staticmethod
@@ -661,7 +670,7 @@ class _ScanFn(torch.autograd.Function):
         q, k, v, log_g, log_i, *kept = ctx.saved_tensors
         if dy is None:  # v's streamed shape, zero past DV as the kernel reads it
             dy = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
-        saved = dict(zip(SAVED, kept)) if kept else None
+        saved = dict(zip(SAVED, kept))
         return (*_backward(q, k, v, log_g, log_i, dy, dstate, ctx.dv, ctx.chunk, saved), None)
 
 
@@ -693,8 +702,8 @@ def _forward(q, k, v, log_g, log_i, chunk: int, DV: int) -> tuple:
 
 def forward_saved(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_g: torch.Tensor,
                   log_i: torch.Tensor | None = None, chunk: int = 256) -> dict:
-    """The forward kernel's scratch that `_ScanFn` keeps for the backward's
-    heads route (`SAVED`), from one forward launch at these CUDA inputs:
+    """The forward kernel's scratch that `_ScanFn` keeps for the backward
+    (`SAVED`), from one forward launch at these CUDA inputs:
     `ssd_scan_backward(..., saved=...)` then runs as a train step's does."""
     chunk = min(chunk, q.shape[1])
     _check(q, k, v, log_g, log_i, chunk)

@@ -720,17 +720,23 @@ def test_ssd_scan_kernel_chunks_and_ragged_t(cuda, T, chunk, broadcast, dtype):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("B,T,NH,DK,DV,chunk", [(1, 300, 2, 96, 97, 64),
                                                 (2, 200, 3, 128, 40, 64),
-                                                (1, 512, 4, 1024, 1025, 256)],
-                         ids=["short_last_chunk", "wide_dk_16_byte_v", "xlstm_1_3b_heads"])
+                                                (1, 512, 4, 1024, 1025, 256),
+                                                (2, 300, 2, 1024, 1025, 256),
+                                                (1, 700, 1, 1024, 1025, 256),
+                                                (2, 200, 3, 64, 129, 64)],
+                         ids=["short_last_chunk", "wide_dk_16_byte_v", "xlstm_1_3b_heads",
+                              "xlstm_1_3b_2_heads_ragged", "xlstm_1_3b_1_head_ragged", "dv_129"])
 @pytest.mark.parametrize("with_i", [True, False], ids=["log_i", "no_log_i"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_ssd_scan_kernel_wide_states_match_plain(cuda, B, T, NH, DK, DV, chunk, with_i, dtype):
-    """State widths past one 64-wide tile, as the mLSTM's (hd, hd + 1), or
-    DK alone past it with a v the kernel streams as it lies (bf16 rows of
-    40): per-head q and k, v with a ones column, log_i over the mLSTM's
-    clip range [-30, 10] (decay terms to e^30).  y at the dtype's bound (bf16
-    `tol`, f32 the SSD bound) and the state at the SSD bound, each atol
-    scaled by the reference's max |value|; one launch counted a call."""
+    """State widths past one 64-wide tile, as the mLSTM's (hd, hd + 1) at
+    its 4 heads and cut to 1-2 with a ragged T (a short last chunk), DV
+    alone past it (129: an odd count of DV tiles), or DK alone past it with
+    a v the kernel streams as it lies (bf16 rows of 40): per-head q and k, v
+    with a ones column, log_i over the mLSTM's clip range [-30, 10] (decay
+    terms to e^30).  y at the dtype's bound (bf16 `tol`, f32 the SSD bound)
+    and the state at the SSD bound, each atol scaled by the reference's max
+    |value|; two calls bit-equal; one launch counted a call."""
     q = _on(cuda, 90, (B, T, NH, DK), dtype, 0.5)
     k = _on(cuda, 91, (B, T, NH, DK), dtype, 0.5)
     v = _on(cuda, 92, (B, T, NH, DV), dtype, 0.5)
@@ -740,8 +746,10 @@ def test_ssd_scan_kernel_wide_states_match_plain(cuda, B, T, NH, DK, DV, chunk, 
              .float().to(cuda) if with_i else None)
     before = ssd.ssd_scan.launches
     y, state = ssd.ssd_scan_bthd(q, k, v, log_g, log_i, chunk=chunk)
+    y1, state1 = ssd.ssd_scan_bthd(q, k, v, log_g, log_i, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd.ssd_scan.launches == before + 1
+    assert ssd.ssd_scan.launches == before + 2
+    assert torch.equal(y, y1) and torch.equal(state, state1)
     assert y.shape == v.shape and y.dtype == dtype and state.shape == (B, NH, DK, DV)
     y_want, s_want = ssd.chunked_linear_attention_plain(q, k, v, log_g, log_i, chunk=chunk)
     y_tol = SSD_TOL if dtype == torch.float32 else tol(dtype)
@@ -828,26 +836,56 @@ def _ssd_grad_inputs(device, seed, B, T, NH, DK, DV, broadcast, with_i, final):
     (2, 256, 6, 64, 64, 64, True, False, False),   # narrow: Mamba2's broadcast q and k
     (1, 256, 2, 128, 129, 128, False, True, False),  # wide: DK 128, DV 129, with log_i
     (2, 300, 3, 32, 48, 128, False, True, True),   # ragged T, a final-state cotangent
-], ids=["narrow", "wide", "ragged"])
+    (1, 512, 2, 1024, 1025, 256, False, True, False),  # xlstm-1.3b's mLSTM, 2 heads
+    (2, 300, 1, 1024, 1025, 256, False, True, True),   # 1 head, ragged T, a final cotangent
+    (1, 200, 3, 128, 129, 64, True, True, True),   # the pairs route with one-head q and k
+], ids=["narrow", "wide", "ragged", "xlstm_1_3b_2_heads", "xlstm_1_3b_1_head_ragged_final",
+        "wide_one_head_qk"])
 def test_ssd_scan_backward_kernel_matches_plain(cuda, B, T, NH, DK, DV, chunk, broadcast,
                                                 with_i, final):
     """Each gradient within GRAD_TOL of the plain backward run in f32 from
-    the same bf16 inputs; two calls bit-equal; one call counted each."""
+    the same bf16 inputs, on either route (the pairs route past 64-wide
+    states: the mLSTM's at 1-2 heads, log_i over [-30, 10], a ragged T, a
+    nonzero final-state cotangent); two calls bit-equal, and bit-equal with
+    the forward's scratch kept (`forward_saved`, as `_ScanFn` keeps it) to
+    the wrapper's own forward launch; one call counted each."""
     args = _ssd_grad_inputs(cuda, 120, B, T, NH, DK, DV, broadcast, with_i, final)
     before = ssd.ssd_scan_backward.launches
     got = ssd.ssd_scan_backward(*args, chunk=chunk)
     again = ssd.ssd_scan_backward(*args, chunk=chunk)
+    saved = ssd.forward_saved(*args[:5], chunk=chunk)
+    kept = ssd.ssd_scan_backward(*args, chunk=chunk, saved=saved)
     torch.cuda.synchronize()
-    assert ssd.ssd_scan_backward.launches == before + 2
+    assert ssd.ssd_scan_backward.launches == before + 3
     want = ssd.chunked_linear_attention_backward_plain(
         *(None if t is None else t.float() for t in args), chunk=chunk)
-    for name, a, b, c in zip(("dq", "dk", "dv", "dlog_g", "dlog_i"), got, want, again):
+    for name, a, b, c, d in zip(("dq", "dk", "dv", "dlog_g", "dlog_i"), got, want, again, kept):
         if b is None:
-            assert a is None and c is None, name
+            assert a is None and c is None and d is None, name
             continue
         assert a.shape == b.shape, name
         assert_grad_close(a, b, name)
-        assert torch.equal(a, c), name
+        assert torch.equal(a, c) and torch.equal(a, d), name
+
+
+@pytest.mark.requires_cuda
+def test_ssd_scan_wide_under_grad_keeps_the_forward_scratch(cuda):
+    """The mLSTM's call under grad (the pairs route): the forward kernel
+    once and, in the backward, the backward kernel once on the kept
+    scratch; the leaves' gradients equal a direct backward call's bits."""
+    B, T, NH, DK, DV, chunk = 1, 300, 2, 128, 129, 128
+    args = _ssd_grad_inputs(cuda, 160, B, T, NH, DK, DV, False, True, False)
+    q, k, v, log_g, log_i, dy, _ = args
+    assert ssd.backward_plan(B, T, NH, NH, DK, DV, chunk)[0] == "pairs"
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, log_g, log_i)]
+    f0, b0 = ssd.ssd_scan.launches, ssd.ssd_scan_backward.launches
+    y, _ = ssd.ssd_scan_bthd(*leaves, chunk=chunk)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (ssd.ssd_scan.launches, ssd.ssd_scan_backward.launches) == (f0 + 1, b0 + 1)
+    want = ssd.ssd_scan_backward(*args, chunk=chunk)
+    for name, leaf, w in zip(("dq", "dk", "dv", "dlog_g", "dlog_i"), leaves, want):
+        assert torch.equal(leaf.grad, w), name
 
 
 @pytest.mark.requires_cuda

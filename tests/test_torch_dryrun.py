@@ -265,8 +265,18 @@ def test_ssd_scan_meta(name):
     _same(got, want_b)
     b = _delta(before, "ssd_scan_backward")
     assert b["launches"] == 1 and b["ops"] == pytest.approx(dict(work.ops))
-    # the heads route without the forward's scratch runs the forward first
-    assert _delta(before, "ssd_scan")["launches"] == (route == "heads")
+    # either route without the forward's scratch runs the forward first ...
+    assert _delta(before, "ssd_scan")["launches"] == 1
+    # ... and with it (`SAVED`, as `_ScanFn` keeps it) launches no forward
+    meta_dy = torch.empty_like(dy, device="meta")
+    saved = ssd.forward_saved(*meta, chunk=chunk)
+    assert tuple(saved) == ssd.SAVED
+    before = work_counts()
+    with refused():
+        got = ssd.ssd_scan_backward(*meta, meta_dy, None, chunk=chunk, saved=saved)
+    _same(got, want_b)
+    assert _delta(before, "ssd_scan_backward")["launches"] == 1
+    assert _delta(before, "ssd_scan")["launches"] == 0
 
 
 def test_boundary_quant_meta():

@@ -600,18 +600,21 @@ def test_ssd_vector_loads():
                                          (128, 40, True)])
 def test_ssd_scratch_shapes(DK, DV, wide):
     """The scratch a launch allocates: the state tiled by 64 x 64 (DK, DV
-    padded up), the entering state in the dtype's bf16 parts, and only past
-    one tile the decayed scores of each chunk's (row block, key block <=
-    it) pairs: 10 pairs for a chunk of 256."""
+    padded up), the entering state in the dtype's bf16 parts; within one
+    tile the chunks' local states, and past it (where the state pass keeps
+    each tile on chip) none, but the decayed scores of each chunk's (row
+    block, key block <= it) pairs in three parts: 10 pairs for a chunk of
+    256."""
     B, T, NH, chunk = 2, 300, 3, 256
     tiles = -(-DK // 64) * -(-DV // 64)
     for dtype, parts in ((torch.bfloat16, 2), (torch.float32, 3)):
         got = ssd.scratch_shapes(B, T, NH, DK, DV, chunk, dtype)
         assert got["cum"] == got["li"] == ((B, NH, T), torch.float32)
-        assert got["local"] == ((B, NH, 2, tiles, 64, 64), torch.float32)
+        assert got.get("local") == (None if wide else ((B, NH, 2, 1, 64, 64), torch.float32))
         assert got["entering"] == ((B, NH, 2, tiles, parts, 64, 64), torch.bfloat16)
         assert ssd.STATE_PARTS[dtype] == parts
-        assert got.get("scores") == (((B, NH, 2, 10, 64, 64), torch.float32) if wide else None)
+        assert got.get("scores") == (((B, NH, 2, 10, 3, 64, 64), torch.bfloat16) if wide
+                                     else None)
 
 
 # ------------------------------------------------- (h) no silent fallback
