@@ -13,8 +13,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    main paths' shapes (quantize bit-equal at every launch instance, and
    timed at the serve boundary, decode, narrow and long shapes;
    rmsnorm, flash and decode attention at every shape the smoke paths
-   run, flash attention's f32 route also at tests/test_kernels.py's f32
-   shapes and non-causal, and both routes at the VLM's and the enc-dec's
+   run (phase 8's serve_pipeline example's included), flash attention's
+   f32 route also at tests/test_kernels.py's f32 shapes and non-causal,
+   and both routes at the VLM's and the enc-dec's
    shapes (llava-next-34b's causal prefill, seamless-m4t-large-v2's
    non-causal encoder and its cross-attention, Sq != Sk), the MoE
    family's prefills (llama4-maverick-400b-a17b's, G = 5; deepseek-v3's
@@ -130,8 +131,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    their plain backward run in f32, at the train shapes (`train_small`'s
    too; the scan's at zamba2-2.7b's and the mLSTM's and a ragged one; the
    flash backward's also at seamless-m4t-large-v2's non-causal encoder
-   and cross-attention, a ragged non-causal Sq < Sk, a causal Sq < Sk
-   and Sq > Sk, deepseek-v3's MLA at a training micro-batch (q and k 192
+   and cross-attention and its causal decoder, a ragged non-causal Sq <
+   Sk, a causal Sq < Sk and Sq > Sk, deepseek-v3's MLA at a training micro-batch (q and k 192
    wide, v 128), 16 query heads a KV head and q, k and v all 192 wide)
    and the serve's or a G = 1 one; flash attention's
    backward is split by launch (Delta, dK/dV, dQ) and read in TFLOP/s
@@ -150,6 +151,16 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    equal to the card's; printed, not held: each trace's wall, and for the
    MoE pair the deepest prefill of phase 5's shape the dry run predicts
    fits the card, beside `DEPTH_CUTS`.
+
+8. the examples (`[examples]` lines): the port's four examples,
+   `repro_torch.examples.{quickstart,plan_explorer,stream_serve,
+   serve_pipeline}`, in this process with the reference CI's arguments
+   (`--quick` but for quickstart), serve_pipeline's four acts on the card
+   (a reduced stablelm-3b: 8 layers, d_model 256, 4 heads of 64, 32 tokens
+   a request, whose rmsnorm and flash-attention shapes phase 2 holds);
+   every request served with no executor failure, the two kernels
+   launched (`launches_by_path.examples`), each example's wall and each
+   workload's attainment and p50 logged.
 
 With `--parent ROOT` (another tree of the repository, such as the parent
 commit unpacked), every kernel that tree has is built too, timed in turns
@@ -190,6 +201,12 @@ SWAP_REQUESTS = 10 * N_REQUESTS  # the live swap's trace (act_swap says why)
 # whose batch of 8 must pass use_plan's analytic check (its trace's SLO
 # comes from the calibrated latency)
 MILP_SLO_SCALE, SWAP_SLO_SCALE, PINNED_SLO_SCALE = 5.0, 8.0, 20.0
+# phase 8: the port's examples in-process, as the reference's CI runs them
+# (`.github/workflows/ci.yml`), serve_pipeline on the card; the largest
+# batch its plans serve (the MILP's h100 pool), for phase 2's shapes
+EXAMPLES = (("quickstart", []), ("plan_explorer", ["--quick"]), ("stream_serve", ["--quick"]),
+            ("serve_pipeline", ["--quick", "--device", "cuda"]))
+EXAMPLE_MAX_BATCH = 16
 # phase 5: (arch, batch, prompt tokens (the VLM's after its 2880 patch
 # embeddings; the enc-dec's frame embeddings), greedy decode steps)
 DECODE_RUNS = (("stablelm-3b", 8, 128, 32), ("zamba2-2.7b", 4, 512, 16),
@@ -657,7 +674,20 @@ def rmsnorm_shapes() -> list[tuple[str, int, int]]:
             ("llava-next-34b prefill", lb * (patches + ls), 7168),
             ("llava-next-34b decode", lb, 7168)] + moe_rmsnorm_shapes() + [
             train_rows(), small_train_rows(),
-            ("qwen3-14b qk_norm (no smoke path)", 8 * 128 * 40, 128)]
+            ("qwen3-14b qk_norm (no smoke path)", 8 * 128 * 40, 128)] + [
+            (f"serve_pipeline example, batch {bs}", bs * seq, d_model)
+            for bs, seq, d_model, _, _ in example_shapes()]
+
+
+def example_shapes() -> list[tuple[int, int, int, int, int]]:
+    """(batch, tokens a request, d_model, heads, head_dim) at which phase 8's
+    `repro_torch.examples.serve_pipeline` runs its stages on the card: its
+    reduced stablelm-3b at the smallest batch bucket and the largest its
+    plans serve (the MILP's h100 pool at batch 16)."""
+    from repro_torch.examples.serve_pipeline import REDUCED, SEQ
+
+    d, h = REDUCED["d_model"], REDUCED["n_heads"]
+    return [(bs, SEQ, d, h, d // h) for bs in (1, EXAMPLE_MAX_BATCH)]
 
 
 def moe_rmsnorm_shapes() -> list[tuple[str, int, int]]:
@@ -794,8 +824,9 @@ def grad_shapes_flash() -> list[tuple[str, int, int, int, int, int, int, int, bo
     then seamless-m4t-large-v2's, as phase 6e trains it
     (`ENCDEC_TRAIN_TEXT` tokens over `TRAIN_SEQ` frames a sequence): its
     encoder (4, 1024, 16/16, 64) and its cross-attention (q of 256 rows over
-    k and v of 1024), non-causal; a ragged non-causal (2, 33 over 1000, 8/2,
-    64); the causal Sq < Sk and Sq > Sk of `flash_model_shapes`; then
+    k and v of 1024), non-causal, and its decoder's self-attention (4, 256,
+    16/16, 64), causal; a ragged non-causal (2, 33 over 1000, 8/2, 64); the
+    causal Sq < Sk and Sq > Sk of `flash_model_shapes`; then
     deepseek-v3's MLA at a training micro-batch (4, 1024, 128/128, q and k
     192 wide, v 128), causal, as 6b trains it; 16 query heads a KV head (2,
     1024, 32/2, 128), causal; and q, k and v all 192 wide (2, 512, 8/2),
@@ -815,6 +846,8 @@ def grad_shapes_flash() -> list[tuple[str, int, int, int, int, int, int, int, bo
             (f"{ENCDEC_TRAIN_ARCH} encoder", mb, TRAIN_SEQ, TRAIN_SEQ, *heads, False),
             (f"{ENCDEC_TRAIN_ARCH} cross-attention", mb, ENCDEC_TRAIN_TEXT, TRAIN_SEQ, *heads,
              False),
+            (f"{ENCDEC_TRAIN_ARCH} decoder", mb, ENCDEC_TRAIN_TEXT, ENCDEC_TRAIN_TEXT, *heads,
+             True),
             ("ragged, non-causal", 2, 33, 1000, 8, 2, 64, 64, False)] + [
         (what, B, Sq, Sk, H, KH, D, Dv, causal)
         for what, B, Sq, Sk, H, KH, D, Dv, causal in flash_model_shapes()
@@ -1163,7 +1196,9 @@ def flash_model_shapes() -> list[tuple]:
     llava-next-34b's prefill (G = 7, D = 128, patches + text tokens, no
     multiple of the kernel's 128-row item), llama4-maverick-400b-a17b's
     (G = 5) and deepseek-v3's MLA prefill (128 heads of q and k at
-    qk_nope + qk_rope = 192, v at 128)."""
+    qk_nope + qk_rope = 192, v at 128); then phase 8's serve_pipeline
+    example's prefill at its two batches (`example_shapes`: 32 tokens, 4
+    heads of 64, causal)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import batch_text_offset
 
@@ -1183,7 +1218,9 @@ def flash_model_shapes() -> list[tuple]:
         elif cfg.family == "moe":
             out.append((f"{arch} prefill", B, S, S, *heads, True))
     return out + [("causal, Sq < Sk", 2, 300, 1000, 16, 4, 128, 128, True),
-                  ("causal, Sq > Sk", 2, 1000, 300, 16, 4, 64, 64, True)]
+                  ("causal, Sq > Sk", 2, 1000, 300, 16, 4, 64, 64, True)] + [
+        (f"serve_pipeline example, batch {bs}", bs, seq, seq, h, h, hd, hd, True)
+        for bs, seq, _, h, hd in example_shapes()]
 
 
 def check_flash_models(dev, g, err, parent) -> list[dict]:
@@ -4116,6 +4153,58 @@ def phase_dry_run() -> dict:
     return rows
 
 
+# ----------------------------------------------------------------- phase 8
+
+
+def phase_examples() -> dict:
+    """The port's four examples (`repro_torch.examples.<name>`), each run in
+    this process through its `main` with the reference CI's arguments
+    (`EXAMPLES`), its printed lines logged: quickstart, plan_explorer and
+    stream_serve plan and simulate; serve_pipeline's four acts deploy for
+    real on the card, every stage a CUDA graph through the rmsnorm and
+    flash-attention kernels at the example's widths.  Its `serve_workload`
+    raises unless every request was served with no executor failure and no
+    retry (the data plane drops the batch of an executor that raised).
+    Counted as phase 3 counts: the counters' advance, less what was recorded
+    into graphs, plus each graph's launches times its replays; fails unless
+    both kernels launched.  Returns the launches."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from repro_torch.serving.engine import GRAPH_STATS as G
+
+    reset_counts()
+    G.reset()
+    walls, served = {}, []
+    for name, argv in EXAMPLES:
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            ret = module.main(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            log(f"[examples] {name} | {line}")
+        if name == "serve_pipeline":
+            served = ret
+    counted = read_counts()
+    launches = {k: n - G.captured.get(k, 0) + G.replayed.get(k, 0) for k, n in counted.items()}
+    log(f"[examples] serve_pipeline's stage graphs: {G.captures} captured, {G.replays} replays, "
+        f"{G.misses} calls without a graph; launches {launches}")
+    for name in ("rmsnorm", "flash_attention"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"the examples launched {name} {launches.get(name, 0)} times")
+    log("[examples] walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + "; serve_pipeline: " + "; ".join(
+            f"{r['name']} {r['served']}/{r['n']} served, attainment {r['attainment']:.4f}, "
+            f"p50 {r['p50_ms']:.3f} ms" for r in served) + "; executor failures 0")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -4182,8 +4271,11 @@ def main() -> int:
         if xlstm_trace.poll() is None:
             xlstm_trace.kill()
             xlstm_trace.wait()
+    examples = phase_examples()
+    elapsed("8 (examples)")
     launches = {name: {"serve": launches.get(name, 0), "decode": decode.get(name, 0),
-                       "train": train.get(name, 0)} for name in KERNEL_NAMES}
+                       "train": train.get(name, 0), "examples": examples.get(name, 0)}
+                for name in KERNEL_NAMES}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [

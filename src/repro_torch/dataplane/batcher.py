@@ -32,12 +32,27 @@ from .queues import AdmissionPolicy, QueueSet
 
 
 def unloaded_latency_s(pipeline: PipelineRuntime) -> float:
-    """Best-case end-to-end latency of a pipeline: batch 1 on idle pools.
+    """Best-case end-to-end latency of a pipeline: batch 1 on idle pools, at
+    each stage's current `lat_scale` (every table grows with the batch:
+    the cost model's, and measured ones as `calibrate_runtime` keeps them).
 
-    Transfers are excluded — admission should err on the admitting side, and
-    co-located hops cost nothing anyway.
+    The expiry prune and the admission check hold it against deadlines, so
+    it must not exceed any service time the scheduler plans:
+    `AdaptiveBatcher.refresh_min_service` re-reads it whenever measured
+    feedback moves a scale.  Transfers are excluded — admission should err
+    on the admitting side, and co-located hops cost nothing anyway.
     """
     return sum(stage.latency(1) for stage in pipeline.stages)
+
+
+def min_service_by_model(runtime: ClusterRuntime) -> dict[str, float]:
+    """The fastest pipeline's `unloaded_latency_s` for each served model."""
+    out: dict[str, float] = {}
+    for p in runtime.pipelines:
+        lat = unloaded_latency_s(p)
+        cur = out.get(p.model_name)
+        out[p.model_name] = lat if cur is None else min(cur, lat)
+    return out
 
 
 class AdaptiveBatcher:
@@ -47,12 +62,9 @@ class AdaptiveBatcher:
                  policy: AdmissionPolicy | None = None,
                  scheduler_cls=ReservationScheduler) -> None:
         self.runtime = runtime
-        min_service = {}
+        min_service = min_service_by_model(runtime)
         capacity: dict[str, int] = {}
         for p in runtime.pipelines:
-            lat = unloaded_latency_s(p)
-            cur = min_service.get(p.model_name)
-            min_service[p.model_name] = lat if cur is None else min(cur, lat)
             # optimistic per-quantum clearing capacity: each pipeline serves
             # `unified_batch` requests per pool slot, with min-stage pool
             # width slots in parallel — the watermark shed bound's divisor
@@ -78,6 +90,13 @@ class AdaptiveBatcher:
         """
         expired = self.queues.prune(model, now)
         return expired, self.sched.schedule(model, now)
+
+    def refresh_min_service(self) -> None:
+        """Re-derive every queue's best-case service time after feedback
+        moved a stage's `lat_scale`, so the expiry prune and the admission
+        check stay below what the scheduler's probes plan."""
+        for model, lat in min_service_by_model(self.runtime).items():
+            self.queues.queue(model).min_service_s = lat
 
     def pending(self, model: str) -> int:
         return self.queues.pending(model)

@@ -614,11 +614,11 @@ class DataPlane:
         from repro_torch.serving.engine import StageExecutor
 
         live = [self.dispatcher, *self._retired_dispatchers.values()]
-        kept = {id(ex) for d in live if d is not None
-                for execs in d.executors.values() for ex in execs}
+        kept = [ex for d in live if d is not None
+                for execs in d.executors.values() for ex in execs]
         for execs in disp.executors.values():
             for ex in execs:
-                if isinstance(ex, StageExecutor) and id(ex) not in kept:
+                if isinstance(ex, StageExecutor) and not any(ex is k for k in kept):
                     ex.release_graphs()
 
     def _maybe_gc_epoch(self, epoch: int) -> None:
@@ -882,7 +882,10 @@ class DataPlane:
         if self.feedback != "measured" or job.exec_id is None:
             return planned
         wall = job.dispatcher.poll_stage(job.exec_id, k)
-        return job.fb.observe(job.pipeline_id, k, planned, wall)
+        dur = job.fb.observe(job.pipeline_id, k, planned, wall)
+        if job.fb.adapt_latency:
+            self.batcher.refresh_min_service()
+        return dur
 
     def _start_stage(self, now: float, job: _Job) -> None:
         k = job.stage_idx
@@ -1097,7 +1100,15 @@ def calibrate_runtime(runtime: ClusterRuntime, executors_by_pipeline,
     clock *is* the wall clock and SLOs/deadlines become physically meaningful.
     Each stage is timed between two synchronisations of its stream.
 
-    Returns {(pipeline_id, stage_idx, batch): seconds} for reporting.
+    A stage's table keeps no batch slower than a larger one: where the
+    stage costs about the same at every batch size (launch- and host-bound
+    stages), timing noise would otherwise price a short batch above a full
+    one, and Algorithm 1's last-moment dispatch of a short batch, planned
+    at the full batch's latency, would then miss the deadline it waited
+    for and drop its requests.
+
+    Returns {(pipeline_id, stage_idx, batch): seconds} as measured, for
+    reporting.
     """
     token_fn = _token_fn_for(executors_by_pipeline, token_fn)
     measured: dict = {}
@@ -1121,11 +1132,13 @@ def calibrate_runtime(runtime: ClusterRuntime, executors_by_pipeline,
                     cur = per_stage[si].get(bs)
                     per_stage[si][bs] = dt if cur is None else min(cur, dt)
         for si, stage in enumerate(p.stages):
-            stage.latency_by_batch = dict(per_stage[si])
+            table, cap = {}, float("inf")
+            for bs in sorted(per_stage[si], reverse=True):
+                cap = table[bs] = min(cap, per_stage[si][bs])
+            stage.latency_by_batch = dict(sorted(table.items()))
             stage.lat_scale = 1.0
             for bs, dt in per_stage[si].items():
                 measured[(p.pipeline_id, si, bs)] = dt
-        # measured tables may be non-monotone (profiling noise): re-decide
-        # whether the batch-size bisection stays decision-safe
+        # re-decide whether the batch-size bisection stays decision-safe
         reservation.validate_bisection(p)
     return measured

@@ -23,6 +23,8 @@ eagerly.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from dataclasses import dataclass, field
@@ -149,6 +151,36 @@ class GraphStats:
 
 GRAPH_STATS = GraphStats()
 
+_GC_LOCK = threading.Lock()
+_GC_PAUSE = {"depth": 0, "was_enabled": False}
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector off while a CUDA graph is captured.
+
+    A collection frees whatever unreachable cycles hold, and one may hold
+    another CUDA graph (an earlier session's stage graphs, a train step's):
+    destroying it on the capturing thread is an operation CUDA refuses
+    while that thread captures, and the refusal invalidates the capture.
+    `torch.cuda.graph` collects before it captures for this reason; the
+    stage and train-step captures here do not synchronise the device as it
+    does, so they keep the collector off instead.  Captures on several
+    threads nest: the collector comes back on (if it was on) when the last
+    one ends."""
+    with _GC_LOCK:
+        if _GC_PAUSE["depth"] == 0:
+            _GC_PAUSE["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _GC_PAUSE["depth"] += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _GC_PAUSE["depth"] -= 1
+            if _GC_PAUSE["depth"] == 0 and _GC_PAUSE["was_enabled"]:
+                gc.enable()
+
 
 @dataclass
 class _Graph:
@@ -202,14 +234,15 @@ class StageExecutor:
         shape on the same stream, so kernels are built and lazy
         initialisations done.  Captures on the current stream, which must be a side stream this
         thread owns, in thread-local mode: another thread may serve (replay
-        and launch) meanwhile.  Waits for nothing; the caller synchronises
+        and launch) meanwhile.  The cyclic garbage collector is off
+        meanwhile (`gc_paused`).  Waits for nothing; the caller synchronises
         the stream."""
         key = (tuple(example.shape), example.dtype)
         if key in self.graphs:
             return
         allocated = torch.cuda.memory_allocated(self.device)
         reserved = torch.cuda.memory_reserved(self.device)
-        with torch.inference_mode():
+        with torch.inference_mode(), gc_paused():
             static_in = example.clone()
             before = launch_counts()
             t0 = time.perf_counter()

@@ -31,7 +31,7 @@ import torch
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels._lib import ProgramError
 from repro_torch.models.model_zoo import Model
-from repro_torch.serving.engine import GraphStats
+from repro_torch.serving.engine import GraphStats, gc_paused
 
 from .optimizer import AdamWConfig, adamw_update, clip_by_global_norm, init_opt_state
 from .tree import leaves
@@ -254,7 +254,7 @@ class CompiledTrainStep:
         cur = torch.cuda.current_stream(device)
         self.stream.wait_stream(cur)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.stream(self.stream):
+        with torch.cuda.stream(self.stream), gc_paused():
             static_batch = {k: x.clone() for k, x in batch.items()}
             before = launch_counts()
             t0 = time.perf_counter()

@@ -501,6 +501,77 @@ def test_epoch_gc_releases_graphs_no_live_plan_uses():
     session.shutdown()
 
 
+def test_graph_capture_pauses_the_cyclic_collector():
+    """`serving.engine.gc_paused`, around every stage and train-step
+    capture: the collector is off inside (a collection could destroy another
+    CUDA graph on the capturing thread, which invalidates the capture),
+    back on when the last of several threads' captures ends, and left off
+    if it was off."""
+    import gc
+    import threading
+
+    from repro_torch.serving.engine import gc_paused
+
+    assert gc.isenabled()
+    entered, leave = threading.Event(), threading.Event()
+
+    def other_capture():
+        with gc_paused():
+            entered.set()
+            leave.wait(30)
+
+    with gc_paused():
+        assert not gc.isenabled()
+        worker = threading.Thread(target=other_capture)
+        worker.start()
+        assert entered.wait(30)
+    assert not gc.isenabled()  # the other thread still captures
+    leave.set()
+    worker.join(30)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with gc_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+def test_graph_capture_collector_pause_under_thread_churn():
+    """More threads than cores entering and leaving `gc_paused` at a short
+    switch interval: the collector is off whenever any of them is inside,
+    and on again after the last leaves."""
+    import gc
+    import os
+    import sys
+    import threading
+
+    from repro_torch.serving.engine import gc_paused
+
+    n = 2 * (os.cpu_count() or 4)
+    seen_on = []
+
+    def churn():
+        for _ in range(200):
+            with gc_paused():
+                if gc.isenabled():
+                    seen_on.append(True)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=churn) for _ in range(n)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(w.is_alive() for w in workers)
+    assert not seen_on and gc.isenabled()
+
+
 # ---------------------------------------------------------------------------
 # Public-surface snapshot (tests/test_api.py:409, :422)
 # ---------------------------------------------------------------------------

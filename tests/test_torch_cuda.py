@@ -1230,6 +1230,58 @@ def test_stage_graphs_replay_equal_eager(cuda):
 
 
 @pytest.mark.requires_cuda
+def test_stage_capture_survives_a_graph_left_to_the_collector(cuda):
+    """A CUDA graph left in a reference cycle is freed by the next
+    collection; destroyed on the capturing thread mid-capture, it would
+    invalidate the capture (CUDA refuses the call).  With a collection due
+    at almost every allocation and such a cycle made inside the captured
+    stage, the capture holds (the collector is paused through it) and the
+    replay equals the stage run eagerly."""
+    import gc
+
+    from repro_torch.serving.engine import StageExecutor
+
+    def spare_graph():
+        g, y = torch.cuda.CUDAGraph(), torch.zeros(4, device=cuda)
+        s = torch.cuda.Stream(cuda)
+        s.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(s):
+            g.capture_begin(capture_error_mode="thread_local")
+            y.add_(1)
+            g.capture_end()
+        torch.cuda.synchronize()
+        return g
+
+    spare = [spare_graph()]
+
+    def stage_fn(params, x):
+        if spare:  # garbage that only a collection frees
+            cycle = {"graph": spare.pop()}
+            cycle["self"] = cycle
+            del cycle
+        return x * 2 + 1
+
+    ex = StageExecutor(stage_fn, None, device=cuda)
+    x = torch.arange(8, device=cuda, dtype=torch.float32)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(1, 1, 1)
+    try:
+        with torch.cuda.stream(stream):
+            ex.capture(x)
+        stream.synchronize()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert gc.isenabled() and not spare
+    gc.collect()  # the cycle's graph, destroyed outside any capture
+    got = ex(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, x * 2 + 1)
+
+
+@pytest.mark.requires_cuda
 def test_stage_graphs_five_chains_in_flight(cuda):
     """Five batches with different tokens enqueued through both stages
     before any is read (the dispatcher's in-flight window): each final

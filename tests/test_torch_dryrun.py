@@ -126,10 +126,20 @@ def _same(meta, cpu):
 
 
 def _delta(before: dict, name: str) -> dict:
+    """What `name`'s counters gained since `before`.  A precision class
+    absent from `ops` gained 0: a class that an earlier call in this process
+    counted but this one did not is left out, as the work's own `ops`
+    leave it out."""
     now = work_counts()[name]
+    ops = {c: n - before[name]["ops"].get(c, 0.0) for c, n in now["ops"].items()}
     return {"launches": now["launches"] - before[name]["launches"],
             "nbytes": now["nbytes"] - before[name]["nbytes"],
-            "ops": {c: n - before[name]["ops"].get(c, 0.0) for c, n in now["ops"].items()}}
+            "ops": {c: n for c, n in ops.items() if n}}
+
+
+def _ops(work) -> dict:
+    """`work`'s operations by precision class, as `_delta` gives them."""
+    return {c: n for c, n in work.ops if n}
 
 
 def _counted(name: str, call, work):
@@ -141,7 +151,7 @@ def _counted(name: str, call, work):
     got = _delta(before, name)
     assert got["launches"] == 1
     assert got["nbytes"] == pytest.approx(work.nbytes)
-    assert got["ops"] == pytest.approx(dict(work.ops))
+    assert got["ops"] == pytest.approx(_ops(work))
     return out
 
 
@@ -207,7 +217,7 @@ def test_flash_attention_meta(name):
     _same(grads, want_grads)
     got = _delta(before, "flash_attention_backward")
     work = fa.backward_work(B, H, KH, Sq, Sk, D, Dv, causal)
-    assert got["launches"] == 1 and got["ops"] == pytest.approx(dict(work.ops))
+    assert got["launches"] == 1 and got["ops"] == pytest.approx(_ops(work))
     # the LSE forward called directly, beside its plain lse
     qh, kh = q.detach().transpose(1, 2), k.detach().transpose(1, 2)
     vh = torch.nn.functional.pad(v.detach(), (0, D - Dv)).transpose(1, 2)
@@ -264,7 +274,7 @@ def test_ssd_scan_meta(name):
                                     chunk=chunk)
     _same(got, want_b)
     b = _delta(before, "ssd_scan_backward")
-    assert b["launches"] == 1 and b["ops"] == pytest.approx(dict(work.ops))
+    assert b["launches"] == 1 and b["ops"] == pytest.approx(_ops(work))
     # either route without the forward's scratch runs the forward first ...
     assert _delta(before, "ssd_scan")["launches"] == 1
     # ... and with it (`SAVED`, as `_ScanFn` keeps it) launches no forward

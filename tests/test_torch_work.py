@@ -34,6 +34,8 @@ ROWS = [
     ("rmsnorm deepseek decode (2, 7168)", rn.rmsnorm_work(2, 7168, 2), 0.021, B),
     ("rmsnorm deepseek decode (2, 1536)", rn.rmsnorm_work(2, 1536, 2), 0.005, B),
     ("rmsnorm deepseek decode (2, 512)", rn.rmsnorm_work(2, 512, 2), 0.002, B),
+    ("rmsnorm serve_pipeline example (32, 256)", rn.rmsnorm_work(32, 256, 2), 0.010, B),
+    ("rmsnorm serve_pipeline example (512, 256)", rn.rmsnorm_work(512, 256, 2), 0.157, B),
     ("flash serve (8, 128, 32, 80)", fa.flash_work(8, 32, 32, 128, 128, 80, 80, True, 2),
      6.260, B),
     ("flash zamba2 prefill (4, 512, 32, 80)",
@@ -50,7 +52,15 @@ ROWS = [
      fa.flash_work(4, 16, 16, 33, 1024, 64, 64, False, 2), 5.170, B),
     ("flash causal Sq < Sk", fa.flash_work(2, 16, 4, 300, 1000, 128, 128, True, 2), 1.834, B),
     ("flash causal Sq > Sk", fa.flash_work(2, 16, 4, 1000, 300, 64, 64, True, 2), 2.629, B),
+    ("flash serve_pipeline example (1, 32, 4/4, 64)",
+     fa.flash_work(1, 4, 4, 32, 32, 64, 64, True, 2), 0.020, B),
+    ("flash serve_pipeline example (16, 32, 4/4, 64)",
+     fa.flash_work(16, 4, 4, 32, 32, 64, 64, True, 2), 0.313, B),
     ("flash f32 serve", fa.flash_work(8, 32, 32, 128, 128, 80, 80, True, 4), 12.520, B),
+    ("flash f32 serve_pipeline example (1, 32, 4/4, 64)",
+     fa.flash_work(1, 4, 4, 32, 32, 64, 64, True, 4), 0.039, B),
+    ("flash f32 serve_pipeline example (16, 32, 4/4, 64)",
+     fa.flash_work(16, 4, 4, 32, 32, 64, 64, True, 4), 0.626, B),
     ("flash f32 llava prefill", fa.flash_work(2, 56, 8, 3008, 3008, 128, 128, True, 4),
      3873.318, O),
     ("flash f32 seamless encoder", fa.flash_work(4, 16, 16, 1024, 1024, 64, 64, False, 4),
@@ -84,6 +94,8 @@ ROWS = [
      fa.forward_lse_work(4, 16, 16, 1024, 1024, 64, 64, False), 17.371, O),
     ("forward_lse seamless cross", fa.forward_lse_work(4, 16, 16, 256, 1024, 64, 64, False),
      6.280, B),
+    ("forward_lse seamless decoder", fa.forward_lse_work(4, 16, 16, 256, 256, 64, 64, True),
+     2.524, B),
     ("forward_lse MLA train", fa.forward_lse_work(4, 128, 128, 1024, 1024, 192, 128, True),
      200.951, B),
     ("forward_lse G = 16", fa.forward_lse_work(2, 32, 2, 1024, 1024, 128, 128, True),
@@ -98,6 +110,8 @@ ROWS = [
      43.427, O),
     ("backward seamless cross", fa.backward_work(4, 16, 16, 256, 1024, 64, 64, False),
      12.540, B),
+    ("backward seamless decoder", fa.backward_work(4, 16, 16, 256, 256, 64, 64, True),
+     5.028, B),
     ("backward ragged non-causal", fa.backward_work(2, 8, 2, 33, 1000, 64, 64, False),
      0.693, B),
     ("backward causal Sq < Sk", fa.backward_work(2, 16, 4, 300, 1000, 128, 128, True),
