@@ -19,8 +19,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    shapes (llava-next-34b's causal prefill, seamless-m4t-large-v2's
    non-causal encoder and its cross-attention, Sq != Sk), the MoE
    family's prefills (llama4-maverick-400b-a17b's, G = 5; deepseek-v3's
-   MLA at head_dim 192 with 128-wide values) and a causal Sq != Sk either
-   way, rmsnorm also at qwen3-14b's qk_norm and decode attention (bf16 and
+   MLA at head_dim 192 with 128-wide values, which both routes read at
+   their own width) and a causal Sq != Sk either way, the bf16 forward
+   beside its launch plan (`forward_plan`, held to the source's) and also
+   timed with a cold L2, rmsnorm
+   also at qwen3-14b's qk_norm and decode attention (bf16 and
    f32) at every decode shape (llama4's at G = 5), llava-next-34b's and
    one of qwen3-14b taking the split path; ssd_scan in f32 with q and k
    broadcast or per head, with and without log_i, and in bf16, and at the
@@ -745,12 +748,32 @@ def check_rmsnorm(dev, g, err, parent) -> dict:
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes), shapes=shapes)
 
 
+def forward_plan_line(fa, dev, B, H, KH, Sq, Sk, D, Dv, causal) -> tuple[list, str]:
+    """The bf16 forward's launch plan at these shapes (`forward_plan`),
+    held to the source's (`fa_forward_plan`), and a few words of it."""
+    from repro_torch.kernels import _lib
+
+    plan = fa.forward_plan(B, H, KH, Sq, Sk, D, Dv, causal, _lib.sm_count(dev))
+    on_card = fa.forward_plan_on_card(B, H, KH, Sq, Sk, D, Dv, causal)
+    if on_card != plan.as_tuple():
+        raise AssertionError(f"flash_attention bf16 ({B}, {Sq}, {Sk}, {H}/{KH}, {D}, {Dv}): "
+                             f"the source launches {on_card}, its plan is {plan.as_tuple()}")
+    return list(plan.as_tuple()), (
+        f"plan ({plan.dp}, {plan.dvp}), {plan.keys}-key tiles, {plan.stages} stages, "
+        f"{plan.smem} B, {plan.items} items on {plan.grid} blocks in chunks of {plan.chunk} "
+        f"heads, {'overlapped' if plan.overlap else 'serial'}"
+        f"{', turns' if plan.turns else ''}")
+
+
 def check_flash_attention(dev, g, err, parent) -> dict:
     """In the model layout (B, T, H, D), as served, at both prefill shapes
     of the dense and hybrid paths: the serve's (8, 128, 32, 80) and
     zamba2-2.7b's (4, 512, 32, 80).  Each against its plain version and,
-    bit for bit, the same inputs as contiguous (B, H, S, D) copies.  Then
-    the f32 route (`check_flash_f32`) and both routes at the VLM's and the
+    bit for bit, the same inputs as contiguous (B, H, S, D) copies; timed
+    hot L2 and cold (`time_ms(..., cold=True)`; the serve's 21 MB would
+    sit in the 50 MB L2), under `--parent` each in turns with the other
+    tree's, with SDPA's beside it; its launch plan printed.  Then the f32
+    route (`check_flash_f32`) and both routes at the VLM's and the
     enc-dec's shapes (`check_flash_models`).  The line's times are the
     serve shape's; `shapes` holds every timed shape."""
     import torch
@@ -772,19 +795,28 @@ def check_flash_attention(dev, g, err, parent) -> dict:
         torch.testing.assert_close(bhsd.transpose(1, 2), got, atol=0, rtol=0)
         b_ms, b_by = bound_ms(fa.flash_work(B, H, H, S, S, HD, HD, True, 2))
         ms, parent_ms = paired_ms(lambda m: m.attention_bthd(q, k, v), fa, parent)
+
+        def sdpa():
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+        plan, plan_words = forward_plan_line(fa, dev, B, H, H, S, S, HD, HD, True)
         r = dict(
             shape=[B, S, H, HD], what=what, max_abs_err=err(got, want), tol=attn_tol(bf16),
             ms=ms, parent_ms=parent_ms,
             plain_ms=time_ms(lambda: fa.flash_attention_plain(qh, kh, vh)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                                      is_causal=True)),
-            host_ms=host_ms(lambda: fa.attention_bthd(q, k, v)))
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(sdpa),
+            host_ms=host_ms(lambda: fa.attention_bthd(q, k, v)), plan=plan)
+        r["cold_ms"], r["parent_cold_ms"] = paired_ms(
+            lambda m: m.attention_bthd(q, k, v), fa, parent, iters=20, cold=True)
+        r["library_cold_ms"] = time_ms(sdpa, iters=20, cold=True)
+        cold = (f"; cold L2 {r['cold_ms'] * 1e3:.3f} us{vs_parent(r['parent_cold_ms'])}, "
+                f"SDPA {r['library_cold_ms'] * 1e3:.3f} us")
         log(f"[kernels] flash_attention at the {what} shape (B, T, H, D) = ({B}, {S}, {H}, "
             f"{HD}): {ms * 1e3:.3f} us{vs_parent(parent_ms)} vs bound {b_ms * 1e3:.3f} us "
             f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.3f} us, SDPA "
-            f"{r['library_ms'] * 1e3:.3f} us; host {r['host_ms'] * 1e3:.3f} us a call; "
-            f"max|err| {r['max_abs_err']:.3g}; bit-equal to the (B, H, S, D) copies")
+            f"{r['library_ms'] * 1e3:.3f} us{cold}; host {r['host_ms'] * 1e3:.3f} us a call; "
+            f"max|err| {r['max_abs_err']:.3g}; bit-equal to the (B, H, S, D) copies; "
+            f"{plan_words}")
         shapes.append(r)
     shapes.append(check_flash_f32(dev, g, err, parent))
     shapes += check_flash_models(dev, g, err, parent)
@@ -949,13 +981,15 @@ def replays_equal(call, eager: list) -> bool:
 def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
     """At `grad_shapes_flash`, bf16, causal (top-left) or not, Sq and Sk of
     their own, v (and o, dout, dv) Dv <= D wide: the LSE forward's output
-    (v zero-padded to D for it, as `_FlashFn` pads it) equals `fa_forward`'s
-    bit for bit and its lse the plain one; dq, dk and dv, written over NaN,
+    (v at its own width, as `_FlashFn` hands it) equals `fa_forward`'s bit
+    for bit and its lse the plain one; dq, dk and dv, written over NaN,
     against the plain backward run in f32, each within GRAD_TOL of that
     result's max |value| (autograd through the plain forward in bf16
     logged beside it); bit-equal run to run, and a CUDA graph's replay
-    bit-equal to the eager call.  The LSE forward is timed beside
-    `fa_forward` at the same inputs, the backward (three launches) beside
+    bit-equal to the eager call.  The LSE forward is timed (hot and cold
+    L2) beside `fa_forward` at the same inputs and, under `--parent`, in turns with
+    the other tree's (which takes v padded to D where it is narrower, as
+    that tree's `_FlashFn` pads it), with its launch plan; the backward (three launches) beside
     its bound (five products over the pairs the mask keeps, `flash_pairs`:
     S^T, dK and dQ D wide, dP^T and dV Dv wide), the plain backward, SDPA's
     backward (`is_causal` as the row, enable_gqa, v at its own width) and,
@@ -978,12 +1012,12 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
         dout = torch.randn(B, H, Sq, Dv, generator=g, device=dev).to(bf16)
         k = torch.randn(B, KH, Sk, D, generator=g, device=dev).to(bf16)
         v = torch.randn(B, KH, Sk, Dv, generator=g, device=dev).to(bf16)
-        vf = F.pad(v, (0, D - Dv))  # the forward's v, as `_FlashFn` pads it
+        vf = F.pad(v, (0, D - Dv))  # v as an older tree's `_FlashFn` pads it
         scale = D ** -0.5
-        of = torch.empty_like(q)
-        lse = fa.flash_attention_forward_lse(q, k, vf, of, scale, causal)
-        o = of[..., :Dv]
-        direct = fa.flash_attention(q, k, vf, causal)
+        o = torch.empty_like(dout)
+        lse = fa.flash_attention_forward_lse(q, k, v, o, scale, causal)
+        direct = torch.empty_like(o)
+        fa._launch(q, k, v, direct, causal, scale)
         grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
         again = [torch.full_like(t, float("nan")) for t in (q, k, v)]
         fa.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale, causal)
@@ -993,7 +1027,7 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
         plain_bf16 = torch.autograd.grad(fa.flash_attention_plain(
             leaves[0], leaves[1], F.pad(leaves[2], (0, D - Dv)), causal)[..., :Dv], leaves, dout)
         torch.cuda.synchronize()
-        if not torch.equal(of, direct):
+        if not torch.equal(o, direct):
             raise AssertionError(f"flash_attention_forward_lse ({what}): output differs from "
                                  f"fa_forward's")
         lse_err = float((lse - fa.flash_attention_lse_plain(q, k, causal=causal)).abs().max())
@@ -1008,26 +1042,36 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
             raise AssertionError(f"flash_attention_backward ({what}): a CUDA graph's replay "
                                  f"differs from the eager call")
         plain_gaps = [grad_gap(a, b) for a, b in zip(plain_bf16, want)]
-        del want, again, plain_bf16, leaves, direct
+        del want, again, plain_bf16, leaves
         pairs = B * H * fa.flash_pairs(Sq, Sk, causal)
         f_ms, f_by = bound_ms(fa.forward_lse_work(B, H, KH, Sq, Sk, D, Dv, causal))
         b_ms, b_by = bound_ms(fa.backward_work(B, H, KH, Sq, Sk, D, Dv, causal))
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                              enable_gqa=H != KH)
-        lse_ms, fwd_ms = (time_ms(fn, iters=20) for fn in (
-            lambda: fa.flash_attention_forward_lse(q, k, vf, of, scale, causal),
-            lambda: fa._launch(q, k, vf, of, causal, scale)))
+        of = torch.empty_like(q)  # an older tree's D-wide output
+
+        def lse_call(m):
+            if m is fa or Dv == D:
+                m.flash_attention_forward_lse(q, k, v, o, scale, causal)
+            else:
+                m.flash_attention_forward_lse(q, k, vf, of, scale, causal)
+
+        lse_ms, lse_parent_ms = paired_ms(lse_call, fa, parent, iters=20)
+        lse_cold_ms, lse_parent_cold_ms = paired_ms(lse_call, fa, parent, iters=20, cold=True)
+        fwd_ms = time_ms(lambda: fa._launch(q, k, v, direct, causal, scale), iters=20)
+        plan, plan_words = forward_plan_line(fa, dev, B, H, KH, Sq, Sk, D, Dv, causal)
         fwd.append(dict(
             shape=[B, Sq, Sk, H, KH, D, Dv], causal=causal, what=what, max_abs_err=lse_err,
-            tol=1e-3, ms=lse_ms, parent_ms=None, fa_forward_ms=fwd_ms,
+            tol=1e-3, ms=lse_ms, parent_ms=lse_parent_ms, cold_ms=lse_cold_ms,
+            parent_cold_ms=lse_parent_cold_ms, fa_forward_ms=fwd_ms, plan=plan,
             plain_ms=time_ms(lambda: (fa.flash_attention_plain(q, k, vf, causal),
                                       fa.flash_attention_lse_plain(q, k, causal=causal)),
                              iters=5, warmup=1),
             bound_ms=f_ms, bound_by=f_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=H != KH), iters=20),
-            host_ms=host_ms(lambda: fa.flash_attention_forward_lse(q, k, vf, of, scale, causal),
+            host_ms=host_ms(lambda: fa.flash_attention_forward_lse(q, k, v, o, scale, causal),
                             calls=100)))
 
         def b_call(m):
@@ -1054,11 +1098,12 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
             host_ms=host_ms(lambda: b_call(fa), calls=20)))
         mask = "causal" if causal else "non-causal"
         log(f"[kernels] flash_attention_forward_lse at the {what} shape (B, Sq, Sk, H/KH, D, "
-            f"Dv) = ({B}, {Sq}, {Sk}, {H}/{KH}, {D}, {Dv}) {mask} bf16: {lse_ms * 1e3:.3f} us "
-            f"against "
+            f"Dv) = ({B}, {Sq}, {Sk}, {H}/{KH}, {D}, {Dv}) {mask} bf16: {lse_ms * 1e3:.3f} us"
+            f"{vs_parent(lse_parent_ms)} (cold L2 {lse_cold_ms * 1e3:.3f} us"
+            f"{vs_parent(lse_parent_cold_ms)}) against "
             f"fa_forward's {fwd_ms * 1e3:.3f} us at the same inputs, bound {f_ms * 1e3:.3f} us "
             f"({f_by}), SDPA {fwd[-1]['library_ms'] * 1e3:.3f} us; output bit-equal to "
-            f"fa_forward's, lse within {lse_err:.3g} of the plain one")
+            f"fa_forward's, lse within {lse_err:.3g} of the plain one; {plan_words}")
         at_once = fa._clusters_at_once(H // KH, D, dev.index, Dv)
         plan = fa.backward_plan(B, H, KH, Sq, Sk, D, torch.cuda.get_device_properties(
             dev).multi_processor_count, at_once, causal)
@@ -1080,7 +1125,7 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
             f"plain backward's max |value| (tol {GRAD_TOL}; autograd of the plain forward in "
             f"bf16: {plain_gaps[0]:.3g}, {plain_gaps[1]:.3g}, {plain_gaps[2]:.3g}); bit-equal "
             f"run to run and in a graph's replay")
-        del q, k, v, vf, of, o, dout, lse, grads, ql, kl, vl, out
+        del q, k, v, vf, of, o, direct, dout, lse, grads, ql, kl, vl, out
         torch.cuda.empty_cache()
     return (dict(fwd[0], max_abs_err=max(r["max_abs_err"] for r in fwd), shapes=fwd),
             dict(bwd[0], max_abs_err=max(r["max_abs_err"] for r in bwd), shapes=bwd))
@@ -1228,11 +1273,14 @@ def check_flash_models(dev, g, err, parent) -> list[dict]:
     f32 (TF32 off), each against its plain version (bf16 at `attn_tol`; f32
     at 3e-5) and bit-equal to the (B, H, S, D) copies, and each timed
     beside its bound, its plain version and SDPA (top-left causal, as
-    `is_causal` aligns it); the f32 rows under `--parent` in turns with the
-    other tree's.  Where v is narrower than q and k (MLA), the bf16 wrapper
-    pads it to D inside the timed call and the f32 kernel reads it as it is;
-    the plain version and the (B, H, S, D) copy take it padded, and SDPA
-    takes it as it is (its value head_dim Ev may differ from q's)."""
+    `is_causal` aligns it), under `--parent` in turns with the other
+    tree's; the bf16 rows also cold (`time_ms(..., cold=True)`, in turns
+    likewise) and with their launch plan.  Where v is narrower than
+    q and k (MLA), both kernels read it as it is (an older tree's bf16
+    wrapper pads it inside the timed call); the plain version and the (B,
+    H, S, D) copy take it padded, the copy bit-equal all the same (each
+    output column is the same sum whatever v's width), and SDPA takes it as
+    it is (its value head_dim Ev may differ from q's)."""
     import torch
     import torch.nn.functional as F
 
@@ -1247,8 +1295,12 @@ def check_flash_models(dev, g, err, parent) -> list[dict]:
             k = torch.randn(B, Sk, KH, D, generator=g, device=dev).to(dtype)
             v = torch.randn(B, Sk, KH, Dv, generator=g, device=dev).to(dtype)
             qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            vp = F.pad(vh, (0, D - Dv))  # v as the kernel reads it
+            vp = F.pad(vh, (0, D - Dv))  # v padded, for the plain version and the copy
+            before = fa.flash_attention.launches
             got = fa.attention_bthd(q, k, v, causal=causal)
+            if fa.flash_attention.launches != before + 1:
+                raise AssertionError(f"flash_attention {name} ({what}): "
+                                     f"{fa.flash_attention.launches - before} launches a call")
             want = fa.flash_attention_plain(qh, kh, vp, causal=causal)[..., :Dv].transpose(1, 2)
             bhsd = fa.flash_attention(qh.contiguous(), kh.contiguous(), vp.contiguous(),
                                       causal=causal)[..., :Dv]
@@ -1260,12 +1312,10 @@ def check_flash_models(dev, g, err, parent) -> list[dict]:
                                                 q.element_size()))
             gqa = {"enable_gqa": True} if H != KH else {}
             iters = 50 if B * H * Sq * Sk < 2 ** 28 else 10
-            if dtype == torch.float32:
-                ms, parent_ms = paired_ms(lambda m: m.attention_bthd(q, k, v, causal=causal),
-                                          fa, parent, iters=iters)
-            else:
-                ms = time_ms(lambda: fa.attention_bthd(q, k, v, causal=causal), iters=iters)
-                parent_ms = None
+            ms, parent_ms = paired_ms(lambda m: m.attention_bthd(q, k, v, causal=causal), fa,
+                                      parent, iters=iters)
+            plan, plan_words = (None, "") if dtype == torch.float32 else forward_plan_line(
+                fa, dev, B, H, KH, Sq, Sk, D, Dv, causal)
             r = dict(
                 shape=[B, Sq, Sk, H, KH, D, Dv], what=what, dtype=name, causal=causal,
                 max_abs_err=err(got, want), tol=bound, ms=ms, parent_ms=parent_ms,
@@ -1274,15 +1324,23 @@ def check_flash_models(dev, g, err, parent) -> list[dict]:
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, is_causal=causal, **gqa), iters=iters),
-                host_ms=host_ms(lambda: fa.attention_bthd(q, k, v, causal=causal), calls=100))
+                host_ms=host_ms(lambda: fa.attention_bthd(q, k, v, causal=causal), calls=100),
+                plan=plan)
+            cold = ""
+            if dtype == torch.bfloat16:
+                r["cold_ms"], r["parent_cold_ms"] = paired_ms(
+                    lambda m: m.attention_bthd(q, k, v, causal=causal), fa, parent,
+                    iters=min(iters, 20), cold=True)
+                cold = f"; cold L2 {r['cold_ms'] * 1e3:.3f} us{vs_parent(r['parent_cold_ms'])}"
             log(f"[kernels] flash_attention {name} at the {what} shape q ({B}, {Sq}, {H}, {D}), "
                 f"k ({B}, {Sk}, {KH}, {D}), v ({B}, {Sk}, {KH}, {Dv}), "
                 f"{'causal' if causal else 'non-causal'}: "
                 f"{r['ms'] * 1e3:.3f} us{vs_parent(parent_ms)} vs bound {b_ms * 1e3:.3f} us "
-                f"({b_by}), plain "
+                f"({b_by}){cold}, plain "
                 f"{r['plain_ms'] * 1e3:.3f} us, SDPA {r['library_ms'] * 1e3:.3f} us; host "
                 f"{r['host_ms'] * 1e3:.3f} us a call; max|err| {r['max_abs_err']:.3g} (tol "
-                f"{bound}); bit-equal to the (B, H, S, D) copies")
+                f"{bound}); one launch a call; bit-equal to the (B, H, S, D) copies"
+                + (f"; {plan_words}" if plan_words else ""))
             out.append(r)
             del q, k, v, qh, kh, vh, vp, got, want, bhsd
     return out

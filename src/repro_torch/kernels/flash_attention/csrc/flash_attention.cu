@@ -11,57 +11,92 @@
 // aligned top-left as there (query row i sees keys 0..i, all Sk of them
 // once i >= Sk - 1).
 //
-// Bound on the card: bytes.  At the serving shape (8, 32, 128, 80) the four
-// tensors are 21.0 MB, 6.26 us at 3.35 TB/s, against 0.68 GFLOP of causal
-// products, 0.68 us at the bf16 tensor-core peak; at zamba2-2.7b's prefill
-// shape (4, 512, 32, 80) 41.9 MB, 12.5 us, against 5.4 GFLOP, 5.4 us.
+// Bound on the card: bytes at the serving shapes, operations at the long
+// prefills.  At the serving shape (8, 32, 128, 80) the four tensors are
+// 21.0 MB, 6.26 us at 3.35 TB/s, against 0.68 GFLOP of causal products,
+// 0.68 us at the bf16 tensor-core peak; at llava-next-34b's prefill (2,
+// 3008, 56/8, 128) 259.5 GFLOP, 262.4 us, against 92 MB.
 //
-// Design (warp-specialised, as the Hopper guide sets out):
+// Design (warp-specialised, as FA3 shapes it for Hopper):
 //  - a work item is 128 query rows of one (head, batch): two consumer
 //    warpgroups of 64 rows each share every K/V tile.  The grid is
-//    persistent, one block an SM walking the items in turn, those with the
-//    most K/V tiles (the far end of the causal diagonal) first; the K/V ring
+//    persistent, one block an SM walking the items in turn; the K/V ring
 //    and the barriers' phases run on across items, so the producer loads an
-//    item's Q and K/V while the consumers finish the one before (one block an
-//    SM over 256 items left the second half a whole wave of load latency);
+//    item's Q and K/V while the consumers finish the one before;
+//  - the work order (`item_at`): chunks of (batch, head) pairs, heads of a
+//    KV head adjacent, as many as keep the chunk's K and V within 24 MB
+//    (half the L2); in each chunk the query blocks with the most K/V tiles
+//    (the far end of the causal diagonal) first.  A head's K and V then stay
+//    in L2 while its query blocks come round (at deepseek-v3's MLA, G = 1,
+//    335 MB of K and V at its training shape) one chunk of every pair read
+//    them again from HBM for each query block: 635 against 421 us).
+//    Where the order is one chunk, every other wave hands the blocks its
+//    items in reverse, so a block that drew a long item draws a short one;
 //  - one producer warp's lane 0 issues TMA loads through rank-4 tensor maps
-//    (D, heads, seq, batch), built on the host from the tensors' strides, so
-//    the model's (B, T, H, D) tensors are read in place: Q into a tile per
-//    consumer (full/empty mbarriers), K and V tiles of 64 keys into a
-//    ring (full/empty mbarriers) of four stages, or two past head_dim 128;
-//  - head_dim is cut into 64-column panels (128 bytes, the widest a
+//    (columns, heads, seq, batch), built on the host from the tensors'
+//    strides, so the model's (B, T, H, D) tensors are read in place: Q into
+//    a tile per consumer (full/empty mbarriers), K and V tiles into a ring
+//    (full/empty mbarriers), 64 keys a tile, or 128 for a non-causal call
+//    up to head_dim 64 with both warpgroups busy (`forward_choice`: half
+//    the waits, shuffles and rescales a key; seamless's encoder 62 against
+//    57 us);
+//  - v and the output at their own width Dv: an instance (DP, DVP) pads
+//    head_dim and Dv each to a multiple of 16, or past 128 to 192; the
+//    instances are (DP, DP) and MLA's (192, 128) (q and k 128 + 64 of rope
+//    beside 128-wide values), the backward's set (`instance`), so no v is
+//    ever padded in device memory;
+//  - columns are cut into 64-column panels (128 bytes, the widest a
 //    128B-swizzled TMA box may be): D = 80 is one full panel plus one whose
-//    columns 80-127 TMA fills with zeros (no bytes read for them), and
-//    head_dim pads to the next multiple of 16 in shared memory only, or,
-//    past 128, to 192 (three panels; MLA's q and k are 192 wide);
-//  - S = Q.K^T runs as m64n64k16 `wgmma`s, A (Q) and B (K) both K-major in
-//    shared memory, one k-step of 16 columns at a time (the descriptor's
+//    columns 80-127 TMA fills with zeros (no bytes read for them);
+//  - S = Q.K^T runs as m64nKEYSk16 `wgmma`s, A (Q) and B (K) both K-major
+//    in shared memory, one k-step of 16 columns at a time (the descriptor's
 //    start moves 32 bytes inside the swizzle atom);
 //  - the softmax runs on the f32 accumulator in registers (four threads a
 //    row pair, as mma.sync's layout), and P, packed to bf16, is directly
-//    the register A operand of O += P.V, m64nDk16 `wgmma`s whose B is V as
-//    it lies (MN-major, the transpose bit set): V is never transposed;
+//    the register A operand of O += P.V, m64nDVPk16 `wgmma`s whose B is V
+//    as it lies (MN-major, the transpose bit set): V is never transposed;
+//  - the tensor cores and the softmax overlap (DVP <= 128), FA3's two ways.
+//    Within a warpgroup: tile t's S = Q.K^T and tile t-1's P.V are issued
+//    together, and the softmax of tile t runs as soon as S is done
+//    (`wgmma.wait_group 1`) while P.V still runs; O is rescaled and P_t
+//    packed after it.  S (KEYS/2 registers a thread) and P_{t-1} (KEYS/4)
+//    are both live across the softmax, beside DVP/2 of O.  Between the
+//    warpgroups (ping-pong, `forward_choice`: only where both are busy and
+//    the longest item walks 1024 keys or more): two named barriers hand the
+//    turn to issue products from one warpgroup to the other, so one's
+//    products run while the other's softmax does.  At DVP 192 O alone takes
+//    96 registers and both sets do not fit the 168 a thread of this block
+//    has (its nine warps share the SM's four register partitions, three to
+//    one: 3 x 32 x 168 <= 16,384), so that instance runs each tile's S,
+//    softmax and P.V in turn, as does a launch whose blocks each walk one
+//    item of at most two tiles;
+//  - `ptxas` serialises every `wgmma` (an arrive and a wait around each)
+//    unless it can see that the issuing code is not divergent and that
+//    each `wait_group` retires the same groups on every path: the warp
+//    index is broadcast from lane 0 (C7520 otherwise; the serial loop of
+//    single short walks keeps the plain index, faster there), and the
+//    overlapped loop issues a prologue (S of the first tile), steady rounds
+//    that always commit two groups, and an epilogue (the last P.V), with no
+//    product issued under a condition (C7514 otherwise);
 //  - K/V tiles above a consumer's diagonal are skipped, and the keys of a
 //    tile that reaches past Sk are masked explicitly: TMA zero-fills the rows
 //    past the end, and a zero key scores 0, not -1e30;
 //  - the output is staged in shared memory in the 128B-swizzled layout and
 //    written by TMA stores through a fourth map, which clip rows past Sq.
-// Shared memory: two Q tiles, two output staging tiles and the K/V ring,
-// each tile 64 rows of every panel.  Up to head_dim 128 (two panels, 16 KB a
-// tile) a four-stage ring makes 192 KB.  At three panels (24 KB a tile) the
-// same ring would take 288 KB, past the 227 KB a block may have, so the
-// ring has two stages there (192 KB again).  Staging the output in the Q
-// tile instead would keep three stages, but the producer loads the next
-// item's Q into that tile while the consumers finish this one, which is
-// the overlap the persistent grid is for; the D <= 128 instances keep
-// their ring as it was.  At D = 192 a consumer thread holds the 64 x 192
-// f32 accumulator (96 registers) beside the 64 x 64 scores (32) and P
-// (16): within the 224 registers a thread of a 288-thread block may have.
+// With 64-key tiles every launch choice (serial or overlapped, with or
+// without turns, in chunks or not) runs each tile's arithmetic in the same
+// order, so their outputs are bit-equal (each was so checked on the card
+// against the others when it was designed: PERF.md section 6).
+// Shared memory (`FwdSmem`): two Q tiles and two output staging tiles (64
+// rows), and the K and V rings (KEYS rows), each of every panel of its
+// width.  Up to head_dim 128 (16 KB a 64-row tile) a four-stage ring makes
+// 192 KB; at (192, 128) three stages (Q and K tiles 24 KB, V and O 16 KB)
+// make 200 KB; at (192, 192) two stages, 192 KB (three would pass the 227
+// KB a block may have).  `ops.forward_plan` computes the same launch shape
+// in Python (`fa_forward_plan` reports the source's, for a card test).
 // The shared-memory attribute is set once per template instance and device.
-// Times measured (chip_smoke.py phase 2; NVIDIA H100 80GB HBM3, 700.00 W):
-// 10.260 us at (8, 128, 32, 80) against SDPA's 11.372 us and the 6.260 us
-// bound (the mma.sync design before it: 35.935 us); 32.807 us at
-// (4, 512, 32, 80) against SDPA's 31.861 us and the 12.520 us bound.
+// Times: PERF.md section 6 (chip_smoke.py phase 2, in turns with an older
+// tree under `--parent`).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -72,19 +107,32 @@
 
 #include "wgmma.cuh"
 
+
 namespace {
 
-constexpr int kRows = 64;        // query rows per consumer warpgroup; keys per K/V tile
+constexpr int kRows = 64;        // query rows per consumer warpgroup (and the backward's key tiles)
 constexpr int kConsumers = 2;    // consumer warpgroups per block
 constexpr int kThreads = kConsumers * 128 + 32;  // plus one producer warp
 constexpr int kPanelCols = 64;   // bf16 columns per 128-byte swizzled panel
 constexpr int kPanelBytes = kRows * 128;
 constexpr int kMaxD = 192;       // three panels
+constexpr int kRegCols = 128;    // accumulator columns a consumer keeps in registers
+constexpr int kMaxSmem = 232448; // dynamic shared memory a block may have
 constexpr int kMaxDevices = 64;  // devices whose attribute and SM count are kept
 constexpr float kNegInf = -1e30f;
 constexpr int kNoQuery = 0x7fffffff;  // a first query no row reaches
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kTurnKeys = 1024;  // keys the longest item walks before the warpgroups take turns
+// the bytes of K and V a chunk of the forward's work items may read: half
+// the H100's 50 MB L2, so a head's K and V stay there while its query
+// blocks come round
+constexpr int64_t kChunkBytes = 24ll << 20;
+
+__host__ __device__ constexpr int panels(int dp) { return (dp + kPanelCols - 1) / kPanelCols; }
+// head_dim as the kernels take it: a multiple of 16 up to 128, else 192
+__host__ __device__ constexpr int padded_dim(int d) { return d <= 128 ? (d + 15) / 16 * 16 : kMaxD; }
+
 
 using bf16 = __nv_bfloat16;
 
@@ -148,15 +196,27 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// until at most N of this warpgroup's committed groups are pending (groups
+// complete in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 // keep the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// the same for a register A operand, which a wgmma reads until it completes
+template <int K>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -173,6 +233,17 @@ __device__ __forceinline__ void warpgroup_sync(int c) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
 }
 
+// The forward's ping-pong: consumer warpgroup c issues its products after
+// `turn_wait(c)` and hands the turn to the other with `turn_pass(1 - c)`
+// (named barriers 3 and 4, each met by 128 threads waiting and 128
+// arriving)
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + c) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int c) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(3 + c) : "memory");
+}
+
 // one 64 x 64 box of the output from shared memory, asynchronously
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int col0,
                                           int head, int row0, int batch) {
@@ -183,56 +254,187 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
       : "memory");
 }
 
-template <int DP>
-struct Smem {
-  static constexpr int kStages = DP > 128 ? 2 : 4;     // K/V ring depth (see the note above)
-  static constexpr int kPanels = (DP + kPanelCols - 1) / kPanelCols;
-  static constexpr int kTile = kPanels * kPanelBytes;  // one 64-row tile, all panels
-  static constexpr int kQ = 0;                          // a Q tile per consumer
-  static constexpr int kO = kQ + kConsumers * kTile;    // an output staging tile per consumer
-  static constexpr int kK = kO + kConsumers * kTile;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBars = kV + kStages * kTile;    // q_full, q_empty, full[], empty[]
+// the forward's shared memory at (DP, DVP) with K/V tiles of KEYS keys: a
+// Q tile and an output staging tile (64 rows each) per consumer, then the
+// K and V rings (see the note above)
+template <int DP, int DVP, int KEYS>
+struct FwdSmem {
+  static constexpr int kStages = DVP > kRegCols ? 2 : DP > kRegCols ? 3 : 4;  // ring depth
+  static constexpr int kKeys = KEYS;
+  static constexpr int kKPanel = kKeys * 128;               // one panel of a K or V tile
+  static constexpr int kTile = panels(DP) * kPanelBytes;    // a Q tile
+  static constexpr int kOTile = panels(DVP) * kPanelBytes;  // an output staging tile
+  static constexpr int kKTile = panels(DP) * kKPanel;       // a K tile
+  static constexpr int kVTile = panels(DVP) * kKPanel;      // a V tile
+  static constexpr int kQ = 0;
+  static constexpr int kO = kQ + kConsumers * kTile;
+  static constexpr int kK = kO + kConsumers * kOTile;
+  static constexpr int kV = kK + kStages * kKTile;
+  static constexpr int kBars = kV + kStages * kVTile;  // q_full, q_empty, full[], empty[]
   static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;  // + alignment slack
+  static_assert(kBytes <= kMaxSmem, "more shared memory than a block may have");
 };
 
-// A work item is 128 query rows of one (head, batch): item w takes query
-// block n_qb - 1 - w / (H * B), so the items with the most K/V tiles come
-// first.  Its K/V tiles are all ceil(Sk / 64) of them, or under the causal
-// mask those up to its last row's (no further than Sk).
+// A work item is 128 query rows of one (head, batch).  The items come in
+// chunks of `chunk` (batch, head) pairs, heads fastest; within a chunk,
+// item w takes query block n_qb - 1 - w / pairs, so its items with the
+// most K/V tiles come first.  Its K/V tiles of KEYS keys are all
+// ceil(Sk / KEYS) of them, or under the causal mask those up to its last
+// row's (no further than Sk).  One chunk of all H * B pairs is the order
+// longest first throughout.
 struct Item {
   int q0, h, b, n_tiles, n_active;
 };
-__device__ __forceinline__ Item item_at(int w, int H, int B, int Sq, int Sk, int causal) {
+template <int KEYS>
+__device__ __forceinline__ Item item_at(int w, int H, int B, int Sq, int Sk, int causal,
+                                        int chunk) {
   const int n_qb = (Sq + kConsumers * kRows - 1) / (kConsumers * kRows);
-  const int rem = w % (H * B);
+  int r = w, pairs = H * B, pair;
+  if (chunk < H * B) {  // (one chunk spares the producer two divisions before its first load)
+    const int ci = w / (chunk * n_qb);
+    r = w - ci * chunk * n_qb;
+    pairs = min(chunk, H * B - ci * chunk);  // the last chunk may be short
+    pair = ci * chunk + r % pairs;
+  } else {
+    pair = w % pairs;
+  }
   Item it;
-  it.q0 = (n_qb - 1 - w / (H * B)) * (kConsumers * kRows);
-  it.h = rem % H;
-  it.b = rem / H;
-  const int n_kv = (Sk + kRows - 1) / kRows;
+  it.q0 = (n_qb - 1 - r / pairs) * (kConsumers * kRows);
+  it.h = pair % H;
+  it.b = pair / H;
+  const int n_kv = (Sk + KEYS - 1) / KEYS;
   const int last_row = min(it.q0 + kConsumers * kRows, Sq) - 1;
-  it.n_tiles = causal ? min(n_kv, last_row / kRows + 1) : n_kv;
+  it.n_tiles = causal ? min(n_kv, last_row / KEYS + 1) : n_kv;
   it.n_active = min(kConsumers, (Sq - it.q0 + kRows - 1) / kRows);
   return it;
 }
 
+// One K/V tile's online-softmax step on a warp's rows row_a and row_b =
+// row_a + 8 (four threads a row pair; r0 the warpgroup's first row): the
+// N scores a row in s are scaled into the exp2 domain and masked (keys past Sk,
+// and under the causal mask keys past the row), the running maxima move to
+// the tile's, s becomes exp2(s - m), and this thread's share of the running
+// sums is rescaled and added to (the quad is summed at the end).  Returns
+// in corr_a, corr_b the factors that rescale O's rows.
+template <int N>
+__device__ __forceinline__ void softmax_step(float (&s)[N / 2], float& m_a, float& m_b,
+                                             float& l_a, float& l_b, float& corr_a,
+                                             float& corr_b, int k0, int r0, int row_a, int row_b,
+                                             int tq, int Sk, int causal, float scale_log2) {
+  const bool need_mask = k0 + N > Sk || (causal && k0 + N - 1 > r0);
+  float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float sa = s[4 * j + e] * scale_log2, sb = s[4 * j + 2 + e] * scale_log2;
+      if (need_mask) {
+        const int col = k0 + 8 * j + 2 * tq + e;
+        const bool ok = col < Sk;
+        sa = (ok && (!causal || col <= row_a)) ? sa : kNegInf;
+        sb = (ok && (!causal || col <= row_b)) ? sb : kNegInf;
+      }
+      s[4 * j + e] = sa;
+      s[4 * j + 2 + e] = sb;
+      mx_a = fmaxf(mx_a, sa);
+      mx_b = fmaxf(mx_b, sb);
+    }
+  }
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+  const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+  corr_a = exp2f(m_a - mn_a);
+  corr_b = exp2f(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+  float ps_a = 0.0f, ps_b = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = exp2f(s[4 * j + e] - mn_a);
+      s[4 * j + 2 + e] = exp2f(s[4 * j + 2 + e] - mn_b);
+      ps_a += s[4 * j + e];
+      ps_b += s[4 * j + 2 + e];
+    }
+  }
+  l_a = l_a * corr_a + ps_a;
+  l_b = l_b * corr_b + ps_b;
+}
+
+// O's rows times their factors (skipping the multiply where a warp's
+// factors are all 1, bit-exact, measured slower: the vote and branch cost
+// more than the multiplies, 14.835 against 14.282 us at a ragged LSE row)
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], float corr_a, float corr_b) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j] *= corr_a;
+    o[4 * j + 1] *= corr_a;
+    o[4 * j + 2] *= corr_b;
+    o[4 * j + 3] *= corr_b;
+  }
+}
+
+// P in bf16 as the A operand of P.V: score columns 16kk..16kk+15 are the
+// A fragment of k-step kk
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 16][4], const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// S = Q . K^T (64 x N, f32) on one K tile of N keys, uncommitted
+template <int DP, int N>
+__device__ __forceinline__ void issue_s(float (&s)[N / 2], uint32_t q_tile, uint32_t k_tile) {
+#pragma unroll
+  for (int j = 0; j < DP / 16; ++j) {
+    const uint32_t col = (j % 4) * 32;  // bytes into the panel's 128-byte rows
+    Wgmma<N>::ss(s, sw128_desc(q_tile + (j / 4) * kPanelBytes + col, 16, 1024),
+                 sw128_desc(k_tile + (j / 4) * N * 128 + col, 16, 1024), j > 0);
+  }
+}
+
+// O += P . V on one V tile of N keys (its panels N rows apart), uncommitted
+template <int DVP, int N>
+__device__ __forceinline__ void issue_pv(float (&o)[DVP / 2], uint32_t (&pa)[N / 16][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    Wgmma<DVP>::rs(o, pa[kk], sw128_desc(v_tile + kk * 16 * 128, N * 128, 1024), 1);
+}
+
 // DP: head_dim rounded up to a multiple of 16 (the wgmma k-step), or 192
-// past 128.  LSE: also store each query row's log-sum-exp of its scaled
-// scores, natural base, f32, at lse[(b H + h) Sq + row] (the training
-// forward, `fa_forward_lse`; the backward recomputes P from it).  A
-// persistent block walks the work items blockIdx.x, blockIdx.x + gridDim.x,
-// ...; the K/V ring and the barriers' phases run on across items, so the
-// producer loads the next item's Q and K/V while the consumers finish this one.
-template <int DP, bool LSE>
+// past 128; DVP: v's width so rounded (DP, or 128 beside 192).  LSE: also
+// store each query row's log-sum-exp of its scaled scores, natural base,
+// f32, at lse[(b H + h) Sq + row] (the training forward, `fa_forward_lse`;
+// the backward recomputes P from it).  A persistent block walks the work
+// items blockIdx.x, blockIdx.x + gridDim.x, ...; the K/V ring and the
+// barriers' phases run on across items, so the producer loads the next
+// item's Q and K/V while the consumers finish this one.  KEYS: keys a K/V
+// tile; OVERLAP: the products overlap the softmax; TURNS: the two consumer
+// warpgroups take turns to issue them (`forward_choice`).  Each is a
+// compile-time choice: a branch on a run-time flag around the turns
+// measured ~8% slower at the serve's shape even where the flag was off.
+template <int DP, int DVP, int KEYS, bool LSE, bool OVERLAP, bool TURNS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_o, int H, int KH, int B, int Sq,
-                 int Sk, float scale_log2, int causal, float* __restrict__ lse) {
-  using L = Smem<DP>;
-  constexpr int KSTEPS = DP / 16;
+                 int Sk, float scale_log2, int causal, int chunk, float* __restrict__ lse) {
+  using L = FwdSmem<DP, DVP, KEYS>;
+  constexpr int kKeys = KEYS;
+  constexpr bool kOverlap = OVERLAP, turns = TURNS;
+  static_assert(!OVERLAP || DVP <= kRegCols, "O and both score sets must fit the registers");
+  static_assert(!TURNS || OVERLAP, "turns are taken by the overlapped loop");
   extern __shared__ unsigned char smem_raw[];
   // 128B-swizzled tiles start on 1024-byte boundaries of the shared window
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -242,7 +444,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int kStages = L::kStages;
   const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
   const int n_items = (Sq + kConsumers * kRows - 1) / (kConsumers * kRows) * H * B;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warp's index broadcast from lane 0: `ptxas` then knows it (and the
+  // warpgroup's) is the same across the warp, so the branches on it that
+  // gate the `wgmma`s are not divergent (else it serialises every `wgmma`,
+  // C7520, and nothing overlaps).  The serial loop of a launch of single
+  // short walks (DVP <= 128, `forward_choice`) keeps the plain index, which
+  // measured faster there (the serve_pipeline example's 4.144 against 4.363
+  // us)
+  constexpr bool kUniformWarp = OVERLAP || DVP > kRegCols;
+  const int warp =
+      kUniformWarp ? __shfl_sync(0xffffffffu, threadIdx.x / 32, 0) : threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // the block's n-th item, wave by wave; where the order is one chunk
+  // (longest first throughout) the blocks' order is reversed in every other
+  // wave, so a block that drew one of a wave's longest items draws one of
+  // the next wave's shortest (in several chunks, whose lengths already
+  // alternate, the reversal measured slower)
+  const bool reverse_odd = chunk == H * B;
+  const auto item_of = [&](int n) {
+    const int g = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
+    return n * g + ((n & 1) && reverse_odd ? g - 1 - b : b);
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q_full, 1);
@@ -259,25 +481,30 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ------------------------------------------------------------ producer
     if (lane != 0) return;
     int tile = 0;  // K/V tiles loaded by this block so far
-    for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
-      const Item it = item_at(w, H, B, Sq, Sk, causal);
+    for (int n = 0;; ++n) {
+      const int w = item_of(n);
+      if (w >= n_items) break;
+      const Item it = item_at<kKeys>(w, H, B, Sq, Sk, causal, chunk);
       const int kh = it.h / (H / KH);
       if (n > 0) mbar_wait(bar_q_empty, (n - 1) & 1);
       mbar_expect_tx(bar_q_full, it.n_active * L::kTile);
       for (int c = 0; c < it.n_active; ++c)
-        for (int p = 0; p < L::kPanels; ++p)
+        for (int p = 0; p < panels(DP); ++p)
           tma_load(base + L::kQ + c * L::kTile + p * kPanelBytes, &tm_q, p * kPanelCols, it.h,
                    it.q0 + c * kRows, it.b, bar_q_full);
       for (int t = 0; t < it.n_tiles; ++t, ++tile) {
         const int s = tile % kStages;
         if (tile >= kStages) mbar_wait(bar_empty + 8 * s, (tile / kStages - 1) & 1);
         const uint32_t full = bar_full + 8 * s;
-        mbar_expect_tx(full, 2 * L::kTile);
-        for (int p = 0; p < L::kPanels; ++p) {
-          tma_load(base + L::kK + s * L::kTile + p * kPanelBytes, &tm_k, p * kPanelCols, kh,
-                   t * kRows, it.b, full);
-          tma_load(base + L::kV + s * L::kTile + p * kPanelBytes, &tm_v, p * kPanelCols, kh,
-                   t * kRows, it.b, full);
+        mbar_expect_tx(full, L::kKTile + L::kVTile);
+        // a panel of kKeys rows is kKeys / 64 boxes of 64 rows, 8 KB apart
+        for (int h = 0; h < kKeys / kRows; ++h) {
+          for (int p = 0; p < panels(DP); ++p)
+            tma_load(base + L::kK + s * L::kKTile + p * L::kKPanel + h * kPanelBytes, &tm_k,
+                     p * kPanelCols, kh, t * kKeys + h * kRows, it.b, full);
+          for (int p = 0; p < panels(DVP); ++p)
+            tma_load(base + L::kV + s * L::kVTile + p * L::kKPanel + h * kPanelBytes, &tm_v,
+                     p * kPanelCols, kh, t * kKeys + h * kRows, it.b, full);
         }
       }
     }
@@ -289,119 +516,141 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tq = lane % 4;
   const bool leader = threadIdx.x % 128 == 0;
   const uint32_t q_tile = base + L::kQ + c * L::kTile;
-  const uint32_t o_tile = base + L::kO + c * L::kTile;
-  int tile = 0;
-  for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
-    const Item it = item_at(w, H, B, Sq, Sk, causal);
+  const uint32_t o_tile = base + L::kO + c * L::kOTile;
+  if (turns && c == 1) turn_pass(0);  // warpgroup 0 issues first
+  int tile = 0;  // K/V tiles this block has walked so far
+  for (int n = 0;; ++n) {
+    const int w = item_of(n);
+    if (w >= n_items) break;
+    const Item it = item_at<kKeys>(w, H, B, Sq, Sk, causal, chunk);
     const int r0 = it.q0 + c * kRows;  // this warpgroup's first query row
     const int row_a = r0 + wi * 16 + lane / 4, row_b = row_a + 8;
     const bool active = c < it.n_active;
     // the last K/V tile this warpgroup reads: its last row's, under the causal mask
     const int my_last = !active ? -1
-                        : causal ? min(it.n_tiles - 1, (min(r0 + kRows, Sq) - 1) / kRows)
+                        : causal ? min(it.n_tiles - 1, (min(r0 + kRows, Sq) - 1) / kKeys)
                                  : it.n_tiles - 1;
 
-    float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
-    float oacc[DP / 2];
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f, corr_a, corr_b;
+    float oacc[DVP / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.0f;
-    float sacc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sacc[i] = 0.0f;
+    for (int i = 0; i < DVP / 2; ++i) oacc[i] = 0.0f;
+    float sacc[kKeys / 2];
+    uint32_t pa[kKeys / 16][4];
 
     mbar_wait(bar_q_full, n & 1);
     if (!active && lane == 0) mbar_arrive(bar_q_empty);
-    for (int t = 0; t < it.n_tiles; ++t, ++tile) {
-      const int s = tile % kStages;
-      mbar_wait(bar_full + 8 * s, (tile / kStages) & 1);
-      if (t <= my_last) {
-        const uint32_t k_tile = base + L::kK + s * L::kTile;
-        const uint32_t v_tile = base + L::kV + s * L::kTile;
-        // S = Q . K^T (64 x 64, f32)
+    if constexpr (kOverlap) {
+      // n_tiles + 1 rounds in both warpgroups, whatever each skips (the
+      // turns alternate): an active warpgroup's round 0 issues S of tile 0,
+      // round t in 1..my_last S of tile t and P.V of tile t-1, round
+      // my_last + 1 P.V of tile my_last; the rest issue nothing.  Each
+      // steady round commits its two groups unconditionally, so `ptxas`
+      // sees `wait_group 1` retire S on every path (a group count that
+      // differs by path serialises every `wgmma`, C7514).
+      const uint32_t k_ring = base + L::kK, v_ring = base + L::kV;
+      int t = 0;
+      if (active) {
+        int s = tile % kStages;
+        mbar_wait(bar_full + 8 * s, (tile / kStages) & 1);
+        if (turns) turn_wait(c);
         fence_regs(sacc);
         wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < KSTEPS; ++j) {
-          const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
-          Wgmma<64>::ss(sacc, sw128_desc(q_tile + off, 16, 1024),
-                        sw128_desc(k_tile + off, 16, 1024), j > 0);
-        }
+        issue_s<DP, kKeys>(sacc, q_tile, k_ring + s * L::kKTile);
         wgmma_commit();
-        wgmma_wait_all();
+        if (turns) turn_pass(1 - c);
+        wgmma_wait<0>();
         fence_regs(sacc);
-        if (t == my_last && lane == 0) mbar_arrive(bar_q_empty);  // Q is free for the next item
-
-        // scale (into the exp2 domain), mask, row maxima over the quad
-        const int k0 = t * kRows;
-        const bool need_mask = k0 + kRows > Sk || (causal && k0 + kRows - 1 > r0);
-        float mx_a = kNegInf, mx_b = kNegInf;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float sa = sacc[4 * j + e] * scale_log2, sb = sacc[4 * j + 2 + e] * scale_log2;
-            if (need_mask) {
-              const int col = k0 + 8 * j + 2 * tq + e;
-              const bool ok = col < Sk;
-              sa = (ok && (!causal || col <= row_a)) ? sa : kNegInf;
-              sb = (ok && (!causal || col <= row_b)) ? sb : kNegInf;
-            }
-            sacc[4 * j + e] = sa;
-            sacc[4 * j + 2 + e] = sb;
-            mx_a = fmaxf(mx_a, sa);
-            mx_b = fmaxf(mx_b, sb);
-          }
+        if (my_last == 0 && lane == 0) mbar_arrive(bar_q_empty);
+        softmax_step<kKeys>(sacc, m_a, m_b, l_a, l_b, corr_a, corr_b, 0, r0, row_a, row_b, tq,
+                            Sk, causal, scale_log2);
+        pack_p<kKeys>(pa, sacc);
+        for (t = 1; t <= my_last; ++t) {
+          const int seq = tile + t, sp = s;  // sp: tile t-1's stage
+          s = seq % kStages;
+          mbar_wait(bar_full + 8 * s, (seq / kStages) & 1);
+          if (turns) turn_wait(c);
+          fence_regs(sacc);
+          fence_regs(oacc);
+          fence_frag(pa);
+          wgmma_fence();
+          issue_s<DP, kKeys>(sacc, q_tile, k_ring + s * L::kKTile);
+          wgmma_commit();
+          issue_pv<DVP, kKeys>(oacc, pa, v_ring + sp * L::kVTile);
+          wgmma_commit();
+          if (turns) turn_pass(1 - c);
+          wgmma_wait<1>();  // S is done; P.V may still run
+          fence_regs(sacc);
+          if (t == my_last && lane == 0) mbar_arrive(bar_q_empty);  // Q is free for the next item
+          softmax_step<kKeys>(sacc, m_a, m_b, l_a, l_b, corr_a, corr_b, t * kKeys, r0, row_a,
+                              row_b, tq, Sk, causal, scale_log2);
+          wgmma_wait<0>();
+          fence_regs(oacc);
+          fence_frag(pa);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_empty + 8 * sp);  // tile t-1 is done with
+          rescale(oacc, corr_a, corr_b);
+          pack_p<kKeys>(pa, sacc);
         }
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-        const float corr_a = exp2f(m_a - mn_a), corr_b = exp2f(m_b - mn_b);
-        m_a = mn_a;
-        m_b = mn_b;
-        float ps_a = 0.0f, ps_b = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            sacc[4 * j + e] = exp2f(sacc[4 * j + e] - mn_a);
-            sacc[4 * j + 2 + e] = exp2f(sacc[4 * j + 2 + e] - mn_b);
-            ps_a += sacc[4 * j + e];
-            ps_b += sacc[4 * j + 2 + e];
-          }
-        }
-        l_a = l_a * corr_a + ps_a;  // this thread's share; the quad is summed at the end
-        l_b = l_b * corr_b + ps_b;
-#pragma unroll
-        for (int j = 0; j < DP / 8; ++j) {
-          oacc[4 * j] *= corr_a;
-          oacc[4 * j + 1] *= corr_a;
-          oacc[4 * j + 2] *= corr_b;
-          oacc[4 * j + 3] *= corr_b;
-        }
-
-        // O += P . V: score columns 16kk..16kk+15 are the A fragment of k-step kk
-        uint32_t pa[4][4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
-          pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-          pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-          pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-        }
+        // round my_last + 1: P.V of the last tile
+        const int seq = tile + t;
+        if (t < it.n_tiles) mbar_wait(bar_full + 8 * (seq % kStages), (seq / kStages) & 1);
+        if (turns) turn_wait(c);
         fence_regs(oacc);
+        fence_frag(pa);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          Wgmma<DP>::rs(oacc, pa[kk], sw128_desc(v_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+        issue_pv<DVP, kKeys>(oacc, pa, v_ring + s * L::kVTile);
         wgmma_commit();
-        wgmma_wait_all();
+        if (turns) turn_pass(1 - c);
+        wgmma_wait<0>();
         fence_regs(oacc);
+        fence_frag(pa);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(bar_empty + 8 * s);
+          if (t < it.n_tiles) mbar_arrive(bar_empty + 8 * (seq % kStages));  // skipped
+        }
+        ++t;
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      for (; t <= it.n_tiles; ++t) {  // rounds that issue nothing: tiles this warpgroup skips
+        const int seq = tile + t;
+        if (t < it.n_tiles) mbar_wait(bar_full + 8 * (seq % kStages), (seq / kStages) & 1);
+        if (turns) {
+          turn_wait(c);
+          turn_pass(1 - c);
+        }
+        __syncwarp();
+        if (t < it.n_tiles && lane == 0) mbar_arrive(bar_empty + 8 * (seq % kStages));
+      }
+    } else {
+      // each tile's S, softmax and P.V in turn
+      for (int t = 0; t < it.n_tiles; ++t) {
+        const int seq = tile + t, s = seq % kStages;
+        mbar_wait(bar_full + 8 * s, (seq / kStages) & 1);
+        if (t <= my_last) {
+          fence_regs(sacc);
+          wgmma_fence();
+          issue_s<DP, kKeys>(sacc, q_tile, base + L::kK + s * L::kKTile);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sacc);
+          if (t == my_last && lane == 0) mbar_arrive(bar_q_empty);
+          softmax_step<kKeys>(sacc, m_a, m_b, l_a, l_b, corr_a, corr_b, t * kKeys, r0, row_a,
+                              row_b, tq, Sk, causal, scale_log2);
+          rescale(oacc, corr_a, corr_b);
+          pack_p<kKeys>(pa, sacc);
+          fence_regs(oacc);
+          wgmma_fence();
+          issue_pv<DVP, kKeys>(oacc, pa, base + L::kV + s * L::kVTile);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(oacc);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      }
     }
+    tile += it.n_tiles;
     if (!active) continue;
 
     // epilogue: O / l into this warpgroup's staging tile (128B-swizzled, as
@@ -421,7 +670,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     warpgroup_sync(c);  // the previous item's store has read the staging tile
     const int ra = wi * 16 + lane / 4, rb = ra + 8;  // rows within the tile
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
+    for (int j = 0; j < DVP / 8; ++j) {
       const uint32_t panel = o_tile + (j / 8) * kPanelBytes;
       const uint32_t col = 4 * tq;  // byte within the 16-byte chunk
       const uint32_t pa_ = pack_bf16(oacc[4 * j] * inv_a, oacc[4 * j + 1] * inv_a);
@@ -434,11 +683,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the TMA unit
     warpgroup_sync(c);
     if (leader) {
-      for (int p = 0; p < L::kPanels; ++p)
+      for (int p = 0; p < panels(DVP); ++p)
         tma_store(&tm_o, o_tile + p * kPanelBytes, p * kPanelCols, it.h, r0, it.b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   }
+  if (turns && c == 0) turn_wait(0);  // the pass warpgroup 1 made in its last round
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
@@ -815,10 +1065,62 @@ int sm_count(int dev) {
   return n;
 }
 
-template <int DP, bool LSE>
-int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int Sq, int Sk, float scale,
-           int causal, float* lse, cudaStream_t st) {
-  constexpr int smem = Smem<DP>::kBytes;
+// the forward's work items (`item_at`): 128 query rows of one (head, batch)
+int forward_items(int B, int H, int Sq) {
+  return (Sq + kConsumers * kRows - 1) / (kConsumers * kRows) * H * B;
+}
+
+// (batch, head) pairs a chunk of the forward's items takes: whole groups
+// of the G query heads that read one KV head, as many as keep the chunk's
+// K and V (Sk rows, D + Dv columns a KV head) within kChunkBytes, at least
+// one group, at most all H * B pairs
+int forward_chunk(int B, int H, int KH, int Sk, int D, int Dv) {
+  const int64_t kv = static_cast<int64_t>(Sk) * (D + Dv) * static_cast<int64_t>(sizeof(bf16));
+  const int64_t groups = kChunkBytes / kv > 1 ? kChunkBytes / kv : 1;
+  const int64_t pairs = groups * (H / KH);
+  return pairs < static_cast<int64_t>(H) * B ? static_cast<int>(pairs) : H * B;
+}
+
+// The forward's launch choices at these shapes on n_sm SMs
+// (`ops.forward_plan` makes the same from the same numbers):
+//  - overlap: the products overlap the softmax, where O and both score
+//    sets fit the registers (DVP <= 128), unless every block walks a single
+//    item (items <= SMs) of at most two K/V tiles: there is nothing to
+//    overlap across tiles then, and the overlapped loop measured slower on
+//    such a walk (the serve_pipeline example's 4.55 against 4.30 us);
+//  - keys: 128 a K/V tile for an overlapped, non-causal call up to head_dim
+//    64 whose items hold two busy warpgroups (Sq past 64): half the waits,
+//    shuffles and rescales a key (S of 128 columns, 64 registers a thread,
+//    beside P's 32 and O's 32 at most); else 64 (under the causal mask a
+//    tile of 128 keys wastes more on the diagonal, and past Sk, than it
+//    saves);
+//  - turns: the warpgroups take turns where both are busy and the longest
+//    item walks kTurnKeys keys or more (its last row sees min(Sq, Sk) of
+//    them under the causal mask); on shorter walks the turns cost more than
+//    they gain;
+//  - chunk: `forward_chunk`.
+struct FwdChoice {
+  int keys, overlap, turns, chunk, items, grid;
+};
+FwdChoice forward_choice(int B, int H, int KH, int Sq, int Sk, int D, int Dv, int causal,
+                         int n_sm) {
+  const int DP = padded_dim(D), DVP = padded_dim(Dv);
+  const int longest = causal ? min(Sq, Sk) : Sk;  // keys the longest item walks
+  FwdChoice c;
+  c.items = forward_items(B, H, Sq);
+  c.grid = min(c.items, n_sm);
+  c.overlap = DVP <= kRegCols &&
+              (c.items > n_sm || (longest + kRows - 1) / kRows > 2);
+  c.keys = c.overlap && DP <= 64 && !causal && Sq > kRows ? 128 : kRows;
+  c.turns = c.overlap && Sq > kRows && longest >= kTurnKeys;
+  c.chunk = forward_chunk(B, H, KH, Sk, D, Dv);
+  return c;
+}
+
+template <int DP, int DVP, int KEYS, bool LSE, bool OVERLAP, bool TURNS>
+int launch_fwd(const CUtensorMap (&maps)[4], int B, int H, int KH, int Sq, int Sk, float scale,
+               int causal, const FwdChoice& c, float* lse, cudaStream_t st) {
+  constexpr int smem = FwdSmem<DP, DVP, KEYS>::kBytes;
   // once per template instance and device: the attribute belongs to the
   // current device's context
   static bool attr_set[kMaxDevices] = {};
@@ -826,18 +1128,45 @@ int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int Sq, int Sk, f
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices || !attr_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<DP, LSE>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<DP, DVP, KEYS, LSE, OVERLAP, TURNS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < kMaxDevices) attr_set[dev] = true;
   }
-  const int per_block = kConsumers * kRows;
-  const int n_items = (Sq + per_block - 1) / per_block * H * B;
+  flash_fwd_kernel<DP, DVP, KEYS, LSE, OVERLAP, TURNS><<<c.grid, kThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], H, KH, B, Sq, Sk, scale * kLog2e, causal, c.chunk,
+      lse);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance of `forward_choice`'s keys, overlap and turns (128 keys only
+// up to head_dim 64, overlapped; turns only overlapped)
+template <int DP, int DVP, bool LSE>
+int launch(const CUtensorMap (&maps)[4], int B, int H, int KH, int Sq, int Sk, int D, int Dv,
+           float scale, int causal, float* lse, cudaStream_t st) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int n_sm = sm_count(dev);
   if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
-  flash_fwd_kernel<DP, LSE><<<min(n_items, n_sm), kThreads, smem, st>>>(
-      maps[0], maps[1], maps[2], maps[3], H, KH, B, Sq, Sk, scale * kLog2e, causal, lse);
-  return static_cast<int>(cudaGetLastError());
+  const FwdChoice c = forward_choice(B, H, KH, Sq, Sk, D, Dv, causal, n_sm);
+  if constexpr (DVP <= kRegCols) {
+    if constexpr (DP <= 64) {
+      if (c.keys == 128)
+        return c.turns ? launch_fwd<DP, DVP, 128, LSE, true, true>(maps, B, H, KH, Sq, Sk, scale,
+                                                                   causal, c, lse, st)
+                       : launch_fwd<DP, DVP, 128, LSE, true, false>(maps, B, H, KH, Sq, Sk,
+                                                                    scale, causal, c, lse, st);
+    }
+    if (c.turns)
+      return launch_fwd<DP, DVP, kRows, LSE, true, true>(maps, B, H, KH, Sq, Sk, scale, causal,
+                                                         c, lse, st);
+    if (c.overlap)
+      return launch_fwd<DP, DVP, kRows, LSE, true, false>(maps, B, H, KH, Sq, Sk, scale, causal,
+                                                          c, lse, st);
+  }
+  return launch_fwd<DP, DVP, kRows, LSE, false, false>(maps, B, H, KH, Sq, Sk, scale, causal, c,
+                                                       lse, st);
 }
 
 // The f32 route's launch shape from (Sq, D, Dv) alone (`ops.f32_plan`):
@@ -1028,12 +1357,6 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
 constexpr int kBwdMaxD = kMaxD;
 constexpr int kBwdKeys = kRows;  // keys a dK/dV block
 constexpr int kMaxGroup = 8;     // dK/dV blocks a cluster: the portable size
-constexpr int kRegCols = 128;    // accumulator columns a consumer keeps in registers
-constexpr int kMaxSmem = 232448; // dynamic shared memory a block may have
-
-constexpr int panels(int dp) { return (dp + kPanelCols - 1) / kPanelCols; }
-// head_dim as the kernels take it: a multiple of 16 up to 128, else 192
-constexpr int padded_dim(int d) { return d <= 128 ? (d + 15) / 16 * 16 : kMaxD; }
 
 struct BwdArgs {
   const bf16 *o, *dout;
@@ -1464,13 +1787,13 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   cluster_sync();  // no block leaves while another reads its partials
 }
 
-// the dQ kernel's shared memory at (DP, DVP): `Smem`'s layout with each
-// consumer's output staging tile holding its dO tile (DVP wide) and the
-// V tiles DVP wide, then each consumer's accumulator of dQ's columns past
-// kRegCols
+// the dQ kernel's shared memory at (DP, DVP): a Q and a dO tile (DVP
+// wide) per consumer, the K/V ring (V tiles DVP wide; four stages, two
+// past head_dim 128), then each consumer's accumulator of dQ's columns
+// past kRegCols
 template <int DP, int DVP>
 struct DqSmem {
-  static constexpr int kStages = Smem<DP>::kStages;
+  static constexpr int kStages = DP > kRegCols ? 2 : 4;
   static constexpr int kPanels = panels(DP), kVPanels = panels(DVP);
   static constexpr int kTile = kPanels * kPanelBytes, kVTile = kVPanels * kPanelBytes;
   static constexpr int kQ = 0;                          // a Q tile per consumer
@@ -1523,7 +1846,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane != 0) return;
     int tile = 0;
     for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
-      const Item it = item_at(w, H, B, Sq, Sk, causal);
+      const Item it = item_at<kRows>(w, H, B, Sq, Sk, causal, H * B);
       const int kh = it.h / (H / a.KH);
       if (n > 0) mbar_wait(bar_q_empty, (n - 1) & 1);
       mbar_expect_tx(bar_q_full, it.n_active * (L::kTile + L::kVTile));
@@ -1568,7 +1891,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.0f;
   int tile = 0;
   for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
-    const Item it = item_at(w, H, B, Sq, Sk, causal);
+    const Item it = item_at<kRows>(w, H, B, Sq, Sk, causal, H * B);
     const int r0 = it.q0 + c * kRows;
     const int row_a = r0 + wi * 16 + lane / 4, row_b = row_a + 8;
     const bool active = c < it.n_active;
@@ -1834,11 +2157,12 @@ int launch_bwd(const CUtensorMap (&maps)[4], BwdArgs a, cudaStream_t st) {
 template <int N>
 using Dim = std::integral_constant<int, N>;
 
-// f(Dim<DP>, Dim<DVP>) at the backward's instance for head_dim D and v's
-// width Dv: (DP, DP) for each padded head_dim, and (192, 128);
-// cudaErrorInvalidValue for a pair no instance takes (the wrapper pads v)
+// f(Dim<DP>, Dim<DVP>) at the instance for head_dim D and v's width Dv,
+// the forward's and the backward's: (DP, DP) for each padded head_dim, and
+// (192, 128); cudaErrorInvalidValue for a pair no instance takes (the
+// wrapper pads v to one: `ops.grad_v_width`)
 template <typename F>
-int bwd_instance(int D, int Dv, F&& f) {
+int instance(int D, int Dv, F&& f) {
   const int dp = padded_dim(D), dvp = padded_dim(Dv);
   if (dp == kMaxD && dvp == kRegCols) return f(Dim<kMaxD>{}, Dim<kRegCols>{});
   if (dp != dvp) return static_cast<int>(cudaErrorInvalidValue);
@@ -1855,44 +2179,46 @@ int bwd_instance(int D, int Dv, F&& f) {
   }
 }
 
-// the bf16 forward through `fa_forward`'s maps; LSE: the training instance
+// the bf16 forward through `fa_forward`'s maps (q and k D wide, v and o
+// Dv); LSE: the training instance
 template <bool LSE>
 int forward_bf16(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk,
-                 Strides sv, Strides so, int B, int H, int KH, int Sq, int Sk, int D,
+                 Strides sv, Strides so, int B, int H, int KH, int Sq, int Sk, int D, int Dv,
                  float scale, int causal, float* lse, cudaStream_t st) {
   const cudaError_t bound = bind_device();
   if (bound != cudaSuccess) return static_cast<int>(bound);
   CUtensorMap maps[4];
   if (!encode(&maps[0], q, D, H, Sq, B, sq) || !encode(&maps[1], k, D, KH, Sk, B, sk) ||
-      !encode(&maps[2], v, D, KH, Sk, B, sv) || !encode(&maps[3], o, D, H, Sq, B, so))
+      !encode(&maps[2], v, Dv, KH, Sk, B, sv) || !encode(&maps[3], o, Dv, H, Sq, B, so))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch ((D + 15) / 16) {
-    case 1: return launch<16, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
-    case 2: return launch<32, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
-    case 3: return launch<48, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
-    case 4: return launch<64, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
-    case 5: return launch<80, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
-    case 6: return launch<96, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
-    case 7: return launch<112, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
-    case 8: return launch<128, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
-    default: return launch<192, LSE>(maps, B, H, KH, Sq, Sk, scale, causal, lse, st);
-  }
+  return instance(D, Dv, [&](auto dp, auto dvp) {
+    return launch<decltype(dp)::value, decltype(dvp)::value, LSE>(maps, B, H, KH, Sq, Sk, D, Dv,
+                                                                  scale, causal, lse, st);
+  });
+}
+
+// the bf16 forward's arguments: head_dim and v's width multiples of 8, v
+// no wider than q and k, up to kMaxD
+bool forward_takes(int D, int Dv, int B, int H, int KH, int Sq, int Sk) {
+  return D >= 8 && D <= kMaxD && D % 8 == 0 && Dv >= 8 && Dv <= D && Dv % 8 == 0 && KH >= 1 &&
+         H % KH == 0 && B >= 1 && Sq >= 1 && Sk >= 1;
 }
 
 }  // namespace
 
+// q, k (D wide), v and o (Dv wide, Dv <= D; (D, Dv) must round to an
+// instance, `instance`), each at its own strides with head_dim contiguous
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                           int64_t sqb, int64_t sqh, int64_t sqs,
                           int64_t skb, int64_t skh, int64_t sks,
                           int64_t svb, int64_t svh, int64_t svs,
                           int64_t sob, int64_t soh, int64_t sos,
-                          int B, int H, int KH, int Sq, int Sk, int D, float scale,
+                          int B, int H, int KH, int Sq, int Sk, int D, int Dv, float scale,
                           int causal, void* stream) {
-  if (D < 8 || D > kMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || Sq < 1 || Sk < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!forward_takes(D, Dv, B, H, KH, Sq, Sk)) return static_cast<int>(cudaErrorInvalidValue);
   return forward_bf16<false>(q, k, v, o, Strides{sqb, sqh, sqs}, Strides{skb, skh, sks},
                              Strides{svb, svh, svs}, Strides{sob, soh, sos}, B, H, KH, Sq, Sk,
-                             D, scale, causal, nullptr, static_cast<cudaStream_t>(stream));
+                             D, Dv, scale, causal, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // The training forward: fa_forward's arguments and `lse`, an f32
@@ -1903,14 +2229,42 @@ extern "C" int fa_forward_lse(const void* q, const void* k, const void* v, void*
                               int64_t skb, int64_t skh, int64_t sks,
                               int64_t svb, int64_t svh, int64_t svs,
                               int64_t sob, int64_t soh, int64_t sos,
-                              int B, int H, int KH, int Sq, int Sk, int D, float scale,
+                              int B, int H, int KH, int Sq, int Sk, int D, int Dv, float scale,
                               int causal, void* lse, void* stream) {
-  if (D < 8 || D > kBwdMaxD || D % 8 != 0 || KH < 1 || H % KH != 0 || Sq < 1 || Sk < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!forward_takes(D, Dv, B, H, KH, Sq, Sk)) return static_cast<int>(cudaErrorInvalidValue);
   return forward_bf16<true>(q, k, v, o, Strides{sqb, sqh, sqs}, Strides{skb, skh, sks},
                             Strides{svb, svh, svs}, Strides{sob, soh, sos}, B, H, KH, Sq, Sk,
-                            D, scale, causal, static_cast<float*>(lse),
+                            D, Dv, scale, causal, static_cast<float*>(lse),
                             static_cast<cudaStream_t>(stream));
+}
+
+// out[0..11]: the bf16 forward's launch shape at these shapes on the
+// current device, as `fa_forward` launches it: the instance (DP, DVP),
+// query rows a consumer warpgroup, keys a K/V tile, consumer warpgroups,
+// ring stages, dynamic shared-memory bytes, work items, blocks, 1 where the
+// products overlap the softmax (0: each tile in turn), the (batch, head)
+// pairs a chunk of the work order takes, and 1 where the warpgroups take
+// turns.
+extern "C" int fa_forward_plan(int B, int H, int KH, int Sq, int Sk, int D, int Dv, int causal,
+                               int* out) {
+  if (!forward_takes(D, Dv, B, H, KH, Sq, Sk)) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_sm = sm_count(dev);
+  if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const FwdChoice c = forward_choice(B, H, KH, Sq, Sk, D, Dv, causal, n_sm);
+  return instance(D, Dv, [&](auto dp, auto dvp) {
+    constexpr int DP = decltype(dp)::value, DVP = decltype(dvp)::value;
+    int smem = FwdSmem<DP, DVP, kRows>::kBytes;
+    if constexpr (DP <= 64) {
+      if (c.keys == 128) smem = FwdSmem<DP, DVP, 128>::kBytes;
+    }
+    const int plan[12] = {DP, DVP, kRows, c.keys, kConsumers, FwdSmem<DP, DVP, kRows>::kStages,
+                          smem, c.items, c.grid, c.overlap, c.chunk, c.turns};
+    for (int i = 0; i < 12; ++i) out[i] = plan[i];
+    return 0;
+  });
 }
 
 // The backward of bf16 attention, Sq query rows over Sk keys, causal
@@ -1921,7 +2275,7 @@ extern "C" int fa_forward_lse(const void* q, const void* k, const void* v, void*
 // q, k, v and dout are read through TMA, o by 16-byte loads: their rows
 // must be 16-byte aligned (D and Dv multiples of 8, every stride a multiple
 // of 8 elements); D <= 192, and (D, Dv) must round to an instance
-// (`bwd_instance`); any number of query heads a KV head.
+// (`instance`); any number of query heads a KV head.
 extern "C" int fa_backward(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, void* dq, void* dk, void* dv, const void* lse,
                            void* delta,
@@ -1971,7 +2325,7 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
   a.hpb = 1;  // launch_bwd chooses
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bwd_instance(D, Dv, [&](auto dp, auto dvp) {
+  return instance(D, Dv, [&](auto dp, auto dvp) {
     return launch_bwd<decltype(dp)::value, decltype(dvp)::value>(maps, a, st);
   });
 }
@@ -1983,7 +2337,7 @@ extern "C" int fa_backward_max_clusters(int C, int D, int Dv, int* out) {
   if (C < 1 || C > kMaxGroup || D < 8 || D > kBwdMaxD || D % 8 != 0 || Dv < 8 || Dv > D ||
       Dv % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return bwd_instance(D, Dv, [&](auto dp, auto dvp) {
+  return instance(D, Dv, [&](auto dp, auto dvp) {
     return max_clusters<decltype(dp)::value, decltype(dvp)::value>(C, out);
   });
 }
@@ -1996,7 +2350,7 @@ extern "C" int fa_backward_heads(int B, int H, int KH, int Sq, int Sk, int causa
       H % KH != 0 || Sq < 1 || Sk < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / KH, c = causal != 0;
-  return bwd_instance(D, Dv, [&](auto dp, auto dvp) {
+  return instance(D, Dv, [&](auto dp, auto dvp) {
     return heads_a_block<decltype(dp)::value, decltype(dvp)::value>(B, H, G, Sq, Sk, c, out);
   });
 }

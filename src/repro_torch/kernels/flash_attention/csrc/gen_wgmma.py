@@ -10,7 +10,7 @@ changing the shapes:  python3 gen_wgmma.py
 
 from pathlib import Path
 
-SS_N = 64  # the one N flash's Q.K^T product uses (64 keys a tile)
+SS_N = (64, 128)  # the Ns of flash's Q.K^T product: keys a tile (128 up to head_dim 64)
 # the N of flash's P.V product: each padded head_dim up to 128, then 192,
 # which takes every head_dim in (128, 192]
 RS_N = tuple(range(16, 129, 16)) + (192,)
@@ -21,8 +21,9 @@ FLASH_HEADER = """\
 //   Wgmma<N>::rs: A from registers (four bf16x2 a thread), B from shared
 //                 memory, MN-major (the transpose bit set); N = 16, 32, ... 128
 //                 and 192, the P.V product at every padded head_dim.
-//   Wgmma<64>::ss: A and B from shared memory through descriptors, both
-//                 K-major; the Q.K^T product of 64 keys.
+//   Wgmma<64>::ss, Wgmma<128>::ss: A and B from shared memory through
+//                 descriptors, both K-major; the Q.K^T product of a tile
+//                 of 64 or 128 keys.
 // scale_d == 0 overwrites the accumulator; 1 adds to it.
 #pragma once
 #include <stdint.h>
@@ -48,7 +49,7 @@ template <int N, int TB, int TA = 0> struct Wgmma;
 
 # (template arguments, N, B's transpose bit in the SS form or None for no SS
 # form, the same for the RS form[, A's transpose bit in the SS form])
-FLASH_SHAPES = tuple((str(n), n, 0 if n == SS_N else None, 1) for n in RS_N)
+FLASH_SHAPES = tuple((str(n), n, 0 if n in SS_N else None, 1) for n in RS_N)
 # the 16-column score chunks (K-major B), the 64-wide state terms and shares
 # (B K-major or MN-major), P^T dy and the dk share (A from registers, B
 # MN-major); the pairs route's dS^T q and P^T dy (A and B MN-major); the

@@ -21,9 +21,12 @@ and the causal mask is aligned as there, top-left: query row i sees keys
 bottom-right, which agrees only when Sq == Sk).  Any other mismatch of
 shapes raises.  head_dim may be up to 192 (MLA's q and k); in the model
 layout, v may be narrower than q and k (MLA's 128-wide values): the f32
-route reads it at its own width, the bf16 route pads it.  `f32_plan` is
-the f32 route's launch shape in plain Python (the source computes the same
-numbers: `fa_forward_f32_plan`).
+route reads it at its own width, and so does the bf16 route wherever an
+instance of the source takes (D, Dv) (`v_width`: MLA's (192, 128), or v
+rounded as q is), padding it to the nearest such width elsewhere.
+`forward_plan` and `f32_plan` are the two routes' launch shapes in plain
+Python (the source computes the same numbers: `fa_forward_plan`,
+`fa_forward_f32_plan`).
 
 Training (an input that requires a gradient, grad mode on): a CPU call runs
 the plain version and autograd differentiates it.  A CUDA call in bf16
@@ -32,8 +35,8 @@ head_dim the forward takes, v at a width of its own, any number of query
 heads a KV head: the dense and hybrid decoders' causal self-attention, the
 enc-dec's encoder and its cross-attention, deepseek-v3's MLA at q and k 192
 wide and v 128) goes through `_FlashFn`: `fa_forward_lse` (the forward
-that also writes each row's log-sum-exp; v zero-padded to q's width for it
-alone) and `fa_backward`, three launches counted as one call of
+that also writes each row's log-sum-exp; v at `v_width`) and
+`fa_backward`, three launches counted as one call of
 `flash_attention_backward`: Delta (with each row's lse in base 2) into an
 f32 scratch; dK/dV, a block a (64-key tile of Sk, batch) walking the query
 tiles its keys meet (every one of Sq, or under the causal mask those from
@@ -51,8 +54,8 @@ computes it), for the tests.
 `flash_work`, `forward_lse_work` and `backward_work` are each entry's bytes
 and operations at a call's shapes (`kernels/work.py`), over the (query,
 key) pairs the mask keeps (`flash_pairs`); each launch adds them to its
-wrapper's counters at the widths it is handed (v as padded, where the
-bf16 route pads it).  A meta call (the
+wrapper's counters at the widths it is handed (v as padded, where a
+route pads it).  A meta call (the
 dry run) runs the CUDA route without the launch; the backward's cluster
 occupancy is the H100's, read from `occupancy.py`'s table.
 """
@@ -172,12 +175,13 @@ def _check_shapes(q, k, v, narrow_v: bool = False) -> tuple[int, int, int, int]:
 
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# q, k, v, o, 4 x (batch, head, seq) strides, B, H, KH, Sq, Sk, D, scale,
-# causal, stream
-_ARGS = [_P] * 4 + [_L] * 12 + [_I] * 6 + [ctypes.c_float, _I, _P]
+# q, k, v, o, 4 x (batch, head, seq) strides, B, H, KH, Sq, Sk, D, Dv,
+# scale, causal, stream
+_ARGS = [_P] * 4 + [_L] * 12 + [_I] * 7 + [ctypes.c_float, _I, _P]
 _SIGNATURES = {"fa_forward": _ARGS,
-               # fa_forward's arguments with Dv after D
-               "fa_forward_f32": _ARGS[:22] + [_I] + _ARGS[22:],
+               "fa_forward_f32": _ARGS,
+               # B, H, KH, Sq, Sk, D, Dv, causal, the plan out (eleven ints)
+               "fa_forward_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
                # Sq, D, Dv, the plan out (five ints)
                "fa_forward_f32_plan": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
                # fa_forward's arguments with the lse output before the stream
@@ -260,9 +264,12 @@ def f32_plan_on_card(Sq: int, D: int, Dv: int) -> tuple[int, ...]:
 
 def v_width(dtype: torch.dtype, D: int, Dv: int) -> int:
     """The width v reaches the kernel at in the model layout: its own on
-    the f32 route, which takes Dv < D; zero-padded to D on the bf16 one
-    (exact: the padded columns carry zeros and are sliced off)."""
-    return Dv if dtype == torch.float32 else D
+    the f32 route, which takes any Dv <= D; on the bf16 one its own where
+    an instance of the source takes (D, Dv), as the backward's
+    (`grad_v_width`: MLA's 128 beside 192), else zero-padded to the nearest
+    such width (exact: the padded columns carry zeros and are sliced
+    off)."""
+    return Dv if dtype == torch.float32 else grad_v_width(D, Dv)
 
 
 def _padded_dim(d: int) -> int:
@@ -272,11 +279,11 @@ def _padded_dim(d: int) -> int:
 
 
 def grad_v_width(D: int, Dv: int) -> int:
-    """The width v, o and dout reach the backward kernel at, for q and k D
-    wide and v Dv <= D: Dv itself where an instance takes the pair (v
-    rounds as q does, or to 128 beside q past 128: MLA's (192, 128)), else
-    the nearest such width above it (zero columns, exact: dv is sliced
-    back)."""
+    """The width v, o and dout reach the bf16 kernels at (the forward's
+    and the backward's instances are one set), for q and k D wide and v
+    Dv <= D: Dv itself where an instance takes the pair (v rounds as q
+    does, or to 128 beside q past 128: MLA's (192, 128)), else the nearest
+    such width above it (zero columns, exact: o and dv are sliced back)."""
     dp, dvp = _padded_dim(D), _padded_dim(Dv)
     if dvp == dp or (dp == MAX_HEAD_DIM and dvp == REG_COLS):
         return Dv
@@ -328,7 +335,8 @@ def backward_work(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, Dv: int,
 def _launch(q, k, v, o, causal: bool, scale: float) -> None:
     """All four are (B, heads, seq, D) views of one dtype, bfloat16 or
     float32, with a unit stride on D; k and v of Sk rows, q and o of Sq;
-    in float32 v and o may be Dv <= D wide."""
+    v and o may be Dv <= D wide (in bfloat16 a width an instance takes,
+    `grad_v_width(D, Dv) == Dv`)."""
     B, H, Sq, D = q.shape
     Dv = v.shape[3]
     if D > MAX_HEAD_DIM:
@@ -337,8 +345,9 @@ def _launch(q, k, v, o, causal: bool, scale: float) -> None:
                                                                         torch.float32):
         raise TypeError(f"the kernel takes bfloat16 (tensor cores) or float32 (CUDA cores) "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if Dv != D and q.dtype != torch.float32:
-        raise ValueError(f"the bf16 route takes v as wide as q and k ({D}), got {Dv}")
+    if q.dtype == torch.bfloat16 and (Dv > D or grad_v_width(D, Dv) != Dv):
+        raise ValueError(f"the bf16 route takes v of a width an instance pairs with head_dim "
+                         f"{D} (grad_v_width), got {Dv}")
     args = [_strides(t) for t in (q, k, v, o)]
     ptrs = [t.data_ptr() for t in (q, k, v, o)]
     if q.dtype == torch.bfloat16:
@@ -346,15 +355,13 @@ def _launch(q, k, v, o, causal: bool, scale: float) -> None:
             _check_tma(t, st, ptr)
     if q.numel() == 0:
         return
-    dims = (B, H, k.shape[1], Sq, k.shape[2], D)
+    dims = (B, H, k.shape[1], Sq, k.shape[2], D, Dv)
 
     def call():
         lib = _lib.load("flash_attention", _SIGNATURES)
-        if q.dtype == torch.float32:
-            return lib.fa_forward_f32(*ptrs, *args[0], *args[1], *args[2], *args[3], *dims, Dv,
-                                      float(scale), int(causal), _lib.stream_handle(q))
-        return lib.fa_forward(*ptrs, *args[0], *args[1], *args[2], *args[3], *dims,
-                              float(scale), int(causal), _lib.stream_handle(q))
+        fn = lib.fa_forward_f32 if q.dtype == torch.float32 else lib.fa_forward
+        return fn(*ptrs, *args[0], *args[1], *args[2], *args[3], *dims, float(scale),
+                  int(causal), _lib.stream_handle(q))
 
     _lib.launch(q, "flash_attention", call)
     count(flash_attention, flash_work(B, H, k.shape[1], Sq, k.shape[2], D, Dv, causal,
@@ -400,20 +407,118 @@ def flash_attention_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                                 o: torch.Tensor, scale: float, causal: bool = True
                                 ) -> torch.Tensor:
     """The training forward on CUDA: attention of (B, H, Sq, D) query views
-    over (B, KH, Sk, D) key and value views into `o`, causal (top-left) or
-    not, returning the (B, H, Sq) f32 log-sum-exp of each query row."""
+    over (B, KH, Sk, D) key views and (B, KH, Sk, Dv) value views into `o`
+    (B, H, Sq, Dv), causal (top-left) or not, returning the (B, H, Sq) f32
+    log-sum-exp of each query row; Dv a width an instance pairs with D
+    (`grad_v_width(D, Dv) == Dv`)."""
     B, H, Sq, D = q.shape
+    Dv = v.shape[3]
+    if o.shape[3] != Dv or grad_v_width(D, Dv) != Dv:
+        raise ValueError(f"flash_attention_forward_lse: v and o must share one width the kernel "
+                         f"takes beside head_dim {D} (grad_v_width), got {Dv}, {o.shape[3]}")
     for t in (q, k, v, o):
         _check_tma(t, _strides(t), t.data_ptr())
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _lib.launch(q, "flash_attention_forward_lse", lambda: _lib.load(
         "flash_attention", _SIGNATURES).fa_forward_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *_strides(q), *_strides(k),
-        *_strides(v), *_strides(o), B, H, k.shape[1], Sq, k.shape[2], D, float(scale),
+        *_strides(v), *_strides(o), B, H, k.shape[1], Sq, k.shape[2], D, Dv, float(scale),
         int(causal), lse.data_ptr(), _lib.stream_handle(q)))
     count(flash_attention_forward_lse,
-          forward_lse_work(B, H, k.shape[1], Sq, k.shape[2], D, D, causal))
+          forward_lse_work(B, H, k.shape[1], Sq, k.shape[2], D, Dv, causal))
     return lse
+
+
+FWD_ROWS = 64       # kRows: query rows a consumer warpgroup
+FWD_CONSUMERS = 2   # kConsumers: consumer warpgroups a block
+PANEL_BYTES = FWD_ROWS * 128  # kPanelBytes: 64 rows of a 64-column panel
+SMEM_LIMIT = 232448  # kMaxSmem: dynamic shared memory a block may have on the H100
+CHUNK_BYTES = 24 << 20  # kChunkBytes: K and V a chunk of the work order may read
+TURN_KEYS = 1024  # kTurnKeys: keys the longest item walks before the warpgroups take turns
+
+
+@dataclass(frozen=True)
+class ForwardPlan:
+    """The bf16 forward's launch shape: the instance (`dp`, `dvp`), a work
+    item of `consumers` warpgroups of `rows` query rows each, K/V tiles of
+    `keys` keys through a ring of `stages`, `smem` bytes of dynamic shared
+    memory, `items` work items walked by `grid` persistent blocks (one an
+    SM at most), whether the products overlap the softmax (`overlap`:
+    within each warpgroup; else each tile's S, softmax and P.V in turn, as
+    at DVP 192 and where every block walks one item of at most two tiles),
+    the work order's chunks of `chunk` (batch, head) pairs, and
+    whether the two warpgroups take turns to issue their products
+    (`turns`, the ping-pong).  `keys` is 128 for an overlapped non-causal
+    call up to head_dim 64 whose items keep both warpgroups busy, else 64.
+    The source's `forward_choice` makes the same choices."""
+
+    dp: int
+    dvp: int
+    rows: int
+    keys: int
+    consumers: int
+    stages: int
+    smem: int
+    items: int
+    grid: int
+    overlap: bool
+    chunk: int
+    turns: bool
+
+    def as_tuple(self) -> tuple[int, ...]:
+        """The twelve numbers in `fa_forward_plan`'s order."""
+        return (self.dp, self.dvp, self.rows, self.keys, self.consumers, self.stages, self.smem,
+                self.items, self.grid, int(self.overlap), self.chunk, int(self.turns))
+
+
+@functools.lru_cache(maxsize=256)
+def forward_plan(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, Dv: int, causal: bool,
+                 n_sm: int) -> ForwardPlan:
+    """The launch shape of `fa_forward` (and `fa_forward_lse`) for (B, H,
+    Sq, D) queries over KH KV heads of Sk keys, v Dv wide, on a card of
+    `n_sm` SMs; raises for what the kernel does not take (head_dim or Dv
+    not a multiple of 8, Dv > D, D past 192, a (D, Dv) no instance takes).
+    The instance rounds each width as `_padded_dim` does; the ring has four
+    stages up to head_dim 128, three at (192, 128), two at (192, 192); the
+    products overlap the softmax where v's accumulator fits beside both
+    score sets (DVP <= 128) unless every block walks one item (items <= SMs)
+    of at most two 64-key tiles, and the two warpgroups take turns where
+    both are busy (Sq past 64) and the longest item walks `TURN_KEYS` keys
+    or more (min(Sq, Sk) under the causal mask).  A chunk of the work order takes whole groups of the H / KH
+    heads of a KV head, as many as keep its K and V (Sk rows, D + Dv
+    columns a KV head) within `CHUNK_BYTES`, so that a head's K and V stay
+    in L2 while its query blocks come round."""
+    if B < 1 or H < 1 or KH < 1 or H % KH or Sq < 1 or Sk < 1 or n_sm < 1:
+        raise ValueError(f"no forward plan for B {B}, {H} heads over {KH}, Sq {Sq}, Sk {Sk} on "
+                         f"{n_sm} SMs")
+    if D % 8 or Dv % 8 or not 8 <= Dv <= D <= MAX_HEAD_DIM or grad_v_width(D, Dv) != Dv:
+        raise ValueError(f"no forward plan for head_dim {D} and v's width {Dv}: the kernel takes "
+                         f"multiples of 8 up to {MAX_HEAD_DIM}, v of a width an instance pairs "
+                         f"with D (grad_v_width)")
+    dp, dvp = _padded_dim(D), _padded_dim(Dv)
+    stages = 2 if dvp > REG_COLS else 3 if dp > REG_COLS else 4
+    items = -(-Sq // (FWD_CONSUMERS * FWD_ROWS)) * H * B
+    longest = min(Sq, Sk) if causal else Sk
+    overlap = dvp <= REG_COLS and (items > n_sm or -(-longest // FWD_ROWS) > 2)
+    keys = 128 if overlap and dp <= 64 and not causal and Sq > FWD_ROWS else FWD_ROWS
+    kpanel = keys * 128  # a panel of a K or V tile
+    qo = (-(-dp // 64) + -(-dvp // 64)) * PANEL_BYTES  # a Q and an output tile
+    kv = (-(-dp // 64) + -(-dvp // 64)) * kpanel       # a K and a V tile
+    smem = FWD_CONSUMERS * qo + stages * kv + 8 * (2 + 2 * stages) + 1024
+    chunk = min(max(CHUNK_BYTES // (Sk * (D + Dv) * 2), 1) * (H // KH), H * B)
+    return ForwardPlan(dp, dvp, FWD_ROWS, keys, FWD_CONSUMERS, stages, smem, items,
+                       min(items, n_sm), overlap, chunk,
+                       overlap and Sq > FWD_ROWS and longest >= TURN_KEYS)
+
+
+def forward_plan_on_card(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, Dv: int,
+                         causal: bool = True) -> tuple[int, ...]:
+    """`ForwardPlan.as_tuple()` as the source computes it on the current
+    card."""
+    out = (ctypes.c_int * 12)()
+    lib = _lib.load("flash_attention", _SIGNATURES)
+    _lib.check("fa_forward_plan", lib.fa_forward_plan(B, H, KH, Sq, Sk, D, Dv, int(causal), out))
+    return tuple(out)
 
 
 @dataclass(frozen=True)
@@ -618,20 +723,22 @@ def backward_heads(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
 class _FlashFn(torch.autograd.Function):
     """bf16 attention, causal or not, with its backward kernel.  q, k, v
     are in the caller's layout, (B, T, H, D) when `bthd` or (B, H, S, D);
-    v may be Dv <= D wide (MLA's values).  The forward pads v with zero
-    columns to D for `fa_forward_lse` alone and returns the output's
-    Dv-wide view; v is saved as it came.  The output is allocated in the
-    caller's layout, and so are dq, dk and dv (with the strides of q, k
-    and a dense v, which suit the TMA forward when remat runs it again);
-    the backward pads v, o and dout only where the source has no instance
-    at Dv (`grad_v_width`), and slices dv back."""
+    v may be Dv <= D wide (MLA's values).  Both kernels take v at its own
+    width wherever the source has an instance at (D, Dv) (`grad_v_width`:
+    MLA's 128 beside 192); elsewhere the forward pads v with zero columns
+    to that width for `fa_forward_lse` and returns the output's Dv-wide
+    view, and the backward pads v, o and dout likewise and slices dv back.
+    v is saved as it came.  The output is allocated in the caller's layout,
+    and so are dq, dk and dv (with the strides of q, k and a dense v, which
+    suit the TMA forward when remat runs it again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bthd: bool, scale: float, causal: bool):
         view = (lambda t: t.transpose(1, 2)) if bthd else (lambda t: t)
         D, Dv = q.shape[-1], v.shape[-1]
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        vp = v if Dv == D else F.pad(v, (0, D - Dv))
+        W = grad_v_width(D, Dv)
+        out = torch.empty((*q.shape[:-1], W), dtype=q.dtype, device=q.device)
+        vp = v if Dv == W else F.pad(v, (0, W - Dv))
         lse = flash_attention_forward_lse(view(q), view(k), view(vp), view(out), scale, causal)
         out = out[..., :Dv]
         ctx.bthd, ctx.scale, ctx.causal = bthd, scale, causal
@@ -672,11 +779,12 @@ def attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True) -> torch.Tensor:
     """Attention in the model layout: q (B, Tq, H, D), k (B, Tk, KH, D),
     v (B, Tk, KH, Dv) with Dv <= D -> (B, Tq, H, Dv).  A narrower v (MLA's
-    values against its 192-wide q and k) goes to the f32 kernel and, under
-    grad, to `_FlashFn` as it is, and is zero-padded to D elsewhere
-    (`v_width`; the bf16 forward and the plain version), the output sliced
-    back to Dv: exact, since the padded columns carry zeros; the scale
-    stays D**-0.5 of q, as in `chunked_attention`."""
+    values against its 192-wide q and k) goes to the kernels as it is where
+    they take it (`v_width`: the f32 route always, the bf16 one at an
+    instance's width, MLA's included; under grad through `_FlashFn`), and
+    is zero-padded elsewhere (to `v_width`, or to D for the plain version),
+    the output sliced back to Dv: exact, since the padded columns carry
+    zeros; the scale stays D**-0.5 of q, as in `chunked_attention`."""
     D, Dv = q.shape[-1], v.shape[-1]
     on_card = _lib.route(q, k, v)
     if on_card and _lib.needs_grad(q, k, v):

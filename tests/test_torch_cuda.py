@@ -148,10 +148,14 @@ def test_flash_attention_kernel_unequal_lengths_match_plain(cuda, B, H, KH, Sq, 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_flash_attention_kernel_narrower_v(cuda, causal, dtype):
-    """MLA's layout on the card: q and k (B, T, H, 192), v 128 wide; the
-    f32 kernel reads v at its own width, the bf16 wrapper pads v and slices
-    the output; one launch, against the plain version on the padded v."""
+def test_flash_attention_kernel_narrower_v(cuda, causal, dtype, monkeypatch):
+    """MLA's layout on the card: q and k (B, T, H, 192), v 128 wide; both
+    kernels read v at its own width (the bf16 one through its (192, 128)
+    instance): one launch and no pad, against the plain version on the
+    padded v."""
+    pads = []
+    real_pad = fa.F.pad
+    monkeypatch.setattr(fa.F, "pad", lambda *a, **k: pads.append(a) or real_pad(*a, **k))
     q = _on(cuda, 80, (2, 130, 8, 192), dtype)
     k = _on(cuda, 81, (2, 130, 8, 192), dtype)
     v = _on(cuda, 82, (2, 130, 8, 128), dtype)
@@ -159,11 +163,123 @@ def test_flash_attention_kernel_narrower_v(cuda, causal, dtype):
     got = fa.attention_bthd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1 and got.shape == (2, 130, 8, 128)
+    assert pads == []
+    monkeypatch.undo()
     vp = torch.nn.functional.pad(v, (0, 64))
     want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), vp.transpose(1, 2),
                                     causal=causal).transpose(1, 2)[..., :128]
     bound = tol(dtype) if dtype == torch.float32 else attn_tol(dtype)
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **bound)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+def test_flash_attention_narrow_v_equals_the_padded_call(cuda, causal):
+    """bf16 v at 128 columns (the (192, 128) instance) and the same v
+    zero-padded to 192 (the (192, 192) one): the same tiles, the same
+    scores and softmax, each output column the same sum over the keys, so
+    the 128 columns agree bit for bit."""
+    q, k = (_on(cuda, 96 + i, (2, 300, 8, 192), torch.bfloat16) for i in range(2))
+    v = _on(cuda, 98, (2, 300, 8, 128), torch.bfloat16)
+    got = fa.attention_bthd(q, k, v, causal=causal)
+    padded = fa.attention_bthd(q, k, torch.nn.functional.pad(v, (0, 64)), causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got, padded[..., :128])
+
+
+# (D, Dv) of the bf16 forward's instances on the model paths: seamless's 64,
+# the serve's 80, the dense models' 128, MLA's (192, 128), and (192, 192)
+_BF16_WIDTHS = [(64, 64), (80, 80), (128, 128), (192, 128), (192, 192)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D,Dv", _BF16_WIDTHS, ids=lambda x: str(x))
+@pytest.mark.parametrize("G", [1, 5, 16])
+@pytest.mark.parametrize("Sq,Sk", [(200, 200), (70, 300), (300, 70), (33, 1000), (129, 1)])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+def test_flash_attention_bf16_forward_widths_groups_lengths(cuda, D, Dv, G, Sq, Sk, causal):
+    """The bf16 forward in the model layout at each instance (v unpadded),
+    G query heads a KV head, Sq and Sk ragged against the 128-row items and
+    64-key tiles, causal (Sq < Sk and Sq > Sk) and not: one launch, against
+    the plain version at `attn_tol`; the LSE forward's output bit-equal to
+    it and its lse the plain one."""
+    B, KH = 2, 2
+    dtype = torch.bfloat16
+    q = _on(cuda, 170, (B, Sq, G * KH, D), dtype)
+    k = _on(cuda, 171, (B, Sk, KH, D), dtype)
+    v = _on(cuda, 172, (B, Sk, KH, Dv), dtype)
+    before = fa.flash_attention.launches
+    got = fa.attention_bthd(q, k, v, causal=causal)
+    o = torch.full_like(got, float("nan"))
+    lse = fa.flash_attention_forward_lse(q.transpose(1, 2), k.transpose(1, 2),
+                                         v.transpose(1, 2), o.transpose(1, 2), D ** -0.5,
+                                         causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1 and got.shape == (B, Sq, G * KH, Dv)
+    vp = torch.nn.functional.pad(v, (0, D - Dv)).transpose(1, 2)
+    want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), vp,
+                                    causal=causal).transpose(1, 2)[..., :Dv]
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **attn_tol(dtype))
+    assert torch.equal(o, got)
+    torch.testing.assert_close(lse, fa.flash_attention_lse_plain(
+        q.transpose(1, 2), k.transpose(1, 2), causal=causal), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D,Dv", _BF16_WIDTHS, ids=lambda x: str(x))
+def test_flash_attention_bf16_forward_replays_bit_equal_in_a_graph(cuda, D, Dv):
+    """`fa_forward` and `fa_forward_lse` captured in a CUDA graph (nothing
+    allocated or synchronised in the launch) and replayed on new inputs
+    copied in, over NaN: equal to the eager calls bit for bit."""
+    B, Sq, Sk, H, KH = 2, 300, 300, 8, 2
+    dtype = torch.bfloat16
+    q = _on(cuda, 180, (B, H, Sq, D), dtype)
+    k = _on(cuda, 181, (B, KH, Sk, D), dtype)
+    v = _on(cuda, 182, (B, KH, Sk, Dv), dtype)
+    outs = [torch.empty(B, H, Sq, Dv, dtype=dtype, device=cuda) for _ in range(2)]
+    lse = torch.empty(B, H, Sq, device=cuda)
+
+    def calls():
+        fa._launch(q, k, v, outs[0], True, D ** -0.5)
+        lse.copy_(fa.flash_attention_forward_lse(q, k, v, outs[1], D ** -0.5, True))
+
+    calls()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        calls()
+    for i in range(2):
+        for t, seed in ((q, 183), (k, 184), (v, 185)):
+            t.copy_(_on(cuda, seed + 3 * i, t.shape, dtype))
+        calls()
+        torch.cuda.synchronize()
+        eager = [t.clone() for t in (*outs, lse)]
+        for t in (*outs, lse):
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip((*outs, lse), eager):
+            assert torch.equal(got, want), i
+        assert torch.equal(outs[0], outs[1])
+    del graph
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv", [
+    (8, 32, 32, 128, 128, 80, 80), (2, 56, 8, 3008, 3008, 128, 128),
+    (2, 128, 128, 512, 512, 192, 128), (4, 128, 128, 1024, 1024, 192, 128),
+    (2, 8, 2, 512, 512, 192, 192), (4, 16, 16, 33, 1024, 64, 64),
+    (1, 1, 1, 1, 1, 8, 8), (3, 5, 5, 129, 70, 136, 120), (4, 16, 16, 1024, 1024, 64, 64)])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+def test_flash_attention_bf16_forward_launch_follows_its_plan(cuda, B, H, KH, Sq, Sk, D, Dv,
+                                                              causal):
+    """`ops.forward_plan` is the source's launch (`fa_forward_plan`): the
+    instance, rows, keys a tile, consumers, ring stages, shared memory,
+    items, grid on this card's SMs, whether the products overlap the
+    softmax, the work order's chunk, and whether the warpgroups take
+    turns."""
+    dev = torch.cuda.current_device()
+    plan = fa.forward_plan(B, H, KH, Sq, Sk, D, Dv, causal, _lib.sm_count(dev))
+    assert fa.forward_plan_on_card(B, H, KH, Sq, Sk, D, Dv, causal) == plan.as_tuple()
 
 
 @pytest.mark.requires_cuda

@@ -200,10 +200,9 @@ def test_flash_attention_meta(name):
     B, Sq, Sk, H, KH, D, Dv, causal = FLASH_SHAPES[name]
     want, want_grads, want_lse = _plain_flash(name)
     q, k, v = _meta(B, Sq, H, D), _meta(B, Sk, KH, D), _meta(B, Sk, KH, Dv)
-    # the bf16 forward is handed v padded to D; the backward takes MLA's
-    # (192, 128) as it is
+    # the bf16 forward and the backward both take MLA's (192, 128) as it is
     _same(_counted("flash_attention", lambda: fa.attention_bthd(q, k, v, causal=causal),
-                   fa.flash_work(B, H, KH, Sq, Sk, D, D, causal, 2)), want)
+                   fa.flash_work(B, H, KH, Sq, Sk, D, Dv, causal, 2)), want)
     # the training forward, then its backward, through `_FlashFn`
     leaves = [t.requires_grad_() for t in (q, k, v)]
     before = work_counts()
@@ -211,7 +210,7 @@ def test_flash_attention_meta(name):
         o = fa.attention_bthd(*leaves, causal=causal)
         grads = torch.autograd.grad(o, leaves, torch.ones_like(o))
     _same(o, want)
-    lse_work = fa.forward_lse_work(B, H, KH, Sq, Sk, D, D, causal)
+    lse_work = fa.forward_lse_work(B, H, KH, Sq, Sk, D, Dv, causal)
     got = _delta(before, "flash_attention_forward_lse")
     assert got["launches"] == 1 and got["nbytes"] == pytest.approx(lse_work.nbytes)
     _same(grads, want_grads)

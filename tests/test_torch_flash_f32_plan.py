@@ -58,12 +58,13 @@ def test_f32_route_takes_a_narrower_v_without_a_pad():
     """MLA's values (128 beside q and k of 192): the f32 kernel reads v at
     its own width and accumulates 4 chunks of 4 columns a thread, not the 6
     a 192-wide v takes; the same tiles as the 192-wide call, so the two
-    agree bit for bit on the 128 columns.  The bf16 route still pads."""
+    agree bit for bit on the 128 columns.  The bf16 route takes MLA's v at
+    its own width too (its (192, 128) instance)."""
     narrow, wide = fa.f32_plan(512, 192, 128), fa.f32_plan(512, 192, 192)
     assert (narrow.Dv, narrow.v_chunks, wide.v_chunks) == (128, 4, 6)
     assert (narrow.rows, narrow.keys, narrow.smem) == (wide.rows, wide.keys, wide.smem)
     assert fa.v_width(torch.float32, 192, 128) == 128
-    assert fa.v_width(torch.bfloat16, 192, 128) == 192
+    assert fa.v_width(torch.bfloat16, 192, 128) == 128
 
 
 @pytest.mark.parametrize("Sq,D,Dv", [(0, 64, 64), (8, 193, 128), (8, 64, 80), (8, 64, 0)])

@@ -613,8 +613,8 @@ def test_attention_bthd_under_grad_hands_flashfn_v_at_its_own_width(monkeypatch)
     """MLA's widths through the training route's Python, on the CPU with the
     two launches stood in for by their plain versions: `attention_bthd`
     under grad passes v to `_FlashFn` as it is (128 wide beside q and k of
-    192, never padded), the forward kernel gets v padded to 192 and the
-    backward v, o and dout at 128 (an instance of the source), and the
+    192, never padded), the forward kernel gets v at 128 and the backward
+    v, o and dout at 128 (the source's (192, 128) instance), and the
     gradients, dv 128 wide, agree with autograd of the plain forward."""
     B, T, H, D, Dv = 1, 40, 4, 192, 128
     g = torch.Generator().manual_seed(4)
@@ -623,8 +623,8 @@ def test_attention_bthd_under_grad_hands_flashfn_v_at_its_own_width(monkeypatch)
     seen = {}
 
     def forward_lse(q, k, v, o, scale, causal=True):
-        seen["forward v"] = v.shape[-1]
-        o.copy_(fa.flash_attention_plain(q, k, v, causal, scale))
+        seen["forward v, o"] = (v.shape[-1], o.shape[-1])
+        o.copy_(_plain_narrow(q, k, v, causal))
         return fa.flash_attention_lse_plain(q, k, scale, causal)
 
     def backward(q, k, v, o, dout, lse, dq, dk, dv, scale, causal=True):
@@ -649,7 +649,8 @@ def test_attention_bthd_under_grad_hands_flashfn_v_at_its_own_width(monkeypatch)
     assert out.shape == (B, T, H, Dv)
     dout = torch.randn(out.shape, generator=g).to(torch.bfloat16)
     got = torch.autograd.grad(out, (q, k, v), dout)
-    assert seen == {"_FlashFn v": Dv, "forward v": D, "backward v, o, dout, dv": (Dv,) * 4}
+    assert seen == {"_FlashFn v": Dv, "forward v, o": (Dv, Dv),
+                    "backward v, o, dout, dv": (Dv,) * 4}
     assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
     monkeypatch.undo()
     leaves = [t.detach().to(torch.bfloat16).float().requires_grad_() for t in (q, k, v)]
