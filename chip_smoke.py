@@ -138,8 +138,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    Sk, a causal Sq < Sk and Sq > Sk, deepseek-v3's MLA at a training micro-batch (q and k 192
    wide, v 128), 16 query heads a KV head and q, k and v all 192 wide)
    and the serve's or a G = 1 one; flash attention's
-   backward is split by launch (Delta, dK/dV, dQ) and read in TFLOP/s
-   against its bound.
+   backward is split by launch (Delta, dK/dV, dQ; Delta made inside dQ
+   reads 0), its launch shape held to `fa_backward_plan`, and read in
+   TFLOP/s against its bound.
 
 7. the dry run (`[dry run]` lines): `repro_torch.kernels.occupancy`'s
    table of the backward kernels' occupancy held equal to the card's
@@ -978,7 +979,19 @@ def replays_equal(call, eager: list) -> bool:
     return equal
 
 
-def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
+def backward_launches_us(split: dict[str, float]) -> dict[str, float]:
+    """`kernel_us`'s times of one flash backward call summed by launch:
+    Delta (0 where the tree's dQ launch makes it), dK/dV and dQ."""
+    return {part: sum(us for name, us in split.items() if name.startswith(prefix))
+            for part, prefix in (("delta", "fa_bwd_delta"), ("dkdv", "fa_bwd_dkdv"),
+                                 ("dq", "fa_bwd_dq"))}
+
+
+def launch_words(us: dict[str, float]) -> str:
+    return f"Delta {us['delta']:.3f}, dK/dV {us['dkdv']:.3f}, dQ {us['dq']:.3f} us"
+
+
+def check_flash_backward(dev, g, parent, only: str | None = None) -> tuple[dict, dict]:
     """At `grad_shapes_flash`, bf16, causal (top-left) or not, Sq and Sk of
     their own, v (and o, dout, dv) Dv <= D wide: the LSE forward's output
     (v at its own width, as `_FlashFn` hands it) equals `fa_forward`'s bit
@@ -989,16 +1002,17 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
     bit-equal to the eager call.  The LSE forward is timed (hot and cold
     L2) beside `fa_forward` at the same inputs and, under `--parent`, in turns with
     the other tree's (which takes v padded to D where it is narrower, as
-    that tree's `_FlashFn` pads it), with its launch plan; the backward (three launches) beside
+    that tree's `_FlashFn` pads it), with its launch plan; the backward (two launches) beside
     its bound (five products over the pairs the mask keeps, `flash_pairs`:
     S^T, dK and dQ D wide, dP^T and dV Dv wide), the plain backward, SDPA's
     backward (`is_causal` as the row, enable_gqa, v at its own width) and,
-    under `--parent`, the other tree's backward in turns at the causal Sq
-    == Sk rows an older tree takes (D == Dv <= 128, at most 8 query heads
-    a KV head); one call's device time is split by launch (Delta, dK/dV,
-    dQ) from the profiler, and the achieved rate read against the bound's
-    five products.  Returns the rows of both entries, the train shape's
-    first."""
+    under `--parent`, the other tree's backward in turns at every row (both
+    hot and cold L2); one call's device time of each tree is split by
+    launch (Delta, dK/dV, dQ) from the profiler (a dK/dV launch that starts
+    while dQ runs counts its wait for dQ), and the achieved rate read
+    against the bound's five products.  `only`: the rows whose name holds
+    it (every row where None).  Returns the rows of both entries, the
+    first row's first."""
     import torch
     import torch.nn.functional as F
 
@@ -1008,6 +1022,8 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
     bf16 = torch.bfloat16
     fwd, bwd = [], []
     for what, B, Sq, Sk, H, KH, D, Dv, causal in grad_shapes_flash():
+        if only is not None and only not in what:
+            continue
         q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(bf16)
         dout = torch.randn(B, H, Sq, Dv, generator=g, device=dev).to(bf16)
         k = torch.randn(B, KH, Sk, D, generator=g, device=dev).to(bf16)
@@ -1043,6 +1059,12 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
                                  f"differs from the eager call")
         plain_gaps = [grad_gap(a, b) for a, b in zip(plain_bf16, want)]
         del want, again, plain_bf16, leaves
+        other = (parent or {}).get("flash_attention")
+        if other is not None:  # the other tree's gradients, to the bit or by how far
+            theirs = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+            other.flash_attention_backward(q, k, v, o, dout, lse, *theirs, scale, causal)
+            vs_other = [float((a.float() - b.float()).abs().max()) for a, b in zip(grads, theirs)]
+            del theirs
         pairs = B * H * fa.flash_pairs(Sq, Sk, causal)
         f_ms, f_by = bound_ms(fa.forward_lse_work(B, H, KH, Sq, Sk, D, Dv, causal))
         b_ms, b_by = bound_ms(fa.backward_work(B, H, KH, Sq, Sk, D, Dv, causal))
@@ -1075,20 +1097,16 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
                             calls=100)))
 
         def b_call(m):
-            if m is fa:
-                m.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale, causal)
-            else:  # the other tree's: causal, Sq == Sk
-                m.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale)
+            m.flash_attention_backward(q, k, v, o, dout, lse, *grads, scale, causal)
 
-        older = causal and Sq == Sk and D == Dv <= 128 and H // KH <= 8  # an older tree's route
-        ms, parent_ms = paired_ms(b_call, fa, parent if older else None, iters=10)
-        split = kernel_us(lambda: b_call(fa))
-        launch_us = {part: sum(us for name, us in split.items() if name.startswith(prefix))
-                     for part, prefix in (("delta", "fa_bwd_delta"), ("dkdv", "fa_bwd_dkdv"),
-                                          ("dq", "fa_bwd_dq"))}
+        ms, parent_ms = paired_ms(b_call, fa, parent, iters=10)
+        cold_ms, parent_cold_ms = paired_ms(b_call, fa, parent, iters=10, cold=True)
+        launch_us, parent_launch_us = (None if m is None else backward_launches_us(
+            kernel_us(lambda m=m: b_call(m))) for m in (fa, other))
         bwd.append(dict(
             shape=[B, Sq, Sk, H, KH, D, Dv], causal=causal, what=what, max_abs_err=max(gaps),
-            tol=GRAD_TOL, ms=ms, parent_ms=parent_ms, launch_us=launch_us,
+            tol=GRAD_TOL, ms=ms, parent_ms=parent_ms, cold_ms=cold_ms,
+            parent_cold_ms=parent_cold_ms, launch_us=launch_us, parent_launch_us=parent_launch_us,
             tflops=2.0 * pairs * (3 * D + 2 * Dv) / (ms * 1e-3) / 1e12,
             plain_ms=time_ms(lambda: fa.flash_attention_backward_plain(
                 q, k, v, o, dout, lse, causal=causal), iters=3, warmup=1),
@@ -1106,25 +1124,38 @@ def check_flash_backward(dev, g, parent) -> tuple[dict, dict]:
             f"fa_forward's, lse within {lse_err:.3g} of the plain one; {plan_words}")
         at_once = fa._clusters_at_once(H // KH, D, dev.index, Dv)
         plan = fa.backward_plan(B, H, KH, Sq, Sk, D, torch.cuda.get_device_properties(
-            dev).multi_processor_count, at_once, causal)
-        heads = fa.backward_heads(B, H, KH, Sq, Sk, D, causal, Dv)
-        if heads != plan.heads:
-            raise AssertionError(f"flash_attention_backward ({what}): the launch walks "
-                                 f"{heads} heads a block, its plan {plan.heads}")
-        bwd[-1].update(heads=plan.heads, cluster=plan.cluster, clusters_at_once=dict(at_once))
+            dev).multi_processor_count, at_once, causal, Dv)
+        launched = fa.backward_plan_on_card(B, H, KH, Sq, Sk, D, causal, Dv)
+        if launched != plan.as_tuple():
+            raise AssertionError(f"flash_attention_backward ({what}): the launch's shape "
+                                 f"{launched} differs from its plan {plan.as_tuple()}")
+        bwd[-1].update(heads=plan.heads, cluster=plan.cluster, clusters_at_once=dict(at_once),
+                       plan=list(launched))
+        walk = (f"{math.prod(plan.dkdv_grid)} persistent blocks over {plan.dkdv_items} items "
+                f"of {plan.keys} keys and {plan.heads} heads in chunks of {plan.chunk} pairs"
+                if plan.persistent else
+                f"{math.prod(plan.dkdv_grid)} blocks of {plan.keys} keys and {plan.heads} "
+                f"heads, clusters of {plan.cluster}")
         log(f"[kernels] flash_attention_backward at the {what} shape ({mask}): "
-            f"{ms * 1e3:.3f} us{vs_parent(parent_ms)} (dK/dV: {math.prod(plan.dkdv_grid)} "
-            f"blocks of {plan.heads} heads, clusters of {plan.cluster}; the card holds "
-            f"{dict(at_once)} clusters of C at once; one call's launches: Delta "
-            f"{launch_us['delta']:.3f}, dK/dV {launch_us['dkdv']:.3f}, dQ "
-            f"{launch_us['dq']:.3f} us), {bwd[-1]['tflops']:.1f} TFLOP/s of the bound's five "
+            f"{ms * 1e3:.3f} us{vs_parent(parent_ms)} (cold L2 {cold_ms * 1e3:.3f} us"
+            f"{vs_parent(parent_cold_ms)}; dK/dV: {walk}, {plan.stages} stages, "
+            f"{plan.kv_bufs} K/V buffers, {plan.smem} bytes; dQ: {plan.dq_grid} blocks, "
+            f"chunks of {plan.dq_chunk} pairs; the card holds "
+            f"{dict(at_once)} clusters of C at once; one call's launches: "
+            f"{launch_words(launch_us)}"
+            f"{'' if parent_launch_us is None else ', parent ' + launch_words(parent_launch_us)})"
+            f", {bwd[-1]['tflops']:.1f} TFLOP/s of the bound's five "
             f"products ({bwd[-1]['tflops'] / (BF16_FLOP_S / 1e12):.3f} of the peak) vs bound "
             f"{b_ms * 1e3:.3f} us ({b_by}), SDPA backward {bwd[-1]['library_ms'] * 1e3:.3f} us, "
             f"plain {bwd[-1]['plain_ms'] * 1e3:.3f} us; host {bwd[-1]['host_ms'] * 1e3:.3f} us a "
             f"call; dq, dk, dv within {gaps[0]:.3g}, {gaps[1]:.3g}, {gaps[2]:.3g} of the f32 "
             f"plain backward's max |value| (tol {GRAD_TOL}; autograd of the plain forward in "
             f"bf16: {plain_gaps[0]:.3g}, {plain_gaps[1]:.3g}, {plain_gaps[2]:.3g}); bit-equal "
-            f"run to run and in a graph's replay")
+            f"run to run and in a graph's replay"
+            + ("" if other is None else "; " + (
+                "bit-equal to the other tree's" if not any(vs_other) else
+                f"the other tree's dq, dk, dv {vs_other[0]:.3g}, {vs_other[1]:.3g}, "
+                f"{vs_other[2]:.3g} apart")))
         del q, k, v, vf, of, o, direct, dout, lse, grads, ql, kl, vl, out
         torch.cuda.empty_cache()
     return (dict(fwd[0], max_abs_err=max(r["max_abs_err"] for r in fwd), shapes=fwd),

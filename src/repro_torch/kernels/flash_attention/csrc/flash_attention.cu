@@ -1249,10 +1249,9 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
 // math.  The FA2 form: the training forward (`fa_forward_lse`) also writes
 // each query row's log-sum-exp, so the backward recomputes P = exp(s - lse)
 // tile by tile and never holds the (Sq, Sk) scores:
-//   Delta = rowsum(dO * O)                     (`fa_bwd_delta_kernel`)
+//   Delta = rowsum(dO * O), dQ = scale dS K    (`fa_bwd_dq_kernel`, first)
 //   dV = P^T dO, dS = P * (dO V^T - Delta), dK = scale dS^T Q
 //                                              (`fa_bwd_dkdv_kernel`)
-//   dQ = scale dS K                            (`fa_bwd_dq_kernel`)
 // Bound: operations, five products a head over the (query, key) pairs the
 // mask keeps (S^T and dK D wide, dP^T and dV Dv wide, and dQ D wide; the
 // dQ kernel computes S and dP again, seven products in all), against the
@@ -1274,89 +1273,109 @@ bool rows_aligned(const void* p, Strides s, int B, int heads, int S) {
 // product and the bf16 fragments.  Each element of that accumulator is
 // read and written by one thread only, in a fixed order: deterministic.
 //
-// Design (the forward's: TMA into a ring, `wgmma`, warp-specialised):
-//  - Delta stays its own launch, sixteen lanes a row (8 columns a lane, a
-//    second pass past 128), which also writes each
-//    row's lse in base 2; both go to an f32 scratch of (B, H, Sp) rows each,
-//    Sp = Sq rounded up to 64 (zeros past Sq), so a query tile's 64 values
-//    of each are one 256-byte bulk copy;
-//  - dK/dV: a block a (64-key tile of Sk, batch) and hpb query heads of
-//    one KV head, walked in turn.  One producer warp loads the tile's K and
-//    V once and streams, head by head, the query tiles its keys meet (all
-//    of Sq; under the causal mask those from the tile's first key on)
-//    through a ring of three stages (two at D = Dv = 192, where three take
-//    more shared memory than a block has): Q, dO, and the tile's lse and
-//    Delta beside them.  Consumer warpgroup 0
-//    runs S^T = K Q^T as an SS `wgmma` (K as A, Q K-major as B), turns it
-//    into P^T = exp2(S^T scale log2e - lse) in registers, hands P^T in f32
-//    to warpgroup 1 through the stage's slot in shared memory (an mbarrier
-//    a stage), packs it to bf16 and runs dV += P^T dO as an RS `wgmma`
-//    whose B is the swizzled dO tile read MN-major (as the forward reads
-//    V).  Warpgroup 1 runs dP^T = V dO^T (SS) meanwhile, then
-//    dS^T = P^T (dP^T - Delta) and dK += dS^T Q (RS, Q read MN-major).
-//    Each consumer holds one 64 x min(D, 128) f32 accumulator (64
-//    registers a thread at D = 128) beside its 64 x 64 product (32): within
-//    the 168 registers a thread of a 288-thread block may have.  (A block's
-//    nine warps share the SM's four register partitions of 16,384, three to
-//    one: 3 x 32 x 168 fits, 224 does not.  A first design kept dK and dV of
-//    64 keys in one warpgroup, 128 + 64 registers, with a producer
-//    warpgroup and `setmaxnreg` 24/240; `ptxas` 12.9 held it at 168, spilled
-//    and serialised its `wgmma`s (C7512).  A third consumer warpgroup would
-//    put four warps on a partition: 128 registers a thread.)  No product
-//    is computed twice;
-//  - the C blocks of a KV head are one thread block cluster, C a divisor of
-//    the G query heads a KV head with C <= 8 (the portable size), each block
-//    walking hpb = G / C heads; a prime G past 8 takes C = 1, one block
-//    walking all G heads.  Each block's partial dK and dV go, in
-//    f32, to its own shared memory over the finished tiles; the cluster
-//    synchronises, and the block of rank r sums rows [r R, r R + R),
-//    R = ceil(64 / C), of every rank's partials through distributed shared
-//    memory in rank order 0..C-1, scales dK and writes bf16.
-//    Deterministic, no atomics, no global scratch.  `heads_a_block` picks
-//    C from the card's cluster occupancy: clusters of G full-SM blocks
-//    pack unevenly into the GPCs (at G = 6 an H100 holds 17 at once, 102
-//    SMs), and a block that walks several heads also spreads its K/V load
-//    and its share of the reduction over more steps;
-//  - dQ: the forward's persistent kernel with dO beside Q: a work item is
-//    128 query rows of one (head, batch), the items with the most K/V tiles
-//    first (`item_at`); K/V tiles of 64 keys stream through the ring;
-//    S = Q K^T and dP = dO V^T as SS `wgmma`s, dS packed to bf16 in
-//    registers, and dQ += dS K as an RS `wgmma` (K read MN-major);
+// Design (the forward's: TMA into a ring, `wgmma`, warp-specialised, a
+// producer warp beside two consumer warpgroups), two launches:
+//  - dQ first: the forward's persistent walk (`item_at`): an item is 128
+//    query rows of one (head, batch), in chunks of (batch, head) pairs whose
+//    K and V fit half the L2 (`forward_chunk`: at deepseek-v3's MLA each
+//    wave of items reads K and V from L2, not HBM), the items with the most
+//    K/V tiles first; K/V tiles of 64 keys stream through the ring; S = Q
+//    K^T and dP = dO V^T as SS `wgmma`s, dS packed to bf16 in registers,
+//    dQ += dS K as an RS `wgmma` (K read MN-major).  Up to head_dim 64 the
+//    next tile's S and dP are issued with this tile's dQ product and dS is
+//    made while that product runs (always two groups, C7514).  At an
+//    item's start each warpgroup also forms its rows' Delta (16-byte loads
+//    of O and dO, a quad a row pair) and writes it and the base-2 lse to an
+//    f32 scratch of (B, H, Sp) rows each, Sp = Sq rounded up to 64 (zeros
+//    past Sq), which the dK/dV launch reads as 256-byte bulk copies: no
+//    launch of its own.  Up to head_dim 128 dQ leaves through a swizzled
+//    staging tile and TMA stores (at 192 that tile does not fit);
+//  - dK/dV: an item is a key tile of one KV head in one batch and hpb of
+//    its query heads, walked head by head over the query tiles its keys
+//    meet (all of Sq; under the causal mask those from the tile's first
+//    key on).  The producer loads the item's K and V once and streams Q,
+//    dO, lse and Delta through a ring (as many stages as fit, up to four).
+//    Two launch shapes (`backward_choice`; `heads_a_block` picks C, the
+//    cluster, by the makespan of the walk, as before):
+//    * persistent (C = 1: G = 1, or hpb = G; `BwdPersist`): one block an
+//      SM walks the items in chunks of (batch, KV head) pairs whose Q and
+//      dO fit half the L2 (`backward_chunk`), within a chunk key tile 0
+//      (the longest causal walk) first; K and V in two buffers where the
+//      ring keeps three stages, so the next item's load overlaps this
+//      one's walk; dV and dK leave through swizzled staging tiles and TMA
+//      stores that run on while the next item starts (the per-item store
+//      was ~4 us of 4.5: direct 4-byte stores from the registers, measured
+//      by leaving them out, `scripts/flash_backward_rows.py`);
+//    * clustered (C > 1): a block an item of 64 keys, the C blocks of a KV
+//      head one thread block cluster, each walking hpb = G / C heads; the
+//      partial dK and dV, in f32 over the finished tiles, summed by rank
+//      r for rows [r R, r R + R) over ranks 0..C-1 in rank order through
+//      distributed shared memory.  Deterministic, no atomics, no scratch;
+//    * up to head_dim 64 a persistent item takes 128 keys and each
+//      consumer warpgroup runs the whole chain for 64 of them: S^T = K Q^T
+//      and dP^T = V dO^T (SS, K and V as A), P^T = exp2(S^T scale log2e -
+//      lse) and dS^T = P^T (dP^T - Delta) in registers, dV += P^T dO and
+//      dK += dS^T Q (RS, dO and Q read MN-major): dV 32 + dK 32 + S^T 32 +
+//      dP^T 32 registers; no hand-over, half the Q and dO traffic a key.
+//      (In clusters, whose walks are short, 128-key items measured slower:
+//      train_small 8.454 against 6.689 us of dK/dV);
+//    * past head_dim 64 the warpgroups split the chain over 64 keys:
+//      warpgroup 0 makes S^T and P^T, hands P^T in f32 to warpgroup 1
+//      through the stage's slot (an mbarrier a stage) and runs dV += P^T
+//      dO; warpgroup 1 makes dP^T, dS^T and dK += dS^T Q.  One 64 x min(D,
+//      128) accumulator a warpgroup (A block's nine warps share the SM's
+//      four register partitions three to one: 168 registers a thread.)
+//  - `ptxas` serialises every `wgmma` (an arrive and a wait around each)
+//    unless the warp index that gates them is broadcast from lane 0
+//    (C7520) and no accumulator is defined by other instructions between
+//    issue and wait on a path it cannot see through (C7515: a run-time
+//    "this warpgroup has a third panel" test; `rs_accumulate` makes it a
+//    template argument).  The earlier form of the dK/dV kernel was
+//    serialised at MLA's (192, 128) (C7520); no instance is now.  K's and
+//    V's tile addresses are made anew each step, or the compiler keeps
+//    every k-step's descriptor live across the walk;
 //  - ragged edges and the mask: query rows past Sq and keys past Sk are
-//    masked explicitly in both kernels (TMA zero-fills the rows past either
-//    end, and a zero key scores 0, so without the mask P = exp2(-lse) there,
-//    not 0); dK and dV are stored for keys below Sk only.  Under the causal
-//    mask with Sq < Sk a key tile at or past Sq meets no query: its blocks
-//    walk no step, their partials stay zero, and the cluster's reduction
-//    writes zero dK and dV for its keys (the outputs are not zeroed on the
-//    host);
-//  - the dK/dV grid is (H / hpb, B, key tiles), key tile 0, which walks
-//    the most query tiles, launched first; each launch is captured in a
-//    CUDA graph as it is: the maps are `__grid_constant__` parameters, and
-//    nothing is allocated or synchronised on the host.
-// What bounds it: the tensor cores wait on each warpgroup's elementwise
-// pass between its products (each consumer waits for its own `wgmma`s; the
-// other warpgroup's products fill the gap), warpgroup 1 waits for P^T, the
-// diagonal tiles' masked halves, and in dK/dV the cluster's reduction
-// (64 x D x 2 f32 a block over distributed shared memory).
-// Times measured (chip_smoke.py phase 2; NVIDIA H100 80GB HBM3, 700.00 W):
-// 143.245 us at qwen2-1.5b's (4, 1024, 12/2, 128), three heads a dK/dV
-// block in clusters of two, against the mma.sync design's 480.894 us in
-// the same run, SDPA's backward 157.779 us and the 32.602 us bound (Delta
-// 10.894, dK/dV 70.218, dQ 57.451 us; a head a block in clusters of six:
-// dK/dV 117.765 us); 73.883 us at (2, 1024, 8/8, 128) against 157.982,
-// 62.035 and 10.867 us.
-// At deepseek-v3's MLA training shape (4, 1024, 128/128, 192), v 128,
-// causal: 2385.645 us against the 452.086 us bound and SDPA's backward
-// 1661.203 us (Delta 97.185, dK/dV 1547.619, dQ 733.576 us): the 8,192
-// one-head dK/dV blocks each load K and V and reduce their partials for
-// 8.5 steps on average.  `ptxas -v` (the H100 machine's toolkit): dK/dV
-// 156 registers at (128, 128), 160 at (192, 192), 168 at (192, 128) with 4
-// bytes spilled; dQ 168 at each of the three, no spill.
+//    masked explicitly (TMA zero-fills the rows past either end, and a
+//    zero key scores 0, so without the mask P = exp2(-lse) there, not 0);
+//    TMA stores clip dK and dV at Sk and dQ at Sq.  Under the causal mask
+//    with Sq < Sk a key tile at or past Sq meets no query: its item walks
+//    no step and writes zero dK and dV (the outputs are not zeroed on the
+//    host); a warpgroup whose 64 keys all lie past Sk, or past every
+//    query of a stage, issues nothing for it;
+//  - the dK/dV launch is a programmatic dependent launch: its blocks may
+//    start on the SMs the dQ launch frees before that launch ends, and its
+//    producer waits for it (`wait_for_prior_launch`) before it reads Delta
+//    and lse;
+//  - each launch is captured in a CUDA graph as it is: the maps are
+//    `__grid_constant__` parameters, and nothing is allocated or
+//    synchronised on the host.  Every sum runs in one fixed order:
+//    bit-equal run to run and in a replay.
+// What bounds it: not measured inside a step (no profiler of the SM's
+// pipes on this card); a step of the 128-key dK/dV walk costs 1.34 us (4.2
+// MFLOP, 42% of an SM's peak).  Ruled out by measurement: the per-item
+// store (now TMA), the cluster reduction at MLA (gone at C = 1), making
+// P^T while dP^T runs (two commit groups: the same time).  What remains:
+// each warpgroup's chain S^T, dP^T -> exp2s -> dV, dK in turn (64-column
+// products at head_dim 64), dQ's second pass over S and dP (seven
+// products where the bound counts five), and at MLA dK's third panel,
+// loaded and stored from shared memory each step.
+// Times (scripts/flash_backward_rows.py, in turns with the kernel's earlier
+// form, hot L2; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6):
+// seamless-m4t-large-v2's encoder (4, 1024, 16/16, 64) 167.587 us against
+// the earlier form's 244.150 (SDPA's backward 137.917), its
+// cross-attention (q 256 over 1024) 50.602 against 99.059 (55.338), its
+// decoder (4, 256, 16/16, 64, causal) 16.882 against 30.658 (23.821);
+// deepseek-v3's MLA (4, 1024, 128/128, 192, v 128, causal) 1570.051
+// against 2412.968 (1668.538); qwen2-1.5b's (4, 1024, 12/2, 128) 124.461
+// against 144.038 (157.363).  The gradients are bit-equal to the earlier
+// form's at every row of phase 2.  `ptxas -v` (CUDA 12.8): no spill, no
+// C75xx note; dK/dV 94-168 registers (the persistent 128-key instance at
+// head_dim 64: 168), dQ 114-165.
 
 constexpr int kBwdMaxD = kMaxD;
-constexpr int kBwdKeys = kRows;  // keys a dK/dV block
 constexpr int kMaxGroup = 8;     // dK/dV blocks a cluster: the portable size
+
+constexpr int kWideKeys = 2 * kRows;  // keys a persistent dK/dV item up to head_dim 64
 
 struct BwdArgs {
   const bf16 *o, *dout;
@@ -1367,9 +1386,23 @@ struct BwdArgs {
   int B, H, KH, Sq, Sk, Sp, D;  // Sp: Sq rounded up to kRows
   int Dv;                       // v, o, dout and dv: Dv <= D columns
   int causal;                   // top-left: query row i sees keys 0..i
-  int hpb;  // query heads a dK/dV block, walked in turn (G / hpb blocks a cluster)
+  int hpb;  // query heads a dK/dV item, walked in turn (G / hpb blocks a cluster)
+  int chunk;     // (batch, KV head) pairs a chunk of the persistent dK/dV walk takes
+  int dq_chunk;  // (batch, head) pairs a chunk of dQ's walk takes (`item_at`)
   float scale;
 };
+
+// Programmatic dependent launch: the dK/dV launch may start on the SMs
+// the dQ launch frees before it ends (`allow_dependent_launch` in every
+// dQ block); its producer waits for the dQ launch to end
+// (`wait_for_prior_launch`) before it reads the Delta and lse that launch
+// writes, and before it exits
+__device__ __forceinline__ void allow_dependent_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_prior_launch() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
 
 // one cluster barrier, every thread of the cluster (not warp-aligned: the
 // producer warp arrives from divergent lanes); release and acquire
@@ -1413,40 +1446,39 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-// Delta[(b H + h) Sp + s] = sum_d dO O and, B H Sp values further on, lse
-// in base 2; rows s in [Sq, Sp) get zeros.  Sixteen lanes a row, two rows a
-// warp: one 16-byte load of each of O and dO a lane covers Dv <= 128, a
-// second pass the columns past it.
-constexpr int kDeltaLanes = 16;
-
-__global__ void __launch_bounds__(256) fa_bwd_delta_kernel(const BwdArgs a) {
-  const int64_t n_rows = static_cast<int64_t>(a.B) * a.H * a.Sp;
-  const int64_t idx = (static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x) / kDeltaLanes;
-  const int col = (threadIdx.x % kDeltaLanes) * 8;
-  const bool row_ok = idx < n_rows;  // every lane reaches the shuffles
-  const int s = row_ok ? static_cast<int>(idx % a.Sp) : a.Sq;
-  const int64_t bh = idx / a.Sp;
-  float acc = 0.0f;
-  if (s < a.Sq) {
-    const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
-    const bf16* orow = a.o + b * a.so.b + h * a.so.h + s * a.so.s;
-    const bf16* grow = a.dout + b * a.sdo.b + h * a.sdo.h + s * a.sdo.s;
-    for (int c0 = col; c0 < a.Dv; c0 += kDeltaLanes * 8) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c0);
-      const uint4 gv = *reinterpret_cast<const uint4*>(grow + c0);
-      const bf16* op = reinterpret_cast<const bf16*>(&ov);
-      const bf16* gp = reinterpret_cast<const bf16*>(&gv);
+// Delta = sum_d dO O of one query row, summed as sixteen 8-column chunks j
+// (columns 8 j, then 128 + 8 j), each in column order, combined as a tree:
+// j with j + 8, then with j + 4, then across the quad of the row pair with
+// xor 2 and xor 1 (the caller's shuffles).  This thread's share is chunks
+// tq, tq + 4, tq + 8 and tq + 12 (16-byte loads; the second columns only
+// at v's instance width past 128).  The order is that of
+// the Delta launch of sixteen lanes a row this replaces, so the gradients
+// stay bit-equal to that design's (where a query sees one key, dS is zero
+// only if Delta and dP round alike).
+template <int DVP>
+__device__ __forceinline__ float delta_part(const bf16* orow, const bf16* grow, int Dv, int tq) {
+  float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // chunks tq + 4 i
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc += __bfloat162float(op[e]) * __bfloat162float(gp[e]);
+  for (int part = 0; part < (DVP > kRegCols ? 2 : 1); ++part) {
+    // a part's loads first, at column 0 where a chunk lies past Dv
+    // (unbranched, so they overlap), then its chunks in range summed
+    uint4 ov[4], gv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c0 = kRegCols * part + 8 * (tq + 4 * i), at = c0 < Dv ? c0 : 0;
+      ov[i] = *reinterpret_cast<const uint4*>(orow + at);
+      gv[i] = *reinterpret_cast<const uint4*>(grow + at);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (kRegCols * part + 8 * (tq + 4 * i) >= Dv) continue;
+      const bf16* op = reinterpret_cast<const bf16*>(&ov[i]);
+      const bf16* gp = reinterpret_cast<const bf16*>(&gv[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) l[i] += __bfloat162float(op[e]) * __bfloat162float(gp[e]);
     }
   }
-#pragma unroll
-  for (int off = kDeltaLanes / 2; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (row_ok && col == 0) {
-    a.scratch[idx] = acc;
-    a.scratch[n_rows + idx] = s < a.Sq ? a.lse[bh * a.Sq + s] * kLog2e : 0.0f;
-  }
+  return (l[0] + l[2]) + (l[1] + l[3]);
 }
 
 // The 64 x 64 f32 accumulator of a warpgroup's columns past kRegCols, in
@@ -1473,74 +1505,228 @@ __device__ __forceinline__ void rope_store(const float (&r)[32], float4* slot) {
   for (int m = 0; m < 8; ++m) slot[m * 128] = make_float4(r[4 * m], r[4 * m + 1], r[4 * m + 2], r[4 * m + 3]);
 }
 
-// the dK/dV kernel's shared memory at (DP, DVP): K and V of the block, then
-// a ring of Q, dO, P^T (f32), lse and Delta, three stages where they fit
-// (two at DP = DVP = 192), then the shared accumulators of dV's and dK's
-// columns past kRegCols
-template <int DP, int DVP>
+// the dK/dV kernel's shared memory at (DP, DVP), KEYS keys an item: the
+// item's K and V tiles (one or two buffers: the producer loads the next
+// item's while the consumers finish this one), a ring of Q, dO (64 query
+// rows each) and P^T (f32, where the warpgroups split the chain), for the
+// persistent walk (PERSIST) the bf16 dV and dK tiles staged for their TMA
+// stores, the ring's lse and Delta, then the shared accumulators of dV's
+// and dK's columns past kRegCols.  As many stages as fit, up to four; two
+// K/V buffers where three stages still fit beside them, else one.  Every
+// tile starts on a 1024-byte boundary (the 128B swizzle's atom).
+template <int DP, int DVP, int KEYS, bool PERSIST>
 struct BwdSmem {
+  static constexpr int kKeys = KEYS;
+  static constexpr bool kWide = KEYS == kWideKeys;       // each warpgroup runs the whole chain
   static constexpr int kPanels = panels(DP), kVPanels = panels(DVP);
-  static constexpr int kTile = kPanels * kPanelBytes;    // 64 rows of Q or K, every panel
-  static constexpr int kVTile = kVPanels * kPanelBytes;  // of V or dO
-  static constexpr int kPBytes = kRows * kRows * 4;
+  static constexpr int kTile = kPanels * kPanelBytes;    // 64 rows of Q, every panel
+  static constexpr int kVTile = kVPanels * kPanelBytes;  // of dO
+  static constexpr int kKTile = kPanels * kKeys * 128;   // the item's K, kKeys rows
+  static constexpr int kVKTile = kVPanels * kKeys * 128; // and V
+  static constexpr int kKV = kKTile + kVKTile;
+  static constexpr int kPBytes = kWide ? 0 : kRows * kRows * 4;  // P^T's hand-over slot
   static constexpr int kRopes = (DVP > kRegCols) + (DP > kRegCols);
   static constexpr int kStageBytes = kTile + kVTile + kPBytes + 2 * kRows * 4;
-  static constexpr int kFixed = kTile + kVTile + kRopes * kRopeBytes + 1024;
-  static constexpr int kStages = kFixed + 3 * kStageBytes + 8 * 10 <= kMaxSmem ? 3 : 2;
-  static constexpr int kK = 0;                                // the block's K tile
-  static constexpr int kV = kK + kTile;                       // and V tile
-  static constexpr int kQ = kV + kVTile;                      // the Q ring
-  static constexpr int kdO = kQ + kStages * kTile;            // the dO ring
-  static constexpr int kP = kdO + kStages * kVTile;           // P^T, f32, a stage each
-  static constexpr int kLse = kP + kStages * kPBytes;         // each stage's 64 base-2 lse
-  static constexpr int kDelta = kLse + kStages * kRows * 4;   // and 64 Delta
-  static constexpr int kRopeV = kDelta + kStages * kRows * 4; // dV's columns past kRegCols
+  // the staged outputs: each warpgroup's dV and dK (whole chain), or
+  // warpgroup 0's dV and warpgroup 1's dK (split chain), every panel
+  static constexpr int kOutBytes = PERSIST ? (kWide ? kConsumers : 1) * (kTile + kVTile) : 0;
+  // room for the tiles: less the alignment slack, the most barriers (two
+  // K/V buffers, four stages), the accumulators past kRegCols and the
+  // staged outputs
+  static constexpr int kRoom =
+      kMaxSmem - 1024 - 8 * (2 * 2 + 3 * 4) - kRopes * kRopeBytes - kOutBytes;
+  static constexpr int kKVBufs = 2 * kKV + 3 * kStageBytes <= kRoom ? 2 : 1;
+  static constexpr int kFit = (kRoom - kKVBufs * kKV) / kStageBytes;
+  static constexpr int kStages = kFit > 4 ? 4 : kFit;
+  static constexpr int kK = 0;                                  // the K buffers
+  static constexpr int kV = kK + kKVBufs * kKTile;              // the V buffers
+  static constexpr int kQ = kV + kKVBufs * kVKTile;             // the Q ring
+  static constexpr int kdO = kQ + kStages * kTile;              // the dO ring
+  static constexpr int kP = kdO + kStages * kVTile;             // P^T, f32, a stage each
+  static constexpr int kOut = kP + kStages * kPBytes;           // the staged outputs (swizzled)
+  static constexpr int kLse = kOut + kOutBytes;                 // each stage's 64 base-2 lse
+  static constexpr int kDelta = kLse + kStages * kRows * 4;     // and 64 Delta
+  static constexpr int kRopeV = kDelta + kStages * kRows * 4;   // dV's columns past kRegCols
   static constexpr int kRopeK = kRopeV + (DVP > kRegCols) * kRopeBytes;  // dK's
-  static constexpr int kBars = kRopeK + (DP > kRegCols) * kRopeBytes;  // kv_full, full[], empty[], p_full[]
-  static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
-  // after the loop: the f32 partial dV, then dK, of the block's 64 keys,
-  // rows padded to DP + 8 floats (a half-warp's 8-byte stores and 16-byte
-  // loads fall in distinct banks), over the tiles (not the accumulators
-  // past kRegCols, which the partials are copied from)
+  // kv_full[], kv_empty[], full[], empty[], p_full[]
+  static constexpr int kBars = kRopeK + (DP > kRegCols) * kRopeBytes;
+  static constexpr int kBytes = kBars + 8 * (2 * kKVBufs + 3 * kStages) + 1024;  // + alignment slack
+  // after a clustered item: the f32 partial dV, then dK, of its kKeys
+  // keys, rows padded to DP + 8 floats (a half-warp's 8-byte stores and
+  // 16-byte loads fall in distinct banks), over the tiles (not the
+  // accumulators past kRegCols, which the partials are copied from)
   static constexpr int kPartRow = DP + 8;
-  static_assert(2 * kBwdKeys * kPartRow * 4 <= kRopeV, "the partials overlay the tiles only");
-  static_assert(kBytes <= kMaxSmem, "more shared memory than a block may have");
+  static_assert(KEYS == kRows || (KEYS == kWideKeys && DP <= 64 && DVP <= 64 && PERSIST),
+                "128 keys an item only up to head_dim 64, walked persistently");
+  // a ring of two stages or more beside the rest; a persistent layout
+  // without room for one ((192, 192): the staged outputs' 48 KB) is never
+  // launched, its C = 1 walks take the clustered kernel's grid
+  static constexpr bool kFits = kFit >= 2;
+  static_assert(kFits || PERSIST, "a ring of at least two stages");
+  static_assert(2 * kKeys * kPartRow * 4 <= kRopeV, "the partials overlay the tiles only");
+  static_assert(!kFits || kBytes <= kMaxSmem, "more shared memory than a block may have");
 };
 
+// the dK/dV kernel's persistent walk at (DP, DVP): 128-key items up to head
+// dim 64, else 64
 template <int DP, int DVP>
+using BwdPersist = BwdSmem<DP, DVP, DP <= 64 ? kWideKeys : kRows, true>;
+
+// A dK/dV work item: kKeys keys from k0 of KV head kh in batch b, and the
+// hpb query heads from h0 whose gradients it sums.  Persistent (PERSIST,
+// hpb = G): item w of the walk, in chunks of a.chunk (batch, KV head)
+// pairs, within a chunk the key tiles in order (under the causal mask the
+// first walks the most query tiles) and pairs fastest, so a wave of items
+// shares its pairs' Q and dO in L2.  Else the block's own item from
+// blockIdx: (x: KV head x / C, its heads from rank x % C; y: batch; z: key
+// tile).
+struct BwdItem {
+  int k0, b, kh, h0;
+};
+template <int KEYS, bool PERSIST>
+__device__ __forceinline__ BwdItem bwd_item(const BwdArgs& a, int w) {
+  const int G = a.H / a.KH;
+  BwdItem it;
+  if constexpr (PERSIST) {
+    const int n_kt = (a.Sk + KEYS - 1) / KEYS, pairs = a.B * a.KH;
+    const int ci = w / (a.chunk * n_kt);
+    const int r = w - ci * a.chunk * n_kt;
+    const int np = min(a.chunk, pairs - ci * a.chunk);  // the last chunk may be short
+    const int pair = ci * a.chunk + r % np;
+    it.k0 = r / np * KEYS;
+    it.kh = pair % a.KH;
+    it.b = pair / a.KH;
+    it.h0 = it.kh * G;
+  } else {
+    const int C = G / a.hpb;
+    it.k0 = static_cast<int>(blockIdx.z) * KEYS;
+    it.b = static_cast<int>(blockIdx.y);
+    it.kh = static_cast<int>(blockIdx.x) / C;
+    it.h0 = it.kh * G + static_cast<int>(blockIdx.x) % C * a.hpb;
+  }
+  return it;
+}
+
+// the query tiles an item's keys meet: every one, or under the causal
+// mask those from its first key on (none once k0 >= Sq: the item walks no
+// step, and its dK and dV are zero)
+__device__ __forceinline__ int bwd_first_query(const BwdArgs& a, int k0) {
+  return a.causal ? k0 : 0;
+}
+__device__ __forceinline__ int bwd_query_tiles(const BwdArgs& a, int k0) {
+  return max(0, (a.Sq - bwd_first_query(a, k0) + kRows - 1) / kRows);
+}
+
+// a warpgroup's 64 x N f32 accumulator (the thread's elements 4 j + 2 r +
+// e: row ra (r = 0) or rb, column 8 j + 2 tq + e) times m, in bf16, into a
+// 128B-swizzled tile of 64-column panels at `tile`, as a TMA store reads it
+template <int N>
+__device__ __forceinline__ void stage_rows(const float (&acc)[N / 2], uint32_t tile, int ra,
+                                           int rb, int tq, float m) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const uint32_t panel = tile + (j / 8) * kPanelBytes;
+    const uint32_t col = 4 * tq;  // byte within the 16-byte chunk
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(panel + ra * 128 + (((j % 8) ^ (ra % 8)) << 4) + col),
+                 "r"(pack_bf16(acc[4 * j] * m, acc[4 * j + 1] * m)) : "memory");
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(panel + rb * 128 + (((j % 8) ^ (rb % 8)) << 4) + col),
+                 "r"(pack_bf16(acc[4 * j + 2] * m, acc[4 * j + 3] * m)) : "memory");
+  }
+}
+
+// the same accumulator in f32 into rows ra and rb of the clustered
+// partials (`stride` floats a row), its columns from c0 on
+template <int N>
+__device__ __forceinline__ void part_rows(const float (&acc)[N / 2], float* part, int stride,
+                                          int ra, int rb, int c0, int tq) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = c0 + 8 * j + 2 * tq;
+    *reinterpret_cast<float2*>(part + ra * stride + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(part + rb * stride + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// acc += A B over a stage's 64 query rows: A the fragments `af` (query
+// columns 16 kk.. of k-step kk), B the stage's tile at b_tile read
+// MN-major, its first kRegCols columns into the registers and, where ROPE,
+// its third panel into the warpgroup's shared accumulator at `slot`
+template <int AW, bool ROPE>
+__device__ __forceinline__ void rs_accumulate(float (&acc)[AW / 2], uint32_t (&af)[4][4],
+                                              uint32_t b_tile, float4* slot) {
+  float r[32];
+  fence_regs(acc);
+  if constexpr (ROPE) {
+    rope_load(r, slot);
+    fence_regs(r);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    Wgmma<AW>::rs(acc, af[kk], sw128_desc(b_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+  if constexpr (ROPE) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<64>::rs(r, af[kk], sw128_desc(b_tile + 2 * kPanelBytes + kk * 16 * 128, kPanelBytes,
+                                          1024), 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+  if constexpr (ROPE) {
+    fence_regs(r);
+    rope_store(r, slot);
+  }
+}
+
+template <int DP, int DVP, int KEYS, bool PERSIST>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
-  using L = BwdSmem<DP, DVP>;
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_dk,
+                   const __grid_constant__ CUtensorMap tm_dv, const BwdArgs a) {
+  using L = BwdSmem<DP, DVP, KEYS, PERSIST>;
+  static_assert(L::kFits, "no layout for this walk");
+  constexpr bool kWide = L::kWide;
   constexpr int KSTEPS = DP / 16, VSTEPS = DVP / 16;
-  constexpr int kStages = L::kStages;
-  constexpr int AW = DP < kRegCols ? DP : kRegCols;  // register columns of dV and of dK
-  static_assert((DVP < kRegCols ? DVP : kRegCols) == AW, "dV and dK keep as many in registers");
+  constexpr int kStages = L::kStages, kBufs = L::kKVBufs;
+  constexpr int AW = DP < kRegCols ? DP : kRegCols;    // register columns of dK
+  constexpr int AVW = DVP < kRegCols ? DVP : kRegCols; // and of dV
+  static_assert(kWide || AW == AVW, "split: dV and dK keep as many columns in registers");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));  // generic pointer to base
-  const uint32_t bar_kv = base + L::kBars;
-  const uint32_t bar_full = bar_kv + 8;                 // + 8 * stage
-  const uint32_t bar_empty = bar_full + 8 * kStages;    // + 8 * stage
-  const uint32_t bar_p = bar_empty + 8 * kStages;       // + 8 * stage
-  const int b = blockIdx.y, k0 = blockIdx.z * kBwdKeys;
-  const int G = a.H / a.KH, C = G / a.hpb;  // blocks a cluster: rank blockIdx.x % C
-  const int kh = blockIdx.x / C, h0 = kh * G + (blockIdx.x % C) * a.hpb;  // the first head
-  // the query tiles the block's keys meet: every one, or under the causal
-  // mask those from its first key on (none once k0 >= Sq: the walk has no
-  // step, and the block writes zero dK and dV for its keys)
-  const int q_first = a.causal ? k0 : 0;
-  const int n_q = max(0, (a.Sq - q_first + kRows - 1) / kRows);
-  const int n_it = a.hpb * n_q;  // (head, query tile) steps, head-major
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint32_t bar_kv_full = base + L::kBars;               // + 8 * buffer
+  const uint32_t bar_kv_empty = bar_kv_full + 8 * kBufs;      // + 8 * buffer
+  const uint32_t bar_full = bar_kv_empty + 8 * kBufs;         // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;          // + 8 * stage
+  const uint32_t bar_p = bar_empty + 8 * kStages;             // + 8 * stage
+  // the items this block walks: blockIdx.x, + gridDim.x, ... of the
+  // persistent walk (the grid is at most one block an item), or its own
+  const int n_mine =
+      PERSIST ? ((a.Sk + KEYS - 1) / KEYS * a.B * a.KH - static_cast<int>(blockIdx.x) +
+                 static_cast<int>(gridDim.x) - 1) / static_cast<int>(gridDim.x)
+              : 1;
+  const auto item_of = [&](int n) {
+    return bwd_item<KEYS, PERSIST>(a, static_cast<int>(blockIdx.x) +
+                                          n * static_cast<int>(gridDim.x));
+  };
+  // the warp's index broadcast from lane 0: `ptxas` then knows the branches
+  // on it that gate the `wgmma`s are not divergent (C7520 otherwise: every
+  // `wgmma` serialised)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    mbar_init(bar_kv, 1);
+    for (int i = 0; i < kBufs; ++i) {
+      mbar_init(bar_kv_full + 8 * i, 1);
+      mbar_init(bar_kv_empty + 8 * i, kConsumers * 4);  // every consumer warp arrives
+    }
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, kConsumers * 4);  // every consumer warp arrives
+      mbar_init(bar_empty + 8 * s, kConsumers * 4);
       mbar_init(bar_p + 8 * s, 4);                   // the P^T warpgroup's warps
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1551,249 +1737,390 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ------------------------------------------------------------ producer
     constexpr int kMostPanels = L::kPanels > L::kVPanels ? L::kPanels : L::kVPanels;
     if (lane == 0) {
-      mbar_expect_tx(bar_kv, L::kTile + L::kVTile);
-      for (int p = 0; p < kMostPanels; ++p) {
-        if (p < L::kPanels)
-          tma_load(base + L::kK + p * kPanelBytes, &tm_k, p * kPanelCols, kh, k0, b, bar_kv);
-        if (p < L::kVPanels)
-          tma_load(base + L::kV + p * kPanelBytes, &tm_v, p * kPanelCols, kh, k0, b, bar_kv);
-      }
       const int64_t lse_off = static_cast<int64_t>(a.B) * a.H * a.Sp;  // the lse plane
-      for (int step = 0; step < n_it; ++step) {
-        const int s = step % kStages, h = h0 + step / n_q;
-        const int q0 = q_first + (step % n_q) * kRows;
-        if (step >= kStages) mbar_wait(bar_empty + 8 * s, (step / kStages - 1) & 1);
-        const float* delta = a.scratch + (static_cast<int64_t>(b) * a.H + h) * a.Sp;
-        const float* lse2 = delta + lse_off;
-        const uint32_t full = bar_full + 8 * s;
-        mbar_expect_tx(full, L::kTile + L::kVTile + 2 * kRows * 4);
-        for (int p = 0; p < kMostPanels; ++p) {
-          if (p < L::kPanels)
-            tma_load(base + L::kQ + s * L::kTile + p * kPanelBytes, &tm_q, p * kPanelCols, h,
-                     q0, b, full);
-          if (p < L::kVPanels)
-            tma_load(base + L::kdO + s * L::kVTile + p * kPanelBytes, &tm_do, p * kPanelCols, h,
-                     q0, b, full);
+      int seq = 0, kv = 0;  // ring stages and K/V tiles loaded so far
+      bool waited = false;  // for the dQ launch, which writes Delta and lse2
+      for (int n = 0; n < n_mine; ++n) {
+        const BwdItem it = item_of(n);
+        const int q_first = bwd_first_query(a, it.k0), n_q = bwd_query_tiles(a, it.k0);
+        const int n_it = a.hpb * n_q;  // (head, query tile) steps, head-major
+        if (n_it == 0) continue;       // nothing to load: its dK and dV are zero
+        const int buf = kv % kBufs;
+        if (kv >= kBufs) mbar_wait(bar_kv_empty + 8 * buf, (kv / kBufs - 1) & 1);
+        ++kv;
+        const uint32_t kv_full = bar_kv_full + 8 * buf;
+        mbar_expect_tx(kv_full, L::kKV);
+        // a panel of KEYS rows is KEYS / 64 boxes of 64 rows, 8 KB apart
+        for (int hh = 0; hh < KEYS / kRows; ++hh)
+          for (int p = 0; p < kMostPanels; ++p) {
+            if (p < L::kPanels)
+              tma_load(base + L::kK + buf * L::kKTile + p * KEYS * 128 + hh * kPanelBytes, &tm_k,
+                       p * kPanelCols, it.kh, it.k0 + hh * kRows, it.b, kv_full);
+            if (p < L::kVPanels)
+              tma_load(base + L::kV + buf * L::kVKTile + p * KEYS * 128 + hh * kPanelBytes, &tm_v,
+                       p * kPanelCols, it.kh, it.k0 + hh * kRows, it.b, kv_full);
+          }
+        for (int step = 0; step < n_it; ++step, ++seq) {
+          const int s = seq % kStages, h = it.h0 + step / n_q;
+          const int q0 = q_first + (step % n_q) * kRows;
+          if (seq >= kStages) mbar_wait(bar_empty + 8 * s, (seq / kStages - 1) & 1);
+          const float* delta = a.scratch + (static_cast<int64_t>(it.b) * a.H + h) * a.Sp;
+          const float* lse2 = delta + lse_off;
+          const uint32_t full = bar_full + 8 * s;
+          mbar_expect_tx(full, L::kTile + L::kVTile + 2 * kRows * 4);
+          for (int p = 0; p < kMostPanels; ++p) {
+            if (p < L::kPanels)
+              tma_load(base + L::kQ + s * L::kTile + p * kPanelBytes, &tm_q, p * kPanelCols, h,
+                       q0, it.b, full);
+            if (p < L::kVPanels)
+              tma_load(base + L::kdO + s * L::kVTile + p * kPanelBytes, &tm_do, p * kPanelCols,
+                       h, q0, it.b, full);
+          }
+          if (!waited) {
+            wait_for_prior_launch();
+            waited = true;
+          }
+          bulk_load(base + L::kLse + s * kRows * 4, lse2 + q0, kRows * 4, full);
+          bulk_load(base + L::kDelta + s * kRows * 4, delta + q0, kRows * 4, full);
         }
-        bulk_load(base + L::kLse + s * kRows * 4, lse2 + q0, kRows * 4, full);
-        bulk_load(base + L::kDelta + s * kRows * 4, delta + q0, kRows * 4, full);
       }
+      // so this launch ends after the dQ launch, whose outputs later
+      // launches read (each waits for this one alone)
+      if (!waited) wait_for_prior_launch();
     }
-    cluster_sync();  // the partials are written
-    cluster_sync();  // and read
+    if constexpr (!PERSIST) {
+      cluster_sync();  // the partials are written
+      cluster_sync();  // and read
+    }
     return;
   }
 
   // -------------------------------------------------------------- consumers
-  // Warpgroup 0 takes P^T and dV, warpgroup 1 dP^T, dS^T and dK.  A thread
-  // of either holds the same accumulator elements: 4 j + 2 r + e is key row
-  // a (r = 0) or b, query column 8 j + 2 tq + e of the tile; query columns
-  // 16 kk.. are the A fragments of k-step kk of the RS products.
+  // Whole chain (kWide): warpgroup c takes the item's keys 64 c.. and runs
+  // S^T, dP^T, P^T, dS^T, dV and dK for them.  Split chain: warpgroup 0
+  // takes P^T and dV, warpgroup 1 dP^T, dS^T and dK, both over all 64 keys.
+  // A thread of either holds the same accumulator elements: 4 j + 2 r + e
+  // is key row a (r = 0) or b, query column 8 j + 2 tq + e of the tile;
+  // query columns 16 kk.. are the A fragments of k-step kk of the RS
+  // products.
   const int c = warp / 4, wi = warp % 4, tq = lane % 4, tid = threadIdx.x % 128;
-  const int key_a = k0 + wi * 16 + lane / 4, key_b = key_a + 8;
-  // the first query each of this thread's key rows keeps: the key itself
-  // under the causal mask, 0 without it, none for a key past Sk (TMA
-  // zero-fills those rows, and a zero key scores 0, so P^T = exp2(-lse)
-  // there unless masked); the tail tile masks every step
-  const int lo_a = key_a >= a.Sk ? kNoQuery : a.causal ? key_a : 0;
-  const int lo_b = key_b >= a.Sk ? kNoQuery : a.causal ? key_b : 0;
-  const bool key_tail = k0 + kBwdKeys > a.Sk;
+  const bool leader = tid == 0;
+  const int key_off = kWide ? c * kRows : 0;  // this warpgroup's first key of the item
   const float sl2 = a.scale * kLog2e;
-  // this warpgroup's accumulator past kRegCols (dV's at DVP 192, dK's at DP 192)
-  const bool rope = c == 0 ? DVP > kRegCols : DP > kRegCols;
+  // split chain: this warpgroup's accumulator past kRegCols (dV's at DVP
+  // 192, dK's at DP 192)
+  const bool rope = !kWide && (c == 0 ? DVP > kRegCols : DP > kRegCols);
   float4* rope_slot = reinterpret_cast<float4*>(gbase + (c == 0 ? L::kRopeV : L::kRopeK)) + tid;
-  if (rope) rope_zero(rope_slot);
-  float acc[AW / 2];  // dV (warpgroup 0) or dK (1) of the block's 64 keys, columns < kRegCols
+  // dV (kWide; split: warpgroup 0) and dK (kWide; split: warpgroup 1) of
+  // this warpgroup's keys, columns < kRegCols
+  float accv[kWide ? AVW / 2 : 1], acck[kWide ? AW / 2 : 1], acc[kWide ? 1 : AW / 2];
+  int seq = 0, kv = 0;
+  for (int n = 0; n < n_mine; ++n) {
+    const BwdItem it = item_of(n);
+    const int q_first = bwd_first_query(a, it.k0), n_q = bwd_query_tiles(a, it.k0);
+    const int n_it = a.hpb * n_q;
+    const int k_lo = it.k0 + key_off;  // this warpgroup's first key
+    const int key_a = k_lo + wi * 16 + lane / 4, key_b = key_a + 8;
+    // the first query each of this thread's key rows keeps: the key itself
+    // under the causal mask, 0 without it, none for a key past Sk (TMA
+    // zero-fills those rows, and a zero key scores 0, so P^T = exp2(-lse)
+    // there unless masked); the tail tile masks every step.  Made where a
+    // step masks (registers are scarce across the walk).
+    const auto first_query = [&](int key) {
+      return key >= a.Sk ? kNoQuery : a.causal ? key : 0;
+    };
+    if constexpr (kWide) {
 #pragma unroll
-  for (int i = 0; i < AW / 2; ++i) acc[i] = 0.0f;
-
-  mbar_wait(bar_kv, 0);
-  for (int step = 0; step < n_it; ++step) {
-    const int s = step % kStages, t = step % n_q;  // t: the query tile of this head
-    mbar_wait(bar_full + 8 * s, (step / kStages) & 1);
-    const uint32_t q_tile = base + L::kQ + s * L::kTile;
-    const uint32_t do_tile = base + L::kdO + s * L::kVTile;
-    // this thread's P^T values of the stage, 16 bytes a step of 128 threads
-    float4* p_slot = reinterpret_cast<float4*>(gbase + L::kP + s * L::kPBytes) + tid;
-    uint32_t af[4][4];  // the A fragments: P^T (warpgroup 0) or dS^T (1), bf16
-    if (c == 0) {
-      // S^T = K Q^T (64 keys x 64 queries, f32), fresh a tile
-      float st[32];
+      for (int i = 0; i < AVW / 2; ++i) accv[i] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) st[i] = 0.0f;
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < KSTEPS; ++j) {
-        const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
-        Wgmma<64>::ss(st, sw128_desc(base + L::kK + off, 16, 1024),
-                      sw128_desc(q_tile + off, 16, 1024), j > 0);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(st);
-      // P^T (key, query) = exp2(s scale log2e - lse2) where query < Sq,
-      // key < Sk and, under the causal mask, key <= query (the diagonal
-      // tile is the walk's first)
-      const int q0 = q_first + t * kRows;
-      const bool need_mask = (a.causal && t == 0) || q0 + kRows > a.Sq || key_tail;
-      const float* sl = reinterpret_cast<const float*>(gbase + L::kLse) + s * kRows;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * tq);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float lq = e ? l2.y : l2.x;
-          float pa = exp2f(st[4 * j + e] * sl2 - lq), pb = exp2f(st[4 * j + 2 + e] * sl2 - lq);
-          if (need_mask) {
-            const int q = q0 + 8 * j + 2 * tq + e;
-            pa = q >= lo_a && q < a.Sq ? pa : 0.0f;
-            pb = q >= lo_b && q < a.Sq ? pb : 0.0f;
-          }
-          st[4 * j + e] = pa;
-          st[4 * j + 2 + e] = pb;
-        }
-      }
-      // hand P^T to warpgroup 1 in f32, as it lies in the registers
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-        p_slot[m * 128] = make_float4(st[4 * m], st[4 * m + 1], st[4 * m + 2], st[4 * m + 3]);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar_p + 8 * s);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) af[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+      for (int i = 0; i < AW / 2; ++i) acck[i] = 0.0f;
     } else {
-      // dP^T = V dO^T (Dv wide), then dS^T = P^T (dP^T - Delta) with warpgroup 0's P^T
-      float dpt[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dpt[i] = 0.0f;
-      wgmma_fence();
+      for (int i = 0; i < AW / 2; ++i) acc[i] = 0.0f;
+      if (rope) rope_zero(rope_slot);
+    }
+    if (n_it > 0) {
+      const int buf = kv % kBufs;
+      mbar_wait(bar_kv_full + 8 * buf, (kv / kBufs) & 1);
+      ++kv;
+      // this warpgroup's rows of the K and V tiles
+      const uint32_t k_item = base + L::kK + buf * L::kKTile + key_off * 128;
+      const uint32_t v_item = base + L::kV + buf * L::kVKTile + key_off * 128;
+      for (int step = 0; step < n_it; ++step, ++seq) {
+        const int s = seq % kStages;
+        const int q0 = q_first + (step % n_q) * kRows;  // the stage's first query
+        mbar_wait(bar_full + 8 * s, (seq / kStages) & 1);
+        const uint32_t q_tile = base + L::kQ + s * L::kTile;
+        const uint32_t do_tile = base + L::kdO + s * L::kVTile;
+        // K's and V's addresses made anew each step: else the compiler keeps
+        // every k-step's 64-bit descriptor of them live across the walk
+        uint32_t k_tile = k_item, v_tile = v_item;
+        asm volatile("" : "+r"(k_tile), "+r"(v_tile));
+        const float* sl = reinterpret_cast<const float*>(gbase + L::kLse) + s * kRows;
+        const float* sd = reinterpret_cast<const float*>(gbase + L::kDelta) + s * kRows;
+        // P^T (key, query) = exp2(s scale log2e - lse2) where query < Sq,
+        // key < Sk and, under the causal mask, key <= query
+        const bool need_mask =
+            (a.causal && q0 < k_lo + kRows) || q0 + kRows > a.Sq || k_lo + kRows > a.Sk;
+        if constexpr (kWide) {
+          // every query of the stage before this warpgroup's first key
+          // (the causal walk's first stage for warpgroup 1), or every key
+          // past Sk: nothing to add
+          if (!(a.causal && q0 + kRows <= k_lo) && k_lo < a.Sk) {
+            float st[32], dpt[32];
 #pragma unroll
-      for (int j = 0; j < VSTEPS; ++j) {
-        const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
-        Wgmma<64>::ss(dpt, sw128_desc(base + L::kV + off, 16, 1024),
-                      sw128_desc(do_tile + off, 16, 1024), j > 0);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(dpt);
-      const float* sd = reinterpret_cast<const float*>(gbase + L::kDelta) + s * kRows;
-      mbar_wait(bar_p + 8 * s, (step / kStages) & 1);
+            for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.0f;
+            // S^T = K Q^T (D wide) and dP^T = V dO^T (Dv wide): 64 keys x 64 queries
+            wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        // P^T's columns 16 kk..: elements 8 kk .. 8 kk + 7
-        const float4 p0 = p_slot[(2 * kk) * 128], p1 = p_slot[(2 * kk + 1) * 128];
-        const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-        float ds[8];
+            for (int j = 0; j < KSTEPS; ++j)
+              Wgmma<64>::ss(st, sw128_desc(k_tile + j * 32, 16, 1024),
+                            sw128_desc(q_tile + j * 32, 16, 1024), j > 0);
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * (2 * kk + jj) + 2 * tq);
+            for (int j = 0; j < VSTEPS; ++j)
+              Wgmma<64>::ss(dpt, sw128_desc(v_tile + j * 32, 16, 1024),
+                            sw128_desc(do_tile + j * 32, 16, 1024), j > 0);
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(st);
+            fence_regs(dpt);
+            // P^T and dS^T = P^T (dP^T - Delta), in place
+            const int lo_a = first_query(key_a), lo_b = first_query(key_b);
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            ds[4 * jj + i] = p[4 * jj + i] * (dpt[8 * kk + 4 * jj + i] - (i % 2 ? dl.y : dl.x));
+            for (int j = 0; j < 8; ++j) {
+              const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * tq);
+              const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * j + 2 * tq);
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float lq = e ? l2.y : l2.x, dq = e ? dl.y : dl.x;
+                float pa = exp2f(st[4 * j + e] * sl2 - lq), pb = exp2f(st[4 * j + 2 + e] * sl2 - lq);
+                if (need_mask) {
+                  const int q = q0 + 8 * j + 2 * tq + e;
+                  pa = q >= lo_a && q < a.Sq ? pa : 0.0f;
+                  pb = q >= lo_b && q < a.Sq ? pb : 0.0f;
+                }
+                st[4 * j + e] = pa;
+                st[4 * j + 2 + e] = pb;
+                dpt[4 * j + e] = pa * (dpt[4 * j + e] - dq);
+                dpt[4 * j + 2 + e] = pb * (dpt[4 * j + 2 + e] - dq);
+              }
+            }
+            uint32_t pf[4][4], df[4][4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                pf[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+                df[kk][i] = pack_bf16(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
+              }
+            // dV += P^T dO and dK += dS^T Q: B is the stage's rows 16 kk..
+            // read MN-major
+            fence_regs(accv);
+            fence_regs(acck);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              Wgmma<AVW>::rs(accv, pf[kk], sw128_desc(do_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              Wgmma<AW>::rs(acck, df[kk], sw128_desc(q_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(accv);
+            fence_regs(acck);
+          }
+        } else {
+          // this thread's P^T values of the stage, 16 bytes a step of 128 threads
+          float4* p_slot = reinterpret_cast<float4*>(gbase + L::kP + s * L::kPBytes) + tid;
+          uint32_t af[4][4];  // the A fragments: P^T (warpgroup 0) or dS^T (1), bf16
+          if (c == 0) {
+            // S^T = K Q^T (64 keys x 64 queries, f32), fresh a stage
+            float st[32];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) st[i] = 0.0f;
+            wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < KSTEPS; ++j) {
+              const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
+              Wgmma<64>::ss(st, sw128_desc(k_tile + off, 16, 1024),
+                            sw128_desc(q_tile + off, 16, 1024), j > 0);
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(st);
+            const int lo_a = first_query(key_a), lo_b = first_query(key_b);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * tq);
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float lq = e ? l2.y : l2.x;
+                float pa = exp2f(st[4 * j + e] * sl2 - lq), pb = exp2f(st[4 * j + 2 + e] * sl2 - lq);
+                if (need_mask) {
+                  const int q = q0 + 8 * j + 2 * tq + e;
+                  pa = q >= lo_a && q < a.Sq ? pa : 0.0f;
+                  pb = q >= lo_b && q < a.Sq ? pb : 0.0f;
+                }
+                st[4 * j + e] = pa;
+                st[4 * j + 2 + e] = pb;
+              }
+            }
+            // hand P^T to warpgroup 1 in f32, as it lies in the registers
+#pragma unroll
+            for (int m = 0; m < 8; ++m)
+              p_slot[m * 128] = make_float4(st[4 * m], st[4 * m + 1], st[4 * m + 2], st[4 * m + 3]);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar_p + 8 * s);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                af[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+          } else {
+            // dP^T = V dO^T (Dv wide), then dS^T = P^T (dP^T - Delta) with warpgroup 0's P^T
+            float dpt[32];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) dpt[i] = 0.0f;
+            wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < VSTEPS; ++j) {
+              const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
+              Wgmma<64>::ss(dpt, sw128_desc(v_tile + off, 16, 1024),
+                            sw128_desc(do_tile + off, 16, 1024), j > 0);
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(dpt);
+            mbar_wait(bar_p + 8 * s, (seq / kStages) & 1);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              // P^T's columns 16 kk..: elements 8 kk .. 8 kk + 7
+              const float4 p0 = p_slot[(2 * kk) * 128], p1 = p_slot[(2 * kk + 1) * 128];
+              const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+              float ds[8];
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                const float2 dl = *reinterpret_cast<const float2*>(sd + 8 * (2 * kk + jj) + 2 * tq);
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  ds[4 * jj + i] = p[4 * jj + i] * (dpt[8 * kk + 4 * jj + i] - (i % 2 ? dl.y : dl.x));
+              }
+#pragma unroll
+              for (int i = 0; i < 4; ++i) af[kk][i] = pack_bf16(ds[2 * i], ds[2 * i + 1]);
+            }
+          }
+          // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1), each branch's
+          // third panel known at compile time (a run-time one serialises the
+          // `wgmma`s, C7515)
+          if (c == 0)
+            rs_accumulate<AW, (DVP > kRegCols)>(acc, af, do_tile, rope_slot);
+          else
+            rs_accumulate<AW, (DP > kRegCols)>(acc, af, q_tile, rope_slot);
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) af[kk][i] = pack_bf16(ds[2 * i], ds[2 * i + 1]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * s);
       }
+      // the item's K and V are done with: the producer may load the next
+      if (lane == 0) mbar_arrive(bar_kv_empty + 8 * buf);
     }
-    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1): B is the tile's rows
-    // 16 kk.. read MN-major, its first kRegCols columns into the registers
-    // and its third panel, if any, into the shared accumulator
-    const uint32_t b_tile = c == 0 ? do_tile : q_tile;
-    float r[32];
-    fence_regs(acc);
-    if (rope) {
-      rope_load(r, rope_slot);
-      fence_regs(r);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      Wgmma<AW>::rs(acc, af[kk], sw128_desc(b_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
-    if constexpr (L::kRopes > 0) {
+
+    const int ra = wi * 16 + lane / 4, rb = ra + 8;  // this thread's rows of its warpgroup's 64
+    if constexpr (PERSIST) {
+      // the item's keys are all its own (hpb = G): dV and dK in bf16 into
+      // this warpgroup's staging tiles (128B-swizzled, as the maps read
+      // them), then TMA stores, which clip rows past Sk and columns past D
+      // or Dv and run on while the next item's walk starts (zeros for an
+      // item that walked nothing).  The split chain stages warpgroup 0's
+      // dV and warpgroup 1's dK, each with its columns past kRegCols.
+      const uint32_t out = base + L::kOut + (kWide ? c * (L::kTile + L::kVTile) : 0);
+      const uint32_t out_v = out, out_k = out + L::kVTile;
+      if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      warpgroup_sync(c);  // the previous item's stores have read the staging tiles
+      if constexpr (kWide) {
+        stage_rows<AVW>(accv, out_v, ra, rb, tq, 1.0f);
+        stage_rows<AW>(acck, out_k, ra, rb, tq, a.scale);
+      } else {
+        const float m = c == 0 ? 1.0f : a.scale;
+        const uint32_t tile = c == 0 ? out_v : out_k;
+        stage_rows<AW>(acc, tile, ra, rb, tq, m);
+        if (rope) {
+          float r[32];
+          rope_load(r, rope_slot);
+          stage_rows<64>(r, tile + 2 * kPanelBytes, ra, rb, tq, m);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the TMA unit
+      warpgroup_sync(c);
+      if (leader && k_lo < a.Sk) {
+        if (kWide || c == 0)
+          for (int p = 0; p < L::kVPanels; ++p)
+            tma_store(&tm_dv, out_v + p * kPanelBytes, p * kPanelCols, it.kh, k_lo, it.b);
+        if (kWide || c == 1)
+          for (int p = 0; p < L::kPanels; ++p)
+            tma_store(&tm_dk, out_k + p * kPanelBytes, p * kPanelCols, it.kh, k_lo, it.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    } else {
+      // a clustered item (split chain): both consumer warpgroups are done
+      // with the tiles the partials overlay
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
+      float* part = reinterpret_cast<float*>(gbase);  // dV rows 0..KEYS-1, then dK rows
+      part_rows<AW>(acc, part, L::kPartRow, c * KEYS + ra, c * KEYS + rb, 0, tq);
       if (rope) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          Wgmma<64>::rs(r, af[kk], sw128_desc(b_tile + 2 * kPanelBytes + kk * 16 * 128,
-                                              kPanelBytes, 1024), 1);
+        float r[32];
+        rope_load(r, rope_slot);
+        part_rows<64>(r, part, L::kPartRow, c * KEYS + ra, c * KEYS + rb, kRegCols, tq);
       }
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    if (rope) {
-      fence_regs(r);
-      rope_store(r, rope_slot);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
-  }
+      cluster_sync();  // every block's partials are written
 
-  // both consumer warpgroups are done with the tiles the partials overlay
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
-  float* part = reinterpret_cast<float*>(gbase);  // dV rows 0..63, then dK rows
-  const int ra = c * kRows + wi * 16 + lane / 4, rb = ra + 8;
-#pragma unroll
-  for (int j = 0; j < AW / 8; ++j) {
-    const int col = 8 * j + 2 * tq;
-    *reinterpret_cast<float2*>(part + ra * L::kPartRow + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(part + rb * L::kPartRow + col) =
-        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-  if (rope) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = kRegCols + 8 * j + 2 * tq;
-      const float4 v = rope_slot[j * 128];
-      *reinterpret_cast<float2*>(part + ra * L::kPartRow + col) = make_float2(v.x, v.y);
-      *reinterpret_cast<float2*>(part + rb * L::kPartRow + col) = make_float2(v.z, v.w);
-    }
-  }
-  cluster_sync();  // every block's partials are written
-
-  // rank r sums rows [r R, r R + R) over ranks 0..C-1, in that order: dV's
-  // DVP / 4 four-column chunks a row, then dK's DP / 4
-  const int rank = static_cast<int>(cluster_rank());
-  const int R = (kBwdKeys + C - 1) / C;
-  const int r_lo = rank * R, n_rows = max(0, min(kBwdKeys, r_lo + R) - r_lo);
-  constexpr int CHV = DVP / 4, CHK = DP / 4;
-  const int n_v = n_rows * CHV;
-  for (int idx = threadIdx.x; idx < n_v + n_rows * CHK; idx += kConsumers * 128) {
-    const int which = idx >= n_v;  // 0: dV, 1: dK
-    const int rem = which ? idx - n_v : idx, ch = which ? CHK : CHV;
-    const int row = r_lo + rem / ch, col = (rem % ch) * 4, key = k0 + row;
-    if (key >= a.Sk || col >= (which ? a.D : a.Dv)) continue;
-    const uint32_t off = base + ((which * kBwdKeys + row) * L::kPartRow + col) * 4;
-    float4 v[kMaxGroup];
-#pragma unroll
-    for (int q = 0; q < kMaxGroup; ++q)
-      if (q < C) v[q] = ld_cluster(cluster_addr(off, q));
-    float4 sum = v[0];
-#pragma unroll
-    for (int q = 1; q < kMaxGroup; ++q)
-      if (q < C) {
-        sum.x += v[q].x;
-        sum.y += v[q].y;
-        sum.z += v[q].z;
-        sum.w += v[q].w;
+      // rank r sums rows [r R, r R + R) over ranks 0..C-1, in that order: dV's
+      // DVP / 4 four-column chunks a row, then dK's DP / 4
+      const int C = a.H / a.KH / a.hpb;
+      const int rank = static_cast<int>(cluster_rank());
+      const int R = (KEYS + C - 1) / C;
+      const int r_lo = rank * R, n_rows = max(0, min(KEYS, r_lo + R) - r_lo);
+      constexpr int CHV = DVP / 4, CHK = DP / 4;
+      const int n_v = n_rows * CHV;
+      for (int idx = threadIdx.x; idx < n_v + n_rows * CHK; idx += kConsumers * 128) {
+        const int which = idx >= n_v;  // 0: dV, 1: dK
+        const int rem = which ? idx - n_v : idx, ch = which ? CHK : CHV;
+        const int row = r_lo + rem / ch, col = (rem % ch) * 4, key = it.k0 + row;
+        if (key >= a.Sk || col >= (which ? a.D : a.Dv)) continue;
+        const uint32_t off = base + ((which * KEYS + row) * L::kPartRow + col) * 4;
+        float4 v[kMaxGroup];
+  #pragma unroll
+        for (int q = 0; q < kMaxGroup; ++q)
+          if (q < C) v[q] = ld_cluster(cluster_addr(off, q));
+        float4 sum = v[0];
+  #pragma unroll
+        for (int q = 1; q < kMaxGroup; ++q)
+          if (q < C) {
+            sum.x += v[q].x;
+            sum.y += v[q].y;
+            sum.z += v[q].z;
+            sum.w += v[q].w;
+          }
+        const float m = which ? a.scale : 1.0f;
+        bf16* dst = which ? a.dk + it.b * a.sdk.b + it.kh * a.sdk.h + key * a.sdk.s
+                          : a.dv + it.b * a.sdv.b + it.kh * a.sdv.h + key * a.sdv.s;
+        reinterpret_cast<uint32_t*>(dst + col)[0] = pack_bf16(sum.x * m, sum.y * m);
+        reinterpret_cast<uint32_t*>(dst + col)[1] = pack_bf16(sum.z * m, sum.w * m);
       }
-    const float m = which ? a.scale : 1.0f;
-    bf16* dst = which ? a.dk + b * a.sdk.b + kh * a.sdk.h + key * a.sdk.s
-                      : a.dv + b * a.sdv.b + kh * a.sdv.h + key * a.sdv.s;
-    reinterpret_cast<uint32_t*>(dst + col)[0] = pack_bf16(sum.x * m, sum.y * m);
-    reinterpret_cast<uint32_t*>(dst + col)[1] = pack_bf16(sum.z * m, sum.w * m);
+      cluster_sync();  // no block leaves while another reads its partials
+    }
   }
-  cluster_sync();  // no block leaves while another reads its partials
+  if (PERSIST && leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // the dQ kernel's shared memory at (DP, DVP): a Q and a dO tile (DVP
 // wide) per consumer, the K/V ring (V tiles DVP wide; four stages, two
 // past head_dim 128), then each consumer's accumulator of dQ's columns
-// past kRegCols
+// past kRegCols, or up to head_dim 128 its dQ tile staged in bf16 for its
+// TMA store (at 192 that tile would pass the 227 KB a block may have)
 template <int DP, int DVP>
 struct DqSmem {
   static constexpr int kStages = DP > kRegCols ? 2 : 4;
+  static constexpr bool kTmaStore = DP <= kRegCols;
   static constexpr int kPanels = panels(DP), kVPanels = panels(DVP);
   static constexpr int kTile = kPanels * kPanelBytes, kVTile = kVPanels * kPanelBytes;
   static constexpr int kQ = 0;                          // a Q tile per consumer
@@ -1801,23 +2128,31 @@ struct DqSmem {
   static constexpr int kK = kdO + kConsumers * kVTile;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kRope = kV + kStages * kVTile;   // a consumer's columns past kRegCols each
-  static constexpr int kBars = kRope + (DP > kRegCols ? kConsumers * kRopeBytes : 0);
+  static constexpr int kOut = kRope + (DP > kRegCols ? kConsumers * kRopeBytes : 0);  // dQ staged
+  static constexpr int kBars = kOut + (kTmaStore ? kConsumers * kTile : 0);
   static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;  // + alignment slack
   static_assert(kBytes <= kMaxSmem, "more shared memory than a block may have");
 };
 
-// dQ: the forward's persistent walk (`item_at` at Sq, Sk and the mask),
-// with a dO tile beside each consumer's Q tile and the K/V ring as there
+// dQ, the backward's first launch: the forward's persistent walk
+// (`item_at` at Sq, Sk and the mask, in chunks of a.dq_chunk pairs), with
+// a dO tile beside each consumer's Q tile and the K/V ring as there; each
+// item also writes its rows' Delta and base-2 lse for the dK/dV launch
 template <int DP, int DVP>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
-                 const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_dq, const BwdArgs a) {
   using L = DqSmem<DP, DVP>;
   constexpr int KSTEPS = DP / 16, VSTEPS = DVP / 16;
   constexpr int kStages = L::kStages;
   constexpr int AW = DP < kRegCols ? DP : kRegCols;  // dQ's register columns
+  // S and dP of the next K/V tile overlap this tile's dS and dQ product up
+  // to head_dim 64 (dQ, S, dP and dS's fragments live at once; past it
+  // they pass the 168 registers a thread has)
+  constexpr bool kOverlap = DP <= 64;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));  // generic pointer to base
@@ -1827,7 +2162,8 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
   const int H = a.H, B = a.B, Sq = a.Sq, Sk = a.Sk, causal = a.causal;
   const int n_items = (Sq + kConsumers * kRows - 1) / (kConsumers * kRows) * H * B;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+  allow_dependent_launch();  // the dK/dV launch may take the SMs this one frees
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q_full, 1);
@@ -1846,7 +2182,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane != 0) return;
     int tile = 0;
     for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
-      const Item it = item_at<kRows>(w, H, B, Sq, Sk, causal, H * B);
+      const Item it = item_at<kRows>(w, H, B, Sq, Sk, causal, a.dq_chunk);
       const int kh = it.h / (H / a.KH);
       if (n > 0) mbar_wait(bar_q_empty, (n - 1) & 1);
       mbar_expect_tx(bar_q_full, it.n_active * (L::kTile + L::kVTile));
@@ -1879,19 +2215,20 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // -------------------------------------------------------------- consumers
   const int c = warp / 4, wi = warp % 4, tq = lane % 4;
+  const bool leader = threadIdx.x % 128 == 0;
   const uint32_t q_tile = base + L::kQ + c * L::kTile;
   const uint32_t do_tile = base + L::kdO + c * L::kVTile;
   float4* rope_slot = reinterpret_cast<float4*>(gbase + L::kRope + c * kRopeBytes) +
                       threadIdx.x % 128;  // dQ's columns past kRegCols (DP 192)
   const float sl2 = a.scale * kLog2e;
-  const float* delta = a.scratch;
-  const float* lse2 = a.scratch + static_cast<int64_t>(B) * H * a.Sp;
+  float* delta = a.scratch;
+  float* lse2 = a.scratch + static_cast<int64_t>(B) * H * a.Sp;
   float sacc[32], pacc[32], dq[AW / 2];
 #pragma unroll
   for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.0f;
-  int tile = 0;
+  int tile = 0;  // K/V tiles this block has walked so far
   for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
-    const Item it = item_at<kRows>(w, H, B, Sq, Sk, causal, H * B);
+    const Item it = item_at<kRows>(w, H, B, Sq, Sk, causal, a.dq_chunk);
     const int r0 = it.q0 + c * kRows;
     const int row_a = r0 + wi * 16 + lane / 4, row_b = row_a + 8;
     const bool active = c < it.n_active;
@@ -1901,90 +2238,182 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                                  : it.n_tiles - 1;
     // each row's keys end here: at Sk, or under the causal mask after the row
     const int hi_a = causal ? min(row_a + 1, Sk) : Sk, hi_b = causal ? min(row_b + 1, Sk) : Sk;
-    const int64_t rows = (static_cast<int64_t>(it.b) * H + it.h) * a.Sp;
-    const float l2_a = row_a < Sq ? lse2[rows + row_a] : 0.0f;
-    const float l2_b = row_b < Sq ? lse2[rows + row_b] : 0.0f;
-    const float dl_a = row_a < Sq ? delta[rows + row_a] : 0.0f;
-    const float dl_b = row_b < Sq ? delta[rows + row_b] : 0.0f;
+    // this thread's rows' lse in base 2 and Delta = rowsum(dO O), written
+    // to the scratch for the dK/dV launch after this one (zeros for rows
+    // in [Sq, Sp), which its 64-row tiles read and mask)
+    const int64_t bh = static_cast<int64_t>(it.b) * H + it.h, rows = bh * a.Sp;
+    const float l2_a = row_a < Sq ? a.lse[bh * Sq + row_a] * kLog2e : 0.0f;
+    const float l2_b = row_b < Sq ? a.lse[bh * Sq + row_b] * kLog2e : 0.0f;
+    const bf16* o_bh = a.o + it.b * a.so.b + it.h * a.so.h;
+    const bf16* g_bh = a.dout + it.b * a.sdo.b + it.h * a.sdo.h;
+    float dl_a = 0.0f, dl_b = 0.0f;
+    if (row_a < Sq) dl_a = delta_part<DVP>(o_bh + row_a * a.so.s, g_bh + row_a * a.sdo.s, a.Dv, tq);
+    if (row_b < Sq) dl_b = delta_part<DVP>(o_bh + row_b * a.so.s, g_bh + row_b * a.sdo.s, a.Dv, tq);
+    dl_a += __shfl_xor_sync(0xffffffffu, dl_a, 2);
+    dl_a += __shfl_xor_sync(0xffffffffu, dl_a, 1);
+    dl_b += __shfl_xor_sync(0xffffffffu, dl_b, 2);
+    dl_b += __shfl_xor_sync(0xffffffffu, dl_b, 1);
+    if (tq == 0 && row_a < a.Sp) {
+      delta[rows + row_a] = dl_a;
+      lse2[rows + row_a] = l2_a;
+    }
+    if (tq == 0 && row_b < a.Sp) {
+      delta[rows + row_b] = dl_b;
+      lse2[rows + row_b] = l2_b;
+    }
 #pragma unroll
     for (int i = 0; i < AW / 2; ++i) dq[i] = 0.0f;
     if constexpr (DP > kRegCols) rope_zero(rope_slot);
 
+    // S = Q K^T (D wide) and dP = dO V^T (Dv wide), 64 x 64, f32, on the
+    // K/V tiles of stage s, uncommitted
+    const auto issue_ss = [&](int s) {
+      const uint32_t k_tile = base + L::kK + s * L::kTile;
+      const uint32_t v_tile = base + L::kV + s * L::kVTile;
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j) {
+        const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
+        Wgmma<64>::ss(sacc, sw128_desc(q_tile + off, 16, 1024),
+                      sw128_desc(k_tile + off, 16, 1024), j > 0);
+      }
+#pragma unroll
+      for (int j = 0; j < VSTEPS; ++j) {
+        const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
+        Wgmma<64>::ss(pacc, sw128_desc(do_tile + off, 16, 1024),
+                      sw128_desc(v_tile + off, 16, 1024), j > 0);
+      }
+    };
+    // dS = P (dP - Delta) of K/V tile t in pacc, P = exp2(s scale log2e -
+    // lse2) where key < Sk and, under the causal mask, key <= row: the keys
+    // of a tile past Sk are TMA's zero rows, which would score 0, not be
+    // masked
+    const auto softmax_grad = [&](int t) {
+      const int k0 = t * kRows;
+      const bool need_mask = k0 + kRows > Sk || (causal && k0 + kRows - 1 > r0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float pa = exp2f(sacc[4 * j + e] * sl2 - l2_a);
+          float pb = exp2f(sacc[4 * j + 2 + e] * sl2 - l2_b);
+          if (need_mask) {
+            const int col = k0 + 8 * j + 2 * tq + e;
+            pa = col < hi_a ? pa : 0.0f;
+            pb = col < hi_b ? pb : 0.0f;
+          }
+          pacc[4 * j + e] = pa * (pacc[4 * j + e] - dl_a);
+          pacc[4 * j + 2 + e] = pb * (pacc[4 * j + 2 + e] - dl_b);
+        }
+      }
+    };
+    // dS in bf16: key columns 16 kk.. are the A fragment of k-step kk
+    uint32_t as[4][4];
+    const auto pack_ds = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          as[kk][i] = pack_bf16(pacc[8 * kk + 2 * i], pacc[8 * kk + 2 * i + 1]);
+    };
+    // dQ += dS K on stage s's K tile, uncommitted: its first kRegCols
+    // columns into the registers, its third panel, if any, into the shared
+    // accumulator (r, loaded and stored around it)
+    float r[32];
+    const auto issue_rs = [&](int s) {
+      const uint32_t k_tile = base + L::kK + s * L::kTile;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<AW>::rs(dq, as[kk], sw128_desc(k_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
+      if constexpr (DP > kRegCols) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<64>::rs(r, as[kk], sw128_desc(k_tile + 2 * kPanelBytes + kk * 16 * 128,
+                                              kPanelBytes, 1024), 1);
+      }
+    };
+
     mbar_wait(bar_q_full, n & 1);
     if (!active && lane == 0) mbar_arrive(bar_q_empty);
-    for (int t = 0; t < it.n_tiles; ++t, ++tile) {
-      const int s = tile % kStages;
-      mbar_wait(bar_full + 8 * s, (tile / kStages) & 1);
-      if (t <= my_last) {
-        const uint32_t k_tile = base + L::kK + s * L::kTile;
-        const uint32_t v_tile = base + L::kV + s * L::kVTile;
-        // S = Q K^T (D wide) and dP = dO V^T (Dv wide), 64 x 64, f32
+    int t = 0;
+    if constexpr (kOverlap) {
+      // K/V tile t's S and dP issued together with tile t-1's dQ product,
+      // and tile t's dS computed while that product runs: round 0 issues
+      // S and dP of tile 0, rounds 1..my_last S and dP of tile t and the
+      // product of t-1 (always two groups, so `wait_group 1` retires S and
+      // dP on every path, C7514), and a last round the product of my_last
+      if (active) {
+        int s = tile % kStages;
+        mbar_wait(bar_full + 8 * s, (tile / kStages) & 1);
         fence_regs(sacc);
         fence_regs(pacc);
         wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < KSTEPS; ++j) {
-          const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
-          Wgmma<64>::ss(sacc, sw128_desc(q_tile + off, 16, 1024),
-                        sw128_desc(k_tile + off, 16, 1024), j > 0);
+        issue_ss(s);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        fence_regs(pacc);
+        if (my_last == 0 && lane == 0) mbar_arrive(bar_q_empty);  // Q and dO are free
+        softmax_grad(0);
+        pack_ds();
+        for (t = 1; t <= my_last; ++t) {
+          const int seq = tile + t, sp = s;  // sp: tile t-1's stage
+          s = seq % kStages;
+          mbar_wait(bar_full + 8 * s, (seq / kStages) & 1);
+          fence_regs(sacc);
+          fence_regs(pacc);
+          fence_regs(dq);
+          fence_frag(as);
+          wgmma_fence();
+          issue_ss(s);
+          wgmma_commit();
+          issue_rs(sp);
+          wgmma_commit();
+          wgmma_wait<1>();  // S and dP are done; tile t-1's product may still run
+          fence_regs(sacc);
+          fence_regs(pacc);
+          if (t == my_last && lane == 0) mbar_arrive(bar_q_empty);
+          softmax_grad(t);
+          wgmma_wait<0>();
+          fence_regs(dq);
+          fence_frag(as);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_empty + 8 * sp);  // tile t-1 is done with
+          pack_ds();
         }
-#pragma unroll
-        for (int j = 0; j < VSTEPS; ++j) {
-          const uint32_t off = (j / 4) * kPanelBytes + (j % 4) * 32;
-          Wgmma<64>::ss(pacc, sw128_desc(do_tile + off, 16, 1024),
-                        sw128_desc(v_tile + off, 16, 1024), j > 0);
-        }
+        fence_regs(dq);
+        fence_frag(as);
+        wgmma_fence();
+        issue_rs(s);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_frag(as);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      }
+    } else {
+      // each tile's S and dP, dS, then dQ's product, in turn
+      for (; t <= my_last; ++t) {
+        const int seq = tile + t, s = seq % kStages;
+        mbar_wait(bar_full + 8 * s, (seq / kStages) & 1);
+        fence_regs(sacc);
+        fence_regs(pacc);
+        wgmma_fence();
+        issue_ss(s);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(sacc);
         fence_regs(pacc);
         if (t == my_last && lane == 0) mbar_arrive(bar_q_empty);  // Q and dO are free
-
-        // dS = P (dP - Delta), P = exp2(s scale log2e - lse2) where key < Sk
-        // and, under the causal mask, key <= row: the keys of a tile past Sk
-        // are TMA's zero rows, which would score 0, not be masked
-        const int k0 = t * kRows;
-        const bool need_mask = k0 + kRows > Sk || (causal && k0 + kRows - 1 > r0);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float pa = exp2f(sacc[4 * j + e] * sl2 - l2_a);
-            float pb = exp2f(sacc[4 * j + 2 + e] * sl2 - l2_b);
-            if (need_mask) {
-              const int col = k0 + 8 * j + 2 * tq + e;
-              pa = col < hi_a ? pa : 0.0f;
-              pb = col < hi_b ? pb : 0.0f;
-            }
-            pacc[4 * j + e] = pa * (pacc[4 * j + e] - dl_a);
-            pacc[4 * j + 2 + e] = pb * (pacc[4 * j + 2 + e] - dl_b);
-          }
-        }
-        // dQ += dS K: key columns 16 kk.. are the A fragment of k-step kk;
-        // K's first kRegCols columns into the registers, its third panel,
-        // if any, into the shared accumulator
-        uint32_t as[4][4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            as[kk][i] = pack_bf16(pacc[8 * kk + 2 * i], pacc[8 * kk + 2 * i + 1]);
-        float r[32];
+        softmax_grad(t);
+        pack_ds();
         fence_regs(dq);
         if constexpr (DP > kRegCols) {
           rope_load(r, rope_slot);
           fence_regs(r);
         }
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          Wgmma<AW>::rs(dq, as[kk], sw128_desc(k_tile + kk * 16 * 128, kPanelBytes, 1024), 1);
-        if constexpr (DP > kRegCols) {
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            Wgmma<64>::rs(r, as[kk], sw128_desc(k_tile + 2 * kPanelBytes + kk * 16 * 128,
-                                                kPanelBytes, 1024), 1);
-        }
+        issue_rs(s);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(dq);
@@ -1992,12 +2421,36 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           fence_regs(r);
           rope_store(r, rope_slot);
         }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * s);
       }
+    }
+    for (t = max(t, my_last + 1); t < it.n_tiles; ++t) {  // tiles this warpgroup skips
+      const int seq = tile + t, s = seq % kStages;
+      mbar_wait(bar_full + 8 * s, (seq / kStages) & 1);
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty + 8 * s);
     }
+    tile += it.n_tiles;
     if (!active) continue;
 
+    if constexpr (L::kTmaStore) {
+      // dQ in bf16 into this warpgroup's staging tile (128B-swizzled), then
+      // TMA stores, which clip rows past Sq and columns past D and run on
+      // while the next item's walk starts
+      const uint32_t out = base + L::kOut + c * L::kTile;
+      if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      warpgroup_sync(c);  // the previous item's stores have read the staging tile
+      stage_rows<AW>(dq, out, wi * 16 + lane / 4, wi * 16 + lane / 4 + 8, tq, a.scale);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the TMA unit
+      warpgroup_sync(c);
+      if (leader) {
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_store(&tm_dq, out + p * kPanelBytes, p * kPanelCols, it.h, r0, it.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      continue;
+    }
     bf16* dqb = a.dq + it.b * a.sdq.b + it.h * a.sdq.h;
 #pragma unroll
     for (int j = 0; j < AW / 8; ++j) {
@@ -2025,18 +2478,28 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   }
+  if (L::kTmaStore && leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// the shared-memory ceilings of the backward's two tensor-core kernels at
-// (DP, DVP), set once per instance and device
+// the shared-memory ceilings of the backward's tensor-core kernels at (DP,
+// DVP) (dK/dV's clustered and persistent walks of 64-key items and, up to
+// head_dim 64, its persistent walk of 128-key items), set once per
+// instance and device
 template <int DP, int DVP>
 cudaError_t bwd_smem_attr() {
   static bool attr_set[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < kMaxDevices && attr_set[dev])) return err;
-  err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<DP, DVP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem<DP, DVP>::kBytes);
+  err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<DP, DVP, kRows, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BwdSmem<DP, DVP, kRows, false>::kBytes);
+  using P = BwdPersist<DP, DVP>;
+  if constexpr (P::kFits) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<DP, DVP, P::kKeys, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, P::kBytes);
+  }
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fa_bwd_dq_kernel<DP, DVP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2045,18 +2508,19 @@ cudaError_t bwd_smem_attr() {
   return err;
 }
 
-// the dK/dV launch: grid (H / hpb, B, key tiles), the G / hpb blocks of a
-// KV head one cluster
-template <int DP, int DVP>
-cudaLaunchConfig_t dkdv_config(const BwdArgs& a, cudaLaunchAttribute* cluster,
+// the dK/dV launch of KEYS keys an item: persistent (PERSIST), `grid`
+// blocks, each a cluster of one; else grid (H / hpb, B, key tiles), the
+// G / hpb blocks of a KV head one cluster
+template <int DP, int DVP, int KEYS, bool PERSIST>
+cudaLaunchConfig_t dkdv_config(const BwdArgs& a, int grid, cudaLaunchAttribute* cluster,
                                cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.H / a.hpb, a.B, (a.Sk + kBwdKeys - 1) / kBwdKeys);
+  cfg.gridDim = PERSIST ? dim3(grid) : dim3(a.H / a.hpb, a.B, (a.Sk + KEYS - 1) / KEYS);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = BwdSmem<DP, DVP>::kBytes;
+  cfg.dynamicSmemBytes = BwdSmem<DP, DVP, KEYS, PERSIST>::kBytes;
   cfg.stream = st;
   cluster->id = cudaLaunchAttributeClusterDimension;
-  cluster->val.clusterDim.x = a.H / a.KH / a.hpb;
+  cluster->val.clusterDim.x = PERSIST ? 1 : a.H / a.KH / a.hpb;
   cluster->val.clusterDim.y = 1;
   cluster->val.clusterDim.z = 1;
   cfg.attrs = cluster;
@@ -2073,32 +2537,33 @@ int max_clusters(int C, int* out) {
   a.H = C;
   a.KH = 1;
   a.B = 1;
-  a.Sq = a.Sk = kBwdKeys;
+  a.Sq = a.Sk = kRows;
   a.hpb = 1;
   cudaLaunchAttribute cluster[1];
-  const cudaLaunchConfig_t cfg = dkdv_config<DP, DVP>(a, cluster, nullptr);
+  const cudaLaunchConfig_t cfg = dkdv_config<DP, DVP, kRows, false>(a, 1, cluster, nullptr);
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(out, fa_bwd_dkdv_kernel<DP, DVP>, &cfg));
+      cudaOccupancyMaxActiveClusters(out, fa_bwd_dkdv_kernel<DP, DVP, kRows, false>, &cfg));
 }
 
-// Query heads a dK/dV block walks, hpb = G / C for the divisor C <= 8 of G
+// Query heads a dK/dV item walks, hpb = G / C for the divisor C <= 8 of G
 // (the cluster) that minimises the launch's estimated makespan in (head,
 // query tile) steps: max(all steps / SMs the card fills with clusters of C,
-// the longest block's steps), the larger C on a tie.  The steps are those
-// of the walk launched: every key tile meets every query tile, or under
-// the causal mask key tile kb the query tiles from kb on (the triangle,
-// clipped at Sq and Sk).  Clusters of G full-SM blocks pack unevenly into
-// the GPCs (17 of 6 at once on an H100, 102 SMs); smaller clusters fill
-// more SMs with longer blocks.  The occupancy is looked up once a device,
-// instance and C.  `ops.backward_plan` makes the same choice from the same
-// numbers.
+// the longest item's steps), the larger C on a tie.  The steps are those
+// of the walk of 64-key items: every key tile meets every query tile, or
+// under the causal mask key tile kb the query tiles from kb on (the
+// triangle, clipped at Sq and Sk).  Clusters of G full-SM blocks
+// pack unevenly into the GPCs (17 of 6 at once on an H100, 102 SMs);
+// smaller clusters fill more SMs with longer blocks.  C = 1 (hpb = G: G =
+// 1, or a prime G past 8) launches the persistent walk.  The occupancy is
+// looked up once a device, instance and C.  `ops.backward_plan` makes the
+// same choice from the same numbers.
 template <int DP, int DVP>
 int heads_a_block(int B, int H, int G, int Sq, int Sk, int causal, int* hpb) {
   static int at_once[kMaxDevices][kMaxGroup + 1] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_qt = (Sq + kRows - 1) / kRows, n_kt = (Sk + kBwdKeys - 1) / kBwdKeys;
+  const int64_t n_qt = (Sq + kRows - 1) / kRows, n_kt = (Sk + kRows - 1) / kRows;
   int64_t pairs = 0;  // (key tile, query tile) steps a head
   for (int64_t kb = 0; kb < n_kt; ++kb) pairs += causal ? (n_qt > kb ? n_qt - kb : 0) : n_qt;
   const double steps = static_cast<double>(B) * H * pairs;
@@ -2124,8 +2589,58 @@ int heads_a_block(int B, int H, int G, int Sq, int Sk, int causal, int* hpb) {
   return *hpb == 0 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
 }
 
+// (batch, KV head) pairs a chunk of the persistent dK/dV walk takes: as
+// many as keep their query heads' Q and dO (G heads of Sq rows, D + Dv
+// columns) within kChunkBytes, at least one, at most all B KH
+int backward_chunk(int B, int KH, int G, int Sq, int D, int Dv) {
+  const int64_t qdo = static_cast<int64_t>(G) * Sq * (D + Dv) * static_cast<int64_t>(sizeof(bf16));
+  const int64_t pairs = kChunkBytes / qdo > 1 ? kChunkBytes / qdo : 1;
+  return pairs < static_cast<int64_t>(B) * KH ? static_cast<int>(pairs) : B * KH;
+}
+
+// The backward's launch choices at these shapes on n_sm SMs
+// (`ops.backward_plan` makes the same from the same numbers): dK/dV's
+// heads an item (`heads_a_block`); persistent where its cluster is one
+// block (grid min(items, SMs), the walk in chunks of `backward_chunk`), its
+// items of 128 keys up to head_dim 64, else 64; else one block an item of
+// 64 keys (at head_dim 64 too: the clusters' small walks measured slower
+// with 128); dQ's persistent walk in the forward's chunks of (batch, head)
+// pairs whose K and V fit kChunkBytes (`forward_chunk`).
+struct BwdChoice {
+  int keys, hpb, persist, items, grid, chunk, dq_items, dq_grid, dq_chunk;
+};
 template <int DP, int DVP>
-int launch_bwd(const CUtensorMap (&maps)[4], BwdArgs a, cudaStream_t st) {
+int backward_choice(int B, int H, int KH, int Sq, int Sk, int D, int Dv, int causal, int n_sm,
+                    BwdChoice* c) {
+  const int G = H / KH;
+  const int e = heads_a_block<DP, DVP>(B, H, G, Sq, Sk, causal, &c->hpb);
+  if (e != 0) return e;
+  c->persist = c->hpb == G && BwdPersist<DP, DVP>::kFits;
+  c->keys = c->persist ? BwdPersist<DP, DVP>::kKeys : kRows;
+  c->items = (Sk + c->keys - 1) / c->keys * B * (H / c->hpb);
+  c->grid = c->persist ? min(c->items, n_sm) : c->items;
+  c->chunk = backward_chunk(B, KH, G, Sq, D, Dv);
+  c->dq_items = forward_items(B, H, Sq);
+  c->dq_grid = min(c->dq_items, n_sm);
+  c->dq_chunk = forward_chunk(B, H, KH, Sk, D, Dv);
+  return 0;
+}
+
+template <int DP, int DVP, int KEYS, bool PERSIST>
+int launch_dkdv(const CUtensorMap (&maps)[7], const BwdArgs& a, int grid, cudaStream_t st) {
+  cudaLaunchAttribute attrs[2];
+  cudaLaunchConfig_t cfg = dkdv_config<DP, DVP, KEYS, PERSIST>(a, grid, attrs, st);
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;  // after the dQ launch
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.numAttrs = 2;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, fa_bwd_dkdv_kernel<DP, DVP, KEYS, PERSIST>,
+                                             maps[0], maps[1], maps[2], maps[3], maps[4],
+                                             maps[5], a);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int DP, int DVP>
+int launch_bwd(const CUtensorMap (&maps)[7], BwdArgs a, cudaStream_t st) {
   cudaError_t err = bwd_smem_attr<DP, DVP>();
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0;
@@ -2133,25 +2648,26 @@ int launch_bwd(const CUtensorMap (&maps)[4], BwdArgs a, cudaStream_t st) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_sm = sm_count(dev);
   if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const int e = heads_a_block<DP, DVP>(a.B, a.H, a.H / a.KH, a.Sq, a.Sk, a.causal, &a.hpb);
+  BwdChoice c;
+  int e = backward_choice<DP, DVP>(a.B, a.H, a.KH, a.Sq, a.Sk, a.D, a.Dv, a.causal, n_sm, &c);
   if (e != 0) return e;
-  const int64_t n_rows = static_cast<int64_t>(a.B) * a.H * a.Sp;
-  const int64_t delta_rows = 256 / kDeltaLanes;  // rows a block
-  fa_bwd_delta_kernel<<<static_cast<unsigned>((n_rows + delta_rows - 1) / delta_rows), 256, 0,
-                        st>>>(a);
+  a.hpb = c.hpb;
+  a.chunk = c.chunk;
+  a.dq_chunk = c.dq_chunk;
+  // dQ first: it also writes each query row's Delta and base-2 lse, which
+  // the dK/dV launch reads
+  fa_bwd_dq_kernel<DP, DVP><<<c.dq_grid, kThreads, DqSmem<DP, DVP>::kBytes, st>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[6], a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute cluster[1];
-  const cudaLaunchConfig_t cfg = dkdv_config<DP, DVP>(a, cluster, st);
-  err = cudaLaunchKernelEx(&cfg, fa_bwd_dkdv_kernel<DP, DVP>, maps[0], maps[1], maps[2], maps[3],
-                           a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_items = (a.Sq + kConsumers * kRows - 1) / (kConsumers * kRows) * a.H * a.B;
-  fa_bwd_dq_kernel<DP, DVP><<<min(n_items, n_sm), kThreads, DqSmem<DP, DVP>::kBytes, st>>>(
-      maps[0], maps[1], maps[2], maps[3], a);
-  return static_cast<int>(cudaGetLastError());
+  using P = BwdPersist<DP, DVP>;
+  if constexpr (P::kFits) {
+    e = c.persist ? launch_dkdv<DP, DVP, P::kKeys, true>(maps, a, c.grid, st)
+                  : launch_dkdv<DP, DVP, kRows, false>(maps, a, c.grid, st);
+  } else {
+    e = launch_dkdv<DP, DVP, kRows, false>(maps, a, c.grid, st);
+  }
+  return e;
 }
 
 template <int N>
@@ -2269,13 +2785,13 @@ extern "C" int fa_forward_plan(int B, int H, int KH, int Sq, int Sk, int D, int 
 
 // The backward of bf16 attention, Sq query rows over Sk keys, causal
 // (top-left, as the forward) or not: dq, dk (D wide), dv (Dv wide; each at
-// its own strides, head_dim contiguous, rows 4-byte aligned) from q, k (D
-// wide), v, the forward's o, dout (Dv wide) and lse.  delta: an f32 scratch
-// of 2 B H Sp values, Sp = Sq rounded up to 64 (Delta, then lse in base 2).
-// q, k, v and dout are read through TMA, o by 16-byte loads: their rows
-// must be 16-byte aligned (D and Dv multiples of 8, every stride a multiple
-// of 8 elements); D <= 192, and (D, Dv) must round to an instance
-// (`instance`); any number of query heads a KV head.
+// its own strides, head_dim contiguous) from q, k (D wide), v, the
+// forward's o, dout (Dv wide) and lse.  delta: an f32 scratch of 2 B H Sp
+// values, Sp = Sq rounded up to 64 (Delta, then lse in base 2).  q, k, v
+// and dout are read and dq, dk and dv written through TMA, o read by
+// 16-byte loads: their rows must be 16-byte aligned (D and Dv multiples of
+// 8, every stride a multiple of 8 elements); D <= 192, and (D, Dv) must
+// round to an instance (`instance`); any number of query heads a KV head.
 extern "C" int fa_backward(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, void* dq, void* dk, void* dv, const void* lse,
                            void* delta,
@@ -2294,11 +2810,14 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t bound = bind_device();
   if (bound != cudaSuccess) return static_cast<int>(bound);
-  CUtensorMap maps[4];
+  CUtensorMap maps[7];
   if (!encode(&maps[0], q, D, H, Sq, B, Strides{sqb, sqh, sqs}) ||
       !encode(&maps[1], k, D, KH, Sk, B, Strides{skb, skh, sks}) ||
       !encode(&maps[2], v, Dv, KH, Sk, B, Strides{svb, svh, svs}) ||
-      !encode(&maps[3], dout, Dv, H, Sq, B, Strides{sgb, sgh, sgs}))
+      !encode(&maps[3], dout, Dv, H, Sq, B, Strides{sgb, sgh, sgs}) ||
+      !encode(&maps[4], dk, D, KH, Sk, B, Strides{sdkb, sdkh, sdks}) ||
+      !encode(&maps[5], dv, Dv, KH, Sk, B, Strides{sdvb, sdvh, sdvs}) ||
+      !encode(&maps[6], dq, D, H, Sq, B, Strides{sdqb, sdqh, sdqs}))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
   a.o = static_cast<const bf16*>(o);
@@ -2322,7 +2841,9 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
   a.D = D;
   a.Dv = Dv;
   a.causal = causal != 0;
-  a.hpb = 1;  // launch_bwd chooses
+  a.hpb = 1;  // launch_bwd chooses these three
+  a.chunk = 1;
+  a.dq_chunk = 1;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return instance(D, Dv, [&](auto dp, auto dvp) {
@@ -2342,16 +2863,37 @@ extern "C" int fa_backward_max_clusters(int C, int D, int Dv, int* out) {
   });
 }
 
-// *out: the query heads a dK/dV block of `fa_backward` walks at these
-// shapes on the current device (its cluster holds G / *out blocks).
-extern "C" int fa_backward_heads(int B, int H, int KH, int Sq, int Sk, int causal, int D, int Dv,
-                                 int* out) {
+// out[0..14]: the backward's launch shape at these shapes on the current
+// device, as `fa_backward` launches it: the instance (DP, DVP), keys a
+// dK/dV item, ring stages, K/V buffers, dynamic shared-memory bytes, query
+// heads an item, blocks a cluster, 1 where the dK/dV walk is persistent,
+// dK/dV items, dK/dV blocks, (batch, KV head) pairs a chunk of the
+// persistent walk, dQ items, dQ blocks, (batch, head) pairs a chunk of
+// dQ's walk.
+extern "C" int fa_backward_plan(int B, int H, int KH, int Sq, int Sk, int causal, int D, int Dv,
+                                int* out) {
   if (D < 8 || D > kBwdMaxD || D % 8 != 0 || Dv < 8 || Dv > D || Dv % 8 != 0 || KH < 1 ||
       H % KH != 0 || Sq < 1 || Sk < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = H / KH, c = causal != 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_sm = sm_count(dev);
+  if (n_sm == 0) return static_cast<int>(cudaErrorInvalidDevice);
   return instance(D, Dv, [&](auto dp, auto dvp) {
-    return heads_a_block<decltype(dp)::value, decltype(dvp)::value>(B, H, G, Sq, Sk, c, out);
+    constexpr int DP = decltype(dp)::value, DVP = decltype(dvp)::value;
+    using L = BwdSmem<DP, DVP, kRows, false>;
+    using P = BwdPersist<DP, DVP>;
+    BwdChoice c;
+    const int e = backward_choice<DP, DVP>(B, H, KH, Sq, Sk, D, Dv, causal != 0, n_sm, &c);
+    if (e != 0) return e;
+    const int ring[3] = {c.persist ? P::kStages : L::kStages, c.persist ? P::kKVBufs : L::kKVBufs,
+                         c.persist ? P::kBytes : L::kBytes};
+    const int plan[15] = {DP,      DVP,     c.keys,         ring[0],   ring[1],
+                          ring[2], c.hpb,   H / KH / c.hpb, c.persist, c.items,
+                          c.grid,  c.chunk, c.dq_items,     c.dq_grid, c.dq_chunk};
+    for (int i = 0; i < 15; ++i) out[i] = plan[i];
+    return 0;
   });
 }
 

@@ -36,14 +36,18 @@ heads a KV head: the dense and hybrid decoders' causal self-attention, the
 enc-dec's encoder and its cross-attention, deepseek-v3's MLA at q and k 192
 wide and v 128) goes through `_FlashFn`: `fa_forward_lse` (the forward
 that also writes each row's log-sum-exp; v at `v_width`) and
-`fa_backward`, three launches counted as one call of
-`flash_attention_backward`: Delta (with each row's lse in base 2) into an
-f32 scratch; dK/dV, a block a (64-key tile of Sk, batch) walking the query
-tiles its keys meet (every one of Sq, or under the causal mask those from
-its first key on) for one or more query heads, the blocks of a KV head a
-thread block cluster of at most 8 that sums their partial dK and dV in rank
-order through distributed shared memory; and dQ, persistent, the items with
-the most K/V tiles first.  The backward reads v, o and dout and writes dv
+`fa_backward`, two launches counted as one call of
+`flash_attention_backward`: dQ, persistent, in L2-sized chunks of (batch,
+head) pairs, the items with the most K/V tiles first, which also writes
+each query row's Delta and lse in base 2 into an f32 scratch; then dK/dV,
+whose items (a key tile of Sk, a batch, one or more query heads) walk the
+query tiles their keys meet (every one of Sq, or under the causal mask
+those from the tile's first key on): where a KV head's G query heads are
+one item, a persistent walk in L2-sized chunks of (batch, KV head) pairs
+(128 keys an item up to head_dim 64), dK and dV stored through TMA; else
+a block an item of 64 keys, the blocks of a KV head a thread block
+cluster of at most 8 that sums their partial dK and dV in rank order
+through distributed shared memory.  The backward reads v, o and dout and writes dv
 at v's own width, padded only to the nearest width the source instantiates
 (`grad_v_width`).  `backward_plan` is that launch shape in plain Python
 (the source computes the same numbers).  f32 raises under grad, naming the
@@ -64,6 +68,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 
 import torch
@@ -77,7 +82,7 @@ MAX_HEAD_DIM = 192  # three 64-column panels; kMaxD in the source
 MAX_GRAD_HEAD_DIM = 192  # kBwdMaxD in the source
 MAX_CLUSTER = 8  # kMaxGroup: dK/dV blocks a cluster, the portable size
 REG_COLS = 128  # kRegCols: v's widths past it take the (192, 192) instance
-BWD_KEYS = 64  # kBwdKeys: keys a dK/dV block
+BWD_KEYS = 64  # kRows: keys a dK/dV item past head_dim 64 (`bwd_keys`) and a dQ K/V tile
 BWD_ROWS = 64  # kRows: query rows a tile; the scratch's rows round Sq up to it
 DQ_ROWS = 128  # query rows a dQ work item (two consumer warpgroups of 64)
 GRAD_ROUTE = ("bf16, causal (top-left) or not, any Sq and Sk, head_dim a multiple of 8 up "
@@ -191,8 +196,8 @@ _SIGNATURES = {"fa_forward": _ARGS,
                "fa_backward": [_P] * 10 + [_L] * 24 + [_I] * 7 + [ctypes.c_float, _I, _P],
                # C, D, Dv, the count out
                "fa_backward_max_clusters": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)],
-               # B, H, KH, Sq, Sk, causal, D, Dv, the heads out
-               "fa_backward_heads": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]}
+               # B, H, KH, Sq, Sk, causal, D, Dv, the plan out (fifteen ints)
+               "fa_backward_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]}
 F32_LANES = 8      # kF32Lanes: threads of a query row
 F32_STAGES = 3     # kF32Stages: the K/V ring's buffers
 F32_SMALL_SQ = 64  # kF32SmallSq: up to this many queries, 64 rows a block
@@ -521,20 +526,43 @@ def forward_plan_on_card(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, Dv: 
     return tuple(out)
 
 
+def bwd_keys(D: int, persistent: bool) -> int:
+    """Keys a dK/dV work item at head_dim D: 128 (`kWideKeys`) for a
+    persistent walk up to a padded 64, where each consumer warpgroup runs
+    the whole chain for 64 of them, else 64, where the two warpgroups split
+    it (the clusters' short walks measured slower with 128)."""
+    return 2 * BWD_KEYS if persistent and _padded_dim(D) <= 64 else BWD_KEYS
+
+
 @dataclass(frozen=True)
 class BackwardPlan:
-    """The backward's launch shape at (B, H, KH, Sq, Sk, causal) on `n_sm`
-    SMs: each dK/dV block walks `heads` query heads in turn, and the G /
-    heads blocks of a KV head form a cluster."""
+    """The backward's launch shape at (B, H, KH, Sq, Sk, D, Dv, causal) on
+    `n_sm` SMs: each dK/dV item takes `keys` keys of one KV head and walks
+    `heads` query heads in turn; where its cluster is one block (`heads` ==
+    G) the dK/dV launch is `persistent` (but at (192, 192), `persists`),
+    one block an SM walking the items in chunks of `chunk` (batch, KV head)
+    pairs and storing dK and dV through TMA, else one block an item, the G
+    / heads blocks of a KV head a cluster.  K and V (`kv_bufs` buffers)
+    and a ring of `stages` Q/dO stages take `smem` bytes.  dQ's persistent
+    walk takes chunks of `dq_chunk` (batch, head) pairs."""
 
     B: int
     H: int
     KH: int
     Sq: int
     Sk: int
+    D: int
+    Dv: int
     causal: bool
     n_sm: int
     heads: int
+    keys: int
+    stages: int
+    kv_bufs: int
+    smem: int
+    chunk: int
+    dq_chunk: int
+    persistent: bool
 
     @property
     def group(self) -> int:
@@ -558,29 +586,50 @@ class BackwardPlan:
 
     @property
     def key_tiles(self) -> int:
-        return -(-self.Sk // BWD_KEYS)
+        return -(-self.Sk // self.keys)
 
     def tile_steps(self, kb: int) -> int:
-        """Query tiles the dK/dV blocks of key tile `kb` walk a head: every
+        """Query tiles a dK/dV item of key tile `kb` walks a head: every
         one, or under the causal mask those from the tile's first key on
-        (none once it lies at or past Sq: such a block writes zeros)."""
-        return max(self.query_tiles - kb, 0) if self.causal else self.query_tiles
+        (none once it lies at or past Sq: such an item writes zeros)."""
+        if not self.causal:
+            return self.query_tiles
+        return max(-(-(self.Sq - kb * self.keys) // BWD_ROWS), 0)
+
+    @property
+    def dkdv_items(self) -> int:
+        return self.key_tiles * self.B * (self.H // self.heads)
 
     @property
     def dkdv_grid(self) -> tuple[int, int, int]:
-        """(H / heads, B, key tiles): blockIdx.x the block's heads (the
-        cluster's rank is x % cluster), y the batch, z the key tile."""
+        """Persistent: (min(items, SMs), 1, 1); else (H / heads, B, key
+        tiles): blockIdx.x the block's heads (the cluster's rank is x %
+        cluster), y the batch, z the key tile."""
+        if self.persistent:
+            return min(self.dkdv_items, self.n_sm), 1, 1
         return self.H // self.heads, self.B, self.key_tiles
 
     def dkdv_blocks(self) -> list[tuple[int, tuple[int, ...], int, int]]:
         """(batch, query heads, key tile, steps it walks: heads x query
-        tiles) of every dK/dV block in launch order (x fastest): key tile
-        0, which walks the most query tiles, first."""
+        tiles) of every dK/dV item in order: persistent, the walk's order
+        (`bwd_item`: in chunks of `chunk` (batch, KV head) pairs, within a
+        chunk key tile 0, which walks the most query tiles, first, pairs
+        fastest; block i takes items i, i + grid, ...); else the launch
+        order (x fastest), key tile 0 first."""
         G, C, n = self.group, self.cluster, self.heads
-        return [(b, tuple((x // C) * G + (x % C) * n + j for j in range(n)), kb,
-                 n * self.tile_steps(kb))
-                for kb in range(self.key_tiles) for b in range(self.B)
-                for x in range(self.H // n)]
+        if not self.persistent:
+            return [(b, tuple((x // C) * G + (x % C) * n + j for j in range(n)), kb,
+                     n * self.tile_steps(kb))
+                    for kb in range(self.key_tiles) for b in range(self.B)
+                    for x in range(self.H // n)]
+        out, pairs, n_kt = [], self.B * self.KH, self.key_tiles
+        for w in range(self.dkdv_items):
+            ci, r = divmod(w, self.chunk * n_kt)
+            in_chunk = min(self.chunk, pairs - ci * self.chunk)
+            pair, kb = ci * self.chunk + r % in_chunk, r // in_chunk
+            kh, b = pair % self.KH, pair // self.KH
+            out.append((b, tuple(range(kh * G, kh * G + G)), kb, G * self.tile_steps(kb)))
+        return out
 
     @property
     def dq_items(self) -> int:
@@ -593,43 +642,109 @@ class BackwardPlan:
 
     def dq_order(self) -> list[tuple[int, int, int, int]]:
         """(batch, head, first query row, K/V tiles it walks) of every dQ
-        work item in walk order (the source's `item_at`): the last query
-        block first (under the causal mask the one with the most K/V
-        tiles); block i takes items i, i + dq_grid, ..."""
-        n_qb, hb = -(-self.Sq // DQ_ROWS), self.H * self.B
+        work item in walk order (the source's `item_at`): in chunks of
+        `dq_chunk` (batch, head) pairs, within a chunk the last query block
+        first (under the causal mask the one with the most K/V tiles),
+        heads fastest; block i takes items i, i + dq_grid, ..."""
+        n_qb, hb, chunk = -(-self.Sq // DQ_ROWS), self.H * self.B, self.dq_chunk
+        n_kv = -(-self.Sk // BWD_KEYS)
         out = []
         for w in range(self.dq_items):
-            q0 = (n_qb - 1 - w // hb) * DQ_ROWS
-            rem = w % hb
+            ci, r = divmod(w, chunk * n_qb)
+            in_chunk = min(chunk, hb - ci * chunk)
+            pair = ci * chunk + r % in_chunk
+            q0 = (n_qb - 1 - r // in_chunk) * DQ_ROWS
             last = min(q0 + DQ_ROWS, self.Sq) - 1
-            tiles = min(self.key_tiles, last // BWD_KEYS + 1) if self.causal else self.key_tiles
-            out.append((rem // self.H, rem % self.H, q0, tiles))
+            tiles = min(n_kv, last // BWD_KEYS + 1) if self.causal else n_kv
+            out.append((pair // self.H, pair % self.H, q0, tiles))
         return out
+
+    def as_tuple(self) -> tuple[int, ...]:
+        """The fifteen numbers in `fa_backward_plan`'s order."""
+        return (_padded_dim(self.D), _padded_dim(self.Dv), self.keys, self.stages, self.kv_bufs,
+                self.smem, self.heads, self.cluster, int(self.persistent), self.dkdv_items,
+                math.prod(self.dkdv_grid), self.chunk, self.dq_items, self.dq_grid,
+                self.dq_chunk)
+
+
+def backward_smem(D: int, Dv: int, keys: int = BWD_KEYS,
+                  persistent: bool = False) -> tuple[int, int, int]:
+    """(ring stages, K/V buffers, dynamic shared-memory bytes) of the dK/dV
+    kernel at head_dim D, v's width Dv and `keys` keys an item (`BwdSmem`
+    in the source): K and V of an item in two buffers where three stages
+    still fit beside them, else one; as many stages of Q, dO (64 rows
+    each), P^T (f32, 64 x 64, where the warpgroups split the chain), lse and
+    Delta as fit, up to four; a 64 x 64 f32 accumulator for each of dV's
+    and dK's column ranges past `REG_COLS`; and for the persistent walk the
+    bf16 dV and dK tiles staged for their TMA stores (each warpgroup's
+    where it runs the whole chain).  Stages 1 means the layout does not fit:
+    that walk is never launched (`persists`)."""
+    dp, dvp = _padded_dim(D), _padded_dim(Dv)
+    tile, vtile = -(-dp // 64) * PANEL_BYTES, -(-dvp // 64) * PANEL_BYTES
+    kv = (-(-dp // 64) + -(-dvp // 64)) * keys * 128
+    rope = BWD_ROWS * BWD_ROWS * 4
+    ropes = (dvp > REG_COLS) + (dp > REG_COLS)
+    wide = keys > BWD_KEYS
+    out = (FWD_CONSUMERS if wide else 1) * (tile + vtile) if persistent else 0
+    stage = tile + vtile + (0 if wide else rope) + 2 * BWD_ROWS * 4
+    room = SMEM_LIMIT - 1024 - 8 * (2 * 2 + 3 * 4) - ropes * rope - out
+    bufs = 2 if 2 * kv + 3 * stage <= room else 1
+    stages = min(4, (room - bufs * kv) // stage)
+    smem = bufs * kv + stages * stage + out + ropes * rope + 8 * (2 * bufs + 3 * stages) + 1024
+    return stages, bufs, smem
+
+
+def persists(D: int, Dv: int) -> bool:
+    """Whether the dK/dV kernel's persistent walk has a layout at (D, Dv):
+    all but the (192, 192) instance, whose C = 1 walks take the clustered
+    kernel's grid."""
+    return backward_smem(D, Dv, bwd_keys(D, True), True)[0] >= 2
+
+
+def _chunk(nbytes: int, pairs: int, group: int = 1) -> int:
+    """Pairs a chunk of a persistent walk takes: whole groups of `group`
+    as many as keep `nbytes` a group within `CHUNK_BYTES`, at least one
+    group, at most all `pairs`."""
+    return min(max(CHUNK_BYTES // nbytes, 1) * group, pairs)
 
 
 @functools.lru_cache(maxsize=256)
 def backward_plan(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, n_sm: int,
                   clusters: tuple[tuple[int, int], ...] | None = None,
-                  causal: bool = True) -> BackwardPlan:
+                  causal: bool = True, Dv: int | None = None) -> BackwardPlan:
     """The launch shape of `fa_backward` for (B, H, Sq, D) queries over KH KV
-    heads of Sk keys, causal (top-left) or not, on a card of `n_sm` SMs;
-    raises off the route's shapes.  `clusters`: (C, clusters of C blocks
-    the card holds at once) for the divisors C <= `MAX_CLUSTER` of G, as
-    `backward_max_clusters` reads them; None takes every SM as usable
-    (n_sm // C).  The dK/dV cluster is the divisor C <= 8 of G (a portable
-    cluster; a prime G past 8 takes 1, a block walking all G heads) that
-    minimises the launch's
-    estimated makespan in (head, query tile) steps, max(all steps / (C x
-    clusters at once), the longest block's steps), the larger C on a tie,
-    as the source's `heads_a_block` chooses; the steps are those of the walk
-    launched (Sq x Sk tile pairs, or the causal mask's clipped triangle)."""
+    heads of Sk keys, v Dv wide (D where None), causal (top-left) or not,
+    on a card of `n_sm` SMs; raises off the route's shapes.  `clusters`:
+    (C, clusters of C blocks the card holds at once) for the divisors C <=
+    `MAX_CLUSTER` of G, as `backward_max_clusters` reads them; None takes
+    every SM as usable (n_sm // C).  The dK/dV cluster is the divisor C <=
+    8 of G (a portable cluster; a prime G past 8 takes 1, an item walking
+    all G heads) that minimises the launch's estimated makespan in (head,
+    query tile) steps, max(all steps / (C x clusters at once), the longest
+    item's steps), the larger C on a tie, as the source's `heads_a_block`
+    chooses; the steps are those of the walk launched (Sq x Sk tile pairs
+    of `bwd_keys` keys, or the causal mask's clipped triangle).  A cluster
+    of one launches the persistent walk, in chunks of (batch, KV head)
+    pairs whose G heads' Q and dO fit `CHUNK_BYTES`; dQ's walk takes the
+    forward's chunks (pairs whose K and V fit it)."""
+    Dv = D if Dv is None else Dv
     if B < 1 or Sq < 1 or Sk < 1 or KH < 1 or H % KH:
         raise ValueError(f"no backward plan for B {B}, Sq {Sq}, Sk {Sk}, {H} heads over {KH}")
-    if D % 8 or not 8 <= D <= MAX_GRAD_HEAD_DIM:
-        raise ValueError(f"head_dim {D}: the backward takes multiples of 8 up to "
-                         f"{MAX_GRAD_HEAD_DIM}")
+    if D % 8 or Dv % 8 or not 8 <= Dv <= D <= MAX_GRAD_HEAD_DIM or grad_v_width(D, Dv) != Dv:
+        raise ValueError(f"head_dim {D} and v's width {Dv}: the backward takes multiples of 8 "
+                         f"up to {MAX_GRAD_HEAD_DIM}, v of a width an instance pairs with D")
     G = H // KH
-    walk = BackwardPlan(B, H, KH, Sq, Sk, bool(causal), n_sm, 1)  # its steps ignore `heads`
+    chunk = _chunk(G * Sq * (D + Dv) * 2, B * KH)
+    dq_chunk = _chunk(Sk * (D + Dv) * 2, H * B, G)
+
+    def plan(heads: int) -> BackwardPlan:
+        persistent = heads == G and persists(D, Dv)
+        keys = bwd_keys(D, persistent)
+        return BackwardPlan(B, H, KH, Sq, Sk, D, Dv, bool(causal), n_sm, heads, keys,
+                            *backward_smem(D, Dv, keys, persistent), chunk, dq_chunk,
+                            persistent)
+
+    walk = plan(0)  # the makespan's steps, of 64-key items (`heads` 0 is never persistent)
     at_once = dict(clusters) if clusters is not None else {}
     steps = float(B * H * sum(walk.tile_steps(kb) for kb in range(walk.key_tiles)))
     best, heads = 0.0, 0
@@ -637,12 +752,23 @@ def backward_plan(B: int, H: int, KH: int, Sq: int, Sk: int, D: int, n_sm: int,
         n = at_once.get(C, 0) if clusters is not None else n_sm // C
         if G % C or n == 0:
             continue
-        est = max(steps / (C * n), float(G // C * walk.tile_steps(0)))
+        est = max(steps / (C * n), float(G // C * walk.query_tiles))
         if heads == 0 or est < best:
             best, heads = est, G // C
     if heads == 0:
         raise ValueError(f"the card holds no cluster of any divisor of {G} blocks")
-    return BackwardPlan(B, H, KH, Sq, Sk, bool(causal), n_sm, heads)
+    return plan(heads)
+
+
+def backward_plan_on_card(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
+                          causal: bool = True, Dv: int | None = None) -> tuple[int, ...]:
+    """`BackwardPlan.as_tuple()` as the source computes it on the current
+    card."""
+    out = (ctypes.c_int * 15)()
+    lib = _lib.load("flash_attention", _SIGNATURES)
+    _lib.check("fa_backward_plan", lib.fa_backward_plan(
+        B, H, KH, Sq, Sk, int(causal), D, D if Dv is None else Dv, out))
+    return tuple(out)
 
 
 def _divisors(n: int) -> list[int]:
@@ -674,11 +800,11 @@ def flash_attention_backward(q, k, v, o, dout, lse, dq, dk, dv, scale: float,
         raise ValueError(f"flash_attention_backward: v, o, dout and dv must share one width "
                          f"the kernel takes beside head_dim {D} (grad_v_width), got "
                          f"{v.shape[3]}, {o.shape[3]}, {dout.shape[3]}, {dv.shape[3]}")
-    for t in (q, k, v, o, dout):
+    for t in (q, k, v, o, dout, dq, dk, dv):
         _check_tma(t, _strides(t), t.data_ptr())
     at_once = (_clusters_on_h100(H // KH, D, Dv) if q.is_meta
                else _clusters_at_once(H // KH, D, q.device.index, Dv))
-    plan = backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(q.device), at_once, causal)
+    plan = backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(q.device), at_once, causal, Dv)
     scratch = torch.empty((2, B, H, plan.scratch_rows), dtype=torch.float32, device=q.device)
     _lib.launch(q, "flash_attention_backward", lambda: _lib.load(
         "flash_attention", _SIGNATURES).fa_backward(
@@ -705,18 +831,6 @@ def backward_max_clusters(C: int, D: int, Dv: int | None = None) -> int:
     lib = _lib.load("flash_attention", _SIGNATURES)
     _lib.check("fa_backward_max_clusters",
                lib.fa_backward_max_clusters(C, D, D if Dv is None else Dv, ctypes.byref(n)))
-    return n.value
-
-
-def backward_heads(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
-                   causal: bool = True, Dv: int | None = None) -> int:
-    """The query heads a dK/dV block of `fa_backward` walks at these shapes
-    (v Dv wide, D where None) on the current card, as the source chooses
-    them."""
-    n = ctypes.c_int(0)
-    lib = _lib.load("flash_attention", _SIGNATURES)
-    _lib.check("fa_backward_heads", lib.fa_backward_heads(
-        B, H, KH, Sq, Sk, int(causal), D, D if Dv is None else Dv, ctypes.byref(n)))
     return n.value
 
 

@@ -1671,13 +1671,13 @@ def test_flash_attention_backward_replays_bit_equal_in_a_graph(cuda, B, H, KH, S
                                         (4, 8, 2, 128, 64), (1, 16, 2, 1000, 128),
                                         (1, 14, 2, 257, 80), (3, 5, 1, 64, 40)])
 def test_flash_attention_backward_launch_follows_its_plan(cuda, B, H, KH, S, D):
-    """The query heads a dK/dV block walks, as the source chooses them from
-    the card's cluster occupancy, equal `backward_plan`'s choice from the
-    same occupancy."""
+    """The launch shape the source chooses from the card's cluster occupancy
+    (the query heads a dK/dV item walks among it) equals `backward_plan`'s
+    from the same occupancy."""
     dev = torch.cuda.current_device()
     plan = fa.backward_plan(B, H, KH, S, S, D, _lib.sm_count(dev),
                             fa._clusters_at_once(H // KH, D, dev))
-    assert fa.backward_heads(B, H, KH, S, S, D) == plan.heads
+    assert fa.backward_plan_on_card(B, H, KH, S, S, D) == plan.as_tuple()
 
 
 # (B, H, KH, Sq, Sk, D, causal) of the backward at lengths of their own
@@ -1693,7 +1693,15 @@ FLASH_GRAD_LENGTHS = [
     (2, 16, 4, 300, 1000, 128, True),    # causal Sq < Sk: key tiles past Sq meet no query
     (2, 16, 4, 1000, 300, 64, True),     # causal Sq > Sk: rows past Sk see every key
     (1, 4, 2, 2, 200, 64, True),         # causal, two queries: keys 0 and 1 alone get gradients
-    (2, 6, 1, 33, 500, 40, True)]        # causal, G = 6, Sq 33
+    (2, 6, 1, 33, 500, 40, True),        # causal, G = 6, Sq 33
+    # G = 1 up to head_dim 64: the persistent walk of 128-key items, each
+    # warpgroup the whole chain for 64 of them
+    (2, 4, 4, 70, 130, 64, True),        # causal Sq < Sk: item 1's keys 128, 129 meet no query
+    (2, 4, 4, 300, 77, 64, True),        # causal Sq > Sk: the second warpgroup's 13 keys
+    (1, 6, 6, 200, 64, 64, False),       # Sk 64: the second warpgroup's keys all past Sk
+    (3, 5, 5, 129, 333, 48, False),      # ragged both ways, a zero-padded panel
+    (2, 3, 3, 257, 200, 16, True),       # head_dim 16, Sq > Sk
+    (1, 8, 8, 1000, 1000, 64, True)]     # 64 items over the card's SMs, causal diagonal
 
 
 @pytest.mark.requires_cuda
@@ -1731,7 +1739,8 @@ def test_flash_attention_backward_kernel_at_any_lengths(cuda, B, H, KH, Sq, Sk, 
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", [FLASH_GRAD_LENGTHS[i] for i in (0, 1, 2, 8)])
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", [FLASH_GRAD_LENGTHS[i]
+                                                     for i in (0, 1, 2, 8, 12, 13, 14, 15)])
 def test_flash_attention_backward_at_any_lengths_replays_bit_equal(cuda, B, H, KH, Sq, Sk, D,
                                                                    causal):
     """Captured in a CUDA graph and replayed on new cotangents copied in,
@@ -1766,12 +1775,31 @@ def test_flash_attention_backward_at_any_lengths_replays_bit_equal(cuda, B, H, K
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", FLASH_GRAD_LENGTHS)
 def test_flash_attention_backward_at_any_lengths_follows_its_plan(cuda, B, H, KH, Sq, Sk, D,
                                                                   causal):
-    """The source's cluster choice counts the walk it launches, as
-    `backward_plan` does."""
+    """The source's launch shape counts the walk it launches, as
+    `backward_plan` does: its cluster, keys an item, stages, K/V buffers,
+    shared memory, the persistent walk and its chunks, dQ's walk."""
     dev = torch.cuda.current_device()
     plan = fa.backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(dev),
                             fa._clusters_at_once(H // KH, D, dev), causal)
-    assert fa.backward_heads(B, H, KH, Sq, Sk, D, causal) == plan.heads
+    assert fa.backward_plan_on_card(B, H, KH, Sq, Sk, D, causal) == plan.as_tuple()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv,causal", [
+    (4, 16, 16, 1024, 1024, 64, 64, False),    # seamless-m4t-large-v2's encoder
+    (4, 16, 16, 256, 256, 64, 64, True),       # its decoder
+    (4, 128, 128, 1024, 1024, 192, 128, True),  # deepseek-v3's MLA: chunks of 38 pairs
+    (4, 12, 2, 1024, 1024, 128, 128, True),    # qwen2-1.5b: clusters of two
+    (2, 8, 2, 512, 512, 192, 192, False),      # one K/V buffer, two stages
+    (1, 11, 1, 300, 300, 80, 80, True)])       # a prime G past 8: persistent, 11 heads an item
+def test_flash_attention_backward_plan_on_card(cuda, B, H, KH, Sq, Sk, D, Dv, causal):
+    """`fa_backward_plan`, the launch shape the source computes on this
+    card, equals `backward_plan`'s from the card's cluster occupancy, v at
+    its own width."""
+    dev = torch.cuda.current_device()
+    plan = fa.backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(dev),
+                            fa._clusters_at_once(H // KH, D, dev, Dv), causal, Dv)
+    assert fa.backward_plan_on_card(B, H, KH, Sq, Sk, D, causal, Dv) == plan.as_tuple()
 
 
 @pytest.mark.requires_cuda
@@ -1845,7 +1873,7 @@ def test_flash_attention_backward_at_wide_heads_and_large_groups(cuda, B, H, KH,
     zero-padded to D, as `_FlashFn` pads it), or G past 8: dq, dk and dv,
     written over NaN, against the plain backward run in f32 within
     `GRAD_TOL`; bit-equal run to run and in a CUDA graph's replay (over NaN,
-    on a new cotangent); the source's heads a block equal `backward_plan`'s."""
+    on a new cotangent); the source's launch shape equals `backward_plan`'s."""
     dtype = torch.bfloat16
     q = _on(cuda, 150, (B, H, Sq, D), dtype)
     k = _on(cuda, 151, (B, KH, Sk, D), dtype)
@@ -1881,9 +1909,9 @@ def test_flash_attention_backward_at_wide_heads_and_large_groups(cuda, B, H, KH,
     del graph
     dev = torch.cuda.current_device()
     plan = fa.backward_plan(B, H, KH, Sq, Sk, D, _lib.sm_count(dev),
-                            fa._clusters_at_once(H // KH, D, dev, Dv), causal)
+                            fa._clusters_at_once(H // KH, D, dev, Dv), causal, Dv)
     assert plan.cluster <= fa.MAX_CLUSTER
-    assert fa.backward_heads(B, H, KH, Sq, Sk, D, causal, Dv) == plan.heads
+    assert fa.backward_plan_on_card(B, H, KH, Sq, Sk, D, causal, Dv) == plan.as_tuple()
 
 
 @pytest.mark.requires_cuda

@@ -13,11 +13,14 @@ the bound the card holds the kernels to.
   them) and against autograd of the port's plain forward: f32 to 1e-5 of
   each gradient's scale; bf16 to the card's bound.
 * `backward_plan` at every walk: each (batch, head, key tile) in one dK/dV
-  block, the query tiles it walks (a causal key tile at or past Sq walks
+  item, the query tiles it walks (a causal key tile at or past Sq walks
   none), the dQ items, and the cluster chosen by the makespan of the walk
   launched; past 8 query heads a KV head (G 16, 9, 11) a cluster of at
-  most 8 blocks, each walking G / C heads.  `grad_v_width`: the width v
-  reaches the backward kernel at.
+  most 8 blocks, each walking G / C heads; where the cluster is one block
+  the persistent walk (128-key items up to head_dim 64, chunks of pairs
+  whose Q and dO fit `CHUNK_BYTES`, longest first within a chunk), dQ's
+  chunks, and the dK/dV kernel's shared memory at each instance.
+  `grad_v_width`: the width v reaches the backward kernel at.
 * The card's bound (`testing.parity.GRAD_TOL`: each gradient within 2e-2
   of the f32 plain backward's max |value|) rejects planted faults — a flash
   backward that drops its Delta term, one that skips the sum over a KV
@@ -25,8 +28,9 @@ the bound the card holds the kernels to.
   causal half, a dQ that leaves the key tile's rows past Sk unmasked, an
   rmsnorm backward that sums dw in bf16, and at MLA's widths a dK whose
   columns past v's width stay zero and a dv taken from the wrong rows of a
-  padded v — at the card check's shapes, and accepts the sound plain
-  backward run in bf16.
+  padded v, and a 128-key dK/dV item whose second warpgroup masks its keys
+  at the first's offset — at the card check's shapes, and accepts the
+  sound plain backward run in bf16.
 * Under grad on the CPU every op of `KERNELS` returns a tensor that carries
   a `grad_fn` (the plain versions, differentiated by autograd); the
   training route's shape rule accepts non-causal attention, Sq != Sk,
@@ -135,37 +139,55 @@ def test_rmsnorm_backward_plan():
 # ---------------------------------------------------------- flash attention
 
 
-def _check_plan(B, H, KH, Sq, Sk, D, n_sm, causal):
-    """`backward_plan`'s blocks and items at these shapes, with and without
-    a card's cluster occupancy: every (batch, head, 64-key tile) in one
-    dK/dV block, which walks the query tiles its keys meet (all of Sq, or
-    under the causal mask those from its first key on), the blocks in
-    order of those steps, most first, each aligned run of `cluster` blocks
-    the heads of one KV head; every (batch, head, 128-row query block) one
-    dQ item, walking all K/V tiles or those up to its last row, in order of
-    its K/V tiles, most first.  Returns the plan."""
+def _check_plan(B, H, KH, Sq, Sk, D, n_sm, causal, Dv=None):
+    """`backward_plan`'s items at these shapes, with and without a card's
+    cluster occupancy: every (batch, head, key tile) in one dK/dV item
+    (tiles of 128 keys where the walk is persistent up to head_dim 64, else
+    64), which walks the query
+    tiles its keys meet (all of Sq, or under the causal mask those from its
+    first key on).  Where the cluster is one block the walk is persistent:
+    one block an SM, at most one an item, the items in chunks of `chunk`
+    (batch, KV head) pairs, each chunk's pairs whole (every key tile of
+    each) and its items in order of their steps, most first.  Else one
+    block an item in order of those steps, most first, each aligned run of
+    `cluster` blocks the heads of one KV head.  Every (batch, head, 128-row
+    query block) is one dQ item, walking all K/V tiles or those up to its
+    last row, in chunks of `dq_chunk` (batch, head) pairs, whole groups of
+    a KV head's heads, each chunk's items in order of their K/V tiles, most
+    first.  Returns the plan."""
     G = H // KH
     for clusters in (None, tuple((c, n_sm // (2 * c) + 1) for c in range(1, G + 1)
                                  if G % c == 0)):
-        plan = fa.backward_plan(B, H, KH, Sq, Sk, D, n_sm, clusters, causal)
-        assert plan.group == G and plan.heads * plan.cluster == G
+        plan = fa.backward_plan(B, H, KH, Sq, Sk, D, n_sm, clusters, causal, Dv)
+        keys = 128 if plan.persistent and -(-D // 16) * 16 <= 64 else 64
+        assert plan.group == G and plan.heads * plan.cluster == G and plan.keys == keys
         assert plan.scratch_rows % 64 == 0 and Sq <= plan.scratch_rows < Sq + 64
         blocks = plan.dkdv_blocks()
-        n_kb = -(-Sk // 64)
-        assert plan.dkdv_grid == (H // plan.heads, B, n_kb) and len(blocks) == math.prod(
-            plan.dkdv_grid)
+        n_kb = -(-Sk // keys)
+        assert len(blocks) == plan.dkdv_items == n_kb * B * H // plan.heads
         covered = [(b, h, kb) for b, heads, kb, _ in blocks for h in heads]
         assert sorted(covered) == [(b, h, kb) for b in range(B) for h in range(H)
                                    for kb in range(n_kb)]
         for _, heads, kb, steps in blocks:
-            walked = range(kb * 64, Sq, 64) if causal else range(0, Sq, 64)
+            walked = range(kb * keys, Sq, 64) if causal else range(0, Sq, 64)
             assert steps == len(heads) * len(walked)
-        assert all(x[3] >= y[3] for x, y in zip(blocks, blocks[1:]))
-        for i in range(0, len(blocks), plan.cluster):  # x fastest: a run is one cluster
-            run = blocks[i:i + plan.cluster]
-            assert len({(b, kb) for b, _, kb, _ in run}) == 1
-            assert sorted(h for _, heads, _, _ in run for h in heads) == list(
-                range(run[0][1][0] // G * G, run[0][1][0] // G * G + G))
+        if plan.persistent:
+            assert plan.heads == G and plan.dkdv_grid == (min(len(blocks), n_sm), 1, 1)
+            per = plan.chunk * n_kb
+            for i in range(0, len(blocks), per):
+                run = blocks[i:i + per]
+                assert all(x[3] >= y[3] for x, y in zip(run, run[1:]))
+                pairs = {(b, heads[0]) for b, heads, _, _ in run}
+                assert len(pairs) * n_kb == len(run) and len(pairs) <= plan.chunk
+        else:
+            assert plan.dkdv_grid == (H // plan.heads, B, n_kb) and len(blocks) == math.prod(
+                plan.dkdv_grid)
+            assert all(x[3] >= y[3] for x, y in zip(blocks, blocks[1:]))
+            for i in range(0, len(blocks), plan.cluster):  # x fastest: a run is one cluster
+                run = blocks[i:i + plan.cluster]
+                assert len({(b, kb) for b, _, kb, _ in run}) == 1
+                assert sorted(h for _, heads, _, _ in run for h in heads) == list(
+                    range(run[0][1][0] // G * G, run[0][1][0] // G * G + G))
     items = plan.dq_order()
     n_qb = -(-Sq // 128)
     assert len(items) == plan.dq_items == B * H * n_qb
@@ -174,7 +196,11 @@ def _check_plan(B, H, KH, Sq, Sk, D, n_sm, causal):
     for b, h, q0, tiles in items:
         last = min(q0 + 128, Sq)  # K/V tiles up to its last row, under the mask
         assert tiles == (min(-(-last // 64), -(-Sk // 64)) if causal else -(-Sk // 64))
-    assert all(x[3] >= y[3] for x, y in zip(items, items[1:]))
+    assert plan.dq_chunk % G == 0 or plan.dq_chunk == B * H
+    per = plan.dq_chunk * n_qb
+    for i in range(0, len(items), per):
+        run = items[i:i + per]
+        assert all(x[3] >= y[3] for x, y in zip(run, run[1:]))
     assert plan.dq_grid == min(n_sm, len(items))
     return plan
 
@@ -184,7 +210,10 @@ def _check_plan(B, H, KH, Sq, Sk, D, n_sm, causal):
                                              (4, 8, 2, 128, 64, 132),     # train_small
                                              (2, 16, 2, 1000, 80, 132),   # G = 8, ragged S
                                              (1, 7, 1, 70, 40, 16),       # G = 7, few SMs
-                                             (3, 5, 1, 1, 32, 132)])      # one token
+                                             (3, 5, 1, 1, 32, 132),       # one token
+                                             (4, 16, 16, 256, 64, 132),   # seamless's decoder
+                                             (2, 4, 4, 200, 48, 16),      # 128 keys, ragged
+                                             (3, 6, 6, 130, 64, 8)])      # a walk of many items
 def test_flash_backward_plan_covers_each_block_once_longest_first(B, H, KH, S, D, n_sm):
     """Causal, Sq == Sk: each key tile walks the causal half from its first
     key (`_check_plan`)."""
@@ -198,12 +227,16 @@ def test_flash_backward_plan_covers_each_block_once_longest_first(B, H, KH, S, D
     (1, 6, 3, 1000, 70, 40, 16, False),       # Sq > Sk, few SMs
     (2, 16, 4, 300, 1000, 128, 132, True),    # causal Sq < Sk: key tiles past Sq walk nothing
     (2, 16, 4, 1000, 300, 64, 132, True),     # causal Sq > Sk
-    (3, 6, 1, 1, 70, 32, 132, False)])        # one query over every key
+    (3, 6, 1, 1, 70, 32, 132, False),         # one query over every key
+    (1, 4, 4, 100, 70, 64, 132, False),       # the last item's second 64 keys past Sk but 6
+    (2, 4, 4, 70, 130, 64, 132, True),        # causal Sq < Sk: item 1 (keys 128, 129) idle
+    (4, 64, 64, 1024, 1024, 192, 132, True)])  # MLA's widths: chunks of 38 of 256 pairs
 def test_flash_backward_plan_covers_the_walks_of_any_lengths(B, H, KH, Sq, Sk, D, n_sm,
                                                              causal):
-    plan = _check_plan(B, H, KH, Sq, Sk, D, n_sm, causal)
+    plan = _check_plan(B, H, KH, Sq, Sk, D, n_sm, causal, 128 if D == 192 else None)
     idle = [kb for _, _, kb, steps in plan.dkdv_blocks() if steps == 0]
-    assert sorted(set(idle)) == (list(range(-(-Sq // 64), -(-Sk // 64))) if causal else [])
+    keys = plan.keys
+    assert sorted(set(idle)) == (list(range(-(-Sq // keys), -(-Sk // keys))) if causal else [])
 
 
 @pytest.mark.parametrize("B,H,KH,S,clusters,heads", [
@@ -267,6 +300,57 @@ def test_flash_backward_plan_past_eight_heads_a_kv_head(G, clusters, heads):
     blocks = plan.dkdv_blocks()
     assert all(len(h) == heads for _, h, _, _ in blocks)
     assert blocks[0][3] == heads * 16 == max(b[3] for b in blocks)
+
+
+@pytest.mark.parametrize("D,Dv,persistent,keys,stages,bufs,smem", [
+    (64, 64, True, 128, 4, 2, 167040),   # seamless-m4t-large-v2: 128-key items
+    (16, 16, True, 128, 4, 2, 167040),   # one zero-filled panel each, as at 64
+    (48, 48, True, 128, 4, 2, 167040),
+    (80, 80, True, 64, 3, 1, 215640),    # two panels: the split chain, as at 128
+    (128, 128, True, 64, 3, 1, 215640),  # the staged outputs leave one K/V buffer
+    (192, 128, True, 64, 2, 1, 215104),  # MLA: the staged outputs leave two stages
+    (192, 192, False, 64, 2, 1, 215104),  # no persistent layout: the clustered one
+    (64, 64, False, 64, 4, 2, 167040),   # clustered: train_small
+    (128, 128, False, 64, 3, 2, 215656),  # qwen2-1.5b
+    (192, 128, False, 64, 3, 1, 232024)])
+def test_flash_backward_smem_holds_the_items_and_the_ring(D, Dv, persistent, keys, stages,
+                                                          bufs, smem):
+    """The dK/dV kernel's shared memory as the source lays it out
+    (`BwdSmem`), for the persistent walk (G = 1; with the dV and dK tiles
+    staged for its TMA stores) or the clustered one (G = 4): two K/V
+    buffers where three ring stages still fit beside them, the most stages
+    that fit up to four, within what a block may have; one stage more, or
+    a second buffer where there is one, would not fit.  (192, 192) has no
+    persistent layout (its staged outputs leave room for one stage)."""
+    assert fa.bwd_keys(D, persistent) == keys and fa.bwd_keys(D, False) == 64
+    assert fa.persists(D, Dv) == ((D, Dv) != (192, 192))
+    assert fa.backward_smem(D, Dv, keys, persistent) == (stages, bufs, smem)
+    assert smem <= fa.SMEM_LIMIT
+    plan = fa.backward_plan(2, 4 * (2 - persistent), 4, 256, 256, D, 132, None, False, Dv)
+    assert plan.persistent == persistent
+    assert (plan.keys, plan.stages, plan.kv_bufs, plan.smem) == (keys, stages, bufs, smem)
+    p, vp = -(-plan.as_tuple()[0] // 64), -(-plan.as_tuple()[1] // 64)  # 64-column panels
+    stage = (p + vp) * fa.PANEL_BYTES + (0 if keys == 128 else 64 * 64 * 4) + 2 * 64 * 4
+    assert stages == 4 or smem + stage + 24 > fa.SMEM_LIMIT
+    assert bufs == 2 or smem + (p + vp) * keys * 128 > fa.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv,chunk,dq_chunk", [
+    (4, 128, 128, 1024, 1024, 192, 128, 38, 38),  # deepseek-v3's MLA: 640 KB a pair
+    (4, 16, 16, 1024, 1024, 64, 64, 64, 64),      # seamless's encoder: one chunk
+    (8, 32, 4, 2048, 2048, 128, 128, 3, 192),     # G = 8: 8 MB of Q and dO a KV head
+    (1, 64, 1, 16384, 16384, 128, 128, 1, 64)])   # one pair past 24 MB: chunks of one
+def test_flash_backward_plan_walks_in_l2_chunks(B, H, KH, Sq, Sk, D, Dv, chunk, dq_chunk):
+    """The persistent dK/dV walk takes (batch, KV head) pairs in chunks
+    whose G heads' Q and dO fit `CHUNK_BYTES` (half the L2), so a wave of
+    items reads its pairs' Q and dO from L2; dQ's walk takes whole groups
+    of a KV head's heads whose K and V fit it, as the forward's does."""
+    plan = fa.backward_plan(B, H, KH, Sq, Sk, D, 132, None, True, Dv)
+    assert (plan.chunk, plan.dq_chunk) == (chunk, dq_chunk)
+    G, qdo, kv = H // KH, H // KH * Sq * (D + Dv) * 2, Sk * (D + Dv) * 2
+    assert chunk == B * KH or chunk == 1 or chunk * qdo <= fa.CHUNK_BYTES < (chunk + 1) * qdo
+    assert dq_chunk == B * H or (dq_chunk % G == 0 and (
+        dq_chunk == G or dq_chunk // G * kv <= fa.CHUNK_BYTES < (dq_chunk // G + 1) * kv))
 
 
 def test_grad_v_width_is_an_instance_of_the_source():
@@ -388,7 +472,9 @@ def _flash_fault(q, k, v, dout, fault: str, causal: bool = True, tail=None):
     64-key tile, its rows past Sk unmasked and holding `tail` ((k rows, v
     rows): what a load not clipped at Sk would read from a longer buffer,
     or TMA's zeros), while dK and dV are stored for keys below Sk only, so
-    only dQ sees them."""
+    only dQ sees them; "wide_offset" (causal) masks the second 64 keys of
+    each 128-key dK/dV item at the first warpgroup's offset, keeping for
+    key j the queries from j - 64 on."""
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     G = H // KH
@@ -403,7 +489,12 @@ def _flash_fault(q, k, v, dout, fault: str, causal: bool = True, tail=None):
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
     p = torch.exp(s - lse)
     if causal:
-        p = torch.where(torch.ones(Sq, Sk, dtype=torch.bool).tril(), p, torch.zeros_like(p))
+        keep = torch.ones(Sq, Sk, dtype=torch.bool).tril()
+        if fault == "wide_offset":
+            j = torch.arange(Sk)
+            lo = j - 64 * ((j % 128) >= 64)  # the first query each key keeps
+            keep = torch.arange(Sq)[:, None] >= lo[None, :]
+        p = torch.where(keep, p, torch.zeros_like(p))
     ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dof, vf) - delta)
     dq = (torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale).reshape(B, H, Sq, D)
     if fault == "causal_half":
@@ -474,6 +565,22 @@ def test_card_bound_rejects_a_planted_fault_at_mla_widths(fault):
         dv = torch.roll(dv, 1, dims=2)
     gaps = [grad_gap(a, b) for a, b in zip((dq, dk, dv), want)]
     assert max(gaps) > 2 * GRAD_TOL, gaps
+
+
+def test_card_bound_rejects_the_second_warpgroups_keys_masked_at_the_wrong_offset():
+    """seamless-m4t-large-v2's decoder at B = 1, (1, 256, 16/16, 64),
+    causal: a 128-key dK/dV item whose second warpgroup masks its 64 keys
+    as if they were the first's (each key keeping the 64 queries before it
+    too) misses the bound; the sound walk lies within 1e-5 of the f32
+    plain backward."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v, dout = (_bf16_randn(g, 1, 16, 256, 64) for _ in range(4))
+    want = flash_grads_f32(q, k, v, dout)
+    got = _flash_fault(q, k, v, dout, "wide_offset")
+    gaps = [grad_gap(a, b) for a, b in zip(got, want)]
+    assert max(gaps) > 2 * GRAD_TOL, gaps
+    sound = _flash_fault(q, k, v, dout, "none")
+    assert max(grad_gap(a, b) for a, b in zip(sound, want)) <= 1e-5
 
 
 def test_card_bound_rejects_a_noncausal_backward_that_walks_the_causal_half():
